@@ -10,5 +10,5 @@ tested against.
 
 __version__ = "0.1.0"
 
-from . import constants  # noqa: F401
+from . import constants, engines  # noqa: F401
 from .grid import GridSpec, PERIODIC, DIRICHLET_DIRICHLET, DIRICHLET_NEUMANN  # noqa: F401

@@ -2,10 +2,10 @@
 //
 // Three kernels, each the counterpart of a Pallas TPU kernel in
 // pypic_tpu/ops/pallas_cic.py. They compute what the TPU kernels compute
-// with plain CIC index arithmetic (pypic_tpu/ops/cic.py
-// cic_indices_weights): idx_l = clip(floor(p), 0, num_cells - 1),
-// w_r = p - idx_l, w_l = 1 - w_r, and the right node wraps to 0 on a
-// periodic grid. The TPU kernels' tent windows, one-hot selectors and
+// with plain CIC index arithmetic (cic_common.cuh, after
+// pypic_tpu/ops/cic.py cic_indices_weights): idx_l = clip(floor(p), 0,
+// num_cells - 1), w_r = p - idx_l, w_l = 1 - w_r, and the right node wraps
+// to 0 on a periodic grid. The TPU kernels' tent windows, one-hot selectors and
 // MXU contractions exist only for Mosaic and VMEM and are not carried
 // over.
 //
@@ -28,48 +28,9 @@
 // * A launcher returns cudaGetLastError(); it allocates nothing and runs
 //   on the stream it is given.
 
-#include <cuda_runtime.h>
+#include "cic_common.cuh"
 
 namespace {
-
-struct Cic {
-  int l, r;
-  float wl, wr;
-};
-
-// Periodic CIC: num_cells == ng, node ng wraps to 0. A position at exactly
-// ng (a wrap of a tiny negative value rounds there) lands with w_r = 1 on
-// node 0.
-__device__ __forceinline__ Cic cic_periodic(float p, int ng) {
-  int l = (int)floorf(p);
-  l = min(max(l, 0), ng - 1);
-  Cic c;
-  c.l = l;
-  c.r = (l + 1 >= ng) ? 0 : l + 1;
-  c.wr = __fsub_rn(p, (float)l);
-  c.wl = __fsub_rn(1.0f, c.wr);
-  return c;
-}
-
-// Bounded CIC: num_cells == ng - 1, node ng - 1 is the last wall node.
-__device__ __forceinline__ Cic cic_bounded(float p, int ng) {
-  int l = (int)floorf(p);
-  l = min(max(l, 0), ng - 2);
-  Cic c;
-  c.l = l;
-  c.r = l + 1;
-  c.wr = __fsub_rn(p, (float)l);
-  c.wl = __fsub_rn(1.0f, c.wr);
-  return c;
-}
-
-__device__ __forceinline__ float gather(const float* f, const Cic& c) {
-  return __fadd_rn(__fmul_rn(f[c.l], c.wl), __fmul_rn(f[c.r], c.wr));
-}
-
-__device__ __forceinline__ float wrap(float x, float ngf, float inv_ng) {
-  return __fsub_rn(x, __fmul_rn(floorf(__fmul_rn(x, inv_ng)), ngf));
-}
 
 // Crank-Nicolson push from the gathered field e (pypic.py:264-265):
 // p1 = p0 + dt/dx v0 + qm dt^2/(2 dx) e, v1 = v0 + qm dt e.
@@ -190,14 +151,6 @@ __global__ void deposit_kernel(const float* __restrict__ p,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&out[i], s_hist[i]);
-}
-
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 """Engine families. Ported so far:
 
+* explicit — periodic leapfrog cycle (PIC_L.py main / pypic explicit intent)
 * implicit — periodic CN-Picard energy-conserving engine (pypic.py)
 """
 
-from . import implicit  # noqa: F401
+from . import explicit, implicit  # noqa: F401

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import devices
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import cuda_cic
@@ -131,15 +132,15 @@ def init_state(x, v, q, m, cfg: ImplicitConfig,
     """Initial state incl. the initial Poisson solve for E0 and current j0
     (pypic.py:549-554).
 
-    ``x`` [m] and ``v`` [m/s] are numpy arrays or tensors; ``device``
-    defaults to x's device (CPU for numpy input). Positions are divided by
-    dx in x's own precision, then cast to ``dtype``.
+    ``x`` [m] and ``v`` [m/s] are numpy arrays or tensors. ``device``
+    defaults to x's device for a tensor and to the current CUDA device
+    otherwise; without a card, pass ``device='cpu'``. Positions are divided
+    by dx in x's own precision, then cast to ``dtype``.
     """
     _check_ported(cfg)
     grid = cfg.grid
     ng, dx = grid.ng, grid.dx
-    if device is None:
-        device = x.device if isinstance(x, torch.Tensor) else "cpu"
+    device = devices.resolve(device, like=x)
     p = (torch.as_tensor(x, device=device) / dx).to(dtype)
     v = torch.as_tensor(v, device=device).to(dtype)
     q = torch.as_tensor(q, dtype=dtype, device=device)

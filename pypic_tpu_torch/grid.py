@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from .devices import resolve
+
 PERIODIC = "periodic"
 DIRICHLET_DIRICHLET = "dirichlet-dirichlet"
 DIRICHLET_NEUMANN = "dirichlet-neumann"
@@ -63,8 +65,10 @@ class GridSpec:
     def dx(self) -> float:
         return self.length / self.num_cells
 
-    def nodes(self, device: torch.device | str = "cpu",
+    def nodes(self, device: torch.device | str | None = None,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Physical node positions [m] (ng,)."""
+        """Physical node positions [m] (ng,), on the current CUDA device
+        unless ``device`` says otherwise."""
+        device = resolve(device)
         return (torch.arange(self.ng, dtype=dtype, device=device)
                 * torch.tensor(self.dx, dtype=dtype, device=device))

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``pypic_tpu_torch/csrc/`` have a plain C interface. They
-are compiled with ``nvcc`` into one shared library for Hopper (``sm_90a``)
-and loaded with ``ctypes``: no PyTorch headers, no extension builder. The
+The sources under ``pypic_tpu_torch/csrc/`` have a plain C interface. Each
+``*.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all
+started together, and the objects are linked into one shared library,
+loaded with ``ctypes``: no PyTorch headers, no ``cpp_extension``. The
 library goes into ``pypic_tpu_torch/_build/`` (not committed) under a name
-keyed by a hash of the sources and flags, so an edited source rebuilds.
+keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and flags, so an
+edited source rebuilds.
 
 The build runs at the first launch of a CUDA kernel wrapper, never at
 import. A failed build raises with the compiler's output.
@@ -30,15 +32,16 @@ BUILD_DIR = _PKG / "_build"
 # shared memory per kernel in the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 
-# extern "C" launchers in csrc/cic.cu and their argument types.
+# extern "C" launchers in csrc/*.cu and their argument types.
 _SIGNATURES = {
     "pypic_picard_iteration": (
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _P],
@@ -46,6 +49,15 @@ _SIGNATURES = {
     "pypic_picard_finalize_nodep": (
         [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _P], _I),
     "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_leapfrog_deposit": (
+        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _P], _I),
+    "pypic_explicit_cycle": (
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _D, _I, _I, _P],
+        _I),
+    "pypic_explicit_resident": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+         _D, _D, _D, _D, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -86,24 +98,47 @@ def library_path() -> Path:
 
 
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into the keyed shared library unless it exists."""
+    """Compile csrc/*.cu into the keyed shared library unless it exists:
+    one nvcc per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, log)
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{logs[-1]}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
 
 
 def library() -> ctypes.CDLL:

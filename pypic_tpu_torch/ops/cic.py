@@ -2,9 +2,9 @@
 ``pypic_tpu/ops/cic.py``).
 
 The reference deposits with a sequential per-particle ``j[ind] += ...``
-loop (pypic.py:130-133). Here ``deposit`` goes through the CUDA deposit
-kernel on a CUDA tensor and through its plain ``index_add_`` version on a
-CPU tensor (the dispatch lives in ``ops/cuda_cic.py``). The GPU deposit
+loop (pypic.py:130-133). Here ``deposit`` and ``gather`` go through the
+CUDA kernels on a CUDA tensor and through their plain PyTorch versions on
+a CPU tensor (the dispatch lives in ``ops/cuda_cic.py``). The GPU deposit
 uses float atomics, so it is not bit-reproducible from run to run.
 
 All positions are grid coordinates p = x/dx (see pypic_tpu_torch.grid).
@@ -34,18 +34,21 @@ def cic_indices_weights(p: torch.Tensor, num_cells: int, periodic: bool):
 
 
 def gather(field: torch.Tensor, p: torch.Tensor, *, periodic: bool):
-    """Interpolate a node field to particle positions (CIC).
+    """Interpolate a node field to particle positions (CIC): the CUDA
+    gather kernel on a CUDA tensor, its plain version on the CPU
+    (``cuda_cic.gather``).
 
-    Plain PyTorch on the CPU. The CUDA gather kernel (the counterpart of
-    ``gather_pallas``) is not ported yet, so a CUDA tensor raises.
+    Args:
+        field: (ng,) float32 field values on nodes.
+        p: (n,) float32 positions in grid coordinates.
+        periodic: wrap the right neighbour node.
+
+    Returns:
+        (n,) interpolated values.
     """
-    if p.device.type != "cpu" or field.device.type != "cpu":
-        raise NotImplementedError(
-            "gather on CUDA needs the gather kernel (ROADMAP.md queue 2, "
-            "gather_pallas), which is not ported yet")
-    num_cells = field.shape[0] if periodic else field.shape[0] - 1
-    idx_l, idx_r, w_l, w_r = cic_indices_weights(p, num_cells, periodic)
-    return field[idx_l] * w_l + field[idx_r] * w_r
+    from . import cuda_cic
+
+    return cuda_cic.gather(field, p, periodic=periodic)
 
 
 def deposit(p: torch.Tensor, values: torch.Tensor, ng: int, *,

@@ -1,16 +1,25 @@
-"""CUDA kernels of the implicit CN-Picard path and their plain versions.
+"""CUDA particle kernels of the ported paths and their plain versions.
 
-The counterpart of the three ``pypic_tpu/ops/pallas_cic.py`` kernels the
-headline Landau step reaches:
+The counterparts of the ``pypic_tpu/ops/pallas_cic.py`` kernels the
+implicit headline step and the explicit engine reach:
 
 * ``picard_iteration``      — ``picard_iteration_pallas`` (one Picard pass:
   gather, CN push, wrapped midpoint, half-step current deposit);
 * ``picard_finalize_nodep`` — ``picard_finalize_nodep_pallas`` (the
   converged finalize sweep, no deposit);
 * ``deposit``               — ``deposit_pallas`` (CIC deposit, periodic or
-  bounded).
+  bounded);
+* ``gather``                — ``gather_pallas`` (CIC gather, periodic or
+  bounded);
+* ``leapfrog_gather_push_deposit`` — ``leapfrog_gather_push_deposit_pallas``
+  (gather, kick-drift-kick, wrap, rho deposit at the new positions);
+* ``explicit_cycle``        — ``explicit_cycle_pallas`` (the same sweep and
+  the rho -> E solve, in one launch);
+* ``explicit_cycle_resident`` — ``explicit_cycle_resident_pallas`` (S
+  explicit cycles per launch with per-step metric rows, n <= 32768).
 
-The kernels are in ``pypic_tpu_torch/csrc/cic.cu`` (built by ``_build``).
+The kernels are in ``pypic_tpu_torch/csrc/cic.cu`` and
+``csrc/explicit.cu`` (built by ``_build``).
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
@@ -22,7 +31,8 @@ build or launch raises; nothing falls back.
 it launches its kernel and nowhere else (the plain versions count nothing).
 
 Particles are flat (n,) tensors of grid coordinates. The TPU kernels'
-blocked layout, window geometry and SMEM scalar packing are not ported.
+blocked layout, window geometry, fold/selection matrices and SMEM scalar
+packing are not ported.
 """
 
 from __future__ import annotations
@@ -32,10 +42,13 @@ import functools
 import numpy as np
 import torch
 
+from ..constants import EPSILON_0
 from . import _build
 from .cic import cic_indices_weights
 
-LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0}
+LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
+            "gather": 0, "leapfrog_gather_push_deposit": 0,
+            "explicit_cycle": 0, "explicit_cycle_resident": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -70,15 +83,18 @@ def _check_1d(name: str, t: torch.Tensor, size: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_smem(ng: int, arrays: int, what: str) -> None:
+def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
+    """A block keeps ``arrays`` float32 arrays of ng nodes (and ``extra``
+    bytes) in shared memory."""
     if ng < 2:
         raise ValueError(f"ng must be >= 2, got {ng}")
-    if arrays * ng * 4 > SMEM_LIMIT:
+    need = arrays * ng * 4 + extra
+    if need > SMEM_LIMIT:
         raise ValueError(
-            f"{what}: ng={ng} needs {arrays * ng * 4} B of shared memory, "
+            f"{what}: ng={ng} needs {need} B of shared memory, "
             f"above the {SMEM_LIMIT} B a block may use (ng <= "
-            f"{SMEM_LIMIT // (4 * arrays)}); the large-ng variant is not "
-            "ported yet")
+            f"{(SMEM_LIMIT - extra) // (4 * arrays)}); the large-ng variant "
+            "is not ported yet")
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,8 +123,24 @@ def kernel_scalars(qm: float, dt: float, dx: float, w: float):
     return float(qm_dt), float(qm_dt2_half), float(f32(dt / dx)), float(f32(w))
 
 
+def leapfrog_scalars(qm: float, dt: float, dx: float, w: float):
+    """Scalars of the leapfrog kernels as the Pallas wrappers compute them
+    (pallas_cic.py:868-871, 1097-1100): ``0.5 * qm * dt`` in float32 from
+    the float32 q/m, ``dt / dx`` and ``w`` rounded to float32.
+    Returns (qm dt / 2, dt/dx, w), each a Python float holding a float32
+    value."""
+    f32 = np.float32
+    qmh = f32(0.5) * f32(qm) * f32(dt)
+    return float(qmh), float(f32(dt / dx)), float(f32(w))
+
+
 def _inv(ng: int) -> float:
     return float(np.float32(1.0 / ng))
+
+
+def _solve_coef(dx: float) -> float:
+    """dx / (2 eps0): the factor of the direct-form field solve."""
+    return dx / (2.0 * EPSILON_0)
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +148,10 @@ def _inv(ng: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _gather_periodic(field, p):
-    il, ir, wl, wr = cic_indices_weights(p, field.shape[0], True)
+def gather_plain(field, p, *, periodic: bool):
+    """CIC gather by advanced indexing (ops/cic.py ``gather``, 'take')."""
+    ng = field.shape[0]
+    il, ir, wl, wr = cic_indices_weights(p, ng if periodic else ng - 1, periodic)
     return field[il] * wl + field[ir] * wr
 
 
@@ -126,7 +160,7 @@ def _wrap(x, ng: int):
 
 
 def _cn_push(field, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx):
-    e_p = _gather_periodic(field, ps)
+    e_p = gather_plain(field, ps, periodic=True)
     p1 = p0 + dt_dx * v0 + qm_dt2_half * e_p
     v1 = v0 + qm_dt * e_p
     return p1, v1
@@ -157,6 +191,60 @@ def picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
     p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
     return _wrap(p1, ng), v1
+
+
+def _leapfrog(field, p, v, qmh: float, dt_dx: float, ng: int):
+    """Kick-drift-kick and the periodic wrap, in the kernels' operation
+    order (pallas_cic.py:834-846)."""
+    kick = qmh * gather_plain(field, p, periodic=True)
+    vh = v + kick
+    return _wrap(p + vh * dt_dx, ng), vh + kick
+
+
+def field_from_rho_plain(rho, dx: float):
+    """The periodic field of rho in the direct form the explicit kernels
+    use: the neutralized Poisson solve and the centered gradient of
+    ``ops/poisson.py`` + ``ops/fd.py`` as one O(ng) prefix sum, in float64,
+    rounded to rho's dtype once. With T = cumsum(rho - mean(rho)) and
+    d = T - mean(T), e_i = dx / (2 eps0) (d_i + d_{i-1}), d_{-1} = d_{ng-1}.
+    """
+    r = rho.double()
+    t = torch.cumsum(r - r.mean(), 0)
+    d = t - t.mean()
+    return (_solve_coef(dx) * (d + torch.roll(d, 1))).to(rho.dtype)
+
+
+def leapfrog_gather_push_deposit_plain(field, p, v, *, qm, w, dt: float,
+                                       dx: float):
+    ng = field.shape[0]
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    p1, v1 = _leapfrog(field, p, v, qmh, dt_dx, ng)
+    return p1, v1, deposit_plain(p1, torch.full_like(p1, wf), ng, periodic=True)
+
+
+def explicit_cycle_plain(e_field, p, v, ng: int, *, qm, w, dt: float,
+                         dx: float):
+    p1, v1, rho1 = leapfrog_gather_push_deposit_plain(e_field, p, v, qm=qm,
+                                                      w=w, dt=dt, dx=dx)
+    return p1, v1, rho1, field_from_rho_plain(rho1, dx)
+
+
+def explicit_cycle_resident_plain(e_field, p, v, ng: int, steps: int, *, qm,
+                                  w, ke_c: float, jb_c: float, dt: float,
+                                  dx: float, fe_c: float):
+    """``steps`` plain explicit cycles with the pre-push metric rows
+    fe = fe_c sum(e^2), ke = ke_c sum(v^2), jb = jb_c sum(v), written as
+    the explicit engine's step writes them."""
+    fe, ke, jb = [], [], []
+    rho = None
+    for _ in range(steps):
+        fe.append(fe_c * torch.sum(e_field * e_field))
+        ke.append(ke_c * torch.dot(v, v))
+        jb.append(jb_c * torch.sum(v))
+        p, v, rho, e_field = explicit_cycle_plain(e_field, p, v, ng, qm=qm,
+                                                  w=w, dt=dt, dx=dx)
+    return (p, v, rho, e_field, torch.stack(fe), torch.stack(ke),
+            torch.stack(jb))
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +335,140 @@ def deposit(p, values, ng: int, *, periodic: bool):
     _build.check(err, "deposit")
     LAUNCHES["deposit"] += 1
     return out
+
+
+def gather(field, p, *, periodic: bool):
+    """CIC gather of the (ng,) node field at grid positions p: (n,)."""
+    kind = _device_kind((field, p))
+    ng = field.shape[0] if field.dim() == 1 else -1
+    _check_1d("field", field, ng)
+    _check_1d("p", p, p.shape[0] if p.dim() == 1 else -1)
+    _check_smem(ng, 1, "gather")
+    if kind == "cpu":
+        return gather_plain(field, p, periodic=periodic)
+    lib = _build.library()
+    n = p.shape[0]
+    dev = p.device
+    out = torch.empty_like(p)
+    with torch.cuda.device(dev):
+        err = lib.pypic_gather(field.data_ptr(), p.data_ptr(), out.data_ptr(),
+                               n, ng, int(periodic), _blocks(n, dev),
+                               _THREADS, _stream(dev))
+    _build.check(err, "gather")
+    LAUNCHES["gather"] += 1
+    return out
+
+
+def _check_leapfrog(field, p, v):
+    kind = _device_kind((field, p, v))
+    ng = field.shape[0] if field.dim() == 1 else -1
+    _check_1d("field", field, ng)
+    n = p.shape[0] if p.dim() == 1 else -1
+    _check_1d("p", p, n)
+    _check_1d("v", v, n)
+    return kind, n, ng
+
+
+def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
+    """One sweep of the explicit cycle: gather the field at p, leapfrog,
+    wrap, and deposit the charge density of the NEW positions. Returns
+    (p1, v1, rho1). ``qm`` and ``w`` are the float32 scalars q/m and
+    q p2c / dx."""
+    kind, n, ng = _check_leapfrog(field, p, v)
+    _check_smem(ng, 2, "leapfrog_gather_push_deposit")
+    if kind == "cpu":
+        return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
+                                                  dt=dt, dx=dx)
+    lib = _build.library()
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    dev = p.device
+    p1 = torch.empty_like(p)
+    v1 = torch.empty_like(v)
+    rho = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_leapfrog_deposit(
+            field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
+            v1.data_ptr(), rho.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng),
+            _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "leapfrog_gather_push_deposit")
+    LAUNCHES["leapfrog_gather_push_deposit"] += 1
+    return p1, v1, rho
+
+
+# shared memory of explicit_cycle beside its two float arrays: ng + 32
+# float64 (the solve's scan and reduction scratch) = 2 ng floats + 256 B
+_CYCLE_ARRAYS, _CYCLE_EXTRA = 4, 256
+
+
+def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
+    """The whole explicit cycle in one launch: the leapfrog sweep and the
+    solve of the deposited rho for the next step's field. Returns
+    (p1, v1, rho1, e1)."""
+    kind, n, _ = _check_leapfrog(e_field, p, v)
+    _check_1d("e_field", e_field, ng)
+    _check_smem(ng, _CYCLE_ARRAYS, "explicit_cycle", _CYCLE_EXTRA)
+    if kind == "cpu":
+        return explicit_cycle_plain(e_field, p, v, ng, qm=qm, w=w, dt=dt,
+                                    dx=dx)
+    lib = _build.library()
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    dev = p.device
+    p1 = torch.empty_like(p)
+    v1 = torch.empty_like(v)
+    # rho and, after it, the epilogue's block counter: one zeroed buffer
+    buf = torch.zeros((ng + 1,), dtype=torch.float32, device=dev)
+    e1 = torch.empty((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_explicit_cycle(
+            e_field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
+            v1.data_ptr(), buf.data_ptr(), e1.data_ptr(), n, ng, qmh, dt_dx,
+            wf, _inv(ng), _solve_coef(dx), _blocks(n, dev), _THREADS,
+            _stream(dev))
+    _build.check(err, "explicit_cycle")
+    LAUNCHES["explicit_cycle"] += 1
+    return p1, v1, buf[:ng], e1
+
+
+RESIDENT_MAX_N = 32768  # one cluster of 8 blocks x 1024 threads x 4 particles
+# shared memory of the resident kernel: e, rho and two histograms (4 ng
+# floats), ng + 36 float64 of solve and reduction scratch
+_RESIDENT_ARRAYS, _RESIDENT_EXTRA = 6, 36 * 8
+
+
+def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
+                            ke_c: float, jb_c: float, dt: float, dx: float,
+                            fe_c: float):
+    """``steps`` explicit cycles in one launch with the population held on
+    chip (n <= 32768). Returns (p1, v1, rho1, e1, fe, ke, jb), the last
+    three (steps,) rows of the pre-push field energy fe_c sum(e^2), kinetic
+    energy ke_c sum(v^2) and current bias jb_c sum(v)."""
+    kind, n, _ = _check_leapfrog(e_field, p, v)
+    _check_1d("e_field", e_field, ng)
+    if n > RESIDENT_MAX_N:
+        raise ValueError(
+            f"resident cycle requires n <= {RESIDENT_MAX_N} (got {n})")
+    if int(steps) < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check_smem(ng, _RESIDENT_ARRAYS, "explicit_cycle_resident",
+                _RESIDENT_EXTRA)
+    if kind == "cpu":
+        return explicit_cycle_resident_plain(
+            e_field, p, v, ng, int(steps), qm=qm, w=w, ke_c=ke_c, jb_c=jb_c,
+            dt=dt, dx=dx, fe_c=fe_c)
+    lib = _build.library()
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    dev = p.device
+    p1 = torch.empty_like(p)
+    v1 = torch.empty_like(v)
+    fields = torch.empty((2, ng), dtype=torch.float32, device=dev)
+    rows = torch.empty((3, int(steps)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_explicit_resident(
+            e_field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
+            v1.data_ptr(), fields[0].data_ptr(), fields[1].data_ptr(),
+            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(), n, ng,
+            int(steps), qmh, dt_dx, wf, _inv(ng), _solve_coef(dx),
+            float(fe_c), float(ke_c), float(jb_c), _stream(dev))
+    _build.check(err, "explicit_cycle_resident")
+    LAUNCHES["explicit_cycle_resident"] += 1
+    return p1, v1, fields[0], fields[1], rows[0], rows[1], rows[2]

@@ -8,13 +8,16 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
+        [--cell landau|two-stream]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
 step 0 and the sustained ms/step. ``profile`` times untraced repeats,
 then traces steps with ``torch.profiler`` and reports device time per
 step by kernel, the device's idle share and the host syncs per step; it
-writes the chrome trace and the profiler's table under ``--out``. Each
+writes the chrome trace and the profiler's table under ``--out``.
+``--cell two-stream`` profiles the explicit engine on bench.py's
+two-stream cell (``tools/two_stream.py``) at the same n instead. Each
 ends with one JSON line of its results.
 """
 
@@ -122,7 +125,14 @@ def profile(args) -> dict:
     from torch.profiler import profile as torch_profile
 
     dev = torch.device("cuda", 0)
-    _, step, state = headline_state(args.n, dev, args.seed)
+    if args.cell == "two-stream":
+        from ..engines import explicit
+        from . import two_stream
+
+        cfg, _, state = two_stream.state(args.n, dev, seed=args.seed)
+        step = explicit.make_step(cfg)
+    else:
+        _, step, state = headline_state(args.n, dev, args.seed)
     state, _ = run(step, state, 2)  # warm-up
     untraced = []
     for _ in range(3):
@@ -168,7 +178,8 @@ def profile(args) -> dict:
           f"host syncs {syncs:.1f}/step, DtoH copies {dtoh:.1f}/step")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile] {ms:9.4f} ms/step  {count / args.steps:6.1f}/step  {name[:90]}")
-    res = dict(n=args.n, steps=args.steps, untraced_ms_per_step=untraced,
+    res = dict(cell=args.cell, n=args.n, steps=args.steps,
+               untraced_ms_per_step=untraced,
                traced_ms_per_step=traced, device_busy_ms_per_step=busy,
                idle_share_traced=1.0 - _busy_union(spans) / window,
                host_syncs_per_step=syncs, dtoh_per_step=dtoh)
@@ -186,6 +197,8 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
+    p.add_argument("--cell", choices=("landau", "two-stream"),
+                   default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)
         s.add_argument("--seed", type=int, default=1)

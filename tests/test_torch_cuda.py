@@ -6,16 +6,22 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Inputs and tolerances are those of tests/test_torch_kernels.py: n = 4097
-(ragged), edge positions 0, ng - 1e-4 and ng, positions 1e-4 cells,
-currents and deposits 2e-5 and velocities 1e-4 of the largest magnitude.
+Inputs and tolerances are those of tests/test_torch_kernels.py and
+tests/test_torch_explicit.py: n = 4097 (ragged), edge positions 0,
+ng - 1e-4 and ng, positions 1e-4 cells, currents, deposits and gathers
+2e-5 and velocities 1e-4 of the largest magnitude. The explicit cycle's
+field is also held against a float64 FFT solve of its own rho (1e-6: one
+float32 rounding of a float64 solve), and the resident kernel against
+launches of the per-step cycle and its plain version on a two-stream load.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pypic_tpu_torch.ops import cuda_cic
+from pypic_tpu_torch.engines import explicit
+from pypic_tpu_torch.ops import cuda_cic, fd, poisson
+from pypic_tpu_torch.tools import two_stream
 
 N = 4097
 QM, W, DT, DX = -1.7e11, -3.2e-9, 1e-7, 0.05
@@ -42,9 +48,9 @@ def _inputs(ng, dev, seed=7):
     return [torch.from_numpy(a).to(dev) for a in (e, ps, p0, v0)]
 
 
-def _pos_close(a, b, ng):
+def _pos_close(a, b, ng, tol=1e-4):
     d = (a.double() - b.double()).abs().cpu().numpy()
-    assert np.minimum(d, ng - d).max() < 1e-4
+    assert np.minimum(d, ng - d).max() < tol
 
 
 def _rel_close(ref, got, rel):
@@ -102,3 +108,89 @@ def test_large_shared_memory_grid(cuda_device):
     ref = cuda_cic.picard_iteration_plain(e, ps, p0, v0, ng, qm=QM, w=W, dt=DT, dx=DX)
     _pos_close(ref[0], got[0], ng)
     _rel_close(ref[-1], got[-1], 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "bounded"])
+@pytest.mark.parametrize("ng", [64, 129, 200])
+def test_gather_kernel_matches_plain(cuda_device, ng, periodic):
+    e, ps, _, _ = _inputs(ng, cuda_device, seed=13)
+    pos = ps if periodic else ps * ((ng - 1) / ng)
+    before = cuda_cic.LAUNCHES["gather"]
+    got = cuda_cic.gather(e, pos, periodic=periodic)
+    assert cuda_cic.LAUNCHES["gather"] == before + 1
+    _rel_close(cuda_cic.gather_plain(e, pos, periodic=periodic), got, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [64, 200, 4096])
+def test_leapfrog_deposit_kernel_matches_plain(cuda_device, ng):
+    e, _, p0, v0 = _inputs(ng, cuda_device, seed=17)
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    got = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **kw)
+    ref = cuda_cic.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)
+    _pos_close(ref[0], got[0], ng)
+    assert bool(((got[0] >= 0) & (got[0] <= ng)).all())
+    _rel_close(ref[1], got[1], 1e-4)
+    _rel_close(ref[2], got[2], 2e-5)
+
+
+def _field64(rho, dx):
+    r = rho.double().cpu()
+    return -fd.grad_periodic(poisson.solve_periodic_neutralized(r, dx), dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, N])
+@pytest.mark.parametrize("ng", [64, 200, 1024])
+def test_explicit_cycle_kernel_matches_plain(cuda_device, ng, n):
+    e, _, p0, v0 = _inputs(ng, cuda_device, seed=19)
+    p0, v0 = p0[:n].contiguous(), v0[:n].contiguous()
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    for _ in range(2):  # a second launch starts from a fresh block counter
+        got = cuda_cic.explicit_cycle(e, p0, v0, ng, **kw)
+    ref = cuda_cic.explicit_cycle_plain(e, p0, v0, ng, **kw)
+    _pos_close(ref[0], got[0], ng)
+    _rel_close(ref[1], got[1], 1e-4)
+    _rel_close(ref[2], got[2], 2e-5)
+    _rel_close(ref[3], got[3], 2e-5)
+    _rel_close(_field64(got[2], DX), got[3], 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 10_000, 32768])
+def test_explicit_resident_kernel_matches_cycle_and_plain(cuda_device, n):
+    """37 steps in chunks of 16, 16 and 5 against 37 launches of the
+    one-kernel cycle and against the plain resident version. Over 37 steps
+    the deposits' summation order moves positions by a few float32 ulps
+    (a 1e-7 change of the field moves them by 9e-5 cells on the CPU; the
+    H100 reads 1.1e-4 cells against the plain version at n = 32768), so
+    positions are held at the engine tests' 2e-3 cells, not the 1e-4 of
+    one launch. chip_smoke.py holds the kernel at the same limits."""
+    ng, steps = 200, 37
+    cfg, _, st0 = two_stream.state(n, cuda_device, ng=ng)
+    kw = explicit.resident_kwargs(st0, cfg)
+    consts = {k: kw[k] for k in ("qm", "w", "dt", "dx")}
+    e, p, v = st0.e, st0.p, st0.v
+    st = (p, v, None, e)
+    out = {"fe": [], "ke": [], "jb": []}
+    before = cuda_cic.LAUNCHES["explicit_cycle_resident"]
+    for chunk in (16, 16, 5):
+        *st, fe, ke, jb = cuda_cic.explicit_cycle_resident(
+            st[3], st[0], st[1], ng, chunk, **kw)
+        for k, r in zip(("fe", "ke", "jb"), (fe, ke, jb)):
+            out[k].append(r)
+    assert cuda_cic.LAUNCHES["explicit_cycle_resident"] == before + 3
+    cyc = (p, v, None, e)
+    for _ in range(steps):
+        cyc = cuda_cic.explicit_cycle(cyc[3], cyc[0], cyc[1], ng, **consts)
+    plain = cuda_cic.explicit_cycle_resident_plain(e, p, v, ng, steps, **kw)
+    for ref in (cyc, plain[:4]):
+        _pos_close(ref[0], st[0], ng, 2e-3)
+        _rel_close(ref[1], st[1], 1e-4)
+        _rel_close(ref[2], st[2], 2e-5)
+        _rel_close(ref[3], st[3], 1e-4)
+    for k, ref in zip(("fe", "ke", "jb"), plain[4:]):
+        got = torch.cat(out[k])
+        assert got.shape == (steps,)
+        _rel_close(ref, got, 1e-5 if k != "fe" else 1e-4)

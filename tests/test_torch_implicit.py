@@ -212,7 +212,7 @@ def test_deferred_options_raise(opt):
         implicit.make_step(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         implicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
-                            -E_CHARGE, M_ELECTRON, cfg)
+                            -E_CHARGE, M_ELECTRON, cfg, device="cpu")
 
 
 def test_step_reads_qm_on_the_host_once():
@@ -221,14 +221,15 @@ def test_step_reads_qm_on_the_host_once():
     it."""
     cfg = implicit.ImplicitConfig(GridSpec(16, 1.0), 1e-9, 1.0)
     st = implicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
-                             -E_CHARGE, M_ELECTRON, cfg)
+                             -E_CHARGE, M_ELECTRON, cfg, device="cpu")
     assert st.qm_host == (st.q.item(), st.m.item())
     st1, _ = implicit.make_step(cfg)(st)
     assert st1.qm_host is st.qm_host
     heavier = st1.replace(m=st1.m * 2.0)
     assert heavier.qm_host == (st.q.item(), (st.m * 2.0).item())
     per_particle = implicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
-                                       np.full(8, -E_CHARGE), M_ELECTRON, cfg)
+                                       np.full(8, -E_CHARGE), M_ELECTRON, cfg,
+                                       device="cpu")
     assert per_particle.qm_host is None
 
 
@@ -237,7 +238,7 @@ def test_per_particle_qm_needs_composed_backend():
     x = np.linspace(0.0, 0.9, 8)
     q = np.full(8, -E_CHARGE)
     cfg = implicit.ImplicitConfig(grid, 1e-9, 1.0)
-    st = implicit.init_state(x, np.zeros(8), q, M_ELECTRON, cfg)
+    st = implicit.init_state(x, np.zeros(8), q, M_ELECTRON, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="composed"):
         implicit.make_step(cfg)(st)
     fused = dataclasses.replace(cfg, backend="fused")
@@ -247,9 +248,11 @@ def test_per_particle_qm_needs_composed_backend():
 
 def test_import_leaves_jax_out():
     code = ("import sys, pypic_tpu_torch, pypic_tpu_torch.engines.implicit, "
+            "pypic_tpu_torch.engines.explicit, pypic_tpu_torch.push, "
             "pypic_tpu_torch.presets, pypic_tpu_torch.interop, "
             "pypic_tpu_torch.runner, pypic_tpu_torch.diagnostics, "
-            "pypic_tpu_torch.ops.cuda_cic; "
+            "pypic_tpu_torch.ops.cuda_cic, pypic_tpu_torch.tools.two_stream, "
+            "pypic_tpu_torch.tools.headline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pypic_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -148,10 +148,15 @@ def test_gather(periodic):
     _close(ref, got)
 
 
-def test_gather_off_cpu_raises_until_ported():
+def test_gather_dispatch_rejects_other_devices_and_dtypes():
+    """ops.cic.gather dispatches through cuda_cic.gather: the kernel on a
+    CUDA tensor, the plain version on the CPU, and an error otherwise."""
     f = torch.empty(8, device="meta")
-    with pytest.raises(NotImplementedError, match="gather"):
+    with pytest.raises(ValueError, match="unsupported device"):
         cic.gather(f, torch.empty(4, device="meta"), periodic=True)
+    with pytest.raises(TypeError, match="float32"):
+        cic.gather(torch.zeros(8, dtype=torch.float64),
+                   torch.zeros(4, dtype=torch.float64), periodic=True)
 
 
 def test_grid_spec_matches():
@@ -205,7 +210,7 @@ def test_fits_match():
 
 def test_presets_match_reference_defaults():
     for name in ("landau_damping", "two_stream"):
-        t = getattr(presets, name)(n=2000)
+        t = getattr(presets, name)(n=2000, device="cpu")
         from pypic_tpu import presets as jpresets
 
         j = getattr(jpresets, name)(n=2000)

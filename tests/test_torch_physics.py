@@ -1,7 +1,8 @@
-"""Physics acceptance tests of the port's implicit engine on the CPU (the
-plain kernel versions), with the thresholds of tests/test_engines.py:
-two-stream growth rate against the cold-beam dispersion relation, and
-total-energy conservation at a tight Picard tolerance.
+"""Physics acceptance tests of the port's engines on the CPU (the plain
+kernel versions), with the thresholds of tests/test_engines.py: two-stream
+growth rate against the cold-beam dispersion relation for the implicit and
+the explicit engine, and total-energy conservation at a tight Picard
+tolerance.
 """
 
 import numpy as np
@@ -11,7 +12,7 @@ import torch
 from pypic_tpu_torch import initialize as init
 from pypic_tpu_torch.constants import E_CHARGE, EPSILON_0, K_BOLTZMANN, M_ELECTRON
 from pypic_tpu_torch.diagnostics import growth_rate_from_energy
-from pypic_tpu_torch.engines import implicit
+from pypic_tpu_torch.engines import explicit, implicit
 from pypic_tpu_torch.grid import GridSpec
 from pypic_tpu_torch.runner import run
 
@@ -50,6 +51,21 @@ def test_two_stream_growth_implicit():
     assert 0.6 < ratio < 1.3, f"growth ratio {ratio}"
 
 
+def test_two_stream_growth_explicit():
+    """test_engines.py:71-79 for the port: the explicit engine (one-kernel
+    branch, ng = 64) grows the two-stream mode at the dispersion rate."""
+    grid, x, v, params = _two_stream_setup()
+    dt = 0.1 / params.wp
+    cfg = explicit.ExplicitConfig(grid, dt, params.p2c)
+    st = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+    _, m = run(explicit.make_step(cfg), st, 400)
+    ee = m.field_energy.double().numpy()
+    i1 = int(np.argmax(ee > 0.5 * ee.max()))
+    assert i1 - int(np.argmin(ee[:i1])) > 10, "growth window too small"
+    ratio = growth_rate_from_energy(ee, dt) / _two_stream_dispersion_gamma(params)
+    assert 0.6 < ratio < 1.3, f"growth ratio {ratio}"
+
+
 @pytest.mark.slow  # ~4 s on the CPU: 2000 steps of ~8 Picard passes
 def test_implicit_energy_conservation():
     """Total energy holds to < 5e-5 over 2000 steps at float32 and a tight
@@ -70,7 +86,7 @@ def test_conserving_config_holds_energy_short_run():
     total energy to 1e-4, with exactly 4 passes a step."""
     from pypic_tpu_torch import presets
 
-    pre = presets.landau_damping(n=4000)
+    pre = presets.landau_damping(n=4000, device="cpu")
     cfg = implicit.ImplicitConfig(
         pre.config.grid, pre.config.dt, pre.config.p2c, tol=1e-30, maxiter=4,
         picard_init="extrapolate", picard_accel="anderson")
