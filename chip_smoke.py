@@ -42,9 +42,30 @@ Phases (any failure raises and the script exits non-zero):
    steps at 2,000 a launch, its first 37 rows held against the plain
    version, beside 2,000 steps of the per-step path; then the two-stream
    growth rate (n = 20,000, ng = 64, 400 resident steps).
+10. implicit kernels — the converged-deposit finalize (p1, v1 bit-identical
+   to picard_finalize_nodep's, j1 against a float64 deposit) and the
+   shared-window pass (seeded at the free-streaming midpoint, no clamp, jh
+   against a float64 deposit at the midpoint; then forced to clamp, the
+   count equal to the plain one) at n = 10,000,003 and 6104 * 16384, timed
+   as in phase 3; the resident implicit kernel over 25 steps (chunks of 8)
+   in both configurations of tests/test_pallas.py:450-453 at n = 9001,
+   100,000 and 131,072 against 25 per-step steps and its plain version
+   (rows, Picard counts and the final p, v, e, e_prev and j), then timed at the configs[1] row's shape (n = 1e5, 64 steps).
+11. implicit check — 50 steps at n = 20,000 on the card and on the CPU:
+   the composed backend on a two-species load, finalize='converged-deposit'
+   and window_share='shared' (no deposit clamped) on a two-stream load.
+12. implicit slices — bench.py's Landau row (BASELINE configs[1],
+   tools/landau.py): 16,000 steps through run_resident in 250 launches,
+   its first 25 rows held against the per-step path, beside 500 steps of
+   the per-step path; the Landau damping rate (n = 400,000 per step, held
+   to 0.7-1.4; n = 131,072 resident, printed); then the headline cell with
+   finalize='converged-deposit', window_share='shared' and
+   backend='composed', 2 + 5 steps each, launch counts set to 0 before each
+   path and read after it.
 
-The line before the last is one JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.
+Each phase prints its wall seconds. The line before the last is one JSON
+object describing each kernel; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -107,6 +128,37 @@ EXPLICIT_ENERGY_BOUND = 1e-3
 RESIDENT_N, RESIDENT_STEPS, RESIDENT_SPC = 10_000, 40_000, 2000
 PER_STEP_STEPS = 2000
 
+# the implicit engine's resident kernel: 25 steps in chunks of 8 against 25
+# per-step steps and the plain version, in the two configurations of
+# tests/test_pallas.py:450-453, held to that test's criteria (fe rtol
+# 1e-4, ke 1e-5, positions 5e-3 cells, iterations equal but at a step whose
+# residual sat at tol, see iters_agree) and the final v, e, e_prev and j to
+# the card test's 1e-4 of the largest magnitude
+IMPLICIT_RESIDENT_NS = (9001, 100_000, 131_072)
+IMPLICIT_RESIDENT_STEPS, IMPLICIT_RESIDENT_SPC = 25, 8
+IMPLICIT_RESIDENT_CONFIGS = {
+    "field-none": dict(tol=1e-9, maxiter=50),
+    "extrapolate-anderson": dict(tol=1e-30, maxiter=4,
+                                 picard_init="extrapolate",
+                                 picard_accel="anderson"),
+}
+TOL_RESIDENT_IMPLICIT = {"fe": 1e-4, "ke": 1e-5, "p": 5e-3, "v": 1e-4,
+                         "e": 1e-4, "e_prev": 1e-4, "j": 1e-4}
+# the configs[1] row's per-step comparison and the per-step path beside it
+LANDAU_CHECK_STEPS = 25
+LANDAU_PER_STEP_STEPS = 500
+# the Landau damping rate (tests/test_engines.py:82-109): n = 400,000
+# through the per-step path, held to 0.7-1.4; the same physics at
+# n = 131,072 through run_resident, printed
+LANDAU_RATE_N, LANDAU_RATE_RESIDENT_N, LANDAU_RATE_STEPS = 400_000, 131_072, 160
+# implicit check: card against CPU over 50 steps at n = 20,000. Positions
+# and velocities at the multi-step limits of the explicit check; fields,
+# currents and energies at 1e-3, 10x the 3-step check's (summation order
+# compounds over 50 steps)
+IMPLICIT_CHECK_N, IMPLICIT_CHECK_STEPS = 20_000, 50
+TOL_IMPLICIT_CHECK = {"p (cells)": 2e-3, "v": 1e-4, "e": 1e-3, "j": 1e-3,
+                      "field_energy": 1e-3, "kinetic_energy": 1e-5}
+
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at its
 # full 700 W): HBM3 bytes/s and float32 operations/s outside the tensor
 # cores
@@ -117,15 +169,20 @@ PEAK_F32_PER_S = 67e12
 BYTES_PER_PARTICLE = {
     "picard_iteration": 16, "picard_finalize_nodep": 20, "deposit": 8,
     "gather": 8, "leapfrog_gather_push_deposit": 16, "explicit_cycle": 16,
-    "explicit_cycle_resident": 16,
+    "explicit_cycle_resident": 16, "picard_finalize": 20,
+    "picard_iteration_shared": 16, "implicit_resident": 16,
 }
 # float32 operations per particle and step, counted from the kernel bodies
-# (floor, add, sub and mul count one; each atomic add one)
+# (floor, rint, add, sub, mul and compare count one; each atomic add one).
+# implicit_resident: per Picard pass (the pass of picard_iteration); its
+# finalize sweep adds RESIDENT_FINAL_OPS a particle and step
 OPS_PER_PARTICLE = {
     "picard_iteration": 28, "picard_finalize_nodep": 16, "deposit": 7,
     "gather": 6, "leapfrog_gather_push_deposit": 22, "explicit_cycle": 22,
-    "explicit_cycle_resident": 25,
+    "explicit_cycle_resident": 25, "picard_finalize": 24,
+    "picard_iteration_shared": 40, "implicit_resident": 28,
 }
+RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
     "picard_iteration": "pypic_tpu/ops/pallas_cic.py:1649",
     "picard_finalize_nodep": "pypic_tpu/ops/pallas_cic.py:1802",
@@ -134,15 +191,24 @@ REPLACES = {
     "leapfrog_gather_push_deposit": "pypic_tpu/ops/pallas_cic.py:1167",
     "explicit_cycle": "pypic_tpu/ops/pallas_cic.py:1040",
     "explicit_cycle_resident": "pypic_tpu/ops/pallas_cic.py:1254",
+    "picard_finalize": "pypic_tpu/ops/pallas_cic.py:1772",
+    "picard_iteration_shared": "pypic_tpu/ops/pallas_cic.py:1693",
+    "implicit_resident": "pypic_tpu/ops/pallas_cic.py:1437",
 }
 
 
-def bound(name: str, n: int, steps: int = 1) -> tuple[float, str]:
+def bound(name: str, n: int, steps: int = 1,
+          passes: int | None = None) -> tuple[float, str]:
     """The least time in ms the card could take for one call on n
-    particles (``steps`` cycles for the resident kernel): the larger of the
-    bytes over the memory rate and the operations over the float32 rate."""
+    particles (``steps`` cycles for the resident kernels; for
+    implicit_resident, ``passes`` Picard passes in all, as its rows
+    report): the larger of the bytes over the memory rate and the
+    operations over the float32 rate."""
     by_bytes = BYTES_PER_PARTICLE[name] * n / PEAK_BYTES_PER_S * 1e3
-    by_ops = OPS_PER_PARTICLE[name] * n * steps / PEAK_F32_PER_S * 1e3
+    ops = OPS_PER_PARTICLE[name] * n * (steps if passes is None else passes)
+    if name == "implicit_resident":
+        ops += RESIDENT_FINAL_OPS * n * steps
+    by_ops = ops / PEAK_F32_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -159,10 +225,11 @@ def deposit_tol(n: int, ng: int = NG) -> float:
 
 
 def _rec(err: float, ms: float, plain_ms: float, name: str, n: int,
-         steps: int = 1) -> dict:
-    b, by = bound(name, n, steps)
+         steps: int = 1, passes: int | None = None) -> dict:
+    b, by = bound(name, n, steps, passes)
     log(f"[kernels]   {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b:.4f} ms ({by}) at n = {n}" + (f", {steps} steps" if steps > 1 else ""))
+        f"{b:.4f} ms ({by}) at n = {n}" + (f", {steps} steps" if steps > 1 else "")
+        + (f", {passes} Picard passes" if passes is not None else ""))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, n=n)
 
@@ -668,20 +735,23 @@ def phase_explicit_check(dev) -> None:
                                  f"disagree: {bad}")
 
 
-def _drive(label: str, build, warm: int, timed: int, want: dict) -> dict:
-    """Run one path of the explicit engine with the launch counts set to 0
-    just before it and read just after; check finite values in range and
-    the launches."""
+def _drive(label: str, build, warm: int, timed: int, want: dict,
+           engine=None, tag: str = "explicit slice", check=None) -> dict:
+    """Run one path of an engine (the explicit one by default) with the
+    launch counts set to 0 just before it and read just after; check finite
+    values in range, the launches and what ``check(state, metrics)``
+    reports (a list of problems)."""
     from pypic_tpu_torch.engines import explicit
     from pypic_tpu_torch.ops import cuda_cic
     from pypic_tpu_torch.runner import run
 
+    engine = engine or explicit
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_cic.reset_launch_counts()
     t0 = time.perf_counter()
     cfg, st = build()
-    step = explicit.make_step(cfg)
+    step = engine.make_step(cfg)
     st, wm = run(step, st, warm)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -701,21 +771,24 @@ def _drive(label: str, build, warm: int, timed: int, want: dict) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                total_energy_rel_change=float((tot[-1] - tot[0]) / tot[0]),
                launches=launches)
-    log(f"[explicit slice] {label}: n = {n}, ng = {ng}, {timed} timed steps "
+    log(f"[{tag}] {label}: n = {n}, ng = {ng}, {timed} timed steps "
         f"after init_state + {warm} warm-up: {res['ms_per_step']:.4f} ms/step, "
         f"{res['pushes_per_s']:.4e} pushes/s, setup {res['setup_s']:.2f} s, "
         f"peak memory {res['peak_mem_gib']:.2f} GiB, total energy change "
         f"{res['total_energy_rel_change']:+.4e} over {warm + timed} steps")
-    log(f"[explicit slice] {label}: launches {launches}")
-    finite = all(bool(torch.isfinite(t).all()) for t in (st.p, st.v, st.e, st.rho, tot))
+    log(f"[{tag}] {label}: launches {launches}")
+    fields = [getattr(st, k) for k in ("p", "v", "e", "rho", "j") if hasattr(st, k)]
+    finite = all(bool(torch.isfinite(t).all()) for t in fields + [tot])
     in_range = bool(((st.p >= 0) & (st.p <= ng)).all())
     problems = []
     if not (finite and in_range):
         problems.append(f"finite={finite} in_range={in_range}")
     if launches != want:
         problems.append(f"launches {launches} != {want}")
+    if check is not None:
+        problems += check(st, m)
     if problems:
-        raise AssertionError(f"explicit slice, {label}: " + "; ".join(problems))
+        raise AssertionError(f"{tag}, {label}: " + "; ".join(problems))
     return res
 
 
@@ -858,21 +931,480 @@ def phase_resident(dev) -> dict:
     return res
 
 
+def iters_agree(what: str, a, b, tol: float) -> bool:
+    """Picard counts of two runs, each given as (iters, resid) rows, agree
+    step for step, but at a step where the residual sat at the threshold
+    (diagnostics.picard_counts_agree: one pass apart, and the run that
+    stopped first within the runs' measured residual gap below tol). Logs
+    each step whose counts differ with both runs' residuals."""
+    import numpy as np
+
+    from pypic_tpu_torch.diagnostics import picard_counts_agree
+
+    ok, lines = picard_counts_agree(*a, *b, float(np.float32(tol)))
+    for line in lines:
+        log(f"[picard] {what}: {line}")
+    return ok
+
+
+def _seam_wrap(x: torch.Tensor, ng: int) -> torch.Tensor:
+    return x - torch.floor(x * (1.0 / ng)) * ng
+
+
+def _resident_implicit_case(dev, n: int, conf: str) -> float:
+    """25 resident steps in chunks of 8 against 25 per-step steps of the
+    fused engine and the plain resident version, on the configs[1] load
+    with the loop options of ``conf``."""
+    import dataclasses
+
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import landau
+
+    steps = IMPLICIT_RESIDENT_STEPS
+    cfg, st = landau.state(n, dev)
+    cfg = dataclasses.replace(cfg, **IMPLICIT_RESIDENT_CONFIGS[conf])
+    fin, m = implicit.run_resident(cfg, st, steps,
+                                   steps_per_call=IMPLICIT_RESIDENT_SPC)
+    ref, rm = run(implicit.make_step(cfg), st, steps)
+    plain = K.implicit_resident_plain(st.e, st.e_prev, st.j, st.p, st.v, NG,
+                                      steps, **implicit.resident_kwargs(st, cfg))
+    torch.cuda.synchronize()
+    worst = 0.0
+    got_rows = (m.picard_iters, m.picard_residual)
+    for label, final, rows in (
+            ("per-step", (ref.p, ref.v, ref.e, ref.e_prev, ref.j),
+             dict(iters=rm.picard_iters, resid=rm.picard_residual,
+                  fe=rm.field_energy, ke=rm.kinetic_energy)),
+            ("plain", plain[:5], plain[5])):
+        what = f"implicit_resident(n={n}, {conf}) vs {label}"
+        a = seam_err(final[0], fin.p, NG)
+        errs = {"p": dict(abs=a, err=a, kind="cells", tol=TOL_RESIDENT_IMPLICIT["p"])}
+        for k, r_, g_ in zip(("v", "e", "e_prev", "j"), final[1:],
+                             (fin.v, fin.e, fin.e_prev, fin.j)):
+            a, r = rel_err(r_, g_)
+            errs[k] = dict(abs=a, err=r, kind="rel", tol=TOL_RESIDENT_IMPLICIT[k])
+        for k, got in (("fe", m.field_energy), ("ke", m.kinetic_energy)):
+            d = (rows[k].double() - got.double()).abs() / rows[k].double().abs()
+            errs[k] = dict(abs=float((rows[k].double() - got.double()).abs().max()),
+                           err=float(d.max()), kind="rtol", tol=TOL_RESIDENT_IMPLICIT[k])
+        worst = max(worst, _check(errs, what))
+        if not iters_agree(what, got_rows, (rows["iters"], rows["resid"]), cfg.tol):
+            raise AssertionError(
+                f"{what}: Picard iterations {m.picard_iters.tolist()} != "
+                f"{rows['iters'].tolist()}")
+    log(f"[implicit kernels]   implicit_resident(n={n}, {conf}): Picard "
+        f"iterations {m.picard_iters.tolist()}; per-step path "
+        f"{rm.picard_iters.tolist()}")
+    return worst
+
+
+def phase_implicit_kernels(dev) -> dict:
+    """The implicit engine's last three kernels against their plain
+    versions: the converged-deposit finalize and the shared-window pass at
+    the ragged and the headline n (the shared pass unclamped and forced to
+    clamp), the resident kernel over 25 steps in both configurations at
+    three n, then timed at the configs[1] row's shape."""
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import landau
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    records = {}
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    w32 = K.kernel_scalars(QM, DT, DX, W)[3]
+    fast = dict(reps=3, calls=3)  # the plain versions take ~0.1 s a call
+    for n, edges in ((N_RAGGED, True), (N_HEADLINE, False)):
+        log(f"[implicit kernels] n = {n}, ng = {NG}" + (" (+ edge positions)" if edges else ""))
+        e, ps, p0, v0 = _random_pass_inputs(n, gen, dev, edges)
+        dtol = deposit_tol(n)
+
+        got = K.picard_finalize(e, ps, p0, v0, NG, **kw)
+        nodep = K.picard_finalize_nodep(e, ps, p0, v0, NG, qm=QM, dt=DT, dx=DX)
+        ref = K.picard_finalize_plain(e, ps, p0, v0, NG, **kw)
+        j64 = K.deposit_plain(ref[0].double(), (w32 * ref[1]).double(), NG,
+                              periodic=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], nodep[0]) and torch.equal(got[1], nodep[1])):
+            raise AssertionError("picard_finalize: p1/v1 are not bit-identical "
+                                 "to picard_finalize_nodep's")
+        log("[implicit kernels]   picard_finalize: p1, v1 bit-identical to "
+            "picard_finalize_nodep")
+        a = seam_err(ref[0], got[0], NG)
+        errs = {"p1": dict(abs=a, err=a, kind="cells", tol=TOL_POS)}
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_V)
+        a, r = rel_err(j64, got[2])
+        errs["j1"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        a, r = rel_err(ref[2], got[2])
+        errs["j1_plain"] = dict(abs=a, err=r, kind="rel", tol=dtol)
+        err = _check(errs, "picard_finalize")
+        del got, nodep, ref, j64
+        records["picard_finalize"] = _rec(
+            err, cuda_ms(lambda: K.picard_finalize(e, ps, p0, v0, NG, **kw)),
+            cuda_ms(lambda: K.picard_finalize_plain(e, ps, p0, v0, NG, **kw), **fast),
+            "picard_finalize", n)
+
+        # the engine's case: the guess at the free-streaming midpoint under
+        # a weak field, so that no deposit leaves the frame; jh is then a
+        # deposit at the wrapped midpoint
+        e_weak = e * 1e-3
+        seed = _seam_wrap(p0 + (0.5 * DT / DX) * v0, NG)
+        got = K.picard_iteration_shared(e_weak, seed, p0, v0, NG, **kw)
+        ref = K.picard_iteration_shared_plain(e_weak, seed, p0, v0, NG, **kw)
+        ph_r, v1_r, _ = K.picard_iteration_plain(e_weak, seed, p0, v0, NG,
+                                                 emit_v=True, **kw)
+        jh64 = K.deposit_plain(ph_r.double(), (w32 * (0.5 * (v0 + v1_r))).double(),
+                               NG, periodic=True)
+        torch.cuda.synchronize()
+        a = seam_err(ref[0], got[0], NG)
+        errs = {"ph": dict(abs=a, err=a, kind="cells", tol=TOL_POS)}
+        a, r = rel_err(jh64, got[1])
+        errs["jh"] = dict(abs=a, err=r, kind="rel vs float64 at ph", tol=TOL_DEP)
+        a, r = rel_err(ref[1], got[1])
+        errs["jh_plain"] = dict(abs=a, err=r, kind="rel", tol=dtol)
+        errs["n_clamped"] = dict(abs=float(int(got[2])), err=float(int(got[2])),
+                                 kind=f"count (plain {int(ref[2])})", tol=0.0)
+        err = _check(errs, "picard_iteration_shared(unclamped)")
+        del ph_r, v1_r, jh64, got, ref
+        # forced clamps: any guess, a strong field. Clamping piles the
+        # deposits onto the frames' edge rows, so the plain float32 sums
+        # (global atomics) stray further than the bound of deposit_tol;
+        # the kernel is held against the same float32 terms summed in
+        # float64, and the plain float32 gap is reported
+        got = K.picard_iteration_shared(e, ps, p0, v0, NG, emit_v=True, **kw)
+        ref = K.picard_iteration_shared_plain(e, ps, p0, v0, NG, emit_v=True, **kw)
+        jh64 = K.picard_iteration_shared_plain(e, ps, p0, v0, NG, acc_dtype=torch.float64,
+                                               **kw)[1]
+        torch.cuda.synchronize()
+        a = seam_err(ref[0], got[0], NG)
+        errs = {"ph": dict(abs=a, err=a, kind="cells", tol=TOL_POS)}
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_V)
+        a, r = rel_err(jh64, got[2])
+        errs["jh"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+        log(f"[implicit kernels]   picard_iteration_shared(forced clamp): plain "
+            f"float32 jh vs float64 sums {rel_err(jh64, ref[2])[1]:.3e}, kernel "
+            f"vs plain {rel_err(ref[2], got[2])[1]:.3e} (rel)")
+        del jh64
+        diff = abs(int(got[3]) - int(ref[3]))
+        errs["n_clamped"] = dict(abs=float(diff), err=float(diff),
+                                 kind=f"count gap ({int(got[3])} clamped of {n})",
+                                 tol=0.0)
+        err = max(err, _check(errs, "picard_iteration_shared(forced clamp)"))
+        if not int(got[3]) > n // 2:
+            raise AssertionError(f"forced-clamp case clamped only {int(got[3])}")
+        del got, ref
+        records["picard_iteration_shared"] = _rec(
+            err, cuda_ms(lambda: K.picard_iteration_shared(e_weak, seed, p0, v0, NG, **kw)),
+            cuda_ms(lambda: K.picard_iteration_shared_plain(e_weak, seed, p0, v0, NG,
+                                                            **kw), **fast),
+            "picard_iteration_shared", n)
+        del e, ps, p0, v0, e_weak, seed
+        torch.cuda.empty_cache()
+
+    worst = max(_resident_implicit_case(dev, n, conf)
+                for conf in IMPLICIT_RESIDENT_CONFIGS for n in IMPLICIT_RESIDENT_NS)
+    # timed at the configs[1] row's shape: one 64-step launch at n = 1e5
+    cfg, st = landau.state(landau.N, dev)
+    rkw = implicit.resident_kwargs(st, cfg)
+    args = (st.e, st.e_prev, st.j, st.p, st.v, NG, landau.STEPS_PER_CALL)
+    out = K.implicit_resident(*args, **rkw)
+    ref = K.implicit_resident_plain(*args, **rkw)
+    torch.cuda.synchronize()
+    passes = int(out[5]["iters"].sum())
+    if not iters_agree("implicit_resident(n = 1e5, 64 steps) vs plain",
+                       (out[5]["iters"], out[5]["resid"]),
+                       (ref[5]["iters"], ref[5]["resid"]), cfg.tol):
+        raise AssertionError("implicit_resident: Picard iterations differ from "
+                             "the plain version's at the row's shape")
+    records["implicit_resident"] = _rec(
+        worst, cuda_ms(lambda: K.implicit_resident(*args, **rkw), reps=5, calls=1),
+        cuda_ms(lambda: K.implicit_resident_plain(*args, **rkw), reps=1, calls=1),
+        "implicit_resident", landau.N, landau.STEPS_PER_CALL, passes)
+    return records
+
+
+def _two_species(n: int):
+    """tests/test_engines.py:197-223's electron-ion load and config (ng 64,
+    per-particle q/m, composed backend): (cfg, x, v, q, m) as numpy."""
+    import numpy as np
+
+    from pypic_tpu_torch.constants import (
+        E_CHARGE, EPSILON_0, K_BOLTZMANN, M_ELECTRON)
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.grid import GridSpec
+
+    density, te = 1e10, 0.1 * 11600.0
+    debye = np.sqrt(K_BOLTZMANN * te * EPSILON_0 / E_CHARGE**2 / density)
+    grid = GridSpec(64, 15.0 * debye, "periodic")
+    rng = np.random.default_rng(9)
+    x = rng.uniform(0, grid.length, n)
+    m = np.where(np.arange(n) < n // 2, M_ELECTRON, 1836.0 * M_ELECTRON)
+    q = np.where(np.arange(n) < n // 2, -E_CHARGE, E_CHARGE)
+    v = rng.normal(size=n) * np.sqrt(K_BOLTZMANN * te / m)
+    dt = 0.1 * np.sqrt(E_CHARGE**2 * density / EPSILON_0 / M_ELECTRON) ** -1
+    cfg = implicit.ImplicitConfig(grid, dt, grid.length * density / n,
+                                  tol=1e-8, maxiter=50, backend="composed")
+    return cfg, x, v, q, m
+
+
+def phase_implicit_check(dev) -> None:
+    """The implicit engine's other paths on the card against the CPU
+    (plain versions), 50 steps at n = 20,000 each: the composed backend on
+    a two-species load, finalize='converged-deposit' and
+    window_share='shared' (no deposit clamped) on a two-stream load."""
+    import dataclasses
+
+    from pypic_tpu_torch import initialize
+    from pypic_tpu_torch.constants import E_CHARGE, M_ELECTRON
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import two_stream
+
+    n, steps = IMPLICIT_CHECK_N, IMPLICIT_CHECK_STEPS
+    # the two-stream load and configurations of the JAX tests of these
+    # options (tests/test_engines.py:226-252 and 419-446). The headline's
+    # Landau load is too violent for a 50-step trajectory comparison: a
+    # 1-ulp change of v moves its positions 1.3e-3 cells in 50 steps on the
+    # CPU (3.4e-5 on this load)
+    tcfg, _ = two_stream.config(n, 64)
+    tx, tv, _ = initialize.initialize_periodic(
+        "two-stream", n, two_stream.DENSITY, 1, two_stream.PERTURBATION,
+        tcfg.grid, two_stream.TE, two_stream.TE, seed=2)
+    base = implicit.ImplicitConfig(tcfg.grid, tcfg.dt, tcfg.p2c, maxiter=50)
+    cases = {
+        "composed, two species": _two_species(n),
+        "converged-deposit": (dataclasses.replace(
+            base, tol=1e-10, finalize="converged-deposit"),
+            tx, tv, -E_CHARGE, M_ELECTRON),
+        "window_share='shared'": (dataclasses.replace(
+            base, tol=1e-8, window_share="shared"),
+            tx, tv, -E_CHARGE, M_ELECTRON),
+    }
+    for label, (cfg, x, v, q, m) in cases.items():
+        out = []
+        for device in ("cpu", dev):
+            st = implicit.init_state(x, v, q, m, cfg, device=device)
+            out.append(run(implicit.make_step(cfg), st, steps))
+        (sc, mc), (sg, mg) = out
+        ng = cfg.grid.ng
+        errs = {"p (cells)": seam_err(sc.p, sg.p.cpu(), ng)}
+        for k in ("v", "e", "j"):
+            errs[k] = rel_err(getattr(sc, k), getattr(sg, k).cpu())[1]
+        for k in ("field_energy", "kinetic_energy"):
+            errs[k] = rel_err(getattr(mc, k), getattr(mg, k).cpu())[1]
+        for k, err in errs.items():
+            log(f"[implicit check] {label}, {steps} steps, GPU vs CPU {k}: "
+                f"{err:.3e} (tol {TOL_IMPLICIT_CHECK[k]:.0e})")
+        iters = (int(mc.picard_iters.sum()), int(mg.picard_iters.sum()))
+        clamped = (int(mc.picard_clamped.sum()), int(mg.picard_clamped.sum()))
+        log(f"[implicit check] {label}: Picard passes CPU {iters[0]}, GPU "
+            f"{iters[1]}; clamped deposits CPU {clamped[0]}, GPU {clamped[1]}")
+        bad = {k: e for k, e in errs.items() if not e <= TOL_IMPLICIT_CHECK[k]}
+        if not iters_agree(f"implicit check, {label}, GPU vs CPU",
+                           (mg.picard_iters, mg.picard_residual),
+                           (mc.picard_iters, mc.picard_residual), cfg.tol):
+            bad["picard_iters"] = iters
+        if clamped != (0, 0):
+            bad["picard_clamped"] = clamped
+        if bad:
+            raise AssertionError(f"implicit check, {label}: GPU and CPU "
+                                 f"disagree: {bad}")
+
+
+def _landau_rate_load(n: int, dev):
+    """tests/test_engines.py:82-109's kLD = 0.5 case at n particles."""
+    import numpy as np
+
+    from pypic_tpu_torch import initialize
+    from pypic_tpu_torch.constants import (
+        E_CHARGE, EPSILON_0, K_BOLTZMANN, M_ELECTRON)
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.grid import GridSpec
+
+    density, te = 1e10, 11600.0
+    debye = np.sqrt(K_BOLTZMANN * te * EPSILON_0 / E_CHARGE**2 / density)
+    grid = GridSpec(64, 4.0 * np.pi * debye, "periodic")
+    x, v, params = initialize.initialize_periodic(
+        "landau-damping", n, density, 1, 0.1, grid, te, te, seed=4)
+    cfg = implicit.ImplicitConfig(grid, 0.1 / params.wp, params.p2c, tol=1e-4,
+                                  maxiter=20)
+    st = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=dev)
+    return cfg, params, st
+
+
+def phase_implicit_slices(dev) -> dict:
+    """The configs[1] row through run_resident beside the per-step path,
+    the Landau damping rate, then the headline cell with each of the other
+    new options."""
+    import dataclasses
+
+    from pypic_tpu_torch.diagnostics import damping_rate_from_peaks
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import landau
+
+    # bench.py's configs[1] row
+    torch.cuda.synchronize()
+    cuda_cic.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, st = landau.state(landau.N, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fin, m = implicit.run_resident(cfg, st, landau.STEPS,
+                                   steps_per_call=landau.STEPS_PER_CALL)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(cuda_cic.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(implicit_resident=landau.STEPS // landau.STEPS_PER_CALL, deposit=2)
+    us_step = (t2 - t1) * 1e6 / landau.STEPS
+    step = implicit.make_step(cfg)
+    ref, rm = run(step, st, LANDAU_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    run(step, st, LANDAU_PER_STEP_STEPS)
+    torch.cuda.synchronize()
+    us_per_step_path = (time.perf_counter() - t3) * 1e6 / LANDAU_PER_STEP_STEPS
+    tot = (m.field_energy.double() + m.kinetic_energy.double()).cpu()
+    res = dict(n=landau.N, steps=landau.STEPS, steps_per_call=landau.STEPS_PER_CALL,
+               us_per_step=us_step, pushes_per_s=landau.N / us_step * 1e6,
+               setup_s=t1 - t0, per_step_path_us_per_step=us_per_step_path,
+               picard_mean=float(m.picard_iters.float().mean()),
+               per_step_picard_mean=float(rm.picard_iters.float().mean()),
+               total_energy_rel_change=float((tot[-1] - tot[0]) / tot[0]),
+               launches=launches)
+    log(f"[implicit slice] configs[1] row: n = {landau.N}, ng = {NG}, "
+        f"{landau.STEPS} steps, {landau.STEPS_PER_CALL} a launch: "
+        f"{us_step:.3f} us/step, {res['pushes_per_s']:.4e} pushes/s, Picard "
+        f"mean {res['picard_mean']:.3f}, total energy change "
+        f"{res['total_energy_rel_change']:+.4e}; per-step path "
+        f"{us_per_step_path:.3f} us/step over {LANDAU_PER_STEP_STEPS} steps "
+        f"({us_per_step_path / us_step:.1f}x)")
+    log(f"[implicit slice] configs[1] row: launches {launches}")
+    problems = []
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (fin.p, fin.v, fin.e, fin.j, m.field_energy, m.kinetic_energy))
+    if not (finite and m.field_energy.shape == (landau.STEPS,)
+            and int(fin.step) == landau.STEPS):
+        problems.append(f"finite={finite} rows {tuple(m.field_energy.shape)} "
+                        f"step {int(fin.step)}")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    k = LANDAU_CHECK_STEPS
+    differ = int((m.picard_iters[:k].cpu() != rm.picard_iters.cpu()).sum())
+    log(f"[implicit slice] configs[1] row: first {k} steps' Picard passes "
+        f"{m.picard_iters[:k].tolist()}; per-step path {rm.picard_iters.tolist()} "
+        f"({differ} steps differ)")
+    res["first_rows_iters_differ"] = differ
+    if not iters_agree(f"configs[1] row's first {k} rows vs the per-step path",
+                       (m.picard_iters[:k], m.picard_residual[:k]),
+                       (rm.picard_iters, rm.picard_residual), cfg.tol):
+        problems.append(f"first {k} rows' Picard iterations "
+                        f"{m.picard_iters[:k].tolist()} != {rm.picard_iters.tolist()}")
+    errs = {}
+    for name in ("field_energy", "kinetic_energy"):
+        a, b = getattr(rm, name).double(), getattr(m, name)[:k].double()
+        d = (a - b).abs()
+        errs[name] = dict(abs=float(d.max()), err=float((d / a.abs()).max()),
+                          kind="rtol",
+                          tol=TOL_RESIDENT_IMPLICIT["fe" if name == "field_energy" else "ke"])
+    _check(errs, f"run_resident's first {k} rows vs the per-step path")
+    if problems:
+        raise AssertionError("implicit slice, configs[1] row: " + "; ".join(problems))
+    del fin, ref
+
+    # the Landau damping rate on the card
+    def landau_ratio(m_r, cfg_r, params):
+        """tests/test_engines.py:96-108: the rate of the field energy's
+        peak envelope before 15 / wp, over the analytic rate."""
+        return float(damping_rate_from_peaks(m_r.field_energy, cfg_r.dt,
+                                             t_max=15.0 / params.wp)
+                     / params.growth_rate)
+
+    cfg_r, params, st_r = _landau_rate_load(LANDAU_RATE_N, dev)
+    _, mr = run(implicit.make_step(cfg_r), st_r, LANDAU_RATE_STEPS)
+    res["landau_ratio"] = landau_ratio(mr, cfg_r, params)
+    cfg_r, params, st_r = _landau_rate_load(LANDAU_RATE_RESIDENT_N, dev)
+    _, mr = implicit.run_resident(cfg_r, st_r, LANDAU_RATE_STEPS)
+    res["landau_ratio_resident"] = landau_ratio(mr, cfg_r, params)
+    log(f"[implicit slice] Landau damping gamma / gamma_analytic: "
+        f"{res['landau_ratio']:.4f} at n = {LANDAU_RATE_N}, per-step path "
+        f"(bound 0.7-1.4); {res['landau_ratio_resident']:.4f} at "
+        f"n = {LANDAU_RATE_RESIDENT_N} through run_resident")
+    if not 0.7 < res["landau_ratio"] < 1.4:
+        raise AssertionError(f"Landau damping ratio {res['landau_ratio']}")
+    del st_r, mr
+
+    # the headline cell with each new option
+    def headline(**opts):
+        def build():
+            cfg_h, _, st_h = headline_state(N_HEADLINE, dev)
+            return dataclasses.replace(cfg_h, **opts), st_h
+        return build
+
+    def conserving(st_h, m_h):
+        fe, ke = m_h.field_energy.double(), m_h.kinetic_energy.double()
+        tot = fe + ke
+        change = float((tot[-1] - tot[0]) / tot[0])
+        return [] if abs(change) < 1e-4 else [f"total energy change {change}"]
+
+    def unclamped(st_h, m_h):
+        n_cl = int(m_h.picard_clamped.sum())
+        return conserving(st_h, m_h) + ([] if n_cl == 0 else [f"{n_cl} deposits clamped"])
+
+    steps = WARMUP_STEPS + BRANCH_STEPS
+    passes = 4 * steps  # the conserving configuration: 4 passes a step
+    res["converged_deposit"] = _drive(
+        "finalize='converged-deposit'", headline(finalize="converged-deposit"),
+        WARMUP_STEPS, BRANCH_STEPS,
+        {"picard_iteration": passes, "picard_finalize": steps, "deposit": 2},
+        engine=implicit, tag="implicit slice", check=conserving)
+    res["shared"] = _drive(
+        "window_share='shared'", headline(window_share="shared"),
+        WARMUP_STEPS, BRANCH_STEPS,
+        {"picard_iteration_shared": passes, "picard_finalize_nodep": steps,
+         "deposit": 2},
+        engine=implicit, tag="implicit slice", check=unclamped)
+    res["composed"] = _drive(
+        "backend='composed': gather kernel + push + 2 deposit kernels a pass",
+        headline(backend="composed"), WARMUP_STEPS, BRANCH_STEPS,
+        {"gather": passes, "deposit": 2 + 2 * passes},
+        engine=implicit, tag="implicit slice")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
-    name = phase_device()
+    walls = {}
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[label] = time.perf_counter() - t0
+        log(f"[wall] {label}: {walls[label]:.1f} s")
+        return out
+
+    name = phase("device", phase_device)
     dev = torch.device("cuda", 0)
-    phase_build()
-    k = phase_kernels(dev)
-    phase_check(dev)
-    sl = phase_slice(dev)
+    phase("build", phase_build)
+    k = phase("kernels", phase_kernels, dev)
+    phase("check", phase_check, dev)
+    sl = phase("slice", phase_slice, dev)
     glue = sl["ms_per_step"] - 4 * k["picard_iteration"]["ms"] - k["picard_finalize_nodep"]["ms"]
     log(f"[slice] breakdown per step: 4 x picard_iteration "
         f"{4 * k['picard_iteration']['ms']:.4f} ms + finalize "
         f"{k['picard_finalize_nodep']['ms']:.4f} ms + the rest {glue:.4f} ms")
-    ek = phase_explicit_kernels(dev)
-    phase_explicit_check(dev)
-    ex = phase_explicit_slice(dev, ek["explicit_cycle"]["ms"])
-    rs = phase_resident(dev)
+    ek = phase("explicit kernels", phase_explicit_kernels, dev)
+    phase("explicit check", phase_explicit_check, dev)
+    ex = phase("explicit slice", phase_explicit_slice, dev, ek["explicit_cycle"]["ms"])
+    rs = phase("resident", phase_resident, dev)
+    ik = phase("implicit kernels", phase_implicit_kernels, dev)
+    phase("implicit check", phase_implicit_check, dev)
+    isl = phase("implicit slices", phase_implicit_slices, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -882,9 +1414,17 @@ def main() -> int:
         ex["large_grid"]["launches"]["leapfrog_gather_push_deposit"])
     launches["gather"] = ex["composed"]["launches"]["gather"]
     launches["explicit_cycle_resident"] = rs["launches"]["explicit_cycle_resident"]
-    records = {**k, **ek}
+    launches["picard_finalize"] = isl["converged_deposit"]["launches"]["picard_finalize"]
+    launches["picard_iteration_shared"] = (
+        isl["shared"]["launches"]["picard_iteration_shared"])
+    launches["implicit_resident"] = isl["launches"]["implicit_resident"]
+    records = {**k, **ek, **ik}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
+    sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
+                   picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
+                   implicit_resident="pypic_tpu_torch/csrc/implicit.cu")
+    log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname],
          "replaces": REPLACES[kname], "launches": launches[kname],
@@ -903,7 +1443,17 @@ def main() -> int:
             "total_energy_rel_change")},
         "resident": {key: rs[key] for key in (
             "n", "steps", "us_per_step", "pushes_per_s",
-            "per_step_path_us_per_step", "growth_ratio")}}))
+            "per_step_path_us_per_step", "growth_ratio")},
+        "implicit_slices": {
+            **{key: isl[key] for key in (
+                "n", "steps", "us_per_step", "pushes_per_s",
+                "per_step_path_us_per_step", "picard_mean",
+                "total_energy_rel_change", "landau_ratio",
+                "landau_ratio_resident", "per_step_picard_mean",
+                "first_rows_iters_differ")},
+            **{f"{path}_ms_per_step": isl[path]["ms_per_step"]
+               for path in ("converged_deposit", "shared", "composed")}},
+        "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

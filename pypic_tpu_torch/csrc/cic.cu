@@ -1,7 +1,7 @@
 // CIC particle kernels of the implicit CN-Picard path, for Hopper (sm_90a).
 //
-// Three kernels, each the counterpart of a Pallas TPU kernel in
-// pypic_tpu/ops/pallas_cic.py. They compute what the TPU kernels compute
+// Five kernels from three templates, each the counterpart of a Pallas TPU
+// kernel in pypic_tpu/ops/pallas_cic.py. They compute what the TPU kernels compute
 // with plain CIC index arithmetic (cic_common.cuh, after
 // pypic_tpu/ops/cic.py cic_indices_weights): idx_l = clip(floor(p), 0,
 // num_cells - 1), w_r = p - idx_l, w_l = 1 - w_r, and the right node wraps
@@ -32,84 +32,133 @@
 
 namespace {
 
-// Crank-Nicolson push from the gathered field e (pypic.py:264-265):
-// p1 = p0 + dt/dx v0 + qm dt^2/(2 dx) e, v1 = v0 + qm dt e.
-__device__ __forceinline__ void cn_push(float p0, float v0, float e,
-                                        float qm_dt, float qm_dt2_half,
-                                        float dt_dx, float& p1, float& v1) {
-  p1 = __fadd_rn(__fadd_rn(p0, __fmul_rn(dt_dx, v0)), __fmul_rn(qm_dt2_half, e));
-  v1 = __fadd_rn(v0, __fmul_rn(qm_dt, e));
-}
-
 // ---------------------------------------------------------------------------
-// picard_iteration
+// picard_iteration, picard_iteration_shared
 //
-// Replaces pypic_tpu/ops/pallas_cic.py:_picard_iter_kernel
-// (picard_iteration_pallas). One Picard pass: gather the smoothed field at
-// the position guess ps, CN push, wrapped midpoint ph = (p0 + p1)/2, store
-// ph (and v1 with EMIT_V), deposit w vh at ph into jh.
+// Replace pypic_tpu/ops/pallas_cic.py:_picard_iter_kernel and
+// _picard_iter_sw_kernel (picard_iteration_pallas with share_window False
+// and True). One Picard pass: gather the smoothed field at the position
+// guess ps, CN push, wrapped midpoint ph = (p0 + p1)/2, store ph (and v1
+// with EMIT_V), deposit w vh into jh. The two differ only in where the
+// deposit lands.
+//
+// Without SHARED the deposit sits at the wrapped ph. With SHARED it sits
+// at the midpoint as seen from the gather's window frame, and a deposit
+// that leaves the frame is clamped to its edge and counted. The TPU kernel
+// reuses the gather's window one-hot for the deposit; that frame decides
+// which deposits clamp, so the port keeps the frame's arithmetic (not its
+// selectors): windows start every `win_stride` nodes,
+// k = clip(int(floor(ps) * (1/win_stride)), 0, K - 1), row l of window k
+// is node win_stride k + l - 1 (mod ng), and the deposit sits at row
+// d_h = (ps - k win_stride + 1) + delta, delta the nearest-image ph - ps.
+// A d_h outside [0, width - 1] is clamped to that edge and counted. Every
+// step rounds as the JAX kernel's float32 operations do, so the clamps are
+// the same particles'. When nothing clamps, the deposit equals one at the
+// wrapped ph.
 //
 // Bound on the H100: device-memory bytes. It reads 12 B and writes 4 B per
 // particle (8 B with EMIT_V): about 1.6 GB a pass at n = 1e8. The field and
 // the partial histogram stay in shared memory; the per-particle deposit is
 // two shared-memory float atomics, whose bank conflicts grow as particles of
-// one warp share a node (the load is in random order at ng = 200).
+// one warp share a node (the load is in random order at ng = 200). The
+// clamp count is kept per block in shared memory and added to the int32
+// total with one atomic per block, so it is exact.
 // ---------------------------------------------------------------------------
-template <bool EMIT_V>
+template <bool EMIT_V, bool SHARED>
 __global__ void picard_iteration_kernel(
     const float* __restrict__ field, const float* __restrict__ ps,
     const float* __restrict__ p0, const float* __restrict__ v0,
     float* __restrict__ ph_out, float* __restrict__ v1_out,
-    float* __restrict__ jh, long long n, int ng, float qm_dt,
+    float* __restrict__ jh, int* __restrict__ n_clamped, long long n, int ng,
+    float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
+    int win_stride, int width, int num_k, float inv_stride) {
+  extern __shared__ float smem[];
+  float* s_field = smem;
+  float* s_hist = smem + ng;
+  __shared__ int s_clamped;
+  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
+    s_field[i] = field[i];
+    s_hist[i] = 0.0f;
+  }
+  if (SHARED && threadIdx.x == 0) s_clamped = 0;
+  __syncthreads();
+  const float ngf = (float)ng;
+  const float top = (float)(width - 1);
+  int clamped = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float s = ps[i];
+    const float a = p0[i];
+    const float b = v0[i];
+    const float e = gather(s_field, cic_periodic(s, ng));
+    float p1, v1;
+    cn_push(a, b, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
+    const float raw = __fmul_rn(0.5f, __fadd_rn(a, p1));
+    const float vh = __fmul_rn(0.5f, __fadd_rn(b, v1));
+    const float h = wrap(raw, ngf, inv_ng);
+    ph_out[i] = h;
+    if (EMIT_V) v1_out[i] = v1;
+    const float val = __fmul_rn(w, vh);
+    Cic c;
+    if (SHARED) {
+      // the gather's window and the midpoint's row in it
+      const int k = min(max((int)__fmul_rn(floorf(s), inv_stride), 0), num_k - 1);
+      const float d_s = __fadd_rn(__fsub_rn(s, (float)(k * win_stride)), 1.0f);
+      float delta = __fsub_rn(raw, s);
+      delta = __fsub_rn(delta, __fmul_rn(rintf(__fmul_rn(delta, inv_ng)), ngf));
+      float d_h = __fadd_rn(d_s, delta);
+      if (d_h < 0.0f || d_h > top) {
+        ++clamped;
+        d_h = fminf(fmaxf(d_h, 0.0f), top);
+      }
+      const int row = min((int)floorf(d_h), width - 2);
+      c.wr = __fsub_rn(d_h, (float)row);
+      c.wl = __fsub_rn(1.0f, c.wr);
+      c.l = (win_stride * k + row - 1) % ng;
+      if (c.l < 0) c.l += ng;
+      c.r = c.l + 1 == ng ? 0 : c.l + 1;
+    } else {
+      c = cic_periodic(h, ng);
+    }
+    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
+    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+  }
+  if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
+  if (SHARED && threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
+}
+
+// ---------------------------------------------------------------------------
+// picard_finalize_nodep, picard_finalize
+//
+// Replace pypic_tpu/ops/pallas_cic.py:_picard_final_nodep_kernel
+// (picard_finalize_nodep_pallas) and _picard_final_kernel
+// (picard_finalize_pallas, finalize='converged-deposit'). The same gather
+// and CN push from the converged field, then wrap p1 and store (p1, v1).
+// With DEPOSIT the sweep also deposits the full-step current w v1 at the
+// wrapped p1 into j1 through a shared-memory histogram, as deposit_kernel.
+// One body for both, so p1 and v1 are bit-identical between them.
+//
+// Bound on the H100: device-memory bytes, 12 B in and 8 B out per
+// particle, a pure stream. The field (and the histogram) sit in shared
+// memory, so the gather costs no device-memory traffic.
+// ---------------------------------------------------------------------------
+template <bool DEPOSIT>
+__global__ void picard_finalize_kernel(
+    const float* __restrict__ field, const float* __restrict__ ps,
+    const float* __restrict__ p0, const float* __restrict__ v0,
+    float* __restrict__ p1_out, float* __restrict__ v1_out,
+    float* __restrict__ j1, long long n, int ng, float qm_dt,
     float qm_dt2_half, float dt_dx, float w, float inv_ng) {
   extern __shared__ float smem[];
   float* s_field = smem;
   float* s_hist = smem + ng;
   for (int i = threadIdx.x; i < ng; i += blockDim.x) {
     s_field[i] = field[i];
-    s_hist[i] = 0.0f;
+    if (DEPOSIT) s_hist[i] = 0.0f;
   }
-  __syncthreads();
-  const float ngf = (float)ng;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float a = p0[i];
-    const float b = v0[i];
-    const float e = gather(s_field, cic_periodic(ps[i], ng));
-    float p1, v1;
-    cn_push(a, b, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
-    const float h = wrap(__fmul_rn(0.5f, __fadd_rn(a, p1)), ngf, inv_ng);
-    const float vh = __fmul_rn(0.5f, __fadd_rn(b, v1));
-    ph_out[i] = h;
-    if (EMIT_V) v1_out[i] = v1;
-    const float val = __fmul_rn(w, vh);
-    const Cic c = cic_periodic(h, ng);
-    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
-}
-
-// ---------------------------------------------------------------------------
-// picard_finalize_nodep
-//
-// Replaces pypic_tpu/ops/pallas_cic.py:_picard_final_nodep_kernel
-// (picard_finalize_nodep_pallas). The same gather and CN push from the
-// converged field, then wrap p1 and store (p1, v1). No deposit.
-//
-// Bound on the H100: device-memory bytes, 12 B in and 8 B out per
-// particle, a pure stream. The field sits in shared memory, so the gather
-// costs no device-memory traffic.
-// ---------------------------------------------------------------------------
-__global__ void picard_finalize_nodep_kernel(
-    const float* __restrict__ field, const float* __restrict__ ps,
-    const float* __restrict__ p0, const float* __restrict__ v0,
-    float* __restrict__ p1_out, float* __restrict__ v1_out, long long n,
-    int ng, float qm_dt, float qm_dt2_half, float dt_dx, float inv_ng) {
-  extern __shared__ float s_field[];
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
   __syncthreads();
   const float ngf = (float)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -118,9 +167,54 @@ __global__ void picard_finalize_nodep_kernel(
     const float e = gather(s_field, cic_periodic(ps[i], ng));
     float p1, v1;
     cn_push(p0[i], v0[i], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
-    p1_out[i] = wrap(p1, ngf, inv_ng);
+    p1 = wrap(p1, ngf, inv_ng);
+    p1_out[i] = p1;
     v1_out[i] = v1;
+    if (DEPOSIT) {
+      const float val = __fmul_rn(w, v1);
+      const Cic c = cic_periodic(p1, ng);
+      atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
+      atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+    }
   }
+  if (DEPOSIT) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&j1[i], s_hist[i]);
+  }
+}
+
+// Launches picard_iteration_kernel<EMIT_V, SHARED> after the shared-memory
+// opt-in.
+template <bool EMIT_V, bool SHARED>
+cudaError_t launch_iteration(int blocks, int threads, cudaStream_t s,
+                             const float* field, const float* ps,
+                             const float* p0, const float* v0, float* ph,
+                             float* v1, float* jh, int* n_clamped, long long n,
+                             int ng, float qm_dt, float qm_dt2_half,
+                             float dt_dx, float w, float inv_ng, int win_stride,
+                             int width, int num_k, float inv_stride) {
+  const size_t smem = 2 * (size_t)ng * sizeof(float);
+  cudaError_t err = allow_smem(picard_iteration_kernel<EMIT_V, SHARED>, smem);
+  if (err != cudaSuccess) return err;
+  picard_iteration_kernel<EMIT_V, SHARED><<<blocks, threads, smem, s>>>(
+      field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+      dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
+  return cudaGetLastError();
+}
+
+template <bool DEPOSIT>
+cudaError_t launch_finalize(int blocks, int threads, cudaStream_t s,
+                            const float* field, const float* ps,
+                            const float* p0, const float* v0, float* p1,
+                            float* v1, float* j1, long long n, int ng,
+                            float qm_dt, float qm_dt2_half, float dt_dx,
+                            float w, float inv_ng) {
+  const size_t smem = (DEPOSIT ? 2 : 1) * (size_t)ng * sizeof(float);
+  cudaError_t err = allow_smem(picard_finalize_kernel<DEPOSIT>, smem);
+  if (err != cudaSuccess) return err;
+  picard_finalize_kernel<DEPOSIT><<<blocks, threads, smem, s>>>(
+      field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt, qm_dt2_half, dt_dx, w, inv_ng);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -162,22 +256,15 @@ int pypic_picard_iteration(const float* field, const float* ps, const float* p0,
                            long long n, int ng, float qm_dt, float qm_dt2_half,
                            float dt_dx, float w, float inv_ng, int blocks,
                            int threads, void* stream) {
-  const size_t smem = 2 * (size_t)ng * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (v1 != nullptr) {
-    err = allow_smem(picard_iteration_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    picard_iteration_kernel<true><<<blocks, threads, smem, s>>>(
-        field, ps, p0, v0, ph, v1, jh, n, ng, qm_dt, qm_dt2_half, dt_dx, w, inv_ng);
-  } else {
-    err = allow_smem(picard_iteration_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    picard_iteration_kernel<false><<<blocks, threads, smem, s>>>(
-        field, ps, p0, v0, ph, nullptr, jh, n, ng, qm_dt, qm_dt2_half, dt_dx, w,
-        inv_ng);
-  }
-  return (int)cudaGetLastError();
+  return (int)(v1 != nullptr
+      ? launch_iteration<true, false>(blocks, threads, s, field, ps, p0, v0, ph,
+                                      v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
+                                      dt_dx, w, inv_ng, 0, 0, 0, 0.0f)
+      : launch_iteration<false, false>(blocks, threads, s, field, ps, p0, v0, ph,
+                                       nullptr, jh, nullptr, n, ng, qm_dt,
+                                       qm_dt2_half, dt_dx, w, inv_ng, 0, 0, 0,
+                                       0.0f));
 }
 
 int pypic_picard_finalize_nodep(const float* field, const float* ps,
@@ -185,12 +272,38 @@ int pypic_picard_finalize_nodep(const float* field, const float* ps,
                                 float* v1, long long n, int ng, float qm_dt,
                                 float qm_dt2_half, float dt_dx, float inv_ng,
                                 int blocks, int threads, void* stream) {
-  const size_t smem = (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(picard_finalize_nodep_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  picard_finalize_nodep_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      field, ps, p0, v0, p1, v1, n, ng, qm_dt, qm_dt2_half, dt_dx, inv_ng);
-  return (int)cudaGetLastError();
+  return (int)launch_finalize<false>(blocks, threads, (cudaStream_t)stream,
+                                     field, ps, p0, v0, p1, v1, nullptr, n, ng,
+                                     qm_dt, qm_dt2_half, dt_dx, 0.0f, inv_ng);
+}
+
+int pypic_picard_finalize(const float* field, const float* ps, const float* p0,
+                          const float* v0, float* p1, float* v1, float* j1,
+                          long long n, int ng, float qm_dt, float qm_dt2_half,
+                          float dt_dx, float w, float inv_ng, int blocks,
+                          int threads, void* stream) {
+  return (int)launch_finalize<true>(blocks, threads, (cudaStream_t)stream,
+                                    field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt,
+                                    qm_dt2_half, dt_dx, w, inv_ng);
+}
+
+// jh: ng zeroed floats; n_clamped: one zeroed int.
+int pypic_picard_iteration_shared(
+    const float* field, const float* ps, const float* p0, const float* v0,
+    float* ph, float* v1, float* jh, int* n_clamped, long long n, int ng,
+    float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
+    int win_stride, int width, int num_k, float inv_stride, int blocks,
+    int threads, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(v1 != nullptr
+      ? launch_iteration<true, true>(blocks, threads, s, field, ps, p0, v0, ph,
+                                     v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+                                     dt_dx, w, inv_ng, win_stride, width, num_k,
+                                     inv_stride)
+      : launch_iteration<false, true>(blocks, threads, s, field, ps, p0, v0, ph,
+                                      nullptr, jh, n_clamped, n, ng, qm_dt,
+                                      qm_dt2_half, dt_dx, w, inv_ng, win_stride,
+                                      width, num_k, inv_stride));
 }
 
 int pypic_deposit(const float* p, const float* values, float* out, long long n,

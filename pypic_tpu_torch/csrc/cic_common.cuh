@@ -1,4 +1,5 @@
-// CIC helpers shared by the particle kernels (cic.cu, explicit.cu).
+// CIC helpers shared by the particle kernels (cic.cu, explicit.cu,
+// implicit.cu).
 //
 // Plain CIC index arithmetic (pypic_tpu/ops/cic.py cic_indices_weights):
 // idx_l = clip(floor(p), 0, num_cells - 1), w_r = p - idx_l,
@@ -55,6 +56,32 @@ __device__ __forceinline__ float gather(const float* f, const Cic& c) {
 // not fmodf.
 __device__ __forceinline__ float wrap(float x, float ngf, float inv_ng) {
   return __fsub_rn(x, __fmul_rn(floorf(__fmul_rn(x, inv_ng)), ngf));
+}
+
+// Crank-Nicolson push from the gathered field e (pypic.py:264-265):
+// p1 = p0 + dt/dx v0 + qm dt^2/(2 dx) e, v1 = v0 + qm dt e.
+__device__ __forceinline__ void cn_push(float p0, float v0, float e,
+                                        float qm_dt, float qm_dt2_half,
+                                        float dt_dx, float& p1, float& v1) {
+  p1 = __fadd_rn(__fadd_rn(p0, __fmul_rn(dt_dx, v0)), __fmul_rn(qm_dt2_half, e));
+  v1 = __fadd_rn(v0, __fmul_rn(qm_dt, e));
+}
+
+// Block-wide sum of one double per thread; every thread gets the total,
+// summed in warp order (the same value in every thread, in every block of
+// the same shape, and from run to run). `red` is 32 doubles of shared
+// memory. blockDim.x is a multiple of 32. Every thread of the block calls
+// it.
+__device__ double block_sum(double x, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  __syncthreads();  // a previous call may still read red
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  double t = 0.0;
+  for (int w = 0; w < nwarps; ++w) t += red[w];
+  return t;
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

@@ -35,22 +35,6 @@ __device__ __forceinline__ void leapfrog(float p, float v, float e, float qmh,
   v1 = __fadd_rn(vh, kick);
 }
 
-// Block-wide sum of one double per thread; every thread gets the total,
-// summed in warp order (the same value in every thread, and from run to
-// run). `red` is 32 doubles of shared memory. blockDim.x is a multiple of
-// 32. Every thread of the block calls it.
-__device__ double block_sum(double x, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  __syncthreads();  // a previous call may still read red
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  double t = 0.0;
-  for (int w = 0; w < nwarps; ++w) t += red[w];
-  return t;
-}
-
 // Block-wide exclusive prefix sum over threads in thread order.
 __device__ double block_exclusive_scan(double x, double* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

@@ -1,7 +1,8 @@
 """Diagnostics: rate fits over metric time series (the counterpart of
 ``pypic_tpu/diagnostics.py`` ``growth_rate_from_energy`` and
-``damping_rate_from_peaks``). numpy in, numpy out; a tensor argument is
-copied to the host first.
+``damping_rate_from_peaks``) and the comparison of two runs' Picard
+counts. numpy in, numpy out; a tensor argument is copied to the host
+first.
 """
 
 from __future__ import annotations
@@ -42,3 +43,45 @@ def damping_rate_from_peaks(energy, dt: float, t_max: float | None = None,
     if len(peaks) < 3:
         raise ValueError(f"only {len(peaks)} envelope peaks found")
     return np.polyfit(t[peaks], np.log(e[peaks]), 1)[0] / 2.0
+
+
+def picard_counts_agree(iters_a, resid_a, iters_b, resid_b,
+                        tol: float) -> tuple[bool, list[str]]:
+    """Whether two runs of one implicit configuration took the same Picard
+    passes step for step, but at steps whose residual sat at the threshold.
+
+    Two runs that sum the same deposits in other orders (float atomics,
+    another reduction) end a pass with slightly different residuals
+    r = sum((es - eh)^2), and a step whose r lands within that difference
+    of ``tol`` leaves the loop one pass earlier in one run than in the
+    other. The difference is measured, not assumed: sigma is the largest gap
+    |sqrt(r_a) - sqrt(r_b)| of the residual norms at the steps where both
+    runs took the same passes (a change of eh moves ||es - eh|| by at most
+    its own norm). A step whose counts differ is accepted only when they
+    differ by one pass and the run that stopped first stopped at a residual
+    norm within 2 sigma below sqrt(tol); with no step of equal counts,
+    sigma is 0 and every difference is refused.
+
+    ``tol`` is the float32 threshold the loops compared with. Returns (ok,
+    lines): a line with sigma, then one for each step whose counts differ,
+    with both residuals.
+    """
+    ia, ib = (_as_f64(x).astype(np.int64) for x in (iters_a, iters_b))
+    ra, rb = _as_f64(resid_a), _as_f64(resid_b)
+    same = ia == ib
+    sigma = float(np.abs(np.sqrt(ra[same]) - np.sqrt(rb[same])).max(initial=0.0))
+    root = np.sqrt(float(tol))
+    ok = True
+    lines = [f"sigma {sigma:.3e} over {int(same.sum())} equal-count steps of "
+             f"{len(ia)}, sqrt(tol) {root:.3e}"]
+    for s in np.flatnonzero(~same):
+        first = ra[s] if ia[s] < ib[s] else rb[s]
+        gap = root - np.sqrt(first)
+        fine = bool(abs(int(ia[s]) - int(ib[s])) == 1 and 0.0 <= gap <= 2.0 * sigma)
+        ok = ok and fine
+        lines.append(
+            f"step {s}: passes {ia[s]} vs {ib[s]}, residuals {ra[s]:.6e} vs "
+            f"{rb[s]:.6e} (tol {tol:.6e}); sqrt(tol) - sqrt(r) of the first "
+            f"to stop {gap:.3e}, 2 sigma {2.0 * sigma:.3e}: "
+            + ("at the threshold" if fine else "NOT at the threshold"))
+    return ok, lines

@@ -16,10 +16,18 @@ implicit headline step and the explicit engine reach:
 * ``explicit_cycle``        — ``explicit_cycle_pallas`` (the same sweep and
   the rho -> E solve, in one launch);
 * ``explicit_cycle_resident`` — ``explicit_cycle_resident_pallas`` (S
-  explicit cycles per launch with per-step metric rows, n <= 32768).
+  explicit cycles per launch with per-step metric rows, n <= 32768);
+* ``picard_finalize``       — ``picard_finalize_pallas`` (the converged
+  finalize sweep plus the full-step current deposit,
+  finalize='converged-deposit');
+* ``picard_iteration_shared`` — ``picard_iteration_pallas(share_window=True)``
+  (the Picard pass depositing in the gather's window frame, clamps
+  counted);
+* ``implicit_resident``     — ``implicit_resident_pallas`` (S implicit
+  CN-Picard steps per launch with per-step metric rows, n <= 131072).
 
-The kernels are in ``pypic_tpu_torch/csrc/cic.cu`` and
-``csrc/explicit.cu`` (built by ``_build``).
+The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``
+and ``csrc/implicit.cu`` (built by ``_build``).
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
@@ -44,11 +52,15 @@ import torch
 
 from ..constants import EPSILON_0
 from . import _build
+from .accel import anderson_mix, mix_init
 from .cic import cic_indices_weights
+from .fd import smooth_periodic
 
 LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
-            "explicit_cycle": 0, "explicit_cycle_resident": 0}
+            "explicit_cycle": 0, "explicit_cycle_resident": 0,
+            "picard_finalize": 0, "picard_iteration_shared": 0,
+            "implicit_resident": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -191,6 +203,117 @@ def picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
     p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
     return _wrap(p1, ng), v1
+
+
+def picard_finalize_plain(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
+                          dt: float, dx: float):
+    p1, v1 = picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng,
+                                         qm=qm, dt=dt, dx=dx)
+    wf = kernel_scalars(qm, dt, dx, w)[3]
+    return p1, v1, deposit_plain(p1, wf * v1, ng, periodic=True)
+
+
+def window_sw(ng: int) -> tuple[int, int]:
+    """(stride, width) of the shared-window Picard pass's frame, the cost
+    rule of ``pallas_cic._choose_window_sw`` copied: minimize
+    3 width + 2 K over the widths the TPU kernel tiles, stride = width - 4,
+    K = (ng - 1) // stride + 1 windows.
+
+    The rule was tuned for the TPU's tiling and has no cost meaning on the
+    GPU. It exists here because the frame decides which deposits the JAX
+    kernel clamps, and so the ``picard_clamped`` metric: the port keeps the
+    frame to keep that observable (ng 64 -> (4, 8), ng 200 -> (12, 16)).
+    """
+    best = None
+    for width in (8, 16, 24, 32, 48, 64, 96, 128):
+        stride = width - 4
+        cost = 3 * width + 2 * ((ng - 1) // stride + 1)
+        if best is None or cost < best[2]:
+            best = (stride, width, cost)
+    return best[0], best[1]
+
+
+def _shared_frame_args(ng: int):
+    """(stride, width, K, float32 1/stride) of the shared-window frame."""
+    stride, width = window_sw(ng)
+    return stride, width, (ng - 1) // stride + 1, float(np.float32(1.0 / stride))
+
+
+def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
+                                  w, dt: float, dx: float,
+                                  emit_v: bool = False, acc_dtype=None):
+    """``acc_dtype`` is the dtype jh is summed in (float32 by default):
+    float64 sums the same float32 terms into a reference for the kernel's
+    float32 sums."""
+    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w)
+    p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
+    raw = 0.5 * (p0 + p1)
+    vh = 0.5 * (v0 + v1)
+    # the midpoint's row in the gather's window frame (pallas_cic.py
+    # _window_decompose, _shared_gather and _picard_iter_sw_kernel)
+    stride, width, num_k, inv_stride = _shared_frame_args(ng)
+    k = torch.clamp((torch.floor(ps) * inv_stride).to(torch.int32), 0, num_k - 1)
+    d_s = (ps - k.to(ps.dtype) * stride) + 1.0
+    delta = raw - ps
+    delta = delta - torch.round(delta * _inv(ng)) * ng  # nearest image
+    d_h = d_s + delta
+    oob = (d_h < 0.0) | (d_h > width - 1.0)
+    d_h = torch.clamp(d_h, 0.0, width - 1.0)
+    row = torch.clamp(torch.floor(d_h).to(torch.int64), max=width - 2)
+    wr = d_h - row.to(d_h.dtype)
+    node = torch.remainder(stride * k.to(torch.int64) + row - 1, ng)
+    right = torch.where(node + 1 == ng, 0, node + 1)
+    vals = w * vh
+    acc = acc_dtype or vals.dtype
+    jh = torch.zeros((ng,), dtype=acc, device=vals.device)
+    jh.index_add_(0, node, (vals * (1.0 - wr)).to(acc))
+    jh.index_add_(0, right, (vals * wr).to(acc))
+    n_clamped = oob.sum().to(torch.int32)
+    ph = _wrap(raw, ng)
+    return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
+
+
+def implicit_resident_plain(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm,
+                            w, ke_c: float, dt: float, dx: float, tol: float,
+                            maxiter: int, extrapolate: bool, anderson: bool,
+                            fe_c: float, tracer: int, smooth: bool = True):
+    """``steps`` implicit steps one by one: the engine's fused step with
+    finalize='converged', finalize_field='last' and separate windows, from
+    the plain pass and finalize versions. Returns what
+    ``implicit_resident`` returns."""
+    sm = smooth_periodic if smooth else (lambda f: f)
+    tol = float(np.float32(tol))
+    dt_eps = dt / EPSILON_0
+    jb_c = float(np.float32(kernel_scalars(qm, dt, dx, w)[3]) / np.float32(ng))
+    n = p.shape[0]
+    rows = {k: [] for k in ("fe", "ke", "jb", "iters", "resid", "tracer_x",
+                            "tracer_v")}
+    jh = j0
+    for _ in range(int(steps)):
+        es = e0 + 0.5 * (e0 - e_prev) if extrapolate else e0
+        ps, e1, k = p, e0, 0
+        r = torch.full((), float("inf"), dtype=e0.dtype, device=e0.device)
+        aux = mix_init(e0, "anderson" if anderson else "none")
+        while r.item() > tol and k < maxiter:
+            ps, jh = picard_iteration_plain(sm(es), ps, p, v, ng, qm=qm, w=w,
+                                            dt=dt, dx=dx)
+            e1 = e0 + dt_eps * (torch.mean(jh) - sm(jh))
+            eh = 0.5 * (e1 + e0)
+            r = torch.sum((es - eh) ** 2)
+            es, aux = anderson_mix(es, eh, k, aux) if anderson else (eh, aux)
+            k += 1
+        p, v = picard_finalize_nodep_plain(sm(es), ps, p, v, ng, qm=qm,
+                                           dt=dt, dx=dx)
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        rows["fe"].append(fe_c * torch.sum(e1 * e1))
+        rows["ke"].append(ke_c * torch.sum(v * v))
+        rows["jb"].append(jb_c * torch.sum(v))
+        rows["iters"].append(torch.tensor(k, dtype=torch.int32, device=p.device))
+        rows["resid"].append(r)
+        rows["tracer_x"].append(p[tracer] if 0 <= tracer < n else zero)
+        rows["tracer_v"].append(v[tracer] if 0 <= tracer < n else zero)
+        e_prev, e0 = e0, e1
+    return p, v, e0, e_prev, jh, {k: torch.stack(r) for k, r in rows.items()}
 
 
 def _leapfrog(field, p, v, qmh: float, dt_dx: float, ng: int):
@@ -472,3 +595,133 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
     _build.check(err, "explicit_cycle_resident")
     LAUNCHES["explicit_cycle_resident"] += 1
     return p1, v1, fields[0], fields[1], rows[0], rows[1], rows[2]
+
+
+def picard_finalize(field_smoothed, ps, p0, v0, ng: int, *, qm, w, dt: float,
+                    dx: float):
+    """Post-convergence sweep with the full-step current: final (p1, v1),
+    p1 wrapped, and j1 = the deposit of w v1 at p1. p1 and v1 are
+    bit-identical to ``picard_finalize_nodep``'s."""
+    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    _check_smem(ng, 2, "picard_finalize")
+    if kind == "cpu":
+        return picard_finalize_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
+                                     w=w, dt=dt, dx=dx)
+    lib = _build.library()
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
+    dev = ps.device
+    p1 = torch.empty_like(ps)
+    v1 = torch.empty_like(ps)
+    j1 = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_picard_finalize(
+            field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
+            v0.data_ptr(), p1.data_ptr(), v1.data_ptr(), j1.data_ptr(), n, ng,
+            qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng), _blocks(n, dev),
+            _THREADS, _stream(dev))
+    _build.check(err, "picard_finalize")
+    LAUNCHES["picard_finalize"] += 1
+    return p1, v1, j1
+
+
+def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
+                            dt: float, dx: float, emit_v: bool = False):
+    """Shared-window Picard pass. Returns (ph, jh, n_clamped), or
+    (ph, v1, jh, n_clamped) with ``emit_v``: as ``picard_iteration``, but
+    the deposit of w vh lands at the midpoint as seen from the gather's
+    window frame (``window_sw``), and ``n_clamped``, an int32 tensor on
+    the particles' device, counts the deposits clamped at the frame's
+    edge. With no clamp, jh equals a deposit at the wrapped ph up to
+    rounding."""
+    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    _check_smem(ng, 2, "picard_iteration_shared")
+    if kind == "cpu":
+        return picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng,
+                                             qm=qm, w=w, dt=dt, dx=dx,
+                                             emit_v=emit_v)
+    lib = _build.library()
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
+    stride, width, num_k, inv_stride = _shared_frame_args(ng)
+    dev = ps.device
+    ph = torch.empty_like(ps)
+    v1 = torch.empty_like(ps) if emit_v else None
+    jh = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_picard_iteration_shared(
+            field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
+            v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
+            jh.data_ptr(), n_clamped.data_ptr(), n, ng, qm_dt, qm_dt2_half,
+            dt_dx, wf, _inv(ng), stride, width, num_k, inv_stride,
+            _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "picard_iteration_shared")
+    LAUNCHES["picard_iteration_shared"] += 1
+    return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
+
+
+RESIDENT_MAX_N_IMPLICIT = 131072  # pallas_cic._RESIDENT_MAX_N_IMPLICIT
+# shared memory of the implicit resident kernel: ten (ng,) float arrays
+# and 36 float64 of reduction scratch and metric partials
+_IMPLICIT_ARRAYS, _IMPLICIT_EXTRA = 10, 36 * 8
+
+
+def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
+                      ke_c: float, dt: float, dx: float, tol: float,
+                      maxiter: int, extrapolate: bool, anderson: bool,
+                      fe_c: float, tracer: int, smooth: bool = True):
+    """``steps`` implicit CN-Picard steps in one launch (the fused step
+    with finalize='converged', finalize_field='last', separate windows),
+    n <= 131072. ``e0``, ``e_prev`` and ``j0`` are the state's field,
+    previous field and current; ``qm`` and ``w`` the float32 scalars q/m
+    and q p2c / dx; ``ke_c`` = p2c m / 2 and ``fe_c`` = eps0 dx / 2.
+
+    Returns (p1, v1, e1, e_prev1, jh, rows): the last step's field, the
+    field before it and its half-step current, and a dict of (steps,) rows
+    fe, ke, jb (field and kinetic energy, current bias after each step),
+    iters (int32), resid, tracer_x and tracer_v."""
+    kind = _device_kind((e0, e_prev, j0, p, v))
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in (("e0", e0), ("e_prev", e_prev), ("j0", j0)):
+        _check_1d(name, t, ng)
+    _check_1d("p", p, n)
+    _check_1d("v", v, n)
+    if n > RESIDENT_MAX_N_IMPLICIT:
+        raise ValueError(
+            f"resident implicit requires n <= {RESIDENT_MAX_N_IMPLICIT}")
+    if int(steps) < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check_smem(ng, _IMPLICIT_ARRAYS, "implicit_resident", _IMPLICIT_EXTRA)
+    kw = dict(qm=qm, w=w, ke_c=ke_c, dt=dt, dx=dx, tol=tol, maxiter=maxiter,
+              extrapolate=extrapolate, anderson=anderson, fe_c=fe_c,
+              tracer=tracer, smooth=smooth)
+    if kind == "cpu":
+        return implicit_resident_plain(e0, e_prev, j0, p, v, ng, int(steps),
+                                       **kw)
+    lib = _build.library()
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
+    dev = p.device
+    s = int(steps)
+    p1 = torch.empty_like(p)
+    v1 = torch.empty_like(v)
+    ps = torch.empty_like(p)
+    fields = torch.empty((3, ng), dtype=torch.float32, device=dev)
+    rows = torch.zeros((6, s), dtype=torch.float32, device=dev)
+    iters = torch.zeros((s,), dtype=torch.int32, device=dev)
+    jb_c = float(np.float32(wf) / np.float32(ng))
+    with torch.cuda.device(dev):
+        err = lib.pypic_implicit_resident(
+            e0.data_ptr(), e_prev.data_ptr(), j0.data_ptr(), p.data_ptr(),
+            v.data_ptr(), p1.data_ptr(), v1.data_ptr(), ps.data_ptr(),
+            fields[0].data_ptr(), fields[1].data_ptr(), fields[2].data_ptr(),
+            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
+            iters.data_ptr(), rows[3].data_ptr(), rows[4].data_ptr(),
+            rows[5].data_ptr(), n, ng, s, qm_dt, qm_dt2_half, dt_dx, wf,
+            _inv(ng), float(np.float32(dt / EPSILON_0)),
+            float(np.float32(tol)), int(maxiter), int(bool(extrapolate)),
+            int(bool(anderson)), int(bool(smooth)), int(tracer),
+            float(fe_c), float(ke_c), jb_c, _stream(dev))
+    _build.check(err, "implicit_resident")
+    LAUNCHES["implicit_resident"] += 1
+    return p1, v1, fields[0], fields[1], fields[2], dict(
+        fe=rows[0], ke=rows[1], jb=rows[2], iters=iters, resid=rows[3],
+        tracer_x=rows[4], tracer_v=rows[5])

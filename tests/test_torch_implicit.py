@@ -194,11 +194,8 @@ def test_config_coerces_numpy_scalars():
 
 
 DEFERRED = [
-    dict(backend="composed"),
-    dict(finalize="converged-deposit"),
     dict(finalize_field="mean2"),
     dict(picard_accel="anderson2"),
-    dict(window_share="shared"),
     dict(axis_name="particles"),
     dict(deposit_method="scatter"),
     dict(deposit_method="matmul"),
@@ -234,13 +231,18 @@ def test_step_reads_qm_on_the_host_once():
 
 
 def test_per_particle_qm_needs_composed_backend():
+    """Per-particle q/m runs on the composed backend, which 'auto' picks;
+    'fused' refuses it."""
     grid = GridSpec(16, 1.0)
     x = np.linspace(0.0, 0.9, 8)
     q = np.full(8, -E_CHARGE)
     cfg = implicit.ImplicitConfig(grid, 1e-9, 1.0)
     st = implicit.init_state(x, np.zeros(8), q, M_ELECTRON, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="composed"):
-        implicit.make_step(cfg)(st)
+    st1, m = implicit.make_step(cfg)(st)
+    assert int(st1.step) == 1 and st1.p.shape == (8,)
+    assert torch.isfinite(st1.e).all() and torch.isfinite(m.field_energy)
+    # the composed step stores the last iterate's full-step current
+    assert float(m.current_bias) == float(torch.mean(st1.j))
     fused = dataclasses.replace(cfg, backend="fused")
     with pytest.raises(ValueError, match="scalar q/m"):
         implicit.make_step(fused)(st)
@@ -252,7 +254,7 @@ def test_import_leaves_jax_out():
             "pypic_tpu_torch.presets, pypic_tpu_torch.interop, "
             "pypic_tpu_torch.runner, pypic_tpu_torch.diagnostics, "
             "pypic_tpu_torch.ops.cuda_cic, pypic_tpu_torch.tools.two_stream, "
-            "pypic_tpu_torch.tools.headline; "
+            "pypic_tpu_torch.tools.headline, pypic_tpu_torch.tools.landau; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pypic_tpu')]; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -208,6 +208,32 @@ def test_fits_match():
         jdiag.damping_rate_from_peaks(decay, dt)
 
 
+# (iters_b, resid_b, ok) against iters_a = [3, 4, 3], resid_a = [5e-10,
+# 9.9e-10, 4e-10], tol 1e-9: the equal-count steps put the residual norms
+# 4.5e-8 apart, so 2 sigma is 9e-8 (in sqrt of the residual)
+_COUNT_CASES = {
+    "equal": ([3, 4, 3], [5.01e-10, 9.9e-10, 4.02e-10], True),
+    "one pass at the threshold": ([3, 3, 3], [5.01e-10, 9.99e-10, 4.02e-10], True),
+    "one pass far below the threshold": ([3, 3, 3], [5.01e-10, 2e-10, 4.02e-10], False),
+    "two passes": ([3, 2, 3], [5.01e-10, 9.99e-10, 4.02e-10], False),
+    "no equal step to measure the gap": ([4, 3, 4], [4e-10, 9.99e-10, 3e-10], False),
+}
+
+
+@pytest.mark.parametrize("case", list(_COUNT_CASES))
+def test_picard_counts_agree(case):
+    """Counts may differ only by one pass, at a step where the run that
+    stopped first sat within twice the runs' measured residual-norm gap
+    below tol."""
+    iters_b, resid_b, want = _COUNT_CASES[case]
+    ok, lines = diagnostics.picard_counts_agree(
+        torch.tensor([3, 4, 3], dtype=torch.int32),
+        torch.tensor([5e-10, 9.9e-10, 4e-10]), iters_b, resid_b, 1e-9)
+    assert ok is want
+    assert lines[0].startswith("sigma")
+    assert len(lines) == 1 + sum(a != b for a, b in zip([3, 4, 3], iters_b))
+
+
 def test_presets_match_reference_defaults():
     for name in ("landau_damping", "two_stream"):
         t = getattr(presets, name)(n=2000, device="cpu")

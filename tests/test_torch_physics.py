@@ -1,8 +1,8 @@
 """Physics acceptance tests of the port's engines on the CPU (the plain
 kernel versions), with the thresholds of tests/test_engines.py: two-stream
 growth rate against the cold-beam dispersion relation for the implicit and
-the explicit engine, and total-energy conservation at a tight Picard
-tolerance.
+the explicit engine, the Landau damping rate of the implicit engine, and
+total-energy conservation at a tight Picard tolerance.
 """
 
 import numpy as np
@@ -11,7 +11,7 @@ import torch
 
 from pypic_tpu_torch import initialize as init
 from pypic_tpu_torch.constants import E_CHARGE, EPSILON_0, K_BOLTZMANN, M_ELECTRON
-from pypic_tpu_torch.diagnostics import growth_rate_from_energy
+from pypic_tpu_torch.diagnostics import damping_rate_from_peaks, growth_rate_from_energy
 from pypic_tpu_torch.engines import explicit, implicit
 from pypic_tpu_torch.grid import GridSpec
 from pypic_tpu_torch.runner import run
@@ -95,3 +95,22 @@ def test_conserving_config_holds_energy_short_run():
     assert torch.isfinite(tot).all()
     assert float(abs(tot[-1] - tot[0]) / tot[0]) < 1e-4
     assert (m.picard_iters == 4).all()
+
+
+def test_landau_damping_rate_implicit():
+    """test_engines.py:82-109 for the port: kLD = 0.5, gamma = -0.153 wp,
+    through the per-step implicit path (~3 s on the CPU)."""
+    density = 1e10
+    te = 1.0 * 11600.0
+    debye = np.sqrt(K_BOLTZMANN * te * EPSILON_0 / E_CHARGE**2 / density)
+    grid = GridSpec(64, 4.0 * np.pi * debye, "periodic")
+    x, v, params = init.initialize_periodic(
+        "landau-damping", 400_000, density, 1, 0.1, grid, te, te, seed=4)
+    dt = 0.1 / params.wp
+    cfg = implicit.ImplicitConfig(grid, dt, params.p2c, tol=1e-4, maxiter=20)
+    st = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+    _, m = run(implicit.make_step(cfg), st, 160)
+    # peak envelope (E^2 oscillates at 2 w_pe) before the noise floor
+    gamma = damping_rate_from_peaks(m.field_energy, dt, t_max=15.0 / params.wp)
+    ratio = gamma / params.growth_rate  # both negative
+    assert 0.7 < ratio < 1.4, f"damping ratio {ratio}"
