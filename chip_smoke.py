@@ -62,6 +62,28 @@ Phases (any failure raises and the script exits non-zero):
    finalize='converged-deposit', window_share='shared' and
    backend='composed', 2 + 5 steps each, launch counts set to 0 before each
    path and read after it.
+13. magnetized kernels — the four kernels of the magnetized engine against
+   their plain versions at bench.py's configs[3] n = 999,996 and a ragged
+   1,000,003, ng = 600: deposit2 (also against a float64 deposit), the
+   bounded gather + Boris push (mirrored and plain gather; inactive rows
+   bit-equal), the Philox source batch (uniforms bit-equal) with
+   torch.randn as its library yardstick, and the Newton-Boltzmann solve at
+   ng = 600, 301 and 128, cold and warm, timed on the row's first solve
+   (µs per Newton iteration). These four kernels run for less time than
+   their wrappers' Python overhead, so their times are device times from a
+   torch.profiler trace (``device_ms``).
+14. magnetized check — pic_iead at n = 12,000: one step from the states
+   after 0, 10 and 50 steps on the card and on the CPU with the same
+   Philox draws, at tests/test_magnetized.py:461-489's single-step limits;
+   then 200 steps on each side: the population invariant holds exactly on
+   both, and the mean phi_max agrees within 5%.
+15. magnetized slice — bench.py's configs[3] row (tools/magnetized.py):
+   1,200 steps at n = 999,996 under torch.cuda.set_sync_debug_mode("error")
+   (a host sync in a step fails the phase) with exactly 1,200 launches of
+   each of its five kernels and no other; µs/step, pushes/s, Newton
+   iterations, phi_max over the floating potential, the population
+   invariant, the Newton residual and both species' IEADs; then 20 steps
+   of backend='composed' with its launch counts.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -171,6 +193,10 @@ BYTES_PER_PARTICLE = {
     "gather": 8, "leapfrog_gather_push_deposit": 16, "explicit_cycle": 16,
     "explicit_cycle_resident": 16, "picard_finalize": 20,
     "picard_iteration_shared": 16, "implicit_resident": 16,
+    "deposit2": 12, "boris_gather_push": 40, "source_batch": 16,
+    # per row of the Newton system: rho read, phi written (the timed solve
+    # starts cold, so no warm start is read; n0 and the counts are noise)
+    "boltzmann_dirichlet": 8,
 }
 # float32 operations per particle and step, counted from the kernel bodies
 # (floor, rint, add, sub, mul and compare count one; each atomic add one).
@@ -181,6 +207,16 @@ OPS_PER_PARTICLE = {
     "gather": 6, "leapfrog_gather_push_deposit": 22, "explicit_cycle": 22,
     "explicit_cycle_resident": 25, "picard_finalize": 24,
     "picard_iteration_shared": 40, "implicit_resident": 28,
+    "deposit2": 13, "boris_gather_push": 55,
+    # 32 float32 operations (transcendentals one each) and ~100 integer
+    # ones (Philox's 10 rounds), all counted at the float32 rate
+    "source_batch": 132,
+    # per physical row and Newton iteration, what a tridiagonal Newton step
+    # needs whatever its solver: the residual (scale, clamp 2, exp, the
+    # 3-term Laplacian, 3 more) 10, the Jacobian's diagonal 2, a Thomas
+    # solve 8 (elimination 5, back substitution 3), the clip 2, the
+    # update 1 and the residual sum 2 (the kernel's PCR does ~125)
+    "boltzmann_dirichlet": 25,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
@@ -194,7 +230,37 @@ REPLACES = {
     "picard_finalize": "pypic_tpu/ops/pallas_cic.py:1772",
     "picard_iteration_shared": "pypic_tpu/ops/pallas_cic.py:1693",
     "implicit_resident": "pypic_tpu/ops/pallas_cic.py:1437",
+    "deposit2": "pypic_tpu/ops/pallas_cic.py:291",
+    "boris_gather_push": "pypic_tpu/ops/pallas_cic.py:341",
+    "boltzmann_dirichlet": "pypic_tpu/ops/pallas_newton.py:93",
+    "source_batch": "pypic_tpu/ops/pallas_rng.py:122",
 }
+SOURCES_MAGNETIZED = {
+    "deposit2": "pypic_tpu_torch/csrc/magnetized.cu",
+    "boris_gather_push": "pypic_tpu_torch/csrc/magnetized.cu",
+    "boltzmann_dirichlet": "pypic_tpu_torch/csrc/newton.cu",
+    "source_batch": "pypic_tpu_torch/csrc/rng.cu",
+}
+
+# the magnetized slice: bench.py's configs[3] row (tools/magnetized.py)
+N_MAG, N_MAG_RAGGED, NG_MAG = 999_996, 1_000_003, 600
+# the Newton kernel against its plain version (tests/test_pallas.py:315-342):
+# counts within one (tol 1e-9 sits at the float32 floor), phi within 3e-5
+# of max|phi|; warm from the plain answer, equal counts
+TOL_NEWTON_PHI = 3e-5
+# the source batch against its plain version: libdevice's logf/sinf/cosf
+# against the CPU's, a few float32 ulps (x: of the wrap length)
+TOL_SOURCE = 1e-6
+# magnetized check: n = 12,000 (fused on the card), one step from the
+# states after these steps, tests/test_magnetized.py:461-489's limits
+# (rtol, atol): rho, phi, active positions, active velocities
+MAG_CHECK_PER_SPECIES = 2000
+MAG_CHECK_AT = (0, 10, 50)
+TOL_MAG_STEP = {"rho": (1e-4, 0.0), "phi": (1e-3, 1e-8), "p": (2e-5, 1e-5),
+                "v": (2e-4, 1.0)}
+MAG_CHECK_STEPS = 200
+MAG_PHI_MAX_RTOL = 0.05  # tests/test_magnetized.py:221-230
+MAG_COMPOSED_STEPS = 20
 
 
 def bound(name: str, n: int, steps: int = 1,
@@ -202,8 +268,10 @@ def bound(name: str, n: int, steps: int = 1,
     """The least time in ms the card could take for one call on n
     particles (``steps`` cycles for the resident kernels; for
     implicit_resident, ``passes`` Picard passes in all, as its rows
-    report): the larger of the bytes over the memory rate and the
-    operations over the float32 rate."""
+    report; for boltzmann_dirichlet, n rows of the Newton system and
+    ``steps`` the Newton iterations the kernel reports): the larger of the
+    bytes over the memory rate and the operations over the float32
+    rate."""
     by_bytes = BYTES_PER_PARTICLE[name] * n / PEAK_BYTES_PER_S * 1e3
     ops = OPS_PER_PARTICLE[name] * n * (steps if passes is None else passes)
     if name == "implicit_resident":
@@ -257,6 +325,34 @@ def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of fn in ms: the kernels (and memsets) it
+    launches, summed from a torch.profiler trace of ``calls`` calls after
+    a warm-up, over the calls. For calls whose kernels are shorter than
+    the wrapper's Python overhead, where ``cuda_ms`` would time the host."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dur = sum(e["dur"] for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    if dur <= 0:
+        raise RuntimeError("the profiler saw no device activity")
+    return dur / 1e3 / calls
 
 
 def seam_err(a: torch.Tensor, b: torch.Tensor, ng: int) -> float:
@@ -1378,6 +1474,321 @@ def phase_implicit_slices(dev) -> dict:
     return res
 
 
+def _mag_inputs(n: int, gen: torch.Generator, dev):
+    """Bounded-grid particles at ng = 600: a tenth inactive, the first
+    rows at the walls and off the grid (wall-lost slots); const =
+    0.5 dt e Z / m for Z in 1..5 and boron's mass."""
+    f32 = torch.float32
+    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * (NG_MAG - 1)
+    p[:4] = torch.tensor([0.0, NG_MAG - 1.0, -0.3, NG_MAG - 0.7], device=dev)
+    v = torch.randn((3, n), generator=gen, device=dev, dtype=f32) * 2e4
+    act = (torch.rand(n, generator=gen, device=dev) < 0.9).to(f32)
+    act[2:4] = 0.0
+    z = torch.randint(1, 6, (n,), generator=gen, device=dev).to(f32)
+    const = z * (0.5 * 1e-10 * 1.602e-19 / (10.81 * 1.67e-27))
+    field = torch.randn(NG_MAG, generator=gen, device=dev, dtype=f32) * 1e5
+    return field, p, v[0], v[1], v[2], const, act
+
+
+def _newton_cases(dev):
+    """tests/test_pallas.py:315-342's inputs at ng = 600, 301 and 128."""
+    import numpy as np
+
+    for ng in (600, 301, 128):
+        rng = np.random.default_rng(11 + ng)
+        dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+        yield ng, torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(dev)
+
+
+def phase_magnetized_kernels(dev) -> dict:
+    """The magnetized engine's four kernels against their plain versions
+    at the ragged and the row's n; returns the records at the row's n (the
+    Newton solve at the row's first solve)."""
+    import numpy as np
+
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton, cuda_rng
+    from pypic_tpu_torch.tools import magnetized as row
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    records = {}
+    fast = dict(reps=3, calls=3)
+    bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6)
+    for n in (N_MAG_RAGGED, N_MAG):
+        log(f"[magnetized kernels] n = {n}, ng = {NG_MAG}")
+        field, p, vx, vy, vz, const, act = _mag_inputs(n, gen, dev)
+        va, vb = vx * act, vy.abs() * act
+        got = K.deposit2(p, va, vb, NG_MAG, periodic=False)
+        ref = K.deposit2_plain(p, va, vb, NG_MAG, periodic=False)
+        f64 = K.deposit2_plain(p.double(), va.double(), vb.double(), NG_MAG,
+                               periodic=False)
+        torch.cuda.synchronize()
+        errs = {}
+        for label, g, r, r64 in (("rho", got[0], ref[0], f64[0]),
+                                 ("n", got[1], ref[1], f64[1])):
+            a, rel = rel_err(r64, g)
+            errs[label] = dict(abs=a, err=rel, kind="rel vs float64", tol=TOL_DEP)
+            a, rel = rel_err(r, g)
+            errs[f"{label}_plain"] = dict(abs=a, err=rel, kind="rel",
+                                          tol=deposit_tol(n, NG_MAG))
+        err = _check(errs, "deposit2")
+        call = lambda: K.deposit2(p, va, vb, NG_MAG, periodic=False)  # noqa: E731
+        records["deposit2"] = _rec(
+            err, device_ms(call),
+            cuda_ms(lambda: K.deposit2_plain(p, va, vb, NG_MAG, periodic=False),
+                    **fast), "deposit2", n)
+        del got, ref, f64
+
+        worst = 0.0
+        for swap in (False, True):
+            got = K.boris_gather_push(field, p, vx, vy, vz, const, act,
+                                      swap_weights=swap, **bkw)
+            ref = K.boris_gather_push_plain(field, p, vx, vy, vz, const, act,
+                                            swap_weights=swap, **bkw)
+            torch.cuda.synchronize()
+            live = act > 0
+            held = all(torch.equal(g[~live], h[~live])
+                       for g, h in zip(got, (p, vx, vy, vz)))
+            if not held:
+                raise AssertionError("boris_gather_push: inactive rows changed")
+            a = float((got[0] - ref[0]).abs().max())
+            errs = {"p1": dict(abs=a, err=a, kind="cells", tol=TOL_POS)}
+            for k, r_, g_ in zip(("vx1", "vy1", "vz1"), ref[1:], got[1:]):
+                a, rel = rel_err(r_, g_)
+                errs[k] = dict(abs=a, err=rel, kind="rel", tol=TOL_V)
+            worst = max(worst, _check(errs, f"boris_gather_push(swap={swap})"))
+            del got, ref
+        log("[magnetized kernels]   boris_gather_push: inactive rows bit-equal "
+            "to their inputs")
+        call = lambda: K.boris_gather_push(  # noqa: E731
+            field, p, vx, vy, vz, const, act, swap_weights=True, **bkw)
+        records["boris_gather_push"] = _rec(
+            worst, device_ms(call),
+            cuda_ms(lambda: K.boris_gather_push_plain(
+                field, p, vx, vy, vz, const, act, swap_weights=True, **bkw), **fast),
+            "boris_gather_push", n)
+        del field, p, vx, vy, vz, const, act, va, vb
+
+        key, step, length, vth = (0, 1), 7, 3.0e-3, 2.2e4
+        u = cuda_rng.source_uniforms(key, step, n, device=dev)
+        u_ref = cuda_rng.source_uniforms(key, step, n, device="cpu")
+        if not torch.equal(u.cpu(), u_ref):
+            raise AssertionError("source_batch: the kernel's Philox uniforms "
+                                 "differ from philox4x32_plain's")
+        log(f"[magnetized kernels]   source_batch: {4 * n} Philox uniforms "
+            "bit-equal to philox4x32_plain's")
+        del u, u_ref
+        skw = dict(x_mu=length / 2, x_sigma=length / 12, x_wrap=length, vth=vth)
+        got = cuda_rng.source_batch(key, step, n, device=dev, **skw)
+        ref = cuda_rng.source_batch_plain(key, step, n, device=dev, **skw)
+        torch.cuda.synchronize()
+        d = (got[0].double() - ref[0].double()).abs()
+        a = float(torch.minimum(d, length - d).max())
+        errs = {"x": dict(abs=a, err=a / length, kind="of L", tol=TOL_SOURCE)}
+        for k, r_, g_ in zip(("vx", "vy", "vz"), ref[1:], got[1:]):
+            a, rel = rel_err(r_, g_)
+            errs[k] = dict(abs=a, err=rel, kind="rel", tol=TOL_SOURCE)
+        err = _check(errs, "source_batch")
+        del got, ref
+        call = lambda: cuda_rng.source_batch(key, step, n, device=dev, **skw)  # noqa: E731
+        records["source_batch"] = _rec(
+            err, device_ms(call),
+            cuda_ms(lambda: cuda_rng.source_batch_plain(key, step, n, device=dev,
+                                                         **skw), **fast),
+            "source_batch", n)
+        g = torch.Generator(device=dev).manual_seed(5)
+        records["source_batch"]["library_ms"] = device_ms(
+            lambda: torch.randn((4, n), device=dev, generator=g))
+        log(f"[magnetized kernels]   source_batch: library call torch.randn((4, n)) "
+            f"{records['source_batch']['library_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+
+    # the Newton kernel on test_pallas.py's cases, n0 a device tensor
+    n0 = torch.tensor(1e17, dtype=torch.float32, device=dev)
+    te, dx = 116000.0, 2e-5
+    worst = 0.0
+    for ng, rho in _newton_cases(dev):
+        for warm in (False, True):
+            ref0 = cuda_newton.boltzmann_dirichlet_plain(rho, n0, te, dx)
+            phi0 = ref0.phi if warm else None
+            got = cuda_newton.boltzmann_dirichlet(rho, n0, te, dx, phi0=phi0)
+            ref = (cuda_newton.boltzmann_dirichlet_plain(rho, n0, te, dx, phi0=phi0)
+                   if warm else ref0)
+            gi, ri = int(got.iterations), int(ref.iterations)
+            a, rel = rel_err(ref.phi, got.phi)
+            errs = {"phi": dict(abs=a, err=rel, kind="rel", tol=TOL_NEWTON_PHI),
+                    "residual": dict(abs=float(got.residual),
+                                     err=float(got.residual), kind="<= tol",
+                                     tol=1e-9),
+                    "iterations": dict(abs=float(abs(gi - ri)), err=float(abs(gi - ri)),
+                                       kind=f"count gap ({gi} vs plain {ri})",
+                                       tol=0.0 if warm else 1.0)}
+            worst = max(worst, _check(errs, f"boltzmann_dirichlet(ng={ng}, "
+                                            f"{'warm' if warm else 'cold'})"))
+    # timed on the row's first solve: its deposit, n0 = 0.9 <n>, cold start
+    cfg, st, _ = row.state(dev)
+    w_rho = st.charge_state * 1.602e-19 * st.p2c / cfg.grid.dx
+    rho, n_dens = K.deposit2(st.p, w_rho, st.p2c / cfg.grid.dx, NG_MAG,
+                             periodic=False)
+    n0 = 0.9 * torch.mean(n_dens)
+    del st, w_rho
+    kw = dict(tol=cfg.newton_tol, maxiter=cfg.newton_maxiter)
+    got = cuda_newton.boltzmann_dirichlet(rho, n0, cfg.te, cfg.grid.dx, **kw)
+    ref = cuda_newton.boltzmann_dirichlet_plain(rho, n0, cfg.te, cfg.grid.dx, **kw)
+    iters = int(got.iterations)
+    a, rel = rel_err(ref.phi, got.phi)
+    worst = max(worst, _check(
+        {"phi": dict(abs=a, err=rel, kind=f"rel ({iters} vs plain "
+                     f"{int(ref.iterations)} iterations)", tol=TOL_NEWTON_PHI)},
+        "boltzmann_dirichlet(configs[3] row's first solve)"))
+    records["boltzmann_dirichlet"] = _rec(
+        worst, device_ms(lambda: cuda_newton.boltzmann_dirichlet(
+            rho, n0, cfg.te, cfg.grid.dx, **kw)),
+        cuda_ms(lambda: cuda_newton.boltzmann_dirichlet_plain(
+            rho, n0, cfg.te, cfg.grid.dx, **kw), **fast),
+        "boltzmann_dirichlet", NG_MAG, iters)
+    rec = records["boltzmann_dirichlet"]
+    rec["iterations"] = iters
+    rec["us_per_iteration"] = rec["ms"] * 1e3 / iters
+    log(f"[magnetized kernels]   boltzmann_dirichlet at ng = {NG_MAG}: "
+        f"{iters} iterations, {rec['us_per_iteration']:.3f} us per iteration")
+    return records
+
+
+def _mag_step_errors(c, g) -> dict:
+    """One step on the CPU (c) and the card (g), each (state, metrics):
+    the largest |g - c| / (atol + rtol |c|) of each quantity (<= 1 passes
+    assert_allclose's test)."""
+    sc, mc = c
+    sg, mg = g
+    act = sc.active == 1
+
+    def worst(ref, got, key):
+        rtol, atol = TOL_MAG_STEP[key]
+        ref, got = ref.double(), got.double().cpu()
+        return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+    return {"rho": worst(mc.rho, mg.rho, "rho"), "phi": worst(mc.phi, mg.phi, "phi"),
+            "p": worst(sc.p[act], sg.p.cpu()[act], "p"),
+            "v": worst(sc.v[act], sg.v.cpu()[act], "v")}
+
+
+def _population(m) -> list:
+    """tests/test_magnetized.py:341-353 as a list of problems."""
+    tot = (m.n_active + m.n_hit_wall).cpu()
+    react, hits = m.n_reactivated.cpu(), m.n_hit_wall.cpu()
+    out = []
+    if not bool((tot == tot[0]).all()):
+        out.append(f"n_active + hits not constant ({int(tot.min())}-{int(tot.max())})")
+    if not torch.equal(react[1:], hits[:-1]):
+        out.append("re-activations differ from the previous step's losses")
+    return out
+
+
+def phase_magnetized_check(dev) -> dict:
+    """pic_iead at n = 12,000 on the card (the 'auto' configuration: fused,
+    Newton kernel, Philox kernel) against the CPU (the same fused path and
+    Newton PCR in their plain versions, the same Philox draws)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.pic_iead(n_per_species=MAG_CHECK_PER_SPECIES, device="cpu")
+    cfg_cpu = dataclasses.replace(pre.config, backend="fused", newton_backend="pallas")
+    step_cpu = magnetized.make_step(cfg_cpu)
+    step_gpu = magnetized.make_step(pre.config)
+    snaps, st = {}, pre.state
+    for i in range(max(MAG_CHECK_AT) + 1):
+        if i in MAG_CHECK_AT:
+            snaps[i] = interop.magnetized_state_to_numpy(st)
+        if i < max(MAG_CHECK_AT):
+            st, _ = step_cpu(st)
+    problems = []
+    for i, d in snaps.items():
+        c = step_cpu(interop.magnetized_state_from_numpy(d, "cpu"))
+        g = step_gpu(interop.magnetized_state_from_numpy(d, dev))
+        errs = _mag_step_errors(c, g)
+        counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
+                  for k in ("n_hit_wall", "n_reactivated", "newton_iters")}
+        counts["n_active"] = (int(c[1].n_active), int(g[1].n_active))
+        log(f"[magnetized check] n = {pre.state.p.shape[0]}, step {i} -> {i + 1}, "
+            "GPU vs CPU, |d| / (atol + rtol |ref|) (<= 1 passes): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; counts (CPU, GPU) {counts}")
+        bad = {k: v for k, v in errs.items() if not v <= 1.0}
+        if counts["n_active"][0] != counts["n_active"][1]:
+            bad["n_active"] = counts["n_active"]
+        if bad:
+            problems.append(f"step {i}: {bad}")
+    out = {}
+    for label, step, device in (("CPU", step_cpu, "cpu"), ("GPU", step_gpu, dev)):
+        s0 = interop.magnetized_state_from_numpy(snaps[0], device)
+        _, m = run(step, s0, MAG_CHECK_STEPS)
+        out[label] = float(m.phi_max[5:].double().mean())
+        pop = _population(m)
+        log(f"[magnetized check] {MAG_CHECK_STEPS} steps on the {label}: mean "
+            f"phi_max (steps 5-{MAG_CHECK_STEPS - 1}) {out[label]:.6f} V, Newton "
+            f"mean {float(m.newton_iters.float().mean()):.3f}, wall losses "
+            f"{int(m.n_hit_wall.sum())}; population invariant "
+            + ("holds" if not pop else f"FAILS: {pop}"))
+        problems += [f"{label}: {x}" for x in pop]
+    rel = abs(out["GPU"] - out["CPU"]) / abs(out["CPU"])
+    log(f"[magnetized check] mean phi_max GPU vs CPU: {rel:.3e} (tol {MAG_PHI_MAX_RTOL})")
+    if not rel <= MAG_PHI_MAX_RTOL:
+        problems.append(f"phi_max means {out}")
+    if problems:
+        raise AssertionError("magnetized check: " + "; ".join(problems))
+    return dict(phi_max_rel=rel)
+
+
+def phase_magnetized_slice(dev) -> dict:
+    """bench.py's configs[3] row through tools/magnetized.py, then the
+    composed backend."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, cfg, fin, m = row.run_row(dev)
+    steps = row.STEPS
+    want = {k: 0 for k in cuda_cic.LAUNCHES}
+    want.update(deposit2=steps, boltzmann_dirichlet=steps,
+                boris_gather_push=steps, source_batch=steps, deposit=steps)
+    launches = dict(cuda_cic.LAUNCHES)
+    res["launches"] = launches
+    log(f"[magnetized slice] configs[3] row: n = {res['n']}, ng = {NG_MAG}, "
+        f"{steps} steps under sync debug mode 'error': {res['us_per_step']:.3f} "
+        f"us/step, {res['pushes_per_s']:.4e} pushes/s, Newton mean "
+        f"{res['newton_mean']:.3f} (max {int(m.newton_iters.max())}), phi_max / "
+        f"phi_f (last 100 steps) {res['phi_max_over_phi_f']:.4f}, wall losses "
+        f"{int(m.n_hit_wall.sum())}, IEAD counts "
+        f"{fin.iead.sum(dim=(1, 2)).cpu().tolist()}")
+    log(f"[magnetized slice] configs[3] row: launches {launches}")
+    problems = row.check_row(cfg, fin, m)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    del fin, m
+    res_c, _, fin, m = row.run_row(dev, steps=MAG_COMPOSED_STEPS, backend="composed")
+    want_c = {k: 0 for k in cuda_cic.LAUNCHES}
+    want_c.update(gather=MAG_COMPOSED_STEPS, deposit=3 * MAG_COMPOSED_STEPS,
+                  boltzmann_dirichlet=MAG_COMPOSED_STEPS,
+                  source_batch=MAG_COMPOSED_STEPS)
+    launches_c = dict(cuda_cic.LAUNCHES)
+    res_c["launches"] = launches_c
+    log(f"[magnetized slice] backend='composed': {MAG_COMPOSED_STEPS} steps, "
+        f"{res_c['us_per_step']:.3f} us/step, launches {launches_c}")
+    problems += [f"composed: {x}" for x in _population(m)]
+    if launches_c != want_c:
+        problems.append(f"composed launches {launches_c} != {want_c}")
+    if not bool(torch.isfinite(fin.p).all() and torch.isfinite(m.phi).all()):
+        problems.append("composed: non-finite state")
+    if problems:
+        raise AssertionError("magnetized slice: " + "; ".join(problems))
+    res["composed"] = res_c
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -1405,6 +1816,9 @@ def main() -> int:
     ik = phase("implicit kernels", phase_implicit_kernels, dev)
     phase("implicit check", phase_implicit_check, dev)
     isl = phase("implicit slices", phase_implicit_slices, dev)
+    mk = phase("magnetized kernels", phase_magnetized_kernels, dev)
+    mc = phase("magnetized check", phase_magnetized_check, dev)
+    ms = phase("magnetized slice", phase_magnetized_slice, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -1418,12 +1832,15 @@ def main() -> int:
     launches["picard_iteration_shared"] = (
         isl["shared"]["launches"]["picard_iteration_shared"])
     launches["implicit_resident"] = isl["launches"]["implicit_resident"]
-    records = {**k, **ek, **ik}
+    for kname in SOURCES_MAGNETIZED:
+        launches[kname] = ms["launches"][kname]
+    records = {**k, **ek, **ik, **mk}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
                    picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
-                   implicit_resident="pypic_tpu_torch/csrc/implicit.cu")
+                   implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
+                   **SOURCES_MAGNETIZED)
     log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname],
@@ -1453,6 +1870,13 @@ def main() -> int:
                 "first_rows_iters_differ")},
             **{f"{path}_ms_per_step": isl[path]["ms_per_step"]
                for path in ("converged_deposit", "shared", "composed")}},
+        "magnetized_slice": {
+            **{key: ms[key] for key in (
+                "n", "steps", "us_per_step", "pushes_per_s", "newton_mean",
+                "phi_max_over_phi_f")},
+            "composed_us_per_step": ms["composed"]["us_per_step"],
+            "newton_us_per_iteration": mk["boltzmann_dirichlet"]["us_per_iteration"],
+            "check_phi_max_rel": mc["phi_max_rel"]},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 // CIC helpers shared by the particle kernels (cic.cu, explicit.cu,
-// implicit.cu).
+// implicit.cu, magnetized.cu).
 //
 // Plain CIC index arithmetic (pypic_tpu/ops/cic.py cic_indices_weights):
 // idx_l = clip(floor(p), 0, num_cells - 1), w_r = p - idx_l,

@@ -1,0 +1,596 @@
+"""Magnetized Boltzmann-electron sheath engine (the counterpart of
+``pypic_tpu/engines/magnetized.py``; gen-4, pygcpic.py).
+
+One step of the ``pic_iead`` driver's cycle (pygcpic.py:1200-1294) with
+Dirichlet-Dirichlet walls:
+
+1. deposit of the ion charge and number densities, and the adaptive
+   Boltzmann reference-density update (pygcpic.py:841-905): the first
+   step pins n0 = 0.9 <n>, later steps evolve it from trapz(exp(phi/Te)),
+   the wall factors and the particle ledger;
+2. optional binomial smoothing of rho (pygcpic.py:1491);
+3. the Newton Boltzmann Poisson solve from the wall-referenced warm start;
+4. E = -grad phi, the bounded CIC gather (the reference's mirrored
+   intra-cell weights by default) and the Boris-Buneman push in the
+   constant B (pygcpic.py:460-507);
+5. wall deactivation and the wall-impact energy-angle (IEAD) histograms
+   per species (pygcpic.py:668-689, 1239-1262);
+6. re-activation of inactive slots from the volumetric source
+   (pygcpic.py:691-720, 1248-1254), crediting the particle ledger.
+
+Backends, as the JAX engine's, with CUDA in the place of the TPU:
+
+* fused (``backend='auto'`` on a CUDA state with n >= 8192): one
+  ``deposit2`` sweep for rho and n and one ``boris_gather_push`` sweep;
+* composed: two ``deposit`` launches, the ``gather`` kernel and the
+  tensor-op ``push.boris_push_dt``.
+
+The Newton solve is the one-launch kernel ``ops.cuda_newton.
+boltzmann_dirichlet`` (``newton_backend`` 'pallas', and 'auto' on a CUDA
+state) or the op-composed Thomas loop ``ops.poisson.
+solve_boltzmann_dirichlet`` ('xla', and 'auto' on the CPU), which reads
+its residual on the host once an iteration. The re-activation batch is the
+Philox kernel ``ops.cuda_rng.source_batch`` (``sources.
+sample_source_batch``) for ``source_sampler`` 'auto' and 'pallas', keyed by
+the state's two key words at counter (slot, step): with the default
+backends a step on the card makes no host sync. The IEAD histogram is a
+``deposit`` launch over every particle.
+
+The step's host-side facts (the step number for the first-step branch of
+the n0 update and the Philox counter, the key, the shapes) live on the
+host in the state, so nothing is read back from the card.
+
+Options that need modules or kernels not ported yet raise
+``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import devices, sources
+from ..constants import E_CHARGE, EV_TO_K, K_BOLTZMANN, M_ELECTRON
+from ..grid import DIRICHLET_NEUMANN, GridSpec
+from ..ops import cuda_cic, cuda_newton
+from ..ops.cic import deposit, gather, histogram_add
+from ..ops.fd import grad_neg_bounded, smooth_bounded
+from ..ops.poisson import solve_boltzmann_dirichlet
+from ..push import boris_push_dt
+
+_MASK32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceSpec:
+    """Species data for re-activated particles (pygcpic.py:1251 args)."""
+
+    mass: float
+    charge_state: float
+    p2c: float
+    species_idx: int  # row into MagnetizedConfig.species_z
+    ti: float  # sampling temperature [K]
+    vx: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MagnetizedConfig:
+    """Same fields, defaults and validation as
+    ``pypic_tpu.engines.magnetized.MagnetizedConfig``; see its comments
+    for what each option means. 'auto' resolves with CUDA in the place of
+    the TPU (module docstring)."""
+
+    grid: GridSpec  # 'dirichlet-dirichlet' or 'dirichlet-neumann'
+    dt: float
+    te: float  # electron temperature [K]
+    b: Tuple[float, float, float]  # magnetic field [T] (pygcpic.py:1329)
+    species_z: Tuple[int, ...]  # species_idx -> atomic number Z
+    smooth_rho: bool = False
+    newton_tol: float = 1e-9  # pygcpic.py:1022
+    newton_maxiter: int = 1000  # pygcpic.py:1023
+    newton_warm: str = "previous"
+    newton_backend: str = "auto"
+    ionization: bool = False
+    max_charge_state: int = 3
+    reactivate: str = "none"  # 'source' | 'capped-source' | 'flux' | 'none'
+    source: Optional[SourceSpec] = None
+    source_n: int = 0
+    source_sampler: str = "auto"
+    react_batch: int = 0
+    carried_deposit: str = "auto"
+    carried_ion_cap: int = 16384
+    carried_pad: int = 2
+    flux_limit: int = 0
+    flux_gamma: float = 0.0
+    flux_vx_pert: float = 0.0
+    react_timing: str = "reference"
+    iead_bins: Tuple[int, int] = (40, 40)  # (energies, angles)
+    iead_energy_max: float = 0.0  # [eV]; 0 disables IEAD accumulation
+    iead_angle_max: float = 90.0
+    deposit_method: str = "auto"
+    impact_buffer_size: int = 0
+    bca_escape: bool = False
+    backend: str = "auto"  # 'auto' | 'fused' | 'composed'
+    pusher: str = "boris"
+    gc_eom: str = "physical"
+    gather_weights: str = "reference"
+    eta_in_volts: bool = False
+    axis_name: Optional[str] = None
+
+    def __post_init__(self):
+        for f in ("dt", "te", "newton_tol", "flux_gamma", "flux_vx_pert",
+                  "iead_energy_max", "iead_angle_max"):
+            object.__setattr__(self, f, float(getattr(self, f)))
+        object.__setattr__(self, "b", tuple(float(v) for v in self.b))
+        object.__setattr__(self, "species_z", tuple(int(z) for z in self.species_z))
+        if self.source_sampler not in ("auto", "hash", "threefry", "pallas"):
+            raise ValueError(f"unknown source_sampler {self.source_sampler!r}")
+        if self.newton_warm not in ("extrapolate", "previous"):
+            raise ValueError(f"unknown newton_warm {self.newton_warm!r}")
+        if self.gather_weights not in ("reference", "cic"):
+            raise ValueError(f"unknown gather_weights {self.gather_weights!r}")
+        if self.newton_backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown newton_backend {self.newton_backend!r}")
+        if self.pusher not in ("boris", "gc"):
+            raise ValueError(f"unknown pusher {self.pusher!r}")
+        if self.gc_eom not in ("physical", "reference"):
+            raise ValueError(f"unknown gc_eom {self.gc_eom!r}")
+        if self.pusher == "gc" and not any(v != 0.0 for v in self.b):
+            raise ValueError("pusher='gc' requires a nonzero magnetic field")
+        if self.pusher == "gc" and self.backend == "fused":
+            raise ValueError(
+                "backend='fused' does not support pusher='gc' (the GC path "
+                "mixes per-particle RK4/Boris by mode — use backend='auto' "
+                "or 'composed')")
+        if self.source_sampler == "pallas" and self.reactivate == "flux":
+            raise ValueError(
+                "source_sampler='pallas' does not implement the flux-source "
+                "CDF table draw — use 'auto' (falls back to threefry here), "
+                "'threefry', or 'hash'")
+        if self.react_batch < 0:
+            raise ValueError("react_batch must be >= 0")
+        if self.react_timing not in ("reference", "immediate"):
+            raise ValueError(f"unknown react_timing {self.react_timing!r}")
+        if self.carried_deposit not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown carried_deposit {self.carried_deposit!r}")
+        if self.carried_deposit == "on":
+            if self.pusher != "boris":
+                raise ValueError("carried_deposit requires pusher='boris' "
+                                 "(the GC path composes per-particle modes)")
+            if self.reactivate != "none" and self.react_batch <= 0:
+                raise ValueError(
+                    "carried_deposit needs react_batch > 0 with "
+                    "re-activation — the batch table bounds the "
+                    "re-activation patch exactly")
+        if self.axis_name is not None:
+            if (self.react_batch == 0 and self.reactivate != "none"
+                    and self.source_sampler in ("threefry", "pallas")):
+                raise ValueError(
+                    "data-parallel full-capacity re-activation needs "
+                    "source_sampler='hash' (slot-offset counters give "
+                    "shard-invariant draws; a replicated threefry key would "
+                    "draw the SAME batch on every shard) — 'auto' resolves "
+                    "to hash here, or set react_batch > 0 (rank-keyed "
+                    "draws from a replicated table are shard-invariant for "
+                    "every sampler)"
+                )
+            if self.impact_buffer_size > 0:
+                raise ValueError(
+                    "impact_buffer_size > 0 is not supported under "
+                    "data-parallel sharding (host-hybrid BCA seam)"
+                )
+
+
+@dataclasses.dataclass
+class MagnetizedState:
+    """The JAX state's fields, flat (n,) particle tensors. ``rng`` is the
+    Philox key, two 32-bit words on the host (the JAX state's key data);
+    the draws of step s use counter (slot, s), so the key never changes.
+    ``step_host`` is ``step`` on the host (read once when a state is built
+    without it), so that a step needs no host read."""
+
+    p: torch.Tensor  # (n,) x in grid coordinates
+    y: torch.Tensor  # (n,) lateral position [m]
+    z: torch.Tensor  # (n,) lateral position [m]
+    vx: torch.Tensor  # (n,) [m/s]
+    vy: torch.Tensor
+    vz: torch.Tensor
+    m: torch.Tensor  # (n,) mass [kg]
+    charge_state: torch.Tensor  # (n,) charge number (float)
+    p2c: torch.Tensor  # (n,)
+    species_idx: torch.Tensor  # (n,) int32 row into cfg.species_z
+    t: torch.Tensor  # (n,) particle time [s] (pygcpic r[6])
+    active: torch.Tensor  # (n,) int32 {1, 0}
+    at_wall: torch.Tensor  # (n,) int32
+    from_wall: torch.Tensor  # (n,) int32 (BCA products)
+    mode: torch.Tensor  # (n,) int32 {0: 6D, 1: guiding-center}
+    phi: torch.Tensor  # (ng,) potential [V]
+    phi_prev: torch.Tensor  # (ng,) previous-step potential
+    rho: torch.Tensor  # (ng,) carried deposit (carried_deposit='on' only)
+    n: torch.Tensor  # (ng,)
+    n0: torch.Tensor  # () Boltzmann electron reference density
+    p_old: torch.Tensor  # () previous trapz(exp(phi/Te)) (pygcpic.py:891)
+    added: torch.Tensor  # () particle-creation ledger (pygcpic.py:1111-1117)
+    rng: Tuple[int, int]  # Philox key words
+    iead: torch.Tensor  # (S, ne, na) wall-impact histograms per species
+    iead_out: torch.Tensor  # (S, ne, na) sheath-escape histograms
+    step: torch.Tensor  # () int32
+    step_host: Optional[int] = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.step_host is None:
+            self.step_host = int(self.step.item())
+        self.rng = tuple(int(k) & _MASK32 for k in self.rng)
+
+    def replace(self, **changes) -> "MagnetizedState":
+        if "step" in changes:
+            changes.setdefault("step_host", None)
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def v(self) -> torch.Tensor:
+        """(n, 3) stacked velocity view (diagnostics and tests)."""
+        return torch.stack([self.vx, self.vy, self.vz], dim=-1)
+
+    @property
+    def yz(self) -> torch.Tensor:
+        """(n, 2) stacked lateral-position view."""
+        return torch.stack([self.y, self.z], dim=-1)
+
+
+class StepMetrics(NamedTuple):
+    n0: torch.Tensor
+    phi_max: torch.Tensor
+    newton_iters: torch.Tensor
+    newton_residual: torch.Tensor
+    n_active: torch.Tensor
+    n_hit_wall: torch.Tensor
+    n_ionized: torch.Tensor
+    n_reactivated: torch.Tensor
+    added: torch.Tensor
+    rho: torch.Tensor  # (ng,)
+    phi: torch.Tensor  # (ng,)
+    # the JAX engine's metrics of the options not ported yet: zero (and
+    # zero-size impact/escape rows) on this path
+    impacts: torch.Tensor
+    n_impacts: torch.Tensor
+    n_escaped: torch.Tensor
+    carry_clamped: torch.Tensor
+    n_ion_suppressed: torch.Tensor
+    n_escape_deferred: torch.Tensor
+    escapes: torch.Tensor
+    n_escape_rows: torch.Tensor
+
+
+_ITEM_NEXT = "item 14b, the magnetized stack's next slice"
+_ITEM_PARALLEL = "item 17, parallel, on torch.distributed"
+_ITEM_GATED = "item 18, options measured negative or gated off"
+
+
+def _check_ported(cfg: MagnetizedConfig) -> None:
+    """Raise NotImplementedError for options whose modules or kernels are
+    not ported yet."""
+    todo = {
+        "grid.bc='dirichlet-neumann'": (cfg.grid.bc == DIRICHLET_NEUMANN,
+                                        _ITEM_NEXT),
+        "ionization=True": (cfg.ionization, _ITEM_NEXT),
+        f"reactivate={cfg.reactivate!r}": (
+            cfg.reactivate not in ("none", "source"), _ITEM_NEXT),
+        "pusher='gc'": (cfg.pusher == "gc", _ITEM_NEXT),
+        "react_batch > 0": (cfg.react_batch > 0, _ITEM_GATED),
+        "carried_deposit='on'": (cfg.carried_deposit == "on", _ITEM_GATED),
+        "impact_buffer_size > 0": (cfg.impact_buffer_size > 0, _ITEM_NEXT),
+        "bca_escape=True": (cfg.bca_escape, _ITEM_NEXT),
+        "axis_name": (cfg.axis_name is not None, _ITEM_PARALLEL),
+        f"source_sampler={cfg.source_sampler!r}": (
+            cfg.source_sampler in ("hash", "threefry"), _ITEM_NEXT),
+        f"deposit_method={cfg.deposit_method!r}": (
+            cfg.deposit_method != "auto", _ITEM_GATED),
+    }
+    for what, (hit, item) in todo.items():
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
+
+
+def init_state(x, v3, m, charge_state, p2c, species_idx,
+               cfg: MagnetizedConfig, yz=None, seed: int = 0,
+               dtype: torch.dtype = torch.float32, capacity: int | None = None,
+               device: torch.device | str | None = None) -> MagnetizedState:
+    """Build the fixed-capacity state from host (numpy) arrays.
+    ``capacity`` > n adds inactive free slots. Positions are divided by dx
+    in x's own precision on the host, then cast to ``dtype``. ``device``
+    defaults to the current CUDA device; without a card, pass
+    ``device='cpu'``. The Philox key is the JAX key data of
+    ``PRNGKey(seed)``: (seed >> 32, seed & 0xffffffff)."""
+    _check_ported(cfg)
+    grid = cfg.grid
+    device = devices.resolve(device)
+    n = np.shape(x)[0]
+    cap = int(capacity) if capacity is not None else n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < initial particle count {n}")
+    pad = cap - n
+
+    def padded(arr, fill=0.0):
+        arr = np.asarray(arr)
+        if pad == 0:
+            return arr
+        shape = (pad,) + arr.shape[1:]
+        return np.concatenate([arr, np.full(shape, fill, arr.dtype)])
+
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
+    def put(arr, dt=np_dtype):
+        return torch.from_numpy(np.array(arr, dtype=dt)).to(device)
+
+    x = padded(np.asarray(x))
+    v3 = padded(np.broadcast_to(np.asarray(v3), (n, 3)))
+    m = padded(np.broadcast_to(np.asarray(m, np.float64), (n,)), fill=1.0)
+    charge_state = padded(np.broadcast_to(np.asarray(charge_state, np.float64), (n,)))
+    p2c = padded(np.broadcast_to(np.asarray(p2c, np.float64), (n,)))
+    species_idx = padded(np.broadcast_to(np.asarray(species_idx, np.int32), (n,)))
+    active0 = np.concatenate([np.ones(n, np.int32), np.zeros(pad, np.int32)])
+    yz_a = np.zeros((cap, 2)) if yz is None else padded(np.asarray(yz))
+    ne, na = cfg.iead_bins
+    s = len(cfg.species_z)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    seed = int(seed)
+    return MagnetizedState(
+        p=put(x / grid.dx),
+        y=put(yz_a[:, 0]), z=put(yz_a[:, 1]),
+        vx=put(v3[:, 0]), vy=put(v3[:, 1]), vz=put(v3[:, 2]),
+        m=put(m), charge_state=put(charge_state), p2c=put(p2c),
+        species_idx=put(species_idx, np.int32),
+        t=zeros((cap,)),
+        active=put(active0, np.int32),
+        at_wall=zeros((cap,), torch.int32),
+        from_wall=zeros((cap,), torch.int32),
+        mode=zeros((cap,), torch.int32),
+        phi=zeros((grid.ng,)), phi_prev=zeros((grid.ng,)),
+        rho=zeros((grid.ng,)), n=zeros((grid.ng,)),
+        n0=zeros(()), p_old=zeros(()), added=zeros(()),
+        rng=((seed >> 32) & _MASK32, seed & _MASK32),
+        iead=zeros((s, ne, na)), iead_out=zeros((s, ne, na)),
+        step=zeros((), torch.int32), step_host=0,
+    )
+
+
+def boltzmann_n0_update(step: int, n0_prev, p_old, added, q_new, p_new, *,
+                        dt, ve, n_mean):
+    """Adaptive Boltzmann reference-density recurrence (pygcpic.py:889-904).
+    ``step`` is the host step number; the rest are 0-d tensors. Returns
+    (n0, p_new)."""
+    if step == 0:
+        return 0.9 * n_mean, p_new
+    r_new = 2.0 * added / dt
+    fn = torch.sqrt(ve * q_new * dt / p_new)
+    n0 = n0_prev * (
+        (1.0 - fn) * p_old / p_new + fn - fn * fn / 4.0
+    ) + r_new * dt / p_new
+    return n0, p_new
+
+
+def mirror_gather_position(p, hi):
+    """The reference's swapped-intra-cell-weight Dirichlet E gather
+    (pygcpic.py:343-347) as a position transform: standard CIC weights at
+    the cell-mirrored position 2 floor(p) + 1 - p (the fused kernel inlines
+    the same algebra)."""
+    pc = torch.clamp(p, 0.0, hi)
+    return torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
+
+
+def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
+                energy_max, angle_max):
+    """Wall-impact energy-angle histogram update (pygcpic.py:1239-1262):
+    energy in eV, angle to the wall normal in degrees; impacts outside
+    [0, emax] x [0, amax] are left out, as np.histogram2d's range does.
+    The histogram is one width-0 deposit over every particle
+    (``ops.cic.histogram_add``, the deposit kernel on the card). Returns
+    iead + the update."""
+    ne, na = bins
+    energy_ev = (0.5 * m * (vdx * vdx + vdy * vdy + vdz * vdz) / E_CHARGE)
+    vyz = torch.sqrt(vdy ** 2 + vdz ** 2)
+    angle = torch.atan2(vyz, torch.abs(vdx)) * (180.0 / math.pi)
+    in_range = ((energy_ev >= 0.0) & (energy_ev <= energy_max)
+                & (angle >= 0.0) & (angle <= angle_max))
+    ei = torch.clamp((energy_ev * (ne / energy_max)).to(torch.int32), 0, ne - 1)
+    ai = torch.clamp((angle * (na / angle_max)).to(torch.int32), 0, na - 1)
+    flat = species_idx * (ne * na) + ei * na + ai
+    weight = torch.where(hit & in_range, 1.0, 0.0).to(iead.dtype)
+    upd = histogram_add(flat, weight, iead.numel())
+    return iead + upd.reshape(iead.shape)
+
+
+def make_step(cfg: MagnetizedConfig,
+              source_draws: Optional[Callable] = None):
+    """Build the step: state -> (state, StepMetrics).
+
+    ``source_draws(step, n)``, when given, replaces the re-activation
+    sampler: it returns {"x" [m], "vx", "vy", "vz"}, (n,) tensors on the
+    state's device. The CPU tests pass the JAX engine's own draws through
+    it; the engine's path never does.
+    """
+    _check_ported(cfg)
+    grid = cfg.grid
+    ng, dx, dt = grid.ng, grid.dx, cfg.dt
+    cells = float(grid.num_cells)
+    swap = cfg.gather_weights == "reference"
+    # the reference's eta = exp(phi / Te / 11600) with Te in Kelvin
+    # (pygcpic.py:890; see the JAX config's eta_in_volts)
+    te_volts = (cfg.te / EV_TO_K) if cfg.eta_in_volts else (cfg.te * EV_TO_K)
+    ve = float(np.sqrt(8.0 / np.pi * K_BOLTZMANN * cfg.te / M_ELECTRON))
+    src = cfg.source
+    zeros_by_device = {}
+
+    def _zeros(dev):
+        """The step's constant zero metrics, made once a device."""
+        if dev not in zeros_by_device:
+            zeros_by_device[dev] = dict(
+                i=torch.zeros((), dtype=torch.int32, device=dev),
+                impacts=torch.zeros((0, 7), dtype=torch.float32, device=dev),
+                escapes=torch.zeros((0, 4), dtype=torch.float32, device=dev))
+        return zeros_by_device[dev]
+
+    def _use_fused(state) -> bool:
+        if cfg.backend == "fused":
+            return True
+        if cfg.backend == "composed":
+            return False
+        if cfg.backend != "auto":
+            raise ValueError(f"unknown backend {cfg.backend!r}")
+        return state.p.is_cuda and state.p.shape[0] >= 8192
+
+    def _newton(rho, n0, phi_warm):
+        kernel = (cfg.newton_backend == "pallas"
+                  or (cfg.newton_backend == "auto" and rho.is_cuda))
+        solve = (cuda_newton.boltzmann_dirichlet
+                 if kernel and rho.dtype == torch.float32
+                 else solve_boltzmann_dirichlet)
+        return solve(rho, n0, cfg.te, dx, tol=cfg.newton_tol,
+                     maxiter=cfg.newton_maxiter, phi0=phi_warm)
+
+    def _draws(state, step_i: int, n: int):
+        if source_draws is not None:
+            return source_draws(step_i, n)
+        return sources.sample_source_batch(
+            state.rng, step_i, n, grid, src.ti, src.mass, vx=src.vx,
+            device=state.p.device)
+
+    def step(state: MagnetizedState):
+        dev = state.p.device
+        n = state.p.shape[0]
+        step_i = state.step_host
+        zero = _zeros(dev)
+        fused = _use_fused(state)
+        is_active = state.active == 1
+        w_rho = torch.where(
+            is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
+        w_n = torch.where(is_active, state.p2c / dx, 0.0)
+        if fused:
+            rho, n_dens = cuda_cic.deposit2(state.p, w_rho, w_n, ng,
+                                            periodic=False)
+        else:
+            rho = deposit(state.p, w_rho, ng, periodic=False)
+            n_dens = deposit(state.p, w_n, ng, periodic=False)
+        eta = torch.exp(state.phi / te_volts)
+        n0, p_old = boltzmann_n0_update(
+            step_i, state.n0, state.p_old, state.added,
+            q_new=eta[0] + eta[-1], p_new=torch.trapezoid(eta, dx=dx),
+            dt=dt, ve=ve, n_mean=torch.mean(n_dens))
+        added = torch.zeros_like(state.added)  # reset (pygcpic.py:1215)
+        if cfg.smooth_rho:
+            rho = smooth_bounded(rho)
+
+        phi_warm = (2.0 * state.phi - state.phi_prev
+                    if cfg.newton_warm == "extrapolate" else state.phi)
+        # wall-referenced warm start: the previous converged, unshifted
+        # Newton point (see the JAX engine)
+        phi_warm = phi_warm - phi_warm[0]
+        res = _newton(rho, n0, phi_warm)
+        phi = res.phi
+        e_field = grad_neg_bounded(phi, dx)
+
+        if fused:
+            const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
+            act_f = is_active.to(state.p.dtype)
+            p1, vx1, vy1, vz1 = cuda_cic.boris_gather_push(
+                e_field, state.p, state.vx, state.vy, state.vz, const, act_f,
+                b=cfg.b, dt_dx=dt / dx, swap_weights=swap)
+            y1 = torch.where(is_active, state.y + dt * vy1, state.y)
+            z1 = torch.where(is_active, state.z + dt * vz1, state.z)
+        else:
+            pos = mirror_gather_position(state.p, cells) if swap else state.p
+            e_p = torch.where(is_active, gather(e_field, pos, periodic=False),
+                              0.0)
+            # B as float32 values, as the JAX engine's f32 b vector
+            b32 = tuple(float(np.float32(v)) for v in cfg.b)
+            x1, yz1, v1 = boris_push_dt(state.p * dx, state.yz, state.v, e_p,
+                                        b32, state.charge_state, state.m, dt)
+            p1 = torch.where(is_active, x1 / dx, state.p)
+            y1 = torch.where(is_active, yz1[:, 0], state.y)
+            z1 = torch.where(is_active, yz1[:, 1], state.z)
+            vx1 = torch.where(is_active, v1[:, 0], state.vx)
+            vy1 = torch.where(is_active, v1[:, 1], state.vy)
+            vz1 = torch.where(is_active, v1[:, 2], state.vz)
+        t1 = torch.where(is_active, state.t + dt, state.t)
+
+        # Dirichlet walls (pygcpic.py:668-689)
+        hit = is_active & ((p1 < 0.0) | (p1 > cells))
+        active = torch.where(hit, 0, state.active)
+        at_wall = torch.where(hit, 1, state.at_wall)
+        iead = state.iead
+        if cfg.iead_energy_max > 0.0:
+            iead = iead_update(iead, state.species_idx, state.m, vx1, vy1,
+                               vz1, hit, bins=cfg.iead_bins,
+                               energy_max=cfg.iead_energy_max,
+                               angle_max=cfg.iead_angle_max)
+
+        n_react = zero["i"]
+        m_arr, p2c_arr, sp_arr = state.m, state.p2c, state.species_idx
+        charge_state, mode, fw = state.charge_state, state.mode, state.from_wall
+        if cfg.reactivate == "source":
+            # 'reference': the slots inactive at step START, so a slot lost
+            # in this push waits one step (pygcpic.py:1249-1254)
+            take = ((state.active != 1) if cfg.react_timing == "reference"
+                    else (active != 1))
+            batch = _draws(state, step_i, n)
+            p1 = torch.where(take, batch["x"] / dx, p1)
+            y1 = torch.where(take, 0.0, y1)
+            z1 = torch.where(take, 0.0, z1)
+            vx1 = torch.where(take, batch["vx"], vx1)
+            vy1 = torch.where(take, batch["vy"], vy1)
+            vz1 = torch.where(take, batch["vz"], vz1)
+            mode = torch.where(take, 0, mode)
+            m_arr = torch.where(take, src.mass, m_arr)
+            charge_state = torch.where(take, src.charge_state, charge_state)
+            p2c_arr = torch.where(take, src.p2c, p2c_arr)
+            sp_arr = torch.where(take, src.species_idx, sp_arr)
+            # step * dt rounded as the JAX engine's float32 product
+            t1 = torch.where(take, float(np.float32(step_i) * np.float32(dt)), t1)
+            active = torch.where(take, 1, active)
+            at_wall = torch.where(take, 0, at_wall)
+            fw = torch.where(take, 0, fw)
+            n_react = torch.sum(take, dtype=torch.int32)
+            added = added + (2.0 * src.p2c) * torch.sum(take.to(added.dtype))
+
+        metrics = StepMetrics(
+            n0=n0,
+            phi_max=torch.max(phi),
+            newton_iters=res.iterations,
+            newton_residual=res.residual,
+            n_active=torch.sum(active == 1, dtype=torch.int32),
+            n_hit_wall=torch.sum(hit, dtype=torch.int32),
+            n_ionized=zero["i"],
+            n_reactivated=n_react,
+            added=added,
+            rho=rho,
+            phi=phi,
+            impacts=zero["impacts"],
+            n_impacts=zero["i"],
+            n_escaped=zero["i"],
+            carry_clamped=zero["i"],
+            n_ion_suppressed=zero["i"],
+            n_escape_deferred=zero["i"],
+            escapes=zero["escapes"],
+            n_escape_rows=zero["i"],
+        )
+        new_state = state.replace(
+            p=p1, y=y1, z=z1, vx=vx1, vy=vy1, vz=vz1, m=m_arr,
+            charge_state=charge_state, p2c=p2c_arr, species_idx=sp_arr, t=t1,
+            active=active, at_wall=at_wall, from_wall=fw, mode=mode, phi=phi,
+            phi_prev=state.phi, n0=n0, p_old=p_old, added=added, iead=iead,
+            step=state.step + 1, step_host=step_i + 1,
+        )
+        return new_state, metrics
+
+    return step

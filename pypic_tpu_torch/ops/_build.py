@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
+_U = ctypes.c_uint
 
 # extern "C" launchers in csrc/*.cu and their argument types.
 _SIGNATURES = {
@@ -67,6 +68,13 @@ _SIGNATURES = {
     "pypic_explicit_resident": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
          _D, _D, _D, _D, _P], _I),
+    "pypic_deposit2": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_boris_gather_push": (
+        [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
+    "pypic_boltzmann_dirichlet": (
+        [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _P], _I),
+    "pypic_source_batch": (
+        [_P] * 4 + [_L, _U, _U, _U] + [_F] * 7 + [_I, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 

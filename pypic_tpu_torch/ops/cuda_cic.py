@@ -24,10 +24,17 @@ implicit headline step and the explicit engine reach:
   (the Picard pass depositing in the gather's window frame, clamps
   counted);
 * ``implicit_resident``     — ``implicit_resident_pallas`` (S implicit
-  CN-Picard steps per launch with per-step metric rows, n <= 131072).
+  CN-Picard steps per launch with per-step metric rows, n <= 131072);
+* ``deposit2``              — ``deposit2_pallas`` (two bounded deposits,
+  rho and n, in one sweep);
+* ``boris_gather_push``     — ``boris_gather_push_pallas`` (bounded,
+  optionally mirrored, gather + Boris-Buneman push).
 
-The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``
-and ``csrc/implicit.cu`` (built by ``_build``).
+The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``,
+``csrc/implicit.cu`` and ``csrc/magnetized.cu`` (built by ``_build``). The
+magnetized engine's other two kernels have their own modules,
+``ops/cuda_newton.py`` and ``ops/cuda_rng.py``, which count their
+launches in ``LAUNCHES`` here.
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
@@ -60,7 +67,9 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
             "picard_finalize": 0, "picard_iteration_shared": 0,
-            "implicit_resident": 0}
+            "implicit_resident": 0, "deposit2": 0, "boris_gather_push": 0,
+            "boltzmann_dirichlet": 0, "source_batch": 0,
+            "source_uniforms": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -725,3 +734,135 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
     return p1, v1, fields[0], fields[1], fields[2], dict(
         fe=rows[0], ke=rows[1], jb=rows[2], iters=iters, resid=rows[3],
         tracer_x=rows[4], tracer_v=rows[5])
+
+
+# ---------------------------------------------------------------------------
+# the magnetized engine's particle kernels
+# ---------------------------------------------------------------------------
+
+
+def deposit2_plain(p, va, vb, ng: int, *, periodic: bool):
+    """Two CIC deposits at the same positions, the indices and weights
+    computed once (pallas_cic.py deposit2_pallas)."""
+    num_cells = ng if periodic else ng - 1
+    il, ir, wl, wr = cic_indices_weights(p, num_cells, periodic)
+    out = []
+    for values in (va, vb):
+        acc = torch.zeros((ng,), dtype=values.dtype, device=values.device)
+        acc.index_add_(0, il, values * wl)
+        acc.index_add_(0, ir, values * wr)
+        out.append(acc)
+    return out[0], out[1]
+
+
+def deposit2(p, va, vb, ng: int, *, periodic: bool):
+    """Deposit ``va`` and ``vb`` (every prefactor included, 0 for masked
+    particles) at grid positions p onto ng nodes in one sweep. Returns
+    (a, b). Positions off the grid (wall-lost slots, weight 0) are clamped
+    into it as ``ops.cic.cic_indices_weights`` clamps them."""
+    kind = _device_kind((p, va, vb))
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in (("p", p), ("va", va), ("vb", vb)):
+        _check_1d(name, t, n)
+    _check_smem(ng, 2, "deposit2")
+    if kind == "cpu":
+        return deposit2_plain(p, va, vb, ng, periodic=periodic)
+    lib = _build.library()
+    dev = p.device
+    out = torch.zeros((2, ng), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_deposit2(p.data_ptr(), va.data_ptr(), vb.data_ptr(),
+                                 out[0].data_ptr(), out[1].data_ptr(), n, ng,
+                                 int(periodic), _blocks(n, dev), _THREADS,
+                                 _stream(dev))
+    _build.check(err, "deposit2")
+    LAUNCHES["deposit2"] += 1
+    return out[0], out[1]
+
+
+def boris_scalars(b, dt_dx: float):
+    """(bx, by, bz, dt/dx), each a Python float holding the float32 value
+    the TPU kernel bakes in (Python floats, weakly typed, round to float32
+    at their first operation)."""
+    f32 = np.float32
+    return tuple(float(f32(x)) for x in (*b, dt_dx))
+
+
+def boris_gather_push_plain(field, p, vx, vy, vz, const, act, *, b,
+                            dt_dx: float, swap_weights: bool = False):
+    """The fused kernel's arithmetic as tensor operations
+    (pallas_cic.py _boris_kernel): the bounded gather at
+    clip(p, 0, ng - 1), or at its cell mirror with ``swap_weights``; the
+    Boris rotation with inv = 2 / (1 + t^2), s = t inv; p1 = p + vx dt/dx.
+    Rows with act == 0 keep their inputs."""
+    ng = field.shape[0]
+    bx, by, bz, dt_dx = boris_scalars(b, dt_dx)
+    hi = float(ng - 1)
+    pc = torch.clamp(p, 0.0, hi)
+    if swap_weights:
+        pc = torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
+    ex = gather_plain(field, pc, periodic=False)
+    vx1 = vx + const * ex
+    tx = const * bx
+    ty = const * by
+    tz = const * bz
+    t2 = tx * tx + ty * ty + tz * tz
+    # a true division, as the kernel's (a Python number over a tensor is
+    # a reciprocal times the number in PyTorch: two roundings)
+    inv = torch.full_like(t2, 2.0) / (1.0 + t2)
+    sx = tx * inv
+    sy = ty * inv
+    sz = tz * inv
+    vfx = vx1 + vy * tz - vz * ty
+    vfy = vy + vz * tx - vx1 * tz
+    vfz = vz + vx1 * ty - vy * tx
+    vx1 = vx1 + (vfy * sz - vfz * sy)
+    vy1 = vy + (vfz * sx - vfx * sz)
+    vz1 = vz + (vfx * sy - vfy * sx)
+    vx1 = vx1 + const * ex
+    live = act > 0
+    return (torch.where(live, p + vx1 * dt_dx, p), torch.where(live, vx1, vx),
+            torch.where(live, vy1, vy), torch.where(live, vz1, vz))
+
+
+def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
+                      swap_weights: bool = False):
+    """Fused bounded CIC gather of E_x + Boris-Buneman push, one sweep.
+
+    Args:
+        field: (ng,) E_x on the bounded grid.
+        p: (n,) positions in grid coordinates.
+        vx, vy, vz: (n,) velocity components [m/s].
+        const: (n,) 0.5 dt e charge_state / m.
+        act: (n,) 1.0 for active particles, 0.0 to hold their state.
+        b: (bx, by, bz) [T]; dt_dx: dt / dx.
+        swap_weights: gather at the cell-mirrored position (the
+            reference's swapped intra-cell weights).
+
+    Returns (p1, vx1, vy1, vz1).
+    """
+    arrays = (p, vx, vy, vz, const, act)
+    kind = _device_kind((field,) + arrays)
+    ng = field.shape[0] if field.dim() == 1 else -1
+    _check_1d("field", field, ng)
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in zip(("p", "vx", "vy", "vz", "const", "act"), arrays):
+        _check_1d(name, t, n)
+    _check_smem(ng, 1, "boris_gather_push")
+    if kind == "cpu":
+        return boris_gather_push_plain(field, p, vx, vy, vz, const, act, b=b,
+                                       dt_dx=dt_dx, swap_weights=swap_weights)
+    lib = _build.library()
+    bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
+    dev = p.device
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_boris_gather_push(
+            field.data_ptr(), p.data_ptr(), vx.data_ptr(), vy.data_ptr(),
+            vz.data_ptr(), const.data_ptr(), act.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), n, ng,
+            bx, by, bz, dt_dx32, int(bool(swap_weights)), _blocks(n, dev),
+            _THREADS, _stream(dev))
+    _build.check(err, "boris_gather_push")
+    LAUNCHES["boris_gather_push"] += 1
+    return out[0], out[1], out[2], out[3]

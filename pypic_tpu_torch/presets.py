@@ -5,6 +5,12 @@ Ported so far, with the same defaults:
 * ``landau_damping`` — pypic.py:846-855 ("landau-damping best params")
 * ``two_stream``     — pypic.py:822-832 (commented two-stream block)
 * ``explicit_landau`` — pypic.py:667-677 (gen-3 explicit landau block)
+* ``pic_iead``       — pygcpic.py:1120-1200 (magnetized D + B sheath with
+  IEAD collection; BASELINE configs[3])
+
+The sheath presets (``sheath_dd``, ``sheath_dn``), ``pic_iead_gc``,
+``pic_bca_aps``, ``dirichlet_neumann_test`` and ``cold_beam`` come with
+their engines and options.
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -18,10 +24,11 @@ from typing import Any, Dict
 
 import numpy as np
 
-from .constants import E_CHARGE, EPSILON_0, EV_TO_K, K_BOLTZMANN, M_ELECTRON
+from .constants import (E_CHARGE, EPSILON_0, EV_TO_K, K_BOLTZMANN,
+                        M_ELECTRON, M_PROTON)
 from .grid import GridSpec
 from . import initialize
-from .engines import explicit, implicit
+from .engines import explicit, implicit, magnetized
 
 
 @dataclasses.dataclass
@@ -95,3 +102,59 @@ def explicit_landau(n: int = 100_000, ng: int = 100, seed: int = 1,
     st = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=device)
     return Preset("explicit_landau", explicit, cfg, st,
                   dict(params=params, system="landau-damping"))
+
+
+def _floating_potential(te, ti, ion_mass):
+    """pygcpic.py:1141."""
+    return (te / EV_TO_K) * 0.5 * np.log(
+        ion_mass / (2.0 * np.pi * M_ELECTRON) / (1.0 + ti / te)
+    )
+
+
+def pic_iead(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
+             device=None) -> Preset:
+    """pygcpic.py:1120-1200: D+ plus B 1+..5+ (densities 1e20 and
+    [1e11, 1e12, 1e12, 1e11, 1e13]), B = 2 T at 86 deg, dt 1e-10,
+    Ti = Te = 10*11600 K, L = 300 LD, Boltzmann D-D walls, IEAD collection,
+    always-source re-activation. The same numpy draws as the JAX preset,
+    so the initial state is the JAX one's."""
+    density = 1e20
+    densities_boron = [1e11, 1e12, 1e12, 1e11, 1e13]
+    te = ti = 10.0 * EV_TO_K
+    length = 300.0 * _debye(te, density)
+    grid = GridSpec(ng, length, "dirichlet-dirichlet")
+    dt = 1e-10
+    p2c = density * length / n_per_species
+    p2cs_b = [d * length / n_per_species for d in densities_boron]
+    alpha = 86.0 * np.pi / 180.0
+    b = (2.0 * np.cos(alpha), 2.0 * np.sin(alpha), 0.0)
+
+    rng = np.random.default_rng(seed)
+    groups = [(2.0 * M_PROTON, 1.0, p2c, 0)] + [
+        (10.81 * M_PROTON, float(cs), p2cs_b[cs - 1], 1) for cs in range(1, 6)
+    ]
+    n = n_per_species * len(groups)
+    x = rng.uniform(0.0, length, n)
+    m = np.concatenate([np.full(n_per_species, g[0]) for g in groups])
+    cs = np.concatenate([np.full(n_per_species, g[1]) for g in groups])
+    p2c_arr = np.concatenate([np.full(n_per_species, g[2]) for g in groups])
+    sp = np.concatenate(
+        [np.full(n_per_species, g[3], np.int32) for g in groups]
+    )
+    vth = np.sqrt(K_BOLTZMANN * ti / m)
+    v = rng.normal(size=(n, 3)) * vth[:, None]
+
+    phi_f = _floating_potential(te, ti, 2.0 * M_PROTON)
+    src = magnetized.SourceSpec(
+        mass=M_PROTON, charge_state=1.0, p2c=p2c, species_idx=0, ti=ti
+    )
+    cfg = magnetized.MagnetizedConfig(
+        grid, dt, te, b=b, species_z=(1, 5), reactivate="source", source=src,
+        iead_energy_max=4.0 * phi_f,
+    )
+    st = magnetized.init_state(x, v, m, cs, p2c_arr, sp, cfg, seed=seed,
+                               device=device)
+    return Preset("pic_iead", magnetized, cfg, st,
+                  dict(floating_potential=phi_f,
+                       bca_incident=((2.0, 1), (10.81, 5)),
+                       species_labels=("D", "B")))

@@ -1,5 +1,7 @@
-"""Particle pushers. Ported so far: leapfrog and Crank-Nicolson (the
-Boris-Buneman and guiding-center pushers come with the magnetized engine).
+"""Particle pushers. Ported so far: leapfrog, Crank-Nicolson and
+Boris-Buneman (the guiding-center pusher comes with the magnetized
+stack's next slice).
 """
 
+from .boris import boris_push_dt  # noqa: F401
 from .leapfrog import leapfrog_push, cn_push  # noqa: F401

@@ -8,7 +8,7 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream]
+        [--cell landau|two-stream|magnetized]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -17,8 +17,10 @@ then traces steps with ``torch.profiler`` and reports device time per
 step by kernel, the device's idle share and the host syncs per step; it
 writes the chrome trace and the profiler's table under ``--out``.
 ``--cell two-stream`` profiles the explicit engine on bench.py's
-two-stream cell (``tools/two_stream.py``) at the same n instead. Each
-ends with one JSON line of its results.
+two-stream cell (``tools/two_stream.py``) at the same n instead;
+``--cell magnetized`` profiles bench.py's configs[3] row
+(``tools/magnetized.py``, n = 999,996; ``--n`` is ignored). Each ends
+with one JSON line of its results.
 """
 
 from __future__ import annotations
@@ -131,6 +133,13 @@ def profile(args) -> dict:
 
         cfg, _, state = two_stream.state(args.n, dev, seed=args.seed)
         step = explicit.make_step(cfg)
+    elif args.cell == "magnetized":
+        from ..engines import magnetized
+        from . import magnetized as magnetized_row
+
+        cfg, state, _ = magnetized_row.state(dev)
+        args.n = state.p.shape[0]
+        step = magnetized.make_step(cfg)
     else:
         _, step, state = headline_state(args.n, dev, args.seed)
     state, _ = run(step, state, 2)  # warm-up
@@ -197,7 +206,7 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
-    p.add_argument("--cell", choices=("landau", "two-stream"),
+    p.add_argument("--cell", choices=("landau", "two-stream", "magnetized"),
                    default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)

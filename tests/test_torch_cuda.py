@@ -2,6 +2,9 @@
 card. Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode)
 and skips without one.
 
+The magnetized kernels run at n = 999,996 (bench.py's configs[3] row) and
+a ragged n, ng = 600, with their tolerances stated beside each test.
+
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -295,3 +298,154 @@ def test_implicit_resident_kernel_matches_step_and_plain(cuda_device, conf, n):
         for r_, g_ in zip(final[1:], (fin.v, fin.e, fin.e_prev, fin.j)):
             _rel_close(r_, g_, 1e-4)
     assert int(fin.step) == 25
+
+
+# ---------------------------------------------------------------------------
+# the magnetized engine's kernels: n = 999,996 (bench.py's configs[3] row)
+# and a ragged n, ng = 600
+# ---------------------------------------------------------------------------
+
+N_MAG = (999_996, 4097)
+NG_MAG = 600
+
+
+def _mag_inputs(n, dev, seed=3):
+    """Bounded-grid particles with a tenth inactive, some off the grid
+    (wall-lost slots) with weight 0."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, NG_MAG - 1, n).astype(np.float32)
+    p[:4] = [0.0, NG_MAG - 1, -0.3, NG_MAG - 0.7]
+    v = rng.normal(0, 2e4, (3, n)).astype(np.float32)
+    act = (rng.uniform(size=n) < 0.9).astype(np.float32)
+    act[2:4] = 0.0
+    const = (rng.integers(1, 6, n) * (0.5 * 1e-10 * 1.602e-19 / 1.8e-26)).astype(np.float32)
+    field = rng.normal(0, 1e5, NG_MAG).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (field, p, *v, const, act)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True], ids=["bounded", "periodic"])
+@pytest.mark.parametrize("n", N_MAG)
+def test_deposit2_kernel_matches_plain(cuda_device, n, periodic):
+    """Both deposits against the plain version (float32, summed in another
+    order: 5e-5 of the largest node) and against a float64 deposit of the
+    same values (2e-5)."""
+    _, p, vx, vy, _, _, act = _mag_inputs(n, cuda_device)
+    va, vb = vx * act, vy.abs() * act
+    before = cuda_cic.LAUNCHES["deposit2"]
+    a, b = cuda_cic.deposit2(p, va, vb, NG_MAG, periodic=periodic)
+    assert cuda_cic.LAUNCHES["deposit2"] == before + 1
+    ra, rb = cuda_cic.deposit2_plain(p, va, vb, NG_MAG, periodic=periodic)
+    da, db = cuda_cic.deposit2_plain(p.double(), va.double(), vb.double(),
+                                     NG_MAG, periodic=periodic)
+    for got, ref, ref64 in ((a, ra, da), (b, rb, db)):
+        _rel_close(ref, got, 5e-5)
+        _rel_close(ref64, got, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("n", N_MAG)
+def test_boris_gather_push_kernel_matches_plain(cuda_device, n, swap):
+    """The same float32 operations in the same order: positions within
+    1e-4 cells, velocities 1e-6 of the largest; inactive rows hold their
+    inputs bit for bit."""
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device)
+    kw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, swap_weights=swap)
+    before = cuda_cic.LAUNCHES["boris_gather_push"]
+    got = cuda_cic.boris_gather_push(field, p, vx, vy, vz, const, act, **kw)
+    assert cuda_cic.LAUNCHES["boris_gather_push"] == before + 1
+    ref = cuda_cic.boris_gather_push_plain(field, p, vx, vy, vz, const, act, **kw)
+    live = act > 0
+    assert float((got[0] - ref[0]).abs().max()) < 1e-4
+    for r, g in zip(ref[1:], got[1:]):
+        _rel_close(r, g, 1e-6)
+    for g, held in zip(got, (p, vx, vy, vz)):
+        assert torch.equal(g[~live], held[~live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [600, 301, 128])
+def test_boltzmann_dirichlet_kernel_matches_plain(cuda_device, ng):
+    """The Newton kernel against its plain version (tests/test_pallas.py:
+    315-342's cases and criteria): residual <= tol, counts within one
+    (tol 1e-9 sits at the float32 floor), phi within 3e-5 of max|phi|;
+    warm from the plain answer, equal counts. n0 comes as a device
+    tensor."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(11 + ng)
+    dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+    rho = torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(cuda_device)
+    n0 = torch.tensor(1e17, dtype=torch.float32, device=cuda_device)
+    te, dx = 116000.0, 2e-5
+    before = cuda_cic.LAUNCHES["boltzmann_dirichlet"]
+    got = cuda_newton.boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9)
+    assert cuda_cic.LAUNCHES["boltzmann_dirichlet"] == before + 1
+    ref = cuda_newton.boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9)
+    assert float(got.residual) <= 1e-9
+    assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+    _rel_close(ref.phi, got.phi, 3e-5)
+    got_w = cuda_newton.boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9,
+                                            phi0=ref.phi)
+    ref_w = cuda_newton.boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9,
+                                                  phi0=ref.phi)
+    assert int(got_w.iterations) == int(ref_w.iterations)
+    _rel_close(ref_w.phi, got_w.phi, 3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", N_MAG)
+def test_source_batch_kernel_matches_plain(cuda_device, n):
+    """The Philox uniforms bit-equal to philox4x32_plain's; the batch
+    within 1e-6 (x: of the wrap length, velocities: of the largest) of the
+    plain version, libdevice's logf/sinf/cosf against the CPU's."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    key, step = (0, 1), 7
+    u = cuda_rng.source_uniforms(key, step, n, device=cuda_device)
+    ref_u = cuda_rng.source_uniforms(key, step, n, device="cpu")
+    assert torch.equal(u.cpu(), ref_u)
+    kw = dict(x_mu=1.5e-3, x_sigma=2.5e-4, x_wrap=3e-3, vth=2.2e4, vx=0.0)
+    before = cuda_cic.LAUNCHES["source_batch"]
+    got = cuda_rng.source_batch(key, step, n, device=cuda_device, **kw)
+    assert cuda_cic.LAUNCHES["source_batch"] == before + 1
+    ref = cuda_rng.source_batch(key, step, n, device="cpu", **kw)
+    d = (got[0].cpu().double() - ref[0].double()).abs()
+    assert float(torch.minimum(d, 3e-3 - d).max()) <= 1e-6 * 3e-3
+    for r, g in zip(ref[1:], got[1:]):
+        _rel_close(r, g.cpu(), 1e-6)
+
+
+@pytest.mark.cuda
+def test_magnetized_step_card_matches_cpu(cuda_device):
+    """One fused step of pic_iead (n = 12,000) on the card and on the CPU
+    from the same state after 3 steps, the same Philox draws on both
+    sides: tests/test_magnetized.py:461-489's limits (rho rtol 1e-4, phi
+    rtol 1e-3, positions rtol 2e-5, velocities rtol 2e-4, equal active
+    counts)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.pic_iead(n_per_species=2000, device="cpu")
+    cfg = dataclasses.replace(pre.config, backend="fused", newton_backend="pallas")
+    st, _ = run(magnetized.make_step(cfg), pre.state, 3)
+    d = interop.magnetized_state_to_numpy(st)
+    out = []
+    for dev in ("cpu", cuda_device):
+        s = interop.magnetized_state_from_numpy(d, dev)
+        out.append(magnetized.make_step(cfg)(s))
+    (sc, mc), (sg, mg) = out
+    np.testing.assert_allclose(mg.rho.cpu().numpy(), mc.rho.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(mg.phi.cpu().numpy(), mc.phi.numpy(), rtol=1e-3,
+                               atol=1e-8)
+    act = sc.active.numpy() == 1
+    np.testing.assert_allclose(sg.p.cpu().numpy()[act], sc.p.numpy()[act],
+                               rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(sg.v.cpu().numpy()[act], sc.v.numpy()[act],
+                               rtol=2e-4, atol=1.0)
+    assert int(sg.active.sum()) == int(sc.active.sum())
+    assert int(mg.n_reactivated) == int(mc.n_reactivated)
