@@ -84,6 +84,35 @@ Phases (any failure raises and the script exits non-zero):
    iterations, phi_max over the floating potential, the population
    invariant, the Newton residual and both species' IEADs; then 20 steps
    of backend='composed' with its launch counts.
+16. sheath kernels — the sheath engine's four kernels against their
+   plain versions at bench.py's configs[2] n = 1,000,000 and a ragged
+   1,000,003, ng = 51 and 11, with rows at 0 and at cells, rows lost in an
+   earlier pass and rows that cross a wall: the Picard pass's xh and the
+   finalize's x1 and u1 bit-equal, the statuses equal, the currents
+   against a float64 deposit (the wall nodes too), and a wall-charge-only
+   pass (u0 = qm = 0) against the exact wall sums; the deterministic
+   deposit at ng = 51 and at the exit histograms' 128 nodes, bit-equal
+   from call to call and against a float64 deposit, then timed beside the
+   float-atomic deposit at its own and the other engines' shapes; the
+   re-injection's Philox uniforms and positions bit-equal at gamma 0 and
+   0.5, with torch.rand((5, n)) as its library yardstick; device times
+   from the profiler.
+17. sheath check — sheath_dd at n = 12,000, the exit histograms recording:
+   one step from the states after 0, 10 and 50 steps on the card and on
+   the CPU, fused and composed, the same Philox draws: equal Picard counts
+   (or one apart where the first side left by the float32 floor exit),
+   losses, statuses and
+   histograms, p/u/e/j/phi at the CPU tests' single-step limits; 200
+   steps each side (the population invariant exact, the time-averaged phi
+   within 1e-4 Te/e, the Picard means within 10%); then
+   tests/test_sheath.py:41-57's wall-potential test at n = 10,000 over
+   1,500 steps on the card.
+18. sheath slice — bench.py's configs[2] row (tools/sheath.py): 1,200
+   steps at n = 1,000,000, sheath_picard launched once a Picard pass and
+   sheath_finalize and sheath_reinject once a step, nothing else; the
+   host syncs a step equal to the engine's reads (one a Picard pass);
+   then 20 steps of backend='composed' with its launch counts (gather once
+   and deposit_det twice a pass).
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -197,6 +226,12 @@ BYTES_PER_PARTICLE = {
     # per row of the Newton system: rho read, phi written (the timed solve
     # starts cold, so no warm start is read; n0 and the counts are noise)
     "boltzmann_dirichlet": 8,
+    # ps, p0, u0, qm, w, act read; xh, act1 (the pass) or x1, u1, act1
+    # (the finalize) written
+    "sheath_picard": 32, "sheath_finalize": 36,
+    # p, u, vy, vz, act, sig read, p, u, vy, vz written (gamma 0)
+    "sheath_reinject": 40,
+    "deposit_det": 8,
 }
 # float32 operations per particle and step, counted from the kernel bodies
 # (floor, rint, add, sub, mul and compare count one; each atomic add one).
@@ -217,6 +252,17 @@ OPS_PER_PARTICLE = {
     # solve 8 (elimination 5, back substitution 3), the clip 2, the
     # update 1 and the residual sum 2 (the kernel's PCR does ~125)
     "boltzmann_dirichlet": 25,
+    # clip 2, the gather's cell and weights 6 and products 3, the push 8,
+    # the midpoints 4, the wall tests 8 and selects 2, the deposit's cell,
+    # weights and products 9 and its two atomics
+    "sheath_picard": 44, "sheath_finalize": 44,
+    # two Philox blocks (10 rounds of 2 high and 2 low products, 4 xors
+    # and 2 key additions: 200), 8 uniforms (3 each), Box-Muller (2 logs,
+    # 2 sqrts, 3 sines and cosines, 9 products: 16), 5 products and the
+    # compares, all at the float32 rate
+    "sheath_reinject": 250,
+    # the deposit's 7 with plain adds in the place of the atomics
+    "deposit_det": 7,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
@@ -234,12 +280,22 @@ REPLACES = {
     "boris_gather_push": "pypic_tpu/ops/pallas_cic.py:341",
     "boltzmann_dirichlet": "pypic_tpu/ops/pallas_newton.py:93",
     "source_batch": "pypic_tpu/ops/pallas_rng.py:122",
+    "sheath_picard": "pypic_tpu/ops/pallas_cic.py:637",
+    "sheath_finalize": "pypic_tpu/ops/pallas_cic.py:660",
+    "sheath_reinject": "pypic_tpu/ops/pallas_rng.py:74",
+    "deposit_det": "pypic_tpu/ops/pallas_cic.py:252",
 }
 SOURCES_MAGNETIZED = {
     "deposit2": "pypic_tpu_torch/csrc/magnetized.cu",
     "boris_gather_push": "pypic_tpu_torch/csrc/magnetized.cu",
     "boltzmann_dirichlet": "pypic_tpu_torch/csrc/newton.cu",
     "source_batch": "pypic_tpu_torch/csrc/rng.cu",
+}
+SOURCES_SHEATH = {
+    "sheath_picard": "pypic_tpu_torch/csrc/sheath.cu",
+    "sheath_finalize": "pypic_tpu_torch/csrc/sheath.cu",
+    "sheath_reinject": "pypic_tpu_torch/csrc/rng.cu",
+    "deposit_det": "pypic_tpu_torch/csrc/cic.cu",
 }
 
 # the magnetized slice: bench.py's configs[3] row (tools/magnetized.py)
@@ -261,6 +317,32 @@ TOL_MAG_STEP = {"rho": (1e-4, 0.0), "phi": (1e-3, 1e-8), "p": (2e-5, 1e-5),
 MAG_CHECK_STEPS = 200
 MAG_PHI_MAX_RTOL = 0.05  # tests/test_magnetized.py:221-230
 MAG_COMPOSED_STEPS = 20
+
+# the sheath slice: bench.py's configs[2] row (tools/sheath.py)
+N_SHEATH, N_SHEATH_RAGGED, NG_SHEATH = 1_000_000, 1_000_003, 51
+SHEATH_DT, SHEATH_DX = 1e-12, 1e-5
+# sheath check: sheath_dd at n = 12,000 with the exit histograms recording
+# from step 0; one step from the states after these steps on the card and
+# on the CPU at the single-step limits of tests/test_torch_sheath.py
+# (positions in cells; u of the largest; e, j and phi of their largest)
+SHEATH_CHECK_N, SHEATH_CHECK_AT, SHEATH_CHECK_STEPS = 12_000, (0, 10, 50), 200
+TOL_SHEATH_STEP = {"p (cells)": 1e-5, "u": 1e-6, "e": 1e-5, "j": 1e-5,
+                   "phi": 1e-5}
+# the 200-step runs' phi averaged over the last 100 steps, card against
+# CPU, in Te/e: the same draws, trajectories parted by round-off (3.3e-7
+# and 9.0e-7 Te/e on the H100; the two CPU backends part by 3.8e-7), about
+# 100x room. A 1% error in the whole current reads 2.2e-2 here; one in the
+# wall charge alone reads 4.1e-7, below this limit and below one step's
+# (tests/test_torch_sheath.py test_sheath_checks_see_a_one_percent_fault):
+# phase 16's wall-charge-only pass holds the wall charge
+TOL_SHEATH_PHI_AVG = 1e-4
+# the 200-step runs' Picard means, card against CPU (a floor exit is a
+# round-off decision, so single steps part by a pass or two: 3.270 and
+# 3.375 on the H100, 37 steps one pass apart and one two)
+SHEATH_PICARD_MEAN_RTOL = 0.1
+# tests/test_sheath.py:41-57's wall-potential test at its own setting
+SHEATH_WALL_N, SHEATH_WALL_STEPS = 10_000, 1500
+SHEATH_COMPOSED_STEPS = 20
 
 
 def bound(name: str, n: int, steps: int = 1,
@@ -1789,6 +1871,405 @@ def phase_magnetized_slice(dev) -> dict:
     return res
 
 
+def _sheath_inputs(n: int, ng: int, gen: torch.Generator, dev):
+    """Bounded-grid rows for the sheath pass: electrons and protons, rows
+    exactly at 0 and at cells, rows lost left and right in an earlier pass
+    and rows that cross a wall in this one."""
+    f32 = torch.float32
+    cells = float(ng - 1)
+    p0 = torch.rand(n, generator=gen, device=dev, dtype=f32) * cells
+    ps = torch.clamp(p0 + 0.2 * torch.randn(n, generator=gen, device=dev, dtype=f32),
+                     -0.5, cells + 0.5)
+    ion = torch.rand(n, generator=gen, device=dev) < 0.5
+    qm = torch.where(ion, 1.602e-19 / 1.67e-27, -1.602e-19 / 9.11e-31).to(f32)
+    u0 = torch.randn(n, generator=gen, device=dev, dtype=f32) * torch.where(
+        ion, 3e4, 1.3e6).to(f32)
+    w = torch.where(ion, 1.602e-10, -1.602e-10).to(f32)
+    act = torch.ones(n, device=dev, dtype=f32)
+    p0[:4] = torch.tensor([0.0, cells, 0.0, cells], device=dev)
+    ps[:4] = p0[:4]
+    act[4:40:2] = 0.0
+    act[5:40:2] = -1.0
+    p0[40:60] = 0.3
+    u0[40:60] = -2.5 * SHEATH_DX / SHEATH_DT
+    p0[60:80] = cells - 0.3
+    u0[60:80] = 2.5 * SHEATH_DX / SHEATH_DT
+    es = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 2e4
+    return es, ps, p0, u0, qm, w, act
+
+
+def phase_sheath_kernels(dev) -> dict:
+    """The sheath engine's four kernels against their plain versions at
+    the row's n and a ragged n (the pass kernels at ng = 51 and 11, the
+    deterministic deposit at the composed path's and the histograms'
+    shapes); returns the records at the row's shape (n = 1e6, ng = 51; the
+    re-injection at gamma 0)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_rng, cuda_sheath as S
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    fast = dict(reps=3, calls=3)
+    records = {}
+    for n in (N_SHEATH_RAGGED, N_SHEATH):
+        for ng in (NG_SHEATH, 11):
+            log(f"[sheath kernels] n = {n}, ng = {ng}")
+            args = _sheath_inputs(n, ng, gen, dev)
+            es, ps, p0, u0, qm, w, act = args
+            dtol = deposit_tol(n, ng)
+            for name, fn, plain in (
+                    ("sheath_picard", S.sheath_picard, S.sheath_picard_plain),
+                    ("sheath_finalize", S.sheath_finalize, S.sheath_finalize_plain)):
+                got = fn(*args, **kw)
+                if not torch.equal(fn(*args, **kw)[-1], got[-1]):
+                    raise AssertionError(f"{name}: the current differs from "
+                                         "call to call")
+                ref = plain(*args, **kw)
+                torch.cuda.synchronize()
+                labels = ("x1", "u1", "act1") if len(got) == 4 else ("xh", "act1")
+                for label, g, r in zip(labels, got[:-1], ref[:-1]):
+                    if not torch.equal(g, r):
+                        d = float((g.double() - r.double()).abs().max())
+                        raise AssertionError(f"{name}: {label} differs from the "
+                                             f"plain version's by {d}")
+                act1 = got[-2]
+                if not bool((act1[40:80] != 1.0).all()):
+                    raise AssertionError(f"{name}: a wall-crossing row stayed active")
+                vals = got[1] if len(got) == 4 else S._push_plain(
+                    es, ps, p0, u0, qm, act, SHEATH_DT, SHEATH_DX)[3]
+                j64 = S.sheath_deposit_plain(got[0].double(), vals.double(),
+                                             act1.double(), w.double(), ng, **kw)
+                a, rel = rel_err(j64, got[-1])
+                errs = {"j": dict(abs=a, err=rel, kind="rel vs float64", tol=dtol)}
+                a, rel = rel_err(ref[-1], got[-1])
+                errs["j_plain"] = dict(abs=a, err=rel, kind="rel", tol=dtol)
+                for node in (0, ng - 1):
+                    a, rel = rel_err(j64[node], got[-1][node])
+                    errs[f"j[{node}] (wall node)"] = dict(
+                        abs=a, err=rel, kind="rel vs float64 sum", tol=TOL_DEP)
+                err = _check(errs, f"{name}(ng={ng})")
+                log(f"[sheath kernels]   {name}: {', '.join(labels)} bit-equal to "
+                    f"the plain version's, the current bit-equal from call to "
+                    f"call; {int((act1 == -1).sum())} rows lost "
+                    f"left, {int((act1 == 0).sum())} right")
+                if n == N_SHEATH and ng == NG_SHEATH:
+                    records[name] = _rec(
+                        err, device_ms(lambda: fn(*args, **kw)),
+                        cuda_ms(lambda: plain(*args, **kw), **fast), name, n)
+                del got, ref, j64, vals
+            # the wall charge alone: u0 = qm = 0, so an active row deposits
+            # 0 and the wall nodes hold only the lost rows' charge, held
+            # against the exact sums (of the summed magnitudes: the signs
+            # cancel)
+            zero = torch.zeros_like(u0)
+            terms = w.double() * (SHEATH_DX * SHEATH_DX / SHEATH_DT)
+            for name, fn in (("sheath_picard", S.sheath_picard),
+                             ("sheath_finalize", S.sheath_finalize)):
+                got = fn(es, ps, p0, zero, zero, w, act, **kw)
+                act1, j = got[-2], got[-1].double()
+                exact = torch.stack([terms[act1 == -1].sum(), -terms[act1 == 0].sum()])
+                mag = float(terms.abs()[act1 != 1].sum())
+                wall_err = float((j[[0, -1]] - exact).abs().max()) / mag
+                inner = float(j[1:-1].abs().max())
+                _check({"wall nodes": dict(abs=wall_err * mag, err=wall_err,
+                                           kind="of the wall charge", tol=TOL_DEP),
+                        "inner nodes": dict(abs=inner, err=inner, kind="abs",
+                                            tol=0.0)},
+                       f"{name}(ng={ng}, wall charge only)")
+            del args, es, ps, p0, u0, qm, w, act, zero, terms, got, j
+
+        # the deterministic deposit at the sheath path's shapes: the currents
+        # of the composed pass (ng = 51, bounded) and the exit histograms
+        # (2 x 64 bins, integer positions, weight 1 on ~1% of the rows)
+        hist_nodes = 2 * 64
+        p = torch.rand(n, generator=gen, device=dev) * (NG_SHEATH - 1)
+        vals = torch.randn(n, generator=gen, device=dev) * 1e3
+        idx = torch.randint(0, hist_nodes, (n,), generator=gen, device=dev).float()
+        hits = (torch.rand(n, generator=gen, device=dev) < 0.01).float()
+        for label, pos, val, ng in (("current", p, vals, NG_SHEATH),
+                                    ("histogram", idx, hits, hist_nodes)):
+            got = K.deposit_det(pos, val, ng, periodic=False)
+            if not torch.equal(K.deposit_det(pos, val, ng, periodic=False), got):
+                raise AssertionError(f"deposit_det({label}): differs from call to call")
+            ref = K.deposit_plain(pos, val, ng, periodic=False)
+            f64 = K.deposit_plain(pos.double(), val.double(), ng, periodic=False)
+            torch.cuda.synchronize()
+            a, rel = rel_err(f64, got)
+            errs = {"out": dict(abs=a, err=rel, kind="rel vs float64", tol=TOL_DEP)}
+            a, rel = rel_err(ref, got)
+            errs["out_plain"] = dict(abs=a, err=rel, kind="rel", tol=deposit_tol(n, ng))
+            err = _check(errs, f"deposit_det({label}, n={n}, ng={ng})")
+            log(f"[sheath kernels]   deposit_det({label}): bit-equal from call to call")
+            if n == N_SHEATH and label == "current":
+                records["deposit_det"] = _rec(
+                    err, device_ms(lambda: K.deposit_det(p, vals, NG_SHEATH,
+                                                         periodic=False)),
+                    cuda_ms(lambda: K.deposit_plain(p, vals, NG_SHEATH,
+                                                    periodic=False), **fast),
+                    "deposit_det", n)
+            del got, ref, f64
+        del p, vals, idx, hits
+
+        p = torch.rand(n, generator=gen, device=dev) * 50.0
+        v = torch.randn((3, n), generator=gen, device=dev) * 1e5
+        act = torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 1.0,
+                          torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                                      0.0, -1.0))
+        sig = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.3e6, 3.1e4)
+        rargs = (p, v[0], v[1], v[2], act, sig, 0.5 * sig)
+        key, step = (0, 3), 11
+        worst = 0.0
+        for gamma in (0.0, 0.5):
+            u = cuda_rng.sheath_uniforms(key, step, n, gamma=gamma, device=dev)
+            if not torch.equal(u.cpu(), cuda_rng.sheath_uniforms(
+                    key, step, n, gamma=gamma, device="cpu")):
+                raise AssertionError("sheath_reinject: the kernel's Philox uniforms "
+                                     "differ from reinject_bits_plain's")
+            got = cuda_rng.sheath_reinject(key, step, *rargs, cells=50.0, gamma=gamma)
+            ref = cuda_rng.sheath_reinject_plain(key, step, *rargs, cells=50.0,
+                                                 gamma=gamma)
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], ref[0]):
+                raise AssertionError("sheath_reinject: positions differ from the "
+                                     "plain version's")
+            errs = {}
+            for k, r_, g_ in zip(("u", "vy", "vz"), ref[1:], got[1:]):
+                a, rel = rel_err(r_, g_)
+                errs[k] = dict(abs=a, err=rel, kind="rel", tol=TOL_SOURCE)
+            worst = max(worst, _check(errs, f"sheath_reinject(gamma={gamma})"))
+            log(f"[sheath kernels]   sheath_reinject(gamma={gamma}): "
+                f"{u.shape[0] * n} Philox uniforms and the positions bit-equal to "
+                f"the plain version's")
+            del u, got, ref
+        if n == N_SHEATH:
+            call = lambda: cuda_rng.sheath_reinject(  # noqa: E731
+                key, step, *rargs, cells=50.0)
+            records["sheath_reinject"] = _rec(
+                worst, device_ms(call),
+                cuda_ms(lambda: cuda_rng.sheath_reinject_plain(
+                    key, step, *rargs, cells=50.0), **fast),
+                "sheath_reinject", n)
+            g = torch.Generator(device=dev).manual_seed(5)
+            records["sheath_reinject"]["library_ms"] = device_ms(
+                lambda: torch.rand((5, n), device=dev, generator=g))
+            log(f"[sheath kernels]   sheath_reinject: library call torch.rand((5, n)) "
+                f"{records['sheath_reinject']['library_ms']:.4f} ms")
+        del p, v, act, sig, rargs
+        torch.cuda.empty_cache()
+    records["deposit_det"]["versus_atomic"] = _deposit_det_cost(dev, gen)
+    return records
+
+
+def _deposit_det_cost(dev, gen) -> list:
+    """The deterministic deposit beside the float-atomic one at the sheath
+    path's shape and at the other engines' deposit shapes (the headline's
+    n = 6104 * 16384, ng = 200, periodic; n = 999,996, ng = 600, bounded):
+    device ms of each (profiler; CUDA events at the headline n)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    rows = []
+    for n, ng, periodic in ((N_SHEATH, NG_SHEATH, False), (N_HEADLINE, NG, True),
+                            (N_MAG, NG_MAG, False)):
+        p = torch.rand(n, generator=gen, device=dev) * (ng if periodic else ng - 1)
+        vals = torch.randn(n, generator=gen, device=dev)
+        timer = cuda_ms if n == N_HEADLINE else device_ms
+        kw = dict(periodic=periodic)
+        a, rel = rel_err(K.deposit(p, vals, ng, **kw), K.deposit_det(p, vals, ng, **kw))
+        row = dict(n=n, ng=ng, periodic=periodic,
+                   atomic_ms=timer(lambda: K.deposit(p, vals, ng, **kw)),
+                   det_ms=timer(lambda: K.deposit_det(p, vals, ng, **kw)),
+                   rel_gap=rel)
+        log(f"[sheath kernels]   deposit_det against deposit at n = {n}, ng = {ng}"
+            f"{' periodic' if periodic else ''}: {row['det_ms']:.4f} ms against "
+            f"{row['atomic_ms']:.4f} ms (x {row['det_ms'] / row['atomic_ms']:.2f}); "
+            f"outputs {rel:.2e} apart")
+        if not rel <= deposit_tol(n, ng):
+            raise AssertionError(f"deposit_det and deposit disagree: {rel}")
+        rows.append(row)
+        del p, vals
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _sheath_step_errors(c, g) -> dict:
+    """One step on the CPU (c) and the card (g), each (state, metrics):
+    the errors of TOL_SHEATH_STEP's quantities."""
+    sc, mc = c
+    sg, mg = g
+    act = sc.active == 1
+    return {"p (cells)": float((sg.p.cpu()[act].double() - sc.p[act].double()).abs().max()),
+            "u": rel_err(sc.u, sg.u.cpu())[1], "e": rel_err(sc.e, sg.e.cpu())[1],
+            "j": rel_err(sc.j, sg.j.cpu())[1], "phi": rel_err(mc.phi, mg.phi.cpu())[1]}
+
+
+def _sheath_population(m, n: int) -> list:
+    tot = (m.n_active + m.n_lost_left + m.n_lost_right).cpu()
+    return [] if bool((tot == n).all()) else [
+        f"n_active + losses in [{int(tot.min())}, {int(tot.max())}], n = {n}"]
+
+
+def phase_sheath_check(dev) -> dict:
+    """sheath_dd at n = 12,000 on the card against the CPU, both backends,
+    the same Philox draws; 200 steps each side; then the wall-potential
+    test on the card."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import sheath as row
+
+    pre = presets.sheath_dd(n=SHEATH_CHECK_N, device="cpu")
+    base = dataclasses.replace(pre.config, record_exit_after_step=0,
+                               picard_init="extrapolate", picard_accel="anderson")
+    cfgs = {b: dataclasses.replace(base, backend=b) for b in ("fused", "composed")}
+    snaps, st = {}, pre.state
+    step_cpu = sheath.make_step(cfgs["fused"])
+    for i in range(max(SHEATH_CHECK_AT) + 1):
+        if i in SHEATH_CHECK_AT:
+            snaps[i] = interop.sheath_state_to_numpy(st)
+        if i < max(SHEATH_CHECK_AT):
+            st, _ = step_cpu(st)
+    problems = []
+    for backend, cfg in cfgs.items():
+        step = sheath.make_step(cfg)
+        for i, d in snaps.items():
+            c = step(interop.sheath_state_from_numpy(d, "cpu"))
+            g = step(interop.sheath_state_from_numpy(d, dev))
+            errs = _sheath_step_errors(c, g)
+            ok, line = floor_exit_counts_agree(
+                c[1].picard_iters, float(c[1].picard_residual),
+                g[1].picard_iters, float(g[1].picard_residual), d["e"],
+                c[0].e, tol=cfg.tol, tol_floor=cfg.tol_floor)
+            losses = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
+                      for k in ("n_lost_left", "n_lost_right")}
+            same_act = torch.equal(c[0].active, g[0].active.cpu())
+            same_hist = torch.equal(c[0].exit_hist, g[0].exit_hist.cpu())
+            log(f"[sheath check] {backend}, step {i} -> {i + 1}, GPU vs CPU: "
+                + ", ".join(f"{k} {v:.3e} (tol {TOL_SHEATH_STEP[k]:.0e})"
+                            for k, v in errs.items())
+                + f"; Picard (CPU, GPU) {line}; losses (CPU, GPU) {losses}; statuses "
+                f"{'equal' if same_act else 'DIFFER'}; exit histograms "
+                f"{'equal' if same_hist else 'DIFFER'}")
+            bad = {k: v for k, v in errs.items() if not v <= TOL_SHEATH_STEP[k]}
+            if not ok:
+                bad["picard_iters"] = line
+            if any(a != b for a, b in losses.values()) or not same_act or not same_hist:
+                bad["losses"] = losses
+            if bad:
+                problems.append(f"{backend} step {i}: {bad}")
+    te_volts = row.K_BOLTZMANN * row.TE / row.E_CHARGE
+    avg, iters = {}, {}
+    for label, device in (("CPU", "cpu"), ("GPU", dev)):
+        s0 = interop.sheath_state_from_numpy(snaps[0], device)
+        _, m = run(sheath.make_step(cfgs["fused"]), s0, SHEATH_CHECK_STEPS)
+        avg[label] = m.phi[-100:].double().mean(dim=0).cpu()
+        iters[label] = m.picard_iters.cpu()
+        pop = _sheath_population(m, SHEATH_CHECK_N)
+        log(f"[sheath check] {SHEATH_CHECK_STEPS} steps on the {label}: Picard mean "
+            f"{float(m.picard_iters.float().mean()):.3f}, wall losses "
+            f"{int((m.n_lost_left + m.n_lost_right).sum())}; population invariant "
+            + ("holds" if not pop else f"FAILS: {pop}"))
+        problems += [f"{label}: {x}" for x in pop]
+    # the trajectories part by round-off, and a floor exit is decided at
+    # round-off: step counts differ here and there, their means hardly
+    apart = (iters["GPU"] - iters["CPU"]).abs()
+    means = {k: float(v.float().mean()) for k, v in iters.items()}
+    log(f"[sheath check] {SHEATH_CHECK_STEPS}-step Picard counts, GPU vs CPU: "
+        f"{int((apart == 0).sum())} steps equal, {int((apart == 1).sum())} one "
+        f"pass apart, {int((apart > 1).sum())} more; means {means} (tol "
+        f"{SHEATH_PICARD_MEAN_RTOL:.0%})")
+    if not abs(means["GPU"] - means["CPU"]) <= SHEATH_PICARD_MEAN_RTOL * means["CPU"]:
+        problems.append(f"Picard means {means}")
+    gap = float((avg["GPU"] - avg["CPU"]).abs().max()) / te_volts
+    log(f"[sheath check] phi averaged over steps {SHEATH_CHECK_STEPS - 100}-"
+        f"{SHEATH_CHECK_STEPS - 1}, GPU vs CPU: {gap:.4e} Te/e "
+        f"(tol {TOL_SHEATH_PHI_AVG})")
+    if not gap <= TOL_SHEATH_PHI_AVG:
+        problems.append(f"time-averaged phi {gap} Te/e apart")
+
+    # tests/test_sheath.py:41-57 at its own setting, on the card
+    grid = pre.config.grid
+    from pypic_tpu_torch import initialize
+    d = initialize.initialize_sheath(SHEATH_WALL_N, 1e19, 1.0, 0.0, grid, row.TE,
+                                     row.TI, seed=3)
+    cfg = dataclasses.replace(pre.config, p2c=grid.length * 1e19 / SHEATH_WALL_N,
+                              record_exit_after_step=300)
+    st = sheath.init_state(d["x"], d["v"], d["q"], d["m"], d["species"], cfg,
+                           seed=1, device=dev)
+    t0 = time.perf_counter()
+    fin, m = run(sheath.make_step(cfg), st, SHEATH_WALL_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    left, right = row.wall_drops(m, 300)
+    phi = m.phi[-300:].double().mean(dim=0)
+    top = int(torch.argmax(phi))
+    log(f"[sheath check] wall potential, n = {SHEATH_WALL_N}, {SHEATH_WALL_STEPS} "
+        f"steps on the card ({secs * 1e6 / SHEATH_WALL_STEPS:.1f} us/step): drops "
+        f"{left:.4f} (left), {right:.4f} (right) Te/e, maximum at node {top} of "
+        f"{phi.shape[0]}, exits recorded {float(fin.exit_hist.sum()):.0f}")
+    if not (-4.0 < left < -0.5 and -4.0 < right < -0.5 and 0 < top < phi.shape[0] - 1):
+        problems.append(f"wall drops {left}, {right} Te/e, maximum at node {top}")
+    problems += _sheath_population(m, SHEATH_WALL_N)
+    if problems:
+        raise AssertionError("sheath check: " + "; ".join(problems))
+    return dict(phi_avg_gap_te=gap, wall_drop_left_te=left, wall_drop_right_te=right)
+
+
+def phase_sheath_slice(dev) -> dict:
+    """bench.py's configs[2] row through tools/sheath.py, then the
+    composed backend."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import sheath as row
+
+    res, cfg, fin, m = row.run_row(dev)
+    steps = row.STEPS
+    launches = res["launches"]
+    want = dict(sheath_picard=res["picard_sum"], sheath_finalize=steps,
+                sheath_reinject=steps)
+    syncs = res["syncs"]
+    log(f"[sheath slice] configs[2] row: n = {res['n']}, ng = {NG_SHEATH}, {steps} "
+        f"steps: {res['us_per_step']:.3f} us/step, {res['pushes_per_s']:.4e} "
+        f"pushes/s, Picard mean {res['picard_mean']:.3f} (max {res['picard_max']}), "
+        f"wall drops (last 300 steps) {res['wall_drop_left_te']:.4f}, "
+        f"{res['wall_drop_right_te']:.4f} Te/e, wall losses "
+        f"{res['lost_per_step']:.1f}/step")
+    log(f"[sheath slice] configs[2] row: launches {launches}; host syncs "
+        f"{syncs['host_syncs_per_step']:.3f}/step against "
+        f"{syncs['host_reads_per_step']:.3f} engine reads and "
+        f"{syncs['picard_passes_per_step']:.3f} Picard passes a step "
+        f"({row.SYNC_STEPS} more steps under sync debug mode 'warn'; sites "
+        f"{syncs['sync_sites']}); steps at maxiter {res['steps_at_maxiter']}")
+    problems = row.check_row(cfg, fin, m)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if res["picard_max"] > cfg.maxiter:
+        problems.append(f"Picard max {res['picard_max']}")
+    if syncs["host_syncs_per_step"] != syncs["host_reads_per_step"]:
+        problems.append(f"host syncs {syncs}")
+    del fin, m
+    res_c, _, fin, m = row.run_row(dev, steps=SHEATH_COMPOSED_STEPS,
+                                   backend="composed", sync_steps=0)
+    passes = res_c["picard_sum"]
+    want_c = dict(gather=passes, deposit_det=2 * passes,
+                  sheath_reinject=SHEATH_COMPOSED_STEPS)
+    log(f"[sheath slice] backend='composed': {SHEATH_COMPOSED_STEPS} steps, "
+        f"{res_c['us_per_step']:.3f} us/step, Picard mean "
+        f"{res_c['picard_mean']:.3f}, launches {res_c['launches']}")
+    problems += [f"composed: {x}" for x in _sheath_population(m, res_c["n"])]
+    if res_c["launches"] != want_c:
+        problems.append(f"composed launches {res_c['launches']} != {want_c}")
+    if not bool(torch.isfinite(fin.p).all() and torch.isfinite(m.phi).all()):
+        problems.append("composed: non-finite state")
+    if problems:
+        raise AssertionError("sheath slice: " + "; ".join(problems))
+    res["composed"] = res_c
+    cuda_cic.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -1819,6 +2300,9 @@ def main() -> int:
     mk = phase("magnetized kernels", phase_magnetized_kernels, dev)
     mc = phase("magnetized check", phase_magnetized_check, dev)
     ms = phase("magnetized slice", phase_magnetized_slice, dev)
+    shk = phase("sheath kernels", phase_sheath_kernels, dev)
+    shc = phase("sheath check", phase_sheath_check, dev)
+    shs = phase("sheath slice", phase_sheath_slice, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -1834,13 +2318,17 @@ def main() -> int:
     launches["implicit_resident"] = isl["launches"]["implicit_resident"]
     for kname in SOURCES_MAGNETIZED:
         launches[kname] = ms["launches"][kname]
-    records = {**k, **ek, **ik, **mk}
+    for kname in ("sheath_picard", "sheath_finalize", "sheath_reinject"):
+        launches[kname] = shs["launches"][kname]
+    # the composed sheath path runs the deterministic deposit
+    launches["deposit_det"] = shs["composed"]["launches"]["deposit_det"]
+    records = {**k, **ek, **ik, **mk, **shk}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
                    picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
                    implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
-                   **SOURCES_MAGNETIZED)
+                   **SOURCES_MAGNETIZED, **SOURCES_SHEATH)
     log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname],
@@ -1877,6 +2365,15 @@ def main() -> int:
             "composed_us_per_step": ms["composed"]["us_per_step"],
             "newton_us_per_iteration": mk["boltzmann_dirichlet"]["us_per_iteration"],
             "check_phi_max_rel": mc["phi_max_rel"]},
+        "sheath_slice": {
+            **{key: shs[key] for key in (
+                "n", "steps", "us_per_step", "pushes_per_s", "picard_mean",
+                "picard_max", "wall_drop_left_te", "wall_drop_right_te",
+                "lost_per_step")},
+            **shs["syncs"],
+            "composed_us_per_step": shs["composed"]["us_per_step"],
+            "deposit_det_versus_atomic": shk["deposit_det"]["versus_atomic"],
+            "check": shc},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -24,7 +24,8 @@
 //   float32 operations do. The wrap is x - floor(x * (1/ng)) * ng, as in
 //   the TPU kernels, not fmodf.
 // * Float atomics make the deposits run-to-run non-reproducible at
-//   round-off level (the JAX deposits are bit-deterministic).
+//   round-off level (the JAX deposits are bit-deterministic);
+//   deposit_det_kernel sums in a fixed order instead.
 // * A launcher returns cudaGetLastError(); it allocates nothing and runs
 //   on the stream it is given.
 
@@ -247,6 +248,35 @@ __global__ void deposit_kernel(const float* __restrict__ p,
   for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&out[i], s_hist[i]);
 }
 
+// The deterministic deposit: the same CIC deposit with the sums in a fixed
+// order (cic_common.cuh det_flush: a histogram a thread, no float
+// atomics), for callers whose loop exits on a residual that the float
+// atomics' order would blur (the sheath engine's composed Picard loop).
+// Bound as deposit_kernel; the thread histograms take T ng floats of
+// shared memory a block.
+template <bool PERIODIC>
+__global__ void deposit_det_kernel(const float* __restrict__ p,
+                                   const float* __restrict__ values,
+                                   float* __restrict__ out,
+                                   float* __restrict__ partial,
+                                   unsigned int* __restrict__ counter,
+                                   long long n, int ng) {
+  extern __shared__ float s_hist[];  // column threadIdx.x: node * T + t
+  const int T = blockDim.x;
+  for (int i = threadIdx.x; i < T * ng; i += T) s_hist[i] = 0.0f;
+  __syncthreads();
+  float* mine = s_hist + threadIdx.x;
+  const long long stride = (long long)gridDim.x * T;
+  for (long long i = (long long)blockIdx.x * T + threadIdx.x; i < n;
+       i += stride) {
+    const float val = values[i];
+    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+    mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));
+    mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));
+  }
+  det_flush(s_hist, ng, partial, counter, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -319,6 +349,30 @@ int pypic_deposit(const float* p, const float* values, float* out, long long n,
     err = allow_smem(deposit_kernel<false>, smem);
     if (err != cudaSuccess) return (int)err;
     deposit_kernel<false><<<blocks, threads, smem, s>>>(p, values, out, n, ng);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out: ng floats (written whole); partial: blocks * ng floats of scratch;
+// counter: one unsigned int, 0 at the launch and left 0 (det_flush);
+// threads: a power of two <= 256.
+int pypic_deposit_det(const float* p, const float* values, float* out,
+                      float* partial, unsigned int* counter, long long n,
+                      int ng, int periodic, int blocks, int threads,
+                      void* stream) {
+  const size_t smem = (size_t)threads * ng * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (periodic) {
+    err = allow_smem(deposit_det_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    deposit_det_kernel<true><<<blocks, threads, smem, s>>>(p, values, out,
+                                                           partial, counter, n, ng);
+  } else {
+    err = allow_smem(deposit_det_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    deposit_det_kernel<false><<<blocks, threads, smem, s>>>(p, values, out,
+                                                            partial, counter, n, ng);
   }
   return (int)cudaGetLastError();
 }

@@ -85,3 +85,30 @@ def picard_counts_agree(iters_a, resid_a, iters_b, resid_b,
             f"to stop {gap:.3e}, 2 sigma {2.0 * sigma:.3e}: "
             + ("at the threshold" if fine else "NOT at the threshold"))
     return ok, lines
+
+
+def floor_exit_counts_agree(iters_a: int, resid_a: float, iters_b: int,
+                            resid_b: float, e0, e1, *, tol: float,
+                            tol_floor: float) -> tuple[bool, str]:
+    """Whether two runs of one sheath step (engines/sheath.py) took the
+    same Picard passes, but where the floor exit decided.
+
+    The sheath loop also stops once the residual ||es - eh|| falls below
+    tol_floor eps ||es|| (eps of float32): the scale of one summation
+    order's round-off. Two runs that sum in other orders may then leave a
+    pass apart. A one-pass difference is accepted when the run that
+    stopped first left by the floor exit: its residual above ``tol`` and
+    at most the threshold, with ||es|| taken as ||eh||, eh = (e0 + e1)/2
+    the converged half-step field (within r of es: 1% of room). ``e0``
+    and ``e1`` are the step's start and end fields. Returns (ok, line)."""
+    ka, kb = int(iters_a), int(iters_b)
+    resid_a, resid_b = float(resid_a), float(resid_b)
+    if ka == kb:
+        return True, f"{ka} passes on both (residuals {resid_a:.4e}, {resid_b:.4e})"
+    eh = 0.5 * (_as_f64(e0) + _as_f64(e1))
+    floor = tol_floor * float(np.finfo(np.float32).eps) * float(np.linalg.norm(eh))
+    first = float(resid_a if ka < kb else resid_b)
+    ok = abs(ka - kb) == 1 and tol < first <= 1.01 * floor
+    return ok, (f"passes {ka} vs {kb}; the first to stop at r = {first:.6e}, "
+                f"floor threshold {floor:.6e}: "
+                + ("a floor exit" if ok else "NOT a floor exit one pass apart"))

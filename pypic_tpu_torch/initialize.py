@@ -11,8 +11,9 @@ Rebuilds the L6 initializers:
   F proportional to 1 + cos(K X) (pypic.py:457-467) — vectorized with
   ``np.repeat`` instead of the reference's nested Python loops.
 
-The bounded two-species ``initialize_sheath`` loader comes with the sheath
-engine.
+* ``initialize_sheath``: the gen-2 bounded two-species loader
+  (PIC_L_DD.py:223-314, 'beam' system): electrons in the first half of
+  the slots, ions in the second, Maxwellian 1d3v velocities per species.
 
 Initialization is host-side numpy (it runs once per simulation) and makes
 the same RNG calls as ``pypic_tpu.initialize``, so one seed gives one load
@@ -26,7 +27,7 @@ import dataclasses
 
 import numpy as np
 
-from .constants import EPSILON_0, E_CHARGE, K_BOLTZMANN, M_ELECTRON
+from .constants import EPSILON_0, E_CHARGE, K_BOLTZMANN, M_ELECTRON, M_PROTON
 from .grid import GridSpec
 
 TWO_STREAM = "two-stream"
@@ -151,3 +152,48 @@ def initialize_periodic(
     x0 = rng.uniform(0.0, grid.length, n)
     x0 = _cosine_perturbation(rng, x0, n, perturbation, params.k, grid)
     return x0, v0, params
+
+
+def initialize_sheath(
+    n: int,
+    density: float,
+    kp: float,
+    perturbation: float,
+    grid: GridSpec,
+    te: float,
+    ti: float,
+    seed: int = 1,
+    ion_mass: float = M_PROTON,
+):
+    """Gen-2 two-species 1d3v loader (PIC_L_DD.py:223-314, 'beam' system).
+
+    Returns:
+        dict with x [m], v (n,3) [m/s], m, q [C], species (1=electron, 2=ion),
+        and params. The first n//2 slots are electrons, the rest ions
+        (PIC_L_DD.py:235-241).
+    """
+    rng = np.random.default_rng(seed)
+    params = derive_plasma(BEAM, n, density, kp, te, ti, grid.length, periodic=False)
+    half = n // 2
+
+    m = np.empty(n)
+    q = np.empty(n)
+    species = np.empty(n, dtype=np.int32)
+    m[:half] = M_ELECTRON
+    q[:half] = -E_CHARGE
+    species[:half] = 1
+    m[half:] = ion_mass
+    q[half:] = E_CHARGE
+    species[half:] = 2
+
+    v = np.empty((n, 3))
+    for c in range(3):
+        v[:half, c] = rng.normal(0.0, np.sqrt(params.kbte / m[:half]))
+        v[half:, c] = rng.normal(0.0, np.sqrt(params.kbti / m[half:]))
+
+    x0 = rng.uniform(0.0, grid.length, n)
+    # PIC_L_DD.py:298-307: perturbation resampling starts mid-population.
+    start = half - int(n * perturbation / 2)
+    x0 = _cosine_perturbation(rng, x0, n, perturbation, params.k, grid, start=start)
+
+    return dict(x=x0, v=v, m=m, q=q, species=species, params=params)

@@ -16,6 +16,7 @@ import torch
 from .engines.explicit import ExplicitState
 from .engines.implicit import ImplicitState
 from .engines.magnetized import MagnetizedState
+from .engines.sheath import SheathState
 
 # the fields of pypic_tpu's states (the port's states also cache q and m
 # on the host, which they rebuild from q and m)
@@ -25,6 +26,8 @@ _EXPLICIT_FIELDS = ("p", "v", "q", "m", "rho", "e", "step")
 # step copy are carried apart)
 _MAGNETIZED_FIELDS = tuple(f.name for f in dataclasses.fields(MagnetizedState)
                            if f.name not in ("rng", "step_host"))
+_SHEATH_FIELDS = tuple(f.name for f in dataclasses.fields(SheathState)
+                       if f.name not in ("rng", "step_host"))
 
 
 def _from_numpy(cls, fields, d: dict, device):
@@ -61,24 +64,47 @@ def explicit_state_to_numpy(state: ExplicitState) -> dict:
     return _to_numpy(state, _EXPLICIT_FIELDS)
 
 
+def _keyed_from_numpy(cls, fields, d: dict, device):
+    """A state with the Philox key words and the host step: ``rng``, the
+    JAX state's key data (two uint32 words), becomes the port's key words;
+    ``step`` is read once into the state's host copy."""
+    missing = [k for k in fields + ("rng",) if k not in d]
+    if missing:
+        raise KeyError(f"missing {cls.__name__} fields: {missing}")
+    tensors = {k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
+               for k in fields}
+    words = np.asarray(d["rng"], np.uint32).reshape(-1)
+    return cls(**tensors, rng=(int(words[0]), int(words[-1])),
+               step_host=int(np.asarray(d["step"])))
+
+
+def _keyed_to_numpy(state, fields) -> dict:
+    out = _to_numpy(state, fields)
+    out["rng"] = np.asarray(state.rng, np.uint32)
+    return out
+
+
 def magnetized_state_from_numpy(d: dict, device) -> MagnetizedState:
     """Build a MagnetizedState from a dict of numpy arrays keyed by the
-    JAX state's field names. ``rng``, the JAX state's key data (two
-    uint32 words), becomes the port's Philox key words; ``step`` is read
-    once into the state's host copy."""
-    missing = [k for k in _MAGNETIZED_FIELDS + ("rng",) if k not in d]
-    if missing:
-        raise KeyError(f"missing MagnetizedState fields: {missing}")
-    fields = {k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
-              for k in _MAGNETIZED_FIELDS}
-    words = np.asarray(d["rng"], np.uint32).reshape(-1)
-    return MagnetizedState(**fields, rng=(int(words[0]), int(words[-1])),
-                           step_host=int(np.asarray(d["step"])))
+    JAX state's field names (``rng`` and ``step`` as in
+    ``_keyed_from_numpy``)."""
+    return _keyed_from_numpy(MagnetizedState, _MAGNETIZED_FIELDS, d, device)
 
 
 def magnetized_state_to_numpy(state: MagnetizedState) -> dict:
     """The state's fields as host numpy arrays, dtypes kept; ``rng`` as
     two uint32 words."""
-    out = _to_numpy(state, _MAGNETIZED_FIELDS)
-    out["rng"] = np.asarray(state.rng, np.uint32)
-    return out
+    return _keyed_to_numpy(state, _MAGNETIZED_FIELDS)
+
+
+def sheath_state_from_numpy(d: dict, device) -> SheathState:
+    """Build a SheathState from a dict of numpy arrays keyed by the JAX
+    state's field names (``rng`` and ``step`` as in
+    ``_keyed_from_numpy``)."""
+    return _keyed_from_numpy(SheathState, _SHEATH_FIELDS, d, device)
+
+
+def sheath_state_to_numpy(state: SheathState) -> dict:
+    """The state's fields as host numpy arrays, dtypes kept; ``rng`` as
+    two uint32 words."""
+    return _keyed_to_numpy(state, _SHEATH_FIELDS)

@@ -75,6 +75,12 @@ _SIGNATURES = {
         [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _P], _I),
     "pypic_source_batch": (
         [_P] * 4 + [_L, _U, _U, _U] + [_F] * 7 + [_I, _I, _I, _P], _I),
+    "pypic_sheath_picard": ([_P] * 12 + [_L, _I] + [_F] * 4 + [_I, _I, _P], _I),
+    "pypic_sheath_finalize": (
+        [_P] * 13 + [_L, _I] + [_F] * 4 + [_I, _I, _P], _I),
+    "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _P], _I),
+    "pypic_sheath_reinject": (
+        [_P] * 12 + [_L, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 

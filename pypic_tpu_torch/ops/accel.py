@@ -28,6 +28,16 @@ def mix_init(e0: torch.Tensor, mode: str):
     raise ValueError(f"unknown accelerator mode {mode!r}")
 
 
+def anderson_depth(mode):
+    """Parse 'andersonM' -> M (int), else None ('anderson'/'anderson2'
+    keep their dedicated implementations)."""
+    if isinstance(mode, str) and mode.startswith("anderson"):
+        tail = mode[len("anderson"):]
+        if tail.isdigit() and int(tail) > 2:
+            return int(tail)
+    return None
+
+
 def damped_mix(es, eh, k: int, aux):
     """Under-relaxed fixed point es_{k+1} = (es_k + eh_k)/2: same fixed
     point."""

@@ -9,6 +9,8 @@ implicit headline step and the explicit engine reach:
   converged finalize sweep, no deposit);
 * ``deposit``               — ``deposit_pallas`` (CIC deposit, periodic or
   bounded);
+* ``deposit_det``           — ``deposit_pallas`` too, summed in a fixed order
+  (the same bits every call; the sheath engine's deposits);
 * ``gather``                — ``gather_pallas`` (CIC gather, periodic or
   bounded);
 * ``leapfrog_gather_push_deposit`` — ``leapfrog_gather_push_deposit_pallas``
@@ -32,9 +34,9 @@ implicit headline step and the explicit engine reach:
 
 The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``,
 ``csrc/implicit.cu`` and ``csrc/magnetized.cu`` (built by ``_build``). The
-magnetized engine's other two kernels have their own modules,
-``ops/cuda_newton.py`` and ``ops/cuda_rng.py``, which count their
-launches in ``LAUNCHES`` here.
+magnetized engine's other two kernels and the sheath engine's three have
+their own modules, ``ops/cuda_newton.py``, ``ops/cuda_rng.py`` and
+``ops/cuda_sheath.py``, which count their launches in ``LAUNCHES`` here.
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
@@ -69,7 +71,8 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "picard_finalize": 0, "picard_iteration_shared": 0,
             "implicit_resident": 0, "deposit2": 0, "boris_gather_push": 0,
             "boltzmann_dirichlet": 0, "source_batch": 0,
-            "source_uniforms": 0}
+            "source_uniforms": 0, "sheath_picard": 0, "sheath_finalize": 0,
+            "sheath_reinject": 0, "sheath_uniforms": 0, "deposit_det": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -447,6 +450,51 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     return p1, v1
 
 
+def det_threads(ng: int, extra: int, what: str) -> int:
+    """Threads a block of a deterministic deposit (cic_common.cuh
+    det_flush): the largest power of two <= 256 whose thread histograms
+    (threads x ng floats) and ``extra`` (ng,) arrays fit in a block's
+    shared memory."""
+    threads = _THREADS
+    while threads >= 32 and (threads + extra) * ng * 4 > SMEM_LIMIT:
+        threads //= 2
+    if threads < 32:
+        raise ValueError(
+            f"{what}: ng={ng} leaves no room for 32 thread histograms in "
+            f"{SMEM_LIMIT} B of shared memory (ng <= "
+            f"{SMEM_LIMIT // (4 * (32 + extra))}); the large-ng variant is "
+            "not ported yet")
+    return threads
+
+
+# (device, stream, blocks, ng) -> (partials, block counter): the scratch
+# of the deterministic sums, kept across calls. The counter is zeroed once
+# here; the last block of each launch sets it back to 0 (det_flush), and
+# launches on one stream run in order, so a call allocates and fills
+# nothing.
+_DET_SCRATCH: dict = {}
+
+
+def deterministic_scratch(n: int, ng: int, dev, extra: int = 0,
+                          what: str = "deposit"):
+    """(blocks, threads, per-block partials, zeroed block counter) of a
+    deterministic deposit: the grid is fixed by n, ng and the card, so the
+    sums' order is too. One wave: as many blocks as the card holds at
+    once, fewer for a small n. Call it with ``dev`` current."""
+    threads = det_threads(ng, extra, what)
+    smem = (threads + extra) * ng * 4
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    per_sm = max(1, min(2048 // threads, SMEM_LIMIT // smem))
+    blocks = max(1, min(-(-n // threads), per_sm * _sm_count(index)))
+    key = (index, _stream(dev), blocks, ng)
+    if key not in _DET_SCRATCH:
+        _DET_SCRATCH[key] = (
+            torch.empty((blocks * ng,), dtype=torch.float32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    partial, counter = _DET_SCRATCH[key]
+    return blocks, threads, partial, counter
+
+
 def deposit(p, values, ng: int, *, periodic: bool):
     """CIC-deposit per-particle ``values`` at grid positions ``p`` onto ng
     nodes (values carry every prefactor; masked particles carry 0)."""
@@ -466,6 +514,39 @@ def deposit(p, values, ng: int, *, periodic: bool):
                                 _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "deposit")
     LAUNCHES["deposit"] += 1
+    return out
+
+
+def deposit_det(p, values, ng: int, *, periodic: bool):
+    """``deposit`` with the sums in a fixed order on the card (no float
+    atomics: cic_common.cuh det_flush), so that a call gives the same bits
+    every time; ng <= 227 at 256 thread histograms a block, up to 1,816 at
+    32.
+    The sheath engine's composed loop and exit histograms use it: its
+    floor exit reads the residual at round-off level. Slower than
+    ``deposit`` at the other engines' shapes (PERF.md §6), which keep the
+    float-atomic kernel."""
+    kind = _device_kind((p, values))
+    n = p.shape[0] if p.dim() == 1 else -1
+    _check_1d("p", p, n)
+    _check_1d("values", values, n)
+    if ng < 2:
+        raise ValueError(f"ng must be >= 2, got {ng}")
+    det_threads(ng, 0, "deposit_det")
+    if kind == "cpu":
+        return deposit_plain(p, values, ng, periodic=periodic)
+    lib = _build.library()
+    dev = p.device
+    out = torch.empty((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        blocks, threads, partial, counter = deterministic_scratch(
+            n, ng, dev, 0, "deposit_det")
+        err = lib.pypic_deposit_det(
+            p.data_ptr(), values.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), counter.data_ptr(), n, ng, int(periodic),
+            blocks, threads, _stream(dev))
+    _build.check(err, "deposit_det")
+    LAUNCHES["deposit_det"] += 1
     return out
 
 

@@ -24,6 +24,19 @@ in ``cuda_cic.LAUNCHES['source_batch']``. The normals of the kernel and of
 the plain version differ by a few float32 ulps (libdevice's logf, sinf and
 cosf against the CPU's); the uniforms are bit-equal, which
 ``source_uniforms`` exposes for the check.
+
+``sheath_reinject`` replaces ``sheath_reinject_pallas``: the sheath's
+thermostat and wall re-injection sweep (PIC_L_DD.py:420-450). A row takes
+the words of up to three Philox blocks, counters (row, step, j, 0) for
+j = 0, 1 (and 2 with a thermostat), and uses the first 5 (10) of them as
+the TPU kernel lays its draws out (``reinject_bits_plain``). Its plain
+versions are ``sheath_reinject_from_bits_plain`` (the transform alone; the
+tests feed it the JAX kernel's threefry bits) and ``sheath_reinject_plain``
+(Philox and the transform). ``sheath_uniforms`` exposes the uniforms for
+the bit-equality check.
+
+The plain transforms work on contiguous tensors, so that PyTorch's CPU
+loops take one path whatever views they are handed.
 """
 
 from __future__ import annotations
@@ -31,7 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, cuda_cic
 from .cuda_cic import LAUNCHES, _THREADS, _blocks, _stream
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -78,13 +91,17 @@ def uniforms_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return mant.to(torch.int32).view(torch.float32) - 1.0
 
 
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
 def source_batch_from_bits_plain(bits, *, x_mu, x_sigma, x_wrap, vth,
                                  vx=0.0):
     """The TPU kernel's transform (pallas_rng.py:136-150) of (4, n) uint32
     words: Box-Muller on (u0, u1) and (u2, u3), x = z0 x_sigma + x_mu
     wrapped with floor(x (1/x_wrap)) x_wrap, and the same ``vx`` offset on
     all three velocity components. Returns float32 (x, vx, vy, vz)."""
-    u = uniforms_from_bits(bits.to(torch.int64))
+    u = uniforms_from_bits(bits.to(torch.int64).contiguous())
     f32 = np.float32
     two_pi = float(f32(_TWO_PI))
     r0 = torch.sqrt(-2.0 * torch.log(u[0]))
@@ -169,4 +186,143 @@ def source_uniforms(key, step: int, n: int, *, device) -> torch.Tensor:
         return uniforms_from_bits(torch.stack(words))
     out = _launch(key, step, n, True, dev)
     LAUNCHES["source_uniforms"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sheath's thermostat + re-injection sweep
+# ---------------------------------------------------------------------------
+
+
+def reinject_ndraw(gamma: float) -> int:
+    """Uniforms a row draws: 10 with a thermostat (gamma > 0), else 5
+    (pallas_rng.py _ndraw)."""
+    return 10 if gamma > 0.0 else 5
+
+
+def reinject_bits_plain(key, step: int, n: int, ndraw: int, device="cpu"):
+    """The (ndraw, n) Philox words of rows 0..n-1: word k of a row is word
+    k % 4 of its block at counter (row, step, k // 4, 0)."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    words = []
+    for b in range(-(-ndraw // 4)):
+        words += philox4x32_plain(key, (idx, int(step) & _MASK32, b, 0))
+    return torch.stack(words[:ndraw])
+
+
+def maxwell3_plain(u0, u1, u2, u3):
+    """Three standard normals by Box-Muller from four uniforms: two from
+    the first pair, one from the second pair's cosine branch
+    (pallas_rng.py _maxwell3)."""
+    two_pi = _f32(_TWO_PI)
+    r0 = torch.sqrt(-2.0 * torch.log(u0))
+    t0 = two_pi * u1
+    r1 = torch.sqrt(-2.0 * torch.log(u2))
+    t1 = two_pi * u3
+    return r0 * torch.cos(t0), r0 * torch.sin(t0), r1 * torch.cos(t1)
+
+
+def reinject_apply(p, u, vy, vz, lost, sig, x_new, z, hit=None, sigth=None,
+                   zt=None):
+    """The masked update of the sweep: rows in ``lost`` take the position
+    ``x_new`` and the normals ``z`` (three tensors) times ``sig``; rows in
+    ``hit`` (disjoint from ``lost``) keep their position and take the
+    normals ``zt`` times ``sigth``. Returns (p, u, vy, vz)."""
+    p1 = torch.where(lost, x_new, p)
+    u1 = torch.where(lost, z[0] * sig, u)
+    vy1 = torch.where(lost, z[1] * sig, vy)
+    vz1 = torch.where(lost, z[2] * sig, vz)
+    if hit is not None:
+        u1 = torch.where(hit, zt[0] * sigth, u1)
+        vy1 = torch.where(hit, zt[1] * sigth, vy1)
+        vz1 = torch.where(hit, zt[2] * sigth, vz1)
+    return p1, u1, vy1, vz1
+
+
+def sheath_reinject_from_bits_plain(bits, p, u, vy, vz, act, sig, sigth=None,
+                                    *, cells: float, gamma: float = 0.0):
+    """The TPU kernel's transform (pallas_rng.py:74-119) of (ndraw, n)
+    uint32 words: rows with act != 1 re-inject at u[4] cells with the
+    normals of u[0:4] times sig; with gamma > 0, rows with act == 1 and
+    u[5] < gamma take the normals of u[6:10] times sigth."""
+    uni = uniforms_from_bits(bits.to(torch.int64).contiguous())
+    z = maxwell3_plain(*uni[0:4])
+    x_new = uni[4] * _f32(cells)
+    lost = act != 1.0
+    if gamma > 0.0:
+        hit = (act == 1.0) & (uni[5] < _f32(gamma))
+        zt = maxwell3_plain(*uni[6:10])
+        return reinject_apply(p, u, vy, vz, lost, sig, x_new, z, hit,
+                              sig if sigth is None else sigth, zt)
+    return reinject_apply(p, u, vy, vz, lost, sig, x_new, z)
+
+
+def sheath_reinject_plain(key, step: int, p, u, vy, vz, act, sig, sigth=None,
+                          *, cells: float, gamma: float = 0.0):
+    """Philox words at counters (row, step, j, 0), then the transform:
+    what the kernel computes, as tensor operations."""
+    bits = reinject_bits_plain(key, step, p.shape[0], reinject_ndraw(gamma),
+                               p.device)
+    return sheath_reinject_from_bits_plain(bits, p, u, vy, vz, act, sig,
+                                           sigth, cells=cells, gamma=gamma)
+
+
+def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
+                    cells: float, gamma: float = 0.0):
+    """Thermostat + re-injection of the step ``step`` under the Philox
+    ``key`` (two 32-bit words). ``act`` is the float status (1 active),
+    ``sig`` / ``sigth`` the per-row Maxwellian sigmas sqrt(kB T / m) of the
+    re-injection and of the thermostat (sigth is read only with
+    gamma > 0). Returns (p, u, vy, vz), (n,) each: a CUDA device launches
+    the kernel, the CPU runs ``sheath_reinject_plain``."""
+    gamma = float(gamma)
+    if gamma > 0.0 and sigth is None:
+        sigth = sig
+    arrays = (p, u, vy, vz, act, sig) + ((sigth,) if gamma > 0.0 else ())
+    kind = cuda_cic._device_kind(arrays)
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in zip(("p", "u", "vy", "vz", "act", "sig", "sigth"), arrays):
+        cuda_cic._check_1d(name, t, n)
+    if n < 1 or n > _MASK32:
+        raise ValueError(f"n must be in [1, 2^32), got {n}")
+    if kind == "cpu":
+        return sheath_reinject_plain(key, step, p, u, vy, vz, act, sig, sigth,
+                                     cells=cells, gamma=gamma)
+    dev = p.device
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    with torch.cuda.device(dev):
+        err = lib.pypic_sheath_reinject(
+            p.data_ptr(), u.data_ptr(), vy.data_ptr(), vz.data_ptr(),
+            act.data_ptr(), sig.data_ptr(),
+            (sigth if gamma > 0.0 else sig).data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), None, n,
+            k0, k1, int(step) & _MASK32, _f32(cells), _f32(gamma),
+            _f32(_TWO_PI), int(gamma > 0.0), _blocks(n, dev), _THREADS,
+            _stream(dev))
+    _build.check(err, "sheath_reinject")
+    LAUNCHES["sheath_reinject"] += 1
+    return out[0], out[1], out[2], out[3]
+
+
+def sheath_uniforms(key, step: int, n: int, *, gamma: float, device):
+    """The (ndraw, n) float32 uniforms the sweep transforms: from the
+    kernel on a CUDA device (its uniforms variant), from
+    ``reinject_bits_plain`` on the CPU. For the bit-equality check; the
+    engine never calls it."""
+    dev = _kind(device)
+    ndraw = reinject_ndraw(float(gamma))
+    if dev.type == "cpu":
+        return uniforms_from_bits(reinject_bits_plain(key, step, n, ndraw, dev))
+    out = torch.empty((ndraw, n), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    with torch.cuda.device(dev):
+        err = lib.pypic_sheath_reinject(
+            *([None] * 11), out.data_ptr(), n, k0, k1, int(step) & _MASK32,
+            0.0, _f32(gamma), _f32(_TWO_PI), int(ndraw == 10),
+            _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "sheath_uniforms")
+    LAUNCHES["sheath_uniforms"] += 1
     return out

@@ -12,8 +12,10 @@
   both walls (PIC_L_DD.py:192-203 ``differentiateField``,
   pygcpic.py:907-937 ``differentiate_phi_to_E_dirichlet``).
 
-``integrate_neg_trapz`` and ``differentiate_time_series`` come with the
-sheath engine and the diagnostics that use them.
+* ``integrate_neg_trapz``: phi from E by cumulative negative trapezoid
+  (PIC_L_DD.py:205-214 ``integrateField``), as a cumsum.
+
+``differentiate_time_series`` comes with the diagnostics that use it.
 """
 
 from __future__ import annotations
@@ -43,3 +45,9 @@ def grad_neg_bounded(f: torch.Tensor, dx: float) -> torch.Tensor:
     out[0] = -(f[1] - f[0]) / dx
     out[-1] = -(f[-1] - f[-2]) / dx
     return out
+
+
+def integrate_neg_trapz(f: torch.Tensor, dx: float) -> torch.Tensor:
+    """IF[i] = -trapz(f[:i+1], dx): cumulative negative trapezoid from node 0."""
+    c = torch.cumsum(f, 0)
+    return -(c - 0.5 * f[0] - 0.5 * f) * dx

@@ -5,12 +5,15 @@ Ported so far, with the same defaults:
 * ``landau_damping`` — pypic.py:846-855 ("landau-damping best params")
 * ``two_stream``     — pypic.py:822-832 (commented two-stream block)
 * ``explicit_landau`` — pypic.py:667-677 (gen-3 explicit landau block)
+* ``sheath_dd``      — PIC_L_DD.py:316-341 (bounded two-species sheath
+  with absorbing walls; BASELINE configs[2]'s physics)
 * ``pic_iead``       — pygcpic.py:1120-1200 (magnetized D + B sheath with
   IEAD collection; BASELINE configs[3])
 
-The sheath presets (``sheath_dd``, ``sheath_dn``), ``pic_iead_gc``,
-``pic_bca_aps``, ``dirichlet_neumann_test`` and ``cold_beam`` come with
-their engines and options.
+``PRESETS`` maps their names to the functions above and ``get`` makes
+one by name, as in the JAX package. ``bump_on_tail``, ``pic_iead_gc``,
+``pic_bca_aps``, ``dirichlet_neumann_test``, the domain presets and
+``pic_iead_dd`` come with their options and engines.
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -20,7 +23,7 @@ state's tensors: the current CUDA device unless it says otherwise (pass
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 
@@ -28,7 +31,7 @@ from .constants import (E_CHARGE, EPSILON_0, EV_TO_K, K_BOLTZMANN,
                         M_ELECTRON, M_PROTON)
 from .grid import GridSpec
 from . import initialize
-from .engines import explicit, implicit, magnetized
+from .engines import explicit, implicit, magnetized, sheath
 
 
 @dataclasses.dataclass
@@ -104,6 +107,26 @@ def explicit_landau(n: int = 100_000, ng: int = 100, seed: int = 1,
                   dict(params=params, system="landau-damping"))
 
 
+def sheath_dd(n: int = 40_000, ng: int = 51, seed: int = 1, device=None,
+              **kw) -> Preset:
+    """PIC_L_DD.py:316-341: density 1e19, dt 1e-12, dx 1e-5,
+    Ti = Te = 10*11600 K, gamma 0, tol 1e-5 / maxiter 20; the exit
+    histograms on (vmax 3e6 m/s). The same numpy draws as the JAX preset."""
+    density, te, ti = 1e19, 10.0 * EV_TO_K, 10.0 * EV_TO_K
+    dx = 1e-5
+    grid = GridSpec(ng, dx * (ng - 1), "dirichlet-dirichlet")
+    d = initialize.initialize_sheath(n, density, 1.0, 0.0, grid, te, ti, seed=seed)
+    p2c = grid.length * density / n
+    cfg = sheath.SheathConfig(
+        grid, 1e-12, p2c, kbte=K_BOLTZMANN * te, kbti=K_BOLTZMANN * ti,
+        gamma=kw.get("gamma", 0.0),
+        exit_hist_vmax=kw.get("exit_hist_vmax", 3e6),
+    )
+    st = sheath.init_state(d["x"], d["v"], d["q"], d["m"], d["species"], cfg,
+                           seed=seed, device=device)
+    return Preset("sheath_dd", sheath, cfg, st, dict(params=d["params"]))
+
+
 def _floating_potential(te, ti, ion_mass):
     """pygcpic.py:1141."""
     return (te / EV_TO_K) * 0.5 * np.log(
@@ -158,3 +181,18 @@ def pic_iead(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
                   dict(floating_potential=phi_f,
                        bca_incident=((2.0, 1), (10.81, 5)),
                        species_labels=("D", "B")))
+
+
+PRESETS: Dict[str, Callable[..., Preset]] = {
+    "landau_damping": landau_damping,
+    "two_stream": two_stream,
+    "explicit_landau": explicit_landau,
+    "sheath_dd": sheath_dd,
+    "pic_iead": pic_iead,
+}
+
+
+def get(name: str, **kwargs) -> Preset:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+    return PRESETS[name](**kwargs)

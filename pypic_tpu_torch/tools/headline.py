@@ -8,7 +8,7 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream|magnetized]
+        [--cell landau|two-stream|magnetized|sheath]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -19,8 +19,10 @@ writes the chrome trace and the profiler's table under ``--out``.
 ``--cell two-stream`` profiles the explicit engine on bench.py's
 two-stream cell (``tools/two_stream.py``) at the same n instead;
 ``--cell magnetized`` profiles bench.py's configs[3] row
-(``tools/magnetized.py``, n = 999,996; ``--n`` is ignored). Each ends
-with one JSON line of its results.
+(``tools/magnetized.py``, n = 999,996) and ``--cell sheath`` its configs[2]
+row (``tools/sheath.py``, n = 1,000,000; ``--n`` is ignored for both,
+and the sheath profile also reports the Picard passes a step beside the
+host syncs). Each ends with one JSON line of its results.
 """
 
 from __future__ import annotations
@@ -140,6 +142,13 @@ def profile(args) -> dict:
         cfg, state, _ = magnetized_row.state(dev)
         args.n = state.p.shape[0]
         step = magnetized.make_step(cfg)
+    elif args.cell == "sheath":
+        from ..engines import sheath
+        from . import sheath as sheath_row
+
+        cfg, state = sheath_row.state(dev)
+        args.n = state.p.shape[0]
+        step = sheath.make_step(cfg)
     else:
         _, step, state = headline_state(args.n, dev, args.seed)
     state, _ = run(step, state, 2)  # warm-up
@@ -154,7 +163,7 @@ def profile(args) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = run(step, state, args.steps)
+        state, traced_m = run(step, state, args.steps)
         torch.cuda.synchronize()
         traced = (time.perf_counter() - t0) * 1e3 / args.steps
     out = pathlib.Path(args.out)
@@ -192,6 +201,9 @@ def profile(args) -> dict:
                traced_ms_per_step=traced, device_busy_ms_per_step=busy,
                idle_share_traced=1.0 - _busy_union(spans) / window,
                host_syncs_per_step=syncs, dtoh_per_step=dtoh)
+    if hasattr(traced_m, "picard_iters"):
+        res["picard_passes_per_step"] = float(traced_m.picard_iters.float().mean())
+        print(f"[profile] Picard passes {res['picard_passes_per_step']:.2f}/step")
     print(json.dumps(res))
     return res
 
@@ -206,7 +218,8 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
-    p.add_argument("--cell", choices=("landau", "two-stream", "magnetized"),
+    p.add_argument("--cell", choices=("landau", "two-stream", "magnetized",
+                                      "sheath"),
                    default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)

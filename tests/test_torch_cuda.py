@@ -3,7 +3,8 @@ card. Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode)
 and skips without one.
 
 The magnetized kernels run at n = 999,996 (bench.py's configs[3] row) and
-a ragged n, ng = 600, with their tolerances stated beside each test.
+a ragged n, ng = 600; the sheath kernels at n = 1,000,000 (configs[2]) and
+a ragged n, ng = 51 and 11; their tolerances are stated beside each test.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -449,3 +450,173 @@ def test_magnetized_step_card_matches_cpu(cuda_device):
                                rtol=2e-4, atol=1.0)
     assert int(sg.active.sum()) == int(sc.active.sum())
     assert int(mg.n_reactivated) == int(mc.n_reactivated)
+
+
+# ---------------------------------------------------------------------------
+# the sheath engine's kernels: n = 1,000,000 (bench.py's configs[2] row)
+# and a ragged n, ng = 51 and 11
+# ---------------------------------------------------------------------------
+
+N_SHEATH = (1_000_000, 4097)
+SHEATH_DT, SHEATH_DX = 1e-12, 1e-5
+
+
+def _sheath_inputs(n, ng, dev, seed=5):
+    """Rows inside the grid, exactly at 0 and at cells, pre-lost left and
+    right, and rows that cross a wall in the pass; electron and proton
+    q/m and weights (tests/test_torch_sheath.py's inputs)."""
+    rng = np.random.default_rng(seed)
+    cells = float(ng - 1)
+    p0 = rng.uniform(0.0, cells, n).astype(np.float32)
+    ps = np.clip(p0 + rng.normal(0, 0.2, n), -0.5, cells + 0.5).astype(np.float32)
+    ion = rng.uniform(size=n) < 0.5
+    qm = np.where(ion, 1.602e-19 / 1.67e-27, -1.602e-19 / 9.11e-31).astype(np.float32)
+    u0 = np.where(ion, rng.normal(0, 3e4, n), rng.normal(0, 1.3e6, n)).astype(np.float32)
+    w = (np.where(ion, 1.602e-19, -1.602e-19) * 1e9).astype(np.float32)
+    act = np.ones(n, np.float32)
+    p0[:4] = [0.0, cells, 0.0, cells]
+    ps[:4] = p0[:4]
+    act[4:40:2] = 0.0
+    act[5:40:2] = -1.0
+    p0[40:60] = 0.3
+    u0[40:60] = -2.5 * SHEATH_DX / SHEATH_DT
+    p0[60:80] = cells - 0.3
+    u0[60:80] = 2.5 * SHEATH_DX / SHEATH_DT
+    es = (rng.normal(size=ng) * 2e4).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (es, ps, p0, u0, qm, w, act)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [False, True], ids=["picard", "finalize"])
+@pytest.mark.parametrize("ng", [51, 11])
+@pytest.mark.parametrize("n", N_SHEATH)
+def test_sheath_pass_kernels_match_plain(cuda_device, n, ng, final):
+    """The sheath Picard pass and finalize against their plain versions on
+    the card: positions, velocities and statuses bit-equal (the same
+    float32 operations, no FMA); the current bit-equal from call to call
+    (summed in a fixed order), against the plain version
+    (another summation order: 5e-5 of the largest node) and against a
+    float64 deposit of the same terms (2e-5)."""
+    from pypic_tpu_torch.ops import cuda_sheath
+
+    args = _sheath_inputs(n, ng, cuda_device)
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    name = "sheath_finalize" if final else "sheath_picard"
+    before = cuda_cic.LAUNCHES[name]
+    fn = cuda_sheath.sheath_finalize if final else cuda_sheath.sheath_picard
+    plain = (cuda_sheath.sheath_finalize_plain if final
+             else cuda_sheath.sheath_picard_plain)
+    got = fn(*args, **kw)
+    assert cuda_cic.LAUNCHES[name] == before + 1
+    assert torch.equal(fn(*args, **kw)[-1], got[-1])  # the same bits again
+    ref = plain(*args, **kw)
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert torch.equal(g, r)
+    act1 = got[-2]
+    assert bool((act1[40:80] != 1.0).all())
+    pos, vals = (got[0], got[1]) if final else (got[0], None)
+    if vals is None:  # the pass's uh, from the plain push
+        vals = cuda_sheath._push_plain(args[0], args[1], args[2], args[3],
+                                       args[4], args[6], SHEATH_DT, SHEATH_DX)[3]
+    ref64 = cuda_sheath.sheath_deposit_plain(
+        pos.double(), vals.double(), act1.double(), args[5].double(), ng, **kw)
+    _rel_close(ref[-1], got[-1], 5e-5)
+    _rel_close(ref64, got[-1], 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.5])
+@pytest.mark.parametrize("n", N_SHEATH)
+def test_sheath_reinject_kernel_matches_plain(cuda_device, n, gamma):
+    """The thermostat + re-injection kernel against its plain version on
+    the card: the Philox uniforms bit-equal; positions bit-equal; the
+    velocities within 1e-6 of the largest (libdevice's logf/sinf/cosf
+    against PyTorch's); held rows bit-equal to their inputs."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    rng = np.random.default_rng(8)
+    p = rng.uniform(0, 50, n).astype(np.float32)
+    v = rng.normal(0, 1e5, (3, n)).astype(np.float32)
+    act = rng.choice(np.asarray([1.0, 0.0, -1.0], np.float32), n, p=[0.8, 0.1, 0.1])
+    sig = np.where(rng.uniform(size=n) < 0.5, 1.3e6, 3.1e4).astype(np.float32)
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in (p, v[0], v[1], v[2], act, sig, 0.5 * sig)]
+    key, step = (5, 6), 9
+    u = cuda_rng.sheath_uniforms(key, step, n, gamma=gamma, device=cuda_device)
+    assert torch.equal(u.cpu(), cuda_rng.sheath_uniforms(key, step, n, gamma=gamma,
+                                                         device="cpu"))
+    before = cuda_cic.LAUNCHES["sheath_reinject"]
+    got = cuda_rng.sheath_reinject(key, step, *arrs, cells=50.0, gamma=gamma)
+    assert cuda_cic.LAUNCHES["sheath_reinject"] == before + 1
+    ref = cuda_rng.sheath_reinject_plain(key, step, *arrs, cells=50.0, gamma=gamma)
+    assert torch.equal(got[0], ref[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _rel_close(r, g, 1e-6)
+    held = arrs[4] == 1.0
+    if gamma > 0.0:
+        held &= ~(u[5] < gamma)
+    for g, a in zip(got, arrs[:4]):
+        assert torch.equal(g[held], a[held])
+
+
+@pytest.mark.cuda
+def test_sheath_step_card_matches_cpu(cuda_device):
+    """One fused step of sheath_dd (n = 12,000, the exit histograms
+    recording) on the card and on the CPU from the same state after 5
+    steps, the same Philox draws on both sides: equal Picard counts (or
+    one apart at a step the first side left by the float32 floor exit,
+    diagnostics.floor_exit_counts_agree), wall losses and
+    statuses; active positions within 1e-4 cells, e, j and phi within 1e-4
+    of their largest."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.sheath_dd(n=12_000, device="cpu")
+    cfg = dataclasses.replace(pre.config, backend="fused",
+                              record_exit_after_step=0,
+                              picard_init="extrapolate", picard_accel="anderson")
+    st, _ = run(sheath.make_step(cfg), pre.state, 5)
+    d = interop.sheath_state_to_numpy(st)
+    out = []
+    for dev in ("cpu", cuda_device):
+        s = interop.sheath_state_from_numpy(d, dev)
+        out.append(sheath.make_step(cfg)(s))
+    (sc, mc), (sg, mg) = out
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+
+    ok, line = floor_exit_counts_agree(
+        mc.picard_iters, float(mc.picard_residual), mg.picard_iters,
+        float(mg.picard_residual), st.e, sc.e, tol=cfg.tol,
+        tol_floor=cfg.tol_floor)
+    assert ok, line
+    assert int(mg.n_lost_left) == int(mc.n_lost_left)
+    assert int(mg.n_lost_right) == int(mc.n_lost_right)
+    assert torch.equal(sg.active.cpu(), sc.active)
+    act = sc.active == 1
+    assert float((sg.p.cpu()[act] - sc.p[act]).abs().max()) < 1e-4
+    for a, b in ((sc.e, sg.e), (sc.j, sg.j), (mc.phi, mg.phi)):
+        _rel_close(a, b.cpu(), 1e-4)
+    assert torch.equal(sg.exit_hist.cpu(), sc.exit_hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True], ids=["bounded", "periodic"])
+def test_deterministic_deposit_matches_plain(cuda_device, periodic):
+    """The deterministic deposit: the same bits from call to call (its
+    scratch reused), one launch counted a call, within 2e-5 of a float64
+    deposit of the same values, and within 5e-5 of the atomics deposit."""
+    n, ng = 1_000_003, 51
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.uniform(0, ng - 1, n).astype(np.float32)).to(cuda_device)
+    vals = torch.from_numpy(rng.normal(0, 1e3, n).astype(np.float32)).to(cuda_device)
+    before = cuda_cic.LAUNCHES["deposit_det"]
+    a = cuda_cic.deposit_det(p, vals, ng, periodic=periodic)
+    b = cuda_cic.deposit_det(p, vals, ng, periodic=periodic)
+    assert cuda_cic.LAUNCHES["deposit_det"] == before + 2
+    assert torch.equal(a, b)
+    _rel_close(cuda_cic.deposit_plain(p.double(), vals.double(), ng,
+                                      periodic=periodic), a, 2e-5)
+    _rel_close(cuda_cic.deposit(p, vals, ng, periodic=periodic), a, 5e-5)
