@@ -113,6 +113,29 @@ Phases (any failure raises and the script exits non-zero):
    host syncs a step equal to the engine's reads (one a Picard pass);
    then 20 steps of backend='composed' with its launch counts (gather once
    and deposit_det twice a pass).
+19. dn kernels — the D-N Newton kernel against its plain version and the
+   op-composed Thomas route (on the CPU) at ng = 800, 600 and 257, cold
+   and warm (tests/test_pallas.py:361-389's limits), timed on the D-N
+   row's first solve (µs per iteration, profiler device time); the tagged
+   Philox uniforms of the flux draw and the gyro-phases bit-equal to the
+   plain version's at n = 50,000 and 999,996.
+20. dn check — dirichlet_neumann_test at n = 12,000: one step from the
+   states after 0, 10 and 50 steps on the card and on the CPU with the
+   same flux draws, at phase 14's limits; then 200 steps each: the flux
+   cap, and n0's and phi_max's means over the last 100 steps within 5%.
+21. dn slice — the D-N row (tools/magnetized.py --row dn): n = 50,000,
+   ng = 800, 1,200 steps under sync debug mode 'error', exactly 1,200
+   launches of deposit2, boltzmann_dn, boris_gather_push and
+   philox_uniforms and no other; the row's physics checks.
+22. gc check — pic_iead_gc at n = 12,000: one step from the states after
+   0, 10 and 50 steps on the card and on the CPU, the same source and
+   gyro-phase draws.
+23. gc slice — the GC row (--row gc): n = 999,996, 1,200 steps under
+   sync debug mode 'error', its launch counts and physics checks.
+24. size limits — each wrapper raises above the card's limit (shared
+   memory, thread histograms, one CTA) and launches nothing; a
+   magnetized step at ng = 1,200 with 'auto' takes the op-composed Thomas
+   route, and 'pallas' there raises naming ROADMAP item 10.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -232,6 +255,11 @@ BYTES_PER_PARTICLE = {
     # p, u, vy, vz, act, sig read, p, u, vy, vz written (gamma 0)
     "sheath_reinject": 40,
     "deposit_det": 8,
+    # per physical row of the D-N system: n and the warm start read, phi
+    # written
+    "boltzmann_dn": 12,
+    # (ndraw, n) uniforms written: the flux draw's 8 a row
+    "philox_uniforms": 32,
 }
 # float32 operations per particle and step, counted from the kernel bodies
 # (floor, rint, add, sub, mul and compare count one; each atomic add one).
@@ -263,6 +291,16 @@ OPS_PER_PARTICLE = {
     "sheath_reinject": 250,
     # the deposit's 7 with plain adds in the place of the atomics
     "deposit_det": 7,
+    # per physical row and Newton iteration, what a Thomas-solved
+    # Sherman-Morrison Newton step needs: the residual 10 and the
+    # Jacobian's diagonal 2 as in the D-D count, a Thomas solve with two
+    # right-hand sides 12 (elimination 5 + 2, back substitution 3 + 2),
+    # the rank-1 correction 2, the clip 2, the update 1 and the norm's sum
+    # 2 (the kernel's two-column PCR does ~170)
+    "boltzmann_dn": 31,
+    # two Philox blocks a row (200 integer operations at the float32
+    # rate) and 8 uniforms (3 each)
+    "philox_uniforms": 224,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
@@ -284,6 +322,7 @@ REPLACES = {
     "sheath_finalize": "pypic_tpu/ops/pallas_cic.py:660",
     "sheath_reinject": "pypic_tpu/ops/pallas_rng.py:74",
     "deposit_det": "pypic_tpu/ops/pallas_cic.py:252",
+    "boltzmann_dn": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
 }
 SOURCES_MAGNETIZED = {
     "deposit2": "pypic_tpu_torch/csrc/magnetized.cu",
@@ -343,6 +382,28 @@ SHEATH_PICARD_MEAN_RTOL = 0.1
 # tests/test_sheath.py:41-57's wall-potential test at its own setting
 SHEATH_WALL_N, SHEATH_WALL_STEPS = 10_000, 1500
 SHEATH_COMPOSED_STEPS = 20
+
+# the D-N slice: dirichlet_neumann_test at its own scale (tools/magnetized.py
+# --row dn), and the GC slice: pic_iead_gc at the configs[3] row's size
+NG_DN = 800
+# the D-N Newton kernel against its plain version and the op-composed
+# Thomas route (tests/test_pallas.py:361-389): iterations within one cold
+# and equal warm, phi within 5e-4 of max|phi|
+TOL_DN_PHI = 5e-4
+DN_CASES = (800, 600, 257)
+# D-N check: dirichlet_neumann_test at n = 12,000; one step from the states
+# after these steps (TOL_MAG_STEP's limits), then DN_CHECK_STEPS steps on
+# each side: the flux cap, n0's and phi_max's means over the last 100
+# steps within 5% card against CPU (the same draws; trajectories part by
+# round-off)
+DN_CHECK_N, DN_CHECK_AT, DN_CHECK_STEPS = 12_000, (0, 10, 50), 200
+DN_MEAN_RTOL = 0.05
+# GC check: pic_iead_gc at n = 12,000, one step from the states after these
+# steps, card against CPU, the same source and gyro-phase draws
+GC_CHECK_PER_SPECIES, GC_CHECK_AT = 2000, (0, 10, 50)
+# fault-1 repair: a magnetized step at ng = 1200, above the Newton
+# kernels' 1,024 rows, takes the Thomas route on the card
+NG_FAULT = 1200
 
 
 def bound(name: str, n: int, steps: int = 1,
@@ -409,11 +470,15 @@ def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
     """Device time of one call of fn in ms: the kernels (and memsets) it
     launches, summed from a torch.profiler trace of ``calls`` calls after
     a warm-up, over the calls. For calls whose kernels are shorter than
-    the wrapper's Python overhead, where ``cuda_ms`` would time the host."""
+    the wrapper's Python overhead, where ``cuda_ms`` would time the host.
+
+    The CUDA trace now and then comes back empty. Such a trace is taken
+    again up to ``tries`` times; after that the call is timed by
+    ``queued_ms``, which the log line names."""
     import os
     import tempfile
 
@@ -421,20 +486,47 @@ def device_ms(fn, calls: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        dur = sum(e["dur"] for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+        if dur > 0:
+            return dur / 1e3 / calls
+    ms = queued_ms(fn, calls)
+    log(f"[timing] the profiler saw no device activity in {tries} traces: "
+        f"{ms:.4f} ms a call from CUDA events behind a queued sleep")
+    return ms
+
+
+def queued_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call of fn in ms from CUDA events, with the
+    host's launch overhead kept out: a sleep kernel holds the stream while
+    the host queues ``calls`` calls between the two events, so the card
+    runs them back to back. The median of ``reps`` rounds. A call that
+    reads the host drains the queue, and its host time then counts."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dur = sum(e["dur"] for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
-    if dur <= 0:
-        raise RuntimeError("the profiler saw no device activity")
-    return dur / 1e3 / calls
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def seam_err(a: torch.Tensor, b: torch.Tensor, ng: int) -> float:
@@ -2049,6 +2141,10 @@ def phase_sheath_kernels(dev) -> dict:
                 cuda_ms(lambda: cuda_rng.sheath_reinject_plain(
                     key, step, *rargs, cells=50.0), **fast),
                 "sheath_reinject", n)
+            log(f"[sheath kernels]   sheath_reinject: {queued_ms(call):.4f} ms a "
+                f"call from CUDA events behind a queued sleep (device_ms's "
+                f"fallback) beside the profiler's "
+                f"{records['sheath_reinject']['ms']:.4f} ms")
             g = torch.Generator(device=dev).manual_seed(5)
             records["sheath_reinject"]["library_ms"] = device_ms(
                 lambda: torch.rand((5, n), device=dev, generator=g))
@@ -2270,6 +2366,392 @@ def phase_sheath_slice(dev) -> dict:
     return res
 
 
+
+def _dn_cases(dev):
+    """tests/test_pallas.py:361-389's inputs (number densities) at
+    DN_CASES."""
+    import numpy as np
+
+    for ng in DN_CASES:
+        rng = np.random.default_rng(13 + ng)
+        dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+        yield ng, torch.from_numpy(dens.astype(np.float32)).to(dev)
+
+
+def phase_dn_kernels(dev) -> dict:
+    """The D-N Newton kernel against its plain version and the op-composed
+    Thomas route (on the CPU) at DN_CASES, cold and warm; timed on the D-N
+    row's first solve (µs per iteration). The tagged Philox uniforms of the
+    flux draw and the gyro-phases bit-equal to the plain version's at the
+    rows' n, timed at the D-N row's shape."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton, cuda_rng
+    from pypic_tpu_torch.tools import magnetized as row
+
+    n0 = torch.tensor(0.9e17, dtype=torch.float32, device=dev)
+    te, dx = 116000.0, 2e-5
+    worst = 0.0
+    for ng, dens in _dn_cases(dev):
+        cold = torch.zeros(ng, dtype=torch.float32, device=dev)
+        thomas0 = poisson.solve_boltzmann_dirichlet_neumann(
+            dens.cpu(), float(n0), te, dx, cold.cpu())
+        for warm in (False, True):
+            phi0 = thomas0.phi.to(dev) if warm else cold
+            got = K.LAUNCHES["boltzmann_dn"]
+            res = cuda_newton.boltzmann_dn(dens, n0, te, dx, phi0)
+            if K.LAUNCHES["boltzmann_dn"] != got + 1:
+                raise AssertionError("boltzmann_dn: no launch counted")
+            ref = cuda_newton.boltzmann_dn_plain(dens, n0, te, dx, phi0)
+            thomas = (poisson.solve_boltzmann_dirichlet_neumann(
+                dens.cpu(), float(n0), te, dx, phi0.cpu()) if warm else thomas0)
+            gi, ri, ti = (int(res.iterations), int(ref.iterations),
+                          int(thomas.iterations))
+            errs = {}
+            for label, r in (("phi", ref.phi), ("phi_thomas", thomas.phi)):
+                a, rel = rel_err(r.to(dev), res.phi)
+                errs[label] = dict(abs=a, err=rel, kind="rel", tol=TOL_DN_PHI)
+            # counts and the residual carry abs 0: max_abs_err is phi's
+            for label, other in (("iterations", ri), ("iterations_thomas", ti)):
+                gap = float(abs(gi - other))
+                errs[label] = dict(abs=0.0, err=gap, kind=f"count gap ({gi} vs {other})",
+                                   tol=0.0 if warm and label == "iterations" else 1.0)
+            errs["residual"] = dict(abs=0.0, err=float(res.residual),
+                                    kind="<= tol", tol=1e-3)
+            worst = max(worst, _check(errs, f"boltzmann_dn(ng={ng}, "
+                                            f"{'warm' if warm else 'cold'})"))
+    # timed on the D-N row's first solve: its deposit, n0 = 0.9 <n>, the
+    # state's phi (0) as the warm start
+    pre = row.preset("dn", dev)
+    cfg, st = pre.config, pre.state
+    _, n_dens = K.deposit2(st.p, st.p2c / cfg.grid.dx, st.p2c / cfg.grid.dx,
+                           NG_DN, periodic=False)
+    n0 = 0.9 * torch.mean(n_dens)
+    phi0 = torch.zeros(NG_DN, dtype=torch.float32, device=dev)
+    got = cuda_newton.boltzmann_dn(n_dens, n0, cfg.te, cfg.grid.dx, phi0)
+    ref = cuda_newton.boltzmann_dn_plain(n_dens, n0, cfg.te, cfg.grid.dx, phi0)
+    iters = int(got.iterations)
+    a, rel = rel_err(ref.phi, got.phi)
+    worst = max(worst, _check(
+        {"phi": dict(abs=a, err=rel, kind=f"rel ({iters} vs plain "
+                     f"{int(ref.iterations)} iterations)", tol=TOL_DN_PHI)},
+        "boltzmann_dn(the D-N row's first solve)"))
+    records = {}
+    fast = dict(reps=3, calls=3)
+    records["boltzmann_dn"] = _rec(
+        worst, device_ms(lambda: cuda_newton.boltzmann_dn(
+            n_dens, n0, cfg.te, cfg.grid.dx, phi0)),
+        cuda_ms(lambda: cuda_newton.boltzmann_dn_plain(
+            n_dens, n0, cfg.te, cfg.grid.dx, phi0), **fast),
+        "boltzmann_dn", NG_DN, iters)
+    rec = records["boltzmann_dn"]
+    rec["iterations"] = iters
+    rec["us_per_iteration"] = rec["ms"] * 1e3 / iters
+    log(f"[dn kernels]   boltzmann_dn at ng = {NG_DN}: {iters} iterations, "
+        f"{rec['us_per_iteration']:.3f} us per iteration")
+    del st, pre
+
+    for n in (row.N_DN, N_MAG):
+        for ndraw, tag in ((8, cuda_rng.FLUX_TAG), (3, cuda_rng.GYRO_TAG)):
+            u = cuda_rng.philox_uniforms((0, 1), 7, n, ndraw, tag, device=dev)
+            ref = cuda_rng.philox_uniforms((0, 1), 7, n, ndraw, tag, device="cpu")
+            if not torch.equal(u.cpu(), ref):
+                raise AssertionError(f"philox_uniforms(tag {tag}) differs from "
+                                     "philox_uniforms_plain")
+            log(f"[dn kernels]   philox_uniforms: {ndraw} x {n} uniforms (tag "
+                f"{tag}) bit-equal to the plain version's")
+    n = row.N_DN
+    call = lambda: cuda_rng.philox_uniforms(  # noqa: E731
+        (0, 1), 7, n, 8, cuda_rng.FLUX_TAG, device=dev)
+    records["philox_uniforms"] = _rec(
+        0.0, device_ms(call),
+        cuda_ms(lambda: cuda_rng.philox_uniforms_plain(
+            (0, 1), 7, n, 8, cuda_rng.FLUX_TAG, dev), **fast),
+        "philox_uniforms", n)
+    g = torch.Generator(device=dev).manual_seed(5)
+    records["philox_uniforms"]["library_ms"] = device_ms(
+        lambda: torch.rand((8, n), device=dev, generator=g))
+    return records
+
+
+def _one_step_pairs(label, pre_cpu, cfg_cpu, cfg_gpu, at, dev, draws):
+    """One step from the CPU run's states after ``at`` steps, on the CPU
+    (cfg_cpu) and the card (cfg_gpu), the same draws replayed on both
+    (``draws(state, step) -> make_step keyword arguments``); returns the
+    problems."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import magnetized
+
+    snaps, st = {}, pre_cpu.state
+    step_cpu = magnetized.make_step(cfg_cpu)
+    for i in range(max(at) + 1):
+        if i in at:
+            snaps[i] = interop.magnetized_state_to_numpy(st)
+        if i < max(at):
+            st, _ = step_cpu(st)
+    problems = []
+    for i, d in snaps.items():
+        sc = interop.magnetized_state_from_numpy(d, "cpu")
+        kw_c, kw_g = draws(sc, dev)
+        c = magnetized.make_step(cfg_cpu, **kw_c)(sc)
+        g = magnetized.make_step(cfg_gpu, **kw_g)(
+            interop.magnetized_state_from_numpy(d, dev))
+        errs = _mag_step_errors(c, g)
+        counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
+                  for k in ("n_hit_wall", "n_reactivated", "newton_iters",
+                            "n_active")}
+        log(f"[{label}] n = {pre_cpu.state.p.shape[0]}, step {i} -> {i + 1}, GPU vs "
+            "CPU, |d| / (atol + rtol |ref|) (<= 1 passes): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; counts (CPU, GPU) {counts}")
+        bad = {k: v for k, v in errs.items() if not v <= 1.0}
+        for k in ("n_active", "n_reactivated"):
+            if counts[k][0] != counts[k][1]:
+                bad[k] = counts[k]
+        if bad:
+            problems.append(f"step {i}: {bad}")
+    return problems, snaps
+
+
+def _replayed(key_fn):
+    """make_step keyword arguments replaying CPU-made draws on both sides:
+    ``key_fn(state) -> {hook name: (step, n) -> CPU tensors}``."""
+    def draws(state, dev):
+        hooks = key_fn(state)
+        on = {name: (lambda f: (lambda s, k: _to(f(s, k), dev)))(f)
+              for name, f in hooks.items()}
+        return hooks, on
+    return draws
+
+
+def _to(x, dev):
+    if isinstance(x, dict):
+        return {k: v.to(dev) for k, v in x.items()}
+    return x.to(dev)
+
+
+def phase_dn_check(dev) -> dict:
+    """dirichlet_neumann_test at n = 12,000 on the card ('auto': fused, the
+    D-N Newton kernel, the Philox flux draw) against the CPU (the same
+    fused path and Newton PCR in their plain versions): one step from the
+    states after 0/10/50 steps with the same flux draws (made on the CPU)
+    on both sides; then DN_CHECK_STEPS steps each, each side's own draws."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets, sources
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.dirichlet_neumann_test(n=DN_CHECK_N, device="cpu")
+    cfg_cpu = dataclasses.replace(pre.config, backend="fused",
+                                  newton_backend="pallas")
+    src = cfg_cpu.source
+
+    def hooks(state):
+        def flux(step, n):
+            return sources.sample_flux_batch(
+                state.rng, step, n, cfg_cpu.grid, src.ti, src.mass, vx=src.vx,
+                gamma=cfg_cpu.flux_gamma, vx_pert=cfg_cpu.flux_vx_pert,
+                device="cpu")
+        return {"source_draws": flux}
+
+    problems, snaps = _one_step_pairs("dn check", pre, cfg_cpu, pre.config,
+                                      DN_CHECK_AT, dev, _replayed(hooks))
+    out = {}
+    for label, cfg, device in (("CPU", cfg_cpu, "cpu"), ("GPU", pre.config, dev)):
+        s0 = interop.magnetized_state_from_numpy(snaps[0], device)
+        _, m = run(magnetized.make_step(cfg), s0, DN_CHECK_STEPS)
+        out[label] = dict(n0=float(m.n0[-100:].double().mean()),
+                          phi_max=float(m.phi_max[-100:].double().mean()),
+                          react_max=int(m.n_reactivated.max()),
+                          newton_mean=float(m.newton_iters.float().mean()))
+        log(f"[dn check] {DN_CHECK_STEPS} steps on the {label}: {out[label]}")
+        if out[label]["react_max"] > cfg.flux_limit:
+            problems.append(f"{label}: flux cap {out[label]['react_max']}")
+        if not bool(torch.isfinite(m.phi).all()):
+            problems.append(f"{label}: non-finite phi")
+    rels = {k: abs(out["GPU"][k] - out["CPU"][k]) / abs(out["CPU"][k])
+            for k in ("n0", "phi_max")}
+    log(f"[dn check] last-100-step means GPU vs CPU: {rels} (tol {DN_MEAN_RTOL})")
+    for k, v in rels.items():
+        if not v <= DN_MEAN_RTOL:
+            problems.append(f"{k} means {out['CPU'][k]} vs {out['GPU'][k]}")
+    if problems:
+        raise AssertionError("dn check: " + "; ".join(problems))
+    return dict(means_rel=rels)
+
+
+def phase_dn_slice(dev) -> dict:
+    """The D-N row through tools/magnetized.py: 1,200 steps under sync
+    debug mode 'error', exactly 1,200 launches of deposit2, boltzmann_dn,
+    boris_gather_push and the flux draw's philox_uniforms, nothing else;
+    the row's checks."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, cfg, fin, m = row.run_row(dev, row="dn")
+    steps = row.STEPS
+    want = {k: 0 for k in cuda_cic.LAUNCHES}
+    want.update(deposit2=steps, boltzmann_dn=steps, boris_gather_push=steps,
+                philox_uniforms=steps)
+    launches = dict(cuda_cic.LAUNCHES)
+    res["launches"] = launches
+    log(f"[dn slice] dirichlet_neumann_test: n = {res['n']}, ng = {NG_DN}, "
+        f"{steps} steps under sync debug mode 'error' (0 host syncs): "
+        f"{res['us_per_step']:.3f} us/step, {res['pushes_per_s']:.4e} "
+        f"pushes/s, Newton mean {res['newton_mean']:.3f} (max "
+        f"{res['newton_max']}), n0 last/first {res['n0_last_over_first']:.4f}, "
+        f"phi (last 100 steps) wall {res['phi_wall']:.3e} V, far end "
+        f"{res['phi_far']:.4f} V, re-activations {res['react_per_step']:.2f}"
+        f"/step (max {res['react_max']})")
+    log(f"[dn slice] launches {launches}")
+    problems = row.check_dn_row(cfg, fin, m)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if problems:
+        raise AssertionError("dn slice: " + "; ".join(problems))
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gc_check(dev) -> dict:
+    """pic_iead_gc at n = 12,000 on the card (composed, the D-D Newton
+    kernel, the source and gyro-phase kernels) against the CPU (plain
+    versions): one step from the states after 0/10/50 steps with the same
+    source and gyro-phase draws (made on the CPU) on both sides."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets, sources
+    from pypic_tpu_torch.ops import cuda_rng
+
+    pre = presets.pic_iead_gc(n_per_species=GC_CHECK_PER_SPECIES, device="cpu")
+    cfg_cpu = dataclasses.replace(pre.config, newton_backend="pallas")
+    src = cfg_cpu.source
+
+    def hooks(state):
+        return {
+            "source_draws": lambda step, n: sources.sample_source_batch(
+                state.rng, step, n, cfg_cpu.grid, src.ti, src.mass, vx=src.vx,
+                device="cpu"),
+            "gyro_draws": lambda step, n: cuda_rng.philox_uniforms(
+                state.rng, step, n, 3, cuda_rng.GYRO_TAG, device="cpu").t(),
+        }
+
+    problems, _ = _one_step_pairs("gc check", pre, cfg_cpu, pre.config,
+                                  GC_CHECK_AT, dev, _replayed(hooks))
+    if problems:
+        raise AssertionError("gc check: " + "; ".join(problems))
+    return {}
+
+
+def phase_gc_slice(dev) -> dict:
+    """The GC row through tools/magnetized.py: pic_iead_gc at n = 999,996,
+    1,200 steps under sync debug mode 'error'; per step two deposits and
+    the IEAD's, one gather, one D-D Newton kernel, one source batch and one
+    gyro-phase draw, nothing else; the row's checks."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, cfg, fin, m = row.run_row(dev, row="gc")
+    steps = row.STEPS
+    want = {k: 0 for k in cuda_cic.LAUNCHES}
+    want.update(deposit=3 * steps, gather=steps, boltzmann_dirichlet=steps,
+                source_batch=steps, philox_uniforms=steps)
+    launches = dict(cuda_cic.LAUNCHES)
+    res["launches"] = launches
+    gc_rows = (fin.active == 1) & (fin.mode == 1)
+    log(f"[gc slice] pic_iead_gc: n = {res['n']}, ng = {NG_MAG}, {steps} steps "
+        f"under sync debug mode 'error' (0 host syncs): {res['us_per_step']:.3f} "
+        f"us/step, {res['pushes_per_s']:.4e} pushes/s, Newton mean "
+        f"{res['newton_mean']:.3f} (max {res['newton_max']}), phi_max / phi_f "
+        f"(last 100 steps) {res['phi_max_over_phi_f']:.4f}, wall losses "
+        f"{int(m.n_hit_wall.sum())}, IEAD counts "
+        f"{fin.iead.sum(dim=(1, 2)).cpu().tolist()}, active guiding centers "
+        f"{int(gc_rows.sum())}")
+    log(f"[gc slice] launches {launches}")
+    problems = row.check_gc_row(cfg, fin, m)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if problems:
+        raise AssertionError("gc slice: " + "; ".join(problems))
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_size_limits(dev) -> dict:
+    """The card's size limits: each wrapper raises above its limit on CUDA
+    tensors (and ran the plain version on CPU tensors in the CPU tests);
+    a magnetized step at ng = NG_FAULT with newton_backend 'auto' takes the
+    op-composed Thomas route (no Newton kernel launch), and 'pallas' there
+    raises naming ROADMAP item 10."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
+
+    z = lambda k: torch.zeros(k, dtype=torch.float32, device=dev)  # noqa: E731
+    p, big = z(64), K.SMEM_LIMIT // 4 + 1
+    kw = dict(qm=-1.7e11, w=-3.2e-9, dt=1e-7, dx=0.05)
+    calls = {
+        "picard_iteration": lambda: K.picard_iteration(
+            z(K.SMEM_LIMIT // 8 + 1), p, p, p, K.SMEM_LIMIT // 8 + 1, **kw),
+        "deposit": lambda: K.deposit(p, p, big, periodic=True),
+        "gather": lambda: K.gather(z(big), p, periodic=False),
+        "deposit2": lambda: K.deposit2(p, p, p, K.SMEM_LIMIT // 8 + 1,
+                                       periodic=False),
+        "boris_gather_push": lambda: K.boris_gather_push(
+            z(big), p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+        "deposit_det": lambda: K.deposit_det(p, p, 1817, periodic=False),
+        "sheath_picard": lambda: cuda_sheath.sheath_picard(
+            z(1817), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+        "boltzmann_dirichlet": lambda: cuda_newton.boltzmann_dirichlet(
+            z(1025), 1e17, 1.16e5, 2e-5),
+        "boltzmann_dn": lambda: cuda_newton.boltzmann_dn(
+            z(1025), 1e17, 1.16e5, 2e-5, z(1025)),
+    }
+    K.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            log(f"[size limits] {name} on the card raises: {str(e)[:100]}")
+        else:
+            raise AssertionError(f"{name} ran above its limit on the card")
+    if any(K.LAUNCHES.values()):
+        raise AssertionError(f"launches above the limits: {K.LAUNCHES}")
+    pre = presets.pic_iead(n_per_species=500, ng=NG_FAULT, device=dev)
+    try:
+        magnetized.make_step(dataclasses.replace(
+            pre.config, newton_backend="pallas"))(pre.state)
+    except ValueError as e:
+        if "item 10" not in str(e):
+            raise
+        log(f"[size limits] newton_backend='pallas' at ng = {NG_FAULT} raises: "
+            f"{str(e)[:100]}")
+    else:
+        raise AssertionError("newton_backend='pallas' ran at ng > 1024")
+    K.reset_launch_counts()
+    for k in magnetized.THOMAS_SOLVES:
+        magnetized.THOMAS_SOLVES[k] = 0
+    t0 = time.perf_counter()
+    st, m = magnetized.make_step(pre.config)(pre.state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    log(f"[size limits] a magnetized step at ng = {NG_FAULT}, 'auto': "
+        f"Thomas solves {dict(magnetized.THOMAS_SOLVES)}, {int(m.newton_iters)} "
+        f"Newton iterations, residual {float(m.newton_residual):.3e}, "
+        f"{seconds:.2f} s, launches {launches}")
+    if (magnetized.THOMAS_SOLVES["dirichlet"] != 1
+            or K.LAUNCHES["boltzmann_dirichlet"] != 0):
+        raise AssertionError("ng > 1024 did not take the Thomas route")
+    if not (bool(torch.isfinite(m.phi).all())
+            and float(m.newton_residual) <= pre.config.newton_tol):
+        raise AssertionError("the Thomas route did not converge")
+    return dict(thomas_step_s=seconds)
+
+
 def main() -> int:
     walls = {}
 
@@ -2303,6 +2785,12 @@ def main() -> int:
     shk = phase("sheath kernels", phase_sheath_kernels, dev)
     shc = phase("sheath check", phase_sheath_check, dev)
     shs = phase("sheath slice", phase_sheath_slice, dev)
+    dnk = phase("dn kernels", phase_dn_kernels, dev)
+    dnc = phase("dn check", phase_dn_check, dev)
+    dns = phase("dn slice", phase_dn_slice, dev)
+    phase("gc check", phase_gc_check, dev)
+    gcs = phase("gc slice", phase_gc_slice, dev)
+    lim = phase("size limits", phase_size_limits, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -2322,12 +2810,15 @@ def main() -> int:
         launches[kname] = shs["launches"][kname]
     # the composed sheath path runs the deterministic deposit
     launches["deposit_det"] = shs["composed"]["launches"]["deposit_det"]
-    records = {**k, **ek, **ik, **mk, **shk}
+    launches["boltzmann_dn"] = dns["launches"]["boltzmann_dn"]
+    helper = dnk.pop("philox_uniforms")
+    records = {**k, **ek, **ik, **mk, **shk, **dnk}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
                    picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
                    implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
+                   boltzmann_dn="pypic_tpu_torch/csrc/newton.cu",
                    **SOURCES_MAGNETIZED, **SOURCES_SHEATH)
     log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
@@ -2340,7 +2831,16 @@ def main() -> int:
          "library_ms": records[kname].get("library_ms"),
          "n": records[kname]["n"]}
         for kname in REPLACES
-    ], "slice": {key: sl[key] for key in (
+    ], "helper_kernels": [
+        # the flux and gyro-phase uniforms: no TPU kernel draws them (the
+        # JAX engine takes them from jax.random)
+        {"name": "philox_uniforms", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/rng.cu", "replaces": None,
+         "launches": dns["launches"]["philox_uniforms"],
+         **{key: helper[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "n")},
+         "library_ms": helper["library_ms"]}],
+        "slice": {key: sl[key] for key in (
         "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
         "field_energy_rel_change", "total_energy_rel_change")},
         "explicit_slice": {key: ex[key] for key in (
@@ -2374,6 +2874,17 @@ def main() -> int:
             "composed_us_per_step": shs["composed"]["us_per_step"],
             "deposit_det_versus_atomic": shk["deposit_det"]["versus_atomic"],
             "check": shc},
+        "dirichlet_neumann_slice": {
+            **{key: dns[key] for key in (
+                "n", "ng", "steps", "us_per_step", "pushes_per_s",
+                "newton_mean", "newton_max", "n0_last_over_first", "phi_wall",
+                "phi_far", "react_per_step")},
+            "newton_us_per_iteration": dnk["boltzmann_dn"]["us_per_iteration"],
+            "check_means_rel": dnc["means_rel"]},
+        "gc_slice": {key: gcs[key] for key in (
+            "n", "ng", "steps", "us_per_step", "pushes_per_s", "newton_mean",
+            "phi_max_over_phi_f")},
+        "size_limits": lim,
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,48 +1,70 @@
 """Magnetized Boltzmann-electron sheath engine (the counterpart of
 ``pypic_tpu/engines/magnetized.py``; gen-4, pygcpic.py).
 
-One step of the ``pic_iead`` driver's cycle (pygcpic.py:1200-1294) with
-Dirichlet-Dirichlet walls:
+One step of the reference's ``pic_iead`` cycle (pygcpic.py:1200-1294):
 
 1. deposit of the ion charge and number densities, and the adaptive
    Boltzmann reference-density update (pygcpic.py:841-905): the first
    step pins n0 = 0.9 <n>, later steps evolve it from trapz(exp(phi/Te)),
    the wall factors and the particle ledger;
 2. optional binomial smoothing of rho (pygcpic.py:1491);
-3. the Newton Boltzmann Poisson solve from the wall-referenced warm start;
+3. the Newton Boltzmann Poisson solve: with Dirichlet-Dirichlet walls on
+   rho from the wall-referenced warm start; with a Dirichlet-Neumann grid
+   (``dirichlet_neumann_test``, pygcpic.py:1968-2093) on the number
+   density from the previous phi as it is, at the reference's tol 1e-3 /
+   maxiter 100 (pygcpic.py:1079-1080);
 4. E = -grad phi, the bounded CIC gather (the reference's mirrored
    intra-cell weights by default) and the Boris-Buneman push in the
-   constant B (pygcpic.py:460-507);
+   constant B (pygcpic.py:460-507); with ``pusher='gc'`` the charged
+   particles (mode 1) move as guiding centers (RK4, [v_par, mu, 0] in v)
+   and the rest by Boris;
 5. wall deactivation and the wall-impact energy-angle (IEAD) histograms
-   per species (pygcpic.py:668-689, 1239-1262);
+   per species (pygcpic.py:668-689, 1239-1262), guiding centers from the
+   6D velocity rebuilt with a random gyro-phase (pygcpic.py:553-596);
 6. re-activation of inactive slots from the volumetric source
-   (pygcpic.py:691-720, 1248-1254), crediting the particle ledger.
+   (pygcpic.py:691-720, 1248-1254) or, with ``reactivate='flux'``, of the
+   first ``flux_limit`` inactive slots from the wall-flux source
+   (pygcpic.py:2055-2060), crediting the particle ledger; under GC the
+   charged newcomers enter in GC packing.
 
 Backends, as the JAX engine's, with CUDA in the place of the TPU:
 
-* fused (``backend='auto'`` on a CUDA state with n >= 8192): one
-  ``deposit2`` sweep for rho and n and one ``boris_gather_push`` sweep;
-* composed: two ``deposit`` launches, the ``gather`` kernel and the
-  tensor-op ``push.boris_push_dt``.
+* fused (``backend='auto'`` on a CUDA state with n >= 8192, Boris
+  pusher): one ``deposit2`` sweep for rho and n and one
+  ``boris_gather_push`` sweep;
+* composed (and always under ``pusher='gc'``): two ``deposit`` launches,
+  the ``gather`` kernel and the tensor-op pushers.
 
-The Newton solve is the one-launch kernel ``ops.cuda_newton.
-boltzmann_dirichlet`` (``newton_backend`` 'pallas', and 'auto' on a CUDA
-state) or the op-composed Thomas loop ``ops.poisson.
-solve_boltzmann_dirichlet`` ('xla', and 'auto' on the CPU), which reads
-its residual on the host once an iteration. The re-activation batch is the
-Philox kernel ``ops.cuda_rng.source_batch`` (``sources.
-sample_source_batch``) for ``source_sampler`` 'auto' and 'pallas', keyed by
-the state's two key words at counter (slot, step): with the default
-backends a step on the card makes no host sync. The IEAD histogram is a
-``deposit`` launch over every particle.
+The Newton solve is a one-launch kernel of ``ops.cuda_newton``
+(``boltzmann_dirichlet``, or ``boltzmann_dn`` on a D-N grid) for
+``newton_backend`` 'pallas', and for 'auto' on a CUDA float32 state with
+ng <= ``cuda_newton.MAX_NG`` (1024, one CTA). Otherwise it is the
+op-composed Thomas loop of ``ops.poisson`` (the JAX engine's 'xla'
+route), which reads its residual on the host once an iteration: 'xla',
+'auto' on the CPU, and 'auto' on the card above 1024 nodes, a route
+chosen by size and counted in ``THOMAS_SOLVES``. 'pallas' above 1024
+nodes on the card raises (the large-grid kernel is ROADMAP item 10).
+
+The re-activation draws come from the Philox kernels, keyed by the
+state's two key words and the host step: ``ops.cuda_rng.source_batch``
+(``sources.sample_source_batch``) at counter (slot, step, 0, 0) for the
+source, ``ops.cuda_rng.philox_uniforms`` with ``FLUX_TAG``
+(``sources.sample_flux_batch``) for the flux, and with ``GYRO_TAG`` for
+the gyro-phases; 'auto' and 'pallas' take them ('pallas' with 'flux'
+raises, as in the JAX config). With the default backends a step on the
+card makes no host sync. The IEAD histogram is a ``deposit`` launch over
+every particle.
 
 The step's host-side facts (the step number for the first-step branch of
-the n0 update and the Philox counter, the key, the shapes) live on the
+the n0 update and the Philox counters, the key, the shapes) live on the
 host in the state, so nothing is read back from the card.
 
-Options that need modules or kernels not ported yet raise
-``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
-ROADMAP item that brings them.
+Options that need modules or kernels not ported yet (ionization,
+'capped-source', the impact buffer and the BCA escape, the 'hash' and
+'threefry' samplers, data-parallel sharding, react_batch, carried
+deposits, deposit_method) raise ``NotImplementedError`` from
+``init_state`` and ``make_step``, naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -57,13 +79,22 @@ import torch
 from .. import devices, sources
 from ..constants import E_CHARGE, EV_TO_K, K_BOLTZMANN, M_ELECTRON
 from ..grid import DIRICHLET_NEUMANN, GridSpec
-from ..ops import cuda_cic, cuda_newton
+from ..ops import cuda_cic, cuda_newton, cuda_rng
 from ..ops.cic import deposit, gather, histogram_add
 from ..ops.fd import grad_neg_bounded, smooth_bounded
-from ..ops.poisson import solve_boltzmann_dirichlet
-from ..push import boris_push_dt
+from ..ops.poisson import (solve_boltzmann_dirichlet,
+                           solve_boltzmann_dirichlet_neumann)
+from ..push import (boris_push_dt, from_guiding_center, gc_push_rk4,
+                    to_guiding_center)
+from ..utils import compact_rows
 
 _MASK32 = 0xFFFFFFFF
+# the D-N Newton envelope of the reference (pygcpic.py:1079-1080)
+DN_TOL, DN_MAXITER = 1e-3, 100
+# op-composed Thomas solves the engine chose on a CUDA state ('auto' above
+# cuda_newton.MAX_NG), by wall condition: the route reads the host once a
+# Newton iteration, so a run that takes it is told apart by this count
+THOMAS_SOLVES = {"dirichlet": 0, "dirichlet_neumann": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,8 +181,7 @@ class MagnetizedConfig:
         if self.source_sampler == "pallas" and self.reactivate == "flux":
             raise ValueError(
                 "source_sampler='pallas' does not implement the flux-source "
-                "CDF table draw — use 'auto' (falls back to threefry here), "
-                "'threefry', or 'hash'")
+                "CDF table draw — use 'auto' (the Philox flux draw here)")
         if self.react_batch < 0:
             raise ValueError("react_batch must be >= 0")
         if self.react_timing not in ("reference", "immediate"):
@@ -268,7 +298,7 @@ class StepMetrics(NamedTuple):
     n_escape_rows: torch.Tensor
 
 
-_ITEM_NEXT = "item 14b, the magnetized stack's next slice"
+_ITEM_NEXT = "item 14b, the magnetized stack's next slice (pic_bca_aps)"
 _ITEM_PARALLEL = "item 17, parallel, on torch.distributed"
 _ITEM_GATED = "item 18, options measured negative or gated off"
 
@@ -277,12 +307,9 @@ def _check_ported(cfg: MagnetizedConfig) -> None:
     """Raise NotImplementedError for options whose modules or kernels are
     not ported yet."""
     todo = {
-        "grid.bc='dirichlet-neumann'": (cfg.grid.bc == DIRICHLET_NEUMANN,
-                                        _ITEM_NEXT),
         "ionization=True": (cfg.ionization, _ITEM_NEXT),
         f"reactivate={cfg.reactivate!r}": (
-            cfg.reactivate not in ("none", "source"), _ITEM_NEXT),
-        "pusher='gc'": (cfg.pusher == "gc", _ITEM_NEXT),
+            cfg.reactivate == "capped-source", _ITEM_NEXT),
         "react_batch > 0": (cfg.react_batch > 0, _ITEM_GATED),
         "carried_deposit='on'": (cfg.carried_deposit == "on", _ITEM_GATED),
         "impact_buffer_size > 0": (cfg.impact_buffer_size > 0, _ITEM_NEXT),
@@ -297,6 +324,35 @@ def _check_ported(cfg: MagnetizedConfig) -> None:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
+
+
+def _safe_charge(charge_state):
+    """charge_state with 0 replaced by 1: rows with q = 0 would divide by
+    wc = 0; the callers select them away, and this keeps them finite."""
+    return torch.where(charge_state != 0, charge_state, 1.0)
+
+
+def _gc_pack(p, y, z, vx, vy, vz, charge_state, m, cfg: MagnetizedConfig):
+    """6D (p in grid coordinates, y, z [m], v) -> GC packing: the guiding
+    center in (p, y, z), [v_par, mu, 0] in (vx, vy, vz) (pygcpic.py:509-551;
+    the JAX engine's _gc_pack). Returns the six tensors."""
+    dx = cfg.grid.dx
+    pos = torch.stack([p * dx, y, z], dim=-1)
+    v = torch.stack([vx, vy, vz], dim=-1)
+    x_gc, vpar, mu = to_guiding_center(pos, v, cfg.b, _safe_charge(charge_state),
+                                       m, perp_floor=1e-30)
+    return (x_gc[:, 0] / dx, x_gc[:, 1], x_gc[:, 2], vpar, mu,
+            torch.zeros_like(vpar))
+
+
+def _gc_unpack_v(a, p, y, z, vpar, mu, charge_state, m,
+                 cfg: MagnetizedConfig):
+    """GC packing -> the (n, 3) 6D velocity with the gyro-phase of the
+    (n, 3) uniforms ``a`` (pygcpic.py:553-596), for the wall-impact IEAD."""
+    pos = torch.stack([p * cfg.grid.dx, y, z], dim=-1)
+    _, v6 = from_guiding_center(a, pos, vpar, mu, cfg.b,
+                                _safe_charge(charge_state), m)
+    return v6
 
 
 def init_state(x, v3, m, charge_state, p2c, species_idx,
@@ -345,7 +401,7 @@ def init_state(x, v3, m, charge_state, p2c, species_idx,
         return torch.zeros(shape, dtype=dt, device=device)
 
     seed = int(seed)
-    return MagnetizedState(
+    state = MagnetizedState(
         p=put(x / grid.dx),
         y=put(yz_a[:, 0]), z=put(yz_a[:, 1]),
         vx=put(v3[:, 0]), vy=put(v3[:, 1]), vz=put(v3[:, 2]),
@@ -363,6 +419,17 @@ def init_state(x, v3, m, charge_state, p2c, species_idx,
         iead=zeros((s, ne, na)), iead_out=zeros((s, ne, na)),
         step=zeros((), torch.int32), step_host=0,
     )
+    if cfg.pusher == "gc":
+        # charged active particles integrate as guiding centers; neutrals
+        # (and free slots) stay 6D (the JAX init_state's packing)
+        is_gc = (state.active == 1) & (state.charge_state != 0)
+        packed = _gc_pack(state.p, state.y, state.z, state.vx, state.vy,
+                          state.vz, state.charge_state, state.m, cfg)
+        state = state.replace(
+            **{k: torch.where(is_gc, g, getattr(state, k))
+               for k, g in zip(("p", "y", "z", "vx", "vy", "vz"), packed)},
+            mode=is_gc.to(torch.int32))
+    return state
 
 
 def boltzmann_n0_update(step: int, n0_prev, p_old, added, q_new, p_new, *,
@@ -412,24 +479,31 @@ def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
 
 
 def make_step(cfg: MagnetizedConfig,
-              source_draws: Optional[Callable] = None):
+              source_draws: Optional[Callable] = None,
+              gyro_draws: Optional[Callable] = None):
     """Build the step: state -> (state, StepMetrics).
 
     ``source_draws(step, n)``, when given, replaces the re-activation
-    sampler: it returns {"x" [m], "vx", "vy", "vz"}, (n,) tensors on the
-    state's device. The CPU tests pass the JAX engine's own draws through
-    it; the engine's path never does.
+    sampler (the volumetric or the flux source): it returns {"x" [m],
+    "vx", "vy", "vz"}, (n,) tensors on the state's device.
+    ``gyro_draws(step, n)`` likewise replaces the gyro-phase uniforms of
+    the GC wall-impact rebuild: an (n, 3) tensor. The CPU tests pass the
+    JAX engine's own draws through them; the engine's path never does.
     """
     _check_ported(cfg)
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
     cells = float(grid.num_cells)
     swap = cfg.gather_weights == "reference"
+    dirichlet_neumann = grid.bc == DIRICHLET_NEUMANN
+    gc = cfg.pusher == "gc"
     # the reference's eta = exp(phi / Te / 11600) with Te in Kelvin
     # (pygcpic.py:890; see the JAX config's eta_in_volts)
     te_volts = (cfg.te / EV_TO_K) if cfg.eta_in_volts else (cfg.te * EV_TO_K)
     ve = float(np.sqrt(8.0 / np.pi * K_BOLTZMANN * cfg.te / M_ELECTRON))
     src = cfg.source
+    # B as float32 values, as the JAX engine's f32 b vector
+    b32 = tuple(float(np.float32(v)) for v in cfg.b)
     zeros_by_device = {}
 
     def _zeros(dev):
@@ -442,6 +516,9 @@ def make_step(cfg: MagnetizedConfig,
         return zeros_by_device[dev]
 
     def _use_fused(state) -> bool:
+        if gc:
+            # the GC path mixes per-particle RK4/Boris by mode: composed
+            return False
         if cfg.backend == "fused":
             return True
         if cfg.backend == "composed":
@@ -450,21 +527,76 @@ def make_step(cfg: MagnetizedConfig,
             raise ValueError(f"unknown backend {cfg.backend!r}")
         return state.p.is_cuda and state.p.shape[0] >= 8192
 
-    def _newton(rho, n0, phi_warm):
-        kernel = (cfg.newton_backend == "pallas"
-                  or (cfg.newton_backend == "auto" and rho.is_cuda))
-        solve = (cuda_newton.boltzmann_dirichlet
-                 if kernel and rho.dtype == torch.float32
-                 else solve_boltzmann_dirichlet)
-        return solve(rho, n0, cfg.te, dx, tol=cfg.newton_tol,
-                     maxiter=cfg.newton_maxiter, phi0=phi_warm)
+    def _newton(rho, n_dens, n0, phi_warm):
+        dens = n_dens if dirichlet_neumann else rho
+        kernel = dens.dtype == torch.float32 and (
+            cfg.newton_backend == "pallas"
+            or (cfg.newton_backend == "auto" and dens.is_cuda
+                and ng <= cuda_newton.MAX_NG))
+        if dirichlet_neumann:
+            if kernel:
+                return cuda_newton.boltzmann_dn(dens, n0, cfg.te, dx, phi_warm,
+                                                tol=DN_TOL, maxiter=DN_MAXITER)
+            if dens.is_cuda:
+                THOMAS_SOLVES["dirichlet_neumann"] += 1
+            return solve_boltzmann_dirichlet_neumann(
+                dens, n0, cfg.te, dx, phi_warm, tol=DN_TOL,
+                maxiter=DN_MAXITER)
+        if kernel:
+            return cuda_newton.boltzmann_dirichlet(
+                dens, n0, cfg.te, dx, tol=cfg.newton_tol,
+                maxiter=cfg.newton_maxiter, phi0=phi_warm)
+        if dens.is_cuda:
+            THOMAS_SOLVES["dirichlet"] += 1
+        return solve_boltzmann_dirichlet(
+            dens, n0, cfg.te, dx, tol=cfg.newton_tol,
+            maxiter=cfg.newton_maxiter, phi0=phi_warm)
 
     def _draws(state, step_i: int, n: int):
         if source_draws is not None:
             return source_draws(step_i, n)
+        if cfg.reactivate == "flux":
+            return sources.sample_flux_batch(
+                state.rng, step_i, n, grid, src.ti, src.mass, vx=src.vx,
+                gamma=cfg.flux_gamma, vx_pert=cfg.flux_vx_pert,
+                device=state.p.device)
         return sources.sample_source_batch(
             state.rng, step_i, n, grid, src.ti, src.mass, vx=src.vx,
             device=state.p.device)
+
+    def _gyro(state, step_i: int, n: int):
+        if gyro_draws is not None:
+            return gyro_draws(step_i, n)
+        return cuda_rng.philox_uniforms(state.rng, step_i, n, 3,
+                                        cuda_rng.GYRO_TAG,
+                                        device=state.p.device).t()
+
+    def _push_gc(state, is_active, is_gc, e_field):
+        """The mixed push of pusher='gc': Boris for the 6D rows (neutrals),
+        RK4 for the guiding centers, inactive rows held."""
+        pos = mirror_gather_position(state.p, cells) if swap else state.p
+        e_p = torch.where(is_active, gather(e_field, pos, periodic=False), 0.0)
+        x_si = state.p * dx
+        x1_b, yz1_b, v1_b = boris_push_dt(x_si, state.yz, state.v, e_p, b32,
+                                          state.charge_state, state.m, dt)
+        pos3 = torch.stack([x_si, state.y, state.z], dim=-1)
+        zeros = torch.zeros_like(e_p)
+        e3 = torch.stack([e_p, zeros, zeros], dim=-1)
+        cs_safe = torch.where(is_gc, state.charge_state, 1.0)
+        vpar = (torch.where(state.vx != 0.0, state.vx, 1.0)
+                if cfg.gc_eom == "reference" else state.vx)
+        x1_g, vpar1, _ = gc_push_rk4(pos3, vpar, state.vy, e3, b32, cs_safe,
+                                     state.m, dt, eom_form=cfg.gc_eom)
+
+        def pick(g, b_, held):
+            return torch.where(is_gc, g, torch.where(is_active, b_, held))
+
+        return (pick(x1_g[:, 0] / dx, x1_b / dx, state.p),
+                pick(x1_g[:, 1], yz1_b[:, 0], state.y),
+                pick(x1_g[:, 2], yz1_b[:, 1], state.z),
+                pick(vpar1, v1_b[:, 0], state.vx),
+                pick(state.vy, v1_b[:, 1], state.vy),
+                pick(zeros, v1_b[:, 2], state.vz))
 
     def step(state: MagnetizedState):
         dev = state.p.device
@@ -493,14 +625,21 @@ def make_step(cfg: MagnetizedConfig,
 
         phi_warm = (2.0 * state.phi - state.phi_prev
                     if cfg.newton_warm == "extrapolate" else state.phi)
-        # wall-referenced warm start: the previous converged, unshifted
-        # Newton point (see the JAX engine)
-        phi_warm = phi_warm - phi_warm[0]
-        res = _newton(rho, n0, phi_warm)
+        if not dirichlet_neumann:
+            # wall-referenced D-D warm start: the previous converged,
+            # unshifted Newton point (see the JAX engine). The D-N solve
+            # starts from the shifted phi as it is, as the reference does
+            # (pygcpic.py:1083).
+            phi_warm = phi_warm - phi_warm[0]
+        res = _newton(rho, n_dens, n0, phi_warm)
         phi = res.phi
         e_field = grad_neg_bounded(phi, dx)
 
-        if fused:
+        is_gc = is_active & (state.mode == 1)
+        if gc:
+            p1, y1, z1, vx1, vy1, vz1 = _push_gc(state, is_active, is_gc,
+                                                 e_field)
+        elif fused:
             const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
             act_f = is_active.to(state.p.dtype)
             p1, vx1, vy1, vz1 = cuda_cic.boris_gather_push(
@@ -512,8 +651,6 @@ def make_step(cfg: MagnetizedConfig,
             pos = mirror_gather_position(state.p, cells) if swap else state.p
             e_p = torch.where(is_active, gather(e_field, pos, periodic=False),
                               0.0)
-            # B as float32 values, as the JAX engine's f32 b vector
-            b32 = tuple(float(np.float32(v)) for v in cfg.b)
             x1, yz1, v1 = boris_push_dt(state.p * dx, state.yz, state.v, e_p,
                                         b32, state.charge_state, state.m, dt)
             p1 = torch.where(is_active, x1 / dx, state.p)
@@ -530,27 +667,53 @@ def make_step(cfg: MagnetizedConfig,
         at_wall = torch.where(hit, 1, state.at_wall)
         iead = state.iead
         if cfg.iead_energy_max > 0.0:
-            iead = iead_update(iead, state.species_idx, state.m, vx1, vy1,
-                               vz1, hit, bins=cfg.iead_bins,
+            vdx, vdy, vdz = vx1, vy1, vz1
+            if gc:
+                # the impact needs the physical 6D velocity: rebuilt with
+                # a random gyro-phase (pygcpic.py:553-596)
+                v6 = _gc_unpack_v(_gyro(state, step_i, n), p1, y1, z1, vx1,
+                                  vy1, state.charge_state, state.m, cfg)
+                vdx = torch.where(is_gc, v6[:, 0], vx1)
+                vdy = torch.where(is_gc, v6[:, 1], vy1)
+                vdz = torch.where(is_gc, v6[:, 2], vz1)
+            iead = iead_update(iead, state.species_idx, state.m, vdx, vdy,
+                               vdz, hit, bins=cfg.iead_bins,
                                energy_max=cfg.iead_energy_max,
                                angle_max=cfg.iead_angle_max)
 
         n_react = zero["i"]
         m_arr, p2c_arr, sp_arr = state.m, state.p2c, state.species_idx
         charge_state, mode, fw = state.charge_state, state.mode, state.from_wall
-        if cfg.reactivate == "source":
+        if cfg.reactivate != "none":
             # 'reference': the slots inactive at step START, so a slot lost
             # in this push waits one step (pygcpic.py:1249-1254)
-            take = ((state.active != 1) if cfg.react_timing == "reference"
-                    else (active != 1))
+            inactive = ((state.active != 1) if cfg.react_timing == "reference"
+                        else (active != 1))
             batch = _draws(state, step_i, n)
-            p1 = torch.where(take, batch["x"] / dx, p1)
-            y1 = torch.where(take, 0.0, y1)
-            z1 = torch.where(take, 0.0, z1)
-            vx1 = torch.where(take, batch["vx"], vx1)
-            vy1 = torch.where(take, batch["vy"], vy1)
-            vz1 = torch.where(take, batch["vz"], vz1)
-            mode = torch.where(take, 0, mode)
+            bx, bvx, bvy, bvz = (batch["x"] / dx, batch["vx"], batch["vy"],
+                                 batch["vz"])
+            if cfg.reactivate == "flux":
+                bvx = -torch.abs(bvx)  # pygcpic.py:2059
+                take = inactive & (compact_rows(inactive) < cfg.flux_limit)
+            else:
+                take = inactive
+            by = torch.zeros_like(bvx)
+            bz = by
+            react_mode = 0
+            if gc and src.charge_state != 0:
+                # charged re-activated particles enter in GC coordinates
+                bx, by, bz, bvx, bvy, bvz = _gc_pack(
+                    bx, by, bz, bvx, bvy, bvz,
+                    torch.full_like(bvx, src.charge_state),
+                    torch.full_like(bvx, src.mass), cfg)
+                react_mode = 1
+            p1 = torch.where(take, bx, p1)
+            y1 = torch.where(take, by, y1)
+            z1 = torch.where(take, bz, z1)
+            vx1 = torch.where(take, bvx, vx1)
+            vy1 = torch.where(take, bvy, vy1)
+            vz1 = torch.where(take, bvz, vz1)
+            mode = torch.where(take, react_mode, mode)
             m_arr = torch.where(take, src.mass, m_arr)
             charge_state = torch.where(take, src.charge_state, charge_state)
             p2c_arr = torch.where(take, src.p2c, p2c_arr)

@@ -73,6 +73,9 @@ _SIGNATURES = {
         [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_boltzmann_dirichlet": (
         [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _P], _I),
+    "pypic_boltzmann_dn": (
+        [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _P], _I),
+    "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
     "pypic_source_batch": (
         [_P] * 4 + [_L, _U, _U, _U] + [_F] * 7 + [_I, _I, _I, _P], _I),
     "pypic_sheath_picard": ([_P] * 12 + [_L, _I] + [_F] * 4 + [_I, _I, _P], _I),

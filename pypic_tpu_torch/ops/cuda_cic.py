@@ -42,7 +42,10 @@ Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
 when they lie on the CPU. Any other device, mixed devices, a dtype other
 than float32, or a non-contiguous or mis-shaped tensor raises. A failed
-build or launch raises; nothing falls back.
+build or launch raises; nothing falls back. The card's size limits
+(shared memory a block, thread histograms) are checked in the CUDA branch
+only, so the plain versions run any grid size on CPU tensors, as the JAX
+package does.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else (the plain versions count nothing).
@@ -70,9 +73,10 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
             "picard_finalize": 0, "picard_iteration_shared": 0,
             "implicit_resident": 0, "deposit2": 0, "boris_gather_push": 0,
-            "boltzmann_dirichlet": 0, "source_batch": 0,
+            "boltzmann_dirichlet": 0, "boltzmann_dn": 0, "source_batch": 0,
             "source_uniforms": 0, "sheath_picard": 0, "sheath_finalize": 0,
-            "sheath_reinject": 0, "sheath_uniforms": 0, "deposit_det": 0}
+            "sheath_reinject": 0, "sheath_uniforms": 0, "deposit_det": 0,
+            "philox_uniforms": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -107,11 +111,16 @@ def _check_1d(name: str, t: torch.Tensor, size: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
-    """A block keeps ``arrays`` float32 arrays of ng nodes (and ``extra``
-    bytes) in shared memory."""
+def _check_ng(ng: int) -> None:
     if ng < 2:
         raise ValueError(f"ng must be >= 2, got {ng}")
+
+
+def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
+    """A block keeps ``arrays`` float32 arrays of ng nodes (and ``extra``
+    bytes) in shared memory. A limit of the card's kernels only: the
+    wrappers call it in their CUDA branch, so the plain versions on CPU
+    tensors run any ng."""
     need = arrays * ng * 4 + extra
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -404,10 +413,11 @@ def picard_iteration(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
     velocity). ``qm`` and ``w`` are the float32 scalars q/m and
     q p2c / dx."""
     kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
-    _check_smem(ng, 2, "picard_iteration")
+    _check_ng(ng)
     if kind == "cpu":
         return picard_iteration_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                       w=w, dt=dt, dx=dx, emit_v=emit_v)
+    _check_smem(ng, 2, "picard_iteration")
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
     dev = ps.device
@@ -430,10 +440,11 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     """Post-convergence sweep without the j1 deposit: final (p1, v1), p1
     wrapped."""
     kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
-    _check_smem(ng, 1, "picard_finalize_nodep")
+    _check_ng(ng)
     if kind == "cpu":
         return picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng,
                                            qm=qm, dt=dt, dx=dx)
+    _check_smem(ng, 1, "picard_finalize_nodep")
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
     dev = ps.device
@@ -502,9 +513,10 @@ def deposit(p, values, ng: int, *, periodic: bool):
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
     _check_1d("values", values, n)
-    _check_smem(ng, 1, "deposit")
+    _check_ng(ng)
     if kind == "cpu":
         return deposit_plain(p, values, ng, periodic=periodic)
+    _check_smem(ng, 1, "deposit")
     lib = _build.library()
     dev = p.device
     out = torch.zeros((ng,), dtype=torch.float32, device=dev)
@@ -520,8 +532,8 @@ def deposit(p, values, ng: int, *, periodic: bool):
 def deposit_det(p, values, ng: int, *, periodic: bool):
     """``deposit`` with the sums in a fixed order on the card (no float
     atomics: cic_common.cuh det_flush), so that a call gives the same bits
-    every time; ng <= 227 at 256 thread histograms a block, up to 1,816 at
-    32.
+    every time; on the card ng <= 227 at 256 thread histograms a block, up
+    to 1,816 at 32 (CPU tensors take the plain deposit at any ng).
     The sheath engine's composed loop and exit histograms use it: its
     floor exit reads the residual at round-off level. Slower than
     ``deposit`` at the other engines' shapes (PERF.md §6), which keep the
@@ -530,9 +542,7 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
     _check_1d("values", values, n)
-    if ng < 2:
-        raise ValueError(f"ng must be >= 2, got {ng}")
-    det_threads(ng, 0, "deposit_det")
+    _check_ng(ng)
     if kind == "cpu":
         return deposit_plain(p, values, ng, periodic=periodic)
     lib = _build.library()
@@ -556,9 +566,10 @@ def gather(field, p, *, periodic: bool):
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     _check_1d("p", p, p.shape[0] if p.dim() == 1 else -1)
-    _check_smem(ng, 1, "gather")
+    _check_ng(ng)
     if kind == "cpu":
         return gather_plain(field, p, periodic=periodic)
+    _check_smem(ng, 1, "gather")
     lib = _build.library()
     n = p.shape[0]
     dev = p.device
@@ -588,10 +599,11 @@ def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
     (p1, v1, rho1). ``qm`` and ``w`` are the float32 scalars q/m and
     q p2c / dx."""
     kind, n, ng = _check_leapfrog(field, p, v)
-    _check_smem(ng, 2, "leapfrog_gather_push_deposit")
+    _check_ng(ng)
     if kind == "cpu":
         return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
                                                   dt=dt, dx=dx)
+    _check_smem(ng, 2, "leapfrog_gather_push_deposit")
     lib = _build.library()
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
     dev = p.device
@@ -619,10 +631,11 @@ def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
     (p1, v1, rho1, e1)."""
     kind, n, _ = _check_leapfrog(e_field, p, v)
     _check_1d("e_field", e_field, ng)
-    _check_smem(ng, _CYCLE_ARRAYS, "explicit_cycle", _CYCLE_EXTRA)
+    _check_ng(ng)
     if kind == "cpu":
         return explicit_cycle_plain(e_field, p, v, ng, qm=qm, w=w, dt=dt,
                                     dx=dx)
+    _check_smem(ng, _CYCLE_ARRAYS, "explicit_cycle", _CYCLE_EXTRA)
     lib = _build.library()
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
     dev = p.device
@@ -662,12 +675,13 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
             f"resident cycle requires n <= {RESIDENT_MAX_N} (got {n})")
     if int(steps) < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
-    _check_smem(ng, _RESIDENT_ARRAYS, "explicit_cycle_resident",
-                _RESIDENT_EXTRA)
+    _check_ng(ng)
     if kind == "cpu":
         return explicit_cycle_resident_plain(
             e_field, p, v, ng, int(steps), qm=qm, w=w, ke_c=ke_c, jb_c=jb_c,
             dt=dt, dx=dx, fe_c=fe_c)
+    _check_smem(ng, _RESIDENT_ARRAYS, "explicit_cycle_resident",
+                _RESIDENT_EXTRA)
     lib = _build.library()
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
     dev = p.device
@@ -693,10 +707,11 @@ def picard_finalize(field_smoothed, ps, p0, v0, ng: int, *, qm, w, dt: float,
     p1 wrapped, and j1 = the deposit of w v1 at p1. p1 and v1 are
     bit-identical to ``picard_finalize_nodep``'s."""
     kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
-    _check_smem(ng, 2, "picard_finalize")
+    _check_ng(ng)
     if kind == "cpu":
         return picard_finalize_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                      w=w, dt=dt, dx=dx)
+    _check_smem(ng, 2, "picard_finalize")
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
     dev = ps.device
@@ -724,11 +739,12 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
     edge. With no clamp, jh equals a deposit at the wrapped ph up to
     rounding."""
     kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
-    _check_smem(ng, 2, "picard_iteration_shared")
+    _check_ng(ng)
     if kind == "cpu":
         return picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng,
                                              qm=qm, w=w, dt=dt, dx=dx,
                                              emit_v=emit_v)
+    _check_smem(ng, 2, "picard_iteration_shared")
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
     stride, width, num_k, inv_stride = _shared_frame_args(ng)
@@ -780,13 +796,14 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
             f"resident implicit requires n <= {RESIDENT_MAX_N_IMPLICIT}")
     if int(steps) < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
-    _check_smem(ng, _IMPLICIT_ARRAYS, "implicit_resident", _IMPLICIT_EXTRA)
+    _check_ng(ng)
     kw = dict(qm=qm, w=w, ke_c=ke_c, dt=dt, dx=dx, tol=tol, maxiter=maxiter,
               extrapolate=extrapolate, anderson=anderson, fe_c=fe_c,
               tracer=tracer, smooth=smooth)
     if kind == "cpu":
         return implicit_resident_plain(e0, e_prev, j0, p, v, ng, int(steps),
                                        **kw)
+    _check_smem(ng, _IMPLICIT_ARRAYS, "implicit_resident", _IMPLICIT_EXTRA)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
     dev = p.device
@@ -845,9 +862,10 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in (("p", p), ("va", va), ("vb", vb)):
         _check_1d(name, t, n)
-    _check_smem(ng, 2, "deposit2")
+    _check_ng(ng)
     if kind == "cpu":
         return deposit2_plain(p, va, vb, ng, periodic=periodic)
+    _check_smem(ng, 2, "deposit2")
     lib = _build.library()
     dev = p.device
     out = torch.zeros((2, ng), dtype=torch.float32, device=dev)
@@ -929,10 +947,11 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in zip(("p", "vx", "vy", "vz", "const", "act"), arrays):
         _check_1d(name, t, n)
-    _check_smem(ng, 1, "boris_gather_push")
+    _check_ng(ng)
     if kind == "cpu":
         return boris_gather_push_plain(field, p, vx, vy, vz, const, act, b=b,
                                        dt_dx=dt_dx, swap_weights=swap_weights)
+    _check_smem(ng, 1, "boris_gather_push")
     lib = _build.library()
     bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
     dev = p.device

@@ -1,4 +1,4 @@
-"""The one-launch Newton-Boltzmann solve (the counterpart of
+"""The one-launch Newton-Boltzmann solves (the counterpart of
 ``pypic_tpu/ops/pallas_newton.py``).
 
 ``boltzmann_dirichlet`` replaces ``boltzmann_dirichlet_pallas``: the whole
@@ -14,9 +14,20 @@ tolerance, not bit for bit (PCR sums in another order).
 ``boltzmann_dirichlet_plain`` is the same PCR loop as tensor operations
 (``_pcr_solve``, pallas_newton.py:65-90), its loop test read on the host.
 
+``boltzmann_dn`` replaces ``boltzmann_dn_pallas``: the Newton loop of
+``ops.poisson.solve_boltzmann_dirichlet_neumann`` (pygcpic.py:1062-1109)
+on the number density, the one-sided Neumann row's rank-1 entry solved
+by Sherman-Morrison on a PCR with two right-hand sides, in one launch of
+the second kernel in ``csrc/newton.cu``. ``boltzmann_dn_plain`` is its
+loop as tensor operations, in the kernel's order.
+
 Dispatch and launch counting follow ``ops/cuda_cic.py``: CUDA tensors
 launch the kernel, CPU tensors run the plain version, anything else
-raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``.
+raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``
+or ``['boltzmann_dn']``. The kernels take ng <= ``MAX_NG`` (one CTA, a row
+a thread); the plain versions take any ng, and the engines take the
+op-composed Thomas routes of ``ops.poisson`` on the card above it (the
+large-grid kernel is ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from .poisson import NewtonResult, _EXP_CLAMP
 
 _LANE = 128  # the smallest padded row count, as on the TPU
 MAX_NG = 1024  # one CTA, one row a thread
+_COEF = float(np.float32(E_CHARGE / EPSILON_0))  # f32(e / eps0)
 
 
 def padded_rows(ng: int) -> int:
@@ -50,21 +62,22 @@ def newton_scalars(te: float, dx: float, tol: float):
 
 
 def _shift_down(x, s, fill):
-    """x_{i-s}, ``fill`` where i - s < 0."""
-    return torch.cat([torch.full((s,), fill, dtype=x.dtype, device=x.device),
-                      x[:-s]])
+    """x_{i-s} along the last axis, ``fill`` where i - s < 0."""
+    pad = torch.full(x.shape[:-1] + (s,), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x[..., :-s]], dim=-1)
 
 
 def _shift_up(x, s, fill):
-    """x_{i+s}, ``fill`` where i + s >= len(x)."""
-    return torch.cat([x[s:], torch.full((s,), fill, dtype=x.dtype,
-                                        device=x.device)])
+    """x_{i+s} along the last axis, ``fill`` where i + s >= len(x)."""
+    pad = torch.full(x.shape[:-1] + (s,), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([x[..., s:], pad], dim=-1)
 
 
 def _pcr_solve(a, b, c, f):
     """Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} =
     f_i over len(a) rows (a power of two; rows past the physical ones are
-    identity rows)."""
+    identity rows). ``f`` is (ngp,) or (R, ngp): R right-hand sides that
+    share the elimination coefficients."""
     ngp = a.shape[0]
     s = 1
     while s < ngp:
@@ -80,6 +93,15 @@ def _pcr_solve(a, b, c, f):
         c = gamma * cp
         s *= 2
     return f / b
+
+
+def _check_rows(what: str, ng: int) -> None:
+    """The card's limit: one CTA, a row a thread."""
+    if ng > MAX_NG:
+        raise ValueError(
+            f"{what} needs ng <= {MAX_NG} on the card (one CTA, a row a "
+            f"thread), got ng={ng}; the large-grid kernel is ROADMAP.md "
+            "queue 1, item 10")
 
 
 def _as_n0(n0, dev) -> torch.Tensor:
@@ -110,7 +132,7 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
     dev = rho.device
     ngp = padded_rows(ng)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
-    c0 = (E_CHARGE / EPSILON_0) * _as_n0(n0, dev)[0]
+    c0 = _COEF * _as_n0(n0, dev)[0]
     col = torch.arange(ngp, device=dev)
     valid = col < ng
     interior = (col >= 1) & (col <= ng - 2)
@@ -162,12 +184,12 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
     _check_1d("rho", rho, ng)
     if phi0 is not None:
         _check_1d("phi0", phi0, ng)
-    if not 3 <= ng <= MAX_NG:
-        raise ValueError(f"boltzmann_dirichlet needs 3 <= ng <= {MAX_NG} "
-                         f"(one CTA, a row a thread), got ng={ng}")
+    if ng < 3:
+        raise ValueError(f"boltzmann_dirichlet needs ng >= 3, got ng={ng}")
     if kind == "cpu":
         return boltzmann_dirichlet_plain(rho, n0, te, dx, tol=tol,
                                          maxiter=maxiter, phi0=phi0)
+    _check_rows("boltzmann_dirichlet", ng)
     lib = _build.library()
     dev = rho.device
     n0_t = _as_n0(n0, dev)
@@ -180,9 +202,92 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
             rho.data_ptr(), n0_t.data_ptr(),
             None if phi0 is None else phi0.data_ptr(), phi.data_ptr(),
             iters.data_ptr(), resid.data_ptr(), ng, padded_rows(ng),
-            float(np.float32(E_CHARGE / EPSILON_0)),
-            float(np.float32(EPSILON_0)), c1, dx2, tol32, int(maxiter),
+            _COEF, float(np.float32(EPSILON_0)), c1, dx2, tol32, int(maxiter),
             step_max, _EXP_CLAMP, _stream(dev))
     _build.check(err, "boltzmann_dirichlet")
     LAUNCHES["boltzmann_dirichlet"] += 1
+    return NewtonResult(phi, iters, resid)
+
+
+def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
+    """The D-N kernel's Newton loop as tensor operations (pallas_newton.py
+    _newton_dn_kernel), in its operation order. Returns NewtonResult."""
+    ng = n.shape[0]
+    dev = n.device
+    ngp = padded_rows(ng)
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
+    c0 = _COEF * _as_n0(n0, dev)[0]
+    col = torch.arange(ngp, device=dev)
+    valid = col < ng
+    inner = (col >= 1) & (col <= ng - 2)
+    last = col == ng - 1
+    a_lap = torch.where(inner, 1.0, torch.where(last, -4.0, 0.0))
+    c_lap = inner.to(torch.float32)
+    d_lap = torch.where(inner, -2.0, torch.where(last, 3.0, 1.0))
+    u_row = last.to(torch.float32)  # rank-1 u = e_{ng-1}
+    zeros = torch.zeros((ngp - ng,), dtype=torch.float32, device=dev)
+    c2 = torch.cat([n * _COEF, zeros])
+    phi = torch.cat([phi0.to(torch.float32), zeros])
+    dx2_c0 = dx2 * c0
+    jac_b = -dx2 * c0 * c1
+    residual = torch.ones((), dtype=torch.float32, device=dev)
+    it = 0
+    while residual.item() > tol32 and it < maxiter:
+        expo = torch.exp(torch.clamp(c1 * phi, -_EXP_CLAMP, _EXP_CLAMP))
+        lap = (a_lap * _shift_down(phi, 1, 0.0) + d_lap * phi
+               + c_lap * _shift_up(phi, 1, 0.0))
+        lap = lap + u_row * phi[ng - 3]  # A[-1, -3]
+        f = lap - dx2_c0 * expo + dx2 * c2
+        f = torch.where(col == 0, phi[0], f)
+        f = torch.where(last | ~valid, 0.0, f)
+        ddiag = torch.where(inner, jac_b * expo,
+                            torch.where(col == 0, jac_b, 0.0))
+        y, z = _pcr_solve(a_lap, d_lap + ddiag, c_lap, torch.stack([f, u_row]))
+        dphi = y - z * (y[ng - 3] / (1.0 + z[ng - 3]))
+        dphi = torch.clamp(dphi, -step_max, step_max)
+        phi = phi - dphi
+        residual = torch.sqrt(torch.sum(dphi * dphi))
+        it += 1
+    phi = phi[:ng]
+    return NewtonResult(phi - torch.min(phi),
+                        torch.tensor(it, dtype=torch.int32, device=dev),
+                        residual)
+
+
+def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
+    """Newton-Boltzmann D-N solve of the (ng,) float32 number density n
+    for the potential, in one kernel launch on a CUDA tensor (ng <= 1024).
+
+    ``n0`` is the Boltzmann reference density, a Python number or a 0-d
+    tensor on n's device; ``phi0`` the (ng,) warm start, used as it is (no
+    wall pin: the reference warm-starts this Newton from its previous phi,
+    pygcpic.py:1083). The residual is ||dphi||_2 of the last iteration,
+    tested against the float32 ``tol``. Returns NewtonResult(phi shifted to
+    min 0 over the physical rows, iterations (int32), residual), each on
+    n's device, with no host read.
+    """
+    kind = _device_kind((n, phi0))
+    ng = n.shape[0] if n.dim() == 1 else -1
+    _check_1d("n", n, ng)
+    _check_1d("phi0", phi0, ng)
+    if ng < 3:
+        raise ValueError(f"boltzmann_dn needs ng >= 3, got ng={ng}")
+    if kind == "cpu":
+        return boltzmann_dn_plain(n, n0, te, dx, phi0, tol=tol,
+                                  maxiter=maxiter)
+    _check_rows("boltzmann_dn", ng)
+    lib = _build.library()
+    dev = n.device
+    n0_t = _as_n0(n0, dev)
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
+    phi = torch.empty((ng,), dtype=torch.float32, device=dev)
+    iters = torch.empty((), dtype=torch.int32, device=dev)
+    resid = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_boltzmann_dn(
+            n.data_ptr(), n0_t.data_ptr(), phi0.data_ptr(), phi.data_ptr(),
+            iters.data_ptr(), resid.data_ptr(), ng, padded_rows(ng), _COEF,
+            c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
+    _build.check(err, "boltzmann_dn")
+    LAUNCHES["boltzmann_dn"] += 1
     return NewtonResult(phi, iters, resid)

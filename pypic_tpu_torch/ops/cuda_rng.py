@@ -35,6 +35,16 @@ tests feed it the JAX kernel's threefry bits) and ``sheath_reinject_plain``
 (Philox and the transform). ``sheath_uniforms`` exposes the uniforms for
 the bit-equality check.
 
+``philox_uniforms(key, step, n, ndraw, tag)`` draws the magnetized
+engine's uniforms that no TPU kernel draws (the JAX engine takes them from
+``jax.random``): word k of row i is word k % 4 of the Philox block at
+counter (i, step, k // 4, tag). ``FLUX_TAG`` marks the wall-flux source's
+eight a slot, ``GYRO_TAG`` the guiding-center gyro-phases' three; the
+source batch's counter (i, step, 0, 0) has tag 0, so no two draws of a
+step share a counter. A CUDA device launches the kernel (its launches
+count in ``cuda_cic.LAUNCHES['philox_uniforms']``); the CPU runs
+``philox_uniforms_plain``, bit-equal.
+
 The plain transforms work on contiguous tensors, so that PyTorch's CPU
 loops take one path whatever views they are handed.
 """
@@ -51,6 +61,9 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
+# the fourth counter word of the draws of philox_uniforms
+FLUX_TAG, GYRO_TAG = 1, 2
+_MAX_DRAWS = 16
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -325,4 +338,46 @@ def sheath_uniforms(key, step: int, n: int, *, gamma: float, device):
             _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "sheath_uniforms")
     LAUNCHES["sheath_uniforms"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tagged uniforms: the flux source and the gyro-phases
+# ---------------------------------------------------------------------------
+
+
+def philox_uniforms_plain(key, step: int, n: int, ndraw: int, tag: int,
+                          device="cpu") -> torch.Tensor:
+    """The (ndraw, n) float32 uniforms of ``philox_uniforms`` as tensor
+    operations."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    words = []
+    for b in range(-(-ndraw // 4)):
+        words += philox4x32_plain(key, (idx, int(step) & _MASK32, b,
+                                        int(tag) & _MASK32))
+    return uniforms_from_bits(torch.stack(words[:ndraw]))
+
+
+def philox_uniforms(key, step: int, n: int, ndraw: int, tag: int, *,
+                    device) -> torch.Tensor:
+    """(ndraw, n) float32 uniforms in [2^-23, 1) for ``step`` under the
+    Philox ``key`` (two 32-bit words), drawn at counters (row, step, block,
+    tag). A CUDA device launches the kernel; the CPU runs the plain
+    version."""
+    dev = _kind(device)
+    if n < 1 or n > _MASK32:
+        raise ValueError(f"n must be in [1, 2^32), got {n}")
+    if not 1 <= ndraw <= _MAX_DRAWS:
+        raise ValueError(f"ndraw must be in [1, {_MAX_DRAWS}], got {ndraw}")
+    if dev.type == "cpu":
+        return philox_uniforms_plain(key, step, n, ndraw, tag, dev)
+    lib = _build.library()
+    out = torch.empty((ndraw, n), dtype=torch.float32, device=dev)
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    with torch.cuda.device(dev):
+        err = lib.pypic_philox_uniforms(
+            out.data_ptr(), n, int(ndraw), k0, k1, int(step) & _MASK32,
+            int(tag) & _MASK32, _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "philox_uniforms")
+    LAUNCHES["philox_uniforms"] += 1
     return out

@@ -12,9 +12,13 @@
   route (``newton_backend='xla'`` of the magnetized engine): its loop runs
   on the host and reads the residual once an iteration. The engine's
   default is the whole loop in one kernel, ``ops.cuda_newton``.
+* ``solve_boltzmann_dirichlet_neumann``: the Dirichlet-Neumann variant
+  with a one-sided 2nd-order Neumann row (3, -4, 1) (pygcpic.py:958-978,
+  1062-1109) on the number density, tridiagonal + rank 1 by
+  Sherman-Morrison; the same op-composed form, its residual read on the
+  host once an iteration.
 
-The Dirichlet-Neumann and gen-1 Newton solvers come with the magnetized
-stack's next slice and the sheath engine.
+The gen-1 Newton solvers are not ported: no ported engine calls them.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import EPSILON_0, E_CHARGE, K_BOLTZMANN
-from .tridiag import solve_tridiag
+from .tridiag import solve_tridiag, solve_tridiag_rank1
 
 
 class NewtonResult(NamedTuple):
@@ -139,6 +143,63 @@ def solve_boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000,
                            step_max)
         phi = phi - dphi
         residual = torch.dot(dphi, dphi)
+        it += 1
+    return NewtonResult(phi - torch.min(phi),
+                        torch.tensor(it, dtype=torch.int32, device=dev),
+                        residual)
+
+
+def solve_boltzmann_dirichlet_neumann(n, n0, te, dx, phi0, tol=1e-3,
+                                      maxiter=100):
+    """Newton Boltzmann solve with a Dirichlet left wall and a 2nd-order
+    one-sided Neumann right wall (pygcpic.py:1062-1109), in the JAX
+    function's operation order.
+
+    The Laplacian's last row is (..., 1, -4, 3) (pygcpic.py:973-977): the
+    (1) entry at column ng-3 makes it tridiagonal + rank 1, solved by
+    Sherman-Morrison. ``n`` is the NUMBER density (c2 = e n / eps0,
+    pygcpic.py:1089); ``phi0`` the warm start, used as it is.
+
+    Returns:
+        NewtonResult(phi shifted to min 0, iterations, residual ||dphi||_2).
+    """
+    ng = n.shape[0]
+    dtype, dev = n.dtype, n.device
+    dl = torch.ones((ng,), dtype=dtype, device=dev)
+    dl[-1] = -4.0
+    d = torch.full((ng,), -2.0, dtype=dtype, device=dev)
+    d[0] = 1.0
+    d[-1] = 3.0
+    du = torch.ones((ng,), dtype=dtype, device=dev)
+    du[0] = 0.0
+    u = torch.zeros((ng,), dtype=dtype, device=dev)
+    u[-1] = 1.0  # the extra A[-1, -3] entry
+    v = torch.zeros((ng,), dtype=dtype, device=dev)
+    v[-3] = 1.0
+    dx2 = dx * dx
+    c0 = E_CHARGE * torch.as_tensor(n0, dtype=dtype, device=dev) / EPSILON_0
+    c1 = E_CHARGE / (K_BOLTZMANN * te)
+    c2 = E_CHARGE * n / EPSILON_0
+    step_max = _EXP_CLAMP / c1  # bounds each Newton step (globalization)
+    tol_d = float(torch.tensor(tol, dtype=dtype))
+
+    phi = phi0.to(dtype)
+    residual = torch.ones((), dtype=dtype, device=dev)
+    it = 0
+    while residual.item() > tol_d and it < maxiter:
+        expo = _safe_exp(c1 * phi)
+        lap = _apply_dirichlet_laplacian(phi, dl, d, du)
+        lap[-1] = lap[-1] + phi[-3]
+        f = lap - dx2 * c0 * expo + dx2 * c2
+        f[0] = phi[0]
+        f[-1] = 0.0
+        ddiag = -dx2 * c0 * c1 * expo
+        ddiag[0] = -dx2 * c0 * c1
+        ddiag[-1] = 0.0
+        dphi = torch.clamp(solve_tridiag_rank1(dl, d + ddiag, du, f, u, v),
+                           -step_max, step_max)
+        phi = phi - dphi
+        residual = torch.linalg.norm(dphi)
         it += 1
     return NewtonResult(phi - torch.min(phi),
                         torch.tensor(it, dtype=torch.int32, device=dev),

@@ -3,10 +3,15 @@
 ``solve_tridiag`` with ``method='thomas'``: the Thomas algorithm, a
 forward sweep and a back substitution over the rows, in the operation
 order of the JAX ``lax.scan`` pair. It serves the op-composed
-Newton-Boltzmann route (``ops.poisson.solve_boltzmann_dirichlet``); the
-engine's default route is the one-kernel Newton solve
-(``ops.cuda_newton``). On the CPU, JAX's ``method='auto'`` resolves to
-'thomas' as well.
+Newton-Boltzmann routes (``ops.poisson``); the engine's default routes
+are the one-kernel Newton solves (``ops.cuda_newton``). On the CPU, JAX's
+``method='auto'`` resolves to 'thomas' as well.
+
+``solve_tridiag_rank1``: Sherman-Morrison on top of Thomas for a
+tridiagonal matrix plus one rank-1 term, the Dirichlet-Neumann
+Laplacian's one-sided last row (3, -4, 1) (pygcpic.py:958-978);
+``solve_cyclic_tridiag``: the wrap corners of a periodic Jacobian
+(PIC_L.py:149-176) as such a term.
 
 Diagonals are equal-length (n,) tensors: ``dl[i] = A[i, i-1]`` (dl[0]
 ignored), ``d[i] = A[i, i]``, ``du[i] = A[i, i+1]`` (du[-1] ignored).
@@ -20,9 +25,6 @@ from __future__ import annotations
 
 import torch
 
-_DN_SLICE = ("is not ported yet: see ROADMAP.md queue 1, item 14b (the "
-             "magnetized stack's next slice, with the Dirichlet-Neumann "
-             "Newton solve)")
 
 
 def solve_tridiag(dl, d, du, b, method: str = "auto"):
@@ -38,7 +40,9 @@ def solve_tridiag(dl, d, du, b, method: str = "auto"):
         x with the shape of b.
     """
     if method == "pscan":
-        raise NotImplementedError(f"solve_tridiag(method='pscan') {_DN_SLICE}")
+        raise NotImplementedError(
+            "solve_tridiag(method='pscan'), the JAX package's scan form for "
+            "the TPU, is not ported: 'thomas' serves the op-composed routes")
     if method not in ("auto", "thomas"):
         raise ValueError(f"unknown method {method!r}")
     squeeze = b.dim() == 1
@@ -66,8 +70,28 @@ def solve_tridiag(dl, d, du, b, method: str = "auto"):
 
 
 def solve_tridiag_rank1(dl, d, du, b, u, v):
-    raise NotImplementedError(f"solve_tridiag_rank1 {_DN_SLICE}")
+    """Solve (T + u v^T) x = b with T tridiagonal, via Sherman-Morrison:
+    x = y - z (v.y) / (1 + v.z) with y = T^-1 b, z = T^-1 u (one Thomas
+    solve with two right-hand sides)."""
+    yz = solve_tridiag(dl, d, du, torch.stack([b, u], dim=-1))
+    y, z = yz[:, 0], yz[:, 1]
+    denom = 1.0 + torch.dot(v, z)
+    return y - z * (torch.dot(v, y) / denom)
 
 
 def solve_cyclic_tridiag(dl, d, du, b, corner_ul, corner_lr):
-    raise NotImplementedError(f"solve_cyclic_tridiag {_DN_SLICE}")
+    """Solve a tridiagonal system with wrap corners A[0, n-1] =
+    ``corner_ul`` and A[n-1, 0] = ``corner_lr``, as a rank-1 term (the JAX
+    function's construction). The matrix must be nonsingular."""
+    n = d.shape[0]
+    gamma = -d[0]
+    dmod = d.clone()
+    dmod[0] = d[0] + (-gamma)
+    dmod[n - 1] = d[n - 1] + (-corner_lr * corner_ul / gamma)
+    u = torch.zeros_like(d)
+    u[0] = gamma
+    u[n - 1] = corner_lr
+    v = torch.zeros_like(d)
+    v[0] = 1.0
+    v[n - 1] = corner_ul / gamma
+    return solve_tridiag_rank1(dl, dmod, du, b, u, v)

@@ -9,11 +9,15 @@ Ported so far, with the same defaults:
   with absorbing walls; BASELINE configs[2]'s physics)
 * ``pic_iead``       — pygcpic.py:1120-1200 (magnetized D + B sheath with
   IEAD collection; BASELINE configs[3])
+* ``pic_iead_gc``    — pic_iead with the guiding-center pusher (BASELINE
+  configs[3]'s "guiding-center magnetized PIC")
+* ``dirichlet_neumann_test`` — pygcpic.py:1968-2093 (unmagnetized D-N
+  sheath fed by the capped wall-flux source)
 
 ``PRESETS`` maps their names to the functions above and ``get`` makes
-one by name, as in the JAX package. ``bump_on_tail``, ``pic_iead_gc``,
-``pic_bca_aps``, ``dirichlet_neumann_test``, the domain presets and
-``pic_iead_dd`` come with their options and engines.
+one by name, as in the JAX package. ``bump_on_tail``, ``pic_bca_aps``,
+the domain presets and ``pic_iead_dd`` come with their options and
+engines.
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -183,12 +187,62 @@ def pic_iead(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
                        species_labels=("D", "B")))
 
 
+def pic_iead_gc(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
+                device=None) -> Preset:
+    """pic_iead with ``pusher='gc'``: the charged particles integrate as
+    guiding centers (GC RK4 in the step, 6D <-> GC transforms at
+    initialization, re-activation and wall impact). The state is rebuilt
+    through init_state from the pic_iead state's own values, as the JAX
+    preset rebuilds it, so the initial states are the JAX one's."""
+    pre = pic_iead(n_per_species=n_per_species, ng=ng, seed=seed,
+                   device="cpu")
+    cfg = dataclasses.replace(pre.config, pusher="gc")
+    st0 = pre.state
+    st = magnetized.init_state(
+        st0.p.numpy() * cfg.grid.dx, st0.v.numpy(), st0.m.numpy(),
+        st0.charge_state.numpy(), st0.p2c.numpy(), st0.species_idx.numpy(),
+        cfg, seed=seed, device=device)
+    return Preset("pic_iead_gc", magnetized, cfg, st, dict(pre.meta))
+
+
+def dirichlet_neumann_test(n: int = 50_000, ng: int = 800, seed: int = 1,
+                           device=None) -> Preset:
+    """pygcpic.py:1968-2021: density 1e19, dt 2e-10, Ti = Te = 10*11600 K,
+    L = 400 LD, unmagnetized, flux source capped at 100/step with
+    gamma 0.5 / vx_pert -3 (pygcpic.py:2008, 2019). The same numpy draws
+    as the JAX preset, so the initial state is the JAX one's."""
+    density = 1e19
+    te = ti = 10.0 * EV_TO_K
+    length = 400.0 * _debye(te, density)
+    grid = GridSpec(ng, length, "dirichlet-neumann")
+    dt = 2e-10
+    p2c = density * length / n
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, length, n)
+    vth = np.sqrt(K_BOLTZMANN * ti / M_PROTON)
+    v = rng.normal(0.0, vth, (n, 3))
+    v[:, 0] = -np.abs(v[:, 0])  # pygcpic.py:1999-2000
+    src = magnetized.SourceSpec(
+        mass=M_PROTON, charge_state=1.0, p2c=p2c, species_idx=0, ti=ti
+    )
+    cfg = magnetized.MagnetizedConfig(
+        grid, dt, te, b=(0.0, 0.0, 0.0), species_z=(1,),
+        reactivate="flux", source=src, flux_limit=100,
+        flux_gamma=0.5, flux_vx_pert=-3.0,
+    )
+    st = magnetized.init_state(x, v, M_PROTON, 1.0, p2c, 0, cfg, seed=seed,
+                               device=device)
+    return Preset("dirichlet_neumann_test", magnetized, cfg, st, {})
+
+
 PRESETS: Dict[str, Callable[..., Preset]] = {
     "landau_damping": landau_damping,
     "two_stream": two_stream,
     "explicit_landau": explicit_landau,
     "sheath_dd": sheath_dd,
     "pic_iead": pic_iead,
+    "pic_iead_gc": pic_iead_gc,
+    "dirichlet_neumann_test": dirichlet_neumann_test,
 }
 
 

@@ -8,7 +8,7 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream|magnetized|sheath]
+        [--cell landau|two-stream|magnetized|sheath|dn|gc]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -22,7 +22,9 @@ two-stream cell (``tools/two_stream.py``) at the same n instead;
 (``tools/magnetized.py``, n = 999,996) and ``--cell sheath`` its configs[2]
 row (``tools/sheath.py``, n = 1,000,000; ``--n`` is ignored for both,
 and the sheath profile also reports the Picard passes a step beside the
-host syncs). Each ends with one JSON line of its results.
+host syncs); ``--cell dn`` and ``--cell gc`` profile the magnetized
+engine's D-N row and guiding-center row (``tools/magnetized.py --row
+dn|gc``). Each ends with one JSON line of its results.
 """
 
 from __future__ import annotations
@@ -142,6 +144,14 @@ def profile(args) -> dict:
         cfg, state, _ = magnetized_row.state(dev)
         args.n = state.p.shape[0]
         step = magnetized.make_step(cfg)
+    elif args.cell in ("dn", "gc"):
+        from ..engines import magnetized
+        from . import magnetized as magnetized_row
+
+        pre = magnetized_row.preset(args.cell, dev)
+        state = pre.state
+        args.n = state.p.shape[0]
+        step = magnetized.make_step(pre.config)
     elif args.cell == "sheath":
         from ..engines import sheath
         from . import sheath as sheath_row
@@ -219,7 +229,7 @@ def main(argv=None) -> None:
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
     p.add_argument("--cell", choices=("landau", "two-stream", "magnetized",
-                                      "sheath"),
+                                      "sheath", "dn", "gc"),
                    default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)

@@ -620,3 +620,192 @@ def test_deterministic_deposit_matches_plain(cuda_device, periodic):
     _rel_close(cuda_cic.deposit_plain(p.double(), vals.double(), ng,
                                       periodic=periodic), a, 2e-5)
     _rel_close(cuda_cic.deposit(p, vals, ng, periodic=periodic), a, 5e-5)
+
+
+# ---------------------------------------------------------------------------
+# the D-N Newton kernel, the tagged Philox draws, the D-N and GC steps and
+# the card's size limits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [800, 600, 257])
+def test_boltzmann_dn_kernel_matches_plain(cuda_device, ng):
+    """The D-N Newton kernel against its plain version
+    (tests/test_pallas.py:361-389's cases and criteria): iterations within
+    one cold and equal warm, phi within 5e-4 of max|phi|, residual <= tol;
+    one launch counted; n0 as a device tensor."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(13 + ng)
+    dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+    n = torch.from_numpy(dens.astype(np.float32)).to(cuda_device)
+    n0 = torch.tensor(0.9e17, dtype=torch.float32, device=cuda_device)
+    te, dx = 116000.0, 2e-5
+    zero = torch.zeros(ng, dtype=torch.float32, device=cuda_device)
+    before = cuda_cic.LAUNCHES["boltzmann_dn"]
+    got = cuda_newton.boltzmann_dn(n, n0, te, dx, zero)
+    assert cuda_cic.LAUNCHES["boltzmann_dn"] == before + 1
+    ref = cuda_newton.boltzmann_dn_plain(n, n0, te, dx, zero)
+    assert float(got.residual) <= 1e-3
+    assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+    _rel_close(ref.phi, got.phi, 5e-4)
+    got_w = cuda_newton.boltzmann_dn(n, n0, te, dx, ref.phi)
+    ref_w = cuda_newton.boltzmann_dn_plain(n, n0, te, dx, ref.phi)
+    assert int(got_w.iterations) == int(ref_w.iterations)
+    _rel_close(ref_w.phi, got_w.phi, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndraw, tag", [(8, 1), (3, 2)])
+def test_philox_uniforms_kernel_matches_plain(cuda_device, ndraw, tag):
+    """The tagged uniforms (flux: 8 a row, tag 1; gyro-phases: 3, tag 2)
+    bit-equal to philox_uniforms_plain's at a ragged n."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    got = cuda_rng.philox_uniforms((4, 5), 6, 100_003, ndraw, tag,
+                                   device=cuda_device)
+    ref = cuda_rng.philox_uniforms((4, 5), 6, 100_003, ndraw, tag, device="cpu")
+    assert torch.equal(got.cpu(), ref)
+
+
+def _one_step_card_vs_cpu(pre, cfg, hooks, cuda_device):
+    """One step from the CPU state after 3 steps on the CPU and the card,
+    the same CPU-made draws replayed on both; returns the two results."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.runner import run
+
+    st, _ = run(magnetized.make_step(cfg), pre.state, 3)
+    d = interop.magnetized_state_to_numpy(st)
+    sc = interop.magnetized_state_from_numpy(d, "cpu")
+    cpu_hooks = hooks(sc)
+    out = [magnetized.make_step(cfg, **cpu_hooks)(sc)]
+
+    def on_card(f):
+        def hook(step, n):
+            x = f(step, n)
+            if isinstance(x, dict):
+                return {k: v.to(cuda_device) for k, v in x.items()}
+            return x.to(cuda_device)
+        return hook
+
+    card = {k: on_card(f) for k, f in cpu_hooks.items()}
+    out.append(magnetized.make_step(cfg, **card)(
+        interop.magnetized_state_from_numpy(d, cuda_device)))
+    return out
+
+
+def _assert_mag_step_close(out):
+    """tests/test_magnetized.py:461-489's limits: rho rtol 1e-4, phi rtol
+    1e-3, positions rtol 2e-5, velocities rtol 2e-4, equal counts."""
+    (sc, mc), (sg, mg) = out
+    np.testing.assert_allclose(mg.rho.cpu().numpy(), mc.rho.numpy(), rtol=1e-4)
+    np.testing.assert_allclose(mg.phi.cpu().numpy(), mc.phi.numpy(), rtol=1e-3,
+                               atol=1e-8)
+    act = sc.active.numpy() == 1
+    np.testing.assert_allclose(sg.p.cpu().numpy()[act], sc.p.numpy()[act],
+                               rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(sg.v.cpu().numpy()[act], sc.v.numpy()[act],
+                               rtol=2e-4, atol=1.0)
+    assert torch.equal(sg.active.cpu(), sc.active)
+    assert int(mg.n_reactivated) == int(mc.n_reactivated)
+
+
+@pytest.mark.cuda
+def test_dn_step_card_matches_cpu(cuda_device):
+    """One fused D-N step of dirichlet_neumann_test (n = 12,000, ng = 800:
+    the D-N kernel on the card, its plain version on the CPU), the same
+    flux draws on both sides: the single-step limits above."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets, sources
+
+    pre = presets.dirichlet_neumann_test(n=12_000, device="cpu")
+    cfg = dataclasses.replace(pre.config, backend="fused", newton_backend="pallas")
+    src = cfg.source
+
+    def hooks(state):
+        return {"source_draws": lambda step, n: sources.sample_flux_batch(
+            state.rng, step, n, cfg.grid, src.ti, src.mass, vx=src.vx,
+            gamma=cfg.flux_gamma, vx_pert=cfg.flux_vx_pert, device="cpu")}
+    _assert_mag_step_close(_one_step_card_vs_cpu(pre, cfg, hooks, cuda_device))
+
+
+@pytest.mark.cuda
+def test_gc_step_card_matches_cpu(cuda_device):
+    """One pic_iead_gc step (n = 12,000, composed) on the card and the
+    CPU, the same source and gyro-phase draws: the single-step limits
+    above."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets, sources
+    from pypic_tpu_torch.ops import cuda_rng
+
+    pre = presets.pic_iead_gc(n_per_species=2000, device="cpu")
+    cfg = dataclasses.replace(pre.config, newton_backend="pallas")
+    src = cfg.source
+
+    def hooks(state):
+        return {
+            "source_draws": lambda step, n: sources.sample_source_batch(
+                state.rng, step, n, cfg.grid, src.ti, src.mass, vx=src.vx,
+                device="cpu"),
+            "gyro_draws": lambda step, n: cuda_rng.philox_uniforms(
+                state.rng, step, n, 3, cuda_rng.GYRO_TAG, device="cpu").t()}
+    _assert_mag_step_close(_one_step_card_vs_cpu(pre, cfg, hooks, cuda_device))
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_above_the_cards_limits(cuda_device):
+    """On CUDA tensors the size limits hold (the CPU route runs any size):
+    shared memory a block, the deterministic deposits' thread histograms
+    and the Newton kernels' one CTA; nothing is launched."""
+    from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
+
+    def z(k):
+        return torch.zeros(k, dtype=torch.float32, device=cuda_device)
+
+    p, big = z(64), cuda_cic.SMEM_LIMIT // 4 + 1
+    before = dict(cuda_cic.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_cic.deposit(p, p, big, periodic=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        ng = cuda_cic.SMEM_LIMIT // 8 + 1
+        cuda_cic.picard_iteration(z(ng), p, p, p, ng, qm=QM, w=W, dt=DT, dx=DX)
+    with pytest.raises(ValueError, match="shared memory"):
+        ng = cuda_cic.SMEM_LIMIT // 8 + 1
+        cuda_cic.leapfrog_gather_push_deposit(z(ng), p, p, qm=QM, w=W, dt=DT,
+                                              dx=DX)
+    with pytest.raises(ValueError, match="thread histograms"):
+        cuda_cic.deposit_det(p, p, 1817, periodic=False)
+    with pytest.raises(ValueError, match="thread histograms"):
+        cuda_sheath.sheath_picard(z(1817), p, p, p, p, p, p, dt=1e-12, dx=1e-5)
+    with pytest.raises(ValueError, match="item 10"):
+        cuda_newton.boltzmann_dirichlet(z(1025), 1e17, 1.16e5, 2e-5)
+    with pytest.raises(ValueError, match="item 10"):
+        cuda_newton.boltzmann_dn(z(1025), 1e17, 1.16e5, 2e-5, z(1025))
+    assert cuda_cic.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_magnetized_auto_above_1024_nodes_takes_thomas(cuda_device):
+    """newton_backend 'auto' at ng = 1200 on the card takes the op-composed
+    Thomas route (counted in THOMAS_SOLVES, no Newton kernel launch) and
+    converges; 'pallas' there raises naming ROADMAP item 10."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets
+    from pypic_tpu_torch.engines import magnetized
+
+    pre = presets.pic_iead(n_per_species=500, ng=1200, device=cuda_device)
+    with pytest.raises(ValueError, match="item 10"):
+        magnetized.make_step(dataclasses.replace(
+            pre.config, newton_backend="pallas"))(pre.state)
+    before = dict(magnetized.THOMAS_SOLVES)
+    launches = cuda_cic.LAUNCHES["boltzmann_dirichlet"]
+    _, m = magnetized.make_step(pre.config)(pre.state)
+    assert magnetized.THOMAS_SOLVES["dirichlet"] == before["dirichlet"] + 1
+    assert cuda_cic.LAUNCHES["boltzmann_dirichlet"] == launches
+    assert float(m.newton_residual) <= pre.config.newton_tol
+    assert bool(torch.isfinite(m.phi).all())

@@ -154,12 +154,27 @@ def test_wrappers_reject_bad_dtype_shape_and_layout():
 
 
 def test_wrappers_reject_grids_beyond_shared_memory():
+    """The shared-memory limit is the card's: on CPU tensors the wrappers
+    run their plain versions at an ng beyond it and return their answers
+    (bit-equal, the same function); tests/test_torch_cuda.py holds the
+    raise on the card."""
     ng = cuda_cic.SMEM_LIMIT // 8 + 1
-    f = torch.zeros(ng)
-    p = torch.zeros(8)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_cic.picard_iteration(f, p, p, p, ng, qm=QM, w=W, dt=DT, dx=DX)
-    cuda_cic.picard_finalize_nodep(f, p, p, p, ng, qm=QM, dt=DT, dx=DX)
+    rng = np.random.default_rng(12)
+    f = torch.from_numpy(rng.normal(size=ng).astype(np.float32) * 1e3)
+    p = torch.from_numpy(rng.uniform(0, ng, 64).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=64).astype(np.float32) * 1e5)
+    before = dict(cuda_cic.LAUNCHES)
+    got = cuda_cic.picard_iteration(f, p, p, v, ng, qm=QM, w=W, dt=DT, dx=DX)
+    ref = cuda_cic.picard_iteration_plain(f, p, p, v, ng, qm=QM, w=W, dt=DT,
+                                          dx=DX)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    got = cuda_cic.picard_finalize_nodep(f, p, p, v, ng, qm=QM, dt=DT, dx=DX)
+    ref = cuda_cic.picard_finalize_nodep_plain(f, p, p, v, ng, qm=QM, dt=DT,
+                                               dx=DX)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
     big = cuda_cic.SMEM_LIMIT // 4 + 1
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_cic.deposit(p, p, big, periodic=True)
+    assert torch.equal(cuda_cic.deposit(p, v, big, periodic=True),
+                       cuda_cic.deposit_plain(p, v, big, periodic=True))
+    assert cuda_cic.LAUNCHES == before

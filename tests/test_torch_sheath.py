@@ -572,8 +572,10 @@ def test_preset_and_interop_round_trip():
         np.testing.assert_array_equal(back[k], d[k], err_msg=k)
     st = interop.sheath_state_from_numpy(d, "cpu")
     assert st.step_host == 0 and st.rng == (0, 2)
-    assert sorted(presets.PRESETS) == ["explicit_landau", "landau_damping",
-                                       "pic_iead", "sheath_dd", "two_stream"]
+    assert sorted(presets.PRESETS) == ["dirichlet_neumann_test",
+                                       "explicit_landau", "landau_damping",
+                                       "pic_iead", "pic_iead_gc", "sheath_dd",
+                                       "two_stream"]
     with pytest.raises(KeyError):
         presets.get("nope")
 
@@ -617,8 +619,9 @@ def test_row_tool_replays_a_step():
 @pytest.mark.parametrize("periodic", [False, True], ids=["bounded", "periodic"])
 def test_deposit_det_on_the_cpu_is_the_plain_deposit(periodic):
     """On CPU tensors the deterministic deposit runs the plain deposit
-    (bit-equal) and counts no launch; an ng whose 32 thread histograms
-    overflow shared memory raises."""
+    (bit-equal) and counts no launch, also at an ng whose 32 thread
+    histograms overflow shared memory: that limit is the card's
+    (tests/test_torch_cuda.py holds the raise there)."""
     rng = np.random.default_rng(6)
     p = _t(rng.uniform(0, 50, 4001).astype(np.float32))
     vals = _t(rng.normal(0, 1e3, 4001).astype(np.float32))
@@ -626,8 +629,10 @@ def test_deposit_det_on_the_cpu_is_the_plain_deposit(periodic):
     got = cuda_cic.deposit_det(p, vals, 51, periodic=periodic)
     assert torch.equal(got, cuda_cic.deposit_plain(p, vals, 51, periodic=periodic))
     assert cuda_cic.LAUNCHES["deposit_det"] == before
-    with pytest.raises(ValueError, match="thread histograms"):
-        cuda_cic.deposit_det(p * 40, vals, 1817, periodic=periodic)
+    got = cuda_cic.deposit_det(p * 40, vals, 1817, periodic=periodic)
+    assert torch.equal(got, cuda_cic.deposit_plain(p * 40, vals, 1817,
+                                                   periodic=periodic))
+    assert cuda_cic.LAUNCHES["deposit_det"] == before
 
 
 # chip_smoke.py's limits on the card's sheath results: phase 16's wall
