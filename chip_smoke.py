@@ -136,6 +136,24 @@ Phases (any failure raises and the script exits non-zero):
    memory, thread histograms, one CTA) and launches nothing; a
    magnetized step at ng = 1,200 with 'auto' takes the op-composed Thomas
    route, and 'pallas' there raises naming ROADMAP item 10.
+25. domain kernels — the domain engines' four kernels against their
+   plain versions at n = 10,000,003 (ragged, edge positions) and
+   6104 * 16384, at the configs[4] slab's shape (ext_n = 231), with dead
+   slots, positions past both clamp bounds and a middle rank's offset:
+   the Picard pass (emit_v, the shared window's clamp count, a skipped
+   pass), both finalizes (statistics bit-equal from call to call) and the
+   leapfrog push at ng = 200; timed with CUDA events.
+26. domain check — n = 20,000 from one CPU-made load, 5 steps of the
+   implicit (fused) and explicit (fused push) domain engines: one rank on
+   the card against one on the CPU, then two ranks on the one card (gloo,
+   every message staged through the host and counted) against two on the
+   CPU; energies, counts, positions and velocities slot for slot.
+27. domain slice — bench.py's configs[4] row (tools/domain.py) at
+   n = 1e8 on a one-rank NCCL mesh, 2 + 30 steps; then finalize
+   'converged-deposit', the shared window and 'iterate', 2 + 3 steps
+   each, and the explicit carrier with the fused push, 2 + 5; each path
+   with its launch counts set to 0 before it and read after it and its
+   host syncs counted under torch.cuda.set_sync_debug_mode.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -260,6 +278,12 @@ BYTES_PER_PARTICLE = {
     "boltzmann_dn": 12,
     # (ndraw, n) uniforms written: the flux draw's 8 a row
     "philox_uniforms": 32,
+    # the slab kernels: ps, p0, v0, w read; ph (the pass) or p1, v1 (the
+    # finalizes) written; the field and the statistics are noise
+    "picard_iteration_ext": 20, "picard_finalize_ext_nodep": 24,
+    "picard_finalize_ext": 24,
+    # p, v read, p1, v1 written
+    "leapfrog_gather_push": 16,
 }
 # float32 operations per particle and step, counted from the kernel bodies
 # (floor, rint, add, sub, mul and compare count one; each atomic add one).
@@ -301,6 +325,17 @@ OPS_PER_PARTICLE = {
     # two Philox blocks a row (200 integer operations at the float32
     # rate) and 8 uniforms (3 each)
     "philox_uniforms": 224,
+    # picard_iteration's 28 without the wrap (3), with the two clamps (4)
+    # and the weight's product (1)
+    "picard_iteration_ext": 30,
+    # picard_finalize_nodep's 16 with the clamp (2), the offset (1) and
+    # the statistics (2 products, 3 sums, 2 compares)
+    "picard_finalize_ext_nodep": 26,
+    # and the deposit of w v1 (clamp 2, cell and weights 4, product 3,
+    # 2 atomics)
+    "picard_finalize_ext": 37,
+    # the gather 6, kick 1, two adds and a product, the wrap 3
+    "leapfrog_gather_push": 13,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
@@ -323,6 +358,10 @@ REPLACES = {
     "sheath_reinject": "pypic_tpu/ops/pallas_rng.py:74",
     "deposit_det": "pypic_tpu/ops/pallas_cic.py:252",
     "boltzmann_dn": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
+    "picard_iteration_ext": "pypic_tpu/ops/pallas_cic.py:1847",
+    "picard_finalize_ext": "pypic_tpu/ops/pallas_cic.py:1987",
+    "picard_finalize_ext_nodep": "pypic_tpu/ops/pallas_cic.py:2019",
+    "leapfrog_gather_push": "pypic_tpu/ops/pallas_cic.py:849",
 }
 SOURCES_MAGNETIZED = {
     "deposit2": "pypic_tpu_torch/csrc/magnetized.cu",
@@ -404,6 +443,43 @@ GC_CHECK_PER_SPECIES, GC_CHECK_AT = 2000, (0, 10, 50)
 # fault-1 repair: a magnetized step at ng = 1200, above the Newton
 # kernels' 1,024 rows, takes the Thomas route on the card
 NG_FAULT = 1200
+
+# the domain slice: bench.py's configs[4] row (tools/domain.py) on a
+# one-rank mesh: ng 200 in one slab of c = 200 cells, halo 13 (8 sigma of
+# the thermal excursion), hw = halo + 2, ext_n = c + 2 hw + 1. The kernels
+# run at that slab's shape; their positions lie past both clamp bounds,
+# 5% of the slots are dead, and the finalizes wrap with the offset of a
+# middle rank (rank 1 of 4 slabs of 200 cells: lo_shift = c - hw,
+# ng = 800)
+DOM_C, DOM_HALO = 200, 13
+DOM_HW = DOM_HALO + 2
+DOM_EXT_N = DOM_C + 2 * DOM_HW + 1
+DOM_LO, DOM_HI = float(DOM_HW - DOM_HALO), float(DOM_C + DOM_HALO + DOM_HW)
+DOM_LO_SHIFT, DOM_NG_WRAP = float(DOM_C - DOM_HW), 4 * DOM_C
+# kernel against plain: the same float32 operations, so positions and
+# velocities to 1e-6 of their largest value; the statistics to 1e-6
+# relative (both sum float32 terms in float64, in other orders), the
+# clamp counts exact
+TOL_DOM = 1e-6
+# the domain check: n = 20,000, card against CPU on one rank (5 steps)
+# and two ranks (gloo; on the card staged through the host): the energies
+# within 1e-5 (the engine tolerances of tests/test_torch_domain_implicit.py),
+# the counts equal
+DOM_CHECK_N, DOM_CHECK_STEPS = 20_000, 5
+TOL_DOM_CHECK = 1e-5
+# the domain slice's paths: configs[4] 2 + 30 steps, the other finalizes
+# and the shared window 2 + 3, the explicit carrier 2 + 5
+DOM_TIMED, DOM_BRANCH, DOM_EXPLICIT = 30, 3, 5
+# |total energy change| of the conserving configuration over the timed
+# steps, as the implicit slice holds it
+DOM_ENERGY_BOUND = 1e-4
+# the explicit carrier's total energy change over its timed steps is the
+# leapfrog scheme's, not a fault (tests/test_torch_domain_implicit.py
+# holds the plain version to JAX's rows on this row); the card's at
+# n = 1e8 is held to the mean of the plain version's on the CPU at
+# DOM_RISE_N over loads from DOM_RISE_SEEDS: 5% relative, a few times the
+# spread between those loads, which the phase prints
+DOM_RISE_N, DOM_RISE_SEEDS, TOL_DOM_RISE = 2_000_000, (1, 2, 3), 0.05
 
 
 def bound(name: str, n: int, steps: int = 1,
@@ -2751,6 +2827,363 @@ def phase_size_limits(dev) -> dict:
         raise AssertionError("the Thomas route did not converge")
     return dict(thomas_step_s=seconds)
 
+def _slab_inputs(n: int, gen: torch.Generator, dev, edges: bool):
+    """A slab of the domain row: positions on [lo - 3, hi + 3] (past both
+    clamp bounds; the bounds themselves and 2.5 cells past them with
+    ``edges``), guesses 0.3 cells off, 5% dead slots (w = 0)."""
+    f32 = torch.float32
+    span = DOM_HI - DOM_LO + 6.0
+    p0 = torch.rand(n, generator=gen, device=dev, dtype=f32) * span + (DOM_LO - 3.0)
+    ps = p0 + torch.randn(n, generator=gen, device=dev, dtype=f32) * 0.3
+    v0 = torch.randn(n, generator=gen, device=dev, dtype=f32) * 1e5
+    field = torch.randn(DOM_EXT_N, generator=gen, device=dev, dtype=f32) * 30.0
+    w = torch.full((n,), W, dtype=f32, device=dev)
+    w[torch.rand(n, generator=gen, device=dev) < 0.05] = 0.0
+    if edges:
+        edge = torch.tensor([DOM_LO, DOM_HI, DOM_LO - 2.5, DOM_HI + 2.5],
+                            dtype=f32, device=dev)
+        p0[:4] = edge
+        ps[:4] = edge
+    return field, ps, p0, v0, w
+
+
+def phase_domain_kernels(dev) -> dict:
+    """The domain engines' four kernels against their plain versions at
+    the ragged and the headline n, at the configs[4] slab's shape (ext_n
+    = 231 nodes): the Picard pass (emit_v off and on; the shared window
+    with its clamp count; a pass with active = 0 writes nothing), both
+    finalizes in stats mode with a middle rank's offset (statistics
+    bit-equal from call to call, p1, v1 and the statistics bit-equal
+    between the two), and the leapfrog push at ng = 200. Deposits also
+    against float64 sums of the plain version's own terms."""
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    qm = float(torch.tensor(QM, dtype=torch.float32))
+    kw = dict(qm=qm, dt=DT, dx=DX, lo=DOM_LO, hi=DOM_HI)
+    fkw = dict(kw, lo_shift=DOM_LO_SHIFT, ng=DOM_NG_WRAP)
+    fast = dict(reps=3, calls=3)
+    records = {}
+    for n, edges in ((N_RAGGED, True), (N_HEADLINE, False)):
+        log(f"[domain kernels] n = {n}, ext_n = {DOM_EXT_N}, clamp "
+            f"[{DOM_LO}, {DOM_HI}], lo_shift {DOM_LO_SHIFT}, ng {DOM_NG_WRAP}"
+            + (" (+ edge positions)" if edges else ""))
+        args = _slab_inputs(n, gen, dev, edges)
+        dtol = deposit_tol(n, DOM_EXT_N)
+        err = 0.0
+        for emit_v, shared in ((False, False), (True, False), (False, True)):
+            pkw = dict(kw, emit_v=emit_v, shared=shared)
+            got = KD.picard_iteration_ext(*args, **pkw)
+            ref = KD.picard_iteration_ext_plain(*args, **pkw)
+            jh = 1 + emit_v
+            exact = KD.picard_iteration_ext_plain(
+                *args, acc_dtype=torch.float64, **pkw)[jh]
+            torch.cuda.synchronize()
+            a, r = rel_err(ref[0], got[0])
+            errs = {"ph": dict(abs=a, err=r, kind="rel", tol=TOL_DOM)}
+            a, r = rel_err(exact, got[jh])
+            errs["jh"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+            a, r = rel_err(ref[jh], got[jh])
+            errs["jh_plain"] = dict(abs=a, err=r, kind="rel", tol=dtol)
+            if emit_v:
+                a, r = rel_err(ref[1], got[1])
+                errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            if shared:
+                diff = float(abs(int(got[-1]) - int(ref[-1])))
+                errs["n_clamped"] = dict(abs=diff, err=diff, kind=(
+                    f"count gap ({int(got[-1])} clamped of {n})"), tol=0.0)
+            err = max(err, _check(errs, f"picard_iteration_ext(emit_v={emit_v}, "
+                                        f"shared={shared})"))
+            del got, ref, exact
+        buf = args[1].clone()
+        off = torch.zeros((1,), dtype=torch.int32, device=dev)
+        skipped = KD.picard_iteration_ext(args[0], buf, *args[2:], out=(buf, None),
+                                          active=off, **kw)
+        if not (torch.equal(buf, args[1]) and not bool(skipped[1].any())):
+            raise AssertionError("picard_iteration_ext with active = 0 wrote")
+        log("[domain kernels]   picard_iteration_ext with active = 0: nothing written")
+        records["picard_iteration_ext"] = _rec(
+            err, cuda_ms(lambda: KD.picard_iteration_ext(*args, **kw)),
+            cuda_ms(lambda: KD.picard_iteration_ext_plain(*args, **kw), **fast),
+            "picard_iteration_ext", n)
+
+        outs = {}
+        for name, fn, plain_kw in (
+                ("picard_finalize_ext_nodep", KD.picard_finalize_ext_nodep, {}),
+                ("picard_finalize_ext", KD.picard_finalize_ext, dict(deposit=True))):
+            got = fn(*args, **fkw)
+            again = fn(*args, **fkw)
+            ref = KD.picard_finalize_ext_plain(*args, **fkw, **plain_kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got[-1], again[-1]):
+                raise AssertionError(f"{name}: the statistics differ from call to call")
+            a = seam_err(ref[0], got[0], DOM_NG_WRAP)
+            errs = {"p1": dict(abs=a, err=a / DOM_NG_WRAP, kind="of ng", tol=TOL_DOM)}
+            a, r = rel_err(ref[1], got[1])
+            errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            st, st_ref = got[-1].cpu(), ref[-1].cpu()
+            for i, key in ((0, "sum w v1"), (1, "sum v1^2")):
+                a, r = rel_err(st_ref[i:i + 1], st[i:i + 1])
+                errs[key] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            diff = float(abs(st[2] - st_ref[2]))
+            errs["clamps"] = dict(abs=diff, err=diff,
+                                  kind=f"count gap ({int(st[2])} clamped)", tol=0.0)
+            if plain_kw:
+                exact = KD.picard_finalize_ext_plain(
+                    *args, acc_dtype=torch.float64, **fkw, **plain_kw)[2]
+                a, r = rel_err(exact, got[2])
+                errs["j1"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+                a, r = rel_err(ref[2], got[2])
+                errs["j1_plain"] = dict(abs=a, err=r, kind="rel", tol=dtol)
+            e = _check(errs, name)
+            if not int(st[2]) > 0:
+                raise AssertionError(f"{name}: no clamp counted")
+            outs[name] = (got[0], got[1], got[-1])
+            records[name] = _rec(
+                e, cuda_ms(lambda: fn(*args, **fkw)),
+                cuda_ms(lambda: KD.picard_finalize_ext_plain(*args, **fkw, **plain_kw),
+                        **fast), name, n)
+            del got, again, ref
+        a, b = outs.values()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("the two finalizes' p1, v1 or statistics differ")
+        log("[domain kernels]   p1, v1 and the statistics bit-identical between "
+            "the two finalizes")
+        del outs, a, b, args
+        torch.cuda.empty_cache()
+
+        e, _, p, v = _random_pass_inputs(n, gen, dev, edges)
+        lkw = dict(qm=qm, dt=DT, dx=DX)
+        got = KD.leapfrog_gather_push(e, p, v, **lkw)
+        ref = KD.leapfrog_gather_push_plain(e, p, v, **lkw)
+        torch.cuda.synchronize()
+        a = seam_err(ref[0], got[0], NG)
+        errs = {"p1": dict(abs=a, err=a / NG, kind="of ng", tol=TOL_DOM)}
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+        records["leapfrog_gather_push"] = _rec(
+            _check(errs, "leapfrog_gather_push"),
+            cuda_ms(lambda: KD.leapfrog_gather_push(e, p, v, **lkw)),
+            cuda_ms(lambda: KD.leapfrog_gather_push_plain(e, p, v, **lkw)),
+            "leapfrog_gather_push", n)
+        del e, p, v, got, ref
+        torch.cuda.empty_cache()
+    return records
+
+
+def _rows_agree(label: str, ref: dict, got: dict, counts) -> list:
+    """Problems between two runs' metric rows: the energies beyond
+    TOL_DOM_CHECK, any count unequal."""
+    problems = []
+    for k in ("field_energy", "kinetic_energy"):
+        a, r = rel_err(torch.tensor(ref["rows"][k], dtype=torch.float64),
+                       torch.tensor(got["rows"][k], dtype=torch.float64))
+        log(f"[domain check] {label} {k}: {r:.3e} (tol {TOL_DOM_CHECK:.0e})")
+        if not r <= TOL_DOM_CHECK:
+            problems.append(f"{label} {k} {r:.3e}")
+    for k in counts:
+        if ref["rows"][k] != got["rows"][k]:
+            problems.append(f"{label} {k} {ref['rows'][k]} != {got['rows'][k]}")
+    return problems
+
+
+def phase_domain_check(dev) -> dict:
+    """The domain engines at n = 20,000 from one CPU-made load: on a
+    one-rank mesh, card (the kernels) against CPU (their plain versions),
+    5 steps; then two ranks on the one card (gloo over CUDA tensors, each
+    message staged through the host and counted) against the same two
+    ranks on the CPU, the same 5 steps: energies within 1e-5, counts
+    equal, positions and velocities slot for slot. The two-rank run is the
+    only place migrate, pack_rows and place_rows run on CUDA tensors (one
+    rank migrates nothing)."""
+    from pypic_tpu_torch.parallel import spawn
+    from pypic_tpu_torch.tools import domain as row
+
+    load = row.host_load(DOM_CHECK_N)
+    steps = DOM_CHECK_STEPS
+    problems, res = [], {}
+    engines = (
+        ("implicit", dict(backend="fused"),
+         ("picard_iters", "n_migrated", "n_dropped", "n_halo_clamped", "n_alive"),
+         {"picard_iteration_ext": 4 * steps, "picard_finalize_ext_nodep": steps,
+          "deposit": 2}),
+        ("explicit", dict(push_backend="fused"),
+         ("n_migrated", "n_dropped", "n_alive"),
+         {"leapfrog_gather_push": steps, "deposit": 1 + steps}))
+    jobs = [(engine, steps, over) for engine, over, _, _ in engines]
+    for world in (1, 2):
+        # one spawn a device and world size carries both engines
+        t0 = time.perf_counter()
+        gpus = spawn.run(world, row.rank_run, load, jobs, device=dev)
+        cpus = spawn.run(world, row.rank_run, load, jobs, device="cpu")
+        seconds = time.perf_counter() - t0
+        log(f"[domain check] {world} rank{'s' if world > 1 else ''}, both "
+            f"engines on the card and on the CPU: {seconds:.1f} s")
+        for i, (engine, _, counts, want) in enumerate(engines):
+            label = f"{engine}, {world} rank{'s' if world > 1 else ''}"
+            gpu = [rank[i] for rank in gpus]
+            cpu = [rank[i] for rank in cpus]
+            staged = [g["staged_bytes"] for g in gpu]
+            migrated = sum(gpu[0]["rows"]["n_migrated"])
+            log(f"[domain check] {label}: staged bytes a rank "
+                f"{staged}, migrated {migrated}, launches a rank "
+                f"{[g['launches'] for g in gpu]}")
+            problems += _rows_agree(label, cpu[0], gpu[0], counts)
+            for r, (g, c) in enumerate(zip(gpu, cpu)):
+                if not (g["alive"] == c["alive"]).all():
+                    problems.append(f"{label} rank {r}: alive slots differ")
+                    continue
+                alive = c["alive"]
+                gp, cp = torch.from_numpy(g["p"][alive]), torch.from_numpy(c["p"][alive])
+                dp = seam_err(cp, gp, NG)
+                dv = rel_err(torch.from_numpy(c["v"][alive]),
+                             torch.from_numpy(g["v"][alive]))[1]
+                log(f"[domain check] {label} rank {r}: p {dp:.3e} cells, v {dv:.3e}")
+                if not (dp <= TOL_POS_STEPS and dv <= TOL_V):
+                    problems.append(f"{label} rank {r}: p {dp:.3e}, v {dv:.3e}")
+                if g["launches"] != want:
+                    problems.append(f"{label} rank {r}: launches {g['launches']} != {want}")
+            if world > 1 and not (migrated > 0 and min(staged) > 0):
+                problems.append(f"{label}: migrated {migrated}, staged {staged}")
+            # seconds: both engines' spawns of this world size
+            res[label] = dict(seconds=seconds, staged_bytes=staged, migrated=migrated)
+    if problems:
+        raise AssertionError("domain check: " + "; ".join(problems))
+    return res
+
+
+def phase_domain_slice(dev) -> dict:
+    """bench.py's configs[4] row (tools/domain.py) at n = 1e8 on a
+    one-rank NCCL mesh: 2 + 30 steps, exactly 4 picard_iteration_ext and
+    one picard_finalize_ext_nodep launch a step (2 deposits at set-up), 0
+    host syncs a step, Picard 4 every step, nothing dropped or clamped, the
+    conserving configuration's energy change below 1e-4; then
+    finalize='converged-deposit', the shared window and 'iterate', 2 + 3
+    steps each, and the explicit carrier with the fused push, 2 + 5, its
+    energy change within TOL_DOM_RISE of the plain version's on the CPU.
+    Each path has its launch counts set to 0 just before it and read after
+    it; the host syncs are counted under torch.cuda.set_sync_debug_mode."""
+    import torch.distributed as dist
+
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh
+    from pypic_tpu_torch.tools import domain as row
+
+    # the carrier's rise on the CPU (composed, plain kernels), made before
+    # the NCCL group so that a CPU mesh is a one-rank mesh of its own
+    t0 = time.perf_counter()
+    cpu_mesh = make_mesh(device="cpu")
+    cpu_rises = []
+    for seed in DOM_RISE_SEEDS:
+        cfg, st = row.explicit_row(cpu_mesh, DOM_RISE_N, seed=seed)
+        cpu_rises.append(row.drive(
+            domain.make_step(cfg, cpu_mesh), st, DOM_RISE_N, WARMUP_STEPS,
+            DOM_EXPLICIT)[0]["total_energy_rel_change"])
+    cpu_rise = sum(cpu_rises) / len(cpu_rises)
+    log(f"[domain slice] the explicit carrier on the CPU, n = {DOM_RISE_N}, "
+        f"{WARMUP_STEPS} + {DOM_EXPLICIT} steps, seeds {DOM_RISE_SEEDS}: total "
+        f"energy change {[f'{r:+.6e}' for r in cpu_rises]}, mean "
+        f"{cpu_rise:+.6e}, spread {(max(cpu_rises) - min(cpu_rises)) / abs(cpu_rise):.3e} "
+        f"relative ({time.perf_counter() - t0:.1f} s)")
+    del cfg, st
+
+    row.process_group()
+    mesh = make_mesh(device=dev)
+    if (mesh.world, mesh.backend) != (1, "nccl"):
+        raise AssertionError(f"expected a one-rank NCCL mesh, got {mesh}")
+    n = row.N
+
+    def path(label, build, timed, want, checks) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_cic.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg, st, step = build()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        res, st = row.drive(step, st, n, WARMUP_STEPS, timed)
+        launches = {k: c for k, c in cuda_cic.LAUNCHES.items() if c}
+        res.update(setup_s=setup, launches=launches, halo=cfg.halo,
+                   capacity=int(st.p.shape[0]),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"[domain slice] {label}: n = {n}, {timed} timed steps after "
+            f"init_state + {WARMUP_STEPS} warm-up: {res['ms_per_step']:.4f} "
+            f"ms/step, {res['pushes_per_s']:.4e} pushes/s, picard mean "
+            f"{res.get('picard_mean', float('nan')):.2f}, total energy change "
+            f"{res['total_energy_rel_change']:+.4e}, dropped {res['n_dropped']}, "
+            f"halo clamped {res['n_halo_clamped']}, host syncs a step "
+            f"{res['host_syncs_per_step']:.2f}, setup {setup:.2f} s, capacity "
+            f"{res['capacity']}, halo {cfg.halo}, peak memory "
+            f"{res['peak_mem_gib']:.2f} GiB")
+        log(f"[domain slice] {label}: launches {launches}")
+        finite = all(bool(torch.isfinite(t).all()) for t in (st.p, st.v))
+        in_range = bool(((st.p >= 0) & (st.p <= NG)).all())
+        problems = [] if finite and in_range else [f"finite={finite} in_range={in_range}"]
+        if launches != want:
+            problems.append(f"launches {launches} != {want}")
+        if res["n_dropped"] or res["n_alive_last"] != n:
+            problems.append(f"dropped {res['n_dropped']}, alive {res['n_alive_last']}")
+        problems += [msg for ok, msg in checks(res) if not ok]
+        if problems:
+            raise AssertionError(f"domain slice, {label}: " + "; ".join(problems))
+        del st
+        torch.cuda.empty_cache()
+        return res
+
+    def implicit_path(**over):
+        def build():
+            cfg, st = row.implicit_row(mesh, n, **over)
+            return cfg, st, domain_implicit.make_step(cfg, mesh)
+        return build
+
+    def conserving(res):
+        return [(res["picard_mean"] == 4.0, f"picard mean {res['picard_mean']}"),
+                (abs(res["total_energy_rel_change"]) < DOM_ENERGY_BOUND,
+                 f"total energy change {res['total_energy_rel_change']}"),
+                (res["n_halo_clamped"] == 0, f"halo clamped {res['n_halo_clamped']}"),
+                (res["host_syncs_per_step"] == 0.0,
+                 f"host syncs a step {res['host_syncs_per_step']}")]
+
+    steps = WARMUP_STEPS + DOM_TIMED
+    res = path("configs[4], conserving, finalize 'converged'", implicit_path(),
+               DOM_TIMED, {"picard_iteration_ext": 4 * steps,
+                           "picard_finalize_ext_nodep": steps, "deposit": 2},
+               conserving)
+    sb = WARMUP_STEPS + DOM_BRANCH
+    res["converged_deposit"] = path(
+        "finalize 'converged-deposit'", implicit_path(finalize="converged-deposit"),
+        DOM_BRANCH, {"picard_iteration_ext": 4 * sb, "picard_finalize_ext": sb,
+                     "deposit": 2}, conserving)
+    res["shared"] = path(
+        "window_share 'shared'", implicit_path(window_share="shared"), DOM_BRANCH,
+        {"picard_iteration_ext": 4 * sb, "picard_finalize_ext_nodep": sb,
+         "deposit": 2}, conserving)
+    res["iterate"] = path(
+        "finalize 'iterate'", implicit_path(finalize="iterate"), DOM_BRANCH,
+        {"picard_iteration_ext": 4 * sb, "deposit": 2},
+        lambda r: conserving(r)[:1] + conserving(r)[2:])
+
+    def explicit():
+        cfg, st = row.explicit_row(mesh, n, push_backend="fused")
+        return cfg, st, domain.make_step(cfg, mesh)
+
+    se = WARMUP_STEPS + DOM_EXPLICIT
+    res["explicit"] = path(
+        "the explicit carrier, fused push", explicit, DOM_EXPLICIT,
+        {"leapfrog_gather_push": se, "deposit": 1 + se},
+        lambda r: [(r["host_syncs_per_step"] == 0.0,
+                    f"host syncs a step {r['host_syncs_per_step']}"),
+                   (abs(r["total_energy_rel_change"] - cpu_rise)
+                    <= TOL_DOM_RISE * abs(cpu_rise),
+                    f"total energy change {r['total_energy_rel_change']} "
+                    f"against a mean {cpu_rise} on the CPU")])
+    res["explicit"]["cpu_total_energy_rel_change"] = cpu_rises
+    log(f"[domain slice] the explicit carrier's energy change: card "
+        f"{res['explicit']['total_energy_rel_change']:+.6e} at n = {n}, CPU "
+        f"mean {cpu_rise:+.6e} at n = {DOM_RISE_N} (tol {TOL_DOM_RISE} relative)")
+    dist.destroy_process_group()
+    return res
+
 
 def main() -> int:
     walls = {}
@@ -2791,6 +3224,9 @@ def main() -> int:
     phase("gc check", phase_gc_check, dev)
     gcs = phase("gc slice", phase_gc_slice, dev)
     lim = phase("size limits", phase_size_limits, dev)
+    dk = phase("domain kernels", phase_domain_kernels, dev)
+    dc = phase("domain check", phase_domain_check, dev)
+    ds = phase("domain slice", phase_domain_slice, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -2811,14 +3247,21 @@ def main() -> int:
     # the composed sheath path runs the deterministic deposit
     launches["deposit_det"] = shs["composed"]["launches"]["deposit_det"]
     launches["boltzmann_dn"] = dns["launches"]["boltzmann_dn"]
+    for kname in ("picard_iteration_ext", "picard_finalize_ext_nodep"):
+        launches[kname] = ds["launches"][kname]
+    launches["picard_finalize_ext"] = (
+        ds["converged_deposit"]["launches"]["picard_finalize_ext"])
+    launches["leapfrog_gather_push"] = (
+        ds["explicit"]["launches"]["leapfrog_gather_push"])
     helper = dnk.pop("philox_uniforms")
-    records = {**k, **ek, **ik, **mk, **shk, **dnk}
+    records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
                    picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
                    implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
                    boltzmann_dn="pypic_tpu_torch/csrc/newton.cu",
+                   **{kname: "pypic_tpu_torch/csrc/domain.cu" for kname in dk},
                    **SOURCES_MAGNETIZED, **SOURCES_SHEATH)
     log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
@@ -2885,6 +3328,19 @@ def main() -> int:
             "n", "ng", "steps", "us_per_step", "pushes_per_s", "newton_mean",
             "phi_max_over_phi_f")},
         "size_limits": lim,
+        "domain_slice": {
+            **{key: ds[key] for key in (
+                "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
+                "total_energy_rel_change", "n_dropped", "n_halo_clamped",
+                "host_syncs_per_step", "halo", "capacity", "peak_mem_gib")},
+            **{f"{path}_ms_per_step": ds[path]["ms_per_step"]
+               for path in ("converged_deposit", "shared", "iterate",
+                            "explicit")},
+            "picard_clamped_shared": ds["shared"]["picard_clamped"],
+            "explicit_total_energy_rel_change": {
+                "card": ds["explicit"]["total_energy_rel_change"],
+                "cpu": ds["explicit"]["cpu_total_energy_rel_change"]},
+            "check": dc},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

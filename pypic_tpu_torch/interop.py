@@ -4,6 +4,12 @@ numpy arrays <-> ``pypic_tpu_torch`` engine states.
 The engines have no weights; their state plays their part. With these a
 test runs one step in each package from the same state. The round trip
 keeps every dtype and is bit-exact.
+
+The domain engines' JAX states hold every shard: (S * capacity,) particle
+arrays, shard d's rows at [d cap, (d + 1) cap), and (ng,) slab-sharded
+fields, slab d at [d c, (d + 1) c). The port's states are one a rank;
+``domain_*_states_from_numpy`` cut the JAX arrays into the S rank states
+and ``domain_*_states_to_numpy`` join them again.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from .engines.explicit import ExplicitState
 from .engines.implicit import ImplicitState
 from .engines.magnetized import MagnetizedState
 from .engines.sheath import SheathState
+from .parallel.domain import DomainState
+from .parallel.domain_implicit import DomainImplicitState
 
 # the fields of pypic_tpu's states (the port's states also cache q and m
 # on the host, which they rebuild from q and m)
@@ -108,3 +116,67 @@ def sheath_state_to_numpy(state: SheathState) -> dict:
     """The state's fields as host numpy arrays, dtypes kept; ``rng`` as
     two uint32 words."""
     return _keyed_to_numpy(state, _SHEATH_FIELDS)
+
+
+# per-particle fields (cut by capacity), slab fields (cut by cells) and
+# replicated scalars of the domain states
+_DOMAIN_PARTICLE = ("p", "v", "alive")
+_DOMAIN_SCALAR = ("q", "m", "step")
+_DOMAIN_SLAB = {DomainState: ("rho",),
+                DomainImplicitState: ("e", "j", "e_prev", "e_prev2")}
+
+
+def _domain_from_numpy(cls, d: dict, num_shards: int, device) -> list:
+    slabs = _DOMAIN_SLAB[cls]
+    missing = [k for k in _DOMAIN_PARTICLE + _DOMAIN_SCALAR + slabs
+               if k not in d]
+    if missing:
+        raise KeyError(f"missing {cls.__name__} fields: {missing}")
+
+    def cut(a, r):
+        a = np.asarray(a)
+        if a.shape[0] % num_shards:
+            raise ValueError(f"{a.shape[0]} rows do not split into "
+                             f"{num_shards} shards")
+        k = a.shape[0] // num_shards
+        return torch.from_numpy(np.array(a[r * k:(r + 1) * k])).to(device)
+
+    states = []
+    for r in range(num_shards):
+        kw = {k: cut(d[k], r) for k in _DOMAIN_PARTICLE + slabs}
+        kw.update({k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
+                   for k in _DOMAIN_SCALAR})
+        states.append(cls(**kw))
+    return states
+
+
+def _domain_to_numpy(states) -> dict:
+    cls = type(states[0])
+    out = {k: np.concatenate([getattr(s, k).detach().cpu().numpy()
+                              for s in states])
+           for k in _DOMAIN_PARTICLE + _DOMAIN_SLAB[cls]}
+    out.update({k: getattr(states[0], k).detach().cpu().numpy()
+                for k in _DOMAIN_SCALAR})
+    return out
+
+
+def domain_implicit_states_from_numpy(d: dict, num_shards: int,
+                                      device) -> list:
+    """The S rank states of a JAX ``DomainImplicitState`` given as a dict
+    of numpy arrays (p, v, alive, q, m, e, j, e_prev, e_prev2, step)."""
+    return _domain_from_numpy(DomainImplicitState, d, num_shards, device)
+
+
+def domain_implicit_states_to_numpy(states) -> dict:
+    """The rank states joined into the JAX state's global arrays."""
+    return _domain_to_numpy(states)
+
+
+def domain_states_from_numpy(d: dict, num_shards: int, device) -> list:
+    """The S rank states of a JAX ``DomainState`` (p, v, alive, q, m,
+    step, rho)."""
+    return _domain_from_numpy(DomainState, d, num_shards, device)
+
+
+def domain_states_to_numpy(states) -> dict:
+    return _domain_to_numpy(states)

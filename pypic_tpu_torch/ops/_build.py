@@ -84,6 +84,13 @@ _SIGNATURES = {
     "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _P], _I),
     "pypic_sheath_reinject": (
         [_P] * 12 + [_L, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
+    "pypic_picard_iteration_ext": (
+        [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _I, _I,
+                     _P], _I),
+    "pypic_picard_finalize_ext": (
+        [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _P], _I),
+    "pypic_leapfrog_push": (
+        [_P] * 5 + [_L, _I, _F, _F, _F, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -44,21 +44,29 @@ def damped_mix(es, eh, k: int, aux):
     return 0.5 * (es + eh), aux
 
 
-def anderson_mix(es, eh, k: int, aux):
+def anderson_mix(es, eh, k: int, aux, reduce=None):
     """One Anderson(1) update. Returns (es_next, new_aux).
 
     Plain fixed point on the first iteration and on a degenerate secant;
     the step-size clip keeps a noisy f32 residual from extrapolating wildly
-    inside the round-off noise ball.
+    inside the round-off noise ball. ``reduce`` (the counterpart of JAX's
+    ``psum_axis``) sums each secant inner product over the ranks that hold
+    the slabs of a slab-sharded field, so mixing the slabs equals mixing
+    the global field; None for a field held whole.
     """
     if aux == ():
         return eh, aux
     g_prev, f_prev = aux
     f = eh - es
     df = f - f_prev
-    denom = torch.sum(df * df)
+
+    def _sum(x):
+        s = torch.sum(x)
+        return s if reduce is None else reduce(s)
+
+    denom = _sum(df * df)
     ok = denom > 0
-    gamma = torch.sum(df * f) / torch.where(ok, denom, 1.0)
+    gamma = _sum(df * f) / torch.where(ok, denom, 1.0)
     gamma = torch.where(ok, torch.clamp(gamma, -5.0, 5.0), 0.0)
     es_next = eh - gamma * (eh - g_prev) if k > 0 else eh
     return es_next, (eh, f)

@@ -34,9 +34,10 @@ implicit headline step and the explicit engine reach:
 
 The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``,
 ``csrc/implicit.cu`` and ``csrc/magnetized.cu`` (built by ``_build``). The
-magnetized engine's other two kernels and the sheath engine's three have
-their own modules, ``ops/cuda_newton.py``, ``ops/cuda_rng.py`` and
-``ops/cuda_sheath.py``, which count their launches in ``LAUNCHES`` here.
+magnetized engine's other two kernels, the sheath engine's three and the
+domain engines' four have their own modules, ``ops/cuda_newton.py``,
+``ops/cuda_rng.py``, ``ops/cuda_sheath.py`` and ``ops/cuda_domain.py``,
+which count their launches in ``LAUNCHES`` here.
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
@@ -76,7 +77,9 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "boltzmann_dirichlet": 0, "boltzmann_dn": 0, "source_batch": 0,
             "source_uniforms": 0, "sheath_picard": 0, "sheath_finalize": 0,
             "sheath_reinject": 0, "sheath_uniforms": 0, "deposit_det": 0,
-            "philox_uniforms": 0}
+            "philox_uniforms": 0, "picard_iteration_ext": 0,
+            "picard_finalize_ext_nodep": 0, "picard_finalize_ext": 0,
+            "leapfrog_gather_push": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots

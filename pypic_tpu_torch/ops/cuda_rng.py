@@ -96,6 +96,25 @@ def philox4x32_plain(key, counter):
     return c
 
 
+def _bm_radius(u: torch.Tensor) -> torch.Tensor:
+    """The Box-Muller radius sqrt(-2 log u) of float32 uniforms, taken in
+    float64 and rounded once to float32.
+
+    The plain transforms compute their logarithms, sines and cosines in
+    float64, so their float32 result is a function of the float32 inputs
+    alone (within an ulp of the JAX kernel's float32 functions and of
+    libdevice's on the card), whatever code path the CPU library takes
+    for float32 in a given process."""
+    return torch.sqrt(-2.0 * torch.log(u.double())).float()
+
+
+def _bm_cos_sin(t: torch.Tensor):
+    """(cos t, sin t) of a float32 angle, in float64 rounded once to
+    float32 (see ``_bm_radius``)."""
+    t = t.double()
+    return torch.cos(t).float(), torch.sin(t).float()
+
+
 def uniforms_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 words (int64 tensor) -> float32 uniforms in [2^-23, 1): the
     low mantissa bit set, the [1, 2) exponent spliced in, minus 1
@@ -117,14 +136,10 @@ def source_batch_from_bits_plain(bits, *, x_mu, x_sigma, x_wrap, vth,
     u = uniforms_from_bits(bits.to(torch.int64).contiguous())
     f32 = np.float32
     two_pi = float(f32(_TWO_PI))
-    r0 = torch.sqrt(-2.0 * torch.log(u[0]))
-    t0 = two_pi * u[1]
-    r1 = torch.sqrt(-2.0 * torch.log(u[2]))
-    t1 = two_pi * u[3]
-    z0 = r0 * torch.cos(t0)
-    z1 = r0 * torch.sin(t0)
-    z2 = r1 * torch.cos(t1)
-    z3 = r1 * torch.sin(t1)
+    r0, r1 = _bm_radius(u[0]), _bm_radius(u[2])
+    c0, s0 = _bm_cos_sin(two_pi * u[1])
+    c1, s1 = _bm_cos_sin(two_pi * u[3])
+    z0, z1, z2, z3 = r0 * c0, r0 * s0, r1 * c1, r1 * s1
     x = z0 * float(f32(x_sigma)) + float(f32(x_mu))
     x = x - torch.floor(x * float(f32(1.0 / x_wrap))) * float(f32(x_wrap))
     vth, vx = float(f32(vth)), float(f32(vx))
@@ -226,13 +241,14 @@ def reinject_bits_plain(key, step: int, n: int, ndraw: int, device="cpu"):
 def maxwell3_plain(u0, u1, u2, u3):
     """Three standard normals by Box-Muller from four uniforms: two from
     the first pair, one from the second pair's cosine branch
-    (pallas_rng.py _maxwell3)."""
+    (pallas_rng.py _maxwell3). The angles are float32 products as the
+    kernel forms them; the radius and the sines and cosines come from
+    float64 (``_bm_radius``)."""
     two_pi = _f32(_TWO_PI)
-    r0 = torch.sqrt(-2.0 * torch.log(u0))
-    t0 = two_pi * u1
-    r1 = torch.sqrt(-2.0 * torch.log(u2))
-    t1 = two_pi * u3
-    return r0 * torch.cos(t0), r0 * torch.sin(t0), r1 * torch.cos(t1)
+    r0, r1 = _bm_radius(u0), _bm_radius(u2)
+    c0, s0 = _bm_cos_sin(two_pi * u1)
+    c1 = _bm_cos_sin(two_pi * u3)[0]
+    return r0 * c0, r0 * s0, r1 * c1
 
 
 def reinject_apply(p, u, vy, vz, lost, sig, x_new, z, hit=None, sigth=None,

@@ -14,10 +14,14 @@ Ported so far, with the same defaults:
 * ``dirichlet_neumann_test`` — pygcpic.py:1968-2093 (unmagnetized D-N
   sheath fed by the capped wall-flux source)
 
+* ``domain_implicit`` — BASELINE configs[4]: the Landau workload
+  domain-decomposed over the slab mesh (``parallel.domain_implicit``)
+* ``domain_explicit`` — the explicit cycle on the same workload
+  (``parallel.domain``)
+
 ``PRESETS`` maps their names to the functions above and ``get`` makes
-one by name, as in the JAX package. ``bump_on_tail``, ``pic_bca_aps``,
-the domain presets and ``pic_iead_dd`` come with their options and
-engines.
+one by name, as in the JAX package. ``bump_on_tail``, ``pic_bca_aps``
+and ``pic_iead_dd`` come with their options and engines.
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -45,8 +49,13 @@ class Preset:
     config: Any
     state: Any
     meta: Dict[str, Any]
+    # engines whose make_step needs more than the config (the domain
+    # engines also take the slab mesh) provide a closure
+    step_builder: Any = None
 
     def make_step(self):
+        if self.step_builder is not None:
+            return self.step_builder()
         return self.engine.make_step(self.config)
 
 
@@ -235,6 +244,80 @@ def dirichlet_neumann_test(n: int = 50_000, ng: int = 800, seed: int = 1,
     return Preset("dirichlet_neumann_test", magnetized, cfg, st, {})
 
 
+def _domain_load(n, ng, seed, device, mesh):
+    """The canonical Landau workload of the domain presets and the slab
+    mesh (``make_mesh(device)`` unless given): (grid, x, v, params,
+    mesh, sigma_cells)."""
+    from .parallel import make_mesh
+
+    mesh = mesh if mesh is not None else make_mesh(device=device)
+    density, te, ti = 1e5, 100.0 * EV_TO_K, 0.1 * EV_TO_K
+    length = 22.0 * _debye(te, density)
+    grid = GridSpec(ng, length, "periodic")
+    x, v, params = initialize.initialize_periodic(
+        "landau-damping", n, density, 1, 0.8, grid, te, ti, seed=seed
+    )
+    sigma_cells = float(np.asarray(v).std()) * 1e-5 / grid.dx
+    return grid, x, v, params, mesh, sigma_cells
+
+
+def domain_implicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
+                    shards: int | None = None, device=None, mesh=None,
+                    **kw) -> Preset:
+    """BASELINE configs[4]: the Landau workload (pypic.py:846-855)
+    domain-decomposed over the slab mesh, as ``pypic_tpu.presets``
+    builds it: the halo covers an 8-sigma Maxwellian excursion a step,
+    migrate_cap = max(4096, 4 n / ng), extrapolated Picard init, tol 1e-9
+    and maxiter 50 unless ``kw`` says otherwise. ``shards`` defaults to
+    the mesh's world size (one slab a rank); ``mesh`` to
+    ``make_mesh(device)``. The state is this rank's."""
+    from .parallel import domain_implicit as di
+    from .parallel.domain import _ITEM18, _not_ported
+
+    if kw.get("migrate_every", 1) != 1:
+        raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
+    grid, x, v, params, mesh, sigma_cells = _domain_load(n, ng, seed,
+                                                         device, mesh)
+    n_dev = int(shards) if shards else mesh.world
+    cfg = di.DomainImplicitConfig(
+        grid, 1e-5, params.p2c, num_shards=n_dev,
+        tol=kw.get("tol", 1e-9), maxiter=kw.get("maxiter", 50),
+        halo=min(ng // n_dev - 3, max(4, int(np.ceil(8.0 * sigma_cells)))),
+        picard_init="extrapolate", migrate_cap=max(4096, 4 * (n // ng)),
+    )
+    st = di.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
+    return Preset("domain_implicit", di, cfg, st,
+                  dict(params=params, system="landau-damping", mesh=mesh),
+                  step_builder=lambda: di.make_step(cfg, mesh))
+
+
+def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
+                    shards: int | None = None, device=None, mesh=None,
+                    **kw) -> Preset:
+    """The explicit leapfrog cycle (PIC_L.py:762-768) domain-decomposed
+    over the slab mesh on ``domain_implicit``'s workload: halo 0 (the
+    per-step path), migrate_cap = max(4096, 4 n / ng), the replicated
+    solve. The superstep, the distributed solve and the carried rho raise
+    (items 17 and 18)."""
+    from .parallel import domain as dom
+    from .parallel.domain import _ITEM18, _not_ported
+
+    if kw.get("migrate_every", 1) != 1:
+        raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
+    grid, x, v, params, mesh, _ = _domain_load(n, ng, seed, device, mesh)
+    n_dev = int(shards) if shards else mesh.world
+    cfg = dom.DomainConfig(
+        grid, 1e-5, params.p2c, num_shards=n_dev, halo=0,
+        migrate_cap=max(4096, 4 * (n // ng)),
+        field_solve=kw.get("field_solve", "replicated"),
+        carried_rho=kw.get("carried_rho", "off"),
+    )
+    st = dom.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
+    return Preset("domain_explicit", dom, cfg, st,
+                  dict(params=params, system="landau-damping", mesh=mesh),
+                  step_builder=lambda: dom.make_step(cfg, mesh))
+
+
 PRESETS: Dict[str, Callable[..., Preset]] = {
     "landau_damping": landau_damping,
     "two_stream": two_stream,
@@ -243,6 +326,8 @@ PRESETS: Dict[str, Callable[..., Preset]] = {
     "pic_iead": pic_iead,
     "pic_iead_gc": pic_iead_gc,
     "dirichlet_neumann_test": dirichlet_neumann_test,
+    "domain_implicit": domain_implicit,
+    "domain_explicit": domain_explicit,
 }
 
 

@@ -1,5 +1,3 @@
-"""Fixed-shape row utilities (the counterpart of ``pypic_tpu/utils``).
-Ported so far: ``compact_rows``; ``pack_rows`` and ``place_rows`` come
-with the BCA coupling."""
+"""Fixed-shape row utilities (the counterpart of ``pypic_tpu/utils``)."""
 
-from .packing import compact_rows  # noqa: F401
+from .packing import compact_rows, pack_rows, place_rows  # noqa: F401

@@ -809,3 +809,143 @@ def test_magnetized_auto_above_1024_nodes_takes_thomas(cuda_device):
     assert cuda_cic.LAUNCHES["boltzmann_dirichlet"] == launches
     assert float(m.newton_residual) <= pre.config.newton_tol
     assert bool(torch.isfinite(m.phi).all())
+
+
+# --- the domain engines' kernels (ops/cuda_domain.py, csrc/domain.cu) ---
+# a middle rank's slab of tests/test_torch_domain_kernels.py: c = 32,
+# halo 4, ext_n = 45, positions past both clamp bounds, 10% dead slots
+EXT_C, EXT_HALO = 32, 4
+EXT_HW = EXT_HALO + 2
+EXT_N = EXT_C + 2 * EXT_HW + 1
+EXT_LO, EXT_HI = float(EXT_HW - EXT_HALO), float(EXT_C + EXT_HALO + EXT_HW)
+
+
+def _slab_inputs(dev, n=12_007, seed=3):
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(EXT_LO - 3, EXT_HI + 3, n).astype(np.float32)
+    ps = (p0 + rng.normal(size=n) * 0.3).astype(np.float32)
+    v0 = (rng.normal(size=n) * 1e5).astype(np.float32)
+    field = (rng.normal(size=EXT_N) * 30.0).astype(np.float32)
+    w = np.full(n, W, np.float32)
+    w[rng.random(n) < 0.1] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (field, ps, p0, v0, w)]
+
+
+def _slab_kw():
+    return dict(qm=float(np.float32(QM)), dt=DT, dx=DX, lo=EXT_LO, hi=EXT_HI)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("emit_v", [False, True])
+def test_picard_iteration_ext_kernel_matches_plain(cuda_device, emit_v, shared):
+    """Raw midpoints and v1 as the plain version's (the same float32
+    operations), jh within 1e-6 of a float64 sum of the plain terms, the
+    clamp count equal; a pass with active = 0 writes nothing."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    args = _slab_inputs(cuda_device)
+    kw = dict(emit_v=emit_v, shared=shared, **_slab_kw())
+    before = cuda_cic.LAUNCHES["picard_iteration_ext"]
+    got = cuda_domain.picard_iteration_ext(*args, **kw)
+    assert cuda_cic.LAUNCHES["picard_iteration_ext"] == before + 1
+    cpu = [a.cpu() for a in args]
+    ref = cuda_domain.picard_iteration_ext_plain(*cpu, **kw)
+    exact = cuda_domain.picard_iteration_ext_plain(
+        *cpu, acc_dtype=torch.float64, **kw)
+    _rel_close(ref[0], got[0], 1e-6)
+    if emit_v:
+        _rel_close(ref[1], got[1], 1e-6)
+    jh = 1 + emit_v
+    _rel_close(exact[jh], got[jh], 1e-6)
+    if shared:
+        assert int(got[-1]) == int(ref[-1])
+    buf = args[1].clone()
+    off = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    out = cuda_domain.picard_iteration_ext(
+        args[0], buf, *args[2:], out=(buf, got[1] if emit_v else None),
+        active=off, **kw)
+    assert torch.equal(buf, args[1]) and not out[jh].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deposit", [False, True])
+def test_picard_finalize_ext_kernels_match_plain(cuda_device, deposit):
+    """Global wrapped p1 and v1 as the plain version's, the statistics
+    within 1e-6 (count exact) and bit-equal from call to call (fixed-order
+    sums), j1 within 1e-6 of a float64 deposit."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    args = _slab_inputs(cuda_device)
+    kw = dict(lo_shift=float(EXT_C - EXT_HW), ng=128, **_slab_kw())
+    fn = (cuda_domain.picard_finalize_ext if deposit
+          else cuda_domain.picard_finalize_ext_nodep)
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    assert torch.equal(got[-1], again[-1])
+    cpu = [a.cpu() for a in args]
+    ref = cuda_domain.picard_finalize_ext_plain(*cpu, deposit=deposit, **kw)
+    _pos_close(ref[0], got[0].cpu(), 128, 1e-5)
+    _rel_close(ref[1], got[1], 1e-6)
+    st, st_ref = got[-1].cpu(), ref[-1]
+    assert torch.allclose(st[:2], st_ref[:2], rtol=1e-6, atol=0)
+    assert st[2] == st_ref[2] > 0
+    if deposit:
+        exact = cuda_domain.picard_finalize_ext_plain(
+            *cpu, deposit=True, acc_dtype=torch.float64, **kw)[2]
+        _rel_close(exact, got[2], 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [64, 200])
+def test_leapfrog_gather_push_kernel_matches_plain(cuda_device, ng):
+    from pypic_tpu_torch.ops import cuda_domain
+
+    e, _, p, v = _inputs(ng, cuda_device)
+    kw = dict(qm=float(np.float32(QM)), dt=DT, dx=DX)
+    before = cuda_cic.LAUNCHES["leapfrog_gather_push"]
+    got = cuda_domain.leapfrog_gather_push(e, p, v, **kw)
+    assert cuda_cic.LAUNCHES["leapfrog_gather_push"] == before + 1
+    ref = cuda_domain.leapfrog_gather_push_plain(e.cpu(), p.cpu(), v.cpu(), **kw)
+    _pos_close(ref[0], got[0].cpu(), ng, 1e-5)
+    _rel_close(ref[1], got[1], 1e-6)
+    # at and past both ends of [0, ng) the kernel's wrap, mod ng folded
+    # in, is the plain version's bit for bit
+    f32 = np.float32
+    edges = torch.tensor([0.0, ng, np.nextafter(f32(ng), f32(2 * ng)),
+                          np.nextafter(f32(ng), f32(0)), -1e-6, -1e-30, -ng,
+                          2 * ng - 1e-4, -0.5], dtype=torch.float32)
+    z = torch.zeros(ng)
+    ref = cuda_domain.leapfrog_gather_push_plain(z, edges, edges * 0, **kw)[0]
+    got = cuda_domain.leapfrog_gather_push(
+        z.to(cuda_device), edges.to(cuda_device), (edges * 0).to(cuda_device),
+        **kw)[0]
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["implicit", "explicit"])
+def test_domain_one_rank_card_matches_cpu(cuda_device, engine):
+    """configs[4]'s workload at n = 20,000 on a one-rank mesh, 3 steps on
+    the card (the fused kernels) and on the CPU (their plain versions):
+    the Picard counts equal, the energies within 1e-5."""
+    from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import domain as row
+
+    gpu, cpu = make_mesh(device=cuda_device), make_mesh(device="cpu")
+    if engine == "implicit":
+        cfg, st = row.implicit_row(gpu, n=20_000, backend="fused")
+        mod, keys = domain_implicit, ("e", "j", "e_prev", "e_prev2")
+    else:
+        cfg, st = row.explicit_row(gpu, n=20_000, push_backend="fused")
+        mod, keys = domain, ("rho",)
+    st_cpu = st.replace(**{k: getattr(st, k).cpu() for k in (
+        "p", "v", "alive", "q", "m", "step") + keys})
+    outs = [run(mod.make_step(cfg, mesh), s0, 3)[1]
+            for mesh, s0 in ((gpu, st), (cpu, st_cpu))]
+    g, c = outs
+    for k in ("field_energy", "kinetic_energy"):
+        _rel_close(getattr(c, k), getattr(g, k).cpu(), 1e-5)
+    if engine == "implicit":
+        assert torch.equal(g.picard_iters.cpu(), c.picard_iters)

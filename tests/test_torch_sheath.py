@@ -573,6 +573,7 @@ def test_preset_and_interop_round_trip():
     st = interop.sheath_state_from_numpy(d, "cpu")
     assert st.step_host == 0 and st.rng == (0, 2)
     assert sorted(presets.PRESETS) == ["dirichlet_neumann_test",
+                                       "domain_explicit", "domain_implicit",
                                        "explicit_landau", "landau_damping",
                                        "pic_iead", "pic_iead_gc", "sheath_dd",
                                        "two_stream"]
