@@ -154,6 +154,31 @@ Phases (any failure raises and the script exits non-zero):
    each, and the explicit carrier with the fused push, 2 + 5; each path
    with its launch counts set to 0 before it and read after it and its
    host syncs counted under torch.cuda.set_sync_debug_mode.
+28. carried kernels — the two kernels of bench.py --carried against their
+   plain versions: boris_gather_push_deposit at n = 999,996 (pad 2) and a
+   ragged 1,000,003 with a forced clamp (pad 0, 40x the velocities), ng =
+   600, mirrored gather and not, inactive rows and wall hits on both
+   sides: p1 and the velocities bit-equal, rho and n against float64 sums,
+   the clamp counts equal; explicit_domain_cycle at n = 6104 * 16384 on
+   one rank's slab and a ragged 10,000,003 with a middle rank's
+   lo_shifted, ext_n = 227, dead slots, rows past both ext edges: p1 and
+   v1 bit-equal, rho_ext against float64 sums, the clamp counts equal.
+   Each timed with its bound.
+29. carried check — pic_iead at n = 12,000 with the --carried row's
+   configuration: one step from the states after 0 and 10 steps, card
+   against CPU, the same source table, the carried rho and n and the
+   clamp counts too; the carried carrier's card-against-CPU check at one
+   and two ranks rode phase 26's spawns.
+30. carried slice — the configs[3] row with carried_deposit='on'
+   (tools/magnetized.py --carried): 1,200 steps at n = 999,996 under sync
+   debug mode 'error', exactly 1,200 launches each of
+   boris_gather_push_deposit, deposit2, boltzmann_dirichlet, source_batch
+   and deposit and no other, n_ion_suppressed and n_escape_deferred 0,
+   the clamps counted and printed; then the carried carrier
+   (tools/domain.py --explicit --carried) at n = 1e8 on one rank, 2 + 5
+   steps: one explicit_domain_cycle launch a step, 0 host syncs, nothing
+   clamped or dropped, its energy change against the plain version's on
+   the CPU. Each beside its row without the carry.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -284,6 +309,10 @@ BYTES_PER_PARTICLE = {
     "picard_finalize_ext": 24,
     # p, v read, p1, v1 written
     "leapfrog_gather_push": 16,
+    # boris_gather_push's 40 and the weights wr, wn read
+    "boris_gather_push_deposit": 48,
+    # p, v, w read, p1, v1 written
+    "explicit_domain_cycle": 20,
 }
 # float32 operations per particle and step, counted from the kernel bodies
 # (floor, rint, add, sub, mul and compare count one; each atomic add one).
@@ -336,6 +365,15 @@ OPS_PER_PARTICLE = {
     "picard_finalize_ext": 37,
     # the gather 6, kick 1, two adds and a product, the wrap 3
     "leapfrog_gather_push": 13,
+    # boris_gather_push's 55 and the carried deposit: the wall test 2, the
+    # window (floor, product, clamp 2) 4, d_h 3, the edge tests and clamp
+    # 4, the row's floor and weights 3, the nodes 2, four products and
+    # four atomics
+    "boris_gather_push_deposit": 85,
+    # leapfrog_gather_push's 13 and the deposit: the offset 1, the edge
+    # tests and clamp 4, the cell and weights 4, two products and two
+    # atomics
+    "explicit_domain_cycle": 26,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
 REPLACES = {
@@ -362,12 +400,18 @@ REPLACES = {
     "picard_finalize_ext": "pypic_tpu/ops/pallas_cic.py:1987",
     "picard_finalize_ext_nodep": "pypic_tpu/ops/pallas_cic.py:2019",
     "leapfrog_gather_push": "pypic_tpu/ops/pallas_cic.py:849",
+    "boris_gather_push_deposit": "pypic_tpu/ops/pallas_cic.py:536",
+    "explicit_domain_cycle": "pypic_tpu/ops/pallas_cic.py:959",
 }
 SOURCES_MAGNETIZED = {
     "deposit2": "pypic_tpu_torch/csrc/magnetized.cu",
     "boris_gather_push": "pypic_tpu_torch/csrc/magnetized.cu",
     "boltzmann_dirichlet": "pypic_tpu_torch/csrc/newton.cu",
     "source_batch": "pypic_tpu_torch/csrc/rng.cu",
+}
+SOURCES_CARRIED = {
+    "boris_gather_push_deposit": "pypic_tpu_torch/csrc/magnetized.cu",
+    "explicit_domain_cycle": "pypic_tpu_torch/csrc/domain.cu",
 }
 SOURCES_SHEATH = {
     "sheath_picard": "pypic_tpu_torch/csrc/sheath.cu",
@@ -480,6 +524,26 @@ DOM_ENERGY_BOUND = 1e-4
 # DOM_RISE_N over loads from DOM_RISE_SEEDS: 5% relative, a few times the
 # spread between those loads, which the phase prints
 DOM_RISE_N, DOM_RISE_SEEDS, TOL_DOM_RISE = 2_000_000, (1, 2, 3), 0.05
+
+# the carried slice (bench.py --carried): the configs[3] row with
+# carried_deposit='on' (tools/magnetized.py --carried) and the carried
+# carrier (tools/domain.py --explicit --carried). Row 9 runs at the
+# magnetized row's shape with its carried pad, and with pad 0 and 40x the
+# velocities to force clamps; row 12 on the carrier's extended slab of
+# one rank (c = 200, bench's carried halo 13 at the row: ext_n = 227) and
+# with a middle rank's offset (rank 1 of 4 slabs of 200 cells: the global
+# ng 800, lo = 200, lo_shifted = 187)
+CARRIED_PAD, CARRIED_HOT = 2, 40.0
+DOM_CARRIED_HALO = 13
+DOM_CARRIED_EXT_N = DOM_C + 2 * DOM_CARRIED_HALO + 1
+# carried check: one step from the carried states after these steps, card
+# against CPU, the same source table; the next step's rho and n at
+# TOL_MAG_STEP's rho limits, the clamp counts equal
+CARRIED_CHECK_AT = (0, 10)
+# the carried row's carry total against a fresh deposit of the final
+# particles (clamped tents stay in the grid): float32 sums of 1e6 terms in
+# other orders
+TOL_CARRY_TOTAL = 1e-5
 
 
 def bound(name: str, n: int, steps: int = 1,
@@ -1905,6 +1969,14 @@ def phase_magnetized_kernels(dev) -> dict:
     return records
 
 
+def _scaled_gap(ref, got, rtol: float, atol: float) -> float:
+    """max |got - ref| / (atol + rtol |ref|), an equal pair counting 0
+    where the bound is 0 (a node both sides leave empty)."""
+    d = (got - ref).abs()
+    q = torch.where(d == 0, 0.0, d / (atol + rtol * ref.abs()))
+    return float(q.max())
+
+
 def _mag_step_errors(c, g) -> dict:
     """One step on the CPU (c) and the card (g), each (state, metrics):
     the largest |g - c| / (atol + rtol |c|) of each quantity (<= 1 passes
@@ -1916,7 +1988,7 @@ def _mag_step_errors(c, g) -> dict:
     def worst(ref, got, key):
         rtol, atol = TOL_MAG_STEP[key]
         ref, got = ref.double(), got.double().cpu()
-        return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+        return _scaled_gap(ref, got, rtol, atol)
 
     return {"rho": worst(mc.rho, mg.rho, "rho"), "phi": worst(mc.phi, mg.phi, "phi"),
             "p": worst(sc.p[act], sg.p.cpu()[act], "p"),
@@ -2572,16 +2644,24 @@ def _one_step_pairs(label, pre_cpu, cfg_cpu, cfg_gpu, at, dev, draws):
         g = magnetized.make_step(cfg_gpu, **kw_g)(
             interop.magnetized_state_from_numpy(d, dev))
         errs = _mag_step_errors(c, g)
+        keys = ("n_hit_wall", "n_reactivated", "newton_iters", "n_active")
+        if cfg_cpu.carried_deposit == "on":
+            # the rho and n the step carries into the next
+            rtol, atol = TOL_MAG_STEP["rho"]
+            for k in ("rho", "n"):
+                errs[f"{k} carried"] = _scaled_gap(
+                    getattr(c[0], k).double(), getattr(g[0], k).double().cpu(),
+                    rtol, atol)
+            keys += ("carry_clamped",)
         counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
-                  for k in ("n_hit_wall", "n_reactivated", "newton_iters",
-                            "n_active")}
+                  for k in keys}
         log(f"[{label}] n = {pre_cpu.state.p.shape[0]}, step {i} -> {i + 1}, GPU vs "
             "CPU, |d| / (atol + rtol |ref|) (<= 1 passes): "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f"; counts (CPU, GPU) {counts}")
         bad = {k: v for k, v in errs.items() if not v <= 1.0}
-        for k in ("n_active", "n_reactivated"):
-            if counts[k][0] != counts[k][1]:
+        for k in ("n_active", "n_reactivated", "carry_clamped"):
+            if k in counts and counts[k][0] != counts[k][1]:
                 bad[k] = counts[k]
         if bad:
             problems.append(f"step {i}: {bad}")
@@ -2988,9 +3068,10 @@ def _rows_agree(label: str, ref: dict, got: dict, counts) -> list:
 
 
 def phase_domain_check(dev) -> dict:
-    """The domain engines at n = 20,000 from one CPU-made load: on a
-    one-rank mesh, card (the kernels) against CPU (their plain versions),
-    5 steps; then two ranks on the one card (gloo over CUDA tensors, each
+    """The domain engines at n = 20,000 from one CPU-made load (the
+    implicit engine, the explicit carrier and, for phase 29, the carried
+    carrier): on a one-rank mesh, card (the kernels) against CPU (their
+    plain versions), 5 steps; then two ranks on the one card (gloo over CUDA tensors, each
     message staged through the host and counted) against the same two
     ranks on the CPU, the same 5 steps: energies within 1e-5, counts
     equal, positions and velocities slot for slot. The two-rank run is the
@@ -3002,15 +3083,20 @@ def phase_domain_check(dev) -> dict:
     load = row.host_load(DOM_CHECK_N)
     steps = DOM_CHECK_STEPS
     problems, res = [], {}
+    # (label, engine, overrides, counts held equal, launches a rank); the
+    # carried carrier is phase 29's, riding these spawns
     engines = (
-        ("implicit", dict(backend="fused"),
+        ("implicit", "implicit", dict(backend="fused"),
          ("picard_iters", "n_migrated", "n_dropped", "n_halo_clamped", "n_alive"),
          {"picard_iteration_ext": 4 * steps, "picard_finalize_ext_nodep": steps,
           "deposit": 2}),
-        ("explicit", dict(push_backend="fused"),
+        ("explicit", "explicit", dict(push_backend="fused"),
          ("n_migrated", "n_dropped", "n_alive"),
-         {"leapfrog_gather_push": steps, "deposit": 1 + steps}))
-    jobs = [(engine, steps, over) for engine, over, _, _ in engines]
+         {"leapfrog_gather_push": steps, "deposit": 1 + steps}),
+        ("explicit carried", "explicit", dict(carried_rho="on"),
+         ("n_migrated", "n_dropped", "n_alive", "n_halo_clamped"),
+         {"explicit_domain_cycle": steps, "deposit": 1}))
+    jobs = [(engine, steps, over) for _, engine, over, _, _ in engines]
     for world in (1, 2):
         # one spawn a device and world size carries both engines
         t0 = time.perf_counter()
@@ -3019,8 +3105,8 @@ def phase_domain_check(dev) -> dict:
         seconds = time.perf_counter() - t0
         log(f"[domain check] {world} rank{'s' if world > 1 else ''}, both "
             f"engines on the card and on the CPU: {seconds:.1f} s")
-        for i, (engine, _, counts, want) in enumerate(engines):
-            label = f"{engine}, {world} rank{'s' if world > 1 else ''}"
+        for i, (name, _, _, counts, want) in enumerate(engines):
+            label = f"{name}, {world} rank{'s' if world > 1 else ''}"
             gpu = [rank[i] for rank in gpus]
             cpu = [rank[i] for rank in cpus]
             staged = [g["staged_bytes"] for g in gpu]
@@ -3045,11 +3131,86 @@ def phase_domain_check(dev) -> dict:
                     problems.append(f"{label} rank {r}: launches {g['launches']} != {want}")
             if world > 1 and not (migrated > 0 and min(staged) > 0):
                 problems.append(f"{label}: migrated {migrated}, staged {staged}")
+            if sum(gpu[0]["rows"]["n_halo_clamped"]):
+                problems.append(f"{label}: halo clamped "
+                                f"{gpu[0]['rows']['n_halo_clamped']}")
             # seconds: both engines' spawns of this world size
             res[label] = dict(seconds=seconds, staged_bytes=staged, migrated=migrated)
     if problems:
         raise AssertionError("domain check: " + "; ".join(problems))
     return res
+
+
+def _domain_path(phase: str, label: str, build, n: int, timed: int, want: dict,
+                 checks) -> dict:
+    """One path of a domain row at n particles on the card: ``build()`` ->
+    (cfg, state, step) with the launch counts set to 0 just before it,
+    then tools/domain.drive (WARMUP_STEPS + ``timed`` steps, host syncs
+    counted); fails unless the launches are ``want``, nothing is dropped,
+    the state is finite and in range, and every check of ``checks(res)``
+    (pairs (ok, message)) holds."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import domain as row
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_cic.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, st, step = build()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    res, st = row.drive(step, st, n, WARMUP_STEPS, timed)
+    launches = {k: c for k, c in cuda_cic.LAUNCHES.items() if c}
+    res.update(setup_s=setup, launches=launches, halo=cfg.halo,
+               capacity=int(st.p.shape[0]),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[{phase}] {label}: n = {n}, {timed} timed steps after "
+        f"init_state + {WARMUP_STEPS} warm-up: {res['ms_per_step']:.4f} "
+        f"ms/step, {res['pushes_per_s']:.4e} pushes/s, picard mean "
+        f"{res.get('picard_mean', float('nan')):.2f}, total energy change "
+        f"{res['total_energy_rel_change']:+.4e}, dropped {res['n_dropped']}, "
+        f"halo clamped {res['n_halo_clamped']}, host syncs a step "
+        f"{res['host_syncs_per_step']:.2f}, setup {setup:.2f} s, capacity "
+        f"{res['capacity']}, halo {cfg.halo}, peak memory "
+        f"{res['peak_mem_gib']:.2f} GiB")
+    log(f"[{phase}] {label}: launches {launches}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.p, st.v))
+    in_range = bool(((st.p >= 0) & (st.p <= NG)).all())
+    problems = [] if finite and in_range else [f"finite={finite} in_range={in_range}"]
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if res["n_dropped"] or res["n_alive_last"] != n:
+        problems.append(f"dropped {res['n_dropped']}, alive {res['n_alive_last']}")
+    problems += [msg for ok, msg in checks(res) if not ok]
+    if problems:
+        raise AssertionError(f"{phase}, {label}: " + "; ".join(problems))
+    del st
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cpu_rises(label: str, n: int, **overrides) -> list:
+    """The explicit carrier's total energy change over WARMUP_STEPS +
+    DOM_EXPLICIT steps on the CPU (its plain versions, a one-rank mesh)
+    at n particles, one a load of DOM_RISE_SEEDS."""
+    from pypic_tpu_torch.parallel import domain, make_mesh
+    from pypic_tpu_torch.tools import domain as row
+
+    t0 = time.perf_counter()
+    cpu_mesh = make_mesh(device="cpu")
+    rises = []
+    for seed in DOM_RISE_SEEDS:
+        cfg, st = row.explicit_row(cpu_mesh, n, seed=seed, **overrides)
+        rises.append(row.drive(domain.make_step(cfg, cpu_mesh), st, n,
+                               WARMUP_STEPS, DOM_EXPLICIT)[0][
+                                   "total_energy_rel_change"])
+    mean = sum(rises) / len(rises)
+    log(f"[{label}] the explicit carrier{' (' + str(overrides) + ')' if overrides else ''} "
+        f"on the CPU, n = {n}, {WARMUP_STEPS} + {DOM_EXPLICIT} steps, seeds "
+        f"{DOM_RISE_SEEDS}: total energy change {[f'{r:+.6e}' for r in rises]}, "
+        f"mean {mean:+.6e}, spread {(max(rises) - min(rises)) / abs(mean):.3e} "
+        f"relative ({time.perf_counter() - t0:.1f} s)")
+    return rises
 
 
 def phase_domain_slice(dev) -> dict:
@@ -3065,27 +3226,13 @@ def phase_domain_slice(dev) -> dict:
     it; the host syncs are counted under torch.cuda.set_sync_debug_mode."""
     import torch.distributed as dist
 
-    from pypic_tpu_torch.ops import cuda_cic
     from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh
     from pypic_tpu_torch.tools import domain as row
 
     # the carrier's rise on the CPU (composed, plain kernels), made before
     # the NCCL group so that a CPU mesh is a one-rank mesh of its own
-    t0 = time.perf_counter()
-    cpu_mesh = make_mesh(device="cpu")
-    cpu_rises = []
-    for seed in DOM_RISE_SEEDS:
-        cfg, st = row.explicit_row(cpu_mesh, DOM_RISE_N, seed=seed)
-        cpu_rises.append(row.drive(
-            domain.make_step(cfg, cpu_mesh), st, DOM_RISE_N, WARMUP_STEPS,
-            DOM_EXPLICIT)[0]["total_energy_rel_change"])
+    cpu_rises = _cpu_rises("domain slice", DOM_RISE_N)
     cpu_rise = sum(cpu_rises) / len(cpu_rises)
-    log(f"[domain slice] the explicit carrier on the CPU, n = {DOM_RISE_N}, "
-        f"{WARMUP_STEPS} + {DOM_EXPLICIT} steps, seeds {DOM_RISE_SEEDS}: total "
-        f"energy change {[f'{r:+.6e}' for r in cpu_rises]}, mean "
-        f"{cpu_rise:+.6e}, spread {(max(cpu_rises) - min(cpu_rises)) / abs(cpu_rise):.3e} "
-        f"relative ({time.perf_counter() - t0:.1f} s)")
-    del cfg, st
 
     row.process_group()
     mesh = make_mesh(device=dev)
@@ -3094,41 +3241,7 @@ def phase_domain_slice(dev) -> dict:
     n = row.N
 
     def path(label, build, timed, want, checks) -> dict:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_cic.reset_launch_counts()
-        t0 = time.perf_counter()
-        cfg, st, step = build()
-        torch.cuda.synchronize()
-        setup = time.perf_counter() - t0
-        res, st = row.drive(step, st, n, WARMUP_STEPS, timed)
-        launches = {k: c for k, c in cuda_cic.LAUNCHES.items() if c}
-        res.update(setup_s=setup, launches=launches, halo=cfg.halo,
-                   capacity=int(st.p.shape[0]),
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-        log(f"[domain slice] {label}: n = {n}, {timed} timed steps after "
-            f"init_state + {WARMUP_STEPS} warm-up: {res['ms_per_step']:.4f} "
-            f"ms/step, {res['pushes_per_s']:.4e} pushes/s, picard mean "
-            f"{res.get('picard_mean', float('nan')):.2f}, total energy change "
-            f"{res['total_energy_rel_change']:+.4e}, dropped {res['n_dropped']}, "
-            f"halo clamped {res['n_halo_clamped']}, host syncs a step "
-            f"{res['host_syncs_per_step']:.2f}, setup {setup:.2f} s, capacity "
-            f"{res['capacity']}, halo {cfg.halo}, peak memory "
-            f"{res['peak_mem_gib']:.2f} GiB")
-        log(f"[domain slice] {label}: launches {launches}")
-        finite = all(bool(torch.isfinite(t).all()) for t in (st.p, st.v))
-        in_range = bool(((st.p >= 0) & (st.p <= NG)).all())
-        problems = [] if finite and in_range else [f"finite={finite} in_range={in_range}"]
-        if launches != want:
-            problems.append(f"launches {launches} != {want}")
-        if res["n_dropped"] or res["n_alive_last"] != n:
-            problems.append(f"dropped {res['n_dropped']}, alive {res['n_alive_last']}")
-        problems += [msg for ok, msg in checks(res) if not ok]
-        if problems:
-            raise AssertionError(f"domain slice, {label}: " + "; ".join(problems))
-        del st
-        torch.cuda.empty_cache()
-        return res
+        return _domain_path("domain slice", label, build, n, timed, want, checks)
 
     def implicit_path(**over):
         def build():
@@ -3185,6 +3298,286 @@ def phase_domain_slice(dev) -> dict:
     return res
 
 
+def _carried_mag_inputs(n: int, gen: torch.Generator, dev, hot: float):
+    """_mag_inputs with the velocities scaled by ``hot``, every off-grid row
+    inactive, four active rows driven through the walls (two a side), and
+    the carried weights: wn a number density, wr its charge (Z e wn), 0 in
+    inactive rows."""
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, gen, dev)
+    vx, vy, vz = vx * hot, vy * hot, vz * hot
+    p[4:8] = torch.tensor([0.2, 0.5, NG_MAG - 1.2, NG_MAG - 1.5], device=dev)
+    vx[4:8] = torch.tensor([-3e5, -6e5, 3e5, 6e5], device=dev)
+    act[4:8] = 1.0
+    act = act * ((p >= 0) & (p <= NG_MAG - 1)).to(act.dtype)
+    wn = act * 1e17
+    wr = wn * const * (1.602e-19 / const.max())
+    return field, p, vx, vy, vz, const, act, wr, wn
+
+
+def _carrier_inputs(n: int, gen: torch.Generator, dev, ng: int, lo: float):
+    """A rank's particles of the carried carrier: positions on its slab
+    [lo, lo + 200), velocities of 2 cells a step (sigma), 5% dead slots
+    (w = 0, p = v = 0), four live rows driven 20-40 cells past both slab
+    edges (past the halo); the (ng,) global field."""
+    f32 = torch.float32
+    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * DOM_C + lo
+    v = torch.randn(n, generator=gen, device=dev, dtype=f32) * (2.0 * DX / DT)
+    w = torch.full((n,), W, dtype=f32, device=dev)
+    dead = torch.rand(n, generator=gen, device=dev) < 0.05
+    dead[:4] = False
+    w[dead] = 0.0
+    p[dead] = 0.0
+    v[dead] = 0.0
+    p[:4] = torch.tensor([lo, lo + 1e-3, lo + DOM_C - 1e-3, lo + DOM_C - 0.5],
+                         dtype=f32, device=dev)
+    v[:4] = torch.tensor([-20.0, -40.0, 20.0, 40.0], dtype=f32, device=dev) * (DX / DT)
+    # the kick qm dt / 2 E moves a particle ~0.5 cells at this field
+    field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 30.0
+    return field, p, v, w
+
+
+def phase_carried_kernels(dev) -> dict:
+    """The two carried kernels against their plain versions on the card:
+    boris_gather_push_deposit at the ragged n with a forced clamp (pad 0,
+    40x the velocities) and at the configs[3] row's n and pad 2, mirrored
+    gather and not, with inactive rows and wall hits on both sides (p1 and
+    the velocities bit-equal, rho and n against float64 sums, the clamp
+    counts equal, the wall hits deposit nothing); explicit_domain_cycle
+    at the ragged n with a middle rank's offset and at the headline n on
+    one rank's slab, ext_n = 227, with dead slots and rows past both ext
+    edges (p1 and v1 bit-equal, rho_ext against float64 sums, the clamp
+    counts equal, charge kept). Timed with their bounds: row 9 from the
+    profiler (it is shorter than its wrapper), row 12 with CUDA events."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    fast = dict(reps=3, calls=3)
+    records = {}
+    bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6)
+    for n, pad, hot in ((N_MAG_RAGGED, 0, CARRIED_HOT), (N_MAG, CARRIED_PAD, 1.0)):
+        args = _carried_mag_inputs(n, gen, dev, hot)
+        worst = 0.0
+        for swap in (False, True):
+            kw = dict(bkw, pad=pad, swap_weights=swap)
+            label = (f"boris_gather_push_deposit(n={n}, pad={pad}, "
+                     f"{'mirrored' if swap else 'cic'})")
+            got = K.boris_gather_push_deposit(*args, **kw)
+            ref = K.boris_gather_push_deposit_plain(*args, **kw)
+            exact = K.boris_gather_push_deposit_plain(*args, acc_dtype=torch.float64,
+                                                      **kw)
+            torch.cuda.synchronize()
+            for name, r, g in zip(("p1", "vx1", "vy1", "vz1"), ref, got):
+                if not torch.equal(r, g):
+                    raise AssertionError(f"{label}: {name} differs from the plain "
+                                         f"version's by {float((r - g).abs().max())}")
+            errs = {}
+            for i, name in ((4, "rho"), (5, "n")):
+                a, r = rel_err(exact[i], got[i])
+                errs[name] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+                # with pad 0 the clamped tents pile onto the window edges,
+                # far past deposit_tol's ~2n/ng terms a node: the float32
+                # plain sum is then no reference (printed, not held)
+                a, r = rel_err(ref[i], got[i])
+                errs[f"{name}_plain"] = dict(
+                    abs=a, err=r, kind="rel" if pad else "rel, not held",
+                    tol=deposit_tol(n, NG_MAG) if pad else math.inf)
+            gap = float(abs(int(got[6]) - int(ref[6])))
+            errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+                f"count gap ({int(got[6])} clamped of {n})"), tol=0.0)
+            live = args[6] > 0
+            left = int((live & (got[0] < 0)).sum())
+            right = int((live & (got[0] > NG_MAG - 1)).sum())
+            stay = (got[0] >= 0) & (got[0] <= NG_MAG - 1)
+            a, r = rel_err(args[8][stay].double().sum().reshape(1),
+                           exact[5].sum().reshape(1))
+            errs["n total"] = dict(abs=a, err=r, kind=(
+                f"rel to the weights staying on the grid ({left} + {right} "
+                "wall hits deposit nothing)"), tol=1e-6)
+            worst = max(worst, _check(errs, label))
+            if not (left > 0 and right > 0):
+                raise AssertionError(f"{label}: wall hits {left}, {right}")
+            if pad == 0 and not int(got[6]) > 0:
+                raise AssertionError(f"{label}: no clamp counted")
+            del got, ref, exact
+        log(f"[carried kernels]   boris_gather_push_deposit at n = {n}: p1 and the "
+            "velocities bit-equal to the plain version's")
+        kw = dict(bkw, pad=CARRIED_PAD, swap_weights=True)
+        records["boris_gather_push_deposit"] = _rec(
+            worst, device_ms(lambda: K.boris_gather_push_deposit(*args, **kw)),
+            cuda_ms(lambda: K.boris_gather_push_deposit_plain(*args, **kw), **fast),
+            "boris_gather_push_deposit", n)
+        del args
+        torch.cuda.empty_cache()
+
+    qm = float(torch.tensor(QM, dtype=torch.float32))
+    ext_n = DOM_CARRIED_EXT_N
+    for n, ng, lo in ((N_RAGGED, 4 * DOM_C, float(DOM_C)), (N_HEADLINE, DOM_C, 0.0)):
+        field, p, v, w = _carrier_inputs(n, gen, dev, ng, lo)
+        kw = dict(qm=qm, dt=DT, dx=DX, lo_shifted=lo - DOM_CARRIED_HALO, ext_n=ext_n)
+        label = f"explicit_domain_cycle(n={n}, ng={ng}, lo_shifted={kw['lo_shifted']})"
+        got = KD.explicit_domain_cycle(field, p, v, w, **kw)
+        ref = KD.explicit_domain_cycle_plain(field, p, v, w, **kw)
+        torch.cuda.synchronize()
+        for name, r, g in zip(("p1", "v1"), ref, got):
+            if not torch.equal(r, g):
+                raise AssertionError(f"{label}: {name} differs from the plain "
+                                     f"version's by {float((r - g).abs().max())}")
+        ref_rho, ref_n = ref[2:]
+        del ref
+        exact = KD.explicit_domain_cycle_plain(field, p, v, w, acc_dtype=torch.float64,
+                                               **kw)
+        a, r = rel_err(exact[2], got[2])
+        errs = {"rho_ext": dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)}
+        a, r = rel_err(ref_rho, got[2])
+        errs["rho_ext_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ext_n))
+        gap = float(abs(int(got[3]) - int(ref_n)))
+        errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+            f"count gap ({int(got[3])} clamped of {n})"), tol=0.0)
+        a, r = rel_err(w.double().sum().reshape(1), exact[2].sum().reshape(1))
+        errs["charge"] = dict(abs=a, err=r, kind="rel to sum w (dead slots 0)", tol=1e-6)
+        err = _check(errs, label)
+        if not int(got[3]) >= 4:
+            raise AssertionError(f"{label}: {int(got[3])} clamps, the 4 driven rows at least")
+        log(f"[carried kernels]   {label}: p1 and v1 bit-equal to the plain version's")
+        del got, exact, ref_rho
+        records["explicit_domain_cycle"] = _rec(
+            err, cuda_ms(lambda: KD.explicit_domain_cycle(field, p, v, w, **kw)),
+            cuda_ms(lambda: KD.explicit_domain_cycle_plain(field, p, v, w, **kw), **fast),
+            "explicit_domain_cycle", n)
+        del field, p, v, w
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        rec["library_ms"] = None
+    return records
+
+
+def phase_carried_check(dev, domain_check: dict) -> dict:
+    """pic_iead at n = 12,000 with the --carried row's configuration, the
+    carry primed: one step from the states after 0 and 10 steps on the card
+    (the carried kernel) and on the CPU (its plain version), the same
+    source table (made on the CPU) on both sides: phase 14's limits, the
+    rho and n carried into the next step, the clamp counts equal. The
+    carried carrier's half (n = 20,000, one rank and two gloo ranks on the
+    card against the CPU) rode phase 26's spawns; its result is repeated
+    here."""
+    import dataclasses
+
+    from pypic_tpu_torch import presets, sources
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.tools import magnetized as row
+
+    pre = presets.pic_iead(n_per_species=MAG_CHECK_PER_SPECIES, device="cpu")
+    cfg_gpu = dataclasses.replace(pre.config, **row.CARRIED)
+    cfg_cpu = dataclasses.replace(cfg_gpu, newton_backend="pallas")
+    pre = dataclasses.replace(pre, state=magnetized.prime_carry(pre.state, cfg_cpu))
+    src = cfg_cpu.source
+
+    def hooks(state):
+        return {"source_draws": lambda step, n: sources.sample_source_batch(
+            state.rng, step, n, cfg_cpu.grid, src.ti, src.mass, vx=src.vx,
+            device="cpu")}
+
+    problems, _ = _one_step_pairs("carried check", pre, cfg_cpu, cfg_gpu,
+                                  CARRIED_CHECK_AT, dev, _replayed(hooks))
+    carrier = {k: v for k, v in domain_check.items() if k.startswith("explicit carried")}
+    log(f"[carried check] the carried carrier, card against CPU (phase 26): {carrier}")
+    if len(carrier) != 2:
+        problems.append(f"the carried carrier's checks: {sorted(carrier)}")
+    if problems:
+        raise AssertionError("carried check: " + "; ".join(problems))
+    return dict(carrier=carrier)
+
+
+def phase_carried_slice(dev, mag_slice: dict, dom_slice: dict) -> dict:
+    """bench.py --carried on the card. The configs[3] row with
+    carried_deposit='on' (tools/magnetized.py --carried, the carry primed
+    at set-up): 1,200 steps at n = 999,996 under sync debug mode 'error',
+    exactly 1,200 launches each of boris_gather_push_deposit, deposit2
+    (the re-activation patch), boltzmann_dirichlet, source_batch and
+    deposit (the IEAD) and no other; the row's physics checks (the
+    population invariant among them); n_ion_suppressed and
+    n_escape_deferred 0; carry_clamped summed and printed, and the carried
+    totals equal to a fresh deposit's (a clamped tent stays in the grid).
+    Then the carried carrier (tools/domain.py --explicit --carried) at
+    n = 1e8 on one rank, 2 + 5 steps: one explicit_domain_cycle launch a
+    step (one deposit, the prime, at set-up), 0 host syncs, nothing
+    clamped or dropped, its energy change within TOL_DOM_RISE of the plain
+    version's mean on the CPU at DOM_RISE_N. Each beside phase 15's and
+    phase 27's time of the same row without the carry."""
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.parallel import domain, make_mesh
+    from pypic_tpu_torch.tools import domain as drow
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, cfg, fin, m = row.run_row(dev, **row.CARRIED)
+    steps = row.STEPS
+    launches = dict(cuda_cic.LAUNCHES)
+    res["launches"] = launches
+    want = {k: 0 for k in cuda_cic.LAUNCHES}
+    want.update(boris_gather_push_deposit=steps, deposit2=steps,
+                boltzmann_dirichlet=steps, source_batch=steps, deposit=steps)
+    sums = res["carried"]
+    fresh = magnetized.prime_carry(fin, cfg)
+    totals = {k: abs(float(getattr(fin, k).double().sum() - getattr(fresh, k).double().sum()))
+              / abs(float(getattr(fresh, k).double().sum())) for k in ("rho", "n")}
+    res["carry_total_rel"] = totals
+    res["clamped_per_particle_step"] = sums["carry_clamped"] / (res["n"] * steps)
+    log(f"[carried slice] configs[3] --carried: n = {res['n']}, {steps} steps under "
+        f"sync debug mode 'error': {res['us_per_step']:.3f} us/step (phase 15, no "
+        f"carry: {mag_slice['us_per_step']:.3f}), {res['pushes_per_s']:.4e} pushes/s, "
+        f"Newton mean {res['newton_mean']:.3f}, phi_max / phi_f "
+        f"{res['phi_max_over_phi_f']:.4f}; sums over the steps {sums} "
+        f"({res['clamped_per_particle_step']:.3e} clamps a particle and step); "
+        f"carried totals against a fresh deposit {totals}")
+    log(f"[carried slice] configs[3] --carried: launches {launches}")
+    problems = row.check_row(cfg, fin, m)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    for k in ("n_ion_suppressed", "n_escape_deferred"):
+        if sums[k]:
+            problems.append(f"{k} {sums[k]}")
+    for k, rel in totals.items():
+        if not rel <= TOL_CARRY_TOTAL:
+            problems.append(f"carried {k} total off a fresh deposit's by {rel:.3e}")
+    if problems:
+        raise AssertionError("carried slice, configs[3] --carried: " + "; ".join(problems))
+    del fin, fresh, m
+    torch.cuda.empty_cache()
+
+    cpu_rises = _cpu_rises("carried slice", DOM_RISE_N, carried_rho="on")
+    cpu_rise = sum(cpu_rises) / len(cpu_rises)
+    # phase 27 closed its one-rank NCCL group: this mesh is one rank
+    # without a group, whose collectives are the identity as the one-rank
+    # group's are
+    mesh = make_mesh(device=dev)
+    n = drow.N
+
+    def build():
+        cfg, st = drow.explicit_row(mesh, n, carried_rho="on")
+        return cfg, st, domain.make_step(cfg, mesh)
+
+    se = WARMUP_STEPS + DOM_EXPLICIT
+    carrier = _domain_path(
+        "carried slice", "the carried carrier (--explicit --carried)", build, n,
+        DOM_EXPLICIT, {"explicit_domain_cycle": se, "deposit": 1},
+        lambda r: [(r["host_syncs_per_step"] == 0.0,
+                    f"host syncs a step {r['host_syncs_per_step']}"),
+                   (r["n_halo_clamped"] == 0, f"halo clamped {r['n_halo_clamped']}"),
+                   (r["halo"] == DOM_CARRIED_HALO, f"halo {r['halo']}"),
+                   (abs(r["total_energy_rel_change"] - cpu_rise)
+                    <= TOL_DOM_RISE * abs(cpu_rise),
+                    f"total energy change {r['total_energy_rel_change']} "
+                    f"against a mean {cpu_rise} on the CPU")])
+    carrier["cpu_total_energy_rel_change"] = cpu_rises
+    log(f"[carried slice] the carried carrier: {carrier['ms_per_step']:.4f} ms/step "
+        f"(phase 27, no carry: {dom_slice['explicit']['ms_per_step']:.4f}); energy "
+        f"change card {carrier['total_energy_rel_change']:+.6e} at n = {n}, CPU "
+        f"mean {cpu_rise:+.6e} at n = {DOM_RISE_N} (tol {TOL_DOM_RISE} relative)")
+    return dict(magnetized=res, carrier=carrier)
+
+
 def main() -> int:
     walls = {}
 
@@ -3227,6 +3620,9 @@ def main() -> int:
     dk = phase("domain kernels", phase_domain_kernels, dev)
     dc = phase("domain check", phase_domain_check, dev)
     ds = phase("domain slice", phase_domain_slice, dev)
+    ck = phase("carried kernels", phase_carried_kernels, dev)
+    cc = phase("carried check", phase_carried_check, dev, dc)
+    cs = phase("carried slice", phase_carried_slice, dev, ms, ds)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -3253,8 +3649,12 @@ def main() -> int:
         ds["converged_deposit"]["launches"]["picard_finalize_ext"])
     launches["leapfrog_gather_push"] = (
         ds["explicit"]["launches"]["leapfrog_gather_push"])
+    launches["boris_gather_push_deposit"] = (
+        cs["magnetized"]["launches"]["boris_gather_push_deposit"])
+    launches["explicit_domain_cycle"] = (
+        cs["carrier"]["launches"]["explicit_domain_cycle"])
     helper = dnk.pop("philox_uniforms")
-    records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk}
+    records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk, **ck}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
@@ -3262,7 +3662,7 @@ def main() -> int:
                    implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
                    boltzmann_dn="pypic_tpu_torch/csrc/newton.cu",
                    **{kname: "pypic_tpu_torch/csrc/domain.cu" for kname in dk},
-                   **SOURCES_MAGNETIZED, **SOURCES_SHEATH)
+                   **SOURCES_MAGNETIZED, **SOURCES_SHEATH, **SOURCES_CARRIED)
     log(f"[wall] total {sum(walls.values()):.1f} s")
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname],
@@ -3341,6 +3741,21 @@ def main() -> int:
                 "card": ds["explicit"]["total_energy_rel_change"],
                 "cpu": ds["explicit"]["cpu_total_energy_rel_change"]},
             "check": dc},
+        "carried_slice": {
+            "magnetized": {
+                **{key: cs["magnetized"][key] for key in (
+                    "n", "steps", "us_per_step", "pushes_per_s", "newton_mean",
+                    "phi_max_over_phi_f", "carried", "clamped_per_particle_step",
+                    "carry_total_rel")},
+                "no_carry_us_per_step": ms["us_per_step"]},
+            "carrier": {
+                **{key: cs["carrier"][key] for key in (
+                    "n", "steps", "ms_per_step", "pushes_per_s",
+                    "total_energy_rel_change", "cpu_total_energy_rel_change",
+                    "n_dropped", "n_halo_clamped", "host_syncs_per_step", "halo",
+                    "capacity", "peak_mem_gib")},
+                "no_carry_ms_per_step": ds["explicit"]["ms_per_step"]},
+            "check": cc},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

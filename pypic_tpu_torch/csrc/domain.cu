@@ -1,6 +1,6 @@
 // Particle kernels of the domain-decomposed engines, for Hopper (sm_90a).
 //
-// Four kernels, each the counterpart of a Pallas TPU kernel in
+// Five kernels, each the counterpart of a Pallas TPU kernel in
 // pypic_tpu/ops/pallas_cic.py:
 //
 // * picard_iteration_ext<EMIT_V, SHARED> — _picard_iter_ext_kernel and
@@ -14,6 +14,9 @@
 // * leapfrog_gather_push — _leapfrog_kernel (leapfrog_gather_push_pallas):
 //   periodic gather from the replicated global field, kick-drift-kick,
 //   wrap.
+// * explicit_domain_cycle — _domain_cycle_kernel
+//   (explicit_domain_cycle_pallas): the same sweep, plus the deposit of
+//   the new positions onto the halo-extended slab (carried_rho='on').
 //
 // The slab forms differ from the periodic ones of cic.cu:
 // * the field is a BOUNDED extended slab of ext_n = c + 2 hw + 1 nodes
@@ -277,6 +280,84 @@ __global__ void leapfrog_push_kernel(const float* __restrict__ field,
   }
 }
 
+// ---------------------------------------------------------------------------
+// explicit_domain_cycle
+//
+// Replaces _domain_cycle_kernel (explicit_domain_cycle_pallas,
+// pallas_cic.py:896), the carried-rho explicit domain cycle as one sweep:
+// leapfrog_push_kernel's gather of the replicated global (ng,) field at p,
+// kick-drift-kick and wrap, plus the deposit of w at the RAW new position
+// p1 onto the (ext_n,) extended slab of this rank, at ploc = p1 -
+// lo_shifted (lo_shifted = lo - halo, a per-rank float32 argument). A
+// ploc outside [0, ext_n - 1] clamps to that edge and, where w != 0, is
+// counted. The TPU kernel's second window system over the slab tents the
+// same two nodes with the same weights as CIC at ploc (its fold drops
+// the zero-weight node past the last), so the bounded CIC of
+// cic_common.cuh takes its place. Dead slots carry w = 0: they deposit
+// nothing and count no clamp, but their p1 and v1 are written as any
+// row's (the step zeroes them).
+//
+// The stored p1 is the wrapped one with the step's mod ng folded in, as
+// leapfrog_push_kernel stores it.
+//
+// Bound on the H100: device-memory bytes, 12 B read (p, v, w) and 8 B
+// written (p1, v1) a particle. The field and the slab histogram live in
+// shared memory (ng + ext_n floats); each block flushes its histogram
+// with one global atomic a node and adds its clamp count with one integer
+// atomic, so the count is exact.
+// ---------------------------------------------------------------------------
+__global__ void domain_cycle_kernel(const float* __restrict__ field,
+                                    const float* __restrict__ p,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ w,
+                                    float* __restrict__ p1_out,
+                                    float* __restrict__ v1_out,
+                                    float* __restrict__ rho_ext,
+                                    int* __restrict__ n_clamped, long long n,
+                                    int ng, int ext_n, float qmh, float dt_dx,
+                                    float lo_shifted, float inv_ng) {
+  extern __shared__ float smem[];
+  float* s_field = smem;
+  float* s_hist = smem + ng;
+  __shared__ int s_clamped;
+  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) s_hist[i] = 0.0f;
+  if (threadIdx.x == 0) s_clamped = 0;
+  __syncthreads();
+  const float ngf = (float)ng;
+  const float top = (float)(ext_n - 1);
+  int clamped = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float a = p[i];
+    const float kick = __fmul_rn(qmh, gather(s_field, cic_periodic(a, ng)));
+    const float vh = __fadd_rn(v[i], kick);
+    const float raw = __fadd_rn(a, __fmul_rn(vh, dt_dx));
+    float p1 = wrap(raw, ngf, inv_ng);
+    if (p1 >= ngf)
+      p1 = __fsub_rn(p1, ngf);
+    else if (p1 < 0.0f)
+      p1 = __fadd_rn(p1, ngf);
+    p1_out[i] = p1;
+    v1_out[i] = __fadd_rn(vh, kick);
+    const float wi = w[i];
+    if (wi == 0.0f) continue;
+    float ploc = __fsub_rn(raw, lo_shifted);
+    if (ploc < 0.0f || ploc > top) {
+      ++clamped;
+      ploc = fminf(fmaxf(ploc, 0.0f), top);
+    }
+    const Cic c = cic_bounded(ploc, ext_n);
+    atomicAdd(&s_hist[c.l], __fmul_rn(wi, c.wl));
+    atomicAdd(&s_hist[c.r], __fmul_rn(wi, c.wr));
+  }
+  if (clamped) atomicAdd(&s_clamped, clamped);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&rho_ext[i], s_hist[i]);
+  if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
+}
+
 template <bool EMIT_V, bool SHARED>
 cudaError_t launch_iteration_ext(int blocks, int threads, cudaStream_t s,
                                  const float* field, const float* ps,
@@ -375,6 +456,22 @@ int pypic_leapfrog_push(const float* field, const float* p, const float* v,
   if (err != cudaSuccess) return (int)err;
   leapfrog_push_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       field, p, v, p1, v1, n, ng, qmh, dt_dx, inv_ng);
+  return (int)cudaGetLastError();
+}
+
+// rho_ext: ext_n zeroed floats; n_clamped: one zeroed int.
+int pypic_explicit_domain_cycle(const float* field, const float* p,
+                                const float* v, const float* w, float* p1,
+                                float* v1, float* rho_ext, int* n_clamped,
+                                long long n, int ng, int ext_n, float qmh,
+                                float dt_dx, float lo_shifted, float inv_ng,
+                                int blocks, int threads, void* stream) {
+  const size_t smem = (size_t)(ng + ext_n) * sizeof(float);
+  cudaError_t err = allow_smem(domain_cycle_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  domain_cycle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      field, p, v, w, p1, v1, rho_ext, n_clamped, n, ng, ext_n, qmh, dt_dx,
+      lo_shifted, inv_ng);
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,16 @@ Backends, as the JAX engine's, with CUDA in the place of the TPU:
   pusher): one ``deposit2`` sweep for rho and n and one
   ``boris_gather_push`` sweep;
 * composed (and always under ``pusher='gc'``): two ``deposit`` launches,
-  the ``gather`` kernel and the tensor-op pushers.
+  the ``gather`` kernel and the tensor-op pushers;
+* carried (``carried_deposit='on'``, whatever ``backend`` says, as the JAX
+  engine's branch order has it): the step opens from the rho and n the
+  state carries, and the push is the ``boris_gather_push_deposit`` sweep,
+  which deposits the next step's rho and n at the new positions; the
+  re-activated rows are patched in with one ``deposit2`` launch over the
+  ``react_batch`` table. ``prime_carry`` (and ``init_state``) seed the
+  carry from the particles. The carry is exact while ``carry_clamped``
+  stays 0: a clamped tent lands in the grid at the gather window's edge
+  and is counted.
 
 The Newton solve is a one-launch kernel of ``ops.cuda_newton``
 (``boltzmann_dirichlet``, or ``boltzmann_dn`` on a D-N grid) for
@@ -48,7 +57,10 @@ nodes on the card raises (the large-grid kernel is ROADMAP item 10).
 The re-activation draws come from the Philox kernels, keyed by the
 state's two key words and the host step: ``ops.cuda_rng.source_batch``
 (``sources.sample_source_batch``) at counter (slot, step, 0, 0) for the
-source, ``ops.cuda_rng.philox_uniforms`` with ``FLUX_TAG``
+source (with ``react_batch`` > 0, a table of that many draws: the slot
+of re-activation rank j takes row j, counter (j, step, 0, 0), and at
+most ``react_batch`` slots re-activate a step),
+``ops.cuda_rng.philox_uniforms`` with ``FLUX_TAG``
 (``sources.sample_flux_batch``) for the flux, and with ``GYRO_TAG`` for
 the gyro-phases; 'auto' and 'pallas' take them ('pallas' with 'flux'
 raises, as in the JAX config). With the default backends a step on the
@@ -61,10 +73,10 @@ host in the state, so nothing is read back from the card.
 
 Options that need modules or kernels not ported yet (ionization,
 'capped-source', the impact buffer and the BCA escape, the 'hash' and
-'threefry' samplers, data-parallel sharding, react_batch, carried
-deposits, deposit_method) raise ``NotImplementedError`` from
-``init_state`` and ``make_step``, naming the ROADMAP item that brings
-them.
+'threefry' samplers, data-parallel sharding, deposit_method) raise
+``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
+ROADMAP item that brings them; so do the carried deposit's ionization and
+escape patches, with their options.
 """
 
 from __future__ import annotations
@@ -242,8 +254,10 @@ class MagnetizedState:
     mode: torch.Tensor  # (n,) int32 {0: 6D, 1: guiding-center}
     phi: torch.Tensor  # (ng,) potential [V]
     phi_prev: torch.Tensor  # (ng,) previous-step potential
-    rho: torch.Tensor  # (ng,) carried deposit (carried_deposit='on' only)
-    n: torch.Tensor  # (ng,)
+    # (ng,) carried rho and number density that open the next step
+    # (carried_deposit='on' only; zeros otherwise)
+    rho: torch.Tensor
+    n: torch.Tensor
     n0: torch.Tensor  # () Boltzmann electron reference density
     p_old: torch.Tensor  # () previous trapz(exp(phi/Te)) (pygcpic.py:891)
     added: torch.Tensor  # () particle-creation ledger (pygcpic.py:1111-1117)
@@ -291,6 +305,8 @@ class StepMetrics(NamedTuple):
     impacts: torch.Tensor
     n_impacts: torch.Tensor
     n_escaped: torch.Tensor
+    # carried deposits clamped at the gather window's edge
+    # (carried_deposit='on'; the carry is exact while it stays 0)
     carry_clamped: torch.Tensor
     n_ion_suppressed: torch.Tensor
     n_escape_deferred: torch.Tensor
@@ -310,8 +326,6 @@ def _check_ported(cfg: MagnetizedConfig) -> None:
         "ionization=True": (cfg.ionization, _ITEM_NEXT),
         f"reactivate={cfg.reactivate!r}": (
             cfg.reactivate == "capped-source", _ITEM_NEXT),
-        "react_batch > 0": (cfg.react_batch > 0, _ITEM_GATED),
-        "carried_deposit='on'": (cfg.carried_deposit == "on", _ITEM_GATED),
         "impact_buffer_size > 0": (cfg.impact_buffer_size > 0, _ITEM_NEXT),
         "bca_escape=True": (cfg.bca_escape, _ITEM_NEXT),
         "axis_name": (cfg.axis_name is not None, _ITEM_PARALLEL),
@@ -429,7 +443,25 @@ def init_state(x, v3, m, charge_state, p2c, species_idx,
             **{k: torch.where(is_gc, g, getattr(state, k))
                for k, g in zip(("p", "y", "z", "vx", "vy", "vz"), packed)},
             mode=is_gc.to(torch.int32))
+    if cfg.carried_deposit == "on":
+        state = prime_carry(state, cfg)
     return state
+
+
+def prime_carry(state: MagnetizedState,
+                cfg: MagnetizedConfig) -> MagnetizedState:
+    """(Re)compute the carried rho and n from the state's particles (the
+    JAX engine's prime_carry): the entry point of carried_deposit='on' at
+    initialization and on resuming from a saved state; the step keeps
+    them current afterwards. Two ``deposit`` launches on the card."""
+    dx, ng = cfg.grid.dx, cfg.grid.ng
+    is_active = state.active == 1
+    w_rho = torch.where(
+        is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
+    w_n = torch.where(is_active, state.p2c / dx, 0.0)
+    return state.replace(
+        rho=deposit(state.p, w_rho, ng, periodic=False).to(state.phi.dtype),
+        n=deposit(state.p, w_n, ng, periodic=False).to(state.phi.dtype))
 
 
 def boltzmann_n0_update(step: int, n0_prev, p_old, added, q_new, p_new, *,
@@ -497,6 +529,8 @@ def make_step(cfg: MagnetizedConfig,
     swap = cfg.gather_weights == "reference"
     dirichlet_neumann = grid.bc == DIRICHLET_NEUMANN
     gc = cfg.pusher == "gc"
+    # the JAX engine's 'auto' stays off (magnetized.py:783-785)
+    carried = cfg.carried_deposit == "on"
     # the reference's eta = exp(phi / Te / 11600) with Te in Kelvin
     # (pygcpic.py:890; see the JAX config's eta_in_volts)
     te_volts = (cfg.te / EV_TO_K) if cfg.eta_in_volts else (cfg.te * EV_TO_K)
@@ -608,7 +642,12 @@ def make_step(cfg: MagnetizedConfig,
         w_rho = torch.where(
             is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
         w_n = torch.where(is_active, state.p2c / dx, 0.0)
-        if fused:
+        carry_clamped = zero["i"]
+        if carried:
+            # last step's push kernel and patches (or the prime) deposited
+            # these from the same positions
+            rho, n_dens = state.rho, state.n
+        elif fused:
             rho, n_dens = cuda_cic.deposit2(state.p, w_rho, w_n, ng,
                                             periodic=False)
         else:
@@ -639,6 +678,19 @@ def make_step(cfg: MagnetizedConfig,
         if gc:
             p1, y1, z1, vx1, vy1, vz1 = _push_gc(state, is_active, is_gc,
                                                  e_field)
+        elif carried:
+            # the push and the next step's deposit in one sweep (this
+            # step's wall hits deposit nothing; re-activations are patched
+            # in below)
+            const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
+            act_f = is_active.to(state.p.dtype)
+            (p1, vx1, vy1, vz1, rho_carry, n_carry,
+             carry_clamped) = cuda_cic.boris_gather_push_deposit(
+                e_field, state.p, state.vx, state.vy, state.vz, const, act_f,
+                w_rho, w_n, b=cfg.b, dt_dx=dt / dx, pad=cfg.carried_pad,
+                swap_weights=swap)
+            y1 = torch.where(is_active, state.y + dt * vy1, state.y)
+            z1 = torch.where(is_active, state.z + dt * vz1, state.z)
         elif fused:
             const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
             act_f = is_active.to(state.p.dtype)
@@ -689,12 +741,17 @@ def make_step(cfg: MagnetizedConfig,
             # in this push waits one step (pygcpic.py:1249-1254)
             inactive = ((state.active != 1) if cfg.react_timing == "reference"
                         else (active != 1))
-            batch = _draws(state, step_i, n)
+            # react_batch > 0: a table of that many draws, row j for the
+            # slot of re-activation rank j
+            n_draw = cfg.react_batch or n
+            batch = _draws(state, step_i, n_draw)
             bx, bvx, bvy, bvz = (batch["x"] / dx, batch["vx"], batch["vy"],
                                  batch["vz"])
+            rank = (compact_rows(inactive)
+                    if cfg.react_batch or cfg.reactivate == "flux" else None)
             if cfg.reactivate == "flux":
                 bvx = -torch.abs(bvx)  # pygcpic.py:2059
-                take = inactive & (compact_rows(inactive) < cfg.flux_limit)
+                take = inactive & (rank < cfg.flux_limit)
             else:
                 take = inactive
             by = torch.zeros_like(bvx)
@@ -707,6 +764,24 @@ def make_step(cfg: MagnetizedConfig,
                     torch.full_like(bvx, src.charge_state),
                     torch.full_like(bvx, src.mass), cfg)
                 react_mode = 1
+            if cfg.react_batch:
+                # surplus inactive slots wait for the next step
+                take = take & (rank < cfg.react_batch)
+                if carried:
+                    # the taken ranks are [0, n_take): the patch is the
+                    # table's first n_take rows, rho and n at one position
+                    pmask = (torch.arange(n_draw, device=dev)
+                             < torch.sum(take, dtype=torch.int32))
+                    patch = cuda_cic.deposit2(
+                        bx, torch.where(pmask, float(src.charge_state)
+                                        * E_CHARGE * float(src.p2c) / dx, 0.0),
+                        torch.where(pmask, float(src.p2c) / dx, 0.0), ng,
+                        periodic=False)
+                    rho_carry = rho_carry + patch[0]
+                    n_carry = n_carry + patch[1]
+                idx = torch.clamp(rank, 0, cfg.react_batch - 1).to(torch.int64)
+                bx, by, bz, bvx, bvy, bvz = (
+                    b_[idx] for b_ in (bx, by, bz, bvx, bvy, bvz))
             p1 = torch.where(take, bx, p1)
             y1 = torch.where(take, by, y1)
             z1 = torch.where(take, bz, z1)
@@ -741,7 +816,7 @@ def make_step(cfg: MagnetizedConfig,
             impacts=zero["impacts"],
             n_impacts=zero["i"],
             n_escaped=zero["i"],
-            carry_clamped=zero["i"],
+            carry_clamped=carry_clamped,
             n_ion_suppressed=zero["i"],
             n_escape_deferred=zero["i"],
             escapes=zero["escapes"],
@@ -751,7 +826,9 @@ def make_step(cfg: MagnetizedConfig,
             p=p1, y=y1, z=z1, vx=vx1, vy=vy1, vz=vz1, m=m_arr,
             charge_state=charge_state, p2c=p2c_arr, species_idx=sp_arr, t=t1,
             active=active, at_wall=at_wall, from_wall=fw, mode=mode, phi=phi,
-            phi_prev=state.phi, n0=n0, p_old=p_old, added=added, iead=iead,
+            phi_prev=state.phi, rho=rho_carry if carried else state.rho,
+            n=n_carry if carried else state.n, n0=n0, p_old=p_old,
+            added=added, iead=iead,
             step=state.step + 1, step_host=step_i + 1,
         )
         return new_state, metrics

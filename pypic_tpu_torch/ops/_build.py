@@ -91,6 +91,11 @@ _SIGNATURES = {
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _P], _I),
     "pypic_leapfrog_push": (
         [_P] * 5 + [_L, _I, _F, _F, _F, _I, _I, _P], _I),
+    "pypic_boris_gather_push_deposit": (
+        [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _P],
+        _I),
+    "pypic_explicit_domain_cycle": (
+        [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -30,7 +30,10 @@ implicit headline step and the explicit engine reach:
 * ``deposit2``              — ``deposit2_pallas`` (two bounded deposits,
   rho and n, in one sweep);
 * ``boris_gather_push``     — ``boris_gather_push_pallas`` (bounded,
-  optionally mirrored, gather + Boris-Buneman push).
+  optionally mirrored, gather + Boris-Buneman push);
+* ``boris_gather_push_deposit`` — ``boris_gather_push_deposit_pallas`` (the
+  same sweep and the carried rho and n deposit at the new positions,
+  carried_deposit='on', clamps counted).
 
 The kernels are in ``pypic_tpu_torch/csrc/cic.cu``, ``csrc/explicit.cu``,
 ``csrc/implicit.cu`` and ``csrc/magnetized.cu`` (built by ``_build``). The
@@ -79,7 +82,8 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "sheath_reinject": 0, "sheath_uniforms": 0, "deposit_det": 0,
             "philox_uniforms": 0, "picard_iteration_ext": 0,
             "picard_finalize_ext_nodep": 0, "picard_finalize_ext": 0,
-            "leapfrog_gather_push": 0}
+            "leapfrog_gather_push": 0, "boris_gather_push_deposit": 0,
+            "explicit_domain_cycle": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -248,10 +252,17 @@ def window_sw(ng: int) -> tuple[int, int]:
     kernel clamps, and so the ``picard_clamped`` metric: the port keeps the
     frame to keep that observable (ng 64 -> (4, 8), ng 200 -> (12, 16)).
     """
+    return _tpu_frame(ng, margin=4, k_weight=2)
+
+
+def _tpu_frame(ng: int, margin: int, k_weight: int) -> tuple[int, int]:
+    """(stride, width) minimizing 3 width + k_weight K over the widths the
+    TPU kernels tile, stride = width - margin, K = (ng - 1) // stride + 1
+    (``pallas_cic._choose_window`` and ``_choose_window_sw``)."""
     best = None
     for width in (8, 16, 24, 32, 48, 64, 96, 128):
-        stride = width - 4
-        cost = 3 * width + 2 * ((ng - 1) // stride + 1)
+        stride = width - margin
+        cost = 3 * width + k_weight * ((ng - 1) // stride + 1)
         if best is None or cost < best[2]:
             best = (stride, width, cost)
     return best[0], best[1]
@@ -969,3 +980,117 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
     _build.check(err, "boris_gather_push")
     LAUNCHES["boris_gather_push"] += 1
     return out[0], out[1], out[2], out[3]
+
+
+def window(ng: int) -> tuple[int, int]:
+    """(stride, width) of the TPU kernels' window frame, the cost rule of
+    ``pallas_cic._choose_window`` copied: minimize 3 width + K over the
+    widths the TPU kernel tiles, stride = width - 2, K = (ng - 1) //
+    stride + 1 windows.
+
+    The rule has no cost meaning on the GPU. It exists here because the
+    carried deposit of ``boris_gather_push_deposit`` sees its new position
+    from the gather's window, widened by ``pad`` rows: the frame decides
+    which deposits clamp (``carry_clamped``) and where a clamped tent
+    lands (ng 600 -> (14, 16), ng 64 -> (6, 8))."""
+    return _tpu_frame(ng, margin=2, k_weight=1)
+
+
+def _carry_frame(ng: int):
+    """(stride, K, float32 1/stride) of ``window(ng)``."""
+    stride, _ = window(ng)
+    return stride, (ng - 1) // stride + 1, float(np.float32(1.0 / stride))
+
+
+def boris_gather_push_deposit_plain(field, p, vx, vy, vz, const, act, wr, wn,
+                                    *, b, dt_dx: float, pad: int = 2,
+                                    swap_weights: bool = False,
+                                    acc_dtype=None):
+    """The fused kernel's arithmetic as tensor operations
+    (pallas_cic.py _boris_deposit_kernel): ``boris_gather_push_plain``,
+    then wr and wn deposited at p1 for rows with p1 in [0, ng - 1], at the
+    row d_h = (pc - stride k) + (p1 - pc) + pad of the gather's window k,
+    clamped to [0, wp - 1] (counted where wn > 0). ``acc_dtype`` is the
+    dtype rho and n are summed in (float32 by default): float64 sums the
+    same float32 terms into a reference for the kernel's sums."""
+    ng = field.shape[0]
+    p1, vx1, vy1, vz1 = boris_gather_push_plain(
+        field, p, vx, vy, vz, const, act, b=b, dt_dx=dt_dx,
+        swap_weights=swap_weights)
+    hi = float(ng - 1)
+    pc = torch.clamp(p, 0.0, hi)
+    if swap_weights:
+        pc = torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
+    stride, num_k, inv_stride = _carry_frame(ng)
+    top = float(stride + 2 + 2 * pad - 1)
+    live = (p1 >= 0.0) & (p1 <= hi)
+    wr = torch.where(live, wr, 0.0)
+    wn = torch.where(live, wn, 0.0)
+    k = torch.clamp((torch.floor(pc) * inv_stride).to(torch.int32), 0, num_k - 1)
+    d_h = ((pc - (k * stride).to(pc.dtype)) + (p1 - pc)) + float(pad)
+    n_clamped = (((d_h < 0.0) | (d_h > top)) & (wn > 0.0)).sum(dtype=torch.int32)
+    d_h = torch.clamp(d_h, 0.0, top)
+    row = torch.floor(d_h)
+    fr = d_h - row
+    node = (k * stride - pad).to(torch.int64) + row.to(torch.int64)
+    acc = acc_dtype or wr.dtype
+    out = []
+    for values in (wr, wn):
+        dep = torch.zeros((ng,), dtype=acc, device=values.device)
+        for idx, wt in ((node, 1.0 - fr), (node + 1, fr)):
+            inside = (idx >= 0) & (idx < ng)
+            dep.index_add_(0, torch.clamp(idx, 0, ng - 1),
+                           torch.where(inside, values * wt, 0.0).to(acc))
+        out.append(dep)
+    return p1, vx1, vy1, vz1, out[0], out[1], n_clamped
+
+
+def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
+                              dt_dx: float, pad: int = 2,
+                              swap_weights: bool = False):
+    """``boris_gather_push`` and the carried deposit of the next step in
+    one sweep (carried_deposit='on').
+
+    ``wr`` and ``wn`` are the (n,) rho and number-density weights of the
+    next step (every prefactor included, 0 in inactive slots); they are
+    deposited at p1 for rows whose p1 lies in [0, ng - 1] (this step's
+    wall hits deposit nothing), each seen from the gather's window
+    (``window``) widened by ``pad`` rows a side: a deposit past that edge
+    clamps to it and, where wn > 0, is counted.
+
+    Returns (p1, vx1, vy1, vz1, rho, n_dens, n_clamped), n_clamped an
+    int32 0-d tensor on the particles' device.
+    """
+    arrays = (p, vx, vy, vz, const, act, wr, wn)
+    kind = _device_kind((field,) + arrays)
+    ng = field.shape[0] if field.dim() == 1 else -1
+    _check_1d("field", field, ng)
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in zip(("p", "vx", "vy", "vz", "const", "act", "wr", "wn"),
+                       arrays):
+        _check_1d(name, t, n)
+    _check_ng(ng)
+    if pad < 0:
+        raise ValueError(f"pad must be >= 0, got {pad}")
+    if kind == "cpu":
+        return boris_gather_push_deposit_plain(
+            field, p, vx, vy, vz, const, act, wr, wn, b=b, dt_dx=dt_dx,
+            pad=pad, swap_weights=swap_weights)
+    _check_smem(ng, 3, "boris_gather_push_deposit")
+    lib = _build.library()
+    bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
+    stride, num_k, inv_stride = _carry_frame(ng)
+    dev = p.device
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    dens = torch.zeros((2, ng), dtype=torch.float32, device=dev)
+    n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_boris_gather_push_deposit(
+            field.data_ptr(), *(t.data_ptr() for t in arrays),
+            *(o.data_ptr() for o in out), dens[0].data_ptr(),
+            dens[1].data_ptr(), n_clamped.data_ptr(), n, ng, bx, by, bz,
+            dt_dx32, int(bool(swap_weights)), stride, num_k, inv_stride,
+            int(pad), _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "boris_gather_push_deposit")
+    LAUNCHES["boris_gather_push_deposit"] += 1
+    return out[0], out[1], out[2], out[3], dens[0], dens[1], n_clamped

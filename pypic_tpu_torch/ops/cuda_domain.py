@@ -16,7 +16,10 @@ reach:
   finalize='converged-deposit');
 * ``leapfrog_gather_push``       — ``leapfrog_gather_push_pallas``
   (periodic gather from the replicated global field, kick-drift-kick,
-  wrap).
+  wrap);
+* ``explicit_domain_cycle``      — ``explicit_domain_cycle_pallas`` (the
+  same sweep and the deposit of the new positions onto the halo-extended
+  slab, carried_rho='on', clamps counted).
 
 The kernels are in ``pypic_tpu_torch/csrc/domain.cu`` (built by
 ``_build``). The conventions are ``ops/cuda_cic.py``'s: a wrapper launches
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .cic import cic_indices_weights
 from .cuda_cic import (LAUNCHES, _THREADS, _blocks, _check_1d, _check_ng,
                        _check_smem, _device_kind, _inv, _leapfrog, _stream,
                        _wrap, deposit_plain, gather_plain, kernel_scalars,
@@ -144,6 +148,34 @@ def leapfrog_gather_push_plain(field, p, v, *, qm, dt: float, dx: float):
     ng = field.shape[0]
     p1, v1 = _leapfrog(field, p, v, qmh, dt_dx, ng)
     return torch.remainder(p1, ng), v1
+
+
+def explicit_domain_cycle_plain(field, p, v, w, *, qm, dt: float, dx: float,
+                                lo_shifted: float, ext_n: int,
+                                acc_dtype=None):
+    """``leapfrog_gather_push_plain`` and the deposit of w at the raw new
+    position onto the (ext_n,) extended slab at p1 - lo_shifted, clamped
+    to [0, ext_n - 1] (the live rows, w != 0, that clamp counted):
+    (p1, v1, rho_ext, n_clamped). ``acc_dtype`` is the dtype rho_ext is
+    summed in (float32 by default; float64 sums the same float32 terms
+    into a reference)."""
+    qmh, dt_dx, _ = leapfrog_scalars(qm, dt, dx, 0.0)
+    ng = field.shape[0]
+    kick = qmh * gather_plain(field, p, periodic=True)
+    vh = v + kick
+    raw = p + vh * dt_dx
+    ploc = raw - _f32(lo_shifted)
+    top = float(ext_n - 1)
+    n_clamped = ((w != 0.0) & ((ploc < 0.0) | (ploc > top))).sum(
+        dtype=torch.int32)
+    il, ir, wl, wr = cic_indices_weights(torch.clamp(ploc, 0.0, top),
+                                         ext_n - 1, False)
+    acc = acc_dtype or w.dtype
+    rho_ext = torch.zeros((ext_n,), dtype=acc, device=w.device)
+    rho_ext.index_add_(0, il, (w * wl).to(acc))
+    rho_ext.index_add_(0, ir, (w * wr).to(acc))
+    return (torch.remainder(_wrap(raw, ng), ng), vh + kick, rho_ext,
+            n_clamped)
 
 
 # ---------------------------------------------------------------------------
@@ -313,3 +345,46 @@ def leapfrog_gather_push(field, p, v, *, qm, dt: float, dx: float):
     _build.check(err, "leapfrog_gather_push")
     LAUNCHES["leapfrog_gather_push"] += 1
     return p1, v1
+
+
+def explicit_domain_cycle(field, p, v, w, *, qm, dt: float, dx: float,
+                          lo_shifted: float, ext_n: int):
+    """The carried-rho explicit domain cycle in one sweep: the periodic
+    gather of the (ng,) global field at p, kick-drift-kick, and the
+    deposit of the weights ``w`` (0 in dead slots) at the raw new position
+    onto this rank's (ext_n,) extended slab, at p1 - ``lo_shifted`` (the
+    slab origin less the halo, a float32 value). A deposit off the slab
+    clamps to its edge and is counted where w != 0.
+
+    Returns (p1, v1, rho_ext, n_clamped): p1 wrapped with the step's mod
+    ng folded in (as ``leapfrog_gather_push``), n_clamped an int32 0-d
+    tensor on the particles' device. ``qm`` is the float32 q/m."""
+    kind = _device_kind((field, p, v, w))
+    ng = field.shape[0] if field.dim() == 1 else -1
+    _check_1d("field", field, ng)
+    _check_ng(ng)
+    _check_ng(ext_n)
+    n = p.shape[0] if p.dim() == 1 else -1
+    for name, t in (("p", p), ("v", v), ("w", w)):
+        _check_1d(name, t, n)
+    kw = dict(qm=qm, dt=dt, dx=dx, lo_shifted=lo_shifted, ext_n=ext_n)
+    if kind == "cpu":
+        return explicit_domain_cycle_plain(field, p, v, w, **kw)
+    _check_smem(ng, 1, "explicit_domain_cycle", extra=4 * ext_n)
+    lib = _build.library()
+    qmh, dt_dx, _ = leapfrog_scalars(qm, dt, dx, 0.0)
+    dev = p.device
+    p1 = torch.empty_like(p)
+    v1 = torch.empty_like(v)
+    rho_ext = torch.zeros((ext_n,), dtype=torch.float32, device=dev)
+    n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_explicit_domain_cycle(
+            field.data_ptr(), p.data_ptr(), v.data_ptr(), w.data_ptr(),
+            p1.data_ptr(), v1.data_ptr(), rho_ext.data_ptr(),
+            n_clamped.data_ptr(), n, ng, int(ext_n), qmh, dt_dx,
+            _f32(lo_shifted), _inv(ng), _blocks(n, dev), _THREADS,
+            _stream(dev))
+    _build.check(err, "explicit_domain_cycle")
+    LAUNCHES["explicit_domain_cycle"] += 1
+    return p1, v1, rho_ext, n_clamped

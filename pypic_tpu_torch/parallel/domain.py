@@ -21,11 +21,14 @@ with the CN-Picard engine.
 A rank's state holds its own particles: (capacity,) arrays of global grid
 positions, velocities and an alive mask, and its (c,) slab of the carried
 charge. One rank runs the whole domain on one card with no migration and
-no collective.
+no collective. With ``carried_rho='on'`` the step solves from that carried
+charge and the whole particle cycle is one sweep
+(``cuda_domain.explicit_domain_cycle``: gather, push and the deposit of
+the new positions onto the halo-extended slab for the next step).
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
-``field_solve='distributed'`` (item 17), ``carried_rho='on'`` and
-``make_superstep`` / ``migrate_every > 1`` (item 18).
+``field_solve='distributed'`` (item 17) and ``make_superstep`` /
+``migrate_every > 1`` (item 18).
 """
 
 from __future__ import annotations
@@ -80,6 +83,15 @@ class DomainConfig:
             )
         if self.carried_rho not in ("off", "on"):
             raise ValueError(f"unknown carried_rho {self.carried_rho!r}")
+        if self.carried_rho == "on":
+            if self.field_solve != "replicated":
+                raise ValueError(
+                    "carried_rho='on' requires field_solve='replicated'")
+            if self.halo < 1:
+                raise ValueError(
+                    "carried_rho='on' deposits POST-push positions: halo "
+                    "must cover the one-step excursion (halo >= 1; size "
+                    "to v_max * dt / dx)")
         if self.field_solve not in ("replicated", "distributed"):
             raise ValueError(f"unknown field_solve {self.field_solve!r}")
         if self.push_backend not in ("auto", "fused", "composed"):
@@ -102,8 +114,6 @@ _ITEM18 = "item 18, options measured negative or gated off"
 def _check_ported(cfg: DomainConfig) -> None:
     if cfg.field_solve == "distributed":
         raise _not_ported("field_solve='distributed'", _ITEM17)
-    if cfg.carried_rho == "on":
-        raise _not_ported("carried_rho='on'", _ITEM18)
     if cfg.deposit_method != "auto":
         raise _not_ported(f"deposit_method={cfg.deposit_method!r}", _ITEM18)
 
@@ -248,7 +258,8 @@ class DomainState:
     m: torch.Tensor  # ()
     step: torch.Tensor  # () int32
     # (c,) this rank's slab of the carried charge deposit, primed from the
-    # initial positions; read only under carried_rho='on' (item 18)
+    # initial positions; read and rewritten each step under
+    # carried_rho='on' only
     rho: torch.Tensor
     qm_host: tuple[float, float] | None = dataclasses.field(default=None,
                                                             repr=False)
@@ -269,8 +280,8 @@ class StepMetrics(NamedTuple):
     n_alive: torch.Tensor
     n_migrated: torch.Tensor  # particles exchanged this step (global)
     n_dropped: torch.Tensor  # migration bucket/slot overflow (global)
-    # alive particles outside the deposit halo on superstep micro-steps;
-    # 0 on the per-step path
+    # alive particles deposited outside the halo, clamped at its edge
+    # (carried_rho='on'; the carried rho is exact while it stays 0)
     n_halo_clamped: torch.Tensor
 
 
@@ -353,6 +364,21 @@ def init_state(x, v, q, m, cfg: DomainConfig, mesh: SlabMesh,
         rho=rho[mesh.rank * c:(mesh.rank + 1) * c].clone())
 
 
+def prime_rho(state: DomainState, cfg: DomainConfig,
+              mesh: SlabMesh) -> DomainState:
+    """Recompute this rank's slab of the carried rho from the alive
+    particles of every rank (JAX's prime_rho: for resuming a
+    carried_rho='on' run from a state saved without it): each rank
+    deposits its own onto the whole grid, the ranks sum, and each keeps
+    its slab."""
+    ng, c = cfg.grid.ng, cfg.cells_per_shard
+    w = float(np.float32(state.qm_host[0]) * np.float32(cfg.p2c / cfg.grid.dx))
+    full = deposit(torch.remainder(state.p, ng), torch.where(state.alive, w, 0.0),
+                   ng, periodic=True)
+    full = mesh.all_reduce_sum(full)
+    return state.replace(rho=full[mesh.rank * c:(mesh.rank + 1) * c].clone())
+
+
 def make_step(cfg: DomainConfig, mesh: SlabMesh):
     """The per-step domain-decomposed explicit step of this rank:
     state -> (state, StepMetrics), migrating every step.
@@ -362,7 +388,14 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
     there (the replicated solve, O(ng)), push, wrap and migrate.
     ``push_backend`` 'fused' (and 'auto' on the card) pushes with the
     ``leapfrog_gather_push`` kernel; 'composed' with the ``gather`` kernel
-    and a PyTorch leapfrog."""
+    and a PyTorch leapfrog.
+
+    With ``carried_rho='on'`` (whatever ``push_backend`` says) the solve
+    runs from the carried rho, gathered from every rank, and one
+    ``explicit_domain_cycle`` sweep pushes and deposits the new positions
+    onto the extended slab; its halo fold is the next step's rho. Rows
+    deposited past the halo are clamped and counted in
+    ``n_halo_clamped``."""
     _check_ported(cfg)
     _check_mesh(cfg, mesh)
     grid = cfg.grid
@@ -375,7 +408,15 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
     d = mesh.rank
     fuse = cfg.push_backend == "fused" or (
         cfg.push_backend == "auto" and mesh.device.type == "cuda")
+    carried = cfg.carried_rho == "on"
     weights = slot_weights()
+
+    def solve(rho_own):
+        """The replicated periodic solve from this rank's slab: E on the
+        whole grid and sum E^2."""
+        phi = solve_periodic_neutralized(mesh.all_gather(rho_own), dx)
+        e_full = -grad_periodic(phi - torch.max(phi), dx)
+        return e_full, torch.sum(e_full * e_full)
 
     def step(state: DomainState):
         alive = state.alive
@@ -385,26 +426,35 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
         w = weights(alive, float(q * np.float32(cfg.p2c / dx)))
         lo = float(np.float32(d * c))
 
-        # clamp(p - lo, -hw, c + hw) + hw in one rounding (p - lo is exact
-        # near the slab). Dead slots are not moved to 0 first, as JAX
-        # does: their weight is 0, so they add exact zeros wherever they are
-        p_ext = torch.clamp(state.p - (lo - hw), 0.0, float(c + 2 * hw))
-        rho_ext = deposit(p_ext, w, ext_n, periodic=False)
-        rho_own = halo_fold(rho_ext, c, hw, mesh)
-        rho_full = mesh.all_gather(rho_own)
-        phi = solve_periodic_neutralized(rho_full, dx)
-        phi = phi - torch.max(phi)
-        e_full = -grad_periodic(phi, dx)
-        e_energy = torch.sum(e_full * e_full)
-        if fuse:
-            # the kernel takes the wrapped position mod ng itself
-            p1, v1 = cuda_domain.leapfrog_gather_push(
-                e_full, state.p, state.v, qm=float(qm), dt=dt, dx=dx)
+        if carried:
+            # one sweep: the solve from the carried rho (deposited from
+            # these positions by last step's sweep or the prime), and the
+            # deposit of the pushed positions for the next step
+            e_full, e_energy = solve(state.rho)
+            p1, v1, rho_ext, n_clamped = cuda_domain.explicit_domain_cycle(
+                e_full, state.p, state.v, w, qm=float(qm), dt=dt, dx=dx,
+                lo_shifted=lo - hw, ext_n=ext_n)
+            rho_next = halo_fold(rho_ext, c, hw, mesh)
+            n_clamped = mesh.all_reduce_sum(n_clamped)
         else:
-            e_p = torch.where(alive, gather(e_full, state.p, periodic=True),
-                              0.0)
-            p1, v1 = leapfrog_push(state.p, state.v, e_p, qm_t, dt, dt_dx)
-            p1 = torch.remainder(p1, ng)
+            # clamp(p - lo, -hw, c + hw) + hw in one rounding (p - lo is
+            # exact near the slab). Dead slots are not moved to 0 first,
+            # as JAX does: their weight is 0, so they add exact zeros
+            # wherever they are
+            p_ext = torch.clamp(state.p - (lo - hw), 0.0, float(c + 2 * hw))
+            rho_ext = deposit(p_ext, w, ext_n, periodic=False)
+            e_full, e_energy = solve(halo_fold(rho_ext, c, hw, mesh))
+            rho_next = state.rho
+            n_clamped = torch.zeros((), dtype=torch.int32, device=alive.device)
+            if fuse:
+                # the kernel takes the wrapped position mod ng itself
+                p1, v1 = cuda_domain.leapfrog_gather_push(
+                    e_full, state.p, state.v, qm=float(qm), dt=dt, dx=dx)
+            else:
+                e_p = torch.where(
+                    alive, gather(e_full, state.p, periodic=True), 0.0)
+                p1, v1 = leapfrog_push(state.p, state.v, e_p, qm_t, dt, dt_dx)
+                p1 = torch.remainder(p1, ng)
         v1 = torch.where(alive, v1, 0.0)
         kinetic = mesh.all_reduce_sum(
             0.5 * cfg.p2c * state.m
@@ -420,10 +470,9 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
             n_alive=mesh.all_reduce_sum(torch.count_nonzero(alive1)),
             n_migrated=n_migrated,
             n_dropped=n_dropped,
-            n_halo_clamped=torch.zeros((), dtype=torch.int32,
-                                       device=alive.device),
+            n_halo_clamped=n_clamped,
         )
-        new_state = state.replace(p=p2, v=v2, alive=alive1,
+        new_state = state.replace(p=p2, v=v2, alive=alive1, rho=rho_next,
                                   step=state.step + 1)
         return new_state, metrics
 

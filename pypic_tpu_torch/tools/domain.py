@@ -12,9 +12,12 @@ migrate_cap = max(4096, 4 n / ng), capacity factor 1.05 on one rank and
 1.5 on more. The load is ``tools/headline.py``'s, made on the card
 (bench.py's distribution, other numbers). ``--explicit`` runs
 ``bench_domain_explicit`` (bench.py:636-700): the explicit carrier
-(``parallel.domain``, halo 0, the fused push) on the same load.
+(``parallel.domain``, halo 0, the fused push) on the same load;
+``--explicit --carried`` its ``bench.py --carried`` form (bench.py:652-663):
+carried_rho='on' with the halo min(ng / S - 1, max(4, ceil(8 sigma))),
+one ``explicit_domain_cycle`` sweep a step.
 
-    python -m pypic_tpu_torch.tools.domain [--explicit] [--n N]
+    python -m pypic_tpu_torch.tools.domain [--explicit [--carried]] [--n N]
         [--warmup 2] [--steps 30]
     torchrun --nproc-per-node 4 -m pypic_tpu_torch.tools.domain
         (with PYPIC_DISTRIBUTED=1: one rank a card, NCCL)
@@ -80,16 +83,16 @@ def grid() -> GridSpec:
 
 def _load(n: int, mesh, seed: int, load=None):
     """The Landau grid, the load (``load`` = (x, v), else made on the
-    mesh's device from ``seed``), the halo and the migration bucket as
-    bench_domain sizes them."""
+    mesh's device from ``seed``), 8 sigma of the thermal excursion a step
+    in cells (rounded up: bench's halo rules start from it) and the
+    migration bucket as bench_domain sizes it."""
     g = grid()
     if load is None:
         x, v = device_load(n, g.length, mesh.device, seed)
     else:
         x, v = (torch.as_tensor(a, device=mesh.device) for a in load)
-    sigma_cells = float(v.std()) * DT / g.dx
-    halo = min(NG // mesh.world - 3, max(4, math.ceil(8.0 * sigma_cells)))
-    return g, x, v, halo, max(4096, 4 * (n // NG))
+    reach = math.ceil(8.0 * float(v.std()) * DT / g.dx)
+    return g, x, v, reach, max(4096, 4 * (n // NG))
 
 
 def _capacity_factor(mesh) -> float:
@@ -102,10 +105,11 @@ def implicit_row(mesh, n: int = N, seed: int = 1, load=None, **overrides):
     """(cfg, this rank's DomainImplicitState) of configs[4]; ``overrides``
     replace conserving-configuration fields (finalize, window_share,
     backend, ...); ``load`` = (x, v) replaces the seeded load."""
-    g, x, v, halo, cap = _load(n, mesh, seed, load)
+    g, x, v, reach, cap = _load(n, mesh, seed, load)
     cfg = domain_implicit.DomainImplicitConfig(
         g, DT, g.length * DENSITY / n, num_shards=mesh.world,
-        halo=halo, migrate_cap=cap, **{**CONSERVING, **overrides})
+        halo=min(NG // mesh.world - 3, max(4, reach)), migrate_cap=cap,
+        **{**CONSERVING, **overrides})
     st = domain_implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh,
                                     capacity_factor=_capacity_factor(mesh))
     return cfg, st
@@ -113,11 +117,16 @@ def implicit_row(mesh, n: int = N, seed: int = 1, load=None, **overrides):
 
 def explicit_row(mesh, n: int = N, seed: int = 1, load=None, **overrides):
     """(cfg, this rank's DomainState) of bench_domain_explicit: halo 0 (the
-    per-step path migrates every step), the fused push on the card."""
-    g, x, v, _, cap = _load(n, mesh, seed, load)
+    per-step path migrates every step), the fused push on the card; with
+    ``carried_rho='on'`` among the overrides, bench's carried halo
+    min(ng / S - 1, max(4, ceil(8 sigma))): the deposit of the pushed
+    positions must reach one step's excursion."""
+    g, x, v, reach, cap = _load(n, mesh, seed, load)
+    halo = (min(NG // mesh.world - 1, max(4, reach))
+            if overrides.get("carried_rho") == "on" else 0)
     cfg = domain.DomainConfig(g, DT, g.length * DENSITY / n,
-                              num_shards=mesh.world, halo=0, migrate_cap=cap,
-                              **overrides)
+                              num_shards=mesh.world, halo=halo,
+                              migrate_cap=cap, **overrides)
     st = domain.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh,
                            capacity_factor=_capacity_factor(mesh))
     return cfg, st
@@ -203,6 +212,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--explicit", action="store_true",
                     help="the explicit carrier (bench_domain_explicit)")
+    ap.add_argument("--carried", action="store_true",
+                    help="with --explicit: carried_rho='on' (bench.py "
+                         "--carried)")
     ap.add_argument("--n", type=int, default=N)
     ap.add_argument("--warmup", type=int, default=WARMUP)
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -213,18 +225,22 @@ def main(argv=None) -> dict:
                          "steps on another number of ranks: print the "
                          "energy gaps and whether the counts agree")
     args = ap.parse_args(argv)
+    if args.carried and not args.explicit:
+        ap.error("--carried is the explicit carrier's option (--explicit)")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     process_group()
     mesh = make_mesh()
     if args.explicit:
-        cfg, st = explicit_row(mesh, args.n)
+        cfg, st = explicit_row(mesh, args.n, **(
+            dict(carried_rho="on") if args.carried else {}))
         step = domain.make_step(cfg, mesh)
     else:
         cfg, st = implicit_row(mesh, args.n)
         step = domain_implicit.make_step(cfg, mesh)
     res, _ = drive(step, st, args.n, args.warmup, args.steps)
-    res.update(row="domain_explicit" if args.explicit else "domain",
+    res.update(row=("domain_explicit_carried" if args.carried else
+                    "domain_explicit" if args.explicit else "domain"),
                device=torch.cuda.get_device_name(mesh.device),
                ranks=mesh.world, halo=cfg.halo, capacity=int(st.p.shape[0]))
     if args.against:

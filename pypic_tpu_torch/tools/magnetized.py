@@ -22,7 +22,16 @@ the one-launch D-N Newton kernel and the Philox flux draw. The GC row
 by particle), the D-D Newton kernel, the source kernel and the gyro-phase
 draw. Each row has its own physics checks.
 
-    python -m pypic_tpu_torch.tools.magnetized [--row iead|dn|gc]
+``--carried`` runs a row as ``bench.py --carried`` does (bench.py:497-512):
+carried_deposit='on' with a react_batch of 16,384 and the carry primed at
+set-up (``magnetized.prime_carry``). The configs[3] row then takes the
+``boris_gather_push_deposit`` sweep, one ``deposit2`` patch of the
+re-activated rows, the Newton kernel, the source kernel (16,384 draws) and
+the IEAD deposit a step, and the result adds the sums over the steps of
+carry_clamped, n_ion_suppressed and n_escape_deferred (the carry is
+exact while all three are 0; bench.py warns otherwise).
+
+    python -m pypic_tpu_torch.tools.magnetized [--row iead|dn|gc] [--carried]
 
 runs a row and prints one JSON line: µs/step, pushes/s, the mean Newton
 iteration count, the row's own figures (configs[3]: the mean phi_max of
@@ -51,6 +60,10 @@ N = 6 * N_PER_SPECIES
 STEPS = 1200
 N_DN = 50_000  # dirichlet_neumann_test's own n (pygcpic.py:1973)
 ROWS = ("iead", "dn", "gc")
+# bench.py --carried's options (bench.py:504-508): the preset's react_batch
+# is 0, so the table takes bench's 16,384
+CARRIED = dict(carried_deposit="on", react_batch=16384)
+CARRIED_SUMS = ("carry_clamped", "n_ion_suppressed", "n_escape_deferred")
 
 
 def state(device=None, n_per_species: int = N_PER_SPECIES):
@@ -162,7 +175,9 @@ def run_row(device=None, steps: int = STEPS,
     kernel loads it, and the flux table goes to the device), then from the
     initial state again, the launch counts set to 0, ``steps`` steps under
     the sync debug mode "error" and one synchronize. ``overrides`` replace
-    config fields (e.g. backend='composed'). On a CPU device (the plain
+    config fields (e.g. backend='composed', or ``CARRIED``: then the carry
+    is primed at set-up and the result has the sums of ``CARRIED_SUMS``
+    under "carried"). On a CPU device (the plain
     versions; no timing meaning) there is no sync to watch. Returns
     (result dict, config, final state, stacked StepMetrics)."""
     import dataclasses
@@ -176,6 +191,9 @@ def run_row(device=None, steps: int = STEPS,
     step = magnetized.make_step(cfg)
     if cuda:
         _build.load()  # the build is set-up, not step time
+    carried = cfg.carried_deposit == "on"
+    if carried:
+        st = magnetized.prime_carry(st, cfg)
     if warmup:
         run(step, st, warmup)
     if cuda:
@@ -201,6 +219,8 @@ def run_row(device=None, steps: int = STEPS,
                newton_mean=float(m.newton_iters.float().mean()),
                newton_max=int(m.newton_iters.max()),
                launches={k: v for k, v in cuda_cic.LAUNCHES.items() if v})
+    if carried:
+        res["carried"] = {k: int(getattr(m, k).sum()) for k in CARRIED_SUMS}
     if phi_f is not None:
         res["phi_max_over_phi_f"] = float(m.phi_max[-last:].double().mean()) / phi_f
     if row == "dn":
@@ -217,10 +237,14 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--row", choices=ROWS, default="iead")
+    ap.add_argument("--carried", action="store_true",
+                    help="bench.py --carried: carried_deposit='on', "
+                         "react_batch 16,384")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    res, cfg, fin, m = run_row(torch.device("cuda", 0), row=args.row)
+    res, cfg, fin, m = run_row(torch.device("cuda", 0), row=args.row,
+                               **(CARRIED if args.carried else {}))
     res["problems"] = CHECKS[args.row](cfg, fin, m)
     print(json.dumps(res))
     if res["problems"]:

@@ -73,3 +73,13 @@ def steps(mesh, engine, state, grid, cfg, n_steps, keep=(1,)):
         if i in keep:
             kept[i] = join([st])
     return rows, kept
+
+
+def prime(mesh, state, grid, cfg):
+    """domain.prime_rho on this rank from the JAX explicit state ``state``
+    with its rho zeroed: this rank's slab of the primed rho."""
+    cfg = domain.DomainConfig(GridSpec(*grid), **cfg)
+    st = interop.domain_states_from_numpy(state, mesh.world,
+                                          mesh.device)[mesh.rank]
+    st = domain.prime_rho(st.replace(rho=torch.zeros_like(st.rho)), cfg, mesh)
+    return st.rho.cpu().numpy()

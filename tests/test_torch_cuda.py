@@ -3,7 +3,9 @@ card. Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode)
 and skips without one.
 
 The magnetized kernels run at n = 999,996 (bench.py's configs[3] row) and
-a ragged n, ng = 600; the sheath kernels at n = 1,000,000 (configs[2]) and
+a ragged n, ng = 600 (the carried Boris deposit also with a forced
+clamp); the carried domain cycle on the 227-node extended slab of the
+carried carrier; the sheath kernels at n = 1,000,000 (configs[2]) and
 a ragged n, ng = 51 and 11; their tolerances are stated beside each test.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -363,6 +365,39 @@ def test_boris_gather_push_kernel_matches_plain(cuda_device, n, swap):
         _rel_close(r, g, 1e-6)
     for g, held in zip(got, (p, vx, vy, vz)):
         assert torch.equal(g[~live], held[~live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("n, pad, hot", [(999_996, 2, 1.0), (1_000_003, 0, 40.0)],
+                         ids=["row", "forced clamp"])
+def test_boris_gather_push_deposit_kernel_matches_plain(cuda_device, n, pad,
+                                                        hot, swap):
+    """The carried sweep at the configs[3] row's n and pad, and ragged with
+    a forced clamp (pad 0, 40x the velocities): p1 and the velocities
+    bit-equal to the plain version's (the same float32 operations), rho
+    and n within 2e-5 of a float64 sum of the plain version's terms, the
+    clamp count equal."""
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device)
+    vx, vy, vz = vx * hot, vy * hot, vz * hot
+    act = act * ((p >= 0) & (p <= NG_MAG - 1)).float()
+    wr, wn = act * 3.2, act * 1.5
+    args = (field, p, vx, vy, vz, const, act, wr, wn)
+    kw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=pad,
+              swap_weights=swap)
+    before = cuda_cic.LAUNCHES["boris_gather_push_deposit"]
+    got = cuda_cic.boris_gather_push_deposit(*args, **kw)
+    assert cuda_cic.LAUNCHES["boris_gather_push_deposit"] == before + 1
+    ref = cuda_cic.boris_gather_push_deposit_plain(*args, **kw)
+    exact = cuda_cic.boris_gather_push_deposit_plain(
+        *args, acc_dtype=torch.float64, **kw)
+    for r, g in zip(ref[:4], got[:4]):
+        assert torch.equal(r, g)
+    for i in (4, 5):
+        _rel_close(exact[i], got[i], 2e-5)
+    assert int(got[6]) == int(ref[6])
+    if pad == 0:
+        assert int(got[6]) > 0
 
 
 @pytest.mark.cuda
@@ -921,6 +956,36 @@ def test_leapfrog_gather_push_kernel_matches_plain(cuda_device, ng):
         z.to(cuda_device), edges.to(cuda_device), (edges * 0).to(cuda_device),
         **kw)[0]
     assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo_shifted", [-13.0, 187.0], ids=["one rank", "middle rank"])
+def test_explicit_domain_cycle_kernel_matches_plain(cuda_device, lo_shifted):
+    """The carried carrier's sweep at ng = 200 on a 227-node extended slab
+    (c = 200, halo 13), positions spread past both ext edges, a tenth of
+    the slots dead: p1 and v1 bit-equal to the plain version's, rho_ext
+    within 1e-6 of a float64 sum of the plain terms, the clamp count
+    equal; dead slots deposit nothing."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    ng, ext_n = 200, 227
+    e, _, p, v = _inputs(ng, cuda_device)
+    v = v * 40.0
+    w = torch.full_like(p, W)
+    w[torch.arange(N, device=cuda_device) % 10 == 3] = 0.0
+    kw = dict(qm=float(np.float32(QM)), dt=DT, dx=DX, lo_shifted=lo_shifted,
+              ext_n=ext_n)
+    before = cuda_cic.LAUNCHES["explicit_domain_cycle"]
+    got = cuda_domain.explicit_domain_cycle(e, p, v, w, **kw)
+    assert cuda_cic.LAUNCHES["explicit_domain_cycle"] == before + 1
+    ref = cuda_domain.explicit_domain_cycle_plain(e, p, v, w, **kw)
+    exact = cuda_domain.explicit_domain_cycle_plain(
+        e, p, v, w, acc_dtype=torch.float64, **kw)
+    assert torch.equal(ref[0], got[0]) and torch.equal(ref[1], got[1])
+    _rel_close(exact[2], got[2], 1e-6)
+    assert int(got[3]) == int(ref[3]) > 0
+    assert abs(float(exact[2].sum()) - float(w.double().sum())) <= 1e-6 * abs(
+        float(w.double().sum()))
 
 
 @pytest.mark.cuda

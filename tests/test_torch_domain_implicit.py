@@ -254,12 +254,21 @@ def test_unported_options_raise_naming_their_items(problem):
             tdi.make_step(tdi.DomainImplicitConfig(tgrid, **base, **kw), mesh)
     with pytest.raises(NotImplementedError, match="item 18"):
         tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 2)
-    for kw, item in ((dict(field_solve="distributed"), "item 17"),
-                     (dict(carried_rho="on", halo=2), "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            tdomain.make_step(tdomain.DomainConfig(tgrid, **base, **kw), mesh)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tdomain.make_superstep(tdomain.DomainConfig(tgrid, **base), mesh, 2)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tdomain.make_step(tdomain.DomainConfig(
+            tgrid, **base, field_solve="distributed"), mesh)
+    for kw in ({}, dict(carried_rho="on", halo=2)):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            tdomain.make_superstep(tdomain.DomainConfig(tgrid, **base, **kw),
+                                   mesh, 2)
+    # JAX's carried ValueErrors (pypic_tpu/parallel/domain.py:107-117), in
+    # both packages
+    for mod, g in ((domain, grid), (tdomain, tgrid)):
+        with pytest.raises(ValueError, match="halo"):
+            mod.DomainConfig(g, **base, carried_rho="on", halo=0)
+        with pytest.raises(ValueError, match="replicated"):
+            mod.DomainConfig(g, **base, carried_rho="on", halo=4,
+                             field_solve="distributed")
 
 
 def test_entry_points_need_a_card_unless_cpu(problem, monkeypatch):

@@ -504,6 +504,8 @@ def test_philox_sampler_matches_threefry_physics():
     (dict(carried_deposit="bogus"), "carried_deposit"),
     (dict(pusher="gc", backend="fused"), "does not support pusher"),
     (dict(source_sampler="pallas", reactivate="flux"), "flux-source"),
+    (dict(carried_deposit="on", pusher="gc"), "requires pusher='boris'"),
+    (dict(carried_deposit="on", reactivate="source"), "needs react_batch"),
 ])
 def test_config_value_errors(kw, match):
     """The JAX config's ValueErrors, raised by the port's as well."""
@@ -518,8 +520,8 @@ def test_config_value_errors(kw, match):
 @pytest.mark.parametrize("kw, item", [
     (dict(ionization=True), "item 14b"),
     (dict(reactivate="capped-source"), "item 14b"),
-    (dict(react_batch=64), "item 18"),
-    (dict(carried_deposit="on", react_batch=64), "item 18"),
+    (dict(carried_deposit="on", react_batch=64, ionization=True), "item 14b"),
+    (dict(react_batch=64, source_sampler="hash"), "item 14b"),
     (dict(impact_buffer_size=8), "item 14b"),
     (dict(bca_escape=True), "item 14b"),
     (dict(axis_name="p", source_sampler="hash"), "item 17"),
