@@ -95,8 +95,16 @@ Phases (any failure raises and the script exits non-zero):
    from call to call and against a float64 deposit, then timed beside the
    float-atomic deposit at its own and the other engines' shapes; the
    re-injection's Philox uniforms and positions bit-equal at gamma 0 and
-   0.5, with torch.rand((5, n)) as its library yardstick; device times
-   from the profiler.
+   0.5, at phase 16's 80/10/10 status mix and at the row's own (109 rows
+   lost of 1e6), on aligned inputs and on views one float in (for the
+   pass and the finalize the kernel's row-by-row path, every output, the
+   current too, bit-equal to the aligned inputs'), with torch.rand((5, n)) as its
+   library yardstick; device times from the profiler, the median of three
+   calls, each call on the next of four copies of its inputs and the last
+   four calls' outputs held (so that the L2 holds none of them), the
+   re-injection's bound counted from the rows it draws for, its time at
+   the 80/10/10 mix (the table's yardstick) and
+   at the row's own.
 17. sheath check — sheath_dd at n = 12,000, the exit histograms recording:
    one step from the states after 0, 10 and 50 steps on the card and on
    the CPU, fused and composed, the same Philox draws: equal Picard counts
@@ -133,7 +141,8 @@ Phases (any failure raises and the script exits non-zero):
 23. gc slice — the GC row (--row gc): n = 999,996, 1,200 steps under
    sync debug mode 'error', its launch counts and physics checks.
 24. size limits — each wrapper raises above the card's limit (shared
-   memory, thread histograms, one CTA) and launches nothing; a
+   memory, thread histograms, one CTA; the sheath pass one node above its
+   ceiling, cuda_sheath.MAX_NG) and launches nothing; a
    magnetized step at ng = 1,200 with 'auto' takes the op-composed Thomas
    route, and 'pallas' there raises naming ROADMAP item 10.
 25. domain kernels — the domain engines' four kernels against their
@@ -187,6 +196,8 @@ object describing each kernel; the last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import math
 import statistics
@@ -295,8 +306,9 @@ BYTES_PER_PARTICLE = {
     # ps, p0, u0, qm, w, act read; xh, act1 (the pass) or x1, u1, act1
     # (the finalize) written
     "sheath_picard": 32, "sheath_finalize": 36,
-    # p, u, vy, vz, act, sig read, p, u, vy, vz written (gamma 0)
-    "sheath_reinject": 40,
+    # p, u, vy, vz, act read, p, u, vy, vz written; sig is read by the
+    # re-injected rows only (REINJECT_DRAW_BYTES a drawing row, gamma 0)
+    "sheath_reinject": 36,
     "deposit_det": 8,
     # per physical row of the D-N system: n and the warm start read, phi
     # written
@@ -337,11 +349,9 @@ OPS_PER_PARTICLE = {
     # the midpoints 4, the wall tests 8 and selects 2, the deposit's cell,
     # weights and products 9 and its two atomics
     "sheath_picard": 44, "sheath_finalize": 44,
-    # two Philox blocks (10 rounds of 2 high and 2 low products, 4 xors
-    # and 2 key additions: 200), 8 uniforms (3 each), Box-Muller (2 logs,
-    # 2 sqrts, 3 sines and cosines, 9 products: 16), 5 products and the
-    # compares, all at the float32 rate
-    "sheath_reinject": 250,
+    # the status compare of every row; a re-injected row adds
+    # REINJECT_DRAW_OPS (gamma 0)
+    "sheath_reinject": 1,
     # the deposit's 7 with plain adds in the place of the atomics
     "deposit_det": 7,
     # per physical row and Newton iteration, what a Thomas-solved
@@ -376,6 +386,12 @@ OPS_PER_PARTICLE = {
     "explicit_domain_cycle": 26,
 }
 RESIDENT_FINAL_OPS = 19  # the finalize sweep (16) and the ke, jb sums (3)
+# a re-injected row of sheath_reinject: its sig read, and two Philox
+# blocks (10 rounds of 2 high and 2 low products, 4 xors and 2 key
+# additions: 200), 8 uniforms (3 each), Box-Muller (2 logs, 2 sqrts, 3
+# sines and cosines, 9 products: 16), 5 products and the compares, all at
+# the float32 rate. Rows that keep their values draw nothing.
+REINJECT_DRAW_BYTES, REINJECT_DRAW_OPS = 4, 250
 REPLACES = {
     "picard_iteration": "pypic_tpu/ops/pallas_cic.py:1649",
     "picard_finalize_nodep": "pypic_tpu/ops/pallas_cic.py:1802",
@@ -465,6 +481,17 @@ SHEATH_PICARD_MEAN_RTOL = 0.1
 # tests/test_sheath.py:41-57's wall-potential test at its own setting
 SHEATH_WALL_N, SHEATH_WALL_STEPS = 10_000, 1500
 SHEATH_COMPOSED_STEPS = 20
+# the configs[2] row's wall losses a step at n = 1e6 (phase 18: 108.8),
+# the re-injection's own status mix
+REINJECT_ROW_LOST = 109
+# phase 16 times the sheath kernels on ROTATE_SETS copies of their inputs,
+# a copy a call in turn: at n = 1e6 a copy is 24 MB or more, so the three
+# others pass 72 MB or more through the card's 50 MB L2 between two calls
+# on one copy, and every call reads its inputs from device memory, as the
+# engine's step does. The outputs of the last ROTATE_SETS calls are held,
+# so that each call writes new buffers too: a buffer freed and handed out
+# again at once would take the next call's writes in the L2
+ROTATE_SETS = 4
 
 # the D-N slice: dirichlet_neumann_test at its own scale (tools/magnetized.py
 # --row dn), and the GC slice: pic_iead_gc at the configs[3] row's size
@@ -546,17 +573,18 @@ CARRIED_CHECK_AT = (0, 10)
 TOL_CARRY_TOTAL = 1e-5
 
 
-def bound(name: str, n: int, steps: int = 1,
-          passes: int | None = None) -> tuple[float, str]:
+def bound(name: str, n: int, steps: int = 1, passes: int | None = None,
+          extra_bytes: float = 0.0, extra_ops: float = 0.0) -> tuple[float, str]:
     """The least time in ms the card could take for one call on n
     particles (``steps`` cycles for the resident kernels; for
     implicit_resident, ``passes`` Picard passes in all, as its rows
     report; for boltzmann_dirichlet, n rows of the Newton system and
     ``steps`` the Newton iterations the kernel reports): the larger of the
     bytes over the memory rate and the operations over the float32
-    rate."""
-    by_bytes = BYTES_PER_PARTICLE[name] * n / PEAK_BYTES_PER_S * 1e3
-    ops = OPS_PER_PARTICLE[name] * n * (steps if passes is None else passes)
+    rate. ``extra_bytes`` and ``extra_ops`` carry the work that depends
+    on the call's data (sheath_reinject's drawing rows)."""
+    by_bytes = (BYTES_PER_PARTICLE[name] * n + extra_bytes) / PEAK_BYTES_PER_S * 1e3
+    ops = OPS_PER_PARTICLE[name] * n * (steps if passes is None else passes) + extra_ops
     if name == "implicit_resident":
         ops += RESIDENT_FINAL_OPS * n * steps
     by_ops = ops / PEAK_F32_PER_S * 1e3
@@ -576,8 +604,8 @@ def deposit_tol(n: int, ng: int = NG) -> float:
 
 
 def _rec(err: float, ms: float, plain_ms: float, name: str, n: int,
-         steps: int = 1, passes: int | None = None) -> dict:
-    b, by = bound(name, n, steps, passes)
+         steps: int = 1, passes: int | None = None, **extra) -> dict:
+    b, by = bound(name, n, steps, passes, **extra)
     log(f"[kernels]   {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b:.4f} ms ({by}) at n = {n}" + (f", {steps} steps" if steps > 1 else "")
         + (f", {passes} Picard passes" if passes is not None else ""))
@@ -2138,6 +2166,115 @@ def _sheath_inputs(n: int, ng: int, gen: torch.Generator, dev):
     return es, ps, p0, u0, qm, w, act
 
 
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """t copied into a buffer one float in: a contiguous view that is not
+    16-B aligned (the sheath pass kernels' row-by-row path)."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t)
+    return buf[1:]
+
+
+def _row_mix(n: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """The configs[2] row's statuses: 1 but for REINJECT_ROW_LOST rows at
+    random places, half at 0 and half at -1."""
+    act = torch.ones(n, device=dev)
+    rows = torch.randperm(n, generator=gen, device=dev)[:REINJECT_ROW_LOST]
+    act[rows[:REINJECT_ROW_LOST // 2]] = 0.0
+    act[rows[REINJECT_ROW_LOST // 2:]] = -1.0
+    return act
+
+
+def _rotating(fn, args, **kw):
+    """A call of fn on ROTATE_SETS copies of args, the next copy each time,
+    the outputs of the last ROTATE_SETS calls held."""
+    copies = itertools.cycle([tuple(a.clone() for a in args)
+                              for _ in range(ROTATE_SETS)])
+    held = collections.deque(maxlen=ROTATE_SETS)
+    return lambda: held.append(fn(*next(copies), **kw))
+
+
+def _timed(fn, plain_ms: float, name: str, n: int, **extra) -> dict:
+    """_rec of the median of three device_ms calls, the three kept (its
+    max_abs_err is the caller's to fill)."""
+    calls = [device_ms(fn) for _ in range(3)]
+    rec = _rec(None, statistics.median(calls), plain_ms, name, n, **extra)
+    rec["ms_calls"] = calls
+    return rec
+
+
+def _reinject_inputs(n: int, gen: torch.Generator, dev):
+    """Positions in [0, 50), velocities, per-row sigmas and the two status
+    mixes of the re-injection: phase 16's yardstick (80% active, 10% each
+    lost) and the row's own (REINJECT_ROW_LOST rows lost at random
+    places)."""
+    p = torch.rand(n, generator=gen, device=dev) * 50.0
+    v = torch.randn((3, n), generator=gen, device=dev) * 1e5
+    sig = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.3e6, 3.1e4)
+    mixes = {"80/10/10": torch.where(
+        torch.rand(n, generator=gen, device=dev) < 0.8, 1.0,
+        torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 0.0, -1.0)),
+             "row": _row_mix(n, gen, dev)}
+    return p, v, sig, mixes
+
+
+def sheath_times(dev) -> dict:
+    """Device times of the three sheath kernels at the row's shape (n =
+    1e6, ng = 51; the re-injection at gamma 0 at the 80/10/10 mix, the
+    table's yardstick, and at the row's own mix beside it): each the
+    median of three profiler calls, each call on the next of ROTATE_SETS
+    copies of its inputs; the plain versions' times, and torch.rand((5, n))
+    as the re-injection's library call. It calls the wrappers by name
+    alone, so it times another tree of the port as well (a parent commit,
+    for a paired comparison in one chip call)."""
+    from pypic_tpu_torch.ops import cuda_rng, cuda_sheath as S
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    n, kw, fast = N_SHEATH, dict(dt=SHEATH_DT, dx=SHEATH_DX), dict(reps=3, calls=3)
+    args = _sheath_inputs(n, NG_SHEATH, gen, dev)
+    records = {}
+    for name, fn, plain in (
+            ("sheath_picard", S.sheath_picard, S.sheath_picard_plain),
+            ("sheath_finalize", S.sheath_finalize, S.sheath_finalize_plain)):
+        records[name] = _timed(_rotating(fn, args, **kw),
+                               cuda_ms(lambda: plain(*args, **kw), **fast), name, n)
+    del args
+    p, v, sig, mixes = _reinject_inputs(n, gen, dev)
+    key, step = (0, 3), 11
+    timed = {}
+    for mix, act in mixes.items():
+        rargs = (p, v[0], v[1], v[2], act, sig)
+        drawing = int((act != 1.0).sum())
+        timed[mix] = _timed(
+            _rotating(lambda *a: cuda_rng.sheath_reinject(key, step, *a, cells=50.0),
+                      rargs),
+            cuda_ms(lambda: cuda_rng.sheath_reinject_plain(
+                key, step, *rargs, cells=50.0), **fast),
+            "sheath_reinject", n,
+            extra_bytes=REINJECT_DRAW_BYTES * drawing,
+            extra_ops=REINJECT_DRAW_OPS * drawing)
+        timed[mix]["drawing_rows"] = drawing
+        log(f"[sheath kernels]   sheath_reinject at the {mix} mix "
+            f"({drawing} rows re-injected): {timed[mix]['ms']:.4f} ms "
+            f"(calls {', '.join(f'{t:.4f}' for t in timed[mix]['ms_calls'])}), "
+            f"bound {timed[mix]['bound_ms']:.4f} ms")
+    call = _rotating(lambda *a: cuda_rng.sheath_reinject(key, step, *a, cells=50.0),
+                     (p, v[0], v[1], v[2], mixes["row"], sig))
+    log(f"[sheath kernels]   sheath_reinject: {queued_ms(call):.4f} ms a "
+        f"call at the row's mix from CUDA events behind a queued sleep "
+        f"(device_ms's fallback) beside the profiler's {timed['row']['ms']:.4f} ms")
+    g = torch.Generator(device=dev).manual_seed(5)
+    lib = device_ms(_rotating(lambda: torch.rand((5, n), device=dev, generator=g),
+                              ()))
+    log(f"[sheath kernels]   sheath_reinject: library call torch.rand((5, n)) "
+        f"{lib:.4f} ms, its last four outputs held; it writes 20 B a row, the "
+        "kernel moves 36")
+    records["sheath_reinject"] = dict(
+        timed["80/10/10"], library_ms=lib,
+        row_mix={key_: timed["row"][key_] for key_ in (
+            "ms", "ms_calls", "bound_ms", "bound_by", "drawing_rows")})
+    return records
+
+
 def phase_sheath_kernels(dev) -> dict:
     """The sheath engine's four kernels against their plain versions at
     the row's n and a ragged n (the pass kernels at ng = 51 and 11, the
@@ -2150,7 +2287,7 @@ def phase_sheath_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(23)
     kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
     fast = dict(reps=3, calls=3)
-    records = {}
+    records, errors = {}, {}
     for n in (N_SHEATH_RAGGED, N_SHEATH):
         for ng in (NG_SHEATH, 11):
             log(f"[sheath kernels] n = {n}, ng = {ng}")
@@ -2192,11 +2329,22 @@ def phase_sheath_kernels(dev) -> dict:
                     f"the plain version's, the current bit-equal from call to "
                     f"call; {int((act1 == -1).sum())} rows lost "
                     f"left, {int((act1 == 0).sum())} right")
+                off = fn(*[_offset_view(a) for a in args], **kw)
+                for label, g, a_ in zip(labels + ("j",), off, got):
+                    if not torch.equal(g, a_):
+                        raise AssertionError(
+                            f"{name}: {label} from inputs one float in differs "
+                            "from the aligned inputs'")
+                if not all(g.is_contiguous() and g.data_ptr() % 16 == 0
+                           for g in off[:-1]):
+                    raise AssertionError(f"{name}: an output view is not 16-B aligned")
+                log(f"[sheath kernels]   {name}: inputs one float in (the "
+                    "row-by-row path) give every output, the current too, "
+                    "bit-equal to the aligned inputs'; the outputs are 16-B "
+                    "aligned views")
                 if n == N_SHEATH and ng == NG_SHEATH:
-                    records[name] = _rec(
-                        err, device_ms(lambda: fn(*args, **kw)),
-                        cuda_ms(lambda: plain(*args, **kw), **fast), name, n)
-                del got, ref, j64, vals
+                    errors[name] = err
+                del got, ref, j64, vals, off
             # the wall charge alone: u0 = qm = 0, so an active row deposits
             # 0 and the wall nodes hold only the lost rows' charge, held
             # against the exact sums (of the summed magnitudes: the signs
@@ -2250,13 +2398,7 @@ def phase_sheath_kernels(dev) -> dict:
             del got, ref, f64
         del p, vals, idx, hits
 
-        p = torch.rand(n, generator=gen, device=dev) * 50.0
-        v = torch.randn((3, n), generator=gen, device=dev) * 1e5
-        act = torch.where(torch.rand(n, generator=gen, device=dev) < 0.8, 1.0,
-                          torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
-                                      0.0, -1.0))
-        sig = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.3e6, 3.1e4)
-        rargs = (p, v[0], v[1], v[2], act, sig, 0.5 * sig)
+        p, v, sig, mixes = _reinject_inputs(n, gen, dev)
         key, step = (0, 3), 11
         worst = 0.0
         for gamma in (0.0, 0.5):
@@ -2265,42 +2407,49 @@ def phase_sheath_kernels(dev) -> dict:
                     key, step, n, gamma=gamma, device="cpu")):
                 raise AssertionError("sheath_reinject: the kernel's Philox uniforms "
                                      "differ from reinject_bits_plain's")
-            got = cuda_rng.sheath_reinject(key, step, *rargs, cells=50.0, gamma=gamma)
-            ref = cuda_rng.sheath_reinject_plain(key, step, *rargs, cells=50.0,
-                                                 gamma=gamma)
-            torch.cuda.synchronize()
-            if not torch.equal(got[0], ref[0]):
-                raise AssertionError("sheath_reinject: positions differ from the "
-                                     "plain version's")
-            errs = {}
-            for k, r_, g_ in zip(("u", "vy", "vz"), ref[1:], got[1:]):
-                a, rel = rel_err(r_, g_)
-                errs[k] = dict(abs=a, err=rel, kind="rel", tol=TOL_SOURCE)
-            worst = max(worst, _check(errs, f"sheath_reinject(gamma={gamma})"))
-            log(f"[sheath kernels]   sheath_reinject(gamma={gamma}): "
-                f"{u.shape[0] * n} Philox uniforms and the positions bit-equal to "
-                f"the plain version's")
-            del u, got, ref
+            for mix, act in mixes.items():
+                for layout in ("aligned", "offset"):
+                    rargs = (p, v[0], v[1], v[2], act, sig, 0.5 * sig)
+                    if layout == "offset":
+                        rargs = tuple(_offset_view(a) for a in rargs)
+                    what = f"sheath_reinject(gamma={gamma}, {mix}, {layout})"
+                    got = cuda_rng.sheath_reinject(key, step, *rargs, cells=50.0,
+                                                   gamma=gamma)
+                    ref = cuda_rng.sheath_reinject_plain(key, step, *rargs,
+                                                         cells=50.0, gamma=gamma)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[0], ref[0]):
+                        raise AssertionError(f"{what}: positions differ from the "
+                                             "plain version's")
+                    held = rargs[4] == 1.0
+                    if gamma > 0.0:
+                        held &= ~(u[5] < gamma)
+                    if not all(torch.equal(g[held], a[held])
+                               for g, a in zip(got, rargs[:4])):
+                        raise AssertionError(f"{what}: a held row changed")
+                    if not all(g.is_contiguous() and g.data_ptr() % 16 == 0
+                               for g in got):
+                        raise AssertionError(f"{what}: an output view is not "
+                                             "16-B aligned")
+                    errs = {}
+                    for k_, r_, g_ in zip(("u", "vy", "vz"), ref[1:], got[1:]):
+                        a_, rel = rel_err(r_, g_)
+                        errs[k_] = dict(abs=a_, err=rel, kind="rel", tol=TOL_SOURCE)
+                    worst = max(worst, _check(errs, what))
+                    log(f"[sheath kernels]   {what}: positions bit-equal to the "
+                        f"plain version's, {int(held.sum())} held rows bit-equal "
+                        f"to their inputs, {n - int(held.sum())} drawn")
+                    del got, ref, held, rargs
+            log(f"[sheath kernels]   sheath_reinject(gamma={gamma}): {u.shape[0] * n} "
+                "Philox uniforms bit-equal to the plain version's")
+            del u
         if n == N_SHEATH:
-            call = lambda: cuda_rng.sheath_reinject(  # noqa: E731
-                key, step, *rargs, cells=50.0)
-            records["sheath_reinject"] = _rec(
-                worst, device_ms(call),
-                cuda_ms(lambda: cuda_rng.sheath_reinject_plain(
-                    key, step, *rargs, cells=50.0), **fast),
-                "sheath_reinject", n)
-            log(f"[sheath kernels]   sheath_reinject: {queued_ms(call):.4f} ms a "
-                f"call from CUDA events behind a queued sleep (device_ms's "
-                f"fallback) beside the profiler's "
-                f"{records['sheath_reinject']['ms']:.4f} ms")
-            g = torch.Generator(device=dev).manual_seed(5)
-            records["sheath_reinject"]["library_ms"] = device_ms(
-                lambda: torch.rand((5, n), device=dev, generator=g))
-            log(f"[sheath kernels]   sheath_reinject: library call torch.rand((5, n)) "
-                f"{records['sheath_reinject']['library_ms']:.4f} ms")
-        del p, v, act, sig, rargs
+            errors["sheath_reinject"] = worst
+        del p, v, sig, mixes
         torch.cuda.empty_cache()
     records["deposit_det"]["versus_atomic"] = _deposit_det_cost(dev, gen)
+    for name, rec in sheath_times(dev).items():
+        records[name] = dict(rec, max_abs_err=errors[name])
     return records
 
 
@@ -2859,8 +3008,9 @@ def phase_size_limits(dev) -> dict:
         "boris_gather_push": lambda: K.boris_gather_push(
             z(big), p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
         "deposit_det": lambda: K.deposit_det(p, p, 1817, periodic=False),
+        # the pass's ceiling: 32 thread columns of ng floats a block
         "sheath_picard": lambda: cuda_sheath.sheath_picard(
-            z(1817), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+            z(cuda_sheath.MAX_NG + 1), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
         "boltzmann_dirichlet": lambda: cuda_newton.boltzmann_dirichlet(
             z(1025), 1e17, 1.16e5, 2e-5),
         "boltzmann_dn": lambda: cuda_newton.boltzmann_dn(
@@ -3672,7 +3822,9 @@ def main() -> int:
          "bound_ms": records[kname]["bound_ms"],
          "bound_by": records[kname]["bound_by"],
          "library_ms": records[kname].get("library_ms"),
-         "n": records[kname]["n"]}
+         "n": records[kname]["n"],
+         **{key: records[kname][key] for key in ("ms_calls", "row_mix")
+            if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the

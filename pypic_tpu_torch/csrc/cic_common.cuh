@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -159,6 +160,52 @@ __device__ void det_flush(float* hist, int ng, float* partial,
       out[t] = s;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Four consecutive rows as one float4: 16-B loads and stores where every
+// pointer is 16-B aligned (VEC), row by row otherwise (the sheath kernels)
+// ---------------------------------------------------------------------------
+
+inline bool aligned16(const void* ptr) {
+  return ((uintptr_t)ptr & 15u) == 0;
+}
+
+// Four rows i..i+3 of a (n,) array as one float4: a 16-B load where VEC
+// (every pointer 16-B aligned) and the four rows exist, else row by row,
+// rows at or past n reading `pad`.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* __restrict__ a,
+                                        long long i, long long n, float pad) {
+  if (VEC && i + 3 < n) return *reinterpret_cast<const float4*>(a + i);
+  float4 v;
+  v.x = i < n ? a[i] : pad;
+  v.y = i + 1 < n ? a[i + 1] : pad;
+  v.z = i + 2 < n ? a[i + 2] : pad;
+  v.w = i + 3 < n ? a[i + 3] : pad;
+  return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* __restrict__ a, long long i,
+                                       long long n, float4 v) {
+  if (VEC && i + 3 < n) {
+    *reinterpret_cast<float4*>(a + i) = v;
+    return;
+  }
+  if (i < n) a[i] = v.x;
+  if (i + 1 < n) a[i + 1] = v.y;
+  if (i + 2 < n) a[i + 2] = v.z;
+  if (i + 3 < n) a[i + 3] = v.w;
+}
+
+// Row r of four (r a constant once the loops are unrolled).
+__device__ __forceinline__ float get(const float4& v, int r) {
+  return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ float& at(float4& v, int r) {
+  return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

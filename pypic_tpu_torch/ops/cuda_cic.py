@@ -475,49 +475,67 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     return p1, v1
 
 
-def det_threads(ng: int, extra: int, what: str) -> int:
-    """Threads a block of a deterministic deposit (cic_common.cuh
+def det_threads(ng: int) -> int:
+    """Threads a block of the deterministic deposit (cic_common.cuh
     det_flush): the largest power of two <= 256 whose thread histograms
-    (threads x ng floats) and ``extra`` (ng,) arrays fit in a block's
-    shared memory."""
+    (threads x ng floats) fit in a block's shared memory."""
     threads = _THREADS
-    while threads >= 32 and (threads + extra) * ng * 4 > SMEM_LIMIT:
+    while threads >= 32 and threads * ng * 4 > SMEM_LIMIT:
         threads //= 2
     if threads < 32:
         raise ValueError(
-            f"{what}: ng={ng} leaves no room for 32 thread histograms in "
-            f"{SMEM_LIMIT} B of shared memory (ng <= "
-            f"{SMEM_LIMIT // (4 * (32 + extra))}); the large-ng variant is "
-            "not ported yet")
+            f"deposit_det: ng={ng} leaves no room for 32 thread histograms in "
+            f"{SMEM_LIMIT} B of shared memory (ng <= {SMEM_LIMIT // (4 * 32)}); "
+            "the large-ng variant is not ported yet")
     return threads
 
 
 # (device, stream, blocks, ng) -> (partials, block counter): the scratch
 # of the deterministic sums, kept across calls. The counter is zeroed once
-# here; the last block of each launch sets it back to 0 (det_flush), and
-# launches on one stream run in order, so a call allocates and fills
-# nothing.
+# here; the last block of each launch sets it back to 0 (det_flush and
+# csrc/sheath.cu sheath_flush), and launches on one stream run in order,
+# so a call allocates and fills nothing.
 _DET_SCRATCH: dict = {}
 
 
-def deterministic_scratch(n: int, ng: int, dev, extra: int = 0,
-                          what: str = "deposit"):
-    """(blocks, threads, per-block partials, zeroed block counter) of a
-    deterministic deposit: the grid is fixed by n, ng and the card, so the
-    sums' order is too. One wave: as many blocks as the card holds at
-    once, fewer for a small n. Call it with ``dev`` current."""
-    threads = det_threads(ng, extra, what)
-    smem = (threads + extra) * ng * 4
+def det_buffers(dev, blocks: int, ng: int):
+    """(per-block partials, zeroed block counter) of a deterministic sum
+    over ``blocks`` blocks of ng nodes, cached by device, stream and shape.
+    Call it with ``dev`` current."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    per_sm = max(1, min(2048 // threads, SMEM_LIMIT // smem))
-    blocks = max(1, min(-(-n // threads), per_sm * _sm_count(index)))
     key = (index, _stream(dev), blocks, ng)
     if key not in _DET_SCRATCH:
         _DET_SCRATCH[key] = (
             torch.empty((blocks * ng,), dtype=torch.float32, device=dev),
             torch.zeros((1,), dtype=torch.int32, device=dev))
-    partial, counter = _DET_SCRATCH[key]
+    return _DET_SCRATCH[key]
+
+
+def deterministic_scratch(n: int, ng: int, dev):
+    """(blocks, threads, per-block partials, zeroed block counter) of the
+    deterministic deposit: the grid is fixed by n, ng and the card, so the
+    sums' order is too. One wave: as many blocks as the card holds at
+    once, fewer for a small n. Call it with ``dev`` current."""
+    threads = det_threads(ng)
+    smem = threads * ng * 4
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    per_sm = max(1, min(2048 // threads, SMEM_LIMIT // smem))
+    blocks = max(1, min(-(-n // threads), per_sm * _sm_count(index)))
+    partial, counter = det_buffers(dev, blocks, ng)
     return blocks, threads, partial, counter
+
+
+ROW_ALIGN = 4  # floats: 16 B
+
+
+def padded_rows(k: int, n: int, device) -> tuple[torch.Tensor, ...]:
+    """``k`` (n,) float32 outputs cut from one (k, pitch) buffer whose row
+    pitch rounds n up to a multiple of 4 floats: each view is contiguous
+    and starts 16-B aligned, so the kernels that read them next take
+    16-B loads whatever n is."""
+    pitch = -(-n // ROW_ALIGN) * ROW_ALIGN
+    buf = torch.empty((k, pitch), dtype=torch.float32, device=device)
+    return tuple(buf[r, :n] for r in range(k))
 
 
 def deposit(p, values, ng: int, *, periodic: bool):
@@ -563,8 +581,7 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     dev = p.device
     out = torch.empty((ng,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        blocks, threads, partial, counter = deterministic_scratch(
-            n, ng, dev, 0, "deposit_det")
+        blocks, threads, partial, counter = deterministic_scratch(n, ng, dev)
         err = lib.pypic_deposit_det(
             p.data_ptr(), values.data_ptr(), out.data_ptr(),
             partial.data_ptr(), counter.data_ptr(), n, ng, int(periodic),

@@ -302,8 +302,10 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
     ``key`` (two 32-bit words). ``act`` is the float status (1 active),
     ``sig`` / ``sigth`` the per-row Maxwellian sigmas sqrt(kB T / m) of the
     re-injection and of the thermostat (sigth is read only with
-    gamma > 0). Returns (p, u, vy, vz), (n,) each: a CUDA device launches
-    the kernel, the CPU runs ``sheath_reinject_plain``."""
+    gamma > 0). Returns (p, u, vy, vz), (n,) each, as views of one
+    buffer whose rows are padded to 4 floats (``cuda_cic.padded_rows``):
+    a CUDA device launches the kernel, the CPU runs
+    ``sheath_reinject_plain``."""
     gamma = float(gamma)
     if gamma > 0.0 and sigth is None:
         sigth = sig
@@ -314,25 +316,27 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
         cuda_cic._check_1d(name, t, n)
     if n < 1 or n > _MASK32:
         raise ValueError(f"n must be in [1, 2^32), got {n}")
+    outs = cuda_cic.padded_rows(4, n, p.device)
     if kind == "cpu":
-        return sheath_reinject_plain(key, step, p, u, vy, vz, act, sig, sigth,
-                                     cells=cells, gamma=gamma)
+        ref = sheath_reinject_plain(key, step, p, u, vy, vz, act, sig, sigth,
+                                    cells=cells, gamma=gamma)
+        for o, r in zip(outs, ref):
+            o.copy_(r)
+        return outs
     dev = p.device
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
     lib = _build.library()
     k0, k1 = (int(k) & _MASK32 for k in key)
     with torch.cuda.device(dev):
         err = lib.pypic_sheath_reinject(
             p.data_ptr(), u.data_ptr(), vy.data_ptr(), vz.data_ptr(),
             act.data_ptr(), sig.data_ptr(),
-            (sigth if gamma > 0.0 else sig).data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), None, n,
-            k0, k1, int(step) & _MASK32, _f32(cells), _f32(gamma),
-            _f32(_TWO_PI), int(gamma > 0.0), _blocks(n, dev), _THREADS,
-            _stream(dev))
+            (sigth if gamma > 0.0 else sig).data_ptr(),
+            *(o.data_ptr() for o in outs), None, n, k0, k1,
+            int(step) & _MASK32, _f32(cells), _f32(gamma), _f32(_TWO_PI),
+            int(gamma > 0.0), _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "sheath_reinject")
     LAUNCHES["sheath_reinject"] += 1
-    return out[0], out[1], out[2], out[3]
+    return outs
 
 
 def sheath_uniforms(key, step: int, n: int, *, gamma: float, device):

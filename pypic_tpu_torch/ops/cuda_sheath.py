@@ -21,18 +21,87 @@ so the kernel's and the plain version's xh, x1 and u1 are bit-equal.
 
 Dispatch as in ``ops/cuda_cic.py``: a CUDA tensor launches the kernel, a
 CPU tensor runs the plain version, anything else raises. Launches count in
-``cuda_cic.LAUNCHES['sheath_picard']`` and ``['sheath_finalize']``.
+``cuda_cic.LAUNCHES['sheath_picard']`` and ``['sheath_finalize']``. Both
+wrappers return their (n,) outputs as views of one buffer whose rows are
+padded to 4 floats (``cuda_cic.padded_rows``), on either device, so the
+engine's next inputs start 16-B aligned and the kernels take 16-B loads.
+
+``launch_shape(n, ng, sms)`` is the kernels' grid: persistent blocks, one
+or two an SM, each sweeping a contiguous range of rows. The order of every
+sum of the current follows from it, so from (n, ng, sms) alone.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import _build
-from .cuda_cic import (LAUNCHES, _check_1d, _device_kind, _stream,
-                       deposit_plain, deterministic_scratch,
-                       gather_plain)
+from .cuda_cic import (LAUNCHES, SMEM_LIMIT, _check_1d, _device_kind,
+                       _sm_count, _stream, deposit_plain, det_buffers,
+                       gather_plain, padded_rows)
+
+MAX_THREADS = 1024  # csrc/sheath.cu kMaxThreads
+MIN_THREADS = 32  # one warp of thread columns
+MAX_BLOCKS_PER_SM = 2
+# The occupancy of one sm_90 SM, written down rather than asked of the
+# CUDA runtime: the grid fixes the order of every sum of the current, so
+# it must follow from (n, ng, SM count) alone, and not from what one
+# CUDA version or another reports. 228 KB of shared memory an SM, 2,048
+# resident threads, 1 KB of shared memory the card keeps back per block.
+SM_SHARED = 233_472
+SM_THREADS = 2048
+BLOCK_RESERVED = 1024
+# the largest grid the kernels take: the field and 32 thread columns of
+# ng floats in one block's shared memory (ROADMAP item 10)
+MAX_NG = SMEM_LIMIT // (4 * (MIN_THREADS + 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchShape:
+    """The sheath kernels' grid. Block b sweeps rows
+    [b rows_per_block, min(n, (b + 1) rows_per_block)), four a thread at
+    a time; ``smem`` bytes of dynamic shared memory a block hold the field
+    and a column of ng floats a thread."""
+
+    blocks: int
+    threads: int
+    rows_per_block: int
+    smem: int
+
+
+def launch_shape(n: int, ng: int, sms: int) -> LaunchShape:
+    """The grid of a sheath pass over n rows and ng nodes on a card of
+    ``sms`` SMs. Threads a block: a power of two in [32, 1024], the most
+    that let two blocks (the field and a column of ng floats a thread
+    each) share an SM, else the most one block holds; no more blocks than
+    n fills, so every block gets rows. Raises above MAX_NG."""
+    if n < 1 or ng < 2 or sms < 1:
+        raise ValueError(f"launch_shape needs n >= 1, ng >= 2, sms >= 1; got "
+                         f"{n}, {ng}, {sms}")
+    if ng > MAX_NG:
+        raise ValueError(
+            f"sheath pass: ng={ng} leaves no room for {MIN_THREADS} thread "
+            f"histograms in {SMEM_LIMIT} B of shared memory (ng <= {MAX_NG}); "
+            "the large-ng variant is ROADMAP item 10")
+
+    def per_sm(threads: int) -> int:
+        smem = (threads + 1) * ng * 4
+        if smem > SMEM_LIMIT:
+            return 0
+        return min(MAX_BLOCKS_PER_SM, SM_THREADS // threads,
+                   SM_SHARED // (smem + BLOCK_RESERVED))
+
+    sizes = [MAX_THREADS >> k for k in range(6)]  # 1024 .. 32
+    threads = next((t for t in sizes if per_sm(t) >= MAX_BLOCKS_PER_SM),
+                   next(t for t in sizes if per_sm(t) >= 1))
+    groups = -(-n // 4)
+    blocks = max(1, min(per_sm(threads) * sms, -(-groups // threads)))
+    per_block = -(-groups // blocks)
+    blocks = -(-groups // per_block)
+    return LaunchShape(blocks, threads, 4 * per_block, (threads + 1) * ng * 4)
 
 
 def sheath_scalars(dt: float, dx: float):
@@ -108,9 +177,32 @@ def _check(es, ps, p0, u0, qm, w, act):
         _check_1d(name, t, n)
     if ng < 2:
         raise ValueError(f"ng must be >= 2, got {ng}")
-    # the thread-histogram limit (det_threads) belongs to the card: the
-    # CUDA branch meets it in deterministic_scratch
+    # the thread-histogram limit belongs to the card: the CUDA branch meets
+    # it in launch_shape
     return kind, n, ng
+
+
+def _launch(fn, what: str, outs, es, ps, p0, u0, qm, w, act, n: int, ng: int,
+            dt: float, dx: float):
+    """One launch of the pass (``outs`` (xh, act1)) or the finalize (x1,
+    u1, act1); returns the (ng,) current."""
+    dt32, dt_dx32, c, wall_ratio = sheath_scalars(dt, dx)
+    dev = ps.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    shape = launch_shape(n, ng, _sm_count(index))
+    lib = _build.library()
+    j = torch.empty((ng,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        partial, counter = det_buffers(dev, shape.blocks, ng)
+        err = getattr(lib, fn)(
+            es.data_ptr(), ps.data_ptr(), p0.data_ptr(), u0.data_ptr(),
+            qm.data_ptr(), w.data_ptr(), act.data_ptr(),
+            *(o.data_ptr() for o in outs), j.data_ptr(), partial.data_ptr(),
+            counter.data_ptr(), n, ng, dt32, dt_dx32, c, wall_ratio,
+            shape.blocks, shape.threads, shape.rows_per_block, _stream(dev))
+    _build.check(err, what)
+    LAUNCHES[what] += 1
+    return j
 
 
 def sheath_picard(es, ps, p0, u0, qm, w, act, *, dt: float, dx: float):
@@ -126,25 +218,15 @@ def sheath_picard(es, ps, p0, u0, qm, w, act, *, dt: float, dx: float):
     Returns (xh, act1, jh): jh holds the wall charge, not the edge fold.
     """
     kind, n, ng = _check(es, ps, p0, u0, qm, w, act)
+    xh, act1 = padded_rows(2, n, ps.device)
     if kind == "cpu":
-        return sheath_picard_plain(es, ps, p0, u0, qm, w, act, dt=dt, dx=dx)
-    lib = _build.library()
-    dt32, dt_dx32, c, wall_ratio = sheath_scalars(dt, dx)
-    dev = ps.device
-    out = torch.empty((2, n), dtype=torch.float32, device=dev)
-    jh = torch.empty((ng,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        blocks, threads, partial, counter = deterministic_scratch(
-            n, ng, dev, 1, "sheath_picard")
-        err = lib.pypic_sheath_picard(
-            es.data_ptr(), ps.data_ptr(), p0.data_ptr(), u0.data_ptr(),
-            qm.data_ptr(), w.data_ptr(), act.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), jh.data_ptr(), partial.data_ptr(),
-            counter.data_ptr(), n, ng, dt32, dt_dx32, c, wall_ratio, blocks,
-            threads, _stream(dev))
-    _build.check(err, "sheath_picard")
-    LAUNCHES["sheath_picard"] += 1
-    return out[0], out[1], jh
+        *ref, jh = sheath_picard_plain(es, ps, p0, u0, qm, w, act, dt=dt, dx=dx)
+        for o, r in zip((xh, act1), ref):
+            o.copy_(r)
+        return xh, act1, jh
+    jh = _launch("pypic_sheath_picard", "sheath_picard", (xh, act1), es, ps,
+                 p0, u0, qm, w, act, n, ng, dt, dx)
+    return xh, act1, jh
 
 
 def sheath_finalize(es, ps, p0, u0, qm, w, act, *, dt: float, dx: float):
@@ -152,22 +234,13 @@ def sheath_finalize(es, ps, p0, u0, qm, w, act, *, dt: float, dx: float):
     field guess and the last pass's xh and act1. Returns (x1, u1, act1,
     j1); j1 holds the wall charge, not the edge fold."""
     kind, n, ng = _check(es, ps, p0, u0, qm, w, act)
+    outs = padded_rows(3, n, ps.device)
     if kind == "cpu":
-        return sheath_finalize_plain(es, ps, p0, u0, qm, w, act, dt=dt, dx=dx)
-    lib = _build.library()
-    dt32, dt_dx32, c, wall_ratio = sheath_scalars(dt, dx)
-    dev = ps.device
-    out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    j1 = torch.empty((ng,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        blocks, threads, partial, counter = deterministic_scratch(
-            n, ng, dev, 1, "sheath_finalize")
-        err = lib.pypic_sheath_finalize(
-            es.data_ptr(), ps.data_ptr(), p0.data_ptr(), u0.data_ptr(),
-            qm.data_ptr(), w.data_ptr(), act.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), j1.data_ptr(),
-            partial.data_ptr(), counter.data_ptr(), n, ng, dt32, dt_dx32, c,
-            wall_ratio, blocks, threads, _stream(dev))
-    _build.check(err, "sheath_finalize")
-    LAUNCHES["sheath_finalize"] += 1
-    return out[0], out[1], out[2], j1
+        *ref, j1 = sheath_finalize_plain(es, ps, p0, u0, qm, w, act, dt=dt,
+                                         dx=dx)
+        for o, r in zip(outs, ref):
+            o.copy_(r)
+        return (*outs, j1)
+    j1 = _launch("pypic_sheath_finalize", "sheath_finalize", outs, es, ps, p0,
+                 u0, qm, w, act, n, ng, dt, dx)
+    return (*outs, j1)

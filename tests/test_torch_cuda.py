@@ -594,6 +594,125 @@ def test_sheath_reinject_kernel_matches_plain(cuda_device, n, gamma):
         assert torch.equal(g[held], a[held])
 
 
+def _offset_view(t):
+    """t copied into a buffer one float in: a contiguous view that is not
+    16-B aligned (the kernels' row-by-row path)."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:]
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+def _row_mix(n, seed=11, lost=109):
+    """The configs[2] row's statuses: act = 1 but for ``lost`` rows at
+    seeded random places, half at 0 and half at -1 (phase 18: ~109 wall
+    losses a step at n = 1e6)."""
+    rng = np.random.default_rng(seed)
+    act = np.ones(n, np.float32)
+    rows = rng.choice(n, lost, replace=False)
+    act[rows[: lost // 2]] = 0.0
+    act[rows[lost // 2:]] = -1.0
+    return act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("gamma", [0.0, 0.5])
+@pytest.mark.parametrize("n", [1_000_000, 1_000_003])
+def test_sheath_reinject_at_the_rows_mix(cuda_device, n, gamma, layout):
+    """The re-injection at the configs[2] row's status mix (109 lost rows
+    in n), at n = 1e6 and 1,000,003, on aligned inputs and on views one
+    float in (the engine hands it views of (k, n) buffers): uniforms and
+    positions bit-equal to the plain version's, velocities within 1e-6 of
+    the largest, held rows bit-equal to their inputs; the outputs are
+    contiguous 16-B aligned views."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    rng = np.random.default_rng(12)
+    p = rng.uniform(0, 50, n).astype(np.float32)
+    v = rng.normal(0, 1e5, (3, n)).astype(np.float32)
+    sig = np.where(rng.uniform(size=n) < 0.5, 1.3e6, 3.1e4).astype(np.float32)
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in (p, v[0], v[1], v[2], _row_mix(n), sig, 0.5 * sig)]
+    if layout == "offset":
+        arrs = [_offset_view(a) for a in arrs]
+    key, step = (7, 1), 422
+    u = cuda_rng.sheath_uniforms(key, step, n, gamma=gamma, device=cuda_device)
+    assert torch.equal(u.cpu(), cuda_rng.sheath_uniforms(key, step, n, gamma=gamma,
+                                                         device="cpu"))
+    got = cuda_rng.sheath_reinject(key, step, *arrs, cells=50.0, gamma=gamma)
+    ref = cuda_rng.sheath_reinject_plain(key, step, *arrs, cells=50.0, gamma=gamma)
+    for g in got:
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+    assert torch.equal(got[0], ref[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _rel_close(r, g, 1e-6)
+    held = arrs[4] == 1.0
+    if gamma > 0.0:
+        held &= ~(u[5] < gamma)
+    assert int((~held).sum()) >= 109
+    for g, a in zip(got, arrs[:4]):
+        assert torch.equal(g[held], a[held])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("final", [False, True], ids=["picard", "finalize"])
+@pytest.mark.parametrize("ng", [51, 11])
+@pytest.mark.parametrize("n", [1_000_000, 1_000_003])
+def test_sheath_pass_kernels_on_offset_views(cuda_device, n, ng, final):
+    """The pass and the finalize on inputs one float in (not 16-B
+    aligned: the kernel's row-by-row path) at n = 1e6 and 1,000,003: the
+    positions, velocities and statuses bit-equal to the plain version's
+    and to the aligned inputs' outputs, and the current bit-equal to the
+    aligned inputs' (the order of its sums follows the launch shape, not
+    the path); the outputs are contiguous 16-B aligned views."""
+    from pypic_tpu_torch.ops import cuda_sheath
+
+    args = _sheath_inputs(n, ng, cuda_device)
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    fn = cuda_sheath.sheath_finalize if final else cuda_sheath.sheath_picard
+    plain = (cuda_sheath.sheath_finalize_plain if final
+             else cuda_sheath.sheath_picard_plain)
+    aligned = fn(*args, **kw)
+    offset = fn(*[_offset_view(a) for a in args], **kw)
+    ref = plain(*args, **kw)
+    for g, a, r in zip(offset[:-1], aligned[:-1], ref[:-1]):
+        assert g.is_contiguous() and g.data_ptr() % 16 == 0
+        assert torch.equal(g, a) and torch.equal(g, r)
+    assert torch.equal(offset[-1], aligned[-1])
+    _rel_close(ref[-1], offset[-1], 5e-5)
+
+
+@pytest.mark.cuda
+def test_sheath_pass_at_its_ceiling(cuda_device):
+    """The pass at the largest ng the card takes (32 thread columns a
+    block): the current bit-equal from call to call and within 2e-5 of a
+    float64 deposit, xh and act1 bit-equal to the plain version's; one
+    node more raises naming ROADMAP item 10 and launches nothing."""
+    from pypic_tpu_torch.ops import cuda_sheath
+
+    ng, n = cuda_sheath.MAX_NG, 200_003
+    args = _sheath_inputs(n, ng, cuda_device)
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    got = cuda_sheath.sheath_picard(*args, **kw)
+    assert torch.equal(cuda_sheath.sheath_picard(*args, **kw)[-1], got[-1])
+    ref = cuda_sheath.sheath_picard_plain(*args, **kw)
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert torch.equal(g, r)
+    vals = cuda_sheath._push_plain(args[0], args[1], args[2], args[3], args[4],
+                                   args[6], SHEATH_DT, SHEATH_DX)[3]
+    ref64 = cuda_sheath.sheath_deposit_plain(
+        got[0].double(), vals.double(), got[1].double(), args[5].double(), ng,
+        **kw)
+    _rel_close(ref64, got[-1], 2e-5)
+    before = dict(cuda_cic.LAUNCHES)
+    es = torch.zeros(ng + 1, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="item 10"):
+        cuda_sheath.sheath_picard(es, *args[1:], **kw)
+    assert cuda_cic.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_sheath_step_card_matches_cpu(cuda_device):
     """One fused step of sheath_dd (n = 12,000, the exit histograms
