@@ -50,7 +50,10 @@ Phases (any failure raises and the script exits non-zero):
    as in phase 3; the resident implicit kernel over 25 steps (chunks of 8)
    in both configurations of tests/test_pallas.py:450-453 at n = 9001,
    100,000 and 131,072 against 25 per-step steps and its plain version
-   (rows, Picard counts and the final p, v, e, e_prev and j), then timed at the configs[1] row's shape (n = 1e5, 64 steps).
+   (rows, Picard counts and the final p, v, e, e_prev and j), then timed
+   by resident_implicit_times at the configs[1] row's shape (n = 1e5, 64
+   steps) and at n = 131,072: the median of three calls, with the Picard
+   passes of the launch and µs a pass.
 11. implicit check — 50 steps at n = 20,000 on the card and on the CPU:
    the composed backend on a two-species load, finalize='converged-deposit'
    and window_share='shared' (no deposit clamped) on a two-stream load.
@@ -264,6 +267,8 @@ PER_STEP_STEPS = 2000
 # the card test's 1e-4 of the largest magnitude
 IMPLICIT_RESIDENT_NS = (9001, 100_000, 131_072)
 IMPLICIT_RESIDENT_STEPS, IMPLICIT_RESIDENT_SPC = 25, 8
+# resident_implicit_times: the configs[1] row's n and the kernel's largest
+RESIDENT_TIMED_NS = (100_000, 131_072)
 IMPLICIT_RESIDENT_CONFIGS = {
     "field-none": dict(tol=1e-9, maxiter=50),
     "extrapolate-anderson": dict(tol=1e-30, maxiter=4,
@@ -1544,24 +1549,60 @@ def phase_implicit_kernels(dev) -> dict:
 
     worst = max(_resident_implicit_case(dev, n, conf)
                 for conf in IMPLICIT_RESIDENT_CONFIGS for n in IMPLICIT_RESIDENT_NS)
-    # timed at the configs[1] row's shape: one 64-step launch at n = 1e5
+    # the configs[1] row's shape: the plain version's Picard counts, then
+    # the timing (resident_implicit_times)
     cfg, st = landau.state(landau.N, dev)
     rkw = implicit.resident_kwargs(st, cfg)
     args = (st.e, st.e_prev, st.j, st.p, st.v, NG, landau.STEPS_PER_CALL)
     out = K.implicit_resident(*args, **rkw)
     ref = K.implicit_resident_plain(*args, **rkw)
     torch.cuda.synchronize()
-    passes = int(out[5]["iters"].sum())
     if not iters_agree("implicit_resident(n = 1e5, 64 steps) vs plain",
                        (out[5]["iters"], out[5]["resid"]),
                        (ref[5]["iters"], ref[5]["resid"]), cfg.tol):
         raise AssertionError("implicit_resident: Picard iterations differ from "
                              "the plain version's at the row's shape")
-    records["implicit_resident"] = _rec(
-        worst, cuda_ms(lambda: K.implicit_resident(*args, **rkw), reps=5, calls=1),
-        cuda_ms(lambda: K.implicit_resident_plain(*args, **rkw), reps=1, calls=1),
-        "implicit_resident", landau.N, landau.STEPS_PER_CALL, passes)
+    del cfg, st, args, out, ref
+    timed = resident_implicit_times(dev)
+    records["implicit_resident"] = dict(timed[landau.N], max_abs_err=worst,
+                                        at_max_n=timed[RESIDENT_TIMED_NS[-1]])
     return records
+
+
+def resident_implicit_times(dev) -> dict:
+    """Device time of one 64-step launch of the resident implicit kernel
+    at the configs[1] row's load and loop options (tools/landau.py: tol
+    1e-6, maxiter 50, picard_init 'field', no Anderson) for each n of
+    RESIDENT_TIMED_NS: the median of three calls, each the median of five
+    launches between CUDA events; with the Picard passes the launch ran,
+    µs a pass, the bound and the plain version's time. It calls the
+    wrapper by name alone, so it times another tree of the port as well (a
+    parent commit, for a paired comparison in one chip call)."""
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import landau
+
+    out = {}
+    for n in RESIDENT_TIMED_NS:
+        cfg, st = landau.state(n, dev)
+        rkw = implicit.resident_kwargs(st, cfg)
+        args = (st.e, st.e_prev, st.j, st.p, st.v, NG, landau.STEPS_PER_CALL)
+        passes = int(K.implicit_resident(*args, **rkw)[5]["iters"].sum())
+        calls = [cuda_ms(lambda: K.implicit_resident(*args, **rkw), reps=5, calls=1)
+                 for _ in range(3)]
+        ms = statistics.median(calls)
+        rec = _rec(None, ms, cuda_ms(lambda: K.implicit_resident_plain(*args, **rkw),
+                                     reps=1, calls=1),
+                   "implicit_resident", n, landau.STEPS_PER_CALL, passes)
+        rec.update(ms_calls=calls, passes=passes, us_per_pass=ms * 1e3 / passes)
+        log(f"[implicit kernels]   implicit_resident at n = {n}, "
+            f"{landau.STEPS_PER_CALL} steps: {ms:.4f} ms (calls "
+            f"{', '.join(f'{t:.4f}' for t in calls)}), {passes} Picard passes, "
+            f"{rec['us_per_pass']:.3f} us a pass, bound {rec['bound_ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms")
+        out[n] = rec
+        del cfg, st, args
+    return out
 
 
 def _two_species(n: int):
@@ -3823,7 +3864,8 @@ def main() -> int:
          "bound_by": records[kname]["bound_by"],
          "library_ms": records[kname].get("library_ms"),
          "n": records[kname]["n"],
-         **{key: records[kname][key] for key in ("ms_calls", "row_mix")
+         **{key: records[kname][key] for key in (
+            "ms_calls", "row_mix", "passes", "us_per_pass", "at_max_n")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [

@@ -21,41 +21,76 @@
 // CIC arithmetic is cic_common.cuh's, rounded as the per-step kernels
 // round it.
 //
-// Bound on the H100: latency. The particles cross device memory once per
-// launch and every step is a chain of block and cluster barriers; its
-// float32 operations (28 a particle a pass, 19 a particle for the finalize
-// sweep and its sums) take a few ns a step at the card's peak.
+// Bound on the H100: latency. The float32 work (28 operations a particle
+// a pass, 19 for the finalize sweep and its sums) takes a few ns a step
+// at the card's peak, and the particles cross device memory once a
+// launch. A pass is a chain: the sweep and its deposit, four block
+// barriers, one cluster barrier and the (ng,) work between them. On the
+// first port (8 CTAs, particles in device memory) a 64-step launch of the
+// configs[1] row took 3.71 ms: the sweeps ~2.7, 1.56 of it in
+// shared-memory float atomics, which this card runs as compare-and-swap
+// loops (ATOMS.CAST.SPIN); the (ng,) chain ~1.0 ms, six block barriers
+// and one cluster barrier a pass (ten with Anderson) and node sums made
+// of remote loads one after another. This design takes 1.2-1.3 ms: per
+// pass ~2.4 µs of sweep, ~0.5 of deposit, ~1.3 of barriers (the cluster
+// barrier ~1.0) and ~2.4 of (ng,) work, column sums and pushes
+// (tools/resident_split.py; PERF.md §6).
 //
-// Design. ONE thread-block cluster of 8 CTAs x 1024 threads, as
-// explicit_cycle_resident (explicit.cu). Each CTA deposits its particles
-// into its own (ng,) histogram in shared memory; after a cluster.sync()
-// every CTA sums the 8 histograms through distributed shared memory in
-// rank order and then runs the (ng,) work of the pass (Ampere advance,
-// residual, Anderson mixing) redundantly on its own copy.
+// Design. ONE thread-block cluster of kCtas = 16 CTAs x 1024 threads (a
+// non-portable cluster size, launched by cudaLaunchKernelEx; the wrapper
+// refuses a card that cannot hold it). Each CTA holds its particles on
+// chip for the whole launch:
 //
+// * Particles. CTA r owns rows [r per_cta, (r + 1) per_cta) (per_cta =
+//   ceil(n / 16), from cuda_cic.implicit_resident_shape); thread t holds
+//   rows begin + j 1024 + t, j < kSlots = 8: p0 and the iterate ps in
+//   registers (16 a thread), v0 in shared memory (32 KB a CTA, each
+//   thread its own words: with v0 in registers too, 64 registers a
+//   thread spilled). They are read once at the start and p1, v1 written
+//   once at the end.
+// * Deposit. Float atomics into lane columns, hist[node][lane mod cols]
+//   (cols = 32 up to ng = 256, 8 above, halved where shared memory cannot
+//   hold them: implicit_resident_shape), so a warp's atomics land on
+//   distinct banks and rarely on a word another warp is adding to. After
+//   a block barrier each node thread sums its columns in a fixed order
+//   (rotated by lane, so that a warp's reads hit 32 banks), zeroes them,
+//   and PUSHES the CTA's node total into recv[pass parity][rank][node] of
+//   all 16 CTAs (remote stores: no thread waits on a remote load).
+//   Receive buffers alternate by pass parity, so one cluster barrier a
+//   pass suffices: a buffer is written again only after the next barrier,
+//   when every CTA has read it.
+// * (ng,) work: thread t < ng owns node t (ng <= 1024). A node's state
+//   is a record of kRec floats in shared memory (e0/e1, eh, jh, the
+//   sweep's field, the next step's first field, es, the Anderson
+//   residual), so a thread reaches its node and both neighbours from
+//   three base addresses. After the cluster barrier it adds its 16
+//   received totals in rank order from its own shared memory. A pass then
+//   runs three more block barriers: (B1) jh and the warp partials of
+//   sum(jh) are in shared memory; (B2) eh and the partials of r, <df, df>,
+//   <df, f> and sum(e1^2) are; each node thread then computes the mixed
+//   iterate at t-1, t, t+1 itself and writes smooth(es) (and, on the last
+//   pass, the next step's initial smooth(es)); (B3) the field of the next
+//   sweep is complete. Sums are warp-shuffle trees (fixed lanes) added in
+//   warp order. The finalize sweep needs no barrier of its own: each warp
+//   pushes its ke and jb partials to rank 0, whose spare warps sum them
+//   after the next cluster barrier (double-buffered by step parity).
 // * The Picard exit depends on the data, and a CTA that left the loop on
-//   another pass than the rest would deadlock the next cluster.sync(). So
-//   every CTA must hold a bit-identical jh, r and Anderson products: the
-//   histograms are summed in rank order, the (ng,) sums are block_sum's
-//   fixed warp-order reductions over the same thread-to-node map, and r is
+//   another pass than the rest would deadlock the next cluster barrier.
+//   So every CTA holds a bit-identical jh, r and Anderson products: each
+//   receives the same 16 totals and adds them in rank order, the (ng,)
+//   sums run over the same thread-to-node map in the same order, and r is
 //   rounded to float32 before the test. Identical inputs, identical code,
-//   identical order: every CTA takes the same branch.
-// * Where the particles live. Each particle carries p0, v0 and the
-//   position iterate ps (12 B): 1.5 MB at n = 131072 and 1.2 MB at
-//   configs[1]'s n = 1e5. Eight CTAs have 8 x 227 KB of shared memory, less
-//   the ~41 KB of (ng <= 1024) arrays each keeps, so the population does
-//   not fit there, and registers hold even less (64 a thread at 1024
-//   threads). The particles therefore stay in device memory, in the output
-//   arrays p_out and v_out and the scratch array ps, where the 50 MB L2
-//   (and each SM's L1) keeps them: each thread reads and writes only its
-//   own particles, so they need no barrier beyond the thread's own order.
-// * Histograms alternate between two buffers by pass parity, so one
-//   cluster barrier per pass suffices (a buffer is zeroed again only after
-//   the next barrier, when every CTA has finished reading it); the metric
-//   partials alternate by step parity behind one more barrier per step.
+//   identical order: every CTA takes the same branch. Within a CTA the
+//   deposit's order is the hardware's, so jh is not bit-equal from call to
+//   call, but it is the same in every CTA of one launch.
 //
-// The launcher returns cudaGetLastError(); it allocates nothing and runs on
-// the stream it is given.
+// Shared memory: 2,240 float64 (17.5 KB of partials), the columns, the
+// receive buffers (32 floats a node), the records (9 a node) and v0 (32
+// KB): 109,088 B at the configs[1] row's ng = 200 (32 columns), 226,816 B
+// at ng = 1024 (2 columns) of the 232,448 a block may use.
+//
+// The launcher returns a cudaError_t; it allocates nothing and runs on the
+// stream it is given.
 
 #include <cooperative_groups.h>
 
@@ -65,237 +100,483 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kCtas = 8;
+constexpr int kCtas = 16;  // cuda_cic.RESIDENT_IMPLICIT_CLUSTER
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 8;  // 131072 / (16 x 1024): particles a thread
+// float64 scratch: the warp partials of two reductions, the metric
+// partials pushed to rank 0 ([step parity][rank][warp][ke, jb]) and rank
+// 0's per-CTA sums
+constexpr int kDoubles = kWarps + 4 * kWarps + 2 * kCtas * kWarps * 2 + 2 * kCtas;
+// A node's record: its fields at these offsets, kRec floats apart (odd,
+// so consecutive nodes fall on distinct banks). One base address a
+// thread reaches every field of its node and its neighbours'.
+constexpr int kRec = 9;
+constexpr int F_E = 0;   // [step parity]: e0 of the step, then its e1
+constexpr int F_EH = 2;  // [pass parity]: eh
+constexpr int F_JH = 4;  // jh
+constexpr int F_FS = 5;  // smooth(es): the next sweep's field
+constexpr int F_FI = 6;  // smooth of the next step's first iterate
+constexpr int F_ES = 7;  // the iterate es
+constexpr int F_FP = 8;  // Anderson: the previous residual eh - es
 
-// smooth_periodic of ops/fd.py at node i: (f[i+1] + 2 f[i] + f[i-1]) / 4,
-// in that order; the identity without smoothing.
-__device__ __forceinline__ float smooth_at(const float* f, int i, int ng,
-                                           bool smooth) {
-  if (!smooth) return f[i];
-  const int lo = i == 0 ? ng - 1 : i - 1;
-  const int hi = i + 1 == ng ? 0 : i + 1;
-  return __fmul_rn(__fadd_rn(__fadd_rn(f[hi], __fmul_rn(2.0f, f[i])), f[lo]), 0.25f);
+__device__ __forceinline__ float smooth3(float lo, float mid, float hi,
+                                         bool smooth) {
+  // smooth_periodic of ops/fd.py: (f[i+1] + 2 f[i] + f[i-1]) / 4, in that
+  // order; the identity without smoothing
+  if (!smooth) return mid;
+  return __fmul_rn(__fadd_rn(__fadd_rn(hi, __fmul_rn(2.0f, mid)), lo), 0.25f);
 }
 
-__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads, 1)
-implicit_resident_kernel(
+// The first iterate of a step at a node: e0 (+ (e0 - eprev)/2), e0 and
+// eprev the record's fields f0 and fp.
+__device__ __forceinline__ float first_iterate(const float* rec, int f0,
+                                               int fp, bool extrapolate) {
+  const float a = rec[f0];
+  return extrapolate ? __fadd_rn(a, __fmul_rn(0.5f, __fsub_rn(a, rec[fp]))) : a;
+}
+
+__device__ __forceinline__ float smoothed_first(const float* lo,
+                                                const float* mid,
+                                                const float* hi, int f0,
+                                                int fp, bool extrapolate,
+                                                bool sm) {
+  return smooth3(first_iterate(lo, f0, fp, extrapolate),
+                 first_iterate(mid, f0, fp, extrapolate),
+                 first_iterate(hi, f0, fp, extrapolate), sm);
+}
+
+// cic_common.cuh's gather from a field kept in the node records.
+__device__ __forceinline__ float gather_rec(const float* field, const Cic& c) {
+  return __fadd_rn(__fmul_rn(field[c.l * kRec], c.wl),
+                   __fmul_rn(field[c.r * kRec], c.wr));
+}
+
+// Lane 0 gets the warp's sum, a fixed tree over the lanes.
+__device__ __forceinline__ double warp_sum(double x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Rank 0, between a cluster barrier and the next block barrier: warp
+// kWarps - kCtas + q sums the ke, jb warp partials CTA q pushed for step
+// parity sb into tot[q].
+__device__ __forceinline__ void collect_partials(const double* part,
+                                                 double* tot, int sb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = warp - (kWarps - kCtas);
+  if (q < 0) return;
+  const double* rp = part + ((sb * kCtas + q) * kWarps + lane) * 2;
+  const double ke = warp_sum(rp[0]);
+  const double jb = warp_sum(rp[1]);
+  if (lane == 0) {
+    tot[2 * q] = ke;
+    tot[2 * q + 1] = jb;
+  }
+}
+
+// Rank 0, after that block barrier: the step's ke and jb rows.
+__device__ __forceinline__ void write_partials(const double* tot, int step,
+                                               float* ke_row, float* jb_row,
+                                               double ke_c, double jb_c) {
+  double ke = 0.0, jb = 0.0;
+  for (int q = 0; q < kCtas; ++q) {
+    ke += tot[2 * q];
+    jb += tot[2 * q + 1];
+  }
+  ke_row[step] = (float)(ke_c * ke);
+  jb_row[step] = (float)(jb_c * jb);
+}
+
+// kMix: Anderson(1) mixing (picard_accel='anderson'), a template
+// parameter so that the plain iteration keeps no registers for its sums.
+template <bool kMix>
+__global__ void __launch_bounds__(kThreads, 1) implicit_resident_kernel(
     const float* __restrict__ e0_in, const float* __restrict__ eprev_in,
     const float* __restrict__ j_in, const float* __restrict__ p_in,
-    const float* __restrict__ v_in, float* p, float* v, float* ps,
-    float* __restrict__ e_out, float* __restrict__ eprev_out,
-    float* __restrict__ j_out, float* __restrict__ fe_row,
-    float* __restrict__ ke_row, float* __restrict__ jb_row,
-    int* __restrict__ it_row, float* __restrict__ res_row,
-    float* __restrict__ tx_row, float* __restrict__ tv_row, int n, int ng,
+    const float* __restrict__ v_in, float* __restrict__ p_out,
+    float* __restrict__ v_out, float* __restrict__ e_out,
+    float* __restrict__ eprev_out, float* __restrict__ j_out,
+    float* __restrict__ fe_row, float* __restrict__ ke_row,
+    float* __restrict__ jb_row, int* __restrict__ it_row,
+    float* __restrict__ res_row, float* __restrict__ tx_row,
+    float* __restrict__ tv_row, int n, int per_cta, int ng, int cols,
     int steps, float qm_dt, float qm_dt2_half, float dt_dx, float w,
     float inv_ng, float dt_eps, float tol, int maxiter, int extrapolate,
-    int anderson, int smooth, int tracer, double fe_c, double ke_c,
-    double jb_c) {
+    int smooth, int tracer, double fe_c, double ke_c, double jb_c) {
   cg::cluster_group cluster = cg::this_cluster();
-  const unsigned int rank = cluster.block_rank();
-  const int t = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nw = (ng + 31) >> 5;  // the warps that hold nodes
+  const bool node = t < ng, node_warp = warp < nw;
+  const bool ex = extrapolate != 0, sm = smooth != 0;
+
   extern __shared__ double smem_d[];
-  double* red = smem_d;           // 32
-  double* part = red + 32;        // [2 step parities][ke, jb]
-  float* s_e0 = (float*)(part + 4);
-  float* s_eprev = s_e0 + ng;
-  float* s_es = s_eprev + ng;     // the Picard iterate
-  float* s_fs = s_es + ng;        // smooth(es), then eh of the pass
-  float* s_jh = s_fs + ng;
-  float* s_e1 = s_jh + ng;
-  float* s_g = s_e1 + ng;         // Anderson: previous map output
-  float* s_f = s_g + ng;          // Anderson: previous residual
-  float* s_hist = s_f + ng;       // [2 pass parities][ng]: this CTA's deposit
+  double* red_m = smem_d;               // [warp]: sum(jh)
+  double* red_r = red_m + kWarps;       // [warp][r, <df,df>, <df,f>, sum(e1^2)]
+  double* part = red_r + 4 * kWarps;    // [step parity][rank][warp][ke, jb]
+  double* tot = part + 4 * kCtas * kWarps;  // [rank][ke, jb]: rank 0's sums
+  float* hist = (float*)(smem_d + kDoubles);  // [node][column]: the deposit
+  float* recv = hist + cols * ng;       // [pass parity][rank][node]: CTA totals
+  float* nodes = recv + 2 * kCtas * ng; // [node][kRec]
+  float* vel = nodes + kRec * ng;       // [slot][thread]: the particles' v0
+  // node t's record and its neighbours' (periodic)
+  float* me = nodes + t * kRec;
+  const float* nlo = nodes + (t == 0 ? ng - 1 : t - 1) * kRec;
+  const float* nhi = nodes + (t + 1 >= ng ? 0 : t + 1) * kRec;
 
-  const int per_cta = (n + kCtas - 1) / kCtas;
-  const int begin = (int)rank * per_cta;
-  const int end = min(begin + per_cta, n);
-  for (int i = begin + t; i < end; i += kThreads) {
-    p[i] = p_in[i];
-    v[i] = v_in[i];
-  }
-  for (int i = t; i < ng; i += kThreads) {
-    s_e0[i] = e0_in[i];
-    s_eprev[i] = eprev_in[i];
-    s_jh[i] = j_in[i];
-    s_hist[i] = 0.0f;
-    s_hist[ng + i] = 0.0f;
-  }
-  const float ngf = (float)ng;
-  const bool sm = smooth != 0;
-  int pass = 0;
-  cluster.sync();  // every CTA's shared memory is live before remote reads
-
-  for (int s = 0; s < steps; ++s) {
-    for (int i = t; i < ng; i += kThreads) {
-      const float e0 = s_e0[i];
-      s_es[i] = extrapolate
-          ? __fadd_rn(e0, __fmul_rn(0.5f, __fsub_rn(e0, s_eprev[i]))) : e0;
-      s_e1[i] = e0;
-      s_g[i] = 0.0f;
-      s_f[i] = 0.0f;
+  // the particles, on chip for the whole launch: p0 and ps in registers,
+  // v0 in shared memory (each thread its own words)
+  const int begin = rank * per_cta;
+  // slot j of thread t holds row begin + j kThreads + t iff j kThreads < lim
+  const int lim = min(begin + per_cta, n) - begin - t;
+  float P[kSlots], S[kSlots];
+  float* my_v = vel + t;  // slot j at my_v[j kThreads]
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    P[j] = 0.0f;
+    if (j * kThreads < lim) {
+      P[j] = p_in[begin + j * kThreads + t];
+      my_v[j * kThreads] = v_in[begin + j * kThreads + t];
     }
-    __syncthreads();
+  }
+  if (node) {
+    me[F_E] = e0_in[t];
+    me[F_E + 1] = eprev_in[t];
+    me[F_JH] = j_in[t];
+  }
+  for (int i = t; i < cols * ng; i += kThreads) hist[i] = 0.0f;
+  const float ngf = (float)ng;
+  cluster.sync();  // every CTA's shared memory is live before remote stores
+  if (node) me[F_FI] = smoothed_first(nlo, me, nhi, F_E, F_E + 1, ex, sm);
+  __syncthreads();
+
+  // Step s - 1's ke, jb partials wait for rank 0 until the first cluster
+  // barrier of step s (its first pass, or the barrier of a step without
+  // one); the last step's, until the barrier after the loop.
+  int pass = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int sp = s & 1;
+    const int f_e0 = F_E + sp, f_e1 = F_E + 1 - sp;  // e0; eprev, then e1
+    if (node) {
+      me[F_ES] = first_iterate(me, f_e0, f_e1, ex);
+      me[F_FP] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) S[j] = P[j];  // the first pass gathers at p0
     float r = __int_as_float(0x7f800000);  // +inf
     int k = 0;
     while (r > tol && k < maxiter) {
-      for (int i = t; i < ng; i += kThreads) s_fs[i] = smooth_at(s_es, i, ng, sm);
-      __syncthreads();
       const int b = pass & 1;
-      float* hist = s_hist + b * ng;
-      const float* gpos = k == 0 ? p : ps;
-      for (int i = begin + t; i < end; i += kThreads) {
-        const float a = p[i];
-        const float bv = v[i];
-        const float e = gather(s_fs, cic_periodic(gpos[i], ng));
-        float p1, v1;
-        cn_push(a, bv, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
-        const float h = wrap(__fmul_rn(0.5f, __fadd_rn(a, p1)), ngf, inv_ng);
-        const float val = __fmul_rn(w, __fmul_rn(0.5f, __fadd_rn(bv, v1)));
-        ps[i] = h;
-        const Cic c = cic_periodic(h, ng);
-        atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
-        atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
-      }
-      cluster.sync();  // hist[b] is complete in every CTA
-
-      double sj = 0.0;
-      for (int i = t; i < ng; i += kThreads) {
-        float jh = 0.0f;
+      const float* fs = nodes + (k == 0 ? F_FI : F_FS);
+      const int col = lane & (cols - 1);  // this lane's deposit column
 #pragma unroll
-        for (int q = 0; q < kCtas; ++q) jh = __fadd_rn(jh, cluster.map_shared_rank(hist, q)[i]);
-        s_jh[i] = jh;
-        sj += (double)jh;
-        // the other parity's histogram was last read remotely in the
-        // previous pass, before every CTA reached this pass's barrier
-        s_hist[(1 - b) * ng + i] = 0.0f;
-      }
-      const float mean = (float)(block_sum(sj, red) / ng);  // syncs s_jh
-      double rr = 0.0;
-      for (int i = t; i < ng; i += kThreads) {
-        const float e0 = s_e0[i];
-        const float e1 = __fadd_rn(
-            e0, __fmul_rn(dt_eps, __fsub_rn(mean, smooth_at(s_jh, i, ng, sm))));
-        const float eh = __fmul_rn(0.5f, __fadd_rn(e1, e0));
-        const float d = __fsub_rn(s_es[i], eh);
-        s_e1[i] = e1;
-        s_fs[i] = eh;
-        rr += (double)__fmul_rn(d, d);
-      }
-      r = (float)block_sum(rr, red);
-      if (anderson) {
-        // ops/accel.py anderson_mix: f = eh - es, df = f - f_prev,
-        // gamma = <df, f>/<df, df> clipped to [-5, 5] (0 on a degenerate
-        // secant), es = eh - gamma (eh - g_prev) after the first pass
-        double dd = 0.0, dfv = 0.0;
-        for (int i = t; i < ng; i += kThreads) {
-          const float f = __fsub_rn(s_fs[i], s_es[i]);
-          const float df = __fsub_rn(f, s_f[i]);
-          dd += (double)__fmul_rn(df, df);
-          dfv += (double)__fmul_rn(df, f);
+      for (int j = 0; j < kSlots; ++j) {
+        if (j * kThreads < lim) {
+          const float a = P[j], bv = my_v[j * kThreads];
+          const float e = gather_rec(fs, cic_periodic(S[j], ng));
+          float p1, v1;
+          cn_push(a, bv, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
+          const float h = wrap(__fmul_rn(0.5f, __fadd_rn(a, p1)), ngf, inv_ng);
+          const float val = __fmul_rn(w, __fmul_rn(0.5f, __fadd_rn(bv, v1)));
+          S[j] = h;
+          const Cic c = cic_periodic(h, ng);
+          atomicAdd(&hist[c.l * cols + col], __fmul_rn(val, c.wl));
+          atomicAdd(&hist[c.r * cols + col], __fmul_rn(val, c.wr));
         }
-        const float denom = (float)block_sum(dd, red);
-        const float num = (float)block_sum(dfv, red);
-        const float gamma = denom > 0.0f ? fminf(fmaxf(num / denom, -5.0f), 5.0f) : 0.0f;
-        for (int i = t; i < ng; i += kThreads) {
-          const float eh = s_fs[i];
-          const float f = __fsub_rn(eh, s_es[i]);
-          s_es[i] = k > 0 ? __fsub_rn(eh, __fmul_rn(gamma, __fsub_rn(eh, s_g[i]))) : eh;
-          s_g[i] = eh;
-          s_f[i] = f;
+      }
+      __syncthreads();  // (B0) this CTA's deposit is complete
+      if (node) {
+        // node t's columns in the order (lane + c) mod cols, c = 0, 1, ...
+        // (a warp's 32 reads then fall on 32 banks; a fixed order for each
+        // node), then zeroed; the total pushed into recv[b][rank][t] of
+        // every CTA (remote stores)
+        float* hc = hist + t * cols;
+        float x = 0.0f;
+#pragma unroll 8
+        for (int c = 0; c < cols; ++c)
+          x = __fadd_rn(x, hc[(lane + c) & (cols - 1)]);
+#pragma unroll 8
+        for (int c = 0; c < cols; ++c) hc[(lane + c) & (cols - 1)] = 0.0f;
+        float* slot = recv + (b * kCtas + rank) * ng + t;
+#pragma unroll
+        for (int q = 0; q < kCtas; ++q) *cluster.map_shared_rank(slot, q) = x;
+      }
+      cluster.sync();  // recv[b] is complete in every CTA
+      const bool collect = k == 0 && s > 0;
+      if (collect && rank == 0) collect_partials(part, tot, (s - 1) & 1);
+
+      // (B1) jh of node t: the 16 CTAs' totals in rank order
+      if (node_warp) {
+        double x = 0.0;
+        if (node) {
+          const float* rv = recv + b * kCtas * ng + t;
+          float acc = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kCtas; ++q) acc = __fadd_rn(acc, rv[q * ng]);
+          me[F_JH] = acc;
+          x = (double)acc;
         }
-      } else {
-        for (int i = t; i < ng; i += kThreads) s_es[i] = s_fs[i];
+        x = warp_sum(x);
+        if (lane == 0) red_m[warp] = x;
       }
       __syncthreads();
-      ++k;
+      if (collect && rank == 0 && t == kThreads - 1)
+        write_partials(tot, s - 1, ke_row, jb_row, ke_c, jb_c);
+
+      // (B2) e1, eh and the pass's partial sums
+      if (node_warp) {
+        double rr = 0.0, dd = 0.0, dfv = 0.0, fe = 0.0;
+        if (node) {
+          double sj = 0.0;
+          for (int q = 0; q < nw; ++q) sj += red_m[q];
+          const float mean = (float)(sj / ng);
+          const float e0 = me[f_e0], es = me[F_ES];
+          const float e1 = __fadd_rn(e0, __fmul_rn(dt_eps, __fsub_rn(
+              mean, smooth3(nlo[F_JH], me[F_JH], nhi[F_JH], sm))));
+          const float eh = __fmul_rn(0.5f, __fadd_rn(e1, e0));
+          const float d = __fsub_rn(es, eh);
+          rr = (double)__fmul_rn(d, d);
+          fe = (double)e1 * (double)e1;
+          me[F_EH + b] = eh;
+          me[f_e1] = e1;
+          if (kMix) {
+            // ops/accel.py anderson_mix: f = eh - es, df = f - f_prev
+            const float f = __fsub_rn(eh, es);
+            const float df = __fsub_rn(f, me[F_FP]);
+            dd = (double)__fmul_rn(df, df);
+            dfv = (double)__fmul_rn(df, f);
+            me[F_FP] = f;
+          }
+        }
+        rr = warp_sum(rr);
+        fe = warp_sum(fe);
+        if (kMix) {
+          dd = warp_sum(dd);
+          dfv = warp_sum(dfv);
+        }
+        if (lane == 0) {
+          red_r[4 * warp] = rr;
+          red_r[4 * warp + 1] = dd;
+          red_r[4 * warp + 2] = dfv;
+          red_r[4 * warp + 3] = fe;
+        }
+      }
+      __syncthreads();
+
+      // (B3) r, the mixed iterate and the next sweep's field
+      double rs = 0.0;
+      for (int q = 0; q < nw; ++q) rs += red_r[4 * q];
+      r = (float)rs;
+      const int kk = k++;
       ++pass;
+      const bool last = !(r > tol && k < maxiter);
+      if (node) {
+        float gamma = 0.0f;
+        if (kMix) {
+          // gamma = <df, f>/<df, df> clipped to [-5, 5] (0 on a degenerate
+          // secant); es = eh - gamma (eh - g_prev) after the first pass
+          double dd = 0.0, dfv = 0.0;
+          for (int q = 0; q < nw; ++q) {
+            dd += red_r[4 * q + 1];
+            dfv += red_r[4 * q + 2];
+          }
+          const float denom = (float)dd, num = (float)dfv;
+          gamma = denom > 0.0f ? fminf(fmaxf(num / denom, -5.0f), 5.0f) : 0.0f;
+        }
+        // g_prev: the previous pass's eh
+        const float* recs[3] = {nlo, me, nhi};
+        float m[3];
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          const float ehj = recs[u][F_EH + b];
+          m[u] = kMix && kk > 0
+              ? __fsub_rn(ehj, __fmul_rn(gamma,
+                                         __fsub_rn(ehj, recs[u][F_EH + 1 - b])))
+              : ehj;
+        }
+        me[F_ES] = m[1];
+        me[F_FS] = smooth3(m[0], m[1], m[2], sm);
+        // the next step's first iterate, from its e0 (this e1) and eprev
+        if (last) me[F_FI] = smoothed_first(nlo, me, nhi, f_e1, f_e0, ex, sm);
+      }
+      if (last && rank == 0 && t == 0) {
+        double fe = 0.0;
+        for (int q = 0; q < nw; ++q) fe += red_r[4 * q + 3];
+        fe_row[s] = (float)(fe_c * fe);
+        it_row[s] = k;
+        res_row[s] = r;
+      }
+      __syncthreads();
+    }
+
+    if (k == 0) {
+      // no pass (maxiter < 1): rank 0 reads the pending partials behind a
+      // cluster barrier of its own, since no pass brings one
+      cluster.sync();
+      if (s > 0 && rank == 0) collect_partials(part, tot, (s - 1) & 1);
+      __syncthreads();
+      if (s > 0 && rank == 0 && t == kThreads - 1)
+        write_partials(tot, s - 1, ke_row, jb_row, ke_c, jb_c);
     }
 
     // finalize='converged': the deposit-free sweep from smooth(es) at the
-    // last ps
-    for (int i = t; i < ng; i += kThreads) s_fs[i] = smooth_at(s_es, i, ng, sm);
-    __syncthreads();
-    const float* gpos = k == 0 ? p : ps;
+    // last ps (at p0 from the first iterate's field without a pass)
+    const float* fs = nodes + (k == 0 ? F_FI : F_FS);
     double ke = 0.0, jb = 0.0;
-    for (int i = begin + t; i < end; i += kThreads) {
-      const float e = gather(s_fs, cic_periodic(gpos[i], ng));
-      float p1, v1;
-      cn_push(p[i], v[i], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
-      p1 = wrap(p1, ngf, inv_ng);
-      p[i] = p1;
-      v[i] = v1;
-      ke += (double)v1 * (double)v1;
-      jb += (double)v1;
-      if (i == tracer) {
-        tx_row[s] = p1;
-        tv_row[s] = v1;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      if (j * kThreads < lim) {
+        const float e = gather_rec(fs, cic_periodic(S[j], ng));
+        float p1, v1;
+        cn_push(P[j], my_v[j * kThreads], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
+        p1 = wrap(p1, ngf, inv_ng);
+        P[j] = p1;
+        my_v[j * kThreads] = v1;
+        ke += (double)v1 * (double)v1;
+        jb += (double)v1;
+        if (begin + j * kThreads + t == tracer) {
+          tx_row[s] = p1;
+          tv_row[s] = v1;
+        }
       }
     }
-    ke = block_sum(ke, red);
-    jb = block_sum(jb, red);
-    const int sb = s & 1;
-    if (t == 0) {
-      part[2 * sb] = ke;
-      part[2 * sb + 1] = jb;
+    ke = warp_sum(ke);
+    jb = warp_sum(jb);
+    if (lane == 0) {
+      double* to = cluster.map_shared_rank(part, 0) +
+                   ((sp * kCtas + rank) * kWarps + warp) * 2;
+      to[0] = ke;
+      to[1] = jb;
     }
-    double fe = 0.0;
-    for (int i = t; i < ng; i += kThreads) {
-      const float e1 = s_e1[i];
-      fe += (double)e1 * (double)e1;
-      s_eprev[i] = s_e0[i];
-      s_e0[i] = e1;
-    }
-    fe = block_sum(fe, red);
-    cluster.sync();  // part[sb] is complete in every CTA
-    if (rank == 0 && t == 0) {
-      double k_sum = 0.0, j_sum = 0.0;
-      for (int q = 0; q < kCtas; ++q) {
-        const double* rp = cluster.map_shared_rank(part, q);
-        k_sum += rp[2 * sb];
-        j_sum += rp[2 * sb + 1];
-      }
-      fe_row[s] = (float)(fe_c * fe);
-      ke_row[s] = (float)(ke_c * k_sum);
-      jb_row[s] = (float)(jb_c * j_sum);
-      it_row[s] = k;
-      res_row[s] = r;
-    }
-  }
-  cluster.sync();  // no CTA exits while another may still read its memory
 
-  if (rank == 0) {
-    for (int i = t; i < ng; i += kThreads) {
-      e_out[i] = s_e0[i];
-      eprev_out[i] = s_eprev[i];
-      j_out[i] = s_jh[i];
+    if (k == 0) {
+      // e1 = e0: the next step's e0 and first field, and this step's rows
+      __syncthreads();  // every thread's sweep has read F_FI
+      double fe = 0.0;
+      if (node) {
+        const float e0 = me[f_e0];
+        me[f_e1] = e0;
+        // e0 and eprev both e0: the first iterate is e0 with or without
+        // extrapolation
+        me[F_FI] = smoothed_first(nlo, me, nhi, f_e0, f_e0, ex, sm);
+        fe = (double)e0 * (double)e0;
+      }
+      if (node_warp) {
+        fe = warp_sum(fe);
+        if (lane == 0) red_r[4 * warp + 3] = fe;
+      }
+      __syncthreads();
+      if (rank == 0 && t == 0) {
+        double sum = 0.0;
+        for (int q = 0; q < nw; ++q) sum += red_r[4 * q + 3];
+        fe_row[s] = (float)(fe_c * sum);
+        it_row[s] = 0;
+        res_row[s] = r;
+      }
     }
   }
+
+  cluster.sync();  // the last step's partials have reached rank 0
+  if (rank == 0) collect_partials(part, tot, (steps - 1) & 1);
+  __syncthreads();
+  if (rank == 0 && t == kThreads - 1)
+    write_partials(tot, steps - 1, ke_row, jb_row, ke_c, jb_c);
+
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (j * kThreads < lim) {
+      const int i = begin + j * kThreads + t;
+      p_out[i] = P[j];
+      v_out[i] = my_v[j * kThreads];
+    }
+  }
+  if (rank == 0 && node) {
+    e_out[t] = me[F_E + (steps & 1)];
+    eprev_out[t] = me[F_E + 1 - (steps & 1)];
+    j_out[t] = me[F_JH];
+  }
+}
+
+// cuda_cic.implicit_resident_shape: the deposit's columns and the bytes
+constexpr size_t smem_bytes(int ng, int cols) {
+  return kDoubles * sizeof(double) +
+         ((size_t)(cols + 2 * kCtas + kRec) * ng + kSlots * kThreads) *
+             sizeof(float);
+}
+
+template <bool kMix>
+cudaError_t prepare(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      implicit_resident_kernel<kMix>,
+      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  return allow_smem(implicit_resident_kernel<kMix>, smem);
+}
+
+cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCtas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// p, v: the (n,) outputs, ps: (n,) scratch; rows: (steps,) each, tx_row and
-// tv_row zeroed (a tracer index past n leaves them 0).
+// How many clusters of the kernel's shape (kCtas CTAs of kThreads threads,
+// its shared memory at ng) the current card holds at once: 0 means it
+// cannot launch.
+int pypic_implicit_resident_clusters(int ng, int cols, int* count) {
+  // both instantiations have the same shape (64 registers, the same
+  // shared memory)
+  const size_t smem = smem_bytes(ng, cols);
+  cudaError_t err = prepare<false>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      count, implicit_resident_kernel<false>, &cfg);
+}
+
+// p, v: the (n,) outputs; rows: (steps,) each, tx_row and tv_row zeroed (a
+// tracer index past n leaves them 0). per_cta: the rows a CTA owns,
+// ceil(n / kCtas), at most kSlots x kThreads; ng <= kThreads.
 int pypic_implicit_resident(
     const float* e0, const float* eprev, const float* j0, const float* p_in,
-    const float* v_in, float* p, float* v, float* ps, float* e_out,
-    float* eprev_out, float* j_out, float* fe, float* ke, float* jb, int* iters,
-    float* resid, float* tx, float* tv, int n, int ng, int steps, float qm_dt,
-    float qm_dt2_half, float dt_dx, float w, float inv_ng, float dt_eps,
-    float tol, int maxiter, int extrapolate, int anderson, int smooth,
+    const float* v_in, float* p, float* v, float* e_out, float* eprev_out,
+    float* j_out, float* fe, float* ke, float* jb, int* iters, float* resid,
+    float* tx, float* tv, int n, int per_cta, int ng, int cols, int steps,
+    float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
+    float dt_eps, float tol, int maxiter, int extrapolate, int anderson, int smooth,
     int tracer, double fe_c, double ke_c, double jb_c, void* stream) {
-  const size_t smem = (32 + 4) * sizeof(double) + 10 * (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(implicit_resident_kernel, smem);
+  if (ng < 2 || ng > kThreads || per_cta < 0 || per_cta > kSlots * kThreads ||
+      (long long)per_cta * kCtas < n || cols < 1 || cols > 32 ||
+      (cols & (cols - 1)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(ng, cols);
+  cudaError_t err = anderson ? prepare<true>(smem) : prepare<false>(smem);
   if (err != cudaSuccess) return (int)err;
-  implicit_resident_kernel<<<kCtas, kThreads, smem, (cudaStream_t)stream>>>(
-      e0, eprev, j0, p_in, v_in, p, v, ps, e_out, eprev_out, j_out, fe, ke, jb,
-      iters, resid, tx, tv, n, ng, steps, qm_dt, qm_dt2_half, dt_dx, w, inv_ng,
-      dt_eps, tol, maxiter, extrapolate, anderson, smooth, tracer, fe_c, ke_c,
-      jb_c);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(smem, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(
+      &cfg,
+      anderson ? implicit_resident_kernel<true> : implicit_resident_kernel<false>,
+      e0, eprev, j0, p_in, v_in, p, v, e_out, eprev_out, j_out, fe, ke, jb,
+      iters, resid, tx, tv, n, per_cta, ng, cols, steps, qm_dt, qm_dt2_half,
+      dt_dx, w, inv_ng, dt_eps, tol, maxiter, extrapolate, smooth, tracer,
+      fe_c, ke_c, jb_c);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

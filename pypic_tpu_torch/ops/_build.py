@@ -56,8 +56,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I,
          _I, _F, _I, _I, _P], _I),
     "pypic_implicit_resident": (
-        [_P] * 18 + [_I, _I, _I] + [_F] * 7 + [_I] * 5 + [_D, _D, _D, _P],
-        _I),
+        [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D, _D, _D, _P], _I),
+    "pypic_implicit_resident_clusters": ([_I, _I, _P], _I),
     "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "pypic_leapfrog_deposit": (

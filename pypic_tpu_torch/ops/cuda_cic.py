@@ -26,7 +26,8 @@ implicit headline step and the explicit engine reach:
   (the Picard pass depositing in the gather's window frame, clamps
   counted);
 * ``implicit_resident``     — ``implicit_resident_pallas`` (S implicit
-  CN-Picard steps per launch with per-step metric rows, n <= 131072);
+  CN-Picard steps per launch with per-step metric rows, n <= 131072; one
+  16-CTA cluster, its launch shape ``implicit_resident_shape``);
 * ``deposit2``              — ``deposit2_pallas`` (two bounded deposits,
   rho and n, in one sweep);
 * ``boris_gather_push``     — ``boris_gather_push_pallas`` (bounded,
@@ -61,6 +62,8 @@ packing are not ported.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -797,9 +800,95 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
 
 
 RESIDENT_MAX_N_IMPLICIT = 131072  # pallas_cic._RESIDENT_MAX_N_IMPLICIT
-# shared memory of the implicit resident kernel: ten (ng,) float arrays
-# and 36 float64 of reduction scratch and metric partials
-_IMPLICIT_ARRAYS, _IMPLICIT_EXTRA = 10, 36 * 8
+RESIDENT_MAX_NG_IMPLICIT = 1024  # the engine's limit; one node a thread
+# the launch of csrc/implicit.cu: ONE cluster of 16 CTAs x 1024 threads,
+# each thread holding at most 8 particles
+RESIDENT_IMPLICIT_CLUSTER = 16
+RESIDENT_IMPLICIT_THREADS = 1024
+RESIDENT_IMPLICIT_SLOTS = 8
+# shared memory: 2,240 float64 of reduction and metric partials, the
+# deposit's columns (cols x ng float32), 41 float32 a node (two parities
+# of the 16 CTAs' totals, and the node's record of e0/e1, eh, jh, the
+# sweep's field, the next step's first field, es and the Anderson
+# residual: 9) and the particles' v0 (SLOTS x THREADS float32)
+_IMPLICIT_DOUBLES, _IMPLICIT_ARRAYS = 2240, 41
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentShape:
+    """The launch of the resident implicit kernel for (n, ng): ``cluster``
+    CTAs of ``threads`` threads; CTA r owns rows [r per_cta, (r + 1)
+    per_cta) (clipped to n), thread t of it rows r per_cta + j threads + t
+    for j < per_thread; the deposit goes to ``cols`` columns a node;
+    ``smem`` bytes of shared memory a CTA."""
+    cluster: int
+    threads: int
+    per_cta: int
+    per_thread: int
+    cols: int
+    smem: int
+
+
+def implicit_resident_shape(n: int, ng: int) -> ResidentShape:
+    """The partition of n particles over the kernel's one cluster, a
+    function of (n, ng) alone, and with it the order of its sums. Raises
+    past n = 131,072 or ng = 1,024."""
+    if n > RESIDENT_MAX_N_IMPLICIT:
+        raise ValueError(
+            f"resident implicit requires n <= {RESIDENT_MAX_N_IMPLICIT}")
+    if ng > RESIDENT_MAX_NG_IMPLICIT:
+        raise ValueError(
+            f"resident implicit requires ng <= {RESIDENT_MAX_NG_IMPLICIT} "
+            f"(got {ng})")
+    per_cta = -(-n // RESIDENT_IMPLICIT_CLUSTER)
+
+    def smem(cols: int) -> int:
+        return 8 * _IMPLICIT_DOUBLES + 4 * (
+            (cols + _IMPLICIT_ARRAYS) * ng
+            + RESIDENT_IMPLICIT_SLOTS * RESIDENT_IMPLICIT_THREADS)
+
+    # a lane a column up to ng = 256 (a warp's deposits hit 32 banks), 8
+    # above, halved until the block's shared memory holds them (2 at 1024)
+    cols = 32 if ng <= 256 else 8
+    while smem(cols) > SMEM_LIMIT:
+        cols //= 2
+    return ResidentShape(
+        cluster=RESIDENT_IMPLICIT_CLUSTER, threads=RESIDENT_IMPLICIT_THREADS,
+        per_cta=per_cta, per_thread=-(-per_cta // RESIDENT_IMPLICIT_THREADS),
+        cols=cols, smem=smem(cols))
+
+
+def implicit_resident_rows(n: int, ng: int) -> np.ndarray:
+    """(cluster, threads, SLOTS) int array: the particle row each slot of
+    each thread holds, -1 where it holds none (the kernel's map)."""
+    shape = implicit_resident_shape(n, ng)
+    r = np.arange(shape.cluster)[:, None, None]
+    t = np.arange(shape.threads)[None, :, None]
+    j = np.arange(RESIDENT_IMPLICIT_SLOTS)[None, None, :]
+    begin = r * shape.per_cta
+    rows = begin + j * shape.threads + t
+    end = np.minimum(begin + shape.per_cta, n)
+    return np.where(rows < end, rows, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, ng: int) -> int:
+    """Clusters of the resident kernel's shape card ``index`` holds at once
+    (cudaOccupancyMaxActiveClusters); raises if it cannot hold one."""
+    shape = implicit_resident_shape(1, ng)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().pypic_implicit_resident_clusters(
+            ng, shape.cols, ctypes.byref(count))
+    _build.check(err, "implicit_resident (cluster occupancy)")
+    if count.value < 1:
+        raise RuntimeError(
+            f"implicit_resident: {torch.cuda.get_device_name(index)} cannot "
+            f"hold one cluster of {shape.cluster} CTAs x {shape.threads} "
+            f"threads with {shape.smem} B of shared memory each "
+            "(cudaOccupancyMaxActiveClusters = 0); the kernel needs 16 SMs "
+            "of one GPC free")
+    return count.value
 
 
 def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
@@ -815,7 +904,11 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
     Returns (p1, v1, e1, e_prev1, jh, rows): the last step's field, the
     field before it and its half-step current, and a dict of (steps,) rows
     fe, ke, jb (field and kinetic energy, current bias after each step),
-    iters (int32), resid, tracer_x and tracer_v."""
+    iters (int32), resid, tracer_x and tracer_v.
+
+    On the card the kernel runs as one cluster of 16 CTAs
+    (``implicit_resident_shape``) and takes ng <= 1024; it raises if the
+    card cannot hold the cluster."""
     kind = _device_kind((e0, e_prev, j0, p, v))
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in (("e0", e0), ("e_prev", e_prev), ("j0", j0)):
@@ -834,14 +927,15 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
     if kind == "cpu":
         return implicit_resident_plain(e0, e_prev, j0, p, v, ng, int(steps),
                                        **kw)
-    _check_smem(ng, _IMPLICIT_ARRAYS, "implicit_resident", _IMPLICIT_EXTRA)
+    shape = implicit_resident_shape(n, ng)
+    dev = p.device
+    _resident_clusters(dev.index if dev.index is not None
+                       else torch.cuda.current_device(), ng)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
-    dev = p.device
     s = int(steps)
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
-    ps = torch.empty_like(p)
     fields = torch.empty((3, ng), dtype=torch.float32, device=dev)
     rows = torch.zeros((6, s), dtype=torch.float32, device=dev)
     iters = torch.zeros((s,), dtype=torch.int32, device=dev)
@@ -849,12 +943,12 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
     with torch.cuda.device(dev):
         err = lib.pypic_implicit_resident(
             e0.data_ptr(), e_prev.data_ptr(), j0.data_ptr(), p.data_ptr(),
-            v.data_ptr(), p1.data_ptr(), v1.data_ptr(), ps.data_ptr(),
+            v.data_ptr(), p1.data_ptr(), v1.data_ptr(),
             fields[0].data_ptr(), fields[1].data_ptr(), fields[2].data_ptr(),
             rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(),
             iters.data_ptr(), rows[3].data_ptr(), rows[4].data_ptr(),
-            rows[5].data_ptr(), n, ng, s, qm_dt, qm_dt2_half, dt_dx, wf,
-            _inv(ng), float(np.float32(dt / EPSILON_0)),
+            rows[5].data_ptr(), n, shape.per_cta, ng, shape.cols, s, qm_dt,
+            qm_dt2_half, dt_dx, wf, _inv(ng), float(np.float32(dt / EPSILON_0)),
             float(np.float32(tol)), int(maxiter), int(bool(extrapolate)),
             int(bool(anderson)), int(bool(smooth)), int(tracer),
             float(fe_c), float(ke_c), jb_c, _stream(dev))

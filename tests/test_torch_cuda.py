@@ -249,7 +249,7 @@ def test_picard_iteration_shared_kernel_matches_plain(cuda_device, ng, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4097, 100_000, 131_072])
+@pytest.mark.parametrize("n", [4097, 100_000, 131_071, 131_072])
 @pytest.mark.parametrize("conf", ["field-none", "extrapolate-anderson"])
 def test_implicit_resident_kernel_matches_step_and_plain(cuda_device, conf, n):
     """25 resident steps in chunks of 8 (three launches and a remainder)
