@@ -30,7 +30,10 @@ Phases (any failure raises and the script exits non-zero):
    (grid_sample, timed beside it), and the resident kernel at n = 4097,
    10,000 and 32768 over 37 steps (chunks of 16) against 37 one-kernel
    cycles and its plain version, then one 2,000-step launch at n = 10,000
-   whose first 37 metric rows are held against the plain version's.
+   whose first 37 metric rows are held against the plain version's; then
+   timed by resident_explicit_times at the configs[0] row's shape (n =
+   10,000, 2,000 steps) and at n = 32,768: the median of three calls, with
+   µs a step.
 7. explicit check — two-stream loads (n = 20,000) at ng = 64 and 1536 and
    with per-particle q/m, 50 steps on the card and on the CPU.
 8. explicit slice — bench.py's two-stream cell (BASELINE configs[0]) at
@@ -257,6 +260,8 @@ BRANCH_STEPS = 5
 # n = 1e5, 1e6 and 4e6 (two seeds each); 6x room
 EXPLICIT_ENERGY_BOUND = 1e-3
 RESIDENT_N, RESIDENT_STEPS, RESIDENT_SPC = 10_000, 40_000, 2000
+# resident_explicit_times: the configs[0] row's n and the kernel's largest
+RESIDENT_EXPLICIT_TIMED_NS = (RESIDENT_N, 32_768)
 PER_STEP_STEPS = 2000
 
 # the implicit engine's resident kernel: 25 steps in chunks of 8 against 25
@@ -1129,12 +1134,45 @@ def phase_explicit_kernels(dev) -> dict:
         f"{_first_parting_row(ref[4], got[4], 1e-4)} of {RESIDENT_SPC}")
     if not all(bool(torch.isfinite(t).all()) for t in got):
         raise AssertionError(f"{label}: non-finite output")
-    del got, ref
-    records["explicit_cycle_resident"] = _rec(
-        worst, cuda_ms(lambda: K.explicit_cycle_resident(*args, **rkw), reps=5, calls=1),
-        cuda_ms(lambda: K.explicit_cycle_resident_plain(*args, **rkw), reps=1, calls=1),
-        "explicit_cycle_resident", RESIDENT_N, RESIDENT_SPC)
+    del got, ref, cfg, st, args
+    timed = resident_explicit_times(dev)
+    records["explicit_cycle_resident"] = dict(
+        timed[RESIDENT_N], max_abs_err=worst,
+        at_max_n=timed[RESIDENT_EXPLICIT_TIMED_NS[-1]])
     return records
+
+
+def resident_explicit_times(dev) -> dict:
+    """Device time of one 2,000-step launch of the resident explicit kernel
+    at the configs[0] row's load (tools/two_stream.py, ng = 200) for each n
+    of RESIDENT_EXPLICIT_TIMED_NS: the median of three calls, each the
+    median of five launches between CUDA events; with µs a step, the bound
+    and the plain version's time. It calls the wrapper by name alone, so it
+    times another tree of the port as well (a parent commit, for a paired
+    comparison in one chip call)."""
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import two_stream
+
+    out = {}
+    for n in RESIDENT_EXPLICIT_TIMED_NS:
+        cfg, _, st = two_stream.state(n, dev)
+        rkw = explicit.resident_kwargs(st, cfg)
+        args = (st.e, st.p, st.v, NG, RESIDENT_SPC)
+        calls = [cuda_ms(lambda: K.explicit_cycle_resident(*args, **rkw), reps=5, calls=1)
+                 for _ in range(3)]
+        ms = statistics.median(calls)
+        rec = _rec(None, ms, cuda_ms(lambda: K.explicit_cycle_resident_plain(*args, **rkw),
+                                     reps=1, calls=1),
+                   "explicit_cycle_resident", n, RESIDENT_SPC)
+        rec.update(ms_calls=calls, us_per_step=ms * 1e3 / RESIDENT_SPC)
+        log(f"[kernels]   explicit_cycle_resident at n = {n}, {RESIDENT_SPC} steps: "
+            f"{ms:.4f} ms (calls {', '.join(f'{t:.4f}' for t in calls)}), "
+            f"{rec['us_per_step']:.3f} us a step, bound {rec['bound_ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms")
+        out[n] = rec
+        del cfg, st, args
+    return out
 
 
 def phase_explicit_check(dev) -> None:
@@ -3865,7 +3903,8 @@ def main() -> int:
          "library_ms": records[kname].get("library_ms"),
          "n": records[kname]["n"],
          **{key: records[kname][key] for key in (
-            "ms_calls", "row_mix", "passes", "us_per_pass", "at_max_n")
+            "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
+            "at_max_n")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [

@@ -230,26 +230,154 @@ __global__ void explicit_cycle_kernel(
 //
 // Replaces pypic_tpu/ops/pallas_cic.py:_explicit_resident_kernel
 // (explicit_cycle_resident_pallas): `steps` explicit cycles in one launch,
-// with the per-step pre-push metric rows fe = sum(e^2), ke = sum(v^2),
-// jb = sum(v) (times their constants), for n <= 32768 and ng <= 1024.
+// with the per-step pre-push metric rows fe = fe_c sum(e^2),
+// ke = ke_c sum(v^2), jb = jb_c sum(v), for n <= 32768 and ng <= 1024.
 //
-// Bound on the H100: latency, not bytes or operations. The particles
-// cross device memory once per launch; each step is a chain of block and
-// cluster barriers. The population (32768 x 8 B = 256 KB) does not fit one
-// block's 227 KB, so the kernel is ONE thread-block cluster of 8 CTAs of
-// 1024 threads, each thread holding up to 4 particles in registers for the
-// whole launch. Each step: every CTA gathers from its own copy of E,
-// pushes, and deposits into its own histogram; cluster.sync(); every CTA
-// sums the 8 histograms through distributed shared memory in rank order
-// (so all CTAs hold the same rho, bit for bit) and solves it redundantly
-// (field_from_rho), so E never leaves shared memory. The histograms and
-// the metric partials alternate between two buffers by step parity, which
-// makes one cluster barrier per step enough: a buffer is zeroed again only
-// after the next barrier, when every CTA has finished reading it.
+// Bound on the H100: latency. The float32 work (25 operations a particle
+// and step) takes ~4 ns a step at the card's peak and the particles cross
+// device memory once a launch; a step is a chain of a sweep, barriers and
+// (ng,) work. The first port (one 8-CTA cluster x 1024 threads, float
+// atomics into one histogram, block_sum and a block scan for the solve)
+// took 9.46 µs a step at the configs[0] row (n = 10,000, ng = 200): 15
+// block barriers and one cluster barrier a step, node sums pulled by
+// remote loads one after another, shared-memory float atomics that this
+// card runs as compare-and-swap loops (tools/resident_split.py; PERF.md
+// §6).
+//
+// Design. ONE cluster of kResCtas = 8 CTAs of kResThreads = 512 threads
+// (cuda_cic.explicit_resident_shape: a function of (n, ng) alone, and
+// with it the order of every sum). 512 threads hold every n <= 32768 (8
+// particles a thread) and beat 256 and 1024 at the configs[0] row (NVIDIA
+// H100 80GB HBM3, 700 W, tools/resident_split.py: 6.52 ms a 2,000-step
+// launch against 7.18 and 7.12). Per step three block barriers and one
+// wait for the other CTAs' totals; no cluster barrier:
+//
+// * Particles. CTA r owns rows [r per_cta, (r + 1) per_cta); thread t
+//   holds rows begin + j 512 + t in registers for the whole launch.
+// * Deposit. Float atomics into lane columns, hist[node][lane], so a
+//   warp's atomics hit distinct words. After the block barrier (B0)
+//   each thread sums the columns of its nodes in a fixed order (rotated
+//   by lane: conflict-free), zeroes them and PUSHES the CTA's node totals
+//   into recv[step parity][rank][node] of all 8 CTAs by st.async, which
+//   counts its bytes on the receiving CTA's mbarrier. Each CTA waits on
+//   its own mbarrier for the step's 8 x ng totals, not on a cluster
+//   barrier. Receive buffers and mbarriers alternate by step parity: a
+//   CTA pushes step s + 2 only after every CTA's push of step s + 1 has
+//   reached it, which each CTA makes only after reading step s's totals.
+// * Field. Thread t owns a contiguous run of nodes and adds each node's 8
+//   totals in rank order, so every CTA holds bit-identical rho and E. The
+//   field of field_from_rho is a pointwise function of the prefix sum P
+//   of rho: T_i = P_i - (i + 1) m (m the mean), mean(T) =
+//   sum_k rho_k (ng - k) / ng - m (ng + 1) / 2, d = T - mean(T) and
+//   d_{i-1} = d_i - (rho_i - m), so e_i = dx / (2 eps0) (2 d_i - rho_i + m).
+//   P is a run, a warp scan and the warps' totals (B1); each thread then
+//   writes its nodes' e (B2). Float64 throughout, e rounded once.
+// * Metrics. Each warp's ke, jb partials are pushed to rank 0 with the
+//   totals (its mbarrier counts them too), and rank 0's warps leave their
+//   sums of e^2; rank 0's last warp adds them in a fixed order while the
+//   others push the next step's totals, off the step's chain.
 // ---------------------------------------------------------------------------
-constexpr int kResCtas = 8;
-constexpr int kResThreads = 1024;
-constexpr int kResPerThread = 4;  // 8 x 1024 x 4 = 32768 particles
+constexpr int kResCtas = 8;       // cuda_cic.RESIDENT_EXPLICIT_CLUSTER
+constexpr int kResThreads = 512;  // cuda_cic.RESIDENT_EXPLICIT_THREADS
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kResPerCta = 4096;  // 32768 / 8: the most rows a CTA owns
+constexpr int kResMaxNg = 1024;   // cuda_cic.RESIDENT_MAX_NG
+constexpr int kResCols = 32;      // deposit columns a node: one a lane
+
+__device__ __forceinline__ double warp_sum(double x) {
+  // lane 0 gets the warp's sum, a fixed tree over the lanes
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+// the address of the same shared-memory word in CTA `rank` of the cluster
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_async(unsigned addr, float x, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+      :: "r"(addr), "r"(__float_as_uint(x)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(unsigned addr, double x, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
+      :: "r"(addr), "l"(__double_as_longlong(x)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits for the phase of parity `parity` to complete. A push that never
+// arrives fails the launch after 60 s instead of hanging the card. A
+// whole 2,000-step launch takes ~6.5 ms (H100), so only a lost push, not
+// a time slice, preemption or debugger stalling a correct launch, runs
+// this long (%globaltimer counts on through those).
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 60000000000ull) __trap();
+}
+
+// Rank 0's last warp: row s's ke and jb from every warp's partials (in
+// buffer s % 3) and, for s + 1 < steps, row s + 1's fe from the warps'
+// sums of e^2 of the field solved in step s (fep), each in a fixed order.
+__device__ __forceinline__ void write_rows(const double* part, const double* fep,
+                                           int s, int steps, float* fe_row,
+                                           float* ke_row, float* jb_row,
+                                           double fe_c, double ke_c,
+                                           double jb_c) {
+  const int lane = threadIdx.x & 31;
+  const double* pb = part + (s % 3) * kResCtas * kResWarps * 2;
+  double ke = 0.0, jb = 0.0;
+  for (int q = lane; q < kResCtas * kResWarps; q += 32) {
+    ke += pb[2 * q];
+    jb += pb[2 * q + 1];
+  }
+  ke = warp_sum(ke);
+  jb = warp_sum(jb);
+  if (lane == 0) {
+    ke_row[s] = (float)(ke_c * ke);
+    jb_row[s] = (float)(jb_c * jb);
+    if (s + 1 < steps) {
+      double fe = 0.0;
+      for (int q = 0; q < kResWarps; ++q) fe += fep[q];
+      fe_row[s + 1] = (float)(fe_c * fe);
+    }
+  }
+}
 
 __global__ void __cluster_dims__(kResCtas, 1, 1) __launch_bounds__(kResThreads, 1)
 explicit_resident_kernel(const float* __restrict__ e0,
@@ -258,105 +386,197 @@ explicit_resident_kernel(const float* __restrict__ e0,
                          float* __restrict__ p_out, float* __restrict__ v_out,
                          float* __restrict__ rho_out, float* __restrict__ e_out,
                          float* __restrict__ fe_row, float* __restrict__ ke_row,
-                         float* __restrict__ jb_row, int n, int ng, int steps,
-                         float qmh, float dt_dx, float w, float inv_ng,
-                         double c_solve, double fe_c, double ke_c, double jb_c) {
+                         float* __restrict__ jb_row, int n, int per_cta, int ng,
+                         int steps, float qmh, float dt_dx, float w,
+                         float inv_ng, double c_solve, double fe_c, double ke_c,
+                         double jb_c) {
+  constexpr int kThreads = kResThreads, kWarps = kResWarps;
+  constexpr int kSlots = kResPerCta / kThreads;
+  constexpr int kNodes = kResMaxNg / kThreads;  // the most nodes a thread owns
   cg::cluster_group cluster = cg::this_cluster();
-  const unsigned int rank = cluster.block_rank();
-  const int t = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   extern __shared__ double smem_d[];
-  double* scr = smem_d;                 // ng
-  double* red = scr + ng;               // 32
-  double* part = red + 32;              // [2 parities][ke, jb]
-  float* s_e = (float*)(part + 4);      // ng: this step's field
-  float* s_rho = s_e + ng;              // ng: the cluster's summed rho
-  float* s_hist = s_rho + ng;           // [2 parities][ng]: this CTA's deposit
+  double* part = smem_d;          // [step % 3][rank][warp][ke, jb]: rank 0's
+  double* tot = part + 6 * kResCtas * kWarps;  // [warp]: its nodes' sum(rho)
+  double* wts = tot + kWarps;     // [warp]: sum(rho_i (ng - i))
+  double* fep = wts + kWarps;     // [warp]: sum(e^2), rank 0's
+  unsigned long long* bars = (unsigned long long*)(fep + kWarps);
+  float* hist = (float*)(bars + 2);        // [node][column]: the deposit
+  float* recv = hist + kResCols * ng;      // [step parity][rank][node]
+  float* s_e = recv + 2 * kResCtas * ng;   // the step's field
 
-  const int per_cta = (n + kResCtas - 1) / kResCtas;
-  const int begin = (int)rank * per_cta;
-  const int end = min(begin + per_cta, n);
-  float p[kResPerThread], v[kResPerThread];
+  // the particles, in registers for the whole launch: slot j of thread t
+  // holds row begin + j kThreads + t iff j kThreads < lim
+  const int begin = rank * per_cta;
+  const int lim = min(begin + per_cta, n) - begin - t;
+  float P[kSlots], V[kSlots];
 #pragma unroll
-  for (int k = 0; k < kResPerThread; ++k) {
-    const int i = begin + t + k * kResThreads;
-    p[k] = i < end ? p_in[i] : 0.0f;
-    v[k] = i < end ? v_in[i] : 0.0f;
+  for (int j = 0; j < kSlots; ++j) {
+    P[j] = 0.0f;
+    V[j] = 0.0f;
+    if (j * kThreads < lim) {
+      P[j] = p_in[begin + j * kThreads + t];
+      V[j] = v_in[begin + j * kThreads + t];
+    }
   }
-  for (int i = t; i < ng; i += kResThreads) {
-    s_e[i] = e0[i];
-    s_hist[i] = 0.0f;
-    s_hist[ng + i] = 0.0f;
+  // thread t owns nodes [lo, lo + kNodes) below ng: contiguous runs, so
+  // the prefix sums are a run, a warp scan and the warps' totals
+  const int lo = t * ((ng + kThreads - 1) / kThreads);
+  const int hi = min(lo + (ng + kThreads - 1) / kThreads, ng);
+  for (int i = t; i < ng; i += kThreads) s_e[i] = e0[i];
+  for (int i = t; i < kResCols * ng; i += kThreads) hist[i] = 0.0f;
+  const double inv_ngd = 1.0 / ng;
+  // a step's bytes into this CTA: 8 x ng totals, and at rank 0 the
+  // partials of every warp of the cluster
+  const unsigned bytes = kResCtas * ng * 4 + (rank == 0 ? kResCtas * kWarps * 16 : 0);
+  if (t == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(bars + b), 1);
+      mbar_expect(smem_u32(bars + b), bytes);  // steps 0 and 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (rank == 0 && warp == 0) {
+    double fe = 0.0;
+    for (int i = lane; i < ng; i += 32) fe += (double)e0[i] * (double)e0[i];
+    fe = warp_sum(fe);
+    if (lane == 0) fe_row[0] = (float)(fe_c * fe);
   }
   const float ngf = (float)ng;
-  cluster.sync();  // every CTA's shared memory is live before remote reads
+  cluster.sync();  // every CTA's shared memory and mbarriers are live
 
   for (int s = 0; s < steps; ++s) {
     const int b = s & 1;
-    float* hist = s_hist + b * ng;
     double ke = 0.0, jb = 0.0;
 #pragma unroll
-    for (int k = 0; k < kResPerThread; ++k) {
-      if (begin + t + k * kResThreads >= end) continue;
-      ke += (double)v[k] * (double)v[k];  // pre-push, as the step's metrics
-      jb += (double)v[k];
-      const float e = gather(s_e, cic_periodic(p[k], ng));
-      leapfrog(p[k], v[k], e, qmh, dt_dx, ngf, inv_ng, p[k], v[k]);
-      const Cic c = cic_periodic(p[k], ng);
-      atomicAdd(&hist[c.l], __fmul_rn(w, c.wl));
-      atomicAdd(&hist[c.r], __fmul_rn(w, c.wr));
-    }
-    ke = block_sum(ke, red);
-    jb = block_sum(jb, red);
-    double fe = 0.0;
-    for (int i = t; i < ng; i += kResThreads) fe += (double)s_e[i] * (double)s_e[i];
-    fe = block_sum(fe, red);
-    if (t == 0) {
-      part[2 * b] = ke;
-      part[2 * b + 1] = jb;
-    }
-    cluster.sync();  // hist[b] and part[b] are complete in every CTA
-
-    for (int i = t; i < ng; i += kResThreads) {
-      float r = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kResCtas; ++q) r += cluster.map_shared_rank(hist, q)[i];
-      s_rho[i] = r;
-    }
-    if (rank == 0 && t == 0) {
-      double k_sum = 0.0, j_sum = 0.0;
-      for (int q = 0; q < kResCtas; ++q) {
-        const double* rp = cluster.map_shared_rank(part, q);
-        k_sum += rp[2 * b];
-        j_sum += rp[2 * b + 1];
+    for (int j = 0; j < kSlots; ++j) {
+      if (j * kThreads < lim) {
+        const float v = V[j];
+        ke += (double)v * (double)v;  // pre-push, as the step's metrics
+        jb += (double)v;
+        const float e = gather(s_e, cic_periodic(P[j], ng));
+        leapfrog(P[j], v, e, qmh, dt_dx, ngf, inv_ng, P[j], V[j]);
+        const Cic c = cic_periodic(P[j], ng);
+        atomicAdd(&hist[c.l * kResCols + lane], __fmul_rn(w, c.wl));
+        atomicAdd(&hist[c.r * kResCols + lane], __fmul_rn(w, c.wr));
       }
-      fe_row[s] = (float)(fe_c * fe);
-      ke_row[s] = (float)(ke_c * k_sum);
-      jb_row[s] = (float)(jb_c * j_sum);
     }
-    // the other parity's histogram was last read remotely in step s - 1,
-    // before every CTA reached this step's barrier
-    float* next = s_hist + (1 - b) * ng;
-    for (int i = t; i < ng; i += kResThreads) next[i] = 0.0f;
-    __syncthreads();
-    field_from_rho(s_rho, s_e, ng, c_solve, scr, red);
+    ke = warp_sum(ke);
+    jb = warp_sum(jb);
+    if (lane == 0) {
+      double* to = part + (((s % 3) * kResCtas + rank) * kWarps + warp) * 2;
+      const unsigned bar0 = cluster_addr(smem_u32(bars + b), 0);
+      st_async(cluster_addr(smem_u32(to), 0), ke, bar0);
+      st_async(cluster_addr(smem_u32(to + 1), 0), jb, bar0);
+    }
+    __syncthreads();  // (B0) this CTA's deposit is complete
+
+    for (int i = lo; i < hi; ++i) {
+      // node i's columns in the order (lane + k) mod 32 (a warp's reads
+      // fall on 32 banks), zeroed, and the total pushed to every CTA
+      float* hc = hist + i * kResCols;
+      float x = 0.0f;
+      for (int k = 0; k < kResCols; ++k) x = __fadd_rn(x, hc[(lane + k) & (kResCols - 1)]);
+      for (int k = 0; k < kResCols; ++k) hc[(lane + k) & (kResCols - 1)] = 0.0f;
+      float* slot = recv + (b * kResCtas + rank) * ng + i;
+#pragma unroll
+      for (int q = 0; q < kResCtas; ++q)
+        st_async(cluster_addr(smem_u32(slot), q), x,
+                 cluster_addr(smem_u32(bars + b), q));
+    }
+    // rank 0's last warp, off the chain while the others push: the rows of
+    // step s - 1 (its partials arrived before this CTA's last wait)
+    if (rank == 0 && warp == kWarps - 1 && s > 0)
+      write_rows(part, fep, s - 1, steps, fe_row, ke_row, jb_row, fe_c, ke_c,
+                 jb_c);
+    // the step's 8 x ng totals (and rank 0's partials) are here
+    mbar_wait(smem_u32(bars + b), (unsigned)(s >> 1) & 1u);
+    // the next phase of this mbarrier is step s + 2's; no push of step
+    // s + 2 can come before this CTA's push of step s + 1
+    if (t == 0 && s + 2 < steps) mbar_expect(smem_u32(bars + b), bytes);
+
+    // The field of rho in the direct form of field_from_rho: with P the
+    // prefix sum of rho and m its mean, T_i = P_i - (i + 1) m,
+    // mean(T) = sum_k rho_k (ng - k) / ng - m (ng + 1) / 2, d = T - mean(T)
+    // and d_{i-1} = d_i - (rho_i - m) (also at i = 0: d_{-1} = d_{ng-1}),
+    //   e_i = dx / (2 eps0) (d_i + d_{i-1}),
+    // a function of P_i and rho_i alone. Float64; every CTA holds the same
+    // rho (the 8 totals in rank order) and sums in the same order.
+    float r[kNodes];
+    double a = 0.0, wt = 0.0;
+#pragma unroll
+    for (int k = 0; k < kNodes; ++k) {
+      r[k] = 0.0f;
+      if (lo + k < hi) {
+        const float* rv = recv + b * kResCtas * ng + lo + k;
+#pragma unroll
+        for (int q = 0; q < kResCtas; ++q) r[k] = __fadd_rn(r[k], rv[q * ng]);
+        a += (double)r[k];
+        wt += (double)r[k] * (double)(ng - lo - k);
+      }
+    }
+    double inc = a;  // inclusive scan of the warp's runs
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    wt = warp_sum(wt);
+    if (lane == 31) tot[warp] = inc;
+    if (lane == 0) wts[warp] = wt;
+    __syncthreads();  // (B1) the warps' sums are in shared memory
+    double base = 0.0, total = 0.0, wtot = 0.0;
+    for (int q = 0; q < kWarps; ++q) {
+      if (q == warp) base = total;
+      total += tot[q];
+      wtot += wts[q];
+    }
+    const double mean = total * inv_ngd;
+    const double mean_t = wtot * inv_ngd - mean * (0.5 * (double)(ng + 1));
+    double run = base + (inc - a), fe = 0.0;
+#pragma unroll
+    for (int k = 0; k < kNodes; ++k) {
+      if (lo + k < hi) {
+        const double rk = (double)r[k];
+        run += rk;
+        const double d = (run - (double)(lo + k + 1) * mean) - mean_t;
+        const float e = (float)(c_solve * (d + (d - (rk - mean))));
+        s_e[lo + k] = e;
+        fe += (double)e * (double)e;
+        if (rank == 0 && s + 1 == steps) rho_out[lo + k] = r[k];
+      }
+    }
+    if (rank == 0) {
+      // (read by the last warp between the next B0 and B1)
+      fe = warp_sum(fe);
+      if (lane == 0) fep[warp] = fe;
+    }
+    __syncthreads();  // (B2) the next step's field is complete
   }
-  cluster.sync();  // no CTA exits while another may still read its memory
+  cluster.sync();  // no CTA exits while another may still write into it
 
 #pragma unroll
-  for (int k = 0; k < kResPerThread; ++k) {
-    const int i = begin + t + k * kResThreads;
-    if (i < end) {
-      p_out[i] = p[k];
-      v_out[i] = v[k];
+  for (int j = 0; j < kSlots; ++j) {
+    if (j * kThreads < lim) {
+      p_out[begin + j * kThreads + t] = P[j];
+      v_out[begin + j * kThreads + t] = V[j];
     }
   }
   if (rank == 0) {
-    for (int i = t; i < ng; i += kResThreads) {
-      rho_out[i] = s_rho[i];
-      e_out[i] = s_e[i];
-    }
+    if (warp == kWarps - 1)
+      write_rows(part, fep, steps - 1, steps, fe_row, ke_row, jb_row, fe_c,
+                 ke_c, jb_c);
+    for (int i = t; i < ng; i += kThreads) e_out[i] = s_e[i];
   }
 }
+
+// the shared memory of a launch (cuda_cic.explicit_resident_shape's smem)
+constexpr size_t resident_smem(int ng) {
+  return (size_t)(6 * kResCtas + 3) * kResWarps * sizeof(double) +
+         2 * sizeof(unsigned long long) +
+         ((size_t)kResCols + 2 * kResCtas + 1) * ng * sizeof(float);
+}
+static_assert(resident_smem(kResMaxNg) <= 232448, "a block's shared memory");
 
 }  // namespace
 
@@ -406,19 +626,27 @@ int pypic_explicit_cycle(const float* field, const float* p, const float* v,
   return (int)cudaGetLastError();
 }
 
+// per_cta: the rows a CTA owns, ceil(n / 8) (at most 4096); 2 <= ng <=
+// 1024; steps >= 1.
 int pypic_explicit_resident(const float* e0, const float* p, const float* v,
                             float* p1, float* v1, float* rho, float* e1,
-                            float* fe, float* ke, float* jb, int n, int ng,
-                            int steps, float qmh, float dt_dx, float w,
+                            float* fe, float* ke, float* jb, int n, int per_cta,
+                            int ng, int steps, float qmh, float dt_dx, float w,
                             float inv_ng, double c_solve, double fe_c,
                             double ke_c, double jb_c, void* stream) {
-  const size_t smem = (size_t)(ng + 32 + 4) * sizeof(double) + 4 * (size_t)ng * sizeof(float);
+  if (ng < 2 || ng > kResMaxNg || per_cta < 0 || per_cta > kResPerCta ||
+      (long long)per_cta * kResCtas < n || steps < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = resident_smem(ng);
   cudaError_t err = allow_smem(explicit_resident_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   explicit_resident_kernel<<<kResCtas, kResThreads, smem, (cudaStream_t)stream>>>(
-      e0, p, v, p1, v1, rho, e1, fe, ke, jb, n, ng, steps, qmh, dt_dx, w, inv_ng,
-      c_solve, fe_c, ke_c, jb_c);
+      e0, p, v, p1, v1, rho, e1, fe, ke, jb, n, per_cta, ng, steps, qmh, dt_dx,
+      w, inv_ng, c_solve, fe_c, ke_c, jb_c);
   return (int)cudaGetLastError();
 }
+
+// the shared memory a launch at ng takes, for the tests
+long long pypic_explicit_resident_smem(int ng) { return (long long)resident_smem(ng); }
 
 }  // extern "C"

@@ -66,8 +66,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _D, _I, _I, _P],
         _I),
     "pypic_explicit_resident": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-         _D, _D, _D, _D, _P], _I),
+        [_P] * 10 + [_I] * 4 + [_F] * 4 + [_D] * 4 + [_P], _I),
+    "pypic_explicit_resident_smem": ([_I], _L),
     "pypic_deposit2": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "pypic_boris_gather_push": (
         [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),

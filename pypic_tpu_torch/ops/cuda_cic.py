@@ -18,7 +18,8 @@ implicit headline step and the explicit engine reach:
 * ``explicit_cycle``        — ``explicit_cycle_pallas`` (the same sweep and
   the rho -> E solve, in one launch);
 * ``explicit_cycle_resident`` — ``explicit_cycle_resident_pallas`` (S
-  explicit cycles per launch with per-step metric rows, n <= 32768);
+  explicit cycles per launch with per-step metric rows, n <= 32768; one
+  8-CTA cluster, its launch shape ``explicit_resident_shape``);
 * ``picard_finalize``       — ``picard_finalize_pallas`` (the converged
   finalize sweep plus the full-step current deposit,
   finalize='converged-deposit');
@@ -689,10 +690,68 @@ def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
     return p1, v1, buf[:ng], e1
 
 
-RESIDENT_MAX_N = 32768  # one cluster of 8 blocks x 1024 threads x 4 particles
-# shared memory of the resident kernel: e, rho and two histograms (4 ng
-# floats), ng + 36 float64 of solve and reduction scratch
-_RESIDENT_ARRAYS, _RESIDENT_EXTRA = 6, 36 * 8
+RESIDENT_MAX_N = 32768  # pallas_cic._RESIDENT_MAX_N
+RESIDENT_MAX_NG = 1024  # the engine's limit (ONE_KERNEL_MAX_NG)
+# the launch of csrc/explicit.cu: ONE cluster of 8 CTAs of 512 threads,
+# each CTA holding at most 4096 particles in registers (8 a thread), the
+# deposit in 32 columns a node (one a lane)
+RESIDENT_EXPLICIT_CLUSTER = 8
+RESIDENT_EXPLICIT_THREADS = 512
+RESIDENT_EXPLICIT_COLS = 32
+RESIDENT_EXPLICIT_ROWS = RESIDENT_MAX_N // RESIDENT_EXPLICIT_CLUSTER
+
+
+@dataclasses.dataclass(frozen=True)
+class ExplicitResidentShape:
+    """The launch of the resident explicit kernel for (n, ng): ``cluster``
+    CTAs of ``threads`` threads; CTA r owns rows [r per_cta, (r + 1)
+    per_cta) (clipped to n), thread t of it rows r per_cta + j threads + t
+    for j < per_thread; ``smem`` bytes of shared memory a CTA."""
+    cluster: int
+    threads: int
+    per_cta: int
+    per_thread: int
+    smem: int
+
+
+def explicit_resident_shape(n: int, ng: int) -> ExplicitResidentShape:
+    """The partition of n particles over the kernel's one cluster, a
+    function of (n, ng) alone, and with it the order of its sums. Raises
+    past n = 32,768 or ng = 1,024.
+
+    Shared memory a CTA (the kernel's ``resident_smem``): the ke, jb
+    partials rank 0 receives (three steps' worth: 6 float64 a warp of the
+    cluster), three float64 a warp of the field solve's sums, two
+    mbarriers, the deposit's columns (32 x ng float32), the received
+    totals of two step parities (2 x 8 x ng) and the field (ng)."""
+    if n > RESIDENT_MAX_N:
+        raise ValueError(
+            f"resident cycle requires n <= {RESIDENT_MAX_N} (got {n})")
+    if ng > RESIDENT_MAX_NG:
+        raise ValueError(
+            f"resident cycle requires ng <= {RESIDENT_MAX_NG} (got {ng})")
+    ctas, threads = RESIDENT_EXPLICIT_CLUSTER, RESIDENT_EXPLICIT_THREADS
+    per_cta = -(-n // ctas)
+    warps = threads // 32
+    smem = (8 * (6 * ctas + 3) * warps + 16
+            + 4 * (RESIDENT_EXPLICIT_COLS + 2 * ctas + 1) * ng)
+    return ExplicitResidentShape(
+        cluster=ctas, threads=threads, per_cta=per_cta,
+        per_thread=-(-per_cta // threads), smem=smem)
+
+
+def explicit_resident_rows(n: int, ng: int) -> np.ndarray:
+    """(cluster, threads, slots) int array: the particle row each slot of
+    each thread holds, -1 where it holds none (the kernel's map; slots =
+    RESIDENT_EXPLICIT_ROWS / threads)."""
+    shape = explicit_resident_shape(n, ng)
+    r = np.arange(shape.cluster)[:, None, None]
+    t = np.arange(shape.threads)[None, :, None]
+    j = np.arange(RESIDENT_EXPLICIT_ROWS // shape.threads)[None, None, :]
+    begin = r * shape.per_cta
+    rows = begin + j * shape.threads + t
+    end = np.minimum(begin + shape.per_cta, n)
+    return np.where(rows < end, rows, -1)
 
 
 def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
@@ -701,7 +760,10 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
     """``steps`` explicit cycles in one launch with the population held on
     chip (n <= 32768). Returns (p1, v1, rho1, e1, fe, ke, jb), the last
     three (steps,) rows of the pre-push field energy fe_c sum(e^2), kinetic
-    energy ke_c sum(v^2) and current bias jb_c sum(v)."""
+    energy ke_c sum(v^2) and current bias jb_c sum(v).
+
+    On the card the kernel runs as one cluster of 8 CTAs
+    (``explicit_resident_shape``) and takes ng <= 1024."""
     kind, n, _ = _check_leapfrog(e_field, p, v)
     _check_1d("e_field", e_field, ng)
     if n > RESIDENT_MAX_N:
@@ -714,8 +776,7 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
         return explicit_cycle_resident_plain(
             e_field, p, v, ng, int(steps), qm=qm, w=w, ke_c=ke_c, jb_c=jb_c,
             dt=dt, dx=dx, fe_c=fe_c)
-    _check_smem(ng, _RESIDENT_ARRAYS, "explicit_cycle_resident",
-                _RESIDENT_EXTRA)
+    shape = explicit_resident_shape(n, ng)
     lib = _build.library()
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
     dev = p.device
@@ -727,9 +788,10 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
         err = lib.pypic_explicit_resident(
             e_field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
             v1.data_ptr(), fields[0].data_ptr(), fields[1].data_ptr(),
-            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(), n, ng,
-            int(steps), qmh, dt_dx, wf, _inv(ng), _solve_coef(dx),
-            float(fe_c), float(ke_c), float(jb_c), _stream(dev))
+            rows[0].data_ptr(), rows[1].data_ptr(), rows[2].data_ptr(), n,
+            shape.per_cta, ng, int(steps), qmh, dt_dx, wf, _inv(ng),
+            _solve_coef(dx), float(fe_c), float(ke_c), float(jb_c),
+            _stream(dev))
     _build.check(err, "explicit_cycle_resident")
     LAUNCHES["explicit_cycle_resident"] += 1
     return p1, v1, fields[0], fields[1], rows[0], rows[1], rows[2]

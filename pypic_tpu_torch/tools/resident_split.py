@@ -1,27 +1,35 @@
-"""Where a launch of the resident implicit kernel spends its time, on the
-card: copies of a kernel source with one stage cut out, each built by nvcc
-into its own library outside the package's.
+"""Where a launch of a resident kernel spends its time, on the card: copies
+of a kernel source with one stage cut out, each built by nvcc into its own
+library outside the package's.
 
     python -m pypic_tpu_torch.tools.resident_split [--first-port SOURCE]
+    python -m pypic_tpu_torch.tools.resident_split --kernel explicit
 
-The cuts are text edits of ``csrc/implicit.cu`` (the edits are written
-against that source and fail loudly when it changes). With
-``--first-port`` the tool also splits the first port's kernel (one 8-CTA
-cluster, the particles in device memory), given its source file, for
-example from ``git show 64e2430:pypic_tpu_torch/csrc/implicit.cu``. Each
-cut runs at the configs[1] row's shape (tools/landau.py: n = 1e5, ng =
-200, one 64-step launch, tol 1e-6, maxiter 50, picard_init 'field', no
-Anderson); a cut that changes the arithmetic runs the pass counts the
-full kernel ran. Times are CUDA events, the median of five launches,
-two rounds; the tool prints the atomic instructions each full kernel
-compiles to (cuobjdump) and one JSON line. It needs an NVIDIA GPU and
-nvcc.
+The cuts are text edits of ``csrc/implicit.cu`` (``--kernel implicit``,
+the default) or of ``csrc/explicit.cu`` (``--kernel explicit``); the edits
+are written against those sources and fail loudly when they change. With
+``--first-port`` the tool also splits the implicit kernel's first port
+(one 8-CTA cluster, the particles in device memory), given its source
+file, for example from ``git show
+64e2430:pypic_tpu_torch/csrc/implicit.cu``.
+
+The implicit cuts run at the configs[1] row's shape (tools/landau.py: n =
+1e5, ng = 200, one 64-step launch, tol 1e-6, maxiter 50, picard_init
+'field', no Anderson); a cut that changes the arithmetic runs the pass
+counts the full kernel ran. The explicit cuts run at the configs[0] row's
+(tools/two_stream.py: n = 10,000, ng = 200, one 2,000-step launch), and
+the full kernel also at the kernel's largest n, 32,768. Times are
+CUDA events, the median of five launches, two rounds; the tool prints the
+shared-memory atomic instructions each full kernel compiles to
+(cuobjdump), its spill (``-Xptxas -v``) and one JSON line. It needs an
+NVIDIA GPU and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -31,11 +39,14 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON_0
-from ..engines import implicit
+from ..engines import explicit, implicit
 from ..ops import _build, cuda_cic
-from . import landau
+from . import landau, two_stream
 
 OUT_DIR = _build.BUILD_DIR / "resident_split"
+# the configs[0] row: one launch of run_resident (tools/two_stream.py) at
+# its n, and the full kernel at the kernel's largest n
+EXPLICIT_NS, EXPLICIT_STEPS = (10_000, 32_768), 2000
 
 # the current kernel: CUT selects the stage taken out
 CURRENT_CUTS = {
@@ -173,6 +184,88 @@ _FIRST_PORT_EDITS = [
      "      jb_c, mode, forced);\n  return (int)cudaGetLastError();"),
 ]
 
+# the current explicit kernel: CUT selects the stage taken out
+EXPLICIT_CUTS = {
+    "full": 0,
+    "no deposit": 1,                 # the sweep without its atomics
+    "no sweep": 2,
+    "no field solve": 3,             # e kept: no scan, no new e
+    "cluster barrier, local stores": 4,  # each CTA's totals kept in itself
+    "cluster barrier": 5,            # remote stores and cluster.sync a step,
+                                     # in place of st.async and the mbarrier
+    "barriers and wait only": 6,     # no sweep, sums or solve: the three
+                                     # block barriers, the pushes and the wait
+    "barriers and cluster barrier only": 7,  # the same with cluster.sync
+}
+_EXPLICIT_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
+     "#define SYNC_ONLY (CUT == 6 || CUT == 7)\n"
+     "#define CLUSTER_SYNC (CUT == 4 || CUT == 5 || CUT == 7)"),
+    ("      const unsigned bar0 = cluster_addr(smem_u32(bars + b), 0);\n"
+     "      st_async(cluster_addr(smem_u32(to), 0), ke, bar0);\n"
+     "      st_async(cluster_addr(smem_u32(to + 1), 0), jb, bar0);\n",
+     "#if CLUSTER_SYNC\n"
+     "      double* remote = cluster.map_shared_rank(to, 0);\n"
+     "      remote[0] = ke;\n      remote[1] = jb;\n#else\n"
+     "      const unsigned bar0 = cluster_addr(smem_u32(bars + b), 0);\n"
+     "      st_async(cluster_addr(smem_u32(to), 0), ke, bar0);\n"
+     "      st_async(cluster_addr(smem_u32(to + 1), 0), jb, bar0);\n#endif\n"),
+    ("#pragma unroll\n"
+     "      for (int q = 0; q < kResCtas; ++q)\n"
+     "        st_async(cluster_addr(smem_u32(slot), q), x,\n"
+     "                 cluster_addr(smem_u32(bars + b), q));\n",
+     "#if CLUSTER_SYNC\n"
+     "      for (int q = 0; q < kResCtas; ++q)\n"
+     "        *cluster.map_shared_rank(slot, CUT == 4 ? rank : q) = x;\n#else\n"
+     "      for (int q = 0; q < kResCtas; ++q)\n"
+     "        st_async(cluster_addr(smem_u32(slot), q), x,\n"
+     "                 cluster_addr(smem_u32(bars + b), q));\n#endif\n"),
+    ("    mbar_wait(smem_u32(bars + b), (unsigned)(s >> 1) & 1u);\n"
+     "    // the next phase of this mbarrier is step s + 2's; no push of step\n"
+     "    // s + 2 can come before this CTA's push of step s + 1\n"
+     "    if (t == 0 && s + 2 < steps) mbar_expect(smem_u32(bars + b), bytes);\n",
+     "#if CLUSTER_SYNC\n    cluster.sync();\n#else\n"
+     "    mbar_wait(smem_u32(bars + b), (unsigned)(s >> 1) & 1u);\n"
+     "    if (t == 0 && s + 2 < steps) mbar_expect(smem_u32(bars + b), bytes);\n#endif\n"),
+    ("  cg::cluster_group cluster = cg::this_cluster();\n"
+     "  const int rank = (int)cluster.block_rank();",
+     "  float sink = 0.0f;\n  cg::cluster_group cluster = cg::this_cluster();\n"
+     "  const int rank = (int)cluster.block_rank();"),
+    ("      if (j * kThreads < lim) {\n        const float v = V[j];",
+     "      if (CUT != 2 && !SYNC_ONLY && j * kThreads < lim) {\n"
+     "        const float v = V[j];"),
+    ("        atomicAdd(&hist[c.l * kResCols + lane], __fmul_rn(w, c.wl));\n"
+     "        atomicAdd(&hist[c.r * kResCols + lane], __fmul_rn(w, c.wr));",
+     "        if (CUT == 1) {\n"
+     "          sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(w, c.wl), __fmul_rn(w, c.wr))"
+     " + (float)(c.l * kResCols + lane));\n        } else {\n"
+     "        atomicAdd(&hist[c.l * kResCols + lane], __fmul_rn(w, c.wl));\n"
+     "        atomicAdd(&hist[c.r * kResCols + lane], __fmul_rn(w, c.wr));\n        }"),
+    ("      for (int k = 0; k < kResCols; ++k) x = __fadd_rn(x, hc[(lane + k) & (kResCols - 1)]);\n"
+     "      for (int k = 0; k < kResCols; ++k) hc[(lane + k) & (kResCols - 1)] = 0.0f;",
+     "      if (!SYNC_ONLY) {\n"
+     "      for (int k = 0; k < kResCols; ++k) x = __fadd_rn(x, hc[(lane + k) & (kResCols - 1)]);\n"
+     "      for (int k = 0; k < kResCols; ++k) hc[(lane + k) & (kResCols - 1)] = 0.0f;\n      }"),
+    ("    if (rank == 0 && warp == kWarps - 1 && s > 0)",
+     "    if (!SYNC_ONLY && rank == 0 && warp == kWarps - 1 && s > 0)"),
+    ("#pragma unroll\n"
+     "        for (int q = 0; q < kResCtas; ++q) r[k] = __fadd_rn(r[k], rv[q * ng]);",
+     "        if (!SYNC_ONLY)\n"
+     "          for (int q = 0; q < kResCtas; ++q) r[k] = __fadd_rn(r[k], rv[q * ng]);"),
+    ("    for (int o = 1; o < 32; o <<= 1) {\n"
+     "      const double y = __shfl_up_sync(0xffffffffu, inc, o);",
+     "    if (CUT != 3 && !SYNC_ONLY)\n"
+     "    for (int o = 1; o < 32; o <<= 1) {\n"
+     "      const double y = __shfl_up_sync(0xffffffffu, inc, o);"),
+    ("      if (lo + k < hi) {\n        const double rk = (double)r[k];",
+     "      if (CUT != 3 && !SYNC_ONLY && lo + k < hi) {\n"
+     "        const double rk = (double)r[k];"),
+    ("  if (rank == 0) {\n    if (warp == kWarps - 1)",
+     "  if (sink == 1.2345e30f) rho_out[0] = sink;\n"
+     "  if (rank == 0) {\n    if (warp == kWarps - 1)"),
+]
+
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _CURRENT_ARGS = [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_P, _P]
 _FIRST_PORT_ARGS = [_P] * 18 + [_I] * 3 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_I, _P, _P]
@@ -186,13 +279,13 @@ def _edited(text: str, edits) -> str:
     return text
 
 
-def _build_all(jobs) -> dict:
-    """jobs: {tag: (source text, extra nvcc flags)} -> {tag: loaded CDLL},
-    one nvcc each, all at once."""
+def _build_all(jobs) -> tuple[dict, dict]:
+    """jobs: {tag: (source text, extra nvcc flags)} -> ({tag: loaded CDLL},
+    {tag: the compiler's log}), one nvcc each, all at once."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (text, flags) in jobs.items():
-        stem = tag.replace(" ", "_").replace(",", "").replace("(", "").replace(")", "")
+        stem = "".join(ch if ch.isalnum() else "_" for ch in tag)
         src = OUT_DIR / f"{stem}.cu"
         src.write_text(text)
         lib = OUT_DIR / f"lib{stem}.so"
@@ -200,27 +293,42 @@ def _build_all(jobs) -> dict:
                *flags, "-o", str(lib), str(src)]
         procs[tag] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
-    libs = {}
+    libs, logs = {}, {}
     for tag, (lib, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
-        spills = sorted({line.strip() for line in log.splitlines() if "spill" in line})
-        print(f"[build] {tag}: {'; '.join(spills)}", flush=True)
-        libs[tag] = ctypes.CDLL(str(lib))
-    return libs
+        libs[tag], logs[tag] = ctypes.CDLL(str(lib)), log
+    return libs, logs
 
 
-def _atomics(lib_path: Path) -> dict:
-    """Shared-memory atomic opcodes in a library's SASS, by count."""
+def _kernel_report(log: str, word: str) -> list:
+    """Registers and spill of each kernel whose (mangled) name holds
+    ``word``, from the ``-Xptxas -v`` log."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and word in name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def _atomics(lib_path: Path, word: str = "") -> dict:
+    """Shared-memory atomic opcodes in the SASS of a library's kernels whose
+    name holds ``word``, by count."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
                           text=True).stdout
-    counts = {}
+    counts, inside = {}, True
     for line in sass.splitlines():
-        for word in line.replace(";", " ").split():
-            if word.startswith("ATOMS"):
-                counts[word] = counts.get(word, 0) + 1
+        if "Function :" in line:
+            inside = word in line
+        if not inside:
+            continue
+        for w in line.replace(";", " ").split():
+            if w.startswith("ATOMS"):
+                counts[w] = counts.get(w, 0) + 1
     return counts
 
 
@@ -239,17 +347,8 @@ def _timed(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def main() -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--first-port", type=Path,
-                    help="the first port's csrc/implicit.cu, split as well")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs an NVIDIA GPU")
-    dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+def _split_implicit(args, dev) -> tuple[dict, dict, dict]:
+    """The implicit kernel's jobs and their calls at the configs[1] row."""
     jobs = {}
     current = _edited((_build.CSRC_DIR / "implicit.cu").read_text(), _CURRENT_EDITS)
     for tag, cut in CURRENT_CUTS.items():
@@ -259,10 +358,12 @@ def main() -> dict:
         for tag in FIRST_PORT_CUTS:
             jobs[tag] = (first, [])
         jobs["(a') restrict"] = (first, ["-DRP=__restrict__"])
-    libs = _build_all(jobs)
+    libs, logs = _build_all(jobs)
     for tag in ("full", "(a) as is"):
         if tag in libs:
             print(f"[sass] {tag}: {_atomics(Path(libs[tag]._name))}", flush=True)
+            for line in _kernel_report(logs[tag], "resident"):
+                print(f"[ptxas] {tag}: {line}", flush=True)
 
     cfg, st = landau.state(landau.N, dev)
     kw = implicit.resident_kwargs(st, cfg)
@@ -300,22 +401,88 @@ def main() -> dict:
             *tail, mode, forced.data_ptr(), stream)
         _build.check(err, "resident_split")
 
+    calls = {}
     for tag, lib in libs.items():
-        lib.pypic_implicit_resident.argtypes = (
-            _CURRENT_ARGS if tag in CURRENT_CUTS else _FIRST_PORT_ARGS)
-        lib.pypic_implicit_resident.restype = _I
-    res = {"device": torch.cuda.get_device_name(0), "n": n, "ng": ng, "steps": steps,
-           "passes": passes, "ms": {}}
-    for rnd in range(2):
-        for tag, lib in libs.items():
-            if tag in CURRENT_CUTS:
-                cut = CURRENT_CUTS[tag]
-                ms = _timed(lambda: current_call(lib, cut))
-            else:
-                mode = FIRST_PORT_CUTS.get(tag, 0)
-                ms = _timed(lambda: first_port_call(lib, mode))
+        fn = lib.pypic_implicit_resident
+        fn.restype = _I
+        if tag in CURRENT_CUTS:
+            fn.argtypes = _CURRENT_ARGS
+            calls[tag] = functools.partial(current_call, lib, CURRENT_CUTS[tag])
+        else:
+            fn.argtypes = _FIRST_PORT_ARGS
+            calls[tag] = functools.partial(first_port_call, lib, FIRST_PORT_CUTS.get(tag, 0))
+    res = {"n": n, "ng": ng, "steps": steps, "passes": passes}
+    return res, calls, {"per": "pass", "count": passes}
+
+
+def _split_explicit(_args, dev) -> tuple[dict, dict, dict]:
+    """The explicit kernel's jobs and their calls at the configs[0] row:
+    one 2,000-step launch at n = 10,000, ng = 200."""
+    current = _edited((_build.CSRC_DIR / "explicit.cu").read_text(), _EXPLICIT_EDITS)
+    jobs = {tag: (current, [f"-DCUT={cut}"]) for tag, cut in EXPLICIT_CUTS.items()}
+    libs, logs = _build_all(jobs)
+    print(f"[sass] full: {_atomics(Path(libs['full']._name), 'resident')}", flush=True)
+    for line in _kernel_report(logs["full"], "resident"):
+        print(f"[ptxas] full: {line}", flush=True)
+
+    steps = EXPLICIT_STEPS
+    stream = torch.cuda.current_stream().cuda_stream
+    loads = {}
+    for n in EXPLICIT_NS:
+        cfg, _, st = two_stream.state(n, dev)
+        kw = explicit.resident_kwargs(st, cfg)
+        ng = cfg.grid.ng
+        qmh, dt_dx, wf = cuda_cic.leapfrog_scalars(kw["qm"], kw["dt"], kw["dx"], kw["w"])
+        scalars = (qmh, dt_dx, wf, cuda_cic._inv(ng), cuda_cic._solve_coef(kw["dx"]),
+                   float(kw["fe_c"]), float(kw["ke_c"]), float(kw["jb_c"]))
+        out = (torch.empty_like(st.p), torch.empty_like(st.v),
+               torch.empty((2, ng), dtype=torch.float32, device=dev),
+               torch.empty((3, steps), dtype=torch.float32, device=dev))
+        ptrs = [t.data_ptr() for t in (st.e, st.p, st.v, out[0], out[1], out[2][0],
+                                       out[2][1], out[3][0], out[3][1], out[3][2])]
+        loads[n] = (st, out, ptrs, scalars)
+
+    def call(lib, n):
+        shape = cuda_cic.explicit_resident_shape(n, ng)
+        err = lib.pypic_explicit_resident(*loads[n][2], n, shape.per_cta, ng, steps,
+                                          *loads[n][3], stream)
+        _build.check(err, "resident_split")
+
+    n = EXPLICIT_NS[0]
+    calls = {}
+    for tag, lib in libs.items():
+        fn = lib.pypic_explicit_resident
+        fn.argtypes, fn.restype = _build._SIGNATURES["pypic_explicit_resident"]
+        calls[tag] = functools.partial(call, lib, n)
+    for m in EXPLICIT_NS[1:]:
+        calls[f"full, n = {m}"] = functools.partial(call, libs["full"], m)
+    return {"n": n, "ng": ng, "steps": steps}, calls, {"per": "step", "count": steps}
+
+
+def main() -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=("implicit", "explicit"), default="implicit")
+    ap.add_argument("--first-port", type=Path,
+                    help="the implicit kernel's first port (its csrc/implicit.cu), "
+                         "split as well")
+    args = ap.parse_args()
+    if args.first_port and args.kernel == "explicit":
+        ap.error("--first-port splits the implicit kernel only")
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    split = _split_explicit if args.kernel == "explicit" else _split_implicit
+    res, calls, unit = split(args, dev)
+    res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
+    for _ in range(2):
+        for tag, call in calls.items():
+            ms = _timed(call)
             res["ms"].setdefault(tag, []).append(ms)
-            print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / passes:.3f} us a pass", flush=True)
+            print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / unit['count']:.3f} us a "
+                  f"{unit['per']}", flush=True)
     print(json.dumps(res))
     return res
 

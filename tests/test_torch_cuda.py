@@ -203,6 +203,84 @@ def test_explicit_resident_kernel_matches_cycle_and_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ng", [2, 1024])
+def test_explicit_resident_kernel_at_the_column_layouts_ends(cuda_device, ng):
+    """The smallest and the largest grid of the resident kernel
+    (explicit_resident_shape: 32 deposit columns a node at both; at
+    ng = 1024 the columns, the receive buffers and the field fill 207 KB,
+    and each thread owns two nodes) at the kernel's largest n, 32,768 (8
+    particles a thread): 37 steps in chunks of 16, 16 and 5 against 37
+    launches of the one-kernel cycle and against the plain resident
+    version. Positions, velocities and the metric rows at the limits of
+    test_explicit_resident_kernel_matches_cycle_and_plain. rho and e are
+    held to what they must be, the deposit of the kernel's own final
+    positions (2e-5 of the largest node against float64, TOL_DEP) and the
+    solve of its own rho (1e-6 of the largest node against the float64
+    solve, one float32 rounding), not to the other trajectories' rho: at
+    32 particles a cell one particle moved by the float32 summation order
+    (~1e-4 cells in 37 steps, within the 2e-3 of the positions) moves a
+    node by more than 2e-5 (H100: 2.4e-5 against the one-kernel cycle).
+    On two nodes the periodic field is 0 in exact arithmetic (d_1 = -d_0),
+    so the solved e and fe are float64 rounding noise on every side: they
+    are held below 1e-9 of the field one node's charge would make,
+    dx / (2 eps0) max|rho|, instead."""
+    n, steps = 32_768, 37
+    cfg, _, st0 = two_stream.state(n, cuda_device, ng=ng)
+    kw = explicit.resident_kwargs(st0, cfg)
+    consts = {k: kw[k] for k in ("qm", "w", "dt", "dx")}
+    e, p, v = st0.e, st0.p, st0.v
+    st = (p, v, None, e)
+    out = {"fe": [], "ke": [], "jb": []}
+    for chunk in (16, 16, 5):
+        *st, fe, ke, jb = cuda_cic.explicit_cycle_resident(
+            st[3], st[0], st[1], ng, chunk, **kw)
+        for k, r in zip(("fe", "ke", "jb"), (fe, ke, jb)):
+            out[k].append(r)
+    cyc = (p, v, None, e)
+    for _ in range(steps):
+        cyc = cuda_cic.explicit_cycle(cyc[3], cyc[0], cyc[1], ng, **consts)
+    plain = cuda_cic.explicit_cycle_resident_plain(e, p, v, ng, steps, **kw)
+    for ref in (cyc, plain[:4]):
+        _pos_close(ref[0], st[0], ng, 2e-3)
+        _rel_close(ref[1], st[1], 1e-4)
+    w32 = cuda_cic.leapfrog_scalars(kw["qm"], kw["dt"], kw["dx"], kw["w"])[2]
+    rho64 = cuda_cic.deposit_plain(st[0].double(),
+                                   torch.full((n,), w32, dtype=torch.float64,
+                                              device=cuda_device), ng, periodic=True)
+    _rel_close(rho64, st[2], 2e-5)
+    field = cuda_cic._solve_coef(kw["dx"]) * float(st[2].abs().max())
+    if ng > 2:
+        _rel_close(cuda_cic.field_from_rho_plain(st[2], kw["dx"]), st[3], 1e-6)
+    else:
+        for got in (st[3], cyc[3], plain[3]):
+            assert float(got.abs().max()) < 1e-9 * field
+    for k, ref in zip(("fe", "ke", "jb"), plain[4:]):
+        got = torch.cat(out[k])
+        assert got.shape == (steps,)
+        if k == "fe" and ng == 2:
+            # row 0 is the input field's (the FFT solve of init_state);
+            # the later rows are the fields the kernels solved
+            _rel_close(ref[:1], got[:1], 1e-4)
+            bound = kw["fe_c"] * ng * (1e-9 * field) ** 2
+            assert float(got[1:].max()) < bound and float(ref[1:].max()) < bound
+        else:
+            _rel_close(ref, got, 1e-5 if k != "fe" else 1e-4)
+
+
+@pytest.mark.cuda
+def test_explicit_resident_smem_is_the_kernels(cuda_device):
+    """explicit_resident_shape's shared memory is what the resident
+    kernel's launcher allocates (csrc/explicit.cu resident_smem), at every
+    ng the kernel takes."""
+    from pypic_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for ng in range(2, cuda_cic.RESIDENT_MAX_NG + 1):
+        assert (lib.pypic_explicit_resident_smem(ng)
+                == cuda_cic.explicit_resident_shape(1, ng).smem), ng
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ng", [64, 129, 200])
 def test_picard_finalize_kernel_matches_plain(cuda_device, ng):
     """The converged-deposit sweep: p1 and v1 bit-identical to
