@@ -75,7 +75,9 @@ Phases (any failure raises and the script exits non-zero):
    bit-equal), the Philox source batch (uniforms bit-equal) with
    torch.randn as its library yardstick, and the Newton-Boltzmann solve at
    ng = 600, 301 and 128, cold and warm, timed on the row's first solve
-   (µs per Newton iteration). These four kernels run for less time than
+   by newton_times (the median of three profiler calls, µs per Newton
+   iteration, and a long solve of 64 iterations that parts an iteration's
+   cost from the launch's fixed cost). These four kernels run for less time than
    their wrappers' Python overhead, so their times are device times from a
    torch.profiler trace (``device_ms``).
 14. magnetized check — pic_iead at n = 12,000: one step from the states
@@ -130,7 +132,7 @@ Phases (any failure raises and the script exits non-zero):
 19. dn kernels — the D-N Newton kernel against its plain version and the
    op-composed Thomas route (on the CPU) at ng = 800, 600 and 257, cold
    and warm (tests/test_pallas.py:361-389's limits), timed on the D-N
-   row's first solve (µs per iteration, profiler device time); the tagged
+   row's first solve by newton_times (as in phase 13); the tagged
    Philox uniforms of the flux draw and the gyro-phases bit-equal to the
    plain version's at n = 50,000 and 999,996.
 20. dn check — dirichlet_neumann_test at n = 12,000: one step from the
@@ -203,6 +205,7 @@ object describing each kernel; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import functools
 import itertools
 import json
 import math
@@ -353,7 +356,9 @@ OPS_PER_PARTICLE = {
     # needs whatever its solver: the residual (scale, clamp 2, exp, the
     # 3-term Laplacian, 3 more) 10, the Jacobian's diagonal 2, a Thomas
     # solve 8 (elimination 5, back substitution 3), the clip 2, the
-    # update 1 and the residual sum 2 (the kernel's PCR does ~125)
+    # update 1 and the residual sum 2. The kernel's PCR does more: 16 a
+    # stage (2 divisions, 8 products and sums, 2 zero-dividend tests and
+    # the vote's 2 tests), 8 stages at the row's first solve, ~150 in all
     "boltzmann_dirichlet": 25,
     # clip 2, the gather's cell and weights 6 and products 3, the push 8,
     # the midpoints 4, the wall tests 8 and selects 2, the deposit's cell,
@@ -369,7 +374,9 @@ OPS_PER_PARTICLE = {
     # Jacobian's diagonal 2 as in the D-D count, a Thomas solve with two
     # right-hand sides 12 (elimination 5 + 2, back substitution 3 + 2),
     # the rank-1 correction 2, the clip 2, the update 1 and the norm's sum
-    # 2 (the kernel's two-column PCR does ~170)
+    # 2. The kernel's two-column PCR does more: 20 a stage (the D-D
+    # kernel's 16 and 4 for the second column), 8 stages at the row's
+    # first solve, and every row forms y and z at row ng - 3: ~190 in all
     "boltzmann_dn": 31,
     # two Philox blocks a row (200 integer operations at the float32
     # rate) and 8 uniforms (3 each)
@@ -452,6 +459,8 @@ N_MAG, N_MAG_RAGGED, NG_MAG = 999_996, 1_000_003, 600
 # counts within one (tol 1e-9 sits at the float32 floor), phi within 3e-5
 # of max|phi|; warm from the plain answer, equal counts
 TOL_NEWTON_PHI = 3e-5
+# newton_times' long solve: 64 iterations at the float32 floor
+NEWTON_LONG = dict(tol=0.0, maxiter=64)
 # the source batch against its plain version: libdevice's logf/sinf/cosf
 # against the CPU's, a few float32 ulps (x: of the wrap length)
 TOL_SOURCE = 1e-6
@@ -1921,6 +1930,78 @@ def _newton_cases(dev):
         yield ng, torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(dev)
 
 
+def _newton_row_solve(name: str, dev):
+    """(solve, plain, ng): the wrapper and its plain version at the row's
+    first solve, each taking the tol and maxiter keywords. D-D: the
+    configs[3] row's deposit, n0 = 0.9 <n>, cold start, the config's tol
+    and maxiter by default; D-N: the D-N row's, warm start 0, the
+    wrapper's defaults (the engine's)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton
+    from pypic_tpu_torch.tools import magnetized as row
+
+    if name == "boltzmann_dirichlet":
+        cfg, st, _ = row.state(dev)
+        w_rho = st.charge_state * 1.602e-19 * st.p2c / cfg.grid.dx
+        dens, n_dens = K.deposit2(st.p, w_rho, st.p2c / cfg.grid.dx, NG_MAG,
+                                  periodic=False)
+        n0 = 0.9 * torch.mean(n_dens)
+        row_kw = dict(tol=cfg.newton_tol, maxiter=cfg.newton_maxiter)
+
+        def solve(fn, **kw):
+            return fn(dens, n0, cfg.te, cfg.grid.dx, **{**row_kw, **kw})
+
+        return (functools.partial(solve, cuda_newton.boltzmann_dirichlet),
+                functools.partial(solve, cuda_newton.boltzmann_dirichlet_plain), NG_MAG)
+    pre = row.preset("dn", dev)
+    cfg, st = pre.config, pre.state
+    _, n_dens = K.deposit2(st.p, st.p2c / cfg.grid.dx, st.p2c / cfg.grid.dx,
+                           NG_DN, periodic=False)
+    n0 = 0.9 * torch.mean(n_dens)
+    phi0 = torch.zeros(NG_DN, dtype=torch.float32, device=dev)
+
+    def solve(fn, **kw):
+        return fn(n_dens, n0, cfg.te, cfg.grid.dx, phi0, **kw)
+
+    return (functools.partial(solve, cuda_newton.boltzmann_dn),
+            functools.partial(solve, cuda_newton.boltzmann_dn_plain), NG_DN)
+
+
+def newton_times(dev, names=("boltzmann_dirichlet", "boltzmann_dn")) -> dict:
+    """Device times of the Newton kernels at their rows' first solves
+    (boltzmann_dirichlet at the configs[3] row's, boltzmann_dn at the D-N
+    row's): each the median of three profiler calls (``device_ms``), with
+    µs an iteration, the bound and the plain version's time; then a long
+    solve (NEWTON_LONG: tol 0, maxiter 64) and the count it ran, from which
+    the marginal µs an iteration and the launch's fixed cost. It calls the
+    wrappers by name alone, so it times another tree of the port as well
+    (a parent commit, for a paired comparison in one chip call)."""
+    out = {}
+    for name in names:
+        solve, plain, ng = _newton_row_solve(name, dev)
+        iters = int(solve().iterations)
+        calls = [device_ms(solve) for _ in range(3)]
+        ms = statistics.median(calls)
+        rec = _rec(None, ms, cuda_ms(plain, reps=3, calls=3), name, ng, iters)
+        long_iters = int(solve(**NEWTON_LONG).iterations)
+        long_ms = device_ms(lambda: solve(**NEWTON_LONG))
+        marginal = (long_ms - ms) / max(long_iters - iters, 1)
+        rec.update(ms_calls=calls, iterations=iters, us_per_iteration=ms * 1e3 / iters,
+                   long_solve=dict(iterations=long_iters, ms=long_ms,
+                                   us_per_iteration=long_ms * 1e3 / long_iters,
+                                   marginal_us_per_iteration=marginal * 1e3,
+                                   fixed_us=(ms - iters * marginal) * 1e3))
+        log(f"[newton] {name} at ng = {ng}: {ms:.4f} ms (calls "
+            f"{', '.join(f'{t:.4f}' for t in calls)}), {iters} iterations, "
+            f"{rec['us_per_iteration']:.3f} us an iteration; long solve {long_iters} "
+            f"iterations {long_ms:.4f} ms: {marginal * 1e3:.3f} us a further "
+            f"iteration, fixed {(ms - iters * marginal) * 1e3:.3f} us; plain "
+            f"{rec['plain_ms']:.4f} ms")
+        out[name] = rec
+        del solve, plain
+    return out
+
+
 def phase_magnetized_kernels(dev) -> dict:
     """The magnetized engine's four kernels against their plain versions
     at the ragged and the row's n; returns the records at the row's n (the
@@ -1929,7 +2010,6 @@ def phase_magnetized_kernels(dev) -> dict:
 
     from pypic_tpu_torch.ops import cuda_cic as K
     from pypic_tpu_torch.ops import cuda_newton, cuda_rng
-    from pypic_tpu_torch.tools import magnetized as row
 
     gen = torch.Generator(device=dev).manual_seed(17)
     records = {}
@@ -2047,32 +2127,18 @@ def phase_magnetized_kernels(dev) -> dict:
             worst = max(worst, _check(errs, f"boltzmann_dirichlet(ng={ng}, "
                                             f"{'warm' if warm else 'cold'})"))
     # timed on the row's first solve: its deposit, n0 = 0.9 <n>, cold start
-    cfg, st, _ = row.state(dev)
-    w_rho = st.charge_state * 1.602e-19 * st.p2c / cfg.grid.dx
-    rho, n_dens = K.deposit2(st.p, w_rho, st.p2c / cfg.grid.dx, NG_MAG,
-                             periodic=False)
-    n0 = 0.9 * torch.mean(n_dens)
-    del st, w_rho
-    kw = dict(tol=cfg.newton_tol, maxiter=cfg.newton_maxiter)
-    got = cuda_newton.boltzmann_dirichlet(rho, n0, cfg.te, cfg.grid.dx, **kw)
-    ref = cuda_newton.boltzmann_dirichlet_plain(rho, n0, cfg.te, cfg.grid.dx, **kw)
+    solve, plain, _ = _newton_row_solve("boltzmann_dirichlet", dev)
+    got, ref = solve(), plain()
     iters = int(got.iterations)
     a, rel = rel_err(ref.phi, got.phi)
     worst = max(worst, _check(
         {"phi": dict(abs=a, err=rel, kind=f"rel ({iters} vs plain "
                      f"{int(ref.iterations)} iterations)", tol=TOL_NEWTON_PHI)},
         "boltzmann_dirichlet(configs[3] row's first solve)"))
-    records["boltzmann_dirichlet"] = _rec(
-        worst, device_ms(lambda: cuda_newton.boltzmann_dirichlet(
-            rho, n0, cfg.te, cfg.grid.dx, **kw)),
-        cuda_ms(lambda: cuda_newton.boltzmann_dirichlet_plain(
-            rho, n0, cfg.te, cfg.grid.dx, **kw), **fast),
-        "boltzmann_dirichlet", NG_MAG, iters)
-    rec = records["boltzmann_dirichlet"]
-    rec["iterations"] = iters
-    rec["us_per_iteration"] = rec["ms"] * 1e3 / iters
-    log(f"[magnetized kernels]   boltzmann_dirichlet at ng = {NG_MAG}: "
-        f"{iters} iterations, {rec['us_per_iteration']:.3f} us per iteration")
+    del solve, plain
+    records["boltzmann_dirichlet"] = dict(
+        newton_times(dev, ("boltzmann_dirichlet",))["boltzmann_dirichlet"],
+        max_abs_err=worst)
     return records
 
 
@@ -2797,34 +2863,18 @@ def phase_dn_kernels(dev) -> dict:
                                             f"{'warm' if warm else 'cold'})"))
     # timed on the D-N row's first solve: its deposit, n0 = 0.9 <n>, the
     # state's phi (0) as the warm start
-    pre = row.preset("dn", dev)
-    cfg, st = pre.config, pre.state
-    _, n_dens = K.deposit2(st.p, st.p2c / cfg.grid.dx, st.p2c / cfg.grid.dx,
-                           NG_DN, periodic=False)
-    n0 = 0.9 * torch.mean(n_dens)
-    phi0 = torch.zeros(NG_DN, dtype=torch.float32, device=dev)
-    got = cuda_newton.boltzmann_dn(n_dens, n0, cfg.te, cfg.grid.dx, phi0)
-    ref = cuda_newton.boltzmann_dn_plain(n_dens, n0, cfg.te, cfg.grid.dx, phi0)
+    solve, plain, _ = _newton_row_solve("boltzmann_dn", dev)
+    got, ref = solve(), plain()
     iters = int(got.iterations)
     a, rel = rel_err(ref.phi, got.phi)
     worst = max(worst, _check(
         {"phi": dict(abs=a, err=rel, kind=f"rel ({iters} vs plain "
                      f"{int(ref.iterations)} iterations)", tol=TOL_DN_PHI)},
         "boltzmann_dn(the D-N row's first solve)"))
-    records = {}
+    del solve, plain
+    records = {"boltzmann_dn": dict(newton_times(dev, ("boltzmann_dn",))["boltzmann_dn"],
+                                    max_abs_err=worst)}
     fast = dict(reps=3, calls=3)
-    records["boltzmann_dn"] = _rec(
-        worst, device_ms(lambda: cuda_newton.boltzmann_dn(
-            n_dens, n0, cfg.te, cfg.grid.dx, phi0)),
-        cuda_ms(lambda: cuda_newton.boltzmann_dn_plain(
-            n_dens, n0, cfg.te, cfg.grid.dx, phi0), **fast),
-        "boltzmann_dn", NG_DN, iters)
-    rec = records["boltzmann_dn"]
-    rec["iterations"] = iters
-    rec["us_per_iteration"] = rec["ms"] * 1e3 / iters
-    log(f"[dn kernels]   boltzmann_dn at ng = {NG_DN}: {iters} iterations, "
-        f"{rec['us_per_iteration']:.3f} us per iteration")
-    del st, pre
 
     for n in (row.N_DN, N_MAG):
         for ndraw, tag in ((8, cuda_rng.FLUX_TAG), (3, cuda_rng.GYRO_TAG)):
@@ -3904,7 +3954,7 @@ def main() -> int:
          "n": records[kname]["n"],
          **{key: records[kname][key] for key in (
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
-            "at_max_n")
+            "at_max_n", "iterations", "us_per_iteration", "long_solve")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [

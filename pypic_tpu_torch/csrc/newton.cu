@@ -12,22 +12,52 @@
 // (_EXP_CLAMP), the convergence test and the final shift to min 0 -- the
 // whole loop inside the kernel, as on the TPU.
 //
+// Bound on the H100: neither bytes nor operations (a few KB in and out,
+// ~150 float32 operations a row an iteration) but the latency of one CTA
+// on one SM: a chain of PCR stages, each a shared-memory exchange behind a
+// block barrier. Its yardstick is microseconds an iteration. The split
+// (python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd|
+// newton_dn; PERF.md section 6) puts the barriers and exchanges
+// alone at 71% (D-D, ng = 600) and 81% (D-N, ng = 800) of a launch: the
+// stages' shared-memory traffic (48 B a row a stage, 60 with the D-N
+// kernel's second column) at the SM's 128 B a clock, and a barrier after
+// each. The first port (1,024 threads, 13 block barriers an iteration)
+// took 8.4-9.8 us an iteration; this design 3.2 and 4.6.
+//
 // Design:
-// * One CTA of ngp = max(128, next power of two >= ng) threads, one row a
-//   thread (ng <= 1024). Rows ng..ngp-1 are identity rows (a = c = 0,
-//   b = 1, f = 0), which keep PCR inert there, as in the TPU kernel.
-// * PCR: log2(ngp) stages. Each stage writes the thread's (a, b, c, f) to
-//   one of two shared-memory buffers (8 ngp floats, 32 KB at ngp = 1024;
-//   10 ngp with the D-N kernel's second right-hand side),
-//   one __syncthreads, then reads the rows i - s and i + s. Alternating
-//   buffers needs one barrier a stage: a thread writes stage k + 1's
-//   buffer only after the barrier of stage k, by which every read of that
-//   buffer (stage k - 1) is done.
-// * The residual sum(dphi^2) is a fixed-order block sum (block_sum: warp
-//   shuffles, then the warps' partials in warp order, in float64, rounded
-//   to float32). Every thread computes the same bits, so every thread
-//   takes the same branch of the loop test and all leave on the same
-//   iteration.
+// * One CTA of rows = ng rounded up to 32 threads, one row a thread
+//   (ng <= 1024). The first port took the TPU's row count, the next power
+//   of two >= max(ng, 128): 1,024 threads at ng = 600 and 800, whose
+//   padding warps ran every stage (25% of the D-D launch). A row read
+//   outside [0, rows) is the identity row (a, b, c, f) = (0, 1, 0, 0), as
+//   the padding rows were, so the solution is the same (up to the sign of
+//   zero).
+// * PCR: each stage stores the thread's row as one float4 (a, b, c, f;
+//   the D-N kernel's second right-hand side beside it) into one of two
+//   shared-memory buffers, passes one block barrier and loads the rows
+//   i - s and i + s. Alternating buffers needs one barrier a stage. The
+//   buffers carry `halo` identity rows on each side (halo = the largest
+//   stride), so no load is predicated.
+// * The stage barrier is a vote (__syncthreads_or): once no row of the
+//   block is coupled to another (every a and c is 0), the stages left
+//   would change no value, and the loop ends. The couplings of these
+//   diagonally dominant systems decay like the square of the last
+//   stage's and underflow to 0 before the stride reaches the rows (8 of
+//   10 stages at both rows' first solves). The buffer of that last vote
+//   holds every row's final (b, f), which the D-N kernel reads for its
+//   rank-1 correction without a barrier of its own.
+// * div_rn: a zero dividend, the coupling of most rows in the last
+//   stages, leaves __fdiv_rn's fast path for its slow one; its quotient
+//   is formed as a product instead (the same signed zero). Without this
+//   the launch takes half again as long (D-D) or a third (D-N). The other
+//   divisions stay correctly rounded (3-8% of a launch).
+// * The residual sum(dphi^2) is fixed-order: each warp's shuffle tree in
+//   float64, lane 0's partial into shared memory in the same phase as
+//   the next iteration's shared copy of phi, one barrier for both, then
+//   every warp sums the partials by the same shuffle tree and takes lane
+//   0's total. Every thread holds the same bits, so every thread takes
+//   the same branch of the loop test. One barrier an iteration besides
+//   the PCR's, where the first port had three.
 // * n0 and the warm start are read through device pointers: n0 is the
 //   output of the step's density update, and a host copy would cost the
 //   step a host sync. c0 = f32(e / eps0) n0 and c2 = rho / f32(eps0) are
@@ -36,11 +66,9 @@
 // * The arithmetic follows the TPU kernel's operation order, with
 //   __fmul_rn / __fadd_rn / __fdiv_rn so nvcc contracts nothing into an
 //   FMA; expf is the libdevice (not fast-math) one.
-//
-// Bound on the H100: neither bytes nor operations (a few KB in and out,
-// ~125 float32 operations a row an iteration) but latency: log2(ngp)
-// barriers a PCR solve, two block reductions an iteration, all in one SM.
-// Its yardstick is microseconds an iteration.
+// * Not taken: the strides below 32 by warp shuffles. A shuffle moves 4 B
+//   a lane through the same shared-memory pipe, and the warp's window of
+//   halo rows would move 2-3 times the rows a stage.
 //
 // newton_dn_kernel replaces pypic_tpu/ops/pallas_newton.py:_newton_dn_kernel
 // (boltzmann_dn_pallas), the Newton loop of ops.poisson.
@@ -55,11 +83,12 @@
 //   -dx^2 c0 c1 exp on the interior, -dx^2 c0 c1 on the wall row and 0 on
 //   the last row. The warm start is used as given (no wall pin).
 // * phi[0] and phi[ng-3] come from the shared copy of phi the Laplacian
-//   reads; y[ng-3] and z[ng-3] are broadcast through shared memory.
+//   reads; every thread forms y[ng-3] and z[ng-3] itself from row ng-3's
+//   final (b, f) in the PCR's last buffer (the same divisions row ng-3's
+//   thread makes).
 // * The residual is ||dphi||_2 (the D-D kernel's is the squared norm): the
-//   same fixed-order block sum, rounded to float32, then a correctly
-//   rounded square root, so every thread takes the same loop branch.
-// Bound: the D-D kernel's, with one more right-hand side in each PCR stage.
+//   same fixed-order sum, rounded to float32, then a correctly rounded
+//   square root, so every thread takes the same loop branch.
 
 #include "cic_common.cuh"
 
@@ -67,69 +96,155 @@ namespace {
 
 constexpr int kMaxRows = 1024;
 
-// Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} = f_i,
-// rows 0..ngp-1, thread i holding row i, for R right-hand sides that share
-// the elimination coefficients; f[r] returns x_i of the r-th. `buf` holds
-// 2 (3 + R) ngp floats. Every thread of the block calls it.
+// A row of the PCR system with R right-hand sides.
 template <int R>
-__device__ void pcr_solve(float a, float b, float c, float (&f)[R],
-                          float* buf, int i, int ngp) {
-  int k = 0;
-  for (int s = 1; s < ngp; s <<= 1, k ^= 1) {
-    float* A = buf + (3 + R) * ngp * k;
-    float* B = A + ngp;
-    float* C = B + ngp;
-    float* F = C + ngp;
-    A[i] = a;
-    B[i] = b;
-    C[i] = c;
-#pragma unroll
-    for (int r = 0; r < R; ++r) F[r * ngp + i] = f[r];
-    __syncthreads();
-    float am = 0.0f, bm = 1.0f, cm = 0.0f, fm[R];
-    float ap = 0.0f, bp = 1.0f, cp = 0.0f, fp[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) fm[r] = fp[r] = 0.0f;
-    if (i >= s) {
-      am = A[i - s];
-      bm = B[i - s];
-      cm = C[i - s];
-#pragma unroll
-      for (int r = 0; r < R; ++r) fm[r] = F[r * ngp + i - s];
-    }
-    if (i < ngp - s) {
-      ap = A[i + s];
-      bp = B[i + s];
-      cp = C[i + s];
-#pragma unroll
-      for (int r = 0; r < R; ++r) fp[r] = F[r * ngp + i + s];
-    }
-    const float alpha = __fdiv_rn(-a, bm);
-    const float gamma = __fdiv_rn(-c, bp);
-    b = __fadd_rn(__fadd_rn(b, __fmul_rn(alpha, cm)), __fmul_rn(gamma, ap));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      f[r] = __fadd_rn(__fadd_rn(f[r], __fmul_rn(alpha, fm[r])),
-                       __fmul_rn(gamma, fp[r]));
-    }
-    a = __fmul_rn(alpha, am);
-    c = __fmul_rn(gamma, cp);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) f[r] = __fdiv_rn(f[r], b);
+struct Row {
+  float a, b, c, f[R];
+};
+
+// The PCR stage buffers in shared memory: two of `stride` = rows + 2 halo
+// entries each; row j at j + halo. q holds (a, b, c, f[0]), g f[1] (R = 2).
+struct PcrBuf {
+  float4* q;
+  float* g;
+  int stride, halo;
+};
+
+// The largest PCR stride below `rows` (rows >= 32), which is the width of
+// each buffer's identity rim.
+__host__ __device__ __forceinline__ int pcr_halo(int rows) {
+  int h = 1;
+  while (2 * h < rows) h *= 2;
+  return h;
 }
 
-// Block-wide minimum; every thread gets it. `red` holds 32 floats.
+template <int R>
+__device__ __forceinline__ Row<R> load_row(const PcrBuf& buf, int k, int j) {
+  const float4 v = buf.q[k * buf.stride + buf.halo + j];
+  Row<R> r;
+  r.a = v.x;
+  r.b = v.y;
+  r.c = v.z;
+  r.f[0] = v.w;
+  if constexpr (R == 2) r.f[1] = buf.g[k * buf.stride + buf.halo + j];
+  return r;
+}
+
+template <int R>
+__device__ __forceinline__ void store_row(const PcrBuf& buf, int k, int j,
+                                          const Row<R>& r) {
+  buf.q[k * buf.stride + buf.halo + j] = make_float4(r.a, r.b, r.c, r.f[0]);
+  if constexpr (R == 2) buf.g[k * buf.stride + buf.halo + j] = r.f[1];
+}
+
+// Both buffers' rims to the identity row. Every thread calls it; a barrier
+// must follow before the first stage.
+template <int R>
+__device__ void init_rims(const PcrBuf& buf, int rows) {
+  for (int e = threadIdx.x; e < 4 * buf.halo; e += blockDim.x) {
+    const int k = e / (2 * buf.halo), j = e % (2 * buf.halo);
+    const int at = k * buf.stride + (j < buf.halo ? j : rows + j);
+    buf.q[at] = make_float4(0.0f, 1.0f, 0.0f, 0.0f);
+    if constexpr (R == 2) buf.g[at] = 0.0f;
+  }
+}
+
+// x / y, correctly rounded. A zero x gives the same signed zero as a
+// product: the division's fast path does not take a zero dividend, and
+// the couplings of the last stages are mostly zeros.
+__device__ __forceinline__ float div_rn(float x, float y) {
+  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);
+  return x == 0.0f ? __fmul_rn(x, y) : q;
+}
+
+// One PCR stage of row x against its partners m = row i - s and p = row
+// i + s of the previous stage, in the TPU kernel's operation order.
+template <int R>
+__device__ __forceinline__ void pcr_stage(Row<R>& x, const Row<R>& m,
+                                          const Row<R>& p) {
+  const float alpha = div_rn(-x.a, m.b);
+  const float gamma = div_rn(-x.c, p.b);
+  x.b = __fadd_rn(__fadd_rn(x.b, __fmul_rn(alpha, m.c)), __fmul_rn(gamma, p.a));
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x.f[r] = __fadd_rn(__fadd_rn(x.f[r], __fmul_rn(alpha, m.f[r])),
+                       __fmul_rn(gamma, p.f[r]));
+  }
+  x.a = __fmul_rn(alpha, m.a);
+  x.c = __fmul_rn(gamma, p.c);
+}
+
+// Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} = f_i,
+// rows 0..rows-1 (rows = blockDim.x), thread i holding row i, for R
+// right-hand sides that share the elimination coefficients. On return
+// x.f[r] is the r-th solution at row i, and the returned buffer holds
+// every row's final (a, b, c, f) (a = c = 0), readable by every thread
+// until the next call's first barrier. Every thread of the block calls it.
+template <int R>
+__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows) {
+  int k = 0;
+  for (int s = 1;; s <<= 1, k ^= 1) {
+    store_row(buf, k, i, x);
+    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);
+    if (!coupled || s >= rows) break;
+    const Row<R> m = load_row<R>(buf, k, i - s);
+    const Row<R> p = load_row<R>(buf, k, i + s);
+    pcr_stage(x, m, p);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) x.f[r] = __fdiv_rn(x.f[r], x.b);
+  return k;
+}
+
+// A fixed-order block sum of one double per thread, in two halves around
+// one barrier. warp_partial: the warp's shuffle tree, lane 0's result into
+// red[warp].
+__device__ __forceinline__ void warp_partial(double x, double* red) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+}
+
+// block_total, after the barrier: every warp sums the partials by the same
+// shuffle tree and takes lane 0's total, so every thread gets the same
+// bits.
+__device__ __forceinline__ double block_total(const double* red) {
+  const int lane = threadIdx.x & 31;
+  double x = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// Block-wide minimum over one barrier; every thread gets it. `red` holds
+// 32 floats that nothing else uses in the launch.
 __device__ float block_min(float x, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
   for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_down_sync(0xffffffffu, x, o));
+  if (lane == 0) red[threadIdx.x >> 5] = x;
   __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float t = red[0];
-  for (int w = 1; w < nwarps; ++w) t = fminf(t, red[w]);
-  return t;
+  x = lane < (int)(blockDim.x >> 5) ? red[lane] : 3.402823466e38f;
+  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_down_sync(0xffffffffu, x, o));
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// Dynamic shared memory: the stage buffers (float4s first, for alignment),
+// then the second right-hand side's, then the shared copy of phi.
+template <int R>
+size_t newton_smem(int rows) {
+  const size_t stride = rows + 2 * pcr_halo(rows);
+  return 2 * stride * (sizeof(float4) + (R == 2 ? sizeof(float) : 0)) +
+         rows * sizeof(float);
+}
+
+template <int R>
+__device__ __forceinline__ PcrBuf carve(unsigned char* smem, int rows,
+                                        float** s_phi) {
+  PcrBuf buf;
+  buf.halo = pcr_halo(rows);
+  buf.stride = rows + 2 * buf.halo;
+  buf.q = reinterpret_cast<float4*>(smem);
+  buf.g = reinterpret_cast<float*>(buf.q + 2 * buf.stride);
+  *s_phi = buf.g + (R == 2 ? 2 * buf.stride : 0);
+  return buf;
 }
 
 __global__ void newton_dd_kernel(const float* __restrict__ rho,
@@ -141,10 +256,10 @@ __global__ void newton_dd_kernel(const float* __restrict__ rho,
                                  float c0_coef, float eps0, float c1,
                                  float dx2, float tol, int maxiter,
                                  float step_max, float exp_clamp) {
-  extern __shared__ float smem[];
-  const int ngp = blockDim.x;
-  float* s_phi = smem;
-  float* s_pcr = smem + ngp;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x;
+  float* s_phi;
+  const PcrBuf buf = carve<1>(smem, rows, &s_phi);
   __shared__ double s_red[32];
   __shared__ float s_redf[32];
   const int i = threadIdx.x;
@@ -162,13 +277,14 @@ __global__ void newton_dd_kernel(const float* __restrict__ rho,
   float phi = 0.0f;
   if (phi0 != nullptr && interior) phi = phi0[i];  // walls pinned to 0
 
+  init_rims<1>(buf, rows);
+  s_phi[i] = phi;
+  __syncthreads();
   float residual = 1.0f;
   int it = 0;
   while (residual > tol && it < maxiter) {
-    s_phi[i] = phi;
-    __syncthreads();
     const float down = i >= 1 ? s_phi[i - 1] : 0.0f;
-    const float up = i + 1 < ngp ? s_phi[i + 1] : 0.0f;
+    const float up = i + 1 < rows ? s_phi[i + 1] : 0.0f;
     const float expo =
         expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp));
     const float lap = __fadd_rn(
@@ -178,11 +294,15 @@ __global__ void newton_dd_kernel(const float* __restrict__ rho,
     f = interior ? f : 0.0f;  // walls and padding: residual rows 0
     const float ddiag =
         interior ? __fmul_rn(jac_b, expo) : (boundary ? jac_b : 0.0f);
-    float rhs[1] = {f};
-    pcr_solve<1>(a_lap, __fadd_rn(d_lap, ddiag), c_lap, rhs, s_pcr, i, ngp);
-    const float dphi = fminf(fmaxf(rhs[0], -step_max), step_max);
+    Row<1> x = {a_lap, __fadd_rn(d_lap, ddiag), c_lap, {f}};
+    pcr_solve<1>(x, buf, i, rows);
+    const float dphi = fminf(fmaxf(x.f[0], -step_max), step_max);
     phi = __fsub_rn(phi, dphi);
-    residual = (float)block_sum((double)__fmul_rn(dphi, dphi), s_red);
+    // the next iteration's phi and this one's partial sums, one barrier
+    s_phi[i] = phi;
+    warp_partial((double)__fmul_rn(dphi, dphi), s_red);
+    __syncthreads();
+    residual = (float)block_total(s_red);
     ++it;
   }
   // shift to min 0 over the physical rows (pygcpic.py:1053)
@@ -205,13 +325,12 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
                                  float coef, float c1, float dx2, float tol,
                                  int maxiter, float step_max,
                                  float exp_clamp) {
-  extern __shared__ float smem[];
-  const int ngp = blockDim.x;
-  float* s_phi = smem;
-  float* s_pcr = smem + ngp;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x;
+  float* s_phi;
+  const PcrBuf buf = carve<2>(smem, rows, &s_phi);
   __shared__ double s_red[32];
   __shared__ float s_redf[32];
-  __shared__ float s_yz[2];
   const int i = threadIdx.x;
   const bool valid = i < ng;
   const bool inner = i >= 1 && i <= ng - 2;
@@ -227,13 +346,14 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
   const float jac_b = __fmul_rn(__fmul_rn(-dx2, c0), c1);  // -dx^2 c0 c1
   float phi = valid ? phi0[i] : 0.0f;
 
+  init_rims<2>(buf, rows);
+  s_phi[i] = phi;
+  __syncthreads();
   float residual = 1.0f;
   int it = 0;
   while (residual > tol && it < maxiter) {
-    s_phi[i] = phi;
-    __syncthreads();
     const float down = i >= 1 ? s_phi[i - 1] : 0.0f;
-    const float up = i + 1 < ngp ? s_phi[i + 1] : 0.0f;
+    const float up = i + 1 < rows ? s_phi[i + 1] : 0.0f;
     const float phi_m3 = s_phi[ng - 3];
     const float phi_0 = s_phi[0];
     const float expo =
@@ -247,20 +367,19 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
     f = (last || !valid) ? 0.0f : f;
     const float ddiag =
         inner ? __fmul_rn(jac_b, expo) : (i == 0 ? jac_b : 0.0f);
-    float rhs[2] = {f, u_row};
-    pcr_solve<2>(a_lap, __fadd_rn(d_lap, ddiag), c_lap, rhs, s_pcr, i, ngp);
-    if (i == ng - 3) {
-      s_yz[0] = rhs[0];
-      s_yz[1] = rhs[1];
-    }
-    __syncthreads();
-    const float vy = s_yz[0], vz = s_yz[1];
-    float dphi = __fsub_rn(rhs[0],
-                           __fmul_rn(rhs[1], __fdiv_rn(vy, __fadd_rn(1.0f, vz))));
+    Row<2> x = {a_lap, __fadd_rn(d_lap, ddiag), c_lap, {f, u_row}};
+    const int k = pcr_solve<2>(x, buf, i, rows);
+    // y[ng-3] and z[ng-3] from row ng-3's final (b, f), as its thread forms them
+    const Row<2> m3 = load_row<2>(buf, k, ng - 3);
+    const float vy = __fdiv_rn(m3.f[0], m3.b), vz = __fdiv_rn(m3.f[1], m3.b);
+    float dphi = __fsub_rn(x.f[0],
+                           __fmul_rn(x.f[1], __fdiv_rn(vy, __fadd_rn(1.0f, vz))));
     dphi = fminf(fmaxf(dphi, -step_max), step_max);
     phi = __fsub_rn(phi, dphi);
-    residual = __fsqrt_rn(
-        (float)block_sum((double)__fmul_rn(dphi, dphi), s_red));
+    s_phi[i] = phi;
+    warp_partial((double)__fmul_rn(dphi, dphi), s_red);
+    __syncthreads();
+    residual = __fsqrt_rn((float)block_total(s_red));
     ++it;
   }
   const float lo = block_min(valid ? phi : 3.402823466e38f, s_redf);
@@ -271,43 +390,43 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
   }
 }
 
+bool rows_ok(int ng, int rows) {
+  return rows >= 32 && rows <= kMaxRows && rows % 32 == 0 && ng <= rows;
+}
+
 }  // namespace
 
 extern "C" {
 
-// phi0 may be null (cold start at 0). ngp: threads of the one CTA, a
-// power of two in [128, 1024], >= ng.
+// phi0 may be null (cold start at 0). rows: threads of the one CTA, a
+// multiple of 32 in [32, 1024], >= ng (cuda_newton.kernel_rows).
 int pypic_boltzmann_dirichlet(const float* rho, const float* n0,
                               const float* phi0, float* phi, int* iters,
-                              float* resid, int ng, int ngp, float c0_coef,
+                              float* resid, int ng, int rows, float c0_coef,
                               float eps0, float c1, float dx2, float tol,
                               int maxiter, float step_max, float exp_clamp,
                               void* stream) {
-  if (ngp > kMaxRows || ngp < 32 || (ngp & (ngp - 1)) || ng > ngp) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = 9 * (size_t)ngp * sizeof(float);
+  if (!rows_ok(ng, rows)) return (int)cudaErrorInvalidValue;
+  const size_t smem = newton_smem<1>(rows);
   cudaError_t err = allow_smem(newton_dd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  newton_dd_kernel<<<1, ngp, smem, (cudaStream_t)stream>>>(
+  newton_dd_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
       rho, n0, phi0, phi, iters, resid, ng, c0_coef, eps0, c1, dx2, tol,
       maxiter, step_max, exp_clamp);
   return (int)cudaGetLastError();
 }
 
-// n and phi0 (ng,), 3 <= ng <= ngp; ngp as above. coef = f32(e / eps0).
+// n and phi0 (ng,), 3 <= ng <= rows; rows as above. coef = f32(e / eps0).
 int pypic_boltzmann_dn(const float* n, const float* n0, const float* phi0,
-                       float* phi, int* iters, float* resid, int ng, int ngp,
+                       float* phi, int* iters, float* resid, int ng, int rows,
                        float coef, float c1, float dx2, float tol,
                        int maxiter, float step_max, float exp_clamp,
                        void* stream) {
-  if (ngp > kMaxRows || ngp < 32 || (ngp & (ngp - 1)) || ng > ngp || ng < 3) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = 11 * (size_t)ngp * sizeof(float);
+  if (!rows_ok(ng, rows) || ng < 3) return (int)cudaErrorInvalidValue;
+  const size_t smem = newton_smem<2>(rows);
   cudaError_t err = allow_smem(newton_dn_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  newton_dn_kernel<<<1, ngp, smem, (cudaStream_t)stream>>>(
+  newton_dn_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
       n, n0, phi0, phi, iters, resid, ng, coef, c1, dx2, tol, maxiter,
       step_max, exp_clamp);
   return (int)cudaGetLastError();

@@ -13,6 +13,10 @@ tolerance, not bit for bit (PCR sums in another order).
 
 ``boltzmann_dirichlet_plain`` is the same PCR loop as tensor operations
 (``_pcr_solve``, pallas_newton.py:65-90), its loop test read on the host.
+The kernels and the plain versions solve ``kernel_rows(ng)`` rows (ng
+rounded up to 32, a row a thread); the TPU kernels' ``padded_rows(ng)``
+(a power of two, at least 128) gives the same solution, the rows past ng
+being identity rows (``tests/test_torch_newton_rows.py``).
 
 ``boltzmann_dn`` replaces ``boltzmann_dn_pallas``: the Newton loop of
 ``ops.poisson.solve_boltzmann_dirichlet_neumann`` (pygcpic.py:1062-1109)
@@ -41,14 +45,21 @@ from .cuda_cic import LAUNCHES, _check_1d, _device_kind, _stream
 from .poisson import NewtonResult, _EXP_CLAMP
 
 _LANE = 128  # the smallest padded row count, as on the TPU
+_WARP = 32
 MAX_NG = 1024  # one CTA, one row a thread
 _COEF = float(np.float32(E_CHARGE / EPSILON_0))  # f32(e / eps0)
 
 
 def padded_rows(ng: int) -> int:
-    """Rows of the PCR system: the next power of two >= ng, at least 128
-    (pallas_newton.py's ngp)."""
+    """Rows of the TPU kernels' PCR system: the next power of two >= ng, at
+    least 128 (pallas_newton.py's ngp)."""
     return max(_LANE, 1 << (ng - 1).bit_length())
+
+
+def kernel_rows(ng: int) -> int:
+    """Rows of the port's PCR system and threads of the kernels' one CTA:
+    ng rounded up to a whole warp."""
+    return -(-ng // _WARP) * _WARP
 
 
 def newton_scalars(te: float, dx: float, tol: float):
@@ -75,12 +86,14 @@ def _shift_up(x, s, fill):
 
 def _pcr_solve(a, b, c, f):
     """Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} =
-    f_i over len(a) rows (a power of two; rows past the physical ones are
-    identity rows). ``f`` is (ngp,) or (R, ngp): R right-hand sides that
-    share the elimination coefficients."""
-    ngp = a.shape[0]
+    f_i over len(a) rows (rows past the physical ones are identity rows,
+    and so is a row read past either end). ``f`` is (rows,) or (R, rows):
+    R right-hand sides that share the elimination coefficients. The stages
+    end, as the kernels' do, once no row is coupled (every a and c 0): the
+    stages left would change no value."""
+    rows = a.shape[0]
     s = 1
-    while s < ngp:
+    while s < rows and bool(torch.any(a != 0.0) | torch.any(c != 0.0)):
         am, bm, fm, cm = (_shift_down(a, s, 0.0), _shift_down(b, s, 1.0),
                           _shift_down(f, s, 0.0), _shift_down(c, s, 0.0))
         ap, bp, fp, cp = (_shift_up(a, s, 0.0), _shift_up(b, s, 1.0),
@@ -130,17 +143,17 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
     _newton_dd_kernel), in its operation order. Returns NewtonResult."""
     ng = rho.shape[0]
     dev = rho.device
-    ngp = padded_rows(ng)
+    rows = kernel_rows(ng)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     c0 = _COEF * _as_n0(n0, dev)[0]
-    col = torch.arange(ngp, device=dev)
+    col = torch.arange(rows, device=dev)
     valid = col < ng
     interior = (col >= 1) & (col <= ng - 2)
     boundary = valid & ~interior
     a_lap = interior.to(torch.float32)
     c_lap = a_lap
     d_lap = torch.where(interior, -2.0, 1.0)
-    pad = ngp - ng
+    pad = rows - ng
     zeros = torch.zeros((pad,), dtype=torch.float32, device=dev)
     c2 = torch.cat([rho / float(np.float32(EPSILON_0)), zeros])
     phi = torch.cat([_start(rho, phi0), zeros])
@@ -201,7 +214,7 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
         err = lib.pypic_boltzmann_dirichlet(
             rho.data_ptr(), n0_t.data_ptr(),
             None if phi0 is None else phi0.data_ptr(), phi.data_ptr(),
-            iters.data_ptr(), resid.data_ptr(), ng, padded_rows(ng),
+            iters.data_ptr(), resid.data_ptr(), ng, kernel_rows(ng),
             _COEF, float(np.float32(EPSILON_0)), c1, dx2, tol32, int(maxiter),
             step_max, _EXP_CLAMP, _stream(dev))
     _build.check(err, "boltzmann_dirichlet")
@@ -214,10 +227,10 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     _newton_dn_kernel), in its operation order. Returns NewtonResult."""
     ng = n.shape[0]
     dev = n.device
-    ngp = padded_rows(ng)
+    rows = kernel_rows(ng)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     c0 = _COEF * _as_n0(n0, dev)[0]
-    col = torch.arange(ngp, device=dev)
+    col = torch.arange(rows, device=dev)
     valid = col < ng
     inner = (col >= 1) & (col <= ng - 2)
     last = col == ng - 1
@@ -225,7 +238,7 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     c_lap = inner.to(torch.float32)
     d_lap = torch.where(inner, -2.0, torch.where(last, 3.0, 1.0))
     u_row = last.to(torch.float32)  # rank-1 u = e_{ng-1}
-    zeros = torch.zeros((ngp - ng,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((rows - ng,), dtype=torch.float32, device=dev)
     c2 = torch.cat([n * _COEF, zeros])
     phi = torch.cat([phi0.to(torch.float32), zeros])
     dx2_c0 = dx2 * c0
@@ -286,7 +299,7 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     with torch.cuda.device(dev):
         err = lib.pypic_boltzmann_dn(
             n.data_ptr(), n0_t.data_ptr(), phi0.data_ptr(), phi.data_ptr(),
-            iters.data_ptr(), resid.data_ptr(), ng, padded_rows(ng), _COEF,
+            iters.data_ptr(), resid.data_ptr(), ng, kernel_rows(ng), _COEF,
             c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
     _build.check(err, "boltzmann_dn")
     LAUNCHES["boltzmann_dn"] += 1

@@ -4,6 +4,7 @@ library outside the package's.
 
     python -m pypic_tpu_torch.tools.resident_split [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel explicit
+    python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd|newton_dn [--first-port SOURCE]
 
 The cuts are text edits of ``csrc/implicit.cu`` (``--kernel implicit``,
 the default) or of ``csrc/explicit.cu`` (``--kernel explicit``); the edits
@@ -23,6 +24,20 @@ CUDA events, the median of five launches, two rounds; the tool prints the
 shared-memory atomic instructions each full kernel compiles to
 (cuobjdump), its spill (``-Xptxas -v``) and one JSON line. It needs an
 NVIDIA GPU and nvcc.
+
+``--kernel newton_dd`` and ``--kernel newton_dn`` split the one-CTA
+Newton-Boltzmann solves of ``csrc/newton.cu`` at their rows' first
+solves: D-D at the configs[3] row's deposit (tools/magnetized.py, ng =
+600, n0 = 0.9 <n>, cold start, the config's tol and maxiter), D-N at the
+D-N row's (ng = 800, warm start 0, tol 1e-3). Every cut but the full
+kernel runs the iteration count the full kernel ran. A long solve (tol 0,
+maxiter 64) prices an iteration apart from the launch's fixed cost.
+With ``--first-port`` the tool also splits the Newton kernels' first port
+(one CTA of ``padded_rows(ng)`` threads, 13 block barriers an iteration)
+beside them, given its source file, for example from ``git show
+77b14a9:pypic_tpu_torch/csrc/newton.cu``. These kernels are shorter than a launch from the host, so each time is
+the median of five rounds of 20 launches queued behind a sleep, between
+CUDA events.
 """
 
 from __future__ import annotations
@@ -266,15 +281,163 @@ _EXPLICIT_EDITS = [
      "  if (rank == 0) {\n    if (warp == kWarps - 1)"),
 ]
 
+# the current Newton kernels: CUT selects the stage taken out; "(f)"
+# launches the full kernel with the first port's padded_rows(ng) threads.
+# The cuts without PCR arithmetic run as many stages as the full kernel's
+# vote kept (its largest count in the solve, which it reports).
+NEWTON_CUTS = {
+    "(a) full": 0,
+    "(b) no PCR arithmetic": 1,        # stores, barriers and loads kept
+    "(c) no residual sum": 2,
+    "(d) barriers and exchanges only": 3,
+    "(e) divisions as reciprocal products": 4,
+    "(f) padded rows (1,024 threads)": 0,
+    "(g) no zero-dividend guard": 5,
+    "(h) every stage (no vote)": 6,
+}
+NEWTON_LONG = dict(tol=0.0, maxiter=64)  # the long solve
+_NEWTON_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
+     "#define PASS_THROUGH (CUT == 1 || CUT == 3)\n"
+     "#define CUT_EXP(x) (CUT == 3 ? (x) : expf(x))\n"
+     "#if CUT == 3\n#define CUT_ADD(x, y) "
+     "x = __longlong_as_double(__double_as_longlong(x) ^ __double_as_longlong(y))\n"
+     "#else\n#define CUT_ADD(x, y) x += (y)\n#endif", 1),
+    ("  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);\n"
+     "  return x == 0.0f ? __fmul_rn(x, y) : q;",
+     "#if CUT == 4\n  return __fmul_rn(x, __frcp_rn(y));\n#elif CUT == 5\n"
+     "  return __fdiv_rn(x, y);\n#else\n"
+     "  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);\n"
+     "  return x == 0.0f ? __fmul_rn(x, y) : q;\n#endif", 1),
+    ("for (int r = 0; r < R; ++r) x.f[r] = __fdiv_rn(x.f[r], x.b);",
+     "for (int r = 0; r < R; ++r) x.f[r] = CUT == 4 ? div_rn(x.f[r], x.b) : __fdiv_rn(x.f[r], x.b);", 1),
+    ("__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows) {\n  int k = 0;",
+     "__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows,\n"
+     "                         int* stages, int forced_stages) {\n  int k = 0, n = 0;", 1),
+    ("    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);\n"
+     "    if (!coupled || s >= rows) break;\n",
+     "#if PASS_THROUGH\n    __syncthreads();\n    if (n >= forced_stages || s >= rows) break;\n"
+     "#elif CUT == 6\n    __syncthreads();\n    if (s >= rows) break;\n#else\n"
+     "    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);\n"
+     "    if (!coupled || s >= rows) break;\n#endif\n    ++n;\n", 1),
+    ("    pcr_stage(x, m, p);\n",
+     "#if PASS_THROUGH\n"
+     "    unsigned u = __float_as_uint(m.a) ^ __float_as_uint(m.b) ^ __float_as_uint(m.c) ^\n"
+     "                 __float_as_uint(p.a) ^ __float_as_uint(p.b) ^ __float_as_uint(p.c);\n"
+     "    for (int r = 0; r < R; ++r) u ^= __float_as_uint(m.f[r]) ^ __float_as_uint(p.f[r]);\n"
+     "    if (u == 0x7fc00001u) x.a = x.b;  // never: keeps the loads\n#else\n"
+     "    pcr_stage(x, m, p);\n#endif\n", 1),
+    ("  return k;\n}",
+     "  if (!PASS_THROUGH && stages != nullptr && threadIdx.x == 0) atomicMax(stages, n);\n"
+     "  return k;\n}", 1),
+    ("__device__ __forceinline__ void warp_partial(double x, double* red) {\n",
+     "__device__ __forceinline__ void warp_partial(double x, double* red) {\n"
+     "  if (CUT == 2) return;\n", 1),
+    ("__device__ __forceinline__ double block_total(const double* red) {\n",
+     "__device__ __forceinline__ double block_total(const double* red) {\n"
+     "  if (CUT == 2) return 0.0;\n", 1),
+    ("x += __shfl_down_sync(0xffffffffu, x, o);",
+     "CUT_ADD(x, __shfl_down_sync(0xffffffffu, x, o));", 2),
+    ("expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))",
+     "CUT_EXP(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))", 2),
+    ("while (residual > tol && it < maxiter) {",
+     "while (forced >= 0 ? it < forced : (residual > tol && it < maxiter)) {", 2),
+    ("pcr_solve<1>(x, buf, i, rows);", "pcr_solve<1>(x, buf, i, rows, stages, forced_stages);", 1),
+    ("pcr_solve<2>(x, buf, i, rows);", "pcr_solve<2>(x, buf, i, rows, stages, forced_stages);", 1),
+    ("float dx2, float tol, int maxiter,\n                                 float step_max, float exp_clamp) {",
+     "float dx2, float tol, int maxiter,\n    float step_max, float exp_clamp, int forced, int* stages,\n"
+     "    int forced_stages) {", 1),
+    ("int maxiter, float step_max,\n                                 float exp_clamp) {",
+     "int maxiter, float step_max,\n    float exp_clamp, int forced, int* stages, int forced_stages) {", 1),
+    ("float exp_clamp,\n                              void* stream) {",
+     "float exp_clamp,\n    int forced, int* stages, int forced_stages, void* stream) {", 1),
+    ("float exp_clamp,\n                       void* stream) {",
+     "float exp_clamp,\n    int forced, int* stages, int forced_stages, void* stream) {", 1),
+    ("maxiter, step_max, exp_clamp);",
+     "maxiter, step_max, exp_clamp, forced, stages, forced_stages);", 1),
+    ("maxiter,\n      step_max, exp_clamp);",
+     "maxiter,\n      step_max, exp_clamp, forced, stages, forced_stages);", 1),
+]
+# the Newton kernels' first port (one CTA of padded_rows(ng) threads, 13
+# block barriers an iteration): CUT selects the stage taken out; "(f)"
+# launches the full kernel with the rows rounded up to 32
+NEWTON_FIRST_PORT_CUTS = {
+    "(a) full": 0,
+    "(b) no PCR arithmetic": 1,        # stores, barriers and loads kept
+    "(c) no residual sum": 2,
+    "(d) barriers and exchanges only": 3,
+    "(e) divisions as reciprocal products": 4,
+    "(f) rows rounded up to 32": 0,
+}
+_NEWTON_FIRST_PORT_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
+     "#if CUT == 2\n#define block_sum(x, red) (x)\n#elif CUT == 3\n"
+     "__device__ double block_sum_x(double x, double* red) {\n"
+     "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+     "  unsigned long long b = (unsigned long long)__double_as_longlong(x);\n"
+     "  for (int o = 16; o > 0; o >>= 1) b ^= __shfl_down_sync(0xffffffffu, b, o);\n"
+     "  __syncthreads();\n  if (lane == 0) red[warp] = __longlong_as_double((long long)b);\n"
+     "  __syncthreads();\n  unsigned long long t = 0;\n"
+     "  for (int w = 0; w < (int)(blockDim.x >> 5); ++w)\n"
+     "    t ^= (unsigned long long)__double_as_longlong(red[w]);\n"
+     "  return __longlong_as_double((long long)t);\n}\n#define block_sum block_sum_x\n#endif\n"
+     "#define CUT_EXP(x) (CUT == 3 ? (x) : expf(x))\n"
+     "#if CUT == 4\n#define CUT_DIV(x, y) __fmul_rn((x), __frcp_rn(y))\n"
+     "#else\n#define CUT_DIV(x, y) __fdiv_rn((x), (y))\n#endif", 1),
+    ("    const float alpha = __fdiv_rn(-a, bm);\n"
+     "    const float gamma = __fdiv_rn(-c, bp);\n",
+     "#if CUT == 1 || CUT == 3\n"
+     "    unsigned x = __float_as_uint(am) ^ __float_as_uint(bm) ^ __float_as_uint(cm) ^\n"
+     "                 __float_as_uint(ap) ^ __float_as_uint(bp) ^ __float_as_uint(cp);\n"
+     "    for (int r = 0; r < R; ++r) x ^= __float_as_uint(fm[r]) ^ __float_as_uint(fp[r]);\n"
+     "    if (x == 0x7fc00001u) a = b;  // never: keeps the loads\n#else\n"
+     "    const float alpha = CUT_DIV(-a, bm);\n"
+     "    const float gamma = CUT_DIV(-c, bp);\n", 1),
+    ("    c = __fmul_rn(gamma, cp);\n  }\n",
+     "    c = __fmul_rn(gamma, cp);\n#endif\n  }\n", 1),
+    ("for (int r = 0; r < R; ++r) f[r] = __fdiv_rn(f[r], b);",
+     "for (int r = 0; r < R; ++r) f[r] = CUT_DIV(f[r], b);", 1),
+    ("expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))",
+     "CUT_EXP(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))", 2),
+    ("while (residual > tol && it < maxiter) {",
+     "while (forced >= 0 ? it < forced : (residual > tol && it < maxiter)) {", 2),
+    ("float dx2, float tol, int maxiter,\n                                 float step_max, float exp_clamp) {",
+     "float dx2, float tol, int maxiter,\n    float step_max, float exp_clamp, int forced) {", 1),
+    ("int maxiter, float step_max,\n                                 float exp_clamp) {",
+     "int maxiter, float step_max,\n    float exp_clamp, int forced) {", 1),
+    ("float exp_clamp,\n                              void* stream) {",
+     "float exp_clamp,\n    int forced, void* stream) {", 1),
+    ("float exp_clamp,\n                       void* stream) {",
+     "float exp_clamp,\n    int forced, void* stream) {", 1),
+    ("maxiter, step_max, exp_clamp);", "maxiter, step_max, exp_clamp, forced);", 1),
+    ("maxiter,\n      step_max, exp_clamp);", "maxiter,\n      step_max, exp_clamp, forced);", 1),
+    ("(ngp & (ngp - 1))", "(ngp & 31)", 2),
+]
+
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _CURRENT_ARGS = [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_P, _P]
 _FIRST_PORT_ARGS = [_P] * 18 + [_I] * 3 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_I, _P, _P]
+# the Newton launchers' arguments: the first port's with the forced count
+# before the stream, the current ones' also with the stage count's
+# pointer and the forced stage count
+_NEWTON_ARGS = {
+    ("newton_dd", "first port"): [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _I, _P],
+    ("newton_dn", "first port"): [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _I, _P],
+    ("newton_dd", "current"): [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _I, _P, _I, _P],
+    ("newton_dn", "current"): [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _I, _P, _I, _P],
+}
 
 
 def _edited(text: str, edits) -> str:
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"the cut's anchor is not in the source once: {old[:60]!r}")
+    """Each edit is (old, new) or (old, new, times): ``old`` must stand in
+    the source exactly ``times`` times (once by default)."""
+    for old, new, *times in edits:
+        want = times[0] if times else 1
+        if text.count(old) != want:
+            raise RuntimeError(f"the cut's anchor is not in the source {want} time(s): "
+                               f"{old[:60]!r}")
         text = text.replace(old, new)
     return text
 
@@ -344,6 +507,26 @@ def _timed(fn, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _queued(fn, calls: int = 20, reps: int = 5) -> float:
+    """ms a call of a launch shorter than the host's launch time: ``calls``
+    launches queued behind a sleep between two CUDA events, the median of
+    ``reps`` rounds."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -459,29 +642,143 @@ def _split_explicit(_args, dev) -> tuple[dict, dict, dict]:
     return {"n": n, "ng": ng, "steps": steps}, calls, {"per": "step", "count": steps}
 
 
+def newton_load(kernel: str, dev) -> dict:
+    """The row's first solve: (ng,) density, n0 = 0.9 <n> on the card, the
+    warm start (None: cold), te, dx and the row's tol and maxiter."""
+    from ..ops import cuda_cic as K
+    from . import magnetized as row
+
+    if kernel == "newton_dd":
+        cfg, st, _ = row.state(dev)
+        w_rho = st.charge_state * 1.602e-19 * st.p2c / cfg.grid.dx
+        dens, n_dens = K.deposit2(st.p, w_rho, st.p2c / cfg.grid.dx, cfg.grid.ng,
+                                  periodic=False)
+        phi0, tol, maxiter = None, cfg.newton_tol, cfg.newton_maxiter
+    else:
+        pre = row.preset("dn", dev)
+        cfg, st = pre.config, pre.state
+        _, n_dens = K.deposit2(st.p, st.p2c / cfg.grid.dx, st.p2c / cfg.grid.dx,
+                               cfg.grid.ng, periodic=False)
+        dens = n_dens
+        phi0 = torch.zeros(cfg.grid.ng, dtype=torch.float32, device=dev)
+        tol, maxiter = 1e-3, 100  # the wrapper's, as the engine passes them
+    return dict(dens=dens, n0=(0.9 * torch.mean(n_dens)).reshape(1), phi0=phi0,
+                te=cfg.te, dx=cfg.grid.dx, ng=cfg.grid.ng, tol=tol, maxiter=maxiter)
+
+
+def _split_newton(args, dev) -> tuple[dict, dict, dict]:
+    """A Newton kernel's cuts at its row's first solve, and the long solve;
+    with --first-port, the first port's cuts beside them."""
+    from ..ops import cuda_newton
+
+    versions = {"current": (_build.CSRC_DIR / "newton.cu", _NEWTON_EDITS, NEWTON_CUTS)}
+    if args.first_port:
+        versions["first port"] = (args.first_port, _NEWTON_FIRST_PORT_EDITS,
+                                  NEWTON_FIRST_PORT_CUTS)
+    jobs, cuts = {}, {}
+    for version, (path, edits, table) in versions.items():
+        text = _edited(path.read_text(), edits)
+        for tag, cut in table.items():
+            name = tag if version == "current" else f"first port {tag}"
+            cuts[name] = (version, tag)
+            if not tag.startswith("(f)"):
+                jobs[name] = (text, [f"-DCUT={cut}"])
+    libs, logs = _build_all(jobs)
+    for name, (version, tag) in cuts.items():
+        if tag.startswith("(f)"):
+            libs[name] = libs[name.replace(tag, "(a) full")]
+    word = "newton_dd" if args.kernel == "newton_dd" else "newton_dn"
+    for tag in jobs:
+        for line in _kernel_report(logs[tag], word):
+            print(f"[ptxas] {tag}: {line}", flush=True)
+
+    load = newton_load(args.kernel, dev)
+    ng = load["ng"]
+    c1, dx2, _, step_max = cuda_newton.newton_scalars(load["te"], load["dx"], 0.0)
+    phi = torch.empty(ng, dtype=torch.float32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    resid = torch.empty((), dtype=torch.float32, device=dev)
+    stages = torch.zeros((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = {"current": cuda_newton.kernel_rows(ng), "first port": cuda_newton.padded_rows(ng)}
+    other = {"current": rows["first port"], "first port": rows["current"]}
+
+    def call(lib, version, threads, tol, maxiter, forced, forced_stages=0):
+        tol32 = float(np.float32(tol))
+        tail = (forced,) if version == "first port" else (forced, stages.data_ptr(),
+                                                          forced_stages)
+        if args.kernel == "newton_dd":
+            err = lib.pypic_boltzmann_dirichlet(
+                load["dens"].data_ptr(), load["n0"].data_ptr(), None, phi.data_ptr(),
+                iters.data_ptr(), resid.data_ptr(), ng, threads, cuda_newton._COEF,
+                float(np.float32(EPSILON_0)), c1, dx2, tol32, maxiter, step_max,
+                cuda_newton._EXP_CLAMP, *tail, stream)
+        else:
+            err = lib.pypic_boltzmann_dn(
+                load["dens"].data_ptr(), load["n0"].data_ptr(), load["phi0"].data_ptr(),
+                phi.data_ptr(), iters.data_ptr(), resid.data_ptr(), ng, threads,
+                cuda_newton._COEF, c1, dx2, tol32, maxiter, step_max,
+                cuda_newton._EXP_CLAMP, *tail, stream)
+        _build.check(err, "resident_split")
+
+    for name, lib in libs.items():
+        fn = lib.pypic_boltzmann_dirichlet if args.kernel == "newton_dd" else lib.pypic_boltzmann_dn
+        fn.argtypes, fn.restype = _NEWTON_ARGS[args.kernel, cuts[name][0]], _I
+    res = {"ng": ng, "rows": rows}
+    for version in versions:
+        full = libs["(a) full" if version == "current" else "first port (a) full"]
+        for key, (tol, maxiter) in {"row": (load["tol"], load["maxiter"]),
+                                    "long": (NEWTON_LONG["tol"], NEWTON_LONG["maxiter"])}.items():
+            stages.zero_()
+            call(full, version, rows[version], tol, maxiter, -1)
+            res[f"{version} iterations {key}"] = int(iters)
+            if version == "current":
+                res[f"current stages {key}"] = int(stages)
+            call(full, version, other[version], tol, maxiter, -1)
+            res[f"{version} iterations {key}, other rows"] = int(iters)
+    forced, forced_stages = res["current iterations row"], res["current stages row"]
+    calls, counts = {}, {}
+    for name, (version, tag) in cuts.items():
+        threads = other[version] if tag.startswith("(f)") else rows[version]
+        natural = tag.startswith(("(a)", "(f)"))
+        calls[name] = functools.partial(call, libs[name], version, threads, load["tol"],
+                                        load["maxiter"], -1 if natural else forced,
+                                        forced_stages)
+        counts[name] = forced
+        if natural:
+            calls[f"{name}, long solve"] = functools.partial(
+                call, libs[name], version, threads, NEWTON_LONG["tol"],
+                NEWTON_LONG["maxiter"], -1)
+            counts[f"{name}, long solve"] = res[f"{version} iterations long"]
+    return res, calls, {"per": "iteration", "count": counts, "timer": _queued}
+
+
 def main() -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("implicit", "explicit"), default="implicit")
+    ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn"),
+                    default="implicit")
     ap.add_argument("--first-port", type=Path,
                     help="the implicit kernel's first port (its csrc/implicit.cu), "
                          "split as well")
     args = ap.parse_args()
     if args.first_port and args.kernel == "explicit":
-        ap.error("--first-port splits the implicit kernel only")
+        ap.error("--first-port splits the implicit and the Newton kernels only")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    split = _split_explicit if args.kernel == "explicit" else _split_implicit
+    split = {"explicit": _split_explicit, "newton_dd": _split_newton,
+             "newton_dn": _split_newton}.get(args.kernel, _split_implicit)
     res, calls, unit = split(args, dev)
     res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
     for _ in range(2):
         for tag, call in calls.items():
-            ms = _timed(call)
+            ms = unit.get("timer", _timed)(call)
             res["ms"].setdefault(tag, []).append(ms)
-            print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / unit['count']:.3f} us a "
+            count = unit["count"][tag] if isinstance(unit["count"], dict) else unit["count"]
+            print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / count:.3f} us a "
                   f"{unit['per']}", flush=True)
     print(json.dumps(res))
     return res

@@ -479,13 +479,14 @@ def test_boris_gather_push_deposit_kernel_matches_plain(cuda_device, n, pad,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ng", [600, 301, 128])
+@pytest.mark.parametrize("ng", [600, 301, 128, 3, 31, 33, 1024])
 def test_boltzmann_dirichlet_kernel_matches_plain(cuda_device, ng):
     """The Newton kernel against its plain version (tests/test_pallas.py:
     315-342's cases and criteria): residual <= tol, counts within one
     (tol 1e-9 sits at the float32 floor), phi within 3e-5 of max|phi|;
     warm from the plain answer, equal counts. n0 comes as a device
-    tensor."""
+    tensor. The edge shapes: the fewest rows, one warp, one row past a
+    warp, the most rows (one CTA of kernel_rows(ng) threads)."""
     from pypic_tpu_torch.ops import cuda_newton
 
     rng = np.random.default_rng(11 + ng)
@@ -861,12 +862,13 @@ def test_deterministic_deposit_matches_plain(cuda_device, periodic):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ng", [800, 600, 257])
+@pytest.mark.parametrize("ng", [800, 600, 257, 3, 31, 33, 1024])
 def test_boltzmann_dn_kernel_matches_plain(cuda_device, ng):
     """The D-N Newton kernel against its plain version
     (tests/test_pallas.py:361-389's cases and criteria): iterations within
     one cold and equal warm, phi within 5e-4 of max|phi|, residual <= tol;
-    one launch counted; n0 as a device tensor."""
+    one launch counted; n0 as a device tensor; the edge shapes as in the
+    D-D test."""
     from pypic_tpu_torch.ops import cuda_newton
 
     rng = np.random.default_rng(13 + ng)
@@ -886,6 +888,38 @@ def test_boltzmann_dn_kernel_matches_plain(cuda_device, ng):
     ref_w = cuda_newton.boltzmann_dn_plain(n, n0, te, dx, ref.phi)
     assert int(got_w.iterations) == int(ref_w.iterations)
     _rel_close(ref_w.phi, got_w.phi, 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, ng", [("dd", 600), ("dn", 800)])
+def test_newton_kernels_long_solve_match_plain(cuda_device, kind, ng):
+    """A long solve (tol 0, maxiter 64: the loop at the float32 floor,
+    its shared copy of phi and its partial sums carried over many
+    iterations) of either Newton kernel against its plain version: the
+    same count, phi within the short solves' limits (3e-5 D-D, 5e-4
+    D-N of max|phi|)."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    te, dx = 116000.0, 2e-5
+    if kind == "dd":
+        rng = np.random.default_rng(11 + ng)
+        dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+        rho = torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(cuda_device)
+        n0 = torch.tensor(1e17, dtype=torch.float32, device=cuda_device)
+        got = cuda_newton.boltzmann_dirichlet(rho, n0, te, dx, tol=0.0, maxiter=64)
+        ref = cuda_newton.boltzmann_dirichlet_plain(rho, n0, te, dx, tol=0.0, maxiter=64)
+        tol = 3e-5
+    else:
+        rng = np.random.default_rng(13 + ng)
+        dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+        n = torch.from_numpy(dens.astype(np.float32)).to(cuda_device)
+        n0 = torch.tensor(0.9e17, dtype=torch.float32, device=cuda_device)
+        zero = torch.zeros(ng, dtype=torch.float32, device=cuda_device)
+        got = cuda_newton.boltzmann_dn(n, n0, te, dx, zero, tol=0.0, maxiter=64)
+        ref = cuda_newton.boltzmann_dn_plain(n, n0, te, dx, zero, tol=0.0, maxiter=64)
+        tol = 5e-4
+    assert int(got.iterations) == int(ref.iterations)
+    _rel_close(ref.phi, got.phi, tol)
 
 
 @pytest.mark.cuda

@@ -149,8 +149,9 @@ def test_magnetized_step_beyond_the_card_matches_jax(mag_pair, newton):
 
 
 def test_newton_wrappers_take_any_ng_on_the_cpu():
-    """The Newton wrappers on CPU tensors at ng = 1500: the plain PCR at
-    ngp = 2048, bit-equal to calling the plain versions, no launch."""
+    """The Newton wrappers on CPU tensors at ng = 1500: the plain PCR on
+    kernel_rows(1500) = 1,504 rows (the TPU's padded_rows 2,048),
+    bit-equal to calling the plain versions, no launch."""
     rng = np.random.default_rng(3)
     dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(1500))).clip(1e15)
     n = _t(dens.astype(np.float32))
@@ -163,4 +164,5 @@ def test_newton_wrappers_take_any_ng_on_the_cpu():
     ref = cuda_newton.boltzmann_dirichlet_plain(rho, 1e17, 1.16e5, 2e-5)
     assert torch.equal(got.phi, ref.phi)
     assert cuda_newton.padded_rows(1500) == 2048
+    assert cuda_newton.kernel_rows(1500) == 1504
     assert cuda_cic.LAUNCHES == before
