@@ -180,7 +180,10 @@ Phases (any failure raises and the script exits non-zero):
    one rank's slab and a ragged 10,000,003 with a middle rank's
    lo_shifted, ext_n = 227, dead slots, rows past both ext edges: p1 and
    v1 bit-equal, rho_ext against float64 sums, the clamp counts equal.
-   Each timed with its bound.
+   Each timed with its bound; then deposit_times: deposit2 at its three
+   paths' shapes and boris_gather_push_deposit at the configs[3] row's,
+   inputs warm and rotated past the L2 (the median of three profiler
+   calls each).
 29. carried check — pic_iead at n = 12,000 with the --carried row's
    configuration: one step from the states after 0 and 10 steps, card
    against CPU, the same source table, the carried rho and n and the
@@ -515,6 +518,10 @@ ROTATE_SETS = 4
 # the D-N slice: dirichlet_neumann_test at its own scale (tools/magnetized.py
 # --row dn), and the GC slice: pic_iead_gc at the configs[3] row's size
 NG_DN = 800
+# deposit_times: deposit2 at the shapes of its three paths (configs[3], the
+# D-N row, the carried row's re-activation patch of react_batch rows)
+DEPOSIT_SHAPES = {"configs[3]": (999_996, 600), "D-N": (50_000, NG_DN),
+                  "carried patch": (16_384, 600)}
 # the D-N Newton kernel against its plain version and the op-composed
 # Thomas route (tests/test_pallas.py:361-389): iterations within one cold
 # and equal warm, phi within 5e-4 of max|phi|
@@ -1904,19 +1911,19 @@ def phase_implicit_slices(dev) -> dict:
     return res
 
 
-def _mag_inputs(n: int, gen: torch.Generator, dev):
-    """Bounded-grid particles at ng = 600: a tenth inactive, the first
-    rows at the walls and off the grid (wall-lost slots); const =
-    0.5 dt e Z / m for Z in 1..5 and boron's mass."""
+def _mag_inputs(n: int, gen: torch.Generator, dev, ng: int = NG_MAG):
+    """Bounded-grid particles at ng nodes (600 by default): a tenth
+    inactive, the first rows at the walls and off the grid (wall-lost
+    slots); const = 0.5 dt e Z / m for Z in 1..5 and boron's mass."""
     f32 = torch.float32
-    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * (NG_MAG - 1)
-    p[:4] = torch.tensor([0.0, NG_MAG - 1.0, -0.3, NG_MAG - 0.7], device=dev)
+    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * (ng - 1)
+    p[:4] = torch.tensor([0.0, ng - 1.0, -0.3, ng - 0.7], device=dev)
     v = torch.randn((3, n), generator=gen, device=dev, dtype=f32) * 2e4
     act = (torch.rand(n, generator=gen, device=dev) < 0.9).to(f32)
     act[2:4] = 0.0
     z = torch.randint(1, 6, (n,), generator=gen, device=dev).to(f32)
     const = z * (0.5 * 1e-10 * 1.602e-19 / (10.81 * 1.67e-27))
-    field = torch.randn(NG_MAG, generator=gen, device=dev, dtype=f32) * 1e5
+    field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 1e5
     return field, p, v[0], v[1], v[2], const, act
 
 
@@ -3615,6 +3622,50 @@ def _carrier_inputs(n: int, gen: torch.Generator, dev, ng: int, lo: float):
     return field, p, v, w
 
 
+def deposit_times(dev) -> dict:
+    """Device times of the magnetized deposits: deposit2 at the shapes of
+    its three paths (DEPOSIT_SHAPES: configs[3], the D-N row, the carried
+    row's re-activation patch) and boris_gather_push_deposit at the
+    configs[3] row's (pad 2, mirrored), each the median of three profiler
+    calls (``device_ms``) with its inputs warm in the L2, then again with
+    each call on the next of ROTATE_SETS copies (``_rotating``); the bound
+    and the plain version's time. It calls the wrappers by name alone, so
+    it times another tree of the port as well (a parent commit, for a
+    paired comparison in one chip call). Returns {kernel: {shape: record}},
+    each record with a 'rotated' record beside it."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    fast = dict(reps=3, calls=3)
+    bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=CARRIED_PAD,
+               swap_weights=True)
+    cases = []
+    for shape, (n, ng) in DEPOSIT_SHAPES.items():
+        _, p, vx, vy, _, _, act = _mag_inputs(n, gen, dev, ng)
+        cases.append(("deposit2", shape, n, (p, vx * act, vy.abs() * act),
+                      functools.partial(K.deposit2, ng=ng, periodic=False),
+                      functools.partial(K.deposit2_plain, ng=ng, periodic=False)))
+    cases.append(("boris_gather_push_deposit", "configs[3]", N_MAG,
+                  _carried_mag_inputs(N_MAG, gen, dev, 1.0),
+                  functools.partial(K.boris_gather_push_deposit, **bkw),
+                  functools.partial(K.boris_gather_push_deposit_plain, **bkw)))
+    out = {}
+    for name, shape, n, args, fn, plain in cases:
+        plain_ms = cuda_ms(lambda: plain(*args), **fast)
+        rec = _timed(lambda: fn(*args), plain_ms, name, n)
+        rec["rotated"] = {key: value for key, value in _timed(
+            _rotating(fn, args), plain_ms, name, n).items()
+            if key in ("ms", "ms_calls")}
+        log(f"[deposit] {name} at {shape} (n = {n}): {rec['ms']:.4f} ms warm "
+            f"(calls {', '.join(f'{t:.4f}' for t in rec['ms_calls'])}), "
+            f"{rec['rotated']['ms']:.4f} rotated past the L2 (calls "
+            f"{', '.join(f'{t:.4f}' for t in rec['rotated']['ms_calls'])}); bound "
+            f"{rec['bound_ms']:.4f} ({rec['bound_by']}), plain {plain_ms:.4f}")
+        out.setdefault(name, {})[shape] = rec
+    print(json.dumps({"deposit_times": out}), flush=True)
+    return out
+
+
 def phase_carried_kernels(dev) -> dict:
     """The two carried kernels against their plain versions on the card:
     boris_gather_push_deposit at the ragged n with a forced clamp (pad 0,
@@ -3728,6 +3779,7 @@ def phase_carried_kernels(dev) -> dict:
         torch.cuda.empty_cache()
     for rec in records.values():
         rec["library_ms"] = None
+    records["deposit_times"] = deposit_times(dev)
     return records
 
 
@@ -3933,6 +3985,12 @@ def main() -> int:
     launches["explicit_domain_cycle"] = (
         cs["carrier"]["launches"]["explicit_domain_cycle"])
     helper = dnk.pop("philox_uniforms")
+    # rows 7 and 9 read deposit_times' median at configs[3], its shapes beside
+    dep = ck.pop("deposit_times")
+    for kname, by_shape in dep.items():
+        rec = (mk if kname in mk else ck)[kname]
+        rec.update(ms=by_shape["configs[3]"]["ms"],
+                   ms_calls=by_shape["configs[3]"]["ms_calls"], shapes=by_shape)
     records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk, **ck}
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
@@ -3954,7 +4012,7 @@ def main() -> int:
          "n": records[kname]["n"],
          **{key: records[kname][key] for key in (
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
-            "at_max_n", "iterations", "us_per_iteration", "long_solve")
+            "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [

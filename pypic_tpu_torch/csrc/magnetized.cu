@@ -4,8 +4,10 @@
 // Three kernels, each the counterpart of a Pallas TPU kernel in
 // pypic_tpu/ops/pallas_cic.py, with plain CIC index arithmetic
 // (cic_common.cuh) in place of the TPU kernels' tent windows and one-hot
-// contractions. One thread per particle in a grid-stride loop, any n; the
-// (ng,) arrays a block reads or accumulates live in dynamic shared memory.
+// contractions. boris_kernel runs a thread a particle in a grid-stride
+// loop; each block of the two deposits sweeps a contiguous range of rows
+// (below). The (ng,) arrays a block reads or accumulates live in dynamic
+// shared memory.
 // Every product and sum is written with __fmul_rn / __fadd_rn /
 // __fsub_rn / __fdiv_rn, so nvcc contracts nothing into an FMA and each
 // operation rounds as the plain PyTorch version's does. A launcher
@@ -15,6 +17,97 @@
 #include "cic_common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The deposits' grid and flush (deposit2_kernel, boris_deposit_kernel)
+//
+// The first port launched 8 blocks of 256 threads an SM (1,056 on the
+// H100), one row a thread per pass, each block with one (ng,) shared-memory
+// histogram an array, and flushed every node of every block's histograms by
+// a global float atomic: 1.27 M atomics onto 4.8 KB at the configs[3] row
+// (n = 999,996, ng = 600). The split (tools/resident_split.py --kernel
+// deposit2|boris_deposit; PERF.md §6) put 10.8 of deposit2's 23.5
+// µs there in that flush and 8.1 in the shared-memory adds: this card runs
+// a float atomicAdd to shared memory as a compare-and-swap loop, a few
+// lanes a clock an SM and ~0.2 µs a round trip. The grid now comes in two
+// widths (ops/cuda_cic.py deposit_launch_shape, a function of n, ng and
+// the SM count alone):
+//
+// * wide, where every thread of one 1,024-thread block an SM has a group
+//   of four rows: one wave of such blocks, each sweeping a contiguous range
+//   of rows four at a time with 16-B loads and stores (row by row where a
+//   pointer is not 16-B aligned), each histogram in `cols` lane columns,
+//   node k's column j at h[k cols + j], lane l adding into column
+//   l mod cols. At 32 columns a warp's adds land on 32 distinct words and
+//   banks, and the adds run at their best rate (8 and 16 columns: +38%
+//   and +13% a launch). The columns halve where shared memory cannot hold
+//   them, down to 1, so the ceilings stay where one column puts them. 132
+//   blocks flush 158 K atomics where 1,056 flushed 1.27 M;
+// * narrow, below that n (the D-N row's 50,000 rows, the carried row's
+//   16,384-row patch): the first port's grid (a row a thread, grid-stride,
+//   256 threads, as many blocks as the rows fill up to 8 an SM, one
+//   column), where a launch is mostly its fixed cost. The wide grid at
+//   these shapes reads 40-55% slower; a row's four adds issued as
+//   concurrent compare-and-swaps in place of four atomicAdd loops saved
+//   nothing there (nor at configs[3], where they cost 14%).
+//
+// The flush: after a block barrier a thread takes a node, sums its columns
+// from the node's own on (a warp's 32 nodes start on 32 banks) and adds
+// the total to the zeroed output by one global float atomic an array. The
+// split priced a cluster reduction in its place (8-block clusters summing
+// each node range through distributed shared memory, then one atomic a
+// node and cluster, or partial rows summed by the block that takes the
+// last ticket, outputs written whole): the card holds 15 such clusters at
+// once (120 of 132 SMs), each cluster barrier costs ~0.75 µs and the
+// tickets' tail ~2 µs, against ~2 µs for the 132 blocks' atomics; it read
+// 15.8 µs against 12.6 at configs[3]. So the outputs come zeroed, a memset
+// a call, as in the first port.
+// ---------------------------------------------------------------------------
+
+// Groups [b G / B, (b + 1) G / B) of this block, G = ceil(n / 4) groups of
+// four rows, B = gridDim.x; every block gets rows when G >= B.
+__device__ __forceinline__ void block_groups(long long n, long long& lo,
+                                             long long& hi) {
+  const long long groups = (n + 3) / 4, b = blockIdx.x, blocks = gridDim.x;
+  lo = b * groups / blocks;
+  hi = (b + 1) * groups / blocks;
+}
+
+// Zero `count` floats of shared memory from the 16-B aligned `h`.
+__device__ __forceinline__ void zero_shared(float* h, int count) {
+  float4* h4 = reinterpret_cast<float4*>(h);
+  for (int i = threadIdx.x; i < count / 4; i += blockDim.x)
+    h4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) h[i] = 0.0f;
+}
+
+// Every thread of the block calls it once, after its last deposit. h_a,
+// h_b: two (ng,) histograms of `cols` columns (one with ROWS 1), node k's
+// column j at h[k cols + j]; out_a, out_b: ng zeroed floats each. A thread
+// takes a node, sums its columns from the node's own on (a warp's 32 nodes
+// start on 32 banks) and adds the total by one global atomic an array.
+template <int ROWS>
+__device__ __forceinline__ void flush_columns(const float* h_a, const float* h_b,
+                                              int ng, int cols, float* out_a,
+                                              float* out_b) {
+  __syncthreads();
+  for (int k = threadIdx.x; k < ng; k += blockDim.x) {
+    if (ROWS == 1) {  // the first port's flush
+      atomicAdd(out_a + k, h_a[k]);
+      atomicAdd(out_b + k, h_b[k]);
+      continue;
+    }
+    float a = 0.0f, b = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < cols; ++j) {
+      const int at = k * cols + ((k + j) & (cols - 1));
+      a = __fadd_rn(a, h_a[at]);
+      b = __fadd_rn(b, h_b[at]);
+    }
+    atomicAdd(out_a + k, a);
+    atomicAdd(out_b + k, b);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // deposit2
@@ -31,40 +124,55 @@ namespace {
 // the histogram and never addresses outside it.
 //
 // Bound on the H100: device-memory bytes, 12 B read per particle (p, va,
-// vb). Each block keeps two (ng,) histograms in shared memory (4.7 KB at
-// ng = 600) and flushes them with one global atomic per node and array.
+// vb); at the configs[3] row the adds (four a particle) weigh as much as
+// the bytes. The grid, columns and flush above.
 // ---------------------------------------------------------------------------
-template <bool PERIODIC>
-__global__ void deposit2_kernel(const float* __restrict__ p,
-                                const float* __restrict__ va,
-                                const float* __restrict__ vb,
-                                float* __restrict__ out_a,
-                                float* __restrict__ out_b, long long n,
-                                int ng) {
-  extern __shared__ float smem[];
-  float* s_a = smem;
-  float* s_b = smem + ng;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    s_a[i] = 0.0f;
-    s_b[i] = 0.0f;
-  }
+template <bool PERIODIC, int ROWS, bool VEC>
+__global__ void __launch_bounds__(1024, 1)
+    deposit2_kernel(const float* __restrict__ p, const float* __restrict__ va,
+                    const float* __restrict__ vb, float* __restrict__ out_a,
+                    float* __restrict__ out_b, long long n, int ng, int cols) {
+  extern __shared__ float4 smem4[];
+  float* h_a = reinterpret_cast<float*>(smem4);
+  float* h_b = h_a + (size_t)ng * cols;
+  zero_shared(h_a, 2 * ng * cols);
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-    const float a = va[i];
-    const float b = vb[i];
-    atomicAdd(&s_a[c.l], __fmul_rn(a, c.wl));
-    atomicAdd(&s_a[c.r], __fmul_rn(a, c.wr));
-    atomicAdd(&s_b[c.l], __fmul_rn(b, c.wl));
-    atomicAdd(&s_b[c.r], __fmul_rn(b, c.wr));
+  if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      const float a = va[i];
+      const float b = vb[i];
+      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));
+      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));
+      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));
+      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));
+    }
+  } else {  // wide: groups of four rows, lane columns
+    const int col = threadIdx.x & (cols - 1);
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
+      const float4 a4 = load4<VEC>(va, i, end, 0.0f);
+      const float4 b4 = load4<VEC>(vb, i, end, 0.0f);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i + r >= end) break;
+        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const float a = get(a4, r);
+        const float b = get(b4, r);
+        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));
+        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));
+        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));
+        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));
+      }
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    atomicAdd(&out_a[i], s_a[i]);
-    atomicAdd(&out_b[i], s_b[i]);
-  }
+  flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);
 }
 
 // The gather position: pc = clip(p, 0, ng - 1); with SWAP (the reference's
@@ -198,12 +306,62 @@ __global__ void boris_kernel(const float* __restrict__ field,
 //
 // Bound on the H100: device-memory bytes, 32 B read (p, vx, vy, vz,
 // const, act, wr, wn) and 16 B written (p1, vx1, vy1, vz1) a particle.
-// The field and both histograms live in shared memory (3 ng floats, 7.2 KB
-// at ng = 600); each block flushes its histograms with one global atomic
-// a node and array, and adds its clamp count with one integer atomic.
+// The grid, columns and flush are deposit2's (above); the field sits in
+// shared memory after the columns. The clamp count is summed by warps into
+// the block's and added by one integer atomic a block.
 // ---------------------------------------------------------------------------
+// One row of the carried sweep: the push (p1, vx, vy, vz; an inactive row
+// keeps its inputs) and the deposit's four adds into h_r (the rho columns,
+// then the n columns), idx[k] -1 where the row adds nothing there; a
+// clamped deposit with wn > 0 counts.
 template <bool SWAP>
-__global__ void boris_deposit_kernel(
+__device__ __forceinline__ void boris_row(
+    const float* s_field, int ng, int cols, int col, float p, float vx0,
+    float vy0, float vz0, float cst, float act, float wr, float wn, float bx,
+    float by, float bz, float dt_dx, int win_stride, int num_k,
+    float inv_stride, int pad, int wp, float& p1, float& vx, float& vy,
+    float& vz, int (&idx)[4], float (&val)[4], int& clamped) {
+  const float hi = (float)(ng - 1);
+  const float pc = gather_position<SWAP>(p, hi);
+  p1 = p;
+  vx = vx0;
+  vy = vy0;
+  vz = vz0;
+  if (act > 0.0f) {
+    boris_rotate(gather(s_field, cic_bounded(pc, ng)), cst, vx0, vy0, vz0, bx,
+                 by, bz, vx, vy, vz);
+    p1 = __fadd_rn(p, __fmul_rn(vx, dt_dx));
+  }
+  idx[0] = idx[1] = idx[2] = idx[3] = -1;
+  if (!(p1 >= 0.0f && p1 <= hi) || (wr == 0.0f && wn == 0.0f)) return;
+  const float top = (float)(wp - 1);
+  const int k = min(max((int)__fmul_rn(floorf(pc), inv_stride), 0), num_k - 1);
+  const float d_s = __fsub_rn(pc, (float)(k * win_stride));
+  float d_h = __fadd_rn(__fadd_rn(d_s, __fsub_rn(p1, pc)), (float)pad);
+  if (d_h < 0.0f || d_h > top) {
+    if (wn > 0.0f) ++clamped;
+    d_h = fminf(fmaxf(d_h, 0.0f), top);
+  }
+  const float row = floorf(d_h);
+  const float fr = __fsub_rn(d_h, row);
+  const float fl = __fsub_rn(1.0f, fr);
+  const int l = win_stride * k - pad + (int)row;
+  if (l >= 0 && l < ng) {
+    idx[0] = l * cols + col;
+    idx[1] = (ng + l) * cols + col;
+  }
+  if (l + 1 >= 0 && l + 1 < ng) {
+    idx[2] = (l + 1) * cols + col;
+    idx[3] = (ng + l + 1) * cols + col;
+  }
+  val[0] = __fmul_rn(wr, fl);
+  val[1] = __fmul_rn(wn, fl);
+  val[2] = __fmul_rn(wr, fr);
+  val[3] = __fmul_rn(wn, fr);
+}
+
+template <bool SWAP, int ROWS, bool VEC>
+__global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
     const float* __restrict__ field, const float* __restrict__ p_in,
     const float* __restrict__ vx_in, const float* __restrict__ vy_in,
     const float* __restrict__ vz_in, const float* __restrict__ c_in,
@@ -212,95 +370,118 @@ __global__ void boris_deposit_kernel(
     float* __restrict__ vx_out, float* __restrict__ vy_out,
     float* __restrict__ vz_out, float* __restrict__ rho,
     float* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng,
-    float bx, float by, float bz, float dt_dx, int win_stride, int num_k,
-    float inv_stride, int pad, int wp) {
-  extern __shared__ float smem[];
-  float* s_field = smem;
-  float* s_rho = smem + ng;
-  float* s_n = smem + 2 * ng;
+    int cols, float bx, float by, float bz, float dt_dx, int win_stride,
+    int num_k, float inv_stride, int pad, int wp) {
+  extern __shared__ float4 smem4[];
+  float* h_r = reinterpret_cast<float*>(smem4);  // then the n columns
+  float* s_field = h_r + (size_t)2 * ng * cols;
   __shared__ int s_clamped;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    s_field[i] = field[i];
-    s_rho[i] = 0.0f;
-    s_n[i] = 0.0f;
-  }
+  zero_shared(h_r, 2 * ng * cols);
+  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
   if (threadIdx.x == 0) s_clamped = 0;
   __syncthreads();
-  const float hi = (float)(ng - 1);
-  const float top = (float)(wp - 1);
-  const float padf = (float)pad;
   int clamped = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float p = p_in[i];
-    const float vx0 = vx_in[i];
-    const float vy0 = vy_in[i];
-    const float vz0 = vz_in[i];
-    const float pc = gather_position<SWAP>(p, hi);
-    float p1 = p, vx = vx0, vy = vy0, vz = vz0;
-    if (act_in[i] > 0.0f) {
-      boris_rotate(gather(s_field, cic_bounded(pc, ng)), c_in[i], vx0, vy0,
-                   vz0, bx, by, bz, vx, vy, vz);
-      p1 = __fadd_rn(p, __fmul_rn(vx, dt_dx));
+  int idx[4];
+  float val[4];
+  if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      float p1, vx, vy, vz;
+      boris_row<SWAP>(s_field, ng, 1, 0, p_in[i], vx_in[i], vy_in[i], vz_in[i],
+                      c_in[i], act_in[i], wr_in[i], wn_in[i], bx, by, bz, dt_dx,
+                      win_stride, num_k, inv_stride, pad, wp, p1, vx, vy, vz, idx,
+                      val, clamped);
+      p_out[i] = p1;
+      vx_out[i] = vx;
+      vy_out[i] = vy;
+      vz_out[i] = vz;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);
     }
-    p_out[i] = p1;
-    vx_out[i] = vx;
-    vy_out[i] = vy;
-    vz_out[i] = vz;
-    const float wr = wr_in[i];
-    const float wn = wn_in[i];
-    if (!(p1 >= 0.0f && p1 <= hi) || (wr == 0.0f && wn == 0.0f)) continue;
-    const int k = min(max((int)__fmul_rn(floorf(pc), inv_stride), 0), num_k - 1);
-    const float d_s = __fsub_rn(pc, (float)(k * win_stride));
-    float d_h = __fadd_rn(__fadd_rn(d_s, __fsub_rn(p1, pc)), padf);
-    if (d_h < 0.0f || d_h > top) {
-      if (wn > 0.0f) ++clamped;
-      d_h = fminf(fmaxf(d_h, 0.0f), top);
-    }
-    const float row = floorf(d_h);
-    const float fr = __fsub_rn(d_h, row);
-    const float fl = __fsub_rn(1.0f, fr);
-    const int l = win_stride * k - pad + (int)row;
-    if (l >= 0 && l < ng) {
-      atomicAdd(&s_rho[l], __fmul_rn(wr, fl));
-      atomicAdd(&s_n[l], __fmul_rn(wn, fl));
-    }
-    if (l + 1 >= 0 && l + 1 < ng) {
-      atomicAdd(&s_rho[l + 1], __fmul_rn(wr, fr));
-      atomicAdd(&s_n[l + 1], __fmul_rn(wn, fr));
+  } else {  // wide: groups of four rows, lane columns
+    const int col = threadIdx.x & (cols - 1);
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      // rows at or past `end` read as inactive with weight 0 and are not written
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p_in, i, end, 0.0f);
+      const float4 vx4 = load4<VEC>(vx_in, i, end, 0.0f);
+      const float4 vy4 = load4<VEC>(vy_in, i, end, 0.0f);
+      const float4 vz4 = load4<VEC>(vz_in, i, end, 0.0f);
+      const float4 c4 = load4<VEC>(c_in, i, end, 0.0f);
+      const float4 act4 = load4<VEC>(act_in, i, end, 0.0f);
+      const float4 wr4 = load4<VEC>(wr_in, i, end, 0.0f);
+      const float4 wn4 = load4<VEC>(wn_in, i, end, 0.0f);
+      float4 p14, vx14, vy14, vz14;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        boris_row<SWAP>(s_field, ng, cols, col, get(p4, r), get(vx4, r), get(vy4, r),
+                        get(vz4, r), get(c4, r), get(act4, r), get(wr4, r),
+                        get(wn4, r), bx, by, bz, dt_dx, win_stride, num_k, inv_stride,
+                        pad, wp, at(p14, r), at(vx14, r), at(vy14, r), at(vz14, r), idx,
+                        val, clamped);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);
+      }
+      store4<VEC>(p_out, i, end, p14);
+      store4<VEC>(vx_out, i, end, vx14);
+      store4<VEC>(vy_out, i, end, vy14);
+      store4<VEC>(vz_out, i, end, vz14);
     }
   }
-  if (clamped) atomicAdd(&s_clamped, clamped);
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    atomicAdd(&rho[i], s_rho[i]);
-    atomicAdd(&dens[i], s_n[i]);
-  }
+  clamped = __reduce_add_sync(0xffffffffu, clamped);
+  if ((threadIdx.x & 31) == 0 && clamped) atomicAdd(&s_clamped, clamped);
+  flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols, rho, dens);
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
+}
+
+// The launch shape's invariants (ops/cuda_cic.py deposit_launch_shape):
+// four rows a thread and pass with a power-of-two column count up to 32,
+// or a row a thread and one column; no more blocks than the rows fill.
+bool deposit_shape_ok(long long n, int ng, int rows, int blocks, int threads,
+                      int cols) {
+  return ng >= 2 && n >= 0 && threads >= 32 && threads <= 1024 &&
+         threads % 32 == 0 && blocks >= 1 &&
+         (blocks == 1 || blocks <= (n + rows - 1) / rows) &&
+         ((rows == 4 && cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0) ||
+          (rows == 1 && cols == 1));
 }
 
 }  // namespace
 
 extern "C" {
 
-// out_a, out_b: ng zeroed floats each.
+// out_a, out_b: ng zeroed floats each; rows, blocks, threads and cols from
+// ops/cuda_cic.py deposit_launch_shape.
 int pypic_deposit2(const float* p, const float* va, const float* vb,
-                   float* out_a, float* out_b, long long n, int ng,
-                   int periodic, int blocks, int threads, void* stream) {
-  const size_t smem = 2 * (size_t)ng * sizeof(float);
+                   float* out_a, float* out_b, long long n, int ng, int periodic,
+                   int rows, int blocks, int threads, int cols, void* stream) {
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)ng * cols * sizeof(float);
+  const bool vec = aligned16(p) && aligned16(va) && aligned16(vb);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+#define PYPIC_DEPOSIT2(PER, ROWS, VEC)                                          \
+  err = allow_smem(deposit2_kernel<PER, ROWS, VEC>, smem);                      \
+  if (err != cudaSuccess) return (int)err;                                      \
+  deposit2_kernel<PER, ROWS, VEC><<<blocks, threads, smem, s>>>(                \
+      p, va, vb, out_a, out_b, n, ng, cols);                                    \
+  return (int)cudaGetLastError()
   if (periodic) {
-    err = allow_smem(deposit2_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit2_kernel<true><<<blocks, threads, smem, s>>>(p, va, vb, out_a, out_b, n, ng);
-  } else {
-    err = allow_smem(deposit2_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit2_kernel<false><<<blocks, threads, smem, s>>>(p, va, vb, out_a, out_b, n, ng);
+    if (rows == 1) { PYPIC_DEPOSIT2(true, 1, false); }
+    if (vec) { PYPIC_DEPOSIT2(true, 4, true); }
+    PYPIC_DEPOSIT2(true, 4, false);
   }
-  return (int)cudaGetLastError();
+  if (rows == 1) { PYPIC_DEPOSIT2(false, 1, false); }
+  if (vec) { PYPIC_DEPOSIT2(false, 4, true); }
+  PYPIC_DEPOSIT2(false, 4, false);
+#undef PYPIC_DEPOSIT2
 }
 
 int pypic_boris_gather_push(const float* field, const float* p,
@@ -327,32 +508,43 @@ int pypic_boris_gather_push(const float* field, const float* p,
 }
 
 
-// rho, dens: ng zeroed floats each; n_clamped: one zeroed int.
+// rho, dens: ng zeroed floats each; n_clamped: one zeroed int; rows,
+// blocks, threads and cols as pypic_deposit2's.
 int pypic_boris_gather_push_deposit(
     const float* field, const float* p, const float* vx, const float* vy,
     const float* vz, const float* c, const float* act, const float* wr,
     const float* wn, float* p1, float* vx1, float* vy1, float* vz1, float* rho,
     float* dens, int* n_clamped, long long n, int ng, float bx, float by,
     float bz, float dt_dx, int swap, int win_stride, int num_k,
-    float inv_stride, int pad, int blocks, int threads, void* stream) {
-  const size_t smem = 3 * (size_t)ng * sizeof(float);
+    float inv_stride, int pad, int rows, int blocks, int threads, int cols,
+    void* stream) {
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)cols + 1) * ng * sizeof(float);
   const int wp = win_stride + 2 + 2 * pad;  // width = stride + 2
+  const bool vec = aligned16(p) && aligned16(vx) && aligned16(vy) &&
+                   aligned16(vz) && aligned16(c) && aligned16(act) &&
+                   aligned16(wr) && aligned16(wn) && aligned16(p1) &&
+                   aligned16(vx1) && aligned16(vy1) && aligned16(vz1);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-#define PYPIC_BORIS_DEP(SW)                                                    \
-  err = allow_smem(boris_deposit_kernel<SW>, smem);                            \
-  if (err != cudaSuccess) return (int)err;                                     \
-  boris_deposit_kernel<SW><<<blocks, threads, smem, s>>>(                      \
-      field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1, rho, dens,      \
-      n_clamped, n, ng, bx, by, bz, dt_dx, win_stride, num_k, inv_stride, pad, \
-      wp)
+#define PYPIC_BORIS_DEP(SW, ROWS, VEC)                                          \
+  err = allow_smem(boris_deposit_kernel<SW, ROWS, VEC>, smem);                  \
+  if (err != cudaSuccess) return (int)err;                                      \
+  boris_deposit_kernel<SW, ROWS, VEC><<<blocks, threads, smem, s>>>(            \
+      field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1, rho, dens,       \
+      n_clamped, n, ng, cols, bx, by, bz, dt_dx, win_stride, num_k, inv_stride, \
+      pad, wp);                                                                 \
+  return (int)cudaGetLastError()
   if (swap) {
-    PYPIC_BORIS_DEP(true);
-  } else {
-    PYPIC_BORIS_DEP(false);
+    if (rows == 1) { PYPIC_BORIS_DEP(true, 1, false); }
+    if (vec) { PYPIC_BORIS_DEP(true, 4, true); }
+    PYPIC_BORIS_DEP(true, 4, false);
   }
+  if (rows == 1) { PYPIC_BORIS_DEP(false, 1, false); }
+  if (vec) { PYPIC_BORIS_DEP(false, 4, true); }
+  PYPIC_BORIS_DEP(false, 4, false);
 #undef PYPIC_BORIS_DEP
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

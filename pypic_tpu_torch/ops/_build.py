@@ -68,7 +68,7 @@ _SIGNATURES = {
     "pypic_explicit_resident": (
         [_P] * 10 + [_I] * 4 + [_F] * 4 + [_D] * 4 + [_P], _I),
     "pypic_explicit_resident_smem": ([_I], _L),
-    "pypic_deposit2": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_deposit2": ([_P] * 5 + [_L, _I, _I, _I, _I, _I, _I, _P], _I),
     "pypic_boris_gather_push": (
         [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_boltzmann_dirichlet": (
@@ -93,8 +93,8 @@ _SIGNATURES = {
     "pypic_leapfrog_push": (
         [_P] * 5 + [_L, _I, _F, _F, _F, _I, _I, _P], _I),
     "pypic_boris_gather_push_deposit": (
-        [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _P],
-        _I),
+        [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _I,
+                     _I, _P], _I),
     "pypic_explicit_domain_cycle": (
         [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),

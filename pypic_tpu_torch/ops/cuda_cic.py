@@ -1025,6 +1025,78 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
 # the magnetized engine's particle kernels
 # ---------------------------------------------------------------------------
 
+# the launch of the deposits of csrc/magnetized.cu (deposit2_kernel,
+# boris_deposit_kernel): wide, one block of DEPOSIT_WIDE_THREADS an SM,
+# four rows a thread and pass, each histogram in up to DEPOSIT_MAX_COLS lane
+# columns; narrow (fewer rows than give every such thread four), the first
+# port's grid: DEPOSIT_NARROW_THREADS threads, a row a thread, up to
+# _BLOCKS_PER_SM blocks an SM, one column
+DEPOSIT_WIDE_THREADS = 1024
+DEPOSIT_NARROW_THREADS = _THREADS
+DEPOSIT_MAX_COLS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DepositShape:
+    """The launch of ``deposit2`` (``field`` False) or
+    ``boris_gather_push_deposit`` (True): ``blocks`` blocks of ``threads``
+    threads, ``rows`` rows a thread and pass (4 with 16-B accesses, or 1);
+    block b sweeps the units of ``rows`` rows [b U / B, (b + 1) U / B), U =
+    ceil(n / rows), B = blocks; each of its two histograms has ``cols``
+    lane columns a node; ``smem`` bytes of dynamic shared memory a block
+    (the columns, and the field for row 9)."""
+    rows: int
+    blocks: int
+    threads: int
+    cols: int
+    smem: int
+
+
+def deposit_launch_shape(n: int, ng: int, field: bool, sms: int) -> DepositShape:
+    """The grid of the magnetized deposits for n rows and ng nodes on a card
+    of ``sms`` SMs, a function of these alone. Wide where every thread of
+    one 1,024-thread block an SM gets a group of four rows: one such block
+    an SM, 32 lane columns, halved until shared memory holds them. Narrow
+    below that: the first port's grid, a row a thread, no more blocks than
+    the rows fill. Raises where one column does not fit: above ng = 29,056
+    for deposit2 and 19,370 with the field."""
+    if n < 0 or ng < 2 or sms < 1:
+        raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1; "
+                         f"got {n}, {ng}, {sms}")
+    arrays = 3 if field else 2
+    _check_smem(ng, arrays, "boris_gather_push_deposit" if field else "deposit2")
+
+    def smem(cols: int) -> int:
+        return 4 * (2 * cols + arrays - 2) * ng
+
+    if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
+        cols = DEPOSIT_MAX_COLS
+        while smem(cols) > SMEM_LIMIT:
+            cols //= 2
+        return DepositShape(4, sms, DEPOSIT_WIDE_THREADS, cols, smem(cols))
+    blocks = max(1, min(-(-n // DEPOSIT_NARROW_THREADS), _BLOCKS_PER_SM * sms))
+    return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, 1, smem(1))
+
+
+def deposit_row_blocks(n: int, ng: int, field: bool, sms: int) -> np.ndarray:
+    """(n,) int array: the block of ``deposit_launch_shape``'s grid that
+    sweeps each row. Wide, block b the groups of four [b G / B, (b + 1) G /
+    B), G = ceil(n / 4), B = blocks (the kernels' block_groups); narrow,
+    the first port's grid stride: row i in block (i // threads) mod B."""
+    shape = deposit_launch_shape(n, ng, field, sms)
+    i = np.arange(n, dtype=np.int64)
+    if shape.rows == 1:
+        return (i // shape.threads) % shape.blocks
+    groups = -(-n // 4)
+    # the last block b whose first group b G // B is at or below the row's
+    first = np.arange(shape.blocks, dtype=np.int64) * groups // shape.blocks
+    return np.searchsorted(first, i // 4, side="right") - 1
+
+
+def _deposit_shape(dev, n: int, ng: int, field: bool) -> DepositShape:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return deposit_launch_shape(n, ng, field, _sm_count(index))
+
 
 def deposit2_plain(p, va, vb, ng: int, *, periodic: bool):
     """Two CIC deposits at the same positions, the indices and weights
@@ -1052,15 +1124,15 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
     _check_ng(ng)
     if kind == "cpu":
         return deposit2_plain(p, va, vb, ng, periodic=periodic)
-    _check_smem(ng, 2, "deposit2")
     lib = _build.library()
     dev = p.device
     out = torch.zeros((2, ng), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        shape = _deposit_shape(dev, n, ng, False)
         err = lib.pypic_deposit2(p.data_ptr(), va.data_ptr(), vb.data_ptr(),
                                  out[0].data_ptr(), out[1].data_ptr(), n, ng,
-                                 int(periodic), _blocks(n, dev), _THREADS,
-                                 _stream(dev))
+                                 int(periodic), shape.rows, shape.blocks,
+                                 shape.threads, shape.cols, _stream(dev))
     _build.check(err, "deposit2")
     LAUNCHES["deposit2"] += 1
     return out[0], out[1]
@@ -1249,21 +1321,22 @@ def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
         return boris_gather_push_deposit_plain(
             field, p, vx, vy, vz, const, act, wr, wn, b=b, dt_dx=dt_dx,
             pad=pad, swap_weights=swap_weights)
-    _check_smem(ng, 3, "boris_gather_push_deposit")
     lib = _build.library()
     bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
     stride, num_k, inv_stride = _carry_frame(ng)
     dev = p.device
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    out = padded_rows(4, n, dev)
     dens = torch.zeros((2, ng), dtype=torch.float32, device=dev)
     n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        shape = _deposit_shape(dev, n, ng, True)
         err = lib.pypic_boris_gather_push_deposit(
             field.data_ptr(), *(t.data_ptr() for t in arrays),
             *(o.data_ptr() for o in out), dens[0].data_ptr(),
             dens[1].data_ptr(), n_clamped.data_ptr(), n, ng, bx, by, bz,
             dt_dx32, int(bool(swap_weights)), stride, num_k, inv_stride,
-            int(pad), _blocks(n, dev), _THREADS, _stream(dev))
+            int(pad), shape.rows, shape.blocks, shape.threads, shape.cols,
+            _stream(dev))
     _build.check(err, "boris_gather_push_deposit")
     LAUNCHES["boris_gather_push_deposit"] += 1
     return out[0], out[1], out[2], out[3], dens[0], dens[1], n_clamped

@@ -8,7 +8,7 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream|magnetized|sheath|dn|gc]
+        [--cell landau|two-stream|magnetized|carried|sheath|dn|gc]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -19,8 +19,10 @@ writes the chrome trace and the profiler's table under ``--out``.
 ``--cell two-stream`` profiles the explicit engine on bench.py's
 two-stream cell (``tools/two_stream.py``) at the same n instead;
 ``--cell magnetized`` profiles bench.py's configs[3] row
-(``tools/magnetized.py``, n = 999,996) and ``--cell sheath`` its configs[2]
-row (``tools/sheath.py``, n = 1,000,000; ``--n`` is ignored for both,
+(``tools/magnetized.py``, n = 999,996), ``--cell carried`` the same row as
+``bench.py --carried`` runs it (``tools/magnetized.py --carried``: the
+carried deposit, the carry primed at set-up) and ``--cell sheath`` its configs[2]
+row (``tools/sheath.py``, n = 1,000,000; ``--n`` is ignored for these,
 and the sheath profile also reports the Picard passes a step beside the
 host syncs); ``--cell dn`` and ``--cell gc`` profile the magnetized
 engine's D-N row and guiding-center row (``tools/magnetized.py --row
@@ -137,11 +139,16 @@ def profile(args) -> dict:
 
         cfg, _, state = two_stream.state(args.n, dev, seed=args.seed)
         step = explicit.make_step(cfg)
-    elif args.cell == "magnetized":
+    elif args.cell in ("magnetized", "carried"):
+        import dataclasses
+
         from ..engines import magnetized
         from . import magnetized as magnetized_row
 
         cfg, state, _ = magnetized_row.state(dev)
+        if args.cell == "carried":
+            cfg = dataclasses.replace(cfg, **magnetized_row.CARRIED)
+            state = magnetized.prime_carry(state, cfg)
         args.n = state.p.shape[0]
         step = magnetized.make_step(cfg)
     elif args.cell in ("dn", "gc"):
@@ -229,7 +236,7 @@ def main(argv=None) -> None:
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
     p.add_argument("--cell", choices=("landau", "two-stream", "magnetized",
-                                      "sheath", "dn", "gc"),
+                                      "carried", "sheath", "dn", "gc"),
                    default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)

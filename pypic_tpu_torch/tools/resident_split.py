@@ -5,6 +5,7 @@ library outside the package's.
     python -m pypic_tpu_torch.tools.resident_split [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel explicit
     python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd|newton_dn [--first-port SOURCE]
+    python -m pypic_tpu_torch.tools.resident_split --kernel deposit2|boris_deposit [--first-port SOURCE]
 
 The cuts are text edits of ``csrc/implicit.cu`` (``--kernel implicit``,
 the default) or of ``csrc/explicit.cu`` (``--kernel explicit``); the edits
@@ -38,12 +39,27 @@ beside them, given its source file, for example from ``git show
 77b14a9:pypic_tpu_torch/csrc/newton.cu``. These kernels are shorter than a launch from the host, so each time is
 the median of five rounds of 20 launches queued behind a sleep, between
 CUDA events.
+
+``--kernel deposit2`` and ``--kernel boris_deposit`` split the magnetized
+deposits of ``csrc/magnetized.cu`` (``deposit2`` bounded; the carried
+Boris deposit at pad 2, mirrored) at the configs[3] row's shape (n =
+999,996, ng = 600), the D-N row's (50,000, 800) and the carried row's
+re-activation patch (16,384, 600), on ``deposit_inputs``' particles,
+launches queued as for the Newton kernels, outputs not zeroed (no memset
+timed). The cuts (``DEPOSIT_CUTS``) take out the flush, the column sums,
+the shared-memory adds or all but the sweep, or launch the full kernel
+with other column counts or the other width of
+``cuda_cic.deposit_launch_shape``. With ``--first-port`` the tool also
+splits the first port (1,056 blocks of 256 threads, one histogram a
+block flushed by global atomics; ``DEPOSIT_FIRST_PORT_CUTS``), for
+example from ``git show d10fc7e:pypic_tpu_torch/csrc/magnetized.cu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import json
 import statistics
@@ -416,6 +432,170 @@ _NEWTON_FIRST_PORT_EDITS = [
     ("(ngp & (ngp - 1))", "(ngp & 31)", 2),
 ]
 
+# the magnetized deposits' first port (csrc/magnetized.cu before the
+# redesign: 8 blocks of 256 threads an SM, one (ng,) shared-memory histogram
+# an array a block, every node of it flushed by a global float atomic):
+# CUT selects the stage taken out; "(f)" launches the full kernel as one
+# block of 1,024 threads an SM
+DEPOSIT_FIRST_PORT_CUTS = {
+    "(a) full": 0,
+    "(b) no global flush": 1,        # the totals stored under a predicate never true
+    "(c) flush by plain stores": 2,  # into a scratch row of the block's
+    "(d) no shared atomics": 3,      # each thread sums its weights in a register
+    "(e) sweep only": 4,             # the loads (row 9: and stores); no deposit, no flush
+    "(f) one block of 1,024 threads an SM": 0,
+}
+# (c)'s scratch rows: 1,056 blocks x 2 arrays x 800 nodes at most
+_CUT_SCRATCH = 1056 * 2 * 800
+_DEPOSIT_FIRST_PORT_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
+     f"__device__ float cut_scratch[{_CUT_SCRATCH}];", 1),
+    # deposit2_kernel
+    ("  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n    s_a[i] = 0.0f;\n",
+     "  float sink = 0.0f;\n  if (CUT != 4)\n"
+     "  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n    s_a[i] = 0.0f;\n", 1),
+    ("    atomicAdd(&s_a[c.l], __fmul_rn(a, c.wl));\n"
+     "    atomicAdd(&s_a[c.r], __fmul_rn(a, c.wr));\n"
+     "    atomicAdd(&s_b[c.l], __fmul_rn(b, c.wl));\n"
+     "    atomicAdd(&s_b[c.r], __fmul_rn(b, c.wr));\n",
+     "#if CUT >= 3\n"
+     "    sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(a, c.wl), __fadd_rn(__fmul_rn(b, c.wr),\n"
+     "                                                               (float)c.l)));\n"
+     "#else\n"
+     "    atomicAdd(&s_a[c.l], __fmul_rn(a, c.wl));\n"
+     "    atomicAdd(&s_a[c.r], __fmul_rn(a, c.wr));\n"
+     "    atomicAdd(&s_b[c.l], __fmul_rn(b, c.wl));\n"
+     "    atomicAdd(&s_b[c.r], __fmul_rn(b, c.wr));\n#endif\n", 1),
+    ("  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n"
+     "    atomicAdd(&out_a[i], s_a[i]);\n    atomicAdd(&out_b[i], s_b[i]);\n  }\n",
+     "  if (sink == 1.2345e30f) out_a[0] = sink;\n  if (CUT != 4)\n"
+     "  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n#if CUT == 1\n"
+     "    if (s_a[i] == 1.2345e30f) out_a[i] = s_b[i];\n#elif CUT == 2\n"
+     "    cut_scratch[(size_t)blockIdx.x * 2 * ng + i] = s_a[i];\n"
+     "    cut_scratch[(size_t)blockIdx.x * 2 * ng + ng + i] = s_b[i];\n#else\n"
+     "    atomicAdd(&out_a[i], s_a[i]);\n    atomicAdd(&out_b[i], s_b[i]);\n#endif\n  }\n", 1),
+    # boris_deposit_kernel
+    ("    s_field[i] = field[i];\n    s_rho[i] = 0.0f;\n    s_n[i] = 0.0f;\n  }\n",
+     "    s_field[i] = field[i];\n    if (CUT != 4) {\n    s_rho[i] = 0.0f;\n"
+     "    s_n[i] = 0.0f;\n    }\n  }\n  float sink = 0.0f;\n", 1),
+    ("    const float wr = wr_in[i];\n    const float wn = wn_in[i];\n",
+     "    const float wr = wr_in[i];\n    const float wn = wn_in[i];\n#if CUT == 4\n"
+     "    sink = __fadd_rn(sink, __fmul_rn(wr, wn));\n    continue;\n#endif\n", 1),
+    ("    if (l >= 0 && l < ng) {\n      atomicAdd(&s_rho[l], __fmul_rn(wr, fl));\n"
+     "      atomicAdd(&s_n[l], __fmul_rn(wn, fl));\n    }\n"
+     "    if (l + 1 >= 0 && l + 1 < ng) {\n      atomicAdd(&s_rho[l + 1], __fmul_rn(wr, fr));\n"
+     "      atomicAdd(&s_n[l + 1], __fmul_rn(wn, fr));\n    }\n",
+     "#if CUT == 3\n"
+     "    sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(wr, fl), __fadd_rn(__fmul_rn(wn, fr),\n"
+     "                                                                 (float)l)));\n#else\n"
+     "    if (l >= 0 && l < ng) {\n      atomicAdd(&s_rho[l], __fmul_rn(wr, fl));\n"
+     "      atomicAdd(&s_n[l], __fmul_rn(wn, fl));\n    }\n"
+     "    if (l + 1 >= 0 && l + 1 < ng) {\n      atomicAdd(&s_rho[l + 1], __fmul_rn(wr, fr));\n"
+     "      atomicAdd(&s_n[l + 1], __fmul_rn(wn, fr));\n    }\n#endif\n", 1),
+    ("  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n"
+     "    atomicAdd(&rho[i], s_rho[i]);\n    atomicAdd(&dens[i], s_n[i]);\n  }\n",
+     "  if (sink == 1.2345e30f) rho[0] = sink;\n  if (CUT != 4)\n"
+     "  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n#if CUT == 1\n"
+     "    if (s_rho[i] == 1.2345e30f) rho[i] = s_n[i];\n#elif CUT == 2\n"
+     "    cut_scratch[(size_t)blockIdx.x * 2 * ng + i] = s_rho[i];\n"
+     "    cut_scratch[(size_t)blockIdx.x * 2 * ng + ng + i] = s_n[i];\n#else\n"
+     "    atomicAdd(&rho[i], s_rho[i]);\n    atomicAdd(&dens[i], s_n[i]);\n#endif\n  }\n", 1),
+]
+# the shapes of the deposit splits: the configs[3] row (n = 999,996, ng =
+# 600), the D-N row (n = 50,000, ng = 800) and the carried row's
+# re-activation patch (n = react_batch 16,384, ng = 600)
+DEPOSIT_SHAPES = {"configs[3]": (999_996, 600), "D-N": (50_000, 800),
+                  "carried patch": (16_384, 600)}
+# the current deposits (wide at configs[3]: one block of 1,024 threads an
+# SM, four rows a thread and pass, 32 lane columns; narrow below: the first
+# port's grid): CUT selects the stage taken out; "(f)" to "(h)" launch the
+# full kernel at another grid
+DEPOSIT_CUTS = {
+    "(a) full": 0,
+    "(b) no global flush": 1,        # the column sums stored under a predicate never true
+    "(c) no column sums or flush": 2,
+    "(d) no shared atomics": 3,      # each thread sums its weights in a register
+    "(e) sweep only": 4,             # the loads (row 9: and stores); no deposit, no flush
+    "(f) 8 columns": 0,
+    "(g) 16 columns": 0,
+    "(h) the other width": 0,        # narrow at configs[3], wide at the small shapes
+}
+_DEPOSIT_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif", 1),
+    ("      atomicAdd(out_a + k, h_a[k]);\n      atomicAdd(out_b + k, h_b[k]);",
+     "#if CUT == 1\n      if (h_a[k] == 1.2345e30f) out_a[k] = h_b[k];\n#else\n"
+     "      atomicAdd(out_a + k, h_a[k]);\n      atomicAdd(out_b + k, h_b[k]);\n#endif", 1),
+    ("    atomicAdd(out_a + k, a);\n    atomicAdd(out_b + k, b);",
+     "#if CUT == 1\n    if (a == 1.2345e30f) out_a[k] = b;\n#else\n"
+     "    atomicAdd(out_a + k, a);\n    atomicAdd(out_b + k, b);\n#endif", 1),
+    ("  zero_shared(h_a, 2 * ng * cols);", "  if (CUT != 4) zero_shared(h_a, 2 * ng * cols);", 1),
+    ("  zero_shared(h_r, 2 * ng * cols);", "  if (CUT != 4) zero_shared(h_r, 2 * ng * cols);", 1),
+    ("  if (ROWS == 1) {  // narrow", "  float sink = 0.0f;\n  if (ROWS == 1) {  // narrow", 2),
+    # deposit2: the narrow path's adds, then the wide path's
+    ("      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));\n"
+     "      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));\n"
+     "      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));\n"
+     "      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));\n",
+     "#if CUT >= 3\n"
+     "      sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(a, c.wl), __fadd_rn(__fmul_rn(b, c.wr),\n"
+     "                                                                   (float)c.l)));\n"
+     "#else\n"
+     "      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));\n"
+     "      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));\n"
+     "      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));\n"
+     "      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));\n#endif\n", 1),
+    ("        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));\n"
+     "        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));\n"
+     "        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));\n"
+     "        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));\n",
+     "#if CUT >= 3\n"
+     "        sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(a, c.wl), __fadd_rn(__fmul_rn(b, c.wr),\n"
+     "                                                                   (float)(c.l * cols + col))));\n"
+     "#else\n"
+     "        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));\n"
+     "        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));\n"
+     "        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));\n"
+     "        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));\n#endif\n", 1),
+    ("  flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);",
+     "  if (sink == 1.2345e30f) out_a[0] = sink;\n"
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);", 1),
+    # row 9: no deposit arithmetic in (e), its weights still read
+    ("  idx[0] = idx[1] = idx[2] = idx[3] = -1;\n",
+     "  idx[0] = idx[1] = idx[2] = idx[3] = -1;\n"
+     "  if (CUT == 4) {\n    if (wr == 1.2345e30f && wn == 1.0f) idx[0] = 0;\n    return;\n  }\n", 1),
+    ("        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);",
+     "#if CUT >= 3\n"
+     "        if (idx[k] >= 0) sink = __fadd_rn(sink, __fmul_rn(val[k], (float)idx[k]));\n"
+     "#else\n        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);\n#endif", 2),
+    ("  flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols, rho, dens);",
+     "  if (sink == 1.2345e30f) rho[0] = sink;\n"
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols,"
+     " rho, dens);", 1),
+]
+
+
+def _other_width(shape, n: int, ng: int, field: bool, sms: int):
+    """The grid of the other width than ``shape``'s at (n, ng): the first
+    port's at a wide shape, one block of 1,024 an SM with as many columns
+    as shared memory holds (at most 32) at a narrow one."""
+    if shape.rows == 4:
+        return dataclasses.replace(shape, rows=1, blocks=min(-(-n // 256), 8 * sms),
+                                   threads=256, cols=1)
+    wide = cuda_cic.deposit_launch_shape(4 * 1024 * sms, ng, field, sms)
+    return dataclasses.replace(wide, blocks=min(sms, -(-n // (4 * 1024))))
+
+
+def _variant(tag: str, shape, n: int, ng: int, field: bool, sms: int):
+    """The launch of a current-kernel cut: the shape, or (f)-(h)'s."""
+    if tag.startswith("(h)"):
+        return _other_width(shape, n, ng, field, sms)
+    cols = {"(f)": 8, "(g)": 16}.get(tag[:3])
+    if cols is None or shape.rows == 1:
+        return shape
+    return dataclasses.replace(shape, cols=cols)
+
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _CURRENT_ARGS = [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_P, _P]
 _FIRST_PORT_ARGS = [_P] * 18 + [_I] * 3 + [_F] * 7 + [_I] * 5 + [_D] * 3 + [_I, _P, _P]
@@ -427,6 +607,15 @@ _NEWTON_ARGS = {
     ("newton_dn", "first port"): [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _I, _P],
     ("newton_dd", "current"): [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _I, _P, _I, _P],
     ("newton_dn", "current"): [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _I, _P, _I, _P],
+}
+
+
+# the first port's deposit launchers: no scratch, no columns or clusters
+_L = ctypes.c_longlong
+_DEPOSIT_FIRST_PORT_ARGS = {
+    "pypic_deposit2": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
+    "pypic_boris_gather_push_deposit": (
+        [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _P]),
 }
 
 
@@ -753,13 +942,138 @@ def _split_newton(args, dev) -> tuple[dict, dict, dict]:
     return res, calls, {"per": "iteration", "count": counts, "timer": _queued}
 
 
+def deposit_inputs(n: int, ng: int, dev, seed: int = 17) -> dict:
+    """chip_smoke.py's inputs of the magnetized deposits at (n, ng): bounded
+    positions with a tenth of the rows inactive and a few at and past the
+    walls, velocities of 2e4 m/s, charge states 1-5; deposit2's weights
+    (vx and |vy| masked by the status) and row 9's (a number density and its
+    charge, 0 where inactive or off the grid)."""
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * (ng - 1)
+    p[:4] = torch.tensor([0.0, ng - 1.0, -0.3, ng - 0.7], device=dev)
+    v = torch.randn((3, n), generator=gen, device=dev, dtype=f32) * 2e4
+    act = (torch.rand(n, generator=gen, device=dev) < 0.9).to(f32)
+    act[2:4] = 0.0
+    z = torch.randint(1, 6, (n,), generator=gen, device=dev).to(f32)
+    const = z * (0.5 * 1e-10 * 1.602e-19 / (10.81 * 1.67e-27))
+    field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 1e5
+    live = act * ((p >= 0) & (p <= ng - 1)).to(f32)
+    wn = live * 1e17
+    return dict(p=p, va=v[0] * act, vb=v[1].abs() * act, field=field, vx=v[0], vy=v[1],
+                vz=v[2], const=const, act=live, wr=wn * const * (1.602e-19 / const.max()),
+                wn=wn)
+
+
+def _deposit_first_port_call(lib, kernel: str, load: dict, blocks: int, threads: int,
+                             stream) -> None:
+    """One launch of the first port's deposit2 (bounded) or carried Boris
+    deposit (pad 2, mirrored) on ``load``'s inputs, outputs not zeroed."""
+    n, ng, out = load["n"], load["ng"], load["out"]
+    if kernel == "deposit2":
+        err = lib.pypic_deposit2(load["p"].data_ptr(), load["va"].data_ptr(),
+                                 load["vb"].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                 n, ng, 0, blocks, threads, stream)
+    else:
+        stride, num_k, inv_stride = cuda_cic._carry_frame(ng)
+        bx, by, bz, dt_dx = cuda_cic.boris_scalars((0.1395, 1.9951, 0.0), 1e-10 / 2.5e-6)
+        err = lib.pypic_boris_gather_push_deposit(
+            *(load[k].data_ptr() for k in ("field", "p", "vx", "vy", "vz", "const", "act",
+                                           "wr", "wn")),
+            *(t.data_ptr() for t in load["rows"]), out[0].data_ptr(), out[1].data_ptr(),
+            load["count"].data_ptr(), n, ng, bx, by, bz, dt_dx, 1, stride, num_k,
+            inv_stride, 2, blocks, threads, stream)
+    _build.check(err, "resident_split")
+
+
+def _deposit_call(lib, kernel: str, load: dict, shape, stream) -> None:
+    """One launch of the current deposit2 (bounded) or carried Boris deposit
+    (pad 2, mirrored) on ``load``'s inputs at the launch ``shape``, outputs
+    not zeroed."""
+    n, ng, out = load["n"], load["ng"], load["out"]
+    grid = (shape.rows, shape.blocks, shape.threads, shape.cols, stream)
+    if kernel == "deposit2":
+        err = lib.pypic_deposit2(load["p"].data_ptr(), load["va"].data_ptr(),
+                                 load["vb"].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                 n, ng, 0, *grid)
+    else:
+        stride, num_k, inv_stride = cuda_cic._carry_frame(ng)
+        bx, by, bz, dt_dx = cuda_cic.boris_scalars((0.1395, 1.9951, 0.0), 1e-10 / 2.5e-6)
+        err = lib.pypic_boris_gather_push_deposit(
+            *(load[k].data_ptr() for k in ("field", "p", "vx", "vy", "vz", "const", "act",
+                                           "wr", "wn")),
+            *(t.data_ptr() for t in load["rows"]), out[0].data_ptr(), out[1].data_ptr(),
+            load["count"].data_ptr(), n, ng, bx, by, bz, dt_dx, 1, stride, num_k,
+            inv_stride, 2, *grid)
+    _build.check(err, "resident_split")
+
+
+def _split_deposit(args, dev) -> tuple[dict, dict, dict]:
+    """The magnetized deposits' cuts (deposit2, or the carried Boris deposit
+    of row 9) at the configs[3] and D-N shapes; with --first-port, the
+    first port's cuts beside them."""
+    versions = {"current": (_build.CSRC_DIR / "magnetized.cu", _DEPOSIT_EDITS, DEPOSIT_CUTS)}
+    if args.first_port:
+        versions["first port"] = (args.first_port, _DEPOSIT_FIRST_PORT_EDITS,
+                                  DEPOSIT_FIRST_PORT_CUTS)
+    jobs, cuts = {}, {}
+    for version, (path, edits, table) in versions.items():
+        text = _edited(path.read_text(), edits)
+        for tag, cut in table.items():
+            name = f"{version} {tag}"
+            cuts[name] = (version, tag)
+            if tag.startswith("(a)") or not cut == 0:
+                jobs[name] = (text, [f"-DCUT={cut}"])
+    libs, logs = _build_all(jobs)
+    word = "deposit2" if args.kernel == "deposit2" else "boris_deposit"
+    for tag in jobs:
+        for line in _kernel_report(logs[tag], word):
+            print(f"[ptxas] {tag}: {line}", flush=True)
+        if tag.endswith("(a) full"):
+            print(f"[sass] {tag}: {_atomics(Path(libs[tag]._name), word)}", flush=True)
+    for name, (version, tag) in cuts.items():
+        if name not in libs:  # another launch of the full kernel
+            libs[name] = libs[f"{version} (a) full"]
+    for name, lib in libs.items():
+        for fn in ("pypic_deposit2", "pypic_boris_gather_push_deposit"):
+            getattr(lib, fn).argtypes = (_build._SIGNATURES[fn][0] if cuts[name][0] == "current"
+                                         else _DEPOSIT_FIRST_PORT_ARGS[fn])
+            getattr(lib, fn).restype = _I
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = cuda_cic._sm_count(dev.index)
+    field = args.kernel != "deposit2"
+    calls, res = {}, {"shapes": DEPOSIT_SHAPES, "launch": {}}
+    for shape, (n, ng) in DEPOSIT_SHAPES.items():
+        load = dict(deposit_inputs(n, ng, dev), n=n, ng=ng,
+                    out=torch.zeros((2, ng), dtype=torch.float32, device=dev),
+                    rows=cuda_cic.padded_rows(4, n, dev),
+                    count=torch.zeros((), dtype=torch.int32, device=dev))
+        current = cuda_cic.deposit_launch_shape(n, ng, field, sms)
+        res["launch"][shape] = dataclasses.asdict(current)
+        blocks = cuda_cic._blocks(n, dev)
+        if blocks * 2 * ng > _CUT_SCRATCH:
+            raise RuntimeError(f"(c)'s scratch holds {_CUT_SCRATCH} floats, not "
+                               f"{blocks} x 2 x {ng}")
+        for name, (version, tag) in cuts.items():
+            if version == "current":
+                calls[f"{shape}: {name}"] = functools.partial(
+                    _deposit_call, libs[name], args.kernel, load,
+                    _variant(tag, current, n, ng, field, sms), stream)
+                continue
+            grid = (sms, 1024) if tag.startswith("(f)") else (blocks, cuda_cic._THREADS)
+            calls[f"{shape}: {name}"] = functools.partial(
+                _deposit_first_port_call, libs[name], args.kernel, load, *grid, stream)
+    return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+
+
 def main() -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn"),
+    ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn",
+                                         "deposit2", "boris_deposit"),
                     default="implicit")
     ap.add_argument("--first-port", type=Path,
-                    help="the implicit kernel's first port (its csrc/implicit.cu), "
-                         "split as well")
+                    help="the kernel's first port (its csrc/implicit.cu, newton.cu or "
+                         "magnetized.cu), split as well")
     args = ap.parse_args()
     if args.first_port and args.kernel == "explicit":
         ap.error("--first-port splits the implicit and the Newton kernels only")
@@ -770,12 +1084,18 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     split = {"explicit": _split_explicit, "newton_dd": _split_newton,
-             "newton_dn": _split_newton}.get(args.kernel, _split_implicit)
+             "newton_dn": _split_newton, "deposit2": _split_deposit,
+             "boris_deposit": _split_deposit}.get(args.kernel, _split_implicit)
     res, calls, unit = split(args, dev)
     res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
     for _ in range(2):
         for tag, call in calls.items():
-            ms = unit.get("timer", _timed)(call)
+            try:
+                ms = unit.get("timer", _timed)(call)
+            except RuntimeError as e:  # a launch the card refuses, e.g. for registers
+                print(f"[split] {tag}: {str(e)[:200]}", flush=True)
+                res["ms"].setdefault(tag, []).append(None)
+                continue
             res["ms"].setdefault(tag, []).append(ms)
             count = unit["count"][tag] if isinstance(unit["count"], dict) else unit["count"]
             print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / count:.3f} us a "

@@ -388,40 +388,69 @@ def test_implicit_resident_kernel_matches_step_and_plain(cuda_device, conf, n):
 
 N_MAG = (999_996, 4097)
 NG_MAG = 600
+# the deposits also at the shapes of their other paths: the carried row's
+# re-activation patch (react_batch rows) and the D-N row, at ng = 800
+DEPOSIT_CASES = [(n, NG_MAG) for n in N_MAG] + [(16_384, 800), (50_000, 800)]
 
 
-def _mag_inputs(n, dev, seed=3):
+def _mag_inputs(n, dev, seed=3, ng=NG_MAG):
     """Bounded-grid particles with a tenth inactive, some off the grid
     (wall-lost slots) with weight 0."""
     rng = np.random.default_rng(seed)
-    p = rng.uniform(0, NG_MAG - 1, n).astype(np.float32)
-    p[:4] = [0.0, NG_MAG - 1, -0.3, NG_MAG - 0.7]
+    p = rng.uniform(0, ng - 1, n).astype(np.float32)
+    p[:4] = [0.0, ng - 1, -0.3, ng - 0.7]
     v = rng.normal(0, 2e4, (3, n)).astype(np.float32)
     act = (rng.uniform(size=n) < 0.9).astype(np.float32)
     act[2:4] = 0.0
     const = (rng.integers(1, 6, n) * (0.5 * 1e-10 * 1.602e-19 / 1.8e-26)).astype(np.float32)
-    field = rng.normal(0, 1e5, NG_MAG).astype(np.float32)
+    field = rng.normal(0, 1e5, ng).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (field, p, *v, const, act)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("periodic", [False, True], ids=["bounded", "periodic"])
-@pytest.mark.parametrize("n", N_MAG)
-def test_deposit2_kernel_matches_plain(cuda_device, n, periodic):
+@pytest.mark.parametrize("n, ng", DEPOSIT_CASES)
+def test_deposit2_kernel_matches_plain(cuda_device, n, ng, periodic):
     """Both deposits against the plain version (float32, summed in another
     order: 5e-5 of the largest node) and against a float64 deposit of the
     same values (2e-5)."""
-    _, p, vx, vy, _, _, act = _mag_inputs(n, cuda_device)
+    _, p, vx, vy, _, _, act = _mag_inputs(n, cuda_device, ng=ng)
     va, vb = vx * act, vy.abs() * act
     before = cuda_cic.LAUNCHES["deposit2"]
-    a, b = cuda_cic.deposit2(p, va, vb, NG_MAG, periodic=periodic)
+    a, b = cuda_cic.deposit2(p, va, vb, ng, periodic=periodic)
     assert cuda_cic.LAUNCHES["deposit2"] == before + 1
-    ra, rb = cuda_cic.deposit2_plain(p, va, vb, NG_MAG, periodic=periodic)
+    ra, rb = cuda_cic.deposit2_plain(p, va, vb, ng, periodic=periodic)
     da, db = cuda_cic.deposit2_plain(p.double(), va.double(), vb.double(),
-                                     NG_MAG, periodic=periodic)
+                                     ng, periodic=periodic)
     for got, ref, ref64 in ((a, ra, da), (b, rb, db)):
         _rel_close(ref, got, 5e-5)
         _rel_close(ref64, got, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 5, 255, 257, 540_671, 540_672, 540_673])
+def test_deposits_at_the_launch_edges(cuda_device, n):
+    """The launch's edge shapes (one block of one row and more, around 256
+    rows, and on both sides of the change from the narrow grid to the wide
+    one at 4 x 1,024 x 132 rows): both deposits within 2e-5 of a float64
+    deposit, the clamp count equal."""
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device)
+    va, vb = vx * act, vy.abs() * act
+    got = cuda_cic.deposit2(p, va, vb, NG_MAG, periodic=False)
+    ref = cuda_cic.deposit2_plain(p.double(), va.double(), vb.double(), NG_MAG,
+                                  periodic=False)
+    for g, r in zip(got, ref):
+        _rel_close(r, g, 2e-5)
+    act = act * ((p >= 0) & (p <= NG_MAG - 1)).float()
+    args = (field, p, vx, vy, vz, const, act, act * 3.2, act * 1.5)
+    kw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=2,
+              swap_weights=True)
+    got = cuda_cic.boris_gather_push_deposit(*args, **kw)
+    ref = cuda_cic.boris_gather_push_deposit_plain(*args, acc_dtype=torch.float64,
+                                                   **kw)
+    for i in (4, 5):
+        _rel_close(ref[i], got[i], 2e-5)
+    assert int(got[6]) == int(ref[6])
 
 
 @pytest.mark.cuda
@@ -447,18 +476,20 @@ def test_boris_gather_push_kernel_matches_plain(cuda_device, n, swap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("swap", [False, True])
-@pytest.mark.parametrize("n, pad, hot", [(999_996, 2, 1.0), (1_000_003, 0, 40.0)],
-                         ids=["row", "forced clamp"])
-def test_boris_gather_push_deposit_kernel_matches_plain(cuda_device, n, pad,
-                                                        hot, swap):
-    """The carried sweep at the configs[3] row's n and pad, and ragged with
-    a forced clamp (pad 0, 40x the velocities): p1 and the velocities
-    bit-equal to the plain version's (the same float32 operations), rho
-    and n within 2e-5 of a float64 sum of the plain version's terms, the
-    clamp count equal."""
-    field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device)
+@pytest.mark.parametrize("n, ng, pad, hot", [
+    (999_996, NG_MAG, 2, 1.0), (1_000_003, NG_MAG, 0, 40.0),
+    (16_384, 800, 2, 1.0), (50_000, 800, 2, 1.0)],
+    ids=["row", "forced clamp", "16384 at ng 800", "50000 at ng 800"])
+def test_boris_gather_push_deposit_kernel_matches_plain(cuda_device, n, ng,
+                                                        pad, hot, swap):
+    """The carried sweep at the configs[3] row's n and pad, ragged with a
+    forced clamp (pad 0, 40x the velocities), and at the other deposit
+    paths' shapes: p1 and the velocities bit-equal to the plain version's
+    (the same float32 operations), rho and n within 2e-5 of a float64 sum
+    of the plain version's terms, the clamp count equal."""
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device, ng=ng)
     vx, vy, vz = vx * hot, vy * hot, vz * hot
-    act = act * ((p >= 0) & (p <= NG_MAG - 1)).float()
+    act = act * ((p >= 0) & (p <= ng - 1)).float()
     wr, wn = act * 3.2, act * 1.5
     args = (field, p, vx, vy, vz, const, act, wr, wn)
     kw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=pad,
