@@ -180,10 +180,7 @@ Phases (any failure raises and the script exits non-zero):
    one rank's slab and a ragged 10,000,003 with a middle rank's
    lo_shifted, ext_n = 227, dead slots, rows past both ext edges: p1 and
    v1 bit-equal, rho_ext against float64 sums, the clamp counts equal.
-   Each timed with its bound; then deposit_times: deposit2 at its three
-   paths' shapes and boris_gather_push_deposit at the configs[3] row's,
-   inputs warm and rotated past the L2 (the median of three profiler
-   calls each).
+   Each timed with its bound.
 29. carried check — pic_iead at n = 12,000 with the --carried row's
    configuration: one step from the states after 0 and 10 steps, card
    against CPU, the same source table, the carried rho and n and the
@@ -199,6 +196,20 @@ Phases (any failure raises and the script exits non-zero):
    steps: one explicit_domain_cycle launch a step, 0 host syncs, nothing
    clamped or dropped, its energy change against the plain version's on
    the CPU. Each beside its row without the carry.
+31. deposit times (deposit_times) — the wide-grid kernels at the shapes
+   of their paths, inputs warm and rotated past the L2 (the median of
+   three profiler calls each), each against its plain version: deposit2
+   at its three paths' shapes and boris_gather_push_deposit at the
+   configs[3] row's; deposit at the explicit carrier's slab (n = 1e8,
+   ext_n = 227, dead slots), the headline's set-up (n = 1e8, ng = 200),
+   the configs[3] row's own IEAD traffic (phase 15's last step through
+   iead_update's arithmetic: 3,200 bins, counts exact, beside index_add_)
+   and the first port's synthetic 999,996 / 600, and a ragged view;
+   deposit_det at the composed sheath current (1e6 / 51, bit-equal from
+   call to call) and its exit histograms; source_batch at 999,996 and a
+   ragged 1,000,003 (uniforms bit-equal, beside torch.randn((4, n))), with
+   its issue bound (its Philox block's integer work) and, beside it, the
+   issue time of the library's own SASS loop.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -522,6 +533,17 @@ NG_DN = 800
 # D-N row, the carried row's re-activation patch of react_batch rows)
 DEPOSIT_SHAPES = {"configs[3]": (999_996, 600), "D-N": (50_000, NG_DN),
                   "carried patch": (16_384, 600)}
+# row 4's shapes: the explicit carrier's slab a step (n = 1e8 onto ext_n
+# = 227 nodes, bounded, a twentieth dead slots of weight 0), the headline's
+# set-up (n = 1e8, ng = 200, periodic), the configs[3] row's IEAD histogram
+# (phase 15's own traffic, 3,200 bins), the first port's synthetic IEAD
+# shape (999,996 rows onto 600 nodes, dense values) and a ragged n read
+# through a view one float in (4-B loads); the timed records' shape
+DEPOSIT_MAIN_SHAPE = "headline set-up"
+# deposit_det's: the composed sheath current and its exit histograms (2 x 64
+# bins, integer positions, weight 1 on 1% of the rows)
+DEPOSIT_DET_SHAPES = {"current": (1_000_000, 51), "exit histograms": (1_000_000, 128)}
+SOURCE_NS = {"999,996": 999_996, "ragged 1,000,003": 1_000_003}
 # the D-N Newton kernel against its plain version and the op-composed
 # Thomas route (tests/test_pallas.py:361-389): iterations within one cold
 # and equal warm, phi within 5e-4 of max|phi|
@@ -666,13 +688,19 @@ def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
 
 def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
     """Device time of one call of fn in ms: the kernels (and memsets) it
-    launches, summed from a torch.profiler trace of ``calls`` calls after
-    a warm-up, over the calls. For calls whose kernels are shorter than
-    the wrapper's Python overhead, where ``cuda_ms`` would time the host.
+    launches, from a torch.profiler trace of ``calls`` calls after a
+    warm-up. For calls whose kernels are shorter than the wrapper's Python
+    overhead, where ``cuda_ms`` would time the host.
 
-    The CUDA trace now and then comes back empty. Such a trace is taken
-    again up to ``tries`` times; after that the call is timed by
-    ``queued_ms``, which the log line names."""
+    A trace can lack some of the calls' kernels (late in a long process
+    the H100's traces held 12 to 19 of 20 calls' launches of a kernel), so
+    a call's time is the sum over its kernels of each kernel's mean
+    duration times its launches a call (its count over ``calls``,
+    rounded), not the trace's summed time over ``calls``; where the two
+    differ by more than 1% a ``[timing]`` line gives both. The CUDA trace
+    now and then comes back empty. Such a trace is taken again up to
+    ``tries`` times; after that the call is timed by ``queued_ms``, which
+    the log line names."""
     import os
     import tempfile
 
@@ -691,10 +719,20 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        dur = sum(e["dur"] for e in events if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
-        if dur > 0:
-            return dur / 1e3 / calls
+        durs = collections.defaultdict(list)
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset",
+                                                       "gpu_memcpy"):
+                durs[e["name"]].append(e["dur"])
+        if durs:
+            ms = sum(statistics.fmean(d) * max(1, round(len(d) / calls))
+                     for d in durs.values()) / 1e3
+            summed = sum(map(sum, durs.values())) / 1e3 / calls
+            if abs(summed - ms) > 0.01 * ms:
+                held = ", ".join(f"{len(d)} of {name[:40]}" for name, d in durs.items())
+                log(f"[timing] the trace held {held} in {calls} calls: {ms:.4f} ms a "
+                    f"call per kernel, {summed:.4f} from the trace's sum over the calls")
+            return ms
     ms = queued_ms(fn, calls)
     log(f"[timing] the profiler saw no device activity in {tries} traces: "
         f"{ms:.4f} ms a call from CUDA events behind a queued sleep")
@@ -2269,7 +2307,15 @@ def phase_magnetized_slice(dev) -> dict:
     problems = row.check_row(cfg, fin, m)
     if launches != want:
         problems.append(f"launches {launches} != {want}")
-    del fin, m
+    # the IEAD histogram's own traffic of the last step, for deposit_times
+    pos, weight, hit = row.last_iead_traffic(cfg, fin)
+    if int(hit.sum()) != int(m.n_hit_wall[-1]):
+        problems.append(f"the final state's {int(hit.sum())} inactive slots are not "
+                        f"the last step's {int(m.n_hit_wall[-1])} wall hits")
+    res["iead_traffic"] = (pos, weight, fin.iead.numel())
+    log(f"[magnetized slice] the last step's IEAD traffic: {int(hit.sum())} wall "
+        f"hits, {int(weight.sum())} in range, {fin.iead.numel()} bins")
+    del fin, m, hit
     res_c, _, fin, m = row.run_row(dev, steps=MAG_COMPOSED_STEPS, backend="composed")
     want_c = {k: 0 for k in cuda_cic.LAUNCHES}
     want_c.update(gather=MAG_COMPOSED_STEPS, deposit=3 * MAG_COMPOSED_STEPS,
@@ -3622,39 +3668,106 @@ def _carrier_inputs(n: int, gen: torch.Generator, dev, ng: int, lo: float):
     return field, p, v, w
 
 
-def deposit_times(dev) -> dict:
-    """Device times of the magnetized deposits: deposit2 at the shapes of
-    its three paths (DEPOSIT_SHAPES: configs[3], the D-N row, the carried
-    row's re-activation patch) and boris_gather_push_deposit at the
-    configs[3] row's (pad 2, mirrored), each the median of three profiler
-    calls (``device_ms``) with its inputs warm in the L2, then again with
-    each call on the next of ROTATE_SETS copies (``_rotating``); the bound
-    and the plain version's time. It calls the wrappers by name alone, so
-    it times another tree of the port as well (a parent commit, for a
-    paired comparison in one chip call). Returns {kernel: {shape: record}},
-    each record with a 'rotated' record beside it."""
+def _single_inputs(shape: str, gen: torch.Generator, dev, iead=None):
+    """Row 4's (positions, values, ng, periodic) at ``shape``: the carrier's
+    extended slab (the particles on [hw, hw + c) of ext_n = c + 2 hw + 1
+    nodes, a twentieth dead slots of weight 0 at its left edge), the
+    headline's set-up (uniform on the periodic grid, dense values), the
+    IEAD (``iead``: phase 15's positions, 0/1 weights and bins), the synthetic
+    999,996 / 600 and the ragged n through a view one float in."""
+    f32 = torch.float32
+    if shape == "IEAD":
+        pos, weight, bins = iead
+        return pos, weight, bins, False
+    if shape == "carrier":
+        n, ng = N_HEADLINE, DOM_CARRIED_EXT_N
+        p = torch.rand(n, generator=gen, device=dev, dtype=f32) * DOM_C + DOM_CARRIED_HALO
+        w = torch.full((n,), W, dtype=f32, device=dev)
+        dead = torch.rand(n, generator=gen, device=dev) < 0.05
+        w[dead] = 0.0
+        p[dead] = float(DOM_CARRIED_HALO)
+        return p, w, ng, False
+    if shape == "headline set-up":
+        p = torch.rand(N_HEADLINE, generator=gen, device=dev, dtype=f32) * NG
+        return p, torch.randn(N_HEADLINE, generator=gen, device=dev, dtype=f32) * W, NG, True
+    n = N_MAG if shape.startswith("synthetic") else N_MAG_RAGGED
+    p = torch.rand(n + 1, generator=gen, device=dev, dtype=f32) * (NG_MAG - 1)
+    v = torch.randn(n + 1, generator=gen, device=dev, dtype=f32)
+    if shape.startswith("synthetic"):
+        return p[:n].contiguous(), v[:n].contiguous(), NG_MAG, False
+    return p[1:], v[1:], NG_MAG, False  # one float in: not 16-B aligned
+
+
+# row 20's operations at the integer rate (csrc/rng.cu's header): its
+# Philox4x32-10 block is 20 wide products and 20 three-way xors a row, at
+# no more than 64 integer lanes a clock an SM (32-bit integer multiplies
+# and logic at compute capability 9.0); the transform counted at nothing
+SOURCE_INT_OPS_A_ROW = 40
+INT_LANES_PER_SM = 64
+
+
+def _source_issue_bound(n: int, sms: int) -> dict:
+    """Row 20's issue bound, the least time its integer work takes: n
+    SOURCE_INT_OPS_A_ROW over sms x INT_LANES_PER_SM at the card's top SM
+    clock. Beside it the kernel's own count, not a bound: the static SASS
+    instructions of its widest loop (the batch, not the uniforms) a row
+    (cuda_rng.SOURCE_ROWS_A_PASS rows a pass; one in the first port's
+    form) at 132 SMs x 4 schedulers x 32 lanes a clock
+    (tools/resident_split.py _sass_loop, sass_issue_ms)."""
+    from pypic_tpu_torch.ops import _build, cuda_rng
+    from pypic_tpu_torch.tools import resident_split as rs
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0])
+    out = dict(clock_max_mhz=clock, issue_bound_ms=(
+        n * SOURCE_INT_OPS_A_ROW / (sms * INT_LANES_PER_SM * clock * 1e6) * 1e3),
+        sass_per_row=None, own_sass_ms=None)
+    # a tree of the port from before the tool counted the SASS has no count
+    if hasattr(rs, "sass_issue_ms"):
+        loop = rs._sass_loop(_build.library_path(), "source_batch_kernelILb0E")
+        if loop["loop"]:
+            out["sass_per_row"] = loop["loop"] / getattr(cuda_rng, "SOURCE_ROWS_A_PASS", 1)
+            out["own_sass_ms"] = rs.sass_issue_ms(out["sass_per_row"], n, sms, clock)
+    return out
+
+
+def deposit_times(dev, iead=None) -> dict:
+    """Device times of the wide-grid kernels at the shapes of their paths,
+    each the median of three profiler calls (``device_ms``) with its
+    inputs warm in the L2, then again with each call on the next of
+    ROTATE_SETS copies (``_rotating``); the bound and the plain version's
+    time; each output held against its plain version first. deposit2 at
+    DEPOSIT_SHAPES and boris_gather_push_deposit at the configs[3] row's
+    (pad 2, mirrored); deposit at the carrier's slab, the headline's
+    set-up, the IEAD traffic ``iead`` (phase 15's (positions, weights,
+    bins); skipped without it), the synthetic 999,996 / 600 and a ragged view,
+    against float64 sums (the IEAD's counts exactly), with index_add_ at
+    the IEAD as its library call; deposit_det at DEPOSIT_DET_SHAPES,
+    bit-equal from call to call; source_batch at SOURCE_NS (uniforms
+    bit-equal, normals within TOL_SOURCE), with torch.randn((4, n)) and
+    its issue bound. It calls the wrappers by name alone, so it times
+    another tree of the port as well (a parent commit, for a paired
+    comparison in one chip call). Returns {kernel: {shape: record}}, each
+    record with a 'rotated' record beside it."""
+    import inspect
+
+    from pypic_tpu_torch.ops import cic
     from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_rng
 
     gen = torch.Generator(device=dev).manual_seed(31)
     fast = dict(reps=3, calls=3)
     bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=CARRIED_PAD,
                swap_weights=True)
-    cases = []
-    for shape, (n, ng) in DEPOSIT_SHAPES.items():
-        _, p, vx, vy, _, _, act = _mag_inputs(n, gen, dev, ng)
-        cases.append(("deposit2", shape, n, (p, vx * act, vy.abs() * act),
-                      functools.partial(K.deposit2, ng=ng, periodic=False),
-                      functools.partial(K.deposit2_plain, ng=ng, periodic=False)))
-    cases.append(("boris_gather_push_deposit", "configs[3]", N_MAG,
-                  _carried_mag_inputs(N_MAG, gen, dev, 1.0),
-                  functools.partial(K.boris_gather_push_deposit, **bkw),
-                  functools.partial(K.boris_gather_push_deposit_plain, **bkw)))
     out = {}
-    for name, shape, n, args, fn, plain in cases:
-        plain_ms = cuda_ms(lambda: plain(*args), **fast)
-        rec = _timed(lambda: fn(*args), plain_ms, name, n)
+
+    def timed(name, shape, n, args, fn, plain, plain_ms=None, **extra):
+        if plain_ms is None:
+            plain_ms = cuda_ms(lambda: plain(*args), **fast)
+        rec = _timed(lambda: fn(*args), plain_ms, name, n, **extra)
         rec["rotated"] = {key: value for key, value in _timed(
-            _rotating(fn, args), plain_ms, name, n).items()
+            _rotating(fn, args), plain_ms, name, n, **extra).items()
             if key in ("ms", "ms_calls")}
         log(f"[deposit] {name} at {shape} (n = {n}): {rec['ms']:.4f} ms warm "
             f"(calls {', '.join(f'{t:.4f}' for t in rec['ms_calls'])}), "
@@ -3662,6 +3775,110 @@ def deposit_times(dev) -> dict:
             f"{', '.join(f'{t:.4f}' for t in rec['rotated']['ms_calls'])}); bound "
             f"{rec['bound_ms']:.4f} ({rec['bound_by']}), plain {plain_ms:.4f}")
         out.setdefault(name, {})[shape] = rec
+        return rec
+
+    for shape, (n, ng) in DEPOSIT_SHAPES.items():
+        _, p, vx, vy, _, _, act = _mag_inputs(n, gen, dev, ng)
+        timed("deposit2", shape, n, (p, vx * act, vy.abs() * act),
+              functools.partial(K.deposit2, ng=ng, periodic=False),
+              functools.partial(K.deposit2_plain, ng=ng, periodic=False))
+    timed("boris_gather_push_deposit", "configs[3]", N_MAG,
+          _carried_mag_inputs(N_MAG, gen, dev, 1.0),
+          functools.partial(K.boris_gather_push_deposit, **bkw),
+          functools.partial(K.boris_gather_push_deposit_plain, **bkw))
+    torch.cuda.empty_cache()
+
+    shapes = ["carrier", "headline set-up", "IEAD", "synthetic 999,996 / 600",
+              "ragged 1,000,003 / 600, a view one float in"]
+    for shape in shapes:
+        if shape == "IEAD" and iead is None:
+            continue
+        p, v, ng, periodic = _single_inputs(shape, gen, dev, iead)
+        n = p.shape[0]
+        kw = dict(periodic=periodic)
+        if shape == "IEAD" and "cols" in inspect.signature(K.deposit).parameters:
+            kw["cols"] = cic.HISTOGRAM_COLS  # the IEAD path's, histogram_add's
+        got = K.deposit(p, v, ng, **kw)
+        f64 = K.deposit_plain(p.double(), v.double(), ng, periodic=periodic)
+        a, r = rel_err(f64, got)
+        errs = {"out": dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)}
+        if shape == "IEAD":  # integer counts: exact in float32
+            gap = float((got - K.deposit_plain(p, v, ng, periodic=periodic)).abs().max())
+            errs["counts"] = dict(abs=gap, err=gap, kind="abs vs the plain counts", tol=0.0)
+        err = _check(errs, f"deposit({shape}, n = {n}, ng = {ng})")
+        del got, f64
+        rec = timed("deposit", shape, n, (p, v), functools.partial(K.deposit, ng=ng, **kw),
+                    functools.partial(K.deposit_plain, ng=ng, periodic=periodic))
+        rec.update(max_abs_err=err, ng=ng)
+        if shape == "IEAD":
+            flat = p.long()
+            rec["hits"] = int((v != 0).sum())
+            rec["library_ms"] = device_ms(_rotating(
+                lambda f, w: torch.zeros(ng, device=dev).index_add_(0, f, w), (flat, v)))
+            log(f"[deposit]   deposit at the IEAD: {rec['hits']} hits in range of "
+                f"{n} rows; library call zeros({ng}).index_add_ {rec['library_ms']:.4f} ms "
+                "(rotated)")
+        del p, v
+        torch.cuda.empty_cache()
+
+    for shape, (n, ng) in DEPOSIT_DET_SHAPES.items():
+        if shape == "current":
+            p = torch.rand(n, generator=gen, device=dev) * (ng - 1)
+            v = torch.randn(n, generator=gen, device=dev) * 1e3
+        else:
+            p = torch.randint(0, ng, (n,), generator=gen, device=dev).float()
+            v = (torch.rand(n, generator=gen, device=dev) < 0.01).float()
+        got = K.deposit_det(p, v, ng, periodic=False)
+        if not torch.equal(K.deposit_det(p, v, ng, periodic=False), got):
+            raise AssertionError(f"deposit_det({shape}): differs from call to call")
+        a, r = rel_err(K.deposit_plain(p.double(), v.double(), ng, periodic=False), got)
+        err = _check({"out": dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)},
+                     f"deposit_det({shape}, n = {n}, ng = {ng})")
+        rec = timed("deposit_det", shape, n, (p, v),
+                    functools.partial(K.deposit_det, ng=ng, periodic=False),
+                    functools.partial(K.deposit_plain, ng=ng, periodic=False))
+        rec.update(max_abs_err=err, ng=ng)
+        del p, v, got
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    key, step, length, vth = (0, 1), 7, 3.0e-3, 2.2e4
+    skw = dict(x_mu=length / 2, x_sigma=length / 12, x_wrap=length, vth=vth)
+    for shape, n in SOURCE_NS.items():
+        u = cuda_rng.source_uniforms(key, step, n, device=dev)
+        if not torch.equal(u.cpu(), cuda_rng.source_uniforms(key, step, n, device="cpu")):
+            raise AssertionError(f"source_batch({shape}): the Philox uniforms differ")
+        del u
+        got = cuda_rng.source_batch(key, step, n, device=dev, **skw)
+        ref = cuda_rng.source_batch_plain(key, step, n, device=dev, **skw)
+        d = (got[0].double() - ref[0].double()).abs()
+        a = float(torch.minimum(d, length - d).max())
+        errs = {"x": dict(abs=a, err=a / length, kind="of L", tol=TOL_SOURCE)}
+        for k_, r_, g_ in zip(("vx", "vy", "vz"), ref[1:], got[1:]):
+            a, rel = rel_err(r_, g_)
+            errs[k_] = dict(abs=a, err=rel, kind="rel", tol=TOL_SOURCE)
+        err = _check(errs, f"source_batch({shape})")
+        del got, ref, d
+        plain_ms = cuda_ms(lambda: cuda_rng.source_batch_plain(key, step, n, device=dev,
+                                                               **skw), **fast)
+        call = functools.partial(cuda_rng.source_batch, key, step, n, device=dev, **skw)
+        rec = _timed(call, plain_ms, "source_batch", n)
+        # no inputs: rotating holds the last four outputs, as a step would
+        rec["rotated"] = {k_: v_ for k_, v_ in _timed(_rotating(call, ()), plain_ms,
+                                                      "source_batch", n).items()
+                          if k_ in ("ms", "ms_calls")}
+        g = torch.Generator(device=dev).manual_seed(5)
+        rec.update(max_abs_err=err, **_source_issue_bound(n, sms))
+        rec["library_ms"] = device_ms(_rotating(
+            lambda: torch.randn((4, n), device=dev, generator=g), ()))
+        log(f"[deposit] source_batch at {shape}: {rec['ms']:.4f} ms (calls "
+            f"{', '.join(f'{t:.4f}' for t in rec['ms_calls'])}), rotated "
+            f"{rec['rotated']['ms']:.4f}; bound {rec['bound_ms']:.4f} ({rec['bound_by']}), "
+            f"issue bound {rec['issue_bound_ms']:.4f} (integer, at "
+            f"{rec['clock_max_mhz']} MHz); its own {rec['sass_per_row']} SASS "
+            f"instructions a row issue in {rec['own_sass_ms']} (not a bound); "
+            "torch.randn((4, n)) "
+            f"{rec['library_ms']:.4f}, its last four outputs held; plain {plain_ms:.4f}")
+        out.setdefault("source_batch", {})[shape] = rec
     print(json.dumps({"deposit_times": out}), flush=True)
     return out
 
@@ -3779,7 +3996,6 @@ def phase_carried_kernels(dev) -> dict:
         torch.cuda.empty_cache()
     for rec in records.values():
         rec["library_ms"] = None
-    records["deposit_times"] = deposit_times(dev)
     return records
 
 
@@ -3954,6 +4170,7 @@ def main() -> int:
     ck = phase("carried kernels", phase_carried_kernels, dev)
     cc = phase("carried check", phase_carried_check, dev, dc)
     cs = phase("carried slice", phase_carried_slice, dev, ms, ds)
+    dep = phase("deposit times", deposit_times, dev, ms.pop("iead_traffic"))
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -3985,13 +4202,20 @@ def main() -> int:
     launches["explicit_domain_cycle"] = (
         cs["carrier"]["launches"]["explicit_domain_cycle"])
     helper = dnk.pop("philox_uniforms")
-    # rows 7 and 9 read deposit_times' median at configs[3], its shapes beside
-    dep = ck.pop("deposit_times")
-    for kname, by_shape in dep.items():
-        rec = (mk if kname in mk else ck)[kname]
-        rec.update(ms=by_shape["configs[3]"]["ms"],
-                   ms_calls=by_shape["configs[3]"]["ms_calls"], shapes=by_shape)
+    # rows 4, 7, 9 and 20 read deposit_times' median at their main shapes
+    # (row 4: the headline's set-up, the path whose launches it counts;
+    # deposit_det: the composed sheath current), their other shapes beside
     records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk, **ck}
+    main_shape = {"deposit2": "configs[3]", "boris_gather_push_deposit": "configs[3]",
+                  "deposit": DEPOSIT_MAIN_SHAPE, "deposit_det": "current",
+                  "source_batch": "999,996"}
+    for kname, by_shape in dep.items():
+        top = by_shape[main_shape[kname]]
+        records[kname].update(ms=top["ms"], ms_calls=top["ms_calls"], shapes=by_shape)
+        if kname == "source_batch":
+            records[kname].update(library_ms=top["library_ms"],
+                                  issue_bound_ms=top["issue_bound_ms"],
+                                  own_sass_ms=top["own_sass_ms"])
     sources = {kname: "pypic_tpu_torch/csrc/cic.cu" for kname in k}
     sources.update({kname: "pypic_tpu_torch/csrc/explicit.cu" for kname in ek})
     sources.update(picard_finalize="pypic_tpu_torch/csrc/cic.cu",
@@ -4012,7 +4236,8 @@ def main() -> int:
          "n": records[kname]["n"],
          **{key: records[kname][key] for key in (
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
-            "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes")
+            "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes",
+            "issue_bound_ms", "own_sass_ms")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [

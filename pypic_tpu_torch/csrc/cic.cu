@@ -9,7 +9,7 @@
 // MXU contractions exist only for Mosaic and VMEM and are not carried
 // over.
 //
-// Common design:
+// Common design (the two deposits differ: their sections below):
 // * One thread per particle in a grid-stride loop with a bounds check, so
 //   any n is legal (the counterpart of the TPU kernels' _lane_mask on the
 //   padded tail). Particle arrays are flat (n,) float32.
@@ -223,56 +223,136 @@ cudaError_t launch_finalize(int blocks, int threads, cudaStream_t s,
 //
 // Replaces pypic_tpu/ops/pallas_cic.py:_deposit_kernel (deposit_pallas).
 // CIC deposit of per-particle values at grid positions, periodic or
-// bounded.
+// bounded, onto ng zeroed nodes. Its paths: the implicit and explicit
+// engines' set-up deposits (n = 1e8, ng = 200, periodic), the explicit
+// domain carrier's rho a step (n = 1e8 onto the slab's ext_n = 227 nodes,
+// bounded, a twentieth of the rows dead slots of weight 0), and the
+// magnetized engines' IEAD histogram a step (ops/cic.py histogram_add: a
+// width-0 deposit of n = 999,996 rows at integer positions onto S ne na
+// = 3,200 bins, weight 1 on the rows that hit a wall that step and 0 on
+// all the others).
 //
-// Bound on the H100: device-memory bytes, 8 B read per particle, and the
-// shared-memory atomics behind them. The histogram stays in shared memory
-// and reaches device memory once per block.
+// Bound on the H100: device-memory bytes, 8 B read a row, and the
+// shared-memory adds behind them. The first port launched 8 blocks of 256
+// threads an SM, a row a thread, one (ng,) histogram a block and a global
+// float atomic a node and block in the flush: 1,056 x 3,200 = 3.4 M
+// atomics at the IEAD, where every row also issued its two shared adds,
+// one always of 0 (the card runs a shared float atomicAdd as a
+// compare-and-swap loop). Now:
+//
+// * deposit2's grid (cic_common.cuh; ops/cuda_cic.py deposit_launch_shape
+//   with one histogram): wide from 4 x 1,024 x SMs rows, one 1,024-thread
+//   block an SM sweeping a contiguous range with 16-B loads, lane columns
+//   (32, halved until shared memory holds them: 16 at 3,200 bins) and 132
+//   blocks' flush; the first port's grid below;
+// * no add whose product is exactly 0, in the sweep and in the flush
+//   (flush_columns' SKIP): the histogram and the outputs start at +0 and
+//   x + 0 is x for every x, so the sums are unchanged; a NaN or Inf
+//   product is not 0 and still lands. The IEAD's rows that hit no wall,
+//   every right-node add of a width-0 deposit and the carrier's dead slots
+//   then cost their loads alone.
+//
+// The split (tools/resident_split.py --kernel deposit; PERF.md §6;
+// us a launch, queued): the carrier 303 against the first port's 488, its
+// sweep alone 263 (8 B a row at 3.0 TB/s); the skip's test costs 3% on
+// dense rows (290 adding every product) and saves 2.4 at the IEAD; there
+// one column (histogram_add's, the wrapper's `cols`) reads 5.2 against 7.5
+// at 16, and dense rows want all 32 (1 column: 681 at the carrier).
 // ---------------------------------------------------------------------------
-template <bool PERIODIC>
-__global__ void deposit_kernel(const float* __restrict__ p,
-                               const float* __restrict__ values,
-                               float* __restrict__ out, long long n, int ng) {
-  extern __shared__ float s_hist[];
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_hist[i] = 0.0f;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float val = values[i];
-    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&out[i], s_hist[i]);
+
+// h[at] += v, unless v is exactly 0
+__device__ __forceinline__ void add_nonzero(float* h, int at, float v) {
+  if (v != 0.0f) atomicAdd(h + at, v);
 }
 
+template <bool PERIODIC, int ROWS, bool VEC>
+__global__ void __launch_bounds__(1024, 1)
+    deposit_kernel(const float* __restrict__ p, const float* __restrict__ values,
+                   float* __restrict__ out, long long n, int ng, int cols) {
+  extern __shared__ float4 smem4[];
+  float* h = reinterpret_cast<float*>(smem4);
+  zero_shared(h, ng * cols);
+  __syncthreads();
+  if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      const float val = values[i];
+      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      add_nonzero(h, c.l, __fmul_rn(val, c.wl));
+      add_nonzero(h, c.r, __fmul_rn(val, c.wr));
+    }
+  } else {  // wide: groups of four rows, lane columns
+    const int col = threadIdx.x & (cols - 1);
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
+      const float4 v4 = load4<VEC>(values, i, end, 0.0f);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i + r >= end) break;
+        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const float val = get(v4, r);
+        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));
+        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));
+      }
+    }
+  }
+  flush_columns<ROWS, 1, true>(h, ng, cols, out, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// deposit_det
+//
 // The deterministic deposit: the same CIC deposit with the sums in a fixed
-// order (cic_common.cuh det_flush: a histogram a thread, no float
-// atomics), for callers whose loop exits on a residual that the float
-// atomics' order would blur (the sheath engine's composed Picard loop).
-// Bound as deposit_kernel; the thread histograms take T ng floats of
-// shared memory a block.
-template <bool PERIODIC>
-__global__ void deposit_det_kernel(const float* __restrict__ p,
-                                   const float* __restrict__ values,
-                                   float* __restrict__ out,
-                                   float* __restrict__ partial,
-                                   unsigned int* __restrict__ counter,
-                                   long long n, int ng) {
-  extern __shared__ float s_hist[];  // column threadIdx.x: node * T + t
+// order (no float atomics), for callers whose loop exits on a residual
+// that the float atomics' order would blur (the sheath engine's composed
+// Picard loop, two a pass, and its exit histograms). Bound as
+// deposit_kernel.
+//
+// The first port ran a wave of 256-thread blocks and cic_common.cuh's
+// first deterministic flush: a shared-memory tree of log2 T barrier rounds,
+// each thread adding ng nodes serially a round, then the last block's sum
+// of node-major partials one L2 trip at a time (3.2x the atomic deposit at
+// n = 1e6, ng = 51). Now the sheath pass's grid and flush (sheath.cu;
+// ops/cuda_sheath.py launch_shape without the field): persistent blocks,
+// two an SM where their columns fit, each owning a contiguous range of
+// rows in order, four rows a thread with 16-B loads (row by row where a
+// pointer is not 16-B aligned), a column a thread, and det_flush's
+// warp-ordered column sums and batched partial loads. The order of every
+// sum follows from (n, ng, SM count). The split (--kernel deposit_det): 10.5
+// us against 40.2 at 1e6 / 51, its flush 5.7 of it; at the exit
+// histograms' 128 nodes (128 threads a block) 35.7 against 41.9, the flush
+// 29.2 (PERF.md §7).
+// ---------------------------------------------------------------------------
+template <bool PERIODIC, bool VEC>
+__global__ void __launch_bounds__(1024) deposit_det_kernel(
+    const float* __restrict__ p, const float* __restrict__ values,
+    float* __restrict__ out, float* __restrict__ partial,
+    unsigned int* __restrict__ counter, long long n, long long rows_per_block,
+    int ng) {
+  extern __shared__ float4 smem4[];
+  float* s_hist = reinterpret_cast<float*>(smem4);  // column t: s_hist[node * T + t]
   const int T = blockDim.x;
-  for (int i = threadIdx.x; i < T * ng; i += T) s_hist[i] = 0.0f;
+  zero_shared(s_hist, T * ng);
   __syncthreads();
   float* mine = s_hist + threadIdx.x;
-  const long long stride = (long long)gridDim.x * T;
-  for (long long i = (long long)blockIdx.x * T + threadIdx.x; i < n;
-       i += stride) {
-    const float val = values[i];
-    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-    mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));
-    mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));
+  const long long lo = (long long)blockIdx.x * rows_per_block;
+  const long long hi = min(n, lo + rows_per_block);
+  for (long long i = lo + 4LL * threadIdx.x; i < hi; i += 4LL * T) {
+    const float4 p4 = load4<VEC>(p, i, hi, 0.0f);
+    const float4 v4 = load4<VEC>(values, i, hi, 0.0f);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (i + r >= hi) break;
+      const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+      const float val = get(v4, r);
+      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));
+      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));
+    }
   }
   det_flush(s_hist, ng, partial, counter, out);
 }
@@ -336,45 +416,62 @@ int pypic_picard_iteration_shared(
                                       width, num_k, inv_stride));
 }
 
+// out: ng zeroed floats; rows, blocks, threads and cols from
+// ops/cuda_cic.py deposit_launch_shape (one histogram).
 int pypic_deposit(const float* p, const float* values, float* out, long long n,
-                  int ng, int periodic, int blocks, int threads, void* stream) {
-  const size_t smem = (size_t)ng * sizeof(float);
+                  int ng, int periodic, int rows, int blocks, int threads,
+                  int cols, void* stream) {
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)ng * cols * sizeof(float);
+  const bool vec = aligned16(p) && aligned16(values);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+#define PYPIC_DEPOSIT(PER, ROWS, VEC)                                           \
+  err = allow_smem(deposit_kernel<PER, ROWS, VEC>, smem);                       \
+  if (err != cudaSuccess) return (int)err;                                      \
+  deposit_kernel<PER, ROWS, VEC><<<blocks, threads, smem, s>>>(p, values, out,  \
+                                                              n, ng, cols);     \
+  return (int)cudaGetLastError()
   if (periodic) {
-    err = allow_smem(deposit_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit_kernel<true><<<blocks, threads, smem, s>>>(p, values, out, n, ng);
-  } else {
-    err = allow_smem(deposit_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit_kernel<false><<<blocks, threads, smem, s>>>(p, values, out, n, ng);
+    if (rows == 1) { PYPIC_DEPOSIT(true, 1, false); }
+    if (vec) { PYPIC_DEPOSIT(true, 4, true); }
+    PYPIC_DEPOSIT(true, 4, false);
   }
-  return (int)cudaGetLastError();
+  if (rows == 1) { PYPIC_DEPOSIT(false, 1, false); }
+  if (vec) { PYPIC_DEPOSIT(false, 4, true); }
+  PYPIC_DEPOSIT(false, 4, false);
+#undef PYPIC_DEPOSIT
 }
 
 // out: ng floats (written whole); partial: blocks * ng floats of scratch;
 // counter: one unsigned int, 0 at the launch and left 0 (det_flush);
-// threads: a power of two <= 256.
+// blocks, threads (a multiple of 32, <= 1024) and rows_per_block (a
+// multiple of 4, blocks * rows_per_block >= n) from ops/cuda_sheath.py
+// launch_shape(n, ng, sms, field=False).
 int pypic_deposit_det(const float* p, const float* values, float* out,
                       float* partial, unsigned int* counter, long long n,
                       int ng, int periodic, int blocks, int threads,
-                      void* stream) {
+                      long long rows_per_block, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || rows_per_block % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)threads * ng * sizeof(float);
+  const bool vec = aligned16(p) && aligned16(values);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+#define PYPIC_DEPOSIT_DET(PER, VEC)                                             \
+  err = allow_smem(deposit_det_kernel<PER, VEC>, smem);                         \
+  if (err != cudaSuccess) return (int)err;                                      \
+  deposit_det_kernel<PER, VEC><<<blocks, threads, smem, s>>>(                   \
+      p, values, out, partial, counter, n, rows_per_block, ng);                 \
+  return (int)cudaGetLastError()
   if (periodic) {
-    err = allow_smem(deposit_det_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit_det_kernel<true><<<blocks, threads, smem, s>>>(p, values, out,
-                                                           partial, counter, n, ng);
-  } else {
-    err = allow_smem(deposit_det_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    deposit_det_kernel<false><<<blocks, threads, smem, s>>>(p, values, out,
-                                                            partial, counter, n, ng);
+    if (vec) { PYPIC_DEPOSIT_DET(true, true); }
+    PYPIC_DEPOSIT_DET(true, false);
   }
-  return (int)cudaGetLastError();
+  if (vec) { PYPIC_DEPOSIT_DET(false, true); }
+  PYPIC_DEPOSIT_DET(false, false);
+#undef PYPIC_DEPOSIT_DET
 }
 
 const char* pypic_error_string(int err) {

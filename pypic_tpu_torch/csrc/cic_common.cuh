@@ -1,6 +1,8 @@
 // CIC helpers shared by the particle kernels (cic.cu, explicit.cu,
-// implicit.cu, magnetized.cu, sheath.cu), and the deterministic block
-// histogram of the sheath kernels and the deterministic deposit.
+// implicit.cu, magnetized.cu, sheath.cu): the wide deposits' grid and
+// flush (the single deposit, deposit2 and the carried Boris deposit), and
+// the deterministic column histogram of the sheath kernels and the
+// deterministic deposit.
 //
 // Plain CIC index arithmetic (pypic_tpu/ops/cic.py cic_indices_weights):
 // idx_l = clip(floor(p), 0, num_cells - 1), w_r = p - idx_l,
@@ -87,77 +89,165 @@ __device__ double block_sum(double x, double* red) {
 }
 
 // ---------------------------------------------------------------------------
+// The wide deposits' grid and flush (cic.cu deposit_kernel, magnetized.cu
+// deposit2_kernel and boris_deposit_kernel; ops/cuda_cic.py
+// deposit_launch_shape): one 1,024-thread block an SM, each sweeping a
+// contiguous range of rows four at a time, each histogram in `cols` lane
+// columns (node k's column j at h[k cols + j], lane l adding into column
+// l mod cols, so that at 32 columns a warp's adds land on 32 banks), or
+// below that n the first port's grid, a row a thread and one column. The
+// header of magnetized.cu gives the split that chose it.
+// ---------------------------------------------------------------------------
+
+// Groups [b G / B, (b + 1) G / B) of this block, G = ceil(n / 4) groups of
+// four rows, B = gridDim.x; every block gets rows when G >= B.
+__device__ __forceinline__ void block_groups(long long n, long long& lo,
+                                             long long& hi) {
+  const long long groups = (n + 3) / 4, b = blockIdx.x, blocks = gridDim.x;
+  lo = b * groups / blocks;
+  hi = (b + 1) * groups / blocks;
+}
+
+// Zero `count` floats of shared memory from the 16-B aligned `h`.
+__device__ __forceinline__ void zero_shared(float* h, int count) {
+  float4* h4 = reinterpret_cast<float4*>(h);
+  for (int i = threadIdx.x; i < count / 4; i += blockDim.x)
+    h4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) h[i] = 0.0f;
+}
+
+// Every thread of the block calls it once, after its last deposit. h:
+// ARRAYS (1 or 2) histograms of ng nodes and `cols` columns (one with ROWS
+// 1), the second at h + ng cols; out_a (out_b): ng zeroed floats. A thread
+// takes a node, sums its columns from the node's own on (a warp's 32 nodes
+// start on 32 banks) and adds the total by one global atomic an array.
+// With SKIP a total of exactly 0 is not added: the outputs start at +0,
+// and x + 0 is x for every x, so the sums are those of adding it (a NaN or
+// Inf total is not 0 and is added).
+template <int ROWS, int ARRAYS, bool SKIP>
+__device__ __forceinline__ void flush_columns(const float* h, int ng, int cols,
+                                              float* out_a, float* out_b) {
+  __syncthreads();
+  const float* h_b = h + (size_t)ng * cols;
+  for (int k = threadIdx.x; k < ng; k += blockDim.x) {
+    float a = 0.0f, b = 0.0f;
+    if (ROWS == 1) {  // the first port's flush: one column
+      a = h[k];
+      if (ARRAYS == 2) b = h_b[k];
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < cols; ++j) {
+        const int at = k * cols + ((k + j) & (cols - 1));
+        a = __fadd_rn(a, h[at]);
+        if (ARRAYS == 2) b = __fadd_rn(b, h_b[at]);
+      }
+    }
+    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);
+    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);
+  }
+}
+
+// The launch shape's invariants (ops/cuda_cic.py deposit_launch_shape):
+// four rows a thread and pass with a power-of-two column count up to 32,
+// or a row a thread and one column; no more blocks than the rows fill.
+inline bool deposit_shape_ok(long long n, int ng, int rows, int blocks,
+                             int threads, int cols) {
+  return ng >= 2 && n >= 0 && threads >= 32 && threads <= 1024 &&
+         threads % 32 == 0 && blocks >= 1 &&
+         (blocks == 1 || blocks <= (n + rows - 1) / rows) &&
+         ((rows == 4 && cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0) ||
+          (rows == 1 && cols == 1));
+}
+
+// ---------------------------------------------------------------------------
 // Deterministic deposits: the same inputs and launch shape give the same
 // bits on every run. Float atomics add in the order the hardware serves
 // them, which changes from run to run; here nothing is added out of a
-// fixed order. Each thread keeps its own (ng,) histogram in shared memory,
-// column tid of hist[node * T + tid] (T = blockDim.x, a power of two: a
-// warp's 32 lanes touch 32 banks whatever their nodes), and adds its
-// particles in its grid-stride order with plain read-modify-writes.
-// det_flush sums the threads' columns by a fixed tree, writes the block's
-// partial to device memory, and the block that takes the last ticket
-// sums the partials in block order and sets the counter back to 0. The grid is part of the order: a
-// wrapper launches a given n and ng with a given grid.
+// fixed order. Each thread keeps its own (ng,) column in shared memory,
+// column t of node k at hist[k T + t] (T = blockDim.x, a multiple of 32:
+// a warp's 32 lanes touch 32 banks whatever their nodes), and adds its
+// rows in their order with plain read-modify-writes. det_flush then sums
+// the columns by warps and the blocks' partials in the last block, each
+// in a fixed order. The grid is part of the order: a wrapper launches a
+// given n and ng with a given grid (ops/cuda_sheath.py launch_shape, a
+// function of n, ng and the SM count). The sheath kernels (sheath.cu) and
+// the deterministic deposit (cic.cu) share it.
 // ---------------------------------------------------------------------------
 
-// Every thread of the block calls it once, after its last addition.
-// hist: ng * blockDim.x floats in shared memory (consumed); partial:
-// gridDim.x * ng floats; counter: one unsigned int, 0 at the launch and
-// left 0; out: ng floats, written by the last block. blockDim.x is a
-// power of two <= 256.
-__device__ void det_flush(float* hist, int ng, float* partial,
+// The fixed-order sum of a warp's 32 values: lane 0 gets it.
+__device__ __forceinline__ float warp_fsum(float acc) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o));
+  return acc;
+}
+
+// Every thread of the block calls it once, after its last addition. hist:
+// ng columns of blockDim.x floats in shared memory (column t of node k at
+// hist[k * T + t]); partial: ng * gridDim.x floats; counter: one unsigned
+// int, 0 at the launch and left 0; out: ng floats, written by the last
+// block. blockDim.x is a multiple of 32.
+//
+// The columns are summed by warps, not a tree: a warp takes a node, its
+// lanes add the columns lane, lane + 32, ... in order and a shuffle tree
+// adds the lanes (independent shared-memory loads, no block barrier); the
+// block's node sums go to partial[node * blocks + block]. The block that
+// takes the last ticket sums the partials the same way, a warp four nodes
+// over the blocks, each lane's L2 loads of them issued together before
+// any is added. (Lane groups a node, G lanes with 32 / G nodes a warp,
+// read 13.7 us against 10.6 at the sheath current's 51 nodes and 36.5
+// against 36.2 at the exit histograms' 128: PERF.md §6.)
+__device__ void det_flush(const float* hist, int ng, float* partial,
                           unsigned int* counter, float* out) {
   __shared__ unsigned int s_ticket;
-  __shared__ float s_red[256];
-  const int T = blockDim.x, t = threadIdx.x;
-  for (int half = T >> 1; half > 0; half >>= 1) {
-    __syncthreads();
-    if (t < half)
-      for (int k = 0; k < ng; ++k)
-        hist[k * T + t] = __fadd_rn(hist[k * T + t], hist[k * T + t + half]);
+  const int T = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = T >> 5, blocks = gridDim.x;
+  __syncthreads();
+  for (int k = warp; k < ng; k += warps) {
+    const float* col = hist + (size_t)k * T;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int t = lane; t < T; t += 32) acc = __fadd_rn(acc, col[t]);
+    acc = warp_fsum(acc);
+    if (lane == 0) partial[(size_t)k * blocks + blockIdx.x] = acc;
   }
+  __threadfence();  // this block's partials are visible before its ticket
   __syncthreads();
-  for (int k = t; k < ng; k += T) partial[(size_t)blockIdx.x * ng + k] = hist[k * T];
-  __threadfence();  // this block's partial is visible before its ticket
+  if (threadIdx.x == 0) s_ticket = atomicAdd(counter, 1u);
   __syncthreads();
-  if (t == 0) s_ticket = atomicAdd(counter, 1u);
-  __syncthreads();
-  if (s_ticket != gridDim.x - 1) return;  // uniform across the block
+  if (s_ticket != (unsigned int)blocks - 1) return;  // uniform across the block
   // every block has its ticket: zero the counter for the next launch
-  if (t == 0) *counter = 0u;
+  if (threadIdx.x == 0) *counter = 0u;
   __threadfence();
-  // the last block: the partials come through shared memory a tile of T
-  // blocks at a time (independent loads, through L2 past L1), and node
-  // k's are summed in block order, split into `chunks` interleaved runs
-  // when the block has threads to spare, the runs then in run order
-  const int blocks = gridDim.x;
-  const int chunks = ng < T ? T / ng : 1;
-  const int k0 = t % ng, run = t / ng;
-  float acc = 0.0f;
-  for (int b0 = 0; b0 < blocks; b0 += T) {
-    const int nb = min(T, blocks - b0);
-    __syncthreads();
-    for (int i = t; i < nb * ng; i += T) hist[i] = __ldcg(&partial[(size_t)b0 * ng + i]);
-    __syncthreads();
-    if (chunks > 1) {
-      if (run < chunks)
-        for (int r = ((run - b0 % chunks) + chunks) % chunks; r < nb; r += chunks)
-          acc = __fadd_rn(acc, hist[r * ng + k0]);
-    } else {
-      for (int k = t; k < ng; k += T) {
-        float s = b0 == 0 ? 0.0f : out[k];
-        for (int r = 0; r < nb; ++r) s = __fadd_rn(s, hist[r * ng + k]);
-        out[k] = s;
+  // a warp takes kNodes nodes at once: every lane issues its loads of
+  // them (up to kNodes x kChunk) before it adds any, then adds each
+  // node's in block order -- lane l the blocks l, l + 32, ...
+  constexpr int kNodes = 4, kChunk = 8;
+  for (int k0 = warp; k0 < ng; k0 += kNodes * warps) {
+    float acc[kNodes] = {};
+    for (int b0 = 0; b0 < blocks; b0 += 32 * kChunk) {
+      float v[kNodes][kChunk];
+#pragma unroll
+      for (int m = 0; m < kNodes; ++m) {
+        const int k = k0 + m * warps;
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const int b = b0 + 32 * c + lane;
+          v[m][c] = (k < ng && b < blocks) ? __ldcg(partial + (size_t)k * blocks + b)
+                                           : 0.0f;
+        }
       }
+#pragma unroll
+      for (int m = 0; m < kNodes; ++m)
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c)
+          if (b0 + 32 * c + lane < blocks) acc[m] = __fadd_rn(acc[m], v[m][c]);
     }
-  }
-  if (chunks > 1) {
-    if (run < chunks) s_red[t] = acc;
-    __syncthreads();
-    if (t < ng) {
-      float s = s_red[t];
-      for (int c = 1; c < chunks; ++c) s = __fadd_rn(s, s_red[c * ng + t]);
-      out[t] = s;
+#pragma unroll
+    for (int m = 0; m < kNodes; ++m) {
+      const int k = k0 + m * warps;
+      const float total = warp_fsum(acc[m]);
+      if (lane == 0 && k < ng) out[k] = total;
     }
   }
 }

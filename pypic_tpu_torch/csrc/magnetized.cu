@@ -61,53 +61,9 @@ namespace {
 // once (120 of 132 SMs), each cluster barrier costs ~0.75 µs and the
 // tickets' tail ~2 µs, against ~2 µs for the 132 blocks' atomics; it read
 // 15.8 µs against 12.6 at configs[3]. So the outputs come zeroed, a memset
-// a call, as in the first port.
+// a call, as in the first port. The grid's helpers and the flush live in
+// cic_common.cuh, which the single deposit (cic.cu) shares.
 // ---------------------------------------------------------------------------
-
-// Groups [b G / B, (b + 1) G / B) of this block, G = ceil(n / 4) groups of
-// four rows, B = gridDim.x; every block gets rows when G >= B.
-__device__ __forceinline__ void block_groups(long long n, long long& lo,
-                                             long long& hi) {
-  const long long groups = (n + 3) / 4, b = blockIdx.x, blocks = gridDim.x;
-  lo = b * groups / blocks;
-  hi = (b + 1) * groups / blocks;
-}
-
-// Zero `count` floats of shared memory from the 16-B aligned `h`.
-__device__ __forceinline__ void zero_shared(float* h, int count) {
-  float4* h4 = reinterpret_cast<float4*>(h);
-  for (int i = threadIdx.x; i < count / 4; i += blockDim.x)
-    h4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) h[i] = 0.0f;
-}
-
-// Every thread of the block calls it once, after its last deposit. h_a,
-// h_b: two (ng,) histograms of `cols` columns (one with ROWS 1), node k's
-// column j at h[k cols + j]; out_a, out_b: ng zeroed floats each. A thread
-// takes a node, sums its columns from the node's own on (a warp's 32 nodes
-// start on 32 banks) and adds the total by one global atomic an array.
-template <int ROWS>
-__device__ __forceinline__ void flush_columns(const float* h_a, const float* h_b,
-                                              int ng, int cols, float* out_a,
-                                              float* out_b) {
-  __syncthreads();
-  for (int k = threadIdx.x; k < ng; k += blockDim.x) {
-    if (ROWS == 1) {  // the first port's flush
-      atomicAdd(out_a + k, h_a[k]);
-      atomicAdd(out_b + k, h_b[k]);
-      continue;
-    }
-    float a = 0.0f, b = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < cols; ++j) {
-      const int at = k * cols + ((k + j) & (cols - 1));
-      a = __fadd_rn(a, h_a[at]);
-      b = __fadd_rn(b, h_b[at]);
-    }
-    atomicAdd(out_a + k, a);
-    atomicAdd(out_b + k, b);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // deposit2
@@ -172,7 +128,7 @@ __global__ void __launch_bounds__(1024, 1)
       }
     }
   }
-  flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);
+  flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);
 }
 
 // The gather position: pc = clip(p, 0, ng - 1); with SWAP (the reference's
@@ -436,20 +392,8 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
   }
   clamped = __reduce_add_sync(0xffffffffu, clamped);
   if ((threadIdx.x & 31) == 0 && clamped) atomicAdd(&s_clamped, clamped);
-  flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols, rho, dens);
+  flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
-}
-
-// The launch shape's invariants (ops/cuda_cic.py deposit_launch_shape):
-// four rows a thread and pass with a power-of-two column count up to 32,
-// or a row a thread and one column; no more blocks than the rows fill.
-bool deposit_shape_ok(long long n, int ng, int rows, int blocks, int threads,
-                      int cols) {
-  return ng >= 2 && n >= 0 && threads >= 32 && threads <= 1024 &&
-         threads % 32 == 0 && blocks >= 1 &&
-         (blocks == 1 || blocks <= (n + rows - 1) / rows) &&
-         ((rows == 4 && cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0) ||
-          (rows == 1 && cols == 1));
 }
 
 }  // namespace

@@ -43,7 +43,8 @@
 //
 // Design. The first port launched one wave of 256-thread blocks, four an
 // SM (their 257 x 51 floats of columns capped it), and summed the columns
-// with the deterministic deposit's flush (cic_common.cuh det_flush). At
+// with the first port's deterministic flush (a tree over the columns,
+// then the last block's serial sum of the partials). At
 // n = 1e6, ng = 51 the card split that pass's 0.040 ms into 0.006 for the
 // sweep, 0.001 for zeroing and adding into the columns, 0.009 for the
 // flush's 8-level tree over 51 nodes (a __syncthreads a level, 51 serial
@@ -59,87 +60,16 @@
 // * four rows a thread with 16-B loads and stores, so 1,024 threads an SM
 //   keep 96 B each in flight (the same kernel row by row when a pointer is
 //   not 16-B aligned: a view at an odd offset);
-// * the columns summed by warps, not a tree: a warp takes a node, its
-//   lanes add the columns lane, lane + 32, ... in order and a shuffle
-//   tree adds the lanes -- independent shared-memory loads, no block
-//   barrier; the block's node sums go to partial[node * blocks + block];
-// * the block that takes the last ticket sums the partials the same way,
-//   a warp four nodes over the blocks, each lane's L2 loads of them issued
-//   together before any is added.
+// * the columns summed by warps, not a tree, and the block that takes the
+//   last ticket summing the partials the same way, each lane's L2 loads
+//   issued together before any is added (cic_common.cuh det_flush, which
+//   the deterministic deposit shares).
 
 #include "cic_common.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-
-// The fixed-order sum of a warp's 32 values: lane 0 gets it.
-__device__ __forceinline__ float warp_sum(float acc) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o));
-  return acc;
-}
-
-// Every thread of the block calls it once, after its last addition. hist:
-// ng columns of blockDim.x floats in shared memory (column t of node k at
-// hist[k * T + t]); partial: ng * gridDim.x floats; counter: one unsigned
-// int, 0 at the launch and left 0; out: ng floats, written by the last
-// block. blockDim.x is a multiple of 32.
-__device__ void sheath_flush(const float* hist, int ng, float* partial,
-                             unsigned int* counter, float* out) {
-  __shared__ unsigned int s_ticket;
-  const int T = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = T >> 5, blocks = gridDim.x;
-  __syncthreads();
-  for (int k = warp; k < ng; k += warps) {
-    const float* col = hist + (size_t)k * T;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int t = lane; t < T; t += 32) acc = __fadd_rn(acc, col[t]);
-    acc = warp_sum(acc);
-    if (lane == 0) partial[(size_t)k * blocks + blockIdx.x] = acc;
-  }
-  __threadfence();  // this block's partials are visible before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) s_ticket = atomicAdd(counter, 1u);
-  __syncthreads();
-  if (s_ticket != (unsigned int)blocks - 1) return;  // uniform across the block
-  // every block has its ticket: zero the counter for the next launch
-  if (threadIdx.x == 0) *counter = 0u;
-  __threadfence();
-  // a warp takes kNodes nodes at once: every lane issues its loads of
-  // them (up to kNodes x kChunk) before it adds any, then adds each
-  // node's in block order -- lane l the blocks l, l + 32, ...
-  constexpr int kNodes = 4, kChunk = 8;
-  for (int k0 = warp; k0 < ng; k0 += kNodes * warps) {
-    float acc[kNodes] = {};
-    for (int b0 = 0; b0 < blocks; b0 += 32 * kChunk) {
-      float v[kNodes][kChunk];
-#pragma unroll
-      for (int m = 0; m < kNodes; ++m) {
-        const int k = k0 + m * warps;
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          const int b = b0 + 32 * c + lane;
-          v[m][c] = (k < ng && b < blocks) ? __ldcg(partial + (size_t)k * blocks + b)
-                                           : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kNodes; ++m)
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          if (b0 + 32 * c + lane < blocks) acc[m] = __fadd_rn(acc[m], v[m][c]);
-    }
-#pragma unroll
-    for (int m = 0; m < kNodes; ++m) {
-      const int k = k0 + m * warps;
-      const float total = warp_sum(acc[m]);
-      if (lane == 0 && k < ng) out[k] = total;
-    }
-  }
-}
 
 // Block b sweeps rows [b rows_per_block, (b + 1) rows_per_block) (the
 // last block up to n), four rows a thread a tile of 4T rows; rows_per_block
@@ -216,7 +146,7 @@ __global__ void __launch_bounds__(kMaxThreads) sheath_pass_kernel(
     if (FINAL) store4<VEC>(u1_out, i, hi, u14);
     store4<VEC>(act1_out, i, hi, a14);
   }
-  sheath_flush(s_hist, ng, partial, counter, j);
+  det_flush(s_hist, ng, partial, counter, j);
 }
 
 template <bool FINAL>

@@ -488,14 +488,13 @@ def mirror_gather_position(p, hi):
     return torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
 
 
-def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
-                energy_max, angle_max):
-    """Wall-impact energy-angle histogram update (pygcpic.py:1239-1262):
-    energy in eV, angle to the wall normal in degrees; impacts outside
-    [0, emax] x [0, amax] are left out, as np.histogram2d's range does.
-    The histogram is one width-0 deposit over every particle
-    (``ops.cic.histogram_add``, the deposit kernel on the card). Returns
-    iead + the update."""
+def iead_traffic(species_idx, m, vdx, vdy, vdz, hit, *, bins, energy_max,
+                 angle_max):
+    """The wall-impact histogram's traffic (pygcpic.py:1239-1262): each
+    row's flat bin species ne na + energy bin na + angle bin (energy in
+    eV, angle to the wall normal in degrees) and its weight, 1 on a hit
+    inside [0, emax] x [0, amax] and 0 elsewhere (impacts outside are left
+    out, as np.histogram2d's range does). Returns (flat, weight)."""
     ne, na = bins
     energy_ev = (0.5 * m * (vdx * vdx + vdy * vdy + vdz * vdz) / E_CHARGE)
     vyz = torch.sqrt(vdy ** 2 + vdz ** 2)
@@ -505,8 +504,17 @@ def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
     ei = torch.clamp((energy_ev * (ne / energy_max)).to(torch.int32), 0, ne - 1)
     ai = torch.clamp((angle * (na / angle_max)).to(torch.int32), 0, na - 1)
     flat = species_idx * (ne * na) + ei * na + ai
-    weight = torch.where(hit & in_range, 1.0, 0.0).to(iead.dtype)
-    upd = histogram_add(flat, weight, iead.numel())
+    return flat, torch.where(hit & in_range, 1.0, 0.0).to(vdx.dtype)
+
+
+def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
+                energy_max, angle_max):
+    """Wall-impact energy-angle histogram update (``iead_traffic``): one
+    width-0 deposit over every particle (``ops.cic.histogram_add``, the
+    deposit kernel on the card). Returns iead + the update."""
+    flat, weight = iead_traffic(species_idx, m, vdx, vdy, vdz, hit, bins=bins,
+                                energy_max=energy_max, angle_max=angle_max)
+    upd = histogram_add(flat, weight.to(iead.dtype), iead.numel())
     return iead + upd.reshape(iead.shape)
 
 

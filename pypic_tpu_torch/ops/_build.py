@@ -58,7 +58,7 @@ _SIGNATURES = {
     "pypic_implicit_resident": (
         [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D, _D, _D, _P], _I),
     "pypic_implicit_resident_clusters": ([_I, _I, _P], _I),
-    "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P], _I),
     "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
     "pypic_leapfrog_deposit": (
         [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _P], _I),
@@ -78,11 +78,12 @@ _SIGNATURES = {
     "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
     "pypic_source_batch": (
         [_P] * 4 + [_L, _U, _U, _U] + [_F] * 7 + [_I, _I, _I, _P], _I),
+    "pypic_source_blocks_per_sm": ([_I, _I], _I),
     "pypic_sheath_picard": (
         [_P] * 12 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
     "pypic_sheath_finalize": (
         [_P] * 13 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
-    "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _P], _I),
+    "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
     "pypic_sheath_reinject": (
         [_P] * 12 + [_L, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (

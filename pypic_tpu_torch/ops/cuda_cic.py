@@ -93,6 +93,8 @@ _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
+# lane columns a histogram of the wide deposits at most (deposit_launch_shape)
+DEPOSIT_MAX_COLS = 32
 
 
 def reset_launch_counts() -> None:
@@ -479,21 +481,6 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     return p1, v1
 
 
-def det_threads(ng: int) -> int:
-    """Threads a block of the deterministic deposit (cic_common.cuh
-    det_flush): the largest power of two <= 256 whose thread histograms
-    (threads x ng floats) fit in a block's shared memory."""
-    threads = _THREADS
-    while threads >= 32 and threads * ng * 4 > SMEM_LIMIT:
-        threads //= 2
-    if threads < 32:
-        raise ValueError(
-            f"deposit_det: ng={ng} leaves no room for 32 thread histograms in "
-            f"{SMEM_LIMIT} B of shared memory (ng <= {SMEM_LIMIT // (4 * 32)}); "
-            "the large-ng variant is not ported yet")
-    return threads
-
-
 # (device, stream, blocks, ng) -> (partials, block counter): the scratch
 # of the deterministic sums, kept across calls. The counter is zeroed once
 # here; the last block of each launch sets it back to 0 (det_flush and
@@ -516,17 +503,19 @@ def det_buffers(dev, blocks: int, ng: int):
 
 
 def deterministic_scratch(n: int, ng: int, dev):
-    """(blocks, threads, per-block partials, zeroed block counter) of the
-    deterministic deposit: the grid is fixed by n, ng and the card, so the
-    sums' order is too. One wave: as many blocks as the card holds at
-    once, fewer for a small n. Call it with ``dev`` current."""
-    threads = det_threads(ng)
-    smem = threads * ng * 4
+    """(launch shape, per-block partials, zeroed block counter) of the
+    deterministic deposit: the sheath pass's grid without the field
+    (``cuda_sheath.launch_shape(n, ng, sms, field=False)``: persistent
+    blocks over contiguous row ranges, a column of ng floats a thread),
+    fixed by n, ng and the card, so the sums' order is too. Call it with
+    ``dev`` current. Raises where 32 thread columns do not fit a block
+    (ng > 1,816)."""
+    from .cuda_sheath import launch_shape
+
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    per_sm = max(1, min(2048 // threads, SMEM_LIMIT // smem))
-    blocks = max(1, min(-(-n // threads), per_sm * _sm_count(index)))
-    partial, counter = det_buffers(dev, blocks, ng)
-    return blocks, threads, partial, counter
+    shape = launch_shape(max(n, 1), ng, _sm_count(index), field=False)
+    partial, counter = det_buffers(dev, shape.blocks, ng)
+    return shape, partial, counter
 
 
 ROW_ALIGN = 4  # floats: 16 B
@@ -542,9 +531,16 @@ def padded_rows(k: int, n: int, device) -> tuple[torch.Tensor, ...]:
     return tuple(buf[r, :n] for r in range(k))
 
 
-def deposit(p, values, ng: int, *, periodic: bool):
+def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS):
     """CIC-deposit per-particle ``values`` at grid positions ``p`` onto ng
-    nodes (values carry every prefactor; masked particles carry 0)."""
+    nodes (values carry every prefactor; masked particles carry 0). On the
+    card the grid is ``deposit_launch_shape(n, ng, False, sms, hists=1,
+    max_cols=cols)`` and a product of exactly 0 adds nothing (csrc/cic.cu).
+    ``cols`` caps the wide grid's lane columns (a power of two up to 32):
+    dense values want the most, whose adds then never share a word within a
+    warp; a histogram whose weights are mostly 0 (``ops.cic.histogram_add``)
+    wants 1, which spares zeroing and summing the others (PERF.md §6). It
+    changes the order of the float sums only."""
     kind = _device_kind((p, values))
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
@@ -552,14 +548,15 @@ def deposit(p, values, ng: int, *, periodic: bool):
     _check_ng(ng)
     if kind == "cpu":
         return deposit_plain(p, values, ng, periodic=periodic)
-    _check_smem(ng, 1, "deposit")
     lib = _build.library()
     dev = p.device
-    out = torch.zeros((ng,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        shape = _deposit_shape(dev, n, ng, False, hists=1, max_cols=cols)
+        out = torch.zeros((ng,), dtype=torch.float32, device=dev)
         err = lib.pypic_deposit(p.data_ptr(), values.data_ptr(),
                                 out.data_ptr(), n, ng, int(periodic),
-                                _blocks(n, dev), _THREADS, _stream(dev))
+                                shape.rows, shape.blocks, shape.threads,
+                                shape.cols, _stream(dev))
     _build.check(err, "deposit")
     LAUNCHES["deposit"] += 1
     return out
@@ -568,12 +565,11 @@ def deposit(p, values, ng: int, *, periodic: bool):
 def deposit_det(p, values, ng: int, *, periodic: bool):
     """``deposit`` with the sums in a fixed order on the card (no float
     atomics: cic_common.cuh det_flush), so that a call gives the same bits
-    every time; on the card ng <= 227 at 256 thread histograms a block, up
-    to 1,816 at 32 (CPU tensors take the plain deposit at any ng).
-    The sheath engine's composed loop and exit histograms use it: its
-    floor exit reads the residual at round-off level. Slower than
-    ``deposit`` at the other engines' shapes (PERF.md §6), which keep the
-    float-atomic kernel."""
+    every time; on the card ng <= 1,816, where 32 thread columns still fit
+    a block (CPU tensors take the plain deposit at any ng). The sheath
+    engine's composed loop and exit histograms use it: its floor exit
+    reads the residual at round-off level. The other engines keep the
+    float-atomic ``deposit``."""
     kind = _device_kind((p, values))
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
@@ -585,11 +581,11 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     dev = p.device
     out = torch.empty((ng,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        blocks, threads, partial, counter = deterministic_scratch(n, ng, dev)
+        shape, partial, counter = deterministic_scratch(n, ng, dev)
         err = lib.pypic_deposit_det(
             p.data_ptr(), values.data_ptr(), out.data_ptr(),
             partial.data_ptr(), counter.data_ptr(), n, ng, int(periodic),
-            blocks, threads, _stream(dev))
+            shape.blocks, shape.threads, shape.rows_per_block, _stream(dev))
     _build.check(err, "deposit_det")
     LAUNCHES["deposit_det"] += 1
     return out
@@ -1025,26 +1021,27 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
 # the magnetized engine's particle kernels
 # ---------------------------------------------------------------------------
 
-# the launch of the deposits of csrc/magnetized.cu (deposit2_kernel,
-# boris_deposit_kernel): wide, one block of DEPOSIT_WIDE_THREADS an SM,
-# four rows a thread and pass, each histogram in up to DEPOSIT_MAX_COLS lane
-# columns; narrow (fewer rows than give every such thread four), the first
-# port's grid: DEPOSIT_NARROW_THREADS threads, a row a thread, up to
-# _BLOCKS_PER_SM blocks an SM, one column
+# the launch of the wide deposits (csrc/cic.cu deposit_kernel, csrc/magnetized.cu
+# deposit2_kernel and boris_deposit_kernel; cic_common.cuh): wide, one
+# block of DEPOSIT_WIDE_THREADS an SM, four rows a thread and pass, each
+# histogram in up to DEPOSIT_MAX_COLS lane columns; narrow (fewer rows than
+# give every such thread four), the first port's grid: DEPOSIT_NARROW_THREADS
+# threads, a row a thread, up to _BLOCKS_PER_SM blocks an SM, one column
 DEPOSIT_WIDE_THREADS = 1024
 DEPOSIT_NARROW_THREADS = _THREADS
-DEPOSIT_MAX_COLS = 32
+_DEPOSIT_NAMES = {(1, False): "deposit", (2, False): "deposit2",
+                  (2, True): "boris_gather_push_deposit"}
 
 
 @dataclasses.dataclass(frozen=True)
 class DepositShape:
-    """The launch of ``deposit2`` (``field`` False) or
-    ``boris_gather_push_deposit`` (True): ``blocks`` blocks of ``threads``
-    threads, ``rows`` rows a thread and pass (4 with 16-B accesses, or 1);
-    block b sweeps the units of ``rows`` rows [b U / B, (b + 1) U / B), U =
-    ceil(n / rows), B = blocks; each of its two histograms has ``cols``
-    lane columns a node; ``smem`` bytes of dynamic shared memory a block
-    (the columns, and the field for row 9)."""
+    """The launch of ``deposit`` (one histogram), ``deposit2`` (two) or
+    ``boris_gather_push_deposit`` (two and the field): ``blocks`` blocks of
+    ``threads`` threads, ``rows`` rows a thread and pass (4 with 16-B
+    accesses, or 1); block b sweeps the units of ``rows`` rows [b U / B,
+    (b + 1) U / B), U = ceil(n / rows), B = blocks; each histogram has
+    ``cols`` lane columns a node; ``smem`` bytes of dynamic shared memory a
+    block (the columns, and the field for row 9)."""
     rows: int
     blocks: int
     threads: int
@@ -1052,25 +1049,29 @@ class DepositShape:
     smem: int
 
 
-def deposit_launch_shape(n: int, ng: int, field: bool, sms: int) -> DepositShape:
-    """The grid of the magnetized deposits for n rows and ng nodes on a card
-    of ``sms`` SMs, a function of these alone. Wide where every thread of
-    one 1,024-thread block an SM gets a group of four rows: one such block
-    an SM, 32 lane columns, halved until shared memory holds them. Narrow
-    below that: the first port's grid, a row a thread, no more blocks than
-    the rows fill. Raises where one column does not fit: above ng = 29,056
-    for deposit2 and 19,370 with the field."""
-    if n < 0 or ng < 2 or sms < 1:
-        raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1; "
-                         f"got {n}, {ng}, {sms}")
-    arrays = 3 if field else 2
-    _check_smem(ng, arrays, "boris_gather_push_deposit" if field else "deposit2")
+def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
+                         hists: int = 2, max_cols: int = DEPOSIT_MAX_COLS) -> DepositShape:
+    """The grid of the wide deposits for n rows and ng nodes on a card of
+    ``sms`` SMs, a function of these alone: ``hists`` histograms (1 for
+    ``deposit``, 2 for ``deposit2`` and, with ``field``, the carried Boris
+    deposit). Wide where every thread of one 1,024-thread block an SM gets
+    a group of four rows: one such block an SM, ``max_cols`` (32) lane
+    columns, halved until shared memory holds them. Narrow below that: the
+    first port's grid, a row a thread, no more blocks than the rows fill.
+    Raises where one column does not fit: above ng = 58,112 for deposit,
+    29,056 for deposit2 and 19,370 with the field."""
+    if (n < 0 or ng < 2 or sms < 1 or (hists, field) not in _DEPOSIT_NAMES
+            or max_cols not in (1, 2, 4, 8, 16, 32)):
+        raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1, "
+                         f"1 or 2 histograms (2 with the field) and max_cols a power "
+                         f"of two up to 32; got {n}, {ng}, {sms}, {hists}, {max_cols}")
+    _check_smem(ng, hists + int(field), _DEPOSIT_NAMES[(hists, field)])
 
     def smem(cols: int) -> int:
-        return 4 * (2 * cols + arrays - 2) * ng
+        return 4 * (hists * cols + int(field)) * ng
 
     if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
-        cols = DEPOSIT_MAX_COLS
+        cols = max_cols
         while smem(cols) > SMEM_LIMIT:
             cols //= 2
         return DepositShape(4, sms, DEPOSIT_WIDE_THREADS, cols, smem(cols))
@@ -1078,12 +1079,13 @@ def deposit_launch_shape(n: int, ng: int, field: bool, sms: int) -> DepositShape
     return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, 1, smem(1))
 
 
-def deposit_row_blocks(n: int, ng: int, field: bool, sms: int) -> np.ndarray:
+def deposit_row_blocks(n: int, ng: int, field: bool, sms: int,
+                       hists: int = 2) -> np.ndarray:
     """(n,) int array: the block of ``deposit_launch_shape``'s grid that
     sweeps each row. Wide, block b the groups of four [b G / B, (b + 1) G /
     B), G = ceil(n / 4), B = blocks (the kernels' block_groups); narrow,
     the first port's grid stride: row i in block (i // threads) mod B."""
-    shape = deposit_launch_shape(n, ng, field, sms)
+    shape = deposit_launch_shape(n, ng, field, sms, hists)
     i = np.arange(n, dtype=np.int64)
     if shape.rows == 1:
         return (i // shape.threads) % shape.blocks
@@ -1093,9 +1095,10 @@ def deposit_row_blocks(n: int, ng: int, field: bool, sms: int) -> np.ndarray:
     return np.searchsorted(first, i // 4, side="right") - 1
 
 
-def _deposit_shape(dev, n: int, ng: int, field: bool) -> DepositShape:
+def _deposit_shape(dev, n: int, ng: int, field: bool, hists: int = 2,
+                   max_cols: int = DEPOSIT_MAX_COLS) -> DepositShape:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return deposit_launch_shape(n, ng, field, _sm_count(index))
+    return deposit_launch_shape(n, ng, field, _sm_count(index), hists, max_cols)
 
 
 def deposit2_plain(p, va, vb, ng: int, *, periodic: bool):

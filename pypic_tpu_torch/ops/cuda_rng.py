@@ -19,11 +19,13 @@ Plain versions:
 * ``source_batch_plain``: the two together, what a CPU device runs.
 
 ``source_batch(key, step, n, device=...)`` launches the kernel for a CUDA
-device and runs ``source_batch_plain`` for the CPU; it counts its launches
-in ``cuda_cic.LAUNCHES['source_batch']``. The normals of the kernel and of
-the plain version differ by a few float32 ulps (libdevice's logf, sinf and
-cosf against the CPU's); the uniforms are bit-equal, which
-``source_uniforms`` exposes for the check.
+device and runs ``source_batch_plain`` for the CPU, either way into views
+of one row-padded buffer (``cuda_cic.padded_rows``); it counts its
+launches in ``cuda_cic.LAUNCHES['source_batch']``. The normals of the kernel and of
+the plain version differ by a float32 ulp or two (libdevice's logf and
+sqrtf and the kernel's sine-cosine polynomials against the CPU's float64
+functions); the uniforms are bit-equal, which ``source_uniforms`` exposes
+for the check.
 
 ``sheath_reinject`` replaces ``sheath_reinject_pallas``: the sheath's
 thermostat and wall re-injection sweep (PIC_L_DD.py:420-450). A row takes
@@ -51,6 +53,8 @@ loops take one path whatever views they are handed.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -64,6 +68,12 @@ _TWO_PI = 6.283185307179586
 # the fourth counter word of the draws of philox_uniforms
 FLUX_TAG, GYRO_TAG = 1, 2
 _MAX_DRAWS = 16
+# threads a block of the source kernel (tools/resident_split.py --kernel
+# source_batch: 512 read 1.7% under 256 and 1.3% under 128, PERF.md §6)
+SOURCE_THREADS = 512
+# rows a thread takes in one pass of the source kernel's main loop
+# (csrc/rng.cu source_batch_kernel: rows i, i + S, i + 2S, i + 3S)
+SOURCE_ROWS_A_PASS = 4
 
 
 def _mulhilo(a: int, b: torch.Tensor):
@@ -161,22 +171,43 @@ def source_batch_plain(key, step: int, n: int, *, x_mu, x_sigma, x_wrap, vth,
                                         vth=vth, vx=vx)
 
 
-def _launch(key, step, n, uniforms: bool, dev, x_mu=0.0, x_sigma=0.0,
+@functools.lru_cache(maxsize=None)
+def _source_blocks_per_sm(index: int, uniforms: bool) -> int:
+    """SOURCE_THREADS-thread blocks of the source kernel one SM of device
+    ``index`` holds at once at the kernel's registers (asked once)."""
+    with torch.cuda.device(index):
+        per_sm = _build.library().pypic_source_blocks_per_sm(SOURCE_THREADS,
+                                                             int(uniforms))
+    if per_sm < 0:
+        _build.check(-per_sm, "source_batch occupancy")
+    return max(per_sm, 1)
+
+
+def source_grid(n: int, index: int, uniforms: bool = False) -> int:
+    """Blocks of the source kernel's launch: one wave, as many as the card
+    holds at once, no more than the rows fill."""
+    per_sm = _source_blocks_per_sm(index, uniforms)
+    return max(1, min(per_sm * cuda_cic._sm_count(index), -(-n // SOURCE_THREADS)))
+
+
+def _launch(outs, key, step, n, uniforms: bool, dev, x_mu=0.0, x_sigma=0.0,
             x_wrap=1.0, vth=0.0, vx=0.0):
+    """The source kernel into the four (n,) float32 tensors ``outs``: the
+    batch, or with ``uniforms`` its four uniforms (u0..u3), on
+    ``source_grid`` blocks of SOURCE_THREADS threads."""
     lib = _build.library()
     f32 = np.float32
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
     k0, k1 = (int(k) & _MASK32 for k in key)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks = source_grid(n, index, uniforms)
     with torch.cuda.device(dev):
         err = lib.pypic_source_batch(
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), n, k0, k1, int(step) & _MASK32,
+            *(o.data_ptr() for o in outs), n, k0, k1, int(step) & _MASK32,
             float(f32(x_mu)), float(f32(x_sigma)), float(f32(x_wrap)),
             float(f32(1.0 / x_wrap)), float(f32(vth)), float(f32(vx)),
-            float(f32(_TWO_PI)), int(uniforms), _blocks(n, dev), _THREADS,
+            float(f32(_TWO_PI)), int(uniforms), blocks, SOURCE_THREADS,
             _stream(dev))
     _build.check(err, "source_batch")
-    return out
 
 
 def _kind(device) -> torch.device:
@@ -190,17 +221,23 @@ def source_batch(key, step: int, n: int, *, x_mu, x_sigma, x_wrap, vth,
                  vx=0.0, device):
     """The source batch of ``n`` draws for ``step`` under the Philox
     ``key`` (two 32-bit words), on ``device``: (x, vx, vy, vz), (n,)
-    float32 each, x in the units of x_mu / x_sigma / x_wrap. A CUDA device
-    launches the kernel; the CPU runs ``source_batch_plain``."""
+    float32 each, x in the units of x_mu / x_sigma / x_wrap, as views of
+    one buffer whose rows are padded to 4 floats (``cuda_cic.padded_rows``:
+    each contiguous and 16-B aligned, so that the step's next kernels read
+    them with aligned vector loads whatever n is). A CUDA device launches
+    the kernel; the CPU runs ``source_batch_plain``."""
     dev = _kind(device)
     if n < 1 or n > _MASK32:
         raise ValueError(f"n must be in [1, 2^32), got {n}")
     kw = dict(x_mu=x_mu, x_sigma=x_sigma, x_wrap=x_wrap, vth=vth, vx=vx)
+    outs = cuda_cic.padded_rows(4, n, dev)
     if dev.type == "cpu":
-        return source_batch_plain(key, step, n, device=dev, **kw)
-    out = _launch(key, step, n, False, dev, **kw)
+        for o, r in zip(outs, source_batch_plain(key, step, n, device=dev, **kw)):
+            o.copy_(r)
+        return outs
+    _launch(outs, key, step, n, False, dev, **kw)
     LAUNCHES["source_batch"] += 1
-    return out[0], out[1], out[2], out[3]
+    return outs
 
 
 def source_uniforms(key, step: int, n: int, *, device) -> torch.Tensor:
@@ -212,7 +249,8 @@ def source_uniforms(key, step: int, n: int, *, device) -> torch.Tensor:
     if dev.type == "cpu":
         words = philox4x32_plain(key, _counters(step, n, dev))
         return uniforms_from_bits(torch.stack(words))
-    out = _launch(key, step, n, True, dev)
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    _launch(tuple(out), key, step, n, True, dev)
     LAUNCHES["source_uniforms"] += 1
     return out
 

@@ -61,10 +61,10 @@ MAX_NG = SMEM_LIMIT // (4 * (MIN_THREADS + 1))
 
 @dataclasses.dataclass(frozen=True)
 class LaunchShape:
-    """The sheath kernels' grid. Block b sweeps rows
-    [b rows_per_block, min(n, (b + 1) rows_per_block)), four a thread at
-    a time; ``smem`` bytes of dynamic shared memory a block hold the field
-    and a column of ng floats a thread."""
+    """The sheath kernels' grid (and the deterministic deposit's). Block b
+    sweeps rows [b rows_per_block, min(n, (b + 1) rows_per_block)), four a
+    thread at a time; ``smem`` bytes of dynamic shared memory a block hold
+    the field (not the deposit's) and a column of ng floats a thread."""
 
     blocks: int
     threads: int
@@ -72,23 +72,28 @@ class LaunchShape:
     smem: int
 
 
-def launch_shape(n: int, ng: int, sms: int) -> LaunchShape:
+def launch_shape(n: int, ng: int, sms: int, field: bool = True) -> LaunchShape:
     """The grid of a sheath pass over n rows and ng nodes on a card of
-    ``sms`` SMs. Threads a block: a power of two in [32, 1024], the most
-    that let two blocks (the field and a column of ng floats a thread
-    each) share an SM, else the most one block holds; no more blocks than
-    n fills, so every block gets rows. Raises above MAX_NG."""
+    ``sms`` SMs (with ``field`` False, of the deterministic deposit, whose
+    blocks hold no field). Threads a block: a power of two in [32, 1024],
+    the most that let two blocks (the field and a column of ng floats a
+    thread each) share an SM, else the most one block holds; no more
+    blocks than n fills, so every block gets rows. Raises above MAX_NG
+    (without the field, above 1,816)."""
+    extra = int(field)
+    top = SMEM_LIMIT // (4 * (MIN_THREADS + extra))
     if n < 1 or ng < 2 or sms < 1:
         raise ValueError(f"launch_shape needs n >= 1, ng >= 2, sms >= 1; got "
                          f"{n}, {ng}, {sms}")
-    if ng > MAX_NG:
+    if ng > top:
         raise ValueError(
-            f"sheath pass: ng={ng} leaves no room for {MIN_THREADS} thread "
-            f"histograms in {SMEM_LIMIT} B of shared memory (ng <= {MAX_NG}); "
-            "the large-ng variant is ROADMAP item 10")
+            f"{'sheath pass' if field else 'deposit_det'}: ng={ng} leaves no "
+            f"room for {MIN_THREADS} thread histograms in {SMEM_LIMIT} B of "
+            f"shared memory (ng <= {top}); the large-ng variant is ROADMAP "
+            "item 10")
 
     def per_sm(threads: int) -> int:
-        smem = (threads + 1) * ng * 4
+        smem = (threads + extra) * ng * 4
         if smem > SMEM_LIMIT:
             return 0
         return min(MAX_BLOCKS_PER_SM, SM_THREADS // threads,
@@ -101,7 +106,7 @@ def launch_shape(n: int, ng: int, sms: int) -> LaunchShape:
     blocks = max(1, min(per_sm(threads) * sms, -(-groups // threads)))
     per_block = -(-groups // blocks)
     blocks = -(-groups // per_block)
-    return LaunchShape(blocks, threads, 4 * per_block, (threads + 1) * ng * 4)
+    return LaunchShape(blocks, threads, 4 * per_block, (threads + extra) * ng * 4)
 
 
 def sheath_scalars(dt: float, dx: float):

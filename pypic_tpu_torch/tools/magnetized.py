@@ -166,6 +166,24 @@ def check_row(cfg, fin, m) -> list:
 CHECKS = {"iead": check_row, "dn": check_dn_row, "gc": check_gc_row}
 
 
+def last_iead_traffic(cfg, st):
+    """The IEAD histogram's traffic of the last step that ``st`` ended, at
+    the configs[3] row's re-activation (every slot inactive at a step's
+    start re-activates that step, so the slots inactive at its end are its
+    wall hits, holding their impact velocities): (flat bins as float32
+    positions, weights), what ``ops.cic.histogram_add`` deposits, and the
+    hit mask."""
+    if not (cfg.reactivate == "source" and cfg.react_timing == "reference"
+            and cfg.react_batch == 0):
+        raise ValueError("last_iead_traffic needs the configs[3] row's "
+                         "re-activation (source, reference timing, no batch)")
+    hit = (st.active == 0) & (st.at_wall == 1)
+    flat, weight = magnetized.iead_traffic(
+        st.species_idx, st.m, st.vx, st.vy, st.vz, hit, bins=cfg.iead_bins,
+        energy_max=cfg.iead_energy_max, angle_max=cfg.iead_angle_max)
+    return flat.to(torch.float32), weight, hit
+
+
 def run_row(device=None, steps: int = STEPS,
             n_per_species: int = N_PER_SPECIES, warmup: int = 3,
             row: str = "iead", n: int | None = None, **overrides):

@@ -53,6 +53,14 @@ with other column counts or the other width of
 splits the first port (1,056 blocks of 256 threads, one histogram a
 block flushed by global atomics; ``DEPOSIT_FIRST_PORT_CUTS``), for
 example from ``git show d10fc7e:pypic_tpu_torch/csrc/magnetized.cu``.
+
+``--kernel deposit``, ``--kernel deposit_det`` and ``--kernel
+source_batch`` split row 4 (``csrc/cic.cu``, with ``cic_common.cuh``
+inlined so that a cut reaches the shared flush) at ``SINGLE_SHAPES`` and
+``DET_SHAPES``, and row 20 (``csrc/rng.cu``) at ``SOURCE_NS``, with its
+SASS loop count a row and that count's issue time. With
+``--first-port`` (the parent's ``cic.cu``, its ``cic_common.cuh`` taken
+from beside it, or ``rng.cu``) the first port's cuts stand beside them.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ import torch
 
 from ..constants import EPSILON_0
 from ..engines import explicit, implicit
-from ..ops import _build, cuda_cic
+from ..ops import _build, cic, cuda_cic, cuda_rng
 from . import landau, two_stream
 
 OUT_DIR = _build.BUILD_DIR / "resident_split"
@@ -521,15 +529,19 @@ DEPOSIT_CUTS = {
     "(g) 16 columns": 0,
     "(h) the other width": 0,        # narrow at configs[3], wide at the small shapes
 }
+# where _inlined puts cic_common.cuh's text in a source
+_INLINED = "// cic_common.cuh, inlined\n"
+# cut (b) of the wide deposits' flush (cic_common.cuh flush_columns, inlined
+# by _inlined): the node totals stored under a predicate never true
+_FLUSH_CUT = (
+    "    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);\n"
+    "    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);",
+    "#if CUT == 1\n    if (a == 1.2345e30f) out_a[k] = b;\n#else\n"
+    "    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);\n"
+    "    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);\n#endif", 1)
 _DEPOSIT_EDITS = [
-    ("#include \"cic_common.cuh\"",
-     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif", 1),
-    ("      atomicAdd(out_a + k, h_a[k]);\n      atomicAdd(out_b + k, h_b[k]);",
-     "#if CUT == 1\n      if (h_a[k] == 1.2345e30f) out_a[k] = h_b[k];\n#else\n"
-     "      atomicAdd(out_a + k, h_a[k]);\n      atomicAdd(out_b + k, h_b[k]);\n#endif", 1),
-    ("    atomicAdd(out_a + k, a);\n    atomicAdd(out_b + k, b);",
-     "#if CUT == 1\n    if (a == 1.2345e30f) out_a[k] = b;\n#else\n"
-     "    atomicAdd(out_a + k, a);\n    atomicAdd(out_b + k, b);\n#endif", 1),
+    (_INLINED, _INLINED + "#ifndef CUT\n#define CUT 0\n#endif\n", 1),
+    _FLUSH_CUT,
     ("  zero_shared(h_a, 2 * ng * cols);", "  if (CUT != 4) zero_shared(h_a, 2 * ng * cols);", 1),
     ("  zero_shared(h_r, 2 * ng * cols);", "  if (CUT != 4) zero_shared(h_r, 2 * ng * cols);", 1),
     ("  if (ROWS == 1) {  // narrow", "  float sink = 0.0f;\n  if (ROWS == 1) {  // narrow", 2),
@@ -558,9 +570,10 @@ _DEPOSIT_EDITS = [
      "        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));\n"
      "        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));\n"
      "        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));\n#endif\n", 1),
-    ("  flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);",
+    ("  flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);",
      "  if (sink == 1.2345e30f) out_a[0] = sink;\n"
-     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS>(h_a, h_b, ng, cols, out_a, out_b);", 1),
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);",
+     1),
     # row 9: no deposit arithmetic in (e), its weights still read
     ("  idx[0] = idx[1] = idx[2] = idx[3] = -1;\n",
      "  idx[0] = idx[1] = idx[2] = idx[3] = -1;\n"
@@ -569,10 +582,9 @@ _DEPOSIT_EDITS = [
      "#if CUT >= 3\n"
      "        if (idx[k] >= 0) sink = __fadd_rn(sink, __fmul_rn(val[k], (float)idx[k]));\n"
      "#else\n        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);\n#endif", 2),
-    ("  flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols, rho, dens);",
+    ("  flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);",
      "  if (sink == 1.2345e30f) rho[0] = sink;\n"
-     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS>(h_r, h_r + (size_t)ng * cols, ng, cols,"
-     " rho, dens);", 1),
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);", 1),
 ]
 
 
@@ -619,6 +631,20 @@ _DEPOSIT_FIRST_PORT_ARGS = {
 }
 
 
+def _inlined(path: Path) -> str:
+    """The source at ``path`` with its ``#include "cic_common.cuh"`` replaced
+    by that header's text (the header beside it, else the package's), so
+    that a cut can edit the header's helpers as well."""
+    header = path.parent / "cic_common.cuh"
+    if not header.exists():
+        header = _build.CSRC_DIR / "cic_common.cuh"
+    text = path.read_text()
+    if text.count('#include "cic_common.cuh"') != 1:
+        raise RuntimeError(f"{path} does not include cic_common.cuh once")
+    return text.replace('#include "cic_common.cuh"',
+                        _INLINED + header.read_text().replace("#pragma once\n", ""))
+
+
 def _edited(text: str, edits) -> str:
     """Each edit is (old, new) or (old, new, times): ``old`` must stand in
     the source exactly ``times`` times (once by default)."""
@@ -633,7 +659,9 @@ def _edited(text: str, edits) -> str:
 
 def _build_all(jobs) -> tuple[dict, dict]:
     """jobs: {tag: (source text, extra nvcc flags)} -> ({tag: loaded CDLL},
-    {tag: the compiler's log}), one nvcc each, all at once."""
+    {tag: the compiler's log}), one nvcc each, all at once. The flags come
+    before the package's include directory (a first port's ``-I`` of its
+    own header wins)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (text, flags) in jobs.items():
@@ -641,8 +669,8 @@ def _build_all(jobs) -> tuple[dict, dict]:
         src = OUT_DIR / f"{stem}.cu"
         src.write_text(text)
         lib = OUT_DIR / f"lib{stem}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR),
-               *flags, "-o", str(lib), str(src)]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *flags, "-I",
+               str(_build.CSRC_DIR), "-o", str(lib), str(src)]
         procs[tag] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     libs, logs = {}, {}
@@ -1012,13 +1040,14 @@ def _split_deposit(args, dev) -> tuple[dict, dict, dict]:
     """The magnetized deposits' cuts (deposit2, or the carried Boris deposit
     of row 9) at the configs[3] and D-N shapes; with --first-port, the
     first port's cuts beside them."""
-    versions = {"current": (_build.CSRC_DIR / "magnetized.cu", _DEPOSIT_EDITS, DEPOSIT_CUTS)}
+    versions = {"current": (_inlined(_build.CSRC_DIR / "magnetized.cu"), _DEPOSIT_EDITS,
+                            DEPOSIT_CUTS)}
     if args.first_port:
-        versions["first port"] = (args.first_port, _DEPOSIT_FIRST_PORT_EDITS,
+        versions["first port"] = (args.first_port.read_text(), _DEPOSIT_FIRST_PORT_EDITS,
                                   DEPOSIT_FIRST_PORT_CUTS)
     jobs, cuts = {}, {}
-    for version, (path, edits, table) in versions.items():
-        text = _edited(path.read_text(), edits)
+    for version, (source, edits, table) in versions.items():
+        text = _edited(source, edits)
         for tag, cut in table.items():
             name = f"{version} {tag}"
             cuts[name] = (version, tag)
@@ -1066,14 +1095,471 @@ def _split_deposit(args, dev) -> tuple[dict, dict, dict]:
     return res, calls, {"per": "launch", "count": 1, "timer": _queued}
 
 
+# ---------------------------------------------------------------------------
+# row 4 (csrc/cic.cu deposit_kernel, deposit_det_kernel) and row 20
+# (csrc/rng.cu source_batch_kernel)
+# ---------------------------------------------------------------------------
+
+_CUT_DEFINE = "#ifndef CUT\n#define CUT 0\n#endif\n"
+# row 4's shapes: the explicit carrier's rho a step (n = 1e8 onto ext_n =
+# 227 nodes, bounded, 5% dead slots of weight 0), the headline's set-up
+# deposit (n = 1e8, ng = 200, periodic), the configs[3] row's IEAD
+# histogram (its real traffic, iead_load) and the first port's synthetic
+# IEAD shape (n = 999,996, ng = 600, dense values)
+N_HEADLINE = 6104 * 16384
+SINGLE_SHAPES = {"carrier": (N_HEADLINE, 227), "headline set-up": (N_HEADLINE, 200),
+                 "IEAD": (999_996, 3200), "synthetic 999,996 / 600": (999_996, 600)}
+# deposit_det's: the sheath's composed current (n = 1e6, ng = 51) and its
+# exit histograms (2 x 64 bins, integer positions, weight 1 on 1% of rows)
+DET_SHAPES = {"current": (1_000_000, 51), "exit histograms": (1_000_000, 128)}
+# row 20's: the configs[3] row's capacity and a ragged n
+SOURCE_NS = {"999,996": 999_996, "ragged 1,000,003": 1_000_003}
+
+# the current deposit (row 4): CUT selects the stage taken out; "(f)" to
+# "(i)" launch the full kernel at another grid
+SINGLE_CUTS = {
+    "(a) full": 0,
+    "(b) no global flush": 1,  # the node totals stored under a predicate never true
+    "(d) no shared adds": 3,   # each thread sums its products in a register
+    "(e) sweep only": 4,       # the loads and the CIC arithmetic; no zeroing, adds or flush
+    "(j) every add, zeros too": 5,  # the first port's adds on the new grid
+    "(k) a warp's zeros skipped": 6,  # a warp adds unless all its lanes' products are 0
+    "(f) 1 column": 0,
+    "(g) 4 columns": 0,
+    "(h) 16 columns": 0,
+    "(i) the other width": 0,
+}
+DET_CUTS = {"(a) full": 0, "(b) no flush": 1,
+            "(c) no last-block sum": 2,  # the columns summed, the partials not
+            "(e) sweep only": 4}
+# row 20: "(b)" launches the uniforms variant of the full kernel
+SOURCE_CUTS = {"(a) full": 0, "(b) uniforms only": 0,
+               "(c) no transcendentals": 2,  # the uniforms in the place of log, sqrt, sin, cos
+               "(d) no stores": 3,           # stored under a predicate never true
+               "(e) libdevice sqrtf": 4,     # the radius by sqrtf, not x rsqrt(x)
+               "(f) 128 threads a block": 0,
+               "(g) 256 threads a block": 0,
+               "(h) round keys in registers": 5,  # made per thread, not read from the bank
+               "(i) libdevice logf": 6}      # logf in the place of log_unit
+_SINGLE_EDITS = [
+    (_INLINED, _INLINED + _CUT_DEFINE, 1),
+    _FLUSH_CUT,
+    ("  zero_shared(h, ng * cols);",
+     "  if (CUT != 4) zero_shared(h, ng * cols);\n  float sink = 0.0f;", 1),
+    ("        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));\n"
+     "        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));\n",
+     "#if CUT == 3 || CUT == 4\n"
+     "        sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
+     " c.wr), (float)(c.l * cols + col))));\n#else\n"
+     "        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));\n"
+     "        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));\n#endif\n", 1),
+    ("  if (v != 0.0f) atomicAdd(h + at, v);",
+     "#if CUT == 6\n  if (__any_sync(__activemask(), v != 0.0f)) atomicAdd(h + at, v);\n#else\n"
+     "  if (CUT == 5 || v != 0.0f) atomicAdd(h + at, v);\n#endif", 1),
+    ("  flush_columns<ROWS, 1, true>(h, ng, cols, out, nullptr);",
+     "  if (sink == 1.2345e30f) out[0] = sink;\n"
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 1, CUT != 5>(h, ng, cols, out, nullptr);",
+     1),
+    # deposit_det_kernel
+    ("  zero_shared(s_hist, T * ng);", "  if (CUT != 4) zero_shared(s_hist, T * ng);", 1),
+    ("  float* mine = s_hist + threadIdx.x;", "  float* mine = s_hist + threadIdx.x;\n  float sink = 0.0f;", 1),
+    ("      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
+     "      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n",
+     "#if CUT == 4\n"
+     "      sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
+     " c.wr), (float)c.l)));\n#else\n"
+     "      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
+     "      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n#endif\n", 1),
+    ("  det_flush(s_hist, ng, partial, counter, out);",
+     "  if (sink == 1.2345e30f) out[0] = sink;\n"
+     "  if (CUT != 1 && CUT != 4) det_flush(s_hist, ng, partial, counter, out);\n"
+     "  else if (mine[0] == 1.2345e30f) out[0] = mine[0];", 1),
+    # (c): the last block zeroes the counter and leaves
+    ("  if (threadIdx.x == 0) *counter = 0u;\n  __threadfence();\n  // a warp takes kNodes",
+     "  if (threadIdx.x == 0) *counter = 0u;\n  __threadfence();\n  if (CUT == 2) return;\n"
+     "  // a warp takes kNodes", 1),
+]
+# the first port of csrc/cic.cu (the parent of the redesign): the same cut
+# numbers on its deposit_kernel and deposit_det_kernel
+_SINGLE_FIRST_PORT_EDITS = [
+    ("#include \"cic_common.cuh\"", "#include \"cic_common.cuh\"\n" + _CUT_DEFINE, 1),
+    ("  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_hist[i] = 0.0f;\n",
+     "  float sink = 0.0f;\n"
+     "  if (CUT != 4) for (int i = threadIdx.x; i < ng; i += blockDim.x) s_hist[i] = 0.0f;\n", 1),
+    ("    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);\n"
+     "    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));\n"
+     "    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));\n",
+     "    const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);\n"
+     "#if CUT == 3 || CUT == 4\n"
+     "    sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
+     " c.wr), (float)c.l)));\n#else\n"
+     "    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));\n"
+     "    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));\n#endif\n", 1),
+    ("  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&out[i], s_hist[i]);",
+     "  if (sink == 1.2345e30f) out[0] = sink;\n"
+     "  for (int i = threadIdx.x; i < ng; i += blockDim.x) {\n#if CUT == 1\n"
+     "    if (s_hist[i] == 1.2345e30f) out[i] = s_hist[i];\n#else\n"
+     "    if (CUT != 4) atomicAdd(&out[i], s_hist[i]);\n#endif\n  }", 1),
+    ("  for (int i = threadIdx.x; i < T * ng; i += T) s_hist[i] = 0.0f;",
+     "  if (CUT != 4) for (int i = threadIdx.x; i < T * ng; i += T) s_hist[i] = 0.0f;", 1),
+    ("  float* mine = s_hist + threadIdx.x;", "  float* mine = s_hist + threadIdx.x;\n  float sink = 0.0f;", 1),
+    ("    mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
+     "    mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n",
+     "#if CUT == 4\n"
+     "    sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
+     " c.wr), (float)c.l)));\n#else\n"
+     "    mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
+     "    mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n#endif\n", 1),
+    ("  det_flush(s_hist, ng, partial, counter, out);",
+     "  if (sink == 1.2345e30f) out[0] = sink;\n"
+     "  if (CUT == 0) det_flush(s_hist, ng, partial, counter, out);\n"
+     "  else if (mine[0] == 1.2345e30f) out[0] = mine[0];", 1),
+]
+_SOURCE_EDITS = [
+    (_INLINED, _INLINED + _CUT_DEFINE, 1),
+    ("  const float r0 = sqrt_pos(__fmul_rn(-2.0f, log_unit(u0)));\n"
+     "  const float r1 = sqrt_pos(__fmul_rn(-2.0f, log_unit(u2)));\n"
+     "  float s0, cs0, s1, cs1;\n"
+     "  sincos_2pi(__fmul_rn(two_pi, u1), s0, cs0);\n"
+     "  sincos_2pi(__fmul_rn(two_pi, u3), s1, cs1);\n",
+     "#if CUT == 2\n"
+     "  const float r0 = u0, r1 = u2, s0 = u1, s1 = u3;\n"
+     "  const float cs0 = __fmul_rn(two_pi, u1), cs1 = __fmul_rn(two_pi, u3);\n#else\n"
+     "  const float r0 = sqrt_pos(__fmul_rn(-2.0f, log_unit(u0)));\n"
+     "  const float r1 = sqrt_pos(__fmul_rn(-2.0f, log_unit(u2)));\n"
+     "  float s0, cs0, s1, cs1;\n"
+     "  sincos_2pi(__fmul_rn(two_pi, u1), s0, cs0);\n"
+     "  sincos_2pi(__fmul_rn(two_pi, u3), s1, cs1);\n#endif\n", 1),
+    ("  const int i = __float_as_int(u);\n  const int e = (i - 0x3f3504f3) >> 23;",
+     "#if CUT == 6\n  return logf(u);\n#endif\n"
+     "  const int i = __float_as_int(u);\n  const int e = (i - 0x3f3504f3) >> 23;", 1),
+    ("__device__ __forceinline__ float sqrt_pos(float x) {\n  return __fmul_rn(x, rsqrtf(x));",
+     "__device__ __forceinline__ float sqrt_pos(float x) {\n#if CUT == 4\n  return sqrtf(x);\n"
+     "#endif\n  return __fmul_rn(x, rsqrtf(x));", 1),
+    ("  for (int r = 0; r < 10; ++r) philox_round(c0, c1, c2, c3, keys.k0[r], keys.k1[r]);",
+     "#if CUT == 5\n  uint32_t k0 = keys.k0[0] + (uint32_t)(threadIdx.x >> 10),"
+     " k1 = keys.k1[0];\n  philox4x32_10(c0, c1, c2, c3, k0, k1);\n#else\n"
+     "  for (int r = 0; r < 10; ++r) philox_round(c0, c1, c2, c3, keys.k0[r], keys.k1[r]);\n"
+     "#endif", 1),
+    ("      const long long at = i + r * S;\n      x_out[at] = o.x;\n",
+     "      const long long at = i + r * S;\n#if CUT == 3\n"
+     "      if (o.x + o.y + o.z + o.w == 1.2345e30f) x_out[at] = o.x;\n      continue;\n"
+     "#endif\n      x_out[at] = o.x;\n", 1),
+    ("                                          inv_wrap, vth, vx0, two_pi);\n    x_out[i] = o.x;\n",
+     "                                          inv_wrap, vth, vx0, two_pi);\n#if CUT == 3\n"
+     "    if (o.x + o.y + o.z + o.w == 1.2345e30f) x_out[i] = o.x;\n    continue;\n#endif\n"
+     "    x_out[i] = o.x;\n", 1),
+]
+_SOURCE_FIRST_PORT_EDITS = [
+    ("#include <cuda_runtime.h>\n", "#include <cuda_runtime.h>\n" + _CUT_DEFINE, 1),
+    ("    const float r0 = sqrtf(__fmul_rn(-2.0f, logf(u0)));\n"
+     "    const float t0 = __fmul_rn(two_pi, u1);\n"
+     "    const float r1 = sqrtf(__fmul_rn(-2.0f, logf(u2)));\n"
+     "    const float t1 = __fmul_rn(two_pi, u3);\n"
+     "    const float z0 = __fmul_rn(r0, cosf(t0));\n"
+     "    const float z1 = __fmul_rn(r0, sinf(t0));\n"
+     "    const float z2 = __fmul_rn(r1, cosf(t1));\n"
+     "    const float z3 = __fmul_rn(r1, sinf(t1));\n",
+     "#if CUT == 2\n"
+     "    const float z0 = u0, z1 = u1, z2 = u2, z3 = __fmul_rn(two_pi, u3);\n#else\n"
+     "    const float r0 = sqrtf(__fmul_rn(-2.0f, logf(u0)));\n"
+     "    const float t0 = __fmul_rn(two_pi, u1);\n"
+     "    const float r1 = sqrtf(__fmul_rn(-2.0f, logf(u2)));\n"
+     "    const float t1 = __fmul_rn(two_pi, u3);\n"
+     "    const float z0 = __fmul_rn(r0, cosf(t0));\n"
+     "    const float z1 = __fmul_rn(r0, sinf(t0));\n"
+     "    const float z2 = __fmul_rn(r1, cosf(t1));\n"
+     "    const float z3 = __fmul_rn(r1, sinf(t1));\n#endif\n", 1),
+    ("    x_out[i] = x;\n",
+     "#if CUT == 3\n"
+     "    if (x + __fmul_rn(z1, vth) + __fmul_rn(z2, vth) + __fmul_rn(z3, vth) == 1.2345e30f)\n"
+     "      x_out[i] = x;\n    continue;\n#endif\n    x_out[i] = x;\n", 1),
+]
+_FIRST_PORT_SIGNATURES = {
+    "pypic_deposit": [_P] * 3 + [_L, _I, _I, _I, _I, _P],
+    "pypic_deposit_det": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
+}
+
+
+def _sass_loop(lib_path: Path, word: str) -> dict:
+    """The static SASS instructions of the main loop of the kernel whose
+    (mangled) name holds ``word``: the instructions between the target and
+    the source of its widest backward branch (cuobjdump -sass), and of the
+    whole function. Out-of-line slow paths (called subroutines past the
+    loop) are outside the loop's count."""
+    import re
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    insn, inside, name = [], False, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = word in line
+            name = line.split("Function :")[1].strip() if inside else name
+            if inside:
+                insn = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            insn.append((int(m.group(1), 16), m.group(2).strip()))
+        if inside and "....." in line and insn:
+            break
+    loops = []
+    for addr, text in insn:
+        b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if b and int(b.group(1), 16) < addr:
+            loops.append((int(b.group(1), 16), addr))
+    real = [(a, t) for a, t in insn if not t.startswith("NOP")]
+    if not loops:
+        return {"function": name, "instructions": len(real), "loop": None}
+    lo, hi = max(loops, key=lambda x: x[1] - x[0])
+    body = [t for a, t in real if lo <= a <= hi]
+    return {"function": name, "instructions": len(real), "loop": len(body),
+            "loop_range": [hex(lo), hex(hi)]}
+
+
+def sass_issue_ms(instructions_per_row: float, n: int, sms: int, clock_mhz: float) -> float:
+    """The time a kernel takes to issue its own ``instructions_per_row``
+    instructions a row over n rows when the card issues one warp
+    instruction a clock on each of its four schedulers an SM: n
+    instructions_per_row / (sms x 4 x 32 x clock). It is the kernel's own
+    count, not a bound on the function: a kernel that issues more gets
+    more, and static counts include branches a run never takes."""
+    return instructions_per_row * n / (sms * 4 * 32 * clock_mhz * 1e6) * 1e3
+
+
+def iead_load(dev) -> tuple:
+    """The configs[3] row's IEAD traffic after its 1,200 steps
+    (tools/magnetized.py run_row and last_iead_traffic): (float32 bin
+    positions, 0/1 weights, the number of bins, the row's last-step
+    hits)."""
+    from . import magnetized as row
+
+    _, cfg, fin, m = row.run_row(dev)
+    pos, weight, hit = row.last_iead_traffic(cfg, fin)
+    ne, na = cfg.iead_bins
+    bins = fin.iead.shape[0] * ne * na
+    if int(hit.sum()) != int(m.n_hit_wall[-1]):
+        raise RuntimeError("the final state's inactive slots are not the last step's hits")
+    return pos, weight, bins, int(m.n_hit_wall[-1])
+
+
+def single_inputs(shape: str, n: int, ng: int, dev, iead=None) -> dict:
+    """Row 4's inputs at ``shape`` (SINGLE_SHAPES): positions and values,
+    periodic or not."""
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(41)
+    if shape == "IEAD":
+        pos, weight = iead[0], iead[1]
+        return dict(p=pos, values=weight, periodic=False)
+    if shape == "carrier":
+        # the slab's extended positions, clamp(p - (lo - hw), 0, 2 hw + c):
+        # the particles on the slab [hw, hw + c) of ext_n = c + 2 hw + 1, a
+        # twentieth dead slots of weight 0 (at the slab's left edge)
+        p = torch.rand(n, generator=gen, device=dev, dtype=f32) * 200.0 + 13.0
+        w = torch.full((n,), 1.6e-9, dtype=f32, device=dev)
+        dead = torch.rand(n, generator=gen, device=dev) < 0.05
+        w[dead] = 0.0
+        p[dead] = 13.0
+        return dict(p=p, values=w, periodic=False)
+    p = torch.rand(n, generator=gen, device=dev, dtype=f32) * (ng if shape.startswith("head") else ng - 1)
+    return dict(p=p, values=torch.randn(n, generator=gen, device=dev, dtype=f32),
+                periodic=shape.startswith("head"))
+
+
+def _split_single(args, dev) -> tuple[dict, dict, dict]:
+    """Row 4's cuts: ``deposit`` at SINGLE_SHAPES, or ``deposit_det`` at
+    DET_SHAPES; with --first-port (the parent's csrc/cic.cu, its
+    cic_common.cuh beside it), the first port's beside them."""
+    det = args.kernel == "deposit_det"
+    table = DET_CUTS if det else SINGLE_CUTS
+    jobs, cuts = {}, {}
+    versions = {"current": (_edited(_inlined(_build.CSRC_DIR / "cic.cu"), _SINGLE_EDITS), [])}
+    if args.first_port:
+        versions["first port"] = (
+            _edited(args.first_port.read_text(), _SINGLE_FIRST_PORT_EDITS),
+            ["-I", str(args.first_port.resolve().parent)])
+    for version, (text, flags) in versions.items():
+        for tag, cut in table.items():
+            if version == "first port" and tag[:3] in ("(f)", "(g)", "(h)", "(i)", "(j)"):
+                continue  # the new grid's variants
+            name = f"{version} {tag}"
+            cuts[name] = (version, tag)
+            if tag.startswith("(a)") or cut != 0:
+                jobs[name] = (text, [*flags, f"-DCUT={cut}"])
+    libs, logs = _build_all(jobs)
+    word = "deposit_det_kernel" if det else "14deposit_kernel"
+    for tag in jobs:
+        for line in _kernel_report(logs[tag], word):
+            print(f"[ptxas] {tag}: {line}", flush=True)
+        if tag.endswith("(a) full"):
+            print(f"[sass] {tag}: {_atomics(Path(libs[tag]._name), word)}", flush=True)
+    for name, (version, tag) in cuts.items():
+        libs.setdefault(name, libs.get(f"{version} (a) full"))
+    fn_name = "pypic_deposit_det" if det else "pypic_deposit"
+    for name, lib in libs.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = (_build._SIGNATURES[fn_name][0] if cuts[name][0] == "current"
+                       else _FIRST_PORT_SIGNATURES[fn_name])
+        fn.restype = _I
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = cuda_cic._sm_count(dev.index)
+    res, calls = {"launch": {}}, {}
+    if det:
+        from ..ops import cuda_sheath
+
+        gen = torch.Generator(device=dev).manual_seed(43)
+        for shape, (n, ng) in DET_SHAPES.items():
+            if shape == "current":
+                p = torch.rand(n, generator=gen, device=dev) * (ng - 1)
+                v = torch.randn(n, generator=gen, device=dev) * 1e3
+            else:
+                p = torch.randint(0, ng, (n,), generator=gen, device=dev).float()
+                v = (torch.rand(n, generator=gen, device=dev) < 0.01).float()
+            out = torch.empty(ng, dtype=torch.float32, device=dev)
+            cur = cuda_sheath.launch_shape(n, ng, sms, field=False)
+            res["launch"][shape] = dataclasses.asdict(cur)
+            # the first port's grid: a wave of 256-thread blocks (fewer
+            # threads where their columns do not fit), one per 256 rows
+            threads = 256
+            while threads * ng * 4 > cuda_cic.SMEM_LIMIT:
+                threads //= 2
+            per_sm = max(1, min(2048 // threads, cuda_cic.SMEM_LIMIT // (threads * ng * 4)))
+            fblocks = max(1, min(-(-n // threads), per_sm * sms))
+            scratch = {b: (torch.empty(b * ng, dtype=torch.float32, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+                       for b in (cur.blocks, fblocks)}
+            for name, (version, tag) in cuts.items():
+                lib = libs[name]
+                if version == "current":
+                    part, cnt = scratch[cur.blocks]
+                    grid = (cur.blocks, cur.threads, cur.rows_per_block)
+                else:
+                    part, cnt = scratch[fblocks]
+                    grid = (fblocks, threads)
+
+                def call(lib=lib, p=p, v=v, out=out, part=part, cnt=cnt, ng=ng, n=n, grid=grid):
+                    _build.check(lib.pypic_deposit_det(
+                        p.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        cnt.data_ptr(), n, ng, 0, *grid, stream), "resident_split")
+                calls[f"{shape}: {name}"] = call
+        return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+    iead = iead_load(dev)
+    res["iead"] = {"bins": iead[2], "hits": iead[3], "weight_sum": float(iead[1].sum())}
+    print(f"[split] IEAD traffic: {iead[3]} hits in the last step, {res['iead']['weight_sum']:.0f} "
+          f"in range, {iead[2]} bins", flush=True)
+    for shape, (n, ng) in SINGLE_SHAPES.items():
+        load = single_inputs(shape, n, ng, dev, iead)
+        out = torch.zeros(ng, dtype=torch.float32, device=dev)
+        # the IEAD at histogram_add's columns, the others at the deposit's
+        cur = cuda_cic.deposit_launch_shape(
+            n, ng, False, sms, hists=1,
+            max_cols=cic.HISTOGRAM_COLS if shape == "IEAD" else cuda_cic.DEPOSIT_MAX_COLS)
+        res["launch"][shape] = dataclasses.asdict(cur)
+        for name, (version, tag) in cuts.items():
+            lib = libs[name]
+            if version == "current":
+                cols = {"(f)": 1, "(g)": 4, "(h)": 16}.get(tag[:3])
+                shp = cur
+                if tag.startswith("(i)"):
+                    shp = _other_width(cur, n, ng, False, sms)
+                elif cols is not None:
+                    shp = dataclasses.replace(cur, cols=cols)
+                grid = (shp.rows, shp.blocks, shp.threads, shp.cols)
+            else:
+                grid = (cuda_cic._blocks(n, dev), cuda_cic._THREADS)
+
+            def call(lib=lib, load=load, out=out, n=n, ng=ng, grid=grid):
+                _build.check(lib.pypic_deposit(
+                    load["p"].data_ptr(), load["values"].data_ptr(), out.data_ptr(), n, ng,
+                    int(load["periodic"]), *grid, stream), "resident_split")
+            calls[f"{shape}: {name}"] = call
+    return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+
+
+def _split_source(args, dev) -> tuple[dict, dict, dict]:
+    """Row 20's cuts at SOURCE_NS, its SASS loop count and that count's
+    issue time (``sass_issue_ms``); with --first-port (the parent's
+    csrc/rng.cu), the first port's beside them."""
+    versions = {"current": (_edited(_inlined(_build.CSRC_DIR / "rng.cu"), _SOURCE_EDITS), [])}
+    if args.first_port:
+        versions["first port"] = (
+            _edited(args.first_port.read_text(), _SOURCE_FIRST_PORT_EDITS), [])
+    jobs, cuts = {}, {}
+    for version, (text, flags) in versions.items():
+        for tag, cut in SOURCE_CUTS.items():
+            if version == "first port" and tag[:3] in ("(e)", "(f)", "(g)", "(h)", "(i)"):
+                continue  # the new kernel's variants
+            name = f"{version} {tag}"
+            cuts[name] = (version, tag)
+            if tag.startswith("(a)") or cut != 0:
+                jobs[name] = (text, [*flags, f"-DCUT={cut}"])
+    libs, logs = _build_all(jobs)
+    res = {"sass": {}, "launch": {}}
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                             "--format=csv,noheader,nounits"], capture_output=True,
+                            text=True).stdout.strip().split(",")
+    res["clock_max_mhz"], res["clock_now_mhz"] = (float(c) for c in clocks[:2])
+    sms = cuda_cic._sm_count(dev.index)
+    for tag in jobs:
+        for line in _kernel_report(logs[tag], "source_batch"):
+            print(f"[ptxas] {tag}: {line}", flush=True)
+        if tag.endswith("(a) full"):
+            # the batch (not the uniforms); the current kernel's widest loop
+            # holds four rows, the first port's one
+            loop = _sass_loop(Path(libs[tag]._name), "source_batch_kernelILb0E")
+            rows = cuda_rng.SOURCE_ROWS_A_PASS if tag.startswith("current") else 1
+            if loop["loop"]:
+                loop["per_row"] = loop["loop"] / rows
+                loop["sass_issue_ms"] = {
+                    label: sass_issue_ms(loop["per_row"], n, sms, res["clock_max_mhz"])
+                    for label, n in SOURCE_NS.items()}
+            res["sass"][tag] = loop
+            print(f"[sass] {tag}: {json.dumps(loop)}", flush=True)
+    for name, (version, tag) in cuts.items():
+        libs.setdefault(name, libs.get(f"{version} (a) full"))
+    for name, lib in libs.items():
+        lib.pypic_source_batch.argtypes = _build._SIGNATURES["pypic_source_batch"][0]
+        lib.pypic_source_batch.restype = _I
+        if cuts[name][0] == "current":
+            lib.pypic_source_blocks_per_sm.argtypes = [_I, _I]
+            lib.pypic_source_blocks_per_sm.restype = _I
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = np.float32
+    scalars = [float(f32(x)) for x in (1.5e-3, 2.5e-4, 3e-3, 1.0 / 3e-3, 2.2e4, 0.0,
+                                       6.283185307179586)]
+    calls = {}
+    for label, n in SOURCE_NS.items():
+        padded = cuda_cic.padded_rows(4, n, dev)
+        flat = torch.empty((4, n), dtype=torch.float32, device=dev)
+        for name, (version, tag) in cuts.items():
+            uni = int(tag.startswith("(b)"))
+            if version == "current":  # one wave, as cuda_rng.source_grid
+                threads = {"(f)": 128, "(g)": 256}.get(tag[:3], cuda_rng.SOURCE_THREADS)
+                per_sm = max(1, libs[name].pypic_source_blocks_per_sm(threads, uni))
+                outs, tail = padded, (uni, min(per_sm * sms, -(-n // threads)), threads)
+            else:
+                outs, tail = tuple(flat), (uni, cuda_cic._blocks(n, dev), cuda_cic._THREADS)
+
+            def call(lib=libs[name], outs=outs, n=n, tail=tail):
+                _build.check(lib.pypic_source_batch(
+                    *(o.data_ptr() for o in outs), n, 0, 1, 7, *scalars, *tail, stream),
+                    "resident_split")
+            calls[f"{label}: {name}"] = call
+    return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+
+
 def main() -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn",
-                                         "deposit2", "boris_deposit"),
+                                         "deposit2", "boris_deposit", "deposit",
+                                         "deposit_det", "source_batch"),
                     default="implicit")
     ap.add_argument("--first-port", type=Path,
-                    help="the kernel's first port (its csrc/implicit.cu, newton.cu or "
-                         "magnetized.cu), split as well")
+                    help="the kernel's first port (its csrc/implicit.cu, newton.cu, "
+                         "magnetized.cu, cic.cu with its cic_common.cuh beside it, or "
+                         "rng.cu), split as well")
     args = ap.parse_args()
     if args.first_port and args.kernel == "explicit":
         ap.error("--first-port splits the implicit and the Newton kernels only")
@@ -1085,7 +1571,9 @@ def main() -> dict:
                          text=True).stdout.strip(), flush=True)
     split = {"explicit": _split_explicit, "newton_dd": _split_newton,
              "newton_dn": _split_newton, "deposit2": _split_deposit,
-             "boris_deposit": _split_deposit}.get(args.kernel, _split_implicit)
+             "boris_deposit": _split_deposit, "deposit": _split_single,
+             "deposit_det": _split_single,
+             "source_batch": _split_source}.get(args.kernel, _split_implicit)
     res, calls, unit = split(args, dev)
     res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
     for _ in range(2):

@@ -29,6 +29,19 @@ state on the card, on the CPU in float32 (the plain versions: the same
 Philox draws, other summation orders) and on the CPU in float64: the
 residual after each Picard pass and the float32 (float64) floor threshold
 beside it, and the pass each side stops at. It prints one JSON line.
+
+    python -m pypic_tpu_torch.tools.sheath --composed-exits DIR [--save]
+
+prices the composed backend's Picard exits on fixed states: with
+``--save`` it runs the row's first COMPOSED_STEPS steps with
+backend='composed' from its initial state and writes each step's starting
+state into DIR; then it replays each state in DIR one step on the card
+(maxiter 1, 2, ... as ``--replay`` does): the residual after each pass
+beside the floor threshold, the pass it stops at and by which test (tol,
+floor or maxiter), and ``deposit_det`` of the state's starting current
+against a float64 deposit. Run by two trees of the port on one DIR (one
+with ``--save``), it compares their deposits' loops on the same states.
+It prints one JSON line.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ STEPS = 1200
 DENSITY, DT, DX = 1e19, 1e-12, 1e-5
 TE = TI = 10.0 * 11600.0
 SYNC_STEPS = 20
+COMPOSED_STEPS = 20
 
 
 def config(n: int = N) -> sheath.SheathConfig:
@@ -228,13 +242,67 @@ def replay(step_index: int, device=None, n: int = N) -> dict:
     return out
 
 
+def composed_exits(states_dir, device=None, save: bool = False,
+                   steps: int = COMPOSED_STEPS, n: int = N) -> dict:
+    """The composed backend's Picard exits on the row's states in
+    ``states_dir`` (module docstring); with ``save`` the states of the
+    row's first ``steps`` composed steps are written there first, and each
+    step's passes in that run stand beside its replay's."""
+    dev = devices.resolve(device)
+    cfg = dataclasses.replace(config(n), backend="composed")
+    states_dir = pathlib.Path(states_dir)
+    run_passes = {}
+    if save:
+        states_dir.mkdir(parents=True, exist_ok=True)
+        _, st = state(dev, n, cfg)
+        step = sheath.make_step(cfg)
+        for i in range(steps):
+            name = f"state_{i:04d}.npz"
+            np.savez(states_dir / name, **interop.sheath_state_to_numpy(st))
+            st, m = step(st)
+            run_passes[name] = int(m.picard_iters)
+    rows = []
+    for path in sorted(states_dir.glob("state_*.npz")):
+        with np.load(path) as z:
+            d = {k: z[k] for k in z.files}
+        side = _replay_side(cfg, d, dev, torch.float32)
+        stop = side["passes"]
+        r = side["residual"][stop - 1] if side["residual"] else None
+        how = ("maxiter" if side["at_maxiter"] else "tol" if r is not None and r <= cfg.tol
+               else "floor")
+        st = interop.sheath_state_from_numpy(d, dev)
+        act = st.active == sheath.ACTIVE
+        vals = torch.where(act, st.q * (cfg.p2c / cfg.grid.dx) * st.u, 0.0)
+        got = cuda_cic.deposit_det(st.p, vals, cfg.grid.ng, periodic=False)
+        ref = cuda_cic.deposit_plain(st.p.double(), vals.double(), cfg.grid.ng,
+                                     periodic=False)
+        err = float((got.double() - ref).abs().max() / ref.abs().max())
+        rows.append(dict(state=path.name, passes=stop, run_passes=run_passes.get(path.name),
+                         exit=how, residual=r,
+                         floor=side["floor"][stop - 1] if side["floor"] else None,
+                         residuals=side["residual"], floors=side["floor"],
+                         deposit_det_rel_err=err))
+    return dict(device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                n=n, tol=cfg.tol, maxiter=cfg.maxiter,
+                passes_sum=sum(r["passes"] for r in rows),
+                exits=dict(collections.Counter(r["exit"] for r in rows)), steps=rows)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--replay", type=int, default=None, metavar="STEP",
                    help="replay the row's step STEP on the card and the CPU")
+    p.add_argument("--composed-exits", default=None, metavar="DIR",
+                   help="replay the composed backend's steps on the states in DIR")
+    p.add_argument("--save", action="store_true",
+                   help="with --composed-exits: write the row's states into DIR first")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
+    if args.composed_exits is not None:
+        res = composed_exits(args.composed_exits, torch.device("cuda", 0), save=args.save)
+        print(json.dumps(res))
+        return res
     if args.replay is not None:
         res = replay(args.replay, torch.device("cuda", 0))
         print(json.dumps(res))

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from pypic_tpu_torch.engines import explicit
-from pypic_tpu_torch.ops import cuda_cic, fd, poisson
+from pypic_tpu_torch.ops import cic, cuda_cic, fd, poisson
 from pypic_tpu_torch.tools import two_stream
 
 N = 4097
@@ -102,6 +102,60 @@ def test_deposit_kernel_matches_plain(cuda_device, ng, periodic):
     got = cuda_cic.deposit(pos, v0, ng, periodic=periodic)
     ref = cuda_cic.deposit_plain(pos, v0, ng, periodic=periodic)
     _rel_close(ref, got, 2e-5)
+
+
+# row 4 on its wide grid (n >= 4 x 1,024 x SMs rows): the explicit
+# carrier's slab (ext_n = 227, bounded, a twentieth dead slots of weight
+# 0), the headline's set-up (ng = 200, periodic, a ragged n read through a
+# view one float in: 4-B loads) and the IEAD histogram (3,200 bins,
+# integer positions, weight 1 on 1% of the rows: counts, exact)
+WIDE_DEPOSIT_CASES = {"carrier": (999_996, 227), "headline": (1_000_003, 200),
+                      "IEAD": (999_996, 3200)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE_DEPOSIT_CASES))
+def test_deposit_wide_grid_matches_plain(cuda_device, case):
+    """The deposit on its wide grid within 2e-5 of a float64 deposit of
+    the same values (the IEAD's counts equal to the plain version's,
+    exactly, at the default columns and at histogram_add's one column, the
+    IEAD path's), one launch counted each; a product of 0 adds nothing, a
+    NaN still lands."""
+    n, ng = WIDE_DEPOSIT_CASES[case]
+    rng = np.random.default_rng(17)
+    periodic = case == "headline"
+    if case == "IEAD":
+        p = rng.integers(0, ng, n).astype(np.float32)
+        v = (rng.uniform(size=n) < 0.01).astype(np.float32)
+    else:
+        p = rng.uniform(13.0, 213.0, n).astype(np.float32) if case == "carrier" else \
+            rng.uniform(0, ng, n).astype(np.float32)
+        v = rng.normal(0.0, 1e3, n).astype(np.float32)
+        if case == "carrier":
+            dead = rng.uniform(size=n) < 0.05
+            v[dead] = 0.0
+            p[dead] = 13.0
+    pt, vt = (torch.from_numpy(a).to(cuda_device) for a in (p, v))
+    if case == "headline":  # a view one float in: not 16-B aligned
+        pt = torch.cat([pt.new_zeros(1), pt])[1:]
+        vt = torch.cat([vt.new_zeros(1), vt])[1:]
+    assert cuda_cic._deposit_shape(cuda_device, n, ng, False, hists=1).rows == 4
+    before = cuda_cic.LAUNCHES["deposit"]
+    got = cuda_cic.deposit(pt, vt, ng, periodic=periodic)
+    assert cuda_cic.LAUNCHES["deposit"] == before + 1
+    if case == "IEAD":
+        counts = cuda_cic.deposit_plain(pt.cpu(), vt.cpu(), ng, periodic=False)
+        assert torch.equal(got.cpu(), counts)
+        assert cuda_cic._deposit_shape(cuda_device, n, ng, False, hists=1,
+                                       max_cols=cic.HISTOGRAM_COLS).cols == 1
+        hist = cic.histogram_add(pt.long(), vt, ng)
+        assert cuda_cic.LAUNCHES["deposit"] == before + 2
+        assert torch.equal(hist.cpu(), counts)
+    _rel_close(cuda_cic.deposit_plain(pt.double(), vt.double(), ng, periodic=periodic),
+               got, 2e-5)
+    vt = vt.clone()
+    vt[5] = float("nan")
+    assert torch.isnan(cuda_cic.deposit(pt, vt, ng, periodic=periodic)).any()
 
 
 @pytest.mark.cuda
@@ -541,7 +595,7 @@ def test_boltzmann_dirichlet_kernel_matches_plain(cuda_device, ng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", N_MAG)
+@pytest.mark.parametrize("n", N_MAG + (1_000_003,))
 def test_source_batch_kernel_matches_plain(cuda_device, n):
     """The Philox uniforms bit-equal to philox4x32_plain's; the batch
     within 1e-6 (x: of the wrap length, velocities: of the largest) of the
@@ -557,6 +611,8 @@ def test_source_batch_kernel_matches_plain(cuda_device, n):
     got = cuda_rng.source_batch(key, step, n, device=cuda_device, **kw)
     assert cuda_cic.LAUNCHES["source_batch"] == before + 1
     ref = cuda_rng.source_batch(key, step, n, device="cpu", **kw)
+    # every output a contiguous row starting 16-B aligned (padded rows)
+    assert all(g.is_contiguous() and g.data_ptr() % 16 == 0 for g in got)
     d = (got[0].cpu().double() - ref[0].double()).abs()
     assert float(torch.minimum(d, 3e-3 - d).max()) <= 1e-6 * 3e-3
     for r, g in zip(ref[1:], got[1:]):
@@ -884,6 +940,17 @@ def test_deterministic_deposit_matches_plain(cuda_device, periodic):
     _rel_close(cuda_cic.deposit_plain(p.double(), vals.double(), ng,
                                       periodic=periodic), a, 2e-5)
     _rel_close(cuda_cic.deposit(p, vals, ng, periodic=periodic), a, 5e-5)
+    # a view one float in (4-B loads) sums the same rows in the same order
+    pv = torch.cat([p.new_zeros(1), p])[1:]
+    vv = torch.cat([vals.new_zeros(1), vals])[1:]
+    assert torch.equal(cuda_cic.deposit_det(pv, vv, ng, periodic=periodic), a)
+    # the exit histograms' shape: 2 x 64 bins, integer positions, 1% hits
+    idx = torch.from_numpy(rng.integers(0, 128, n).astype(np.float32)).to(cuda_device)
+    hits = torch.from_numpy((rng.uniform(size=n) < 0.01).astype(np.float32)).to(cuda_device)
+    h = cuda_cic.deposit_det(idx, hits, 128, periodic=False)
+    assert torch.equal(h, cuda_cic.deposit_det(idx, hits, 128, periodic=False))
+    assert torch.equal(h.cpu(), cuda_cic.deposit_plain(idx.cpu(), hits.cpu(), 128,
+                                                       periodic=False))
 
 
 # ---------------------------------------------------------------------------

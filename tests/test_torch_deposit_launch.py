@@ -85,13 +85,14 @@ def test_launch_shape_of_the_rows():
 
 def test_split_cuts_apply_to_the_kernel_source():
     """tools/resident_split.py --kernel deposit2|boris_deposit cuts stages
-    out of csrc/magnetized.cu by text edits; each anchor must be in the
-    source as often as the edit says, a changed source fails loudly, and
-    the first port's edits do not apply to the current kernels."""
+    out of csrc/magnetized.cu, cic_common.cuh's flush inlined, by text
+    edits; each anchor must be in the source as often as the edit says, a
+    changed source fails loudly, and the first port's edits do not apply
+    to the current kernels."""
     from pypic_tpu_torch.ops import _build
     from pypic_tpu_torch.tools import resident_split
 
-    src = (_build.CSRC_DIR / "magnetized.cu").read_text()
+    src = resident_split._inlined(_build.CSRC_DIR / "magnetized.cu")
     cut = resident_split._edited(src, resident_split._DEPOSIT_EDITS)
     assert "int pypic_deposit2(" in cut and "int pypic_boris_gather_push_deposit(" in cut
     assert "#define CUT 0" in cut and cut.count("float sink = 0.0f;") == 2
@@ -99,5 +100,6 @@ def test_split_cuts_apply_to_the_kernel_source():
         resident_split._edited(src.replace("zero_shared(h_r, 2 * ng * cols);", "x"),
                                resident_split._DEPOSIT_EDITS)
     with pytest.raises(RuntimeError, match="anchor"):
-        resident_split._edited(src, resident_split._DEPOSIT_FIRST_PORT_EDITS)
+        resident_split._edited((_build.CSRC_DIR / "magnetized.cu").read_text(),
+                               resident_split._DEPOSIT_FIRST_PORT_EDITS)
     assert set(resident_split.DEPOSIT_CUTS.values()) == set(range(5))
