@@ -210,6 +210,26 @@ Phases (any failure raises and the script exits non-zero):
    ragged 1,000,003 (uniforms bit-equal, beside torch.randn((4, n))), with
    its issue bound (its Philox block's integer work) and, beside it, the
    issue time of the library's own SASS loop.
+32. bca check — the pic_bca_aps path (presets.pic_bca_aps at ppc 200:
+   n = 120,000 in 180,000 slots) one step on the card and on the CPU with
+   the same source table and ionization uniforms, from the preset's state
+   and from one seeded with 256 neutral wall-born B rows (ionization and
+   the escape both fire): rho, phi, p, v at phase 14's limits, the
+   counts equal, charge states and the active mask equal off the draws
+   that straddle their probability, the impact and escape rows at
+   BCA_ROW_TOL, iead and iead_out equal up to rows on a bin edge.
+33. bca slice — tools/bca.py: 200 steps of engines.bca_driver.run_bca
+   with BinaryCollisionModel seeds 1 and 2, every engine step under sync
+   debug mode 'error', exactly the path's launches (deposit2,
+   boltzmann_dirichlet, boris_gather_push, gather, source_batch and
+   philox_uniforms once a step, deposit twice) and no other,
+   tests/test_bca.py:148-165's invariants; ms/step of the block and of
+   the engine alone, the surface model's share, BCAStats, at
+   pic_steps_per_bca 1 and 10.
+34. checkpoint — phase 33's final state through CheckpointManager (async)
+   and back into a card template, every field bit for bit; 3 steps from
+   the loaded state against 3 from the saved one at phase 14's limits
+   (the deposits' float atomics: not bit for bit on the card).
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -488,6 +508,21 @@ TOL_MAG_STEP = {"rho": (1e-4, 0.0), "phi": (1e-3, 1e-8), "p": (2e-5, 1e-5),
 MAG_CHECK_STEPS = 200
 MAG_PHI_MAX_RTOL = 0.05  # tests/test_magnetized.py:221-230
 MAG_COMPOSED_STEPS = 20
+
+# the pic_bca_aps path (tools/bca.py) at ppc 200: the first step on the
+# card and the CPU from the preset's state and from one seeded with
+# BCA_SEEDED_ROWS neutral wall-born B rows (BCA_SEEDED_ESCAPING of them in
+# the escape band); the impact and escape rows' limits (energy rtol,
+# angle atol in degrees, vx / vth rtol with atol 1e-3, lateral distance
+# rtol: the velocities' 2e-4 of phase 14 squared, atan2 in two
+# libraries); an ionization draw within BCA_STRADDLE (relative) of its
+# probability may decide either way; then BCA_STEPS steps of run_bca and
+# CKPT_RESUME_STEPS steps resumed from a checkpoint on the card
+BCA_SEEDED_ROWS, BCA_SEEDED_ESCAPING = 256, 16
+BCA_ROW_TOL = {"energy": 5e-4, "angle": 1e-3, "vx": 2e-4, "lateral": 1e-5}
+BCA_STRADDLE = 1e-5
+BCA_STEPS = 200
+CKPT_RESUME_STEPS = 3
 
 # the sheath slice: bench.py's configs[2] row (tools/sheath.py)
 N_SHEATH, N_SHEATH_RAGGED, NG_SHEATH = 1_000_000, 1_000_003, 51
@@ -4125,6 +4160,242 @@ def phase_carried_slice(dev, mag_slice: dict, dom_slice: dict) -> dict:
     return dict(magnetized=res, carrier=carrier)
 
 
+def _edge_rows(rows: torch.Tensor, cfg) -> int:
+    """Impact or escape rows (energy in column ``e``, angle in ``a``) whose
+    energy or angle lies within the rows' tolerance of an IEAD bin edge:
+    the rows a card and a CPU may bin one bin apart."""
+    ne, na = cfg.iead_bins
+    ef = rows[:, 0].double() * (ne / cfg.iead_energy_max)
+    af = rows[:, 1].double() * (na / cfg.iead_angle_max)
+    near_e = (ef - ef.round()).abs() <= BCA_ROW_TOL["energy"] * ef.abs() + 1e-12
+    near_a = (af - af.round()).abs() <= BCA_ROW_TOL["angle"] * (na / cfg.iead_angle_max)
+    return int((near_e | near_a).sum())
+
+
+def _row_gaps(ref: torch.Tensor, got: torch.Tensor, cols: dict) -> dict:
+    """The rows' largest gaps by kind against BCA_ROW_TOL (<= 1 passes; an
+    exact column that differs counts inf): ``cols`` maps a column to its
+    kind (exact, energy, angle, vx, lateral)."""
+    out = {}
+    for col, kind in cols.items():
+        r, g = ref[:, col].double(), got[:, col].double()
+        if not len(r):
+            gap = 0.0
+        elif kind == "exact":
+            gap = float("inf") if bool((r != g).any()) else 0.0
+        elif kind == "angle":
+            gap = float((r - g).abs().max()) / BCA_ROW_TOL["angle"]
+        else:
+            gap = _scaled_gap(r, g, BCA_ROW_TOL[kind], 1e-3 if kind == "vx" else 0.0)
+        out[kind] = max(out.get(kind, 0.0), gap)
+    return out
+
+
+def phase_bca_check(dev) -> dict:
+    """The pic_bca_aps path's first step at its published size (ppc 200:
+    n = 120,000 in 180,000 slots) on the card ('auto': fused, the Newton
+    kernel, the Philox source batch, the gather of the ionization density,
+    the two IEAD deposits) and on the CPU (the same path's plain
+    versions), the same Philox source table and ionization uniforms
+    (made on the CPU) on both sides: from the preset's state, and from
+    the state seeded with neutral wall-born B rows
+    (tools/bca.seeded_state), on which the ionization and the escape both
+    fire. Held: rho, phi, p, v at phase 14's limits; the counts equal;
+    active and charge_state equal outside the ionization draws that
+    straddle their probability (counted); the impact and escape rows at
+    BCA_ROW_TOL; iead and iead_out equal bin for bin up to the rows that
+    lie on a bin edge (counted)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets, sources
+    from pypic_tpu_torch.constants import E_CHARGE
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic, cuda_rng
+    from pypic_tpu_torch.ops.cic import gather
+    from pypic_tpu_torch.ops.ionization import coefficient_table, rate_matrix
+    from pypic_tpu_torch.tools import bca as bca_tool
+
+    pre = presets.pic_bca_aps(ppc=bca_tool.PPC, device="cpu")
+    cfg_gpu = pre.config
+    cfg_cpu = dataclasses.replace(cfg_gpu, backend="fused", newton_backend="pallas")
+    src, grid = cfg_cpu.source, cfg_cpu.grid
+    problems, out = [], {}
+    for label, st in (("preset", pre.state),
+                      ("seeded", bca_tool.seeded_state(pre, BCA_SEEDED_ROWS,
+                                                       BCA_SEEDED_ESCAPING))):
+        d = interop.magnetized_state_to_numpy(st)
+        sc = interop.magnetized_state_from_numpy(d, "cpu")
+        hooks = {"source_draws": lambda step, n, sc=sc: sources.sample_source_batch(
+                     sc.rng, step, n, grid, src.ti, src.mass, vx=src.vx, device="cpu"),
+                 "ion_draws": lambda step, n, sc=sc: cuda_rng.philox_uniforms(
+                     sc.rng, step, n, 1, cuda_rng.ION_TAG, device="cpu")[0]}
+        hooks_g = {k: (lambda f: (lambda s, n: _to(f(s, n), dev)))(f)
+                   for k, f in hooks.items()}
+        c = magnetized.make_step(cfg_cpu, **hooks)(sc)
+        g = magnetized.make_step(cfg_gpu, **hooks_g)(
+            interop.magnetized_state_from_numpy(d, dev))
+        (sc1, mc), (sg1, mg) = c, g
+        errs = _mag_step_errors(c, g)
+        keys = ("n_active", "n_hit_wall", "n_reactivated", "n_ionized", "n_escaped",
+                "n_impacts", "n_escape_rows", "newton_iters")
+        counts = {k: (int(getattr(mc, k)), int(getattr(mg, k))) for k in keys}
+        # the ionization draws within BCA_STRADDLE of their probability
+        dx = grid.dx
+        _, n_dens = cuda_cic.deposit2(
+            sc.p, torch.where(sc.active == 1, sc.charge_state * E_CHARGE * sc.p2c / dx, 0.0),
+            torch.where(sc.active == 1, sc.p2c / dx, 0.0), grid.ng, periodic=False)
+        table = coefficient_table(rate_matrix(cfg_cpu.species_z, cfg_cpu.te), dx,
+                                  cfg_cpu.dt, torch.float32, "cpu")
+        cs = torch.clamp(sc.charge_state.to(torch.int32), 0, 2).long()
+        prob = ((gather(n_dens, sc1.p, periodic=False) * 1e-10) ** 2
+                * table[sc.species_idx.long(), cs] / torch.clamp(sc.p2c, min=1e-30))
+        u = hooks["ion_draws"](sc.step_host, sc.p.shape[0])
+        # the rows that draw (active, below the charge gate, a tabulated
+        # rate) at a probability below 1 (at or above it they all ionize)
+        draws = ((sc.active == 1) & (sc.charge_state < cfg_cpu.max_charge_state)
+                 & (table[sc.species_idx.long(), cs] > 0) & (prob < 1.0))
+        straddle = draws & ((u.double() - prob.double()).abs()
+                            <= BCA_STRADDLE * prob.double())
+        differ = (sc1.charge_state != sg1.charge_state.cpu()) | (
+            sc1.active != sg1.active.cpu())
+        errs["charge or active off a straddling draw"] = float(int((differ & ~straddle).sum()))
+        k, e = counts["n_impacts"][0], counts["n_escape_rows"][0]
+        if counts["n_impacts"][0] == counts["n_impacts"][1]:
+            errs.update({f"impacts {kk}": v for kk, v in _row_gaps(
+                mc.impacts[:k], mg.impacts[:k].cpu(),
+                {0: "energy", 1: "angle", 2: "exact", 3: "exact", 4: "vx",
+                 5: "lateral", 6: "exact"}).items()})
+        if counts["n_escape_rows"][0] == counts["n_escape_rows"][1]:
+            errs.update({f"escapes {kk}": v for kk, v in _row_gaps(
+                mc.escapes[:e][:, [2, 3, 1, 0]], mg.escapes[:e].cpu()[:, [2, 3, 1, 0]],
+                {0: "energy", 1: "angle", 2: "exact", 3: "vx"}).items()})
+        edges = (_edge_rows(mc.impacts[:k], cfg_cpu)
+                 + _edge_rows(mc.escapes[:e][:, [2, 3]], cfg_cpu))
+        moved = sum(float((getattr(sc1, h) - getattr(sg1, h).cpu()).abs().sum())
+                    for h in ("iead", "iead_out"))
+        errs["IEAD bins moved beyond the edge rows"] = max(0.0, moved - 2 * edges)
+        log(f"[bca check] {label}: n = {pre.meta['source_n']} in {sc.p.shape[0]} slots, "
+            f"step {sc.step_host} -> {sc.step_host + 1}, GPU vs CPU (<= 1 passes; counts "
+            "0): " + ", ".join(f"{kk} {v:.3e}" for kk, v in errs.items())
+            + f"; counts (CPU, GPU) {counts}; straddling draws {int(straddle.sum())}, "
+            f"edge rows {edges}, IEAD counts moved {moved}")
+        # gaps pass at <= 1, the counts of misses at 0
+        bad = {kk: v for kk, v in errs.items()
+               if not (v == 0.0 if kk.startswith(("charge", "IEAD")) else v <= 1.0)}
+        bad.update({kk: v for kk, v in counts.items()
+                    if v[0] != v[1] and kk != "newton_iters"})
+        if label == "seeded" and not (counts["n_ionized"][0] > 0 and counts["n_escaped"][0] > 0):
+            bad["branches"] = (counts["n_ionized"], counts["n_escaped"])
+        if bad:
+            problems.append(f"{label}: {bad}")
+        out[label] = dict(counts=counts, straddling=int(straddle.sum()), edge_rows=edges)
+    if problems:
+        raise AssertionError("bca check: " + "; ".join(problems))
+    return out
+
+
+def phase_bca_slice(dev) -> dict:
+    """The pic_bca_aps path (tools/bca.py) at ppc 200 on the card: 200
+    steps of engines.bca_driver.run_bca with BinaryCollisionModel seeds 1
+    and 2, each engine step under sync debug mode 'error' (a host sync in
+    a step fails the phase), beside 200 steps of the engine alone; the
+    launches of the driver's run exactly those of the path (deposit2,
+    boltzmann_dirichlet, boris_gather_push, gather, source_batch and the
+    ionization's philox_uniforms once a step, deposit twice: the IEAD and
+    the escape IEAD) and no other; tests/test_bca.py:148-165's
+    invariants. Then the same at pic_steps_per_bca 10, for the surface
+    model's share of a block at both cadences."""
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.tools import bca as bca_tool
+
+    res = {}
+    problems = []
+    for per_bca in (1, 10):
+        r, pre, fin, stats, _ = bca_tool.run_path(dev, steps=BCA_STEPS, per_bca=per_bca)
+        want = {kk: 0 for kk in cuda_cic.LAUNCHES}
+        want.update(deposit2=BCA_STEPS, boltzmann_dirichlet=BCA_STEPS,
+                    boris_gather_push=BCA_STEPS, gather=BCA_STEPS,
+                    source_batch=BCA_STEPS, philox_uniforms=BCA_STEPS,
+                    deposit=2 * BCA_STEPS)
+        launches = dict(cuda_cic.LAUNCHES)
+        r["launches"] = launches
+        log(f"[bca slice] pic_bca_aps, n = {r['n']} in {r['capacity']} slots, "
+            f"{BCA_STEPS} steps, pic_steps_per_bca {per_bca}: block "
+            f"{r['block_ms_per_step']:.4f} ms/step, engine alone "
+            f"{r['engine_ms_per_step']:.4f} ms/step, surface model "
+            f"{r['surface_model_ms_per_step']:.4f} ms/step (share of the block "
+            f"{r['surface_model_share']:.4f}); Newton mean {r['newton_mean']:.1f} "
+            f"(max {r['newton_max']}); ionized {r['n_ionized']}, escaped "
+            f"{r['n_escaped']}, re-activated {r['n_reactivated']}; stats {r['stats']}, "
+            f"yield {r['total_yield']:.4f}")
+        log(f"[bca slice] launches {launches}")
+        problems += [f"pic_steps_per_bca {per_bca}: {x}"
+                     for x in bca_tool.check(pre, fin, stats)]
+        if launches != want:
+            problems.append(f"pic_steps_per_bca {per_bca}: launches {launches} != {want}")
+        res[per_bca] = r
+        if per_bca == 1:
+            res["final_state"] = fin
+            res["preset"] = pre
+    if problems:
+        raise AssertionError("bca slice: " + "; ".join(problems))
+    return res
+
+
+def phase_checkpoint(dev, bca_slice: dict) -> dict:
+    """A checkpoint round trip on the card: the bca slice's final state
+    saved and loaded into the preset's template gives every field back bit
+    for bit (key words and host step too); then CKPT_RESUME_STEPS engine
+    steps from the loaded state against the same steps from the saved one
+    (the same Philox draws): rho, phi, p, v at phase 14's limits each step
+    and the active masks equal. Not bit for bit on the card: the deposits
+    flush their block sums with float atomics."""
+    import tempfile
+
+    from pypic_tpu_torch import checkpoint, interop
+    from pypic_tpu_torch.engines import magnetized
+
+    fin, pre = bca_slice.pop("final_state"), bca_slice.pop("preset")
+    problems = []
+    with tempfile.TemporaryDirectory() as d:
+        mgr = checkpoint.CheckpointManager(d, every=1, keep=1, async_write=True)
+        mgr.maybe_save(fin, fin.step_host)
+        loaded, manifest = mgr.restore(pre.state)
+        mgr.close()
+    a = interop.magnetized_state_to_numpy(fin)
+    b = interop.magnetized_state_to_numpy(loaded)
+    unequal = [k for k in a if not (a[k].dtype == b[k].dtype and (a[k] == b[k]).all())]
+    if unequal or loaded.step_host != fin.step_host or loaded.rng != fin.rng:
+        problems.append(f"round trip not bit for bit: {unequal}")
+    if not all(getattr(loaded, k).is_cuda for k in ("p", "iead", "step")):
+        problems.append("loaded state not on the card")
+    step = magnetized.make_step(pre.config)
+    worst = collections.defaultdict(float)
+    s1, s2 = fin, loaded
+    for _ in range(CKPT_RESUME_STEPS):
+        c, g = step(s1), step(s2)
+        # the uninterrupted run's step on the host, as _mag_step_errors takes it
+        ref = (interop.magnetized_state_from_numpy(
+            interop.magnetized_state_to_numpy(c[0]), "cpu"),
+            type(c[1])(*(t.cpu() for t in c[1])))
+        for kk, v in _mag_step_errors(ref, g).items():
+            worst[kk] = max(worst[kk], v)
+        if not torch.equal(c[0].active, g[0].active):
+            problems.append("resumed active mask differs")
+        s1, s2 = c[0], g[0]
+    log(f"[checkpoint] round trip of the bca slice's final state (step "
+        f"{fin.step_host}, manifest format {manifest.get('format_version')}, "
+        f"{len(a)} leaves): " + ("bit for bit" if not unequal else f"DIFFERS {unequal}")
+        + f"; {CKPT_RESUME_STEPS} resumed steps against the uninterrupted ones, "
+        "|d| / (atol + rtol |ref|) (<= 1 passes): "
+        + ", ".join(f"{kk} {v:.3e}" for kk, v in worst.items()))
+    problems += [f"resumed {kk} {v:.3e}" for kk, v in worst.items() if not v <= 1.0]
+    if problems:
+        raise AssertionError("checkpoint: " + "; ".join(problems))
+    torch.cuda.empty_cache()
+    return dict(leaves=len(a), resumed_worst=dict(worst))
+
+
 def main() -> int:
     walls = {}
 
@@ -4170,6 +4441,9 @@ def main() -> int:
     ck = phase("carried kernels", phase_carried_kernels, dev)
     cc = phase("carried check", phase_carried_check, dev, dc)
     cs = phase("carried slice", phase_carried_slice, dev, ms, ds)
+    bc = phase("bca check", phase_bca_check, dev)
+    bs = phase("bca slice", phase_bca_slice, dev)
+    ckp = phase("checkpoint", phase_checkpoint, dev, bs)
     dep = phase("deposit times", deposit_times, dev, ms.pop("iead_traffic"))
 
     # each kernel's launches come from the path that runs it, counted from
@@ -4228,6 +4502,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname],
          "replaces": REPLACES[kname], "launches": launches[kname],
+         # the pic_bca_aps path's launches (the bca slice's driver run)
+         **({"launches_pic_bca_aps": bs[1]["launches"][kname]}
+            if bs[1]["launches"].get(kname) else {}),
          "max_abs_err": records[kname]["max_abs_err"],
          "ms": records[kname]["ms"], "plain_ms": records[kname]["plain_ms"],
          "bound_ms": records[kname]["bound_ms"],
@@ -4246,6 +4523,7 @@ def main() -> int:
         {"name": "philox_uniforms", "route": "cuda",
          "source": "pypic_tpu_torch/csrc/rng.cu", "replaces": None,
          "launches": dns["launches"]["philox_uniforms"],
+         "launches_pic_bca_aps": bs[1]["launches"]["philox_uniforms"],
          **{key: helper[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "n")},
          "library_ms": helper["library_ms"]}],
@@ -4322,6 +4600,13 @@ def main() -> int:
                     "capacity", "peak_mem_gib")},
                 "no_carry_ms_per_step": ds["explicit"]["ms_per_step"]},
             "check": cc},
+        "bca_slice": {
+            **{f"per_bca_{k}": {key: bs[k][key] for key in (
+                "n", "capacity", "steps", "block_ms_per_step", "engine_ms_per_step",
+                "surface_model_ms_per_step", "surface_model_share", "stats",
+                "total_yield", "n_ionized", "n_escaped", "n_reactivated",
+                "newton_mean", "newton_max")} for k in (1, 10)},
+            "check": bc, "checkpoint": ckp},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 * explicit — periodic leapfrog cycle (PIC_L.py main / pypic explicit intent)
 * implicit — periodic CN-Picard energy-conserving engine (pypic.py)
-* magnetized — Boltzmann-electron magnetized sheath, Dirichlet-Dirichlet
-  walls, Boris push, source re-activation (pygcpic.py pic_iead)
+* magnetized — Boltzmann-electron magnetized sheath (pygcpic.py pic_iead,
+  pic_bca_aps, dirichlet_neumann_test): Boris and guiding-center pushers,
+  ionization, the sources, wall-impact rows and the BCA escape
+* bca_driver — the hybrid PIC <-> surface-model loop (pic_bca_aps)
 * sheath — bounded two-species implicit sheath with absorbing walls,
   thermostat and re-injection (PIC_L_DD.py main_i)
 """

@@ -1,7 +1,9 @@
 """Magnetized Boltzmann-electron sheath engine (the counterpart of
 ``pypic_tpu/engines/magnetized.py``; gen-4, pygcpic.py).
 
-One step of the reference's ``pic_iead`` cycle (pygcpic.py:1200-1294):
+One step of the cycle shared by the reference's ``pic_iead``
+(pygcpic.py:1200-1294) and ``pic_bca_aps`` (pygcpic.py:1449-1632; the
+surface model runs between steps, ``engines.bca_driver``):
 
 1. deposit of the ion charge and number densities, and the adaptive
    Boltzmann reference-density update (pygcpic.py:841-905): the first
@@ -21,11 +23,29 @@ One step of the reference's ``pic_iead`` cycle (pygcpic.py:1200-1294):
 5. wall deactivation and the wall-impact energy-angle (IEAD) histograms
    per species (pygcpic.py:668-689, 1239-1262), guiding centers from the
    6D velocity rebuilt with a random gyro-phase (pygcpic.py:553-596);
-6. re-activation of inactive slots from the volumetric source
-   (pygcpic.py:691-720, 1248-1254) or, with ``reactivate='flux'``, of the
-   first ``flux_limit`` inactive slots from the wall-flux source
-   (pygcpic.py:2055-2060), crediting the particle ledger; under GC the
-   charged newcomers enter in GC packing.
+   with ``impact_buffer_size`` > 0, the step's wall impacts as packed
+   (cap, 7) rows for the surface model (pygcpic.py:1516-1527);
+6. with ``bca_escape``, wall-born particles that reach the mid-domain
+   band length/2 +/- length/8 leave (pygcpic.py:1529-1541) into the
+   escape histograms ``iead_out`` (and, with the impact buffer, packed
+   (cap, 4) escape rows);
+7. with ``ionization``, the MCC attempt (``ops.ionization``;
+   pygcpic.py:350-458) at the number density gathered at the new
+   positions; under ``pusher='gc'`` an ionized neutral is promoted to GC
+   packing;
+8. re-activation of inactive slots from the volumetric source
+   (pygcpic.py:691-720, 1248-1254); with 'capped-source' only while the
+   active ionized source-species count is below ``source_n``
+   (pygcpic.py:1543-1549: at react_batch 0 with the reference timing the
+   admission re-counts at each pending slot's turn, an exclusive running
+   minimum over the slots, ``prefix_min``; otherwise the first
+   ``deficit`` by rank); with ``reactivate='flux'``, of the first ``flux_limit`` inactive
+   slots from the wall-flux source (pygcpic.py:2055-2060), crediting the
+   particle ledger; under GC the charged newcomers enter in GC packing.
+
+``make_inject`` places the surface model's products (neutral, wall-born,
+6D) into free slots between steps without crediting the ledger
+(pygcpic.py:1599-1625, 1616).
 
 Backends, as the JAX engine's, with CUDA in the place of the TPU:
 
@@ -37,12 +57,21 @@ Backends, as the JAX engine's, with CUDA in the place of the TPU:
 * carried (``carried_deposit='on'``, whatever ``backend`` says, as the JAX
   engine's branch order has it): the step opens from the rho and n the
   state carries, and the push is the ``boris_gather_push_deposit`` sweep,
-  which deposits the next step's rho and n at the new positions; the
-  re-activated rows are patched in with one ``deposit2`` launch over the
-  ``react_batch`` table. ``prime_carry`` (and ``init_state``) seed the
-  carry from the particles. The carry is exact while ``carry_clamped``
-  stays 0: a clamped tent lands in the grid at the gather window's edge
-  and is counted.
+  which deposits the next step's rho and n at the new positions. The
+  step's later changes are patched in with one ``deposit2`` launch over
+  the packed rows: the escapes' tents subtracted, the ionization charge
+  added, the re-activated rows of the ``react_batch`` table added;
+  ``make_inject`` patches the injected rows the same way. Ionization
+  events past ``carried_ion_cap`` revert (``n_ion_suppressed``), escapes
+  past it wait a step (``n_escape_deferred``). ``prime_carry`` (and
+  ``init_state``) seed the carry from the particles. The carry is exact
+  while ``carry_clamped`` and those two stay 0: a clamped tent lands in
+  the grid at the gather window's edge and is counted.
+
+The ionization attempt gathers the number density with the ``gather``
+kernel, and the IEAD and escape histograms are ``deposit`` launches over
+every particle; the impact and escape rows, the escapes and the
+ionization branches are tensor operations.
 
 The Newton solve is a one-launch kernel of ``ops.cuda_newton``
 (``boltzmann_dirichlet``, or ``boltzmann_dn`` on a D-N grid) for
@@ -54,29 +83,26 @@ route), which reads its residual on the host once an iteration: 'xla',
 chosen by size and counted in ``THOMAS_SOLVES``. 'pallas' above 1024
 nodes on the card raises (the large-grid kernel is ROADMAP item 10).
 
-The re-activation draws come from the Philox kernels, keyed by the
-state's two key words and the host step: ``ops.cuda_rng.source_batch``
+The draws come from the Philox kernels, keyed by the state's two key
+words and the host step: ``ops.cuda_rng.source_batch``
 (``sources.sample_source_batch``) at counter (slot, step, 0, 0) for the
 source (with ``react_batch`` > 0, a table of that many draws: the slot
 of re-activation rank j takes row j, counter (j, step, 0, 0), and at
 most ``react_batch`` slots re-activate a step),
 ``ops.cuda_rng.philox_uniforms`` with ``FLUX_TAG``
-(``sources.sample_flux_batch``) for the flux, and with ``GYRO_TAG`` for
-the gyro-phases; 'auto' and 'pallas' take them ('pallas' with 'flux'
-raises, as in the JAX config). With the default backends a step on the
-card makes no host sync. The IEAD histogram is a ``deposit`` launch over
-every particle.
+(``sources.sample_flux_batch``) for the flux, with ``GYRO_TAG`` for the
+gyro-phases and with ``ION_TAG`` for the ionization attempt; 'auto' and
+'pallas' take them ('pallas' with 'flux' raises, as in the JAX config).
+With the default backends a step on the card makes no host sync.
 
 The step's host-side facts (the step number for the first-step branch of
 the n0 update and the Philox counters, the key, the shapes) live on the
 host in the state, so nothing is read back from the card.
 
-Options that need modules or kernels not ported yet (ionization,
-'capped-source', the impact buffer and the BCA escape, the 'hash' and
-'threefry' samplers, data-parallel sharding, deposit_method) raise
+Options whose modules are not ported yet (the 'hash' and 'threefry'
+samplers, data-parallel sharding, deposit_method) raise
 ``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
-ROADMAP item that brings them; so do the carried deposit's ionization and
-escape patches, with their options.
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -98,9 +124,12 @@ from ..ops.poisson import (solve_boltzmann_dirichlet,
                            solve_boltzmann_dirichlet_neumann)
 from ..push import (boris_push_dt, from_guiding_center, gc_push_rk4,
                     to_guiding_center)
-from ..utils import compact_rows
+from ..ops.ionization import attempt_ionization, coefficient_table, rate_matrix
+from ..utils import compact_rows, pack_rows, place_rows
 
 _MASK32 = 0xFFFFFFFF
+# row width of prefix_min's two-level scan
+PREFIX_MIN_WIDTH = 1024
 # the D-N Newton envelope of the reference (pygcpic.py:1079-1080)
 DN_TOL, DN_MAXITER = 1e-3, 100
 # op-composed Thomas solves the engine chose on a CUDA state ('auto' above
@@ -300,37 +329,44 @@ class StepMetrics(NamedTuple):
     added: torch.Tensor
     rho: torch.Tensor  # (ng,)
     phi: torch.Tensor  # (ng,)
-    # the JAX engine's metrics of the options not ported yet: zero (and
-    # zero-size impact/escape rows) on this path
+    # (impact_buffer_size, 7) rows [energy_eV, angle_deg, species_idx,
+    # side, vx_over_vth, r_lateral_m, from_wall] (side 0: the left wall)
+    # and their count; zero-size when the buffer is off
     impacts: torch.Tensor
     n_impacts: torch.Tensor
-    n_escaped: torch.Tensor
-    # carried deposits clamped at the gather window's edge
-    # (carried_deposit='on'; the carry is exact while it stays 0)
+    n_escaped: torch.Tensor  # wall-born particles removed mid-domain
+    # carried_deposit='on' bookkeeping (the carry is exact while all three
+    # stay 0): tents clamped at the gather window's edge, ionization events
+    # reverted past carried_ion_cap, escapes deferred past it
     carry_clamped: torch.Tensor
     n_ion_suppressed: torch.Tensor
     n_escape_deferred: torch.Tensor
+    # (impact_buffer_size, 4) escape rows [vx_over_vth, species_idx,
+    # energy_eV, angle_deg] and their count (impact buffer and bca_escape)
     escapes: torch.Tensor
     n_escape_rows: torch.Tensor
 
 
-_ITEM_NEXT = "item 14b, the magnetized stack's next slice (pic_bca_aps)"
+# checkpoints of the stacked (n, 2)/(n, 3) leaves of older JAX states split
+# on restore (checkpoint.load(migrate=...))
+CHECKPOINT_MIGRATIONS = {
+    ".yz": lambda a: {".y": a[:, 0], ".z": a[:, 1]},
+    ".v": lambda a: {".vx": a[:, 0], ".vy": a[:, 1], ".vz": a[:, 2]},
+}
+
+
+_ITEM_SAMPLERS = "item 14b step 6, the 'hash' and 'threefry' samplers"
 _ITEM_PARALLEL = "item 17, parallel, on torch.distributed"
 _ITEM_GATED = "item 18, options measured negative or gated off"
 
 
 def _check_ported(cfg: MagnetizedConfig) -> None:
-    """Raise NotImplementedError for options whose modules or kernels are
-    not ported yet."""
+    """Raise NotImplementedError for options whose modules are not ported
+    yet."""
     todo = {
-        "ionization=True": (cfg.ionization, _ITEM_NEXT),
-        f"reactivate={cfg.reactivate!r}": (
-            cfg.reactivate == "capped-source", _ITEM_NEXT),
-        "impact_buffer_size > 0": (cfg.impact_buffer_size > 0, _ITEM_NEXT),
-        "bca_escape=True": (cfg.bca_escape, _ITEM_NEXT),
         "axis_name": (cfg.axis_name is not None, _ITEM_PARALLEL),
         f"source_sampler={cfg.source_sampler!r}": (
-            cfg.source_sampler in ("hash", "threefry"), _ITEM_NEXT),
+            cfg.source_sampler in ("hash", "threefry"), _ITEM_SAMPLERS),
         f"deposit_method={cfg.deposit_method!r}": (
             cfg.deposit_method != "auto", _ITEM_GATED),
     }
@@ -464,6 +500,72 @@ def prime_carry(state: MagnetizedState,
         n=deposit(state.p, w_n, ng, periodic=False).to(state.phi.dtype))
 
 
+def make_inject(cfg: MagnetizedConfig):
+    """The injector of new particles into free slots (the JAX engine's
+    make_inject): the fixed-capacity form of ``particles +=
+    new_particles`` (pygcpic.py:1624-1625). The i-th valid new row claims
+    the i-th free (inactive) slot; rows beyond the free slots are dropped
+    and counted. The rows enter active, wall-born (``from_wall`` 1) and 6D
+    (``mode`` 0: BCA products are neutral; ionization promotes them under
+    GC), and the particle ledger is not credited (the reference comments
+    ``grid.add_particles`` out at its injection site, pygcpic.py:1616).
+    Under carried_deposit='on' the placed rows are deposited onto the
+    carried rho and n (one ``deposit2`` launch).
+
+    ``inject(state, x [m], yz, v, m, charge_state, p2c, species_idx, t,
+    valid)`` takes (k,) / (k, 2) / (k, 3) numpy arrays or tensors and
+    returns (state, n_injected, n_dropped), the counts as 0-d int32
+    tensors on the state's device."""
+    _check_ported(cfg)
+    grid = cfg.grid
+    dx, ng = grid.dx, grid.ng
+    cells = float(grid.num_cells)
+
+    def inject(state: MagnetizedState, x, yz, v, m, charge_state, p2c,
+               species_idx, t, valid):
+        dev, dtype = state.p.device, state.p.dtype
+
+        def put(a, dt=dtype):
+            return torch.as_tensor(a, device=dev).to(dt)
+
+        x, yz, v, m, cs, p2c, t = (put(a) for a in (x, yz, v, m, charge_state,
+                                                     p2c, t))
+        sp = put(species_idx, torch.int32)
+        valid = put(valid, torch.bool)
+        n_new = torch.sum(valid, dtype=torch.int32)
+        # x / dx as XLA's compiled injector and PyTorch's CUDA division by
+        # a scalar take it: x times the reciprocal rounded to the dtype
+        real = torch.empty((), dtype=dtype).numpy().dtype.type
+        pos = x * float(real(1.0) / real(dx))
+        new_fields = [pos, yz[:, 0], yz[:, 1], v[:, 0], v[:, 1], v[:, 2],
+                      m, cs, p2c, sp, t]
+        old_fields = [state.p, state.y, state.z, state.vx, state.vy, state.vz,
+                      state.m, state.charge_state, state.p2c,
+                      state.species_idx, state.t]
+        updated, take, n_injected = place_rows(state.active != 1, new_fields,
+                                               n_new, old_fields, valid=valid)
+        new_state = state.replace(
+            **dict(zip(("p", "y", "z", "vx", "vy", "vz", "m", "charge_state",
+                        "p2c", "species_idx", "t"), updated)),
+            active=torch.where(take, 1, state.active),
+            at_wall=torch.where(take, 0, state.at_wall),
+            from_wall=torch.where(take, 1, state.from_wall),
+            mode=torch.where(take, 0, state.mode))
+        if cfg.carried_deposit == "on":
+            # the i-th valid row landed in the i-th free slot: the patch is
+            # the valid rows up to the placed count
+            placed = ((compact_rows(valid) < n_injected) & valid).to(dtype)
+            rho_p, n_p = cuda_cic.deposit2(
+                torch.clamp(pos, 0.0, cells),
+                placed * cs * E_CHARGE * p2c / dx, placed * p2c / dx, ng,
+                periodic=False)
+            new_state = new_state.replace(rho=new_state.rho + rho_p,
+                                          n=new_state.n + n_p)
+        return new_state, n_injected, n_new - n_injected
+
+    return inject
+
+
 def boltzmann_n0_update(step: int, n0_prev, p_old, added, q_new, p_new, *,
                         dt, ve, n_mean):
     """Adaptive Boltzmann reference-density recurrence (pygcpic.py:889-904).
@@ -488,6 +590,14 @@ def mirror_gather_position(p, hi):
     return torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
 
 
+def energy_angle(m, vdx, vdy, vdz):
+    """Each row's impact energy [eV] and angle to the wall normal [deg]
+    (pygcpic.py:228-259)."""
+    energy_ev = (0.5 * m * (vdx * vdx + vdy * vdy + vdz * vdz) / E_CHARGE)
+    vyz = torch.sqrt(vdy ** 2 + vdz ** 2)
+    return energy_ev, torch.atan2(vyz, torch.abs(vdx)) * (180.0 / math.pi)
+
+
 def iead_traffic(species_idx, m, vdx, vdy, vdz, hit, *, bins, energy_max,
                  angle_max):
     """The wall-impact histogram's traffic (pygcpic.py:1239-1262): each
@@ -496,9 +606,7 @@ def iead_traffic(species_idx, m, vdx, vdy, vdz, hit, *, bins, energy_max,
     inside [0, emax] x [0, amax] and 0 elsewhere (impacts outside are left
     out, as np.histogram2d's range does). Returns (flat, weight)."""
     ne, na = bins
-    energy_ev = (0.5 * m * (vdx * vdx + vdy * vdy + vdz * vdz) / E_CHARGE)
-    vyz = torch.sqrt(vdy ** 2 + vdz ** 2)
-    angle = torch.atan2(vyz, torch.abs(vdx)) * (180.0 / math.pi)
+    energy_ev, angle = energy_angle(m, vdx, vdy, vdz)
     in_range = ((energy_ev >= 0.0) & (energy_ev <= energy_max)
                 & (angle >= 0.0) & (angle <= angle_max))
     ei = torch.clamp((energy_ev * (ne / energy_max)).to(torch.int32), 0, ne - 1)
@@ -518,17 +626,39 @@ def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
     return iead + upd.reshape(iead.shape)
 
 
+def prefix_min(x: torch.Tensor, width: int = PREFIX_MIN_WIDTH) -> torch.Tensor:
+    """The inclusive running minimum of a 1-d integer tensor (JAX's
+    ``lax.associative_scan(jnp.minimum, x)``), in two levels: ``torch.cummin``
+    along rows of ``width`` (padded with the dtype's largest value), then
+    each row's minimum with the running minimum of the rows before it.
+    PyTorch's scan with indices runs one block a row, so a single row of
+    180,000 takes 0.43 ms on an H100 (PERF.md §6, PR 15); rows of 1,024
+    scan side by side."""
+    n = x.shape[0]
+    rows = -(-n // width)
+    top = torch.iinfo(x.dtype).max
+    padded = torch.full((rows * width,), top, dtype=x.dtype, device=x.device)
+    padded[:n] = x
+    local = torch.cummin(padded.view(rows, width), dim=1).values
+    before = torch.cummin(local[:, -1], dim=0).values
+    carry = torch.cat([torch.full_like(before[:1], top), before[:-1]])
+    return torch.minimum(local, carry[:, None]).reshape(-1)[:n]
+
+
 def make_step(cfg: MagnetizedConfig,
               source_draws: Optional[Callable] = None,
-              gyro_draws: Optional[Callable] = None):
+              gyro_draws: Optional[Callable] = None,
+              ion_draws: Optional[Callable] = None):
     """Build the step: state -> (state, StepMetrics).
 
     ``source_draws(step, n)``, when given, replaces the re-activation
     sampler (the volumetric or the flux source): it returns {"x" [m],
     "vx", "vy", "vz"}, (n,) tensors on the state's device.
     ``gyro_draws(step, n)`` likewise replaces the gyro-phase uniforms of
-    the GC wall-impact rebuild: an (n, 3) tensor. The CPU tests pass the
-    JAX engine's own draws through them; the engine's path never does.
+    the GC wall-impact rebuild: an (n, 3) tensor; ``ion_draws(step, n)``
+    the ionization attempt's uniforms: an (n,) tensor. The CPU tests pass
+    the JAX engine's own draws through them; the engine's path never
+    does.
     """
     _check_ported(cfg)
     grid = cfg.grid
@@ -546,7 +676,22 @@ def make_step(cfg: MagnetizedConfig,
     src = cfg.source
     # B as float32 values, as the JAX engine's f32 b vector
     b32 = tuple(float(np.float32(v)) for v in cfg.b)
+    cap = cfg.impact_buffer_size
+    ion_cap = cfg.carried_ion_cap
+    rates = rate_matrix(cfg.species_z, cfg.te) if cfg.ionization else None
+    # the impact rows' vx / vth: the thermal speed of each particle at the
+    # source's sampling temperature (pygcpic.py:100; Te without a source)
+    kt_samp = K_BOLTZMANN * (src.ti if src is not None else cfg.te)
     zeros_by_device = {}
+    coef_by_device = {}
+
+    def _coef(dtype, dev):
+        """The ionization coefficient table, made once a device (filled in
+        place: no host copy in a step)."""
+        if (dtype, dev) not in coef_by_device:
+            coef_by_device[(dtype, dev)] = coefficient_table(rates, dx, dt,
+                                                             dtype, dev)
+        return coef_by_device[(dtype, dev)]
 
     def _zeros(dev):
         """The step's constant zero metrics, made once a device."""
@@ -612,6 +757,46 @@ def make_step(cfg: MagnetizedConfig,
         return cuda_rng.philox_uniforms(state.rng, step_i, n, 3,
                                         cuda_rng.GYRO_TAG,
                                         device=state.p.device).t()
+
+    def _ion(state, step_i: int, n: int):
+        if ion_draws is not None:
+            return ion_draws(step_i, n)
+        return cuda_rng.philox_uniforms(state.rng, step_i, n, 1,
+                                        cuda_rng.ION_TAG,
+                                        device=state.p.device)[0]
+
+    def _capped_take(state, active, charge_state, inactive, rank):
+        """'capped-source' (pic_bca_aps's reactivate-or-delete,
+        pygcpic.py:1543-1549): the inactive slots that re-activate while
+        the active ionized source-species count (after this step's
+        losses and ionization) is below ``source_n``.
+
+        At react_batch 0 with the reference timing the reference re-counts
+        at each pending slot's turn in its particle loop, so a countable
+        particle at a higher slot lost this step still counts as active
+        when a lower pending slot is considered: pending slot j is
+        admitted iff the admissions before it are below allow_j = deficit
+        - (countable same-step losses above j). allow does not decrease
+        along the slots, which gives the admitted count before j the
+        min-plus closed form rank_j + min(0, exclusive cummin of
+        allow - rank - 1) (the JAX engine's associative min-scan); with no
+        same-step loss it is the rank < deficit prefix, what the other
+        cases take."""
+        sp_src = state.species_idx == src.species_idx
+        n_src_active = torch.sum((active == 1) & sp_src & (charge_state > 0),
+                                 dtype=torch.int32)
+        deficit = torch.clamp(cfg.source_n - n_src_active, min=0)
+        if cfg.react_timing != "reference" or cfg.react_batch:
+            return inactive & (rank < deficit)
+        lost_now = ((state.active == 1) & (active != 1) & sp_src
+                    & (charge_state > 0)).to(torch.int32)
+        suffix = (torch.sum(lost_now, dtype=torch.int32)
+                  - torch.cumsum(lost_now, dim=0, dtype=torch.int32))
+        allow = torch.clamp(deficit - suffix, min=0)
+        top = torch.iinfo(torch.int32).max
+        tt = torch.where(inactive, allow - (rank + 1), top)
+        m_excl = torch.cat([torch.full_like(tt[:1], top), prefix_min(tt)[:-1]])
+        return inactive & (rank + torch.clamp(m_excl, max=0) < allow)
 
     def _push_gc(state, is_active, is_gc, e_field):
         """The mixed push of pusher='gc': Boris for the 6D rows (neutrals),
@@ -725,25 +910,111 @@ def make_step(cfg: MagnetizedConfig,
         hit = is_active & ((p1 < 0.0) | (p1 > cells))
         active = torch.where(hit, 0, state.active)
         at_wall = torch.where(hit, 1, state.at_wall)
-        iead = state.iead
-        if cfg.iead_energy_max > 0.0:
-            vdx, vdy, vdz = vx1, vy1, vz1
-            if gc:
-                # the impact needs the physical 6D velocity: rebuilt with
-                # a random gyro-phase (pygcpic.py:553-596)
-                v6 = _gc_unpack_v(_gyro(state, step_i, n), p1, y1, z1, vx1,
-                                  vy1, state.charge_state, state.m, cfg)
-                vdx = torch.where(is_gc, v6[:, 0], vx1)
-                vdy = torch.where(is_gc, v6[:, 1], vy1)
-                vdz = torch.where(is_gc, v6[:, 2], vz1)
-            iead = iead_update(iead, state.species_idx, state.m, vdx, vdy,
-                               vdz, hit, bins=cfg.iead_bins,
+        vdx, vdy, vdz = vx1, vy1, vz1
+        if gc and (cfg.iead_energy_max > 0.0 or cap > 0):
+            # the impact needs the physical 6D velocity: rebuilt with a
+            # random gyro-phase (pygcpic.py:553-596)
+            v6 = _gc_unpack_v(_gyro(state, step_i, n), p1, y1, z1, vx1, vy1,
+                              state.charge_state, state.m, cfg)
+            vdx = torch.where(is_gc, v6[:, 0], vx1)
+            vdy = torch.where(is_gc, v6[:, 1], vy1)
+            vdz = torch.where(is_gc, v6[:, 2], vz1)
+
+        def histogram(hist, mask):
+            return iead_update(hist, state.species_idx, state.m, vdx, vdy,
+                               vdz, mask, bins=cfg.iead_bins,
                                energy_max=cfg.iead_energy_max,
                                angle_max=cfg.iead_angle_max)
 
+        iead = state.iead
+        if cfg.iead_energy_max > 0.0:
+            iead = histogram(iead, hit)
+
+        # the wall-impact rows for the surface model (pygcpic.py:1516-1527)
+        impacts, n_impacts = zero["impacts"], zero["i"]
+        if cap > 0:
+            energy_ev, angle = energy_angle(state.m, vdx, vdy, vdz)
+            vth = torch.sqrt(kt_samp / state.m)
+            rows = torch.stack(
+                [energy_ev, angle, state.species_idx.to(energy_ev.dtype),
+                 (p1 > cells).to(energy_ev.dtype), vdx / vth,
+                 torch.sqrt(y1 * y1 + z1 * z1),
+                 state.from_wall.to(energy_ev.dtype)], dim=-1)
+            (impacts,), n_impacts, _ = pack_rows(hit, [rows], cap)
+
+        # wall-born particles reaching length/2 +/- length/8 leave into the
+        # escape histograms (pygcpic.py:1529-1541)
+        iead_out = state.iead_out
+        n_escaped = n_escape_deferred = zero["i"]
+        escapes, n_escape_rows = zero["escapes"], zero["i"]
+        patches = []  # carried patches: (positions, rho weights, n weights)
+        if cfg.bca_escape:
+            escaped = ((active == 1) & (state.from_wall == 1)
+                       & (p1 > cells / 2.0 - cells / 8.0)
+                       & (p1 < cells / 2.0 + cells / 8.0))
+            if carried:
+                # the push kernel deposited the escaped rows: subtract
+                # their tents; past the cap the removal waits a step (the
+                # row, still mid-domain, escapes again)
+                keep = escaped & (compact_rows(escaped) < ion_cap)
+                n_escape_deferred = torch.sum(escaped & ~keep,
+                                              dtype=torch.int32)
+                escaped = keep
+                (pos_e, wr_e, wn_e), _, _ = pack_rows(escaped,
+                                                      [p1, w_rho, w_n], ion_cap)
+                patches.append((pos_e, -wr_e, -wn_e))
+            active = torch.where(escaped, 0, active)
+            if cfg.iead_energy_max > 0.0:
+                iead_out = histogram(iead_out, escaped)
+            n_escaped = torch.sum(escaped, dtype=torch.int32)
+            if cap > 0:
+                esc = torch.stack([vdx / vth, state.species_idx.to(energy_ev.dtype),
+                                   energy_ev, angle], dim=-1)
+                (escapes,), n_escape_rows, _ = pack_rows(escaped, [esc], cap)
+
+        # MCC ionization (pygcpic.py:1510-1513) at the density gathered at
+        # the new positions
+        n_ionized = n_ion_suppressed = zero["i"]
+        charge_state, mode = state.charge_state, state.mode
+        if cfg.ionization:
+            still_active = active == 1
+            n_local = torch.where(still_active,
+                                  gather(n_dens, p1, periodic=False), 0.0)
+            charge_state, ionized, added_ion = attempt_ionization(
+                n_local, charge_state, state.species_idx, state.p2c,
+                _coef(n_local.dtype, dev), still_active,
+                _ion(state, step_i, n), max_charge_state=cfg.max_charge_state)
+            if carried:
+                # the carry takes at most ion_cap charge deltas a step;
+                # events past it revert entirely and are counted
+                keep = ionized & (compact_rows(ionized) < ion_cap)
+                suppressed = ionized & ~keep
+                n_ion_suppressed = torch.sum(suppressed, dtype=torch.int32)
+                charge_state = torch.where(suppressed, charge_state - 1.0,
+                                           charge_state)
+                added_ion = added_ion - 2.0 * torch.sum(
+                    torch.where(suppressed, state.p2c, 0.0)).to(added.dtype)
+                ionized = keep
+                (pos_i, p2c_i), _, _ = pack_rows(keep, [p1, state.p2c],
+                                                 ion_cap)
+                patches.append((pos_i, (E_CHARGE / dx) * p2c_i,
+                                torch.zeros_like(p2c_i)))
+            added = added + added_ion
+            n_ionized = torch.sum(ionized, dtype=torch.int32)
+            if gc:
+                # a neutral that gained charge is magnetized: to GC packing
+                # at its current position and velocity
+                promote = ionized & (mode == 0)
+                packed = _gc_pack(p1, y1, z1, vx1, vy1, vz1, charge_state,
+                                  state.m, cfg)
+                p1, y1, z1, vx1, vy1, vz1 = (
+                    torch.where(promote, g, h)
+                    for g, h in zip(packed, (p1, y1, z1, vx1, vy1, vz1)))
+                mode = torch.where(promote, 1, mode)
+
         n_react = zero["i"]
         m_arr, p2c_arr, sp_arr = state.m, state.p2c, state.species_idx
-        charge_state, mode, fw = state.charge_state, state.mode, state.from_wall
+        fw = state.from_wall
         if cfg.reactivate != "none":
             # 'reference': the slots inactive at step START, so a slot lost
             # in this push waits one step (pygcpic.py:1249-1254)
@@ -756,10 +1027,13 @@ def make_step(cfg: MagnetizedConfig,
             bx, bvx, bvy, bvz = (batch["x"] / dx, batch["vx"], batch["vy"],
                                  batch["vz"])
             rank = (compact_rows(inactive)
-                    if cfg.react_batch or cfg.reactivate == "flux" else None)
+                    if cfg.react_batch or cfg.reactivate != "source" else None)
             if cfg.reactivate == "flux":
                 bvx = -torch.abs(bvx)  # pygcpic.py:2059
                 take = inactive & (rank < cfg.flux_limit)
+            elif cfg.reactivate == "capped-source":
+                take = _capped_take(state, active, charge_state, inactive,
+                                    rank)
             else:
                 take = inactive
             by = torch.zeros_like(bvx)
@@ -777,16 +1051,13 @@ def make_step(cfg: MagnetizedConfig,
                 take = take & (rank < cfg.react_batch)
                 if carried:
                     # the taken ranks are [0, n_take): the patch is the
-                    # table's first n_take rows, rho and n at one position
+                    # table's first n_take rows
                     pmask = (torch.arange(n_draw, device=dev)
                              < torch.sum(take, dtype=torch.int32))
-                    patch = cuda_cic.deposit2(
+                    patches.append((
                         bx, torch.where(pmask, float(src.charge_state)
                                         * E_CHARGE * float(src.p2c) / dx, 0.0),
-                        torch.where(pmask, float(src.p2c) / dx, 0.0), ng,
-                        periodic=False)
-                    rho_carry = rho_carry + patch[0]
-                    n_carry = n_carry + patch[1]
+                        torch.where(pmask, float(src.p2c) / dx, 0.0)))
                 idx = torch.clamp(rank, 0, cfg.react_batch - 1).to(torch.int64)
                 bx, by, bz, bvx, bvy, bvz = (
                     b_[idx] for b_ in (bx, by, bz, bvx, bvy, bvz))
@@ -809,6 +1080,15 @@ def make_step(cfg: MagnetizedConfig,
             n_react = torch.sum(take, dtype=torch.int32)
             added = added + (2.0 * src.p2c) * torch.sum(take.to(added.dtype))
 
+        if patches:
+            # the step's changes after the push, on the carry in one launch
+            # (rho and n of each row at its one position)
+            pos, wr, wn = (torch.cat(c) for c in zip(*patches))
+            patch = cuda_cic.deposit2(pos, wr.to(pos.dtype), wn.to(pos.dtype),
+                                      ng, periodic=False)
+            rho_carry = rho_carry + patch[0]
+            n_carry = n_carry + patch[1]
+
         metrics = StepMetrics(
             n0=n0,
             phi_max=torch.max(phi),
@@ -816,19 +1096,19 @@ def make_step(cfg: MagnetizedConfig,
             newton_residual=res.residual,
             n_active=torch.sum(active == 1, dtype=torch.int32),
             n_hit_wall=torch.sum(hit, dtype=torch.int32),
-            n_ionized=zero["i"],
+            n_ionized=n_ionized,
             n_reactivated=n_react,
             added=added,
             rho=rho,
             phi=phi,
-            impacts=zero["impacts"],
-            n_impacts=zero["i"],
-            n_escaped=zero["i"],
+            impacts=impacts,
+            n_impacts=n_impacts,
+            n_escaped=n_escaped,
             carry_clamped=carry_clamped,
-            n_ion_suppressed=zero["i"],
-            n_escape_deferred=zero["i"],
-            escapes=zero["escapes"],
-            n_escape_rows=zero["i"],
+            n_ion_suppressed=n_ion_suppressed,
+            n_escape_deferred=n_escape_deferred,
+            escapes=escapes,
+            n_escape_rows=n_escape_rows,
         )
         new_state = state.replace(
             p=p1, y=y1, z=z1, vx=vx1, vy=vy1, vz=vz1, m=m_arr,
@@ -836,7 +1116,7 @@ def make_step(cfg: MagnetizedConfig,
             active=active, at_wall=at_wall, from_wall=fw, mode=mode, phi=phi,
             phi_prev=state.phi, rho=rho_carry if carried else state.rho,
             n=n_carry if carried else state.n, n0=n0, p_old=p_old,
-            added=added, iead=iead,
+            added=added, iead=iead, iead_out=iead_out,
             step=state.step + 1, step_host=step_i + 1,
         )
         return new_state, metrics

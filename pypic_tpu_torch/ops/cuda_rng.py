@@ -41,9 +41,9 @@ the bit-equality check.
 engine's uniforms that no TPU kernel draws (the JAX engine takes them from
 ``jax.random``): word k of row i is word k % 4 of the Philox block at
 counter (i, step, k // 4, tag). ``FLUX_TAG`` marks the wall-flux source's
-eight a slot, ``GYRO_TAG`` the guiding-center gyro-phases' three; the
-source batch's counter (i, step, 0, 0) has tag 0, so no two draws of a
-step share a counter. A CUDA device launches the kernel (its launches
+eight a slot, ``GYRO_TAG`` the guiding-center gyro-phases' three,
+``ION_TAG`` the ionization attempt's one; the source batch's counter
+(i, step, 0, 0) has tag 0, so no two draws of a step share a counter. A CUDA device launches the kernel (its launches
 count in ``cuda_cic.LAUNCHES['philox_uniforms']``); the CPU runs
 ``philox_uniforms_plain``, bit-equal.
 
@@ -66,7 +66,7 @@ _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
 # the fourth counter word of the draws of philox_uniforms
-FLUX_TAG, GYRO_TAG = 1, 2
+FLUX_TAG, GYRO_TAG, ION_TAG = 1, 2, 3
 _MAX_DRAWS = 16
 # threads a block of the source kernel (tools/resident_split.py --kernel
 # source_batch: 512 read 1.7% under 256 and 1.3% under 128, PERF.md §6)

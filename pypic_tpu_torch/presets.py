@@ -11,6 +11,9 @@ Ported so far, with the same defaults:
   IEAD collection; BASELINE configs[3])
 * ``pic_iead_gc``    — pic_iead with the guiding-center pusher (BASELINE
   configs[3]'s "guiding-center magnetized PIC")
+* ``pic_bca_aps``    — pygcpic.py:1307-1344 (H plasma against a B wall:
+  ionization, capped-source re-activation, the BCA escape and wall-impact
+  rows for ``engines.bca_driver``)
 * ``dirichlet_neumann_test`` — pygcpic.py:1968-2093 (unmagnetized D-N
   sheath fed by the capped wall-flux source)
 
@@ -20,8 +23,8 @@ Ported so far, with the same defaults:
   (``parallel.domain``)
 
 ``PRESETS`` maps their names to the functions above and ``get`` makes
-one by name, as in the JAX package. ``bump_on_tail``, ``pic_bca_aps``
-and ``pic_iead_dd`` come with their options and engines.
+one by name, as in the JAX package. ``bump_on_tail`` and ``pic_iead_dd``
+come with their options and engines.
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -214,6 +217,52 @@ def pic_iead_gc(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
     return Preset("pic_iead_gc", magnetized, cfg, st, dict(pre.meta))
 
 
+def pic_bca_aps(ppc: int = 200, seed: int = 1, capacity_factor: float = 1.5,
+                device=None) -> Preset:
+    """pygcpic.py:1307-1344: an H plasma against a B wall, density 1e19,
+    3 nodes a Debye length over 200 (ng = 600, n = 600 ppc), dt 8e-11,
+    Ti 10 eV and Te 50 eV, B = 2 T at 86 degrees, smooth_rho on,
+    ionization on, 'capped-source' re-activation holding the ionized H
+    population at source_n = n (pygcpic.py:1543-1549), the mid-domain
+    escape of wall-born particles (pygcpic.py:1529-1541), wall-impact rows
+    (1,024 a step) and capacity_factor times n slots, the headroom for
+    the surface model's products (``engines.bca_driver.run_bca``). The
+    same numpy draws as the JAX preset, so the initial state is the JAX
+    one's."""
+    density = 1e19
+    ti, te = 10.0 * EV_TO_K, 50.0 * EV_TO_K
+    ld = _debye(te, density)
+    num_ld, ng_per_ld = 200, 3
+    length = num_ld * ld
+    ng = ng_per_ld * num_ld
+    grid = GridSpec(ng, length, "dirichlet-dirichlet")
+    dt = 8e-11
+    n = ng * ppc
+    p2c = density * length / n
+    alpha = 86.0 * np.pi / 180.0
+    b = (2.0 * np.cos(alpha), 2.0 * np.sin(alpha), 0.0)
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, length, n)
+    vth = np.sqrt(K_BOLTZMANN * ti / M_PROTON)
+    v = rng.normal(size=(n, 3)) * vth
+    src = magnetized.SourceSpec(
+        mass=M_PROTON, charge_state=1.0, p2c=p2c, species_idx=0, ti=ti
+    )
+    cfg = magnetized.MagnetizedConfig(
+        grid, dt, te, b=b, species_z=(1, 5), smooth_rho=True,
+        ionization=True, reactivate="capped-source", source=src, source_n=n,
+        iead_energy_max=300.0, iead_bins=(40, 30),  # pygcpic.py:1422-1423
+        impact_buffer_size=1024, bca_escape=True,
+    )
+    st = magnetized.init_state(
+        x, v, M_PROTON, 1.0, p2c, 0, cfg, seed=seed,
+        capacity=int(n * capacity_factor), device=device,
+    )
+    return Preset("pic_bca_aps", magnetized, cfg, st,
+                  dict(source_n=n, wall_z=5, source_z=1))
+
+
 def dirichlet_neumann_test(n: int = 50_000, ng: int = 800, seed: int = 1,
                            device=None) -> Preset:
     """pygcpic.py:1968-2021: density 1e19, dt 2e-10, Ti = Te = 10*11600 K,
@@ -325,6 +374,7 @@ PRESETS: Dict[str, Callable[..., Preset]] = {
     "sheath_dd": sheath_dd,
     "pic_iead": pic_iead,
     "pic_iead_gc": pic_iead_gc,
+    "pic_bca_aps": pic_bca_aps,
     "dirichlet_neumann_test": dirichlet_neumann_test,
     "domain_implicit": domain_implicit,
     "domain_explicit": domain_explicit,

@@ -8,7 +8,7 @@ finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream|magnetized|carried|sheath|dn|gc]
+        [--cell landau|two-stream|magnetized|carried|sheath|dn|gc|bca]
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -26,7 +26,10 @@ row (``tools/sheath.py``, n = 1,000,000; ``--n`` is ignored for these,
 and the sheath profile also reports the Picard passes a step beside the
 host syncs); ``--cell dn`` and ``--cell gc`` profile the magnetized
 engine's D-N row and guiding-center row (``tools/magnetized.py --row
-dn|gc``). Each ends with one JSON line of its results.
+dn|gc``), and ``--cell bca`` the engine step of the pic_bca_aps path
+alone (``presets.pic_bca_aps`` at ppc 200, no surface model:
+``tools/bca.py`` times the whole hybrid block). Each reports the device
+kernel launches a step and ends with one JSON line of its results.
 """
 
 from __future__ import annotations
@@ -159,6 +162,14 @@ def profile(args) -> dict:
         state = pre.state
         args.n = state.p.shape[0]
         step = magnetized.make_step(pre.config)
+    elif args.cell == "bca":
+        from .. import presets
+        from ..engines import magnetized
+
+        pre = presets.pic_bca_aps(device=dev)
+        state = pre.state
+        args.n = state.p.shape[0]
+        step = magnetized.make_step(pre.config)
     elif args.cell == "sheath":
         from ..engines import sheath
         from . import sheath as sheath_row
@@ -206,18 +217,21 @@ def profile(args) -> dict:
     syncs = sum(1 for e in events if e.get("ph") == "X"
                 and e.get("name") == "cudaStreamSynchronize") / args.steps
     dtoh = sum(1 for e in device if "DtoH" in e["name"]) / args.steps
+    kernels = sum(1 for e in device if e.get("cat") == "kernel") / args.steps
     print(f"[profile] untraced ms/step {', '.join(f'{t:.4f}' for t in untraced)}; "
           f"traced {traced:.4f}")
     print(f"[profile] device busy {busy:.4f} ms/step; idle share of the traced "
           f"window {1.0 - _busy_union(spans) / window:.3f}; "
-          f"host syncs {syncs:.1f}/step, DtoH copies {dtoh:.1f}/step")
+          f"host syncs {syncs:.1f}/step, DtoH copies {dtoh:.1f}/step, "
+          f"kernel launches {kernels:.1f}/step")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile] {ms:9.4f} ms/step  {count / args.steps:6.1f}/step  {name[:90]}")
     res = dict(cell=args.cell, n=args.n, steps=args.steps,
                untraced_ms_per_step=untraced,
                traced_ms_per_step=traced, device_busy_ms_per_step=busy,
                idle_share_traced=1.0 - _busy_union(spans) / window,
-               host_syncs_per_step=syncs, dtoh_per_step=dtoh)
+               host_syncs_per_step=syncs, dtoh_per_step=dtoh,
+               kernels_per_step=kernels)
     if hasattr(traced_m, "picard_iters"):
         res["picard_passes_per_step"] = float(traced_m.picard_iters.float().mean())
         print(f"[profile] Picard passes {res['picard_passes_per_step']:.2f}/step")
@@ -236,7 +250,7 @@ def main(argv=None) -> None:
     p.add_argument("--out", required=True,
                    help="directory for the chrome trace and the table")
     p.add_argument("--cell", choices=("landau", "two-stream", "magnetized",
-                                      "carried", "sheath", "dn", "gc"),
+                                      "carried", "sheath", "dn", "gc", "bca"),
                    default="landau")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)

@@ -6,8 +6,10 @@ re-activation policies take the first k free slots by rank, so a step
 keeps its shapes and reads nothing back to the host. ``pack_rows``
 compresses masked rows to the front of a bounded buffer and
 ``place_rows`` fills free slots with incoming rows, in the JAX package's
-order (the i-th free slot takes the i-th row), with the overflow counted:
-domain migration moves particles with them, slot for slot as JAX does.
+order (the i-th free slot takes the i-th row, or the i-th valid row), with
+the overflow counted: domain migration moves particles with them, slot
+for slot as JAX does, and the BCA products enter free slots through them
+(``engines.magnetized.make_inject``).
 """
 
 from __future__ import annotations
@@ -44,13 +46,19 @@ def pack_rows(mask: torch.Tensor, fields, cap: int):
     return buffers, n_valid, total - n_valid
 
 
-def place_rows(free_mask: torch.Tensor, new_fields, count, old_fields):
+def place_rows(free_mask: torch.Tensor, new_fields, count, old_fields,
+               valid=None):
     """Place the first ``count`` rows of ``new_fields`` into the free slots
-    of ``old_fields``: the i-th free slot takes the i-th row. ``count`` is
-    an int or a 0-d integer tensor (the JAX function's ``valid`` packing
-    comes with its caller, the BCA coupling of ROADMAP item 14b).
-    Returns (updated_fields, taken_mask, n_placed)."""
+    of ``old_fields``: the i-th free slot takes the i-th row. With
+    ``valid`` ((k,) bool) the rows are packed by it first, so the i-th
+    free slot takes the i-th *valid* row and no invalid row is placed (the
+    BCA products' padded batch). ``count`` is an int or a 0-d integer
+    tensor. Returns (updated_fields, taken_mask, n_placed)."""
     k = new_fields[0].shape[0]
+    if valid is not None:
+        new_fields, n_valid, _ = pack_rows(valid, new_fields, k)
+        count = torch.minimum(torch.as_tensor(count, device=n_valid.device),
+                              n_valid)
     rank = compact_rows(free_mask)
     take = free_mask & (rank < count)
     idx = torch.clamp(rank, 0, k - 1).to(torch.int64)

@@ -6,7 +6,9 @@ The magnetized kernels run at n = 999,996 (bench.py's configs[3] row) and
 a ragged n, ng = 600 (the carried Boris deposit also with a forced
 clamp); the carried domain cycle on the 227-node extended slab of the
 carried carrier; the sheath kernels at n = 1,000,000 (configs[2]) and
-a ragged n, ng = 51 and 11; their tolerances are stated beside each test.
+a ragged n, ng = 51 and 11; the pic_bca_aps step (ppc 20, seeded with
+neutral wall-born rows) against its plain versions, and a checkpoint round
+trip on the card; their tolerances are stated beside each test.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1343,3 +1345,120 @@ def test_domain_one_rank_card_matches_cpu(cuda_device, engine):
         _rel_close(getattr(c, k), getattr(g, k).cpu(), 1e-5)
     if engine == "implicit":
         assert torch.equal(g.picard_iters.cpu(), c.picard_iters)
+
+
+def _bca_draw_hooks(state, cfg, dev):
+    """The source table and ionization uniforms of ``state``'s next step,
+    made on the CPU, as make_step hooks for the CPU and for ``dev``."""
+    from pypic_tpu_torch import sources
+    from pypic_tpu_torch.ops import cuda_rng
+
+    src, grid = cfg.source, cfg.grid
+    step, n = state.step_host, state.p.shape[0]
+    table = sources.sample_source_batch(state.rng, step, n, grid, src.ti,
+                                        src.mass, vx=src.vx, device="cpu")
+    ion = cuda_rng.philox_uniforms(state.rng, step, n, 1, cuda_rng.ION_TAG,
+                                   device="cpu")[0]
+    cpu = dict(source_draws=lambda s, k: table, ion_draws=lambda s, k: ion)
+    card = dict(source_draws=lambda s, k: {a: b.to(dev) for a, b in table.items()},
+                ion_draws=lambda s, k: ion.to(dev))
+    return cpu, card
+
+
+@pytest.mark.cuda
+def test_pic_bca_aps_step_card_matches_cpu(cuda_device):
+    """The pic_bca_aps step ('auto' on the card: fused, the Newton kernel,
+    the gather of the ionization density, two IEAD deposits) against its
+    plain versions on the CPU from pic_bca_aps(ppc=20) seeded with 256
+    neutral wall-born B rows (tools/bca.seeded_state), the same draws:
+    the counts equal (impacts, escapes, re-activations; ionizations up to
+    the straddling draws), active and charge states equal outside the
+    ionization draws within 1e-5 (relative) of their probability (the
+    card's deposit2 flushes with float atomics, so such a draw may decide
+    either way: counted and excluded), rho within 1e-4, phi within 1e-3
+    of their largest, the active rows' positions within rtol 2e-5 / atol
+    1e-5 cells and velocities within rtol 2e-4 / atol 1 m/s (chip_smoke
+    phase 14's limits), the histograms equal; one launch each of gather
+    and philox_uniforms, two of deposit."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.constants import E_CHARGE
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops.ionization import coefficient_table, rate_matrix
+    from pypic_tpu_torch.tools import bca as bca_tool
+
+    pre = presets.pic_bca_aps(ppc=20, device="cpu")
+    st = bca_tool.seeded_state(pre, 256, 16)
+    cfg_cpu = dataclasses.replace(pre.config, backend="fused",
+                                  newton_backend="pallas")
+    hooks_cpu, hooks_card = _bca_draw_hooks(st, pre.config, cuda_device)
+    sc, mc = magnetized.make_step(cfg_cpu, **hooks_cpu)(st)
+    d = interop.magnetized_state_to_numpy(st)
+    before = dict(cuda_cic.LAUNCHES)
+    sg, mg = magnetized.make_step(pre.config, **hooks_card)(
+        interop.magnetized_state_from_numpy(d, cuda_device))
+    torch.cuda.synchronize()
+    grew = {k: cuda_cic.LAUNCHES[k] - before[k] for k in before}
+    assert grew["gather"] == 1 and grew["deposit"] == 2 and grew["deposit2"] == 1
+    assert grew["boris_gather_push"] == 1 and grew["boltzmann_dirichlet"] == 1
+    # the ionization draws within 1e-5 of their probability: the density
+    # the step gathers (the deposit of the starting state) at the new
+    # positions
+    grid, n = cfg_cpu.grid, st.p.shape[0]
+    on = st.active == 1
+    _, n_dens = cuda_cic.deposit2(
+        st.p, torch.where(on, st.charge_state * E_CHARGE * st.p2c / grid.dx, 0.0),
+        torch.where(on, st.p2c / grid.dx, 0.0), grid.ng, periodic=False)
+    table = coefficient_table(rate_matrix(cfg_cpu.species_z, cfg_cpu.te), grid.dx,
+                              cfg_cpu.dt, torch.float32, "cpu")
+    coef = table[st.species_idx.long(),
+                 torch.clamp(st.charge_state.to(torch.int32), 0, 2).long()]
+    prob = ((cic.gather(n_dens, sc.p, periodic=False) * 1e-10) ** 2 * coef
+            / torch.clamp(st.p2c, min=1e-30)).double()
+    u = hooks_cpu["ion_draws"](st.step_host, n).double()
+    draws = on & (st.charge_state < cfg_cpu.max_charge_state) & (coef > 0) & (prob < 1)
+    straddle = draws & ((u - prob).abs() <= 1e-5 * prob)
+    n_straddle = int(straddle.sum())
+    for k in ("n_hit_wall", "n_escaped", "n_reactivated", "n_impacts",
+              "n_escape_rows", "n_active"):
+        assert int(getattr(mg, k)) == int(getattr(mc, k)), k
+    assert abs(int(mg.n_ionized) - int(mc.n_ionized)) <= n_straddle, n_straddle
+    assert int(mc.n_ionized) > 0 and int(mc.n_escaped) > 0
+    differ = ((sg.charge_state.cpu() != sc.charge_state)
+              | (sg.active.cpu() != sc.active))
+    assert int((differ & ~straddle).sum()) == 0, n_straddle
+    for k in ("species_idx", "from_wall"):
+        assert torch.equal(getattr(sg, k).cpu(), getattr(sc, k)), k
+    _rel_close(mc.rho, mg.rho, 1e-4)
+    _rel_close(mc.phi, mg.phi, 1e-3)
+    act = (sc.active == 1) & ~straddle
+    np.testing.assert_allclose(sg.p.cpu()[act].numpy(), sc.p[act].numpy(),
+                               rtol=2e-5, atol=1e-5)
+    for k in ("vx", "vy", "vz"):
+        np.testing.assert_allclose(getattr(sg, k).cpu()[act].numpy(),
+                                   getattr(sc, k)[act].numpy(), rtol=2e-4, atol=1.0,
+                                   err_msg=k)
+    for k in ("iead", "iead_out"):
+        assert torch.equal(getattr(sg, k).cpu(), getattr(sc, k)), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A card state after 3 steps of pic_bca_aps(ppc=20) saved and loaded
+    into a card template: every field bit for bit, the tensors on the
+    card, the key words and host step kept."""
+    from pypic_tpu_torch import checkpoint, interop, presets
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.pic_bca_aps(ppc=20, device=cuda_device)
+    st, _ = run(magnetized.make_step(pre.config), pre.state, 3)
+    path = str(tmp_path / "card.npz")
+    checkpoint.save(path, st, step=3)
+    back, manifest = checkpoint.load(path, pre.state)
+    assert manifest["step"] == 3 and back.step_host == 3 and back.rng == st.rng
+    assert back.p.is_cuda and back.iead.is_cuda
+    a, b = (interop.magnetized_state_to_numpy(x) for x in (st, back))
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

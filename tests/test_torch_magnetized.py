@@ -518,12 +518,7 @@ def test_config_value_errors(kw, match):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(ionization=True), "item 14b"),
-    (dict(reactivate="capped-source"), "item 14b"),
-    (dict(carried_deposit="on", react_batch=64, ionization=True), "item 14b"),
     (dict(react_batch=64, source_sampler="hash"), "item 14b"),
-    (dict(impact_buffer_size=8), "item 14b"),
-    (dict(bca_escape=True), "item 14b"),
     (dict(axis_name="p", source_sampler="hash"), "item 17"),
     (dict(source_sampler="hash"), "item 14b"),
     (dict(source_sampler="threefry"), "item 14b"),
@@ -536,6 +531,31 @@ def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         magnetized.init_state(np.zeros(4), np.zeros((4, 3)), 1.0, 1.0, 1.0,
                               0, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ionization=True),
+    dict(reactivate="capped-source", source_n=300),
+    dict(carried_deposit="on", react_batch=64, ionization=True),
+    dict(impact_buffer_size=8),
+    dict(bca_escape=True),
+], ids=lambda o: "-".join(o))
+def test_pic_bca_aps_options_build(kw):
+    """The options the pic_bca_aps path brought (ionization,
+    'capped-source', the impact rows, the BCA escape, their carried form)
+    build and take a step (tests/test_torch_ionization.py holds them
+    against JAX)."""
+    pre = presets.pic_iead(n_per_species=64, device="cpu")
+    cfg = dc.replace(pre.config, newton_backend="pallas", **kw)
+    st = magnetized.init_state(pre.state.p.numpy() * cfg.grid.dx,
+                               pre.state.v.numpy(), pre.state.m.numpy(),
+                               pre.state.charge_state.numpy(),
+                               pre.state.p2c.numpy(),
+                               pre.state.species_idx.numpy(), cfg,
+                               device="cpu")
+    s1, m = magnetized.make_step(cfg)(st)
+    assert s1.step_host == 1 and bool(torch.isfinite(m.phi).all())
+    assert m.impacts.shape == (cfg.impact_buffer_size, 7)
 
 
 def test_row_tool_runs_on_the_cpu():
