@@ -231,6 +231,17 @@ Phases (any failure raises and the script exits non-zero):
    the loaded state against 3 from the saved one at phase 14's limits
    (the deposits' float atomics: not bit for bit on the card).
 
+35. cli — ``python -m pypic_tpu_torch.cli run`` in subprocesses on the
+   card (phase_cli): landau_damping at n = 1e6, 40 steps with the plots,
+   checkpoints and the profiler, then resumed from step 20; bump_on_tail;
+   sheath_dd with --plot; pic_iead with the plots, the particle dump, the
+   gif and the surface post-process; domain_explicit with the distributed
+   solve and domain_implicit with checkpoints, then resumed, at n = 1e6
+   on one-rank NCCL groups. Each exits 0, writes its files and finite
+   metrics; each preset also runs through runner.run alone here (ms/step,
+   launches); the two Poisson solves' launches and device ms; the
+   histogram helpers on the card against their plain versions.
+
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
 {...}}.
@@ -808,7 +819,7 @@ def rel_err(ref: torch.Tensor, got: torch.Tensor) -> tuple[float, float]:
     return d, d / max(float(ref.double().abs().max()), 1e-300)
 
 
-def phase_device() -> str:
+def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py drives the "
                            "port on an NVIDIA GPU and has no CPU path")
@@ -819,10 +830,11 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, card
 
 
 def phase_build() -> None:
@@ -4396,6 +4408,378 @@ def phase_checkpoint(dev, bca_slice: dict) -> dict:
     return dict(leaves=len(a), resumed_worst=dict(worst))
 
 
+# phase 35: the command line in subprocesses on the card. Resume at the
+# 50-step card-against-CPU limits of the implicit check (field energy
+# 1e-3, kinetic 1e-5; the card's float atomics part the resumed run from
+# the uninterrupted one); the distributed solve's field energy within
+# tests/test_domain.py:662's rtol 2e-3 of the replicated run's
+CLI_STEPS = {"landau_damping": 40, "bump_on_tail": 40, "sheath_dd": 40,
+             "pic_iead": 30, "domain_explicit": 20, "domain_implicit": 20}
+CLI_RESUME_TOL = {"field_energy": 1e-3, "kinetic_energy": 1e-5}
+CLI_DIST_RTOL = 2e-3
+CLI_TIMEOUT_S = 240
+CLI_FILES = ("time.out", "metrics.npz", "metrics.jsonl")
+# the text dumps of the engines with a field-energy metric (not magnetized)
+CLI_TEXT = ("E2.txt", "J.txt", "parameters.out")
+
+
+def _cli_run(label: str, args: list, outdir: str, steps: int,
+             files=CLI_TEXT, env=None, card: str = "") -> dict:
+    """``python -m pypic_tpu_torch.cli run ARGS --outdir OUTDIR`` in a
+    subprocess from this checkout's root (killed at CLI_TIMEOUT_S): exit
+    0, CLI_FILES and ``files``, ``steps`` finite metric rows. Returns its wall s (start-up
+    included), the run's own s (time.out), ms/step, pushes/s (the CLI's
+    particle count, the slots of a domain state), its stderr and rows."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pypic_tpu_torch.cli", "run", *args,
+           "--outdir", outdir]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S,
+                         env=dict(os.environ, **(env or {})))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"cli, {label}: exit {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    missing = [f for f in CLI_FILES + tuple(files)
+               if not os.path.exists(os.path.join(outdir, f))]
+    with open(os.path.join(outdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(outdir, "time.out")) as f:
+        run_s = float(f.read())
+    line = re.search(r"(\d+) steps x (\d+) particles in .*pushes/s\)", res.stderr)
+    problems = [f"missing {missing}"] if missing else []
+    if len(rows) != steps or not all(math.isfinite(v) for r in rows for v in r.values()):
+        problems.append(f"{len(rows)} rows (want {steps}) or a metric not finite")
+    if line is None:
+        problems.append("no pushes/s line on stderr")
+    if problems:
+        raise AssertionError(f"cli, {label}: " + "; ".join(problems)
+                             + f"; stderr: {res.stderr[-2000:]}")
+    n = int(line.group(2))
+    out = dict(wall_s=wall, run_s=run_s, ms_per_step=1e3 * run_s / steps,
+               pushes_per_s=n * steps / run_s, n=n, steps=steps,
+               stderr=res.stderr, rows=rows)
+    log(f"[cli] {label}: exit 0 in {wall:.2f} s wall (start-up included), "
+        f"the run {run_s:.4f} s: {out['ms_per_step']:.4f} ms/step, "
+        f"{out['pushes_per_s']:.4e} pushes/s (n = {n}, {steps} steps; {card})")
+    return out
+
+
+def _runner_alone(name: str, steps: int, dev, profiled: bool = False,
+                  **kw) -> dict:
+    """The same preset through runner.run alone in this process: ``steps``
+    steps from the preset's state (its first steps: what the CLI's run
+    times), then ``steps`` more (warm), each ms/step; the launch counts
+    set to 0 just before the first run and read just after it, and its
+    metric rows. ``profiled``: the warm steps once more under
+    torch.profiler (CPU and CUDA activity, as ``--profile``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pypic_tpu_torch import presets
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.get(name, device=dev, **kw)
+    step = pre.make_step()
+
+    def timed(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = run(step, state, steps)
+        torch.cuda.synchronize()
+        return state, m, 1e3 * (time.perf_counter() - t0) / steps
+
+    cuda_cic.reset_launch_counts()
+    st, m, first = timed(pre.state)
+    launches = {k: c for k, c in cuda_cic.LAUNCHES.items() if c}
+    rows = {k: v.cpu().numpy() for k, v in m._asdict().items()}
+    st, _, warm = timed(st)
+    out = dict(ms_per_step=first, warm_ms_per_step=warm, launches=launches,
+               rows=rows)
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            st, _, out["profiled_ms_per_step"] = timed(st)
+    del pre, st, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernels_a_call(fn, calls: int = 5) -> float:
+    """Device launches (kernels, memsets, copies) of one call of fn, from a
+    torch.profiler trace of ``calls`` calls (a trace may drop launches:
+    the mean over the calls, rounded up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return math.ceil(count / calls)
+
+
+def phase_cli(dev, card: str) -> dict:
+    """The command line (pypic_tpu_torch.cli) in subprocesses on the card:
+    landau_damping at its preset n (1e6) for 40 steps with the plots,
+    checkpoints every 20 and the profiler, then resumed from step 20 for
+    20 steps (the rows held to the uninterrupted run's 20-39 at
+    CLI_RESUME_TOL; the trace names picard_iteration); bump_on_tail for
+    40; sheath_dd for 40 with --plot; pic_iead for 30 with the plots, the
+    particle dump every 10, the gif and the surface post-process (its
+    budget closes); domain_explicit with field_solve='distributed' and
+    domain_implicit with checkpoints every 10, then resumed, at n = 1e6
+    on a one-rank NCCL group of their own. Each preset also runs through
+    runner.run alone in this process (the CLI's own cost, and the kernels
+    the run launched); the distributed run's field energy is held to the
+    replicated run's, the two solves' launches and device ms a call are
+    read. Then the two histogram helpers on the card against their plain
+    versions: equal counts."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from pypic_tpu_torch import checkpoint, diagnostics, presets
+    from pypic_tpu_torch.ops.poisson import solve_periodic_neutralized
+    from pypic_tpu_torch.parallel import make_mesh
+    from pypic_tpu_torch.parallel.distributed_poisson import (
+        make_distributed_periodic_poisson)
+
+    def nccl_env():
+        with socket.socket() as sk:  # any free port on this host
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        return {"PYPIC_COORDINATOR": f"localhost:{port}",
+                "PYPIC_NUM_PROCESSES": "1", "PYPIC_PROCESS_ID": "0"}
+
+    # the figures need matplotlib and imageio, which a card's Python may
+    # lack: then the runs leave out --plot and --gif (the figures are
+    # tested on the CPU, tests/test_torch_cli.py and test_torch_io.py)
+    import importlib.util
+
+    figures = all(importlib.util.find_spec(m) is not None
+                  for m in ("matplotlib", "imageio"))
+    plot = ["--plot"] if figures else []
+    gif = ["--gif"] if figures else []
+    if not figures:
+        log("[cli] this Python has no matplotlib or imageio: the runs leave "
+            "out --plot and --gif and their files")
+
+    def figs(*names):
+        return names if figures else ()
+
+    out, problems = {"figures": figures}, []
+    tmp = tempfile.mkdtemp(prefix="pypic_cli_")
+    try:
+        d = lambda name: os.path.join(tmp, name)  # noqa: E731
+        steps = CLI_STEPS["landau_damping"]
+        la = _cli_run("landau_damping", [
+            "landau_damping", "--steps", str(steps), *plot, "--plot-every",
+            "10", "--checkpoint-every", "20", "--profile", "--clean"],
+            d("landau"), steps, files=CLI_TEXT + figs("summary.png") + (
+                "checkpoints/state_0000000020.npz",
+                "checkpoints/state_0000000040.npz", "checkpoints/final.npz",
+                "profile/trace.json"), card=card)
+        with open(os.path.join(d("landau"), "profile", "trace.json")) as f:
+            if "picard_iteration" not in f.read():
+                problems.append("the landau trace names no picard_iteration")
+        os.makedirs(os.path.join(d("resume"), "checkpoints"))
+        shutil.copy(os.path.join(d("landau"), "checkpoints",
+                                 "state_0000000020.npz"),
+                    os.path.join(d("resume"), "checkpoints"))
+        lr = _cli_run("landau_damping --resume", [
+            "landau_damping", "--steps", "20", "--checkpoint-every", "20",
+            "--resume"], d("resume"), 20, card=card)
+        if "resumed from step 20" not in lr["stderr"]:
+            problems.append("landau resume: no 'resumed from step 20'")
+        gaps = {k: max(abs(b[k] - a[k]) / abs(a[k]) for a, b in
+                       zip(la["rows"][20:], lr["rows"]))
+                for k in CLI_RESUME_TOL}
+        log("[cli] landau resumed rows against the uninterrupted rows 20-39, "
+            "largest relative gap: " + ", ".join(
+                f"{k} {v:.3e} (tol {CLI_RESUME_TOL[k]})" for k, v in gaps.items()))
+        problems += [f"landau resume {k} {v:.3e}" for k, v in gaps.items()
+                     if not v <= CLI_RESUME_TOL[k]]
+        out["landau_damping"] = la
+        out["landau_damping_resume"] = lr
+        out["resume_gaps"] = gaps
+
+        out["bump_on_tail"] = _cli_run("bump_on_tail", [
+            "bump_on_tail", "--steps", str(CLI_STEPS["bump_on_tail"])],
+            d("bump"), CLI_STEPS["bump_on_tail"], card=card)
+        out["sheath_dd"] = _cli_run("sheath_dd", [
+            "sheath_dd", "--steps", str(CLI_STEPS["sheath_dd"]), *plot],
+            d("sheath"), CLI_STEPS["sheath_dd"], card=card)
+        iead = _cli_run("pic_iead", [
+            "pic_iead", "--steps", str(CLI_STEPS["pic_iead"]), *plot,
+            "--bca-postprocess", "--dump-particles", "100", "--dump-every",
+            "10", *gif], d("iead"), CLI_STEPS["pic_iead"], files=figs(
+                "iead.png", "bca_dashboard.png", "phase_space.gif") + (
+                "particle_output.txt", "bca_postprocess.json"), card=card)
+        with open(os.path.join(d("iead"), "particle_output.txt")) as f:
+            dumped = sum(1 for _ in f)
+        if dumped != 3 * 100:
+            problems.append(f"pic_iead dump: {dumped} rows, not 3 frames of 100")
+        with open(os.path.join(d("iead"), "bca_postprocess.json")) as f:
+            budget = json.load(f)
+        if (budget["num_deposited_wall"] + budget["num_reflected_wall"]
+                != budget["num_incident_wall"]):
+            problems.append(f"pic_iead budget does not close: {budget}")
+        log(f"[cli] pic_iead surface budget: {budget}")
+        out["pic_iead"] = iead
+
+        n_dom = 1_000_000
+        dx_run = _cli_run("domain_explicit, field_solve='distributed'", [
+            "domain_explicit", "--particles", str(n_dom), "--steps",
+            str(CLI_STEPS["domain_explicit"]), "--opt",
+            "field_solve=distributed"], d("dist"),
+            CLI_STEPS["domain_explicit"], env=nccl_env(), card=card)
+        if "distributed: process 0 of 1" not in dx_run["stderr"]:
+            problems.append("domain_explicit: no one-rank process group")
+        out["domain_explicit_distributed"] = dx_run
+        di_steps = CLI_STEPS["domain_implicit"]
+        di_run = _cli_run("domain_implicit", [
+            "domain_implicit", "--particles", str(n_dom), "--steps",
+            str(di_steps), "--checkpoint-every", "10", "--clean"],
+            d("dimp"), di_steps, files=CLI_TEXT + (
+                "checkpoints/state_0000000010.npz",
+                "checkpoints/state_0000000020.npz"), env=nccl_env(), card=card)
+        di_res = _cli_run("domain_implicit --resume", [
+            "domain_implicit", "--particles", str(n_dom), "--steps", "10",
+            "--checkpoint-every", "10", "--resume"], d("dimp"), 10,
+            env=nccl_env(), card=card)
+        if "resumed from step 20" not in di_res["stderr"]:
+            problems.append("domain_implicit resume: no 'resumed from step 20'")
+        template = presets.domain_implicit(n=n_dom, device=dev).state
+        loaded, manifest = checkpoint.load(os.path.join(
+            d("dimp"), "checkpoints", "state_0000000020.npz"), template)
+        alive = int(loaded.alive.sum())
+        if manifest["step"] != 20 or alive != n_dom or not loaded.p.is_cuda:
+            problems.append(f"domain_implicit checkpoint: step "
+                            f"{manifest['step']}, {alive} alive")
+        log(f"[cli] domain_implicit checkpoint loads back on the card: step "
+            f"{manifest['step']}, {alive} alive of {int(loaded.p.shape[0])} slots")
+        del template, loaded
+        out["domain_implicit"] = di_run
+        out["domain_implicit_resume"] = di_res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the same presets through runner.run alone (the CLI's own cost)
+    alone = {
+        "landau_damping": _runner_alone("landau_damping", CLI_STEPS["landau_damping"],
+                                        dev, profiled=True),
+        "bump_on_tail": _runner_alone("bump_on_tail", CLI_STEPS["bump_on_tail"], dev),
+        "sheath_dd": _runner_alone("sheath_dd", CLI_STEPS["sheath_dd"], dev),
+        "pic_iead": _runner_alone("pic_iead", CLI_STEPS["pic_iead"], dev),
+        "domain_explicit_distributed": _runner_alone(
+            "domain_explicit", CLI_STEPS["domain_explicit"], dev, n=n_dom,
+            field_solve="distributed"),
+        "domain_explicit_replicated": _runner_alone(
+            "domain_explicit", CLI_STEPS["domain_explicit"], dev, n=n_dom),
+        "domain_implicit": _runner_alone("domain_implicit", di_steps, dev, n=n_dom),
+    }
+    for name, a in alone.items():
+        cli_ms = out[name]["ms_per_step"] if name in out else float("nan")
+        log(f"[cli] {name} through runner.run alone: {a['ms_per_step']:.4f} "
+            f"ms/step its first steps, {a['warm_ms_per_step']:.4f} the next "
+            f"(the CLI's run {cli_ms:.4f}); launches {a['launches']}")
+        if name in out:
+            out[name].update(runner_ms_per_step=a["ms_per_step"],
+                             runner_warm_ms_per_step=a["warm_ms_per_step"],
+                             launches=a["launches"])
+    la_alone = alone["landau_damping"]
+    out["profile_overhead"] = (la_alone["profiled_ms_per_step"]
+                               / la_alone["warm_ms_per_step"] - 1.0)
+    log(f"[cli] torch.profiler's cost on landau_damping's warm steps: "
+        f"{la_alone['profiled_ms_per_step']:.4f} against "
+        f"{la_alone['warm_ms_per_step']:.4f} ms/step "
+        f"({100 * out['profile_overhead']:+.1f}%)")
+    fe_d = [r["field_energy"] for r in out["domain_explicit_distributed"]["rows"]]
+    fe_r = alone["domain_explicit_replicated"]["rows"]["field_energy"]
+    gap = max(abs(a - float(b)) / abs(float(b)) for a, b in zip(fe_d, fe_r))
+    log(f"[cli] field energy of the CLI's distributed run against the "
+        f"replicated run over {len(fe_d)} steps: largest relative gap "
+        f"{gap:.3e} (tol {CLI_DIST_RTOL})")
+    if not gap <= CLI_DIST_RTOL:
+        problems.append(f"distributed field energy gap {gap:.3e}")
+    if alone["domain_explicit_distributed"]["launches"].get("gather") != CLI_STEPS["domain_explicit"]:
+        problems.append("the distributed path launched "
+                        f"{alone['domain_explicit_distributed']['launches']}")
+
+    # the two solves a call: launches and device ms
+    pre = presets.domain_explicit(n=n_dom, device=dev)
+    mesh = make_mesh(device=dev)
+    ng, dx = pre.config.grid.ng, pre.config.grid.dx
+    rho = pre.state.rho
+    dist_solve = make_distributed_periodic_poisson(ng, dx, 1, mesh)
+    solves = {
+        "distributed": lambda: dist_solve(rho),
+        "replicated": lambda: solve_periodic_neutralized(mesh.all_gather(rho), dx),
+    }
+    solve_stats = {k: dict(launches=_kernels_a_call(fn), ms=device_ms(fn))
+                   for k, fn in solves.items()}
+    # both against the float64 FFT solve's zero-mean phi (the float32 FFT
+    # loses digits to rho - <rho>)
+    exact = solve_periodic_neutralized(rho.double(), dx)
+    exact = exact - exact.mean()
+    gaps = {k: float((phi.double() - phi.double().mean() - exact).abs().max()
+                     / exact.abs().max())
+            for k, phi in (("distributed", dist_solve(rho)),
+                           ("replicated", solve_periodic_neutralized(rho, dx)))}
+    phi_gap = gaps["distributed"]
+    log(f"[cli] the Poisson solve a step at ng = {ng}: distributed "
+        f"{solve_stats['distributed']['launches']} launches, "
+        f"{solve_stats['distributed']['ms']:.4f} ms; replicated (FFT) "
+        f"{solve_stats['replicated']['launches']} launches, "
+        f"{solve_stats['replicated']['ms']:.4f} ms; phi against the float64 "
+        f"solve, of its largest: distributed {gaps['distributed']:.3e}, "
+        f"replicated {gaps['replicated']:.3e}")
+    if not phi_gap <= 2e-5:
+        problems.append(f"distributed phi gap {phi_gap:.3e}")
+    del pre, rho
+
+    # the two histogram helpers on the card against their plain versions
+    gen = torch.Generator(device="cpu").manual_seed(35)
+    p = torch.rand(1_000_003, generator=gen) * 2.4 - 0.2
+    v = torch.randn(1_000_003, generator=gen) * 2.0
+    p[:101] = torch.linspace(0.0, 2.0, 101)  # values on edges, the last too
+    hist_ok = []
+    for label, fn in (
+            ("phase_space_histogram", lambda a, b: diagnostics.phase_space_histogram(
+                a, b, 100, 50, (0.0, 2.0), (-8.0, 8.0))),
+            ("velocity_histogram", lambda a, b: diagnostics.velocity_histogram(
+                b, 200, (-8.0, 8.0)))):
+        got = fn(p.to(dev), v.to(dev))
+        ref = fn(p, v)
+        equal = all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        hist_ok.append(equal)
+        log(f"[cli] {label} on the card (row 4's deposit): counts "
+            f"{'equal to' if equal else 'DIFFER from'} the plain version's, "
+            f"{int(got[0].sum())} of {p.shape[0]} in range")
+        if not equal:
+            problems.append(f"{label} counts differ")
+    if problems:
+        raise AssertionError("cli: " + "; ".join(problems))
+    for r in out.values():
+        if isinstance(r, dict):
+            r.pop("stderr", None)
+            r.pop("rows", None)
+    out["solves"] = solve_stats
+    out["phi_gaps"] = gaps
+    out["distributed_field_energy_gap"] = gap
+    out["histograms_equal"] = all(hist_ok)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     walls = {}
 
@@ -4406,7 +4790,7 @@ def main() -> int:
         log(f"[wall] {label}: {walls[label]:.1f} s")
         return out
 
-    name = phase("device", phase_device)
+    name, card = phase("device", phase_device)
     dev = torch.device("cuda", 0)
     phase("build", phase_build)
     k = phase("kernels", phase_kernels, dev)
@@ -4445,6 +4829,7 @@ def main() -> int:
     bs = phase("bca slice", phase_bca_slice, dev)
     ckp = phase("checkpoint", phase_checkpoint, dev, bs)
     dep = phase("deposit times", deposit_times, dev, ms.pop("iead_traffic"))
+    cli = phase("cli", phase_cli, dev, card)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -4607,6 +4992,7 @@ def main() -> int:
                 "total_yield", "n_ionized", "n_escaped", "n_reactivated",
                 "newton_mean", "newton_max")} for k in (1, 10)},
             "check": bc, "checkpoint": ckp},
+        "cli": cli,
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -16,6 +16,15 @@ words, stored as the JAX state stores its key data (two uint32 words;
 state keeps (``step_host``, ``qm_host``) are not stored: the state
 rebuilds them when it is made on load.
 
+The slab-sharded states (``parallel.domain``, ``parallel.domain_implicit``)
+hold one rank's rows. Given the rank's ``mesh``, ``save`` gathers every
+rank's rows in rank order and rank 0 writes one file in JAX's global
+layout: each per-particle leaf (S x capacity,), each slab leaf (ng,), the
+scalars once, the leaf paths and shapes of ``pypic_tpu.checkpoint.save``
+for the JAX preset at the same shards. ``load`` reads that file on every
+rank and keeps the rank's own rows. Every rank calls both. At one rank
+(or without a mesh) nothing is gathered or cut.
+
 A save and a load give every leaf back bit for bit. On the CPU (the plain
 kernel versions, a fixed summation order) a resumed run is bit-exact with
 the uninterrupted one; on the card the deposits add with float atomics,
@@ -62,6 +71,41 @@ def _to_host(leaves):
             else np.asarray(leaf) for leaf in leaves]
 
 
+def _sharded_fields(state, mesh):
+    """The fields of ``state`` whose rows are the rank's own: empty unless
+    it is a slab-sharded state on a mesh of more than one rank."""
+    if mesh is None or mesh.world == 1:
+        return ()
+    from . import interop
+
+    layout = interop.domain_layout(type(state))
+    return () if layout is None else layout[0] + layout[1]
+
+
+def _gathered(state, mesh):
+    """(paths, host arrays) of a state, every sharded leaf joined over
+    the ranks in rank order (a collective: every rank calls it)."""
+    paths, leaves = _flatten_with_paths(state)
+    sharded = _sharded_fields(state, mesh)
+    joined = []
+    for p, leaf in zip(paths, leaves):
+        if p[1:] in sharded:
+            # bool travels as uint8 (NCCL has no bool)
+            whole = mesh.all_gather(leaf.to(torch.uint8) if leaf.dtype == torch.bool
+                                    else leaf)
+            leaf = whole.to(torch.bool) if leaf.dtype == torch.bool else whole
+        joined.append(leaf)
+    return paths, _to_host(joined)
+
+
+def host_arrays(state, mesh=None) -> dict:
+    """{field name: host numpy array} of a state's leaves as ``save``
+    stores them: the sharded leaves joined over the ranks (a collective
+    with a mesh of more than one rank: every rank calls it)."""
+    paths, arrays = _gathered(state, mesh)
+    return {p[1:]: a for p, a in zip(paths, arrays)}
+
+
 def _write_npz(path: str, paths, arrays, step, extra):
     """Atomic tmp + rename .npz write of host arrays (the filesystem half
     of ``save``; the async writer's thread runs it)."""
@@ -85,13 +129,17 @@ def _write_npz(path: str, paths, arrays, step, extra):
             os.unlink(tmp)
 
 
-def save(path: str, state, step: int | None = None, extra: dict | None = None):
-    """Atomically save a port state to ``path`` (an .npz file)."""
-    paths, leaves = _flatten_with_paths(state)
-    _write_npz(path, paths, _to_host(leaves), step, extra)
+def save(path: str, state, step: int | None = None, extra: dict | None = None,
+         mesh=None):
+    """Atomically save a port state to ``path`` (an .npz file). With the
+    ``mesh`` of a slab-sharded state every rank calls it and rank 0
+    writes the joined state."""
+    paths, arrays = _gathered(state, mesh)
+    if mesh is None or mesh.rank == 0:
+        _write_npz(path, paths, arrays, step, extra)
 
 
-def load(path: str, template, migrate: dict | None = None):
+def load(path: str, template, migrate: dict | None = None, mesh=None):
     """Restore a state saved with ``save`` (or by the JAX package's).
 
     Args:
@@ -102,6 +150,9 @@ def load(path: str, template, migrate: dict | None = None):
         migrate: optional {old_leaf_path: fn(array) -> {new_path: array}}
             applied to checkpoint leaves the template no longer has
             (engines declare theirs as ``CHECKPOINT_MIGRATIONS``).
+        mesh: the rank's slab mesh, for a slab-sharded template: each
+            sharded leaf of the file is cut into ``mesh.world`` equal
+            blocks and the rank keeps block ``mesh.rank``.
 
     Returns:
         (state, manifest_dict)
@@ -127,6 +178,15 @@ def load(path: str, template, migrate: dict | None = None):
         for old, fn in migrate.items():
             if old in by_path and old not in paths:
                 by_path.update(fn(by_path.pop(old)))
+    for name in _sharded_fields(template, mesh):
+        arr = by_path.get("." + name)
+        if arr is None:
+            continue
+        if arr.shape[0] % mesh.world:
+            raise ValueError(f"leaf .{name}: {arr.shape[0]} rows do not split "
+                             f"into {mesh.world} ranks")
+        k = arr.shape[0] // mesh.world
+        by_path["." + name] = arr[mesh.rank * k:(mesh.rank + 1) * k]
     # a leaf the template does not know is a rename or another engine's
     # state: refuse rather than mix states
     unknown = sorted(set(by_path) - set(paths))
@@ -163,7 +223,7 @@ class CheckpointManager:
 
     def __init__(self, directory: str, every: int = 100, keep: int = 3,
                  prefix: str = "state", async_write: bool = False,
-                 extra: dict | None = None):
+                 extra: dict | None = None, mesh=None):
         """``async_write=True`` moves the npz compression and the write to
         one background thread: ``maybe_save`` copies the leaves to the
         host (the only device-synchronous part) and returns while the
@@ -172,8 +232,12 @@ class CheckpointManager:
         bounds the extra host memory to one state); a writer's error is
         raised on the next save, ``wait()`` or ``restore``, never lost.
         The write stays atomic. ``extra`` goes into every manifest as it
-        is (run provenance)."""
+        is (run provenance). ``mesh``: a slab-sharded state's mesh, as in
+        ``save`` and ``load``: every rank calls ``maybe_save`` and
+        ``restore``; rank 0 writes and prunes."""
         self.directory = directory
+        self.mesh = mesh
+        self._writer = mesh is None or mesh.rank == 0
         self.extra = extra
         self.every = int(every)
         self.keep = int(keep)
@@ -200,16 +264,20 @@ class CheckpointManager:
         if step // self.every <= self._last_saved // self.every:
             return False
         if self._executor is None:
-            save(self._path(step), state, step=step, extra=self.extra)
+            save(self._path(step), state, step=step, extra=self.extra,
+                 mesh=self.mesh)
             self._last_saved = step
-            self._gc()
+            if self._writer:
+                self._gc()
             return True
         # async: finish (and error-check) the previous write, copy the
         # leaves to the host, hand the write and gc to the worker
         self.wait()
-        paths, leaves = _flatten_with_paths(state)
-        arrays = _to_host(leaves)
+        paths, arrays = _gathered(state, self.mesh)
         path = self._path(step)
+        if not self._writer:
+            self._last_saved = step
+            return True
 
         def _task():
             _write_npz(path, paths, arrays, step, self.extra)
@@ -261,4 +329,5 @@ class CheckpointManager:
             step = self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        return load(self._path(step), template, migrate=migrate)
+        return load(self._path(step), template, migrate=migrate,
+                    mesh=self.mesh)

@@ -1,19 +1,46 @@
-"""Diagnostics: rate fits over metric time series (the counterpart of
-``pypic_tpu/diagnostics.py`` ``growth_rate_from_energy`` and
-``damping_rate_from_peaks``) and the comparison of two runs' Picard
-counts. numpy in, numpy out; a tensor argument is copied to the host
-first.
+"""Diagnostics (the counterpart of ``pypic_tpu/diagnostics.py``):
+
+* ``first_peak_index``, ``growth_rate_from_energy``,
+  ``damping_rate_from_peaks``: analysis of metric time series (numpy in,
+  numpy out; a tensor argument is copied to the host first);
+* ``phase_space_histogram`` / ``velocity_histogram``: the summary plot's
+  reductions (pypic.py:583, 592) on the tensors' device, with the bins of
+  ``jnp.histogram2d`` and ``jnp.histogram``; the counts go through
+  ``ops.cic.histogram_add`` (row 4's deposit kernel on the card);
+* ``write_run_outputs``: the end-of-run text dumps E2.txt, J.txt and
+  parameters.out (pypic.py:637-648);
+* ``picard_counts_agree``, ``floor_exit_counts_agree``: the comparison of
+  two runs' Picard counts.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
+
+# float32 counts are exact while every bin holds fewer than 2^24: a sum at
+# 2^24 may already have rounded (2^24 + 1 reads 2^24)
+EXACT_COUNT = 2 ** 24
 
 
 def _as_f64(series) -> np.ndarray:
     if hasattr(series, "detach"):
         series = series.detach().cpu().numpy()
     return np.asarray(series, np.float64)
+
+
+def first_peak_index(energy, dt: float) -> int:
+    """Index of the first local maximum of a time series (pypic.py:599-611:
+    sign change of the centered time derivative with positive left slope)."""
+    e = _as_f64(energy)
+    de = np.gradient(e, dt)
+    prod = de[1:] * de[:-1]
+    for s in range(len(prod)):
+        if prod[s] < 0.0 and de[s] > 0.0:
+            return s + 1
+    return 0
 
 
 def growth_rate_from_energy(energy, dt: float, saturation_frac: float = 0.5):
@@ -43,6 +70,82 @@ def damping_rate_from_peaks(energy, dt: float, t_max: float | None = None,
     if len(peaks) < 3:
         raise ValueError(f"only {len(peaks)} envelope peaks found")
     return np.polyfit(t[peaks], np.log(e[peaks]), 1)[0] / 2.0
+
+
+def _edges(lo, hi, bins: int, device) -> torch.Tensor:
+    """float32 bin edges as JAX's ``jnp.linspace`` gives them on the CPU
+    for a float32 sample: XLA folds the division by bins into a float32
+    reciprocal r and contracts the last multiply-add, so edge i is
+    fma(i, hi r, lo (1 - i r)) (the fused add done here in float64, where
+    the product is exact), and the last edge is hi itself. An edge may
+    still differ from JAX's in its last bit where XLA's vector code orders
+    the operations otherwise (1 in 50 random ranges, at the second edge)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    lo, hi = torch.tensor(float(lo), **f32), torch.tensor(float(hi), **f32)
+    r = torch.tensor(1.0, **f32) / torch.tensor(float(bins), **f32)
+    i = torch.arange(bins, **f32)
+    inner = (i.double() * (hi * r).double()
+             + (lo * (1.0 - i * r)).double()).to(torch.float32)
+    return torch.cat([inner, hi.reshape(1)])
+
+
+def _bin_index(a: torch.Tensor, edges: torch.Tensor):
+    """numpy's rule: bin k holds edges[k] <= a < edges[k + 1], the last bin
+    is closed on the right, and a value outside the range is dropped.
+    Returns (bin clipped into range, kept mask)."""
+    bins = edges.shape[0] - 1
+    k = torch.searchsorted(edges, a, right=True) - 1
+    k = torch.where(a == edges[-1], bins - 1, k)
+    keep = (k >= 0) & (k < bins)
+    return torch.clamp(k, 0, bins - 1), keep
+
+
+def _counts(idx: torch.Tensor, keep: torch.Tensor, nbins: int) -> torch.Tensor:
+    """float32 counts of the kept indices by ``histogram_add``; raises when
+    a bin may have passed the exact range (checked by one host read, and
+    only when there are EXACT_COUNT inputs or more)."""
+    from .ops.cic import histogram_add
+
+    h = histogram_add(idx, keep.to(torch.float32), nbins)
+    if idx.numel() >= EXACT_COUNT and float(h.max()) >= EXACT_COUNT:
+        raise OverflowError(
+            f"a bin holds {float(h.max()):.0f} counts: float32 counts are "
+            f"exact only below {EXACT_COUNT}")
+    return h
+
+
+def phase_space_histogram(p, v, ng_x: int, nv: int, x_range, v_range):
+    """2D (x, v) histogram, the reference's hist2d panel (pypic.py:583):
+    (counts (ng_x, nv) float32, x edges, v edges), all on p's device, with
+    the bins of ``jnp.histogram2d(p, v, bins=(ng_x, nv), range=...)``."""
+    p = torch.as_tensor(p).to(torch.float32).reshape(-1)
+    v = torch.as_tensor(v, device=p.device).to(torch.float32).reshape(-1)
+    xe = _edges(*x_range, ng_x, p.device)
+    ve = _edges(*v_range, nv, p.device)
+    ix, keep_x = _bin_index(p, xe)
+    iv, keep_v = _bin_index(v, ve)
+    h = _counts(ix * nv + iv, keep_x & keep_v, ng_x * nv)
+    return h.reshape(ng_x, nv), xe, ve
+
+
+def velocity_histogram(v, bins: int, v_range):
+    """(counts (bins,) float32, edges) on v's device, with the bins of
+    ``jnp.histogram(v, bins=bins, range=v_range)``."""
+    v = torch.as_tensor(v).to(torch.float32).reshape(-1)
+    edges = _edges(*v_range, bins, v.device)
+    k, keep = _bin_index(v, edges)
+    return _counts(k, keep, bins), edges
+
+
+def write_run_outputs(directory: str, energy, current, params: dict):
+    """End-of-run text dumps (pypic.py:637-648): E2.txt, J.txt,
+    parameters.out."""
+    os.makedirs(directory, exist_ok=True)
+    np.savetxt(os.path.join(directory, "E2.txt"), np.asarray(energy))
+    np.savetxt(os.path.join(directory, "J.txt"), np.asarray(current))
+    with open(os.path.join(directory, "parameters.out"), "w") as f:
+        for key, value in params.items():
+            print(key, value, file=f)
 
 
 def picard_counts_agree(iters_a, resid_a, iters_b, resid_b,

@@ -316,15 +316,16 @@ def run_bca_from_iead(
         step_fn: optional prebuilt step; ``magnetized.make_step(cfg)`` by
             default (the tests pass the port's step fed the JAX draws).
         reshard: re-placing the injected state on a mesh; the port's
-            data-parallel engine is ROADMAP item 17, so it must be None.
+            slab-sharded magnetized engine is ROADMAP item 17b, so it
+            must be None.
 
     Returns:
         (final_state, BCAStats, metrics_list) like ``run_bca``.
     """
     if reshard is not None:
         raise NotImplementedError(
-            "reshard is not ported yet: see ROADMAP.md queue 1, item 17, "
-            "parallel, on torch.distributed")
+            "reshard is not ported yet: see ROADMAP.md queue 1, item 17b, "
+            "the bounded slab engines")
     if cfg.iead_energy_max <= 0.0:
         raise ValueError(
             "cfg.iead_energy_max must be > 0 (IEAD accumulation drives the "

@@ -116,8 +116,8 @@ def _check_ported(cfg: ExplicitConfig) -> None:
             "gated off")
     if cfg.axis_name is not None:
         raise NotImplementedError(
-            "axis_name is not ported yet: see ROADMAP.md queue 1, item 17, "
-            "parallel, on torch.distributed")
+            "axis_name is not ported yet: see ROADMAP.md queue 1, item 17a, "
+            "data parallel")
 
 
 def _field(rho, dx: float):

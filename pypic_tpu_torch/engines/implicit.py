@@ -182,7 +182,7 @@ def _check_ported(cfg: ImplicitConfig) -> None:
             cfg.picard_accel == "anderson2",
             "item 18, options measured negative or gated off"),
         "axis_name": (cfg.axis_name is not None,
-                      "item 17, parallel, on torch.distributed"),
+                      "item 17a, data parallel"),
     }
     for what, (hit, item) in todo.items():
         if hit:

@@ -356,7 +356,7 @@ CHECKPOINT_MIGRATIONS = {
 
 
 _ITEM_SAMPLERS = "item 14b step 6, the 'hash' and 'threefry' samplers"
-_ITEM_PARALLEL = "item 17, parallel, on torch.distributed"
+_ITEM_PARALLEL = "item 17a, data parallel"
 _ITEM_GATED = "item 18, options measured negative or gated off"
 
 

@@ -187,7 +187,14 @@ class StepMetrics(NamedTuple):
     phi: torch.Tensor  # (ng,) potential from integrated E
 
 
-_ITEM_PARALLEL = "see ROADMAP.md queue 1, item 17, parallel, on torch.distributed"
+# checkpoints of older JAX states stored the (n, 3) ``v`` leaf; split it on
+# restore (checkpoint.load(migrate=...), wired up by the CLI's --resume)
+CHECKPOINT_MIGRATIONS = {
+    ".v": lambda a: {".u": a[:, 0], ".vy": a[:, 1], ".vz": a[:, 2]},
+}
+
+
+_ITEM_PARALLEL = "see ROADMAP.md queue 1, item 17a, data parallel"
 _ITEM_GATED = "see ROADMAP.md queue 1, item 18, options measured negative or gated off"
 _ITEM_F64 = "see ROADMAP.md queue 1, item 19, f64 particle state"
 

@@ -126,6 +126,14 @@ _DOMAIN_SLAB = {DomainState: ("rho",),
                 DomainImplicitState: ("e", "j", "e_prev", "e_prev2")}
 
 
+def domain_layout(cls):
+    """(per-particle fields, slab fields) of a slab-sharded state class,
+    the fields a rank holds its own rows of; None for any other state."""
+    if cls not in _DOMAIN_SLAB:
+        return None
+    return _DOMAIN_PARTICLE, _DOMAIN_SLAB[cls]
+
+
 def _domain_from_numpy(cls, d: dict, num_shards: int, device) -> list:
     slabs = _DOMAIN_SLAB[cls]
     missing = [k for k in _DOMAIN_PARTICLE + _DOMAIN_SCALAR + slabs

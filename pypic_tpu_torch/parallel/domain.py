@@ -24,11 +24,14 @@ charge. One rank runs the whole domain on one card with no migration and
 no collective. With ``carried_rho='on'`` the step solves from that carried
 charge and the whole particle cycle is one sweep
 (``cuda_domain.explicit_domain_cycle``: gather, push and the deposit of
-the new positions onto the halo-extended slab for the next step).
+the new positions onto the halo-extended slab for the next step). With
+``field_solve='distributed'`` each rank solves its own slab
+(``parallel.distributed_poisson``) and the step stays composed, as in
+JAX: the ``gather`` kernel on the halo-extended slab field and a PyTorch
+leapfrog.
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
-``field_solve='distributed'`` (item 17) and ``make_superstep`` /
-``migrate_every > 1`` (item 18).
+``make_superstep`` / ``migrate_every > 1`` (item 18).
 """
 
 from __future__ import annotations
@@ -96,6 +99,11 @@ class DomainConfig:
             raise ValueError(f"unknown field_solve {self.field_solve!r}")
         if self.push_backend not in ("auto", "fused", "composed"):
             raise ValueError(f"unknown push_backend {self.push_backend!r}")
+        if self.push_backend == "fused" and self.field_solve != "replicated":
+            # the fused kernel gathers a periodic global field; the
+            # distributed solve leaves a bounded slab field
+            raise ValueError("push_backend='fused' requires "
+                             "field_solve='replicated'")
 
     @property
     def cells_per_shard(self) -> int:
@@ -107,13 +115,11 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
 
 
-_ITEM17 = "item 17, parallel, on torch.distributed"
+_ITEM17A = "item 17a, data parallel"
 _ITEM18 = "item 18, options measured negative or gated off"
 
 
 def _check_ported(cfg: DomainConfig) -> None:
-    if cfg.field_solve == "distributed":
-        raise _not_ported("field_solve='distributed'", _ITEM17)
     if cfg.deposit_method != "auto":
         raise _not_ported(f"deposit_method={cfg.deposit_method!r}", _ITEM18)
 
@@ -292,6 +298,11 @@ def slab_owner(x, cfg) -> torch.Tensor:
     return torch.clamp(cell // cfg.cells_per_shard, 0, cfg.num_shards - 1)
 
 
+# JAX's particle block (pallas_cic._DEFAULT_BLOCK): large capacities
+# round up to it
+CAPACITY_BLOCK = 16384
+
+
 def distribute_by_slab(arrays, x, cfg, capacity_factor: float = 1.5,
                        shards=None):
     """Lay out per-particle tensors as (len(shards), capacity) blocks by
@@ -299,12 +310,16 @@ def distribute_by_slab(arrays, x, cfg, capacity_factor: float = 1.5,
     device (a load on the card never passes through numpy). ``shards``
     defaults to every shard. Returns (blocks, alive, capacity).
 
-    The port's capacity rule: ceil(largest slab count x capacity_factor).
-    (JAX aligns it to its kernels' particle block, a TPU layout the port
-    does not copy; ``interop`` keeps JAX's capacity.)"""
+    The capacity is JAX's: ceil(largest slab count x capacity_factor),
+    rounded up to a multiple of 16,384 from 131,072 on and of 128 below
+    (JAX's kernel block and lane width). The port's kernels need neither;
+    the rule keeps a rank's rows where JAX keeps its shard's, so a
+    checkpoint of either package has the other's shapes."""
     owner = slab_owner(x, cfg)
     counts = torch.bincount(owner, minlength=cfg.num_shards).tolist()
     capacity = max(1, math.ceil(max(counts) * capacity_factor))
+    align = CAPACITY_BLOCK if capacity >= 8 * CAPACITY_BLOCK else 128
+    capacity = -(-capacity // align) * align
     shards = range(cfg.num_shards) if shards is None else list(shards)
     outs = []
     for a in arrays:
@@ -406,10 +421,16 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
     hw = cfg.halo
     ext_n = c + 2 * hw + 1
     d = mesh.rank
+    distributed = cfg.field_solve == "distributed"
     fuse = cfg.push_backend == "fused" or (
-        cfg.push_backend == "auto" and mesh.device.type == "cuda")
+        cfg.push_backend == "auto" and mesh.device.type == "cuda"
+        and not distributed)
     carried = cfg.carried_rho == "on"
     weights = slot_weights()
+    if distributed:
+        from .distributed_poisson import make_distributed_periodic_poisson
+
+        dist_solve = make_distributed_periodic_poisson(ng, dx, d_tot, mesh)
 
     def solve(rho_own):
         """The replicated periodic solve from this rank's slab: E on the
@@ -443,16 +464,27 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
             # wherever they are
             p_ext = torch.clamp(state.p - (lo - hw), 0.0, float(c + 2 * hw))
             rho_ext = deposit(p_ext, w, ext_n, periodic=False)
-            e_full, e_energy = solve(halo_fold(rho_ext, c, hw, mesh))
+            rho_own = halo_fold(rho_ext, c, hw, mesh)
             rho_next = state.rho
             n_clamped = torch.zeros((), dtype=torch.int32, device=alive.device)
+            if distributed:
+                # the slab's own solve; E by a centered difference over a
+                # one-node halo of phi (E does not see the gauge), gathered
+                # from the slab field extended by the deposit's halo
+                phi_ext = halo_extend(dist_solve(rho_own), 1, mesh)
+                e_own = -(phi_ext[2:c + 2] - phi_ext[:c]) / (2.0 * dx)
+                e_energy = mesh.all_reduce_sum(torch.sum(e_own * e_own))
+                e_field, e_pos, periodic = halo_extend(e_own, hw, mesh), p_ext, False
+            else:
+                e_full, e_energy = solve(rho_own)
+                e_field, e_pos, periodic = e_full, state.p, True
             if fuse:
                 # the kernel takes the wrapped position mod ng itself
                 p1, v1 = cuda_domain.leapfrog_gather_push(
                     e_full, state.p, state.v, qm=float(qm), dt=dt, dx=dx)
             else:
                 e_p = torch.where(
-                    alive, gather(e_full, state.p, periodic=True), 0.0)
+                    alive, gather(e_field, e_pos, periodic=periodic), 0.0)
                 p1, v1 = leapfrog_push(state.p, state.v, e_p, qm_t, dt, dt_dx)
                 p1 = torch.remainder(p1, ng)
         v1 = torch.where(alive, v1, 0.0)

@@ -38,7 +38,7 @@ With more than one rank, ``migrate`` reads its counts once a round.
 Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
 ``make_superstep``, ``finalize_field != 'last'``,
 ``picard_accel='anderson2'`` (item 18); ``dp_axis_name`` and
-``num_replicas > 1`` (item 17).
+``num_replicas > 1`` (item 17a).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from ..ops.accel import anderson_mix, damped_mix, mix_init
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic
 from ..ops.poisson import solve_periodic_neutralized
-from .domain import (_ITEM17, _ITEM18, _check_mesh, _not_ported,
+from .domain import (_ITEM17A, _ITEM18, _check_mesh, _not_ported,
                      distribute_by_slab, halo_extend, halo_fold, migrate,
                      slot_weights)
 from .mesh import SlabMesh
@@ -192,7 +192,7 @@ class StepMetrics(NamedTuple):
 def _check_ported(cfg: DomainImplicitConfig) -> None:
     todo = {
         "dp_axis_name / num_replicas > 1": (
-            cfg.dp_axis_name is not None or cfg.num_replicas > 1, _ITEM17),
+            cfg.dp_axis_name is not None or cfg.num_replicas > 1, _ITEM17A),
         f"finalize_field={cfg.finalize_field!r}": (
             cfg.finalize_field != "last", _ITEM18),
         "picard_accel='anderson2'": (cfg.picard_accel == "anderson2", _ITEM18),

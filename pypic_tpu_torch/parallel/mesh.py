@@ -18,7 +18,7 @@ mesh, as JAX's ``make_mesh`` over one device: every collective is then
 the identity (the ring neighbour is the rank itself, as with
 ``ppermute`` there) and launches nothing.
 
-``make_mesh2`` and the replica axis come with ROADMAP queue 1 item 17.
+``make_mesh2`` and the replica axis come with ROADMAP queue 1 item 17a.
 """
 
 from __future__ import annotations

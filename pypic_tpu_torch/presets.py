@@ -4,6 +4,7 @@ Ported so far, with the same defaults:
 
 * ``landau_damping`` — pypic.py:846-855 ("landau-damping best params")
 * ``two_stream``     — pypic.py:822-832 (commented two-stream block)
+* ``bump_on_tail``   — pypic.py:834-843 (bump-on-tail block)
 * ``explicit_landau`` — pypic.py:667-677 (gen-3 explicit landau block)
 * ``sheath_dd``      — PIC_L_DD.py:316-341 (bounded two-species sheath
   with absorbing walls; BASELINE configs[2]'s physics)
@@ -22,9 +23,9 @@ Ported so far, with the same defaults:
 * ``domain_explicit`` — the explicit cycle on the same workload
   (``parallel.domain``)
 
-``PRESETS`` maps their names to the functions above and ``get`` makes
-one by name, as in the JAX package. ``bump_on_tail`` and ``pic_iead_dd``
-come with their options and engines.
+``PRESETS`` maps their names to the functions above, in the JAX
+package's order, and ``get`` makes one by name, as in the JAX package.
+``pic_iead_dd`` comes with its engine (ROADMAP queue 1, item 17b).
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -105,6 +106,25 @@ def two_stream(n: int = 1_000_000, ng: int = 50, seed: int = 1,
     st = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=device)
     return Preset("two_stream", implicit, cfg, st,
                   dict(params=params, system="two-stream"))
+
+
+def bump_on_tail(n: int = 1_000_000, ng: int = 50, seed: int = 1,
+                 device=None, **kw) -> Preset:
+    """pypic.py:834-843: density 1e5, perturbation 0.1, dt 1e-5,
+    Ti = Te = 0.1*11600 K, L = 30 LD."""
+    density, te, ti = 1e5, 0.1 * EV_TO_K, 0.1 * EV_TO_K
+    length = 30.0 * _debye(te, density)
+    grid = GridSpec(ng, length, "periodic")
+    x, v, params = initialize.initialize_periodic(
+        "bump-on-tail", n, density, 1, 0.1, grid, te, ti, seed=seed
+    )
+    cfg = implicit.ImplicitConfig(
+        grid, 1e-5, params.p2c, tol=kw.get("tol", 1e-3),
+        maxiter=kw.get("maxiter", 20),
+    )
+    st = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=device)
+    return Preset("bump_on_tail", implicit, cfg, st,
+                  dict(params=params, system="bump-on-tail"))
 
 
 def explicit_landau(n: int = 100_000, ng: int = 100, seed: int = 1,
@@ -344,22 +364,27 @@ def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
                     shards: int | None = None, device=None, mesh=None,
                     **kw) -> Preset:
     """The explicit leapfrog cycle (PIC_L.py:762-768) domain-decomposed
-    over the slab mesh on ``domain_implicit``'s workload: halo 0 (the
-    per-step path), migrate_cap = max(4096, 4 n / ng), the replicated
-    solve. The superstep, the distributed solve and the carried rho raise
-    (items 17 and 18)."""
+    over the slab mesh on ``domain_implicit``'s workload, as
+    ``pypic_tpu.presets`` builds it: migrate_cap = max(4096, 4 n / ng),
+    the replicated solve unless ``field_solve='distributed'``; halo 0,
+    or with ``carried_rho='on'`` one covering an 8-sigma excursion a step
+    (it deposits the pushed positions). The superstep raises (item 18)."""
     from .parallel import domain as dom
     from .parallel.domain import _ITEM18, _not_ported
 
     if kw.get("migrate_every", 1) != 1:
         raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
-    grid, x, v, params, mesh, _ = _domain_load(n, ng, seed, device, mesh)
+    grid, x, v, params, mesh, sigma_cells = _domain_load(n, ng, seed,
+                                                         device, mesh)
     n_dev = int(shards) if shards else mesh.world
+    carried = kw.get("carried_rho", "off")
+    halo = (min(ng // n_dev - 1, max(4, int(np.ceil(8.0 * sigma_cells))))
+            if carried == "on" else 0)
     cfg = dom.DomainConfig(
-        grid, 1e-5, params.p2c, num_shards=n_dev, halo=0,
+        grid, 1e-5, params.p2c, num_shards=n_dev, halo=halo,
         migrate_cap=max(4096, 4 * (n // ng)),
         field_solve=kw.get("field_solve", "replicated"),
-        carried_rho=kw.get("carried_rho", "off"),
+        carried_rho=carried,
     )
     st = dom.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
     return Preset("domain_explicit", dom, cfg, st,
@@ -370,6 +395,7 @@ def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
 PRESETS: Dict[str, Callable[..., Preset]] = {
     "landau_damping": landau_damping,
     "two_stream": two_stream,
+    "bump_on_tail": bump_on_tail,
     "explicit_landau": explicit_landau,
     "sheath_dd": sheath_dd,
     "pic_iead": pic_iead,

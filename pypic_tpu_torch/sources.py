@@ -20,7 +20,7 @@ batch drawn on the state's device:
 
 'auto' resolves to these two. The JAX package's 'threefry' sampler draws
 from ``jax.random``, whose streams PyTorch cannot reproduce, and its
-'hash' sampler exists for data-parallel runs (ROADMAP queue 1, item 17):
+'hash' sampler exists for data-parallel runs (ROADMAP queue 1, item 17a):
 both raise in the engine. Tests that compare the engine with the JAX
 package replay the JAX draws instead (``engines.magnetized.
 make_step(source_draws=...)``).

@@ -15,7 +15,8 @@ import torch
 
 from pypic_tpu_torch import interop
 from pypic_tpu_torch.grid import GridSpec
-from pypic_tpu_torch.parallel import domain, domain_implicit
+from pypic_tpu_torch.parallel import (distributed_poisson, domain,
+                                      domain_implicit)
 
 
 def batch(mesh, jobs):
@@ -83,3 +84,56 @@ def prime(mesh, state, grid, cfg):
                                           mesh.device)[mesh.rank]
     st = domain.prime_rho(st.replace(rho=torch.zeros_like(st.rho)), cfg, mesh)
     return st.rho.cpu().numpy()
+
+
+def _own(mesh, a):
+    c = a.shape[0] // mesh.world
+    return torch.from_numpy(a[mesh.rank * c:(mesh.rank + 1) * c].copy())
+
+
+def periodic_poisson(mesh, rho, dx):
+    """make_distributed_periodic_poisson on this rank's slab of the (ng,)
+    ``rho``: this rank's slab of phi."""
+    solve = distributed_poisson.make_distributed_periodic_poisson(
+        rho.shape[0], dx, mesh.world, mesh)
+    return solve(_own(mesh, rho)).numpy()
+
+
+def tridiag_chain(mesh, dl, d, du, f):
+    """make_distributed_tridiag_chain on this rank's slabs of the global
+    (ng,) diagonals and right-hand side: this rank's slab of x."""
+    solve = distributed_poisson.make_distributed_tridiag_chain(
+        d.shape[0] // mesh.world, mesh.world, mesh)
+    return solve(*(_own(mesh, a) for a in (dl, d, du, f))).numpy()
+
+
+def cli(mesh, argv):
+    """``pypic_tpu_torch.cli.main(argv)`` on this rank (the process group
+    is the spawn's); returns the paths this rank opened for writing or
+    renamed into place (the checkpoints' atomic writes)."""
+    import builtins
+    import io
+    import os
+
+    from pypic_tpu_torch import cli as tcli
+
+    written = []
+    real_open, real_replace = builtins.open, os.replace
+
+    def recording_open(file, mode="r", *args, **kw):
+        if any(ch in mode for ch in "wax+") and not isinstance(file, int):
+            written.append(str(file))  # (a descriptor: a file named before)
+        return real_open(file, mode, *args, **kw)
+
+    def recording_replace(src, dst, **kw):
+        written.append(str(dst))
+        return real_replace(src, dst, **kw)
+
+    builtins.open = io.open = recording_open
+    os.replace = recording_replace
+    try:
+        tcli.main(argv)
+    finally:
+        builtins.open = io.open = real_open
+        os.replace = real_replace
+    return written

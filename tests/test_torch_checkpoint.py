@@ -254,3 +254,29 @@ def test_run_bca_checkpoints_every_boundary(tmp_path):
         raw = json.loads(str(data["__manifest__"]))
     assert raw["format_version"] == 2 and raw["step"] == 9
     assert raw["leaf_paths"][0] == ".p" and ".rng" in raw["leaf_paths"]
+
+
+def test_sheath_checkpoint_migrations_split_stacked_v(tmp_path):
+    """A sheath_dd checkpoint in the older layout (one (n, 3) ``.v`` leaf in
+    place of ``.u``, ``.vy``, ``.vz``) restores through the sheath
+    engine's CHECKPOINT_MIGRATIONS, whose keys are JAX's; without them
+    the unknown leaf is refused."""
+    from pypic_tpu.engines import sheath as jsheath
+
+    from pypic_tpu_torch.engines import sheath
+
+    st0 = presets.sheath_dd(n=600, device="cpu").state
+    paths, leaves = checkpoint._flatten_with_paths(st0)
+    arrays = dict(zip(paths, checkpoint._to_host(leaves)))
+    old = {p: a for p, a in arrays.items() if p not in (".u", ".vy", ".vz")}
+    old[".v"] = np.stack([arrays[".u"], arrays[".vy"], arrays[".vz"]], -1)
+    path = str(tmp_path / "old_sheath.npz")
+    checkpoint._write_npz(path, list(old), list(old.values()), 0, None)
+    template = presets.sheath_dd(n=600, seed=4, device="cpu").state
+    with pytest.raises(ValueError, match="not in the template"):
+        checkpoint.load(path, template)
+    st, _ = checkpoint.load(path, template,
+                            migrate=sheath.CHECKPOINT_MIGRATIONS)
+    for k in ("u", "vy", "vz", "p", "active"):
+        np.testing.assert_array_equal(getattr(st, k).numpy(), arrays["." + k])
+    assert set(sheath.CHECKPOINT_MIGRATIONS) == set(jsheath.CHECKPOINT_MIGRATIONS)

@@ -1462,3 +1462,64 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
     a, b = (interop.magnetized_state_to_numpy(x) for x in (st, back))
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _cli_rows(outdir):
+    import json
+
+    with open(outdir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("argv", [
+    ["two_stream", "--particles", "20000", "--plot-every", "5"],
+    ["domain_explicit", "--particles", "100000", "--opt",
+     "field_solve=distributed"],
+], ids=["two_stream", "domain_explicit distributed"])
+def test_cli_on_the_card_matches_cpu(cuda_device, tmp_path, argv):
+    """``pypic_tpu_torch.cli run`` on the card against ``--device cpu``
+    over 10 steps: the same files, and the field and kinetic energies at
+    the 50-step card-against-CPU limits of chip_smoke.py's implicit check
+    (1e-3, 1e-5: the deposits' float atomics part the runs)."""
+    from pypic_tpu_torch.cli import main
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = tmp_path / dev
+        main(["run", *argv, "--steps", "10", "--checkpoint-every", "5",
+              "--device", dev, "--outdir", str(out[dev])])
+    files = [sorted(p.relative_to(out[dev]).as_posix()
+                    for p in out[dev].rglob("*") if p.is_file())
+             for dev in ("cuda", "cpu")]
+    assert files[0] == files[1]
+    card, cpu = _cli_rows(out["cuda"]), _cli_rows(out["cpu"])
+    assert len(card) == len(cpu) == 10
+    for key, rtol in (("field_energy", 1e-3), ("kinetic_energy", 1e-5)):
+        np.testing.assert_allclose([r[key] for r in card],
+                                   [r[key] for r in cpu], rtol=rtol)
+    assert all(r.get("n_dropped", 0) == 0 for r in card)
+
+
+@pytest.mark.cuda
+def test_histograms_on_the_card_equal_the_plain_counts(cuda_device):
+    """diagnostics' histograms through row 4's deposit kernel on the card
+    (one lane column) against the plain version on the CPU: counts equal,
+    they are integers; edges equal."""
+    from pypic_tpu_torch import diagnostics
+
+    rng = np.random.default_rng(4)
+    p = torch.from_numpy(rng.uniform(-0.2, 2.2, 1_000_003).astype(np.float32))
+    v = torch.from_numpy(rng.normal(0, 2.0, 1_000_003).astype(np.float32))
+    before = cuda_cic.LAUNCHES["deposit"]
+    got = diagnostics.phase_space_histogram(p.to(cuda_device), v.to(cuda_device),
+                                            100, 50, (0.0, 2.0), (-8.0, 8.0))
+    ref = diagnostics.phase_space_histogram(p, v, 100, 50, (0.0, 2.0), (-8.0, 8.0))
+    for g, r in zip(got, ref):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), r)
+    got = diagnostics.velocity_histogram(v.to(cuda_device), 200, (-8.0, 8.0))
+    ref = diagnostics.velocity_histogram(v, 200, (-8.0, 8.0))
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert cuda_cic.LAUNCHES["deposit"] == before + 2

@@ -254,9 +254,13 @@ def test_unported_options_raise_naming_their_items(problem):
             tdi.make_step(tdi.DomainImplicitConfig(tgrid, **base, **kw), mesh)
     with pytest.raises(NotImplementedError, match="item 18"):
         tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdomain.make_step(tdomain.DomainConfig(
-            tgrid, **base, field_solve="distributed"), mesh)
+    # field_solve='distributed' is ported: it builds (tests in
+    # test_torch_distributed_poisson.py), and the fused push refuses it
+    tdomain.make_step(tdomain.DomainConfig(
+        tgrid, **base, field_solve="distributed"), mesh)
+    with pytest.raises(ValueError, match="replicated"):
+        tdomain.DomainConfig(tgrid, **base, field_solve="distributed",
+                             push_backend="fused")
     for kw in ({}, dict(carried_rho="on", halo=2)):
         with pytest.raises(NotImplementedError, match="item 18"):
             tdomain.make_superstep(tdomain.DomainConfig(tgrid, **base, **kw),

@@ -572,7 +572,7 @@ def test_preset_and_interop_round_trip():
         np.testing.assert_array_equal(back[k], d[k], err_msg=k)
     st = interop.sheath_state_from_numpy(d, "cpu")
     assert st.step_host == 0 and st.rng == (0, 2)
-    assert sorted(presets.PRESETS) == ["dirichlet_neumann_test",
+    assert sorted(presets.PRESETS) == ["bump_on_tail", "dirichlet_neumann_test",
                                        "domain_explicit", "domain_implicit",
                                        "explicit_landau", "landau_damping",
                                        "pic_bca_aps", "pic_iead", "pic_iead_gc",
