@@ -241,6 +241,23 @@ Phases (any failure raises and the script exits non-zero):
    metrics; each preset also runs through runner.run alone here (ms/step,
    launches); the two Poisson solves' launches and device ms; the
    histogram helpers on the card against their plain versions.
+36. data parallel — the hash sampler's kernel (hash_batch) against its
+   plain version at 999,996 x 4 normals and 180,000 x 8 uniforms, at slot
+   offset 0 and at a second rank's: the uniforms bit-equal, the normals
+   within TOL_HASH_NORMAL; timed beside torch.rand of the same shape and
+   row 20's source_batch. Then, on a one-rank NCCL group, the implicit
+   headline (n = 100,007,936, conserving, 2 + 10 steps), the configs[3]
+   magnetized row (999,996, the hash sampler) and the sheath row (1e6,
+   hash), 2 + 20 steps each, with axis_name set and without: the same
+   launches and host syncs a step (0 on the magnetized row; Picard 4 on
+   the headline). Then two gloo ranks on the one card (every message
+   staged through the host): the magnetized and sheath rows at full n
+   split in two, their hash uniforms bit-equal block for block to the
+   one-rank run's, their rows within the CPU tests' tolerances of the
+   one-rank run's and equal on both ranks (the same Picard and Newton
+   counts); domain_implicit at one slab x two replicas against one slab x
+   one replica (n = 1e6, 10 steps); and the CLI's --replicas 2 in two
+   subprocesses (gloo, PYPIC_BACKEND), exit 0 with its files.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -4780,6 +4797,313 @@ def phase_cli(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 36: data parallel
+# ---------------------------------------------------------------------------
+
+# the hash sampler's kernel: (n, streams, normals) of the configs[3] row's
+# re-activation batch (four normals a slot) and the pic_bca_aps flux-shaped
+# batch (eight uniforms a slot)
+HASH_SHAPES = ((999_996, 4, True), (180_000, 8, False))
+# the normals against the plain version's float64 functions rounded once:
+# the kernel's log_unit, sqrt_pos and sincos_2pi, a few float32 ulps of
+# the largest |z| (~5.5)
+TOL_HASH_NORMAL = 2e-6
+# integer operations a slot and stream (the two murmur3 finalizers 10
+# each, the counter's add and multiply, the xor, the shift, the convert
+# and the scale) at the 32-bit integer rate of compute capability 9.0
+# (64 lanes a clock an SM, half the float32 rate)
+HASH_INT_OPS = 26
+PEAK_INT32_PER_S = 33.5e12
+# a Box-Muller pair's float32 operations (log 12, sqrt 2, sincos 20, the
+# scale and the two products)
+HASH_PAIR_OPS = 38
+DP_STEPS = {"headline": 10, "magnetized": 20, "sheath": 20}
+DP_REPLICAS_N, DP_REPLICAS_STEPS = 1_000_000, 10
+# two ranks against one (tests/test_torch_dataparallel*.py): the
+# magnetized row's phi_max over the first 10 steps, the sheath row's field
+# energy; the active counts within DP_ACTIVE_GAP (the CPU tests' 4 at
+# n = 2,400 and 8,192, plus 1e-5 of the row's n for the borderline rows
+# that summation order flips at 1e6)
+TOL_DP_PHI, TOL_DP_SHEATH_FE = 5e-4, 1e-3
+DP_ACTIVE_GAP = 4
+# domain_implicit, replicas against one: field energy (the slab tests')
+TOL_DP_REPLICAS_FE = 1e-4
+
+
+def hash_bound(n: int, streams: int, normals: bool) -> tuple[float, str]:
+    """The least time in ms for one hash_batch call: the (streams, n)
+    outputs written once over the memory rate, against the integer work
+    at the integer rate and the Box-Muller work at the float32 rate."""
+    by_bytes = 4.0 * streams * n / PEAK_BYTES_PER_S * 1e3
+    by_ops = (HASH_INT_OPS * streams * n / PEAK_INT32_PER_S
+              + (HASH_PAIR_OPS * streams // 2 * n / PEAK_F32_PER_S
+                 if normals else 0.0)) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def hash_times(dev) -> dict:
+    """hash_batch against its plain version (the int64 tensor form, on the
+    card) at HASH_SHAPES, slot offset 0 and n (the second rank's block):
+    the uniforms bit-equal, the normals within TOL_HASH_NORMAL of the
+    largest; then timed (device_ms, the last four outputs held so that a
+    call writes past the 50 MB L2) beside torch.rand of the same shape
+    and row 20's source_batch at 999,996. Returns the records by shape."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    out = {}
+    for n, streams, normals in HASH_SHAPES:
+        for off in (0, n):
+            seed = 0x2545F491 + off
+            got = cuda_rng.hash_batch(seed, n, streams, offset=off, device=dev)
+            ref = cuda_rng.hash_uniforms_plain(seed, n, streams, off, dev)
+            if not torch.equal(got, ref):
+                bad = int((got != ref).sum())
+                raise AssertionError(f"hash_batch uniforms differ from the plain "
+                                     f"version in {bad} of {got.numel()} at n = "
+                                     f"{n}, offset {off}")
+            err = 0.0
+            if normals:
+                zk = cuda_rng.hash_batch(seed, n, streams, offset=off,
+                                         normals=True, device=dev)
+                zp = cuda_rng.hash_normals_from_uniforms(ref)
+                err = float((zk - zp).abs().max())
+                if not err <= TOL_HASH_NORMAL * float(zp.abs().max()):
+                    raise AssertionError(f"hash_batch normals: max |err| {err} "
+                                         f"at n = {n}, offset {off}")
+            log(f"[data parallel] hash_batch {streams} x {n} at slot offset "
+                f"{off}: uniforms bit-equal to the plain version"
+                + (f", normals max |err| {err:.3e} (tol {TOL_HASH_NORMAL} of "
+                   f"the largest)" if normals else ""))
+        held = collections.deque(maxlen=4)
+        ms = device_ms(lambda: held.append(cuda_rng.hash_batch(
+            7, n, streams, offset=n, normals=normals, device=dev)))
+        plain_ms = cuda_ms(lambda: held.append(cuda_rng.hash_batch_plain(
+            7, n, streams, n, normals, dev)), reps=3, calls=3)
+        lib_ms = device_ms(lambda: held.append(torch.rand((streams, n),
+                                                          device=dev)))
+        b, by = hash_bound(n, streams, normals)
+        rec = dict(n=n, streams=streams, normals=normals, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                   bound_by=by)
+        if n == 999_996:
+            rec["source_batch_ms"] = device_ms(lambda: held.append(
+                cuda_rng.source_batch((0, 1), 0, n, x_mu=0.5, x_sigma=0.1,
+                                      x_wrap=1.0, vth=1.0, device=dev)))
+        log(f"[data parallel] hash_batch {streams} x {n}"
+            f"{' normals' if normals else ' uniforms'}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.rand {lib_ms:.4f} ms, bound {b:.4f} ms "
+            f"({by})" + (f", source_batch {rec['source_batch_ms']:.4f} ms"
+                         if "source_batch_ms" in rec else ""))
+        out[f"{streams}x{n}"] = rec
+        held.clear()
+    return out
+
+
+def _dp_gap(a: list, b: list) -> float:
+    a = torch.tensor(a, dtype=torch.float64)
+    b = torch.tensor(b, dtype=torch.float64)
+    return float(((a - b).abs() / a.abs().clamp_min(1e-300)).max())
+
+
+def _cli_replicas(tmp: str, card: str) -> dict:
+    """``python -m pypic_tpu_torch.cli run domain_implicit --shards 1
+    --replicas 2`` in two subprocesses joined by the PYPIC rendezvous
+    (gloo: the two ranks share the card), each killed at CLI_TIMEOUT_S:
+    both exit 0, rank 0 writes the metrics and checkpoints."""
+    import os
+    import socket
+
+    with socket.socket() as sk:  # any free port on this host
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    outdir = os.path.join(tmp, "replicas")
+    steps = 10
+    cmd = [sys.executable, "-m", "pypic_tpu_torch.cli", "run", "domain_implicit",
+           "--particles", str(DP_REPLICAS_N), "--steps", str(steps), "--shards",
+           "1", "--replicas", "2", "--checkpoint-every", str(steps // 2), "--clean",
+           "--outdir", outdir]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYPIC_COORDINATOR=f"localhost:{port}",
+                 PYPIC_NUM_PROCESSES="2", PYPIC_PROCESS_ID=str(r),
+                 PYPIC_BACKEND="gloo")) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=CLI_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = [(r, p.returncode, o[1][-2000:]) for r, (p, o) in
+           enumerate(zip(procs, outs)) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"cli --replicas 2: {bad}")
+    want = ["metrics.jsonl", "time.out", "checkpoints/final.npz"] + [
+        f"checkpoints/state_{s:010d}.npz" for s in (steps // 2, steps)]
+    missing = [f for f in want if not os.path.exists(os.path.join(outdir, f))]
+    with open(os.path.join(outdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if missing or len(rows) != steps or rows[-1]["n_dropped"] != 0 or not all(
+            math.isfinite(r["field_energy"]) for r in rows):
+        raise AssertionError(f"cli --replicas 2: missing {missing}, {len(rows)} "
+                             f"rows, last {rows[-1] if rows else None}")
+    log(f"[data parallel] cli domain_implicit --shards 1 --replicas 2 (two "
+        f"gloo processes on the card): exit 0 in {wall:.2f} s wall, {steps} "
+        f"rows, its files written ({card})")
+    return dict(wall_s=wall, steps=steps, last=rows[-1])
+
+
+def phase_data_parallel(dev, card: str) -> dict:
+    """Phase 36 (module docstring): the hash sampler's kernel, the
+    one-rank NCCL dp runs beside the one-device runs, two gloo ranks on
+    the card and the slabs x replicas paths."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pypic_tpu_torch.parallel import make_mesh, spawn
+    from pypic_tpu_torch.tools import dataparallel as dpt
+    from pypic_tpu_torch.tools import domain as drow
+
+    res = {"hash_batch": hash_times(dev)}
+    problems = []
+
+    # one rank, NCCL: every sum is the identity
+    drow.process_group()
+    try:
+        mesh = make_mesh(device=dev)
+        if (mesh.world, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"expected a one-rank NCCL mesh, got {mesh}")
+        one = {}
+        for row, steps in DP_STEPS.items():
+            pair = {}
+            for dp in (True, False):
+                r = dpt.rank_row(mesh, row, steps, dp=dp)
+                pair["dp" if dp else "one_device"] = r
+                log(f"[data parallel] {row}, one rank{' (NCCL, axis_name)' if dp else ', no axis_name'}: "
+                    f"n = {r['n']}, {steps} steps: {r['ms_per_step']:.4f} ms/step, "
+                    f"launches a step {r['launches_per_step']}, host syncs a step "
+                    f"{r['host_syncs_per_step']:.2f}")
+            a, b = pair["dp"], pair["one_device"]
+            if a["launches_per_step"] != b["launches_per_step"]:
+                problems.append(f"{row}: launches {a['launches_per_step']} != "
+                                f"{b['launches_per_step']}")
+            if a["host_syncs_per_step"] != b["host_syncs_per_step"] and row != "sheath":
+                problems.append(f"{row}: host syncs {a['host_syncs_per_step']} != "
+                                f"{b['host_syncs_per_step']}")
+            if row == "sheath":
+                # one read a Picard pass, none after a pass at maxiter
+                for r in (a, b):
+                    iters = r["rows"]["picard_iters"]
+                    reads = sum(k - (k == 20) for k in iters) / len(iters)
+                    if r["host_syncs_per_step"] != reads:
+                        problems.append(f"sheath: host syncs {r['host_syncs_per_step']}"
+                                        f" != reads {reads}")
+            if row == "magnetized" and a["host_syncs_per_step"] != 0.0:
+                problems.append(f"magnetized: {a['host_syncs_per_step']} host syncs")
+            if row == "headline" and set(a["rows"]["picard_iters"]) != {4}:
+                problems.append(f"headline Picard {set(a['rows']['picard_iters'])}")
+            if not (a["finite"] and b["finite"]):
+                problems.append(f"{row}: a position not finite")
+            one[row] = pair
+        res["one_rank"] = {row: {k: {q: v[q] for q in (
+            "ms_per_step", "launches_per_step", "host_syncs_per_step", "n")}
+            for k, v in pair.items()} for row, pair in one.items()}
+    finally:
+        dist.destroy_process_group()
+
+    # domain_implicit at one slab x one replica, here (no process group)
+    ref = dpt.rank_replicas(make_mesh(device=dev), DP_REPLICAS_N,
+                            DP_REPLICAS_STEPS, 1)
+    # two gloo ranks on the one card, one spawn
+    jobs = [("row", dict(row="magnetized", steps=DP_STEPS["magnetized"])),
+            ("row", dict(row="sheath", steps=DP_STEPS["sheath"])),
+            ("replicas", dict(n=DP_REPLICAS_N, steps=DP_REPLICAS_STEPS,
+                              replicas=2))]
+    t0 = time.perf_counter()
+    two = spawn.run(2, dpt.rank_jobs, jobs, device=dev)
+    spawn_s = time.perf_counter() - t0
+    res["two_ranks"] = {"spawn_s": spawn_s}
+    for i, row in enumerate(("magnetized", "sheath")):
+        ranks = [r[i] for r in two]
+        base = one[row]["dp"]
+        equal = all(r["rows"] == ranks[0]["rows"] for r in ranks)
+        digests = [r["digests"] for r in ranks]
+        want = dpt.whole_digests(row, 2, dev)
+        a = ranks[0]["rows"]
+        gap_act = max(abs(x - y) for x, y in zip(a["n_active"],
+                                                 base["rows"]["n_active"]))
+        act_tol = DP_ACTIVE_GAP + 1e-5 * base["n"]
+        if row == "magnetized":
+            gap = _dp_gap(base["rows"]["phi_max"][:10], a["phi_max"][:10])
+            tol = TOL_DP_PHI
+            counts = ("newton_iters", a["newton_iters"])
+        else:
+            gap = _dp_gap(base["rows"]["field_energy"], a["field_energy"])
+            tol = TOL_DP_SHEATH_FE
+            counts = ("picard_iters", a["picard_iters"])
+        log(f"[data parallel] {row}, two gloo ranks on the card: n = "
+            f"{ranks[0]['n']}, {ranks[0]['steps']} steps: "
+            f"{ranks[0]['ms_per_step']:.4f} ms/step, host syncs a step "
+            f"{ranks[0]['host_syncs_per_step']:.2f}, staged "
+            f"{ranks[0]['staged_bytes_per_step']:.0f} B a step a rank; rows equal "
+            f"on both ranks: {equal}; hash uniforms bit-equal to the one-rank "
+            f"batch's blocks: {digests == want}; against one rank: largest gap "
+            f"{gap:.3e} (tol {tol}), n_active {gap_act} (tol {act_tol:.0f}); "
+            f"{counts[0]} {counts[1]}")
+        if not equal:
+            problems.append(f"{row}: the two ranks' rows differ")
+        if digests != want:
+            problems.append(f"{row}: hash uniforms differ from the one-rank batch")
+        if not gap <= tol or not gap_act <= act_tol:
+            problems.append(f"{row}: two ranks against one: gap {gap}, "
+                            f"n_active {gap_act}")
+        if not all(r["finite"] for r in ranks):
+            problems.append(f"{row}: a position not finite")
+        res["two_ranks"][row] = dict(
+            **{k: ranks[0][k] for k in ("n", "steps", "ms_per_step",
+                                        "host_syncs_per_step",
+                                        "staged_bytes_per_step",
+                                        "launches_per_step")},
+            rows_equal=equal, draws_equal=digests == want, gap=gap,
+            n_active_gap=gap_act)
+    reps = [r[2] for r in two]
+    gap = _dp_gap(ref["rows"]["field_energy"], reps[0]["rows"]["field_energy"])
+    dropped = sum(reps[0]["rows"]["n_dropped"])
+    log(f"[data parallel] domain_implicit, one slab x two replicas (gloo on the "
+        f"card): n = {DP_REPLICAS_N}, {DP_REPLICAS_STEPS} steps: "
+        f"{reps[0]['ms_per_step']:.4f} ms/step (one replica "
+        f"{ref['ms_per_step']:.4f}), staged {reps[0]['staged_bytes_per_step']:.0f} "
+        f"B a step a rank, field energy against one replica {gap:.3e} (tol "
+        f"{TOL_DP_REPLICAS_FE}), dropped {dropped}, Picard "
+        f"{reps[0]['rows']['picard_iters']} ({ref['rows']['picard_iters']})")
+    if not gap <= TOL_DP_REPLICAS_FE or dropped or reps[0]["rows"] != reps[1]["rows"]:
+        problems.append(f"replicas: gap {gap}, dropped {dropped}, rows equal "
+                        f"{reps[0]['rows'] == reps[1]['rows']}")
+    if reps[0]["rows"]["n_alive"][-1] != DP_REPLICAS_N:
+        problems.append(f"replicas: alive {reps[0]['rows']['n_alive'][-1]}")
+    res["replicas"] = dict(n=DP_REPLICAS_N, steps=DP_REPLICAS_STEPS,
+                           ms_per_step=reps[0]["ms_per_step"],
+                           one_replica_ms_per_step=ref["ms_per_step"],
+                           staged_bytes_per_step=reps[0]["staged_bytes_per_step"],
+                           field_energy_gap=gap)
+    tmp = tempfile.mkdtemp(prefix="pypic_dp_")
+    try:
+        res["cli_replicas"] = _cli_replicas(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise AssertionError("data parallel: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -4830,6 +5154,7 @@ def main() -> int:
     ckp = phase("checkpoint", phase_checkpoint, dev, bs)
     dep = phase("deposit times", deposit_times, dev, ms.pop("iead_traffic"))
     cli = phase("cli", phase_cli, dev, card)
+    dpp = phase("data parallel", phase_data_parallel, dev, card)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -4911,7 +5236,20 @@ def main() -> int:
          "launches_pic_bca_aps": bs[1]["launches"]["philox_uniforms"],
          **{key: helper[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "n")},
-         "library_ms": helper["library_ms"]}],
+         "library_ms": helper["library_ms"]},
+        # the hash sampler's draws (data parallel): no TPU kernel draws them
+        # (the JAX package's sources.hash_uniforms are XLA operations); the
+        # launches of the one-rank dp runs of the magnetized and sheath rows
+        {"name": "hash_batch", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/rng.cu", "replaces": None,
+         "launches": dpp["one_rank"]["magnetized"]["dp"]["launches_per_step"].get(
+             "hash_batch", 0) * DP_STEPS["magnetized"],
+         "launches_sheath": dpp["one_rank"]["sheath"]["dp"]["launches_per_step"].get(
+             "hash_batch", 0) * DP_STEPS["sheath"],
+         **{key: dpp["hash_batch"]["4x999996"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
+             "library_ms", "source_batch_ms")},
+         "shapes": dpp["hash_batch"]}],
         "slice": {key: sl[key] for key in (
         "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
         "field_energy_rel_change", "total_energy_rel_change")},
@@ -4993,6 +5331,7 @@ def main() -> int:
                 "newton_mean", "newton_max")} for k in (1, 10)},
             "check": bc, "checkpoint": ckp},
         "cli": cli,
+        "data_parallel": {k: v for k, v in dpp.items() if k != "hash_batch"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

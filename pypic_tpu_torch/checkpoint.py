@@ -23,7 +23,14 @@ layout: each per-particle leaf (S x capacity,), each slab leaf (ng,), the
 scalars once, the leaf paths and shapes of ``pypic_tpu.checkpoint.save``
 for the JAX preset at the same shards. ``load`` reads that file on every
 rank and keeps the rank's own rows. Every rank calls both. At one rank
-(or without a mesh) nothing is gathered or cut.
+(or without a mesh) nothing is gathered or cut. On a slabs x replicas
+mesh (a ``Mesh2``) the per-particle leaves are joined over every rank in
+rank order s R + r (JAX's (S, R, cap_r) layout) and the slab leaves over
+the slabs. A data-parallel state of a single-slab engine (its mesh a
+``SlabMesh`` of more than one rank) joins its per-particle fields
+(``parallel.dataparallel.particle_fields``) the same way: the file holds
+the whole population in the one-device layout, and ``load`` cuts it into
+the ranks' contiguous blocks again.
 
 A save and a load give every leaf back bit for bit. On the CPU (the plain
 kernel versions, a fixed summation order) a resumed run is bit-exact with
@@ -71,27 +78,42 @@ def _to_host(leaves):
             else np.asarray(leaf) for leaf in leaves]
 
 
-def _sharded_fields(state, mesh):
-    """The fields of ``state`` whose rows are the rank's own: empty unless
-    it is a slab-sharded state on a mesh of more than one rank."""
-    if mesh is None or mesh.world == 1:
-        return ()
-    from . import interop
+def _root(mesh):
+    """The mesh of every rank (a ``Mesh2``'s world), or None."""
+    from .parallel.mesh import Mesh2
 
+    return mesh.world if isinstance(mesh, Mesh2) else mesh
+
+
+def _sharded_fields(state, mesh) -> dict:
+    """{field: the mesh its rows are split over} for the fields of
+    ``state`` whose rows are the rank's own: empty on one rank."""
+    from . import interop
+    from .parallel import dataparallel
+    from .parallel.mesh import Mesh2
+
+    root = _root(mesh)
+    if root is None or root.world == 1:
+        return {}
     layout = interop.domain_layout(type(state))
-    return () if layout is None else layout[0] + layout[1]
+    if layout is None:  # a data-parallel state: the particle blocks
+        return {name: root for name in dataparallel.particle_fields(state)}
+    slabs = mesh.slabs if isinstance(mesh, Mesh2) else mesh
+    return {**{name: root for name in layout[0]},
+            **{name: slabs for name in layout[1]}}
 
 
 def _gathered(state, mesh):
     """(paths, host arrays) of a state, every sharded leaf joined over
-    the ranks in rank order (a collective: every rank calls it)."""
+    its ranks in rank order (a collective: every rank calls it)."""
     paths, leaves = _flatten_with_paths(state)
     sharded = _sharded_fields(state, mesh)
     joined = []
     for p, leaf in zip(paths, leaves):
-        if p[1:] in sharded:
+        over = sharded.get(p[1:])
+        if over is not None:
             # bool travels as uint8 (NCCL has no bool)
-            whole = mesh.all_gather(leaf.to(torch.uint8) if leaf.dtype == torch.bool
+            whole = over.all_gather(leaf.to(torch.uint8) if leaf.dtype == torch.bool
                                     else leaf)
             leaf = whole.to(torch.bool) if leaf.dtype == torch.bool else whole
         joined.append(leaf)
@@ -135,7 +157,7 @@ def save(path: str, state, step: int | None = None, extra: dict | None = None,
     ``mesh`` of a slab-sharded state every rank calls it and rank 0
     writes the joined state."""
     paths, arrays = _gathered(state, mesh)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or _root(mesh).rank == 0:
         _write_npz(path, paths, arrays, step, extra)
 
 
@@ -150,9 +172,10 @@ def load(path: str, template, migrate: dict | None = None, mesh=None):
         migrate: optional {old_leaf_path: fn(array) -> {new_path: array}}
             applied to checkpoint leaves the template no longer has
             (engines declare theirs as ``CHECKPOINT_MIGRATIONS``).
-        mesh: the rank's slab mesh, for a slab-sharded template: each
-            sharded leaf of the file is cut into ``mesh.world`` equal
-            blocks and the rank keeps block ``mesh.rank``.
+        mesh: the rank's mesh, for a slab-sharded or data-parallel
+            template: each sharded leaf of the file is cut into as many
+            equal blocks as its mesh has ranks, and the rank keeps its
+            own.
 
     Returns:
         (state, manifest_dict)
@@ -178,15 +201,15 @@ def load(path: str, template, migrate: dict | None = None, mesh=None):
         for old, fn in migrate.items():
             if old in by_path and old not in paths:
                 by_path.update(fn(by_path.pop(old)))
-    for name in _sharded_fields(template, mesh):
+    for name, over in _sharded_fields(template, mesh).items():
         arr = by_path.get("." + name)
         if arr is None:
             continue
-        if arr.shape[0] % mesh.world:
+        if arr.shape[0] % over.world:
             raise ValueError(f"leaf .{name}: {arr.shape[0]} rows do not split "
-                             f"into {mesh.world} ranks")
-        k = arr.shape[0] // mesh.world
-        by_path["." + name] = arr[mesh.rank * k:(mesh.rank + 1) * k]
+                             f"into {over.world} ranks")
+        k = arr.shape[0] // over.world
+        by_path["." + name] = arr[over.rank * k:(over.rank + 1) * k]
     # a leaf the template does not know is a rename or another engine's
     # state: refuse rather than mix states
     unknown = sorted(set(by_path) - set(paths))
@@ -237,7 +260,7 @@ class CheckpointManager:
         ``restore``; rank 0 writes and prunes."""
         self.directory = directory
         self.mesh = mesh
-        self._writer = mesh is None or mesh.rank == 0
+        self._writer = mesh is None or _root(mesh).rank == 0
         self.extra = extra
         self.every = int(every)
         self.keep = int(keep)

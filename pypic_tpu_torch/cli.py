@@ -27,9 +27,11 @@ Where it parts from the JAX CLI:
   ``PYPIC_DISTRIBUTED=1``, or the ``PYPIC_COORDINATOR`` variables), or is
   one the caller already made. ``--shards`` must equal the world size;
   only rank 0 writes to ``--outdir``; checkpoints hold JAX's global layout
-  (``checkpoint.save`` with the mesh). ``--replicas`` above 1 (the 2-D
-  mesh, ROADMAP queue 1 item 17a) and ``--migrate-every`` above 1 (the
-  superstep, item 18) exit naming their items.
+  (``checkpoint.save`` with the mesh). ``--replicas R`` composes R
+  data-parallel replicas with the slabs of ``domain_implicit`` (the
+  slabs x replicas mesh, ``parallel.mesh.make_mesh2``): the world is then
+  shards x R ranks. ``--migrate-every`` above 1 (the superstep, ROADMAP
+  queue 1 item 18) exits naming its item.
 
 The figures (``--plot``, ``--gif``) need matplotlib and imageio: without
 them those flags exit before the run, and ``viz`` is imported only for a
@@ -75,6 +77,8 @@ def _preset_kwargs(args) -> dict:
         pkw["n"] = args.particles
     if args.shards:
         pkw["shards"] = args.shards
+    if args.replicas:
+        pkw["replicas"] = args.replicas
     for kv in args.opt or []:
         key, sep, val = kv.partition("=")
         if not sep or not key:
@@ -109,9 +113,9 @@ def _cmd_run(args):
     if absent:
         sys.exit(f"--plot/--gif need {' and '.join(absent)}, which this "
                  "Python does not have; run without them")
-    if args.replicas and args.replicas > 1:
-        sys.exit("--replicas (the 2-D slabs x data-parallel mesh) is not "
-                 "ported yet: see ROADMAP.md queue 1, item 17a, data parallel")
+    if args.replicas and args.preset != "domain_implicit":
+        sys.exit(f"--replicas is not supported by preset {args.preset!r} "
+                 "(domain_implicit only)")
     if args.migrate_every > 1:
         if args.preset in _DOMAIN_PRESETS:
             sys.exit(f"--migrate-every is not supported by preset "
@@ -126,9 +130,10 @@ def _cmd_run(args):
               f"{dist.get_world_size()}", file=sys.stderr)
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
-    if args.shards and args.shards != world:
-        sys.exit(f"--shards {args.shards} but {world} rank(s) run: "
-                 + _ranks_hint(args.shards))
+    reps = args.replicas or 1
+    if (args.shards and args.shards * reps != world) or world % reps:
+        sys.exit(f"--shards {args.shards} x --replicas {reps} but {world} "
+                 "rank(s) run: " + _ranks_hint((args.shards or 1) * reps))
 
     def say(msg):
         if rank == 0:
@@ -313,7 +318,7 @@ def _cmd_run(args):
     if prof is not None:
         prof.stop()
     elapsed = time.time() - t0
-    n = preset.state.p.shape[0] * (mesh.world if mesh is not None else 1)
+    n = preset.state.p.shape[0] * world
     say(f"{args.steps} steps x {n} particles in {elapsed:.1f}s "
         f"({n * args.steps / elapsed:.3g} pushes/s)")
 
@@ -467,7 +472,7 @@ def main(argv=None):
                          "(default: that number)")
     rp.add_argument("--replicas", type=int, default=None,
                     help="data-parallel replicas composed with the slab "
-                         "axis; above 1 not ported yet (ROADMAP item 17a)")
+                         "axis (slabs x replicas ranks) for domain_implicit")
     rp.add_argument("--migrate-every", type=int, default=1,
                     help="migration-amortized superstep of the domain "
                          "presets; above 1 not ported yet (ROADMAP item 18)")

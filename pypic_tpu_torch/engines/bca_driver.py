@@ -26,6 +26,7 @@ import torch
 from .. import bca as bca_mod
 from .. import checkpoint as ckpt_mod
 from ..constants import K_BOLTZMANN
+from ..parallel import dataparallel
 from ..runner import run as run_steps
 from . import magnetized
 
@@ -298,6 +299,7 @@ def run_bca_from_iead(
     pic_steps_per_bca: int = 1,
     step_fn=None,
     reshard=None,
+    mesh=None,
 ):
     """The hybrid loop on the histogram channel: each block feeds the
     increment of the in-state per-species IEAD histograms through the
@@ -314,18 +316,25 @@ def run_bca_from_iead(
 
     Args:
         step_fn: optional prebuilt step; ``magnetized.make_step(cfg)`` by
-            default (the tests pass the port's step fed the JAX draws).
-        reshard: re-placing the injected state on a mesh; the port's
-            slab-sharded magnetized engine is ROADMAP item 17b, so it
-            must be None.
+            default (the tests pass the port's step fed the JAX draws, or
+            the data-parallel step of ``parallel.make_data_parallel_step``).
+        reshard: under data parallel, the cut of a whole state into this
+            rank's block (``lambda s: dataparallel.shard_state(s, mesh)``,
+            the default with ``mesh``). The IEAD histograms are summed over
+            the ranks, so every rank feeds the surface model the global
+            wall flux and draws the same products; they are injected into
+            the whole state (``dataparallel.gather_state``), in the global
+            slot order of one device, which ``reshard`` cuts again.
+        mesh: the data-parallel mesh of ``step_fn`` (None: one device).
 
     Returns:
         (final_state, BCAStats, metrics_list) like ``run_bca``.
     """
-    if reshard is not None:
-        raise NotImplementedError(
-            "reshard is not ported yet: see ROADMAP.md queue 1, item 17b, "
-            "the bounded slab engines")
+    if reshard is not None and mesh is None:
+        raise ValueError("reshard cuts the whole state for a data-parallel "
+                         "step: pass its mesh too")
+    if mesh is not None and reshard is None:
+        reshard = lambda s: dataparallel.shard_state(s, mesh)  # noqa: E731
     if cfg.iead_energy_max <= 0.0:
         raise ValueError(
             "cfg.iead_energy_max must be > 0 (IEAD accumulation drives the "
@@ -369,9 +378,13 @@ def run_bca_from_iead(
         new_rows, new_sides = _surface(channels, stats, rng, num_histories,
                                        from_iead=edges)
         if new_rows:
+            if mesh is not None:
+                state = dataparallel.gather_state(state, mesh)
             state = _inject_products(
                 state, inject, new_rows, new_sides, stats, cfg, rng,
                 product_p2c, z_to_idx, wall_species_idx, (it + 1) * cfg.dt)
+            if mesh is not None:
+                state = reshard(state)
         if checkpoint_manager is not None:
             # checkpoints carry the running total (resume re-drains it)
             checkpoint_manager.maybe_save(_with_total(state), done)

@@ -19,6 +19,15 @@ sweep: the push deposits its own output for the next step's solve.
 ``run_resident`` runs ``steps_per_call`` cycles per launch of
 ``cuda_cic.explicit_cycle_resident`` (n <= 32768).
 
+Data parallel (``cfg.axis_name`` set, ``make_step(cfg, mesh=mesh)``; see
+``parallel.dataparallel``): each rank's deposit of rho is summed over the
+ranks before the replicated solve, so the carried rho and e stay global.
+The one-kernel cycle solves inside its own launch, where no sum can sit
+between the deposit and the solve: under ``axis_name`` the fused backend
+takes the two-stage sweep (``leapfrog_gather_push_deposit``, the sum,
+then the solve) at every ng, as the JAX engine does. The kinetic energy
+and the current bias are summed too.
+
 Diagnostics use the physical definitions (field energy with the dx
 measure, kinetic energy with one power of p2c), in the pre-push
 convention: the metrics of step k describe the state it started from.
@@ -41,6 +50,7 @@ from ..ops import cuda_cic
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic
 from ..ops.poisson import solve_periodic_neutralized
+from ..parallel.dataparallel import ParticleAxis
 from ..push import leapfrog_push
 
 ONE_KERNEL_MAX_NG = 1024  # the one-kernel cycle's gate (explicit.py:155)
@@ -114,10 +124,6 @@ def _check_ported(cfg: ExplicitConfig) -> None:
             f"deposit_method={cfg.deposit_method!r} is not ported yet: see "
             "ROADMAP.md queue 1, item 18, options measured negative or "
             "gated off")
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            "axis_name is not ported yet: see ROADMAP.md queue 1, item 17a, "
-            "data parallel")
 
 
 def _field(rho, dx: float):
@@ -190,15 +196,19 @@ def resident_kwargs(state: ExplicitState, cfg: ExplicitConfig) -> dict:
                 fe_c=0.5 * EPSILON_0 * cfg.grid.dx)
 
 
-def make_step(cfg: ExplicitConfig):
-    """Build the step: state -> (state, StepMetrics)."""
+def make_step(cfg: ExplicitConfig, mesh=None):
+    """Build the step: state -> (state, StepMetrics). ``mesh``: the rank's
+    ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None is one
+    rank)."""
     _check_ported(cfg)
+    ax = ParticleAxis(cfg.axis_name, mesh)
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
     dt_dx = dt / dx
     inv_dx = 1.0 / dx
     fe_c = 0.5 * EPSILON_0 * dx
-    one_kernel = ng <= ONE_KERNEL_MAX_NG
+    # the in-kernel epilogue solve would see only the rank's own deposit
+    one_kernel = ng <= ONE_KERNEL_MAX_NG and cfg.axis_name is None
 
     def step(state: ExplicitState):
         scalar_qm = state.q.dim() == 0 and state.m.dim() == 0
@@ -217,6 +227,7 @@ def make_step(cfg: ExplicitConfig):
             else:
                 p1, v1, rho1 = cuda_cic.leapfrog_gather_push_deposit(
                     e, state.p, state.v, qm=qm, w=w, dt=dt, dx=dx)
+                rho1 = ax.sum(rho1)
                 e1 = _field(rho1, dx)
             # pre-push metrics; periodic CIC weights sum to 1, so the mean
             # of the current deposit is q w sum(v) / ng in closed form
@@ -228,11 +239,14 @@ def make_step(cfg: ExplicitConfig):
                                    dt, dt_dx)
             p1 = torch.remainder(p1, ng)
             w_rho = torch.broadcast_to(state.q * (cfg.p2c * inv_dx), p1.shape)
-            rho1 = deposit(p1, w_rho.contiguous(), ng, periodic=True)
+            rho1 = ax.sum(deposit(p1, w_rho.contiguous(), ng, periodic=True))
             e1 = _field(rho1, dx)
             kinetic = 0.5 * cfg.p2c * torch.sum(state.m * state.v * state.v)
             bias = torch.sum(torch.broadcast_to(state.q, state.p.shape)
                              * state.v) * (cfg.p2c * inv_dx / ng)
+        if ax.mesh is not None:
+            kinetic, bias = ax.sum_many([kinetic.to(e.dtype),
+                                         bias.to(e.dtype)])
         metrics = StepMetrics(
             field_energy=fe_c * torch.sum(e * e),
             kinetic_energy=kinetic,

@@ -22,6 +22,13 @@ pass (one device sync per pass, none after the last allowed pass).
 ``run_resident`` keeps the loop on the card and makes no host sync between
 launches.
 
+Data parallel (``cfg.axis_name`` set, ``make_step(cfg, mesh=mesh)``; see
+``parallel.dataparallel``): each rank holds a block of the particles; each
+pass's deposit, the finalize's, the kinetic energy and the current-bias
+sum are summed over the ranks before they are used, so the Ampere advance,
+the residual and the exit test read the same bits on every rank and every
+rank runs the same passes. The tracer is rank 0's particle.
+
 Options that need modules or kernels not ported yet raise
 ``NotImplementedError`` from ``make_step``, naming the ROADMAP item that
 brings them.
@@ -44,6 +51,7 @@ from ..ops.accel import anderson_mix, damped_mix, mix_init
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic, smooth_periodic
 from ..ops.poisson import solve_periodic_neutralized
+from ..parallel.dataparallel import ParticleAxis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,8 +189,6 @@ def _check_ported(cfg: ImplicitConfig) -> None:
         "picard_accel='anderson2'": (
             cfg.picard_accel == "anderson2",
             "item 18, options measured negative or gated off"),
-        "axis_name": (cfg.axis_name is not None,
-                      "item 17a, data parallel"),
     }
     for what, (hit, item) in todo.items():
         if hit:
@@ -190,9 +196,12 @@ def _check_ported(cfg: ImplicitConfig) -> None:
                 f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
 
 
-def make_step(cfg: ImplicitConfig):
-    """Build the implicit step: state -> (state, StepMetrics)."""
+def make_step(cfg: ImplicitConfig, mesh=None):
+    """Build the implicit step: state -> (state, StepMetrics). ``mesh``:
+    the rank's ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None
+    is one rank)."""
     _check_ported(cfg)
+    ax = ParticleAxis(cfg.axis_name, mesh)
     ng = cfg.grid.ng
     dx = cfg.grid.dx
     dt = cfg.dt
@@ -233,15 +242,27 @@ def make_step(cfg: ImplicitConfig):
 
     def _metrics(state, e1, p1, v1, current_bias, k, r, clamped):
         dev = e1.device
+        kinetic = 0.5 * cfg.p2c * torch.sum(state.m * v1 * v1)
+        if ax.mesh is None:
+            # clones: a view would keep the whole (n,) array alive
+            tracer = (p1[cfg.tracer].clone(), v1[cfg.tracer].clone())
+        else:
+            # the kinetic sum and rank 0's tracer over the ranks in one
+            # collective (current_bias arrives summed)
+            t = (torch.stack([p1[cfg.tracer], v1[cfg.tracer]]) if ax.rank == 0
+                 else torch.zeros(2, dtype=p1.dtype, device=dev))
+            kinetic, t = ax.sum_many([kinetic.to(p1.dtype), t])
+            tracer = (t[0], t[1])
+            if clamped is not None:
+                clamped = ax.sum(clamped)
         return StepMetrics(
             field_energy=0.5 * EPSILON_0 * dx * torch.sum(e1 * e1),
-            kinetic_energy=0.5 * cfg.p2c * torch.sum(state.m * v1 * v1),
+            kinetic_energy=kinetic,
             current_bias=current_bias,
             picard_iters=torch.full((), k, dtype=torch.int32, device=dev),
             picard_residual=r,
-            # clones: a view would keep the whole (n,) array alive
-            tracer_x=p1[cfg.tracer].clone(),
-            tracer_v=v1[cfg.tracer].clone(),
+            tracer_x=tracer[0],
+            tracer_v=tracer[1],
             picard_clamped=(clamped if clamped is not None else
                             torch.zeros((), dtype=torch.int32, device=dev)),
         )
@@ -284,7 +305,7 @@ def make_step(cfg: ImplicitConfig):
             if share:
                 clamped = clamped + outs[-1]
                 outs = outs[:-1]
-            jh = outs[-1]
+            jh = ax.sum(outs[-1])
             e1, eh, r = _advance(e0, es, jh)
             es, aux = _mix(es, eh, k, aux)
             ps = outs[0]
@@ -299,6 +320,7 @@ def make_step(cfg: ImplicitConfig):
         if cfg.finalize == "converged-deposit":
             p1, v1, j1 = cuda_cic.picard_finalize(
                 _smooth(es), ps, p0, v0, ng, qm=qm_s, w=w_s, dt=dt, dx=dx)
+            j1 = ax.sum(j1)
             current_bias = torch.mean(j1)
         else:
             if emit_v:
@@ -311,7 +333,7 @@ def make_step(cfg: ImplicitConfig):
             # Exact grid mean of the skipped full-step deposit: periodic
             # CIC weights sum to 1, so mean(deposit(p1, w v1)) == w
             # sum(v1)/ng.
-            current_bias = torch.sum(v1) * float(w_s / np.float32(ng))
+            current_bias = ax.sum(torch.sum(v1)) * float(w_s / np.float32(ng))
         metrics = _metrics(state, e1, p1, v1, current_bias, k, r, clamped)
         new_state = state.replace(p=p1, v=v1, e=e1, j=j1, e_prev=state.e,
                                   e_prev2=state.e_prev, step=state.step + 1)
@@ -345,6 +367,7 @@ def make_step(cfg: ImplicitConfig):
                          periodic=True)
             p1 = torch.remainder(p1, ng)
             j1 = deposit(p1, (w * v1).contiguous(), ng, periodic=True)
+            jh, j1 = ax.sum_many([jh, j1])
             e1, eh, r = _advance(e0, es, jh)
             es, aux = _mix(es, eh, k, aux)
             ps = ph

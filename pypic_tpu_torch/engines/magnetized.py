@@ -99,10 +99,30 @@ The step's host-side facts (the step number for the first-step branch of
 the n0 update and the Philox counters, the key, the shapes) live on the
 host in the state, so nothing is read back from the card.
 
-Options whose modules are not ported yet (the 'hash' and 'threefry'
-samplers, data-parallel sharding, deposit_method) raise
+``source_sampler='hash'`` (and 'auto' under ``axis_name`` at
+``react_batch`` 0) draws the JAX engine's counter-based batch
+(``sources.sample_source_hash``, ``sample_flux_hash``: one ``hash_batch``
+launch, the seed from ``sources.step_seed``).
+
+Data parallel (``cfg.axis_name`` set, ``make_step(cfg, mesh=mesh)``; see
+``parallel.dataparallel``): each rank holds a contiguous block of the
+slots. The deposits, the IEAD and escape histograms, the particle ledger
+and the counters are summed over the ranks, and the Newton solve runs on
+the summed densities, the same on every rank. The ionization and
+gyro-phase draws take the rank into their Philox tag (rank 0's equal the
+one-device draws). The full-capacity re-activation batch takes the hash
+sampler with slot offset rank x local n, so it is the one-device batch;
+the capped policies rank the inactive slots globally, by the exclusive
+prefix of the ranks' counts (``all_gather``), and the min-plus admission
+takes the ranks' lost counts and minima the same way. With
+``react_batch`` > 0 the table is the same on every rank (no offset). The
+step's collectives stay on the device: on one rank they are the identity,
+and the step still makes no host sync.
+
+Options whose modules are not ported yet (the 'threefry' sampler, the
+carried paths under ``axis_name``, deposit_method) raise
 ``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
-ROADMAP item that brings them.
+ROADMAP item or the reason.
 """
 
 from __future__ import annotations
@@ -125,6 +145,7 @@ from ..ops.poisson import (solve_boltzmann_dirichlet,
 from ..push import (boris_push_dt, from_guiding_center, gc_push_rk4,
                     to_guiding_center)
 from ..ops.ionization import attempt_ionization, coefficient_table, rate_matrix
+from ..parallel.dataparallel import ParticleAxis
 from ..utils import compact_rows, pack_rows, place_rows
 
 _MASK32 = 0xFFFFFFFF
@@ -355,25 +376,27 @@ CHECKPOINT_MIGRATIONS = {
 }
 
 
-_ITEM_SAMPLERS = "item 14b step 6, the 'hash' and 'threefry' samplers"
-_ITEM_PARALLEL = "item 17a, data parallel"
-_ITEM_GATED = "item 18, options measured negative or gated off"
+_ITEM_GATED = "see ROADMAP.md queue 1, item 18, options measured negative or gated off"
 
 
 def _check_ported(cfg: MagnetizedConfig) -> None:
     """Raise NotImplementedError for options whose modules are not ported
     yet."""
     todo = {
-        "axis_name": (cfg.axis_name is not None, _ITEM_PARALLEL),
-        f"source_sampler={cfg.source_sampler!r}": (
-            cfg.source_sampler in ("hash", "threefry"), _ITEM_SAMPLERS),
+        "source_sampler='threefry'": (
+            cfg.source_sampler == "threefry",
+            "it draws jax.random's own streams, which the port does not "
+            "reproduce; 'auto' and 'pallas' draw the Philox kernels', "
+            "'hash' the counter-based sampler"),
+        "carried_deposit='on' under axis_name": (
+            cfg.carried_deposit == "on" and cfg.axis_name is not None,
+            _ITEM_GATED),
         f"deposit_method={cfg.deposit_method!r}": (
             cfg.deposit_method != "auto", _ITEM_GATED),
     }
-    for what, (hit, item) in todo.items():
+    for what, (hit, why) in todo.items():
         if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
+            raise NotImplementedError(f"{what} is not ported yet: {why}")
 
 
 def _safe_charge(charge_state):
@@ -616,13 +639,16 @@ def iead_traffic(species_idx, m, vdx, vdy, vdz, hit, *, bins, energy_max,
 
 
 def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
-                energy_max, angle_max):
+                energy_max, angle_max, reduce=None):
     """Wall-impact energy-angle histogram update (``iead_traffic``): one
     width-0 deposit over every particle (``ops.cic.histogram_add``, the
-    deposit kernel on the card). Returns iead + the update."""
+    deposit kernel on the card). ``reduce`` sums the update over the
+    ranks (data parallel). Returns iead + the update."""
     flat, weight = iead_traffic(species_idx, m, vdx, vdy, vdz, hit, bins=bins,
                                 energy_max=energy_max, angle_max=angle_max)
     upd = histogram_add(flat, weight.to(iead.dtype), iead.numel())
+    if reduce is not None:
+        upd = reduce(upd)
     return iead + upd.reshape(iead.shape)
 
 
@@ -648,8 +674,11 @@ def prefix_min(x: torch.Tensor, width: int = PREFIX_MIN_WIDTH) -> torch.Tensor:
 def make_step(cfg: MagnetizedConfig,
               source_draws: Optional[Callable] = None,
               gyro_draws: Optional[Callable] = None,
-              ion_draws: Optional[Callable] = None):
-    """Build the step: state -> (state, StepMetrics).
+              ion_draws: Optional[Callable] = None,
+              mesh=None, hash_seeds: Optional[Callable] = None):
+    """Build the step: state -> (state, StepMetrics). ``mesh``: the rank's
+    ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None is one
+    rank).
 
     ``source_draws(step, n)``, when given, replaces the re-activation
     sampler (the volumetric or the flux source): it returns {"x" [m],
@@ -658,9 +687,17 @@ def make_step(cfg: MagnetizedConfig,
     the GC wall-impact rebuild: an (n, 3) tensor; ``ion_draws(step, n)``
     the ionization attempt's uniforms: an (n,) tensor. The CPU tests pass
     the JAX engine's own draws through them; the engine's path never
-    does.
+    does. ``hash_seeds(step)`` replaces the hash sampler's seed: a dict
+    {"source": uint32 seed} (the tests pass JAX's ``seed_from_key``).
     """
     _check_ported(cfg)
+    ax = ParticleAxis(cfg.axis_name, mesh)
+    use_hash = cfg.source_sampler == "hash" or (
+        cfg.source_sampler == "auto" and ax.on and not cfg.react_batch)
+    # the per-rank Philox streams of the ionization and gyro-phase draws
+    # (JAX folds the axis index into their keys); rank 0's are one
+    # device's
+    rank_tag = ax.rank << 16
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
     cells = float(grid.num_cells)
@@ -742,6 +779,20 @@ def make_step(cfg: MagnetizedConfig,
     def _draws(state, step_i: int, n: int):
         if source_draws is not None:
             return source_draws(step_i, n)
+        if use_hash:
+            seed = (hash_seeds(step_i)["source"] if hash_seeds is not None
+                    else sources.step_seed(state.rng, step_i))
+            # global slot ids at full capacity; the react_batch table is
+            # the same on every rank
+            off = 0 if cfg.react_batch else ax.rank * n
+            if cfg.reactivate == "flux":
+                return sources.sample_flux_hash(
+                    seed, n, grid, src.ti, src.mass, vx=src.vx,
+                    gamma=cfg.flux_gamma, vx_pert=cfg.flux_vx_pert,
+                    slot_offset=off, device=state.p.device)
+            return sources.sample_source_hash(
+                seed, n, grid, src.ti, src.mass, vx=src.vx, slot_offset=off,
+                device=state.p.device)
         if cfg.reactivate == "flux":
             return sources.sample_flux_batch(
                 state.rng, step_i, n, grid, src.ti, src.mass, vx=src.vx,
@@ -755,14 +806,14 @@ def make_step(cfg: MagnetizedConfig,
         if gyro_draws is not None:
             return gyro_draws(step_i, n)
         return cuda_rng.philox_uniforms(state.rng, step_i, n, 3,
-                                        cuda_rng.GYRO_TAG,
+                                        cuda_rng.GYRO_TAG | rank_tag,
                                         device=state.p.device).t()
 
     def _ion(state, step_i: int, n: int):
         if ion_draws is not None:
             return ion_draws(step_i, n)
         return cuda_rng.philox_uniforms(state.rng, step_i, n, 1,
-                                        cuda_rng.ION_TAG,
+                                        cuda_rng.ION_TAG | rank_tag,
                                         device=state.p.device)[0]
 
     def _capped_take(state, active, charge_state, inactive, rank):
@@ -783,19 +834,28 @@ def make_step(cfg: MagnetizedConfig,
         same-step loss it is the rank < deficit prefix, what the other
         cases take."""
         sp_src = state.species_idx == src.species_idx
-        n_src_active = torch.sum((active == 1) & sp_src & (charge_state > 0),
-                                 dtype=torch.int32)
+        n_src_active = ax.sum(torch.sum(
+            (active == 1) & sp_src & (charge_state > 0), dtype=torch.int32))
         deficit = torch.clamp(cfg.source_n - n_src_active, min=0)
         if cfg.react_timing != "reference" or cfg.react_batch:
             return inactive & (rank < deficit)
         lost_now = ((state.active == 1) & (active != 1) & sp_src
                     & (charge_state > 0)).to(torch.int32)
-        suffix = (torch.sum(lost_now, dtype=torch.int32)
-                  - torch.cumsum(lost_now, dim=0, dtype=torch.int32))
-        allow = torch.clamp(deficit - suffix, min=0)
+        n_lost = torch.sum(lost_now, dtype=torch.int32)
+        suffix = n_lost - torch.cumsum(lost_now, dim=0, dtype=torch.int32)
         top = torch.iinfo(torch.int32).max
+        if ax.mesh is not None:
+            # the countable losses of the higher ranks' slots
+            suffix = suffix + torch.sum(
+                ax.gather(n_lost)[ax.rank + 1:]).to(torch.int32)
+        allow = torch.clamp(deficit - suffix, min=0)
         tt = torch.where(inactive, allow - (rank + 1), top)
         m_excl = torch.cat([torch.full_like(tt[:1], top), prefix_min(tt)[:-1]])
+        if ax.mesh is not None:
+            # the running minimum carried in from the lower ranks' slots
+            lower = torch.cat([ax.gather(torch.min(tt))[:ax.rank],
+                               torch.full_like(tt[:1], top)])
+            m_excl = torch.minimum(m_excl, torch.min(lower))
         return inactive & (rank + torch.clamp(m_excl, max=0) < allow)
 
     def _push_gc(state, is_active, is_gc, e_field):
@@ -840,12 +900,14 @@ def make_step(cfg: MagnetizedConfig,
             # last step's push kernel and patches (or the prime) deposited
             # these from the same positions
             rho, n_dens = state.rho, state.n
-        elif fused:
-            rho, n_dens = cuda_cic.deposit2(state.p, w_rho, w_n, ng,
-                                            periodic=False)
         else:
-            rho = deposit(state.p, w_rho, ng, periodic=False)
-            n_dens = deposit(state.p, w_n, ng, periodic=False)
+            if fused:
+                rho, n_dens = cuda_cic.deposit2(state.p, w_rho, w_n, ng,
+                                                periodic=False)
+            else:
+                rho = deposit(state.p, w_rho, ng, periodic=False)
+                n_dens = deposit(state.p, w_n, ng, periodic=False)
+            rho, n_dens = ax.sum_many([rho, n_dens])
         eta = torch.exp(state.phi / te_volts)
         n0, p_old = boltzmann_n0_update(
             step_i, state.n0, state.p_old, state.added,
@@ -924,7 +986,8 @@ def make_step(cfg: MagnetizedConfig,
             return iead_update(hist, state.species_idx, state.m, vdx, vdy,
                                vdz, mask, bins=cfg.iead_bins,
                                energy_max=cfg.iead_energy_max,
-                               angle_max=cfg.iead_angle_max)
+                               angle_max=cfg.iead_angle_max,
+                               reduce=ax.sum)
 
         iead = state.iead
         if cfg.iead_energy_max > 0.0:
@@ -1028,6 +1091,10 @@ def make_step(cfg: MagnetizedConfig,
                                  batch["vz"])
             rank = (compact_rows(inactive)
                     if cfg.react_batch or cfg.reactivate != "source" else None)
+            if rank is not None and ax.mesh is not None:
+                # the global slot rank: the blocks are contiguous, so the
+                # lower ranks' inactive slots come first
+                rank = rank + ax.before(torch.sum(inactive, dtype=torch.int32))
             if cfg.reactivate == "flux":
                 bvx = -torch.abs(bvx)  # pygcpic.py:2059
                 take = inactive & (rank < cfg.flux_limit)
@@ -1089,21 +1156,29 @@ def make_step(cfg: MagnetizedConfig,
             rho_carry = rho_carry + patch[0]
             n_carry = n_carry + patch[1]
 
+        counts = [torch.sum(active == 1, dtype=torch.int32),
+                  torch.sum(hit, dtype=torch.int32), n_ionized, n_react,
+                  n_escaped]
+        if ax.mesh is not None:
+            # the global ledger (the next step's n0 update reads it) and
+            # counters
+            added = ax.sum(added)
+            counts = ax.sum(torch.stack(counts)).unbind(0)
         metrics = StepMetrics(
             n0=n0,
             phi_max=torch.max(phi),
             newton_iters=res.iterations,
             newton_residual=res.residual,
-            n_active=torch.sum(active == 1, dtype=torch.int32),
-            n_hit_wall=torch.sum(hit, dtype=torch.int32),
-            n_ionized=n_ionized,
-            n_reactivated=n_react,
+            n_active=counts[0],
+            n_hit_wall=counts[1],
+            n_ionized=counts[2],
+            n_reactivated=counts[3],
             added=added,
             rho=rho,
             phi=phi,
             impacts=impacts,
             n_impacts=n_impacts,
-            n_escaped=n_escaped,
+            n_escaped=counts[4],
             carry_clamped=carry_clamped,
             n_ion_suppressed=n_ion_suppressed,
             n_escape_deferred=n_escape_deferred,

@@ -40,7 +40,22 @@ float atomics' changing order would hold above the threshold (module
 The re-injection is the Philox kernel ``ops.cuda_rng.sheath_reinject``
 (``rng_sampler`` 'auto' and 'pallas'), keyed by the state's two key words
 at counters (row, step, j, 0): the key never changes, the step picks the
-draws. The loop's exit depends on data, so a pass reads r and ||es|| on the
+draws. ``rng_sampler='hash'`` (and 'auto' under ``axis_name``) draws the
+JAX engine's counter-based uniforms and normals instead
+(``sources.hash_uniforms``, ``hash_normals``: the ``hash_batch`` kernel,
+four seeds a step from ``sources.step_seed``), then applies the same
+masked update.
+
+Data parallel (``cfg.axis_name`` set, ``make_step(cfg, mesh=mesh)``; see
+``parallel.dataparallel``): each rank holds a block of the particles. The
+current deposits, wall surface-charge terms included, are summed over the
+ranks before the edge fold, on both backends; the exit histograms, the
+kinetic energy and the counters are summed too. So the Picard loop
+iterates on the replicated field and its one host read a pass reads the
+same residual on every rank. The hash draws take the slot offset
+rank x local n, so every rank draws what one device draws for its slots.
+
+The loop's exit depends on data, so a pass reads r and ||es|| on the
 host in one transfer (none after the pass that reaches maxiter); nothing
 else syncs. The step number and the key live on the host in the state.
 
@@ -64,11 +79,13 @@ import torch
 
 from .. import devices
 from ..constants import EPSILON_0
+from .. import sources
 from ..grid import GridSpec
 from ..ops import cuda_cic, cuda_rng, cuda_sheath
 from ..ops.accel import anderson_depth, anderson_mix, mix_init
 from ..ops.cic import gather
 from ..ops.fd import integrate_neg_trapz
+from ..parallel.dataparallel import ParticleAxis
 
 ACTIVE = 1
 LOST_RIGHT = 0  # absorbed at x >= L (PIC_L_DD.py:495-496)
@@ -194,7 +211,9 @@ CHECKPOINT_MIGRATIONS = {
 }
 
 
-_ITEM_PARALLEL = "see ROADMAP.md queue 1, item 17a, data parallel"
+# the hash sampler's four draws a step, in the order of their seeds
+HASH_STREAMS = ("therm_u", "therm_v", "reinj_x", "reinj_v")
+
 _ITEM_GATED = "see ROADMAP.md queue 1, item 18, options measured negative or gated off"
 _ITEM_F64 = "see ROADMAP.md queue 1, item 19, f64 particle state"
 
@@ -207,8 +226,6 @@ def _check_ported(cfg: SheathConfig) -> None:
             cfg.picard_accel not in ("none", "anderson"), _ITEM_GATED),
         f"deposit_method={cfg.deposit_method!r}": (
             cfg.deposit_method != "auto", _ITEM_GATED),
-        "axis_name": (cfg.axis_name is not None, _ITEM_PARALLEL),
-        "rng_sampler='hash'": (cfg.rng_sampler == "hash", _ITEM_PARALLEL),
         "rng_sampler='threefry'": (
             cfg.rng_sampler == "threefry",
             "it draws jax.random's own streams, which the port does not "
@@ -275,8 +292,11 @@ def init_state(x, v3, q, m, species, cfg: SheathConfig, seed: int = 0,
     )
 
 
-def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
-    """Build the step: state -> (state, StepMetrics).
+def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
+              mesh=None, hash_seeds: Optional[Callable] = None):
+    """Build the step: state -> (state, StepMetrics). ``mesh``: the rank's
+    ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None is one
+    rank).
 
     ``reinject_draws(step, n)``, when given, replaces the sampler: it
     returns {"x": the new positions in grid coordinates, "z": three
@@ -284,8 +304,15 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
     uniforms and "z_therm": three thermostat normals}, (n,) tensors on the
     state's device. The CPU tests pass the JAX engine's own draws through
     it; the engine's path never does.
+
+    ``hash_seeds(step)``, when given, replaces the hash sampler's seeds: a
+    dict of ``HASH_STREAMS`` to uint32 seeds (the CPU tests pass the JAX
+    engine's ``seed_from_key`` of its key splits).
     """
     _check_ported(cfg)
+    ax = ParticleAxis(cfg.axis_name, mesh)
+    use_hash = cfg.rng_sampler == "hash" or (cfg.rng_sampler == "auto"
+                                             and cfg.axis_name is not None)
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
     dt_dx = dt / dx
@@ -339,7 +366,32 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
         weight = torch.where(right | left, 1.0, 0.0).to(hist.dtype)
         _, dep = _grid_ops(hist.dtype)
         upd = dep(flat.to(hist.dtype), weight, 2 * bins, periodic=False)
-        return hist + upd.reshape(2, bins)
+        return hist + ax.sum(upd).reshape(2, bins)
+
+    def _reinject_hash(state, sig, sigth):
+        """The thermostat and re-injection on the hash sampler (the JAX
+        engine's 'hash' branch): slot ids offset by rank x n."""
+        step_i, act, dtype = state.step_host, state.active, state.p.dtype
+        n, dev = state.p.shape[0], state.p.device
+        seeds = (hash_seeds(step_i) if hash_seeds is not None else
+                 {name: sources.step_seed(state.rng, step_i, k)
+                  for k, name in enumerate(HASH_STREAMS)})
+        off = ax.rank * n
+        hit = zt = None
+        if cfg.gamma > 0.0:
+            u_th = sources.hash_uniforms(seeds["therm_u"], n, 1, off,
+                                         device=dev)[0]
+            hit = (act == ACTIVE) & (u_th < cfg.gamma)
+            zt = sources.hash_normals(seeds["therm_v"], n, 2, off,
+                                      device=dev).to(dtype)
+        x_new = (sources.hash_uniforms(seeds["reinj_x"], n, 1, off,
+                                       device=dev)[0].to(dtype)
+                 * float(np.float32(cells)))
+        z = sources.hash_normals(seeds["reinj_v"], n, 2, off,
+                                 device=dev).to(dtype)
+        return cuda_rng.reinject_apply(state.p, state.u, state.vy, state.vz,
+                                       act != ACTIVE, sig, x_new, z, hit,
+                                       sigth, zt)
 
     def _reinject(state, sig, sigth):
         """Thermostat and re-injection: (p0, u0, vy0, vz0)."""
@@ -353,6 +405,8 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
             return cuda_rng.reinject_apply(
                 state.p, state.u, state.vy, state.vz, act != ACTIVE, sig,
                 d["x"], d["z"], hit, sigth, zt)
+        if use_hash:
+            return _reinject_hash(state, sig, sigth)
         reinject = (cuda_rng.sheath_reinject
                     if state.p.dtype == torch.float32
                     else cuda_rng.sheath_reinject_plain)
@@ -406,7 +460,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
             while going:
                 xh, act1, jh = cuda_sheath.sheath_picard(
                     es, ps, p0, u0, qm, w, act_f, dt=dt, dx=dx)
-                _fold(jh)
+                jh = _fold(ax.sum(jh))
                 if recording:
                     hist = _hist_update(hist, act_f, act1, u0, species)
                 e1, es, r, aux, going = advance(es, jh, k, aux)
@@ -414,7 +468,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
                 k += 1
             x1, u1, act1, j1 = cuda_sheath.sheath_finalize(
                 es, ps, p0, u0, qm, w, act_f, dt=dt, dx=dx)
-            _fold(j1)
+            j1 = _fold(ax.sum(j1))
             if recording:
                 hist = _hist_update(hist, act_f, act1, u0, species)
             active = act1.to(torch.int32)
@@ -422,13 +476,14 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
             c = 0.5 * dt * dt_dx  # a Python float, as the JAX composed route's
 
             def currents(pos, vel, act):
-                """The deposit of the active rows' current, the wall
-                surface-charge terms and the edge fold (PIC_L_DD.py:41-67)."""
+                """The deposit of the active rows' current and the wall
+                surface-charge terms (PIC_L_DD.py:41-67), before the sum
+                over the ranks and the edge fold."""
                 wv = torch.where(act == ACTIVE, w, 0.0)
                 j = deposit_fn(pos, wv * vel, ng, periodic=False)
                 j[0] += wall * torch.sum(torch.where(act == LOST_LEFT, q, 0.0))
                 j[-1] += -wall * torch.sum(torch.where(act == LOST_RIGHT, q, 0.0))
-                return _fold(j)
+                return j
 
             active = torch.ones_like(state.active)
             ps, x1, u1, e1, j1 = p0, p0, u0, e0, state.j
@@ -449,8 +504,8 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
                 if recording:
                     hist = _hist_update(hist, active, act_new, u0, species)
                 active = act_new
-                jh = currents(xh, uh, active)
-                j1 = currents(x1, u1, active)
+                jh, j1 = (_fold(j) for j in ax.sum_many(
+                    [currents(xh, uh, active), currents(x1, u1, active)]))
                 e1, es, r, aux, going = advance(es, jh, k, aux)
                 ps = xh
                 k += 1
@@ -464,15 +519,21 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None):
         vz1 = torch.where(is_active, vz0, 0.0)
         phi = integrate_neg_trapz(e1, dx)
         phi = phi - torch.max(phi)
+        kinetic = ax.sum(cfg.p2c * 0.5 * torch.sum(m * u1 * u1))
+        counts = [torch.sum(is_active, dtype=torch.int32),
+                  torch.sum(active == LOST_LEFT, dtype=torch.int32),
+                  torch.sum(active == LOST_RIGHT, dtype=torch.int32)]
+        if ax.mesh is not None:
+            counts = ax.sum(torch.stack(counts)).unbind(0)
         metrics = StepMetrics(
             field_energy=0.5 * EPSILON_0 * dx * torch.sum(e1 * e1),
-            kinetic_energy=cfg.p2c * 0.5 * torch.sum(m * u1 * u1),
+            kinetic_energy=kinetic,
             current_bias=torch.mean(j1),
             picard_iters=torch.full((), k, dtype=torch.int32, device=dev),
             picard_residual=r,
-            n_active=torch.sum(is_active, dtype=torch.int32),
-            n_lost_left=torch.sum(active == LOST_LEFT, dtype=torch.int32),
-            n_lost_right=torch.sum(active == LOST_RIGHT, dtype=torch.int32),
+            n_active=counts[0],
+            n_lost_left=counts[1],
+            n_lost_right=counts[2],
             phi=phi,
         )
         new_state = state.replace(

@@ -134,50 +134,60 @@ def domain_layout(cls):
     return _DOMAIN_PARTICLE, _DOMAIN_SLAB[cls]
 
 
-def _domain_from_numpy(cls, d: dict, num_shards: int, device) -> list:
+def _domain_from_numpy(cls, d: dict, num_shards: int, device,
+                       replicas: int = 1) -> list:
     slabs = _DOMAIN_SLAB[cls]
     missing = [k for k in _DOMAIN_PARTICLE + _DOMAIN_SCALAR + slabs
                if k not in d]
     if missing:
         raise KeyError(f"missing {cls.__name__} fields: {missing}")
 
-    def cut(a, r):
+    def cut(a, r, parts):
         a = np.asarray(a)
-        if a.shape[0] % num_shards:
+        if a.shape[0] % parts:
             raise ValueError(f"{a.shape[0]} rows do not split into "
-                             f"{num_shards} shards")
-        k = a.shape[0] // num_shards
+                             f"{parts} shards")
+        k = a.shape[0] // parts
         return torch.from_numpy(np.array(a[r * k:(r + 1) * k])).to(device)
 
     states = []
-    for r in range(num_shards):
-        kw = {k: cut(d[k], r) for k in _DOMAIN_PARTICLE + slabs}
+    for r in range(num_shards * replicas):
+        # rank s R + r': the (s, r') block of the particles, slab s
+        kw = {k: cut(d[k], r, num_shards * replicas)
+              for k in _DOMAIN_PARTICLE}
+        kw.update({k: cut(d[k], r // replicas, num_shards) for k in slabs})
         kw.update({k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
                    for k in _DOMAIN_SCALAR})
         states.append(cls(**kw))
     return states
 
 
-def _domain_to_numpy(states) -> dict:
+def _domain_to_numpy(states, replicas: int = 1) -> dict:
     cls = type(states[0])
     out = {k: np.concatenate([getattr(s, k).detach().cpu().numpy()
                               for s in states])
-           for k in _DOMAIN_PARTICLE + _DOMAIN_SLAB[cls]}
+           for k in _DOMAIN_PARTICLE}
+    out.update({k: np.concatenate([getattr(s, k).detach().cpu().numpy()
+                                   for s in states[::replicas]])
+                for k in _DOMAIN_SLAB[cls]})
     out.update({k: getattr(states[0], k).detach().cpu().numpy()
                 for k in _DOMAIN_SCALAR})
     return out
 
 
 def domain_implicit_states_from_numpy(d: dict, num_shards: int,
-                                      device) -> list:
-    """The S rank states of a JAX ``DomainImplicitState`` given as a dict
-    of numpy arrays (p, v, alive, q, m, e, j, e_prev, e_prev2, step)."""
-    return _domain_from_numpy(DomainImplicitState, d, num_shards, device)
+                                      device, replicas: int = 1) -> list:
+    """The S (x R replicas) rank states of a JAX ``DomainImplicitState``
+    given as a dict of numpy arrays (p, v, alive, q, m, e, j, e_prev,
+    e_prev2, step), in rank order s R + r: the particles of JAX's (S, R,
+    cap_r) layout, the fields of slab s."""
+    return _domain_from_numpy(DomainImplicitState, d, num_shards, device,
+                              replicas)
 
 
-def domain_implicit_states_to_numpy(states) -> dict:
+def domain_implicit_states_to_numpy(states, replicas: int = 1) -> dict:
     """The rank states joined into the JAX state's global arrays."""
-    return _domain_to_numpy(states)
+    return _domain_to_numpy(states, replicas)
 
 
 def domain_states_from_numpy(d: dict, num_shards: int, device) -> list:

@@ -76,6 +76,7 @@ _SIGNATURES = {
     "pypic_boltzmann_dn": (
         [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _P], _I),
     "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
+    "pypic_hash_batch": ([_P, _L, _I, _U, _U, _F, _I, _I, _I, _P], _I),
     "pypic_source_batch": (
         [_P] * 4 + [_L, _U, _U, _U] + [_F] * 7 + [_I, _I, _I, _P], _I),
     "pypic_source_blocks_per_sm": ([_I, _I], _I),

@@ -47,6 +47,19 @@ eight a slot, ``GYRO_TAG`` the guiding-center gyro-phases' three,
 count in ``cuda_cic.LAUNCHES['philox_uniforms']``); the CPU runs
 ``philox_uniforms_plain``, bit-equal.
 
+``hash_batch(seed, n, streams, offset=..., normals=..., device=...)``
+draws the counter-based 'hash' sampler of the JAX package
+(``pypic_tpu/sources.py`` ``hash_uniforms``, ``hash_normals``), which no
+TPU kernel draws: stream s of slot i hashes the slot id i + offset with
+murmur3's 32-bit finalizer (``mix32_plain``) under a uint32 ``seed``, so a
+rank that passes offset = rank x n draws what one device draws for its
+slots. The uniforms are bit-equal to JAX's; ``normals`` gives the
+Box-Muller pairs in JAX's layout. A CUDA device launches the kernel
+(``csrc/rng.cu`` hash_batch_kernel; ``LAUNCHES['hash_batch']``), the CPU
+runs ``hash_batch_plain``: int64 tensor arithmetic masked to 32 bits, each
+32 x 32-bit product from 16-bit halves (this PyTorch has no uint32
+shifts, xors or adds).
+
 The plain transforms work on contiguous tensors, so that PyTorch's CPU
 loops take one path whatever views they are handed.
 """
@@ -438,4 +451,85 @@ def philox_uniforms(key, step: int, n: int, ndraw: int, tag: int, *,
             int(tag) & _MASK32, _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "philox_uniforms")
     LAUNCHES["philox_uniforms"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the counter-based 'hash' sampler (sources.hash_uniforms in JAX)
+# ---------------------------------------------------------------------------
+
+_GOLDEN = 0x9E3779B9  # 2^32 / phi: the streams' counter offsets
+_HASH_MAX_STREAMS = 16
+
+
+def _mul32(a: int, x: torch.Tensor) -> torch.Tensor:
+    """(a x) mod 2^32 of the constant a and the uint32 words x (int64)."""
+    return (x * (a & 0xFFFF) + (((x * (a >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def mix32_plain(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on uint32 words held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(0x85EBCA6B, x)
+    x = x ^ (x >> 13)
+    x = _mul32(0xC2B2AE35, x)
+    return x ^ (x >> 16)
+
+
+def hash_uniforms_plain(seed: int, n: int, streams: int, offset: int = 0,
+                        device="cpu") -> torch.Tensor:
+    """(streams, n) float32 uniforms in (0, 1] of the hash sampler:
+    h = mix(mix(i + offset + (s + 1) golden) ^ seed), u = ((h >> 8) +
+    1/2) 2^-24, each integer sum taken mod 2^32 (JAX's uint32 wrap), the
+    float32 sum rounded to even as JAX rounds it (to 1 at the top)."""
+    idx = (torch.arange(n, dtype=torch.int64, device=device)
+           + (int(offset) & _MASK32)) & _MASK32
+    offs = torch.tensor([((s + 1) * _GOLDEN) & _MASK32 for s in range(streams)],
+                        dtype=torch.int64, device=device)[:, None]
+    h = mix32_plain(mix32_plain((idx[None, :] + offs) & _MASK32)
+                    ^ (int(seed) & _MASK32))
+    return ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+def hash_normals_from_uniforms(u: torch.Tensor) -> torch.Tensor:
+    """(2 pairs, n) Box-Muller normals of (2 pairs, n) uniforms, JAX's
+    layout (sources.hash_normals): rows r cos t, then rows r sin t, with
+    r = sqrt(-2 log u[2p]) and t = (2 pi) u[2p + 1] (float32 angles, the
+    functions in float64 rounded once: ``_bm_radius``)."""
+    r = _bm_radius(u[0::2].contiguous())
+    cos, sin = _bm_cos_sin(_f32(_TWO_PI) * u[1::2].contiguous())
+    return torch.cat([r * cos, r * sin], dim=0)
+
+
+def hash_batch_plain(seed: int, n: int, streams: int, offset: int = 0,
+                     normals: bool = False, device="cpu") -> torch.Tensor:
+    """What ``hash_batch`` computes, as tensor operations."""
+    u = hash_uniforms_plain(seed, n, streams, offset, device)
+    return hash_normals_from_uniforms(u) if normals else u
+
+
+def hash_batch(seed: int, n: int, streams: int, *, offset: int = 0,
+               normals: bool = False, device) -> torch.Tensor:
+    """The (streams, n) float32 draws of the hash sampler for slots
+    offset .. offset + n - 1 under the uint32 ``seed``: the uniforms, or
+    with ``normals`` the Box-Muller normals of the stream pairs (streams
+    even). A CUDA device launches the kernel; the CPU runs the plain
+    version."""
+    dev = _kind(device)
+    if n < 1 or n > _MASK32:
+        raise ValueError(f"n must be in [1, 2^32), got {n}")
+    if not 1 <= streams <= _HASH_MAX_STREAMS or (normals and streams % 2):
+        raise ValueError(f"streams must be in [1, {_HASH_MAX_STREAMS}] (even "
+                         f"for normals), got {streams}")
+    if dev.type == "cpu":
+        return hash_batch_plain(seed, n, streams, offset, normals, dev)
+    lib = _build.library()
+    out = torch.empty((streams, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_hash_batch(
+            out.data_ptr(), n, int(streams), int(offset) & _MASK32,
+            int(seed) & _MASK32, _f32(_TWO_PI), int(bool(normals)),
+            _blocks(n, dev), _THREADS, _stream(dev))
+    _build.check(err, "hash_batch")
+    LAUNCHES["hash_batch"] += 1
     return out

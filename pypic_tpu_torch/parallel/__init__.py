@@ -3,7 +3,11 @@
 ``domain`` (halo exchange, migration, the explicit carrier) and
 ``domain_implicit`` (BASELINE configs[4]), ``distributed_poisson`` (the
 substructured solves) and ``spawn`` (gloo ranks on one host).
-``dataparallel`` and the two-axis mesh come with ROADMAP queue 1 item 17a,
-``domain_sheath`` and ``domain_magnetized`` with item 17b."""
+``dataparallel`` (particles split over the ranks, the fields replicated)
+and ``make_mesh2`` (slabs x replicas); ``domain_sheath`` and
+``domain_magnetized`` come with ROADMAP queue 1 item 17b."""
 
-from .mesh import SlabMesh, make_mesh, maybe_initialize_distributed  # noqa: F401
+from .dataparallel import (gather_state, make_data_parallel_step,  # noqa: F401
+                           shard_state)
+from .mesh import (Mesh2, SlabMesh, make_mesh, make_mesh2,  # noqa: F401
+                   maybe_initialize_distributed)

@@ -115,7 +115,6 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
 
 
-_ITEM17A = "item 17a, data parallel"
 _ITEM18 = "item 18, options measured negative or gated off"
 
 
@@ -181,7 +180,7 @@ def _unpayload(msg: torch.Tensor, nfields: int):
 
 def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
             ng: int, cells_per_shard: int, num_shards: int, cap: int,
-            mesh: SlabMesh):
+            mesh: SlabMesh, count_mesh: SlabMesh | None = None):
     """Route alive particles to the rank owning their slab.
 
     ``fields[0]`` is the position in global grid coordinates, wrapped to
@@ -201,8 +200,14 @@ def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
     With one shard nothing can be misrouted: no round runs, nothing is
     read, and the counts are 0 (JAX's domain.py:213-219).
 
+    ``count_mesh`` (default ``mesh``): the ranks the counts are summed
+    over. On a slabs x replicas mesh it is the whole mesh, so the replicas
+    agree on the round count (JAX's ``count_axes``; a replica that stopped
+    early would leave the others' collectives waiting); the counts then
+    include every replica's.
+
     Returns (fields, alive, n_migrated, n_dropped), the counts int32 0-d
-    tensors summed over the ranks.
+    tensors summed over the ranks of ``count_mesh``.
     """
     dev = alive.device
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -217,7 +222,9 @@ def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
     def misrouted(p, alive):
         return (alive & (dest_of(p) != d)).sum(dtype=torch.int32)
 
-    n_rem = int(mesh.all_reduce_sum(misrouted(fields[0], alive).reshape(1)))
+    count_mesh = mesh if count_mesh is None else count_mesh
+    n_rem = int(count_mesh.all_reduce_sum(
+        misrouted(fields[0], alive).reshape(1)))
     n_mig, n_drop, k = zero, zero.clone(), 0
     while n_rem > 0 and k < d_tot:
         diff = torch.remainder(dest_of(fields[0]) - d, d_tot)
@@ -235,7 +242,7 @@ def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
         alive = alive | take
         fields, take, placed_l = place_rows(~alive, recv_l, n_l, fields)
         alive = alive | take
-        counts = mesh.all_reduce_sum(torch.stack([
+        counts = count_mesh.all_reduce_sum(torch.stack([
             n_r + n_l,
             ovf_r + ovf_l + (n_r - placed_r) + (n_l - placed_l),
             misrouted(fields[0], alive)]).to(torch.int32))

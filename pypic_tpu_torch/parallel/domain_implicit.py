@@ -35,10 +35,21 @@ no host sync in a step. Above it (and on the composed backend) the host
 reads the summed residual once a pass, as the single-device engine does.
 With more than one rank, ``migrate`` reads its counts once a round.
 
+Slabs x replicas (``num_replicas`` R > 1 with ``dp_axis_name``; JAX's
+two-axis mesh): the ranks form ``mesh.make_mesh2(num_shards, R)``, and
+rank s R + r holds replica r of slab s: the columns r::R of the slab's
+rows (``init_state``), the fields slab-sharded and the same on every
+replica. Each slab deposit is summed over the slab's replicas after the
+halo fold, so the replicas of a slab iterate on the same field; the
+particle statistics are summed over the whole mesh, and ``migrate`` rides
+each replica's own ring of slabs with its round count summed over the
+whole mesh, so every rank runs the same rounds. ``make_step`` and
+``init_state`` take the rank's ``Mesh2`` (or a one-axis ``SlabMesh`` at
+R = 1).
+
 Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
 ``make_superstep``, ``finalize_field != 'last'``,
-``picard_accel='anderson2'`` (item 18); ``dp_axis_name`` and
-``num_replicas > 1`` (item 17a).
+``picard_accel='anderson2'`` (item 18).
 """
 
 from __future__ import annotations
@@ -58,10 +69,9 @@ from ..ops.accel import anderson_mix, damped_mix, mix_init
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic
 from ..ops.poisson import solve_periodic_neutralized
-from .domain import (_ITEM17A, _ITEM18, _check_mesh, _not_ported,
-                     distribute_by_slab, halo_extend, halo_fold, migrate,
-                     slot_weights)
-from .mesh import SlabMesh
+from .domain import (_ITEM18, _check_mesh, _not_ported, distribute_by_slab,
+                     halo_extend, halo_fold, migrate, slot_weights)
+from .mesh import Mesh2, SlabMesh
 
 # at or below this tolerance the fused Picard loop runs maxiter passes
 # gated on the card instead of reading the residual on the host. The
@@ -191,8 +201,6 @@ class StepMetrics(NamedTuple):
 
 def _check_ported(cfg: DomainImplicitConfig) -> None:
     todo = {
-        "dp_axis_name / num_replicas > 1": (
-            cfg.dp_axis_name is not None or cfg.num_replicas > 1, _ITEM17A),
         f"finalize_field={cfg.finalize_field!r}": (
             cfg.finalize_field != "last", _ITEM18),
         "picard_accel='anderson2'": (cfg.picard_accel == "anderson2", _ITEM18),
@@ -204,15 +212,46 @@ def _check_ported(cfg: DomainImplicitConfig) -> None:
             raise _not_ported(what, item)
 
 
-def init_state(x, v, q, m, cfg: DomainImplicitConfig, mesh: SlabMesh,
+def _meshes(cfg: DomainImplicitConfig, mesh) -> Mesh2:
+    """(slabs, replicas, world) of a rank's mesh: a ``Mesh2``, or a
+    one-axis ``SlabMesh`` at num_replicas 1, checked against the config."""
+    if isinstance(mesh, SlabMesh):
+        if cfg.num_replicas > 1:
+            raise ValueError(f"num_replicas={cfg.num_replicas} needs the "
+                             "rank's Mesh2 (mesh.make_mesh2)")
+        mesh = Mesh2(mesh, SlabMesh(0, 1, mesh.device), mesh)
+    _check_mesh(cfg, mesh.slabs)
+    if mesh.replicas.world != cfg.num_replicas:
+        raise ValueError(f"num_replicas={cfg.num_replicas} but the mesh has "
+                         f"{mesh.replicas.world} replicas a slab")
+    return mesh
+
+
+def replica_columns(blocks, r: int, num_replicas: int):
+    """Replica r's columns r::R of (S, capacity) slab blocks, padded with
+    zeros to JAX's per-replica capacity ceil(capacity / R) rounded up to
+    128 (the (S, R, cap_r) layout of ``pypic_tpu``'s init_state)."""
+    cap = blocks.shape[1]
+    cap_r = -(-cap // num_replicas)
+    cap_r = -(-cap_r // 128) * 128
+    cols = blocks[:, r::num_replicas]
+    out = torch.zeros((blocks.shape[0], cap_r), dtype=blocks.dtype,
+                      device=blocks.device)
+    out[:, :cols.shape[1]] = cols
+    return out
+
+
+def init_state(x, v, q, m, cfg: DomainImplicitConfig, mesh,
                capacity_factor: float = 1.5,
                device=None) -> DomainImplicitState:
     """This rank's state: the initial Poisson solve for E0 and the deposit
     of j0 on the whole grid (pypic.py:549-554; every rank is handed the
     whole load x [m], v [m/s] and computes them alike), then the rank's
-    particles and field slabs. ``device`` defaults to the mesh's."""
+    particles (with replicas, its replica's columns of its slab's rows)
+    and field slabs. ``device`` defaults to the mesh's."""
     _check_ported(cfg)
-    _check_mesh(cfg, mesh)
+    m2 = _meshes(cfg, mesh)
+    mesh = m2.slabs
     device = devices.resolve(device if device is not None else mesh.device)
     grid = cfg.grid
     ng, dx = grid.ng, grid.dx
@@ -227,22 +266,32 @@ def init_state(x, v, q, m, cfg: DomainImplicitConfig, mesh: SlabMesh,
     e0 = (-grad_periodic(phi0, dx)).to(torch.float32)
     (p_out, v_out), alive, _ = distribute_by_slab(
         [p_glob, v_glob], x, cfg, capacity_factor, shards=[mesh.rank])
+    if cfg.num_replicas > 1:
+        r, reps = m2.replicas.rank, cfg.num_replicas
+        p_out, v_out, alive = (replica_columns(a, r, reps)
+                               for a in (p_out, v_out, alive))
     c = cfg.cells_per_shard
     own = slice(mesh.rank * c, (mesh.rank + 1) * c)
-    e_own = e0[own].clone()
+    # the slab's replicas take replica 0's fields: on the card the set-up
+    # deposits add in float atomics, whose order differs between ranks,
+    # and replicas that iterate on different bits could part in the loop
+    e_own = m2.replicas.broadcast(e0[own].clone())
+    j0 = m2.replicas.broadcast(j0[own].clone())
     return DomainImplicitState(
         p=p_out[0], v=v_out[0], alive=alive[0],
         q=torch.tensor(q, dtype=torch.float32, device=device),
         m=torch.tensor(m, dtype=torch.float32, device=device),
-        e=e_own, j=j0[own].clone(), e_prev=e_own, e_prev2=e_own,
+        e=e_own, j=j0, e_prev=e_own, e_prev2=e_own,
         step=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
+def make_step(cfg: DomainImplicitConfig, mesh):
     """The per-step-migration stepper of this rank: state -> (state,
-    StepMetrics)."""
+    StepMetrics). ``mesh``: the rank's ``SlabMesh``, or its ``Mesh2``
+    (slabs x replicas)."""
     _check_ported(cfg)
-    _check_mesh(cfg, mesh)
+    m2 = _meshes(cfg, mesh)
+    mesh = m2.slabs
     ng, dx, dt = cfg.grid.ng, cfg.grid.dx, cfg.dt
     dt_dx = dt / dx
     c = cfg.cells_per_shard
@@ -259,8 +308,14 @@ def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
     device_loop = use_fused and cfg.tol <= DEVICE_LOOP_TOL
     emit_v = cfg.finalize == "iterate"
     share = cfg.window_share == "shared"
-    total = mesh.all_reduce_sum
+    total = mesh.all_reduce_sum  # over the slabs (fields, replicated)
+    total_all = m2.world.all_reduce_sum  # over every rank (particles)
+    dpsum = m2.replicas.all_reduce_sum  # over the slab's replicas
     weights = slot_weights()
+
+    def fold(ext):
+        """A slab deposit: the halo fold, then the sum over the replicas."""
+        return dpsum(halo_fold(ext, c, hw, mesh))
 
     def smooth3(ext):
         return 0.25 * (ext[:-2] + 2.0 * ext[1:-1] + ext[2:])
@@ -308,7 +363,7 @@ def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
     def slab_deposit(pl, val):
         ext = deposit(torch.clamp(pl, -float(h), float(c + h)) + hw,
                       val.contiguous(), ext_n, periodic=False)
-        return halo_fold(ext, c, hw, mesh)
+        return fold(ext)
 
     def loop_fused(state, es, p0s, v0, w, qm, ps):
         """The fused Picard loop. Returns (es, ps, v1 of the last pass or
@@ -332,7 +387,7 @@ def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
                 outs = cuda_domain.picard_iteration_ext(
                     smoothed_ext(es), ps, p0s, v0, w, out=(ps, v1),
                     active=go if device_loop else None, **kw)
-            jh_k = halo_fold(outs[1 + emit_v], c, hw, mesh)
+            jh_k = fold(outs[1 + emit_v])
             e1_k, eh, r_k = ampere(es, jh_k, e0)
             es_k, aux_k = mix(es, eh, k, aux)
             ps = outs[0]
@@ -421,40 +476,41 @@ def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
             if cfg.finalize == "converged":
                 # the half-step current drove the Ampere advance
                 j1 = jh
-                mean_j1 = total(st[0].to(torch.float32)) / ng
+                mean_j1 = total_all(st[0].to(torch.float32)) / ng
             else:
-                j1 = halo_fold(outs[2], c, hw, mesh)
+                j1 = fold(outs[2])
                 mean_j1 = total(torch.sum(j1)) / ng
-            kin_sum = total(st[1].to(torch.float32))
-            n_halo_clamped = total(st[2].to(torch.int64))
+            kin_sum = total_all(st[1].to(torch.float32))
+            n_halo_clamped = total_all(st[2].to(torch.int64))
         else:
             if use_fused:  # 'iterate': the last Picard iterate
                 # (pypic.py:293-295), p1 from its v1 elementwise
                 p1l = (state.p - lo) + (0.5 * dt_dx) * (v0 + v1)
                 j1 = jh
-                mean_j1 = total(torch.sum(w * v1)) / ng
+                mean_j1 = total_all(torch.sum(w * v1)) / ng
             else:
                 mean_j1 = total(torch.sum(j1)) / ng
-            n_halo_clamped = total(
+            n_halo_clamped = total_all(
                 (alive & ((p1l < -h) | (p1l > c + h))).sum(dtype=torch.int64))
-            kin_sum = total(torch.sum(torch.where(alive, v1 * v1, 0.0)))
+            kin_sum = total_all(torch.sum(torch.where(alive, v1 * v1, 0.0)))
             # wrap to global coordinates (dead slots wrap too: finite
             # values, masked by alive in migration)
             p1 = torch.remainder(p1l + lo, ng)
         (p2, v2), alive1, n_migrated, n_dropped = migrate(
             [p1, v1], alive, d, ng=ng, cells_per_shard=c,
-            num_shards=cfg.num_shards, cap=cfg.migrate_cap, mesh=mesh)
+            num_shards=cfg.num_shards, cap=cfg.migrate_cap, mesh=mesh,
+            count_mesh=m2.world)
         metrics = StepMetrics(
             field_energy=0.5 * EPSILON_0 * dx * total(torch.sum(e1 * e1)),
             kinetic_energy=0.5 * cfg.p2c * state.m * kin_sum,
             current_bias=mean_j1,
             picard_iters=k,
             picard_residual=r,
-            n_alive=total(torch.count_nonzero(alive1)),
+            n_alive=total_all(torch.count_nonzero(alive1)),
             n_migrated=n_migrated,
             n_dropped=n_dropped,
             n_halo_clamped=n_halo_clamped,
-            picard_clamped=total(ncl),
+            picard_clamped=total_all(ncl),
         )
         new_state = state.replace(
             p=p2, v=v2, alive=alive1, e=e1, j=j1, e_prev=state.e,
@@ -464,7 +520,7 @@ def make_step(cfg: DomainImplicitConfig, mesh: SlabMesh):
     return step
 
 
-def make_superstep(cfg: DomainImplicitConfig, mesh: SlabMesh,
+def make_superstep(cfg: DomainImplicitConfig, mesh,
                    migrate_every: int):
     """Not ported yet: the migration-amortized superstep (item 18)."""
     raise _not_ported("make_superstep (migrate_every > 1)", _ITEM18)

@@ -18,13 +18,19 @@ mesh, as JAX's ``make_mesh`` over one device: every collective is then
 the identity (the ring neighbour is the rank itself, as with
 ``ppermute`` there) and launches nothing.
 
-``make_mesh2`` and the replica axis come with ROADMAP queue 1 item 17a.
+``make_mesh2(n_slabs, n_replicas)`` lays the ranks out as JAX's
+two-axis mesh (``pypic_tpu/parallel/mesh.py`` make_mesh2): rank s R + r
+holds replica r of slab s, so the replica axis varies fastest. It returns
+this rank's ``Mesh2``: its ring over the slabs (the ranks of its replica
+index), its replica group (the ranks of its slab) and the whole world.
+Every rank creates every group, in one order (NCCL hangs otherwise).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -43,7 +49,9 @@ def maybe_initialize_distributed(backend: str | None = None) -> bool:
     * otherwise, with ``PYPIC_DISTRIBUTED=1``, torchrun's ``RANK``,
       ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` (``env://``).
 
-    ``backend`` defaults to NCCL with a card and gloo without; under NCCL
+    ``backend`` defaults to NCCL with a card and gloo without, and
+    ``PYPIC_BACKEND`` (nccl or gloo) overrides it: gloo lets several ranks
+    share one card (their messages staged through the host); under NCCL
     the process takes the card ``LOCAL_RANK`` (or rank modulo the cards).
     Returns True when a process group is up, False when the environment
     asks for none (a one-process run). A second call is a no-op."""
@@ -53,7 +61,8 @@ def maybe_initialize_distributed(backend: str | None = None) -> bool:
         return False
     if dist.is_initialized():
         return True
-    backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+    backend = (os.environ.get("PYPIC_BACKEND") or backend
+               or ("nccl" if torch.cuda.is_available() else "gloo"))
     if coord:
         rank = int(os.environ["PYPIC_PROCESS_ID"])
         dist.init_process_group(
@@ -143,6 +152,16 @@ class SlabMesh:
         dist.all_reduce(buf, group=self.group)
         return self._back(buf)
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s tensor on every rank; ``t`` is untouched (a bool
+        tensor travels as uint8: NCCL has no bool)."""
+        if self.world == 1:
+            return t
+        buf = self._host(t.to(torch.uint8) if t.dtype == torch.bool
+                         else t).reshape(-1).clone()
+        dist.broadcast(buf, self._peer(src), group=self.group)
+        return self._back(buf).reshape(t.shape).to(t.dtype)
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' tensors concatenated in rank order along dim 0
         (all_gather with tiled=True)."""
@@ -169,3 +188,35 @@ def make_mesh(device=None, group=None) -> SlabMesh:
         raise ValueError("an NCCL process group needs device='cuda'")
     return SlabMesh(dist.get_rank(group), dist.get_world_size(group), device,
                     group, backend)
+
+
+class Mesh2(NamedTuple):
+    """One rank's view of a slabs x replicas mesh (``make_mesh2``)."""
+
+    slabs: SlabMesh  # the ring over the slabs: ranks s R + r, r fixed
+    replicas: SlabMesh  # the slab's replicas: ranks s R + r, s fixed
+    world: SlabMesh  # every rank of the mesh
+
+
+def make_mesh2(n_slabs: int, n_replicas: int, device=None) -> Mesh2:
+    """This rank's two-axis mesh of ``n_slabs`` x ``n_replicas`` ranks
+    (the world size must be their product): rank s R + r is replica r of
+    slab s. One rank gets three one-rank meshes (every collective the
+    identity)."""
+    world = make_mesh(device=device)
+    if world.world != n_slabs * n_replicas:
+        raise ValueError(f"a {n_slabs} x {n_replicas} mesh needs "
+                         f"{n_slabs * n_replicas} ranks, the world has "
+                         f"{world.world}")
+    if world.world == 1:
+        return Mesh2(world, world, world)
+    # every rank makes every group, in this order
+    slab_groups = [dist.new_group([s * n_replicas + r for s in range(n_slabs)])
+                   for r in range(n_replicas)]
+    replica_groups = [dist.new_group([s * n_replicas + r
+                                      for r in range(n_replicas)])
+                      for s in range(n_slabs)]
+    s, r = divmod(world.rank, n_replicas)
+    return Mesh2(make_mesh(device=world.device, group=slab_groups[r]),
+                 make_mesh(device=world.device, group=replica_groups[s]),
+                 world)

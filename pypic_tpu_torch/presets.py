@@ -331,28 +331,38 @@ def _domain_load(n, ng, seed, device, mesh):
 
 
 def domain_implicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
-                    shards: int | None = None, device=None, mesh=None,
-                    **kw) -> Preset:
+                    shards: int | None = None, replicas: int | None = None,
+                    device=None, mesh=None, **kw) -> Preset:
     """BASELINE configs[4]: the Landau workload (pypic.py:846-855)
     domain-decomposed over the slab mesh, as ``pypic_tpu.presets``
     builds it: the halo covers an 8-sigma Maxwellian excursion a step,
     migrate_cap = max(4096, 4 n / ng), extrapolated Picard init, tol 1e-9
     and maxiter 50 unless ``kw`` says otherwise. ``shards`` defaults to
-    the mesh's world size (one slab a rank); ``mesh`` to
-    ``make_mesh(device)``. The state is this rank's."""
+    the world size over ``replicas`` (one slab a rank without replicas);
+    ``mesh`` to ``make_mesh(device)``, or with ``replicas`` > 1 to
+    ``make_mesh2(shards, replicas, device)`` (slabs x data-parallel
+    replicas). The state is this rank's."""
     from .parallel import domain_implicit as di
     from .parallel.domain import _ITEM18, _not_ported
+    from .parallel.mesh import Mesh2, make_mesh2
 
     if kw.get("migrate_every", 1) != 1:
         raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
-    grid, x, v, params, mesh, sigma_cells = _domain_load(n, ng, seed,
-                                                         device, mesh)
-    n_dev = int(shards) if shards else mesh.world
+    r = int(replicas) if replicas else 1
+    root = mesh.world if isinstance(mesh, Mesh2) else mesh
+    grid, x, v, params, root, sigma_cells = _domain_load(n, ng, seed,
+                                                         device, root)
+    n_dev = int(shards) if shards else max(1, root.world // r)
+    if r > 1 and not isinstance(mesh, Mesh2):
+        mesh = make_mesh2(n_dev, r, device=root.device)
+    elif mesh is None:
+        mesh = root
     cfg = di.DomainImplicitConfig(
         grid, 1e-5, params.p2c, num_shards=n_dev,
         tol=kw.get("tol", 1e-9), maxiter=kw.get("maxiter", 50),
         halo=min(ng // n_dev - 3, max(4, int(np.ceil(8.0 * sigma_cells)))),
         picard_init="extrapolate", migrate_cap=max(4096, 4 * (n // ng)),
+        dp_axis_name="dp" if r > 1 else None, num_replicas=r,
     )
     st = di.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
     return Preset("domain_implicit", di, cfg, st,

@@ -18,12 +18,24 @@ batch drawn on the state's device:
   threefry for flux there); the transform is tensor operations on the
   card, and its table lives on the device.
 
-'auto' resolves to these two. The JAX package's 'threefry' sampler draws
-from ``jax.random``, whose streams PyTorch cannot reproduce, and its
-'hash' sampler exists for data-parallel runs (ROADMAP queue 1, item 17a):
-both raise in the engine. Tests that compare the engine with the JAX
-package replay the JAX draws instead (``engines.magnetized.
-make_step(source_draws=...)``).
+* the 'hash' sampler (``hash_uniforms``, ``hash_normals``,
+  ``sample_source_hash``, ``sample_flux_hash``): the JAX package's
+  counter-based draws (``sources.hash_uniforms`` and the ``*_6d_hash``
+  samplers), a uint32 seed a step hashed with each slot id by the
+  ``ops.cuda_rng.hash_batch`` kernel. A slot's draw depends on its slot id
+  alone, so under data-parallel sharding rank r passes
+  ``slot_offset = r x local n`` and draws what one device draws for its
+  slots. The uniforms are bit-equal to JAX's for the same seed.
+
+'auto' resolves to the Philox samplers, and to 'hash' under data-parallel
+sharding at full capacity. JAX seeds a hash draw from a threefry key split
+(``seed_from_key``), which PyTorch cannot reproduce; the port takes its
+seeds from ``step_seed`` (the state's two key words, the step and a
+stream number, hashed on the host), the same on every rank. The JAX
+package's 'threefry' sampler draws ``jax.random``'s own streams and stays
+refused in the engines. Tests that compare the engine with the JAX package
+replay the JAX draws (``engines.magnetized.make_step(source_draws=...)``)
+or inject JAX's per-step seeds (``hash_seeds=...``).
 """
 
 from __future__ import annotations
@@ -135,4 +147,72 @@ def sample_flux_batch(key, step: int, n: int, grid: GridSpec, ti: float,
     makes v_x incoming after the draw)."""
     u = cuda_rng.philox_uniforms(key, step, n, 8, cuda_rng.FLUX_TAG,
                                  device=device)
+    return flux_from_uniforms(u, grid, ti, mass, vx, gamma, vx_pert)
+
+
+# ---------------------------------------------------------------------------
+# the counter-based 'hash' sampler
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: int) -> int:
+    """murmur3's 32-bit finalizer on a host integer."""
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _MASK32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _MASK32
+    return x ^ (x >> 16)
+
+
+def step_seed(key, step: int, stream: int = 0) -> int:
+    """The uint32 seed of hash stream ``stream`` at ``step`` under the
+    Philox key words ``key``: a host computation, the same on every rank
+    and with no device read."""
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    s = _mix32(((int(step) * 0x9E3779B9) + (int(stream) + 1) * 0x85EBCA6B
+                ^ k1) & _MASK32)
+    return _mix32(s ^ k0)
+
+
+def hash_uniforms(seed: int, n: int, streams: int, offset: int = 0, *,
+                  device) -> torch.Tensor:
+    """(streams, n) float32 uniforms in (0, 1] for the slots offset ..
+    offset + n - 1 (JAX's ``hash_uniforms``; bit-equal)."""
+    return cuda_rng.hash_batch(seed, n, streams, offset=offset, device=device)
+
+
+def hash_normals(seed: int, n: int, pairs: int, offset: int = 0, *,
+                 device) -> torch.Tensor:
+    """(2 pairs, n) standard normals by Box-Muller on the hash uniforms
+    (JAX's ``hash_normals``: rows r cos t, then rows r sin t)."""
+    return cuda_rng.hash_batch(seed, n, 2 * pairs, offset=offset,
+                               normals=True, device=device)
+
+
+def sample_source_hash(seed: int, n: int, grid: GridSpec, ti: float,
+                       mass: float, vx: float = 0.0, slot_offset: int = 0, *,
+                       device):
+    """``sample_source_6d_hash`` (components form) on the hash sampler:
+    {"x" [m], "vx", "vy", "vz" [m/s]}, x = z0 L/12 + L/2 wrapped into
+    [0, L) and each velocity z vth + vx, from four normals a slot (one
+    ``hash_batch`` launch)."""
+    f32 = np.float32
+    length = grid.length
+    vth = float(f32(np.sqrt(K_BOLTZMANN * float(ti) / float(mass))))
+    z = hash_normals(seed, n, 2, slot_offset, device=device)
+    x = torch.remainder(z[0] * float(f32(length / 12.0))
+                        + float(f32(length / 2.0)), float(f32(length)))
+    vx = float(f32(vx))
+    return {"x": x, "vx": z[1] * vth + vx, "vy": z[2] * vth + vx,
+            "vz": z[3] * vth + vx}
+
+
+def sample_flux_hash(seed: int, n: int, grid: GridSpec, ti: float,
+                     mass: float, vx: float = 0.0, gamma: float = 0.0,
+                     vx_pert: float = 0.0, slot_offset: int = 0, *, device):
+    """``sample_flux_6d_hash`` (components form) on the hash sampler: the
+    transform ``flux_from_uniforms`` of eight hash uniforms a slot."""
+    u = hash_uniforms(seed, n, 8, slot_offset, device=device)
     return flux_from_uniforms(u, grid, ti, mass, vx, gamma, vx_pert)

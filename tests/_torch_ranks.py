@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
-from pypic_tpu_torch import interop
+from pypic_tpu_torch import checkpoint, interop
+from pypic_tpu_torch.engines import explicit, implicit, magnetized, sheath
 from pypic_tpu_torch.grid import GridSpec
-from pypic_tpu_torch.parallel import (distributed_poisson, domain,
-                                      domain_implicit)
+from pypic_tpu_torch.parallel import (dataparallel, distributed_poisson,
+                                      domain, domain_implicit, mesh as tmesh)
 
 
 def batch(mesh, jobs):
@@ -137,3 +139,124 @@ def cli(mesh, argv):
         builtins.open = io.open = real_open
         os.replace = real_replace
     return written
+
+
+# engine: (module, state from JAX numpy, state to numpy)
+_DP_ENGINES = {
+    "implicit": (implicit, interop.implicit_state_from_numpy,
+                 interop.implicit_state_to_numpy),
+    "explicit": (explicit, interop.explicit_state_from_numpy,
+                 interop.explicit_state_to_numpy),
+    "sheath": (sheath, interop.sheath_state_from_numpy,
+               interop.sheath_state_to_numpy),
+    "magnetized": (magnetized, interop.magnetized_state_from_numpy,
+                   interop.magnetized_state_to_numpy),
+}
+
+
+def _scalar_rows(rows, m):
+    """Append a step's scalar metrics (Python numbers) to ``rows``."""
+    for k, val in m._asdict().items():
+        if isinstance(val, torch.Tensor) and val.numel() == 1:
+            rows.setdefault(k, []).append(val.reshape(()).item())
+
+
+def _dp_step(mesh, engine, whole, cfg, seeds, draws=None):
+    mod = _DP_ENGINES[engine][0]
+    kw = {} if seeds is None else {"hash_seeds": seeds.__getitem__}
+    if draws is not None:
+        # a replicated table a step (react_batch): every rank takes it whole
+        def source_draws(step, n):
+            return {k: torch.from_numpy(np.array(v)).to(mesh.device)
+                    for k, v in draws[step].items()}
+        kw["source_draws"] = source_draws
+    return dataparallel.make_data_parallel_step(
+        mod.make_step, cfg, mesh, example_state=whole, **kw)
+
+
+def dp_run(mesh, engine, state, cfg, n_steps, seeds=None, final=False,
+           draws=None):
+    """``n_steps`` data-parallel steps of ``engine`` from the whole JAX
+    state ``state`` (numpy), this rank's block (``shard_state``): the
+    scalar metric rows, and with ``final`` the whole final state (numpy,
+    ``gather_state``). ``seeds``: {step: hash seeds} (the JAX engine's);
+    ``draws``: {step: the react_batch table} (the JAX engine's)."""
+    _, cut, join = _DP_ENGINES[engine]
+    whole = cut(state, mesh.device)
+    st = dataparallel.shard_state(whole, mesh)
+    step = _dp_step(mesh, engine, whole, cfg, seeds, draws)
+    rows = {}
+    for _ in range(n_steps):
+        st, m = step(st)
+        _scalar_rows(rows, m)
+    if not final:
+        return rows, None
+    return rows, join(dataparallel.gather_state(st, mesh))
+
+
+def dp_resume(mesh, state, template, cfg, path, seeds, k):
+    """The magnetized data-parallel checkpoint round trip: k steps, a save
+    (rank 0 writes the whole state), k more steps; then a load into the
+    blocks of ``template`` and the same k steps. Returns both final whole
+    states (numpy)."""
+    _, cut, join = _DP_ENGINES["magnetized"]
+    whole = cut(state, mesh.device)
+    step = _dp_step(mesh, "magnetized", whole, cfg, seeds)
+    st = dataparallel.shard_state(whole, mesh)
+    for _ in range(k):
+        st, _m = step(st)
+    checkpoint.save(path, st, step=k, mesh=mesh)
+    a = st
+    for _ in range(k):
+        a, _m = step(a)
+    tmpl = dataparallel.shard_state(cut(template, mesh.device), mesh)
+    b, manifest = checkpoint.load(path, tmpl, mesh=mesh)
+    for _ in range(k):
+        b, _m = step(b)
+    return (join(dataparallel.gather_state(a, mesh)),
+            join(dataparallel.gather_state(b, mesh)), manifest["step"])
+
+
+def dp_bca(mesh, state, cfg, steps, seeds, per_bca):
+    """``engines.bca_driver.run_bca_from_iead`` with the data-parallel
+    step (two BinaryCollisionModel channels, seeds 1 and 2): the stats
+    and the final population's row count."""
+    from pypic_tpu_torch import bca
+    from pypic_tpu_torch.engines import bca_driver
+
+    _, cut, _ = _DP_ENGINES["magnetized"]
+    whole = cut(state, mesh.device)
+    step = _dp_step(mesh, "magnetized", whole, cfg, seeds)
+    fin, stats, _ = bca_driver.run_bca_from_iead(
+        dataparallel.shard_state(whole, mesh), cfg, steps,
+        bca.BinaryCollisionModel(seed=1),
+        bca.BinaryCollisionModel(incident_m_amu=10.81, incident_z=5, seed=2),
+        seed=3, pic_steps_per_bca=per_bca, step_fn=step, mesh=mesh)
+    return (stats.source_incident, stats.injected, stats.dropped,
+            int(fin.p.shape[0]) * mesh.world)
+
+
+def replicas(mesh, state, grid, cfg, n_steps, num_replicas):
+    """``n_steps`` of ``domain_implicit`` on a slabs x replicas mesh
+    (``make_mesh2``) from the JAX state ``state`` (numpy, JAX's (S, R,
+    cap_r) layout): the metric rows."""
+    m2 = tmesh.make_mesh2(mesh.world // num_replicas, num_replicas,
+                          device=mesh.device)
+    cfg = domain_implicit.DomainImplicitConfig(GridSpec(*grid), **cfg)
+    st = interop.domain_implicit_states_from_numpy(
+        state, cfg.num_shards, mesh.device, num_replicas)[mesh.rank]
+    step = domain_implicit.make_step(cfg, m2)
+    rows = {}
+    for _ in range(n_steps):
+        st, m = step(st)
+        _scalar_rows(rows, m)
+    return rows
+
+
+def dp_blocks(mesh, state):
+    """shard_state of the whole sheath state ``state`` (numpy) on this
+    rank: its block of p, its e, and gather_state's whole p."""
+    whole = interop.sheath_state_from_numpy(state, mesh.device)
+    st = dataparallel.shard_state(whole, mesh)
+    return (st.p.numpy(), st.e.numpy(),
+            dataparallel.gather_state(st, mesh).p.numpy())

@@ -343,7 +343,8 @@ def test_run_bca_from_iead_matches_jax_with_replayed_draws():
     with the impact buffer off, 6 steps in blocks of 3, through the
     port's ``step_fn`` fed the JAX draws: equal BCAStats, the returned
     running IEAD total equal, the states at ``_assert_states_close``'s
-    limits; ``reshard`` raises (item 17)."""
+    limits; ``reshard`` without the data-parallel mesh raises (the
+    two-rank form runs in tests/test_torch_dataparallel_io.py)."""
     jpre = jpresets.pic_bca_aps(ppc=4)
     jcfg = dc.replace(jpre.config, impact_buffer_size=0)
     kw = dict(seed=3, pic_steps_per_bca=3)
@@ -357,7 +358,7 @@ def test_run_bca_from_iead_matches_jax_with_replayed_draws():
     assert len(hist) == 6
     np.testing.assert_array_equal(tfin.iead.numpy(), np.asarray(jfin.iead))
     _assert_states_close(tfin, jfin)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="mesh"):
         bca_driver.run_bca_from_iead(_port_state(jpre.state), _tcfg_of(jcfg),
                                      1, *_models(bca), reshard=lambda s: s)
 

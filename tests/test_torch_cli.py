@@ -166,7 +166,7 @@ def test_resume_reprimes_carried_rho_only_when_stale(tmp_path, capsys):
 @pytest.mark.parametrize("argv, match", [
     (["explicit_landau", "--opt", "not_a_kwarg=1"], "--opt"),
     (["explicit_landau", "--opt", "nosep"], "KEY=VALUE"),
-    (["domain_implicit", "--replicas", "2"], "item 17a"),
+    (["two_stream", "--replicas", "2"], "domain_implicit only"),
     (["domain_implicit", "--migrate-every", "4"], "item 18"),
     (["two_stream", "--migrate-every", "4"], "domain presets only"),
     (["domain_explicit", "--opt", "migrate_every=4"], "item 18"),

@@ -1523,3 +1523,28 @@ def test_histograms_on_the_card_equal_the_plain_counts(cuda_device):
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     assert cuda_cic.LAUNCHES["deposit"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed, n, streams, offset", [
+    (11, 999_996, 4, 0), (11, 999_996, 4, 999_996),
+    (11, 180_001, 8, 2**32 - 90_000),
+    (44, 1000, 2, 669_265 - 500)])  # a uniform that rounds to 1
+def test_hash_batch_kernel_matches_plain(cuda_device, seed, n, streams, offset):
+    """hash_batch (the 'hash' sampler) against its plain version on the
+    CPU: the uniforms bit-equal (float32 arithmetic in the same order),
+    the Box-Muller normals within 2e-6 of the largest (the kernel's
+    log_unit, sqrt_pos and sincos_2pi against float64 functions), 0 where
+    a uniform rounds to 1."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    before = cuda_cic.LAUNCHES["hash_batch"]
+    got = cuda_rng.hash_batch(seed, n, streams, offset=offset, device=cuda_device)
+    ref = cuda_rng.hash_batch(seed, n, streams, offset=offset, device="cpu")
+    assert torch.equal(got.cpu(), ref)
+    z = cuda_rng.hash_batch(seed, n, streams, offset=offset, normals=True,
+                            device=cuda_device)
+    assert bool(torch.isfinite(z).all())
+    zr = cuda_rng.hash_normals_from_uniforms(ref)
+    assert float((z.cpu() - zr).abs().max()) <= 2e-6 * float(zr.abs().max())
+    assert cuda_cic.LAUNCHES["hash_batch"] == before + 2

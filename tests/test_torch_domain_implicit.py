@@ -248,10 +248,14 @@ def test_unported_options_raise_naming_their_items(problem):
     mesh = tmake_mesh(device="cpu")
     base = dict(dt=1e-9, p2c=params.p2c, num_shards=1)
     for kw, item in ((dict(finalize_field="aitken"), "item 18"),
-                     (dict(picard_accel="anderson2"), "item 18"),
-                     (dict(dp_axis_name="dp", num_replicas=2), "item 17")):
+                     (dict(picard_accel="anderson2"), "item 18")):
         with pytest.raises(NotImplementedError, match=item):
             tdi.make_step(tdi.DomainImplicitConfig(tgrid, **base, **kw), mesh)
+    # replicas are ported (tests/test_torch_dataparallel_io.py): a one-axis
+    # mesh cannot hold them
+    with pytest.raises(ValueError, match="Mesh2"):
+        tdi.make_step(tdi.DomainImplicitConfig(
+            tgrid, **base, dp_axis_name="dp", num_replicas=2), mesh)
     with pytest.raises(NotImplementedError, match="item 18"):
         tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 2)
     # field_solve='distributed' is ported: it builds (tests in

@@ -405,9 +405,8 @@ def test_config_errors_match_jax():
                             GridSpec(16, 1.0))
 
 
-@pytest.mark.parametrize("opt", [dict(axis_name="particles"),
-                                 dict(deposit_method="scatter")],
-                         ids=["axis_name", "deposit_method"])
+@pytest.mark.parametrize("opt", [dict(deposit_method="scatter")],
+                         ids=["deposit_method"])
 def test_deferred_options_raise(opt):
     cfg = explicit.ExplicitConfig(GridSpec(16, 1.0), 1e-3, 1.0, **opt)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -415,6 +414,27 @@ def test_deferred_options_raise(opt):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         explicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
                             -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+
+
+def test_axis_name_takes_the_two_stage_sweep():
+    """Under axis_name (data parallel, here one rank) the fused step is the
+    two-stage sweep at every ng, as the JAX engine's: it agrees with the
+    one-kernel cycle to float32 rounding, and run_resident refuses it
+    with JAX's ValueError."""
+    from pypic_tpu_torch.tools import two_stream
+
+    cfg, _, st = two_stream.state(4096, "cpu")
+    one, m1 = explicit.make_step(cfg)(st)
+    dp_cfg = dataclasses.replace(cfg, axis_name="particles")
+    two, m2 = explicit.make_step(dp_cfg)(st)
+    np.testing.assert_allclose(two.p.numpy(), one.p.numpy(), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(two.rho.numpy(), one.rho.numpy(), rtol=1e-5,
+                               atol=1e-6 * np.abs(one.rho.numpy()).max())
+    assert float(m2.kinetic_energy) == pytest.approx(float(m1.kinetic_energy),
+                                                     rel=1e-6)
+    with pytest.raises(ValueError, match="single-device"):
+        explicit.run_resident(dp_cfg, st, 2)
 
 
 def test_fused_backend_rejects_per_particle_qm():

@@ -196,7 +196,6 @@ def test_config_coerces_numpy_scalars():
 DEFERRED = [
     dict(finalize_field="mean2"),
     dict(picard_accel="anderson2"),
-    dict(axis_name="particles"),
     dict(deposit_method="scatter"),
     dict(deposit_method="matmul"),
 ]
@@ -210,6 +209,25 @@ def test_deferred_options_raise(opt):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         implicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
                             -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+
+
+def test_axis_name_on_one_rank_is_the_one_device_step():
+    """axis_name (data parallel) on one rank: every sum is the identity,
+    so the step equals the one-device step bit for bit; run_resident
+    refuses it with JAX's ValueError."""
+    ng, length, x, v, params = _landau_load(n=4096, ng=64)
+    cfg = _configs(ng, length, params)[1]
+    st = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+    dp_cfg = dataclasses.replace(cfg, axis_name="particles")
+    for backend in ("fused", "composed"):
+        a, ma = implicit.make_step(dataclasses.replace(cfg, backend=backend))(st)
+        b, mb = implicit.make_step(dataclasses.replace(dp_cfg,
+                                                       backend=backend))(st)
+        assert torch.equal(a.p, b.p) and torch.equal(a.e, b.e)
+        for k, val in ma._asdict().items():
+            assert torch.equal(val, getattr(mb, k)), k
+    with pytest.raises(ValueError, match="single-device"):
+        implicit.run_resident(dp_cfg, st, 2)
 
 
 def test_step_reads_qm_on_the_host_once():

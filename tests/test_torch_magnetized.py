@@ -31,7 +31,7 @@ from pypic_tpu.ops.pallas_rng import source_batch_pallas
 from pypic_tpu.presets import pic_iead as jpic_iead
 from pypic_tpu.push import boris_push_dt as jboris_push_dt
 
-from pypic_tpu_torch import interop, presets
+from pypic_tpu_torch import interop, presets, sources
 from pypic_tpu_torch.engines import magnetized
 from pypic_tpu_torch.grid import GridSpec
 from pypic_tpu_torch.ops import cuda_cic, cuda_newton, cuda_rng, fd, poisson, tridiag
@@ -441,6 +441,31 @@ def _tcfg(**kw):
                       **kw)
 
 
+@pytest.mark.parametrize("kw", [dict(react_batch=64, source_sampler="hash"),
+                                dict(axis_name="p", source_sampler="hash"),
+                                dict(source_sampler="hash")],
+                         ids=["react_batch", "axis_name", "full"])
+def test_hash_sampler_runs(kw):
+    """The 'hash' sampler (full capacity, a react_batch table, and under
+    axis_name on one rank): the re-activated slots take the sampler's
+    draws, one hash_batch draw a step (tests/test_torch_dataparallel*.py
+    hold the engine to JAX's hash runs)."""
+    pre = presets.pic_iead(n_per_species=64, device="cpu")
+    cfg = dc.replace(pre.config, **kw)
+    act = pre.state.active.clone()
+    act[:40] = 0  # free slots to re-activate
+    st, m = magnetized.make_step(cfg)(pre.state.replace(active=act))
+    n_draw = cfg.react_batch or act.shape[0]
+    batch = sources.sample_source_hash(
+        sources.step_seed(pre.state.rng, 0), n_draw, cfg.grid, cfg.source.ti,
+        cfg.source.mass, vx=cfg.source.vx, device="cpu")
+    assert int(m.n_reactivated) == 40
+    got = st.p[:40].numpy() * cfg.grid.dx
+    want = batch["x"][:40].numpy()  # slot i takes row i (rank i, or slot i)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert np.isfinite(m.phi.numpy()).all()
+
+
 def test_react_timing_reference_vs_immediate():
     """tests/test_magnetized.py:956-983 on the port: a planted wall loss
     re-enters in the next step ('reference') or in the same step
@@ -518,10 +543,8 @@ def test_config_value_errors(kw, match):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(react_batch=64, source_sampler="hash"), "item 14b"),
-    (dict(axis_name="p", source_sampler="hash"), "item 17"),
-    (dict(source_sampler="hash"), "item 14b"),
-    (dict(source_sampler="threefry"), "item 14b"),
+    (dict(carried_deposit="on", react_batch=64, axis_name="p"), "item 18"),
+    (dict(source_sampler="threefry"), "jax.random"),
     (dict(deposit_method="scatter"), "item 18"),
 ])
 def test_unported_options_raise(kw, item):

@@ -28,7 +28,7 @@ from pypic_tpu.ops.pallas_cic import (_DEFAULT_BLOCK, sheath_finalize_pallas,
 from pypic_tpu.ops.pallas_rng import sheath_reinject_pallas
 from pypic_tpu.presets import sheath_dd as jsheath_dd
 
-from pypic_tpu_torch import diagnostics, initialize, interop, presets
+from pypic_tpu_torch import diagnostics, initialize, interop, presets, sources
 from pypic_tpu_torch.engines import sheath
 from pypic_tpu_torch.grid import GridSpec
 from pypic_tpu_torch.ops import cuda_cic, cuda_rng, cuda_sheath, fd
@@ -521,6 +521,25 @@ def test_config_value_errors(kw, match):
             mod.SheathConfig(**_cfg_kw(grid), **kw)
 
 
+@pytest.mark.parametrize("kw", [dict(axis_name="p", rng_sampler="hash"),
+                                dict(rng_sampler="hash")],
+                         ids=["axis_name", "hash"])
+def test_hash_sampler_runs(kw):
+    """The 'hash' sampler (and under axis_name on one rank): the lost rows
+    re-inject at the hash uniforms' positions (tests/test_torch_
+    dataparallel.py holds the engine to JAX's hash runs)."""
+    cfg, st = _setup(n=256, gamma=0.5, **kw)
+    act = st.active.clone()
+    act[:16] = 0  # lost rows re-inject
+    st1, m = sheath.make_step(cfg)(st.replace(active=act))
+    seed = sources.step_seed(st.rng, 0, sheath.HASH_STREAMS.index("reinj_x"))
+    x = sources.hash_uniforms(seed, 256, 1, device="cpu")[0]
+    x0 = (x * np.float32(cfg.grid.num_cells))[:16]
+    assert np.isfinite(m.phi.numpy()).all()
+    # the re-injected rows start from the drawn positions (then move)
+    assert (np.abs(st1.p[:16].numpy() - x0.numpy()) < 0.5).mean() > 0.5
+
+
 def test_unknown_backend_raises_at_the_step():
     cfg, st = _setup(n=64, backend="bogus")
     with pytest.raises(ValueError, match="backend"):
@@ -531,8 +550,6 @@ def test_unknown_backend_raises_at_the_step():
     (dict(picard_accel="anderson2"), "item 18"),
     (dict(picard_accel="anderson4"), "item 18"),
     (dict(deposit_method="scatter"), "item 18"),
-    (dict(axis_name="p", rng_sampler="hash"), "item 17"),
-    (dict(rng_sampler="hash"), "item 17"),
     (dict(rng_sampler="threefry"), "jax.random"),
 ])
 def test_unported_options_raise(kw, item):
