@@ -258,6 +258,25 @@ Phases (any failure raises and the script exits non-zero):
    counts); domain_implicit at one slab x two replicas against one slab x
    one replica (n = 1e6, 10 steps); and the CLI's --replicas 2 in two
    subprocesses (gloo, PYPIC_BACKEND), exit 0 with its files.
+37. slab bounded — the chain kernel tridiag3_chain against its plain
+   version at c = 150, 300, 600 and 1,024 (Boltzmann-Jacobian systems as
+   the slab Newton builds them, and random diagonally dominant ones),
+   within TOL_CHAIN of the largest |x|, timed beside the Python-loop
+   Thomas it replaces and dense torch.linalg.solve; sheath_reinject at a
+   slab rank's tag (1 << 16) against its plain version at n = 1e6. Then,
+   on a one-rank
+   NCCL group, pic_iead_dd at the configs[3] row's width (n = 999,996,
+   ng 600) for 200 steps: ms/step, pushes/s, Newton iterations, launches
+   and host syncs a step, nothing dropped, the population kept, phi_max
+   over the floating potential in 0.6-1.4, its first 2 steps' phi_max
+   within TOL_SLAB_PHI_MAX of the single-device engine's from the same
+   state; domain_sheath at the configs[2] row's physics (n = 1e6, ng 51,
+   1,200 steps): us/step, Picard passes, host syncs, the wall drops beside
+   phase 18's; and 10 timed steps at n = 1e8. Then two gloo ranks on the
+   card: pic_iead_dd on 2 slabs and on 1 slab x 2 replicas, and the
+   sheath at ng 56, n = 1e5 (20 steps each): the ranks' rows equal, the
+   first steps against one rank's (the sheath's step 0: field and kinetic
+   energy, phi, Picard passes), migration and no drops.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -5104,6 +5123,378 @@ def phase_data_parallel(dev, card: str) -> dict:
     return res
 
 
+# phase 37, the bounded slab engines (parallel.domain_sheath,
+# parallel.domain_magnetized) and the chain kernel tridiag3_chain
+SLAB_CHAIN_CS = (150, 300, 600, 1024)
+# the chain kernel against its plain version (the same PCR in another
+# rounding of FMA-free products): within this of the largest |x|, stated
+# before the first run
+TOL_CHAIN = 1e-5
+# bytes the chain solve must move: dl, d, du, f read (16 B a row), the
+# three columns written (12 B a row), the six interface scalars (24 B)
+CHAIN_BYTES_ROW, CHAIN_BYTES_FIXED = 28, 24
+SLAB_MAG_STEPS = 200
+SLAB_GLOO_STEPS = 20
+# tests/test_domain.py:757-759: the first 2 steps' phi_max against the
+# single-device engine (JAX's own limit)
+TOL_SLAB_PHI_MAX, SLAB_PHI_STEPS = 5e-4, 2
+SLAB_SHEATH_STEPS = 1200
+SLAB_SHEATH_GLOO = dict(n=100_000, ng=56, exit_hist_vmax=3e6,
+                        record_exit_after_step=0)
+SLAB_SHEATH_BIG_N, SLAB_SHEATH_BIG_STEPS = 100_000_000, 10
+# the two-rank sheath's step 0 against one rank's kinetic energy: the same
+# velocities (within TOL_SHEATH_STEP['u'], so v^2 within twice that)
+# summed as two float32 partial sums; five times 2e-6
+TOL_SLAB_SHEATH_KE = 1e-5
+# the slab ranks' tag of the re-injection stream (parallel.domain_sheath:
+# rank r draws at counters (row, step, j, r << 16)); rank 1's
+SLAB_REINJECT_TAG = 1 << 16
+
+
+def _chain_system(c: int, kind: str, gen: torch.Generator, dev):
+    """A (c,) local system of the chain solve: 'boltzmann', the slab
+    Newton's Jacobian at one rank (c = ng: identity-ish wall rows, the
+    interior -2 - kappa exp(c1 phi) with kappa = (dx / lambda_D)^2 of the
+    configs[3] row's grid at ng = c and c1 phi from 0 down to -3 Te/e);
+    'random', diagonally dominant (4 + N(0, 1), off-diagonals 1).
+    Returns (dl, d, du, f) float32 on ``dev``."""
+    col = torch.arange(c, dtype=torch.float64)
+    if kind == "boltzmann":
+        kappa = (300.0 / (c - 1)) ** 2
+        c1phi = -3.0 * (2.0 * col / (c - 1) - 1.0) ** 2
+        expo = torch.exp(c1phi)
+        interior = (col >= 1) & (col <= c - 2)
+        d = torch.where(interior, -2.0 - kappa * expo, 1.0 - kappa)
+        dl = torch.where(col >= c - 1, 0.0, 1.0)
+        du = torch.where(col <= 0, 0.0, 1.0)
+    else:
+        d = 4.0 + torch.randn(c, generator=gen, dtype=torch.float64)
+        dl = torch.ones(c, dtype=torch.float64)
+        du = torch.ones(c, dtype=torch.float64)
+    f = torch.randn(c, generator=gen, dtype=torch.float64)
+    return tuple(a.to(torch.float32).to(dev) for a in (dl, d, du, f))
+
+
+def chain_times(dev) -> dict:
+    """tridiag3_chain against its plain version (x and the six interface
+    scalars) at SLAB_CHAIN_CS, both kinds, at the chain's end ranks
+    (first = last = True: one rank) and at a middle rank; timed
+    (device_ms over 20 calls) beside the plain version, the Python-loop
+    Thomas it replaces (ops.tridiag, the three columns) and dense
+    torch.linalg.solve of the (c, c) matrix on the same three columns.
+    Returns the records by c (c = 600 first)."""
+    from pypic_tpu_torch.ops import cuda_newton, tridiag
+
+    gen = torch.Generator().manual_seed(37)
+    out = {}
+    for c in SLAB_CHAIN_CS:
+        errs = []
+        for kind, ends in (("boltzmann", True), ("random", False)):
+            dl, d, du, f = _chain_system(c, kind, gen, dev)
+            x, g6 = cuda_newton.tridiag3_chain(dl, d, du, f, first=ends,
+                                               last=ends)
+            xr, gr = cuda_newton.tridiag3_chain_plain(dl, d, du, f,
+                                                      first=ends, last=ends)
+            err = float(torch.maximum((x - xr).abs().max(),
+                                      (g6 - gr).abs().max()))
+            scale = float(xr.abs().max())
+            log(f"[slab bounded] tridiag3_chain c = {c}, {kind} "
+                f"(first = last = {ends}): max |err| {err:.3e} of max |x| "
+                f"{scale:.3e} (tol {TOL_CHAIN} of it)")
+            if not err <= TOL_CHAIN * scale:
+                raise AssertionError(f"tridiag3_chain c = {c} {kind}: "
+                                     f"{err} > {TOL_CHAIN} x {scale}")
+            errs.append(err)
+        dl, d, du, f = _chain_system(c, "boltzmann", gen, dev)
+        held = collections.deque(maxlen=4)
+        ms = device_ms(lambda: held.append(cuda_newton.tridiag3_chain(
+            dl, d, du, f, first=True, last=True)))
+        plain_ms = cuda_ms(lambda: held.append(cuda_newton.tridiag3_chain_plain(
+            dl, d, du, f, first=True, last=True)), reps=3, calls=3)
+        dl_in, du_in = dl.clone(), du.clone()
+        dl_in[0] = 0.0
+        du_in[-1] = 0.0
+        rhs = torch.zeros((c, 3), dtype=torch.float32, device=dev)
+        rhs[:, 0] = f
+        rhs[0, 1] = 1.0
+        rhs[c - 1, 2] = 1.0
+        thomas_ms = cuda_ms(lambda: held.append(tridiag.solve_tridiag(
+            dl_in, d, du_in, rhs)), reps=3, calls=3)
+        dense = (torch.diag(d) + torch.diag(dl_in[1:], -1)
+                 + torch.diag(du_in[:-1], 1))
+        lib_ms = device_ms(lambda: held.append(torch.linalg.solve(dense, rhs)))
+        bound_ms = (CHAIN_BYTES_ROW * c + CHAIN_BYTES_FIXED) / PEAK_BYTES_PER_S * 1e3
+        log(f"[slab bounded] tridiag3_chain c = {c}: {ms * 1e3:.2f} us a solve "
+            f"(plain {plain_ms:.4f} ms, Python-loop Thomas {thomas_ms:.4f} ms, "
+            f"dense torch.linalg.solve {lib_ms:.4f} ms; bound {bound_ms:.2e} ms "
+            f"by bytes)")
+        out[c] = dict(n=c, max_abs_err=max(errs), ms=ms, us_per_solve=ms * 1e3,
+                      plain_ms=plain_ms, thomas_ms=thomas_ms, library_ms=lib_ms,
+                      bound_ms=bound_ms, bound_by="bytes")
+        held.clear()
+    return out
+
+
+def reinject_tag_check(dev, n: int) -> float:
+    """sheath_reinject at SLAB_REINJECT_TAG against its plain version at
+    the same tag (gamma 0 and 0.5, the 80/10/10 mix; n rows): positions
+    bit-equal, velocities within TOL_SOURCE of the largest, and a stream
+    apart from tag 0's. Returns the largest velocity error."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    p, v, sig, mixes = _reinject_inputs(n, gen, dev)
+    args = (p, v[0], v[1], v[2], mixes["80/10/10"], sig, 0.5 * sig)
+    key, step, worst = (5, 6), 9, 0.0
+    for gamma in (0.0, 0.5):
+        what = f"sheath_reinject(gamma={gamma}, tag={SLAB_REINJECT_TAG})"
+        got = cuda_rng.sheath_reinject(key, step, *args, cells=50.0,
+                                       gamma=gamma, tag=SLAB_REINJECT_TAG)
+        ref = cuda_rng.sheath_reinject_plain(key, step, *args, cells=50.0,
+                                             gamma=gamma, tag=SLAB_REINJECT_TAG)
+        zero = cuda_rng.sheath_reinject(key, step, *args, cells=50.0,
+                                        gamma=gamma)
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError(f"{what}: positions differ from the plain "
+                                 "version's")
+        if torch.equal(got[0], zero[0]):
+            raise AssertionError(f"{what}: the same stream as tag 0's")
+        errs = {}
+        for k_, r_, g_ in zip(("u", "vy", "vz"), ref[1:], got[1:]):
+            a_, rel = rel_err(r_, g_)
+            errs[k_] = dict(abs=a_, err=rel, kind="rel", tol=TOL_SOURCE)
+        worst = max(worst, _check(errs, what))
+        log(f"[slab bounded] {what}, n = {n}: positions bit-equal to the "
+            "plain version's, velocities within TOL_SOURCE, a stream apart "
+            "from tag 0's")
+        del got, ref, zero
+    return worst
+
+
+def phase_slab_bounded(dev, shs: dict | None = None) -> dict:
+    """Phase 37 (module docstring). ``shs``: phase 18's sheath slice, its
+    single-device numbers printed beside the slab sheath's."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from pypic_tpu_torch import presets
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic
+    from pypic_tpu_torch.parallel import domain_sheath, make_mesh, spawn
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import domain as drow
+
+    res = {"tridiag3_chain": chain_times(dev),
+           "sheath_reinject_tagged_max_abs_err": reinject_tag_check(
+               dev, drow.SHEATH_N)}
+    problems = []
+
+    # one rank, NCCL: the collectives are the identity
+    drow.process_group()
+    try:
+        mesh = make_mesh(device=dev)
+        if (mesh.world, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"expected a one-rank NCCL mesh, got {mesh}")
+        pre = drow.magnetized_row(mesh)
+        n_mag = drow.MAG_N_PER_SPECIES * 6
+        phi_f = pre.meta["floating_potential"]
+        cuda_cic.reset_launch_counts()
+        mag = drow.timed_rows(pre.make_step(), pre.state, SLAB_MAG_STEPS)
+        launches_chain = cuda_cic.LAUNCHES["tridiag3_chain"]
+        summary, bad = drow.magnetized_summary(mag, phi_f)
+        problems += [f"pic_iead_dd: {b}" for b in bad]
+        rows = mag["rows"]
+        lps = mag["launches_per_step"]
+        iters = sum(rows["newton_iters"])
+        want = dict(deposit=3.0, gather=1.0, source_batch=1.0,
+                    tridiag3_chain=iters / SLAB_MAG_STEPS)
+        if lps != want or launches_chain != iters:
+            problems.append(f"pic_iead_dd launches a step {lps} != {want} "
+                            f"(tridiag3_chain {launches_chain}, Newton "
+                            f"iterations {iters})")
+        if mag["host_syncs_per_step"] != iters / SLAB_MAG_STEPS:
+            problems.append(f"pic_iead_dd host syncs {mag['host_syncs_per_step']}"
+                            f" != Newton iterations {iters / SLAB_MAG_STEPS}")
+        del mag["state"], mag["metrics"]
+        # the single-device engine from the same load, the same table
+        one = presets.pic_iead(n_per_species=drow.MAG_N_PER_SPECIES, device=dev)
+        cfg1 = dataclasses.replace(one.config, react_batch=pre.config.react_batch)
+        _, m1 = run(magnetized.make_step(cfg1), one.state, SLAB_PHI_STEPS)
+        ref = m1.phi_max.cpu().tolist()
+        gap = _dp_gap(ref, rows["phi_max"][:SLAB_PHI_STEPS])
+        del one, m1
+        log(f"[slab bounded] pic_iead_dd, one rank (NCCL): n = {n_mag}, ng 600, "
+            f"{SLAB_MAG_STEPS} steps: {mag['ms_per_step']:.4f} ms/step, "
+            f"{n_mag * 1e3 / mag['ms_per_step']:.4e} pushes/s, Newton mean "
+            f"{summary['newton_mean']:.3f} (max {summary['newton_max']}), "
+            f"launches a step {lps}, host syncs a step "
+            f"{mag['host_syncs_per_step']:.3f}, dropped {summary['n_dropped']}, "
+            f"n_active + wall losses {summary['population']}, phi_max / phi_f "
+            f"{summary['phi_max_over_phi_f']:.4f}; first {SLAB_PHI_STEPS} steps' "
+            f"phi_max against the single-device engine: {gap:.3e} (tol "
+            f"{TOL_SLAB_PHI_MAX})")
+        if not gap <= TOL_SLAB_PHI_MAX:
+            problems.append(f"pic_iead_dd phi_max against one device: {gap}")
+        res["magnetized"] = dict(
+            n=n_mag, steps=SLAB_MAG_STEPS, ms_per_step=mag["ms_per_step"],
+            pushes_per_s=n_mag * 1e3 / mag["ms_per_step"],
+            launches_per_step=lps, host_syncs_per_step=mag["host_syncs_per_step"],
+            phi_max_single_device_gap=gap, **summary)
+        del pre
+        torch.cuda.empty_cache()
+
+        # the sheath at the configs[2] row's physics
+        cfg, st = drow.sheath_row(mesh)
+        cuda_cic.reset_launch_counts()
+        sh = drow.timed_rows(domain_sheath.make_step(cfg, mesh), st,
+                             SLAB_SHEATH_STEPS)
+        ssum, bad = drow.sheath_summary(sh, drow.SHEATH_N, cfg.maxiter)
+        problems += [f"domain_sheath: {b}" for b in bad]
+        ks = sh["rows"]["picard_iters"]
+        reads = sum(k - (k == cfg.maxiter) for k in ks) / len(ks)
+        passes = sum(ks)
+        want = dict(gather=passes / len(ks), deposit_det=2 * passes / len(ks),
+                    sheath_reinject=1.0)
+        if sh["launches_per_step"] != want:
+            problems.append(f"domain_sheath launches {sh['launches_per_step']} "
+                            f"!= {want}")
+        if sh["host_syncs_per_step"] != reads:
+            problems.append(f"domain_sheath host syncs {sh['host_syncs_per_step']}"
+                            f" != reads {reads}")
+        for side in ("left", "right"):
+            drop = ssum[f"wall_drop_{side}_te"]
+            if not -4.0 < drop < -0.5:
+                problems.append(f"domain_sheath {side} wall drop {drop} Te/e")
+        beside = ""
+        if shs is not None:
+            beside = (f"; phase 18 (single device): {shs['us_per_step']:.3f} "
+                      f"us/step, Picard mean {shs['picard_mean']:.3f}, wall drops "
+                      f"{shs['wall_drop_left_te']:.4f}, "
+                      f"{shs['wall_drop_right_te']:.4f} Te/e")
+        log(f"[slab bounded] domain_sheath, one rank (NCCL): n = "
+            f"{drow.SHEATH_N}, ng {drow.SHEATH_NG}, {SLAB_SHEATH_STEPS} steps: "
+            f"{sh['ms_per_step'] * 1e3:.3f} us/step, Picard mean "
+            f"{ssum['picard_mean']:.3f} (max {ssum['picard_max']}, "
+            f"{ssum['steps_at_maxiter']} steps at maxiter), launches a step "
+            f"{sh['launches_per_step']}, host syncs a step "
+            f"{sh['host_syncs_per_step']:.3f} (reads {reads:.3f}), wall drops "
+            f"{ssum['wall_drop_left_te']:.4f}, {ssum['wall_drop_right_te']:.4f} "
+            f"Te/e{beside}")
+        res["sheath"] = dict(n=drow.SHEATH_N, ng=drow.SHEATH_NG,
+                             steps=SLAB_SHEATH_STEPS,
+                             us_per_step=sh["ms_per_step"] * 1e3,
+                             pushes_per_s=drow.SHEATH_N * 1e3 / sh["ms_per_step"],
+                             launches_per_step=sh["launches_per_step"],
+                             host_syncs_per_step=sh["host_syncs_per_step"],
+                             **ssum)
+        launches = dict(tridiag3_chain=launches_chain)
+        del st, sh
+        torch.cuda.empty_cache()
+
+        # 10 timed steps at n = 1e8 (PIC_L_DD sharded's size), one rank
+        t0 = time.perf_counter()
+        cfg, st = drow.sheath_row(mesh, SLAB_SHEATH_BIG_N)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        big = drow.timed_rows(domain_sheath.make_step(cfg, mesh), st,
+                              SLAB_SHEATH_BIG_STEPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        bsum, bad = drow.sheath_summary(big, SLAB_SHEATH_BIG_N, cfg.maxiter)
+        problems += [f"domain_sheath 1e8: {b}" for b in bad]
+        log(f"[slab bounded] domain_sheath at n = {SLAB_SHEATH_BIG_N} (capacity "
+            f"{st.p.shape[0]}), {SLAB_SHEATH_BIG_STEPS} timed steps: "
+            f"{big['ms_per_step']:.3f} ms/step, "
+            f"{SLAB_SHEATH_BIG_N * 1e3 / big['ms_per_step']:.4e} pushes/s, Picard "
+            f"{big['rows']['picard_iters']}, peak memory {peak:.2f} GiB "
+            f"(set-up {setup_s:.1f} s)")
+        res["sheath_1e8"] = dict(n=SLAB_SHEATH_BIG_N, steps=SLAB_SHEATH_BIG_STEPS,
+                                 capacity=int(st.p.shape[0]),
+                                 ms_per_step=big["ms_per_step"],
+                                 pushes_per_s=SLAB_SHEATH_BIG_N * 1e3
+                                 / big["ms_per_step"],
+                                 picard_iters=big["rows"]["picard_iters"],
+                                 peak_mem_gib=peak, setup_s=setup_s)
+        del st, big
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # one rank without a group: the reference of the two-rank sheath's
+    # step 0
+    cfg, st = drow.sheath_row(make_mesh(device=dev), **SLAB_SHEATH_GLOO)
+    _, m0 = domain_sheath.make_step(cfg, make_mesh(device=dev))(st)
+    del st
+    # two gloo ranks on the one card, one spawn
+    jobs = [("magnetized", dict(steps=SLAB_GLOO_STEPS)),
+            ("magnetized", dict(steps=SLAB_GLOO_STEPS, replicas=2)),
+            ("sheath", dict(steps=SLAB_GLOO_STEPS, **SLAB_SHEATH_GLOO))]
+    t0 = time.perf_counter()
+    two = spawn.run(2, drow.slab_jobs, jobs, device=dev)
+    res["two_ranks"] = {"spawn_s": time.perf_counter() - t0}
+    for i, label in enumerate(("magnetized_2_slabs", "magnetized_1x2_replicas",
+                               "sheath_2_slabs")):
+        ranks = [r[i] for r in two]
+        a = ranks[0]["rows"]
+        equal = all(r["rows"] == a for r in ranks)
+        rec = dict(steps=SLAB_GLOO_STEPS, ms_per_step=ranks[0]["ms_per_step"],
+                   host_syncs_per_step=ranks[0]["host_syncs_per_step"],
+                   staged_bytes_per_step=ranks[0]["staged_bytes_per_step"],
+                   rows_equal=equal, n_migrated=sum(a["n_migrated"]),
+                   n_dropped=sum(a["n_dropped"]))
+        if label.startswith("magnetized"):
+            rec["phi_max_gap"] = _dp_gap(rows["phi_max"][:SLAB_PHI_STEPS],
+                                         a["phi_max"][:SLAB_PHI_STEPS])
+            rec["newton_iters"] = a["newton_iters"]
+            if not rec["phi_max_gap"] <= TOL_SLAB_PHI_MAX:
+                problems.append(f"{label}: phi_max against one rank "
+                                f"{rec['phi_max_gap']}")
+            tot = [x + y for x, y in zip(a["n_active"], a["n_hit_wall"])]
+            if min(tot) != max(tot):
+                problems.append(f"{label}: n_active + wall losses {tot}")
+        else:
+            tot = [x + y + z for x, y, z in zip(a["n_active"], a["n_lost_left"],
+                                                a["n_lost_right"])]
+            if set(tot) != {SLAB_SHEATH_GLOO["n"]}:
+                problems.append(f"{label}: population {min(tot)}-{max(tot)}")
+            step0 = dict(
+                field_energy=_dp_gap([float(m0.field_energy)],
+                                     [a["field_energy"][0]]),
+                kinetic_energy=_dp_gap([float(m0.kinetic_energy)],
+                                       [a["kinetic_energy"][0]]),
+                phi=float((torch.tensor(ranks[0]["phi_first"]) - m0.phi.cpu())
+                          .abs().max() / m0.phi.abs().max()),
+                picard=(int(m0.picard_iters), a["picard_iters"][0]))
+            rec["step0_against_one_rank"] = step0
+            if not (step0["field_energy"] <= 2 * TOL_SHEATH_STEP["e"]
+                    and step0["kinetic_energy"] <= TOL_SLAB_SHEATH_KE
+                    and step0["phi"] <= TOL_SHEATH_STEP["phi"]
+                    and abs(step0["picard"][0] - step0["picard"][1]) <= 1):
+                problems.append(f"{label}: step 0 against one rank {step0}")
+            rec["picard_iters"] = a["picard_iters"]
+        if not equal:
+            problems.append(f"{label}: the two ranks' rows differ")
+        if rec["n_dropped"]:
+            problems.append(f"{label}: {rec['n_dropped']} dropped")
+        if label != "magnetized_1x2_replicas" and not rec["n_migrated"] > 0:
+            problems.append(f"{label}: nothing migrated")
+        log(f"[slab bounded] {label}, two gloo ranks on the card: "
+            f"{SLAB_GLOO_STEPS} steps, {rec['ms_per_step']:.3f} ms/step, host "
+            f"syncs a step {rec['host_syncs_per_step']:.2f}, staged "
+            f"{rec['staged_bytes_per_step']:.0f} B a step a rank, rows equal on "
+            f"both ranks: {equal}, migrated {rec['n_migrated']}, dropped "
+            f"{rec['n_dropped']}" + "".join(
+                f", {k} {rec[k]}" for k in ("phi_max_gap",
+                                           "step0_against_one_rank")
+                if k in rec))
+        res["two_ranks"][label] = rec
+    res["launches"] = launches
+    cuda_cic.reset_launch_counts()
+    if problems:
+        raise AssertionError("slab bounded: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -5155,6 +5546,7 @@ def main() -> int:
     dep = phase("deposit times", deposit_times, dev, ms.pop("iead_traffic"))
     cli = phase("cli", phase_cli, dev, card)
     dpp = phase("data parallel", phase_data_parallel, dev, card)
+    slb = phase("slab bounded", phase_slab_bounded, dev, shs)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -5249,7 +5641,16 @@ def main() -> int:
          **{key: dpp["hash_batch"]["4x999996"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
              "library_ms", "source_batch_ms")},
-         "shapes": dpp["hash_batch"]}],
+         "shapes": dpp["hash_batch"]},
+        # the slab Newton's local chain solve: no TPU kernel (JAX's chain is
+        # XLA operations); its launches are the pic_iead_dd run's
+        {"name": "tridiag3_chain", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/newton.cu", "replaces": None,
+         "launches": slb["launches"]["tridiag3_chain"],
+         **{key: slb["tridiag3_chain"][600][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
+             "library_ms", "us_per_solve", "thomas_ms")},
+         "shapes": slb["tridiag3_chain"]}],
         "slice": {key: sl[key] for key in (
         "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
         "field_energy_rel_change", "total_energy_rel_change")},
@@ -5332,6 +5733,8 @@ def main() -> int:
             "check": bc, "checkpoint": ckp},
         "cli": cli,
         "data_parallel": {k: v for k, v in dpp.items() if k != "hash_batch"},
+        "slab_bounded": {k: v for k, v in slb.items()
+                         if k not in ("tridiag3_chain", "launches")},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -16,8 +16,9 @@ words, stored as the JAX state stores its key data (two uint32 words;
 state keeps (``step_host``, ``qm_host``) are not stored: the state
 rebuilds them when it is made on load.
 
-The slab-sharded states (``parallel.domain``, ``parallel.domain_implicit``)
-hold one rank's rows. Given the rank's ``mesh``, ``save`` gathers every
+The slab-sharded states (``parallel.domain``, ``parallel.domain_implicit``,
+``parallel.domain_sheath``, ``parallel.domain_magnetized``; their layouts
+in ``interop.domain_layout``) hold one rank's rows. Given the rank's ``mesh``, ``save`` gathers every
 rank's rows in rank order and rank 0 writes one file in JAX's global
 layout: each per-particle leaf (S x capacity,), each slab leaf (ng,), the
 scalars once, the leaf paths and shapes of ``pypic_tpu.checkpoint.save``

@@ -28,9 +28,9 @@ Where it parts from the JAX CLI:
   one the caller already made. ``--shards`` must equal the world size;
   only rank 0 writes to ``--outdir``; checkpoints hold JAX's global layout
   (``checkpoint.save`` with the mesh). ``--replicas R`` composes R
-  data-parallel replicas with the slabs of ``domain_implicit`` (the
-  slabs x replicas mesh, ``parallel.mesh.make_mesh2``): the world is then
-  shards x R ranks. ``--migrate-every`` above 1 (the superstep, ROADMAP
+  data-parallel replicas with the slabs of ``domain_implicit`` and
+  ``pic_iead_dd`` (the slabs x replicas mesh,
+  ``parallel.mesh.make_mesh2``): the world is then shards x R ranks. ``--migrate-every`` above 1 (the superstep, ROADMAP
   queue 1 item 18) exits naming its item.
 
 The figures (``--plot``, ``--gif``) need matplotlib and imageio: without
@@ -52,7 +52,9 @@ import time
 
 import numpy as np
 
-_DOMAIN_PRESETS = ("domain_implicit", "domain_explicit")
+_DOMAIN_PRESETS = ("domain_implicit", "domain_explicit", "pic_iead_dd")
+# the presets that compose data-parallel replicas with their slabs
+_REPLICA_PRESETS = ("pic_iead_dd", "domain_implicit")
 
 
 def _cmd_list(_args):
@@ -113,9 +115,9 @@ def _cmd_run(args):
     if absent:
         sys.exit(f"--plot/--gif need {' and '.join(absent)}, which this "
                  "Python does not have; run without them")
-    if args.replicas and args.preset != "domain_implicit":
+    if args.replicas and args.preset not in _REPLICA_PRESETS:
         sys.exit(f"--replicas is not supported by preset {args.preset!r} "
-                 "(domain_implicit only)")
+                 f"({' and '.join(_REPLICA_PRESETS)} only)")
     if args.migrate_every > 1:
         if args.preset in _DOMAIN_PRESETS:
             sys.exit(f"--migrate-every is not supported by preset "
@@ -472,7 +474,8 @@ def main(argv=None):
                          "(default: that number)")
     rp.add_argument("--replicas", type=int, default=None,
                     help="data-parallel replicas composed with the slab "
-                         "axis (slabs x replicas ranks) for domain_implicit")
+                         "axis (slabs x replicas ranks) for domain_implicit "
+                         "and pic_iead_dd")
     rp.add_argument("--migrate-every", type=int, default=1,
                     help="migration-amortized superstep of the domain "
                          "presets; above 1 not ported yet (ROADMAP item 18)")

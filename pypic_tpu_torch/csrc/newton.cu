@@ -103,10 +103,12 @@ struct Row {
 };
 
 // The PCR stage buffers in shared memory: two of `stride` = rows + 2 halo
-// entries each; row j at j + halo. q holds (a, b, c, f[0]), g f[1] (R = 2).
+// entries each; row j at j + halo. q holds (a, b, c, f[0]), g f[1] (R = 2),
+// g2 (f[1], f[2]) (R = 3).
 struct PcrBuf {
   float4* q;
   float* g;
+  float2* g2;
   int stride, halo;
 };
 
@@ -127,6 +129,11 @@ __device__ __forceinline__ Row<R> load_row(const PcrBuf& buf, int k, int j) {
   r.c = v.z;
   r.f[0] = v.w;
   if constexpr (R == 2) r.f[1] = buf.g[k * buf.stride + buf.halo + j];
+  if constexpr (R == 3) {
+    const float2 w = buf.g2[k * buf.stride + buf.halo + j];
+    r.f[1] = w.x;
+    r.f[2] = w.y;
+  }
   return r;
 }
 
@@ -135,6 +142,8 @@ __device__ __forceinline__ void store_row(const PcrBuf& buf, int k, int j,
                                           const Row<R>& r) {
   buf.q[k * buf.stride + buf.halo + j] = make_float4(r.a, r.b, r.c, r.f[0]);
   if constexpr (R == 2) buf.g[k * buf.stride + buf.halo + j] = r.f[1];
+  if constexpr (R == 3)
+    buf.g2[k * buf.stride + buf.halo + j] = make_float2(r.f[1], r.f[2]);
 }
 
 // Both buffers' rims to the identity row. Every thread calls it; a barrier
@@ -146,6 +155,7 @@ __device__ void init_rims(const PcrBuf& buf, int rows) {
     const int at = k * buf.stride + (j < buf.halo ? j : rows + j);
     buf.q[at] = make_float4(0.0f, 1.0f, 0.0f, 0.0f);
     if constexpr (R == 2) buf.g[at] = 0.0f;
+    if constexpr (R == 3) buf.g2[at] = make_float2(0.0f, 0.0f);
   }
 }
 
@@ -229,10 +239,15 @@ __device__ float block_min(float x, float* red) {
 // Dynamic shared memory: the stage buffers (float4s first, for alignment),
 // then the second right-hand side's, then the shared copy of phi.
 template <int R>
-size_t newton_smem(int rows) {
+size_t pcr_smem(int rows) {
   const size_t stride = rows + 2 * pcr_halo(rows);
-  return 2 * stride * (sizeof(float4) + (R == 2 ? sizeof(float) : 0)) +
-         rows * sizeof(float);
+  return 2 * stride * (sizeof(float4) + (R == 2 ? sizeof(float) : 0) +
+                       (R == 3 ? sizeof(float2) : 0));
+}
+
+template <int R>
+size_t newton_smem(int rows) {
+  return pcr_smem<R>(rows) + rows * sizeof(float);
 }
 
 template <int R>
@@ -243,7 +258,9 @@ __device__ __forceinline__ PcrBuf carve(unsigned char* smem, int rows,
   buf.stride = rows + 2 * buf.halo;
   buf.q = reinterpret_cast<float4*>(smem);
   buf.g = reinterpret_cast<float*>(buf.q + 2 * buf.stride);
-  *s_phi = buf.g + (R == 2 ? 2 * buf.stride : 0);
+  buf.g2 = reinterpret_cast<float2*>(buf.q + 2 * buf.stride);
+  *s_phi = buf.g + (R == 2 ? 2 * buf.stride : 0) +
+           (R == 3 ? 4 * buf.stride : 0);
   return buf;
 }
 
@@ -390,6 +407,61 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
   }
 }
 
+// One rank's local system of the distributed chain solve
+// (parallel.distributed_poisson.make_distributed_tridiag_chain): the (c,)
+// rows a_i x_(i-1) + b_i x_i + c_i x_(i+1) = f_i with the couplings to the
+// neighbouring slabs removed (a_0 = c_(c-1) = 0), solved for three
+// right-hand sides that share the elimination, [f, e_0, e_(c-1)]: the
+// particular solution xp and the boundary responses u and w. One CTA of
+// rows = c rounded up to 32 threads, a row a thread, by the Newton
+// kernels' PCR (pcr_solve: float4 rows in alternating buffers, one barrier
+// a stage, the __syncthreads_or early end, div_rn), all three columns
+// carried through one elimination. Row i of x is x[r * c + i] for column
+// r. The threads of rows 0 and c - 1 also write the rank's six interface
+// scalars [xp_0, xp_(c-1), a0 u_0, a0 u_(c-1), cc w_0, cc w_(c-1)]
+// (a0 = dl[0] unless the rank is the chain's first, cc = du[c-1] unless
+// its last), which the ranks all_gather for the interface solve.
+__global__ void tridiag3_chain_kernel(const float* __restrict__ dl,
+                                      const float* __restrict__ d,
+                                      const float* __restrict__ du,
+                                      const float* __restrict__ f,
+                                      float* __restrict__ x,
+                                      float* __restrict__ g6, int c,
+                                      int first, int last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x;
+  float* unused;
+  const PcrBuf buf = carve<3>(smem, rows, &unused);
+  const int i = threadIdx.x;
+  const bool valid = i < c;
+  Row<3> r;
+  r.a = (valid && i > 0) ? dl[i] : 0.0f;
+  r.b = valid ? d[i] : 1.0f;
+  r.c = (valid && i < c - 1) ? du[i] : 0.0f;
+  r.f[0] = valid ? f[i] : 0.0f;
+  r.f[1] = i == 0 ? 1.0f : 0.0f;
+  r.f[2] = i == c - 1 ? 1.0f : 0.0f;
+  init_rims<3>(buf, rows);
+  __syncthreads();
+  pcr_solve<3>(r, buf, i, rows);
+  if (!valid) return;
+  x[i] = r.f[0];
+  x[c + i] = r.f[1];
+  x[2 * c + i] = r.f[2];
+  if (i == 0) {
+    const float a0 = first ? 0.0f : dl[0];
+    g6[0] = r.f[0];
+    g6[2] = __fmul_rn(a0, r.f[1]);
+    g6[4] = __fmul_rn(last ? 0.0f : du[c - 1], r.f[2]);
+  }
+  if (i == c - 1) {
+    const float cc = last ? 0.0f : du[c - 1];
+    g6[1] = r.f[0];
+    g6[3] = __fmul_rn(first ? 0.0f : dl[0], r.f[1]);
+    g6[5] = __fmul_rn(cc, r.f[2]);
+  }
+}
+
 bool rows_ok(int ng, int rows) {
   return rows >= 32 && rows <= kMaxRows && rows % 32 == 0 && ng <= rows;
 }
@@ -429,6 +501,22 @@ int pypic_boltzmann_dn(const float* n, const float* n0, const float* phi0,
   newton_dn_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
       n, n0, phi0, phi, iters, resid, ng, coef, c1, dx2, tol, maxiter,
       step_max, exp_clamp);
+  return (int)cudaGetLastError();
+}
+
+// dl, d, du, f: the rank's (c,) slabs (dl[0] and du[c-1] are the
+// couplings to the neighbouring slabs, left out of the local solve); x:
+// (3, c) [xp, u, w]; g6: the six interface scalars. 2 <= c <= rows; rows
+// as above. first / last: the rank is the chain's first / last.
+int pypic_tridiag3_chain(const float* dl, const float* d, const float* du,
+                         const float* f, float* x, float* g6, int c, int rows,
+                         int first, int last, void* stream) {
+  if (!rows_ok(c, rows) || c < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = pcr_smem<3>(rows);
+  cudaError_t err = allow_smem(tridiag3_chain_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tridiag3_chain_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
+      dl, d, du, f, x, g6, c, first, last);
   return (int)cudaGetLastError();
 }
 

@@ -253,6 +253,22 @@ def _grid_ops(dtype: torch.dtype):
     return cuda_cic.gather_plain, cuda_cic.deposit_plain
 
 
+def picard_keep(cfg, r: float, es_norm: float, dtype) -> bool:
+    """The Picard loop's test on the host, in the working dtype's rounding:
+    r > tol and r > (tol_floor eps) ||es|| (``cfg`` has ``tol`` and
+    ``tol_floor``; the slab engine ``parallel.domain_sheath`` shares it)."""
+    if dtype == torch.float32:
+        f = np.float32
+        keep = f(r) > f(cfg.tol)
+        floor = f(f(cfg.tol_floor * np.finfo(np.float32).eps) * f(es_norm))
+    else:
+        keep = r > cfg.tol
+        floor = cfg.tol_floor * float(torch.finfo(dtype).eps) * es_norm
+    if cfg.tol_floor > 0.0:
+        keep = keep and r > floor
+    return bool(keep)
+
+
 def init_state(x, v3, q, m, species, cfg: SheathConfig, seed: int = 0,
                dtype: torch.dtype = torch.float32,
                device: torch.device | str | None = None) -> SheathState:
@@ -332,20 +348,6 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
         if cfg.picard_accel == "anderson":
             return anderson_mix(es, eh, k, aux)
         return eh, aux
-
-    def _keep(r: float, es_norm: float, dtype) -> bool:
-        """The loop's test on the host, in the working dtype's rounding:
-        r > tol and r > (tol_floor eps) ||es||."""
-        if dtype == torch.float32:
-            f = np.float32
-            keep = f(r) > f(cfg.tol)
-            floor = f(f(cfg.tol_floor * np.finfo(np.float32).eps) * f(es_norm))
-        else:
-            keep = r > cfg.tol
-            floor = cfg.tol_floor * float(torch.finfo(dtype).eps) * es_norm
-        if cfg.tol_floor > 0.0:
-            keep = keep and r > floor
-        return bool(keep)
 
     def _fold(j):
         """The edge fold j[0] += j[1]; j[-1] += j[-2], in place on a fresh
@@ -451,7 +453,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
             if going:
                 # the one host read of the pass: r and ||es|| together
                 r_h, n_h = torch.stack([r, torch.linalg.norm(es)]).tolist()
-                going = _keep(r_h, n_h, dtype)
+                going = picard_keep(cfg, r_h, n_h, dtype)
             return e1, es, r, aux, going
 
         if fused:

@@ -9,7 +9,8 @@ The domain engines' JAX states hold every shard: (S * capacity,) particle
 arrays, shard d's rows at [d cap, (d + 1) cap), and (ng,) slab-sharded
 fields, slab d at [d c, (d + 1) c). The port's states are one a rank;
 ``domain_*_states_from_numpy`` cut the JAX arrays into the S rank states
-and ``domain_*_states_to_numpy`` join them again.
+and ``domain_*_states_to_numpy`` join them again (the explicit carrier,
+``domain_implicit``, ``domain_sheath`` and ``domain_magnetized``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from .engines.magnetized import MagnetizedState
 from .engines.sheath import SheathState
 from .parallel.domain import DomainState
 from .parallel.domain_implicit import DomainImplicitState
+from .parallel.domain_magnetized import DomainMagnetizedState
+from .parallel.domain_sheath import DomainSheathState
 
 # the fields of pypic_tpu's states (the port's states also cache q and m
 # on the host, which they rebuild from q and m)
@@ -119,25 +122,37 @@ def sheath_state_to_numpy(state: SheathState) -> dict:
 
 
 # per-particle fields (cut by capacity), slab fields (cut by cells) and
-# replicated scalars of the domain states
-_DOMAIN_PARTICLE = ("p", "v", "alive")
-_DOMAIN_SCALAR = ("q", "m", "step")
-_DOMAIN_SLAB = {DomainState: ("rho",),
-                DomainImplicitState: ("e", "j", "e_prev", "e_prev2")}
+# replicated leaves of the domain states, by state class
+_DOMAIN = {
+    DomainState: (("p", "v", "alive"), ("rho",), ("q", "m", "step")),
+    DomainImplicitState: (("p", "v", "alive"),
+                          ("e", "j", "e_prev", "e_prev2"),
+                          ("q", "m", "step")),
+    DomainSheathState: (("p", "v", "q", "m", "species", "active", "filled"),
+                        ("e", "j", "e_prev"), ("exit_hist", "step")),
+    DomainMagnetizedState: (
+        ("p", "y", "z", "vx", "vy", "vz", "m", "charge_state", "p2c",
+         "species_idx", "t", "active", "at_wall", "from_wall", "filled"),
+        ("phi", "phi_prev"), ("n0", "p_old", "added", "iead", "step")),
+}
+# the states that carry the Philox key words (``rng``) and the host step
+_KEYED = (DomainSheathState, DomainMagnetizedState)
 
 
 def domain_layout(cls):
     """(per-particle fields, slab fields) of a slab-sharded state class,
     the fields a rank holds its own rows of; None for any other state."""
-    if cls not in _DOMAIN_SLAB:
+    if cls not in _DOMAIN:
         return None
-    return _DOMAIN_PARTICLE, _DOMAIN_SLAB[cls]
+    return _DOMAIN[cls][:2]
 
 
 def _domain_from_numpy(cls, d: dict, num_shards: int, device,
                        replicas: int = 1) -> list:
-    slabs = _DOMAIN_SLAB[cls]
-    missing = [k for k in _DOMAIN_PARTICLE + _DOMAIN_SCALAR + slabs
+    particle, slabs, scalar = _DOMAIN[cls]
+    keyed = cls in _KEYED
+    missing = [k for k in particle + slabs + scalar + (("rng",) if keyed
+                                                        else ())
                if k not in d]
     if missing:
         raise KeyError(f"missing {cls.__name__} fields: {missing}")
@@ -153,25 +168,32 @@ def _domain_from_numpy(cls, d: dict, num_shards: int, device,
     states = []
     for r in range(num_shards * replicas):
         # rank s R + r': the (s, r') block of the particles, slab s
-        kw = {k: cut(d[k], r, num_shards * replicas)
-              for k in _DOMAIN_PARTICLE}
+        kw = {k: cut(d[k], r, num_shards * replicas) for k in particle}
         kw.update({k: cut(d[k], r // replicas, num_shards) for k in slabs})
         kw.update({k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
-                   for k in _DOMAIN_SCALAR})
+                   for k in scalar})
+        if keyed:
+            # the JAX key data (two uint32 words) as the Philox key words
+            words = np.asarray(d["rng"], np.uint32).reshape(-1)
+            kw.update(rng=(int(words[0]), int(words[-1])),
+                      step_host=int(np.asarray(d["step"])))
         states.append(cls(**kw))
     return states
 
 
 def _domain_to_numpy(states, replicas: int = 1) -> dict:
     cls = type(states[0])
+    particle, slabs, scalar = _DOMAIN[cls]
     out = {k: np.concatenate([getattr(s, k).detach().cpu().numpy()
                               for s in states])
-           for k in _DOMAIN_PARTICLE}
+           for k in particle}
     out.update({k: np.concatenate([getattr(s, k).detach().cpu().numpy()
                                    for s in states[::replicas]])
-                for k in _DOMAIN_SLAB[cls]})
+                for k in slabs})
     out.update({k: getattr(states[0], k).detach().cpu().numpy()
-                for k in _DOMAIN_SCALAR})
+                for k in scalar})
+    if cls in _KEYED:
+        out["rng"] = np.asarray(states[0].rng, np.uint32)
     return out
 
 
@@ -198,3 +220,33 @@ def domain_states_from_numpy(d: dict, num_shards: int, device) -> list:
 
 def domain_states_to_numpy(states) -> dict:
     return _domain_to_numpy(states)
+
+
+def domain_sheath_states_from_numpy(d: dict, num_shards: int,
+                                    device) -> list:
+    """The S rank states of a JAX ``DomainSheathState`` given as a dict of
+    numpy arrays (p, v, q, m, species, active, filled, e, j, e_prev,
+    exit_hist, step, rng): rank d takes rows [d cap, (d + 1) cap) and
+    slab d; the JAX key data becomes the Philox key words."""
+    return _domain_from_numpy(DomainSheathState, d, num_shards, device)
+
+
+def domain_sheath_states_to_numpy(states) -> dict:
+    """The rank states joined into the JAX state's global arrays; ``rng``
+    as two uint32 words."""
+    return _domain_to_numpy(states)
+
+
+def domain_magnetized_states_from_numpy(d: dict, num_shards: int, device,
+                                        replicas: int = 1) -> list:
+    """The S (x R replicas) rank states of a JAX ``DomainMagnetizedState``
+    (a dict of numpy arrays keyed by its field names), in rank order
+    s R + r: the particles of JAX's (S, R, cap_r) layout, phi and phi_prev
+    of slab s; the JAX key data becomes the Philox key words."""
+    return _domain_from_numpy(DomainMagnetizedState, d, num_shards, device,
+                              replicas)
+
+
+def domain_magnetized_states_to_numpy(states, replicas: int = 1) -> dict:
+    """The rank states joined into the JAX state's global arrays."""
+    return _domain_to_numpy(states, replicas)

@@ -75,6 +75,7 @@ _SIGNATURES = {
         [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _P], _I),
     "pypic_boltzmann_dn": (
         [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _P], _I),
+    "pypic_tridiag3_chain": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
     "pypic_hash_batch": ([_P, _L, _I, _U, _U, _F, _I, _I, _I, _P], _I),
     "pypic_source_batch": (
@@ -86,7 +87,7 @@ _SIGNATURES = {
         [_P] * 13 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
     "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
     "pypic_sheath_reinject": (
-        [_P] * 12 + [_L, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
+        [_P] * 12 + [_L, _U, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _I, _I,
                      _P], _I),

@@ -25,10 +25,19 @@ by Sherman-Morrison on a PCR with two right-hand sides, in one launch of
 the second kernel in ``csrc/newton.cu``. ``boltzmann_dn_plain`` is its
 loop as tensor operations, in the kernel's order.
 
+``tridiag3_chain`` solves one rank's local system of the distributed
+chain solve (``parallel.distributed_poisson.make_distributed_tridiag_chain``,
+the slab-sharded Newton's step) for its three right-hand sides [f, e_0,
+e_(c-1)] in one launch of the third kernel in ``csrc/newton.cu`` (the
+same PCR, one CTA, c <= 1024), and writes the rank's six interface
+scalars beside them. It replaces no TPU kernel: JAX's chain is XLA
+operations. ``tridiag3_chain_plain`` is ``_pcr_solve`` with the (3, rows)
+right-hand side; the CPU route runs it.
+
 Dispatch and launch counting follow ``ops/cuda_cic.py``: CUDA tensors
 launch the kernel, CPU tensors run the plain version, anything else
-raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``
-or ``['boltzmann_dn']``. The kernels take ng <= ``MAX_NG`` (one CTA, a row
+raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``,
+``['boltzmann_dn']`` or ``['tridiag3_chain']``. The kernels take ng <= ``MAX_NG`` (one CTA, a row
 a thread); the plain versions take any ng, and the engines take the
 op-composed Thomas routes of ``ops.poisson`` on the card above it (the
 large-grid kernel is ROADMAP item 10).
@@ -304,3 +313,69 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     _build.check(err, "boltzmann_dn")
     LAUNCHES["boltzmann_dn"] += 1
     return NewtonResult(phi, iters, resid)
+
+
+def _chain_scalars(x, dl, du, first: bool, last: bool) -> torch.Tensor:
+    """The six interface scalars [xp_0, xp_(c-1), a0 u_0, a0 u_(c-1),
+    cc w_0, cc w_(c-1)] of the (3, c) local solution x = [xp, u, w]: a0 =
+    dl[0] and cc = du[c-1], the couplings to the neighbouring slabs, 0 at
+    the chain's ends."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    a0 = zero if first else dl[0]
+    cc = zero if last else du[-1]
+    return torch.stack([x[0, 0], x[0, -1], a0 * x[1, 0], a0 * x[1, -1],
+                        cc * x[2, 0], cc * x[2, -1]])
+
+
+def tridiag3_chain_plain(dl, d, du, f, *, first: bool, last: bool):
+    """The kernel's solve as tensor operations: ``_pcr_solve`` over
+    ``kernel_rows(c)`` rows (identity rows past c) with the (3, rows)
+    right-hand side [f, e_0, e_(c-1)], the couplings dl[0] and du[c-1]
+    left out. Returns ((3, c) [xp, u, w], (6,) interface scalars)."""
+    c = d.shape[0]
+    rows = kernel_rows(c)
+    dev, dt = d.device, d.dtype
+    pad = torch.zeros((rows - c,), dtype=dt, device=dev)
+    a = torch.cat([dl, pad])
+    a[0] = 0.0
+    b = torch.cat([d, torch.ones_like(pad)])
+    cu = torch.cat([du, pad])
+    cu[c - 1] = 0.0
+    rhs = torch.zeros((3, rows), dtype=dt, device=dev)
+    rhs[0, :c] = f
+    rhs[1, 0] = 1.0
+    rhs[2, c - 1] = 1.0
+    x = _pcr_solve(a, b, cu, rhs)[:, :c].contiguous()
+    return x, _chain_scalars(x, dl, du, first, last)
+
+
+def tridiag3_chain(dl, d, du, f, *, first: bool, last: bool):
+    """One rank's local chain solve: the (c,) float32 rows dl[i] x[i-1] +
+    d[i] x[i] + du[i] x[i+1] = rhs[i] with dl[0] and du[c-1] (the
+    couplings to the neighbouring slabs) left out, for rhs = f, e_0 and
+    e_(c-1), in one kernel launch on CUDA tensors (c <= 1024). ``first``
+    / ``last``: the rank is the chain's first / last (no coupling there).
+    Returns ((3, c) [xp, u, w], (6,) [xp_0, xp_(c-1), a0 u_0,
+    a0 u_(c-1), cc w_0, cc w_(c-1)]), on the inputs' device, with no host
+    read."""
+    kind = _device_kind((dl, d, du, f))
+    c = d.shape[0] if d.dim() == 1 else -1
+    for name, t in (("dl", dl), ("d", d), ("du", du), ("f", f)):
+        _check_1d(name, t, c)
+    if c < 2:
+        raise ValueError(f"tridiag3_chain needs c >= 2, got c={c}")
+    if kind == "cpu":
+        return tridiag3_chain_plain(dl, d, du, f, first=first, last=last)
+    _check_rows("tridiag3_chain", c)
+    lib = _build.library()
+    dev = d.device
+    x = torch.empty((3, c), dtype=torch.float32, device=dev)
+    g6 = torch.empty((6,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pypic_tridiag3_chain(
+            dl.data_ptr(), d.data_ptr(), du.data_ptr(), f.data_ptr(),
+            x.data_ptr(), g6.data_ptr(), c, kernel_rows(c), int(first),
+            int(last), _stream(dev))
+    _build.check(err, "tridiag3_chain")
+    LAUNCHES["tridiag3_chain"] += 1
+    return x, g6

@@ -279,13 +279,15 @@ def reinject_ndraw(gamma: float) -> int:
     return 10 if gamma > 0.0 else 5
 
 
-def reinject_bits_plain(key, step: int, n: int, ndraw: int, device="cpu"):
+def reinject_bits_plain(key, step: int, n: int, ndraw: int, device="cpu",
+                        tag: int = 0):
     """The (ndraw, n) Philox words of rows 0..n-1: word k of a row is word
-    k % 4 of its block at counter (row, step, k // 4, 0)."""
+    k % 4 of its block at counter (row, step, k // 4, tag)."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
     words = []
     for b in range(-(-ndraw // 4)):
-        words += philox4x32_plain(key, (idx, int(step) & _MASK32, b, 0))
+        words += philox4x32_plain(key, (idx, int(step) & _MASK32, b,
+                                        int(tag) & _MASK32))
     return torch.stack(words[:ndraw])
 
 
@@ -338,19 +340,21 @@ def sheath_reinject_from_bits_plain(bits, p, u, vy, vz, act, sig, sigth=None,
 
 
 def sheath_reinject_plain(key, step: int, p, u, vy, vz, act, sig, sigth=None,
-                          *, cells: float, gamma: float = 0.0):
-    """Philox words at counters (row, step, j, 0), then the transform:
+                          *, cells: float, gamma: float = 0.0, tag: int = 0):
+    """Philox words at counters (row, step, j, tag), then the transform:
     what the kernel computes, as tensor operations."""
     bits = reinject_bits_plain(key, step, p.shape[0], reinject_ndraw(gamma),
-                               p.device)
+                               p.device, tag)
     return sheath_reinject_from_bits_plain(bits, p, u, vy, vz, act, sig,
                                            sigth, cells=cells, gamma=gamma)
 
 
 def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
-                    cells: float, gamma: float = 0.0):
+                    cells: float, gamma: float = 0.0, tag: int = 0):
     """Thermostat + re-injection of the step ``step`` under the Philox
-    ``key`` (two 32-bit words). ``act`` is the float status (1 active),
+    ``key`` (two 32-bit words), at counters (row, step, j, tag): ``tag``
+    0 is the single-device engine's stream, the slab engine passes its
+    rank's. ``act`` is the float status (1 active),
     ``sig`` / ``sigth`` the per-row Maxwellian sigmas sqrt(kB T / m) of the
     re-injection and of the thermostat (sigth is read only with
     gamma > 0). Returns (p, u, vy, vz), (n,) each, as views of one
@@ -370,7 +374,7 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
     outs = cuda_cic.padded_rows(4, n, p.device)
     if kind == "cpu":
         ref = sheath_reinject_plain(key, step, p, u, vy, vz, act, sig, sigth,
-                                    cells=cells, gamma=gamma)
+                                    cells=cells, gamma=gamma, tag=tag)
         for o, r in zip(outs, ref):
             o.copy_(r)
         return outs
@@ -383,7 +387,8 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
             act.data_ptr(), sig.data_ptr(),
             (sigth if gamma > 0.0 else sig).data_ptr(),
             *(o.data_ptr() for o in outs), None, n, k0, k1,
-            int(step) & _MASK32, _f32(cells), _f32(gamma), _f32(_TWO_PI),
+            int(step) & _MASK32, int(tag) & _MASK32, _f32(cells), _f32(gamma),
+            _f32(_TWO_PI),
             int(gamma > 0.0), _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "sheath_reinject")
     LAUNCHES["sheath_reinject"] += 1
@@ -405,7 +410,7 @@ def sheath_uniforms(key, step: int, n: int, *, gamma: float, device):
     with torch.cuda.device(dev):
         err = lib.pypic_sheath_reinject(
             *([None] * 11), out.data_ptr(), n, k0, k1, int(step) & _MASK32,
-            0.0, _f32(gamma), _f32(_TWO_PI), int(ndraw == 10),
+            0, 0.0, _f32(gamma), _f32(_TWO_PI), int(ndraw == 10),
             _blocks(n, dev), _THREADS, _stream(dev))
     _build.check(err, "sheath_uniforms")
     LAUNCHES["sheath_uniforms"] += 1

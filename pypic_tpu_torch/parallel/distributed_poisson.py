@@ -33,12 +33,15 @@ of phi subtracted, so phi matches ``solve_periodic_neutralized``'s
 zero-mean representative.
 
 ``make_distributed_tridiag_chain``: the same substructuring with
-coefficients that change every call (the Newton-Boltzmann Jacobian), the
-two response vectors solved beside the particular solution (one 3-column
-``ops.tridiag.solve_tridiag``) and the interface system assembled from an
-all_gather of six scalars a rank and solved on every rank, as in JAX.
-Its local solve is the Python-loop Thomas: it has no caller on the card
-until ``domain_magnetized`` is ported (ROADMAP queue 1, item 17b).
+coefficients that change every call (the Newton-Boltzmann Jacobian of
+``parallel.domain_magnetized``), on a chain of slabs. Each rank's local
+system with its three right-hand sides [f, e_0, e_(c-1)] is one launch of
+the ``tridiag3_chain`` kernel (``ops.cuda_newton``; its plain version on
+the CPU), which also writes the rank's six interface scalars; one
+``all_gather`` carries them, and the (2S, 2S) interface system is solved
+on every rank by ``torch.linalg.solve_ex`` (which reads no error code
+back), so the solve makes no host read. On one rank the interface
+couples nothing and the solve is the launch alone.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON_0
-from ..ops.tridiag import solve_tridiag
+from ..ops import cuda_newton
 from .mesh import SlabMesh
 
 
@@ -151,15 +154,16 @@ def make_distributed_periodic_poisson(ng: int, dx: float, num_shards: int,
 def make_distributed_tridiag_chain(c: int, num_shards: int, mesh: SlabMesh):
     """Distributed tridiagonal solve with coefficients given at each call,
     on a chain of slabs (no wrap): ``solve(dl_own, d_own, du_own, f_own)
-    -> x_own``, each operand the (c,) slab of ``mesh.rank`` of the global
-    system A x = f (dl[i] = A[i, i-1], du[i] = A[i, i+1]).
+    -> x_own``, each operand the (c,) float32 slab of ``mesh.rank`` of the
+    global system A x = f (dl[i] = A[i, i-1], du[i] = A[i, i+1]).
 
     Shard 0's first row and shard S-1's last row carry the global ends
     (their outer couplings unused), so the interface matrix is
     block-bidiagonal. For diagonally dominant systems (the Boltzmann
     Jacobian is); not a pivoted solver. As the JAX module: the local
-    3-column solve, an all_gather of six scalars a rank, the (2S, 2S)
-    interface system solved on every rank in float32."""
+    3-column solve (one ``tridiag3_chain`` launch, c <= 1024 on the card),
+    an all_gather of six scalars a rank, the (2S, 2S) interface system
+    solved on every rank in float32."""
     d_tot = num_shards
     if c < 2:
         raise ValueError("need at least 2 nodes per shard")
@@ -167,11 +171,8 @@ def make_distributed_tridiag_chain(c: int, num_shards: int, mesh: SlabMesh):
         raise ValueError(f"num_shards={num_shards} but the mesh has "
                          f"{mesh.world} ranks: one slab a rank")
     d = mesh.rank
+    first, last = d == 0, d == d_tot - 1
     dev = mesh.device
-    e_first = torch.zeros((c,), dtype=torch.float32, device=dev)
-    e_first[0] = 1.0
-    e_last = torch.zeros((c,), dtype=torch.float32, device=dev)
-    e_last[-1] = 1.0
     # the interface matrix's scatter: row 2e takes a0 u[0] at z_(e-1) and
     # cc w[0] at y_(e+1); row 2e+1 the same with u[-1], w[-1]
     rows, cols = [], []
@@ -181,28 +182,25 @@ def make_distributed_tridiag_chain(c: int, num_shards: int, mesh: SlabMesh):
         cols += [2 * left + 1, 2 * right, 2 * left + 1, 2 * right]
     rows_t = torch.tensor(rows, dtype=torch.int64, device=dev)
     cols_t = torch.tensor(cols, dtype=torch.int64, device=dev)
+    # per rank [a0 u0, cc w0, a0 u1, cc w1] of its six scalars
+    vals_t = torch.tensor([2, 4, 3, 5], dtype=torch.int64, device=dev)
     eye = torch.eye(2 * d_tot, dtype=torch.float32, device=dev)
 
     def solve(dl_own, d_own, du_own, f_own):
-        a0 = dl_own[0] * float(d != 0)  # the global end rows: no ghost
-        cc = du_own[-1] * float(d != d_tot - 1)
-        dl_in = dl_own.clone()
-        dl_in[0] = 0.0
-        du_in = du_own.clone()
-        du_in[-1] = 0.0
-        sols = solve_tridiag(dl_in, d_own, du_in,
-                             torch.stack([f_own, e_first, e_last], dim=-1))
-        xp, u, w = sols[:, 0], sols[:, 1], sols[:, 2]
-        g = mesh.all_gather(torch.stack([
-            xp[0], xp[-1], a0 * u[0], a0 * u[-1], cc * w[0], cc * w[-1],
-        ])).reshape(d_tot, 6)
-        vals = torch.stack([g[:, 2], g[:, 4], g[:, 3], g[:, 5]],
-                           dim=-1).reshape(-1)
-        m = eye.index_put((rows_t, cols_t), vals, accumulate=True)
-        t = torch.linalg.solve(m, torch.stack([g[:, 0], g[:, 1]],
-                                              dim=-1).reshape(-1))
-        z_left = t[2 * ((d - 1) % d_tot) + 1] * float(d != 0)
-        y_right = t[2 * ((d + 1) % d_tot)] * float(d != d_tot - 1)
-        return xp - (z_left * a0) * u - (y_right * cc) * w
+        x, g6 = cuda_newton.tridiag3_chain(dl_own, d_own, du_own, f_own,
+                                           first=first, last=last)
+        if d_tot == 1:  # no interface: the back substitution adds zeros
+            return x[0]
+        xp, u, w = x.unbind(0)
+        g = mesh.all_gather(g6).reshape(d_tot, 6)
+        m = eye.index_put((rows_t, cols_t), g[:, vals_t].reshape(-1),
+                          accumulate=True)
+        t = torch.linalg.solve_ex(m, g[:, :2].reshape(-1)).result
+        out = xp
+        if not first:  # z_left a0 u
+            out = out - (t[2 * (d - 1) + 1] * dl_own[0]) * u
+        if not last:  # y_right cc w
+            out = out - (t[2 * (d + 1)] * du_own[-1]) * w
+        return out
 
     return solve

@@ -14,6 +14,12 @@ a rank (``parallel.mesh.SlabMesh``):
   shortest way, until no particle is misrouted (``migrate``). Only bucket
   and slot overflow is dropped, and it is counted.
 
+The bounded engines (``domain_sheath``, ``domain_magnetized``) lay the
+slabs on a chain instead (``periodic=False``, JAX's
+``ring_perms(periodic=False)``): no message crosses the wrap link, the
+end ranks receive zero halos (the walls), and ``migrate`` routes toward
+the owner without wrapping.
+
 The explicit periodic cycle (PIC_L.py:762-768) is the carrier engine here
 (``make_step``); ``parallel.domain_implicit`` composes the same machinery
 with the CN-Picard engine.
@@ -134,30 +140,36 @@ def _check_mesh(cfg, mesh: SlabMesh) -> None:
 # ---------------------------------------------------------------------------
 
 
-def halo_extend(own: torch.Tensor, hw: int, mesh: SlabMesh) -> torch.Tensor:
+def halo_extend(own: torch.Tensor, hw: int, mesh: SlabMesh,
+                periodic: bool = True) -> torch.Tensor:
     """Extend a (c,) owned slab with hw halo nodes on the left and hw + 1
-    on the right from the ring neighbours: global nodes [lo - hw, lo + c
-    + hw], c + 2 hw + 1 of them."""
-    c = own.shape[0]
+    on the right from the neighbours: global nodes [lo - hw, lo + c
+    + hw], c + 2 hw + 1 of them. ``periodic=False``: the chain, whose end
+    ranks get zero halos (the walls). Leading dimensions ride along (the
+    slab is the last)."""
+    c = own.shape[-1]
     if hw + 1 > c:
         raise ValueError(f"halo width {hw} too large for {c}-cell slabs")
     from_left, from_right = mesh.ring_exchange(
-        own[-hw:] if hw > 0 else None, own[: hw + 1])
-    return torch.cat(([from_left] if hw > 0 else []) + [own, from_right])
+        own[..., -hw:] if hw > 0 else None, own[..., : hw + 1], periodic)
+    return torch.cat(([from_left] if hw > 0 else []) + [own, from_right],
+                     dim=-1)
 
 
-def halo_fold(ext: torch.Tensor, c: int, hw: int,
-              mesh: SlabMesh) -> torch.Tensor:
+def halo_fold(ext: torch.Tensor, c: int, hw: int, mesh: SlabMesh,
+              periodic: bool = True) -> torch.Tensor:
     """Fold an extended deposit (c + 2 hw + 1 nodes covering [lo - hw,
     lo + c + hw]) back onto the (c,) owned slab: the right halo goes to
     the right neighbour's first hw + 1 nodes, the left halo to the left
-    neighbour's last hw."""
-    own = ext[hw: hw + c].clone()
+    neighbour's last hw. ``periodic=False``: the chain (what an end rank
+    deposited past its wall is dropped, as JAX's chain perms drop it).
+    Leading dimensions ride along (the slab is the last)."""
+    own = ext[..., hw: hw + c].clone()
     from_left, from_right = mesh.ring_exchange(
-        ext[hw + c:], ext[:hw] if hw > 0 else None)
-    own[: hw + 1] += from_left
+        ext[..., hw + c:], ext[..., :hw] if hw > 0 else None, periodic)
+    own[..., : hw + 1] += from_left
     if hw > 0:
-        own[c - hw:] += from_right
+        own[..., c - hw:] += from_right
     return own
 
 
@@ -180,14 +192,18 @@ def _unpayload(msg: torch.Tensor, nfields: int):
 
 def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
             ng: int, cells_per_shard: int, num_shards: int, cap: int,
-            mesh: SlabMesh, count_mesh: SlabMesh | None = None):
+            mesh: SlabMesh, count_mesh: SlabMesh | None = None,
+            periodic: bool = True):
     """Route alive particles to the rank owning their slab.
 
     ``fields[0]`` is the position in global grid coordinates, wrapped to
     the periodic domain; every field is float32. Particles move one slab a
     round along the shortest way round the ring, round after round until
     every particle is on its owner, so a particle that crosses several
-    slabs in one step survives. A round
+    slabs in one step survives. ``periodic=False`` routes on a chain
+    (JAX's bounded route): toward the owner, right while it lies right
+    (dest > d), left while it lies left, and nothing crosses the wrap
+    link. A round
     packs a bucket of up to ``cap`` rows for each neighbour
     (``pack_rows``), exchanges the two with ``ring_exchange`` and fills
     the free slots with the arrivals in order (``place_rows``). Bucket
@@ -227,13 +243,20 @@ def migrate(fields: Sequence[torch.Tensor], alive: torch.Tensor, d: int, *,
         misrouted(fields[0], alive).reshape(1)))
     n_mig, n_drop, k = zero, zero.clone(), 0
     while n_rem > 0 and k < d_tot:
-        diff = torch.remainder(dest_of(fields[0]) - d, d_tot)
-        go_r = alive & (diff >= 1) & (diff <= d_tot // 2)
-        go_l = alive & (diff > d_tot // 2)
+        if periodic:
+            diff = torch.remainder(dest_of(fields[0]) - d, d_tot)
+            go_r = alive & (diff >= 1) & (diff <= d_tot // 2)
+            go_l = alive & (diff > d_tot // 2)
+        else:
+            dest = dest_of(fields[0])
+            go_r = alive & (dest > d)
+            go_l = alive & (dest < d)
         bufs_r, nv_r, ovf_r = pack_rows(go_r, fields, cap)
         bufs_l, nv_l, ovf_l = pack_rows(go_l, fields, cap)
+        # on the chain an end rank's empty bucket toward its wall is not
+        # sent, and a zero payload (no rows) arrives from the wall
         msg_l, msg_r = mesh.ring_exchange(_payload(bufs_r, nv_r),
-                                          _payload(bufs_l, nv_l))
+                                          _payload(bufs_l, nv_l), periodic)
         recv_r, n_r = _unpayload(msg_l, len(fields))  # moving right
         recv_l, n_l = _unpayload(msg_r, len(fields))  # moving left
         # senders leave; overflowed senders are the dropped ones

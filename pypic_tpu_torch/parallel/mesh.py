@@ -5,8 +5,10 @@ JAX's slab engines are ``shard_map`` programs over a one-axis device mesh;
 their collectives are ``ppermute`` around the ring, ``psum`` and
 ``all_gather``. Here each rank is one process holding one slab, and a
 ``SlabMesh`` carries the rank, the world size, the device and the process
-group, with the three operations the engines need: ``ring_exchange`` (the
-ring ``ppermute`` pair), ``all_reduce_sum`` (``psum``) and ``all_gather``.
+group, with the operations the engines need: ``ring_exchange`` (the
+ring ``ppermute`` pair; with ``periodic=False`` the same pair on a chain,
+zeros at its ends: the bounded engines' walls), ``all_reduce_sum``
+(``psum``) and ``all_gather``.
 
 Backends: NCCL when the tensors lie on the card (one rank a card: NCCL
 refuses two ranks on one device), gloo on the CPU. A run of two ranks on
@@ -116,33 +118,47 @@ class SlabMesh:
         return torch.empty(t.shape, dtype=t.dtype,
                            device="cpu" if self.staged else t.device)
 
-    def ring_exchange(self, to_right=None, to_left=None):
+    def ring_exchange(self, to_right=None, to_left=None, periodic=True):
         """Send ``to_right`` to rank + 1 and ``to_left`` to rank - 1 around
         the ring; return (from_left, from_right): what rank - 1 sent right
         and what rank + 1 sent left (None where nothing was sent). Every
         rank passes tensors of the same shapes. One rank: its own two
         tensors come back as they are (no copy: callers only read what
-        they receive)."""
+        they receive).
+
+        ``periodic=False``: a chain of slabs (JAX's
+        ``ring_perms(periodic=False)``). No message crosses the wrap link,
+        so rank 0 receives zeros from the left and rank S-1 zeros from the
+        right, the walls of a bounded domain; one rank receives zeros on
+        both sides (never its own tensors)."""
         if self.world == 1:
-            return to_right, to_left
+            if periodic:
+                return to_right, to_left
+            return tuple(None if t is None else torch.zeros_like(t)
+                         for t in (to_right, to_left))
+        first = not periodic and self.rank == 0
+        last = not periodic and self.rank == self.world - 1
         ops, recv = [], []
         # tags tell the two messages apart when both neighbours are one
         # rank (two ranks); NCCL matches them in the order posted
-        for t, peer, tag in ((to_right, self.rank + 1, 0),
-                             (to_left, self.rank - 1, 1)):
-            if t is not None:
+        for t, peer, tag, cut in ((to_right, self.rank + 1, 0, last),
+                                  (to_left, self.rank - 1, 1, first)):
+            if t is not None and not cut:
                 ops.append(dist.P2POp(dist.isend, self._host(t),
                                       self._peer(peer), self.group, tag))
-        for t, peer, tag in ((to_right, self.rank - 1, 0),
-                             (to_left, self.rank + 1, 1)):
-            buf = None if t is None else self._like(t)
+        for t, peer, tag, cut in ((to_right, self.rank - 1, 0, first),
+                                  (to_left, self.rank + 1, 1, last)):
+            buf = None if t is None or cut else self._like(t)
             if buf is not None:
                 ops.append(dist.P2POp(dist.irecv, buf, self._peer(peer),
                                       self.group, tag))
-            recv.append(buf)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return tuple(None if b is None else self._back(b) for b in recv)
+            recv.append((buf, t))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return tuple(self._back(b) if b is not None
+                     else None if t is None else torch.zeros_like(t)
+                     for b, t in recv)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over ranks (psum); ``t`` is untouched."""

@@ -22,10 +22,11 @@ Ported so far, with the same defaults:
   domain-decomposed over the slab mesh (``parallel.domain_implicit``)
 * ``domain_explicit`` — the explicit cycle on the same workload
   (``parallel.domain``)
+* ``pic_iead_dd``    — pic_iead slab-sharded over the ranks
+  (``parallel.domain_magnetized``)
 
 ``PRESETS`` maps their names to the functions above, in the JAX
 package's order, and ``get`` makes one by name, as in the JAX package.
-``pic_iead_dd`` comes with its engine (ROADMAP queue 1, item 17b).
 
 Every builder takes ``n`` and ``seed`` overrides, and ``device`` for the
 state's tensors: the current CUDA device unless it says otherwise (pass
@@ -402,6 +403,55 @@ def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
                   step_builder=lambda: dom.make_step(cfg, mesh))
 
 
+def pic_iead_dd(n_per_species: int = 1000, ng: int = 600, seed: int = 1,
+                shards: int | None = None, replicas: int | None = None,
+                device=None, mesh=None, **kw) -> Preset:
+    """pic_iead domain-decomposed over the ranks
+    (``parallel.domain_magnetized``), as ``pypic_tpu.presets`` builds it:
+    slab-sharded deposits and a Newton-Boltzmann solve that stays
+    slab-sharded through every iteration, walls on the end ranks,
+    rank-keyed re-activation (react_batch = max(512, n / 64)) with owner
+    migration (migrate_cap = max(1024, n / 16)), halo 2, unless ``kw``
+    says otherwise (other keys are ignored, as in JAX). ``shards``
+    defaults to the world size over ``replicas``; ``mesh`` to
+    ``make_mesh(device)``, or with ``replicas`` > 1 to
+    ``make_mesh2(shards, replicas, device)``. The load is pic_iead's (the
+    same numpy draws); the state is this rank's."""
+    from .parallel import domain_magnetized as dmag, make_mesh
+    from .parallel.mesh import Mesh2, make_mesh2
+
+    pre = pic_iead(n_per_species=n_per_species, ng=ng, seed=seed,
+                   device="cpu")
+    c1 = pre.config
+    r = int(replicas) if replicas else 1
+    root = mesh.world if isinstance(mesh, Mesh2) else mesh
+    root = root if root is not None else make_mesh(device=device)
+    n_dev = int(shards) if shards else max(1, root.world // r)
+    if r > 1 and not isinstance(mesh, Mesh2):
+        mesh = make_mesh2(n_dev, r, device=root.device)
+    elif mesh is None:
+        mesh = root
+    n_tot = pre.state.p.shape[0]
+    cfg = dmag.DomainMagnetizedConfig(
+        grid=c1.grid, dt=c1.dt, te=c1.te, b=c1.b, species_z=c1.species_z,
+        num_shards=n_dev, ionization=c1.ionization, reactivate="source",
+        source=c1.source,
+        react_batch=kw.get("react_batch", max(512, n_tot // 64)),
+        iead_energy_max=c1.iead_energy_max,
+        newton_tol=c1.newton_tol, newton_maxiter=c1.newton_maxiter,
+        halo=kw.get("halo", 2),
+        migrate_cap=kw.get("migrate_cap", max(1024, n_tot // 16)),
+        dp_axis_name="dp" if r > 1 else None, num_replicas=r,
+    )
+    st0 = pre.state
+    st = dmag.init_state(
+        st0.p.numpy() * c1.grid.dx, st0.v.numpy(), st0.m.numpy(),
+        st0.charge_state.numpy(), st0.p2c.numpy(), st0.species_idx.numpy(),
+        cfg, mesh, seed=seed, device=root.device)
+    return Preset("pic_iead_dd", dmag, cfg, st, dict(pre.meta, mesh=mesh),
+                  step_builder=lambda: dmag.make_step(cfg, mesh))
+
+
 PRESETS: Dict[str, Callable[..., Preset]] = {
     "landau_damping": landau_damping,
     "two_stream": two_stream,
@@ -414,6 +464,7 @@ PRESETS: Dict[str, Callable[..., Preset]] = {
     "dirichlet_neumann_test": dirichlet_neumann_test,
     "domain_implicit": domain_implicit,
     "domain_explicit": domain_explicit,
+    "pic_iead_dd": pic_iead_dd,
 }
 
 

@@ -32,6 +32,27 @@ steps). ``--save PATH`` writes the result
 with its per-step rows; ``--against PATH`` compares this run with a saved
 one of the same row on another number of ranks (four cards against one:
 the energy gaps step by step, the counts). It needs an NVIDIA GPU.
+
+The bounded slab engines (``parallel.domain_sheath``,
+``parallel.domain_magnetized``) on the same process group:
+
+    python -m pypic_tpu_torch.tools.domain --magnetized [--n-per-species N]
+        [--steps 200] [--replicas R]
+    python -m pypic_tpu_torch.tools.domain --sheath [--n N] [--ng 51]
+        [--steps 1200]
+
+``--magnetized`` runs ``presets.pic_iead_dd`` at the configs[3] row's
+width (n_per_species 166,666, n = 999,996, ng 600) for 200 steps and
+prints ms/step, pushes/s, the Newton iterations a step (mean, max), the
+launches and host syncs a step, n_dropped, the population invariant
+(n_active + wall losses constant) and phi_max over the floating
+potential (the last 100 steps, 0.6-1.4: tests/test_magnetized.py:
+333-338). ``--sheath`` runs the configs[2] row's physics (n = 1e6, ng 51,
+the extrapolated Picard start and Anderson(1) of ``tools/sheath.py``) on
+``parallel.domain_sheath`` for 1,200 steps and prints us/step, the Picard
+passes (mean, max), the host syncs a step and the wall drops in Te/e
+(-0.5 to -4: tests/test_sheath.py:41-57). ``slab_jobs`` runs either on
+the ranks of ``parallel.spawn`` (the tests' and the smoke's gloo ranks).
 """
 
 from __future__ import annotations
@@ -169,16 +190,21 @@ def _rank_job(mesh, load, engine: str, steps: int, overrides: dict):
                 launches={k: c for k, c in cuda_cic.LAUNCHES.items() if c})
 
 
-def drive(step, state, n: int, warmup: int, steps: int) -> tuple[dict, object]:
+def timed(step, state, steps: int, warmup: int = 0):
     """``warmup`` steps, then ``steps`` timed ones (host clock around work
     that ends in a synchronize), the host syncs counted by the sync debug
-    mode over them. Returns (results, final state)."""
+    mode over them. Returns (seconds, syncs, launches, final state,
+    stacked metrics); ``launches``: what each kernel's count rose by over
+    the timed steps (the counts are not reset)."""
+    from ..ops import cuda_cic
+
     dev = state.p.device
     if warmup:
         state, _ = run(step, state, warmup)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.synchronize(dev)
+    before = dict(cuda_cic.LAUNCHES)
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -193,6 +219,15 @@ def drive(step, state, n: int, warmup: int, steps: int) -> tuple[dict, object]:
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    launches = {k: c - before.get(k, 0) for k, c in cuda_cic.LAUNCHES.items()
+                if c != before.get(k, 0)}
+    return seconds, syncs, launches, state, m
+
+
+def drive(step, state, n: int, warmup: int, steps: int) -> tuple[dict, object]:
+    """``timed`` with the periodic rows' summary. Returns (results, final
+    state)."""
+    seconds, syncs, _, state, m = timed(step, state, steps, warmup)
     tot = (m.field_energy.double() + m.kinetic_energy.double()).cpu()
     res = dict(n=n, steps=steps, ms_per_step=seconds * 1e3 / steps,
                rows={k: v.cpu().tolist() for k, v in m._asdict().items()},
@@ -208,6 +243,150 @@ def drive(step, state, n: int, warmup: int, steps: int) -> tuple[dict, object]:
     return res, state
 
 
+MAG_N_PER_SPECIES = 166_666  # n = 999,996: bench.py's configs[3] row
+MAG_STEPS = 200
+SHEATH_N, SHEATH_NG, SHEATH_STEPS = 1_000_000, 51, 1200
+
+
+def magnetized_row(mesh, n_per_species: int = MAG_N_PER_SPECIES,
+                   replicas: int = 1, ng: int = 600, **kw):
+    """The ``pic_iead_dd`` preset on this rank: ``mesh`` is the world's
+    mesh, cut into slabs x ``replicas`` (``make_mesh2``) when replicas >
+    1."""
+    from .. import presets
+
+    return presets.pic_iead_dd(n_per_species=n_per_species, ng=ng,
+                               replicas=replicas, mesh=mesh,
+                               device=mesh.device, **kw)
+
+
+def sheath_row(mesh, n: int = SHEATH_N, ng: int = SHEATH_NG, **overrides):
+    """(cfg, this rank's DomainSheathState) of the configs[2] row's
+    physics (``tools/sheath.py``: density 1e19, dt 1e-12, dx 1e-5, Te = Ti
+    = 10 eV, the extrapolated Picard start and Anderson(1), the load of
+    seed 3) slab-sharded over the ranks of ``mesh``; ``overrides``
+    replace config fields."""
+    from .. import initialize
+    from ..parallel import domain_sheath
+    from . import sheath as srow
+
+    length = srow.DX * (ng - 1)
+    g = GridSpec(ng, length, "dirichlet-dirichlet")
+    cfg = domain_sheath.DomainSheathConfig(**{**dict(
+        grid=g, dt=srow.DT, p2c=length * srow.DENSITY / n,
+        kbte=K_BOLTZMANN * srow.TE, kbti=K_BOLTZMANN * srow.TI,
+        num_shards=mesh.world, picard_init="extrapolate",
+        picard_accel="anderson", migrate_cap=max(4096, n // 256)),
+        **overrides})
+    d = initialize.initialize_sheath(n, srow.DENSITY, 1.0, 0.0, g, srow.TE,
+                                     srow.TI, seed=3)
+    st = domain_sheath.init_state(d["x"], d["v"], d["q"], d["m"],
+                                  d["species"], cfg, mesh)
+    return cfg, st
+
+
+def timed_rows(step, state, steps: int, warmup: int = 0) -> dict:
+    """``timed`` with the bounded rows' summary: ms/step, syncs and
+    launches a step, the metric rows (scalars as lists; phi of the first
+    and the last step), the stacked metrics and the final state."""
+    seconds, syncs, launches, state, m = timed(step, state, steps, warmup)
+    rows = {k: v.cpu().tolist() for k, v in m._asdict().items()
+            if v.dim() == 1}
+    return dict(steps=steps, ms_per_step=seconds * 1e3 / steps,
+                host_syncs_per_step=syncs / steps,
+                launches_per_step={k: c / steps for k, c in launches.items()},
+                rows=rows, phi_first=m.phi[0].cpu().tolist(),
+                phi_last=m.phi[-1].cpu().tolist(), state=state,
+                metrics=m)
+
+
+def magnetized_summary(res: dict, phi_f: float) -> dict:
+    """The ``--magnetized`` row's numbers and its checks (a list of
+    problems): nothing dropped, n_active + wall losses constant, phi_max
+    over the floating potential in 0.6-1.4 over the last 100 steps."""
+    rows = res["rows"]
+    tot = [a + h for a, h in zip(rows["n_active"], rows["n_hit_wall"])]
+    tail = rows["phi_max"][-min(100, len(rows["phi_max"])):]
+    ratio = sum(tail) / len(tail) / phi_f
+    out = dict(newton_mean=sum(rows["newton_iters"]) / len(rows["newton_iters"]),
+               newton_max=max(rows["newton_iters"]),
+               n_dropped=sum(rows["n_dropped"]),
+               n_migrated=sum(rows["n_migrated"]),
+               population=[min(tot), max(tot)], phi_max_over_phi_f=ratio)
+    problems = []
+    if out["n_dropped"]:
+        problems.append(f"{out['n_dropped']} dropped")
+    if min(tot) != max(tot):
+        problems.append(f"n_active + wall losses in {out['population']}")
+    if not 0.6 < ratio < 1.4:
+        problems.append(f"phi_max / phi_f {ratio}")
+    return out, problems
+
+
+def sheath_summary(res: dict, n: int, maxiter: int) -> tuple:
+    """The ``--sheath`` row's numbers and checks: nothing dropped, the
+    population kept (n_active + losses = n), Picard within maxiter, the
+    wall drops (last 300 steps) in -4 to -0.5 Te/e."""
+    from . import sheath as srow
+
+    rows = res["rows"]
+    m = res["metrics"]
+    tot = [a + b + c for a, b, c in zip(rows["n_active"], rows["n_lost_left"],
+                                        rows["n_lost_right"])]
+    iters = rows["picard_iters"]
+    left, right = srow.wall_drops(m, min(300, len(iters)))
+    out = dict(picard_mean=sum(iters) / len(iters), picard_max=max(iters),
+               steps_at_maxiter=sum(k == maxiter for k in iters),
+               n_dropped=sum(rows["n_dropped"]),
+               n_migrated=sum(rows["n_migrated"]),
+               n_halo_clamped=sum(rows["n_halo_clamped"]),
+               population=[min(tot), max(tot)], wall_drop_left_te=left,
+               wall_drop_right_te=right)
+    problems = []
+    if out["n_dropped"]:
+        problems.append(f"{out['n_dropped']} dropped")
+    if min(tot) != n or max(tot) != n:
+        problems.append(f"n_active + losses in {out['population']}, n = {n}")
+    if out["picard_max"] > maxiter:
+        problems.append(f"Picard {out['picard_max']} > maxiter")
+    return out, problems
+
+
+def slab_jobs(mesh, jobs):
+    """Each job (engine, kwargs) on this rank (``parallel.spawn`` calls it
+    on every rank): 'magnetized' (``magnetized_row`` kwargs and
+    ``steps``) or 'sheath' (``sheath_row`` kwargs and ``steps``). Returns,
+    a job each, the timed rows (``timed_rows`` without the state), the
+    bytes the mesh staged a step and this rank's particle count."""
+    out = []
+    for engine, kw in jobs:
+        kw = dict(kw)
+        steps = kw.pop("steps")
+        if engine == "magnetized":
+            pre = magnetized_row(mesh, **kw)
+            step, st, root = pre.make_step(), pre.state, pre.meta["mesh"]
+        else:
+            cfg, st = sheath_row(mesh, **kw)
+            from ..parallel import domain_sheath
+
+            step, root = domain_sheath.make_step(cfg, mesh), mesh
+        staged = _staged(root)
+        res = timed_rows(step, st, steps)
+        res.pop("state")
+        res.pop("metrics")
+        res.update(staged_bytes_per_step=(_staged(root) - staged) / steps,
+                   capacity=int(st.p.shape[0]))
+        out.append(res)
+    return out
+
+
+def _staged(mesh) -> int:
+    """The bytes every mesh object of a rank has staged through the host
+    (a Mesh2's three, or one SlabMesh)."""
+    meshes = list(mesh) if isinstance(mesh, tuple) else [mesh]
+    return sum(m.staged_bytes for m in meshes)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--explicit", action="store_true",
@@ -215,7 +394,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--carried", action="store_true",
                     help="with --explicit: carried_rho='on' (bench.py "
                          "--carried)")
-    ap.add_argument("--n", type=int, default=N)
+    ap.add_argument("--magnetized", action="store_true",
+                    help="pic_iead_dd (parallel.domain_magnetized)")
+    ap.add_argument("--sheath", action="store_true",
+                    help="the configs[2] physics on parallel.domain_sheath")
+    ap.add_argument("--n-per-species", type=int, default=MAG_N_PER_SPECIES)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--ng", type=int, default=SHEATH_NG)
+    ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--warmup", type=int, default=WARMUP)
     ap.add_argument("--steps", type=int, default=STEPS)
     ap.add_argument("--save", metavar="PATH",
@@ -231,6 +417,9 @@ def main(argv=None) -> dict:
         raise SystemExit("needs an NVIDIA GPU")
     process_group()
     mesh = make_mesh()
+    if args.magnetized or args.sheath:
+        return bounded_main(args, mesh)
+    args.n = N if args.n is None else args.n
     if args.explicit:
         cfg, st = explicit_row(mesh, args.n, **(
             dict(carried_rho="on") if args.carried else {}))
@@ -253,6 +442,42 @@ def main(argv=None) -> dict:
         print(json.dumps({k: v for k, v in res.items() if k != "rows"}))
     dist.destroy_process_group()
     return res
+
+
+def bounded_main(args, mesh) -> dict:
+    """``--magnetized`` / ``--sheath``: the row on this rank, one JSON
+    line from rank 0; exits non-zero on a failed check."""
+    steps = args.steps if args.steps != STEPS else (
+        MAG_STEPS if args.magnetized else SHEATH_STEPS)
+    if args.magnetized:
+        pre = magnetized_row(mesh, args.n_per_species, args.replicas)
+        n = args.n_per_species * 6
+        res = timed_rows(pre.make_step(), pre.state, steps, args.warmup)
+        summary, problems = magnetized_summary(
+            res, pre.meta["floating_potential"])
+        row = "pic_iead_dd"
+    else:
+        n = args.n or SHEATH_N
+        cfg, st = sheath_row(mesh, n, args.ng)
+        from ..parallel import domain_sheath
+
+        res = timed_rows(domain_sheath.make_step(cfg, mesh), st, steps,
+                         args.warmup)
+        summary, problems = sheath_summary(res, n, cfg.maxiter)
+        row = "domain_sheath"
+    out = dict(row=row, device=torch.cuda.get_device_name(mesh.device),
+               ranks=mesh.world, n=n, steps=steps,
+               ms_per_step=res["ms_per_step"],
+               pushes_per_s=n * 1e3 / res["ms_per_step"],
+               host_syncs_per_step=res["host_syncs_per_step"],
+               launches_per_step=res["launches_per_step"], **summary,
+               problems=problems)
+    if mesh.rank == 0:
+        print(json.dumps(out))
+    dist.destroy_process_group()
+    if problems:
+        raise SystemExit(f"{row}: " + "; ".join(problems))
+    return out
 
 
 def compare(ref: dict, got: dict) -> dict:

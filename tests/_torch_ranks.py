@@ -18,7 +18,9 @@ from pypic_tpu_torch import checkpoint, interop
 from pypic_tpu_torch.engines import explicit, implicit, magnetized, sheath
 from pypic_tpu_torch.grid import GridSpec
 from pypic_tpu_torch.parallel import (dataparallel, distributed_poisson,
-                                      domain, domain_implicit, mesh as tmesh)
+                                      domain, domain_implicit,
+                                      domain_magnetized, domain_sheath,
+                                      mesh as tmesh)
 
 
 def batch(mesh, jobs):
@@ -26,25 +28,27 @@ def batch(mesh, jobs):
     return [getattr(mod, name)(mesh, **kw) for name, kw in jobs]
 
 
-def halo(mesh, own, ext, hw):
+def halo(mesh, own, ext, hw, periodic=True):
     """halo_extend of this rank's row of ``own`` (S, c) and halo_fold of
-    its row of ``ext`` (S, c + 2 hw + 1)."""
+    its row of ``ext`` (S, c + 2 hw + 1), on the ring or the chain."""
     r = mesh.rank
     c = own.shape[1]
-    got_ext = domain.halo_extend(torch.from_numpy(own[r].copy()), hw, mesh)
-    got_fold = domain.halo_fold(torch.from_numpy(ext[r].copy()), c, hw, mesh)
+    got_ext = domain.halo_extend(torch.from_numpy(own[r].copy()), hw, mesh,
+                                 periodic=periodic)
+    got_fold = domain.halo_fold(torch.from_numpy(ext[r].copy()), c, hw, mesh,
+                                periodic=periodic)
     return got_ext.numpy(), got_fold.numpy()
 
 
-def migrate(mesh, p, tags, alive, ng, cap):
+def migrate(mesh, p, tags, alive, ng, cap, periodic=True):
     """domain.migrate of this rank's rows of (S, n) positions, tags and
-    alive mask."""
+    alive mask, on the ring or the chain."""
     r = mesh.rank
     t = lambda a: torch.from_numpy(a[r].copy())  # noqa: E731
     (p2, t2), a2, n_mig, n_drop = domain.migrate(
         [t(p), t(tags)], t(alive), r, ng=ng,
         cells_per_shard=ng // mesh.world, num_shards=mesh.world, cap=cap,
-        mesh=mesh)
+        mesh=mesh, periodic=periodic)
     return p2.numpy(), t2.numpy(), a2.numpy(), int(n_mig), int(n_drop)
 
 
@@ -260,3 +264,112 @@ def dp_blocks(mesh, state):
     st = dataparallel.shard_state(whole, mesh)
     return (st.p.numpy(), st.e.numpy(),
             dataparallel.gather_state(st, mesh).p.numpy())
+
+
+def _t(a, mesh):
+    return torch.from_numpy(np.array(a, copy=True)).to(mesh.device)
+
+
+def _rows_phi(rows, phis, m):
+    _scalar_rows(rows, m)
+    phis.append(m.phi.cpu().numpy())
+
+
+def _sheath_cfg(grid, cfg):
+    return domain_sheath.DomainSheathConfig(GridSpec(*grid), **cfg)
+
+
+def _magnetized_cfg(grid, cfg):
+    cfg = dict(cfg)
+    if cfg.get("source") is not None:
+        cfg["source"] = magnetized.SourceSpec(**cfg["source"])
+    return domain_magnetized.DomainMagnetizedConfig(GridSpec(*grid), **cfg)
+
+
+def sheath_slab_steps(mesh, state, grid, cfg, n_steps, draws):
+    """``n_steps`` of ``domain_sheath`` from the JAX state ``state``
+    (numpy, JAX's global layout) on this rank, with JAX's draws:
+    ``draws[step][rank]`` {x, z (3, cap), u_therm, z_therm}. Returns the
+    scalar metric rows, each step's phi, this rank's state (numpy) after
+    the first step and at the end."""
+    cfg = _sheath_cfg(grid, cfg)
+    st = interop.domain_sheath_states_from_numpy(state, mesh.world,
+                                                 mesh.device)[mesh.rank]
+
+    def reinject(step, n):
+        d = draws[step][mesh.rank]
+        out = {"x": _t(d["x"], mesh),
+               "z": tuple(_t(z, mesh) for z in d["z"])}
+        if "u_therm" in d:
+            out.update(u_therm=_t(d["u_therm"], mesh),
+                       z_therm=tuple(_t(z, mesh) for z in d["z_therm"]))
+        return out
+
+    step = domain_sheath.make_step(cfg, mesh, reinject_draws=reinject)
+    rows, phis, first = {}, [], None
+    for i in range(n_steps):
+        st, m = step(st)
+        _rows_phi(rows, phis, m)
+        if i == 0:
+            first = interop.domain_sheath_states_to_numpy([st])
+    return rows, phis, first, interop.domain_sheath_states_to_numpy([st])
+
+
+def magnetized_slab_steps(mesh, state, grid, cfg, n_steps, tables, ions,
+                          replicas=1):
+    """``n_steps`` of ``domain_magnetized`` from the JAX state ``state``
+    (numpy) on this rank of a slabs x ``replicas`` mesh, with JAX's draws:
+    ``tables[step]`` the replicated re-activation table, ``ions[step]
+    [rank]`` the rank's ionization uniforms (or None). Returns the metric
+    rows, each step's phi, this rank's state after the first step and at
+    the end (numpy)."""
+    cfg = _magnetized_cfg(grid, cfg)
+    m = (tmesh.make_mesh2(mesh.world // replicas, replicas,
+                          device=mesh.device) if replicas > 1 else mesh)
+    st = interop.domain_magnetized_states_from_numpy(
+        state, cfg.num_shards, mesh.device, replicas)[mesh.rank]
+    hooks = {}
+    if tables is not None:
+        hooks["source_draws"] = lambda step, n: {
+            k: _t(v, mesh) for k, v in tables[step].items()}
+    if ions is not None:
+        hooks["ion_draws"] = lambda step, n: _t(ions[step][mesh.rank], mesh)
+    step = domain_magnetized.make_step(cfg, m, **hooks)
+    rows, phis, first = {}, [], None
+    for i in range(n_steps):
+        st, met = step(st)
+        _rows_phi(rows, phis, met)
+        if i == 0:
+            first = interop.domain_magnetized_states_to_numpy([st])
+    return rows, phis, first, interop.domain_magnetized_states_to_numpy([st])
+
+
+def slab_resume(mesh, engine, state, grid, cfg, path, k):
+    """The checkpoint round trip of a bounded slab engine on this rank
+    (its own Philox draws): k steps, a save (rank 0 writes JAX's global
+    layout), k more; then a load into the initial state and the same k
+    steps. Returns both final states (numpy, this rank's) and the
+    manifest's step."""
+    if engine == "sheath":
+        cfg = _sheath_cfg(grid, cfg)
+        st = interop.domain_sheath_states_from_numpy(
+            state, mesh.world, mesh.device)[mesh.rank]
+        step = domain_sheath.make_step(cfg, mesh)
+        join = interop.domain_sheath_states_to_numpy
+    else:
+        cfg = _magnetized_cfg(grid, cfg)
+        st = interop.domain_magnetized_states_from_numpy(
+            state, mesh.world, mesh.device)[mesh.rank]
+        step = domain_magnetized.make_step(cfg, mesh)
+        join = interop.domain_magnetized_states_to_numpy
+    template = st
+    for _ in range(k):
+        st, _m = step(st)
+    checkpoint.save(path, st, step=k, mesh=mesh)
+    a = st
+    for _ in range(k):
+        a, _m = step(a)
+    b, manifest = checkpoint.load(path, template, mesh=mesh)
+    for _ in range(k):
+        b, _m = step(b)
+    return join([a]), join([b]), manifest["step"]

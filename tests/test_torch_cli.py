@@ -204,14 +204,14 @@ def test_run_without_a_card_raises_naming_device(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "metrics.jsonl")
 
 
-def test_list_is_jax_list_less_pic_iead_dd(capsys):
+def test_list_is_jax_list(capsys):
+    """The port's ``list`` and presets are JAX's, in JAX's order."""
     tmain(["list"])
     port = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
     jmain(["list"])
     jax = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
-    assert port == [name for name in jax if name != "pic_iead_dd"]
-    assert list(presets.PRESETS) == [n for n in jpresets.PRESETS
-                                     if n != "pic_iead_dd"]
+    assert port == jax
+    assert list(presets.PRESETS) == list(jpresets.PRESETS)
 
 
 SMALL = {
@@ -227,6 +227,7 @@ SMALL = {
     "domain_implicit": ["--particles", "2000"],
     "domain_explicit": ["--particles", "2000", "--opt",
                         "field_solve=distributed"],
+    "pic_iead_dd": ["--opt", "n_per_species=30", "--opt", "ng=40"],
 }
 
 
@@ -316,6 +317,41 @@ def test_two_gloo_ranks_checkpoint_and_resume(tmp_path):
     rows = _rows(out)
     assert len(rows) == 10
     assert all(np.isfinite(r["field_energy"]) for r in rows)
+    assert rows[-1]["n_dropped"] == 0
+
+
+def test_pic_iead_dd_two_gloo_ranks_checkpoint_and_resume(tmp_path):
+    """``run pic_iead_dd --shards 2`` on two gloo ranks with checkpoints,
+    then ``--resume`` (JAX's tests/test_io.py:42-86 in the port's terms):
+    rank 0 alone writes the metrics, the checkpoints and the IEAD figure;
+    12 finite rows, nothing dropped; the step-12 checkpoint loads into the
+    JAX preset's state at shards=2; the resume runs 6 finite steps from
+    step 12."""
+    out = str(tmp_path / "plots")
+    argv = ["run", "pic_iead_dd", "--device", "cpu", "--shards", "2",
+            "--opt", "n_per_species=50", "--opt", "ng=64",
+            "--checkpoint-every", "6", "--outdir", out]
+    wrote = spawn.run(2, _torch_ranks.cli, argv + ["--steps", "12", "--clean",
+                                                   "--plot"],
+                      device="cpu", tmp_dir=str(tmp_path))
+    assert wrote[1] == [] and wrote[0]
+    for f in ("time.out", "metrics.npz", "metrics.jsonl"):
+        assert os.path.exists(os.path.join(out, f)), f
+    assert os.path.getsize(os.path.join(out, "iead.png")) > 1000
+    assert not os.path.exists(os.path.join(out, "bca_dashboard.png"))
+    rows = _rows(out)
+    assert len(rows) == 12 and rows[-1]["n_dropped"] == 0
+    assert all(np.isfinite(r["phi_max"]) for r in rows)
+    ck = os.path.join(out, "checkpoints", "state_0000000012.npz")
+    jpre = jpresets.pic_iead_dd(n_per_species=50, ng=64, shards=2)
+    jst, manifest = jckpt.load(ck, jpre.state)
+    assert manifest["step"] == 12 and int(np.asarray(jst.step)) == 12
+    wrote = spawn.run(2, _torch_ranks.cli, argv + ["--steps", "6",
+                                                   "--resume"],
+                      device="cpu", tmp_dir=str(tmp_path))
+    assert wrote[1] == []
+    rows = _rows(out)
+    assert len(rows) == 6 and all(np.isfinite(r["phi_max"]) for r in rows)
     assert rows[-1]["n_dropped"] == 0
 
 

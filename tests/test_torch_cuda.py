@@ -1548,3 +1548,62 @@ def test_hash_batch_kernel_matches_plain(cuda_device, seed, n, streams, offset):
     zr = cuda_rng.hash_normals_from_uniforms(ref)
     assert float((z.cpu() - zr).abs().max()) <= 2e-6 * float(zr.abs().max())
     assert cuda_cic.LAUNCHES["hash_batch"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 31, 33, 150, 600, 1024])
+@pytest.mark.parametrize("ends", [(True, True), (True, False), (False, True),
+                                  (False, False)])
+def test_tridiag3_chain_kernel_matches_plain(cuda_device, c, ends):
+    """tridiag3_chain (the slab Newton's local chain solve) against its
+    plain version on the same card tensors: the three columns and the six
+    interface scalars within 1e-5 of the largest |x| (the same PCR, the
+    products unfused), at the chain's ends and inside it; one launch a
+    call. Above 1,024 rows the card refuses, naming ROADMAP item 10."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(c)
+    d = (-2.0 - np.exp(rng.normal(0, 1.5, c)) * 20).astype(np.float32)
+    dl, du, f = (rng.normal(0, 1, c).astype(np.float32) for _ in range(3))
+    dl, d, du, f = (torch.from_numpy(a).to(cuda_device) for a in (dl, d, du, f))
+    first, last = ends
+    before = cuda_cic.LAUNCHES["tridiag3_chain"]
+    x, g6 = cuda_newton.tridiag3_chain(dl, d, du, f, first=first, last=last)
+    assert cuda_cic.LAUNCHES["tridiag3_chain"] == before + 1
+    xr, gr = cuda_newton.tridiag3_chain_plain(dl, d, du, f, first=first,
+                                              last=last)
+    scale = float(xr.abs().max())
+    assert float((x - xr).abs().max()) <= 1e-5 * scale
+    assert float((g6 - gr).abs().max()) <= 1e-5 * scale
+    big = torch.ones(1025, device=cuda_device)
+    with pytest.raises(ValueError, match="item 10"):
+        cuda_newton.tridiag3_chain(big, big, big, big, first=True, last=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.5])
+def test_sheath_reinject_rank_tag_matches_plain(cuda_device, gamma):
+    """The re-injection kernel at a slab rank's tag (counters (row, step,
+    j, 1 << 16), parallel.domain_sheath's rank 1) against its plain
+    version: positions bit-equal, velocities within 1e-6 of the largest;
+    a stream apart from tag 0's."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    n = 100_003
+    rng = np.random.default_rng(18)
+    p = rng.uniform(0, 50, n).astype(np.float32)
+    v = rng.normal(0, 1e5, (3, n)).astype(np.float32)
+    act = rng.choice(np.asarray([1.0, 0.0, -1.0], np.float32), n, p=[0.8, 0.1, 0.1])
+    sig = np.full(n, 3.1e4, np.float32)
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in (p, v[0], v[1], v[2], act, sig, 0.5 * sig)]
+    key, step, tag = (5, 6), 9, 1 << 16
+    got = cuda_rng.sheath_reinject(key, step, *arrs, cells=50.0, gamma=gamma,
+                                   tag=tag)
+    ref = cuda_rng.sheath_reinject_plain(key, step, *arrs, cells=50.0,
+                                         gamma=gamma, tag=tag)
+    assert torch.equal(got[0], ref[0])
+    for r, g in zip(ref[1:], got[1:]):
+        _rel_close(r, g, 1e-6)
+    zero = cuda_rng.sheath_reinject(key, step, *arrs, cells=50.0, gamma=gamma)
+    assert not torch.equal(zero[0], got[0])

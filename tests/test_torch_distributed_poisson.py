@@ -3,7 +3,10 @@ distributed_poisson``) against ``pypic_tpu``'s under ``shard_map``, on 4
 gloo ranks against 4 of conftest's CPU devices, and
 ``field_solve='distributed'`` in the explicit carrier against the
 replicated solve over the same 4 ranks (tests/test_domain.py:617-668,
-827-855, at their limits or tighter). One spawn carries every job.
+827-855, at their limits or tighter). One spawn carries every job. The
+chain solve (its local system the ``tridiag3_chain`` kernel's plain
+version on the CPU) also at 1 and 2 ranks, against JAX's chain at as
+many devices within 1e-5 of the largest |x|.
 """
 
 import jax
@@ -202,3 +205,68 @@ def test_one_rank_solve_needs_no_collective_and_checks_its_mesh():
         tdp.make_distributed_periodic_poisson(200, DX, 2, mesh)
     with pytest.raises(ValueError, match="divisible"):
         tdp.make_distributed_periodic_poisson(201, DX, 2, mesh)
+
+
+@pytest.fixture(scope="module")
+def chains_by_world(ranks, jax_chains, tmp_path_factory):
+    """{S: (the port's x, JAX's x) by (ng, kind)} at S = 1, 2 and 4 (the
+    4-rank solves are the ``ranks`` spawn's)."""
+    out = {4: {key: (ranks[1][key], jax_chains[key]) for key in jax_chains}}
+    for s in (1, 2):
+        jobs, keys = [], []
+        for ng in NGS:
+            fn = jax.jit(jax.shard_map(
+                make_distributed_tridiag_chain(ng // s, s, "slabs"),
+                mesh=make_mesh(s, axis="slabs"), in_specs=(P("slabs"),) * 4,
+                out_specs=P("slabs"), check_vma=False))
+            for kind, (dl, d, du, f) in _chain_systems(ng).items():
+                jobs.append(("tridiag_chain", dict(dl=dl, d=d, du=du, f=f)))
+                keys.append(((ng, kind), np.asarray(fn(*(
+                    jnp.asarray(a) for a in (dl, d, du, f))))))
+        got = spawn.run(s, _torch_ranks.batch, jobs, device="cpu",
+                        tmp_dir=tmp_path_factory.mktemp(f"chain{s}"))
+        out[s] = {key: (np.concatenate([rank[i] for rank in got]), ref)
+                  for i, (key, ref) in enumerate(keys)}
+    return out
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_tridiag_chain_matches_jax_at_every_world(chains_by_world, world):
+    """The chain solve (one tridiag3_chain plain solve a rank, the six
+    scalars gathered, the interface by ``solve_ex``) against JAX's
+    ``make_distributed_tridiag_chain`` at the same number of devices,
+    within 1e-5 of the largest |x|, on both systems and both grids; at one
+    rank the local solve alone."""
+    for (ng, kind), (got, ref) in chains_by_world[world].items():
+        err = np.abs(got - ref).max() / np.abs(ref).max()
+        assert err <= 1e-5, (ng, kind, err)
+
+
+def test_tridiag3_chain_plain_solves_its_three_columns():
+    """The kernel's plain version: xp, u and w solve the local system
+    with the slab couplings left out (against float64 numpy), and the six
+    interface scalars are [xp0, xp_last, a0 u0, a0 u_last, cc w0,
+    cc w_last], zero at the chain's ends."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(3)
+    c = 77
+    dl, du, f = (rng.normal(0, 1, c).astype(np.float32) for _ in range(3))
+    d = (4.0 + rng.normal(0, 1, c)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (dl, d, du, f)]
+    a = (np.diag(d.astype(np.float64)) + np.diag(dl[1:].astype(np.float64), -1)
+         + np.diag(du[:-1].astype(np.float64), 1))
+    rhs = np.zeros((c, 3))
+    rhs[:, 0], rhs[0, 1], rhs[-1, 2] = f, 1.0, 1.0
+    ref = np.linalg.solve(a, rhs).T
+    for first, last in ((True, True), (False, False), (True, False)):
+        x, g6 = cuda_newton.tridiag3_chain(*t, first=first, last=last)
+        assert np.abs(x.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+        a0 = 0.0 if first else dl[0]
+        cc = 0.0 if last else du[-1]
+        x = x.numpy()
+        want = [x[0, 0], x[0, -1], a0 * x[1, 0], a0 * x[1, -1], cc * x[2, 0],
+                cc * x[2, -1]]
+        np.testing.assert_allclose(g6.numpy(), want, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="c >= 2"):
+        cuda_newton.tridiag3_chain(*(a[:1] for a in t), first=True, last=True)

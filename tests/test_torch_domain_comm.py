@@ -1,9 +1,11 @@
 """The port's slab communication (``pypic_tpu_torch.parallel.domain``)
 against JAX's ``shard_map`` programs: ``halo_extend`` and ``halo_fold`` at
-1, 2 and 4 gloo ranks against 1, 2 and 4 of conftest's 8 CPU devices, and
-``migrate`` (a multi-hop route, tests/test_domain.py:267, and a bucket too
-small, whose drops are counted) at 2 and 4: slot for slot equal, counts
-exact. The ranks run ``tests/_torch_ranks.py`` in processes of their own
+1, 2 and 4 gloo ranks against 1, 2 and 4 of conftest's 8 CPU devices, on
+the ring and on the chain (JAX's ``ring_perms(periodic=False)``: zero
+halos at the ends, also at one rank), and ``migrate`` (a multi-hop route,
+tests/test_domain.py:267, and a bucket too small, whose drops are
+counted; the bounded route on the chain, three slabs a hop at a time with
+nothing wrapping) at 2 and 4: slot for slot equal, counts exact. The ranks run ``tests/_torch_ranks.py`` in processes of their own
 (``parallel.spawn``, ``file://`` rendezvous under tmp_path); one spawn a
 world size carries every check of that size.
 """
@@ -25,9 +27,9 @@ NG, HW = 64, 3
 CAP_MULTIHOP = 4
 
 
-def _jax_halo(s, own, ext):
+def _jax_halo(s, own, ext, periodic=True):
     c = NG // s
-    perm_r, perm_l = domain.ring_perms(s)
+    perm_r, perm_l = domain.ring_perms(s, periodic)
 
     def f(o, e):
         return (domain.halo_extend(o, HW, "slabs", perm_r, perm_l),
@@ -40,14 +42,14 @@ def _jax_halo(s, own, ext):
     return [np.asarray(o).reshape(s, -1) for o in out]
 
 
-def _jax_migrate(s, p, tags, alive, cap):
+def _jax_migrate(s, p, tags, alive, cap, periodic=True):
     c = NG // s
 
     def f(p, tags, alive):
         d = lax.axis_index("slabs")
         (p2, t2), alive2, n_mig, n_drop = domain.migrate(
             [p, tags], alive, d, ng=NG, cells_per_shard=c, num_shards=s,
-            cap=cap, ax="slabs")
+            cap=cap, ax="slabs", periodic=periodic)
         return p2, t2, alive2, n_mig, n_drop
 
     out = jax.shard_map(
@@ -114,6 +116,12 @@ def world(request, tmp_path_factory):
                               cap=ov[3]))]
     refs["multihop"] = _jax_migrate(s, *mh, CAP_MULTIHOP)
     refs["overflow"] = _jax_migrate(s, *ov)
+    # the chain: zero halos at its ends; the bounded route
+    jobs += [("halo", dict(own=own, ext=ext, hw=HW, periodic=False)),
+             ("migrate", dict(p=mh[0], tags=mh[1], alive=mh[2], ng=NG,
+                              cap=CAP_MULTIHOP, periodic=False))]
+    refs["chain_halo"] = _jax_halo(s, own, ext, periodic=False)
+    refs["chain_multihop"] = _jax_migrate(s, *mh, CAP_MULTIHOP, periodic=False)
     got = spawn.run(s, _torch_ranks.batch, jobs, device="cpu",
                     tmp_dir=tmp_path_factory.mktemp(f"ranks{s}"))
     return s, refs, got
@@ -153,6 +161,50 @@ def test_migrate_overflow_counted_matches_shard_map(world):
     assert (ref[4] > 0) == (s > 1)
     p, tags, alive, _ = _overflow_inputs(s)
     assert _joined(got, 2, 2).sum() == alive.sum() - ref[4]
+
+
+def test_chain_halo_extend_and_fold_match_shard_map(world):
+    """The chain's halos bit-equal to JAX's chain perms: the end ranks'
+    outer halos are zeros (one rank: both), and what an end rank
+    deposited past its wall is dropped."""
+    s, refs, got = world
+    ext_ref, fold_ref = refs["chain_halo"]
+    np.testing.assert_array_equal(_joined(got, 3, 0), ext_ref)
+    np.testing.assert_array_equal(_joined(got, 3, 1), fold_ref)
+    assert (ext_ref[0, :HW] == 0).all() and (ext_ref[-1, -(HW + 1):] == 0).all()
+    if s > 1:  # inside the chain the halos are the neighbours' nodes
+        own, _ = _halo_inputs(s, seed=s)
+        np.testing.assert_array_equal(ext_ref[1, :HW], own[0, -HW:])
+
+
+def test_chain_migrate_multihop_matches_shard_map(world):
+    """The bounded route (dest > d right, dest < d left; JAX's
+    domain.py:253-256): fields and counts equal to JAX's, every particle
+    on its owner, nothing crossing the wrap link; at 4 ranks the
+    particles of slab 3 bound for slab 0 travel three slabs (and slots
+    full in transit drop, counted, as in JAX)."""
+    s, refs, got = world
+    ref = refs["chain_multihop"]
+    for part in range(3):
+        np.testing.assert_array_equal(_joined(got, 4, part), ref[part])
+    assert all(rank[4][3:] == (ref[3], ref[4]) for rank in got)
+    c = NG // s
+    p2, alive2 = _joined(got, 4, 0), _joined(got, 4, 2)
+    owner = np.clip(np.floor(p2).astype(int), 0, NG - 1) // c
+    assert (owner == np.arange(s)[:, None])[alive2].all()
+    # slots full in transit drop (counted), as in JAX: nothing else is lost
+    assert alive2.sum() == p2.size - ref[4]
+    assert (ref[3] > 0) == (s > 1)
+
+
+def test_one_rank_chain_exchange_gives_zeros():
+    """One rank on a chain receives zeros on both sides, never its own
+    tensors (those would fold the right wall onto the left)."""
+    mesh = tmesh.make_mesh(device="cpu")
+    a, b = torch.arange(1.0, 4.0), torch.arange(1.0, 5.0)
+    fl, fr = mesh.ring_exchange(a, b, periodic=False)
+    assert torch.equal(fl, torch.zeros(3)) and torch.equal(fr, torch.zeros(4))
+    assert mesh.ring_exchange(None, b, periodic=False)[0] is None
 
 
 def test_one_rank_mesh_is_local():

@@ -592,8 +592,8 @@ def test_preset_and_interop_round_trip():
     assert sorted(presets.PRESETS) == ["bump_on_tail", "dirichlet_neumann_test",
                                        "domain_explicit", "domain_implicit",
                                        "explicit_landau", "landau_damping",
-                                       "pic_bca_aps", "pic_iead", "pic_iead_gc",
-                                       "sheath_dd", "two_stream"]
+                                       "pic_bca_aps", "pic_iead", "pic_iead_dd",
+                                       "pic_iead_gc", "sheath_dd", "two_stream"]
     with pytest.raises(KeyError):
         presets.get("nope")
 
