@@ -277,6 +277,31 @@ Phases (any failure raises and the script exits non-zero):
    sheath at ng 56, n = 1e5 (20 steps each): the ranks' rows equal, the
    first steps against one rank's (the sheath's step 0: field and kinetic
    energy, phi, Picard passes), migration and no drops.
+38. options — the options of the JAX package's that the earlier slices
+   left out (tools/options.py): the headline cell (n = 6104 * 16384,
+   2 + 10 steps from one state) with finalize_field 'mean2', 'map',
+   'aitken', picard_accel 'anderson2' and 'aitken' under
+   'converged-deposit' beside 'last' with Anderson(1): ms/step, 4
+   picard_iteration and 1 picard_finalize_nodep (picard_finalize) a step, the
+   host syncs a step no more than the plain option's; each at n = 20,000
+   on the card against the CPU (phase 4's limits); the configs[2] sheath
+   row (20 steps) with 'anderson2' and 'anderson4' beside 'anderson'
+   (Picard passes a step), and at n = 20,000 one step card against CPU,
+   both backends (phase 18's limits and floor-exit allowance); the
+   supersteps of configs[4] (n = 1e8) and the explicit carrier (n =
+   20,000; its carried_rho form at k = 1) on a one-rank NCCL group, and
+   both at n = 20,000 on two gloo
+   ranks on the card: superstep(k=1) against make_step, k = 2 against two
+   make_steps, nothing dropped or clamped, the step advanced by k, and
+   the finalize sweeps' raw mode (ng 0) launched and held against their
+   plain versions on the inputs the path gave them; cli run
+   domain_implicit --migrate-every 2 in a subprocess; the configs[3] row
+   with carried_deposit='on', react_batch 512 and the 'hash' sampler
+   under axis_name on one NCCL rank (against the run without) and on two
+   gloo ranks (the carried rho and n the same bits on both); and
+   deposit_method 'pallas' at the headline set-up, 'scatter' and
+   'matmul' at n = 1e6, ng 51 (the same bits twice, near the deposit
+   kernel, a raise naming ROADMAP item 10 at ng = 2,000).
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -4579,7 +4604,6 @@ def phase_cli(dev, card: str) -> dict:
     versions: equal counts."""
     import os
     import shutil
-    import socket
     import tempfile
 
     from pypic_tpu_torch import checkpoint, diagnostics, presets
@@ -4587,13 +4611,6 @@ def phase_cli(dev, card: str) -> dict:
     from pypic_tpu_torch.parallel import make_mesh
     from pypic_tpu_torch.parallel.distributed_poisson import (
         make_distributed_periodic_poisson)
-
-    def nccl_env():
-        with socket.socket() as sk:  # any free port on this host
-            sk.bind(("localhost", 0))
-            port = sk.getsockname()[1]
-        return {"PYPIC_COORDINATOR": f"localhost:{port}",
-                "PYPIC_NUM_PROCESSES": "1", "PYPIC_PROCESS_ID": "0"}
 
     # the figures need matplotlib and imageio, which a card's Python may
     # lack: then the runs leave out --plot and --gif (the figures are
@@ -4676,7 +4693,7 @@ def phase_cli(dev, card: str) -> dict:
             "domain_explicit", "--particles", str(n_dom), "--steps",
             str(CLI_STEPS["domain_explicit"]), "--opt",
             "field_solve=distributed"], d("dist"),
-            CLI_STEPS["domain_explicit"], env=nccl_env(), card=card)
+            CLI_STEPS["domain_explicit"], env=_one_rank_env(), card=card)
         if "distributed: process 0 of 1" not in dx_run["stderr"]:
             problems.append("domain_explicit: no one-rank process group")
         out["domain_explicit_distributed"] = dx_run
@@ -4686,11 +4703,11 @@ def phase_cli(dev, card: str) -> dict:
             str(di_steps), "--checkpoint-every", "10", "--clean"],
             d("dimp"), di_steps, files=CLI_TEXT + (
                 "checkpoints/state_0000000010.npz",
-                "checkpoints/state_0000000020.npz"), env=nccl_env(), card=card)
+                "checkpoints/state_0000000020.npz"), env=_one_rank_env(), card=card)
         di_res = _cli_run("domain_implicit --resume", [
             "domain_implicit", "--particles", str(n_dom), "--steps", "10",
             "--checkpoint-every", "10", "--resume"], d("dimp"), 10,
-            env=nccl_env(), card=card)
+            env=_one_rank_env(), card=card)
         if "resumed from step 20" not in di_res["stderr"]:
             problems.append("domain_implicit resume: no 'resumed from step 20'")
         template = presets.domain_implicit(n=n_dom, device=dev).state
@@ -5495,6 +5512,326 @@ def phase_slab_bounded(dev, shs: dict | None = None) -> dict:
     return res
 
 
+# phase 38, the options (tools/options.py)
+# the card against the CPU at n = 20,000 (phase 4's limits)
+OPT_CHECK_TOL = {"p (cells)": 2e-4, "v": 1e-5, "e": 1e-4, "j": 1e-4,
+                 "field_energy": 1e-5, "kinetic_energy": 1e-5}
+OPT_SHEATH_CHECK_N, OPT_SHEATH_CHECK_AT = 20_000, 10
+# superstep(k=1) against make_step on the card: float atomics, so the
+# step tolerances (phase 26's), not bits; k = 2 against two make_steps:
+# tests/test_domain.py:968-975's
+TOL_SUPER_K1 = {"field_energy": 1e-5, "kinetic_energy": 1e-5}
+TOL_SUPER_K2 = {"field_energy": 1e-4, "kinetic_energy": 1e-5}
+SUPER_COUNTS = ("n_alive", "n_dropped", "n_halo_clamped")
+
+
+def _one_rank_env() -> dict:
+    """The environment of a CLI subprocess that makes a one-rank process
+    group (NCCL on the card) on a free port."""
+    import socket
+
+    with socket.socket() as sk:  # any free port on this host
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    return {"PYPIC_COORDINATOR": f"localhost:{port}",
+            "PYPIC_NUM_PROCESSES": "1", "PYPIC_PROCESS_ID": "0"}
+
+
+def _super_problems(label: str, case: dict, k: int = 2) -> list:
+    """superstep(k=1) and superstep(k) against make_step: energies, the
+    counts, the step advance, nothing dropped or clamped, the raw-mode
+    finalize held against its plain version."""
+    problems = []
+    ref = case["make_step"]["rows"]
+    for key, tol in (("k1", TOL_SUPER_K1), (f"k{k}", TOL_SUPER_K2)):
+        got = case[key]
+        gaps = {f: _dp_gap(ref[f], got["rows"][f]) for f in tol}
+        raw = got["raw_check"]
+        log(f"[options] {label}, superstep {key}: {got['ms_per_step']:.4f} "
+            f"ms/step (make_step {case['make_step']['ms_per_step']:.4f}), host "
+            f"syncs a step {got['host_syncs_per_step']:.2f}, metrics "
+            f"{got['shape']}, gaps to make_step " + ", ".join(
+                f"{f} {v:.3e} (tol {tol[f]})" for f, v in gaps.items())
+            + f", raw-mode finalize launches {got['raw_launches']}"
+            + (f", against the plain version {raw}" if raw else ""))
+        problems += [f"{label} {key}: {f} gap {v}" for f, v in gaps.items()
+                     if not v <= tol[f]]
+        for f in SUPER_COUNTS:
+            if got["rows"][f] != ref[f]:
+                problems.append(f"{label} {key}: {f} {got['rows'][f]} != {ref[f]}")
+        if sum(got["rows"]["n_dropped"]) or sum(got["rows"]["n_halo_clamped"]):
+            problems.append(f"{label} {key}: dropped or clamped")
+        if got["step"] != case["make_step"]["step"] or not got["finite"]:
+            problems.append(f"{label} {key}: step {got['step']}, finite "
+                            f"{got['finite']}")
+        for name, errs in raw.items():
+            if not (errs["p"] <= TOL_DOM and errs["v"] <= TOL_DOM
+                    and errs["stats"] <= TOL_DOM
+                    and errs["clamped"][0] == errs["clamped"][1]
+                    and errs.get("j", 0.0) <= TOL_DOM):
+                problems.append(f"{label} {key}: raw-mode {name} {errs}")
+    return problems
+
+
+def phase_options(dev, card: str) -> dict:
+    """Phase 38 (module docstring): the options on the card."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.parallel import make_mesh, spawn
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import domain as drow
+    from pypic_tpu_torch.tools import options as opt
+
+    problems, res = [], {}
+    launches = collections.Counter()
+
+    # (a) the headline cell with each option, one initial state
+    head = opt.headline_options(dev)
+    base = head["last"]
+    for label, r in head.items():
+        launches.update(r.pop("launches"))
+        fin = ("picard_finalize" if label.endswith("converged-deposit")
+               else "picard_finalize_nodep")
+        want = {"picard_iteration": 4.0, fin: 1.0}
+        log(f"[options] headline, {label}: {r['ms_per_step']:.4f} ms/step "
+            f"('last' with Anderson(1) {base['ms_per_step']:.4f}), "
+            f"{r['pushes_per_s']:.4e} pushes/s, Picard {r['picard_iters']}, "
+            f"launches a step {r['launches_per_step']}, host syncs a step "
+            f"{r['host_syncs_per_step']:.2f}, total energy change "
+            f"{r['total_energy_rel_change']:+.4e} ({card})")
+        if r["launches_per_step"] != want or r["picard_iters"] != [4]:
+            problems.append(f"headline {label}: launches {r['launches_per_step']},"
+                            f" Picard {r['picard_iters']}")
+        if r["host_syncs_per_step"] > base["host_syncs_per_step"]:
+            problems.append(f"headline {label}: {r['host_syncs_per_step']} host "
+                            f"syncs a step > {base['host_syncs_per_step']}")
+        if not (r["finite"] and abs(r["total_energy_rel_change"]) < 1e-4):
+            problems.append(f"headline {label}: energy change "
+                            f"{r['total_energy_rel_change']}, finite {r['finite']}")
+    res["headline"] = head
+    for label, ((sc, mc), (sg, mg)) in opt.headline_check(dev).items():
+        errs = {
+            "p (cells)": seam_err(sc.p, sg.p.cpu(), NG),
+            "v": rel_err(sc.v, sg.v.cpu())[1],
+            "e": rel_err(sc.e, sg.e.cpu())[1],
+            "j": rel_err(sc.j, sg.j.cpu())[1],
+            "field_energy": rel_err(mc.field_energy, mg.field_energy.cpu())[1],
+            "kinetic_energy": rel_err(mc.kinetic_energy,
+                                      mg.kinetic_energy.cpu())[1]}
+        same = torch.equal(mc.picard_iters, mg.picard_iters.cpu())
+        log(f"[options] headline check, {label}, n = 20,000, 3 steps, GPU vs "
+            "CPU: " + ", ".join(f"{k} {v:.3e} (tol {OPT_CHECK_TOL[k]:.0e})"
+                                for k, v in errs.items())
+            + f"; Picard equal {same}")
+        problems += [f"headline check {label}: {k} {v}" for k, v in errs.items()
+                     if not v <= OPT_CHECK_TOL[k]]
+        if not same:
+            problems.append(f"headline check {label}: Picard differ")
+
+    # (b) the sheath row with Anderson(2) and Anderson(4)
+    sh = opt.sheath_options(dev)
+    for acc, r in sh.items():
+        launches.update(r.pop("launches"))
+        log(f"[options] sheath row, picard_accel {acc!r}: {r['ms_per_step']:.4f} "
+            f"ms/step, Picard passes a step {r['picard_mean']:.3f} (max "
+            f"{r['picard_max']}), host syncs a step {r['host_syncs_per_step']:.2f},"
+            f" launches a step {r['launches_per_step']}, lost a step "
+            f"{r['lost_per_step']:.1f} ({card})")
+        if not r["finite"] or r["lost_per_step"] <= 0:
+            problems.append(f"sheath {acc}: finite {r['finite']}, lost "
+                            f"{r['lost_per_step']}")
+    res["sheath"] = sh
+    pre = presets.sheath_dd(n=OPT_SHEATH_CHECK_N, device="cpu")
+    cfg0 = dataclasses.replace(pre.config, record_exit_after_step=0,
+                               picard_init="extrapolate", picard_accel="anderson")
+    st, _ = run(sheath.make_step(dataclasses.replace(cfg0, backend="fused")),
+                pre.state, OPT_SHEATH_CHECK_AT)
+    d = interop.sheath_state_to_numpy(st)
+    res["sheath_check"] = {}
+    for acc in ("anderson2", "anderson4"):
+        for backend in ("fused", "composed"):
+            cfg = dataclasses.replace(cfg0, picard_accel=acc, backend=backend)
+            step = sheath.make_step(cfg)
+            c = step(interop.sheath_state_from_numpy(d, "cpu"))
+            g = step(interop.sheath_state_from_numpy(d, dev))
+            errs = _sheath_step_errors(c, g)
+            ok, line = floor_exit_counts_agree(
+                c[1].picard_iters, float(c[1].picard_residual),
+                g[1].picard_iters, float(g[1].picard_residual), d["e"],
+                c[0].e, tol=cfg.tol, tol_floor=cfg.tol_floor)
+            same_act = torch.equal(c[0].active, g[0].active.cpu())
+            log(f"[options] sheath check, {acc}, {backend}, step "
+                f"{OPT_SHEATH_CHECK_AT} -> {OPT_SHEATH_CHECK_AT + 1}, GPU vs CPU: "
+                + ", ".join(f"{k} {v:.3e} (tol {TOL_SHEATH_STEP[k]:.0e})"
+                            for k, v in errs.items())
+                + f"; Picard (CPU, GPU) {line}; statuses "
+                f"{'equal' if same_act else 'DIFFER'}")
+            bad = {k: v for k, v in errs.items() if not v <= TOL_SHEATH_STEP[k]}
+            if bad or not ok or not same_act:
+                problems.append(f"sheath check {acc} {backend}: {bad}, {line}, "
+                                f"statuses equal {same_act}")
+            res["sheath_check"][f"{acc} {backend}"] = errs
+
+    # (c, e) one rank in a one-rank NCCL group: the supersteps and the
+    # carried row with and without axis_name
+    drow.process_group()
+    try:
+        mesh = make_mesh(device=dev)
+        if (mesh.world, mesh.backend) != (1, "nccl"):
+            raise AssertionError(f"expected a one-rank NCCL mesh, got {mesh}")
+        load = drow.host_load(opt.SUPER_N_SMALL)
+        cases = {
+            "configs[4], n = 1e8": opt.superstep_case(
+                mesh, "implicit", drow.N, opt.SUPER_STEPS, warm=opt.WARMUP),
+            "converged-deposit, n = 20,000": opt.superstep_case(
+                mesh, "implicit", opt.SUPER_N_SMALL, opt.SUPER_STEPS, load=load,
+                finalize="converged-deposit"),
+            "explicit carrier, n = 20,000": opt.superstep_case(
+                mesh, "explicit", opt.SUPER_N_SMALL, opt.SUPER_STEPS, load=load)}
+        for label, case in cases.items():
+            problems += _super_problems(f"one rank, {label}", case)
+            for key in ("make_step", "k1", "k2"):
+                launches.update(case[key].pop("launches"))
+        # the carried carrier takes k = 1 only (JAX's ValueError above it)
+        cc = opt.carried_carrier_k1(mesh)
+        gaps = {f: _dp_gap(cc["make_step"]["rows"][f], cc["k1"]["rows"][f])
+                for f in TOL_SUPER_K1}
+        log(f"[options] one rank, carried carrier, n = 20,000, superstep k1: "
+            f"{cc['k1']['ms_per_step']:.4f} ms/step (make_step "
+            f"{cc['make_step']['ms_per_step']:.4f}), launches "
+            f"{cc['k1']['launches']}, gaps to make_step " + ", ".join(
+                f"{f} {v:.3e} (tol {TOL_SUPER_K1[f]})" for f, v in gaps.items()))
+        problems += [f"carried carrier k1: {f} gap {v}" for f, v in gaps.items()
+                     if not v <= TOL_SUPER_K1[f]]
+        if (cc["k1"]["launches"] != cc["make_step"]["launches"]
+                or cc["k1"]["step"] != opt.SUPER_STEPS
+                or any(cc["k1"]["rows"]["n_halo_clamped"])):
+            problems.append(f"carried carrier k1: launches {cc['k1']['launches']}"
+                            f", step {cc['k1']['step']}")
+        for key in ("make_step", "k1"):
+            launches.update(cc[key]["launches"])
+        raw = {label: case["k2"]["raw_launches"] for label, case in cases.items()}
+        if (raw["configs[4], n = 1e8"]["picard_finalize_ext_nodep"] != 2
+                or raw["converged-deposit, n = 20,000"]["picard_finalize_ext"] != 2):
+            problems.append(f"raw-mode finalize launches {raw}")
+        res["superstep_one_rank"] = {
+            label: {key: {q: case[key][q] for q in (
+                "ms_per_step", "host_syncs_per_step", "launches_per_step",
+                "raw_launches", "raw_check")} for key in ("make_step", "k1", "k2")}
+            for label, case in cases.items()}
+        carried = {"axis": opt.carried_job(mesh),
+                   "one_device": opt.carried_job(mesh, axis=False)}
+    finally:
+        dist.destroy_process_group()
+    a, b = carried["axis"], carried["one_device"]
+    for r in (a, b):
+        launches.update(r.pop("launches"))
+    gap = _dp_gap(b["rows"]["phi_max"][:10], a["rows"]["phi_max"][:10])
+    act = max(abs(x - y) for x, y in zip(a["rows"]["n_active"],
+                                         b["rows"]["n_active"]))
+    log(f"[options] carried configs[3] row, one NCCL rank: n = {a['n']}, "
+        f"{a['steps']} steps: {a['ms_per_step']:.4f} ms/step with axis_name, "
+        f"{b['ms_per_step']:.4f} without; launches a step {a['launches_per_step']}"
+        f" ({b['launches_per_step']}), host syncs a step "
+        f"{a['host_syncs_per_step']:.2f} ({b['host_syncs_per_step']:.2f}); phi_max "
+        f"gap {gap:.3e} (tol {TOL_DP_PHI}), n_active gap {act}; sums {a['sums']} "
+        f"({b['sums']}) ({card})")
+    if (a["launches_per_step"] != b["launches_per_step"] or not gap <= TOL_DP_PHI
+            or act > DP_ACTIVE_GAP or a["host_syncs_per_step"]
+            or not (a["finite"] and b["finite"])):
+        problems.append(f"carried one rank: gap {gap}, n_active {act}, launches "
+                        f"{a['launches_per_step']} vs {b['launches_per_step']}")
+
+    # (c, e) two gloo ranks on the card, one spawn
+    jobs = [("implicit", dict(backend="fused")),
+            ("implicit", dict(backend="fused", finalize="converged-deposit")),
+            ("explicit", {})]
+    t0 = time.perf_counter()
+    two = spawn.run(2, opt.rank_jobs, jobs, device=dev)
+    res["two_ranks_spawn_s"] = time.perf_counter() - t0
+    for i, (engine, over) in enumerate(jobs):
+        label = f"two gloo ranks, {engine} {over}"
+        ranks = [r["superstep"][i] for r in two]
+        problems += _super_problems(label, ranks[0])
+        for key in ("make_step", "k1", "k2"):
+            if ranks[1][key]["rows"] != ranks[0][key]["rows"]:
+                problems.append(f"{label} {key}: the ranks' rows differ")
+        mig = ranks[0]["k2"]["rows"]["n_migrated"]
+        if mig[0::2] != [0] * (len(mig) // 2) or not sum(mig[1::2]):
+            problems.append(f"{label}: n_migrated {mig}")
+    ca = [r["carried"] for r in two]
+    same_rows = ca[0]["rows"] == ca[1]["rows"]
+    same_carry = bool(np.array_equal(ca[0]["carry"], ca[1]["carry"]))
+    gap = _dp_gap(a["rows"]["phi_max"][:10], ca[0]["rows"]["phi_max"][:10])
+    log(f"[options] carried configs[3] row, two gloo ranks on the card: "
+        f"{ca[0]['ms_per_step']:.4f} ms/step, host syncs a step "
+        f"{ca[0]['host_syncs_per_step']:.2f}; rows equal {same_rows}, carried "
+        f"rho and n the same bits on both ranks {same_carry}; phi_max against one "
+        f"rank {gap:.3e} (tol {TOL_DP_PHI}); carry_clamped summed "
+        f"{ca[0]['sums']['carry_clamped']} (one rank {a['sums']['carry_clamped']})")
+    if not (same_rows and same_carry and gap <= TOL_DP_PHI and ca[0]["finite"]):
+        problems.append(f"carried two ranks: rows equal {same_rows}, carry equal "
+                        f"{same_carry}, gap {gap}")
+    res["carried"] = dict(
+        one_rank={k: {q: r[q] for q in ("n", "steps", "ms_per_step",
+                                        "host_syncs_per_step", "sums")}
+                  for k, r in carried.items()},
+        two_ranks={q: ca[0][q] for q in ("ms_per_step", "host_syncs_per_step",
+                                         "sums")},
+        rows_equal=same_rows, carry_equal=same_carry)
+
+    # (d) the CLI's --migrate-every in a subprocess
+    tmp = tempfile.mkdtemp(prefix="pypic_opt_")
+    try:
+        out = os.path.join(tmp, "dimp")
+        cli = _cli_run("domain_implicit --migrate-every 2", [
+            "domain_implicit", "--particles", "1000000", "--steps", "6",
+            "--migrate-every", "2", "--checkpoint-every", "3"], out, 6,
+            files=CLI_TEXT + ("checkpoints/state_0000000004.npz",),
+            env=_one_rank_env(), card=card)
+        if "checkpoint cadence rounded up to 4" not in cli["stderr"]:
+            problems.append("cli --migrate-every: no cadence rounding line")
+        if any(r["n_dropped"] for r in cli["rows"]):
+            problems.append("cli --migrate-every: dropped")
+        res["cli"] = {k: cli[k] for k in ("wall_s", "run_s", "ms_per_step",
+                                          "pushes_per_s", "n", "steps")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) deposit_method
+    dm = opt.deposit_methods(dev)
+    launches.update(dm["pallas"]["launches"])
+    log(f"[options] deposit_method 'pallas', init_state at n = {N_HEADLINE}: "
+        f"launches {dm['pallas']['launches']}")
+    if dm["pallas"]["launches"] != {"deposit": 2} or not dm["pallas"]["finite"]:
+        problems.append(f"deposit_method pallas: {dm['pallas']}")
+    for method in ("scatter", "matmul"):
+        r = dm[method]
+        log(f"[options] deposit_method {method!r} at n = {r['n']}, ng {r['ng']}: "
+            f"the same bits twice {r['same_bits']}, against the deposit kernel "
+            f"{r['gap_to_deposit']:.3e} (tol {TOL_DEP}), at ng = 2,000: "
+            f"{r['raise_at_2000'][:90]!r}")
+        if not (r["same_bits"] and r["gap_to_deposit"] <= TOL_DEP
+                and "item 10" in r["raise_at_2000"]):
+            problems.append(f"deposit_method {method}: {r}")
+    res["deposit_method"] = {k: {q: v for q, v in r.items() if q != "launches"}
+                             for k, r in dm.items()}
+    res["launches"] = dict(launches)
+    log(f"[options] launches over the phase's paths: {res['launches']}")
+    if problems:
+        raise AssertionError("options: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -5547,6 +5884,7 @@ def main() -> int:
     cli = phase("cli", phase_cli, dev, card)
     dpp = phase("data parallel", phase_data_parallel, dev, card)
     slb = phase("slab bounded", phase_slab_bounded, dev, shs)
+    opt = phase("options", phase_options, dev, card)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -5607,6 +5945,9 @@ def main() -> int:
          # the pic_bca_aps path's launches (the bca slice's driver run)
          **({"launches_pic_bca_aps": bs[1]["launches"][kname]}
             if bs[1]["launches"].get(kname) else {}),
+         # phase 38's paths: the options (tools/options.py)
+         **({"launches_options": opt["launches"][kname]}
+            if opt["launches"].get(kname) else {}),
          "max_abs_err": records[kname]["max_abs_err"],
          "ms": records[kname]["ms"], "plain_ms": records[kname]["plain_ms"],
          "bound_ms": records[kname]["bound_ms"],
@@ -5735,6 +6076,7 @@ def main() -> int:
         "data_parallel": {k: v for k, v in dpp.items() if k != "hash_batch"},
         "slab_bounded": {k: v for k, v in slb.items()
                          if k not in ("tridiag3_chain", "launches")},
+        "options": opt,
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -30,8 +30,11 @@ Where it parts from the JAX CLI:
   (``checkpoint.save`` with the mesh). ``--replicas R`` composes R
   data-parallel replicas with the slabs of ``domain_implicit`` and
   ``pic_iead_dd`` (the slabs x replicas mesh,
-  ``parallel.mesh.make_mesh2``): the world is then shards x R ranks. ``--migrate-every`` above 1 (the superstep, ROADMAP
-  queue 1 item 18) exits naming its item.
+  ``parallel.mesh.make_mesh2``): the world is then shards x R ranks.
+  ``--migrate-every k`` (``domain_implicit``, ``domain_explicit``) runs
+  the migration-amortized superstep: one step call advances k steps,
+  ``--steps`` and the checkpoint and dump cadences round up to multiples
+  of k, and the metrics are written one row a step, as JAX's CLI does.
 
 The figures (``--plot``, ``--gif``) need matplotlib and imageio: without
 them those flags exit before the run, and ``viz`` is imported only for a
@@ -55,6 +58,8 @@ import numpy as np
 _DOMAIN_PRESETS = ("domain_implicit", "domain_explicit", "pic_iead_dd")
 # the presets that compose data-parallel replicas with their slabs
 _REPLICA_PRESETS = ("pic_iead_dd", "domain_implicit")
+# the presets that build the superstep (meta['steps_per_call'])
+_SUPERSTEP_PRESETS = ("domain_implicit", "domain_explicit")
 
 
 def _cmd_list(_args):
@@ -81,6 +86,8 @@ def _preset_kwargs(args) -> dict:
         pkw["shards"] = args.shards
     if args.replicas:
         pkw["replicas"] = args.replicas
+    if args.migrate_every > 1:
+        pkw["migrate_every"] = args.migrate_every
     for kv in args.opt or []:
         key, sep, val = kv.partition("=")
         if not sep or not key:
@@ -118,11 +125,7 @@ def _cmd_run(args):
     if args.replicas and args.preset not in _REPLICA_PRESETS:
         sys.exit(f"--replicas is not supported by preset {args.preset!r} "
                  f"({' and '.join(_REPLICA_PRESETS)} only)")
-    if args.migrate_every > 1:
-        if args.preset in _DOMAIN_PRESETS:
-            sys.exit(f"--migrate-every is not supported by preset "
-                     f"{args.preset!r}: the migration-amortized superstep is "
-                     "not ported yet (see ROADMAP.md queue 1, item 18)")
+    if args.migrate_every > 1 and args.preset not in _SUPERSTEP_PRESETS:
         sys.exit(f"--migrate-every is not supported by preset "
                  f"{args.preset!r} (domain presets only)")
     # env-gated multi-process bootstrap before any preset builds its mesh
@@ -154,6 +157,24 @@ def _cmd_run(args):
     except NotImplementedError as e:
         sys.exit(f"preset {args.preset!r}: {e}")
     mesh = preset.meta.get("mesh")
+    # migration-amortized supersteps: one step call advances spc steps and
+    # stacks a (spc,) axis on the metrics
+    spc = int(preset.meta.get("steps_per_call", 1))
+    if "migrate_every" in pkw and spc != pkw["migrate_every"]:
+        # a **kw preset would swallow the key silently, and the run would
+        # not be the superstep it was asked for
+        sys.exit(f"--migrate-every is not supported by preset "
+                 f"{args.preset!r} (domain presets only)")
+    if spc > 1:
+        n_calls = -(-args.steps // spc)
+        if n_calls * spc != args.steps:
+            say(f"steps rounded up to {n_calls * spc} "
+                f"(multiple of --migrate-every {spc})")
+        args.steps = n_calls
+        if args.plot_every:
+            say("plot-every unsupported with --migrate-every; keeping "
+                "full-cadence metrics")
+            args.plot_every = 0
     if world > 1 and mesh is None:
         sys.exit(f"preset {args.preset!r} runs on one rank; only the domain "
                  f"presets split over {world} ranks")
@@ -275,13 +296,25 @@ def _cmd_run(args):
     # steps, pygcpic.py:1627-1632; per-frame particle writes,
     # pygcpic.py:1440-1447)
     span_size = 0
-    if mgr is not None and args.steps > mgr.every:
-        span_size = mgr.every
+    if mgr is not None:
+        # cadences are in steps; spans count step calls (each one advances
+        # spc steps under --migrate-every)
+        ck_span = -(-mgr.every // spc)
+        if spc > 1 and mgr.every % spc:
+            say(f"checkpoint cadence rounded up to {ck_span * spc} "
+                f"(multiple of --migrate-every {spc})")
+        if args.steps > ck_span:
+            span_size = ck_span
     if args.dump_particles and args.dump_every:
-        if span_size and span_size != args.dump_every:
-            say(f"dump-every follows checkpoint chunking cadence ({span_size})")
-        elif not span_size and args.dump_every <= args.steps:
-            span_size = args.dump_every
+        dump_span = -(-args.dump_every // spc)
+        if spc > 1 and args.dump_every % spc:
+            say(f"dump cadence rounded up to {dump_span * spc} "
+                f"(multiple of --migrate-every {spc})")
+        if span_size and span_size != dump_span:
+            say("dump-every follows checkpoint chunking cadence "
+                f"({span_size * spc})")
+        elif not span_size and dump_span <= args.steps:
+            span_size = dump_span
 
     t0 = time.time()
     if span_size:
@@ -306,7 +339,7 @@ def _cmd_run(args):
             chunks.append(m)
             done += span
             if mgr is not None:
-                mgr.maybe_save(final, done)
+                mgr.maybe_save(final, done * spc)
             _dump_frame(final)
         metrics = type(chunks[0])(*(torch.cat(cols) for cols in zip(*chunks)))
     else:
@@ -320,13 +353,18 @@ def _cmd_run(args):
     if prof is not None:
         prof.stop()
     elapsed = time.time() - t0
+    if spc > 1:
+        # (calls, spc, ...) -> (steps, ...): one row a step, in order
+        metrics = type(metrics)(*(m.reshape((-1,) + tuple(m.shape[2:]))
+                                  for m in metrics))
     n = preset.state.p.shape[0] * world
-    say(f"{args.steps} steps x {n} particles in {elapsed:.1f}s "
-        f"({n * args.steps / elapsed:.3g} pushes/s)")
+    sim_steps = args.steps * spc
+    say(f"{sim_steps} steps x {n} particles in {elapsed:.1f}s "
+        f"({n * sim_steps / elapsed:.3g} pushes/s)")
 
     if mgr is not None:
         checkpoint.save(os.path.join(outdir, "checkpoints", "final.npz"),
-                        final, step=args.steps, mesh=mesh)
+                        final, step=sim_steps, mesh=mesh)
     # the run's one move to the host: metrics, and the final state where a
     # plot or the post-process reads it (joined over the ranks)
     mdict = {k: v.cpu().numpy() for k, v in metrics._asdict().items()}
@@ -477,8 +515,10 @@ def main(argv=None):
                          "axis (slabs x replicas ranks) for domain_implicit "
                          "and pic_iead_dd")
     rp.add_argument("--migrate-every", type=int, default=1,
-                    help="migration-amortized superstep of the domain "
-                         "presets; above 1 not ported yet (ROADMAP item 18)")
+                    help="domain_implicit, domain_explicit: amortize "
+                         "particle migration over this many micro-steps a "
+                         "superstep (the halo scales to cover the k-step "
+                         "excursion; --steps rounds up to a multiple)")
     rp.add_argument("--opt", action="append", metavar="KEY=VALUE",
                     help="extra preset keyword, repeatable (e.g. --opt "
                          "field_solve=distributed --opt carried_rho=on); "

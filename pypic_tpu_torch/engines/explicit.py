@@ -117,15 +117,6 @@ class ResidentMetrics(NamedTuple):
     current_bias: torch.Tensor
 
 
-def _check_ported(cfg: ExplicitConfig) -> None:
-    """Raise NotImplementedError for options not ported yet."""
-    if cfg.deposit_method != "auto":
-        raise NotImplementedError(
-            f"deposit_method={cfg.deposit_method!r} is not ported yet: see "
-            "ROADMAP.md queue 1, item 18, options measured negative or "
-            "gated off")
-
-
 def _field(rho, dx: float):
     """The field of rho: the FFT solve and the centered gradient."""
     return -grad_periodic(solve_periodic_neutralized(rho, dx), dx)
@@ -135,7 +126,7 @@ def _fields(p, q, cfg: ExplicitConfig):
     """rho of the positions and its field."""
     grid = cfg.grid
     w = torch.broadcast_to(q * (cfg.p2c / grid.dx), p.shape).contiguous()
-    rho = deposit(p, w, grid.ng, periodic=True)
+    rho = deposit(p, w, grid.ng, periodic=True, method=cfg.deposit_method)
     return rho, _field(rho, grid.dx).to(p.dtype)
 
 
@@ -155,7 +146,6 @@ def init_state(x, v, q, m, cfg: ExplicitConfig,
         raise TypeError(
             "init_state now takes the ExplicitConfig (it needs p2c for the "
             "initial charge deposit), not a bare GridSpec")
-    _check_ported(cfg)
     device = devices.resolve(device, like=x)
     grid = cfg.grid
     p = (torch.as_tensor(x, device=device).to(dtype)
@@ -171,7 +161,6 @@ def init_state(x, v, q, m, cfg: ExplicitConfig,
 def refresh_fields(state: ExplicitState, cfg: ExplicitConfig) -> ExplicitState:
     """Recompute the carried rho/e from state.p (restores the step
     invariant after the positions were replaced)."""
-    _check_ported(cfg)
     rho, e = _fields(state.p, state.q, cfg)
     return state.replace(rho=rho, e=e)
 
@@ -200,7 +189,6 @@ def make_step(cfg: ExplicitConfig, mesh=None):
     """Build the step: state -> (state, StepMetrics). ``mesh``: the rank's
     ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None is one
     rank)."""
-    _check_ported(cfg)
     ax = ParticleAxis(cfg.axis_name, mesh)
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
@@ -239,7 +227,8 @@ def make_step(cfg: ExplicitConfig, mesh=None):
                                    dt, dt_dx)
             p1 = torch.remainder(p1, ng)
             w_rho = torch.broadcast_to(state.q * (cfg.p2c * inv_dx), p1.shape)
-            rho1 = ax.sum(deposit(p1, w_rho.contiguous(), ng, periodic=True))
+            rho1 = ax.sum(deposit(p1, w_rho.contiguous(), ng, periodic=True,
+                                  method=cfg.deposit_method))
             e1 = _field(rho1, dx)
             kinetic = 0.5 * cfg.p2c * torch.sum(state.m * state.v * state.v)
             bias = torch.sum(torch.broadcast_to(state.q, state.p.shape)
@@ -285,7 +274,6 @@ def run_resident(cfg: ExplicitConfig, state: ExplicitState, steps: int,
         raise ValueError(
             f"steps and steps_per_call must be >= 1, got "
             f"{steps}/{steps_per_call}")
-    _check_ported(cfg)
     spc = min(int(steps_per_call), int(steps))
     full, rem = divmod(int(steps), spc)
     consts = resident_kwargs(state, cfg)

@@ -29,9 +29,13 @@ sum are summed over the ranks before they are used, so the Ampere advance,
 the residual and the exit test read the same bits on every rank and every
 rank runs the same passes. The tracer is rank 0's particle.
 
-Options that need modules or kernels not ported yet raise
-``NotImplementedError`` from ``make_step``, naming the ROADMAP item that
-brings them.
+``picard_accel`` 'anderson2' mixes over two histories (``ops.accel``),
+and ``finalize_field`` redirects the finalize sweep's field ('map': the
+last Picard map output; 'mean2': the mean of the last two; 'aitken': a
+Delta^2 extrapolation over the last three), as the JAX engine's do; the
+fused loop keeps those map outputs on the device and adds no host read.
+``deposit_method`` picks the standalone deposits' reduction
+(``ops.cic.deposit``).
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from .. import devices
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import cuda_cic
-from ..ops.accel import anderson_mix, damped_mix, mix_init
+from ..ops.accel import (anderson2_mix, anderson_mix, damped_mix,
+                         finalize_field, keep_history, mix_init)
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic, smooth_periodic
 from ..ops.poisson import solve_periodic_neutralized
@@ -156,7 +161,6 @@ def init_state(x, v, q, m, cfg: ImplicitConfig,
     otherwise; without a card, pass ``device='cpu'``. Positions are divided
     by dx in x's own precision, then cast to ``dtype``.
     """
-    _check_ported(cfg)
     grid = cfg.grid
     ng, dx = grid.ng, grid.dx
     device = devices.resolve(device, like=x)
@@ -165,8 +169,8 @@ def init_state(x, v, q, m, cfg: ImplicitConfig,
     q = torch.as_tensor(q, dtype=dtype, device=device)
     m = torch.as_tensor(m, dtype=dtype, device=device)
     w = torch.broadcast_to(q * (cfg.p2c / dx), p.shape).contiguous()
-    rho0 = deposit(p, w, ng, periodic=True)
-    j0 = deposit(p, w * v, ng, periodic=True)
+    rho0 = deposit(p, w, ng, periodic=True, method=cfg.deposit_method)
+    j0 = deposit(p, w * v, ng, periodic=True, method=cfg.deposit_method)
     phi0 = solve_periodic_neutralized(rho0, dx)
     phi0 = phi0 - torch.max(phi0)
     e0 = (-grad_periodic(phi0, dx)).to(dtype)
@@ -176,31 +180,10 @@ def init_state(x, v, q, m, cfg: ImplicitConfig,
     )
 
 
-def _check_ported(cfg: ImplicitConfig) -> None:
-    """Raise NotImplementedError for options whose modules or kernels are
-    not ported yet."""
-    todo = {
-        f"deposit_method={cfg.deposit_method!r}": (
-            cfg.deposit_method != "auto",
-            "item 18, options measured negative or gated off"),
-        f"finalize_field={cfg.finalize_field!r}": (
-            cfg.finalize_field != "last",
-            "item 18, options measured negative or gated off"),
-        "picard_accel='anderson2'": (
-            cfg.picard_accel == "anderson2",
-            "item 18, options measured negative or gated off"),
-    }
-    for what, (hit, item) in todo.items():
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
-
-
 def make_step(cfg: ImplicitConfig, mesh=None):
     """Build the implicit step: state -> (state, StepMetrics). ``mesh``:
     the rank's ``SlabMesh`` under ``cfg.axis_name`` (data parallel; None
     is one rank)."""
-    _check_ported(cfg)
     ax = ParticleAxis(cfg.axis_name, mesh)
     ng = cfg.grid.ng
     dx = cfg.grid.dx
@@ -211,6 +194,7 @@ def make_step(cfg: ImplicitConfig, mesh=None):
     tol = float(np.float32(cfg.tol))
     emit_v = cfg.finalize == "iterate"
     share = cfg.window_share == "shared"  # 'auto' is 'separate'
+    n_hist = keep_history(cfg.finalize_field, emit_v)
 
     def _smooth(f):
         return smooth_periodic(f) if cfg.smooth else f
@@ -228,8 +212,12 @@ def make_step(cfg: ImplicitConfig, mesh=None):
         return state.e
 
     def _mix(es, eh, k, aux):
+        # the field is whole on every rank under axis_name: the inner
+        # products need no sum over the ranks
         if cfg.picard_accel == "anderson":
             return anderson_mix(es, eh, k, aux)
+        if cfg.picard_accel == "anderson2":
+            return anderson2_mix(es, eh, k, aux)
         if cfg.picard_accel == "damped":
             return damped_mix(es, eh, k, aux)
         return eh, aux
@@ -299,6 +287,8 @@ def make_step(cfg: ImplicitConfig, mesh=None):
         r = torch.full((), math.inf, dtype=e0.dtype, device=dev)
         r_host, k = math.inf, 0
         aux = mix_init(e0, cfg.picard_accel)
+        # the last map outputs (eh_k, eh_{k-1}, ...), seeded with es0
+        hist = (es,) * n_hist
         while r_host > tol and k < cfg.maxiter:
             outs = sweep(_smooth(es), ps, p0, v0, ng, qm=qm_s, w=w_s, dt=dt,
                          dx=dx, emit_v=emit_v)
@@ -308,6 +298,8 @@ def make_step(cfg: ImplicitConfig, mesh=None):
             jh = ax.sum(outs[-1])
             e1, eh, r = _advance(e0, es, jh)
             es, aux = _mix(es, eh, k, aux)
+            if n_hist:
+                hist = (eh,) + hist[:-1]
             ps = outs[0]
             if emit_v:
                 v1 = outs[1]
@@ -315,11 +307,12 @@ def make_step(cfg: ImplicitConfig, mesh=None):
             if k < cfg.maxiter:
                 r_host = r.item()  # the one host sync of the pass
 
-        # the finalize sweeps gather smooth(es) with es AFTER the last mix,
-        # at the last ph
+        # the finalize sweeps gather smooth(ef) at the last ph: ef is es
+        # AFTER the last mix, or what finalize_field makes of the history
+        ef = finalize_field(es, hist, k, cfg.finalize_field)
         if cfg.finalize == "converged-deposit":
             p1, v1, j1 = cuda_cic.picard_finalize(
-                _smooth(es), ps, p0, v0, ng, qm=qm_s, w=w_s, dt=dt, dx=dx)
+                _smooth(ef), ps, p0, v0, ng, qm=qm_s, w=w_s, dt=dt, dx=dx)
             j1 = ax.sum(j1)
             current_bias = torch.mean(j1)
         else:
@@ -328,7 +321,7 @@ def make_step(cfg: ImplicitConfig, mesh=None):
                 p1 = _wrap(p0 + (0.5 * dt_dx) * (v0 + v1))
             else:
                 p1, v1 = cuda_cic.picard_finalize_nodep(
-                    _smooth(es), ps, p0, v0, ng, qm=qm_s, dt=dt, dx=dx)
+                    _smooth(ef), ps, p0, v0, ng, qm=qm_s, dt=dt, dx=dx)
             j1 = jh  # the half-step current that drove the Ampere advance
             # Exact grid mean of the skipped full-step deposit: periodic
             # CIC weights sum to 1, so mean(deposit(p1, w v1)) == w
@@ -364,9 +357,10 @@ def make_step(cfg: ImplicitConfig, mesh=None):
             # half-step quantities and the periodic wrap (pypic.py:267-279)
             ph = torch.remainder(0.5 * (p0 + p1), ng)
             jh = deposit(ph, (w * (0.5 * (v0 + v1))).contiguous(), ng,
-                         periodic=True)
+                         periodic=True, method=cfg.deposit_method)
             p1 = torch.remainder(p1, ng)
-            j1 = deposit(p1, (w * v1).contiguous(), ng, periodic=True)
+            j1 = deposit(p1, (w * v1).contiguous(), ng, periodic=True,
+                         method=cfg.deposit_method)
             jh, j1 = ax.sum_many([jh, j1])
             e1, eh, r = _advance(e0, es, jh)
             es, aux = _mix(es, eh, k, aux)
@@ -471,7 +465,6 @@ def run_resident(cfg: ImplicitConfig, state: ImplicitState, steps: int,
         raise ValueError(
             f"steps and steps_per_call must be >= 1, got "
             f"{steps}/{steps_per_call}")
-    _check_ported(cfg)
     spc = min(int(steps_per_call), int(steps))
     full, rem = divmod(int(steps), spc)
     consts = resident_kwargs(state, cfg)

@@ -119,10 +119,24 @@ takes the ranks' lost counts and minima the same way. With
 step's collectives stay on the device: on one rank they are the identity,
 and the step still makes no host sync.
 
-Options whose modules are not ported yet (the 'threefry' sampler, the
-carried paths under ``axis_name``, deposit_method) raise
-``NotImplementedError`` from ``init_state`` and ``make_step``, naming the
-ROADMAP item or the reason.
+The carried deposit under ``axis_name``: the carried rho and n are the
+global deposits, the same on every rank (``shard_state`` keeps them
+whole). Each rank's push kernel deposits its own rows, its ionization,
+escape and re-activation patches go on that partial deposit in its one
+``deposit2`` launch, and the partials are summed over the ranks in one
+collective a step (``ParticleAxis.sum_many``). The re-activation patch
+takes the shared ``react_batch`` table's rows at this rank's global slot
+ranks; the caps on ionization and escape patches (``carried_ion_cap``)
+count each rank's own rows, as JAX's ``compact_rows`` does inside
+``shard_map``; ``carry_clamped``, ``n_ion_suppressed`` and
+``n_escape_deferred`` are summed over the ranks.
+
+``deposit_method`` picks the standalone deposits' reduction
+(``ops.cic.deposit``: the composed route's, the IEAD's and the prime's);
+the fused kernels take no method, as in JAX.
+
+The 'threefry' sampler raises ``NotImplementedError`` from ``init_state``
+and ``make_step``, with the reason.
 """
 
 from __future__ import annotations
@@ -376,9 +390,6 @@ CHECKPOINT_MIGRATIONS = {
 }
 
 
-_ITEM_GATED = "see ROADMAP.md queue 1, item 18, options measured negative or gated off"
-
-
 def _check_ported(cfg: MagnetizedConfig) -> None:
     """Raise NotImplementedError for options whose modules are not ported
     yet."""
@@ -388,11 +399,6 @@ def _check_ported(cfg: MagnetizedConfig) -> None:
             "it draws jax.random's own streams, which the port does not "
             "reproduce; 'auto' and 'pallas' draw the Philox kernels', "
             "'hash' the counter-based sampler"),
-        "carried_deposit='on' under axis_name": (
-            cfg.carried_deposit == "on" and cfg.axis_name is not None,
-            _ITEM_GATED),
-        f"deposit_method={cfg.deposit_method!r}": (
-            cfg.deposit_method != "auto", _ITEM_GATED),
     }
     for what, (hit, why) in todo.items():
         if hit:
@@ -519,8 +525,10 @@ def prime_carry(state: MagnetizedState,
         is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
     w_n = torch.where(is_active, state.p2c / dx, 0.0)
     return state.replace(
-        rho=deposit(state.p, w_rho, ng, periodic=False).to(state.phi.dtype),
-        n=deposit(state.p, w_n, ng, periodic=False).to(state.phi.dtype))
+        rho=deposit(state.p, w_rho, ng, periodic=False,
+                    method=cfg.deposit_method).to(state.phi.dtype),
+        n=deposit(state.p, w_n, ng, periodic=False,
+                  method=cfg.deposit_method).to(state.phi.dtype))
 
 
 def make_inject(cfg: MagnetizedConfig):
@@ -639,14 +647,16 @@ def iead_traffic(species_idx, m, vdx, vdy, vdz, hit, *, bins, energy_max,
 
 
 def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
-                energy_max, angle_max, reduce=None):
+                energy_max, angle_max, reduce=None, method: str = "auto"):
     """Wall-impact energy-angle histogram update (``iead_traffic``): one
     width-0 deposit over every particle (``ops.cic.histogram_add``, the
     deposit kernel on the card). ``reduce`` sums the update over the
-    ranks (data parallel). Returns iead + the update."""
+    ranks (data parallel); ``method`` is ``histogram_add``'s. Returns
+    iead + the update."""
     flat, weight = iead_traffic(species_idx, m, vdx, vdy, vdz, hit, bins=bins,
                                 energy_max=energy_max, angle_max=angle_max)
-    upd = histogram_add(flat, weight.to(iead.dtype), iead.numel())
+    upd = histogram_add(flat, weight.to(iead.dtype), iead.numel(),
+                        method=method)
     if reduce is not None:
         upd = reduce(upd)
     return iead + upd.reshape(iead.shape)
@@ -905,8 +915,10 @@ def make_step(cfg: MagnetizedConfig,
                 rho, n_dens = cuda_cic.deposit2(state.p, w_rho, w_n, ng,
                                                 periodic=False)
             else:
-                rho = deposit(state.p, w_rho, ng, periodic=False)
-                n_dens = deposit(state.p, w_n, ng, periodic=False)
+                rho = deposit(state.p, w_rho, ng, periodic=False,
+                              method=cfg.deposit_method)
+                n_dens = deposit(state.p, w_n, ng, periodic=False,
+                                 method=cfg.deposit_method)
             rho, n_dens = ax.sum_many([rho, n_dens])
         eta = torch.exp(state.phi / te_volts)
         n0, p_old = boltzmann_n0_update(
@@ -987,7 +999,7 @@ def make_step(cfg: MagnetizedConfig,
                                vdz, mask, bins=cfg.iead_bins,
                                energy_max=cfg.iead_energy_max,
                                angle_max=cfg.iead_angle_max,
-                               reduce=ax.sum)
+                               reduce=ax.sum, method=cfg.deposit_method)
 
         iead = state.iead
         if cfg.iead_energy_max > 0.0:
@@ -1091,10 +1103,12 @@ def make_step(cfg: MagnetizedConfig,
                                  batch["vz"])
             rank = (compact_rows(inactive)
                     if cfg.react_batch or cfg.reactivate != "source" else None)
+            before = 0
             if rank is not None and ax.mesh is not None:
                 # the global slot rank: the blocks are contiguous, so the
                 # lower ranks' inactive slots come first
-                rank = rank + ax.before(torch.sum(inactive, dtype=torch.int32))
+                before = ax.before(torch.sum(inactive, dtype=torch.int32))
+                rank = rank + before
             if cfg.reactivate == "flux":
                 bvx = -torch.abs(bvx)  # pygcpic.py:2059
                 take = inactive & (rank < cfg.flux_limit)
@@ -1117,10 +1131,14 @@ def make_step(cfg: MagnetizedConfig,
                 # surplus inactive slots wait for the next step
                 take = take & (rank < cfg.react_batch)
                 if carried:
-                    # the taken ranks are [0, n_take): the patch is the
-                    # table's first n_take rows
-                    pmask = (torch.arange(n_draw, device=dev)
-                             < torch.sum(take, dtype=torch.int32))
+                    # the taken global ranks are [before, before + n_take):
+                    # the patch is the table's rows in that range (each
+                    # rank patches its own slice; the sum over the ranks
+                    # joins the disjoint slices)
+                    ridx = torch.arange(n_draw, device=dev)
+                    pmask = ((ridx >= before)
+                             & (ridx < before + torch.sum(take,
+                                                          dtype=torch.int32)))
                     patches.append((
                         bx, torch.where(pmask, float(src.charge_state)
                                         * E_CHARGE * float(src.p2c) / dx, 0.0),
@@ -1158,12 +1176,17 @@ def make_step(cfg: MagnetizedConfig,
 
         counts = [torch.sum(active == 1, dtype=torch.int32),
                   torch.sum(hit, dtype=torch.int32), n_ionized, n_react,
-                  n_escaped]
+                  n_escaped, carry_clamped, n_ion_suppressed,
+                  n_escape_deferred]
         if ax.mesh is not None:
             # the global ledger (the next step's n0 update reads it) and
             # counters
             added = ax.sum(added)
             counts = ax.sum(torch.stack(counts)).unbind(0)
+            if carried:
+                # the ranks' partial carries: the global deposits that open
+                # the next step, in one collective
+                rho_carry, n_carry = ax.sum_many([rho_carry, n_carry])
         metrics = StepMetrics(
             n0=n0,
             phi_max=torch.max(phi),
@@ -1179,9 +1202,9 @@ def make_step(cfg: MagnetizedConfig,
             impacts=impacts,
             n_impacts=n_impacts,
             n_escaped=counts[4],
-            carry_clamped=carry_clamped,
-            n_ion_suppressed=n_ion_suppressed,
-            n_escape_deferred=n_escape_deferred,
+            carry_clamped=counts[5],
+            n_ion_suppressed=counts[6],
+            n_escape_deferred=counts[7],
             escapes=escapes,
             n_escape_rows=n_escape_rows,
         )

@@ -64,8 +64,15 @@ their x1) until re-injection; the kinetic energy uses the raw u1 before
 the status masks it; a float64 state runs on the CPU, with the plain
 gather and deposit (the kernels take float32).
 
-Options the port cannot run yet raise ``NotImplementedError`` from
-``init_state`` and ``make_step``, naming their ROADMAP item.
+``picard_accel`` 'anderson', 'anderson2' and 'andersonM' (M > 2) mix the
+Picard iterate over 1, 2 or M histories (``ops.accel``; the (M, M) solve
+stays on the card), on both backends. ``deposit_method`` takes JAX's
+values; the engine's deposits sum in a fixed order whatever it says
+(``deposit_det``, which 'scatter' and 'matmul' pick anyway): the loop's
+floor exit reads the residual at round-off level.
+
+The 'threefry' sampler raises ``NotImplementedError`` from ``init_state``
+and ``make_step``, with the reason.
 """
 
 from __future__ import annotations
@@ -82,8 +89,9 @@ from ..constants import EPSILON_0
 from .. import sources
 from ..grid import GridSpec
 from ..ops import cuda_cic, cuda_rng, cuda_sheath
-from ..ops.accel import anderson_depth, anderson_mix, mix_init
-from ..ops.cic import gather
+from ..ops.accel import (anderson2_mix, anderson_depth, anderson_m_mix,
+                         anderson_mix, mix_init)
+from ..ops.cic import DEPOSIT_METHODS, gather
 from ..ops.fd import integrate_neg_trapz
 from ..parallel.dataparallel import ParticleAxis
 
@@ -116,7 +124,7 @@ class SheathConfig:
     exit_hist_vmax: float = 0.0  # [m/s]; 0 disables recording
     record_exit_after_step: int = 2000  # PIC_L_DD.py:497
     picard_init: str = "field"  # 'field' | 'extrapolate'
-    picard_accel: str = "none"  # 'none' | 'anderson'
+    picard_accel: str = "none"  # 'none' | 'anderson' | 'anderson2' | 'andersonM'
     rng_sampler: str = "auto"  # 'auto' | 'pallas' (Philox here)
     axis_name: Optional[str] = None
 
@@ -214,18 +222,15 @@ CHECKPOINT_MIGRATIONS = {
 # the hash sampler's four draws a step, in the order of their seeds
 HASH_STREAMS = ("therm_u", "therm_v", "reinj_x", "reinj_v")
 
-_ITEM_GATED = "see ROADMAP.md queue 1, item 18, options measured negative or gated off"
 _ITEM_F64 = "see ROADMAP.md queue 1, item 19, f64 particle state"
 
 
 def _check_ported(cfg: SheathConfig) -> None:
-    """Raise NotImplementedError for options whose modules or kernels are
-    not ported yet."""
+    """Raise NotImplementedError for the sampler the port does not
+    reproduce, and ValueError for an unknown deposit method."""
+    if cfg.deposit_method not in DEPOSIT_METHODS:
+        raise ValueError(f"unknown deposit method {cfg.deposit_method!r}")
     todo = {
-        f"picard_accel={cfg.picard_accel!r}": (
-            cfg.picard_accel not in ("none", "anderson"), _ITEM_GATED),
-        f"deposit_method={cfg.deposit_method!r}": (
-            cfg.deposit_method != "auto", _ITEM_GATED),
         "rng_sampler='threefry'": (
             cfg.rng_sampler == "threefry",
             "it draws jax.random's own streams, which the port does not "
@@ -344,9 +349,17 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
             return cfg.backend == "fused"
         return state.p.is_cuda and state.p.shape[0] >= 8192
 
+    accel_m = anderson_depth(cfg.picard_accel)
+
     def _mix(es, eh, k, aux):
+        # the field is whole on every rank under axis_name: the inner
+        # products need no sum over the ranks
+        if accel_m is not None:
+            return anderson_m_mix(es, eh, k, aux, accel_m)
         if cfg.picard_accel == "anderson":
             return anderson_mix(es, eh, k, aux)
+        if cfg.picard_accel == "anderson2":
+            return anderson2_mix(es, eh, k, aux)
         return eh, aux
 
     def _fold(j):

@@ -4,8 +4,16 @@
 The reference deposits with a sequential per-particle ``j[ind] += ...``
 loop (pypic.py:130-133). Here ``deposit`` and ``gather`` go through the
 CUDA kernels on a CUDA tensor and through their plain PyTorch versions on
-a CPU tensor (the dispatch lives in ``ops/cuda_cic.py``). The GPU deposit
-uses float atomics, so it is not bit-reproducible from run to run.
+a CPU tensor (the dispatch lives in ``ops/cuda_cic.py``).
+
+``deposit`` and ``histogram_add`` take JAX's ``method``. It picks how the
+sum is reduced, never the result's meaning: 'auto' and 'pallas' take the
+deposit kernel, whose float atomics do not give the same bits from run to
+run; 'scatter' and 'matmul', which JAX documents as bit-deterministic,
+take ``deposit_det`` (a fixed summation order: the same bits call after
+call). On the card ``deposit_det`` holds ng <= 1,816 and raises above it
+(the large-grid variant is ROADMAP item 10); it never changes route on
+its own.
 
 All positions are grid coordinates p = x/dx (see pypic_tpu_torch.grid).
 """
@@ -51,10 +59,21 @@ def gather(field: torch.Tensor, p: torch.Tensor, *, periodic: bool):
     return cuda_cic.gather(field, p, periodic=periodic)
 
 
+DEPOSIT_METHODS = ("auto", "scatter", "matmul", "pallas")
+
+
+def _deterministic(method: str) -> bool:
+    """Whether ``method`` asks for a fixed summation order."""
+    if method not in DEPOSIT_METHODS:
+        raise ValueError(f"unknown deposit method {method!r}")
+    return method in ("scatter", "matmul")
+
+
 def deposit(p: torch.Tensor, values: torch.Tensor, ng: int, *,
-            periodic: bool):
+            periodic: bool, method: str = "auto"):
     """CIC-deposit per-particle values onto ng grid nodes: the CUDA kernel
-    on a CUDA tensor, its plain version on the CPU (``cuda_cic.deposit``).
+    on a CUDA tensor, its plain version on the CPU (``cuda_cic.deposit``;
+    ``deposit_det`` for ``method`` 'scatter' and 'matmul').
 
     ``values`` must already include all physical prefactors (e.g.
     ``q * v * p2c / dx`` for current density, pypic.py:121) and be zero for
@@ -65,12 +84,16 @@ def deposit(p: torch.Tensor, values: torch.Tensor, ng: int, *,
         values: (n,) float32 deposit values.
         ng: number of field nodes.
         periodic: periodic node wrap vs bounded grid.
+        method: 'auto' | 'pallas' (the deposit kernel) | 'scatter' |
+            'matmul' (``deposit_det``).
 
     Returns:
         (ng,) deposited field.
     """
     from . import cuda_cic
 
+    if _deterministic(method):
+        return cuda_cic.deposit_det(p, values, ng, periodic=periodic)
     return cuda_cic.deposit(p, values, ng, periodic=periodic)
 
 
@@ -78,7 +101,8 @@ def deposit(p: torch.Tensor, values: torch.Tensor, ng: int, *,
 HISTOGRAM_COLS = 1
 
 
-def histogram_add(idx: torch.Tensor, values: torch.Tensor, nbins: int):
+def histogram_add(idx: torch.Tensor, values: torch.Tensor, nbins: int,
+                  method: str = "auto"):
     """Weighted histogram of integer bin indices, as a width-0 CIC deposit
     (with integer positions the right-node weight is identically zero).
 
@@ -91,9 +115,13 @@ def histogram_add(idx: torch.Tensor, values: torch.Tensor, nbins: int):
         idx: (n,) int bin indices, already clipped to [0, nbins - 1].
         values: (n,) weights (0 for masked-out rows).
         nbins: number of bins.
+        method: as ``deposit``'s.
     """
     from . import cuda_cic
 
-    return cuda_cic.deposit(idx.to(values.dtype), values, nbins, periodic=False,
+    pos = idx.to(values.dtype)
+    if _deterministic(method):
+        return cuda_cic.deposit_det(pos, values, nbins, periodic=False)
+    return cuda_cic.deposit(pos, values, nbins, periodic=False,
                             cols=HISTOGRAM_COLS)
 

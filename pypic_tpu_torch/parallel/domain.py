@@ -36,8 +36,12 @@ the new positions onto the halo-extended slab for the next step). With
 JAX: the ``gather`` kernel on the halo-extended slab field and a PyTorch
 leapfrog.
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
-``make_superstep`` / ``migrate_every > 1`` (item 18).
+``make_superstep(cfg, mesh, k)`` amortizes migration over k micro-steps
+(JAX's migration-amortized superstep): the positions ride raw (unwrapped)
+global coordinates between the micro-steps, so a slab keeps its particles
+across the periodic seam, and migrate runs once, after the last.
+``make_step`` and ``make_superstep`` are made by one function, so
+superstep(k=1) is the per-step path with a (1,) axis on its metrics.
 """
 
 from __future__ import annotations
@@ -114,19 +118,6 @@ class DomainConfig:
     @property
     def cells_per_shard(self) -> int:
         return self.grid.ng // self.num_shards
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: see ROADMAP.md queue 1, {item}")
-
-
-_ITEM18 = "item 18, options measured negative or gated off"
-
-
-def _check_ported(cfg: DomainConfig) -> None:
-    if cfg.deposit_method != "auto":
-        raise _not_ported(f"deposit_method={cfg.deposit_method!r}", _ITEM18)
 
 
 def _check_mesh(cfg, mesh: SlabMesh) -> None:
@@ -389,7 +380,6 @@ def init_state(x, v, q, m, cfg: DomainConfig, mesh: SlabMesh,
     """This rank's state: the particles of its slab out of the whole load
     (every rank is handed the same x [m] and v [m/s]), and its slab of the
     primed charge deposit. ``device`` defaults to the mesh's."""
-    _check_ported(cfg)
     _check_mesh(cfg, mesh)
     device = devices.resolve(device if device is not None else mesh.device)
     x = torch.as_tensor(x, device=device)
@@ -399,7 +389,8 @@ def init_state(x, v, q, m, cfg: DomainConfig, mesh: SlabMesh,
         x, cfg, capacity_factor, shards=[mesh.rank])
     w = float(np.float32(q) * np.float32(cfg.p2c / cfg.grid.dx))
     pw = torch.remainder(p.to(torch.float32), cfg.grid.ng)
-    rho = deposit(pw, torch.full_like(pw, w), cfg.grid.ng, periodic=True)
+    rho = deposit(pw, torch.full_like(pw, w), cfg.grid.ng, periodic=True,
+                  method=cfg.deposit_method)
     c = cfg.cells_per_shard
     return DomainState(
         p=p_out[0], v=v_out[0], alive=alive[0],
@@ -419,7 +410,7 @@ def prime_rho(state: DomainState, cfg: DomainConfig,
     ng, c = cfg.grid.ng, cfg.cells_per_shard
     w = float(np.float32(state.qm_host[0]) * np.float32(cfg.p2c / cfg.grid.dx))
     full = deposit(torch.remainder(state.p, ng), torch.where(state.alive, w, 0.0),
-                   ng, periodic=True)
+                   ng, periodic=True, method=cfg.deposit_method)
     full = mesh.all_reduce_sum(full)
     return state.replace(rho=full[mesh.rank * c:(mesh.rank + 1) * c].clone())
 
@@ -441,7 +432,37 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
     onto the extended slab; its halo fold is the next step's rho. Rows
     deposited past the halo are clamped and counted in
     ``n_halo_clamped``."""
-    _check_ported(cfg)
+    return _make_stepper(cfg, mesh, None)
+
+
+def make_superstep(cfg: DomainConfig, mesh: SlabMesh, migrate_every: int):
+    """The migration-amortized explicit superstep of this rank: run
+    ``migrate_every`` deposit-solve-push micro-steps back to back and
+    migrate once, after the last. Every metric gains a leading
+    (migrate_every,) axis; ``n_migrated``/``n_dropped`` land in the last
+    slot and ``n_alive`` there counts the survivors of migration;
+    ``state.step`` advances by ``migrate_every``.
+
+    Between micro-steps the positions ride raw (unwrapped) global
+    coordinates; the deposits cover [lo - halo, lo + c + halo] and fold
+    the halos to their owners, so an excursion within ``cfg.halo`` cells
+    is exact. Rows past it are clamped for the grid work and counted in
+    ``n_halo_clamped`` each micro-step: size ``halo >= migrate_every
+    v_max dt / dx``. The replicated solve gathers E from the global grid
+    at ``p mod ng`` (exact for any excursion); the distributed solve
+    gathers from the halo-extended slab field, clamped as the deposit.
+    The fused push and carried_rho='on' take k = 1 only (JAX's
+    ValueErrors)."""
+    k_mig = int(migrate_every)
+    if k_mig < 1:
+        raise ValueError(f"migrate_every must be >= 1, got {k_mig}")
+    return _make_stepper(cfg, mesh, k_mig)
+
+
+def _make_stepper(cfg: DomainConfig, mesh: SlabMesh, k_mig):
+    """Makes both steppers: ``k_mig`` None is the per-step path (0-d
+    metrics), k the k-micro-step superstep (stacked metrics). One
+    micro-step serves both, so superstep(k=1) is the per-step path."""
     _check_mesh(cfg, mesh)
     grid = cfg.grid
     ng, dx, dt = grid.ng, grid.dx, cfg.dt
@@ -452,10 +473,26 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
     ext_n = c + 2 * hw + 1
     d = mesh.rank
     distributed = cfg.field_solve == "distributed"
+    # only micro-steps after the first of a superstep of k >= 2 see
+    # positions off their owner: the per-step and k = 1 paths skip the
+    # clamp count and the gather's wrap
+    excursions = k_mig is not None and k_mig > 1
+    # the fused kernel gathers a periodic global field at wrapped
+    # positions and wraps in-kernel: the replicated per-step (or k = 1)
+    # case only
+    applies = not distributed and not excursions
+    if cfg.push_backend == "fused" and not applies:
+        raise ValueError(
+            "push_backend='fused' requires field_solve='replicated' and "
+            "per-step migration (make_step or make_superstep(k=1))")
     fuse = cfg.push_backend == "fused" or (
-        cfg.push_backend == "auto" and mesh.device.type == "cuda"
-        and not distributed)
+        cfg.push_backend == "auto" and mesh.device.type == "cuda" and applies)
     carried = cfg.carried_rho == "on"
+    if carried and excursions:
+        raise ValueError(
+            "carried_rho='on' composes with per-step migration only "
+            "(make_step or make_superstep(k=1)); superstep micro-steps "
+            "carry raw positions outside the cycle kernel's wrap contract")
     weights = slot_weights()
     if distributed:
         from .distributed_poisson import make_distributed_periodic_poisson
@@ -469,13 +506,65 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
         e_full = -grad_periodic(phi - torch.max(phi), dx)
         return e_full, torch.sum(e_full * e_full)
 
+    def micro(p, v, alive, w, qm, qm_t, lo):
+        """One deposit-solve-push micro-step from raw global positions p:
+        (p1, v1 (0 in dead slots), field energy sum, n_clamped). p1 is
+        wrapped only by the fused kernel."""
+        dev = alive.device
+        if excursions:
+            p_loc = p - lo
+            n_clamped = mesh.all_reduce_sum(
+                (alive & ((p_loc < -hw) | (p_loc > c + hw))).sum(
+                    dtype=torch.int32))
+        else:
+            n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
+        # clamp(p - lo, -hw, c + hw) + hw in one rounding (p - lo is exact
+        # near the slab). Dead slots are not moved to 0 first, as JAX
+        # does: their weight is 0, so they add exact zeros wherever they
+        # are
+        p_ext = torch.clamp(p - (lo - hw), 0.0, float(c + 2 * hw))
+        rho_ext = deposit(p_ext, w, ext_n, periodic=False,
+                          method=cfg.deposit_method)
+        rho_own = halo_fold(rho_ext, c, hw, mesh)
+        if distributed:
+            # the slab's own solve; E by a centered difference over a
+            # one-node halo of phi (E does not see the gauge), gathered
+            # from the slab field extended by the deposit's halo
+            phi_ext = halo_extend(dist_solve(rho_own), 1, mesh)
+            e_own = -(phi_ext[2:c + 2] - phi_ext[:c]) / (2.0 * dx)
+            e_energy = mesh.all_reduce_sum(torch.sum(e_own * e_own))
+            e_field, e_pos, periodic = halo_extend(e_own, hw, mesh), p_ext, False
+        else:
+            e_full, e_energy = solve(rho_own)
+            # the global gather is exact for any excursion: the wrap
+            # applies to the gather's coordinate only
+            e_field, periodic = e_full, True
+            e_pos = torch.remainder(p, ng) if excursions else p
+        if fuse:
+            # the kernel takes the wrapped position mod ng itself
+            p1, v1 = cuda_domain.leapfrog_gather_push(
+                e_full, p, v, qm=float(qm), dt=dt, dx=dx)
+        else:
+            e_p = torch.where(alive, gather(e_field, e_pos, periodic=periodic),
+                              0.0)
+            p1, v1 = leapfrog_push(p, v, e_p, qm_t, dt, dt_dx)
+        return p1, torch.where(alive, v1, 0.0), e_energy, n_clamped
+
+    def kinetic_of(state, alive, v):
+        return mesh.all_reduce_sum(
+            0.5 * cfg.p2c * state.m
+            * torch.sum(torch.where(alive, v * v, 0.0)))
+
     def step(state: DomainState):
         alive = state.alive
+        dev = alive.device
         q = np.float32(state.qm_host[0])
         qm = q / np.float32(state.qm_host[1])
         qm_t = state.q / state.m  # float32 on the device, as JAX's qm
         w = weights(alive, float(q * np.float32(cfg.p2c / dx)))
         lo = float(np.float32(d * c))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        rows = []  # the micro-steps' metrics but the migration counts
 
         if carried:
             # one sweep: the solve from the carried rho (deposited from
@@ -486,61 +575,47 @@ def make_step(cfg: DomainConfig, mesh: SlabMesh):
                 e_full, state.p, state.v, w, qm=float(qm), dt=dt, dx=dx,
                 lo_shifted=lo - hw, ext_n=ext_n)
             rho_next = halo_fold(rho_ext, c, hw, mesh)
-            n_clamped = mesh.all_reduce_sum(n_clamped)
+            v1 = torch.where(alive, v1, 0.0)
+            rows.append((e_energy, kinetic_of(state, alive, state.v),
+                         mesh.all_reduce_sum(n_clamped)))
         else:
-            # clamp(p - lo, -hw, c + hw) + hw in one rounding (p - lo is
-            # exact near the slab). Dead slots are not moved to 0 first,
-            # as JAX does: their weight is 0, so they add exact zeros
-            # wherever they are
-            p_ext = torch.clamp(state.p - (lo - hw), 0.0, float(c + 2 * hw))
-            rho_ext = deposit(p_ext, w, ext_n, periodic=False)
-            rho_own = halo_fold(rho_ext, c, hw, mesh)
             rho_next = state.rho
-            n_clamped = torch.zeros((), dtype=torch.int32, device=alive.device)
-            if distributed:
-                # the slab's own solve; E by a centered difference over a
-                # one-node halo of phi (E does not see the gauge), gathered
-                # from the slab field extended by the deposit's halo
-                phi_ext = halo_extend(dist_solve(rho_own), 1, mesh)
-                e_own = -(phi_ext[2:c + 2] - phi_ext[:c]) / (2.0 * dx)
-                e_energy = mesh.all_reduce_sum(torch.sum(e_own * e_own))
-                e_field, e_pos, periodic = halo_extend(e_own, hw, mesh), p_ext, False
-            else:
-                e_full, e_energy = solve(rho_own)
-                e_field, e_pos, periodic = e_full, state.p, True
-            if fuse:
-                # the kernel takes the wrapped position mod ng itself
-                p1, v1 = cuda_domain.leapfrog_gather_push(
-                    e_full, state.p, state.v, qm=float(qm), dt=dt, dx=dx)
-            else:
-                e_p = torch.where(
-                    alive, gather(e_field, e_pos, periodic=periodic), 0.0)
-                p1, v1 = leapfrog_push(state.p, state.v, e_p, qm_t, dt, dt_dx)
+            p1, v1 = state.p, state.v
+            for _ in range(k_mig or 1):
+                kinetic = kinetic_of(state, alive, v1)
+                p1, v1, e_energy, n_clamped = micro(p1, v1, alive, w, qm,
+                                                    qm_t, lo)
+                rows.append((e_energy, kinetic, n_clamped))
+            if not fuse:
                 p1 = torch.remainder(p1, ng)
-        v1 = torch.where(alive, v1, 0.0)
-        kinetic = mesh.all_reduce_sum(
-            0.5 * cfg.p2c * state.m
-            * torch.sum(torch.where(alive, state.v * state.v, 0.0)))
         p1 = torch.where(alive, p1, 0.0)
 
         (p2, v2), alive1, n_migrated, n_dropped = migrate(
             [p1, v1], alive, d, ng=ng, cells_per_shard=c, num_shards=d_tot,
             cap=cfg.migrate_cap, mesh=mesh)
-        metrics = StepMetrics(
-            field_energy=0.5 * EPSILON_0 * dx * e_energy,
-            kinetic_energy=kinetic,
-            n_alive=mesh.all_reduce_sum(torch.count_nonzero(alive1)),
-            n_migrated=n_migrated,
-            n_dropped=n_dropped,
-            n_halo_clamped=n_clamped,
-        )
+        n_alive1 = mesh.all_reduce_sum(torch.count_nonzero(alive1))
+        if k_mig is None:
+            (e_energy, kinetic, n_clamped), = rows
+            metrics = StepMetrics(
+                field_energy=0.5 * EPSILON_0 * dx * e_energy,
+                kinetic_energy=kinetic, n_alive=n_alive1,
+                n_migrated=n_migrated, n_dropped=n_dropped,
+                n_halo_clamped=n_clamped)
+        else:
+            k = len(rows)
+            n_alive0 = (mesh.all_reduce_sum(torch.count_nonzero(alive))
+                        if k > 1 else n_alive1)
+            last = torch.arange(k, device=dev) == k - 1
+            cols = list(zip(*rows))
+            metrics = StepMetrics(
+                field_energy=0.5 * EPSILON_0 * dx * torch.stack(cols[0]),
+                kinetic_energy=torch.stack(cols[1]),
+                n_alive=torch.where(last, n_alive1, n_alive0),
+                n_migrated=torch.where(last, n_migrated, zero),
+                n_dropped=torch.where(last, n_dropped, zero),
+                n_halo_clamped=torch.stack(cols[2]))
         new_state = state.replace(p=p2, v=v2, alive=alive1, rho=rho_next,
-                                  step=state.step + 1)
+                                  step=state.step + (k_mig or 1))
         return new_state, metrics
 
     return step
-
-
-def make_superstep(cfg: DomainConfig, mesh: SlabMesh, migrate_every: int):
-    """Not ported yet: the migration-amortized superstep (item 18)."""
-    raise _not_ported("make_superstep (migrate_every > 1)", _ITEM18)

@@ -47,9 +47,23 @@ whole mesh, so every rank runs the same rounds. ``make_step`` and
 ``init_state`` take the rank's ``Mesh2`` (or a one-axis ``SlabMesh`` at
 R = 1).
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
-``make_superstep``, ``finalize_field != 'last'``,
-``picard_accel='anderson2'`` (item 18).
+``picard_accel`` 'anderson'/'anderson2' sum their inner products over
+the slabs (``ops.accel``'s ``reduce``), so mixing the slabs equals mixing
+the global field; ``finalize_field`` ('map', 'mean2', 'aitken') redirects
+the fused finalize sweep, the aitken inner products summed over the
+slabs too (the composed backend has no finalize sweep and refuses it, as
+JAX's does). The replicas of a slab hold equal fields: nothing sums over
+them.
+
+``make_superstep(cfg, mesh, k)`` (JAX's migration-amortized superstep)
+runs k CN-Picard micro-steps and wraps and migrates once, after the last.
+The fused micro-steps carry raw positions in shifted slab coordinates:
+the finalize of a micro-step before the last runs its kernel with
+``lo_shift`` 0 and ``ng`` 0 (the position kept raw, the statistics
+accumulated), the last with ``lo - hw`` and ``ng`` (the global wrap). The
+composed micro-steps carry local coordinates and wrap outside. One
+function makes ``make_step`` and ``make_superstep``: superstep(k=1) is the
+per-step path with a (1,) axis on its metrics.
 """
 
 from __future__ import annotations
@@ -65,11 +79,12 @@ from .. import devices
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import cuda_domain
-from ..ops.accel import anderson_mix, damped_mix, mix_init
+from ..ops.accel import (anderson2_mix, anderson_mix, damped_mix,
+                         finalize_field, keep_history, mix_init)
 from ..ops.cic import deposit, gather
 from ..ops.fd import grad_periodic
 from ..ops.poisson import solve_periodic_neutralized
-from .domain import (_ITEM18, _check_mesh, _not_ported, distribute_by_slab,
+from .domain import (_check_mesh, distribute_by_slab,
                      halo_extend, halo_fold, migrate, slot_weights)
 from .mesh import Mesh2, SlabMesh
 
@@ -199,19 +214,6 @@ class StepMetrics(NamedTuple):
     picard_clamped: torch.Tensor
 
 
-def _check_ported(cfg: DomainImplicitConfig) -> None:
-    todo = {
-        f"finalize_field={cfg.finalize_field!r}": (
-            cfg.finalize_field != "last", _ITEM18),
-        "picard_accel='anderson2'": (cfg.picard_accel == "anderson2", _ITEM18),
-        f"deposit_method={cfg.deposit_method!r}": (
-            cfg.deposit_method != "auto", _ITEM18),
-    }
-    for what, (hit, item) in todo.items():
-        if hit:
-            raise _not_ported(what, item)
-
-
 def _meshes(cfg: DomainImplicitConfig, mesh) -> Mesh2:
     """(slabs, replicas, world) of a rank's mesh: a ``Mesh2``, or a
     one-axis ``SlabMesh`` at num_replicas 1, checked against the config."""
@@ -249,7 +251,6 @@ def init_state(x, v, q, m, cfg: DomainImplicitConfig, mesh,
     whole load x [m], v [m/s] and computes them alike), then the rank's
     particles (with replicas, its replica's columns of its slab's rows)
     and field slabs. ``device`` defaults to the mesh's."""
-    _check_ported(cfg)
     m2 = _meshes(cfg, mesh)
     mesh = m2.slabs
     device = devices.resolve(device if device is not None else mesh.device)
@@ -259,8 +260,10 @@ def init_state(x, v, q, m, cfg: DomainImplicitConfig, mesh,
     p_glob = (x / dx).to(torch.float32)
     v_glob = torch.as_tensor(v, device=device).to(torch.float32)
     w = float(np.float32(float(q) * (cfg.p2c / dx)))
-    rho0 = deposit(p_glob, torch.full_like(p_glob, w), ng, periodic=True)
-    j0 = deposit(p_glob, w * v_glob, ng, periodic=True)
+    rho0 = deposit(p_glob, torch.full_like(p_glob, w), ng, periodic=True,
+                   method=cfg.deposit_method)
+    j0 = deposit(p_glob, w * v_glob, ng, periodic=True,
+                 method=cfg.deposit_method)
     phi0 = solve_periodic_neutralized(rho0, dx)
     phi0 = phi0 - torch.max(phi0)
     e0 = (-grad_periodic(phi0, dx)).to(torch.float32)
@@ -289,7 +292,30 @@ def make_step(cfg: DomainImplicitConfig, mesh):
     """The per-step-migration stepper of this rank: state -> (state,
     StepMetrics). ``mesh``: the rank's ``SlabMesh``, or its ``Mesh2``
     (slabs x replicas)."""
-    _check_ported(cfg)
+    return _make_stepper(cfg, mesh, None)
+
+
+def make_superstep(cfg: DomainImplicitConfig, mesh, migrate_every: int):
+    """The migration-amortized superstep of this rank: ``migrate_every``
+    CN-Picard micro-steps back to back, then one wrap and one migration.
+    Every metric gains a leading (migrate_every,) axis, one row a
+    micro-step; ``n_migrated``/``n_dropped`` land in the last slot and
+    ``n_alive`` there counts the survivors of migration; ``state.step``
+    advances by ``migrate_every``.
+
+    The extended-slab gathers and deposits are exact for any excursion
+    within ``cfg.halo`` cells of the slab; rows past it are clamped for
+    the grid work and counted in ``n_halo_clamped`` each micro-step: size
+    ``halo >= migrate_every v_max dt / dx``."""
+    k_mig = int(migrate_every)
+    if k_mig < 1:
+        raise ValueError(f"migrate_every must be >= 1, got {k_mig}")
+    return _make_stepper(cfg, mesh, k_mig)
+
+
+def _make_stepper(cfg: DomainImplicitConfig, mesh, k_mig):
+    """Makes both steppers: ``k_mig`` None is the per-step path (0-d
+    metrics), k the k-micro-step superstep (stacked metrics)."""
     m2 = _meshes(cfg, mesh)
     mesh = m2.slabs
     ng, dx, dt = cfg.grid.ng, cfg.grid.dx, cfg.dt
@@ -301,6 +327,13 @@ def make_step(cfg: DomainImplicitConfig, mesh):
     ext_n = c + 2 * hw + 1
     use_fused = cfg.backend == "fused" or (
         cfg.backend == "auto" and mesh.device.type == "cuda")
+    if not use_fused and cfg.finalize_field != "last":
+        raise ValueError(
+            "finalize_field != 'last' requires the fused backend (the "
+            "composed path returns the last Picard iterate's arrays and "
+            "has no finalize sweep to redirect); backend='auto' resolves "
+            "to composed off the card: set backend='fused' explicitly "
+            "(its plain kernels run on the CPU too)")
     # clamp bounds in shifted (halo/deposit) coordinates: xi in [-h, c+h]
     clamp_lo_s = float(hw - h)
     clamp_hi_s = float(c + h + hw)
@@ -308,6 +341,7 @@ def make_step(cfg: DomainImplicitConfig, mesh):
     device_loop = use_fused and cfg.tol <= DEVICE_LOOP_TOL
     emit_v = cfg.finalize == "iterate"
     share = cfg.window_share == "shared"
+    n_hist = keep_history(cfg.finalize_field, emit_v)
     total = mesh.all_reduce_sum  # over the slabs (fields, replicated)
     total_all = m2.world.all_reduce_sum  # over every rank (particles)
     dpsum = m2.replicas.all_reduce_sum  # over the slab's replicas
@@ -345,33 +379,37 @@ def make_step(cfg: DomainImplicitConfig, mesh):
         return e1, eh, total(torch.sum((es - eh) ** 2))
 
     def mix(es, eh, k, aux):
+        # the inner products sum over the slabs; the replicas of a slab
+        # hold equal fields, so nothing sums over them
         if cfg.picard_accel == "anderson":
             return anderson_mix(es, eh, k, aux, reduce=total)
+        if cfg.picard_accel == "anderson2":
+            return anderson2_mix(es, eh, k, aux, reduce=total)
         if cfg.picard_accel == "damped":
             return damped_mix(es, eh, k, aux)
         return eh, aux
 
-    def init_guess(state):
-        e0 = state.e
+    def init_guess(e0, e_prev, e_prev2):
         if cfg.picard_init == "extrapolate":
-            return e0 + 0.5 * (e0 - state.e_prev)
+            return e0 + 0.5 * (e0 - e_prev)
         if cfg.picard_init == "extrapolate2":
-            return 0.125 * (15.0 * e0 - 10.0 * state.e_prev
-                            + 3.0 * state.e_prev2)
+            return 0.125 * (15.0 * e0 - 10.0 * e_prev + 3.0 * e_prev2)
         return e0
 
     def slab_deposit(pl, val):
         ext = deposit(torch.clamp(pl, -float(h), float(c + h)) + hw,
-                      val.contiguous(), ext_n, periodic=False)
+                      val.contiguous(), ext_n, periodic=False,
+                      method=cfg.deposit_method)
         return fold(ext)
 
-    def loop_fused(state, es, p0s, v0, w, qm, ps):
+    def loop_fused(e0, j_in, es, p0s, v0, w, qm, ps):
         """The fused Picard loop. Returns (es, ps, v1 of the last pass or
-        None, e1, jh, r, k, n_clamped); k is an int32 tensor."""
+        None, e1, jh, r, k, n_clamped, ef); k is an int32 tensor and ef
+        the field of the finalize sweep."""
         dev = p0s.device
-        e0 = state.e
         aux = mix_init(e0, cfg.picard_accel)
-        e1, jh, v1 = e0, state.j, None
+        hist = (es,) * n_hist  # the last map outputs, seeded with es0
+        e1, jh, v1 = e0, j_in, None
         r = torch.full((), math.inf, dtype=e0.dtype, device=dev)
         ncl = torch.zeros((), dtype=torch.int32, device=dev)
         go = torch.ones((1,), dtype=torch.int32, device=dev)
@@ -390,6 +428,7 @@ def make_step(cfg: DomainImplicitConfig, mesh):
             jh_k = fold(outs[1 + emit_v])
             e1_k, eh, r_k = ampere(es, jh_k, e0)
             es_k, aux_k = mix(es, eh, k, aux)
+            hist_k = ((eh,) + hist[:-1]) if n_hist else ()
             ps = outs[0]
             if emit_v:
                 v1 = outs[1]
@@ -402,22 +441,25 @@ def make_step(cfg: DomainImplicitConfig, mesh):
                 r = torch.where(on, r_k, r)
                 es = torch.where(on, es_k, es)
                 aux = tuple(torch.where(on, a, b) for a, b in zip(aux_k, aux))
+                hist = tuple(torch.where(on, a, b)
+                             for a, b in zip(hist_k, hist))
                 iters = iters + go[0]
                 go = go * (r > tol).to(torch.int32)
             else:
-                e1, jh, r, es, aux = e1_k, jh_k, r_k, es_k, aux_k
+                e1, jh, r, es, aux, hist = e1_k, jh_k, r_k, es_k, aux_k, hist_k
                 iters = iters + 1
             k += 1
             if not device_loop and k < cfg.maxiter:
                 r_host = float(r)  # the one host read of the pass
-        return es, ps, v1, e1, jh, r, iters, ncl
+        ef = finalize_field(es, hist, iters if device_loop else k,
+                            cfg.finalize_field, reduce=total)
+        return es, ps, v1, e1, jh, r, iters, ncl, ef
 
-    def loop_composed(state, es, p0l, v0, w, qm_t):
+    def loop_composed(e0, j_in, es, p0l, v0, w, qm_t):
         """The op-composed Picard loop (host reads): the last iterate's
         (p1l, v1, e1, j1, r, k)."""
-        e0 = state.e
         aux = mix_init(e0, cfg.picard_accel)
-        psl, p1l, v1, e1, j1 = p0l, p0l, v0, e0, state.j
+        psl, p1l, v1, e1, j1 = p0l, p0l, v0, e0, j_in
         r = torch.full((), math.inf, dtype=e0.dtype, device=e0.device)
         r_host, k = math.inf, 0
         while r_host > tol and k < cfg.maxiter:
@@ -442,36 +484,38 @@ def make_step(cfg: DomainImplicitConfig, mesh):
                 r_host = float(r)  # the one host read of the pass
         return p1l, v1, e1, j1, r, k
 
-    def step(state: DomainImplicitState):
-        alive = state.alive
-        dev = alive.device
-        lo = float(np.float32(d * c))
-        q32 = np.float32(state.qm_host[0])
-        qm = float(q32 / np.float32(state.qm_host[1]))
-        # dead slots are inert: their deposit weight is 0, and migration,
-        # the metrics and the clamp counts mask by alive
-        w = weights(alive, float(q32 * np.float32(cfg.p2c / dx)))
-        v0 = state.v
-        es0 = init_guess(state)
-        ncl = torch.zeros((), dtype=torch.int32, device=dev)
-        if use_fused:
-            # shifted deposit coordinates; p - lo is exact near the slab, so
-            # this is (p - lo) + hw rounded once, as JAX computes it
-            p0s = state.p - (lo - hw)
-            seed = p0s + (0.5 * dt_dx) * v0 if share else p0s
-            es, pss, v1, e1, jh, r, k, ncl = loop_fused(state, es0, p0s, v0,
-                                                        w, qm, seed)
+    def micro_fused(p0s, v0, fields, alive, w, qm, lo, last):
+        """One fused micro-step from shifted coordinates p0s: (p1, v1, e1,
+        j1, row). p1 is global and wrapped on the last micro-step, raw and
+        shifted before it; row = (kinetic sum, mean j1, k, r, clamped,
+        shared-window clamps)."""
+        e0, j_in, e_prev, e_prev2 = fields
+        es0 = init_guess(e0, e_prev, e_prev2)
+        seed = p0s + (0.5 * dt_dx) * v0 if share else p0s
+        es, pss, v1, e1, jh, r, k, ncl, ef = loop_fused(
+            e0, j_in, es0, p0s, v0, w, qm, seed)
+        if emit_v:
+            # the last Picard iterate (pypic.py:293-295): p1 from its v1
+            # elementwise, in shifted coordinates; jh drove the advance
+            p1 = p0s + (0.5 * dt_dx) * (v0 + v1)
+            j1 = jh
+            mean_j1 = total_all(torch.sum(w * v1)) / ng
+            nhc = total_all((alive & ((p1 < clamp_lo_s) | (p1 > clamp_hi_s))
+                             ).sum(dtype=torch.int64))
+            kin_sum = total_all(torch.sum(torch.where(alive, v1 * v1, 0.0)))
+            if last:
+                p1 = torch.remainder(p1 + (lo - hw), ng)
         else:
-            p0l = state.p - lo
-            p1l, v1, e1, j1, r, k = loop_composed(state, es0, p0l, v0, w,
-                                                  state.q / state.m)
-            k = torch.tensor(k, dtype=torch.int32, device=dev)
-        if use_fused and not emit_v:
+            # the finalize sweep: ng 0 keeps the position raw and shifted
+            # before the last micro-step; the statistics accumulate on
+            # every one
             fin = (cuda_domain.picard_finalize_ext_nodep
                    if cfg.finalize == "converged"
                    else cuda_domain.picard_finalize_ext)
-            outs = fin(smoothed_ext(es), pss, p0s, v0, w, qm=qm, dt=dt, dx=dx,
-                       lo=clamp_lo_s, hi=clamp_hi_s, lo_shift=lo - hw, ng=ng)
+            outs = fin(smoothed_ext(ef), pss, p0s, v0, w, qm=qm, dt=dt, dx=dx,
+                       lo=clamp_lo_s, hi=clamp_hi_s,
+                       lo_shift=(lo - hw) if last else 0.0,
+                       ng=ng if last else 0)
             p1, v1, st = outs[0], outs[1], outs[-1]
             if cfg.finalize == "converged":
                 # the half-step current drove the Ampere advance
@@ -481,46 +525,85 @@ def make_step(cfg: DomainImplicitConfig, mesh):
                 j1 = fold(outs[2])
                 mean_j1 = total(torch.sum(j1)) / ng
             kin_sum = total_all(st[1].to(torch.float32))
-            n_halo_clamped = total_all(st[2].to(torch.int64))
-        else:
-            if use_fused:  # 'iterate': the last Picard iterate
-                # (pypic.py:293-295), p1 from its v1 elementwise
-                p1l = (state.p - lo) + (0.5 * dt_dx) * (v0 + v1)
-                j1 = jh
-                mean_j1 = total_all(torch.sum(w * v1)) / ng
+            nhc = total_all(st[2].to(torch.int64))
+        return p1, v1, e1, j1, (kin_sum, mean_j1, k, r, nhc, ncl)
+
+    def micro_composed(p0l, v0, fields, alive, w, qm_t):
+        """One composed micro-step from local coordinates p0l: (p1l raw,
+        v1, e1, j1, row)."""
+        e0, j_in, e_prev, e_prev2 = fields
+        es0 = init_guess(e0, e_prev, e_prev2)
+        p1l, v1, e1, j1, r, k = loop_composed(e0, j_in, es0, p0l, v0, w, qm_t)
+        nhc = total_all(
+            (alive & ((p1l < -h) | (p1l > c + h))).sum(dtype=torch.int64))
+        kin_sum = total_all(torch.sum(torch.where(alive, v1 * v1, 0.0)))
+        mean_j1 = total(torch.sum(j1)) / ng
+        k = torch.tensor(k, dtype=torch.int32, device=v1.device)
+        return p1l, v1, e1, j1, (kin_sum, mean_j1, k, r, nhc, None)
+
+    def step(state: DomainImplicitState):
+        alive = state.alive
+        dev = alive.device
+        lo = float(np.float32(d * c))
+        q32 = np.float32(state.qm_host[0])
+        qm = float(q32 / np.float32(state.qm_host[1]))
+        # dead slots are inert: their deposit weight is 0, and migration,
+        # the metrics and the clamp counts mask by alive
+        w = weights(alive, float(q32 * np.float32(cfg.p2c / dx)))
+        fields = (state.e, state.j, state.e_prev, state.e_prev2)
+        # shifted deposit coordinates (fused; p - lo is exact near the
+        # slab, so this is (p - lo) + hw rounded once, as JAX computes it)
+        # or local ones (composed)
+        p = state.p - (lo - hw) if use_fused else state.p - lo
+        v = state.v
+        rows = []
+        k_tot = k_mig or 1
+        for i in range(k_tot):
+            last = i == k_tot - 1
+            if use_fused:
+                p, v, e1, j1, row = micro_fused(p, v, fields, alive, w, qm,
+                                                lo, last)
             else:
-                mean_j1 = total(torch.sum(j1)) / ng
-            n_halo_clamped = total_all(
-                (alive & ((p1l < -h) | (p1l > c + h))).sum(dtype=torch.int64))
-            kin_sum = total_all(torch.sum(torch.where(alive, v1 * v1, 0.0)))
-            # wrap to global coordinates (dead slots wrap too: finite
-            # values, masked by alive in migration)
-            p1 = torch.remainder(p1l + lo, ng)
+                p, v, e1, j1, row = micro_composed(p, v, fields, alive, w,
+                                                   state.q / state.m)
+            rows.append((e1,) + row)
+            # the next micro-step's (e, j, e_prev, e_prev2)
+            fields = (e1, j1, fields[0], fields[1])
+        if not use_fused:
+            p = torch.remainder(p + lo, ng)  # wrap to global coordinates
         (p2, v2), alive1, n_migrated, n_dropped = migrate(
-            [p1, v1], alive, d, ng=ng, cells_per_shard=c,
+            [p, v], alive, d, ng=ng, cells_per_shard=c,
             num_shards=cfg.num_shards, cap=cfg.migrate_cap, mesh=mesh,
             count_mesh=m2.world)
-        metrics = StepMetrics(
-            field_energy=0.5 * EPSILON_0 * dx * total(torch.sum(e1 * e1)),
-            kinetic_energy=0.5 * cfg.p2c * state.m * kin_sum,
-            current_bias=mean_j1,
-            picard_iters=k,
-            picard_residual=r,
-            n_alive=total_all(torch.count_nonzero(alive1)),
-            n_migrated=n_migrated,
-            n_dropped=n_dropped,
-            n_halo_clamped=n_halo_clamped,
-            picard_clamped=total_all(ncl),
-        )
+        n_alive1 = total_all(torch.count_nonzero(alive1))
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def metrics_of(row, n_alive, n_mig, n_drop):
+            e1, kin_sum, mean_j1, k, r, nhc, ncl = row
+            return StepMetrics(
+                field_energy=0.5 * EPSILON_0 * dx * total(torch.sum(e1 * e1)),
+                kinetic_energy=0.5 * cfg.p2c * state.m * kin_sum,
+                current_bias=mean_j1,
+                picard_iters=k,
+                picard_residual=r,
+                n_alive=n_alive,
+                n_migrated=n_mig,
+                n_dropped=n_drop,
+                n_halo_clamped=nhc,
+                picard_clamped=(total_all(ncl) if ncl is not None else zero))
+
+        if k_mig is None:
+            metrics = metrics_of(rows[0], n_alive1, n_migrated, n_dropped)
+        else:
+            n_alive0 = (total_all(torch.count_nonzero(alive)) if k_mig > 1
+                        else None)
+            ms = [metrics_of(row, n_alive0, zero, zero) for row in rows[:-1]]
+            ms.append(metrics_of(rows[-1], n_alive1, n_migrated, n_dropped))
+            metrics = StepMetrics(*(torch.stack(col) for col in zip(*ms)))
+        e_c, j_c, ep_c, ep2_c = fields
         new_state = state.replace(
-            p=p2, v=v2, alive=alive1, e=e1, j=j1, e_prev=state.e,
-            e_prev2=state.e_prev, step=state.step + 1)
+            p=p2, v=v2, alive=alive1, e=e_c, j=j_c, e_prev=ep_c,
+            e_prev2=ep2_c, step=state.step + k_tot)
         return new_state, metrics
 
     return step
-
-
-def make_superstep(cfg: DomainImplicitConfig, mesh,
-                   migrate_every: int):
-    """Not ported yet: the migration-amortized superstep (item 18)."""
-    raise _not_ported("make_superstep (migrate_every > 1)", _ITEM18)

@@ -73,8 +73,7 @@ from ..ops.poisson import _EXP_CLAMP, _safe_exp
 from ..push import boris_push_dt
 from ..utils import compact_rows
 from .distributed_poisson import make_distributed_tridiag_chain
-from .domain import (_ITEM18, _not_ported, distribute_by_slab, halo_extend,
-                     halo_fold, migrate)
+from .domain import distribute_by_slab, halo_extend, halo_fold, migrate
 from .domain_implicit import _meshes, replica_columns
 
 _MASK32 = 0xFFFFFFFF
@@ -232,11 +231,6 @@ _MIGRATED = ("p", "y", "z", "vx", "vy", "vz", "m", "charge_state", "p2c",
 _INT_FIELDS = ("species_idx", "active", "at_wall", "from_wall")
 
 
-def _check_ported(cfg: DomainMagnetizedConfig) -> None:
-    if cfg.deposit_method != "auto":
-        raise _not_ported(f"deposit_method={cfg.deposit_method!r}", _ITEM18)
-
-
 def init_state(x, v3, m, charge_state, p2c, species_idx,
                cfg: DomainMagnetizedConfig, mesh, seed: int = 0,
                capacity_factor: float = 1.5,
@@ -247,7 +241,6 @@ def init_state(x, v3, m, charge_state, p2c, species_idx,
     of them (JAX's (S, R, cap_r) layout). ``mesh``: the rank's
     ``SlabMesh``, or its ``Mesh2`` with replicas. ``device`` defaults to
     the mesh's."""
-    _check_ported(cfg)
     m2 = _meshes(cfg, mesh)
     slabs = m2.slabs
     device = devices.resolve(device if device is not None else slabs.device)
@@ -362,7 +355,6 @@ def make_step(cfg: DomainMagnetizedConfig, mesh,
     state's device, the same on every rank; ``ion_draws(step, n)`` the
     rank's (n,) ionization uniforms. The CPU tests pass the JAX engine's
     own draws through them; the engine's path never does."""
-    _check_ported(cfg)
     m2 = _meshes(cfg, mesh)
     slabs = m2.slabs
     grid = cfg.grid
@@ -433,8 +425,9 @@ def make_step(cfg: DomainMagnetizedConfig, mesh,
         w_n = torch.where(is_active, state.p2c / dx, 0.0)
         pc = clamp_loc(p_loc) + hw
         rho, n_dens = fold(torch.stack([
-            deposit(pc, w_rho, ext_n, periodic=False),
-            deposit(pc, w_n, ext_n, periodic=False)])).unbind(0)
+            deposit(pc, w_rho, ext_n, periodic=False, method=cfg.deposit_method),
+            deposit(pc, w_n, ext_n, periodic=False,
+                    method=cfg.deposit_method)])).unbind(0)
 
         # adaptive Boltzmann reference density (pygcpic.py:889-904): the
         # trapezoid's and the particle integrals summed over the slabs
@@ -515,7 +508,7 @@ def make_step(cfg: DomainMagnetizedConfig, mesh,
                                vz1, hit, bins=cfg.iead_bins,
                                energy_max=cfg.iead_energy_max,
                                angle_max=cfg.iead_angle_max,
-                               reduce=total_all)
+                               reduce=total_all, method=cfg.deposit_method)
 
         # MCC ionization (pygcpic.py:1510-1513), at the number density
         # gathered at the new positions

@@ -42,9 +42,10 @@ what the single-device engine draws for its rows. JAX folds the shard
 index into threefry keys, which the port cannot reproduce; tests replay
 JAX's draws through ``make_step(reinject_draws=...)``.
 
-Not ported yet (``NotImplementedError`` naming the ROADMAP queue 1 item):
-``picard_accel='anderson2'`` and ``deposit_method`` other than 'auto'
-(item 18).
+``picard_accel`` 'anderson2' mixes over two histories, its inner
+products summed over the slabs as Anderson(1)'s. ``deposit_method`` picks
+the exit histograms' reduction (``ops.cic.histogram_add``); the currents
+sum in a fixed order whatever it says.
 """
 
 from __future__ import annotations
@@ -61,11 +62,11 @@ from ..constants import EPSILON_0
 from ..engines.sheath import ACTIVE, LOST_LEFT, LOST_RIGHT, picard_keep
 from ..grid import GridSpec
 from ..ops import cuda_cic, cuda_rng
-from ..ops.accel import anderson_mix, mix_init
-from ..ops.cic import gather, histogram_add
+from ..ops.accel import anderson2_mix, anderson_mix, mix_init
+from ..ops.cic import DEPOSIT_METHODS, gather, histogram_add
 from ..ops.fd import integrate_neg_trapz
-from .domain import (_ITEM18, _check_mesh, _not_ported, distribute_by_slab,
-                     halo_extend, halo_fold, migrate)
+from .domain import (_check_mesh, distribute_by_slab, halo_extend,
+                     halo_fold, migrate)
 from .mesh import SlabMesh
 
 _MASK32 = 0xFFFFFFFF
@@ -174,13 +175,8 @@ class StepMetrics(NamedTuple):
 
 
 def _check_ported(cfg: DomainSheathConfig) -> None:
-    todo = {
-        "picard_accel='anderson2'": cfg.picard_accel == "anderson2",
-        f"deposit_method={cfg.deposit_method!r}": cfg.deposit_method != "auto",
-    }
-    for what, hit in todo.items():
-        if hit:
-            raise _not_ported(what, _ITEM18)
+    if cfg.deposit_method not in DEPOSIT_METHODS:
+        raise ValueError(f"unknown deposit method {cfg.deposit_method!r}")
 
 
 def _key(seed: int) -> Tuple[int, int]:
@@ -301,6 +297,8 @@ def make_step(cfg: DomainSheathConfig, mesh: SlabMesh,
     def mix(es, eh, k, aux):
         if cfg.picard_accel == "anderson":
             return anderson_mix(es, eh, k, aux, reduce=total)
+        if cfg.picard_accel == "anderson2":
+            return anderson2_mix(es, eh, k, aux, reduce=total)
         return eh, aux
 
     def step(state: DomainSheathState):
@@ -378,7 +376,7 @@ def make_step(cfg: DomainSheathConfig, mesh: SlabMesh,
                                    ).to(torch.int32), 0, bins - 1)
                 flat = torch.clamp(species - 1, 0, 1) * bins + idx
                 upd = histogram_add(flat, torch.where(right | left, 1.0, 0.0),
-                                    2 * bins)
+                                    2 * bins, method=cfg.deposit_method)
                 hist = hist + upd.reshape(2, bins)
             jh, j1 = currents(xh, uh, x1, u1, active)
             e1 = e0 + (dt / EPSILON_0) * (total(torch.sum(jh)) / ng - jh)

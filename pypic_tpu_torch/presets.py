@@ -336,19 +336,21 @@ def domain_implicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
                     device=None, mesh=None, **kw) -> Preset:
     """BASELINE configs[4]: the Landau workload (pypic.py:846-855)
     domain-decomposed over the slab mesh, as ``pypic_tpu.presets``
-    builds it: the halo covers an 8-sigma Maxwellian excursion a step,
-    migrate_cap = max(4096, 4 n / ng), extrapolated Picard init, tol 1e-9
-    and maxiter 50 unless ``kw`` says otherwise. ``shards`` defaults to
+    builds it: the halo covers an 8-sigma Maxwellian excursion a step
+    (k of them under ``migrate_every`` k: the superstep carries the
+    excursions of k micro-steps), migrate_cap = max(4096, 4 k n / ng),
+    extrapolated Picard init, tol 1e-9 and maxiter 50 unless ``kw`` says
+    otherwise. With ``migrate_every`` k > 1 the step is
+    ``make_superstep(cfg, mesh, k)`` and ``meta['steps_per_call']`` is k:
+    one call advances k steps and stacks a (k,) axis on every metric. ``shards`` defaults to
     the world size over ``replicas`` (one slab a rank without replicas);
     ``mesh`` to ``make_mesh(device)``, or with ``replicas`` > 1 to
     ``make_mesh2(shards, replicas, device)`` (slabs x data-parallel
     replicas). The state is this rank's."""
     from .parallel import domain_implicit as di
-    from .parallel.domain import _ITEM18, _not_ported
     from .parallel.mesh import Mesh2, make_mesh2
 
-    if kw.get("migrate_every", 1) != 1:
-        raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
+    k_mig = int(kw.get("migrate_every", 1))
     r = int(replicas) if replicas else 1
     root = mesh.world if isinstance(mesh, Mesh2) else mesh
     grid, x, v, params, root, sigma_cells = _domain_load(n, ng, seed,
@@ -361,14 +363,19 @@ def domain_implicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
     cfg = di.DomainImplicitConfig(
         grid, 1e-5, params.p2c, num_shards=n_dev,
         tol=kw.get("tol", 1e-9), maxiter=kw.get("maxiter", 50),
-        halo=min(ng // n_dev - 3, max(4, int(np.ceil(8.0 * sigma_cells)))),
-        picard_init="extrapolate", migrate_cap=max(4096, 4 * (n // ng)),
+        halo=min(ng // n_dev - 3,
+                 max(4, k_mig * int(np.ceil(8.0 * sigma_cells)))),
+        picard_init="extrapolate",
+        migrate_cap=max(4096, 4 * k_mig * (n // ng)),
         dp_axis_name="dp" if r > 1 else None, num_replicas=r,
     )
     st = di.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
     return Preset("domain_implicit", di, cfg, st,
-                  dict(params=params, system="landau-damping", mesh=mesh),
-                  step_builder=lambda: di.make_step(cfg, mesh))
+                  dict(params=params, system="landau-damping", mesh=mesh,
+                       steps_per_call=k_mig),
+                  step_builder=lambda: (di.make_superstep(cfg, mesh, k_mig)
+                                        if k_mig > 1
+                                        else di.make_step(cfg, mesh)))
 
 
 def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
@@ -379,28 +386,35 @@ def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
     ``pypic_tpu.presets`` builds it: migrate_cap = max(4096, 4 n / ng),
     the replicated solve unless ``field_solve='distributed'``; halo 0,
     or with ``carried_rho='on'`` one covering an 8-sigma excursion a step
-    (it deposits the pushed positions). The superstep raises (item 18)."""
+    (it deposits the pushed positions). ``migrate_every`` k > 1 builds the
+    superstep with a halo covering k such excursions, migrate_cap =
+    max(4096, 4 k n / ng) and ``meta['steps_per_call']`` k."""
     from .parallel import domain as dom
-    from .parallel.domain import _ITEM18, _not_ported
 
-    if kw.get("migrate_every", 1) != 1:
-        raise _not_ported("migrate_every > 1 (the superstep)", _ITEM18)
+    k_mig = int(kw.get("migrate_every", 1))
     grid, x, v, params, mesh, sigma_cells = _domain_load(n, ng, seed,
                                                          device, mesh)
     n_dev = int(shards) if shards else mesh.world
     carried = kw.get("carried_rho", "off")
-    halo = (min(ng // n_dev - 1, max(4, int(np.ceil(8.0 * sigma_cells))))
-            if carried == "on" else 0)
+    halo = (0 if k_mig == 1 else
+            min(ng // n_dev - 1,
+                max(4, k_mig * int(np.ceil(8.0 * sigma_cells)))))
+    if carried == "on" and k_mig == 1:
+        # carried deposits the pushed positions: the halo covers one step
+        halo = min(ng // n_dev - 1, max(4, int(np.ceil(8.0 * sigma_cells))))
     cfg = dom.DomainConfig(
         grid, 1e-5, params.p2c, num_shards=n_dev, halo=halo,
-        migrate_cap=max(4096, 4 * (n // ng)),
+        migrate_cap=max(4096, 4 * k_mig * (n // ng)),
         field_solve=kw.get("field_solve", "replicated"),
         carried_rho=carried,
     )
     st = dom.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh)
     return Preset("domain_explicit", dom, cfg, st,
-                  dict(params=params, system="landau-damping", mesh=mesh),
-                  step_builder=lambda: dom.make_step(cfg, mesh))
+                  dict(params=params, system="landau-damping", mesh=mesh,
+                       steps_per_call=k_mig),
+                  step_builder=lambda: (dom.make_superstep(cfg, mesh, k_mig)
+                                        if k_mig > 1
+                                        else dom.make_step(cfg, mesh)))
 
 
 def pic_iead_dd(n_per_species: int = 1000, ng: int = 600, seed: int = 1,

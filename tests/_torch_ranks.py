@@ -373,3 +373,77 @@ def slab_resume(mesh, engine, state, grid, cfg, path, k):
     for _ in range(k):
         b, _m = step(b)
     return join([a]), join([b]), manifest["step"]
+
+
+def _domain_engine(engine):
+    """(module, config class, state cut, state join) of a domain engine."""
+    if engine == "implicit":
+        return (domain_implicit, domain_implicit.DomainImplicitConfig,
+                interop.domain_implicit_states_from_numpy,
+                interop.domain_implicit_states_to_numpy)
+    return (domain, domain.DomainConfig, interop.domain_states_from_numpy,
+            interop.domain_states_to_numpy)
+
+
+def supersteps(mesh, engine, state, grid, cfg, k, n_calls, replicas=1):
+    """``n_calls`` calls of ``make_superstep(cfg, mesh, k)`` of ``engine``
+    from the JAX state ``state`` (numpy) on this rank (with ``replicas``
+    > 1 on the slabs x replicas mesh): the metric rows, one a micro-step,
+    each call's metric shapes, and this rank's state after the first
+    call (numpy)."""
+    mod, cls, cut, join = _domain_engine(engine)
+    cfg = cls(GridSpec(*grid), **cfg)
+    m = mesh
+    if replicas > 1:
+        m = tmesh.make_mesh2(mesh.world // replicas, replicas,
+                             device=mesh.device)
+        st = cut(state, cfg.num_shards, mesh.device, replicas)[mesh.rank]
+    else:
+        st = cut(state, mesh.world, mesh.device)[mesh.rank]
+    step = mod.make_superstep(cfg, m, k)
+    rows, shapes, first = {}, [], None
+    for i in range(n_calls):
+        st, met = step(st)
+        shapes.append({f: tuple(v.shape) for f, v in met._asdict().items()})
+        for f, v in met._asdict().items():
+            rows.setdefault(f, []).extend(v.reshape(-1).tolist())
+        if i == 0:
+            first = join([st]) if replicas == 1 else None
+    return rows, shapes, first, int(st.step)
+
+
+def k1_pair(mesh, engine, state, grid, cfg, n_steps):
+    """``n_steps`` of ``make_step`` and of ``make_superstep(k=1)`` from the
+    same JAX state on this rank: (rows, state) of each, numpy."""
+    mod, cls, cut, join = _domain_engine(engine)
+    cfg = cls(GridSpec(*grid), **cfg)
+    out = []
+    for step in (mod.make_step(cfg, mesh), mod.make_superstep(cfg, mesh, 1)):
+        st = cut(state, mesh.world, mesh.device)[mesh.rank]
+        rows = {}
+        for _ in range(n_steps):
+            st, met = step(st)
+            for f, v in met._asdict().items():
+                rows.setdefault(f, []).extend(v.reshape(-1).tolist())
+        out.append((rows, join([st])))
+    return out
+
+
+def dp_carried(mesh, state, cfg, n_steps, draws):
+    """``n_steps`` data-parallel steps of the carried magnetized engine
+    from the whole JAX state ``state`` (numpy; its carry primed), with
+    JAX's react_batch tables ``draws`` replayed: the scalar metric rows
+    and this rank's carried rho and n after the run."""
+    whole = interop.magnetized_state_from_numpy(state, mesh.device)
+    if cfg.axis_name is None:  # the one-device engine
+        st = whole
+        step = magnetized.make_step(cfg, source_draws=lambda s, n: {
+            k: torch.from_numpy(np.array(v)) for k, v in draws[s].items()})
+    else:
+        st = dataparallel.shard_state(whole, mesh)
+        step = _dp_step(mesh, "magnetized", whole, cfg, None, draws)
+    rows = {}
+    for _ in range(n_steps):
+        st, m = step(st)
+        _scalar_rows(rows, m)
+    return rows, np.stack([st.rho.cpu().numpy(), st.n.cpu().numpy()])

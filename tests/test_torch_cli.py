@@ -167,9 +167,9 @@ def test_resume_reprimes_carried_rho_only_when_stale(tmp_path, capsys):
     (["explicit_landau", "--opt", "not_a_kwarg=1"], "--opt"),
     (["explicit_landau", "--opt", "nosep"], "KEY=VALUE"),
     (["two_stream", "--replicas", "2"], "domain_implicit only"),
-    (["domain_implicit", "--migrate-every", "4"], "item 18"),
+    (["pic_iead_dd", "--migrate-every", "4"], "domain presets only"),
     (["two_stream", "--migrate-every", "4"], "domain presets only"),
-    (["domain_explicit", "--opt", "migrate_every=4"], "item 18"),
+    (["landau_damping", "--opt", "migrate_every=4"], "domain presets only"),
     (["domain_implicit", "--shards", "2"], "torchrun"),
 ])
 def test_refusals_exit_naming_their_cause(tmp_path, argv, match):
@@ -374,3 +374,40 @@ def test_bump_on_tail_preset_matches_jax():
         ref = np.asarray(getattr(jpre.state, k), np.float64)
         np.testing.assert_allclose(got[k], ref, rtol=0,
                                    atol=5e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("preset", ["domain_implicit", "domain_explicit"])
+def test_migrate_every_runs_jax_supersteps(tmp_path, capsys, preset):
+    """--migrate-every 2 through both CLIs (tests/test_io.py:347): the
+    superstep advances two steps a call, --steps 5 rounds up to 6 and the
+    checkpoint cadence 3 to 4, as JAX's CLI says; the same files, one
+    metric row a step (field energy rtol 1e-4, the migration counts equal:
+    0 on one slab), the same checkpoint steps, and a resume from step 6
+    that runs two more."""
+    argv = ["run", preset, "--particles", "8192", "--steps", "5",
+            "--migrate-every", "2", "--checkpoint-every", "3"]
+    j, t = str(tmp_path / "jax"), str(tmp_path / "port")
+    err = {}
+    for name, main, extra in (("jax", jmain, ["--shards", "1"]),
+                              ("port", tmain, ["--device", "cpu"])):
+        out = j if name == "jax" else t
+        main(argv + extra + ["--outdir", out, "--clean"])
+        err[name] = capsys.readouterr().err
+    for msg in ("steps rounded up to 6 (multiple of --migrate-every 2)",
+                "checkpoint cadence rounded up to 4 (multiple of "
+                "--migrate-every 2)"):
+        assert msg in err["jax"] and msg in err["port"], msg
+    assert "\n6 steps x " in err["jax"] and "\n6 steps x " in err["port"]
+    assert _files(t) == _files(j)
+    assert "checkpoints/state_0000000004.npz" in _files(t)
+    rj, rt = _rows(j), _rows(t)
+    assert len(rt) == len(rj) == 6 and rt[0].keys() == rj[0].keys()
+    np.testing.assert_allclose(_col(rt, "field_energy"),
+                               _col(rj, "field_energy"), rtol=1e-4)
+    for k in ("n_migrated", "n_dropped", "n_alive"):
+        np.testing.assert_array_equal(_col(rt, k), _col(rj, k))
+    tmain(argv[:5] + ["2"] + argv[6:] + ["--device", "cpu", "--outdir", t,
+                                         "--resume"])
+    err = capsys.readouterr().err
+    assert "resumed from step 6" in err
+    assert len(_rows(t)) == 2

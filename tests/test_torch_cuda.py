@@ -1607,3 +1607,80 @@ def test_sheath_reinject_rank_tag_matches_plain(cuda_device, gamma):
         _rel_close(r, g, 1e-6)
     zero = cuda_rng.sheath_reinject(key, step, *arrs, cells=50.0, gamma=gamma)
     assert not torch.equal(zero[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deposit", [False, True])
+def test_picard_finalize_ext_raw_mode_matches_plain(cuda_device, deposit):
+    """The finalize sweeps in the superstep's raw mode (lo_shift 0, ng 0:
+    the position kept raw and shifted, as the micro-steps before the last
+    run them): p1 and v1 within 1e-6 of the plain version's (no wrap at
+    all: a position past either edge stays there), the statistics still
+    accumulated (within 1e-6, the clamp count exact and > 0), j1 within
+    1e-6 of a float64 deposit."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    args = _slab_inputs(cuda_device)
+    kw = dict(lo_shift=0.0, ng=0, **_slab_kw())
+    fn = (cuda_domain.picard_finalize_ext if deposit
+          else cuda_domain.picard_finalize_ext_nodep)
+    got = fn(*args, **kw)
+    cpu = [a.cpu() for a in args]
+    ref = cuda_domain.picard_finalize_ext_plain(*cpu, deposit=deposit, **kw)
+    _rel_close(ref[0], got[0], 1e-6)
+    _rel_close(ref[1], got[1], 1e-6)
+    assert float(got[0].min()) < 0.0 or float(got[0].max()) > EXT_HI
+    st, st_ref = got[-1].cpu(), ref[-1]
+    assert torch.allclose(st[:2], st_ref[:2], rtol=1e-6, atol=0)
+    assert st[2] == st_ref[2] > 0
+    if deposit:
+        exact = cuda_domain.picard_finalize_ext_plain(
+            *cpu, deposit=True, acc_dtype=torch.float64, **kw)[2]
+        _rel_close(exact, got[2], 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["scatter", "matmul"])
+def test_deterministic_deposit_methods_repeat_bits(cuda_device, method):
+    """deposit_method 'scatter' and 'matmul' take deposit_det: the same
+    bits call after call, within 2e-5 of the deposit kernel; above its
+    ceiling on the card they raise naming ROADMAP item 10."""
+    e, ps, p0, v0 = _inputs(51, cuda_device)
+    vals = v0 * 1e-5
+    before = cuda_cic.LAUNCHES["deposit_det"]
+    a = cic.deposit(p0 * (50.0 / 51.0), vals, 51, periodic=False, method=method)
+    b = cic.deposit(p0 * (50.0 / 51.0), vals, 51, periodic=False, method=method)
+    assert cuda_cic.LAUNCHES["deposit_det"] == before + 2
+    assert torch.equal(a, b)
+    ref = cic.deposit(p0 * (50.0 / 51.0), vals, 51, periodic=False)
+    _rel_close(ref.cpu(), a, 2e-5)
+    with pytest.raises(ValueError, match="item 10"):
+        cic.deposit(p0, vals, 2000, periodic=False, method=method)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["implicit", "explicit"])
+def test_superstep_k1_on_the_card_matches_make_step(cuda_device, engine):
+    """superstep(k=1) against make_step on the card, 3 steps of
+    configs[4]'s workload at n = 20,000 on a one-rank mesh: the energies
+    within 1e-5 (float atomics: not bit for bit), the counts equal, the
+    step advanced by one a call."""
+    from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import domain as row
+
+    mesh = make_mesh(device=cuda_device)
+    if engine == "implicit":
+        cfg, st = row.implicit_row(mesh, n=20_000, backend="fused")
+        mod = domain_implicit
+    else:
+        cfg, st = row.explicit_row(mesh, n=20_000, push_backend="fused")
+        mod = domain
+    s1, m1 = run(mod.make_step(cfg, mesh), st, 3)
+    s2, m2 = run(mod.make_superstep(cfg, mesh, 1), st, 3)
+    assert m2.field_energy.shape == (3, 1) and int(s2.step) == 3
+    for k in ("field_energy", "kinetic_energy"):
+        _rel_close(getattr(m1, k).cpu(), getattr(m2, k).reshape(-1), 1e-5)
+    for k in ("n_alive", "n_migrated", "n_dropped", "n_halo_clamped"):
+        assert torch.equal(getattr(m1, k).cpu(),
+                           getattr(m2, k).reshape(-1).cpu()), k

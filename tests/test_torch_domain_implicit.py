@@ -247,17 +247,23 @@ def test_unported_options_raise_naming_their_items(problem):
     tgrid = TGridSpec(NG, grid.length, "periodic")
     mesh = tmake_mesh(device="cpu")
     base = dict(dt=1e-9, p2c=params.p2c, num_shards=1)
-    for kw, item in ((dict(finalize_field="aitken"), "item 18"),
-                     (dict(picard_accel="anderson2"), "item 18")):
-        with pytest.raises(NotImplementedError, match=item):
-            tdi.make_step(tdi.DomainImplicitConfig(tgrid, **base, **kw), mesh)
+    # the options build (their parity cases are in
+    # tests/test_torch_superstep.py and tests/test_torch_options.py); the
+    # composed backend refuses finalize_field with JAX's ValueError
+    for kw in (dict(finalize_field="aitken", backend="fused"),
+               dict(picard_accel="anderson2")):
+        tdi.make_step(tdi.DomainImplicitConfig(tgrid, **base, **kw), mesh)
+    with pytest.raises(ValueError, match="fused backend"):
+        tdi.make_step(tdi.DomainImplicitConfig(
+            tgrid, **base, finalize_field="aitken", backend="composed"), mesh)
     # replicas are ported (tests/test_torch_dataparallel_io.py): a one-axis
     # mesh cannot hold them
     with pytest.raises(ValueError, match="Mesh2"):
         tdi.make_step(tdi.DomainImplicitConfig(
             tgrid, **base, dp_axis_name="dp", num_replicas=2), mesh)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 2)
+    tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 2)
+    with pytest.raises(ValueError, match="migrate_every"):
+        tdi.make_superstep(tdi.DomainImplicitConfig(tgrid, **base), mesh, 0)
     # field_solve='distributed' is ported: it builds (tests in
     # test_torch_distributed_poisson.py), and the fused push refuses it
     tdomain.make_step(tdomain.DomainConfig(
@@ -265,10 +271,14 @@ def test_unported_options_raise_naming_their_items(problem):
     with pytest.raises(ValueError, match="replicated"):
         tdomain.DomainConfig(tgrid, **base, field_solve="distributed",
                              push_backend="fused")
-    for kw in ({}, dict(carried_rho="on", halo=2)):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tdomain.make_superstep(tdomain.DomainConfig(tgrid, **base, **kw),
-                                   mesh, 2)
+    tdomain.make_superstep(tdomain.DomainConfig(tgrid, **base, halo=2), mesh, 2)
+    # JAX's superstep ValueErrors (pypic_tpu/parallel/domain.py:482-505)
+    with pytest.raises(ValueError, match="carried_rho"):
+        tdomain.make_superstep(tdomain.DomainConfig(
+            tgrid, **base, carried_rho="on", halo=2), mesh, 2)
+    with pytest.raises(ValueError, match="fused"):
+        tdomain.make_superstep(tdomain.DomainConfig(
+            tgrid, **base, halo=2, push_backend="fused"), mesh, 2)
     # JAX's carried ValueErrors (pypic_tpu/parallel/domain.py:107-117), in
     # both packages
     for mod, g in ((domain, grid), (tdomain, tgrid)):
@@ -385,5 +395,12 @@ def test_presets_match_jax(name):
         assert getattr(got.config, f) == getattr(ref.config, f), f
     st, m = got.make_step()(got.state)
     assert int(m.n_alive) == 4000 and int(st.step) == 1
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tpresets.get(name, n=4000, device="cpu", migrate_every=2)
+    # migrate_every: JAX's k-scaled halo and cap, one call k steps
+    ref = jpresets.get(name, n=4000, shards=1, migrate_every=2)
+    got = tpresets.get(name, n=4000, device="cpu", migrate_every=2)
+    for f in ("halo", "migrate_cap"):
+        assert getattr(got.config, f) == getattr(ref.config, f), f
+    assert got.meta["steps_per_call"] == ref.meta["steps_per_call"] == 2
+    st, m = got.make_step()(got.state)
+    assert m.n_alive.shape == (2,) and int(m.n_alive[-1]) == 4000
+    assert int(st.step) == 2

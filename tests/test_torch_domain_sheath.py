@@ -180,8 +180,8 @@ def test_ten_steps_match_jax(jax_run, port_run):
 
 
 def test_config_checks_and_gated_options():
-    """JAX's checks raise JAX's errors; anderson2 and deposit_method name
-    item 18."""
+    """JAX's checks raise JAX's errors; anderson2 and every deposit_method
+    build and step."""
     grid = GridSpec(*GRID)
     jgrid = JGridSpec(*GRID)
     for bad, match in ((dict(num_shards=3), "not divisible"),
@@ -192,10 +192,14 @@ def test_config_checks_and_gated_options():
             with pytest.raises(ValueError, match=match):
                 cls(g, **{**CFG, **bad})
     mesh = tmesh.SlabMesh(0, 1, torch.device("cpu"))
-    for opt in (dict(picard_accel="anderson2"), dict(deposit_method="pallas")):
-        cfg = tds.DomainSheathConfig(grid, **{**CFG, "num_shards": 1, **opt})
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tds.make_step(cfg, mesh)
+    row_cfg, row_st = drow.sheath_row(mesh, n=2000, ng=51)
+    for opt in (dict(picard_accel="anderson2"), dict(deposit_method="pallas"),
+                dict(deposit_method="scatter")):
+        st, m = tds.make_step(dc.replace(row_cfg, **opt), mesh)(row_st)
+        assert int(st.step) == 1 and int(m.n_dropped) == 0
+        assert bool(torch.isfinite(m.phi).all()) and int(m.picard_iters) >= 1
+        assert (int(m.n_active) + int(m.n_lost_left) + int(m.n_lost_right)
+                == 2000)
     cfg = tds.DomainSheathConfig(grid, **CFG)
     with pytest.raises(ValueError, match="ranks"):
         tds.make_step(cfg, mesh)

@@ -1,17 +1,13 @@
 """``python -m pypic_tpu_torch.tools.dryrun`` (the counterpart of
 ``__graft_entry__.dryrun_multichip``) at 2 gloo ranks on the CPU: JAX's
-modes in JAX's order, every ported mode ok with JAX's invariants, and
-exactly the three modes that need ROADMAP item 18 reported not ported
-(not passed); the exit code 0.
+modes in JAX's order, every mode ok with JAX's invariants (the
+supersteps and the carried magnetized deposit under data parallelism
+among them); the exit code 0.
 """
 
 import __graft_entry__ as graft
 
 from pypic_tpu_torch.tools import dryrun
-
-ITEM18 = {"2b-explicit-superstep", "3b-implicit-superstep",
-          "10-dp-carried-deposit"}
-
 
 def test_dryrun_two_ranks(capsys):
     assert [name for name, _ in dryrun.MODES] == [name for name, _ in
@@ -23,7 +19,6 @@ def test_dryrun_two_ranks(capsys):
         head, note = line.split(": ", 1)
         status[head[len("dryrun["):-1]] = note
     assert list(status) == [name for name, _ in dryrun.MODES]
-    assert {n for n, s in status.items() if s == dryrun.NOT_PORTED} == ITEM18
-    assert all(s == "ok" for n, s in status.items() if n not in ITEM18), status
-    assert lines[-1].startswith("dryrun: 13 of 13 ported modes ok, 3 not "
-                                "ported, 0 failed (2 ranks, gloo on cpu)")
+    assert all(s == "ok" for s in status.values()), status
+    assert lines[-1].startswith("dryrun: 16 of 16 modes ok, 0 failed "
+                                "(2 ranks, gloo on cpu)")

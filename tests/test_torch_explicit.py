@@ -405,17 +405,6 @@ def test_config_errors_match_jax():
                             GridSpec(16, 1.0))
 
 
-@pytest.mark.parametrize("opt", [dict(deposit_method="scatter")],
-                         ids=["deposit_method"])
-def test_deferred_options_raise(opt):
-    cfg = explicit.ExplicitConfig(GridSpec(16, 1.0), 1e-3, 1.0, **opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        explicit.make_step(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        explicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
-                            -E_CHARGE, M_ELECTRON, cfg, device="cpu")
-
-
 def test_axis_name_takes_the_two_stage_sweep():
     """Under axis_name (data parallel, here one rank) the fused step is the
     two-stage sweep at every ng, as the JAX engine's: it agrees with the

@@ -193,24 +193,6 @@ def test_config_coerces_numpy_scalars():
     assert type(cfg.tol) is float and type(cfg.maxiter) is int
 
 
-DEFERRED = [
-    dict(finalize_field="mean2"),
-    dict(picard_accel="anderson2"),
-    dict(deposit_method="scatter"),
-    dict(deposit_method="matmul"),
-]
-
-
-@pytest.mark.parametrize("opt", DEFERRED, ids=lambda d: "-".join(map(str, d.values())))
-def test_deferred_options_raise(opt):
-    cfg = implicit.ImplicitConfig(GridSpec(16, 1.0), 1e-3, 1.0, **opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        implicit.make_step(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        implicit.init_state(np.linspace(0.0, 0.9, 8), np.zeros(8),
-                            -E_CHARGE, M_ELECTRON, cfg, device="cpu")
-
-
 def test_axis_name_on_one_rank_is_the_one_device_step():
     """axis_name (data parallel) on one rank: every sum is the identity,
     so the step equals the one-device step bit for bit; run_resident

@@ -543,9 +543,7 @@ def test_config_value_errors(kw, match):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(carried_deposit="on", react_batch=64, axis_name="p"), "item 18"),
     (dict(source_sampler="threefry"), "jax.random"),
-    (dict(deposit_method="scatter"), "item 18"),
 ])
 def test_unported_options_raise(kw, item):
     cfg = _tcfg(**kw)

@@ -87,8 +87,12 @@ def test_anderson_degenerate_secant_is_plain_fixed_point():
     # same residual twice: df == 0, gamma falls back to 0
     es2, _ = accel.anderson_mix(e, 2 * e, 1, aux)
     assert torch.equal(es, 2 * e) and torch.equal(es2, 2 * e)
+    # 'andersonM' is a mode (ring buffers of M + 1 rows, as JAX's); a name
+    # that parses to no depth is not
+    g_hist, f_hist = accel.mix_init(e, "anderson7")
+    assert g_hist.shape == f_hist.shape == (8, 8)
     with pytest.raises(ValueError):
-        accel.mix_init(e, "anderson7")
+        accel.mix_init(e, "anderson7x")
 
 
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "bounded"])

@@ -547,9 +547,6 @@ def test_unknown_backend_raises_at_the_step():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(picard_accel="anderson2"), "item 18"),
-    (dict(picard_accel="anderson4"), "item 18"),
-    (dict(deposit_method="scatter"), "item 18"),
     (dict(rng_sampler="threefry"), "jax.random"),
 ])
 def test_unported_options_raise(kw, item):
