@@ -148,11 +148,21 @@ Phases (any failure raises and the script exits non-zero):
    gyro-phase draws.
 23. gc slice — the GC row (--row gc): n = 999,996, 1,200 steps under
    sync debug mode 'error', its launch counts and physics checks.
-24. size limits — each wrapper raises above the card's limit (shared
-   memory, thread histograms, one CTA; the sheath pass one node above its
-   ceiling, cuda_sheath.MAX_NG) and launches nothing; a
-   magnetized step at ng = 1,200 with 'auto' takes the op-composed Thomas
-   route, and 'pallas' there raises naming ROADMAP item 10.
+24. size limits — each wrapper that keeps a card ceiling raises above it
+   (shared memory, thread histograms; the sheath pass one node above its
+   ceiling, cuda_sheath.MAX_NG) and launches nothing. The Newton family
+   has none below 2^27 rows: boltzmann_dirichlet and boltzmann_dn on
+   their large path (above 1,024 rows) at 1,025, 4,096, 16,384 and
+   262,144 rows (8 iterations, tol 0) and tridiag3_chain at c = 1,025 and
+   16,384 with all four (first, last) ends, against their plain versions
+   within TOL_CHAIN of the largest |x|, one launch of the large path a
+   call; timed at 4,096, 16,384 and 262,144 (and the D-N row's 8,000):
+   us an iteration, the long solve's marginal us an iteration, the plain
+   version, the bound, dense torch.linalg.solve for the chain up to
+   4,096. Then a magnetized step at ng = 1,200 with 'xla' (the
+   op-composed Thomas route: one Thomas solve, no Newton launch), 'auto'
+   and 'pallas' (one boltzmann_dirichlet_large launch, no Thomas solve,
+   phi converged), each timed on the wall clock after a warm-up step.
 25. domain kernels — the domain engines' four kernels against their
    plain versions at n = 10,000,003 (ragged, edge positions) and
    6104 * 16384, at the configs[4] slab's shape (ext_n = 231), with dead
@@ -229,7 +239,9 @@ Phases (any failure raises and the script exits non-zero):
 34. checkpoint — phase 33's final state through CheckpointManager (async)
    and back into a card template, every field bit for bit; 3 steps from
    the loaded state against 3 from the saved one at phase 14's limits
-   (the deposits' float atomics: not bit for bit on the card).
+   (the deposits' float atomics: not bit for bit on the card; p and v
+   leave out the rows whose two runs sit in different cells before a
+   step, where the 'reference' gather weights jump, and count them).
 
 35. cli — ``python -m pypic_tpu_torch.cli run`` in subprocesses on the
    card (phase_cli): landau_damping at n = 1e6, 40 steps with the plots,
@@ -302,6 +314,24 @@ Phases (any failure raises and the script exits non-zero):
    deposit_method 'pallas' at the headline set-up, 'scatter' and
    'matmul' at n = 1e6, ng 51 (the same bits twice, near the deposit
    kernel, a raise naming ROADMAP item 10 at ng = 2,000).
+39. large grids — the slice's main path: the configs[3] load (n =
+   999,996) at ng = 16,384 and 4,096 and the D-N row at n = 500,000 and
+   ng = 8,000 through tools/magnetized.run_row (50 steps after 3, sync
+   debug mode 'error'): ms/step, Newton iterations a step (mean, max,
+   steps at maxiter, the largest residual: the presets' tol 1e-9 lies
+   under the float32 floor at these rows), launches a step (one large
+   Newton kernel), THOMAS_SOLVES 0; each held against the CPU one step at
+   a time from the card's states for 3 steps at phase 14's limits (|p| in
+   the position limit the larger of a particle's start and end), and both
+   against a float64 step from the same state (the Newton loop by scipy's
+   banded LU) at the same position limits; the worst particles of phase
+   14's own position test printed. The
+   chain solve at c = 16,384 on one rank under sync debug mode 'error'.
+   Then pic_iead_dd at ng = 32,768 on two gloo ranks on the card (c =
+   16,384 a slab), 10 steps with solver 'distributed' (one
+   tridiag3_chain_large a Newton iteration) and 'replicated' (one
+   boltzmann_dirichlet_large a step): rows equal on both ranks, nothing
+   dropped, the solvers' phi within TOL_LARGE_SLAB_PHI.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -535,6 +565,9 @@ REPLACES = {
     "sheath_reinject": "pypic_tpu/ops/pallas_rng.py:74",
     "deposit_det": "pypic_tpu/ops/pallas_cic.py:252",
     "boltzmann_dn": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
+    "boltzmann_dirichlet_large":
+        "pypic_tpu/ops/pallas_newton.py:256 boltzmann_dirichlet_pallas",
+    "boltzmann_dn_large": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
     "picard_iteration_ext": "pypic_tpu/ops/pallas_cic.py:1847",
     "picard_finalize_ext": "pypic_tpu/ops/pallas_cic.py:1987",
     "picard_finalize_ext_nodep": "pypic_tpu/ops/pallas_cic.py:2019",
@@ -666,8 +699,8 @@ DN_MEAN_RTOL = 0.05
 # GC check: pic_iead_gc at n = 12,000, one step from the states after these
 # steps, card against CPU, the same source and gyro-phase draws
 GC_CHECK_PER_SPECIES, GC_CHECK_AT = 2000, (0, 10, 50)
-# fault-1 repair: a magnetized step at ng = 1200, above the Newton
-# kernels' 1,024 rows, takes the Thomas route on the card
+# a magnetized step at ng = 1200, above the Newton kernels' one-CTA 1,024
+# rows: the large D-D kernel on the card (before it, the Thomas route)
 NG_FAULT = 1200
 
 # the domain slice: bench.py's configs[4] row (tools/domain.py) on a
@@ -2303,13 +2336,16 @@ def _scaled_gap(ref, got, rtol: float, atol: float) -> float:
     return float(q.max())
 
 
-def _mag_step_errors(c, g) -> dict:
+def _mag_step_errors(c, g, rows=None) -> dict:
     """One step on the CPU (c) and the card (g), each (state, metrics):
     the largest |g - c| / (atol + rtol |c|) of each quantity (<= 1 passes
-    assert_allclose's test)."""
+    assert_allclose's test); p and v over the active rows (and ``rows``,
+    a host mask, where given)."""
     sc, mc = c
     sg, mg = g
     act = sc.active == 1
+    if rows is not None:
+        act = act & rows
 
     def worst(ref, got, key):
         rtol, atol = TOL_MAG_STEP[key]
@@ -3272,18 +3308,199 @@ def phase_gc_slice(dev) -> dict:
     return res
 
 
+# phase 24, the Newton family's large path (csrc/newton.cu above 1,024
+# rows) against its plain version, as phase 37 holds tridiag3_chain: phi
+# (and x, the six interface scalars) within TOL_CHAIN of the largest |x|,
+# stated before the first run. The Newton solves run a fixed count of
+# iterations (tol 0), so both sides run the same loop; the long solve
+# gives the marginal us an iteration. The load is tests/test_pallas.py's
+# (1e17 m^-3 with 30% noise, Te 10 eV, dx 2e-5 m) at these rows.
+NEWTON_LARGE_ROWS = (1025, 4096, 16_384, 262_144)
+NEWTON_LARGE_TIMED = (4096, 16_384, 262_144)
+CHAIN_LARGE_CS = (1025, 16_384)
+CHAIN_LARGE_TIMED = (4096, 16_384, 262_144)
+LARGE_SOLVE = dict(tol=0.0, maxiter=8)
+LARGE_SOLVE_LONG = dict(tol=0.0, maxiter=64)
+# the shapes phase 39 (the slice's main path) gives each large path
+LARGE_MAIN = {"boltzmann_dirichlet_large": 16_384, "boltzmann_dn_large": 8000,
+              "tridiag3_chain_large": 16_384}
+# dense torch.linalg.solve, the chain's library yardstick, up to this c
+DENSE_MAX_C = 4096
+
+
+def _newton_large_solve(name: str, rows: int, dev):
+    """(solve, plain): the large path's wrapper and its plain version on
+    phase 24's load at ``rows``, each taking the tol and maxiter
+    keywords. D-D: rho = e n, n0 = 1e17, cold start; D-N: n, n0 = 0.9e17,
+    warm start 0."""
+    import numpy as np
+
+    from pypic_tpu_torch.constants import E_CHARGE
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(11 + rows)
+    dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(rows))).clip(1e15)
+    te, dx = 11600.0 * 10.0, 2e-5
+    if name == "boltzmann_dirichlet_large":
+        rho = torch.from_numpy((E_CHARGE * dens).astype(np.float32)).to(dev)
+
+        def solve(fn, **kw):
+            return fn(rho, 1e17, te, dx, **kw)
+
+        return (functools.partial(solve, cuda_newton.boltzmann_dirichlet),
+                functools.partial(solve, cuda_newton.boltzmann_dirichlet_plain))
+    n = torch.from_numpy(dens.astype(np.float32)).to(dev)
+    phi0 = torch.zeros(rows, dtype=torch.float32, device=dev)
+
+    def solve_dn(fn, **kw):
+        return fn(n, 0.9e17, te, dx, phi0, **kw)
+
+    return (functools.partial(solve_dn, cuda_newton.boltzmann_dn),
+            functools.partial(solve_dn, cuda_newton.boltzmann_dn_plain))
+
+
+def newton_large_times(dev) -> dict:
+    """boltzmann_dirichlet and boltzmann_dn on their large path at
+    NEWTON_LARGE_ROWS and the main path's shape, LARGE_SOLVE iterations,
+    against the plain version: one launch of the large path a call (none
+    of the small), equal iteration counts, phi within TOL_CHAIN of the
+    largest |phi|; at NEWTON_LARGE_TIMED and the main shape timed
+    (device_ms) with the long solve's marginal us an iteration, the plain
+    version's ms and the bound. Returns {name: {rows: record}}."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton
+
+    out = {}
+    for name in ("boltzmann_dirichlet_large", "boltzmann_dn_large"):
+        small = name[:-len("_large")]
+        out[name] = {}
+        for rows in sorted(set(NEWTON_LARGE_ROWS) | {LARGE_MAIN[name]}):
+            solve, plain = _newton_large_solve(name, rows, dev)
+            before = dict(K.LAUNCHES)
+            got = solve(**LARGE_SOLVE)
+            torch.cuda.synchronize()
+            if (K.LAUNCHES[name] != before[name] + 1
+                    or K.LAUNCHES[small] != before[small]):
+                raise AssertionError(f"{name} at {rows} rows: launches "
+                                     f"{K.LAUNCHES[name] - before[name]} of the large "
+                                     f"path, {K.LAUNCHES[small] - before[small]} of "
+                                     "the small")
+            ref = plain(**LARGE_SOLVE)
+            err, rel = rel_err(ref.phi, got.phi)
+            its = (int(got.iterations), int(ref.iterations))
+            k, threads = cuda_newton.large_split(rows)
+            log(f"[size limits] {name} at {rows} rows (k = {k}, {threads} "
+                f"threads), {its[0]} iterations (plain {its[1]}): max |err| "
+                f"{err:.3e}, {rel:.3e} of max |phi| (tol {TOL_CHAIN})")
+            if not (rel <= TOL_CHAIN and its[0] == its[1] == LARGE_SOLVE["maxiter"]
+                    and bool(torch.isfinite(got.phi).all())):
+                raise AssertionError(f"{name} at {rows} rows: {rel} of max |phi|, "
+                                     f"iterations {its}")
+            rec = dict(n=rows, k=k, threads=threads, max_abs_err=err, rel_err=rel)
+            if rows in NEWTON_LARGE_TIMED or rows == LARGE_MAIN[name]:
+                iters = LARGE_SOLVE["maxiter"]
+                long_iters = LARGE_SOLVE_LONG["maxiter"]
+                ms = device_ms(lambda: solve(**LARGE_SOLVE), calls=10)
+                long_ms = device_ms(lambda: solve(**LARGE_SOLVE_LONG), calls=5)
+                marginal = (long_ms - ms) / (long_iters - iters)
+                plain_ms = cuda_ms(lambda: plain(**LARGE_SOLVE), reps=3, calls=1)
+                b, by = bound(small, rows, iters)
+                rec.update(ms=ms, iterations=iters, us_per_iteration=ms * 1e3 / iters,
+                           marginal_us_per_iteration=marginal * 1e3,
+                           fixed_us=(ms - iters * marginal) * 1e3,
+                           long_solve=dict(iterations=long_iters, ms=long_ms),
+                           plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                           library_ms=None)
+                log(f"[size limits] {name} at {rows} rows: {ms:.4f} ms for {iters} "
+                    f"iterations ({ms * 1e3 / iters:.2f} us an iteration; long solve "
+                    f"{long_ms:.4f} ms for {long_iters}: {marginal * 1e3:.2f} us a "
+                    f"further iteration, fixed {rec['fixed_us']:.2f} us), plain "
+                    f"{plain_ms:.3f} ms, bound {b:.2e} ms ({by}); no library call "
+                    "solves a tridiagonal system")
+            out[name][rows] = rec
+            del solve, plain, got, ref
+    return out
+
+
+def chain_large_times(dev) -> dict:
+    """tridiag3_chain on its large path against its plain version: at
+    CHAIN_LARGE_CS with all four (first, last) ends, and at
+    CHAIN_LARGE_TIMED and the main shape at the chain's end ranks; one
+    launch of the large path a call, x and the six interface scalars
+    within TOL_CHAIN of the largest |x| (phase 37's Boltzmann-Jacobian
+    systems). Timed (device_ms) beside the plain version and, up to
+    DENSE_MAX_C, dense torch.linalg.solve. Returns {c: record}."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton
+
+    gen = torch.Generator().manual_seed(39)
+    out = {}
+    ends_all = ((True, True), (True, False), (False, True), (False, False))
+    for c in sorted(set(CHAIN_LARGE_CS) | set(CHAIN_LARGE_TIMED)
+                    | {LARGE_MAIN["tridiag3_chain_large"]}):
+        dl, d, du, f = _chain_system(c, "boltzmann", gen, dev)
+        errs = []
+        for first, last in (ends_all if c in CHAIN_LARGE_CS else ends_all[:1]):
+            before = dict(K.LAUNCHES)
+            x, g6 = cuda_newton.tridiag3_chain(dl, d, du, f, first=first, last=last)
+            torch.cuda.synchronize()
+            if (K.LAUNCHES["tridiag3_chain_large"] != before["tridiag3_chain_large"] + 1
+                    or K.LAUNCHES["tridiag3_chain"] != before["tridiag3_chain"]):
+                raise AssertionError(f"tridiag3_chain c = {c}: not one launch of "
+                                     "the large path")
+            xr, gr = cuda_newton.tridiag3_chain_plain(dl, d, du, f, first=first,
+                                                      last=last)
+            err = float(torch.maximum((x - xr).abs().max(), (g6 - gr).abs().max()))
+            scale = float(xr.abs().max())
+            log(f"[size limits] tridiag3_chain c = {c} (first {first}, last "
+                f"{last}): max |err| {err:.3e} of max |x| {scale:.3e} (tol "
+                f"{TOL_CHAIN} of it)")
+            if not err <= TOL_CHAIN * scale:
+                raise AssertionError(f"tridiag3_chain c = {c}: {err} > "
+                                     f"{TOL_CHAIN} x {scale}")
+            errs.append(err)
+        rec = dict(n=c, max_abs_err=max(errs))
+        if c in CHAIN_LARGE_TIMED or c == LARGE_MAIN["tridiag3_chain_large"]:
+            held = collections.deque(maxlen=4)
+            ms = device_ms(lambda: held.append(cuda_newton.tridiag3_chain(
+                dl, d, du, f, first=True, last=True)), calls=10)
+            plain_ms = cuda_ms(lambda: held.append(cuda_newton.tridiag3_chain_plain(
+                dl, d, du, f, first=True, last=True)), reps=3, calls=1)
+            lib_ms = None
+            if c <= DENSE_MAX_C:
+                dl_in, du_in = dl.clone(), du.clone()
+                dl_in[0] = 0.0
+                du_in[-1] = 0.0
+                rhs = torch.zeros((c, 3), dtype=torch.float32, device=dev)
+                rhs[:, 0] = f
+                rhs[0, 1] = 1.0
+                rhs[c - 1, 2] = 1.0
+                dense = (torch.diag(d) + torch.diag(dl_in[1:], -1)
+                         + torch.diag(du_in[:-1], 1))
+                lib_ms = device_ms(lambda: held.append(torch.linalg.solve(dense, rhs)))
+            bound_ms = (CHAIN_BYTES_ROW * c + CHAIN_BYTES_FIXED) / PEAK_BYTES_PER_S * 1e3
+            rec.update(ms=ms, us_per_solve=ms * 1e3, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by="bytes")
+            log(f"[size limits] tridiag3_chain c = {c}: {ms * 1e3:.2f} us a solve "
+                f"(plain {plain_ms:.3f} ms" + (f", dense torch.linalg.solve "
+                                                f"{lib_ms:.4f} ms" if lib_ms else "")
+                + f"; bound {bound_ms:.2e} ms by bytes)")
+            held.clear()
+        out[c] = rec
+    return out
+
+
 def phase_size_limits(dev) -> dict:
-    """The card's size limits: each wrapper raises above its limit on CUDA
-    tensors (and ran the plain version on CPU tensors in the CPU tests);
-    a magnetized step at ng = NG_FAULT with newton_backend 'auto' takes the
-    op-composed Thomas route (no Newton kernel launch), and 'pallas' there
-    raises naming ROADMAP item 10."""
+    """Phase 24 (module docstring): the wrappers that keep a card ceiling
+    raise above it; the Newton family's large path against its plain
+    version; a magnetized step at ng = NG_FAULT with 'auto' and 'pallas'
+    on the large D-D kernel."""
     import dataclasses
 
     from pypic_tpu_torch import presets
     from pypic_tpu_torch.engines import magnetized
     from pypic_tpu_torch.ops import cuda_cic as K
-    from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
+    from pypic_tpu_torch.ops import cuda_sheath
 
     z = lambda k: torch.zeros(k, dtype=torch.float32, device=dev)  # noqa: E731
     p, big = z(64), K.SMEM_LIMIT // 4 + 1
@@ -3301,10 +3518,6 @@ def phase_size_limits(dev) -> dict:
         # the pass's ceiling: 32 thread columns of ng floats a block
         "sheath_picard": lambda: cuda_sheath.sheath_picard(
             z(cuda_sheath.MAX_NG + 1), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
-        "boltzmann_dirichlet": lambda: cuda_newton.boltzmann_dirichlet(
-            z(1025), 1e17, 1.16e5, 2e-5),
-        "boltzmann_dn": lambda: cuda_newton.boltzmann_dn(
-            z(1025), 1e17, 1.16e5, 2e-5, z(1025)),
     }
     K.reset_launch_counts()
     for name, call in calls.items():
@@ -3316,36 +3529,52 @@ def phase_size_limits(dev) -> dict:
             raise AssertionError(f"{name} ran above its limit on the card")
     if any(K.LAUNCHES.values()):
         raise AssertionError(f"launches above the limits: {K.LAUNCHES}")
+    res = {"newton_large": newton_large_times(dev),
+           "chain_large": chain_large_times(dev)}
+
     pre = presets.pic_iead(n_per_species=500, ng=NG_FAULT, device=dev)
-    try:
-        magnetized.make_step(dataclasses.replace(
-            pre.config, newton_backend="pallas"))(pre.state)
-    except ValueError as e:
-        if "item 10" not in str(e):
-            raise
-        log(f"[size limits] newton_backend='pallas' at ng = {NG_FAULT} raises: "
-            f"{str(e)[:100]}")
-    else:
-        raise AssertionError("newton_backend='pallas' ran at ng > 1024")
+    res["fault_step"] = {}
+    # 'xla' first: the op-composed Thomas route that 'auto' took at this
+    # grid before the large path, timed here beside the kernel's routes
+    for backend in ("xla", "auto", "pallas"):
+        step = magnetized.make_step(dataclasses.replace(
+            pre.config, newton_backend=backend))
+        step(pre.state)  # warm-up: the first launch of each PyTorch kernel
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for k in magnetized.THOMAS_SOLVES:
+            magnetized.THOMAS_SOLVES[k] = 0
+        t0 = time.perf_counter()
+        st, m = step(pre.state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        thomas = dict(magnetized.THOMAS_SOLVES)
+        beside = ("" if backend == "xla" else f" (the 'xla' Thomas route's "
+                  f"{res['fault_step']['xla']['wall_ms']:.2f} ms)")
+        log(f"[size limits] a magnetized step at ng = {NG_FAULT}, '{backend}': "
+            f"{seconds * 1e3:.2f} ms of wall time{beside}, Thomas solves "
+            f"{thomas}, {int(m.newton_iters)} Newton iterations, residual "
+            f"{float(m.newton_residual):.3e}, launches {launches}")
+        newton = K.LAUNCHES["boltzmann_dirichlet_large"] + K.LAUNCHES["boltzmann_dirichlet"]
+        if backend == "xla":
+            if thomas != {"dirichlet": 1, "dirichlet_neumann": 0} or newton:
+                raise AssertionError(f"'xla' at ng = {NG_FAULT}: Thomas solves "
+                                     f"{thomas}, {newton} Newton launches")
+        elif (any(thomas.values()) or K.LAUNCHES["boltzmann_dirichlet_large"] != 1
+              or K.LAUNCHES["boltzmann_dirichlet"] != 0):
+            raise AssertionError(f"'{backend}' at ng = {NG_FAULT} did not take "
+                                 "the large D-D kernel once")
+        if not (bool(torch.isfinite(m.phi).all())
+                and float(m.newton_residual) <= pre.config.newton_tol):
+            raise AssertionError(f"'{backend}' at ng = {NG_FAULT}: phi did not "
+                                 "converge")
+        res["fault_step"][backend] = dict(
+            wall_ms=seconds * 1e3, newton_iters=int(m.newton_iters),
+            residual=float(m.newton_residual))
     K.reset_launch_counts()
-    for k in magnetized.THOMAS_SOLVES:
-        magnetized.THOMAS_SOLVES[k] = 0
-    t0 = time.perf_counter()
-    st, m = magnetized.make_step(pre.config)(pre.state)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k: v for k, v in K.LAUNCHES.items() if v}
-    log(f"[size limits] a magnetized step at ng = {NG_FAULT}, 'auto': "
-        f"Thomas solves {dict(magnetized.THOMAS_SOLVES)}, {int(m.newton_iters)} "
-        f"Newton iterations, residual {float(m.newton_residual):.3e}, "
-        f"{seconds:.2f} s, launches {launches}")
-    if (magnetized.THOMAS_SOLVES["dirichlet"] != 1
-            or K.LAUNCHES["boltzmann_dirichlet"] != 0):
-        raise AssertionError("ng > 1024 did not take the Thomas route")
-    if not (bool(torch.isfinite(m.phi).all())
-            and float(m.newton_residual) <= pre.config.newton_tol):
-        raise AssertionError("the Thomas route did not converge")
-    return dict(thomas_step_s=seconds)
+    return res
+
 
 def _slab_inputs(n: int, gen: torch.Generator, dev, edges: bool):
     """A slab of the domain row: positions on [lo - 3, hi + 3] (past both
@@ -4422,7 +4651,13 @@ def phase_checkpoint(dev, bca_slice: dict) -> dict:
     steps from the loaded state against the same steps from the saved one
     (the same Philox draws): rho, phi, p, v at phase 14's limits each step
     and the active masks equal. Not bit for bit on the card: the deposits
-    flush their block sums with float atomics."""
+    flush their block sums with float atomics, so from the second step the
+    two runs' positions part by an ulp. The preset's 'reference' gather
+    weights read the field at the position mirrored in its cell, a field
+    that jumps at every node (E at node i - 1 just below node i, at i + 1
+    on it): a row whose two positions lie in different cells before a
+    step takes a different kick and parts from then on. Such rows are
+    counted and left out of p and v (rho and phi keep every row)."""
     import tempfile
 
     from pypic_tpu_torch import checkpoint, interop
@@ -4444,14 +4679,21 @@ def phase_checkpoint(dev, bca_slice: dict) -> dict:
         problems.append("loaded state not on the card")
     step = magnetized.make_step(pre.config)
     worst = collections.defaultdict(float)
+    swap = pre.config.gather_weights == "reference"
+    hi = float(pre.config.grid.ng - 1)
+    parted = torch.zeros(fin.p.shape[0], dtype=torch.bool)
     s1, s2 = fin, loaded
     for _ in range(CKPT_RESUME_STEPS):
+        if swap:
+            # the cell each row gathers in, as gather_position clamps it
+            parted |= (torch.floor(torch.clamp(s1.p, 0.0, hi))
+                       != torch.floor(torch.clamp(s2.p, 0.0, hi))).cpu()
         c, g = step(s1), step(s2)
         # the uninterrupted run's step on the host, as _mag_step_errors takes it
         ref = (interop.magnetized_state_from_numpy(
             interop.magnetized_state_to_numpy(c[0]), "cpu"),
             type(c[1])(*(t.cpu() for t in c[1])))
-        for kk, v in _mag_step_errors(ref, g).items():
+        for kk, v in _mag_step_errors(ref, g, rows=~parted).items():
             worst[kk] = max(worst[kk], v)
         if not torch.equal(c[0].active, g[0].active):
             problems.append("resumed active mask differs")
@@ -4461,12 +4703,15 @@ def phase_checkpoint(dev, bca_slice: dict) -> dict:
         f"{len(a)} leaves): " + ("bit for bit" if not unequal else f"DIFFERS {unequal}")
         + f"; {CKPT_RESUME_STEPS} resumed steps against the uninterrupted ones, "
         "|d| / (atol + rtol |ref|) (<= 1 passes): "
-        + ", ".join(f"{kk} {v:.3e}" for kk, v in worst.items()))
+        + ", ".join(f"{kk} {v:.3e}" for kk, v in worst.items())
+        + f"; rows whose two runs gathered in different cells (left out of "
+        f"p and v): {int(parted.sum())}")
     problems += [f"resumed {kk} {v:.3e}" for kk, v in worst.items() if not v <= 1.0]
     if problems:
         raise AssertionError("checkpoint: " + "; ".join(problems))
     torch.cuda.empty_cache()
-    return dict(leaves=len(a), resumed_worst=dict(worst))
+    return dict(leaves=len(a), resumed_worst=dict(worst),
+                parted_at_a_node=int(parted.sum()))
 
 
 # phase 35: the command line in subprocesses on the card. Resume at the
@@ -5832,6 +6077,414 @@ def phase_options(dev, card: str) -> dict:
     return res
 
 
+# phase 39, large grids: the slice's main path, the magnetized engines
+# past the Newton kernels' one-CTA 1,024 rows. The configs[3] load (n =
+# 999,996) at ng = 16,384 and 4,096 and the D-N row at n = 500,000 and
+# ng = 8,000 through tools/magnetized.run_row ('auto': the large Newton
+# kernels), each held against the CPU (the plain versions) one step at a
+# time from the card's states (the configurations draw no ionization, so
+# no draw straddles), and both against a float64 step from the same
+# state (_step64); then pic_iead_dd at ng = 32,768 on two gloo ranks on
+# the card (c = 16,384 a slab), both solvers
+LARGE_GRID_RUNS = {"pic_iead ng 16384": ("iead", 16_384),
+                   "pic_iead ng 4096": ("iead", 4096),
+                   "dn ng 8000": ("dn", 8000)}
+LARGE_GRID_N_PER_SPECIES, LARGE_GRID_DN_N = 166_666, 500_000
+LARGE_GRID_STEPS, LARGE_GRID_WARMUP, LARGE_CHECK_STEPS = 50, 3, 3
+LARGE_SLAB_NG, LARGE_SLAB_STEPS = 32_768, 10
+# phase 14's position limit |dp| <= atol + rtol |p| with |p| the larger
+# of a pushed particle's start and end. The two routes' velocities part
+# by an ulp or two (E's float32 rounding), and the push carries that gap
+# into the position as |dvx| dt/dx, a share |dvx| / |vx| of the step's
+# displacement. At ng = 16,384 (dt/dx 2.3e-3 s/m) an ion that ends
+# within a cell of a wall after crossing 3-85 cells in the step reads up
+# to 3e-5 cells there, where rtol |end| leaves only the atol's 1e-5;
+# the larger of start and end bounds the displacement. The same limit
+# holds each float32 route against the float64 step (_step64)
+LARGE_WORST_SHOWN = 5
+# the two slab solvers against each other: tests/test_torch_domain_
+# magnetized.py's ten-step limits of each against JAX (phi_max rtol 1e-3
+# every step, the last phi within 1e-3 of its largest)
+TOL_LARGE_SLAB_PHI = 1e-3
+
+
+def _newton64(dn: bool, dens, n0: float, te: float, dx: float, phi0,
+              tol: float, maxiter: int):
+    """The engine's Newton-Boltzmann loop (ops/poisson.py
+    solve_boltzmann_dirichlet and _neumann: the same rows, clamps, loop
+    test and shift) in float64 numpy, each Newton system by scipy's banded
+    LU (the D-N's last row (1, -4, 3) as a second sub-diagonal). ``dens``
+    is rho (D-D) or the number density (D-N). Returns (phi, iterations)."""
+    import numpy as np
+    from scipy.linalg import solve_banded
+
+    from pypic_tpu_torch.constants import E_CHARGE, EPSILON_0, K_BOLTZMANN
+
+    ng = dens.shape[0]
+    dx2 = dx * dx
+    c0 = E_CHARGE * n0 / EPSILON_0
+    c1 = E_CHARGE / (K_BOLTZMANN * te)
+    c2 = (E_CHARGE * dens if dn else dens) / EPSILON_0
+    step_max = 40.0 / c1
+    phi = np.array(phi0, dtype=np.float64)
+    if not dn:
+        phi[0] = phi[-1] = 0.0
+    lower = 2 if dn else 1
+    it, residual = 0, np.inf
+    while residual > tol and it < maxiter:
+        expo = np.exp(np.clip(c1 * phi, -40.0, 40.0))
+        lap = np.zeros(ng)
+        lap[1:-1] = phi[:-2] - 2.0 * phi[1:-1] + phi[2:]
+        f = lap - dx2 * c0 * expo + dx2 * c2
+        ab = np.zeros((2 + lower, ng))  # ab[1 + i - j, j] = J[i, j]
+        ab[1] = -2.0 - dx2 * c0 * c1 * expo
+        ab[0, 2:] = 1.0  # J[i, i + 1], rows 1 .. ng - 2
+        ab[2, :-2] = 1.0  # J[i, i - 1], rows 1 .. ng - 2
+        ab[1, 0] = 1.0 - dx2 * c0 * c1
+        if dn:
+            f[0] = phi[0]
+            f[-1] = 0.0
+            ab[1, -1] = 3.0
+            ab[2, -2] = -4.0
+            ab[3, -3] = 1.0
+        else:
+            f[0] = f[-1] = 0.0
+            ab[1, -1] = 1.0 - dx2 * c0 * c1
+        dphi = np.clip(solve_banded((lower, 1), ab, f), -step_max, step_max)
+        phi = phi - dphi
+        residual = (np.linalg.norm(dphi) if dn else float(np.dot(dphi, dphi)))
+        it += 1
+    return phi - phi.min(), it
+
+
+def _step64(kind: str, cfg, d: dict) -> dict:
+    """The push of one step of the fused engine (engines/magnetized.py
+    step, neither carried nor smoothed) in float64 on the CPU from the
+    state ``d`` (numpy): rho and n by deposit2_plain, n0 by the engine's
+    update, the Newton solve by _newton64 at the engine's tol and
+    maxiter, E by grad_neg_bounded, the gather and Boris push by
+    boris_gather_push_plain. Returns the pushed p (cells), vx (float64
+    tensors) and the Newton iterations."""
+    import numpy as np
+
+    from pypic_tpu_torch.constants import E_CHARGE, EV_TO_K, K_BOLTZMANN, M_ELECTRON
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic
+
+    if cfg.carried_deposit == "on" or cfg.smooth_rho or cfg.pusher == "gc":
+        raise ValueError("_step64 follows the fused, uncarried, unsmoothed step")
+    t = {k: torch.from_numpy(np.asarray(v, dtype=np.float64))
+         for k, v in d.items() if k != "rng"}
+    grid = cfg.grid
+    ng, dx, dt = grid.ng, grid.dx, cfg.dt
+    act = t["active"] == 1
+    w_rho = torch.where(act, t["charge_state"] * E_CHARGE * t["p2c"] / dx, 0.0)
+    w_n = torch.where(act, t["p2c"] / dx, 0.0)
+    rho, n_dens = cuda_cic.deposit2_plain(t["p"], w_rho, w_n, ng, periodic=False)
+    te_volts = (cfg.te / EV_TO_K) if cfg.eta_in_volts else (cfg.te * EV_TO_K)
+    ve = float(np.sqrt(8.0 / np.pi * K_BOLTZMANN * cfg.te / M_ELECTRON))
+    eta = torch.exp(t["phi"] / te_volts)
+    n0, _ = magnetized.boltzmann_n0_update(
+        int(d["step"]), t["n0"], t["p_old"], t["added"], q_new=eta[0] + eta[-1],
+        p_new=torch.trapezoid(eta, dx=dx), dt=dt, ve=ve, n_mean=torch.mean(n_dens))
+    warm = (2.0 * t["phi"] - t["phi_prev"] if cfg.newton_warm == "extrapolate"
+            else t["phi"])
+    if kind == "dn":
+        phi, its = _newton64(True, n_dens.numpy(), float(n0), cfg.te, dx, warm.numpy(),
+                             magnetized.DN_TOL, magnetized.DN_MAXITER)
+    else:
+        phi, its = _newton64(False, rho.numpy(), float(n0), cfg.te, dx,
+                             (warm - warm[0]).numpy(), cfg.newton_tol,
+                             cfg.newton_maxiter)
+    e_field = fd.grad_neg_bounded(torch.from_numpy(phi), dx)
+    const = (0.5 * dt * E_CHARGE) * t["charge_state"] / t["m"]
+    p1, vx1, _, _ = cuda_cic.boris_gather_push_plain(
+        e_field, t["p"], t["vx"], t["vy"], t["vz"], const, act.double(), b=cfg.b,
+        dt_dx=dt / dx, swap_weights=cfg.gather_weights == "reference")
+    return dict(p=p1, vx=vx1, newton_iters=its)
+
+
+def _large_position_check(c, g, r, d, cells: float):
+    """The positions of one step on the CPU (c), the card (g) and in
+    float64 (r, _step64) from the state ``d``: the card against the CPU
+    over the active particles, and each float32 side against r over the
+    pushed ones (active before the step and after it on both sides, r
+    inside the walls), at phase 14's limits with |p| the larger of start
+    and end for a pushed particle (its end alone for a re-activated one);
+    phase 14's own test (|p| the end) beside them, and its worst
+    particles. Returns (figures, problems)."""
+    rtol, atol = TOL_MAG_STEP["p"]
+    sc, sg = c[0], g[0]
+    pc, pg = sc.p.double(), sg.p.double().cpu()
+    p0 = torch.from_numpy(d["p"]).double()
+    before = torch.from_numpy(d["active"] == 1)
+    act = sc.active == 1
+    inside = (r["p"] >= 0.0) & (r["p"] <= cells)
+    pushed = before & act & (sg.active.cpu() == 1) & inside
+    # the magnitude the update p + vx dt/dx rounds at
+    scale_c = torch.where(before, torch.maximum(p0.abs(), pc.abs()), pc.abs())
+    scale_r = torch.maximum(p0.abs(), r["p"].abs())
+    dp = (pg - pc).abs()
+    e_c, e_g = (pc - r["p"]).abs(), (pg - r["p"]).abs()
+    lim_r = atol + rtol * scale_r
+    q = (dp / (atol + rtol * scale_c))[act]
+    q14 = dp / (atol + rtol * pc.abs())
+    idx = torch.nonzero(act).flatten()
+    worst = []
+    for j in torch.argsort(q14[act], descending=True)[:LARGE_WORST_SHOWN].tolist():
+        i = int(idx[j])
+        worst.append(dict(
+            p0=float(p0[i]), p=float(pc[i]), dp=float(dp[i]),
+            dvx=float((sg.vx.cpu()[i].double() - sc.vx[i].double()).abs()),
+            cpu_to_f64=float(e_c[i]), card_to_f64=float(e_g[i]),
+            phase14=float(q14[i]), p_scaled=float(q[j]), pushed=bool(pushed[i])))
+    out = dict(pushed=int(pushed.sum()),
+               straddled=int((before & act & ~inside).sum()),
+               p=float(q.max()), phase14=float(q14[act].max()),
+               cpu_to_f64=float((e_c / lim_r)[pushed].max()),
+               card_to_f64=float((e_g / lim_r)[pushed].max()),
+               cpu_to_f64_cells=float(e_c[pushed].max()),
+               card_to_f64_cells=float(e_g[pushed].max()), worst=worst)
+    problems = [f"{k} {out[k]:.3e}" for k in ("p", "cpu_to_f64", "card_to_f64")
+                if not out[k] <= 1.0]
+    return out, problems
+
+
+def _large_grid_check(kind: str, ng: int, dev) -> dict:
+    """LARGE_CHECK_STEPS steps of the row on the card, each held against
+    one step on the CPU (backend 'fused', newton_backend 'pallas': the
+    plain versions) and one in float64 (_step64) from the same state: the
+    preset's, then the card's state after each step. The source draws are
+    the Philox kernel's and its plain version's (bit-equal); the D-N flux
+    draws are made on the CPU and replayed on both sides (phase 20).
+    Raises on a gap in rho, phi or v above phase 14's limits, on unequal
+    n_active / n_reactivated, and on the positions' tests
+    (_large_position_check)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, sources
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.tools import magnetized as row
+
+    pre = row.preset(kind, "cpu", LARGE_GRID_N_PER_SPECIES, LARGE_GRID_DN_N, ng)
+    cfg_gpu = pre.config
+    cfg_cpu = dataclasses.replace(cfg_gpu, backend="fused", newton_backend="pallas")
+    src = cfg_cpu.source
+    cells = float(cfg_cpu.grid.num_cells)
+
+    def flux_hooks(state):
+        def flux(step, n):
+            return sources.sample_flux_batch(
+                state.rng, step, n, cfg_cpu.grid, src.ti, src.mass, vx=src.vx,
+                gamma=cfg_cpu.flux_gamma, vx_pert=cfg_cpu.flux_vx_pert,
+                device="cpu")
+        return {"source_draws": flux}
+
+    d = interop.magnetized_state_to_numpy(pre.state)
+    del pre
+    problems, worst, iters, pos = [], {}, [], []
+    for i in range(LARGE_CHECK_STEPS):
+        sc = interop.magnetized_state_from_numpy(d, "cpu")
+        kw_c, kw_g = (_replayed(flux_hooks)(sc, dev) if kind == "dn" else ({}, {}))
+        t0 = time.perf_counter()
+        c = magnetized.make_step(cfg_cpu, **kw_c)(sc)
+        cpu_s = time.perf_counter() - t0
+        g = magnetized.make_step(cfg_gpu, **kw_g)(
+            interop.magnetized_state_from_numpy(d, dev))
+        t0 = time.perf_counter()
+        r = _step64(kind, cfg_cpu, d)
+        f64_s = time.perf_counter() - t0
+        errs = {k: v for k, v in _mag_step_errors(c, g).items() if k != "p"}
+        p_rec, p_bad = _large_position_check(c, g, r, d, cells)
+        counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
+                  for k in ("n_active", "n_hit_wall", "n_reactivated", "newton_iters")}
+        log(f"[large grids] {kind} ng = {ng}, step {i} -> {i + 1}, GPU vs CPU "
+            "from the same state, |d| / (atol + rtol |ref|) (<= 1 passes): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f", p {p_rec['p']:.3e} (|p| the larger of start and end; its end "
+            f"alone {p_rec['phase14']:.3e}); counts (CPU, GPU) {counts}; the CPU "
+            f"step {cpu_s:.1f} s")
+        log(f"[large grids] {kind} ng = {ng}, step {i} -> {i + 1}, against a "
+            f"float64 step ({r['newton_iters']} Newton iterations, {f64_s:.1f} s), "
+            f"{p_rec['pushed']} pushed particles ({p_rec['straddled']} left out: "
+            "a wall hit in float64 alone), positions at the same limits: the "
+            f"CPU {p_rec['cpu_to_f64']:.3e}, the card {p_rec['card_to_f64']:.3e}; "
+            f"largest in cells the CPU {p_rec['cpu_to_f64_cells']:.3e}, the card "
+            f"{p_rec['card_to_f64_cells']:.3e}")
+        for w in p_rec["worst"]:
+            log(f"[large grids]   worst with |p| its end: p {w['p0']:.4f} -> "
+                f"{w['p']:.4f}, |dp| {w['dp']:.3e} cells ({w['phase14']:.3e} of "
+                f"that limit, {w['p_scaled']:.3e} of the start's), |dvx| "
+                f"{w['dvx']:.3e} m/s; from the float64 step the CPU "
+                f"{w['cpu_to_f64']:.3e}, the card {w['card_to_f64']:.3e} cells"
+                + ("" if w["pushed"] else " (not pushed)"))
+        bad = {k: v for k, v in errs.items() if not v <= 1.0}
+        for k in ("n_active", "n_reactivated"):
+            if counts[k][0] != counts[k][1]:
+                bad[k] = counts[k]
+        if bad or p_bad:
+            problems.append(f"step {i}: {bad} {p_bad}")
+        for k, v in {**errs, **{f"p {q}": p_rec[q] for q in (
+                "p", "phase14", "cpu_to_f64", "card_to_f64")}}.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        iters.append(counts["newton_iters"] + (r["newton_iters"],))
+        pos.append({k: v for k, v in p_rec.items() if k != "worst"})
+        d = interop.magnetized_state_to_numpy(g[0])
+        del c, g, r
+    if problems:
+        raise AssertionError(f"large grids {kind} ng = {ng} check: "
+                             + "; ".join(problems))
+    return dict(steps=LARGE_CHECK_STEPS, worst_scaled_gap=worst,
+                newton_iters_cpu_gpu_f64=iters, positions=pos)
+
+
+def phase_large_grids(dev) -> dict:
+    """Phase 39 (module docstring). Returns each run's figures and the
+    large kernels' launches on this path."""
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.parallel import distributed_poisson, make_mesh, spawn
+    from pypic_tpu_torch.tools import domain as drow
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res = {"runs": {}}
+    launches = {}
+    problems = []
+    newton = {"iead": "boltzmann_dirichlet", "dn": "boltzmann_dn"}
+    for label, (kind, ng) in LARGE_GRID_RUNS.items():
+        for k in magnetized.THOMAS_SOLVES:
+            magnetized.THOMAS_SOLVES[k] = 0
+        out, cfg, fin, m = row.run_row(
+            dev, steps=LARGE_GRID_STEPS, warmup=LARGE_GRID_WARMUP, row=kind,
+            n_per_species=LARGE_GRID_N_PER_SPECIES, n=LARGE_GRID_DN_N, ng=ng)
+        thomas = dict(magnetized.THOMAS_SOLVES)
+        lps = {k: v / LARGE_GRID_STEPS for k, v in out["launches"].items()}
+        name = newton[kind]
+        its = m.newton_iters.cpu()
+        resid = m.newton_residual.cpu()
+        rec = dict(n=out["n"], ng=ng, steps=LARGE_GRID_STEPS,
+                   ms_per_step=out["us_per_step"] / 1e3,
+                   pushes_per_s=out["pushes_per_s"],
+                   newton_mean=float(its.float().mean()), newton_max=int(its.max()),
+                   steps_at_maxiter=int((its >= cfg.newton_maxiter if kind == "iead"
+                                         else its >= magnetized.DN_MAXITER).sum()),
+                   residual_max=float(resid.max()), launches_per_step=lps,
+                   host_syncs_per_step=0.0, thomas_solves=thomas)
+        if kind == "iead":
+            rec["phi_max_over_phi_f"] = out["phi_max_over_phi_f"]
+            bad = row.population_problems(m)
+        else:
+            bad = ([f"flux cap {out['react_max']}"]
+                   if out["react_max"] > cfg.flux_limit else [])
+            rec.update(phi_wall=out["phi_wall"], phi_far=out["phi_far"])
+        if not (bool(torch.isfinite(m.phi).all()) and bool(torch.isfinite(fin.p).all())):
+            bad.append("non-finite phi or positions")
+        if any(thomas.values()):
+            bad.append(f"Thomas solves {thomas}")
+        if (out["launches"].get(f"{name}_large") != LARGE_GRID_STEPS
+                or out["launches"].get(name)):
+            bad.append(f"launches {out['launches']}: not one {name}_large a step")
+        log(f"[large grids] {label}: n = {out['n']}, {LARGE_GRID_STEPS} steps "
+            f"after {LARGE_GRID_WARMUP}: {rec['ms_per_step']:.3f} ms/step, "
+            f"{rec['pushes_per_s']:.4e} pushes/s, Newton iterations a step mean "
+            f"{rec['newton_mean']:.2f}, max {rec['newton_max']} "
+            f"({rec['steps_at_maxiter']} steps at maxiter; largest residual "
+            f"{rec['residual_max']:.3e} against tol "
+            f"{cfg.newton_tol if kind == 'iead' else magnetized.DN_TOL}), "
+            f"launches a step {lps}, host syncs a step 0 (sync debug mode "
+            f"'error'), Thomas solves {thomas}")
+        problems += [f"{label}: {b}" for b in bad]
+        if label == "pic_iead ng 16384" or kind == "dn":
+            launches[f"{name}_large"] = out["launches"].get(f"{name}_large", 0)
+        del fin, m
+        torch.cuda.empty_cache()
+        rec["check"] = _large_grid_check(kind, ng, dev)
+        res["runs"][label] = rec
+
+    # the chain solve at a slab's rows on one group-less rank: no interface,
+    # the launch alone, under sync debug mode 'error'
+    c = LARGE_SLAB_NG // 2
+    chain = distributed_poisson.make_distributed_tridiag_chain(
+        c, 1, make_mesh(device=dev))
+    sysm = _chain_system(c, "boltzmann", torch.Generator().manual_seed(39), dev)
+    chain(*sysm)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chain(*sysm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["tridiag3_chain_large"] != 1:
+        problems.append(f"the chain solve at c = {c}: launches {K.LAUNCHES}")
+    log(f"[large grids] the chain solve at c = {c} under sync debug mode "
+        "'error': one tridiag3_chain_large launch, 0 host reads")
+    K.reset_launch_counts()
+
+    jobs = [("magnetized", dict(n_per_species=LARGE_GRID_N_PER_SPECIES,
+                                ng=LARGE_SLAB_NG, steps=LARGE_SLAB_STEPS,
+                                solver=solver))
+            for solver in ("distributed", "replicated")]
+    t0 = time.perf_counter()
+    two = spawn.run(2, drow.slab_jobs, jobs, device=dev)
+    res["slabs"] = {"spawn_s": time.perf_counter() - t0}
+    per = {}
+    for i, solver in enumerate(("distributed", "replicated")):
+        ranks = [r[i] for r in two]
+        a = ranks[0]["rows"]
+        its = a["newton_iters"]
+        lps = ranks[0]["launches_per_step"]
+        rec = dict(ng=LARGE_SLAB_NG, cells_per_slab=c, steps=LARGE_SLAB_STEPS,
+                   ms_per_step=ranks[0]["ms_per_step"],
+                   newton_mean=sum(its) / len(its), newton_max=max(its),
+                   launches_per_step=lps,
+                   host_syncs_per_step=ranks[0]["host_syncs_per_step"],
+                   staged_bytes_per_step=ranks[0]["staged_bytes_per_step"],
+                   rows_equal=all(r["rows"] == a for r in ranks),
+                   n_migrated=sum(a["n_migrated"]), n_dropped=sum(a["n_dropped"]))
+        want = ({"tridiag3_chain_large": sum(its) / LARGE_SLAB_STEPS}
+                if solver == "distributed" else {"boltzmann_dirichlet_large": 1.0})
+        for k, v in want.items():
+            if lps.get(k) != v:
+                problems.append(f"slabs {solver}: {k} {lps.get(k)} a step, not {v}")
+        for k in ("tridiag3_chain", "boltzmann_dirichlet"):
+            if lps.get(k):
+                problems.append(f"slabs {solver}: the small path's {k} ran")
+        if not rec["rows_equal"]:
+            problems.append(f"slabs {solver}: the two ranks' rows differ")
+        if rec["n_dropped"]:
+            problems.append(f"slabs {solver}: {rec['n_dropped']} dropped")
+        log(f"[large grids] pic_iead_dd, ng = {LARGE_SLAB_NG} on two gloo ranks "
+            f"(c = {c} a slab), solver '{solver}': {LARGE_SLAB_STEPS} steps, "
+            f"{rec['ms_per_step']:.3f} ms/step, Newton iterations a step mean "
+            f"{rec['newton_mean']:.2f} (max {rec['newton_max']}), launches a step "
+            f"{lps}, host syncs a step {rec['host_syncs_per_step']:.2f} (the "
+            f"residual's read an iteration and the gloo staging), staged "
+            f"{rec['staged_bytes_per_step']:.0f} B a step a rank, rows equal "
+            f"on both ranks: {rec['rows_equal']}, migrated {rec['n_migrated']}, "
+            f"dropped {rec['n_dropped']}")
+        per[solver] = (a, ranks[0])
+        res["slabs"][solver] = rec
+    (a_d, r_d), (a_r, r_r) = per["distributed"], per["replicated"]
+    phi_max_gap = _dp_gap(a_r["phi_max"], a_d["phi_max"])
+    last_r = torch.tensor(r_r["phi_last"], dtype=torch.float64)
+    last_d = torch.tensor(r_d["phi_last"], dtype=torch.float64)
+    phi_gap = float((last_d - last_r).abs().max() / last_r.abs().max())
+    log(f"[large grids] the two solvers: phi_max every step within "
+        f"{phi_max_gap:.3e}, the last phi within {phi_gap:.3e} of its largest "
+        f"(tol {TOL_LARGE_SLAB_PHI} each)")
+    if not (phi_max_gap <= TOL_LARGE_SLAB_PHI and phi_gap <= TOL_LARGE_SLAB_PHI):
+        problems.append(f"slab solvers apart: phi_max {phi_max_gap}, phi {phi_gap}")
+    res["slabs"].update(phi_max_gap=phi_max_gap, phi_gap=phi_gap)
+    launches["tridiag3_chain_large"] = int(round(
+        r_d["launches_per_step"].get("tridiag3_chain_large", 0) * LARGE_SLAB_STEPS))
+    res["launches"] = launches
+    if problems:
+        raise AssertionError("large grids: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -5885,6 +6538,7 @@ def main() -> int:
     dpp = phase("data parallel", phase_data_parallel, dev, card)
     slb = phase("slab bounded", phase_slab_bounded, dev, shs)
     opt = phase("options", phase_options, dev, card)
+    lg = phase("large grids", phase_large_grids, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -5915,11 +6569,19 @@ def main() -> int:
         cs["magnetized"]["launches"]["boris_gather_push_deposit"])
     launches["explicit_domain_cycle"] = (
         cs["carrier"]["launches"]["explicit_domain_cycle"])
+    # the large Newton paths: phase 39's runs (ng 16,384 and the D-N row)
+    for kname in ("boltzmann_dirichlet_large", "boltzmann_dn_large"):
+        launches[kname] = lg["launches"][kname]
     helper = dnk.pop("philox_uniforms")
     # rows 4, 7, 9 and 20 read deposit_times' median at their main shapes
     # (row 4: the headline's set-up, the path whose launches it counts;
     # deposit_det: the composed sheath current), their other shapes beside
     records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk, **ck}
+    # the large paths' records at the shape phase 39 gives them, every
+    # shape of phase 24 beside it
+    for kname, by_rows in lim["newton_large"].items():
+        records[kname] = dict(by_rows[LARGE_MAIN[kname]], shapes=by_rows)
+    chain_large = lim["chain_large"]
     main_shape = {"deposit2": "configs[3]", "boris_gather_push_deposit": "configs[3]",
                   "deposit": DEPOSIT_MAIN_SHAPE, "deposit_det": "current",
                   "source_batch": "999,996"}
@@ -5936,6 +6598,8 @@ def main() -> int:
                    picard_iteration_shared="pypic_tpu_torch/csrc/cic.cu",
                    implicit_resident="pypic_tpu_torch/csrc/implicit.cu",
                    boltzmann_dn="pypic_tpu_torch/csrc/newton.cu",
+                   boltzmann_dirichlet_large="pypic_tpu_torch/csrc/newton.cu",
+                   boltzmann_dn_large="pypic_tpu_torch/csrc/newton.cu",
                    **{kname: "pypic_tpu_torch/csrc/domain.cu" for kname in dk},
                    **SOURCES_MAGNETIZED, **SOURCES_SHEATH, **SOURCES_CARRIED)
     log(f"[wall] total {sum(walls.values()):.1f} s")
@@ -5957,7 +6621,8 @@ def main() -> int:
          **{key: records[kname][key] for key in (
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
             "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes",
-            "issue_bound_ms", "own_sass_ms")
+            "issue_bound_ms", "own_sass_ms", "marginal_us_per_iteration",
+            "fixed_us", "k", "threads")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [
@@ -5991,7 +6656,16 @@ def main() -> int:
          **{key: slb["tridiag3_chain"][600][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
              "library_ms", "us_per_solve", "thomas_ms")},
-         "shapes": slb["tridiag3_chain"]}],
+         "shapes": slb["tridiag3_chain"]},
+        # the same solve above 1,024 rows (the large path); its launches
+        # are phase 39's distributed pic_iead_dd run's (c = 16,384)
+        {"name": "tridiag3_chain_large", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/newton.cu", "replaces": None,
+         "launches": lg["launches"]["tridiag3_chain_large"],
+         **{key: chain_large[LARGE_MAIN["tridiag3_chain_large"]][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
+             "library_ms", "us_per_solve")},
+         "shapes": chain_large}],
         "slice": {key: sl[key] for key in (
         "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
         "field_energy_rel_change", "total_energy_rel_change")},
@@ -6036,7 +6710,7 @@ def main() -> int:
         "gc_slice": {key: gcs[key] for key in (
             "n", "ng", "steps", "us_per_step", "pushes_per_s", "newton_mean",
             "phi_max_over_phi_f")},
-        "size_limits": lim,
+        "size_limits": {"fault_step": lim["fault_step"]},
         "domain_slice": {
             **{key: ds[key] for key in (
                 "n", "steps", "ms_per_step", "pushes_per_s", "picard_mean",
@@ -6077,6 +6751,7 @@ def main() -> int:
         "slab_bounded": {k: v for k, v in slb.items()
                          if k not in ("tridiag3_chain", "launches")},
         "options": opt,
+        "large_grids": {k: v for k, v in lg.items() if k != "launches"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -89,6 +89,56 @@
 // * The residual is ||dphi||_2 (the D-D kernel's is the squared norm): the
 //   same fixed-order sum, rounded to float32, then a correctly rounded
 //   square root, so every thread takes the same loop branch.
+//
+// The large path (newton_dd_large_kernel, newton_dn_large_kernel,
+// tridiag3_chain_large_kernel): the same three solves above 1,024 rows,
+// where one row a thread no longer fits one CTA. It replaces the same TPU
+// kernels (boltzmann_dirichlet_pallas, boltzmann_dn_pallas; the chain
+// none), which hold any ng in VMEM. The Newton loop is the one above, row
+// for row: the residual build, the Jacobian, the exponent clamp and step
+// clip, the fixed-order float64 residual sum, the loop test and the final
+// shift. Only the tridiagonal solve inside an iteration differs: the
+// partition method.
+// * One CTA of T threads (a multiple of 32, at most 1,024); thread t owns
+//   the k = ceil(rows / 1024) consecutive rows t k .. t k + k - 1 of the
+//   T k padded rows (cuda_newton.large_split). Rows past ng are identity
+//   rows, as on the small path.
+// * A sweep down the block normalises rows 0 and 1 and takes each later
+//   row's coupling to the row above out with that row, carrying the
+//   fill-in as a coupling to the block's row 0 (Thomas's order, so the D-N
+//   Laplacian's last row, a = -4 and b = 3, which is not diagonally
+//   dominant, is reached from above as the Thomas route reaches it). A
+//   sweep up takes each inner row's coupling to the row below out, then
+//   row 0's to row 1. Every inner row then reads a'_j x_0 + x_j +
+//   c'_j x_(k-1) = d'_j, and the block's rows 0 and k - 1 form two rows of
+//   a tridiagonal system of 2 T rows in the blocks' end values.
+// * That reduced system is solved by the small path's PCR stage loop,
+//   two rows a thread (pcr_solve_pair: the same float4 buffers, pcr_stage
+//   and the vote-ended stages, R right-hand sides). Each thread then
+//   recovers its inner rows from its two end values.
+// * The block rows' couplings, right-hand sides, phi and dx^2 c2 live in a
+//   scratch the wrapper allocates (4 + R floats a row for the Newton
+//   solves, 2 + R for the chain), row j of thread t at j T + t, so a
+//   warp's loads and stores at one j are coalesced. The inputs are read
+//   and phi written once a launch in row order (coalesced), and
+//   transposed through the scratch. The chain reads its inputs and writes
+//   x in row order (strided across the warp, once a launch). 16,384 rows
+//   x 24 B is 0.4 MB a Newton iteration, which stays in the 50 MB L2.
+// * Neighbouring blocks meet in the residual build (phi of the row above
+//   and below a block): each thread's first and last phi sit in shared
+//   memory, written in the same phase as the residual's partial sums,
+//   behind the same barrier. The D-N kernel's phi[ng-3] and its
+//   Sherman-Morrison values y[ng-3], z[ng-3] come from their owning
+//   thread through shared memory, the latter behind one more barrier.
+// * The residual: each thread sums its rows' dphi^2 in float64 in row
+//   order, then the small path's warp trees, so every thread holds the
+//   same bits and takes the same branch of the loop test.
+// * Bound: latency, as on the small path: k serial steps in each sweep and
+//   the recovery, and up to log2(2 T) PCR stages, an iteration; the bytes
+//   (the scratch's ~24-28 B a row, three times over, an iteration) go
+//   through L2 at one SM's rate.
+// * Ceiling: cuda_newton.LARGE_MAX_ROWS (2^27 rows), where the int
+//   offsets into the (4 + R, rows) scratch would near 2^31.
 
 #include "cic_common.cuh"
 
@@ -466,6 +516,447 @@ bool rows_ok(int ng, int rows) {
   return rows >= 32 && rows <= kMaxRows && rows % 32 == 0 && ng <= rows;
 }
 
+// ---- the large path (header) ----
+
+// The Newton loop's float32 scalars (cuda_newton.newton_scalars; coef =
+// f32(e / eps0), eps0 the D-D kernel's divisor of rho).
+struct NewtonScalars {
+  float coef, eps0, c1, dx2, tol, step_max, exp_clamp;
+  int maxiter;
+};
+
+// The block rows of the large path in its scratch: row j of thread t at
+// j T + t (T = blockDim.x). ap, cp: the couplings a', c' the sweeps leave;
+// dp: R columns of d', column r at r npad.
+struct Blocks {
+  float* ap;
+  float* cp;
+  float* dp;
+  int k, npad;
+};
+
+__device__ __forceinline__ int block_at(int j) {
+  return j * (int)blockDim.x + (int)threadIdx.x;
+}
+
+// The sweep down the thread's k rows, row(j) giving row j's (a, b, c, f).
+// Rows 0 and 1 are normalised by b; row j >= 2 takes its coupling to row
+// j - 1 out with that row, the fill-in a coupling to the block's row 0.
+// After it row 0 reads a'_0 x_(-1) + x_0 + c'_0 x_1 = d'_0 and row j >= 1
+// a'_j x_0 + x_j + c'_j x_(j+1) = d'_j.
+template <int R, class RowAt>
+__device__ __forceinline__ void sweep_down(const Blocks& B, RowAt row) {
+  float am = 0.0f, cm = 0.0f, dm[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) dm[r] = 0.0f;
+  for (int j = 0; j < B.k; ++j) {
+    const Row<R> x = row(j);
+    float an, cn, dn[R];
+    if (j < 2) {
+      an = div_rn(x.a, x.b);
+      cn = div_rn(x.c, x.b);
+#pragma unroll
+      for (int r = 0; r < R; ++r) dn[r] = div_rn(x.f[r], x.b);
+    } else {
+      const float den = __fsub_rn(x.b, __fmul_rn(x.a, cm));
+      an = div_rn(-__fmul_rn(x.a, am), den);
+      cn = div_rn(x.c, den);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        dn[r] = div_rn(__fsub_rn(x.f[r], __fmul_rn(x.a, dm[r])), den);
+    }
+    const int e = block_at(j);
+    B.ap[e] = an;
+    B.cp[e] = cn;
+#pragma unroll
+    for (int r = 0; r < R; ++r) B.dp[r * B.npad + e] = dn[r];
+    am = an;
+    cm = cn;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dm[r] = dn[r];
+  }
+}
+
+// The sweep up: rows k - 3 .. 1 take out their coupling to the row below
+// (which then reads a' x_0 + x + c' x_(k-1)), then row 0 its coupling to
+// row 1. Returns the block's two rows of the reduced system: first
+// (coupled to the last row of the block before and to x_(k-1)) and last
+// (coupled to x_0 and to the first row of the block after), b = 1.
+template <int R>
+__device__ __forceinline__ void sweep_up(const Blocks& B, Row<R>& first,
+                                         Row<R>& last) {
+  const int k = B.k;
+  int e = block_at(k - 1);
+  last.a = B.ap[e];
+  last.b = 1.0f;
+  last.c = B.cp[e];
+#pragma unroll
+  for (int r = 0; r < R; ++r) last.f[r] = B.dp[r * B.npad + e];
+  e = block_at(0);
+  first.a = B.ap[e];
+  first.b = 1.0f;
+  first.c = B.cp[e];
+#pragma unroll
+  for (int r = 0; r < R; ++r) first.f[r] = B.dp[r * B.npad + e];
+  if (k == 2) return;  // row 0 already couples to x_(k-1)
+  e = block_at(k - 2);
+  float an = B.ap[e], cn = B.cp[e], dn[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) dn[r] = B.dp[r * B.npad + e];
+  for (int j = k - 3; j >= 1; --j) {
+    e = block_at(j);
+    const float cj = B.cp[e];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      dn[r] = __fsub_rn(B.dp[r * B.npad + e], __fmul_rn(cj, dn[r]));
+      B.dp[r * B.npad + e] = dn[r];
+    }
+    an = __fsub_rn(B.ap[e], __fmul_rn(cj, an));
+    cn = -__fmul_rn(cj, cn);
+    B.ap[e] = an;
+    B.cp[e] = cn;
+  }
+  const float c0 = first.c;
+  const float den = __fsub_rn(1.0f, __fmul_rn(c0, an));
+  first.a = div_rn(first.a, den);
+  first.c = div_rn(-__fmul_rn(c0, cn), den);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    first.f[r] = div_rn(__fsub_rn(first.f[r], __fmul_rn(c0, dn[r])), den);
+}
+
+// Row j of the thread's block from the block's end values xf = x_0 and
+// xl = x_(k-1) (R columns): x_j = d'_j - a'_j x_0 - c'_j x_(k-1).
+template <int R>
+__device__ __forceinline__ void recover(const Blocks& B, int j,
+                                        const float* xf, const float* xl,
+                                        float* out) {
+  if (j == 0 || j == B.k - 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = j == 0 ? xf[r] : xl[r];
+    return;
+  }
+  const int e = block_at(j);
+  const float a = B.ap[e], c = B.cp[e];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    out[r] = __fsub_rn(__fsub_rn(B.dp[r * B.npad + e], __fmul_rn(a, xf[r])),
+                       __fmul_rn(c, xl[r]));
+}
+
+// The reduced system's PCR over rows = 2 T rows, thread t holding rows
+// 2 t (its block's first) and 2 t + 1 (its last): pcr_solve's stage loop
+// (alternating buffers, one vote-ended barrier a stage, pcr_stage's
+// arithmetic) for two rows a thread. On return x0.f and x1.f hold the two
+// rows' solutions. Every thread of the block calls it.
+template <int R>
+__device__ void pcr_solve_pair(Row<R>& x0, Row<R>& x1, const PcrBuf& buf,
+                               int rows) {
+  const int i0 = 2 * (int)threadIdx.x, i1 = i0 + 1;
+  int kb = 0;
+  for (int s = 1;; s <<= 1, kb ^= 1) {
+    store_row(buf, kb, i0, x0);
+    store_row(buf, kb, i1, x1);
+    const bool live = __syncthreads_or(x0.a != 0.0f || x0.c != 0.0f ||
+                                       x1.a != 0.0f || x1.c != 0.0f);
+    if (!live || s >= rows) break;
+    pcr_stage(x0, load_row<R>(buf, kb, i0 - s), load_row<R>(buf, kb, i0 + s));
+    pcr_stage(x1, load_row<R>(buf, kb, i1 - s), load_row<R>(buf, kb, i1 + s));
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    x0.f[r] = __fdiv_rn(x0.f[r], x0.b);
+    x1.f[r] = __fdiv_rn(x1.f[r], x1.b);
+  }
+}
+
+// The scratch of a Newton kernel: phi, dx^2 c2, then the blocks' a', c'
+// and R columns of d', npad floats each.
+__device__ __forceinline__ Blocks newton_blocks(float* scratch, int k,
+                                                int npad) {
+  return Blocks{scratch + 2 * npad, scratch + 3 * npad, scratch + 4 * npad, k,
+                npad};
+}
+
+// The smallest phi of the thread's physical rows (FLT_MAX if none).
+__device__ __forceinline__ float block_rows_min(const float* phi_s, int k,
+                                                int ng) {
+  float lo = 3.402823466e38f;
+  for (int j = 0; j < k && (int)threadIdx.x * k + j < ng; ++j)
+    lo = fminf(lo, phi_s[block_at(j)]);
+  return lo;
+}
+
+// newton_dd_kernel's loop above 1,024 rows (header: the large path).
+// scratch: 5 npad floats (npad = T k).
+__global__ void __launch_bounds__(1024)
+    newton_dd_large_kernel(const float* __restrict__ rho,
+                           const float* __restrict__ n0,
+                           const float* __restrict__ phi0,
+                           float* __restrict__ phi_out,
+                           int* __restrict__ iters_out,
+                           float* __restrict__ resid_out,
+                           float* __restrict__ scratch, int ng, int k,
+                           NewtonScalars s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, t = threadIdx.x, npad = T * k;
+  float* s_edge;  // [T] each block's first phi, then [T] its last
+  const PcrBuf buf = carve<1>(smem, 2 * T, &s_edge);
+  float* s_lo = s_edge;
+  float* s_hi = s_edge + T;
+  __shared__ double s_red[32];
+  __shared__ float s_redf[32];
+  float* phi_s = scratch;
+  float* c2_s = scratch + npad;  // dx^2 c2
+  const Blocks B = newton_blocks(scratch, k, npad);
+  const float c0 = __fmul_rn(s.coef, n0[0]);
+  const float dx2_c0 = __fmul_rn(s.dx2, c0);
+  const float jac_b = __fmul_rn(__fmul_rn(-s.dx2, c0), s.c1);
+  for (int e = t; e < npad; e += T) {  // rows in order, into the blocks
+    const int j = e % k, o = j * T + e / k;
+    const float p = (phi0 != nullptr && e >= 1 && e <= ng - 2) ? phi0[e] : 0.0f;
+    phi_s[o] = p;
+    c2_s[o] = e < ng ? __fmul_rn(s.dx2, __fdiv_rn(rho[e], s.eps0)) : 0.0f;
+    if (j == 0) s_lo[e / k] = p;
+    if (j == k - 1) s_hi[e / k] = p;
+  }
+  init_rims<1>(buf, 2 * T);
+  __syncthreads();
+  float residual = 1.0f;
+  int it = 0;
+  while (it < s.maxiter && residual > s.tol) {
+    float down = t > 0 ? s_hi[t - 1] : 0.0f;
+    float cur = phi_s[t];
+    sweep_down<1>(B, [&](int j) {
+      const int i = t * k + j;
+      const float up = j + 1 < k ? phi_s[block_at(j + 1)]
+                                 : (t + 1 < T ? s_lo[t + 1] : 0.0f);
+      const bool interior = i >= 1 && i <= ng - 2;
+      const bool boundary = i < ng && !interior;
+      const float a_lap = interior ? 1.0f : 0.0f;
+      const float d_lap = interior ? -2.0f : 1.0f;
+      const float ex =
+          expf(fminf(fmaxf(__fmul_rn(s.c1, cur), -s.exp_clamp), s.exp_clamp));
+      const float lap = __fadd_rn(
+          __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, cur)),
+          __fmul_rn(a_lap, up));
+      const float f =
+          __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+      Row<1> x;
+      x.a = a_lap;
+      x.b = __fadd_rn(d_lap, interior ? __fmul_rn(jac_b, ex)
+                                      : (boundary ? jac_b : 0.0f));
+      x.c = a_lap;
+      x.f[0] = interior ? f : 0.0f;  // walls and padding: residual rows 0
+      down = cur;
+      cur = up;
+      return x;
+    });
+    Row<1> x0, x1;
+    sweep_up<1>(B, x0, x1);
+    pcr_solve_pair<1>(x0, x1, buf, 2 * T);
+    double sq = 0.0;
+    for (int j = 0; j < k; ++j) {
+      float x;
+      recover<1>(B, j, x0.f, x1.f, &x);
+      const float dphi = fminf(fmaxf(x, -s.step_max), s.step_max);
+      const int e = block_at(j);
+      const float p = __fsub_rn(phi_s[e], dphi);
+      phi_s[e] = p;
+      sq += (double)__fmul_rn(dphi, dphi);
+      if (j == 0) s_lo[t] = p;
+      if (j == k - 1) s_hi[t] = p;
+    }
+    // the next iteration's edge phi and this one's partial sums, one barrier
+    warp_partial(sq, s_red);
+    __syncthreads();
+    residual = (float)block_total(s_red);
+    ++it;
+  }
+  const float lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
+  for (int e = t; e < ng; e += T)
+    phi_out[e] = __fsub_rn(phi_s[(e % k) * T + e / k], lo);
+  if (t == 0) {
+    iters_out[0] = it;
+    resid_out[0] = residual;
+  }
+}
+
+// newton_dn_kernel's loop above 1,024 rows (header: the large path).
+// scratch: 6 npad floats.
+__global__ void __launch_bounds__(1024)
+    newton_dn_large_kernel(const float* __restrict__ n,
+                           const float* __restrict__ n0,
+                           const float* __restrict__ phi0,
+                           float* __restrict__ phi_out,
+                           int* __restrict__ iters_out,
+                           float* __restrict__ resid_out,
+                           float* __restrict__ scratch, int ng, int k,
+                           NewtonScalars s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, t = threadIdx.x, npad = T * k;
+  float* s_edge;
+  const PcrBuf buf = carve<2>(smem, 2 * T, &s_edge);
+  float* s_lo = s_edge;
+  float* s_hi = s_edge + T;
+  __shared__ double s_red[32];
+  __shared__ float s_redf[32];
+  __shared__ float s_m3[3];  // phi[ng-3]; then y[ng-3], z[ng-3]
+  float* phi_s = scratch;
+  float* c2_s = scratch + npad;  // dx^2 c2
+  const Blocks B = newton_blocks(scratch, k, npad);
+  const int t3 = (ng - 3) / k, j3 = (ng - 3) % k;
+  const float c0 = __fmul_rn(s.coef, n0[0]);
+  const float dx2_c0 = __fmul_rn(s.dx2, c0);
+  const float jac_b = __fmul_rn(__fmul_rn(-s.dx2, c0), s.c1);
+  for (int e = t; e < npad; e += T) {
+    const int j = e % k, o = j * T + e / k;
+    const float p = e < ng ? phi0[e] : 0.0f;
+    phi_s[o] = p;
+    c2_s[o] = e < ng ? __fmul_rn(s.dx2, __fmul_rn(n[e], s.coef)) : 0.0f;
+    if (j == 0) s_lo[e / k] = p;
+    if (j == k - 1) s_hi[e / k] = p;
+    if (e == ng - 3) s_m3[0] = p;
+  }
+  init_rims<2>(buf, 2 * T);
+  __syncthreads();
+  float residual = 1.0f;
+  int it = 0;
+  while (it < s.maxiter && residual > s.tol) {
+    const float phi_m3 = s_m3[0], phi_first = s_lo[0];
+    float down = t > 0 ? s_hi[t - 1] : 0.0f;
+    float cur = phi_s[t];
+    sweep_down<2>(B, [&](int j) {
+      const int i = t * k + j;
+      const float up = j + 1 < k ? phi_s[block_at(j + 1)]
+                                 : (t + 1 < T ? s_lo[t + 1] : 0.0f);
+      const bool inner = i >= 1 && i <= ng - 2;
+      const bool last = i == ng - 1;
+      const float a_lap = inner ? 1.0f : (last ? -4.0f : 0.0f);
+      const float c_lap = inner ? 1.0f : 0.0f;
+      const float d_lap = inner ? -2.0f : (last ? 3.0f : 1.0f);
+      const float u_row = last ? 1.0f : 0.0f;  // rank-1 u = e_{ng-1}
+      const float ex =
+          expf(fminf(fmaxf(__fmul_rn(s.c1, cur), -s.exp_clamp), s.exp_clamp));
+      float lap = __fadd_rn(
+          __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, cur)),
+          __fmul_rn(c_lap, up));
+      lap = __fadd_rn(lap, __fmul_rn(u_row, phi_m3));  // A[-1, -3]
+      float f =
+          __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+      f = i == 0 ? phi_first : f;
+      f = (last || i >= ng) ? 0.0f : f;
+      Row<2> x;
+      x.a = a_lap;
+      x.b = __fadd_rn(d_lap, inner ? __fmul_rn(jac_b, ex)
+                                   : (i == 0 ? jac_b : 0.0f));
+      x.c = c_lap;
+      x.f[0] = f;
+      x.f[1] = u_row;
+      down = cur;
+      cur = up;
+      return x;
+    });
+    Row<2> x0, x1;
+    sweep_up<2>(B, x0, x1);
+    pcr_solve_pair<2>(x0, x1, buf, 2 * T);
+    if (t == t3) {  // y[ng-3] and z[ng-3] from their owning thread
+      float yz[2];
+      recover<2>(B, j3, x0.f, x1.f, yz);
+      s_m3[1] = yz[0];
+      s_m3[2] = yz[1];
+    }
+    __syncthreads();
+    const float corr = __fdiv_rn(s_m3[1], __fadd_rn(1.0f, s_m3[2]));
+    double sq = 0.0;
+    for (int j = 0; j < k; ++j) {
+      float yz[2];
+      recover<2>(B, j, x0.f, x1.f, yz);
+      float dphi = __fsub_rn(yz[0], __fmul_rn(yz[1], corr));
+      dphi = fminf(fmaxf(dphi, -s.step_max), s.step_max);
+      const int e = block_at(j);
+      const float p = __fsub_rn(phi_s[e], dphi);
+      phi_s[e] = p;
+      sq += (double)__fmul_rn(dphi, dphi);
+      if (j == 0) s_lo[t] = p;
+      if (j == k - 1) s_hi[t] = p;
+      if (t == t3 && j == j3) s_m3[0] = p;
+    }
+    warp_partial(sq, s_red);
+    __syncthreads();
+    residual = __fsqrt_rn((float)block_total(s_red));
+    ++it;
+  }
+  const float lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
+  for (int e = t; e < ng; e += T)
+    phi_out[e] = __fsub_rn(phi_s[(e % k) * T + e / k], lo);
+  if (t == 0) {
+    iters_out[0] = it;
+    resid_out[0] = residual;
+  }
+}
+
+// tridiag3_chain_kernel above 1,024 rows (header: the large path): the
+// rank's (c,) system for [f, e_0, e_(c-1)] by the partition solve, the
+// inputs read and x written in row order. scratch: 5 npad floats (a', c'
+// and three columns of d').
+__global__ void __launch_bounds__(1024)
+    tridiag3_chain_large_kernel(const float* __restrict__ dl,
+                                const float* __restrict__ d,
+                                const float* __restrict__ du,
+                                const float* __restrict__ f,
+                                float* __restrict__ x,
+                                float* __restrict__ g6,
+                                float* __restrict__ scratch, int c, int k,
+                                int first, int last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x, t = threadIdx.x, npad = T * k;
+  float* unused;
+  const PcrBuf buf = carve<3>(smem, 2 * T, &unused);
+  const Blocks B{scratch, scratch + npad, scratch + 2 * npad, k, npad};
+  init_rims<3>(buf, 2 * T);  // read only after the PCR's first barrier
+  sweep_down<3>(B, [&](int j) {
+    const int i = t * k + j;
+    const bool valid = i < c;
+    Row<3> r;
+    r.a = (valid && i > 0) ? dl[i] : 0.0f;
+    r.b = valid ? d[i] : 1.0f;
+    r.c = (valid && i < c - 1) ? du[i] : 0.0f;
+    r.f[0] = valid ? f[i] : 0.0f;
+    r.f[1] = i == 0 ? 1.0f : 0.0f;
+    r.f[2] = i == c - 1 ? 1.0f : 0.0f;
+    return r;
+  });
+  Row<3> x0, x1;
+  sweep_up<3>(B, x0, x1);
+  pcr_solve_pair<3>(x0, x1, buf, 2 * T);
+  for (int j = 0; j < k && t * k + j < c; ++j) {
+    const int i = t * k + j;
+    float v[3];
+    recover<3>(B, j, x0.f, x1.f, v);
+    x[i] = v[0];
+    x[c + i] = v[1];
+    x[2 * c + i] = v[2];
+    if (i == 0) {
+      g6[0] = v[0];
+      g6[2] = __fmul_rn(first ? 0.0f : dl[0], v[1]);
+      g6[4] = __fmul_rn(last ? 0.0f : du[c - 1], v[2]);
+    }
+    if (i == c - 1) {
+      g6[1] = v[0];
+      g6[3] = __fmul_rn(first ? 0.0f : dl[0], v[1]);
+      g6[5] = __fmul_rn(last ? 0.0f : du[c - 1], v[2]);
+    }
+  }
+}
+
+// The large path's launch: T threads (a multiple of 32 in [32, 1024]), k
+// >= 2 rows a thread, T k >= rows > the small path's kMaxRows.
+bool large_ok(int rows, int k, int threads) {
+  return threads >= 32 && threads <= kMaxRows && threads % 32 == 0 &&
+         k >= 2 && rows > kMaxRows && (long long)threads * k >= rows;
+}
+
 }  // namespace
 
 extern "C" {
@@ -517,6 +1008,56 @@ int pypic_tridiag3_chain(const float* dl, const float* d, const float* du,
   if (err != cudaSuccess) return (int)err;
   tridiag3_chain_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
       dl, d, du, f, x, g6, c, first, last);
+  return (int)cudaGetLastError();
+}
+
+// The large path (header), rows > 1,024: one CTA of `threads` threads, k
+// rows a thread (cuda_newton.large_split). scratch: (4 + R) threads k
+// floats for the Newton solves (R = 1 D-D, 2 D-N), 5 threads k for the
+// chain. The other arguments are the small path's.
+int pypic_boltzmann_dirichlet_large(
+    const float* rho, const float* n0, const float* phi0, float* phi,
+    int* iters, float* resid, float* scratch, int ng, int k, int threads,
+    float c0_coef, float eps0, float c1, float dx2, float tol, int maxiter,
+    float step_max, float exp_clamp, void* stream) {
+  if (!large_ok(ng, k, threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = newton_smem<1>(2 * threads);
+  cudaError_t err = allow_smem(newton_dd_large_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const NewtonScalars s{c0_coef, eps0, c1, dx2, tol, step_max, exp_clamp,
+                        maxiter};
+  newton_dd_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      rho, n0, phi0, phi, iters, resid, scratch, ng, k, s);
+  return (int)cudaGetLastError();
+}
+
+int pypic_boltzmann_dn_large(
+    const float* n, const float* n0, const float* phi0, float* phi,
+    int* iters, float* resid, float* scratch, int ng, int k, int threads,
+    float coef, float c1, float dx2, float tol, int maxiter, float step_max,
+    float exp_clamp, void* stream) {
+  if (!large_ok(ng, k, threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = newton_smem<2>(2 * threads);
+  cudaError_t err = allow_smem(newton_dn_large_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const NewtonScalars s{coef, 0.0f, c1, dx2, tol, step_max, exp_clamp,
+                        maxiter};
+  newton_dn_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      n, n0, phi0, phi, iters, resid, scratch, ng, k, s);
+  return (int)cudaGetLastError();
+}
+
+int pypic_tridiag3_chain_large(const float* dl, const float* d,
+                               const float* du, const float* f, float* x,
+                               float* g6, float* scratch, int c, int k,
+                               int threads, int first, int last,
+                               void* stream) {
+  if (!large_ok(c, k, threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = pcr_smem<3>(2 * threads);
+  cudaError_t err = allow_smem(tridiag3_chain_large_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tridiag3_chain_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      dl, d, du, f, x, g6, scratch, c, k, first, last);
   return (int)cudaGetLastError();
 }
 

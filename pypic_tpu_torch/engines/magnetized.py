@@ -75,13 +75,13 @@ ionization branches are tensor operations.
 
 The Newton solve is a one-launch kernel of ``ops.cuda_newton``
 (``boltzmann_dirichlet``, or ``boltzmann_dn`` on a D-N grid) for
-``newton_backend`` 'pallas', and for 'auto' on a CUDA float32 state with
-ng <= ``cuda_newton.MAX_NG`` (1024, one CTA). Otherwise it is the
-op-composed Thomas loop of ``ops.poisson`` (the JAX engine's 'xla'
-route), which reads its residual on the host once an iteration: 'xla',
-'auto' on the CPU, and 'auto' on the card above 1024 nodes, a route
-chosen by size and counted in ``THOMAS_SOLVES``. 'pallas' above 1024
-nodes on the card raises (the large-grid kernel is ROADMAP item 10).
+``newton_backend`` 'pallas', and for 'auto' on a CUDA float32 state, at
+any ng (one CTA, a row a thread up to 1,024 nodes, the large path's
+blocks of rows above), as the JAX engine's 'auto' takes its Pallas kernel
+on the TPU at any ng. 'xla', and 'auto' on the CPU, take the op-composed
+Thomas loop of ``ops.poisson`` (the JAX engine's 'xla' route), which
+reads its residual on the host once an iteration; on the card it is
+counted in ``THOMAS_SOLVES``.
 
 The draws come from the Philox kernels, keyed by the state's two key
 words and the host step: ``ops.cuda_rng.source_batch``
@@ -167,9 +167,10 @@ _MASK32 = 0xFFFFFFFF
 PREFIX_MIN_WIDTH = 1024
 # the D-N Newton envelope of the reference (pygcpic.py:1079-1080)
 DN_TOL, DN_MAXITER = 1e-3, 100
-# op-composed Thomas solves the engine chose on a CUDA state ('auto' above
-# cuda_newton.MAX_NG), by wall condition: the route reads the host once a
-# Newton iteration, so a run that takes it is told apart by this count
+# op-composed Thomas solves on a CUDA state (newton_backend 'xla', or a
+# state that is not float32), by wall condition: the route reads the host
+# once a Newton iteration, so a run that takes it is told apart by this
+# count
 THOMAS_SOLVES = {"dirichlet": 0, "dirichlet_neumann": 0}
 
 
@@ -765,8 +766,7 @@ def make_step(cfg: MagnetizedConfig,
         dens = n_dens if dirichlet_neumann else rho
         kernel = dens.dtype == torch.float32 and (
             cfg.newton_backend == "pallas"
-            or (cfg.newton_backend == "auto" and dens.is_cuda
-                and ng <= cuda_newton.MAX_NG))
+            or (cfg.newton_backend == "auto" and dens.is_cuda))
         if dirichlet_neumann:
             if kernel:
                 return cuda_newton.boltzmann_dn(dens, n0, cfg.te, dx, phi_warm,

@@ -76,6 +76,11 @@ _SIGNATURES = {
     "pypic_boltzmann_dn": (
         [_P] * 6 + [_I, _I] + [_F] * 4 + [_I, _F, _F, _P], _I),
     "pypic_tridiag3_chain": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "pypic_boltzmann_dirichlet_large": (
+        [_P] * 7 + [_I] * 3 + [_F] * 5 + [_I, _F, _F, _P], _I),
+    "pypic_boltzmann_dn_large": (
+        [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _F, _F, _P], _I),
+    "pypic_tridiag3_chain_large": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
     "pypic_hash_batch": ([_P, _L, _I, _U, _U, _F, _I, _I, _I, _P], _I),
     "pypic_source_batch": (

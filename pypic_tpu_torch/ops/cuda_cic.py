@@ -88,7 +88,8 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "picard_finalize_ext_nodep": 0, "picard_finalize_ext": 0,
             "leapfrog_gather_push": 0, "boris_gather_push_deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
-            "tridiag3_chain": 0}
+            "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
+            "boltzmann_dn_large": 0, "tridiag3_chain_large": 0}
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots

@@ -13,10 +13,20 @@ tolerance, not bit for bit (PCR sums in another order).
 
 ``boltzmann_dirichlet_plain`` is the same PCR loop as tensor operations
 (``_pcr_solve``, pallas_newton.py:65-90), its loop test read on the host.
-The kernels and the plain versions solve ``kernel_rows(ng)`` rows (ng
-rounded up to 32, a row a thread); the TPU kernels' ``padded_rows(ng)``
-(a power of two, at least 128) gives the same solution, the rows past ng
-being identity rows (``tests/test_torch_newton_rows.py``).
+Up to ``SMALL_MAX_ROWS`` (1,024) rows the kernels and the plain versions
+solve ``kernel_rows(ng)`` rows (ng rounded up to 32, a row a thread of one
+CTA); the TPU kernels' ``padded_rows(ng)`` (a power of two, at least 128)
+gives the same solution, the rows past ng being identity rows
+(``tests/test_torch_newton_rows.py``).
+
+Above 1,024 rows each of the three wrappers launches the large path of
+``csrc/newton.cu`` instead, the same loop with a partition solve in each
+iteration: one CTA of ``threads`` threads, each owning a block of k
+consecutive rows (``large_split``), the blocks reduced to their end rows
+by a sweep down and one up, the 2 x threads end rows solved by the same
+PCR, the inner rows recovered. Its plain version is ``_partition_solve``
+(the same sweeps and PCR as tensor operations). The large path takes up to
+``LARGE_MAX_ROWS`` rows on the card; the plain versions take any count.
 
 ``boltzmann_dn`` replaces ``boltzmann_dn_pallas``: the Newton loop of
 ``ops.poisson.solve_boltzmann_dirichlet_neumann`` (pygcpic.py:1062-1109)
@@ -29,18 +39,17 @@ loop as tensor operations, in the kernel's order.
 chain solve (``parallel.distributed_poisson.make_distributed_tridiag_chain``,
 the slab-sharded Newton's step) for its three right-hand sides [f, e_0,
 e_(c-1)] in one launch of the third kernel in ``csrc/newton.cu`` (the
-same PCR, one CTA, c <= 1024), and writes the rank's six interface
-scalars beside them. It replaces no TPU kernel: JAX's chain is XLA
-operations. ``tridiag3_chain_plain`` is ``_pcr_solve`` with the (3, rows)
-right-hand side; the CPU route runs it.
+same PCR, one CTA; above 1,024 rows its large path), and writes the
+rank's six interface scalars beside them. It replaces no TPU kernel:
+JAX's chain is XLA operations. ``tridiag3_chain_plain`` is the same solve
+(``_pcr_solve`` or ``_partition_solve``) with the (3, rows) right-hand
+side; the CPU route runs it.
 
 Dispatch and launch counting follow ``ops/cuda_cic.py``: CUDA tensors
 launch the kernel, CPU tensors run the plain version, anything else
 raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``,
-``['boltzmann_dn']`` or ``['tridiag3_chain']``. The kernels take ng <= ``MAX_NG`` (one CTA, a row
-a thread); the plain versions take any ng, and the engines take the
-op-composed Thomas routes of ``ops.poisson`` on the card above it (the
-large-grid kernel is ROADMAP item 10).
+``['boltzmann_dn']`` or ``['tridiag3_chain']``, or on the large path to
+the same name with ``_large`` after it.
 """
 
 from __future__ import annotations
@@ -55,7 +64,10 @@ from .poisson import NewtonResult, _EXP_CLAMP
 
 _LANE = 128  # the smallest padded row count, as on the TPU
 _WARP = 32
-MAX_NG = 1024  # one CTA, one row a thread
+SMALL_MAX_ROWS = 1024  # the one-CTA kernels, a row a thread
+# the large path's ceiling: the kernel's int offsets into its (4 + R,
+# rows) scratch stay below 2^31
+LARGE_MAX_ROWS = 1 << 27
 _COEF = float(np.float32(E_CHARGE / EPSILON_0))  # f32(e / eps0)
 
 
@@ -67,8 +79,29 @@ def padded_rows(ng: int) -> int:
 
 def kernel_rows(ng: int) -> int:
     """Rows of the port's PCR system and threads of the kernels' one CTA:
-    ng rounded up to a whole warp."""
+    ng rounded up to a whole warp (ng <= SMALL_MAX_ROWS)."""
     return -(-ng // _WARP) * _WARP
+
+
+def large_split(rows: int) -> tuple[int, int]:
+    """(k, threads) of the large path for ``rows`` > SMALL_MAX_ROWS: k =
+    ceil(rows / 1024) rows a thread, threads = ceil(rows / k) rounded up
+    to a whole warp (at most 1,024). The system has threads x k rows, the
+    rows past ``rows`` identity rows."""
+    if rows <= SMALL_MAX_ROWS:
+        raise ValueError(f"the large path takes more than {SMALL_MAX_ROWS} "
+                         f"rows, got {rows}")
+    k = -(-rows // SMALL_MAX_ROWS)
+    return k, -(-(-(-rows // k)) // _WARP) * _WARP
+
+
+def solve_rows(ng: int) -> int:
+    """Rows of the system the port solves for ng physical rows: kernel_rows
+    on the small path, threads x k on the large."""
+    if ng <= SMALL_MAX_ROWS:
+        return kernel_rows(ng)
+    k, threads = large_split(ng)
+    return k * threads
 
 
 def newton_scalars(te: float, dx: float, tol: float):
@@ -117,13 +150,92 @@ def _pcr_solve(a, b, c, f):
     return f / b
 
 
-def _check_rows(what: str, ng: int) -> None:
-    """The card's limit: one CTA, a row a thread."""
-    if ng > MAX_NG:
+def _partition_solve(a, b, c, f, k: int, threads: int):
+    """The large path's solve of a_i x_{i-1} + b_i x_i + c_i x_{i+1} = f_i
+    over rows = threads x k rows (identity rows past the physical ones), in
+    the kernels' operation order. ``f`` is (rows,) or (R, rows). Block t
+    holds rows t k .. t k + k - 1. A sweep down normalises its rows 0 and
+    1 and takes each later row's coupling to the row above out (the
+    fill-in a coupling to the block's row 0); a sweep up takes each inner
+    row's coupling to the row below out, then row 0's to row 1. The
+    blocks' first and last rows then form a tridiagonal system of 2
+    threads rows, solved by ``_pcr_solve``, and the inner rows are
+    recovered as x_j = d'_j - a'_j x_0 - c'_j x_(k-1)."""
+    lead = f.shape[:-1]
+    A, B, C = (t.reshape(threads, k) for t in (a, b, c))
+    F = f.reshape(lead + (threads, k))
+    ap, cp, dp = torch.empty_like(A), torch.empty_like(A), torch.empty_like(F)
+    for j in range(k):
+        if j < 2:
+            ap[:, j] = A[:, j] / B[:, j]
+            cp[:, j] = C[:, j] / B[:, j]
+            dp[..., j] = F[..., j] / B[:, j]
+        else:
+            den = B[:, j] - A[:, j] * cp[:, j - 1]
+            ap[:, j] = -(A[:, j] * ap[:, j - 1]) / den
+            cp[:, j] = C[:, j] / den
+            dp[..., j] = (F[..., j] - A[:, j] * dp[..., j - 1]) / den
+    for j in range(k - 3, 0, -1):
+        dp[..., j] = dp[..., j] - cp[:, j] * dp[..., j + 1]
+        ap[:, j] = ap[:, j] - cp[:, j] * ap[:, j + 1]
+        cp[:, j] = -(cp[:, j] * cp[:, j + 1])
+    a0, c0, d0 = ap[:, 0], cp[:, 0], dp[..., 0]
+    if k >= 3:  # with k = 2, row 0 already couples to x_(k-1)
+        den = 1.0 - c0 * ap[:, 1]
+        a0, c0, d0 = (a0 / den, -(c0 * cp[:, 1]) / den,
+                      (d0 - c0 * dp[..., 1]) / den)
+
+    def ends(first, last):  # [first_0, last_0, first_1, ...]
+        return torch.stack([first, last], dim=-1).flatten(-2)
+
+    x = _pcr_solve(ends(a0, ap[:, -1]),
+                   torch.ones((2 * threads,), dtype=a.dtype, device=a.device),
+                   ends(c0, cp[:, -1]), ends(d0, dp[..., -1]))
+    xf, xl = x[..., 0::2, None], x[..., 1::2, None]
+    out = dp - ap * xf - cp * xl
+    out[..., 0] = xf[..., 0]
+    out[..., -1] = xl[..., 0]
+    return out.flatten(-2)
+
+
+def _tridiag_solve(a, b, c, f, ng: int):
+    """The solve of the ``solve_rows(ng)`` rows as the kernel for ng runs
+    it: ``_pcr_solve`` up to SMALL_MAX_ROWS, ``_partition_solve`` above."""
+    if ng <= SMALL_MAX_ROWS:
+        return _pcr_solve(a, b, c, f)
+    return _partition_solve(a, b, c, f, *large_split(ng))
+
+
+def _sum_sq(dphi, ng: int):
+    """sum(dphi^2) as the plain loop tests it: in float32 up to
+    SMALL_MAX_ROWS; above, in float64 rounded to float32, as the large
+    path's per-thread float64 sums."""
+    sq = dphi * dphi
+    if ng <= SMALL_MAX_ROWS:
+        return torch.sum(sq)
+    return torch.sum(sq.double()).float()
+
+
+# the large path's scratch, floats a row (csrc/newton.cu): 4 + R for the
+# Newton solves (R = 1 D-D, 2 D-N), 2 + R for the chain (R = 3)
+_SCRATCH_ROWS = {"boltzmann_dirichlet": 5, "boltzmann_dn": 6, "tridiag3_chain": 5}
+
+
+def _path(what: str, rows: int, dev):
+    """The kernel ``what`` launches for ``rows`` on ``dev``: (its launch
+    count's name, (k, threads) or None, scratch or None). Up to
+    SMALL_MAX_ROWS the one-CTA kernel; above, the large path with its split
+    and its scratch; raises above LARGE_MAX_ROWS."""
+    if rows <= SMALL_MAX_ROWS:
+        return what, None, None
+    if rows > LARGE_MAX_ROWS:
         raise ValueError(
-            f"{what} needs ng <= {MAX_NG} on the card (one CTA, a row a "
-            f"thread), got ng={ng}; the large-grid kernel is ROADMAP.md "
-            "queue 1, item 10")
+            f"{what} takes at most {LARGE_MAX_ROWS} rows on the card (the "
+            f"large path's int offsets into its scratch), got {rows}")
+    k, threads = large_split(rows)
+    scratch = torch.empty((_SCRATCH_ROWS[what] * k * threads,),
+                          dtype=torch.float32, device=dev)
+    return f"{what}_large", (k, threads), scratch
 
 
 def _as_n0(n0, dev) -> torch.Tensor:
@@ -152,7 +264,7 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
     _newton_dd_kernel), in its operation order. Returns NewtonResult."""
     ng = rho.shape[0]
     dev = rho.device
-    rows = kernel_rows(ng)
+    rows = solve_rows(ng)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     c0 = _COEF * _as_n0(n0, dev)[0]
     col = torch.arange(rows, device=dev)
@@ -178,10 +290,10 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
         f = torch.where(interior, f, 0.0)
         ddiag = torch.where(interior, jac_b * expo,
                             torch.where(boundary, jac_b, 0.0))
-        dphi = _pcr_solve(a_lap, d_lap + ddiag, c_lap, f)
+        dphi = _tridiag_solve(a_lap, d_lap + ddiag, c_lap, f, ng)
         dphi = torch.clamp(dphi, -step_max, step_max)
         phi = phi - dphi
-        residual = torch.sum(dphi * dphi)
+        residual = _sum_sq(dphi, ng)
         it += 1
     phi = phi[:ng]
     return NewtonResult(phi - torch.min(phi),
@@ -191,7 +303,8 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
 
 def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
     """Newton-Boltzmann D-D solve of the (ng,) float32 charge density rho
-    for the potential, ng <= 1024, in one kernel launch on a CUDA tensor.
+    for the potential, in one kernel launch on a CUDA tensor (the large
+    path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS).
 
     ``n0`` is the Boltzmann reference density: a Python number or a 0-d
     tensor on rho's device (read there by the kernel). ``phi0`` is the warm
@@ -211,23 +324,28 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
     if kind == "cpu":
         return boltzmann_dirichlet_plain(rho, n0, te, dx, tol=tol,
                                          maxiter=maxiter, phi0=phi0)
-    _check_rows("boltzmann_dirichlet", ng)
-    lib = _build.library()
     dev = rho.device
+    name, split, scratch = _path("boltzmann_dirichlet", ng, dev)
+    lib = _build.library()
     n0_t = _as_n0(n0, dev)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     phi = torch.empty((ng,), dtype=torch.float32, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     resid = torch.empty((), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.pypic_boltzmann_dirichlet(
-            rho.data_ptr(), n0_t.data_ptr(),
+    ptrs = (rho.data_ptr(), n0_t.data_ptr(),
             None if phi0 is None else phi0.data_ptr(), phi.data_ptr(),
-            iters.data_ptr(), resid.data_ptr(), ng, kernel_rows(ng),
-            _COEF, float(np.float32(EPSILON_0)), c1, dx2, tol32, int(maxiter),
-            step_max, _EXP_CLAMP, _stream(dev))
-    _build.check(err, "boltzmann_dirichlet")
-    LAUNCHES["boltzmann_dirichlet"] += 1
+            iters.data_ptr(), resid.data_ptr())
+    scalars = (_COEF, float(np.float32(EPSILON_0)), c1, dx2, tol32,
+               int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
+    with torch.cuda.device(dev):
+        if split is None:
+            err = lib.pypic_boltzmann_dirichlet(*ptrs, ng, kernel_rows(ng),
+                                                *scalars)
+        else:
+            err = lib.pypic_boltzmann_dirichlet_large(
+                *ptrs, scratch.data_ptr(), ng, *split, *scalars)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)
 
 
@@ -236,7 +354,7 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     _newton_dn_kernel), in its operation order. Returns NewtonResult."""
     ng = n.shape[0]
     dev = n.device
-    rows = kernel_rows(ng)
+    rows = solve_rows(ng)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     c0 = _COEF * _as_n0(n0, dev)[0]
     col = torch.arange(rows, device=dev)
@@ -264,11 +382,12 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
         f = torch.where(last | ~valid, 0.0, f)
         ddiag = torch.where(inner, jac_b * expo,
                             torch.where(col == 0, jac_b, 0.0))
-        y, z = _pcr_solve(a_lap, d_lap + ddiag, c_lap, torch.stack([f, u_row]))
+        y, z = _tridiag_solve(a_lap, d_lap + ddiag, c_lap,
+                              torch.stack([f, u_row]), ng)
         dphi = y - z * (y[ng - 3] / (1.0 + z[ng - 3]))
         dphi = torch.clamp(dphi, -step_max, step_max)
         phi = phi - dphi
-        residual = torch.sqrt(torch.sum(dphi * dphi))
+        residual = torch.sqrt(_sum_sq(dphi, ng))
         it += 1
     phi = phi[:ng]
     return NewtonResult(phi - torch.min(phi),
@@ -278,7 +397,8 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
 
 def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     """Newton-Boltzmann D-N solve of the (ng,) float32 number density n
-    for the potential, in one kernel launch on a CUDA tensor (ng <= 1024).
+    for the potential, in one kernel launch on a CUDA tensor (the large
+    path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS).
 
     ``n0`` is the Boltzmann reference density, a Python number or a 0-d
     tensor on n's device; ``phi0`` the (ng,) warm start, used as it is (no
@@ -297,21 +417,26 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     if kind == "cpu":
         return boltzmann_dn_plain(n, n0, te, dx, phi0, tol=tol,
                                   maxiter=maxiter)
-    _check_rows("boltzmann_dn", ng)
-    lib = _build.library()
     dev = n.device
+    name, split, scratch = _path("boltzmann_dn", ng, dev)
+    lib = _build.library()
     n0_t = _as_n0(n0, dev)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
     phi = torch.empty((ng,), dtype=torch.float32, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
     resid = torch.empty((), dtype=torch.float32, device=dev)
+    ptrs = (n.data_ptr(), n0_t.data_ptr(), phi0.data_ptr(), phi.data_ptr(),
+            iters.data_ptr(), resid.data_ptr())
+    scalars = (_COEF, c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP,
+               _stream(dev))
     with torch.cuda.device(dev):
-        err = lib.pypic_boltzmann_dn(
-            n.data_ptr(), n0_t.data_ptr(), phi0.data_ptr(), phi.data_ptr(),
-            iters.data_ptr(), resid.data_ptr(), ng, kernel_rows(ng), _COEF,
-            c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
-    _build.check(err, "boltzmann_dn")
-    LAUNCHES["boltzmann_dn"] += 1
+        if split is None:
+            err = lib.pypic_boltzmann_dn(*ptrs, ng, kernel_rows(ng), *scalars)
+        else:
+            err = lib.pypic_boltzmann_dn_large(*ptrs, scratch.data_ptr(), ng,
+                                               *split, *scalars)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)
 
 
@@ -329,11 +454,12 @@ def _chain_scalars(x, dl, du, first: bool, last: bool) -> torch.Tensor:
 
 def tridiag3_chain_plain(dl, d, du, f, *, first: bool, last: bool):
     """The kernel's solve as tensor operations: ``_pcr_solve`` over
-    ``kernel_rows(c)`` rows (identity rows past c) with the (3, rows)
+    ``kernel_rows(c)`` rows, or above SMALL_MAX_ROWS ``_partition_solve``
+    over ``solve_rows(c)`` (identity rows past c), with the (3, rows)
     right-hand side [f, e_0, e_(c-1)], the couplings dl[0] and du[c-1]
     left out. Returns ((3, c) [xp, u, w], (6,) interface scalars)."""
     c = d.shape[0]
-    rows = kernel_rows(c)
+    rows = solve_rows(c)
     dev, dt = d.device, d.dtype
     pad = torch.zeros((rows - c,), dtype=dt, device=dev)
     a = torch.cat([dl, pad])
@@ -345,7 +471,7 @@ def tridiag3_chain_plain(dl, d, du, f, *, first: bool, last: bool):
     rhs[0, :c] = f
     rhs[1, 0] = 1.0
     rhs[2, c - 1] = 1.0
-    x = _pcr_solve(a, b, cu, rhs)[:, :c].contiguous()
+    x = _tridiag_solve(a, b, cu, rhs, c)[:, :c].contiguous()
     return x, _chain_scalars(x, dl, du, first, last)
 
 
@@ -353,7 +479,8 @@ def tridiag3_chain(dl, d, du, f, *, first: bool, last: bool):
     """One rank's local chain solve: the (c,) float32 rows dl[i] x[i-1] +
     d[i] x[i] + du[i] x[i+1] = rhs[i] with dl[0] and du[c-1] (the
     couplings to the neighbouring slabs) left out, for rhs = f, e_0 and
-    e_(c-1), in one kernel launch on CUDA tensors (c <= 1024). ``first``
+    e_(c-1), in one kernel launch on CUDA tensors (the large path above
+    SMALL_MAX_ROWS rows, up to LARGE_MAX_ROWS). ``first``
     / ``last``: the rank is the chain's first / last (no coupling there).
     Returns ((3, c) [xp, u, w], (6,) [xp_0, xp_(c-1), a0 u_0,
     a0 u_(c-1), cc w_0, cc w_(c-1)]), on the inputs' device, with no host
@@ -366,16 +493,21 @@ def tridiag3_chain(dl, d, du, f, *, first: bool, last: bool):
         raise ValueError(f"tridiag3_chain needs c >= 2, got c={c}")
     if kind == "cpu":
         return tridiag3_chain_plain(dl, d, du, f, first=first, last=last)
-    _check_rows("tridiag3_chain", c)
-    lib = _build.library()
     dev = d.device
+    name, split, scratch = _path("tridiag3_chain", c, dev)
+    lib = _build.library()
     x = torch.empty((3, c), dtype=torch.float32, device=dev)
     g6 = torch.empty((6,), dtype=torch.float32, device=dev)
+    ptrs = (dl.data_ptr(), d.data_ptr(), du.data_ptr(), f.data_ptr(),
+            x.data_ptr(), g6.data_ptr())
     with torch.cuda.device(dev):
-        err = lib.pypic_tridiag3_chain(
-            dl.data_ptr(), d.data_ptr(), du.data_ptr(), f.data_ptr(),
-            x.data_ptr(), g6.data_ptr(), c, kernel_rows(c), int(first),
-            int(last), _stream(dev))
-    _build.check(err, "tridiag3_chain")
-    LAUNCHES["tridiag3_chain"] += 1
+        if split is None:
+            err = lib.pypic_tridiag3_chain(*ptrs, c, kernel_rows(c),
+                                           int(first), int(last), _stream(dev))
+        else:
+            err = lib.pypic_tridiag3_chain_large(
+                *ptrs, scratch.data_ptr(), c, *split, int(first), int(last),
+                _stream(dev))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return x, g6

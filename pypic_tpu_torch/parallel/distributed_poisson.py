@@ -161,7 +161,7 @@ def make_distributed_tridiag_chain(c: int, num_shards: int, mesh: SlabMesh):
     (their outer couplings unused), so the interface matrix is
     block-bidiagonal. For diagonally dominant systems (the Boltzmann
     Jacobian is); not a pivoted solver. As the JAX module: the local
-    3-column solve (one ``tridiag3_chain`` launch, c <= 1024 on the card),
+    3-column solve (one ``tridiag3_chain`` launch at any c on the card),
     an all_gather of six scalars a rank, the (2S, 2S) interface system
     solved on every rank in float32."""
     d_tot = num_shards

@@ -37,12 +37,13 @@ The bounded slab engines (``parallel.domain_sheath``,
 ``parallel.domain_magnetized``) on the same process group:
 
     python -m pypic_tpu_torch.tools.domain --magnetized [--n-per-species N]
-        [--steps 200] [--replicas R]
+        [--steps 200] [--replicas R] [--ng 600] [--solver distributed]
     python -m pypic_tpu_torch.tools.domain --sheath [--n N] [--ng 51]
         [--steps 1200]
 
 ``--magnetized`` runs ``presets.pic_iead_dd`` at the configs[3] row's
-width (n_per_species 166,666, n = 999,996, ng 600) for 200 steps and
+width (n_per_species 166,666, n = 999,996, ng 600 unless ``--ng`` says
+otherwise; ``--solver replicated`` the global Newton) for 200 steps and
 prints ms/step, pushes/s, the Newton iterations a step (mean, max), the
 launches and host syncs a step, n_dropped, the population invariant
 (n_active + wall losses constant) and phi_max over the floating
@@ -249,15 +250,27 @@ SHEATH_N, SHEATH_NG, SHEATH_STEPS = 1_000_000, 51, 1200
 
 
 def magnetized_row(mesh, n_per_species: int = MAG_N_PER_SPECIES,
-                   replicas: int = 1, ng: int = 600, **kw):
+                   replicas: int = 1, ng: int = 600,
+                   solver: str = "distributed", **kw):
     """The ``pic_iead_dd`` preset on this rank: ``mesh`` is the world's
     mesh, cut into slabs x ``replicas`` (``make_mesh2``) when replicas >
-    1."""
-    from .. import presets
+    1; ``solver`` 'distributed' (the preset's chain solve) or 'replicated'
+    (the global Newton kernel on every rank)."""
+    import dataclasses
 
-    return presets.pic_iead_dd(n_per_species=n_per_species, ng=ng,
-                               replicas=replicas, mesh=mesh,
-                               device=mesh.device, **kw)
+    from .. import presets
+    from ..parallel import domain_magnetized
+
+    pre = presets.pic_iead_dd(n_per_species=n_per_species, ng=ng,
+                              replicas=replicas, mesh=mesh,
+                              device=mesh.device, **kw)
+    if solver == pre.config.solver:
+        return pre
+    cfg = dataclasses.replace(pre.config, solver=solver)
+    slabs = pre.meta["mesh"]
+    return dataclasses.replace(
+        pre, config=cfg,
+        step_builder=lambda: domain_magnetized.make_step(cfg, slabs))
 
 
 def sheath_row(mesh, n: int = SHEATH_N, ng: int = SHEATH_NG, **overrides):
@@ -400,7 +413,11 @@ def main(argv=None) -> dict:
                     help="the configs[2] physics on parallel.domain_sheath")
     ap.add_argument("--n-per-species", type=int, default=MAG_N_PER_SPECIES)
     ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--ng", type=int, default=SHEATH_NG)
+    ap.add_argument("--ng", type=int, default=None,
+                    help="grid nodes (600 for --magnetized, 51 for --sheath)")
+    ap.add_argument("--solver", choices=("distributed", "replicated"),
+                    default="distributed",
+                    help="--magnetized: the slab Newton's solver")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--warmup", type=int, default=WARMUP)
     ap.add_argument("--steps", type=int, default=STEPS)
@@ -450,7 +467,8 @@ def bounded_main(args, mesh) -> dict:
     steps = args.steps if args.steps != STEPS else (
         MAG_STEPS if args.magnetized else SHEATH_STEPS)
     if args.magnetized:
-        pre = magnetized_row(mesh, args.n_per_species, args.replicas)
+        pre = magnetized_row(mesh, args.n_per_species, args.replicas,
+                             args.ng or 600, args.solver)
         n = args.n_per_species * 6
         res = timed_rows(pre.make_step(), pre.state, steps, args.warmup)
         summary, problems = magnetized_summary(
@@ -458,7 +476,7 @@ def bounded_main(args, mesh) -> dict:
         row = "pic_iead_dd"
     else:
         n = args.n or SHEATH_N
-        cfg, st = sheath_row(mesh, n, args.ng)
+        cfg, st = sheath_row(mesh, n, args.ng or SHEATH_NG)
         from ..parallel import domain_sheath
 
         res = timed_rows(domain_sheath.make_step(cfg, mesh), st, steps,

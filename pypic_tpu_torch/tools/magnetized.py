@@ -32,6 +32,7 @@ carry_clamped, n_ion_suppressed and n_escape_deferred (the carry is
 exact while all three are 0; bench.py warns otherwise).
 
     python -m pypic_tpu_torch.tools.magnetized [--row iead|dn|gc] [--carried]
+        [--ng NG]
 
 runs a row and prints one JSON line: µs/step, pushes/s, the mean Newton
 iteration count, the row's own figures (configs[3]: the mean phi_max of
@@ -39,7 +40,15 @@ the last 100 steps over the floating potential) and the kernel launches;
 it exits non-zero when a check fails. It needs an NVIDIA GPU. The steps
 run under ``torch.cuda.set_sync_debug_mode("error")``: a host sync in a
 step raises (the three rows' routes read nothing back; the op-composed
-Thomas route above 1,024 nodes would, and is never taken here).
+Thomas route, newton_backend 'xla', would, and is never taken here).
+``--ng`` runs the row's load on another grid (the presets' ng; 600 for
+'iead' and 'gc', 800 for 'dn' by default): above 1,024 nodes the Newton
+solve is the large path of ``csrc/newton.cu`` (``chip_smoke.py`` phase 39
+runs the configs[3] load at ng = 4,096 and 16,384 and the D-N row at
+8,000). The row's Newton residual check (<= tol after step 5) keeps the
+configs[3] row's tol 1e-9, which lies under the float32 floor at large
+grids: at ng = 16,384 most steps end at maxiter above it, and the tool
+prints its line and exits non-zero naming that check (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -75,16 +84,19 @@ def state(device=None, n_per_species: int = N_PER_SPECIES):
 
 
 def preset(row: str, dev, n_per_species: int = N_PER_SPECIES,
-           n: int | None = None):
+           n: int | None = None, ng: int | None = None):
     """The preset of ``row`` ('iead', 'dn' or 'gc') on ``dev``: the
     configs[3] row's pic_iead or pic_iead_gc at ``n_per_species``, or
-    dirichlet_neumann_test at ``n`` (``N_DN`` by default)."""
+    dirichlet_neumann_test at ``n`` (``N_DN`` by default); on ``ng``
+    nodes, or the preset's own grid."""
+    grid = {} if ng is None else dict(ng=ng)
     if row == "iead":
-        return presets.pic_iead(n_per_species=n_per_species, device=dev)
+        return presets.pic_iead(n_per_species=n_per_species, device=dev, **grid)
     if row == "gc":
-        return presets.pic_iead_gc(n_per_species=n_per_species, device=dev)
+        return presets.pic_iead_gc(n_per_species=n_per_species, device=dev,
+                                   **grid)
     if row == "dn":
-        return presets.dirichlet_neumann_test(n=n or N_DN, device=dev)
+        return presets.dirichlet_neumann_test(n=n or N_DN, device=dev, **grid)
     raise ValueError(f"unknown row {row!r}; have {ROWS}")
 
 
@@ -186,9 +198,11 @@ def last_iead_traffic(cfg, st):
 
 def run_row(device=None, steps: int = STEPS,
             n_per_species: int = N_PER_SPECIES, warmup: int = 3,
-            row: str = "iead", n: int | None = None, **overrides):
+            row: str = "iead", n: int | None = None, ng: int | None = None,
+            **overrides):
     """Run a row (``row`` 'iead', the configs[3] row; 'dn' at ``n``
-    particles, ``N_DN`` by default; 'gc' at ``n_per_species``): ``warmup``
+    particles, ``N_DN`` by default; 'gc' at ``n_per_species``; on ``ng``
+    nodes, the preset's grid by default): ``warmup``
     steps from the initial state (set-up: the first launch of each PyTorch
     kernel loads it, and the flux table goes to the device), then from the
     initial state again, the launch counts set to 0, ``steps`` steps under
@@ -202,7 +216,7 @@ def run_row(device=None, steps: int = STEPS,
 
     dev = devices.resolve(device)
     cuda = dev.type == "cuda"
-    pre = preset(row, dev, n_per_species, n)
+    pre = preset(row, dev, n_per_species, n, ng)
     cfg, st = pre.config, pre.state
     phi_f = pre.meta.get("floating_potential")
     cfg = dataclasses.replace(cfg, **overrides)
@@ -258,10 +272,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--carried", action="store_true",
                     help="bench.py --carried: carried_deposit='on', "
                          "react_batch 16,384")
+    ap.add_argument("--ng", type=int, default=None,
+                    help="grid nodes (the preset's own by default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     res, cfg, fin, m = run_row(torch.device("cuda", 0), row=args.row,
+                               ng=args.ng,
                                **(CARRIED if args.carried else {}))
     res["problems"] = CHECKS[args.row](cfg, fin, m)
     print(json.dumps(res))

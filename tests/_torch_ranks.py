@@ -447,3 +447,19 @@ def dp_carried(mesh, state, cfg, n_steps, draws):
         st, m = step(st)
         _scalar_rows(rows, m)
     return rows, np.stack([st.rho.cpu().numpy(), st.n.cpu().numpy()])
+
+
+def slab_preset_rows(mesh, n_per_species, ng, n_steps):
+    """``n_steps`` of ``presets.pic_iead_dd`` on this rank (its own Philox
+    draws, one slab a rank). Returns the scalar metric rows and the
+    config's cells_per_shard."""
+    from pypic_tpu_torch import presets
+
+    pre = presets.pic_iead_dd(n_per_species=n_per_species, ng=ng, mesh=mesh,
+                              device=mesh.device)
+    step, st, rows = pre.make_step(), pre.state, {}
+    for _ in range(n_steps):
+        st, m = step(st)
+        _scalar_rows(rows, m)
+    rows["cells_per_shard"] = pre.config.cells_per_shard
+    return rows

@@ -1125,8 +1125,10 @@ def test_gc_step_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_wrappers_raise_above_the_cards_limits(cuda_device):
     """On CUDA tensors the size limits hold (the CPU route runs any size):
-    shared memory a block, the deterministic deposits' thread histograms
-    and the Newton kernels' one CTA; nothing is launched."""
+    shared memory a block and the deterministic deposits' thread
+    histograms; nothing is launched. The Newton kernels run above their
+    one CTA's 1,024 rows (one launch of the large path each) and raise
+    only above the large path's LARGE_MAX_ROWS."""
     from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
 
     def z(k):
@@ -1147,34 +1149,75 @@ def test_wrappers_raise_above_the_cards_limits(cuda_device):
         cuda_cic.deposit_det(p, p, 1817, periodic=False)
     with pytest.raises(ValueError, match="thread histograms"):
         cuda_sheath.sheath_picard(z(1817), p, p, p, p, p, p, dt=1e-12, dx=1e-5)
-    with pytest.raises(ValueError, match="item 10"):
-        cuda_newton.boltzmann_dirichlet(z(1025), 1e17, 1.16e5, 2e-5)
-    with pytest.raises(ValueError, match="item 10"):
-        cuda_newton.boltzmann_dn(z(1025), 1e17, 1.16e5, 2e-5, z(1025))
+    with pytest.raises(ValueError, match="at most"):
+        cuda_newton.boltzmann_dirichlet(z(cuda_newton.LARGE_MAX_ROWS + 1), 1e17,
+                                        1.16e5, 2e-5)
     assert cuda_cic.LAUNCHES == before
+    dd = cuda_newton.boltzmann_dirichlet(z(1025), 1e17, 1.16e5, 2e-5)
+    dn = cuda_newton.boltzmann_dn(z(1025), 1e17, 1.16e5, 2e-5, z(1025))
+    assert bool(torch.isfinite(dd.phi).all() & torch.isfinite(dn.phi).all())
+    for name in ("boltzmann_dirichlet", "boltzmann_dn"):
+        assert cuda_cic.LAUNCHES[f"{name}_large"] == before[f"{name}_large"] + 1
+        assert cuda_cic.LAUNCHES[name] == before[name]
 
 
 @pytest.mark.cuda
-def test_magnetized_auto_above_1024_nodes_takes_thomas(cuda_device):
-    """newton_backend 'auto' at ng = 1200 on the card takes the op-composed
-    Thomas route (counted in THOMAS_SOLVES, no Newton kernel launch) and
-    converges; 'pallas' there raises naming ROADMAP item 10."""
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_magnetized_auto_above_1024_nodes_launches_the_kernel(cuda_device,
+                                                              backend):
+    """newton_backend 'auto' (and 'pallas') at ng = 1200 on the card
+    launches the large D-D Newton kernel once a step, takes no Thomas
+    solve (THOMAS_SOLVES stays as it was), and phi converges."""
     import dataclasses
 
     from pypic_tpu_torch import presets
     from pypic_tpu_torch.engines import magnetized
 
     pre = presets.pic_iead(n_per_species=500, ng=1200, device=cuda_device)
-    with pytest.raises(ValueError, match="item 10"):
-        magnetized.make_step(dataclasses.replace(
-            pre.config, newton_backend="pallas"))(pre.state)
     before = dict(magnetized.THOMAS_SOLVES)
-    launches = cuda_cic.LAUNCHES["boltzmann_dirichlet"]
-    _, m = magnetized.make_step(pre.config)(pre.state)
-    assert magnetized.THOMAS_SOLVES["dirichlet"] == before["dirichlet"] + 1
-    assert cuda_cic.LAUNCHES["boltzmann_dirichlet"] == launches
+    launches = dict(cuda_cic.LAUNCHES)
+    _, m = magnetized.make_step(dataclasses.replace(
+        pre.config, newton_backend=backend))(pre.state)
+    assert magnetized.THOMAS_SOLVES == before
+    assert (cuda_cic.LAUNCHES["boltzmann_dirichlet_large"]
+            == launches["boltzmann_dirichlet_large"] + 1)
+    assert cuda_cic.LAUNCHES["boltzmann_dirichlet"] == launches["boltzmann_dirichlet"]
     assert float(m.newton_residual) <= pre.config.newton_tol
     assert bool(torch.isfinite(m.phi).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [1025, 4098, 8000])
+@pytest.mark.parametrize("name", ["boltzmann_dirichlet", "boltzmann_dn"])
+def test_newton_large_path_matches_plain(cuda_device, name, ng):
+    """The Newton solves above 1,024 rows (the large path: blocks of k
+    rows a thread, the reduced PCR) against their plain versions on the
+    same card tensors, 8 iterations (tol 0) and a converged solve: phi
+    within 1e-5 of the largest |phi| (the chain kernel's tolerance, the
+    same arithmetic with the products unfused), equal iteration counts on
+    the fixed solve; one launch of the large path a call. The D-N row's
+    grid at 8,000 nodes, the Neumann row inside a block at 4,098."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    rng = np.random.default_rng(ng)
+    dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+    if name == "boltzmann_dirichlet":
+        rho = torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(cuda_device)
+        args = (rho, 1e17, 1.16e5, 2e-5)
+    else:
+        n = torch.from_numpy(dens.astype(np.float32)).to(cuda_device)
+        args = (n, 0.9e17, 1.16e5, 2e-5, torch.zeros_like(n))
+    wrapper = getattr(cuda_newton, name)
+    plain = getattr(cuda_newton, f"{name}_plain")
+    for kw in (dict(tol=0.0, maxiter=8), {}):
+        before = cuda_cic.LAUNCHES[f"{name}_large"]
+        got = wrapper(*args, **kw)
+        assert cuda_cic.LAUNCHES[f"{name}_large"] == before + 1
+        ref = plain(*args, **kw)
+        scale = float(ref.phi.abs().max())
+        assert float((got.phi - ref.phi).abs().max()) <= 1e-5 * scale
+        if kw:
+            assert int(got.iterations) == int(ref.iterations) == 8
 
 
 # --- the domain engines' kernels (ops/cuda_domain.py, csrc/domain.cu) ---
@@ -1551,7 +1594,7 @@ def test_hash_batch_kernel_matches_plain(cuda_device, seed, n, streams, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [2, 31, 33, 150, 600, 1024])
+@pytest.mark.parametrize("c", [2, 31, 33, 150, 600, 1024, 1025, 16384])
 @pytest.mark.parametrize("ends", [(True, True), (True, False), (False, True),
                                   (False, False)])
 def test_tridiag3_chain_kernel_matches_plain(cuda_device, c, ends):
@@ -1559,7 +1602,7 @@ def test_tridiag3_chain_kernel_matches_plain(cuda_device, c, ends):
     plain version on the same card tensors: the three columns and the six
     interface scalars within 1e-5 of the largest |x| (the same PCR, the
     products unfused), at the chain's ends and inside it; one launch a
-    call. Above 1,024 rows the card refuses, naming ROADMAP item 10."""
+    call, of the large path above 1,024 rows (1,025 and 16,384)."""
     from pypic_tpu_torch.ops import cuda_newton
 
     rng = np.random.default_rng(c)
@@ -1567,17 +1610,16 @@ def test_tridiag3_chain_kernel_matches_plain(cuda_device, c, ends):
     dl, du, f = (rng.normal(0, 1, c).astype(np.float32) for _ in range(3))
     dl, d, du, f = (torch.from_numpy(a).to(cuda_device) for a in (dl, d, du, f))
     first, last = ends
-    before = cuda_cic.LAUNCHES["tridiag3_chain"]
+    name = "tridiag3_chain" if c <= 1024 else "tridiag3_chain_large"
+    before = dict(cuda_cic.LAUNCHES)
     x, g6 = cuda_newton.tridiag3_chain(dl, d, du, f, first=first, last=last)
-    assert cuda_cic.LAUNCHES["tridiag3_chain"] == before + 1
+    assert cuda_cic.LAUNCHES[name] == before[name] + 1
+    assert sum(cuda_cic.LAUNCHES.values()) == sum(before.values()) + 1
     xr, gr = cuda_newton.tridiag3_chain_plain(dl, d, du, f, first=first,
                                               last=last)
     scale = float(xr.abs().max())
     assert float((x - xr).abs().max()) <= 1e-5 * scale
     assert float((g6 - gr).abs().max()) <= 1e-5 * scale
-    big = torch.ones(1025, device=cuda_device)
-    with pytest.raises(ValueError, match="item 10"):
-        cuda_newton.tridiag3_chain(big, big, big, big, first=True, last=True)
 
 
 @pytest.mark.cuda

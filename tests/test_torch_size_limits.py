@@ -104,13 +104,14 @@ def mag_pair():
 def test_magnetized_step_beyond_the_card_matches_jax(mag_pair, newton):
     """One magnetized step at ng = 1200 from JAX's state after one step.
     'auto' is the Thomas route on the CPU (JAX's 'xla'); 'pallas' runs the
-    Newton kernel's plain PCR at ngp = 2048 against boltzmann_dirichlet_
-    pallas in interpret mode. The JAX source draws replayed: rho rtol
-    1e-4, phi rtol 1e-3 (atol 1e-8), active positions rtol 2e-5 (atol
-    1e-5), velocities rtol 2e-4 (atol 1), equal counts
-    (tests/test_magnetized.py:461-489's limits); the Newton counts equal
-    on the Thomas route, within one on PCR (tol 1e-9 sits at the float32
-    floor, test_pallas.py:315-342)."""
+    Newton kernel's plain version (above 1,024 rows the partition solve of
+    its large path) against boltzmann_dirichlet_pallas in interpret mode.
+    The JAX source draws replayed: rho rtol 1e-4, phi rtol 1e-3 (atol
+    1e-8), active positions rtol 2e-5 (atol 1e-5), velocities rtol 2e-4
+    (atol 1), equal counts (tests/test_magnetized.py:461-489's limits);
+    the Newton counts equal on the Thomas route, within one on the
+    kernel's plain version (tol 1e-9 sits at the float32 floor,
+    test_pallas.py:315-342)."""
     jpre, js1 = mag_pair
     jcfg = dc.replace(jpre.config,
                       newton_backend="xla" if newton == "auto" else newton)
@@ -149,9 +150,10 @@ def test_magnetized_step_beyond_the_card_matches_jax(mag_pair, newton):
 
 
 def test_newton_wrappers_take_any_ng_on_the_cpu():
-    """The Newton wrappers on CPU tensors at ng = 1500: the plain PCR on
-    kernel_rows(1500) = 1,504 rows (the TPU's padded_rows 2,048),
-    bit-equal to calling the plain versions, no launch."""
+    """The Newton wrappers on CPU tensors at ng = 1500: the plain versions
+    (above 1,024 rows the large path's partition solve; kernel_rows(1500)
+    = 1,504, the TPU's padded_rows 2,048), bit-equal to calling them
+    directly, no launch."""
     rng = np.random.default_rng(3)
     dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(1500))).clip(1e15)
     n = _t(dens.astype(np.float32))
