@@ -149,8 +149,10 @@ Phases (any failure raises and the script exits non-zero):
 23. gc slice — the GC row (--row gc): n = 999,996, 1,200 steps under
    sync debug mode 'error', its launch counts and physics checks.
 24. size limits — each wrapper that keeps a card ceiling raises above it
-   (shared memory, thread histograms; the sheath pass one node above its
-   ceiling, cuda_sheath.MAX_NG) and launches nothing. The Newton family
+   and launches nothing: the rows still bounded by shared memory naming
+   ROADMAP item 10, deposit2, the carried Boris deposit, deposit_det and
+   the sheath pass and finalize (their large modes: phase 40) only above
+   cuda_cic.LARGE_MAX_NG, naming it. The Newton family
    has none below 2^27 rows: boltzmann_dirichlet and boltzmann_dn on
    their large path (above 1,024 rows) at 1,025, 4,096, 16,384 and
    262,144 rows (8 iterations, tol 0) and tridiag3_chain at c = 1,025 and
@@ -312,8 +314,9 @@ Phases (any failure raises and the script exits non-zero):
    under axis_name on one NCCL rank (against the run without) and on two
    gloo ranks (the carried rho and n the same bits on both); and
    deposit_method 'pallas' at the headline set-up, 'scatter' and
-   'matmul' at n = 1e6, ng 51 (the same bits twice, near the deposit
-   kernel, a raise naming ROADMAP item 10 at ng = 2,000).
+   'matmul' at n = 1e6, ng 51 and at ng = 2,000 (deposit_det's large
+   mode): the same bits twice, near the deposit kernel; a raise naming
+   LARGE_MAX_NG above it.
 39. large grids — the slice's main path: the configs[3] load (n =
    999,996) at ng = 16,384 and 4,096 and the D-N row at n = 500,000 and
    ng = 8,000 through tools/magnetized.run_row (50 steps after 3, sync
@@ -332,6 +335,31 @@ Phases (any failure raises and the script exits non-zero):
    tridiag3_chain_large a Newton iteration) and 'replicated' (one
    boltzmann_dirichlet_large a step): rows equal on both ranks, nothing
    dropped, the solvers' phi within TOL_LARGE_SLAB_PHI.
+40. large sheath — the slice's main path, the four kernels past their
+   shared-memory ceilings: sheath_picard and sheath_finalize (row 10) and
+   deposit_det (int64 fixed-point sums), deposit2 (row 7) and
+   boris_gather_push_deposit (row 9; global float atomics), each just
+   above its old ceiling (1,761; 1,761; 1,817; 29,057; 19,371 nodes) and
+   at 65,536 and 2^20, n = 1e6 and 1e7, against its plain version (the
+   deterministic three bit-equal from call to call and within TOL_DEP of
+   float64, the pass's outputs bit-equal; deposit2 at its tolerances;
+   row 9's push bit-equal, rho and n within TOL_DEP of float64, the
+   clamps equal), timed at the last two sizes with the bound in bytes
+   (rows and nodes) and index_add_ beside deposit2. Then the sheath
+   engine at configs[2]'s physics (presets.sheath_dd), fused at ng 8,192
+   (n = 1e6) and 65,536 (n = 8e6), composed at 8,192, 20 steps after 3:
+   ms/step, Picard passes a step, host syncs (5 more steps under sync
+   debug mode 'warn', one a pass), the wall drops, the population
+   invariant, launches; one step from the card's state on the CPU at
+   test_sheath_step_card_matches_cpu's limits, the Picard counts by
+   floor_exit_counts_agree. domain_sheath at global ng 8,192, n = 1e6:
+   one NCCL rank (10 steps after 2, launches and syncs a step), one step
+   card against CPU on a group-less rank, and two gloo ranks on the card
+   (rows equal, step 0 against the one-rank step). The configs[3] load at
+   ng 32,768, plain ('auto') and carried (--carried, carried_pad 2), 20
+   steps after 3 under sync debug mode 'error', the plain run held
+   against the CPU and a float64 step for one step (phase 39's checks),
+   the carried one against the CPU with carry_clamped equal.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -3505,26 +3533,36 @@ def phase_size_limits(dev) -> dict:
     z = lambda k: torch.zeros(k, dtype=torch.float32, device=dev)  # noqa: E731
     p, big = z(64), K.SMEM_LIMIT // 4 + 1
     kw = dict(qm=-1.7e11, w=-3.2e-9, dt=1e-7, dx=0.05)
+    # the rows still bounded by shared memory raise naming ROADMAP item 10;
+    # the four with a large mode (phase 40) only above LARGE_MAX_NG
+    top = K.LARGE_MAX_NG + 1
     calls = {
         "picard_iteration": lambda: K.picard_iteration(
             z(K.SMEM_LIMIT // 8 + 1), p, p, p, K.SMEM_LIMIT // 8 + 1, **kw),
         "deposit": lambda: K.deposit(p, p, big, periodic=True),
         "gather": lambda: K.gather(z(big), p, periodic=False),
-        "deposit2": lambda: K.deposit2(p, p, p, K.SMEM_LIMIT // 8 + 1,
-                                       periodic=False),
         "boris_gather_push": lambda: K.boris_gather_push(
             z(big), p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
-        "deposit_det": lambda: K.deposit_det(p, p, 1817, periodic=False),
-        # the pass's ceiling: 32 thread columns of ng floats a block
+        "deposit2": lambda: K.deposit2(p, p, p, top, periodic=False),
+        "boris_gather_push_deposit": lambda: K.boris_gather_push_deposit(
+            z(top), p, p, p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+        "deposit_det": lambda: K.deposit_det(p, p, top, periodic=False),
         "sheath_picard": lambda: cuda_sheath.sheath_picard(
-            z(cuda_sheath.MAX_NG + 1), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+            z(top), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+        "sheath_finalize": lambda: cuda_sheath.sheath_finalize(
+            z(top), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
     }
+    large = ("deposit2", "boris_gather_push_deposit", "deposit_det",
+             "sheath_picard", "sheath_finalize")
     K.reset_launch_counts()
     for name, call in calls.items():
         try:
             call()
         except ValueError as e:
-            log(f"[size limits] {name} on the card raises: {str(e)[:100]}")
+            log(f"[size limits] {name} on the card raises: {str(e)[:110]}")
+            want = "LARGE_MAX_NG" if name in large else "item 10"
+            if want not in str(e):
+                raise AssertionError(f"{name}'s raise does not name {want}: {e}")
         else:
             raise AssertionError(f"{name} ran above its limit on the card")
     if any(K.LAUNCHES.values()):
@@ -3967,17 +4005,18 @@ def phase_domain_slice(dev) -> dict:
     return res
 
 
-def _carried_mag_inputs(n: int, gen: torch.Generator, dev, hot: float):
+def _carried_mag_inputs(n: int, gen: torch.Generator, dev, hot: float,
+                        ng: int = NG_MAG):
     """_mag_inputs with the velocities scaled by ``hot``, every off-grid row
     inactive, four active rows driven through the walls (two a side), and
     the carried weights: wn a number density, wr its charge (Z e wn), 0 in
     inactive rows."""
-    field, p, vx, vy, vz, const, act = _mag_inputs(n, gen, dev)
+    field, p, vx, vy, vz, const, act = _mag_inputs(n, gen, dev, ng)
     vx, vy, vz = vx * hot, vy * hot, vz * hot
-    p[4:8] = torch.tensor([0.2, 0.5, NG_MAG - 1.2, NG_MAG - 1.5], device=dev)
+    p[4:8] = torch.tensor([0.2, 0.5, ng - 1.2, ng - 1.5], device=dev)
     vx[4:8] = torch.tensor([-3e5, -6e5, 3e5, 6e5], device=dev)
     act[4:8] = 1.0
-    act = act * ((p >= 0) & (p <= NG_MAG - 1)).to(act.dtype)
+    act = act * ((p >= 0) & (p <= ng - 1)).to(act.dtype)
     wn = act * 1e17
     wr = wn * const * (1.602e-19 / const.max())
     return field, p, vx, vy, vz, const, act, wr, wn
@@ -6063,10 +6102,12 @@ def phase_options(dev, card: str) -> dict:
         r = dm[method]
         log(f"[options] deposit_method {method!r} at n = {r['n']}, ng {r['ng']}: "
             f"the same bits twice {r['same_bits']}, against the deposit kernel "
-            f"{r['gap_to_deposit']:.3e} (tol {TOL_DEP}), at ng = 2,000: "
-            f"{r['raise_at_2000'][:90]!r}")
+            f"{r['gap_to_deposit']:.3e} (tol {TOL_DEP}); at ng = 2,000 (the large "
+            f"mode) {r['same_bits_large']}, {r['gap_to_deposit_large']:.3e}; above "
+            f"LARGE_MAX_NG: {r['raise_above_large_max_ng'][:90]!r}")
         if not (r["same_bits"] and r["gap_to_deposit"] <= TOL_DEP
-                and "item 10" in r["raise_at_2000"]):
+                and r["same_bits_large"] and r["gap_to_deposit_large"] <= TOL_DEP
+                and "LARGE_MAX_NG" in r["raise_above_large_max_ng"]):
             problems.append(f"deposit_method {method}: {r}")
     res["deposit_method"] = {k: {q: v for q, v in r.items() if q != "launches"}
                              for k, r in dm.items()}
@@ -6250,8 +6291,8 @@ def _large_position_check(c, g, r, d, cells: float):
     return out, problems
 
 
-def _large_grid_check(kind: str, ng: int, dev) -> dict:
-    """LARGE_CHECK_STEPS steps of the row on the card, each held against
+def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS) -> dict:
+    """``steps`` steps of the row on the card, each held against
     one step on the CPU (backend 'fused', newton_backend 'pallas': the
     plain versions) and one in float64 (_step64) from the same state: the
     preset's, then the card's state after each step. The source draws are
@@ -6283,7 +6324,7 @@ def _large_grid_check(kind: str, ng: int, dev) -> dict:
     d = interop.magnetized_state_to_numpy(pre.state)
     del pre
     problems, worst, iters, pos = [], {}, [], []
-    for i in range(LARGE_CHECK_STEPS):
+    for i in range(steps):
         sc = interop.magnetized_state_from_numpy(d, "cpu")
         kw_c, kw_g = (_replayed(flux_hooks)(sc, dev) if kind == "dn" else ({}, {}))
         t0 = time.perf_counter()
@@ -6334,7 +6375,7 @@ def _large_grid_check(kind: str, ng: int, dev) -> dict:
     if problems:
         raise AssertionError(f"large grids {kind} ng = {ng} check: "
                              + "; ".join(problems))
-    return dict(steps=LARGE_CHECK_STEPS, worst_scaled_gap=worst,
+    return dict(steps=steps, worst_scaled_gap=worst,
                 newton_iters_cpu_gpu_f64=iters, positions=pos)
 
 
@@ -6485,6 +6526,550 @@ def phase_large_grids(dev) -> dict:
     return res
 
 
+
+# phase 40, large grids, sheath and deposits: the slice's main path, the
+# four kernels past their shared-memory ceilings (the deterministic sums
+# of the sheath pass and deposit_det as int64 fixed point, deposit2 and the
+# carried Boris deposit by global float atomics), each held against its
+# plain version just above its old ceiling and at LARGE_KERNEL_NGS, then
+# the engines that run them: the sheath engine fused and composed,
+# domain_sheath on one NCCL rank and on two gloo ranks, and the configs[3]
+# load plain and carried
+LARGE_FIRST_NG = {"sheath_picard": 1761, "sheath_finalize": 1761,
+                  "deposit_det": 1817, "deposit2": 29_057,
+                  "boris_gather_push_deposit": 19_371}
+LARGE_KERNEL_NGS = (65_536, 1 << 20)
+LARGE_KERNEL_NS = (1_000_000, 10_000_000)
+# the shape whose record stands for a kernel's large mode in the kernels
+# line, every other shape beside it
+LARGE_KERNEL_MAIN = "n 10000000, ng 65536"
+# device-memory bytes a node of one call beside the rows'
+# (BYTES_PER_PARTICLE): the field read and the current written (the
+# sheath pass), the sum written (deposit_det), two sums written
+# (deposit2), the field read and two sums written (row 9)
+LARGE_NODE_BYTES = {"sheath_picard": 8, "sheath_finalize": 8, "deposit_det": 4,
+                    "deposit2": 8, "boris_gather_push_deposit": 12}
+# the sheath engine at configs[2]'s physics (presets.sheath_dd): fused at
+# ng 8,192 (n = 1e6) and 65,536 (n = 8e6, ~122 rows a cell, the row's
+# scale), composed at 8,192
+SHEATH_LARGE_RUNS = {"fused ng 8192": ("fused", 8192, 1_000_000),
+                     "fused ng 65536": ("fused", 65_536, 8_000_000),
+                     "composed ng 8192": ("composed", 8192, 1_000_000)}
+SHEATH_LARGE_WARMUP, SHEATH_LARGE_STEPS, SHEATH_LARGE_SYNC_STEPS = 3, 20, 5
+# tests/test_torch_cuda.py::test_sheath_step_card_matches_cpu's limits:
+# active positions in cells, e, j and phi of their largest
+TOL_SHEATH_CARD_CPU = {"p (cells)": 1e-4, "e": 1e-4, "j": 1e-4, "phi": 1e-4}
+DOM_SHEATH_LARGE, DOM_SHEATH_LARGE_STEPS = dict(n=1_000_000, ng=8192), 10
+MAG_LARGE_NG, MAG_LARGE_STEPS = 32_768, 20
+
+
+def _large_kernel_case(name: str, n: int, ng: int, gen: torch.Generator, dev,
+                       timed: bool) -> dict:
+    """One kernel of phase 40 at (n, ng) against its plain version on the
+    card. The deterministic three: the current bit-equal from call to
+    call and within TOL_DEP of a float64 deposit of the same terms, the
+    sheath pass's outputs bit-equal to its plain version's. deposit2:
+    within deposit_tol of the plain version and TOL_DEP of float64. Row 9:
+    p1 and the velocities bit-equal, rho and n within TOL_DEP of float64
+    sums, the clamp counts equal. With ``timed``, device_ms and the plain
+    version's time, the bound (rows and nodes) and, for deposit2,
+    index_add_ of the same four terms a row as its library call."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_sheath as S
+
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    errs, library = {}, None
+    if name in ("sheath_picard", "sheath_finalize"):
+        final = name == "sheath_finalize"
+        args = _sheath_inputs(n, ng, gen, dev)
+        fn = S.sheath_finalize if final else S.sheath_picard
+        plain = S.sheath_finalize_plain if final else S.sheath_picard_plain
+        got = fn(*args, **kw)
+        same = torch.equal(fn(*args, **kw)[-1], got[-1])
+        ref = plain(*args, **kw)
+        outs = all(torch.equal(g, r) for g, r in zip(got[:-1], ref[:-1]))
+        x1, u1, xh, uh, _ = S._push_plain(args[0], args[1], args[2], args[3],
+                                          args[4], args[6], SHEATH_DT, SHEATH_DX)
+        pos, vals = (x1, u1) if final else (xh, uh)
+        exact = S.sheath_deposit_plain(pos.double(), vals.double(), got[-2].double(),
+                                       args[5].double(), ng, **kw)
+        a, r = rel_err(exact, got[-1])
+        errs["j"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        errs["outputs"] = dict(abs=0.0 if outs else 1.0, err=0.0 if outs else 1.0,
+                               kind="bit-equal to the plain version", tol=0.0)
+        call, plain_call = (lambda: fn(*args, **kw)), (lambda: plain(*args, **kw))
+        del x1, u1, xh, uh, pos, vals, exact, ref
+    elif name == "deposit_det":
+        p = torch.rand(n, generator=gen, device=dev) * (ng - 1)
+        v = torch.randn(n, generator=gen, device=dev) * 1e3
+        got = K.deposit_det(p, v, ng, periodic=False)
+        same = torch.equal(K.deposit_det(p, v, ng, periodic=False), got)
+        a, r = rel_err(K.deposit_plain(p.double(), v.double(), ng, periodic=False), got)
+        errs["out"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        call = lambda: K.deposit_det(p, v, ng, periodic=False)  # noqa: E731
+        plain_call = lambda: K.deposit_plain(p, v, ng, periodic=False)  # noqa: E731
+    elif name == "deposit2":
+        _, p, vx, vy, _, _, act = _mag_inputs(n, gen, dev, ng)
+        va, vb = vx * act, vy.abs() * act
+        got = K.deposit2(p, va, vb, ng, periodic=False)
+        same = True
+        ref = K.deposit2_plain(p, va, vb, ng, periodic=False)
+        exact = K.deposit2_plain(p.double(), va.double(), vb.double(), ng, periodic=False)
+        for k, g_, r_, e_ in zip("ab", got, ref, exact):
+            a, r = rel_err(r_, g_)
+            errs[f"{k} plain"] = dict(abs=a, err=r, kind="rel vs plain",
+                                      tol=deposit_tol(n, ng))
+            a, r = rel_err(e_, g_)
+            errs[f"{k} f64"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        call = lambda: K.deposit2(p, va, vb, ng, periodic=False)  # noqa: E731
+        plain_call = lambda: K.deposit2_plain(p, va, vb, ng, periodic=False)  # noqa: E731
+        if timed:
+            from pypic_tpu_torch.ops.cic import cic_indices_weights
+
+            il, ir, wl, wr = cic_indices_weights(p, ng - 1, False)
+            idx = torch.cat([il, ir, il + ng, ir + ng])
+            terms = torch.cat([va * wl, va * wr, vb * wl, vb * wr])
+            library = device_ms(lambda: torch.zeros(2 * ng, device=dev).index_add_(
+                0, idx, terms), calls=10)
+        del ref, exact
+    else:
+        args = _carried_mag_inputs(n, gen, dev, 1.0, ng)
+        bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=CARRIED_PAD,
+                   swap_weights=True)
+        got = K.boris_gather_push_deposit(*args, **bkw)
+        same = True
+        ref = K.boris_gather_push_deposit_plain(*args, **bkw)
+        exact = K.boris_gather_push_deposit_plain(*args, acc_dtype=torch.float64, **bkw)
+        outs = all(torch.equal(g, r) for g, r in zip(got[:4], ref[:4]))
+        errs["push"] = dict(abs=0.0 if outs else 1.0, err=0.0 if outs else 1.0,
+                            kind="bit-equal to the plain version", tol=0.0)
+        for k, i in (("rho", 4), ("n", 5)):
+            a, r = rel_err(exact[i], got[i])
+            errs[k] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        clamps = (int(got[6]), int(ref[6]))
+        errs["clamped"] = dict(abs=float(clamps[0] - clamps[1]),
+                               err=float(abs(clamps[0] - clamps[1])),
+                               kind=f"clamp counts {clamps}", tol=0.0)
+        call = lambda: K.boris_gather_push_deposit(*args, **bkw)  # noqa: E731
+        plain_call = lambda: K.boris_gather_push_deposit_plain(*args, **bkw)  # noqa: E731
+        del ref, exact
+    if not same:
+        raise AssertionError(f"{name} at n = {n}, ng = {ng}: the sum differs from "
+                             "call to call")
+    err = _check(errs, f"{name}(n = {n}, ng = {ng})")
+    rec = dict(n=n, ng=ng, max_abs_err=err, bit_equal_call_to_call=same)
+    if timed:
+        plain_ms = cuda_ms(plain_call, reps=1, calls=1)
+        b, by = bound(name, n, extra_bytes=LARGE_NODE_BYTES[name] * ng)
+        rec.update(ms=device_ms(call, calls=10), plain_ms=plain_ms, bound_ms=b,
+                   bound_by=by, library_ms=library)
+        log(f"[large sheath] {name} at n = {n}, ng = {ng}: {rec['ms']:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by})"
+            + (f", library zeros(2 ng).index_add_ of the four terms a row "
+               f"{library:.4f} ms" if library is not None else ", no single "
+               "library call computes it"))
+    del got
+    return rec
+
+
+def large_kernel_times(dev) -> dict:
+    """Phase 40's kernels alone (module docstring): each at its first large
+    ng and at LARGE_KERNEL_NGS, n in LARGE_KERNEL_NS; timed at the last
+    two. Returns {kernel: {shape: record}}."""
+    gen = torch.Generator(device=dev).manual_seed(40)
+    out = {}
+    for name, first in LARGE_FIRST_NG.items():
+        out[name] = {}
+        for ng in (first,) + LARGE_KERNEL_NGS:
+            for n in LARGE_KERNEL_NS:
+                out[name][f"n {n}, ng {ng}"] = _large_kernel_case(
+                    name, n, ng, gen, dev, timed=ng != first)
+                torch.cuda.empty_cache()
+    return out
+
+
+def _sheath_large_run(backend: str, ng: int, n: int, dev) -> dict:
+    """The sheath engine at configs[2]'s physics (presets.sheath_dd) on
+    ng nodes and n rows: SHEATH_LARGE_WARMUP steps, then the launch counts
+    from 0 and SHEATH_LARGE_STEPS timed steps, then SHEATH_LARGE_SYNC_STEPS
+    more under sync debug mode 'warn' (host syncs against the engine's
+    one read a pass); one step from the card's last state on the CPU and
+    on the card at TOL_SHEATH_CARD_CPU, the Picard counts by
+    floor_exit_counts_agree, statuses, losses and exit histograms equal."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import sheath as srow
+
+    t0 = time.perf_counter()
+    pre = presets.sheath_dd(n=n, ng=ng, device=dev)
+    setup_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(pre.config, backend=backend)
+    step = sheath.make_step(cfg)
+    st, _ = run(step, pre.state, SHEATH_LARGE_WARMUP)
+    del pre
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    fin, m = run(step, st, SHEATH_LARGE_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    iters = m.picard_iters.cpu()
+    passes = int(iters.sum())
+    problems = _sheath_population(m, n)
+    population = "kept" if not problems else "NOT kept"
+    if int(iters.max()) > cfg.maxiter:
+        problems.append(f"Picard {int(iters.max())} above maxiter")
+    want = ({"sheath_picard": passes, "sheath_finalize": SHEATH_LARGE_STEPS}
+            if backend == "fused" else {"gather": passes})
+    for k, v in want.items():
+        if launches.get(k) != v:
+            problems.append(f"launches {launches}: {k} not {v}")
+    if backend == "composed" and launches.get("deposit_det", 0) < 2 * passes:
+        problems.append(f"launches {launches}: deposit_det below 2 a pass")
+    syncs = srow.count_syncs(step, fin, cfg.maxiter, SHEATH_LARGE_SYNC_STEPS)
+    if syncs["host_syncs_per_step"] != syncs["host_reads_per_step"]:
+        problems.append(f"host syncs {syncs}")
+    left, right = srow.wall_drops(m, SHEATH_LARGE_STEPS)
+    rec = dict(n=n, ng=ng, backend=backend, steps=SHEATH_LARGE_STEPS,
+               setup_s=setup_s, ms_per_step=secs * 1e3 / SHEATH_LARGE_STEPS,
+               pushes_per_s=n * SHEATH_LARGE_STEPS / secs,
+               picard_mean=float(iters.float().mean()), picard_max=int(iters.max()),
+               steps_at_maxiter=int((iters == cfg.maxiter).sum()),
+               host_syncs_per_step=syncs["host_syncs_per_step"],
+               host_reads_per_step=syncs["host_reads_per_step"],
+               wall_drop_left_te=left, wall_drop_right_te=right,
+               lost_per_step=float((m.n_lost_left + m.n_lost_right).float().mean()),
+               launches=launches)
+    del m
+    d = interop.sheath_state_to_numpy(fin)
+    del fin, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = step(interop.sheath_state_from_numpy(d, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    g = step(interop.sheath_state_from_numpy(d, dev))
+    errs = _sheath_step_errors(c, g)
+    errs.pop("u")
+    ok, line = floor_exit_counts_agree(
+        c[1].picard_iters, float(c[1].picard_residual), g[1].picard_iters,
+        float(g[1].picard_residual), d["e"], c[0].e, tol=cfg.tol,
+        tol_floor=cfg.tol_floor)
+    losses = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
+              for k in ("n_lost_left", "n_lost_right")}
+    same = (torch.equal(c[0].active, g[0].active.cpu())
+            and torch.equal(c[0].exit_hist, g[0].exit_hist.cpu()))
+    bad = {k: v for k, v in errs.items() if not v <= TOL_SHEATH_CARD_CPU[k]}
+    if not ok:
+        bad["picard"] = line
+    if any(a != b for a, b in losses.values()) or not same:
+        bad["losses, statuses or exit histograms"] = losses
+    if bad:
+        problems.append(f"one step card against CPU: {bad}")
+    rec["check"] = dict(errors=errs, picard=line, losses=losses, cpu_step_s=cpu_s)
+    log(f"[large sheath] {backend} ng = {ng}, n = {n}: {rec['ms_per_step']:.3f} "
+        f"ms/step ({SHEATH_LARGE_STEPS} steps after {SHEATH_LARGE_WARMUP}; set-up "
+        f"{setup_s:.1f} s), {rec['pushes_per_s']:.4e} pushes/s, Picard passes a "
+        f"step mean {rec['picard_mean']:.2f} max {rec['picard_max']} "
+        f"({rec['steps_at_maxiter']} steps at maxiter {cfg.maxiter}), host syncs a "
+        f"step {rec['host_syncs_per_step']:.2f} (reads {rec['host_reads_per_step']:.2f}), "
+        f"wall drops {left:.4f}, {right:.4f} Te/e (steps {SHEATH_LARGE_WARMUP}-"
+        f"{SHEATH_LARGE_WARMUP + SHEATH_LARGE_STEPS - 1}: the sheath still forming), "
+        f"losses a step {rec['lost_per_step']:.1f}, population {population}, "
+        f"launches {launches}; one step card against CPU ({cpu_s:.1f} s on the "
+        "CPU): "
+        + ", ".join(f"{k} {v:.3e} (tol {TOL_SHEATH_CARD_CPU[k]:.0e})"
+                    for k, v in errs.items())
+        + f"; Picard {line}; losses (CPU, GPU) {losses}; statuses and exit "
+        f"histograms {'equal' if same else 'DIFFER'}")
+    return rec, problems
+
+
+def _dom_sheath_large(dev) -> tuple[dict, list]:
+    """domain_sheath at DOM_SHEATH_LARGE (global ng 8,192, the extended
+    slab's currents in deposit_det's large mode): one rank in a one-rank
+    NCCL group, DOM_SHEATH_LARGE_STEPS timed steps after 2 (launches a
+    step: gather a pass, deposit_det two a pass, sheath_reinject one;
+    host syncs = reads); one step from the initial state on a group-less
+    rank on the CPU and on the card at TOL_SHEATH_CARD_CPU; two gloo
+    ranks on the card (rows equal on both, nothing dropped, particles
+    migrated, the population kept, step 0 against the one-rank step at
+    phase 37's limits)."""
+    import torch.distributed as dist
+
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.parallel import domain_sheath, make_mesh, spawn
+    from pypic_tpu_torch.tools import domain as drow
+
+    res, problems = {}, []
+    n = DOM_SHEATH_LARGE["n"]
+    drow.process_group()
+    try:
+        mesh = make_mesh(device=dev)
+        cfg, st = drow.sheath_row(mesh, **DOM_SHEATH_LARGE)
+        K.reset_launch_counts()
+        sh = drow.timed_rows(domain_sheath.make_step(cfg, mesh), st,
+                             DOM_SHEATH_LARGE_STEPS, warmup=2)
+        ssum, bad = drow.sheath_summary(sh, n, cfg.maxiter)
+        problems += [f"domain_sheath one rank: {b}" for b in bad]
+        ks = sh["rows"]["picard_iters"]
+        reads = sum(k - (k == cfg.maxiter) for k in ks) / len(ks)
+        want = dict(gather=sum(ks) / len(ks), deposit_det=2 * sum(ks) / len(ks),
+                    sheath_reinject=1.0)
+        if sh["launches_per_step"] != want:
+            problems.append(f"domain_sheath launches {sh['launches_per_step']} != {want}")
+        if sh["host_syncs_per_step"] != reads:
+            problems.append(f"domain_sheath host syncs {sh['host_syncs_per_step']} "
+                            f"!= reads {reads}")
+        res["one_rank"] = dict(ms_per_step=sh["ms_per_step"],
+                               launches_per_step=sh["launches_per_step"],
+                               host_syncs_per_step=sh["host_syncs_per_step"], **ssum)
+        log(f"[large sheath] domain_sheath one rank (NCCL), global ng "
+            f"{DOM_SHEATH_LARGE['ng']}, n = {n}: {DOM_SHEATH_LARGE_STEPS} steps, "
+            f"{sh['ms_per_step']:.3f} ms/step, Picard mean {ssum['picard_mean']:.2f} "
+            f"(max {ssum['picard_max']}), launches a step {sh['launches_per_step']}, "
+            f"host syncs a step {sh['host_syncs_per_step']:.2f} (reads {reads:.2f}), "
+            f"population {ssum['population']}, dropped {ssum['n_dropped']}")
+        del st, sh
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    out = {}
+    for where in ("cpu", dev):
+        mesh = make_mesh(device=where)
+        cfg, st = drow.sheath_row(mesh, **DOM_SHEATH_LARGE)
+        e0 = st.e.cpu().double().numpy()
+        out[str(where)] = domain_sheath.make_step(cfg, mesh)(st)
+    sc, mc = out["cpu"]
+    sg, mg = out[str(dev)]
+    act = sc.filled & (sc.active == 1)
+    errs = {"p (cells)": float((sg.p.cpu()[act].double() - sc.p[act].double()).abs().max()),
+            "e": rel_err(sc.e, sg.e.cpu())[1], "j": rel_err(sc.j, sg.j.cpu())[1],
+            "phi": rel_err(mc.phi, mg.phi.cpu())[1]}
+    ok, line = floor_exit_counts_agree(
+        mc.picard_iters, float(mc.picard_residual), mg.picard_iters,
+        float(mg.picard_residual), e0, sc.e, tol=cfg.tol, tol_floor=cfg.tol_floor)
+    counts = {k: (int(getattr(mc, k)), int(getattr(mg, k)))
+              for k in ("n_lost_left", "n_lost_right", "n_migrated", "n_dropped")}
+    bad = {k: v for k, v in errs.items() if not v <= TOL_SHEATH_CARD_CPU[k]}
+    if not ok:
+        bad["picard"] = line
+    if any(a != b for a, b in counts.values()):
+        bad["counts"] = counts
+    if bad:
+        problems.append(f"domain_sheath one step card against CPU: {bad}")
+    res["check"] = dict(errors=errs, picard=line, counts=counts)
+    log(f"[large sheath] domain_sheath, one group-less rank, one step from the "
+        f"initial state, card against CPU: "
+        + ", ".join(f"{k} {v:.3e} (tol {TOL_SHEATH_CARD_CPU[k]:.0e})"
+                    for k, v in errs.items())
+        + f"; Picard {line}; counts (CPU, GPU) {counts}")
+    del out, sc, sg
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    two = spawn.run(2, drow.slab_jobs, [("sheath", dict(
+        steps=DOM_SHEATH_LARGE_STEPS, **DOM_SHEATH_LARGE))], device=dev)
+    ranks = [r[0] for r in two]
+    a = ranks[0]["rows"]
+    equal = all(r["rows"] == a for r in ranks)
+    tot = [x + y + z for x, y, z in zip(a["n_active"], a["n_lost_left"],
+                                        a["n_lost_right"])]
+    step0 = dict(field_energy=_dp_gap([float(mg.field_energy)], [a["field_energy"][0]]),
+                 kinetic_energy=_dp_gap([float(mg.kinetic_energy)],
+                                        [a["kinetic_energy"][0]]),
+                 phi=float((torch.tensor(ranks[0]["phi_first"]) - mg.phi.cpu())
+                           .abs().max() / mg.phi.abs().max()),
+                 picard=(int(mg.picard_iters), a["picard_iters"][0]))
+    rec = dict(spawn_s=time.perf_counter() - t0, ms_per_step=ranks[0]["ms_per_step"],
+               host_syncs_per_step=ranks[0]["host_syncs_per_step"],
+               staged_bytes_per_step=ranks[0]["staged_bytes_per_step"],
+               rows_equal=equal, n_migrated=sum(a["n_migrated"]),
+               n_dropped=sum(a["n_dropped"]), population=[min(tot), max(tot)],
+               picard_iters=a["picard_iters"], step0_against_one_rank=step0)
+    if not equal:
+        problems.append("domain_sheath two ranks: rows differ")
+    if rec["n_dropped"] or not rec["n_migrated"] > 0 or set(tot) != {n}:
+        problems.append(f"domain_sheath two ranks: dropped {rec['n_dropped']}, "
+                        f"migrated {rec['n_migrated']}, population {rec['population']}")
+    if not (step0["field_energy"] <= 2 * TOL_SHEATH_STEP["e"]
+            and step0["kinetic_energy"] <= TOL_SLAB_SHEATH_KE
+            and step0["phi"] <= TOL_SHEATH_STEP["phi"]
+            and abs(step0["picard"][0] - step0["picard"][1]) <= 1):
+        problems.append(f"domain_sheath two ranks: step 0 against one rank {step0}")
+    res["two_gloo_ranks"] = rec
+    log(f"[large sheath] domain_sheath on two gloo ranks on the card, global ng "
+        f"{DOM_SHEATH_LARGE['ng']}: {DOM_SHEATH_LARGE_STEPS} steps, "
+        f"{rec['ms_per_step']:.3f} ms/step, host syncs a step "
+        f"{rec['host_syncs_per_step']:.2f}, rows equal on both ranks: {equal}, "
+        f"migrated {rec['n_migrated']}, dropped {rec['n_dropped']}, population "
+        f"{rec['population']}, step 0 against the one-rank step {step0}")
+    return res, problems
+
+
+def _large_carried_check(ng: int, dev) -> tuple[dict, list]:
+    """One carried step (tools/magnetized.py --carried's configuration, the
+    carry primed) of the configs[3] load at ng from the preset's state, on
+    the CPU (the plain versions, newton_backend 'pallas') and on the card,
+    the same source table on both: rho, phi and v at phase 14's limits,
+    positions by phase 39's rule (|p| the larger of start and end), the
+    rho and n carried into the next step at rho's rtol of their largest
+    node, and the counts carry_clamped included equal. No float64 step: the carried rho sits
+    where the window frame clamps put it, which a fresh deposit does
+    not."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, sources
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.tools import magnetized as row
+
+    pre = row.preset("iead", "cpu", LARGE_GRID_N_PER_SPECIES, LARGE_GRID_DN_N, ng)
+    cfg_gpu = dataclasses.replace(pre.config, **row.CARRIED)
+    cfg_cpu = dataclasses.replace(cfg_gpu, backend="fused", newton_backend="pallas")
+    d = interop.magnetized_state_to_numpy(magnetized.prime_carry(pre.state, cfg_cpu))
+    del pre
+    src = cfg_cpu.source
+
+    def hooks(state):
+        return {"source_draws": lambda step, n: sources.sample_source_batch(
+            state.rng, step, n, cfg_cpu.grid, src.ti, src.mass, vx=src.vx,
+            device="cpu")}
+
+    sc = interop.magnetized_state_from_numpy(d, "cpu")
+    kw_c, kw_g = _replayed(hooks)(sc, dev)
+    t0 = time.perf_counter()
+    c = magnetized.make_step(cfg_cpu, **kw_c)(sc)
+    cpu_s = time.perf_counter() - t0
+    g = magnetized.make_step(cfg_gpu, **kw_g)(interop.magnetized_state_from_numpy(d, dev))
+    errs = {k: v for k, v in _mag_step_errors(c, g).items() if k != "p"}
+    # the rho and n carried into the next step, at the opening rho's rtol
+    # taken of the largest node: the window frame's clamps leave the nodes
+    # stride k - pad nearly empty at this grid, and there a row's p1, parted
+    # by the routes' velocity ulp (phase 39), moves a share of its weight
+    # that no per-node rtol holds (beside it, not a limit)
+    rtol, _ = TOL_MAG_STEP["rho"]
+    per_node = {}
+    for k in ("rho", "n"):
+        ref, got = getattr(c[0], k).double(), getattr(g[0], k).double().cpu()
+        errs[f"{k} carried"] = float((got - ref).abs().max() / ref.abs().max()) / rtol
+        per_node[k] = _scaled_gap(ref, got, rtol, 0.0)
+    rtol, atol = TOL_MAG_STEP["p"]
+    pc, pg = c[0].p.double(), g[0].p.double().cpu()
+    p0 = torch.from_numpy(d["p"]).double()
+    before = torch.from_numpy(d["active"] == 1)
+    act = c[0].active == 1
+    scale = torch.where(before, torch.maximum(p0.abs(), pc.abs()), pc.abs())
+    errs["p"] = float(((pg - pc).abs() / (atol + rtol * scale))[act].max())
+    counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k))) for k in (
+        "n_active", "n_hit_wall", "n_reactivated", "newton_iters", "carry_clamped")}
+    bad = {k: v for k, v in errs.items() if not v <= 1.0}
+    for k in ("n_active", "n_reactivated", "carry_clamped"):
+        if counts[k][0] != counts[k][1]:
+            bad[k] = counts[k]
+    log(f"[large sheath] configs[3] carried, ng = {ng}, one step from the primed "
+        "preset, GPU vs CPU, |d| / (atol + rtol |ref|) (<= 1 passes; p with |p| the "
+        "larger of start and end; rho and n carried with |ref| their largest node): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; the carried rho and n node by node (not a limit) {per_node}; counts "
+        f"(CPU, GPU) {counts}; the CPU step {cpu_s:.1f} s")
+    return dict(errors=errs, carried_per_node=per_node, counts=counts,
+                cpu_step_s=cpu_s), (
+        [f"carried check: {bad}"] if bad else [])
+
+
+def _mag_large_runs(dev) -> tuple[dict, list]:
+    """The configs[3] load (n = 999,996) at MAG_LARGE_NG through
+    tools/magnetized.run_row, 'auto' (deposit2's large mode) and --carried
+    (row 9's large mode, carried_pad 2), MAG_LARGE_STEPS steps after 3
+    under sync debug mode 'error'; the plain run held against the CPU and
+    a float64 step for one step (_large_grid_check), the carried one
+    against the CPU (_large_carried_check)."""
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, problems = {}, []
+    for label, over in (("plain", {}), ("carried", row.CARRIED)):
+        out, cfg, fin, m = row.run_row(
+            dev, steps=MAG_LARGE_STEPS, warmup=3, row="iead",
+            n_per_species=LARGE_GRID_N_PER_SPECIES, ng=MAG_LARGE_NG, **over)
+        lps = {k: v / MAG_LARGE_STEPS for k, v in out["launches"].items()}
+        want = (["boris_gather_push_deposit", "deposit2"] if over
+                else ["deposit2", "boris_gather_push"]) + ["boltzmann_dirichlet_large"]
+        bad = row.population_problems(m)
+        if any(lps.get(k) != 1.0 for k in want):
+            bad.append(f"launches a step {lps}: not one each of {want}")
+        if not (bool(torch.isfinite(m.phi).all()) and bool(torch.isfinite(fin.p).all())):
+            bad.append("non-finite phi or positions")
+        its = m.newton_iters.cpu()
+        rec = dict(n=out["n"], ng=MAG_LARGE_NG, steps=MAG_LARGE_STEPS,
+                   ms_per_step=out["us_per_step"] / 1e3,
+                   pushes_per_s=out["pushes_per_s"],
+                   newton_mean=float(its.float().mean()), newton_max=int(its.max()),
+                   launches=out["launches"], launches_per_step=lps,
+                   phi_max_over_phi_f=out["phi_max_over_phi_f"])
+        if over:
+            rec["carried"] = out["carried"]
+            rec["carry_clamped_per_particle_step"] = (
+                out["carried"]["carry_clamped"] / (out["n"] * MAG_LARGE_STEPS))
+        log(f"[large sheath] configs[3] {label} at ng = {MAG_LARGE_NG}: n = "
+            f"{out['n']}, {MAG_LARGE_STEPS} steps after 3, {rec['ms_per_step']:.3f} "
+            f"ms/step, Newton mean {rec['newton_mean']:.2f} (max {rec['newton_max']}), "
+            f"launches a step {lps}, host syncs 0 (sync debug mode 'error')"
+            + (f", carried sums {out['carried']} "
+               f"({rec['carry_clamped_per_particle_step']:.4f} clamped a particle "
+               "and step)" if over else ""))
+        problems += [f"configs[3] {label}: {b}" for b in bad]
+        del fin, m
+        torch.cuda.empty_cache()
+        if over:
+            rec["check"], bad = _large_carried_check(MAG_LARGE_NG, dev)
+        else:
+            rec["check"] = _large_grid_check("iead", MAG_LARGE_NG, dev, steps=1)
+            bad = []
+        problems += bad
+        res[label] = rec
+    return res, problems
+
+
+def phase_large_sheath(dev) -> dict:
+    """Phase 40 (module docstring). Returns each run's figures, the kernels'
+    records by shape and the launches of the large modes on the main
+    paths (the sheath pass and finalize: the fused runs; deposit_det: the
+    composed run; deposit2: the plain configs[3] run; row 9: the carried
+    one)."""
+    res = {"kernels": large_kernel_times(dev)}
+    problems, launches = [], collections.Counter()
+    res["sheath"] = {}
+    for label, (backend, ng, n) in SHEATH_LARGE_RUNS.items():
+        rec, bad = _sheath_large_run(backend, ng, n, dev)
+        res["sheath"][label] = rec
+        problems += [f"sheath {label}: {b}" for b in bad]
+        keep = (("sheath_picard", "sheath_finalize") if backend == "fused"
+                else ("deposit_det",))
+        launches.update({k: rec["launches"].get(k, 0) for k in keep})
+        torch.cuda.empty_cache()
+    res["domain_sheath"], bad = _dom_sheath_large(dev)
+    problems += bad
+    res["magnetized"], bad = _mag_large_runs(dev)
+    problems += bad
+    launches["deposit2"] = res["magnetized"]["plain"]["launches"].get("deposit2", 0)
+    launches["boris_gather_push_deposit"] = (
+        res["magnetized"]["carried"]["launches"].get("boris_gather_push_deposit", 0))
+    res["launches"] = dict(launches)
+    missing = [k for k in LARGE_FIRST_NG if not res["launches"].get(k)]
+    if missing:
+        problems.append(f"large modes never launched on the main path: {missing}")
+    log(f"[large sheath] the large modes' launches on the main paths: {res['launches']}")
+    if problems:
+        raise AssertionError("large grids, sheath and deposits: " + "; ".join(problems))
+    return res
+
 def main() -> int:
     walls = {}
 
@@ -6539,6 +7124,7 @@ def main() -> int:
     slb = phase("slab bounded", phase_slab_bounded, dev, shs)
     opt = phase("options", phase_options, dev, card)
     lg = phase("large grids", phase_large_grids, dev)
+    lgs = phase("large sheath", phase_large_sheath, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -6582,6 +7168,13 @@ def main() -> int:
     for kname, by_rows in lim["newton_large"].items():
         records[kname] = dict(by_rows[LARGE_MAIN[kname]], shapes=by_rows)
     chain_large = lim["chain_large"]
+    # the large modes of rows 4 (deposit_det), 7, 9 and 10: phase 40's
+    # record at LARGE_KERNEL_MAIN with its other shapes, and the launches
+    # of its main paths
+    for kname, by_shape in lgs["kernels"].items():
+        records[kname]["large_mode"] = dict(
+            by_shape[LARGE_KERNEL_MAIN], launches=lgs["launches"][kname],
+            shapes=by_shape)
     main_shape = {"deposit2": "configs[3]", "boris_gather_push_deposit": "configs[3]",
                   "deposit": DEPOSIT_MAIN_SHAPE, "deposit_det": "current",
                   "source_batch": "999,996"}
@@ -6622,7 +7215,7 @@ def main() -> int:
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
             "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes",
             "issue_bound_ms", "own_sass_ms", "marginal_us_per_iteration",
-            "fixed_us", "k", "threads")
+            "fixed_us", "k", "threads", "large_mode")
             if key in records[kname]}}
         for kname in REPLACES
     ], "helper_kernels": [
@@ -6752,6 +7345,7 @@ def main() -> int:
                          if k not in ("tridiag3_chain", "launches")},
         "options": opt,
         "large_grids": {k: v for k, v in lg.items() if k != "launches"},
+        "large_sheath": {k: v for k, v in lgs.items() if k not in ("launches", "kernels")},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

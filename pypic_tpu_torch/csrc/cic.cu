@@ -326,7 +326,10 @@ __global__ void __launch_bounds__(1024, 1)
 // sum follows from (n, ng, SM count). The split (--kernel deposit_det): 10.5
 // us against 40.2 at 1e6 / 51, its flush 5.7 of it; at the exit
 // histograms' 128 nodes (128 threads a block) 35.7 against 41.9, the flush
-// 29.2 (PERF.md §7).
+// 29.2 (PERF.md §7). The columns fit a block up to ng = 1,816; above it
+// deposit_det_large_kernel takes the sums as int64 fixed point in device
+// memory (the design and its pricing: sheath.cu's header). Bound there:
+// the 8 B a row read twice (the scale sweep and the deposit sweep).
 // ---------------------------------------------------------------------------
 template <bool PERIODIC, bool VEC>
 __global__ void __launch_bounds__(1024) deposit_det_kernel(
@@ -355,6 +358,46 @@ __global__ void __launch_bounds__(1024) deposit_det_kernel(
     }
   }
   det_flush(s_hist, ng, partial, counter, out);
+}
+
+// The large mode (ng above the columns' ceiling, 1,816; launch_shape's
+// `large` without the field): the same rows a block, the sums as int64
+// fixed point in device memory (cic_common.cuh "Large deterministic
+// sums"). SCALE: the first sweep, the largest |term| into bmax[block] and
+// acc zeroed; else every term added.
+template <bool PERIODIC, bool VEC, bool SCALE>
+__global__ void __launch_bounds__(kLargeThreads, 2) deposit_det_large_kernel(
+    const float* __restrict__ p, const float* __restrict__ values,
+    float* __restrict__ bmax, unsigned long long* __restrict__ acc, long long n,
+    long long rows_per_block, int ng) {
+  double scale = 0.0;
+  if (SCALE)
+    fixed_zero(acc, ng);
+  else
+    scale = fixed_scale(bmax, gridDim.x, n);
+  const int T = blockDim.x;
+  const long long lo = (long long)blockIdx.x * rows_per_block;
+  const long long hi = min(n, lo + rows_per_block);
+  float m = 0.0f;
+  for (long long i = lo + 4LL * threadIdx.x; i < hi; i += 4LL * T) {
+    const float4 p4 = load4<VEC>(p, i, hi, 0.0f);
+    const float4 v4 = load4<VEC>(values, i, hi, 0.0f);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (i + r >= hi) break;
+      const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+      const float val = get(v4, r);
+      const float tl = __fmul_rn(val, c.wl), tr = __fmul_rn(val, c.wr);
+      if (SCALE) {
+        fixed_track(m, tl);
+        fixed_track(m, tr);
+      } else {
+        fixed_add(acc, c.l, tl, scale);
+        fixed_add(acc, c.r, tr, scale);
+      }
+    }
+  }
+  if (SCALE) fixed_scale_out(m, bmax);
 }
 
 }  // namespace
@@ -472,6 +515,38 @@ int pypic_deposit_det(const float* p, const float* values, float* out,
   if (vec) { PYPIC_DEPOSIT_DET(false, true); }
   PYPIC_DEPOSIT_DET(false, false);
 #undef PYPIC_DEPOSIT_DET
+}
+
+// The large mode (ops/cuda_sheath.py launch_shape(n, ng, sms,
+// field=False) with `large`): out as above; bmax: blocks floats and acc:
+// ng int64 of scratch, both written before they are read; threads a
+// multiple of 32, <= 512. Three launches: the scale sweep, the deposit
+// sweep, the conversion into out.
+int pypic_deposit_det_large(const float* p, const float* values, float* out,
+                            float* bmax, unsigned long long* acc, long long n,
+                            int ng, int periodic, int blocks, int threads,
+                            long long rows_per_block, void* stream) {
+  if (!large_shape_ok(ng, blocks, threads, rows_per_block))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(p) && aligned16(values);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+#define PYPIC_DEPOSIT_DET_LARGE(PER, VEC)                                       \
+  deposit_det_large_kernel<PER, VEC, true><<<blocks, threads, 0, s>>>(          \
+      p, values, bmax, acc, n, rows_per_block, ng);                             \
+  err = cudaGetLastError();                                                     \
+  if (err != cudaSuccess) return (int)err;                                      \
+  deposit_det_large_kernel<PER, VEC, false><<<blocks, threads, 0, s>>>(         \
+      p, values, bmax, acc, n, rows_per_block, ng);                             \
+  err = cudaGetLastError()
+  if (periodic) {
+    if (vec) { PYPIC_DEPOSIT_DET_LARGE(true, true); } else { PYPIC_DEPOSIT_DET_LARGE(true, false); }
+  } else {
+    if (vec) { PYPIC_DEPOSIT_DET_LARGE(false, true); } else { PYPIC_DEPOSIT_DET_LARGE(false, false); }
+  }
+#undef PYPIC_DEPOSIT_DET_LARGE
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fixed_out(acc, bmax, blocks, n, ng, out, s);
 }
 
 const char* pypic_error_string(int err) {

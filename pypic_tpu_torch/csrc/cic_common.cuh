@@ -12,7 +12,9 @@
 // plain PyTorch version's separate float32 operations do. No fast-math.
 //
 // Each translation unit that includes this header gets its own copy (the
-// helpers live in an anonymous namespace).
+// helpers live in an anonymous namespace). The deterministic deposits come
+// in two modes: thread columns in shared memory up to their ceiling, int64
+// fixed-point sums in device memory above it ("Large deterministic sums").
 
 #pragma once
 
@@ -71,19 +73,20 @@ __device__ __forceinline__ void cn_push(float p0, float v0, float e,
   v1 = __fadd_rn(v0, __fmul_rn(qm_dt, e));
 }
 
-// Block-wide sum of one double per thread; every thread gets the total,
-// summed in warp order (the same value in every thread, in every block of
-// the same shape, and from run to run). `red` is 32 doubles of shared
-// memory. blockDim.x is a multiple of 32. Every thread of the block calls
-// it.
-__device__ double block_sum(double x, double* red) {
+// Block-wide sum of one double (or int64) per thread; every thread gets
+// the total, summed in warp order (the same value in every thread, in
+// every block of the same shape, and from run to run). `red` is 32 values
+// of shared memory. blockDim.x is a multiple of 32. Every thread of the
+// block calls it.
+template <typename T>
+__device__ T block_sum(T x, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
   __syncthreads();  // a previous call may still read red
   if (lane == 0) red[warp] = x;
   __syncthreads();
-  double t = 0.0;
+  T t = 0;
   for (int w = 0; w < nwarps; ++w) t += red[w];
   return t;
 }
@@ -150,12 +153,15 @@ __device__ __forceinline__ void flush_columns(const float* h, int ng, int cols,
 // The launch shape's invariants (ops/cuda_cic.py deposit_launch_shape):
 // four rows a thread and pass with a power-of-two column count up to 32,
 // or a row a thread and one column; no more blocks than the rows fill.
+// With `large` (deposit2 and the carried Boris deposit) cols may be 0:
+// the large mode, no shared histogram, every add a global atomic.
 inline bool deposit_shape_ok(long long n, int ng, int rows, int blocks,
-                             int threads, int cols) {
+                             int threads, int cols, bool large = false) {
   return ng >= 2 && n >= 0 && threads >= 32 && threads <= 1024 &&
          threads % 32 == 0 && blocks >= 1 &&
          (blocks == 1 || blocks <= (n + rows - 1) / rows) &&
-         ((rows == 4 && cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0) ||
+         ((large && cols == 0 && (rows == 4 || rows == 1)) ||
+          (rows == 4 && cols >= 1 && cols <= 32 && (cols & (cols - 1)) == 0) ||
           (rows == 1 && cols == 1));
 }
 
@@ -250,6 +256,120 @@ __device__ void det_flush(const float* hist, int ng, float* partial,
       if (lane == 0 && k < ng) out[k] = total;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Large deterministic sums (ng above the thread columns' ceiling): int64
+// fixed point in device memory. Every term t (a float32 product, as the
+// column path adds it) becomes q = rint(t 2^k) and is added to its node
+// by a 64-bit integer atomic. Integer adds are exact and associative, so
+// the sums' bits depend on neither the order nor the grid. The scale 2^k
+// comes from the largest |t| of the call, M, taken in a first sweep of the
+// same rows (the blocks' maxima in bmax[block]): a node sums at most 2n
+// terms, so k = 62 - e with 2 n M < 2^e keeps every node's |sum|, and
+// every partial sum of it, below 2^62 + n < 2^63. A term then rounds by
+// at most 2^-(k+1) <= n M 2^-61 (at n = 1e7, 4.3e-12 M), and the node
+// value once more to float32 when det_fixed_out converts it. A NaN or
+// Inf term reads as M = Inf, and the whole output is then NaN. The
+// scratch is bmax (blocks floats) and acc (ng int64), zeroed by the first
+// sweep: 8 ng + 4 blocks bytes, no column of ng floats a thread or a
+// block. The wrappers run the three launches (scale sweep, deposit
+// sweep, det_fixed_out) in a row on one stream.
+// ---------------------------------------------------------------------------
+
+constexpr int kLargeThreads = 512;  // ops/cuda_sheath.py LARGE_THREADS
+// the field alone in one block's shared memory (ops/cuda_cic.py
+// FIELD_SMEM_MAX_NG): 232,448 B / 4
+constexpr int kFieldSmemMaxNg = 58112;
+
+// A term's magnitude into the thread's running maximum; a NaN or Inf term
+// makes it Inf (fmaxf alone would drop a NaN).
+__device__ __forceinline__ void fixed_track(float& m, float term) {
+  const float a = fabsf(term);
+  m = a <= 3.402823466e38f ? fmaxf(m, a) : __int_as_float(0x7f800000);
+}
+
+__device__ __forceinline__ long long fixed_q(float term, double scale) {
+  return __double2ll_rn(__dmul_rn((double)term, scale));
+}
+
+// Adds a term to its node; a term that rounds to 0 adds nothing (x + 0 is
+// x for integers).
+__device__ __forceinline__ void fixed_add(unsigned long long* acc, int node,
+                                          float term, double scale) {
+  const long long q = fixed_q(term, scale);
+  if (q != 0) atomicAdd(acc + node, (unsigned long long)q);
+}
+
+// Block-wide maximum of one non-negative float a thread (every thread gets
+// it); `red` is 32 floats of shared memory. Every thread calls it.
+__device__ float block_fmax(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_down_sync(0xffffffffu, x, o));
+  __syncthreads();  // a previous call may still read red
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float t = 0.0f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t = fmaxf(t, red[w]);
+  return t;
+}
+
+// The scale sweep's end: the block's largest |term| into bmax[block].
+// Every thread calls it.
+__device__ __forceinline__ void fixed_scale_out(float m, float* bmax) {
+  __shared__ float red[32];
+  m = block_fmax(m, red);
+  if (threadIdx.x == 0) bmax[blockIdx.x] = m;
+}
+
+// The scale 2^k of the call from the `nb` blocks' maxima (the same value
+// in every block and launch); 0 where a term was not finite. Every thread
+// calls it.
+__device__ double fixed_scale(const float* __restrict__ bmax, int nb, long long n) {
+  __shared__ float red[32];
+  float m = 0.0f;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) m = fmaxf(m, bmax[b]);
+  m = block_fmax(m, red);
+  if (m == 0.0f) return 1.0;
+  if (isinf(m)) return 0.0;
+  int e;
+  frexp(2.0 * (double)n * (double)m, &e);
+  return ldexp(1.0, 62 - e);
+}
+
+// Zero the ng accumulators, grid-stride over the scale sweep's blocks.
+__device__ __forceinline__ void fixed_zero(unsigned long long* acc, int ng) {
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < ng;
+       k += (long long)gridDim.x * blockDim.x)
+    acc[k] = 0ull;
+}
+
+// out[k] = acc[k] / 2^k rounded to float32 (NaN everywhere after a
+// non-finite term); `nb` and `n` as the sweeps had them.
+__global__ void __launch_bounds__(256) det_fixed_out(
+    const unsigned long long* __restrict__ acc, const float* __restrict__ bmax,
+    int nb, long long n, int ng, float* __restrict__ out) {
+  const double scale = fixed_scale(bmax, nb, n);
+  const double inv = scale == 0.0 ? 0.0 : 1.0 / scale;  // a power of two: exact
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < ng;
+       k += (long long)gridDim.x * blockDim.x)
+    out[k] = scale == 0.0 ? __int_as_float(0x7fffffff)
+                          : __double2float_rn(__dmul_rn(__ll2double_rn((long long)acc[k]), inv));
+}
+
+inline cudaError_t launch_fixed_out(const unsigned long long* acc, const float* bmax,
+                                    int nb, long long n, int ng, float* out,
+                                    cudaStream_t s) {
+  const int blocks = ng > 256 * 1024 ? 1024 : (ng + 255) / 256;
+  det_fixed_out<<<blocks, 256, 0, s>>>(acc, bmax, nb, n, ng, out);
+  return cudaGetLastError();
+}
+
+// The large sweeps' invariants (ops/cuda_sheath.py launch_shape's large
+// mode): at most kLargeThreads threads a block, rows in multiples of 4.
+inline bool large_shape_ok(int ng, int blocks, int threads, long long rows_per_block) {
+  return ng >= 2 && blocks >= 1 && threads >= 32 && threads <= kLargeThreads &&
+         threads % 32 == 0 && rows_per_block % 4 == 0;
 }
 
 // ---------------------------------------------------------------------------

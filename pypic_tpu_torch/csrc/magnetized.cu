@@ -63,6 +63,18 @@ namespace {
 // 15.8 µs against 12.6 at configs[3]. So the outputs come zeroed, a memset
 // a call, as in the first port. The grid's helpers and the flush live in
 // cic_common.cuh, which the single deposit (cic.cu) shares.
+//
+// Above the columns' ceiling (one lane column of the two histograms, and
+// for the carried deposit the field beside them: 29,056 and 19,370 nodes)
+// the same grid runs the large mode, cols 0 (deposit2_global_kernel,
+// boris_deposit_global_kernel, kernels of their own so that the column
+// kernels' compiled code stays as it was): no shared histogram, every add a global
+// float atomic (red.global.add.f32) into the zeroed outputs, which stay in
+// the 50 MB L2 at these sizes; the carried deposit's field stays in shared
+// memory up to 58,112 nodes and is read from device memory above. Both
+// kernels were float-atomic already, so their contract (the plain
+// versions' tolerances) holds unchanged; the large mode runs up to
+// LARGE_MAX_NG = 2^22 nodes.
 // ---------------------------------------------------------------------------
 
 // ---------------------------------------------------------------------------
@@ -129,6 +141,53 @@ __global__ void __launch_bounds__(1024, 1)
     }
   }
   flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);
+}
+
+// The large mode (deposit_launch_shape's cols 0: above 29,056 nodes, where
+// one lane column of the two histograms no longer fits a block): no
+// shared histogram, each row's four adds a global float atomic
+// (red.global.add.f32) into the zeroed outputs, which a launch touches in
+// L2 (2 x 4 B a node: 32 MiB at 2^22 nodes). The same rows a block and
+// thread as deposit2_kernel's grid.
+template <bool PERIODIC, int ROWS, bool VEC>
+__global__ void __launch_bounds__(1024, 1)
+    deposit2_global_kernel(const float* __restrict__ p, const float* __restrict__ va,
+                           const float* __restrict__ vb, float* __restrict__ out_a,
+                           float* __restrict__ out_b, long long n, int ng) {
+  if (ROWS == 1) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      const float a = va[i];
+      const float b = vb[i];
+      atomicAdd(out_a + c.l, __fmul_rn(a, c.wl));
+      atomicAdd(out_a + c.r, __fmul_rn(a, c.wr));
+      atomicAdd(out_b + c.l, __fmul_rn(b, c.wl));
+      atomicAdd(out_b + c.r, __fmul_rn(b, c.wr));
+    }
+  } else {
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
+      const float4 a4 = load4<VEC>(va, i, end, 0.0f);
+      const float4 b4 = load4<VEC>(vb, i, end, 0.0f);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i + r >= end) break;
+        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const float a = get(a4, r);
+        const float b = get(b4, r);
+        atomicAdd(out_a + c.l, __fmul_rn(a, c.wl));
+        atomicAdd(out_a + c.r, __fmul_rn(a, c.wr));
+        atomicAdd(out_b + c.l, __fmul_rn(b, c.wl));
+        atomicAdd(out_b + c.r, __fmul_rn(b, c.wr));
+      }
+    }
+  }
 }
 
 // The gather position: pc = clip(p, 0, ng - 1); with SWAP (the reference's
@@ -396,21 +455,123 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
+// The large mode (cols 0: above 19,370 nodes, where one lane column of the
+// two histograms and the field no longer fit a block): boris_row's four
+// adds go by global float atomics into the zeroed rho and dens (its
+// indices with one column: node l of rho at l, of dens at ng + l); the
+// field sits in shared memory up to kFieldSmemMaxNg nodes (SMEM_FIELD) and
+// is read from device memory above. The clamps are counted as above.
+template <bool SWAP, int ROWS, bool VEC, bool SMEM_FIELD>
+__global__ void __launch_bounds__(1024, 1) boris_deposit_global_kernel(
+    const float* __restrict__ field, const float* __restrict__ p_in,
+    const float* __restrict__ vx_in, const float* __restrict__ vy_in,
+    const float* __restrict__ vz_in, const float* __restrict__ c_in,
+    const float* __restrict__ act_in, const float* __restrict__ wr_in,
+    const float* __restrict__ wn_in, float* __restrict__ p_out,
+    float* __restrict__ vx_out, float* __restrict__ vy_out,
+    float* __restrict__ vz_out, float* __restrict__ rho,
+    float* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng,
+    float bx, float by, float bz, float dt_dx, int win_stride, int num_k,
+    float inv_stride, int pad, int wp) {
+  extern __shared__ float4 smem4[];
+  __shared__ int s_clamped;
+  const float* f = field;
+  if (SMEM_FIELD) {
+    float* s_field = reinterpret_cast<float*>(smem4);
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+    f = s_field;
+  }
+  if (threadIdx.x == 0) s_clamped = 0;
+  __syncthreads();
+  int clamped = 0;
+  int idx[4];
+  float val[4];
+  if (ROWS == 1) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      float p1, vx, vy, vz;
+      boris_row<SWAP>(f, ng, 1, 0, p_in[i], vx_in[i], vy_in[i], vz_in[i],
+                      c_in[i], act_in[i], wr_in[i], wn_in[i], bx, by, bz, dt_dx,
+                      win_stride, num_k, inv_stride, pad, wp, p1, vx, vy, vz, idx,
+                      val, clamped);
+      p_out[i] = p1;
+      vx_out[i] = vx;
+      vy_out[i] = vy;
+      vz_out[i] = vz;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (idx[k] >= 0) atomicAdd(idx[k] < ng ? rho + idx[k] : dens + (idx[k] - ng), val[k]);
+    }
+  } else {
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p_in, i, end, 0.0f);
+      const float4 vx4 = load4<VEC>(vx_in, i, end, 0.0f);
+      const float4 vy4 = load4<VEC>(vy_in, i, end, 0.0f);
+      const float4 vz4 = load4<VEC>(vz_in, i, end, 0.0f);
+      const float4 c4 = load4<VEC>(c_in, i, end, 0.0f);
+      const float4 act4 = load4<VEC>(act_in, i, end, 0.0f);
+      const float4 wr4 = load4<VEC>(wr_in, i, end, 0.0f);
+      const float4 wn4 = load4<VEC>(wn_in, i, end, 0.0f);
+      float4 p14, vx14, vy14, vz14;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        boris_row<SWAP>(f, ng, 1, 0, get(p4, r), get(vx4, r), get(vy4, r),
+                        get(vz4, r), get(c4, r), get(act4, r), get(wr4, r),
+                        get(wn4, r), bx, by, bz, dt_dx, win_stride, num_k, inv_stride,
+                        pad, wp, at(p14, r), at(vx14, r), at(vy14, r), at(vz14, r), idx,
+                        val, clamped);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (idx[k] >= 0)
+            atomicAdd(idx[k] < ng ? rho + idx[k] : dens + (idx[k] - ng), val[k]);
+      }
+      store4<VEC>(p_out, i, end, p14);
+      store4<VEC>(vx_out, i, end, vx14);
+      store4<VEC>(vy_out, i, end, vy14);
+      store4<VEC>(vz_out, i, end, vz14);
+    }
+  }
+  clamped = __reduce_add_sync(0xffffffffu, clamped);
+  if ((threadIdx.x & 31) == 0 && clamped) atomicAdd(&s_clamped, clamped);
+  __syncthreads();
+  if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
+}
+
 }  // namespace
 
 extern "C" {
 
 // out_a, out_b: ng zeroed floats each; rows, blocks, threads and cols from
-// ops/cuda_cic.py deposit_launch_shape.
+// ops/cuda_cic.py deposit_launch_shape (cols 0: the large mode).
 int pypic_deposit2(const float* p, const float* va, const float* vb,
                    float* out_a, float* out_b, long long n, int ng, int periodic,
                    int rows, int blocks, int threads, int cols, void* stream) {
-  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
     return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)ng * cols * sizeof(float);
   const bool vec = aligned16(p) && aligned16(va) && aligned16(vb);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+  if (cols == 0) {  // the large mode
+#define PYPIC_DEPOSIT2_GLOBAL(PER, ROWS, VEC)                                   \
+  deposit2_global_kernel<PER, ROWS, VEC><<<blocks, threads, 0, s>>>(            \
+      p, va, vb, out_a, out_b, n, ng);                                          \
+  return (int)cudaGetLastError()
+    if (periodic) {
+      if (rows == 1) { PYPIC_DEPOSIT2_GLOBAL(true, 1, false); }
+      if (vec) { PYPIC_DEPOSIT2_GLOBAL(true, 4, true); }
+      PYPIC_DEPOSIT2_GLOBAL(true, 4, false);
+    }
+    if (rows == 1) { PYPIC_DEPOSIT2_GLOBAL(false, 1, false); }
+    if (vec) { PYPIC_DEPOSIT2_GLOBAL(false, 4, true); }
+    PYPIC_DEPOSIT2_GLOBAL(false, 4, false);
+#undef PYPIC_DEPOSIT2_GLOBAL
+  }
 #define PYPIC_DEPOSIT2(PER, ROWS, VEC)                                          \
   err = allow_smem(deposit2_kernel<PER, ROWS, VEC>, smem);                      \
   if (err != cudaSuccess) return (int)err;                                      \
@@ -462,7 +623,7 @@ int pypic_boris_gather_push_deposit(
     float bz, float dt_dx, int swap, int win_stride, int num_k,
     float inv_stride, int pad, int rows, int blocks, int threads, int cols,
     void* stream) {
-  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (2 * (size_t)cols + 1) * ng * sizeof(float);
   const int wp = win_stride + 2 + 2 * pad;  // width = stride + 2
@@ -472,6 +633,30 @@ int pypic_boris_gather_push_deposit(
                    aligned16(vx1) && aligned16(vy1) && aligned16(vz1);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+  if (cols == 0) {  // the large mode: the field alone in shared memory, or none
+    const bool smem_field = ng <= kFieldSmemMaxNg;
+    const size_t fsmem = smem_field ? (size_t)ng * sizeof(float) : 0;
+#define PYPIC_BORIS_GLOBAL(SW, ROWS, VEC, SF)                                   \
+  err = allow_smem(boris_deposit_global_kernel<SW, ROWS, VEC, SF>, fsmem);      \
+  if (err != cudaSuccess) return (int)err;                                      \
+  boris_deposit_global_kernel<SW, ROWS, VEC, SF><<<blocks, threads, fsmem, s>>>( \
+      field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1, rho, dens,       \
+      n_clamped, n, ng, bx, by, bz, dt_dx, win_stride, num_k, inv_stride, pad,  \
+      wp);                                                                      \
+  return (int)cudaGetLastError()
+#define PYPIC_BORIS_GLOBAL_ROWS(SW, SF)                                         \
+  if (rows == 1) { PYPIC_BORIS_GLOBAL(SW, 1, false, SF); }                      \
+  if (vec) { PYPIC_BORIS_GLOBAL(SW, 4, true, SF); }                             \
+  PYPIC_BORIS_GLOBAL(SW, 4, false, SF)
+    if (swap) {
+      if (smem_field) { PYPIC_BORIS_GLOBAL_ROWS(true, true); }
+      PYPIC_BORIS_GLOBAL_ROWS(true, false);
+    }
+    if (smem_field) { PYPIC_BORIS_GLOBAL_ROWS(false, true); }
+    PYPIC_BORIS_GLOBAL_ROWS(false, false);
+#undef PYPIC_BORIS_GLOBAL_ROWS
+#undef PYPIC_BORIS_GLOBAL
+  }
 #define PYPIC_BORIS_DEP(SW, ROWS, VEC)                                          \
   err = allow_smem(boris_deposit_kernel<SW, ROWS, VEC>, smem);                  \
   if (err != cudaSuccess) return (int)err;                                      \

@@ -54,6 +54,11 @@ Backends, as the JAX engine's, with CUDA in the place of the TPU:
   ``boris_gather_push`` sweep;
 * composed (and always under ``pusher='gc'``): two ``deposit`` launches,
   the ``gather`` kernel and the tensor-op pushers;
+
+(On the card ``deposit2`` and the carried sweep run up to
+``cuda_cic.LARGE_MAX_NG`` nodes, with global float atomics above the
+29,056 and 19,370 nodes their shared histograms hold; the fused push and
+the gather hold 58,112, the single ``deposit`` too: ROADMAP item 10.)
 * carried (``carried_deposit='on'``, whatever ``backend`` says, as the JAX
   engine's branch order has it): the step opens from the rho and n the
   state carries, and the push is the ``boris_gather_push_deposit`` sweep,

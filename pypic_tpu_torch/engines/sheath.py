@@ -35,7 +35,11 @@ Every current and histogram on the card is summed in a fixed order (the
 pass kernels, and ``cuda_cic.deposit_det`` in the place of ``deposit``):
 the loop's floor exit compares a residual at round-off level, which the
 float atomics' changing order would hold above the threshold (module
-``ops.cuda_sheath``).
+``ops.cuda_sheath``). Both backends run any ng up to
+``cuda_cic.LARGE_MAX_NG`` on the card: above 1,760 nodes (the composed
+deposits, 1,816) the kernels sum in int64 fixed point, whose bits no
+order changes (csrc/sheath.cu's header). The composed backend's gather
+holds 58,112 nodes (ROADMAP item 10).
 
 The re-injection is the Philox kernel ``ops.cuda_rng.sheath_reinject``
 (``rng_sampler`` 'auto' and 'pallas'), keyed by the state's two key words

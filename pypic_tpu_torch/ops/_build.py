@@ -91,6 +91,11 @@ _SIGNATURES = {
     "pypic_sheath_finalize": (
         [_P] * 13 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
     "pypic_deposit_det": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
+    "pypic_sheath_picard_large": (
+        [_P] * 12 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_sheath_finalize_large": (
+        [_P] * 13 + [_L, _I] + [_F] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_deposit_det_large": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
     "pypic_sheath_reinject": (
         [_P] * 12 + [_L, _U, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (

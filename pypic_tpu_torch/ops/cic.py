@@ -11,9 +11,10 @@ sum is reduced, never the result's meaning: 'auto' and 'pallas' take the
 deposit kernel, whose float atomics do not give the same bits from run to
 run; 'scatter' and 'matmul', which JAX documents as bit-deterministic,
 take ``deposit_det`` (a fixed summation order: the same bits call after
-call). On the card ``deposit_det`` holds ng <= 1,816 and raises above it
-(the large-grid variant is ROADMAP item 10); it never changes route on
-its own.
+call). On the card ``deposit_det`` sums in thread columns up to ng =
+1,816 and in int64 fixed point above it, up to ``cuda_cic.LARGE_MAX_NG``
+(2^22), where it raises; both give the same bits call after call. It
+never changes route on its own.
 
 All positions are grid coordinates p = x/dx (see pypic_tpu_torch.grid).
 """

@@ -97,6 +97,14 @@ _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
 SMEM_LIMIT = 232_448
 # lane columns a histogram of the wide deposits at most (deposit_launch_shape)
 DEPOSIT_MAX_COLS = 32
+# the field alone in one block's shared memory (csrc kFieldSmemMaxNg): the
+# large modes read it from device memory above this ng
+FIELD_SMEM_MAX_NG = SMEM_LIMIT // 4
+# the large modes' limit on ng (the deterministic sums of deposit_det and
+# the sheath pass, deposit2 and the carried Boris deposit): float32
+# positions below 2^22 still resolve a quarter cell, and the int64 sums
+# of deposit_det take 8 ng bytes (32 MiB here)
+LARGE_MAX_NG = 1 << 22
 
 
 def reset_launch_counts() -> None:
@@ -142,7 +150,15 @@ def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
             f"{what}: ng={ng} needs {need} B of shared memory, "
             f"above the {SMEM_LIMIT} B a block may use (ng <= "
             f"{(SMEM_LIMIT - extra) // (4 * arrays)}); the large-ng variant "
-            "is not ported yet")
+            "is ROADMAP item 10")
+
+
+def check_large_ng(ng: int, what: str) -> None:
+    """The large modes' limit (a limit of the card's kernels only)."""
+    if ng > LARGE_MAX_NG:
+        raise ValueError(f"{what}: ng={ng} is above LARGE_MAX_NG = {LARGE_MAX_NG}, "
+                         "the large mode's limit (float32 positions resolve a "
+                         "quarter cell below it)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -504,20 +520,32 @@ def det_buffers(dev, blocks: int, ng: int):
     return _DET_SCRATCH[key]
 
 
+def large_scratch(dev, blocks: int, ng: int):
+    """(per-block maxima, int64 node sums) of a large deterministic sum
+    (cic_common.cuh "Large deterministic sums"): 4 blocks + 8 ng bytes,
+    written by the kernels before they read them, so nothing is zeroed or
+    kept across calls."""
+    return (torch.empty((blocks,), dtype=torch.float32, device=dev),
+            torch.empty((ng,), dtype=torch.int64, device=dev))
+
+
 def deterministic_scratch(n: int, ng: int, dev):
-    """(launch shape, per-block partials, zeroed block counter) of the
-    deterministic deposit: the sheath pass's grid without the field
+    """(launch shape, scratch a, scratch b) of the deterministic deposit:
+    the sheath pass's grid without the field
     (``cuda_sheath.launch_shape(n, ng, sms, field=False)``: persistent
-    blocks over contiguous row ranges, a column of ng floats a thread),
-    fixed by n, ng and the card, so the sums' order is too. Call it with
-    ``dev`` current. Raises where 32 thread columns do not fit a block
-    (ng > 1,816)."""
+    blocks over contiguous row ranges), fixed by n, ng and the card. Up to
+    ng = 1,816 a column of ng floats a thread and the summed order of
+    ``det_buffers`` (per-block partials, zeroed block counter); above it
+    the large mode's int64 fixed-point sums in ``large_scratch`` (per-block
+    maxima, node sums). Call it with ``dev`` current. Raises above
+    LARGE_MAX_NG."""
     from .cuda_sheath import launch_shape
 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     shape = launch_shape(max(n, 1), ng, _sm_count(index), field=False)
-    partial, counter = det_buffers(dev, shape.blocks, ng)
-    return shape, partial, counter
+    if shape.large:
+        return (shape, *large_scratch(dev, shape.blocks, ng))
+    return (shape, *det_buffers(dev, shape.blocks, ng))
 
 
 ROW_ALIGN = 4  # floats: 16 B
@@ -566,12 +594,13 @@ def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS)
 
 def deposit_det(p, values, ng: int, *, periodic: bool):
     """``deposit`` with the sums in a fixed order on the card (no float
-    atomics: cic_common.cuh det_flush), so that a call gives the same bits
-    every time; on the card ng <= 1,816, where 32 thread columns still fit
-    a block (CPU tensors take the plain deposit at any ng). The sheath
-    engine's composed loop and exit histograms use it: its floor exit
-    reads the residual at round-off level. The other engines keep the
-    float-atomic ``deposit``."""
+    atomics), so that a call gives the same bits every time: up to ng =
+    1,816 a column a thread and cic_common.cuh det_flush's ordered sums,
+    above it (up to LARGE_MAX_NG) int64 fixed-point sums, exact and
+    associative (csrc/cic.cu deposit_det_large_kernel). CPU tensors take
+    the plain deposit at any ng. The sheath engine's composed loop and exit
+    histograms use it: its floor exit reads the residual at round-off
+    level. The other engines keep the float-atomic ``deposit``."""
     kind = _device_kind((p, values))
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
@@ -583,11 +612,11 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     dev = p.device
     out = torch.empty((ng,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        shape, partial, counter = deterministic_scratch(n, ng, dev)
-        err = lib.pypic_deposit_det(
-            p.data_ptr(), values.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), counter.data_ptr(), n, ng, int(periodic),
-            shape.blocks, shape.threads, shape.rows_per_block, _stream(dev))
+        shape, a, b = deterministic_scratch(n, ng, dev)
+        fn = lib.pypic_deposit_det_large if shape.large else lib.pypic_deposit_det
+        err = fn(p.data_ptr(), values.data_ptr(), out.data_ptr(), a.data_ptr(),
+                 b.data_ptr(), n, ng, int(periodic), shape.blocks, shape.threads,
+                 shape.rows_per_block, _stream(dev))
     _build.check(err, "deposit_det")
     LAUNCHES["deposit_det"] += 1
     return out
@@ -1042,8 +1071,9 @@ class DepositShape:
     ``threads`` threads, ``rows`` rows a thread and pass (4 with 16-B
     accesses, or 1); block b sweeps the units of ``rows`` rows [b U / B,
     (b + 1) U / B), U = ceil(n / rows), B = blocks; each histogram has
-    ``cols`` lane columns a node; ``smem`` bytes of dynamic shared memory a
-    block (the columns, and the field for row 9)."""
+    ``cols`` lane columns a node (0: the large mode, no shared histogram);
+    ``smem`` bytes of dynamic shared memory a block (the columns, and the
+    field for row 9)."""
     rows: int
     blocks: int
     threads: int
@@ -1060,25 +1090,37 @@ def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
     a group of four rows: one such block an SM, ``max_cols`` (32) lane
     columns, halved until shared memory holds them. Narrow below that: the
     first port's grid, a row a thread, no more blocks than the rows fill.
-    Raises where one column does not fit: above ng = 58,112 for deposit,
-    29,056 for deposit2 and 19,370 with the field."""
+    Where one column does not fit (above ng = 29,056 for deposit2, 19,370
+    with the field) two histograms take the large mode: the same rows a
+    block, ``cols`` 0 (no shared histogram, every add a global atomic),
+    ``smem`` the field's where it fits alone (ng <= FIELD_SMEM_MAX_NG),
+    else 0; it raises above LARGE_MAX_NG. ``deposit`` (one histogram)
+    raises above 58,112 (ROADMAP item 10)."""
     if (n < 0 or ng < 2 or sms < 1 or (hists, field) not in _DEPOSIT_NAMES
             or max_cols not in (1, 2, 4, 8, 16, 32)):
         raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1, "
                          f"1 or 2 histograms (2 with the field) and max_cols a power "
                          f"of two up to 32; got {n}, {ng}, {sms}, {hists}, {max_cols}")
-    _check_smem(ng, hists + int(field), _DEPOSIT_NAMES[(hists, field)])
+    name = _DEPOSIT_NAMES[(hists, field)]
+    large = hists == 2 and 4 * (hists + int(field)) * ng > SMEM_LIMIT
+    if large:
+        check_large_ng(ng, name)
+    else:
+        _check_smem(ng, hists + int(field), name)
 
     def smem(cols: int) -> int:
+        if large:
+            return 4 * ng if field and ng <= FIELD_SMEM_MAX_NG else 0
         return 4 * (hists * cols + int(field)) * ng
 
     if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
-        cols = max_cols
+        cols = 0 if large else max_cols
         while smem(cols) > SMEM_LIMIT:
             cols //= 2
         return DepositShape(4, sms, DEPOSIT_WIDE_THREADS, cols, smem(cols))
     blocks = max(1, min(-(-n // DEPOSIT_NARROW_THREADS), _BLOCKS_PER_SM * sms))
-    return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, 1, smem(1))
+    cols = 0 if large else 1
+    return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, cols, smem(cols))
 
 
 def deposit_row_blocks(n: int, ng: int, field: bool, sms: int,

@@ -15,7 +15,9 @@ Status values are floats, as the TPU kernels take them: 1 ACTIVE, 0
 LOST_RIGHT, -1 LOST_LEFT. The kernels' currents are deterministic (summed
 in a fixed order, no float atomics: the Picard loop's floor exit reads
 the residual at round-off level); they equal the plain versions' up to
-summation order. The push's constant c = 0.5 dt (dt/dx) is formed
+summation order (above MAX_NG = 1,760 nodes, int64 fixed-point sums: exact
+below the scale's rounding, the same bits for any order; up to
+LARGE_MAX_NG). The push's constant c = 0.5 dt (dt/dx) is formed
 in float32 from the float32 dt and dt/dx (the TPU kernel's SMEM scalars),
 so the kernel's and the plain version's xh, x1 and u1 are bit-equal.
 
@@ -28,7 +30,8 @@ engine's next inputs start 16-B aligned and the kernels take 16-B loads.
 
 ``launch_shape(n, ng, sms)`` is the kernels' grid: persistent blocks, one
 or two an SM, each sweeping a contiguous range of rows. The order of every
-sum of the current follows from it, so from (n, ng, sms) alone.
+sum of the current follows from it, so from (n, ng, sms) alone; in the
+large mode no order matters.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ import numpy as np
 import torch
 
 from . import _build
-from .cuda_cic import (LAUNCHES, SMEM_LIMIT, _check_1d, _device_kind,
-                       _sm_count, _stream, deposit_plain, det_buffers,
-                       gather_plain, padded_rows)
+from .cuda_cic import (FIELD_SMEM_MAX_NG, LARGE_MAX_NG, LAUNCHES, SMEM_LIMIT,
+                       _check_1d, _device_kind, _sm_count, _stream,
+                       check_large_ng, deposit_plain, det_buffers,
+                       gather_plain, large_scratch, padded_rows)
 
 MAX_THREADS = 1024  # csrc/sheath.cu kMaxThreads
 MIN_THREADS = 32  # one warp of thread columns
@@ -54,59 +58,79 @@ MAX_BLOCKS_PER_SM = 2
 SM_SHARED = 233_472
 SM_THREADS = 2048
 BLOCK_RESERVED = 1024
-# the largest grid the kernels take: the field and 32 thread columns of
-# ng floats in one block's shared memory (ROADMAP item 10)
+# the small mode's limit: the field and 32 thread columns of ng floats in
+# one block's shared memory (without the field, the deterministic
+# deposit's: SMEM_LIMIT // 128 = 1,816). Above it, up to LARGE_MAX_NG,
+# the large mode (int64 fixed-point sums in device memory)
 MAX_NG = SMEM_LIMIT // (4 * (MIN_THREADS + 1))
+LARGE_THREADS = 512  # csrc/cic_common.cuh kLargeThreads
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchShape:
     """The sheath kernels' grid (and the deterministic deposit's). Block b
     sweeps rows [b rows_per_block, min(n, (b + 1) rows_per_block)), four a
-    thread at a time; ``smem`` bytes of dynamic shared memory a block hold
-    the field (not the deposit's) and a column of ng floats a thread."""
+    thread at a time; ``smem`` bytes of dynamic shared memory a block. The
+    small mode holds the field (not the deposit's) and a column of ng
+    floats a thread there, and sums them in an order the grid fixes;
+    ``large`` (ng above the columns' ceiling) holds the field alone where
+    it fits (ng <= FIELD_SMEM_MAX_NG, else nothing) and sums in int64
+    fixed point, whose bits no order changes. ``scratch`` is the device
+    memory the sums use: blocks x ng floats of partials and a counter
+    (small), or blocks floats of maxima and ng int64 (large)."""
 
     blocks: int
     threads: int
     rows_per_block: int
     smem: int
+    large: bool = False
+    scratch: int = 0
 
 
 def launch_shape(n: int, ng: int, sms: int, field: bool = True) -> LaunchShape:
     """The grid of a sheath pass over n rows and ng nodes on a card of
     ``sms`` SMs (with ``field`` False, of the deterministic deposit, whose
-    blocks hold no field). Threads a block: a power of two in [32, 1024],
-    the most that let two blocks (the field and a column of ng floats a
-    thread each) share an SM, else the most one block holds; no more
-    blocks than n fills, so every block gets rows. Raises above MAX_NG
-    (without the field, above 1,816)."""
+    blocks hold no field). Small mode up to MAX_NG (without the field,
+    1,816): threads a block a power of two in [32, 1024], the most that
+    let two blocks (the field and a column of ng floats a thread each)
+    share an SM, else the most one block holds. Large mode above it:
+    LARGE_THREADS threads, two blocks an SM where the field's shared
+    memory lets them. No more blocks than n fills, so every block gets
+    rows. Raises above LARGE_MAX_NG."""
     extra = int(field)
     top = SMEM_LIMIT // (4 * (MIN_THREADS + extra))
     if n < 1 or ng < 2 or sms < 1:
         raise ValueError(f"launch_shape needs n >= 1, ng >= 2, sms >= 1; got "
                          f"{n}, {ng}, {sms}")
-    if ng > top:
-        raise ValueError(
-            f"{'sheath pass' if field else 'deposit_det'}: ng={ng} leaves no "
-            f"room for {MIN_THREADS} thread histograms in {SMEM_LIMIT} B of "
-            f"shared memory (ng <= {top}); the large-ng variant is ROADMAP "
-            "item 10")
+    large = ng > top
+    if large:
+        check_large_ng(ng, "sheath pass" if field else "deposit_det")
+
+    def smem_of(threads: int) -> int:
+        if large:
+            return 4 * ng if field and ng <= FIELD_SMEM_MAX_NG else 0
+        return (threads + extra) * ng * 4
 
     def per_sm(threads: int) -> int:
-        smem = (threads + extra) * ng * 4
+        smem = smem_of(threads)
         if smem > SMEM_LIMIT:
             return 0
         return min(MAX_BLOCKS_PER_SM, SM_THREADS // threads,
                    SM_SHARED // (smem + BLOCK_RESERVED))
 
-    sizes = [MAX_THREADS >> k for k in range(6)]  # 1024 .. 32
-    threads = next((t for t in sizes if per_sm(t) >= MAX_BLOCKS_PER_SM),
-                   next(t for t in sizes if per_sm(t) >= 1))
+    if large:
+        threads = LARGE_THREADS
+    else:
+        sizes = [MAX_THREADS >> k for k in range(6)]  # 1024 .. 32
+        threads = next((t for t in sizes if per_sm(t) >= MAX_BLOCKS_PER_SM),
+                       next(t for t in sizes if per_sm(t) >= 1))
     groups = -(-n // 4)
     blocks = max(1, min(per_sm(threads) * sms, -(-groups // threads)))
     per_block = -(-groups // blocks)
     blocks = -(-groups // per_block)
-    return LaunchShape(blocks, threads, 4 * per_block, (threads + extra) * ng * 4)
+    scratch = 4 * blocks + 8 * ng if large else 4 * blocks * ng + 4
+    return LaunchShape(blocks, threads, 4 * per_block, smem_of(threads), large,
+                       scratch)
 
 
 def sheath_scalars(dt: float, dx: float):
@@ -190,7 +214,8 @@ def _check(es, ps, p0, u0, qm, w, act):
 def _launch(fn, what: str, outs, es, ps, p0, u0, qm, w, act, n: int, ng: int,
             dt: float, dx: float):
     """One launch of the pass (``outs`` (xh, act1)) or the finalize (x1,
-    u1, act1); returns the (ng,) current."""
+    u1, act1); returns the (ng,) current. The large mode runs the
+    ``*_large`` launcher (its scale sweep, deposit sweep and conversion)."""
     dt32, dt_dx32, c, wall_ratio = sheath_scalars(dt, dx)
     dev = ps.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -198,12 +223,16 @@ def _launch(fn, what: str, outs, es, ps, p0, u0, qm, w, act, n: int, ng: int,
     lib = _build.library()
     j = torch.empty((ng,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        partial, counter = det_buffers(dev, shape.blocks, ng)
+        if shape.large:
+            a, b = large_scratch(dev, shape.blocks, ng)
+            fn += "_large"
+        else:
+            a, b = det_buffers(dev, shape.blocks, ng)
         err = getattr(lib, fn)(
             es.data_ptr(), ps.data_ptr(), p0.data_ptr(), u0.data_ptr(),
             qm.data_ptr(), w.data_ptr(), act.data_ptr(),
-            *(o.data_ptr() for o in outs), j.data_ptr(), partial.data_ptr(),
-            counter.data_ptr(), n, ng, dt32, dt_dx32, c, wall_ratio,
+            *(o.data_ptr() for o in outs), j.data_ptr(), a.data_ptr(),
+            b.data_ptr(), n, ng, dt32, dt_dx32, c, wall_ratio,
             shape.blocks, shape.threads, shape.rows_per_block, _stream(dev))
     _build.check(err, what)
     LAUNCHES[what] += 1

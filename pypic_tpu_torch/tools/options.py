@@ -66,6 +66,8 @@ SUPER_N_SMALL, SUPER_STEPS = 20_000, 4
 CARRIED = dict(carried_deposit="on", react_batch=512, source_sampler="hash")
 CARRIED_STEPS = 20
 DEPOSIT_N, DEPOSIT_NG = 1_000_000, 51
+# deposit_det's large mode (above 1,816 nodes: int64 fixed-point sums)
+LARGE_NG = 2000
 
 
 def _sync(dev) -> None:
@@ -347,7 +349,9 @@ def deposit_methods(dev) -> dict:
     """deposit_method 'pallas' in init_state at the headline set-up (the
     deposit kernel's launches), then 'scatter' and 'matmul' at n = 1e6,
     ng 51: twice each (the same bits?), the gap to the deposit kernel
-    relative to the largest node, and the raise at ng = 2,000."""
+    relative to the largest node, the same at ng = 2,000 (deposit_det's
+    large mode: int64 fixed-point sums) and the raise above
+    ``cuda_cic.LARGE_MAX_NG``."""
     from ..constants import E_CHARGE, M_ELECTRON
 
     out = {}
@@ -364,19 +368,22 @@ def deposit_methods(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     p = torch.rand(DEPOSIT_N, generator=gen, device=dev) * (DEPOSIT_NG - 1)
     w = torch.randn(DEPOSIT_N, generator=gen, device=dev)
-    ref = cic.deposit(p, w, DEPOSIT_NG, periodic=False)
+    p_large = p * ((LARGE_NG - 1) / (DEPOSIT_NG - 1))
     for method in ("scatter", "matmul"):
-        a = cic.deposit(p, w, DEPOSIT_NG, periodic=False, method=method)
-        b = cic.deposit(p, w, DEPOSIT_NG, periodic=False, method=method)
-        gap = float((a.double() - ref.double()).abs().max()
-                    / ref.double().abs().max())
+        rec = dict(n=DEPOSIT_N, ng=DEPOSIT_NG)
+        for tag, pos, ng in (("", p, DEPOSIT_NG), ("_large", p_large, LARGE_NG)):
+            ref = cic.deposit(pos, w, ng, periodic=False)
+            a = cic.deposit(pos, w, ng, periodic=False, method=method)
+            b = cic.deposit(pos, w, ng, periodic=False, method=method)
+            rec[f"same_bits{tag}"] = torch.equal(a, b)
+            rec[f"gap_to_deposit{tag}"] = float((a.double() - ref.double()).abs().max()
+                                                / ref.double().abs().max())
         try:
-            cic.deposit(p, w, 2000, periodic=False, method=method)
-            raised = ""
+            cic.deposit(p, w, cuda_cic.LARGE_MAX_NG + 1, periodic=False, method=method)
+            rec["raise_above_large_max_ng"] = ""
         except ValueError as e:
-            raised = str(e)
-        out[method] = dict(n=DEPOSIT_N, ng=DEPOSIT_NG, same_bits=torch.equal(a, b),
-                           gap_to_deposit=gap, raise_at_2000=raised)
+            rec["raise_above_large_max_ng"] = str(e)
+        out[method] = rec
     return out
 
 

@@ -13,8 +13,11 @@ runs 1,200 steps through ``runner.run``, bench's n and steps.
 
     python -m pypic_tpu_torch.tools.sheath
 
-runs it and prints one JSON line: µs/step, pushes/s, the Picard mean and
-maximum, the wall potential drops in Te/e over the last 300 steps, the
+runs it and prints one JSON line (``--ng``, ``--n`` and ``--steps`` change
+the grid, keeping dx and the density, the load and the step count; above
+1,760 nodes the sheath pass runs its large mode): µs/step, pushes/s, the
+Picard mean and maximum, the wall potential drops in Te/e over the last
+300 steps, the
 kernel launches, and the host syncs a step beside the Picard passes a step
 (20 more steps under ``torch.cuda.set_sync_debug_mode("warn")``, each
 synchronizing call counted; the engine reads the host once a pass). It
@@ -73,9 +76,12 @@ SYNC_STEPS = 20
 COMPOSED_STEPS = 20
 
 
-def config(n: int = N) -> sheath.SheathConfig:
-    length = DX * (NG - 1)
-    grid = GridSpec(NG, length, "dirichlet-dirichlet")
+def config(n: int = N, ng: int = NG) -> sheath.SheathConfig:
+    """The row's configuration at n particles; ``ng`` other than the
+    row's 51 nodes keeps dx and the density (the domain grows, p2c with
+    it)."""
+    length = DX * (ng - 1)
+    grid = GridSpec(ng, length, "dirichlet-dirichlet")
     return sheath.SheathConfig(
         grid, DT, length * DENSITY / n, kbte=K_BOLTZMANN * TE,
         kbti=K_BOLTZMANN * TI, picard_init="extrapolate",
@@ -156,18 +162,18 @@ def count_syncs(step, st, maxiter: int, steps: int = SYNC_STEPS) -> dict:
 
 
 def run_row(device=None, steps: int = STEPS, n: int = N, warmup: int = 3,
-            sync_steps: int = SYNC_STEPS, **overrides):
+            sync_steps: int = SYNC_STEPS, ng: int = NG, **overrides):
     """Run the row: ``warmup`` steps from the initial state (set-up: the
     first launch of each PyTorch kernel loads it), then from the initial
     state again, the launch counts set to 0, ``steps`` steps and one
     synchronize; then, on a card, ``sync_steps`` steps that count the host
     syncs. ``overrides`` replace config fields (e.g. backend='composed').
     On a CPU device (the plain versions; no timing meaning) there is no
-    sync to count. Returns (result dict, config, final state, stacked
-    StepMetrics of the timed steps)."""
+    sync to count. ``ng`` widens the grid (``config``). Returns (result
+    dict, config, final state, stacked StepMetrics of the timed steps)."""
     dev = devices.resolve(device)
     cuda = dev.type == "cuda"
-    cfg, st = state(dev, n, dataclasses.replace(config(n), **overrides))
+    cfg, st = state(dev, n, dataclasses.replace(config(n, ng), **overrides))
     step = sheath.make_step(cfg)
     if cuda:
         _build.load()  # the build is set-up, not step time
@@ -185,7 +191,7 @@ def run_row(device=None, steps: int = STEPS, n: int = N, warmup: int = 3,
     iters = m.picard_iters.cpu()
     left, right = wall_drops(m, min(300, steps))
     res = dict(device=torch.cuda.get_device_name(dev) if cuda else "cpu",
-               n=n, steps=steps, backend=cfg.backend,
+               n=n, ng=cfg.grid.ng, steps=steps, backend=cfg.backend,
                us_per_step=seconds * 1e6 / steps,
                pushes_per_s=n * steps / seconds,
                picard_mean=float(iters.float().mean()),
@@ -296,7 +302,15 @@ def main(argv=None) -> dict:
                    help="replay the composed backend's steps on the states in DIR")
     p.add_argument("--save", action="store_true",
                    help="with --composed-exits: write the row's states into DIR first")
+    p.add_argument("--ng", type=int, default=NG,
+                   help="grid nodes (dx and the density kept; above 1,760 the "
+                        "sheath pass's large mode)")
+    p.add_argument("--n", type=int, default=N, help="particles")
+    p.add_argument("--steps", type=int, default=STEPS)
     args = p.parse_args(argv)
+    if (args.ng, args.n) != (NG, N) and (args.replay is not None
+                                         or args.composed_exits is not None):
+        p.error("--ng and --n change the row run only")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     if args.composed_exits is not None:
@@ -307,7 +321,8 @@ def main(argv=None) -> dict:
         res = replay(args.replay, torch.device("cuda", 0))
         print(json.dumps(res))
         return res
-    res, cfg, fin, m = run_row(torch.device("cuda", 0))
+    res, cfg, fin, m = run_row(torch.device("cuda", 0), steps=args.steps,
+                               n=args.n, ng=args.ng)
     res["problems"] = check_row(cfg, fin, m)
     syncs = res["syncs"]
     if syncs["host_syncs_per_step"] != syncs["host_reads_per_step"]:

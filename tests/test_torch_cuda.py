@@ -853,32 +853,135 @@ def test_sheath_pass_kernels_on_offset_views(cuda_device, n, ng, final):
 
 
 @pytest.mark.cuda
-def test_sheath_pass_at_its_ceiling(cuda_device):
-    """The pass at the largest ng the card takes (32 thread columns a
-    block): the current bit-equal from call to call and within 2e-5 of a
-    float64 deposit, xh and act1 bit-equal to the plain version's; one
-    node more raises naming ROADMAP item 10 and launches nothing."""
+@pytest.mark.parametrize("final", [False, True], ids=["picard", "finalize"])
+@pytest.mark.parametrize("ng", [1760, 1761, 65_536])
+def test_sheath_pass_at_its_ceiling(cuda_device, ng, final):
+    """The pass and the finalize at the small mode's ceiling (32 thread
+    columns a block, ng = 1,760) and in the large mode above it (int64
+    fixed-point sums; the field in device memory at 65,536): the current
+    bit-equal from call to call and within 2e-5 of a float64 deposit, the
+    outputs bit-equal to the plain version's, one launch counted a call;
+    LARGE_MAX_NG + 1 nodes raise naming the limit and launch nothing."""
     from pypic_tpu_torch.ops import cuda_sheath
 
-    ng, n = cuda_sheath.MAX_NG, 200_003
+    n = 200_003
+    assert (ng > cuda_sheath.MAX_NG) == (ng > 1760)
     args = _sheath_inputs(n, ng, cuda_device)
     kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
-    got = cuda_sheath.sheath_picard(*args, **kw)
-    assert torch.equal(cuda_sheath.sheath_picard(*args, **kw)[-1], got[-1])
-    ref = cuda_sheath.sheath_picard_plain(*args, **kw)
+    fn = cuda_sheath.sheath_finalize if final else cuda_sheath.sheath_picard
+    plain = (cuda_sheath.sheath_finalize_plain if final
+             else cuda_sheath.sheath_picard_plain)
+    name = "sheath_finalize" if final else "sheath_picard"
+    before = cuda_cic.LAUNCHES[name]
+    got = fn(*args, **kw)
+    assert torch.equal(fn(*args, **kw)[-1], got[-1])
+    assert cuda_cic.LAUNCHES[name] == before + 2
+    ref = plain(*args, **kw)
     for g, r in zip(got[:-1], ref[:-1]):
         assert torch.equal(g, r)
-    vals = cuda_sheath._push_plain(args[0], args[1], args[2], args[3], args[4],
-                                   args[6], SHEATH_DT, SHEATH_DX)[3]
+    x1, u1, xh, uh, _ = cuda_sheath._push_plain(
+        args[0], args[1], args[2], args[3], args[4], args[6], SHEATH_DT, SHEATH_DX)
+    pos, vals = (x1, u1) if final else (xh, uh)
     ref64 = cuda_sheath.sheath_deposit_plain(
-        got[0].double(), vals.double(), got[1].double(), args[5].double(), ng,
-        **kw)
+        pos.double(), vals.double(), got[-2].double(), args[5].double(), ng, **kw)
     _rel_close(ref64, got[-1], 2e-5)
     before = dict(cuda_cic.LAUNCHES)
-    es = torch.zeros(ng + 1, dtype=torch.float32, device=cuda_device)
-    with pytest.raises(ValueError, match="item 10"):
-        cuda_sheath.sheath_picard(es, *args[1:], **kw)
+    es = torch.zeros(cuda_sheath.LARGE_MAX_NG + 1, dtype=torch.float32,
+                     device=cuda_device)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        fn(es, *args[1:], **kw)
     assert cuda_cic.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "composed"])
+def test_sheath_step_card_matches_cpu_at_ng_8192(cuda_device, backend):
+    """test_sheath_step_card_matches_cpu at ng = 8,192 (the pass's and
+    deposit_det's large mode, the field in shared memory), n = 200,000
+    (~24 rows a cell), from the card's state after 3 steps: the same
+    limits (Picard counts by floor_exit_counts_agree, wall losses and
+    statuses equal, active positions within 1e-4 cells, e, j and phi
+    within 1e-4 of their largest, the exit histograms equal)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.diagnostics import floor_exit_counts_agree
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.runner import run
+
+    pre = presets.sheath_dd(n=200_000, ng=8192, device=cuda_device)
+    cfg = dataclasses.replace(pre.config, backend=backend,
+                              record_exit_after_step=0,
+                              picard_init="extrapolate", picard_accel="anderson")
+    st, _ = run(sheath.make_step(cfg), pre.state, 3)
+    d = interop.sheath_state_to_numpy(st)
+    (sc, mc), (sg, mg) = [sheath.make_step(cfg)(interop.sheath_state_from_numpy(d, dev))
+                          for dev in ("cpu", cuda_device)]
+    ok, line = floor_exit_counts_agree(
+        mc.picard_iters, float(mc.picard_residual), mg.picard_iters,
+        float(mg.picard_residual), d["e"], sc.e, tol=cfg.tol,
+        tol_floor=cfg.tol_floor)
+    assert ok, line
+    assert int(mg.n_lost_left) == int(mc.n_lost_left)
+    assert int(mg.n_lost_right) == int(mc.n_lost_right)
+    assert torch.equal(sg.active.cpu(), sc.active)
+    act = sc.active == 1
+    assert float((sg.p.cpu()[act] - sc.p[act]).abs().max()) < 1e-4
+    for a, b in ((sc.e, sg.e), (sc.j, sg.j), (mc.phi, mg.phi)):
+        _rel_close(a, b.cpu(), 1e-4)
+    assert torch.equal(sg.exit_hist.cpu(), sc.exit_hist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True], ids=["bounded", "periodic"])
+@pytest.mark.parametrize("ng", [29_057, 65_536])
+def test_deposit2_large_mode_matches_plain(cuda_device, ng, periodic):
+    """deposit2 above its columns' ceiling (29,056; global float atomics):
+    at n = 999,996 (wide) and 16,384 (narrow), both deposits within 5e-5
+    of the plain version and 2e-5 of a float64 deposit (the limits of
+    test_deposit2_kernel_matches_plain), one launch counted."""
+    for n in (999_996, 16_384):
+        _, p, vx, vy, _, _, act = _mag_inputs(n, cuda_device, ng=ng)
+        va, vb = vx * act, vy.abs() * act
+        assert cuda_cic.deposit_launch_shape(n, ng, False, 132).cols == 0
+        before = cuda_cic.LAUNCHES["deposit2"]
+        a, b = cuda_cic.deposit2(p, va, vb, ng, periodic=periodic)
+        assert cuda_cic.LAUNCHES["deposit2"] == before + 1
+        ra, rb = cuda_cic.deposit2_plain(p, va, vb, ng, periodic=periodic)
+        da, db = cuda_cic.deposit2_plain(p.double(), va.double(), vb.double(),
+                                         ng, periodic=periodic)
+        for got, ref, ref64 in ((a, ra, da), (b, rb, db)):
+            _rel_close(ref, got, 5e-5)
+            _rel_close(ref64, got, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("ng", [19_371, 29_057, 65_536])
+def test_boris_gather_push_deposit_large_mode_matches_plain(cuda_device, ng, swap):
+    """The carried sweep above its columns' ceiling (19,370; the field in
+    shared memory up to 58,112, in device memory at 65,536), at n =
+    999,996 (wide) and 16,384 (narrow): p1 and the velocities bit-equal to
+    the plain version's, rho and n within 2e-5 of a float64 sum of its
+    terms, the clamp count equal (the limits of
+    test_boris_gather_push_deposit_kernel_matches_plain)."""
+    for n in (999_996, 16_384):
+        field, p, vx, vy, vz, const, act = _mag_inputs(n, cuda_device, ng=ng)
+        act = act * ((p >= 0) & (p <= ng - 1)).float()
+        args = (field, p, vx, vy, vz, const, act, act * 3.2, act * 1.5)
+        kw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, pad=2,
+                  swap_weights=swap)
+        before = cuda_cic.LAUNCHES["boris_gather_push_deposit"]
+        got = cuda_cic.boris_gather_push_deposit(*args, **kw)
+        assert cuda_cic.LAUNCHES["boris_gather_push_deposit"] == before + 1
+        ref = cuda_cic.boris_gather_push_deposit_plain(*args, **kw)
+        exact = cuda_cic.boris_gather_push_deposit_plain(
+            *args, acc_dtype=torch.float64, **kw)
+        for r, g in zip(ref[:4], got[:4]):
+            assert torch.equal(r, g)
+        for i in (4, 5):
+            _rel_close(exact[i], got[i], 2e-5)
+        assert int(got[6]) == int(ref[6])
 
 
 @pytest.mark.cuda
@@ -1125,8 +1228,9 @@ def test_gc_step_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_wrappers_raise_above_the_cards_limits(cuda_device):
     """On CUDA tensors the size limits hold (the CPU route runs any size):
-    shared memory a block and the deterministic deposits' thread
-    histograms; nothing is launched. The Newton kernels run above their
+    shared memory a block (ROADMAP item 10) and, for the kernels with a
+    large mode (deposit_det, the sheath pass, deposit2, the carried Boris
+    deposit), LARGE_MAX_NG; nothing is launched. The Newton kernels run above their
     one CTA's 1,024 rows (one launch of the large path each) and raise
     only above the large path's LARGE_MAX_ROWS."""
     from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
@@ -1145,10 +1249,16 @@ def test_wrappers_raise_above_the_cards_limits(cuda_device):
         ng = cuda_cic.SMEM_LIMIT // 8 + 1
         cuda_cic.leapfrog_gather_push_deposit(z(ng), p, p, qm=QM, w=W, dt=DT,
                                               dx=DX)
-    with pytest.raises(ValueError, match="thread histograms"):
-        cuda_cic.deposit_det(p, p, 1817, periodic=False)
-    with pytest.raises(ValueError, match="thread histograms"):
-        cuda_sheath.sheath_picard(z(1817), p, p, p, p, p, p, dt=1e-12, dx=1e-5)
+    big_ng = cuda_cic.LARGE_MAX_NG + 1
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cuda_cic.deposit_det(p, p, big_ng, periodic=False)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cuda_sheath.sheath_picard(z(big_ng), p, p, p, p, p, p, dt=1e-12, dx=1e-5)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cuda_cic.deposit2(p, p, p, big_ng, periodic=False)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cuda_cic.boris_gather_push_deposit(z(big_ng), p, p, p, p, p, p, p, p,
+                                           b=(0.0, 1.0, 0.0), dt_dx=1.0)
     with pytest.raises(ValueError, match="at most"):
         cuda_newton.boltzmann_dirichlet(z(cuda_newton.LARGE_MAX_ROWS + 1), 1e17,
                                         1.16e5, 2e-5)
@@ -1685,8 +1795,11 @@ def test_picard_finalize_ext_raw_mode_matches_plain(cuda_device, deposit):
 @pytest.mark.parametrize("method", ["scatter", "matmul"])
 def test_deterministic_deposit_methods_repeat_bits(cuda_device, method):
     """deposit_method 'scatter' and 'matmul' take deposit_det: the same
-    bits call after call, within 2e-5 of the deposit kernel; above its
-    ceiling on the card they raise naming ROADMAP item 10."""
+    bits call after call, within 2e-5 of the deposit kernel, at ng = 51
+    and in the large mode above the columns' ceiling (ng = 2,000 and
+    65,536 at n = 1e6 and 1e7: int64 fixed-point sums, within 2e-5 of a
+    float64 deposit); above LARGE_MAX_NG on the card they raise naming
+    the limit."""
     e, ps, p0, v0 = _inputs(51, cuda_device)
     vals = v0 * 1e-5
     before = cuda_cic.LAUNCHES["deposit_det"]
@@ -1696,8 +1809,17 @@ def test_deterministic_deposit_methods_repeat_bits(cuda_device, method):
     assert torch.equal(a, b)
     ref = cic.deposit(p0 * (50.0 / 51.0), vals, 51, periodic=False)
     _rel_close(ref.cpu(), a, 2e-5)
-    with pytest.raises(ValueError, match="item 10"):
-        cic.deposit(p0, vals, 2000, periodic=False, method=method)
+    rng = np.random.default_rng(8)
+    for n, ng in ((1_000_000, 2000), (10_000_000, 65_536)):
+        p = torch.from_numpy(rng.uniform(0, ng - 1, n).astype(np.float32)).to(cuda_device)
+        w = torch.from_numpy(rng.normal(0, 1e3, n).astype(np.float32)).to(cuda_device)
+        a = cic.deposit(p, w, ng, periodic=False, method=method)
+        assert torch.equal(a, cic.deposit(p, w, ng, periodic=False, method=method))
+        _rel_close(cuda_cic.deposit_plain(p.double(), w.double(), ng,
+                                          periodic=False), a, 2e-5)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cic.deposit(p0, vals, cuda_cic.LARGE_MAX_NG + 1, periodic=False,
+                    method=method)
 
 
 @pytest.mark.cuda

@@ -89,7 +89,8 @@ def test_single_columns_halve_until_they_fit():
 def test_det_launch_shape_covers_the_rows_once(n, ng, sms):
     """The deterministic deposit's grid: the sheath pass's without the
     field, contiguous ranges of a multiple of 4 rows, power-of-two blocks
-    whose columns fit; ng = 1,816 is the ceiling (32 columns)."""
+    whose columns fit; ng = 1,816 is the columns' ceiling (32 columns),
+    and one node more is the large mode (int64 sums, no shared memory)."""
     shape = cuda_sheath.launch_shape(n, ng, sms, field=False)
     r = shape.rows_per_block
     assert r % 4 == 0 and (shape.blocks - 1) * r < n <= shape.blocks * r
@@ -98,8 +99,9 @@ def test_det_launch_shape_covers_the_rows_once(n, ng, sms):
     assert shape.blocks <= cuda_sheath.MAX_BLOCKS_PER_SM * sms
     if (n, ng, sms) == (1_000_000, 51, 132):  # the composed sheath current
         assert (shape.blocks, shape.threads) == (264, 512)
-    with pytest.raises(ValueError, match="thread histograms"):
-        cuda_sheath.launch_shape(n, 1817, sms, field=False)
+    assert not shape.large
+    above = cuda_sheath.launch_shape(n, 1817, sms, field=False)
+    assert above.large and above.smem == 0
 
 
 def _iead_inputs(n, seed=5):

@@ -4,9 +4,11 @@
 and the finalize on the card, and with it the order of every sum of their
 deterministic current: it must cover the rows once and in order, give the
 same shape for the same arguments, fit the card's shared memory up to the
-pass's ceiling on ng and raise above it. The wrappers return their (n,)
-outputs as views of row-padded buffers (``cuda_cic.padded_rows``) on either
-device; on the CPU those carry the plain versions' values.
+small mode's ceiling on ng (MAX_NG), keep the shapes it had there, take
+the large mode above it with a bounded scratch, and raise only above
+LARGE_MAX_NG. The wrappers return their (n,) outputs as views of
+row-padded buffers (``cuda_cic.padded_rows``) on either device; on the CPU
+those carry the plain versions' values.
 """
 
 import numpy as np
@@ -18,6 +20,51 @@ from pypic_tpu_torch.ops import cuda_cic, cuda_rng, cuda_sheath
 NS = (1, 31, 1_000_000, 1_000_003)
 NGS = (2, 11, 51, 1760)
 SMS = (132, 114)  # H100 SXM, H100 PCIe
+# the large mode: just above the two ceilings (the pass's 1,760, the
+# deterministic deposit's 1,816), where the field stops fitting shared
+# memory (58,112), the phase-40 sizes and LARGE_MAX_NG
+NGS_LARGE = (1761, 1817, 8192, 58_112, 58_113, 65_536, 1 << 20, 1 << 22)
+
+# cuda_sheath.launch_shape as the small mode had it before the large mode
+# was added (its values computed then and frozen here)
+SHAPES_PR20 = {  # (n, ng, sms, field): (blocks, threads, rows_per_block, smem)
+    (1, 2, 132, True): (1, 1024, 4, 8200), (1, 2, 114, True): (1, 1024, 4, 8200),
+    (1, 11, 132, True): (1, 1024, 4, 45100), (1, 11, 114, True): (1, 1024, 4, 45100),
+    (1, 51, 132, True): (1, 512, 4, 104652), (1, 51, 114, True): (1, 512, 4, 104652),
+    (1, 1760, 132, True): (1, 32, 4, 232320), (1, 1760, 114, True): (1, 32, 4, 232320),
+    (31, 2, 132, True): (1, 1024, 32, 8200), (31, 2, 114, True): (1, 1024, 32, 8200),
+    (31, 11, 132, True): (1, 1024, 32, 45100), (31, 11, 114, True): (1, 1024, 32, 45100),
+    (31, 51, 132, True): (1, 512, 32, 104652), (31, 51, 114, True): (1, 512, 32, 104652),
+    (31, 1760, 132, True): (1, 32, 32, 232320), (31, 1760, 114, True): (1, 32, 32, 232320),
+    (1000000, 2, 132, True): (245, 1024, 4084, 8200), (1000000, 2, 114, True): (228, 1024, 4388, 8200),
+    (1000000, 11, 132, True): (245, 1024, 4084, 45100), (1000000, 11, 114, True): (228, 1024, 4388, 45100),
+    (1000000, 51, 132, True): (264, 512, 3788, 104652), (1000000, 51, 114, True): (228, 512, 4388, 104652),
+    (1000000, 1760, 132, True): (132, 32, 7576, 232320), (1000000, 1760, 114, True): (114, 32, 8772, 232320),
+    (1000003, 2, 132, True): (245, 1024, 4084, 8200), (1000003, 2, 114, True): (228, 1024, 4388, 8200),
+    (1000003, 11, 132, True): (245, 1024, 4084, 45100), (1000003, 11, 114, True): (228, 1024, 4388, 45100),
+    (1000003, 51, 132, True): (264, 512, 3788, 104652), (1000003, 51, 114, True): (228, 512, 4388, 104652),
+    (1000003, 1760, 132, True): (132, 32, 7576, 232320), (1000003, 1760, 114, True): (114, 32, 8772, 232320),
+    (1, 2, 132, False): (1, 1024, 4, 8192), (1, 2, 114, False): (1, 1024, 4, 8192),
+    (1, 11, 132, False): (1, 1024, 4, 45056), (1, 11, 114, False): (1, 1024, 4, 45056),
+    (1, 51, 132, False): (1, 512, 4, 104448), (1, 51, 114, False): (1, 512, 4, 104448),
+    (1, 128, 132, False): (1, 128, 4, 65536), (1, 128, 114, False): (1, 128, 4, 65536),
+    (1, 1816, 132, False): (1, 32, 4, 232448), (1, 1816, 114, False): (1, 32, 4, 232448),
+    (31, 2, 132, False): (1, 1024, 32, 8192), (31, 2, 114, False): (1, 1024, 32, 8192),
+    (31, 11, 132, False): (1, 1024, 32, 45056), (31, 11, 114, False): (1, 1024, 32, 45056),
+    (31, 51, 132, False): (1, 512, 32, 104448), (31, 51, 114, False): (1, 512, 32, 104448),
+    (31, 128, 132, False): (1, 128, 32, 65536), (31, 128, 114, False): (1, 128, 32, 65536),
+    (31, 1816, 132, False): (1, 32, 32, 232448), (31, 1816, 114, False): (1, 32, 32, 232448),
+    (1000000, 2, 132, False): (245, 1024, 4084, 8192), (1000000, 2, 114, False): (228, 1024, 4388, 8192),
+    (1000000, 11, 132, False): (245, 1024, 4084, 45056), (1000000, 11, 114, False): (228, 1024, 4388, 45056),
+    (1000000, 51, 132, False): (264, 512, 3788, 104448), (1000000, 51, 114, False): (228, 512, 4388, 104448),
+    (1000000, 128, 132, False): (264, 128, 3788, 65536), (1000000, 128, 114, False): (228, 128, 4388, 65536),
+    (1000000, 1816, 132, False): (132, 32, 7576, 232448), (1000000, 1816, 114, False): (114, 32, 8772, 232448),
+    (1000003, 2, 132, False): (245, 1024, 4084, 8192), (1000003, 2, 114, False): (228, 1024, 4388, 8192),
+    (1000003, 11, 132, False): (245, 1024, 4084, 45056), (1000003, 11, 114, False): (228, 1024, 4388, 45056),
+    (1000003, 51, 132, False): (264, 512, 3788, 104448), (1000003, 51, 114, False): (228, 512, 4388, 104448),
+    (1000003, 128, 132, False): (264, 128, 3788, 65536), (1000003, 128, 114, False): (228, 128, 4388, 65536),
+    (1000003, 1816, 132, False): (132, 32, 7576, 232448), (1000003, 1816, 114, False): (114, 32, 8772, 232448),
+}
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -65,8 +112,69 @@ def test_launch_shape_fits_shared_memory_up_to_the_ceiling(sms):
 
 @pytest.mark.parametrize("sms", SMS)
 def test_launch_shape_raises_above_the_ceiling(sms):
-    with pytest.raises(ValueError, match="item 10"):
-        cuda_sheath.launch_shape(1_000_000, cuda_sheath.MAX_NG + 1, sms)
+    """One node above the small mode's ceiling is the large mode; the
+    ceiling that raises is LARGE_MAX_NG (>= 2^22), with and without the
+    field."""
+    assert cuda_sheath.LARGE_MAX_NG >= 1 << 22
+    assert cuda_sheath.launch_shape(1_000_000, cuda_sheath.MAX_NG + 1, sms).large
+    for field in (True, False):
+        top = cuda_sheath.LARGE_MAX_NG
+        assert cuda_sheath.launch_shape(1_000_000, top, sms, field=field).large
+        with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+            cuda_sheath.launch_shape(1_000_000, top + 1, sms, field=field)
+
+
+@pytest.mark.parametrize("field", [True, False], ids=["pass", "deposit_det"])
+def test_small_shapes_are_unchanged(field):
+    """At every (n, ng, sms) of the frozen table the small mode's shape is
+    the one it was before the large mode came: blocks, threads, rows a
+    block and shared memory, so its sums keep their order and bits."""
+    cases = {k: v for k, v in SHAPES_PR20.items() if k[3] == field}
+    assert len(cases) == len(NS) * len(SMS) * (4 if field else 5)
+    for (n, ng, sms, _), want in cases.items():
+        got = cuda_sheath.launch_shape(n, ng, sms, field=field)
+        assert not got.large
+        assert (got.blocks, got.threads, got.rows_per_block, got.smem) == want
+
+
+@pytest.mark.parametrize("field", [True, False], ids=["pass", "deposit_det"])
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("ng", NGS_LARGE)
+@pytest.mark.parametrize("n", NS + (10_000_000,))
+def test_large_shape_covers_the_rows_once(n, ng, sms, field):
+    """The large mode's grid: a function of (n, ng, sms) alone, every row in
+    exactly one block's contiguous range (ranges of a multiple of 4 rows,
+    every block with rows), LARGE_THREADS threads, at most two blocks an
+    SM; shared memory the field alone where it fits (ng <= 58,112; none
+    for the deterministic deposit) and the blocks an SM holds fit the SM;
+    the scratch 8 ng + 4 blocks bytes: no column of ng a thread or a
+    block."""
+    shape = cuda_sheath.launch_shape(n, ng, sms, field=field)
+    small_top = cuda_sheath.MAX_NG if field else cuda_cic.SMEM_LIMIT // 128
+    assert shape.large == (ng > small_top)
+    if not shape.large:
+        return
+    assert shape == cuda_sheath.launch_shape(n, ng, sms, field=field)
+    r = shape.rows_per_block
+    assert r % 4 == 0 and (shape.blocks - 1) * r < n <= shape.blocks * r
+    assert shape.threads == cuda_sheath.LARGE_THREADS
+    assert 1 <= shape.blocks <= cuda_sheath.MAX_BLOCKS_PER_SM * sms
+    fits = field and ng <= cuda_cic.FIELD_SMEM_MAX_NG
+    assert shape.smem == (4 * ng if fits else 0) <= cuda_cic.SMEM_LIMIT
+    per_sm = -(-shape.blocks // sms)
+    assert per_sm * (shape.smem + cuda_sheath.BLOCK_RESERVED) <= cuda_sheath.SM_SHARED
+    assert shape.scratch == 8 * ng + 4 * shape.blocks
+
+
+def test_large_scratch_bytes():
+    """The large mode's scratch at the stated sizes (n = 1e7, the H100's
+    132 SMs): 525,344 B at ng = 65,536 and 33,555,488 B at 2^22 (the
+    small mode's partials would be 264 x 2^22 floats there, 4.4 GB)."""
+    for ng, want in ((65_536, 525_344), (1 << 22, 33_555_488)):
+        for field in (True, False):
+            shape = cuda_sheath.launch_shape(10_000_000, ng, 132, field=field)
+            assert shape.scratch == want
+            assert shape.scratch <= 8 * ng + 4 * cuda_sheath.MAX_BLOCKS_PER_SM * 132
 
 
 def _aligned_views(outs):

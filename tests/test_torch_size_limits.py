@@ -1,12 +1,16 @@
-"""Grid sizes beyond the card's kernels, on the CPU route, against
-pypic_tpu.
+"""Grid sizes beyond the card kernels' small modes, on the CPU route,
+against pypic_tpu.
 
 The shared-memory, thread-histogram and one-CTA limits of the CUDA
 kernels belong to the card: on CPU tensors every wrapper runs its plain
 version at any grid size, as the JAX package runs these sizes (its Pallas
-Newton pads any ng, pallas_newton.py:266). Here the engines step at such
-sizes on the CPU and agree with pypic_tpu; tests/test_torch_cuda.py holds
-the raises on the card. Each tolerance is stated beside its test.
+Newton pads any ng, pallas_newton.py:266). Here the engines step at sizes
+where the card takes a kernel's large mode (the sheath pass and
+deposit_det above 1,760 and 1,816 nodes, the carried Boris deposit above
+19,370, the Newton kernels above 1,024 rows) on the CPU and agree with
+pypic_tpu, and the carried deposit's window frame, which decides its
+clamps, is JAX's at every size the card takes; tests/test_torch_cuda.py
+holds the kernels on the card. Each tolerance is stated beside its test.
 """
 
 import dataclasses as dc
@@ -20,6 +24,7 @@ from pypic_tpu import presets as jpresets
 from pypic_tpu import sources as jsources
 from pypic_tpu.engines import magnetized as jmag
 from pypic_tpu.engines import sheath as jsheath
+from pypic_tpu.ops import pallas_cic
 
 from pypic_tpu_torch import interop
 from pypic_tpu_torch.engines import magnetized, sheath
@@ -37,7 +42,7 @@ def _rel(ref, got) -> float:
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
-NG_SHEATH = 2001  # deposit_det's 32 thread histograms hold ng <= 1,816
+NG_SHEATH = 2001  # above the sheath pass's 1,760 and deposit_det's 1,816
 
 
 def _sheath_replay(jstate, jcfg):
@@ -53,15 +58,14 @@ def _sheath_replay(jstate, jcfg):
     return lambda step, n_draw: d
 
 
-def test_sheath_step_beyond_the_card_matches_jax():
-    """One composed sheath step at ng = 2001 (above deposit_det's 1,816
-    and the sheath kernels' histogram limit on the card) from the JAX
+def _sheath_step_against_jax(backend: str):
+    """One sheath_dd(n = 8000, ng = 2001) step of ``backend`` from the JAX
     state after 2 steps, the JAX draws replayed: equal Picard counts and
     statuses, active positions within 1e-5 cells, u within 1e-6 and e, j
     and phi within 1e-5 of their largest (tests/test_torch_sheath.py's
-    single-step limits)."""
+    single-step limits); nothing launched."""
     jpre = jpresets.sheath_dd(n=8000, ng=NG_SHEATH)
-    jcfg = dc.replace(jpre.config, backend="composed")
+    jcfg = dc.replace(jpre.config, backend=backend)
     step = jax.jit(jsheath.make_step(jcfg))
     jst = jpre.state
     for _ in range(2):
@@ -85,7 +89,58 @@ def test_sheath_step_beyond_the_card_matches_jax():
     for k in ("e", "j"):
         assert _rel(getattr(js1, k), getattr(ts1, k)) <= 1e-5, k
     assert _rel(jm.phi, tm.phi) <= 1e-5
+    np.testing.assert_array_equal(ts1.exit_hist.numpy(), np.asarray(js1.exit_hist))
     assert ts1.e.shape == (NG_SHEATH,)
+
+
+def test_sheath_step_beyond_the_card_matches_jax():
+    """The composed backend at ng = 2001 (deposit_det's large mode on the
+    card), against JAX's composed step (_sheath_step_against_jax)."""
+    _sheath_step_against_jax("composed")
+
+
+def test_fused_sheath_step_at_ng_2001_matches_jax():
+    """The fused backend at ng = 2001 (the sheath pass's large mode on the
+    card; on the CPU the pass's plain version), against JAX's fused step
+    (sheath_picard_pallas and sheath_finalize_pallas in interpret mode),
+    at the same limits (_sheath_step_against_jax)."""
+    _sheath_step_against_jax("fused")
+
+
+def test_sheath_row_tool_takes_ng():
+    """tools/sheath.py's ``--ng``: run_row on the CPU at ng = 2001 keeps
+    the row's dx and density (p2c grows with the domain), steps with the
+    population kept and launches nothing; ``--ng`` with ``--replay``
+    exits with a usage error."""
+    from pypic_tpu_torch.tools import sheath as srow
+
+    res, cfg, fin, m = srow.run_row("cpu", steps=2, n=4000, warmup=0, ng=NG_SHEATH)
+    assert res["ng"] == cfg.grid.ng == NG_SHEATH and fin.e.shape == (NG_SHEATH,)
+    assert cfg.grid.dx == pytest.approx(srow.DX, rel=1e-12)
+    assert cfg.p2c == pytest.approx(srow.DX * (NG_SHEATH - 1) * srow.DENSITY / 4000)
+    assert bool(((m.n_active + m.n_lost_left + m.n_lost_right) == 4000).all())
+    assert res["launches"] == {}
+    with pytest.raises(SystemExit):
+        srow.main(["--ng", str(NG_SHEATH), "--replay", "1"])
+
+
+def test_windows_equal_jax_at_large_grids():
+    """``cuda_cic.window`` and ``window_sw`` equal JAX's ``_choose_window``
+    and ``_choose_window_sw`` from 19,371 nodes (the carried deposit's
+    large mode) to LARGE_MAX_NG: every ng up to 20,000, then a sample (the
+    rule's cost changes where K = (ng - 1) // stride + 1 steps, so the
+    sample takes the steps' both sides for the widths' strides)."""
+    top = cuda_cic.LARGE_MAX_NG
+    ngs = set(range(19_371, 20_001))
+    rng = np.random.default_rng(21)
+    ngs |= set(int(x) for x in rng.integers(20_001, top + 1, 2000))
+    for stride in (6, 14, 22, 30, 46, 62, 94, 126, 4, 12, 20, 28, 44, 60, 92, 124):
+        for k in (1_500, 40_000, top // stride - 1):
+            ngs |= {k * stride, k * stride + 1, k * stride + 2}
+    ngs |= {32_768, 65_536, 1 << 20, top}
+    for ng in sorted(g for g in ngs if 19_371 <= g <= top):
+        assert cuda_cic.window(ng) == pallas_cic._choose_window(ng), ng
+        assert cuda_cic.window_sw(ng) == pallas_cic._choose_window_sw(ng), ng
 
 
 NG_MAG = 1200  # above the Newton kernels' 1,024 rows (one CTA)
@@ -168,3 +223,4 @@ def test_newton_wrappers_take_any_ng_on_the_cpu():
     assert cuda_newton.padded_rows(1500) == 2048
     assert cuda_newton.kernel_rows(1500) == 1504
     assert cuda_cic.LAUNCHES == before
+
