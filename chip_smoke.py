@@ -149,10 +149,12 @@ Phases (any failure raises and the script exits non-zero):
 23. gc slice — the GC row (--row gc): n = 999,996, 1,200 steps under
    sync debug mode 'error', its launch counts and physics checks.
 24. size limits — each wrapper that keeps a card ceiling raises above it
-   and launches nothing: the rows still bounded by shared memory naming
-   ROADMAP item 10, deposit2, the carried Boris deposit, deposit_det and
-   the sheath pass and finalize (their large modes: phase 40) only above
-   cuda_cic.LARGE_MAX_NG, naming it. The Newton family
+   and launches nothing: every particle kernel with a large mode (the
+   thirteen rows of phase 41, deposit2, the carried Boris deposit,
+   deposit_det and the sheath pass and finalize of phase 40) only above
+   cuda_cic.LARGE_MAX_NG, naming it; explicit_cycle above its 14,512
+   nodes of shared memory (its engine calls it at ng <= 1,024). The
+   Newton family
    has none below 2^27 rows: boltzmann_dirichlet and boltzmann_dn on
    their large path (above 1,024 rows) at 1,025, 4,096, 16,384 and
    262,144 rows (8 iterations, tol 0) and tridiag3_chain at c = 1,025 and
@@ -339,7 +341,8 @@ Phases (any failure raises and the script exits non-zero):
    shared-memory ceilings: sheath_picard and sheath_finalize (row 10) and
    deposit_det (int64 fixed-point sums), deposit2 (row 7) and
    boris_gather_push_deposit (row 9; global float atomics), each just
-   above its old ceiling (1,761; 1,761; 1,817; 29,057; 19,371 nodes) and
+   above its shared ceiling (1,761; 1,761; 1,816; 29,057; 19,370 nodes,
+   the static shared bytes counted) and
    at 65,536 and 2^20, n = 1e6 and 1e7, against its plain version (the
    deterministic three bit-equal from call to call and within TOL_DEP of
    float64, the pass's outputs bit-equal; deposit2 at its tolerances;
@@ -360,6 +363,39 @@ Phases (any failure raises and the script exits non-zero):
    steps after 3 under sync debug mode 'error', the plain run held
    against the CPU and a float64 step for one step (phase 39's checks),
    the carried one against the CPU with carry_clamped equal.
+41. large periodic — the slice's main paths past the periodic, explicit
+   and slab kernels' shared-memory ceilings. The thirteen rows
+   (picard_iteration and its shared window, both finalizes, deposit,
+   gather, leapfrog_gather_push_deposit, boris_gather_push, the slab pass
+   and both slab finalizes, the slab leapfrog push and
+   explicit_domain_cycle) each in its global mode (the field read from
+   device memory, every add a global float atomic) at ng 32,768 where its
+   old ceiling lies below that and at 65,536 and 2^20, n = 1e7, against
+   its plain version at its own kernel phase's checks and limits, timed
+   (device_ms, the plain version, the bound in bytes of the rows and the
+   nodes, index_add_ beside deposit and grid_sample beside gather), each
+   shape's launches counted by mode. Then every kernel with a mode or a
+   column count chosen by its launch shape, at the last node of each
+   shape and the first of the next (mode_boundaries: the sweeps, the wide
+   deposits, the sheath pass and finalize and deposit_det, against their
+   plain versions). Then the paths, card against the
+   CPU's plain route one step from one state, each quantity held to 2
+   delta_s (delta_s: how far the CPU's own step moves when every position
+   moves one float32 ulp; at these grids a step is that ill-conditioned)
+   or to its ng = 200 limit where larger: the implicit headline physics
+   at ng 32,768 and 65,536 (n = 100,007,936 timed, three windows of 2
+   steps after one, and one step each of window_share 'shared' and
+   converged-deposit; checked
+   at n = 1e6, the options at 65,536); the explicit two-stream at 65,536
+   fused and composed (n = 1e7 timed, checked at 1e6); configs[4],
+   converged-deposit, the explicit carrier and the carried carrier at
+   65,536 on one NCCL rank (n = 1e7, 5 steps each after one, timed), one
+   step at n = 1e6
+   on a group-less rank card against CPU and on two gloo ranks on the
+   card against two on the CPU; the configs[3] load at 65,536 fused (and
+   phase 39's float64 check) and composed; the composed sheath loop at
+   65,536 (n = 1e6, phase 40's checks). It fails if a row's large mode
+   never launched on a path.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -960,7 +996,7 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from pypic_tpu_torch.ops import _build
+    from pypic_tpu_torch.ops import _build, cuda_cic
 
     t0 = time.perf_counter()
     _, info = _build.load()
@@ -969,6 +1005,14 @@ def phase_build() -> None:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    # every launch shape counts its kernel's static shared bytes: a kernel
+    # with more than its table says would fail at its last shared node
+    bad = cuda_cic.check_static_smem(info.log)
+    if bad:
+        raise AssertionError("static shared memory above the launch tables': "
+                             + "; ".join(bad))
+    log(f"[build] static shared bytes of {len(cuda_cic.STATIC_SMEM_KERNELS)} kernel "
+        "families within their launch tables")
 
 
 def _random_pass_inputs(n: int, gen: torch.Generator, dev, edges: bool,
@@ -987,9 +1031,15 @@ def _random_pass_inputs(n: int, gen: torch.Generator, dev, edges: bool,
     return e, ps, p0, v0
 
 
+# set by mode_boundaries: its many cases log only what fails
+_QUIET_CHECKS = False
+
+
 def _check(errors: dict, name: str) -> float:
     bad = {k: v for k, v in errors.items() if not v["err"] <= v["tol"]}
     for k, v in errors.items():
+        if _QUIET_CHECKS and k not in bad:
+            continue
         log(f"[kernels]   {name}.{k}: err {v['err']:.3e} ({v['kind']}) "
             f"tol {v['tol']:.1e}")
     if bad:
@@ -3530,37 +3580,55 @@ def phase_size_limits(dev) -> dict:
     from pypic_tpu_torch.ops import cuda_cic as K
     from pypic_tpu_torch.ops import cuda_sheath
 
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
     z = lambda k: torch.zeros(k, dtype=torch.float32, device=dev)  # noqa: E731
-    p, big = z(64), K.SMEM_LIMIT // 4 + 1
+    p = z(64)
     kw = dict(qm=-1.7e11, w=-3.2e-9, dt=1e-7, dx=0.05)
-    # the rows still bounded by shared memory raise naming ROADMAP item 10;
-    # the four with a large mode (phase 40) only above LARGE_MAX_NG
+    # every particle kernel with a large mode raises only above
+    # LARGE_MAX_NG; explicit_cycle keeps its shared-memory ceiling (its
+    # engine calls it at ng <= 1,024)
     top = K.LARGE_MAX_NG + 1
+    f = z(top)
+    cycle = (K.SMEM_LIMIT - K._CYCLE_EXTRA) // (4 * K._CYCLE_ARRAYS) + 1
+    slab = dict(qm=-1.7e11, dt=1e-7, dx=0.05, lo=2.0, hi=float(top - 3))
     calls = {
-        "picard_iteration": lambda: K.picard_iteration(
-            z(K.SMEM_LIMIT // 8 + 1), p, p, p, K.SMEM_LIMIT // 8 + 1, **kw),
-        "deposit": lambda: K.deposit(p, p, big, periodic=True),
-        "gather": lambda: K.gather(z(big), p, periodic=False),
+        "explicit_cycle": lambda: K.explicit_cycle(z(cycle), p, p, cycle, **kw),
+        "picard_iteration": lambda: K.picard_iteration(f, p, p, p, top, **kw),
+        "picard_iteration_shared": lambda: K.picard_iteration_shared(f, p, p, p, top, **kw),
+        "picard_finalize_nodep": lambda: K.picard_finalize_nodep(
+            f, p, p, p, top, qm=-1.7e11, dt=1e-7, dx=0.05),
+        "picard_finalize": lambda: K.picard_finalize(f, p, p, p, top, **kw),
+        "deposit": lambda: K.deposit(p, p, top, periodic=True),
+        "gather": lambda: K.gather(f, p, periodic=False),
+        "leapfrog_gather_push_deposit": lambda: K.leapfrog_gather_push_deposit(f, p, p, **kw),
         "boris_gather_push": lambda: K.boris_gather_push(
-            z(big), p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+            f, p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+        "picard_iteration_ext": lambda: KD.picard_iteration_ext(f, p, p, p, p, **slab),
+        "picard_finalize_ext": lambda: KD.picard_finalize_ext(
+            f, p, p, p, p, lo_shift=0.0, ng=0, **slab),
+        "picard_finalize_ext_nodep": lambda: KD.picard_finalize_ext_nodep(
+            f, p, p, p, p, lo_shift=0.0, ng=0, **slab),
+        "leapfrog_gather_push": lambda: KD.leapfrog_gather_push(
+            f, p, p, qm=-1.7e11, dt=1e-7, dx=0.05),
+        "explicit_domain_cycle": lambda: KD.explicit_domain_cycle(
+            f, p, p, p, qm=-1.7e11, dt=1e-7, dx=0.05, lo_shifted=0.0, ext_n=64),
         "deposit2": lambda: K.deposit2(p, p, p, top, periodic=False),
         "boris_gather_push_deposit": lambda: K.boris_gather_push_deposit(
-            z(top), p, p, p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+            f, p, p, p, p, p, p, p, p, b=(0.0, 1.0, 0.0), dt_dx=1.0),
         "deposit_det": lambda: K.deposit_det(p, p, top, periodic=False),
         "sheath_picard": lambda: cuda_sheath.sheath_picard(
-            z(top), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+            f, p, p, p, p, p, p, dt=1e-12, dx=1e-5),
         "sheath_finalize": lambda: cuda_sheath.sheath_finalize(
-            z(top), p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+            f, p, p, p, p, p, p, dt=1e-12, dx=1e-5),
     }
-    large = ("deposit2", "boris_gather_push_deposit", "deposit_det",
-             "sheath_picard", "sheath_finalize")
     K.reset_launch_counts()
     for name, call in calls.items():
         try:
             call()
         except ValueError as e:
             log(f"[size limits] {name} on the card raises: {str(e)[:110]}")
-            want = "LARGE_MAX_NG" if name in large else "item 10"
+            want = "shared memory" if name == "explicit_cycle" else "LARGE_MAX_NG"
             if want not in str(e):
                 raise AssertionError(f"{name}'s raise does not name {want}: {e}")
         else:
@@ -6245,7 +6313,8 @@ def _step64(kind: str, cfg, d: dict) -> dict:
     return dict(p=p1, vx=vx1, newton_iters=its)
 
 
-def _large_position_check(c, g, r, d, cells: float):
+def _large_position_check(c, g, r, d, cells: float,
+                          held=("p", "cpu_to_f64", "card_to_f64")):
     """The positions of one step on the CPU (c), the card (g) and in
     float64 (r, _step64) from the state ``d``: the card against the CPU
     over the active particles, and each float32 side against r over the
@@ -6253,7 +6322,8 @@ def _large_position_check(c, g, r, d, cells: float):
     inside the walls), at phase 14's limits with |p| the larger of start
     and end for a pushed particle (its end alone for a re-activated one);
     phase 14's own test (|p| the end) beside them, and its worst
-    particles. Returns (figures, problems)."""
+    particles. Returns (figures, problems): each figure of ``held`` above
+    1 is a problem, the others are figures alone."""
     rtol, atol = TOL_MAG_STEP["p"]
     sc, sg = c[0], g[0]
     pc, pg = sc.p.double(), sg.p.double().cpu()
@@ -6286,12 +6356,12 @@ def _large_position_check(c, g, r, d, cells: float):
                card_to_f64=float((e_g / lim_r)[pushed].max()),
                cpu_to_f64_cells=float(e_c[pushed].max()),
                card_to_f64_cells=float(e_g[pushed].max()), worst=worst)
-    problems = [f"{k} {out[k]:.3e}" for k in ("p", "cpu_to_f64", "card_to_f64")
-                if not out[k] <= 1.0]
+    problems = [f"{k} {out[k]:.3e}" for k in held if not out[k] <= 1.0]
     return out, problems
 
 
-def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS) -> dict:
+def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS,
+                      calibrated: bool = False) -> dict:
     """``steps`` steps of the row on the card, each held against
     one step on the CPU (backend 'fused', newton_backend 'pallas': the
     plain versions) and one in float64 (_step64) from the same state: the
@@ -6300,7 +6370,10 @@ def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS) -
     draws are made on the CPU and replayed on both sides (phase 20).
     Raises on a gap in rho, phi or v above phase 14's limits, on unequal
     n_active / n_reactivated, and on the positions' tests
-    (_large_position_check)."""
+    (_large_position_check). With ``calibrated`` the card's positions
+    against the CPU's are a figure, and the card is held to the float64
+    step at PERIODIC_CALIBRATED times the CPU's own gap to it (or at 1
+    where that is larger)."""
     import dataclasses
 
     from pypic_tpu_torch import interop, sources
@@ -6336,7 +6409,17 @@ def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS) -
         r = _step64(kind, cfg_cpu, d)
         f64_s = time.perf_counter() - t0
         errs = {k: v for k, v in _mag_step_errors(c, g).items() if k != "p"}
-        p_rec, p_bad = _large_position_check(c, g, r, d, cells)
+        if calibrated:
+            # the CPU held to the float64 step; the card to it at
+            # PERIODIC_CALIBRATED times the CPU's own gap (the plain
+            # route's float32 error at this grid) or at 1 where larger
+            p_rec, p_bad = _large_position_check(c, g, r, d, cells, held=("cpu_to_f64",))
+            p_rec["card_limit"] = max(1.0, PERIODIC_CALIBRATED * p_rec["cpu_to_f64"])
+            if not p_rec["card_to_f64"] <= p_rec["card_limit"]:
+                p_bad.append(f"card_to_f64 {p_rec['card_to_f64']:.3e} above "
+                             f"{p_rec['card_limit']:.3e}")
+        else:
+            p_rec, p_bad = _large_position_check(c, g, r, d, cells)
         counts = {k: (int(getattr(c[1], k)), int(getattr(g[1], k)))
                   for k in ("n_active", "n_hit_wall", "n_reactivated", "newton_iters")}
         log(f"[large grids] {kind} ng = {ng}, step {i} -> {i + 1}, GPU vs CPU "
@@ -6536,8 +6619,8 @@ def phase_large_grids(dev) -> dict:
 # domain_sheath on one NCCL rank and on two gloo ranks, and the configs[3]
 # load plain and carried
 LARGE_FIRST_NG = {"sheath_picard": 1761, "sheath_finalize": 1761,
-                  "deposit_det": 1817, "deposit2": 29_057,
-                  "boris_gather_push_deposit": 19_371}
+                  "deposit_det": 1816, "deposit2": 29_057,
+                  "boris_gather_push_deposit": 19_370}
 LARGE_KERNEL_NGS = (65_536, 1 << 20)
 LARGE_KERNEL_NS = (1_000_000, 10_000_000)
 # the shape whose record stands for a kernel's large mode in the kernels
@@ -7070,6 +7153,903 @@ def phase_large_sheath(dev) -> dict:
         raise AssertionError("large grids, sheath and deposits: " + "; ".join(problems))
     return res
 
+
+# phase 41, large periodic: the thirteen kernels of the periodic, explicit
+# and slab engines past their shared-memory ceilings (cuda_cic.smem_mode's
+# global mode: the field read from device memory, every add a global
+# float atomic), each held against its plain version there, then the
+# engines' paths at those grids, card against the CPU's plain route
+# the rows, each with the device-memory bytes a node of one call beside
+# the rows' (BYTES_PER_PARTICLE: the field read once and each (ng,) output
+# written once) and whether its old ceiling lies below PERIODIC_MID_NG
+# (a deposit beside the field in shared memory)
+PERIODIC_LARGE_ROWS = {
+    "picard_iteration": (8, True), "picard_iteration_shared": (8, True),
+    "picard_finalize_nodep": (4, False), "picard_finalize": (8, True),
+    "deposit": (4, False), "leapfrog_gather_push_deposit": (8, True),
+    "gather": (4, False), "picard_iteration_ext": (8, True),
+    "picard_finalize_ext": (8, True), "picard_finalize_ext_nodep": (4, False),
+    "leapfrog_gather_push": (4, False), "explicit_domain_cycle": (8, True),
+    "boris_gather_push": (4, False)}
+# the shape of the rows whose old ceiling lies below it, then
+# LARGE_KERNEL_NGS
+PERIODIC_MID_NG = 32_768
+PERIODIC_LARGE_N = 10_000_000
+# the shape whose record stands for a row's large mode in the kernels line
+PERIODIC_LARGE_MAIN = f"n {PERIODIC_LARGE_N}, ng 65536"
+# the slab rows' halo (configs[4]'s at ng 200) and the extended slab's
+# nodes beside its cells: ext_n = c + 2 (halo + 2) + 1
+PERIODIC_SLAB_HALO = 13
+
+
+def _slab_frame(ext_n: int) -> dict:
+    """The clamp bounds and offsets of an extended slab of ext_n nodes
+    (halo PERIODIC_SLAB_HALO, the rank of a middle slab of four)."""
+    hw = PERIODIC_SLAB_HALO + 2
+    c = ext_n - 2 * hw - 1
+    return dict(lo=float(hw - PERIODIC_SLAB_HALO), hi=float(c + PERIODIC_SLAB_HALO + hw),
+                lo_shift=float(c - hw), ng=4 * c)
+
+
+def _periodic_large_case(name: str, n: int, ng: int, gen: torch.Generator, dev,
+                         timed: bool = True) -> dict:
+    """One of phase 41's kernels at (n, ng) against its plain version on
+    the card, with the checks and limits of the row's own kernel phase:
+    positions in cells (TOL_POS) or of the slab's ng (TOL_DOM), velocities
+    relative (TOL_V, TOL_DOM), every deposit within TOL_DEP of a float64
+    sum of the plain version's terms and deposit_tol of the plain float32
+    sum, clamp counts equal, the slab statistics bit-equal from call to
+    call and within TOL_DOM of the plain version's. With ``timed``,
+    device_ms, the plain version's time, the bound (rows and nodes) and
+    the library call where one exists (index_add_ for the deposit,
+    grid_sample for the gather: its gap is printed, not held, because its
+    normalized coordinates lose ng 2^-24 cells)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
+    qm = float(torch.tensor(QM, dtype=torch.float32))
+    errs, library, library_gap = {}, None, None
+    f32 = torch.float32
+    if name in ("picard_iteration", "picard_iteration_shared", "picard_finalize_nodep",
+                "picard_finalize", "deposit", "gather", "leapfrog_gather_push_deposit",
+                "leapfrog_gather_push"):
+        e, ps, p0, v0 = _random_pass_inputs(n, gen, dev, False, ng)
+    if name in ("picard_iteration", "picard_iteration_shared"):
+        shared = name == "picard_iteration_shared"
+        fn = K.picard_iteration_shared if shared else K.picard_iteration
+        plain = K.picard_iteration_shared_plain if shared else K.picard_iteration_plain
+        kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+        got = fn(e, ps, p0, v0, ng, emit_v=True, **kw)
+        ref = plain(e, ps, p0, v0, ng, emit_v=True, **kw)
+        a = seam_err(ref[0], got[0], ng)
+        errs["ph"] = dict(abs=a, err=a, kind="cells", tol=TOL_POS)
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_V)
+        if shared:
+            exact = plain(e, ps, p0, v0, ng, emit_v=True, acc_dtype=torch.float64, **kw)[2]
+            gap = float(abs(int(got[3]) - int(ref[3])))
+            errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+                f"count gap ({int(got[3])} clamped of {n})"), tol=0.0)
+        else:
+            w32 = K.kernel_scalars(QM, DT, DX, W)[3]
+            exact = K.deposit_plain(ref[0].double(), (w32 * (0.5 * (v0 + ref[1]))).double(),
+                                    ng, periodic=True)
+        a, r = rel_err(exact, got[2])
+        errs["jh"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+        a, r = rel_err(ref[2], got[2])
+        errs["jh_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ng))
+        call = lambda: fn(e, ps, p0, v0, ng, **kw)  # noqa: E731
+        plain_call = lambda: plain(e, ps, p0, v0, ng, **kw)  # noqa: E731
+    elif name in ("picard_finalize_nodep", "picard_finalize"):
+        dep = name == "picard_finalize"
+        fn = K.picard_finalize if dep else K.picard_finalize_nodep
+        plain = K.picard_finalize_plain if dep else K.picard_finalize_nodep_plain
+        kw = dict(qm=QM, dt=DT, dx=DX, **(dict(w=W) if dep else {}))
+        got = fn(e, ps, p0, v0, ng, **kw)
+        ref = plain(e, ps, p0, v0, ng, **kw)
+        a = seam_err(ref[0], got[0], ng)
+        errs["p1"] = dict(abs=a, err=a, kind="cells", tol=TOL_POS)
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_V)
+        if dep:
+            w32 = K.kernel_scalars(QM, DT, DX, W)[3]
+            exact = K.deposit_plain(ref[0].double(), (w32 * ref[1]).double(), ng,
+                                    periodic=True)
+            a, r = rel_err(exact, got[2])
+            errs["j1"] = dict(abs=a, err=r, kind="rel vs float64", tol=TOL_DEP)
+            a, r = rel_err(ref[2], got[2])
+            errs["j1_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ng))
+        call = lambda: fn(e, ps, p0, v0, ng, **kw)  # noqa: E731
+        plain_call = lambda: plain(e, ps, p0, v0, ng, **kw)  # noqa: E731
+    elif name == "deposit":
+        vals = v0 * W
+        for periodic in (True, False):
+            pos = p0 if periodic else p0 * ((ng - 1) / ng)
+            got = K.deposit(pos, vals, ng, periodic=periodic)
+            exact = K.deposit_plain(pos.double(), vals.double(), ng, periodic=periodic)
+            a, r = rel_err(exact, got)
+            errs[f"out periodic={periodic}"] = dict(abs=a, err=r, kind="rel vs float64",
+                                                    tol=TOL_DEP)
+            a, r = rel_err(K.deposit_plain(pos, vals, ng, periodic=periodic), got)
+            errs[f"out_plain periodic={periodic}"] = dict(abs=a, err=r, kind="rel",
+                                                          tol=deposit_tol(n, ng))
+            del exact
+        call = lambda: K.deposit(p0, vals, ng, periodic=True)  # noqa: E731
+        plain_call = lambda: K.deposit_plain(p0, vals, ng, periodic=True)  # noqa: E731
+        if timed:
+            from pypic_tpu_torch.ops.cic import cic_indices_weights
+
+            il, ir, wl, wr = cic_indices_weights(p0, ng, True)
+            idx, terms = torch.cat([il, ir]), torch.cat([vals * wl, vals * wr])
+            library = device_ms(lambda: torch.zeros(ng, device=dev).index_add_(
+                0, idx, terms), calls=10)
+            del il, ir, wl, wr
+    elif name == "gather":
+        for periodic in (True, False):
+            pos = p0 if periodic else p0 * ((ng - 1) / ng)
+            a, r = rel_err(K.gather_plain(e, pos, periodic=periodic),
+                           K.gather(e, pos, periodic=periodic))
+            errs[f"out periodic={periodic}"] = dict(abs=a, err=r, kind="rel", tol=2e-5)
+        call = lambda: K.gather(e, p0, periodic=True)  # noqa: E731
+        plain_call = lambda: K.gather_plain(e, p0, periodic=True)  # noqa: E731
+        if timed:
+            lib_call = _gather_library(e, p0, periodic=True)
+            library_gap = rel_err(call(), lib_call())[1]
+            library = device_ms(lib_call, calls=10)
+            del lib_call
+    elif name == "leapfrog_gather_push_deposit":
+        kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+        got = K.leapfrog_gather_push_deposit(e, p0, v0, **kw)
+        ref = K.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)
+        errs.update(_lf_errors(ref, got, ng, K.leapfrog_scalars(QM, DT, DX, W)[2], n))
+        call = lambda: K.leapfrog_gather_push_deposit(e, p0, v0, **kw)  # noqa: E731
+        plain_call = lambda: K.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)  # noqa: E731
+    elif name == "leapfrog_gather_push":
+        kw = dict(qm=qm, dt=DT, dx=DX)
+        got = KD.leapfrog_gather_push(e, p0, v0, **kw)
+        ref = KD.leapfrog_gather_push_plain(e, p0, v0, **kw)
+        a = seam_err(ref[0], got[0], ng)
+        errs["p1"] = dict(abs=a, err=a / ng, kind="of ng", tol=TOL_DOM)
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+        call = lambda: KD.leapfrog_gather_push(e, p0, v0, **kw)  # noqa: E731
+        plain_call = lambda: KD.leapfrog_gather_push_plain(e, p0, v0, **kw)  # noqa: E731
+    elif name in ("picard_iteration_ext", "picard_finalize_ext", "picard_finalize_ext_nodep"):
+        fr = _slab_frame(ng)
+        span = fr["hi"] - fr["lo"] + 6.0
+        p0 = torch.rand(n, generator=gen, device=dev, dtype=f32) * span + (fr["lo"] - 3.0)
+        ps = p0 + torch.randn(n, generator=gen, device=dev, dtype=f32) * 0.3
+        v0 = torch.randn(n, generator=gen, device=dev, dtype=f32) * 1e5
+        field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 30.0
+        w = torch.full((n,), W, dtype=f32, device=dev)
+        w[torch.rand(n, generator=gen, device=dev) < 0.05] = 0.0
+        args = (field, ps, p0, v0, w)
+        kw = dict(qm=qm, dt=DT, dx=DX, lo=fr["lo"], hi=fr["hi"])
+        if name == "picard_iteration_ext":
+            pkw = dict(kw, emit_v=True, shared=True)
+            got = KD.picard_iteration_ext(*args, **pkw)
+            ref = KD.picard_iteration_ext_plain(*args, **pkw)
+            exact = KD.picard_iteration_ext_plain(*args, acc_dtype=torch.float64, **pkw)[2]
+            a, r = rel_err(ref[0], got[0])
+            errs["ph"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            a, r = rel_err(ref[1], got[1])
+            errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            a, r = rel_err(exact, got[2])
+            errs["jh"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+            a, r = rel_err(ref[2], got[2])
+            errs["jh_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ng))
+            gap = float(abs(int(got[3]) - int(ref[3])))
+            errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+                f"count gap ({int(got[3])} clamped of {n})"), tol=0.0)
+            # the separate-window pass as configs[4] runs it, timed
+            call = lambda: KD.picard_iteration_ext(*args, **kw)  # noqa: E731
+            plain_call = lambda: KD.picard_iteration_ext_plain(*args, **kw)  # noqa: E731
+            a, r = rel_err(plain_call()[1], call()[1])
+            errs["jh separate"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ng))
+        else:
+            dep = name == "picard_finalize_ext"
+            fkw = dict(kw, lo_shift=fr["lo_shift"], ng=fr["ng"])
+            fn = KD.picard_finalize_ext if dep else KD.picard_finalize_ext_nodep
+            got = fn(*args, **fkw)
+            if not torch.equal(got[-1], fn(*args, **fkw)[-1]):
+                raise AssertionError(f"{name}: the statistics differ from call to call")
+            ref = KD.picard_finalize_ext_plain(*args, deposit=dep, **fkw)
+            a = seam_err(ref[0], got[0], fr["ng"])
+            errs["p1"] = dict(abs=a, err=a / fr["ng"], kind="of ng", tol=TOL_DOM)
+            a, r = rel_err(ref[1], got[1])
+            errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            st, st_ref = got[-1].cpu(), ref[-1].cpu()
+            for i, key in ((0, "sum w v1"), (1, "sum v1^2")):
+                a, r = rel_err(st_ref[i:i + 1], st[i:i + 1])
+                errs[key] = dict(abs=a, err=r, kind="rel", tol=TOL_DOM)
+            diff = float(abs(st[2] - st_ref[2]))
+            errs["clamps"] = dict(abs=diff, err=diff,
+                                  kind=f"count gap ({int(st[2])} clamped)", tol=0.0)
+            if dep:
+                exact = KD.picard_finalize_ext_plain(*args, deposit=True,
+                                                     acc_dtype=torch.float64, **fkw)[2]
+                a, r = rel_err(exact, got[2])
+                errs["j1"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+                a, r = rel_err(ref[2], got[2])
+                errs["j1_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ng))
+            call = lambda: fn(*args, **fkw)  # noqa: E731
+            plain_call = lambda: KD.picard_finalize_ext_plain(  # noqa: E731
+                *args, deposit=dep, **fkw)
+    elif name == "explicit_domain_cycle":
+        # one rank's slab of the whole grid: ext_n = ng + 2 halo + 1
+        ext_n = ng + 2 * PERIODIC_SLAB_HALO + 1
+        p = torch.rand(n, generator=gen, device=dev, dtype=f32) * ng
+        v = torch.randn(n, generator=gen, device=dev, dtype=f32) * (2.0 * DX / DT)
+        w = torch.full((n,), W, dtype=f32, device=dev)
+        dead = torch.rand(n, generator=gen, device=dev) < 0.05
+        w[dead], p[dead], v[dead] = 0.0, 0.0, 0.0
+        field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 30.0
+        kw = dict(qm=qm, dt=DT, dx=DX, lo_shifted=-float(PERIODIC_SLAB_HALO), ext_n=ext_n)
+        got = KD.explicit_domain_cycle(field, p, v, w, **kw)
+        ref = KD.explicit_domain_cycle_plain(field, p, v, w, **kw)
+        for k_, r_, g_ in zip(("p1", "v1"), ref, got):
+            d_ = float((r_.double() - g_.double()).abs().max())
+            errs[k_] = dict(abs=d_, err=d_, kind="bit-equal to the plain version", tol=0.0)
+        exact = KD.explicit_domain_cycle_plain(field, p, v, w, acc_dtype=torch.float64, **kw)
+        a, r = rel_err(exact[2], got[2])
+        errs["rho_ext"] = dict(abs=a, err=r, kind="rel vs float64 sums", tol=TOL_DEP)
+        a, r = rel_err(ref[2], got[2])
+        errs["rho_ext_plain"] = dict(abs=a, err=r, kind="rel", tol=deposit_tol(n, ext_n))
+        gap = float(abs(int(got[3]) - int(ref[3])))
+        errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+            f"count gap ({int(got[3])} clamped of {n})"), tol=0.0)
+        a, r = rel_err(w.double().sum().reshape(1), exact[2].sum().reshape(1))
+        errs["charge"] = dict(abs=a, err=r, kind="rel to sum w (dead slots 0)", tol=1e-6)
+        call = lambda: KD.explicit_domain_cycle(field, p, v, w, **kw)  # noqa: E731
+        plain_call = lambda: KD.explicit_domain_cycle_plain(field, p, v, w, **kw)  # noqa: E731
+    else:  # boris_gather_push
+        field, p, vx, vy, vz, const, act = _mag_inputs(n, gen, dev, ng)
+        bkw = dict(b=(0.1395, 1.9951, 0.0), dt_dx=1e-10 / 2.5e-6, swap_weights=True)
+        got = K.boris_gather_push(field, p, vx, vy, vz, const, act, **bkw)
+        ref = K.boris_gather_push_plain(field, p, vx, vy, vz, const, act, **bkw)
+        live = act > 0
+        if not all(torch.equal(g[~live], h[~live]) for g, h in zip(got, (p, vx, vy, vz))):
+            raise AssertionError("boris_gather_push: inactive rows changed")
+        a = float((got[0] - ref[0]).abs().max())
+        errs["p1"] = dict(abs=a, err=a, kind="cells", tol=TOL_POS)
+        for k_, r_, g_ in zip(("vx1", "vy1", "vz1"), ref[1:], got[1:]):
+            a, r = rel_err(r_, g_)
+            errs[k_] = dict(abs=a, err=r, kind="rel", tol=TOL_V)
+        call = lambda: K.boris_gather_push(field, p, vx, vy, vz, const, act, **bkw)  # noqa: E731
+        plain_call = lambda: K.boris_gather_push_plain(  # noqa: E731
+            field, p, vx, vy, vz, const, act, **bkw)
+    torch.cuda.synchronize()
+    err = _check(errs, f"{name}(n = {n}, ng = {ng})")
+    rec = dict(n=n, ng=ng, max_abs_err=err)
+    if timed:
+        node_bytes, _ = PERIODIC_LARGE_ROWS[name]
+        b, by = bound(name, n, extra_bytes=node_bytes * ng)
+        K.reset_launch_counts()
+        rec.update(ms=device_ms(call, calls=10), plain_ms=cuda_ms(plain_call, reps=1, calls=1),
+                   bound_ms=b, bound_by=by, library_ms=library)
+        rec["modes"] = dict(K.LARGE_LAUNCHES)
+        log(f"[large periodic] {name} at n = {n}, ng = {ng}: {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
+            + (f", library {library:.4f} ms" if library is not None else
+               ", no single library call computes it")
+            + (f" (grid_sample's gap {library_gap:.2e} of the largest value, not held)"
+               if library_gap is not None else "") + f"; launches {rec['modes']}")
+    return rec
+
+
+def periodic_large_kernel_times(dev) -> dict:
+    """Phase 41's kernels alone (module docstring): each in the global
+    mode at PERIODIC_MID_NG where its old ceiling lies below it and at
+    LARGE_KERNEL_NGS, n = PERIODIC_LARGE_N, checked and timed; each
+    shape's launches counted by mode (every one must be the global
+    mode). Returns {kernel: {shape: record}}."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out, problems = {}, []
+    for name, (_, mid) in PERIODIC_LARGE_ROWS.items():
+        out[name] = {}
+        for ng in ((PERIODIC_MID_NG,) if mid else ()) + LARGE_KERNEL_NGS:
+            rec = _periodic_large_case(name, PERIODIC_LARGE_N, ng, gen, dev)
+            if not rec["modes"].get(f"{name} global"):
+                problems.append(f"{name} at ng = {ng}: no global-mode launch "
+                                f"({rec['modes']})")
+            out[name][f"n {PERIODIC_LARGE_N}, ng {ng}"] = rec
+            torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("large periodic kernels: " + "; ".join(problems))
+    return out
+
+
+def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
+                                  "picard_finalize", "leapfrog_gather_push_deposit",
+                                  "picard_iteration_ext", "picard_finalize_ext",
+                                  "explicit_domain_cycle"),
+                      ngs=(16_384, 28_672)) -> dict:
+    """Each grid-stride kernel of ``names`` at n = PERIODIC_LARGE_N and each
+    ng of ``ngs`` (below its shared ceiling) launched in both modes
+    whatever smem_mode would choose there (sweep_launch's blocks and
+    threads, the mode's shared bytes), checked against its plain version
+    and timed as phase 41 times it; the modes' order alternates from one
+    ng to the next. Not run by main: it answers which mode is faster at a
+    grid both can launch. Returns {kernel: {ng: {mode: ms}}}."""
+    modes = ("shared", "global")
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
+    real = K._sweep
+
+    def forced(mode):
+        def sweep(dev_, kernel, n, nodes, extra=0):
+            launch = real(dev_, kernel, n, nodes, extra)
+            arrays = K.SWEEP_KERNELS[kernel][0]
+            smem = 4 * arrays * nodes + extra if mode == "shared" else 0
+            return K.SweepLaunch(mode, launch.blocks, launch.threads, smem)
+        return sweep
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+    for name in names:
+        out[name] = {}
+        for i, ng in enumerate(ngs):
+            out[name][ng] = {}
+            for mode in (modes if i % 2 == 0 else modes[::-1]):
+                K._sweep = KD._sweep = forced(mode)
+                try:
+                    rec = _periodic_large_case(name, PERIODIC_LARGE_N, ng, gen, dev)
+                finally:
+                    K._sweep = KD._sweep = real
+                out[name][ng][mode] = rec["ms"]
+                torch.cuda.empty_cache()
+            log(f"[modes] {name} at n = {PERIODIC_LARGE_N}, ng = {ng}: " + ", ".join(
+                f"{m} {t:.4f} ms" for m, t in out[name][ng].items()))
+    return out
+
+
+
+# mode_boundaries' row counts: the sweeps' and the wide deposits' wide
+# grid, the deposits' narrow grid (the first port's), the sheath pass's
+BOUNDARY_NS = (1_000_003, 10_007)
+BOUNDARY_SHEATH_N = 100_003
+
+
+def _transitions(key, lo: int, hi: int, scan: int = 4096) -> list:
+    """The ng in [lo, hi) after which ``key`` changes: every ng below
+    ``scan`` (the sheath pass's threads go back and forth there), halving
+    above it, where the keys are monotone in ng."""
+    if lo < scan:
+        top = min(scan, hi)
+        out = [g for g in range(lo, top) if key(g) != key(g + 1)]
+        return out + (_transitions(key, top, hi) if top < hi else [])
+    if key(lo) == key(hi):
+        return []
+    if hi - lo == 1:
+        return [lo]
+    mid = (lo + hi) // 2
+    return _transitions(key, lo, mid) + _transitions(key, mid, hi)
+
+
+def mode_boundaries(dev) -> dict:
+    """Every kernel whose launch shape picks a mode, a column count or a
+    thread count from ng (cuda_cic.sweep_launch, deposit_launch_shape,
+    cuda_sheath.launch_shape), at the last node of each shape and the
+    first of the next up to SMEM_LIMIT // 4 + 1 nodes, against its plain
+    version at its kernel phase's checks (_periodic_large_case,
+    _large_kernel_case; only failures logged). There a launch's shared
+    bytes, its kernel's static bytes included, sit nearest a block's
+    limit, and a launch that asks for more fails (ROADMAP.md Faults 4
+    and 5). Returns {kernel: [ng, ...]}."""
+    global _QUIET_CHECKS
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_sheath as S
+
+    sms = K._sm_count(dev.index)
+    top = K.SMEM_LIMIT // 4 + 1
+    wide, narrow = BOUNDARY_NS
+    halo = 2 * PERIODIC_SLAB_HALO + 1
+
+    def sweep_key(kernel):
+        extra = (lambda ng: 4 * (ng + halo)) if kernel == "explicit_domain_cycle" else (
+            lambda ng: 0)
+        return lambda ng: K.sweep_launch(kernel, wide, ng, sms, extra(ng)).mode
+
+    def deposit_key(n, hists, field):
+        return lambda ng: (lambda s: (s.mode, s.cols))(
+            K.deposit_launch_shape(n, ng, field, sms, hists))
+
+    def sheath_key(field):
+        return lambda ng: (lambda s: (s.large, s.threads, s.smem > 0))(
+            S.launch_shape(BOUNDARY_SHEATH_N, ng, sms, field))
+
+    cases = []  # (kernel, n, keys, case function)
+    for name in PERIODIC_LARGE_ROWS:
+        if name == "deposit":
+            cases += [(name, n, [deposit_key(n, 1, False)], _periodic_large_case)
+                      for n in BOUNDARY_NS]
+        else:
+            keys = [k for k in K.SWEEP_KERNELS if k.split()[0] == name]
+            cases.append((name, wide, [sweep_key(k) for k in keys], _periodic_large_case))
+    for name, field in (("deposit2", False), ("boris_gather_push_deposit", True)):
+        cases += [(name, n, [deposit_key(n, 2, field)], _large_kernel_case)
+                  for n in BOUNDARY_NS]
+    for name, field in (("sheath_picard", True), ("sheath_finalize", True),
+                        ("deposit_det", False)):
+        cases.append((name, BOUNDARY_SHEATH_N, [sheath_key(field)], _large_kernel_case))
+    gen = torch.Generator(device=dev).manual_seed(42)
+    out = collections.defaultdict(list)
+    _QUIET_CHECKS = True
+    try:
+        for name, n, keys, case in cases:
+            ngs = sorted({g for key in keys for t in _transitions(key, 2, top)
+                          for g in (t, t + 1)})
+            for ng in ngs:
+                case(name, n, ng, gen, dev, timed=False)
+                torch.cuda.empty_cache()
+            out[name] += ngs
+            log(f"[boundaries] {name} at n = {n}: ng {ngs} against the plain version")
+    finally:
+        _QUIET_CHECKS = False
+    return dict(out)
+
+
+# phase 41's paths: the implicit headline at PERIODIC_PATH_NGS, the other
+# engines at PERIODIC_PATH_NG, each card step held against the CPU's
+# plain route from one state (the n of PERIODIC_CHECK_N)
+PERIODIC_PATH_NGS = (32_768, 65_536)
+PERIODIC_PATH_NG = 65_536
+PERIODIC_CHECK_N = 1_000_000
+# the slab engines' checks: bench's migration bucket, max(4096, 4 n / ng)
+# rows a neighbour, holds a step's crossings at ng 65,536 on two ranks up
+# to n ~ 5e5 (7,762 migrated, none dropped; at 1e6 ~7,600 rows a step
+# drop, on the CPU alike)
+PERIODIC_SLAB_CHECK_N = 500_000
+PERIODIC_TIMED_STEPS = 2
+# the implicit headline's timed windows of PERIODIC_TIMED_STEPS steps a
+# grid (one read 71 ms/step where the others read 18: PERF.md §5)
+PERIODIC_HEADLINE_WINDOWS = 3
+# the slab rows' timed steps on one NCCL rank, after one
+PERIODIC_SLAB_TIMED_STEPS = 5
+# the timed runs of the explicit, slab and magnetized paths
+PERIODIC_RUN_N = 10_000_000
+# At these grids a step is ill-conditioned in its positions (the CPU test
+# tests/test_torch_large_periodic_jax.py; ROADMAP.md queue 3): a
+# position's float32 ulp, ng 2^-24 cells at p ~ ng, moves the sparse
+# deposits, the field and the push. The card's step differs from the
+# CPU's only in the order of its float32 sums, which moves a node sum by
+# ~2^-24 of itself, less than moving its particles by an ulp of p moves
+# their weights (ng 2^-24 of a cell). So each check first steps the CPU
+# from the same state with every position moved by one ulp (alternately
+# up and down), takes that step's gap from the CPU's as delta_s, and holds
+# the card to PERIODIC_CALIBRATED delta_s, each quantity its own, or to
+# the limit the same comparison has at ng = 200 where that is larger
+# (a quantity the ulp hardly moves: the energies before the push)
+PERIODIC_CALIBRATED = 2.0
+# the ng = 200 limits: phase 4's card-against-CPU step (implicit), phase
+# 6's kernel limits with the 1e-3 tests/test_torch_explicit.py holds two
+# FFT solves to (explicit), phase 26's (the slab engines)
+PERIODIC_FLOORS = {
+    "implicit": {"p": 2e-4, "v": 1e-5, "e": 1e-4, "j": 1e-4},
+    "explicit": {"p": TOL_POS, "v": TOL_V, "rho": TOL_DEP, "e": 1e-3},
+    "domain": {"field_energy": TOL_DOM_CHECK, "kinetic_energy": TOL_DOM_CHECK,
+               "p": TOL_POS_STEPS, "v": TOL_V},
+}
+
+
+def _ulp_moved(p: "np.ndarray") -> "np.ndarray":
+    """Every float32 position moved by one ulp, alternately up and down."""
+    import numpy as np
+
+    up = np.arange(p.size) % 2 == 0
+    return np.where(up, np.nextafter(p, np.float32(np.inf)),
+                    np.nextafter(p, np.float32(-np.inf))).astype(p.dtype)
+
+
+def _gap(ref, got, key: str, ng: int) -> float:
+    ref = torch.as_tensor(ref).double().cpu()
+    got = torch.as_tensor(got).double().cpu()
+    return seam_err(ref, got, ng) if key == "p" else rel_err(ref, got)[1]
+
+
+def _calibrated(label: str, ref: dict, moved: dict, card: dict, ng: int,
+                floors: dict, beside: dict | None = None) -> tuple[dict, list]:
+    """Each quantity's card-CPU gap against PERIODIC_CALIBRATED times its
+    delta_s (the CPU's step from the ulp-moved state against the CPU's),
+    or against its ng = 200 limit in ``floors`` where that is larger;
+    ``beside`` adds a gap measured apart (a library's rounding of the same
+    input) to a quantity's limit."""
+    rec, bad = {}, []
+    beside = beside or {}
+    for k in ref:
+        ds = _gap(ref[k], moved[k], k, ng)
+        got = _gap(ref[k], card[k], k, ng)
+        tol = max(PERIODIC_CALIBRATED * ds, floors[k]) + beside.get(k, 0.0)
+        rec[k] = dict(card=got, delta_s=ds, tol=tol, ng200_limit=floors[k])
+        if not got <= tol:
+            bad.append(f"{label} {k} {got:.3e} > {tol:.3e}")
+    log(f"[large periodic] {label}, one step card against CPU (limit the larger of "
+        f"{PERIODIC_CALIBRATED:g} delta_s, delta_s the CPU step's move when every "
+        "position moves an ulp, and the ng = 200 limit): " + ", ".join(
+            f"{k} {v['card']:.3e} (delta_s {v['delta_s']:.3e}, ng = 200 limit "
+            f"{v['ng200_limit']:.0e}, limit {v['tol']:.3e})" for k, v in rec.items()))
+    return rec, bad
+
+
+def _implicit_large_runs(dev) -> tuple[dict, list]:
+    """The implicit headline physics (tools/headline.py's conserving
+    configuration) at each of PERIODIC_PATH_NGS: n = N_HEADLINE from the
+    device load, one warm-up step and PERIODIC_TIMED_STEPS timed, then one
+    step each of window_share='shared' and finalize='converged-deposit'
+    from the same state (their launches); and at n = PERIODIC_CHECK_N one
+    step of each configuration card against CPU (_calibrated)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+
+    res, problems = {}, []
+    variants = {"conserving": {}, "shared": dict(window_share="shared"),
+                "converged-deposit": dict(finalize="converged-deposit")}
+    for ng in PERIODIC_PATH_NGS:
+        rec = {}
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg, step, st = headline_state(N_HEADLINE, dev, ng=ng)
+        st, _ = run(step, st, 1)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        windows, picard = [], []
+        for _ in range(PERIODIC_HEADLINE_WINDOWS):
+            t0 = time.perf_counter()
+            st, m = run(step, st, PERIODIC_TIMED_STEPS)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) * 1e3 / PERIODIC_TIMED_STEPS)
+            picard += m.picard_iters.tolist()
+        tot = (m.field_energy.double() + m.kinetic_energy.double()).cpu()
+        ms = statistics.median(windows)
+        rec.update(n=N_HEADLINE, ng=ng, setup_s=setup_s, ms_per_step=ms,
+                   ms_per_step_windows=windows, pushes_per_s=N_HEADLINE * 1e3 / ms,
+                   picard=picard,
+                   total_energy_rel_change=float((tot[-1] - tot[0]) / tot[0]))
+        for name, over in variants.items():
+            if over:
+                _, m2 = implicit.make_step(dataclasses.replace(cfg, **over))(st)
+                rec[f"{name}_picard"] = int(m2.picard_iters)
+        torch.cuda.synchronize()
+        rec["launches"] = dict(K.LARGE_LAUNCHES)
+        if not (bool(torch.isfinite(st.p).all()) and bool(torch.isfinite(st.e).all())):
+            problems.append(f"implicit ng {ng}: non-finite state")
+        if picard != [4] * len(picard):
+            problems.append(f"implicit ng {ng}: Picard {picard}")
+        log(f"[large periodic] implicit headline ng = {ng}, n = {N_HEADLINE}: "
+            f"{rec['ms_per_step']:.3f} ms/step (the median of {len(windows)} windows of "
+            f"{PERIODIC_TIMED_STEPS} steps after set-up and one, {setup_s:.1f} s: "
+            + ", ".join(f"{w:.3f}" for w in windows) + f"), "
+            f"{rec['pushes_per_s']:.4e} pushes/s, "
+            f"total energy change {rec['total_energy_rel_change']:+.3e}; large-mode "
+            f"launches with one shared and one converged-deposit step {rec['launches']}")
+        del st, m
+        torch.cuda.empty_cache()
+
+        cfg = headline_config(PERIODIC_CHECK_N, ng)
+        from pypic_tpu_torch.constants import E_CHARGE, M_ELECTRON
+        from pypic_tpu_torch.tools.headline import device_load
+
+        x, v = device_load(PERIODIC_CHECK_N, cfg.grid.length, torch.device("cpu"))
+        d = interop.implicit_state_to_numpy(
+            implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device="cpu"))
+        dm = dict(d, p=_ulp_moved(d["p"]))
+        rec["check"] = {}
+        for name, over in variants.items():
+            if ng != PERIODIC_PATH_NGS[-1] and over:
+                continue  # the options at the global mode's grid only
+            stp = implicit.make_step(dataclasses.replace(cfg, **over))
+            outs = [stp(interop.implicit_state_from_numpy(dd, where))
+                    for dd, where in ((d, "cpu"), (dm, "cpu"), (d, dev))]
+            q = [{k: getattr(s, k) for k in ("p", "v", "e", "j")} for s, _ in outs]
+            chk, bad = _calibrated(f"implicit {name} ng {ng}", *q, ng,
+                                   PERIODIC_FLOORS["implicit"])
+            iters = [int(mm.picard_iters) for _, mm in outs]
+            if iters[0] != iters[2]:
+                bad.append(f"implicit {name} ng {ng}: Picard {iters}")
+            rec["check"][name] = chk
+            problems += bad
+        res[f"ng {ng}"] = rec
+    return res, problems
+
+
+def _explicit_large_runs(dev) -> tuple[dict, list]:
+    """The explicit engine on bench.py's two-stream cell (tools/two_stream.py)
+    at PERIODIC_PATH_NG, fused (leapfrog_gather_push_deposit and the solve)
+    and composed (gather, the tensor-op push, deposit): PERIODIC_RUN_N
+    timed over PERIODIC_TIMED_STEPS steps after one; one step at
+    PERIODIC_CHECK_N card against CPU (_calibrated; e1, the float32
+    spectral solve of rho1 by cuFFT and by the CPU's FFT, also within the
+    1e-3 tests/test_torch_explicit.py holds the two packages' solves to:
+    PERIODIC_FLOORS)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import two_stream
+
+    ng = PERIODIC_PATH_NG
+    res, problems = {}, []
+    for backend in ("fused", "composed"):
+        K.reset_launch_counts()
+        cfg, _, st = two_stream.state(PERIODIC_RUN_N, dev, ng=ng)
+        cfg = dataclasses.replace(cfg, backend=backend)
+        step = explicit.make_step(cfg)
+        st, _ = run(step, st, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = run(step, st, PERIODIC_TIMED_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = dict(n=PERIODIC_RUN_N, ng=ng, ms_per_step=secs * 1e3 / PERIODIC_TIMED_STEPS,
+                   pushes_per_s=PERIODIC_RUN_N * PERIODIC_TIMED_STEPS / secs,
+                   launches=dict(K.LARGE_LAUNCHES))
+        if not bool(torch.isfinite(st.p).all() & torch.isfinite(st.e).all()):
+            problems.append(f"explicit {backend}: non-finite state")
+        del st, m
+        torch.cuda.empty_cache()
+        ccfg, _, cst = two_stream.state(PERIODIC_CHECK_N, "cpu", ng=ng)
+        stp = explicit.make_step(dataclasses.replace(ccfg, backend=backend))
+        d = interop.explicit_state_to_numpy(cst)
+        dm = dict(d, p=_ulp_moved(d["p"]))
+        outs = [stp(interop.explicit_state_from_numpy(dd, where))
+                for dd, where in ((d, "cpu"), (dm, "cpu"), (d, dev))]
+        q = [dict(p=s.p, v=s.v, rho=s.rho, e=s.e) for s, _ in outs]
+        # e1 is cuFFT's and the CPU FFT's float32 solve of rho1: their gap
+        # on the card's own rho1 rides on top of the calibrated part
+        rho_g = outs[2][0].rho
+        fft_gap = _gap(explicit._field(rho_g.cpu(), ccfg.grid.dx),
+                       explicit._field(rho_g, ccfg.grid.dx), "e", ng)
+        rec["check"], bad = _calibrated(f"explicit {backend} ng {ng}", *q, ng,
+                                        PERIODIC_FLOORS["explicit"],
+                                        beside={"e": fft_gap})
+        rec["fft_gap_e"] = fft_gap
+        problems += bad
+        log(f"[large periodic] explicit {backend} ng = {ng}, n = {PERIODIC_RUN_N}: "
+            f"{rec['ms_per_step']:.3f} ms/step, large-mode launches {rec['launches']}")
+        res[backend] = rec
+    return res, problems
+
+
+def _large_slab_rank(mesh, load, jobs, where: str) -> list:
+    """Each job (engine, steps, overrides) of tools/domain.py's rows on
+    this rank, the state made on the CPU from ``load`` (its initial field
+    is a float32 spectral solve whose low-k eigenvalues 2 cos(2 pi k / ng)
+    - 2 round to 0 or not by the device's cosine at these grids, so a
+    state made on the card would differ in those modes) and stepped on
+    the CPU (``where`` 'cpu'), on the CPU with every live position moved
+    one ulp ('moved') or on ``mesh``'s card ('card'). Returns, a job
+    each, the metric rows, p, v and alive as numpy and the large-mode
+    launches. Module-level: the spawned ranks call it."""
+    import dataclasses
+
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import domain as drow
+
+    cpu = make_mesh(device="cpu")
+    out = []
+    for engine, steps, over in jobs:
+        make_row, eng = ((drow.implicit_row, domain_implicit) if engine == "implicit"
+                         else (drow.explicit_row, domain))
+        cfg, st = make_row(cpu, len(load[0]), load=load, **over)
+        if where == "moved":
+            moved = torch.from_numpy(_ulp_moved(st.p.numpy()))
+            st = dataclasses.replace(st, p=torch.where(st.alive, moved, st.p))
+        if where == "card":
+            st = dataclasses.replace(st, **{
+                f.name: getattr(st, f.name).to(mesh.device)
+                for f in dataclasses.fields(st) if torch.is_tensor(getattr(st, f.name))})
+        K.reset_launch_counts()
+        st, m = run(eng.make_step(cfg, mesh if where == "card" else cpu), st, steps)
+        out.append(dict(rows={k: v.cpu().tolist() for k, v in m._asdict().items()},
+                        p=st.p.cpu().numpy(), v=st.v.cpu().numpy(),
+                        alive=st.alive.cpu().numpy(),
+                        large_launches=dict(K.LARGE_LAUNCHES)))
+    return out
+
+
+def _domain_large_runs(dev) -> tuple[dict, list]:
+    """configs[4] (conserving, and converged-deposit), its explicit carrier
+    and its carried carrier (tools/domain.py's rows at PERIODIC_PATH_NG):
+    on a one-rank NCCL group at PERIODIC_RUN_N, PERIODIC_SLAB_TIMED_STEPS
+    steps each after one, timed (tools/domain.py timed; the slabs of one
+    rank: ext_n past 58,112, the global modes);
+    then one step each at PERIODIC_SLAB_CHECK_N from one CPU-made load and
+    CPU-made states (_large_slab_rank), one group-less rank card against
+    CPU (_calibrated: field and kinetic energy, p and v of the alive
+    slots) and two gloo ranks on the card against two on the CPU (ext_n ~
+    38,700, the global modes of the two-array rows) at the one rank's
+    limits: counts equal,
+    energies, p and v."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.parallel import domain, domain_implicit, make_mesh, spawn
+    from pypic_tpu_torch.tools import domain as drow
+
+    ng = PERIODIC_PATH_NG
+    # the fused backend on both sides ('auto' is composed off the card)
+    jobs = [("implicit", 1, dict(ng=ng, backend="fused")),
+            ("implicit", 1, dict(ng=ng, backend="fused", finalize="converged-deposit")),
+            ("explicit", 1, dict(ng=ng)),
+            ("explicit", 1, dict(ng=ng, carried_rho="on"))]
+    labels = ("configs[4]", "configs[4] converged-deposit", "carrier", "carried carrier")
+    res, problems, launches = {}, [], collections.Counter()
+    drow.process_group()
+    try:
+        mesh = make_mesh(device=dev)
+        load = drow.host_load(PERIODIC_RUN_N)
+        res["one_rank_nccl"] = {}
+        for (engine, _, over), lab in zip(jobs, labels):
+            K.reset_launch_counts()
+            make_row, eng = ((drow.implicit_row, domain_implicit) if engine == "implicit"
+                             else (drow.explicit_row, domain))
+            cfg, st = make_row(mesh, PERIODIC_RUN_N, load=load, **over)
+            secs, syncs, counts, st, m = drow.timed(eng.make_step(cfg, mesh), st,
+                                                    PERIODIC_SLAB_TIMED_STEPS, warmup=1)
+            rec = dict(n=PERIODIC_RUN_N, ng=ng, steps=PERIODIC_SLAB_TIMED_STEPS,
+                       ms_per_step=secs * 1e3 / PERIODIC_SLAB_TIMED_STEPS,
+                       host_syncs=syncs, launches=counts, large=dict(K.LARGE_LAUNCHES),
+                       dropped=int(m.n_dropped.sum()))
+            res["one_rank_nccl"][lab] = rec
+            launches.update(rec["large"])
+            if rec["dropped"] or not bool(torch.isfinite(st.p).all()):
+                problems.append(f"{lab} one NCCL rank: dropped {rec['dropped']} or "
+                                "non-finite positions")
+            log(f"[large periodic] {lab} at ng = {ng}, n = {PERIODIC_RUN_N}, one NCCL "
+                f"rank: {rec['ms_per_step']:.3f} ms/step ({PERIODIC_SLAB_TIMED_STEPS} "
+                f"steps after one), host syncs {syncs}, large-mode launches {rec['large']}")
+            del st, m
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    load = drow.host_load(PERIODIC_SLAB_CHECK_N)
+    one = {key: _large_slab_rank(make_mesh(device=where), load, jobs, key)
+           for key, where in (("cpu", "cpu"), ("moved", "cpu"), ("card", dev))}
+    for lab, *runs in zip(labels, one["cpu"], one["moved"], one["card"]):
+        q = [dict(field_energy=r["rows"]["field_energy"],
+                  kinetic_energy=r["rows"]["kinetic_energy"],
+                  p=r["p"][r["alive"]], v=r["v"][r["alive"]]) for r in runs]
+        if not (np.array_equal(runs[0]["alive"], runs[2]["alive"])
+                and np.array_equal(runs[0]["alive"], runs[1]["alive"])):
+            problems.append(f"{lab} one rank: alive slots differ")
+            continue
+        chk, bad = _calibrated(f"{lab} one rank ng {ng}", *q, ng,
+                               PERIODIC_FLOORS["domain"])
+        res.setdefault("check_one_rank", {})[lab] = chk
+        problems += bad
+        launches.update(runs[2]["large_launches"])
+    t0 = time.perf_counter()
+    gpus = spawn.run(2, _large_slab_rank, load, jobs, "card", device=dev)
+    cpus = spawn.run(2, _large_slab_rank, load, jobs, "cpu", device="cpu")
+    res["two_gloo_ranks_s"] = time.perf_counter() - t0
+    res["check_two_ranks"] = {}
+    for i, lab in enumerate(labels):
+        cal = res.get("check_one_rank", {}).get(lab, {})
+        rec = {}
+        for r, (g, c) in enumerate(zip([x[i] for x in gpus], [x[i] for x in cpus])):
+            launches.update(g["large_launches"])
+            for k in ("n_dropped", "n_migrated", "n_alive", "picard_iters",
+                      "n_halo_clamped"):
+                if k in c["rows"] and c["rows"][k] != g["rows"][k]:
+                    problems.append(f"{lab} two ranks rank {r}: {k} {c['rows'][k]} "
+                                    f"!= {g['rows'][k]}")
+            if sum(g["rows"]["n_dropped"]) or not sum(g["rows"]["n_migrated"]):
+                problems.append(f"{lab} two ranks rank {r}: dropped "
+                                f"{g['rows']['n_dropped']}, migrated {g['rows']['n_migrated']}")
+            if not np.array_equal(g["alive"], c["alive"]):
+                problems.append(f"{lab} two ranks rank {r}: alive slots differ")
+                continue
+            for k, a_, b_ in (("field_energy", c["rows"]["field_energy"], g["rows"]["field_energy"]),
+                              ("kinetic_energy", c["rows"]["kinetic_energy"],
+                               g["rows"]["kinetic_energy"]),
+                              ("p", c["p"][c["alive"]], g["p"][g["alive"]]),
+                              ("v", c["v"][c["alive"]], g["v"][g["alive"]])):
+                gap = _gap(a_, b_, k, ng)
+                tol = cal[k]["tol"] if k in cal else PERIODIC_FLOORS["domain"][k]
+                rec[f"rank {r} {k}"] = dict(card=gap, tol=tol)
+                if not gap <= tol:
+                    problems.append(f"{lab} two ranks rank {r} {k} {gap:.3e} > {tol:.3e}")
+        res["check_two_ranks"][lab] = rec
+        log(f"[large periodic] {lab}, two gloo ranks on the card against two on "
+            f"the CPU at ng = {ng}, the one rank's delta_s: " + ", ".join(
+                f"{k} {v['card']:.3e} (tol {v['tol']:.3e})" for k, v in rec.items())
+            + f"; large-mode launches a rank {[x[i]['large_launches'] for x in gpus]}")
+    res["launches"] = dict(launches)
+    return res, problems
+
+
+def _magnetized_large_runs(dev) -> tuple[dict, list]:
+    """The configs[3] load (tools/magnetized.run_row) at PERIODIC_PATH_NG,
+    fused (row 8's global mode) and composed (the gather and the single
+    deposit), PERIODIC_TIMED_STEPS steps after one under sync debug mode
+    'error'; the fused row against the CPU and a float64 step
+    (_large_grid_check, phase 39's limits, the card's positions
+    calibrated)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import magnetized as row
+
+    res, problems = {}, []
+    for label, over in (("fused", {}), ("composed", dict(backend="composed"))):
+        K.reset_launch_counts()
+        out, cfg, fin, m = row.run_row(dev, steps=PERIODIC_TIMED_STEPS, warmup=1,
+                                       row="iead", n_per_species=LARGE_GRID_N_PER_SPECIES,
+                                       ng=PERIODIC_PATH_NG, **over)
+        rec = dict(n=out["n"], ng=PERIODIC_PATH_NG, ms_per_step=out["us_per_step"] / 1e3,
+                   launches=out["launches"], large=dict(K.LARGE_LAUNCHES))
+        bad = row.population_problems(m)
+        if not (bool(torch.isfinite(m.phi).all()) and bool(torch.isfinite(fin.p).all())):
+            bad.append("non-finite phi or positions")
+        problems += [f"configs[3] {label}: {b}" for b in bad]
+        log(f"[large periodic] configs[3] {label} at ng = {PERIODIC_PATH_NG}: n = "
+            f"{out['n']}, {rec['ms_per_step']:.3f} ms/step, launches {out['launches']}, "
+            f"large modes {rec['large']}")
+        del fin, m
+        torch.cuda.empty_cache()
+        res[label] = rec
+    # phase 39's check: rho, phi and v card against CPU at phase 14's
+    # limits, the CPU's positions against the float64 step; at 65,536 the
+    # float32 Newton stalls at maxiter on both sides (its residual floor),
+    # so the CPU stands 0.85 of the limit from float64 and the card's
+    # float atomics spread its own gap over 0.15-1.31 from call to call
+    # (ROADMAP.md queue 3): the card is held to the float64 step at
+    # PERIODIC_CALIBRATED times the CPU's gap
+    res["fused"]["check"] = _large_grid_check("iead", PERIODIC_PATH_NG, dev, steps=1,
+                                              calibrated=True)
+    return res, problems
+
+
+def phase_large_periodic(dev) -> dict:
+    """Phase 41 (module docstring). Returns the kernels' records by shape,
+    each path's figures and the large modes' launches on the paths (a
+    Counter of "wrapper mode"); fails if a row's large mode never launched
+    on a path."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    res = {"kernels": periodic_large_kernel_times(dev)}
+    res["boundaries"] = mode_boundaries(dev)
+    problems, launches = [], collections.Counter()
+    res["implicit"], bad = _implicit_large_runs(dev)
+    problems += bad
+    for rec in res["implicit"].values():
+        launches.update(rec["launches"])
+    res["explicit"], bad = _explicit_large_runs(dev)
+    problems += bad
+    for rec in res["explicit"].values():
+        launches.update(rec["launches"])
+    res["domain"], bad = _domain_large_runs(dev)
+    problems += bad
+    launches.update(res["domain"].pop("launches"))
+    res["magnetized"], bad = _magnetized_large_runs(dev)
+    problems += bad
+    for rec in res["magnetized"].values():
+        launches.update(rec["large"])
+    K.reset_launch_counts()
+    rec, bad = _sheath_large_run("composed", PERIODIC_PATH_NG, PERIODIC_CHECK_N, dev)
+    res["sheath_composed"] = dict(rec, large=dict(K.LARGE_LAUNCHES))
+    problems += [f"sheath composed ng {PERIODIC_PATH_NG}: {b}" for b in bad]
+    launches.update(K.LARGE_LAUNCHES)
+    res["launches"] = dict(launches)
+    missing = [k for k in PERIODIC_LARGE_ROWS
+               if not any(key.split()[0] == k for key in launches)]
+    if missing:
+        problems.append(f"large modes never launched on a path: {missing}")
+    log(f"[large periodic] the large modes' launches on the paths: {res['launches']}")
+    if problems:
+        raise AssertionError("large periodic: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -7125,6 +8105,7 @@ def main() -> int:
     opt = phase("options", phase_options, dev, card)
     lg = phase("large grids", phase_large_grids, dev)
     lgs = phase("large sheath", phase_large_sheath, dev)
+    lgp = phase("large periodic", phase_large_periodic, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -7175,6 +8156,13 @@ def main() -> int:
         records[kname]["large_mode"] = dict(
             by_shape[LARGE_KERNEL_MAIN], launches=lgs["launches"][kname],
             shapes=by_shape)
+    # the large modes of the periodic, explicit and slab rows: phase 41's
+    # record at PERIODIC_LARGE_MAIN with its other shapes, and the
+    # large-mode launches of phase 41's paths
+    for kname, by_shape in lgp["kernels"].items():
+        records[kname]["large_mode"] = dict(
+            by_shape[PERIODIC_LARGE_MAIN], shapes=by_shape,
+            launches={k: v for k, v in lgp["launches"].items() if k.split()[0] == kname})
     main_shape = {"deposit2": "configs[3]", "boris_gather_push_deposit": "configs[3]",
                   "deposit": DEPOSIT_MAIN_SHAPE, "deposit_det": "current",
                   "source_batch": "999,996"}
@@ -7346,6 +8334,7 @@ def main() -> int:
         "options": opt,
         "large_grids": {k: v for k, v in lg.items() if k != "launches"},
         "large_sheath": {k: v for k, v in lgs.items() if k not in ("launches", "kernels")},
+        "large_periodic": {k: v for k, v in lgp.items() if k != "kernels"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

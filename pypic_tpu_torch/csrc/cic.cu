@@ -64,8 +64,15 @@ namespace {
 // one warp share a node (the load is in random order at ng = 200). The
 // clamp count is kept per block in shared memory and added to the int32
 // total with one atomic per block, so it is exact.
+//
+// Above the two arrays' ceiling (ng above 29,056; 29,054 with SHARED,
+// whose clamp count takes 16 static bytes; ops/cuda_cic.py smem_mode)
+// MODE is cic_common.cuh's kGlobal: the field read from device memory,
+// each of a row's two adds a global float atomic into the zeroed jh.
+// Bound there: the rows' 16 B (20 with EMIT_V), plus the field read and
+// jh written once: 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool EMIT_V, bool SHARED>
+template <bool EMIT_V, bool SHARED, int MODE>
 __global__ void picard_iteration_kernel(
     const float* __restrict__ field, const float* __restrict__ ps,
     const float* __restrict__ p0, const float* __restrict__ v0,
@@ -77,10 +84,13 @@ __global__ void picard_iteration_kernel(
   float* s_field = smem;
   float* s_hist = smem + ng;
   __shared__ int s_clamped;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    s_field[i] = field[i];
-    s_hist[i] = 0.0f;
+  if (MODE == kShared) {
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) {
+      s_field[i] = field[i];
+      s_hist[i] = 0.0f;
+    }
   }
+  float* hist = MODE == kShared ? s_hist : jh;
   if (SHARED && threadIdx.x == 0) s_clamped = 0;
   __syncthreads();
   const float ngf = (float)ng;
@@ -92,7 +102,7 @@ __global__ void picard_iteration_kernel(
     const float s = ps[i];
     const float a = p0[i];
     const float b = v0[i];
-    const float e = gather(s_field, cic_periodic(s, ng));
+    const float e = gather_mode<MODE>(s_field, field, cic_periodic(s, ng));
     float p1, v1;
     cn_push(a, b, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
     const float raw = __fmul_rn(0.5f, __fadd_rn(a, p1));
@@ -122,12 +132,13 @@ __global__ void picard_iteration_kernel(
     } else {
       c = cic_periodic(h, ng);
     }
-    atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-    atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+    atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
+    atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
   }
   if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
   __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
+  if (MODE == kShared)
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
   if (SHARED && threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
@@ -145,8 +156,14 @@ __global__ void picard_iteration_kernel(
 // Bound on the H100: device-memory bytes, 12 B in and 8 B out per
 // particle, a pure stream. The field (and the histogram) sit in shared
 // memory, so the gather costs no device-memory traffic.
+//
+// Above the shared-memory ceiling (58,112 nodes without the deposit,
+// 29,056 with it) MODE is cic_common.cuh's kGlobal: the field read from
+// device memory and, with DEPOSIT, each add a global float atomic into
+// the zeroed j1. Bound there: the rows' 20 B, plus the field read and j1
+// written once (DEPOSIT): up to 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool DEPOSIT>
+template <bool DEPOSIT, int MODE>
 __global__ void picard_finalize_kernel(
     const float* __restrict__ field, const float* __restrict__ ps,
     const float* __restrict__ p0, const float* __restrict__ v0,
@@ -156,16 +173,19 @@ __global__ void picard_finalize_kernel(
   extern __shared__ float smem[];
   float* s_field = smem;
   float* s_hist = smem + ng;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    s_field[i] = field[i];
-    if (DEPOSIT) s_hist[i] = 0.0f;
+  if (MODE == kShared) {
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) {
+      s_field[i] = field[i];
+      if (DEPOSIT) s_hist[i] = 0.0f;
+    }
   }
+  float* hist = MODE == kShared ? s_hist : j1;
   __syncthreads();
   const float ngf = (float)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float e = gather(s_field, cic_periodic(ps[i], ng));
+    const float e = gather_mode<MODE>(s_field, field, cic_periodic(ps[i], ng));
     float p1, v1;
     cn_push(p0[i], v0[i], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
     p1 = wrap(p1, ngf, inv_ng);
@@ -174,48 +194,54 @@ __global__ void picard_finalize_kernel(
     if (DEPOSIT) {
       const float val = __fmul_rn(w, v1);
       const Cic c = cic_periodic(p1, ng);
-      atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-      atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+      atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
+      atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
     }
   }
-  if (DEPOSIT) {
+  if (DEPOSIT && MODE == kShared) {
     __syncthreads();
     for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&j1[i], s_hist[i]);
   }
 }
 
-// Launches picard_iteration_kernel<EMIT_V, SHARED> after the shared-memory
-// opt-in.
+// Launches picard_iteration_kernel<EMIT_V, SHARED, mode> after the
+// shared-memory opt-in.
 template <bool EMIT_V, bool SHARED>
-cudaError_t launch_iteration(int blocks, int threads, cudaStream_t s,
+cudaError_t launch_iteration(int mode, int blocks, int threads, cudaStream_t s,
                              const float* field, const float* ps,
                              const float* p0, const float* v0, float* ph,
                              float* v1, float* jh, int* n_clamped, long long n,
                              int ng, float qm_dt, float qm_dt2_half,
                              float dt_dx, float w, float inv_ng, int win_stride,
                              int width, int num_k, float inv_stride) {
-  const size_t smem = 2 * (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(picard_iteration_kernel<EMIT_V, SHARED>, smem);
-  if (err != cudaSuccess) return err;
-  picard_iteration_kernel<EMIT_V, SHARED><<<blocks, threads, smem, s>>>(
-      field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
-      dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
-  return cudaGetLastError();
+  return with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(float);
+    cudaError_t err = allow_smem(picard_iteration_kernel<EMIT_V, SHARED, MODE>, smem);
+    if (err != cudaSuccess) return err;
+    picard_iteration_kernel<EMIT_V, SHARED, MODE><<<blocks, threads, smem, s>>>(
+        field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+        dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
+    return cudaGetLastError();
+  });
 }
 
 template <bool DEPOSIT>
-cudaError_t launch_finalize(int blocks, int threads, cudaStream_t s,
+cudaError_t launch_finalize(int mode, int blocks, int threads, cudaStream_t s,
                             const float* field, const float* ps,
                             const float* p0, const float* v0, float* p1,
                             float* v1, float* j1, long long n, int ng,
                             float qm_dt, float qm_dt2_half, float dt_dx,
                             float w, float inv_ng) {
-  const size_t smem = (DEPOSIT ? 2 : 1) * (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(picard_finalize_kernel<DEPOSIT>, smem);
-  if (err != cudaSuccess) return err;
-  picard_finalize_kernel<DEPOSIT><<<blocks, threads, smem, s>>>(
-      field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt, qm_dt2_half, dt_dx, w, inv_ng);
-  return cudaGetLastError();
+  return with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, DEPOSIT ? 2 : 1, ng) * sizeof(float);
+    cudaError_t err = allow_smem(picard_finalize_kernel<DEPOSIT, MODE>, smem);
+    if (err != cudaSuccess) return err;
+    picard_finalize_kernel<DEPOSIT, MODE><<<blocks, threads, smem, s>>>(
+        field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt, qm_dt2_half, dt_dx, w, inv_ng);
+    return cudaGetLastError();
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -304,6 +330,44 @@ __global__ void __launch_bounds__(1024, 1)
   flush_columns<ROWS, 1, true>(h, ng, cols, out, nullptr);
 }
 
+// The large mode (deposit_launch_shape's cols 0: above 58,112 nodes, where
+// one lane column no longer fits a block): the same rows a block and
+// thread, no shared histogram, each nonzero product a global float atomic
+// into the zeroed out (4 B a node: 16 MiB at 2^22 nodes, in L2 up to
+// ~12.5 M nodes). Bound: the rows' 8 B and the node's 4 B written once.
+template <bool PERIODIC, int ROWS, bool VEC>
+__global__ void __launch_bounds__(1024, 1)
+    deposit_global_kernel(const float* __restrict__ p, const float* __restrict__ values,
+                          float* __restrict__ out, long long n, int ng) {
+  if (ROWS == 1) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride) {
+      const float val = values[i];
+      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      add_nonzero(out, c.l, __fmul_rn(val, c.wl));
+      add_nonzero(out, c.r, __fmul_rn(val, c.wr));
+    }
+  } else {
+    long long lo, hi;
+    block_groups(n, lo, hi);
+    const long long end = min(n, 4 * hi);
+    for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+      const long long i = 4 * g;
+      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
+      const float4 v4 = load4<VEC>(values, i, end, 0.0f);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i + r >= end) break;
+        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const float val = get(v4, r);
+        add_nonzero(out, c.l, __fmul_rn(val, c.wl));
+        add_nonzero(out, c.r, __fmul_rn(val, c.wr));
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // deposit_det
 //
@@ -326,7 +390,7 @@ __global__ void __launch_bounds__(1024, 1)
 // sum follows from (n, ng, SM count). The split (--kernel deposit_det): 10.5
 // us against 40.2 at 1e6 / 51, its flush 5.7 of it; at the exit
 // histograms' 128 nodes (128 threads a block) 35.7 against 41.9, the flush
-// 29.2 (PERF.md §7). The columns fit a block up to ng = 1,816; above it
+// 29.2 (PERF.md §7). The columns fit a block up to ng = 1,815; above it
 // deposit_det_large_kernel takes the sums as int64 fixed point in device
 // memory (the design and its pricing: sheath.cu's header). Bound there:
 // the 8 B a row read twice (the scale sweep and the deposit sweep).
@@ -360,7 +424,7 @@ __global__ void __launch_bounds__(1024) deposit_det_kernel(
   det_flush(s_hist, ng, partial, counter, out);
 }
 
-// The large mode (ng above the columns' ceiling, 1,816; launch_shape's
+// The large mode (ng above the columns' ceiling, 1,815; launch_shape's
 // `large` without the field): the same rows a block, the sums as int64
 // fixed point in device memory (cic_common.cuh "Large deterministic
 // sums"). SCALE: the first sweep, the largest |term| into bmax[block] and
@@ -404,38 +468,42 @@ __global__ void __launch_bounds__(kLargeThreads, 2) deposit_det_large_kernel(
 
 extern "C" {
 
+// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global); jh: ng
+// zeroed floats.
 int pypic_picard_iteration(const float* field, const float* ps, const float* p0,
                            const float* v0, float* ph, float* v1, float* jh,
                            long long n, int ng, float qm_dt, float qm_dt2_half,
-                           float dt_dx, float w, float inv_ng, int blocks,
-                           int threads, void* stream) {
+                           float dt_dx, float w, float inv_ng, int mode,
+                           int blocks, int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(v1 != nullptr
-      ? launch_iteration<true, false>(blocks, threads, s, field, ps, p0, v0, ph,
-                                      v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
-                                      dt_dx, w, inv_ng, 0, 0, 0, 0.0f)
-      : launch_iteration<false, false>(blocks, threads, s, field, ps, p0, v0, ph,
-                                       nullptr, jh, nullptr, n, ng, qm_dt,
+      ? launch_iteration<true, false>(mode, blocks, threads, s, field, ps, p0, v0,
+                                      ph, v1, jh, nullptr, n, ng, qm_dt,
+                                      qm_dt2_half, dt_dx, w, inv_ng, 0, 0, 0, 0.0f)
+      : launch_iteration<false, false>(mode, blocks, threads, s, field, ps, p0, v0,
+                                       ph, nullptr, jh, nullptr, n, ng, qm_dt,
                                        qm_dt2_half, dt_dx, w, inv_ng, 0, 0, 0,
                                        0.0f));
 }
 
+// mode: 0 shared, 1 global.
 int pypic_picard_finalize_nodep(const float* field, const float* ps,
                                 const float* p0, const float* v0, float* p1,
                                 float* v1, long long n, int ng, float qm_dt,
                                 float qm_dt2_half, float dt_dx, float inv_ng,
-                                int blocks, int threads, void* stream) {
-  return (int)launch_finalize<false>(blocks, threads, (cudaStream_t)stream,
+                                int mode, int blocks, int threads, void* stream) {
+  return (int)launch_finalize<false>(mode, blocks, threads, (cudaStream_t)stream,
                                      field, ps, p0, v0, p1, v1, nullptr, n, ng,
                                      qm_dt, qm_dt2_half, dt_dx, 0.0f, inv_ng);
 }
 
+// j1: ng zeroed floats.
 int pypic_picard_finalize(const float* field, const float* ps, const float* p0,
                           const float* v0, float* p1, float* v1, float* j1,
                           long long n, int ng, float qm_dt, float qm_dt2_half,
-                          float dt_dx, float w, float inv_ng, int blocks,
-                          int threads, void* stream) {
-  return (int)launch_finalize<true>(blocks, threads, (cudaStream_t)stream,
+                          float dt_dx, float w, float inv_ng, int mode,
+                          int blocks, int threads, void* stream) {
+  return (int)launch_finalize<true>(mode, blocks, threads, (cudaStream_t)stream,
                                     field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt,
                                     qm_dt2_half, dt_dx, w, inv_ng);
 }
@@ -445,31 +513,47 @@ int pypic_picard_iteration_shared(
     const float* field, const float* ps, const float* p0, const float* v0,
     float* ph, float* v1, float* jh, int* n_clamped, long long n, int ng,
     float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
-    int win_stride, int width, int num_k, float inv_stride, int blocks,
+    int win_stride, int width, int num_k, float inv_stride, int mode, int blocks,
     int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(v1 != nullptr
-      ? launch_iteration<true, true>(blocks, threads, s, field, ps, p0, v0, ph,
-                                     v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
-                                     dt_dx, w, inv_ng, win_stride, width, num_k,
-                                     inv_stride)
-      : launch_iteration<false, true>(blocks, threads, s, field, ps, p0, v0, ph,
-                                      nullptr, jh, n_clamped, n, ng, qm_dt,
+      ? launch_iteration<true, true>(mode, blocks, threads, s, field, ps, p0, v0,
+                                     ph, v1, jh, n_clamped, n, ng, qm_dt,
+                                     qm_dt2_half, dt_dx, w, inv_ng, win_stride,
+                                     width, num_k, inv_stride)
+      : launch_iteration<false, true>(mode, blocks, threads, s, field, ps, p0, v0,
+                                      ph, nullptr, jh, n_clamped, n, ng, qm_dt,
                                       qm_dt2_half, dt_dx, w, inv_ng, win_stride,
                                       width, num_k, inv_stride));
 }
 
 // out: ng zeroed floats; rows, blocks, threads and cols from
-// ops/cuda_cic.py deposit_launch_shape (one histogram).
+// ops/cuda_cic.py deposit_launch_shape (one histogram; cols 0: the large
+// mode).
 int pypic_deposit(const float* p, const float* values, float* out, long long n,
                   int ng, int periodic, int rows, int blocks, int threads,
                   int cols, void* stream) {
-  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols))
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)ng * cols * sizeof(float);
   const bool vec = aligned16(p) && aligned16(values);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+  if (cols == 0) {  // the large mode
+#define PYPIC_DEPOSIT_GLOBAL(PER, ROWS, VEC)                                    \
+  deposit_global_kernel<PER, ROWS, VEC><<<blocks, threads, 0, s>>>(p, values,  \
+                                                                  out, n, ng); \
+  return (int)cudaGetLastError()
+    if (periodic) {
+      if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(true, 1, false); }
+      if (vec) { PYPIC_DEPOSIT_GLOBAL(true, 4, true); }
+      PYPIC_DEPOSIT_GLOBAL(true, 4, false);
+    }
+    if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(false, 1, false); }
+    if (vec) { PYPIC_DEPOSIT_GLOBAL(false, 4, true); }
+    PYPIC_DEPOSIT_GLOBAL(false, 4, false);
+#undef PYPIC_DEPOSIT_GLOBAL
+  }
 #define PYPIC_DEPOSIT(PER, ROWS, VEC)                                           \
   err = allow_smem(deposit_kernel<PER, ROWS, VEC>, smem);                       \
   if (err != cudaSuccess) return (int)err;                                      \

@@ -21,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 struct Cic {
@@ -56,6 +58,54 @@ __device__ __forceinline__ Cic cic_bounded(float p, int ng) {
 
 __device__ __forceinline__ float gather(const float* f, const Cic& c) {
   return __fadd_rn(__fmul_rn(f[c.l], c.wl), __fmul_rn(f[c.r], c.wr));
+}
+
+// ---------------------------------------------------------------------------
+// The modes of the grid-stride particle kernels (ops/cuda_cic.py smem_mode,
+// a function of the sizes alone):
+// * kShared: the field and the histogram in shared memory, one global
+//   atomic a node and block in the flush (the kernels as first ported);
+// * kGlobal: the field read from device memory through the read-only path
+//   (__ldg), each add a global float atomic (red.global.add.f32) into the
+//   zeroed output, no flush.
+// Each mode is its own instantiation, so the kShared code is the first
+// port's. Every product keeps its rounding; only the order of the float
+// sums changes, as it does between two runs of the atomics.
+// ---------------------------------------------------------------------------
+constexpr int kShared = 0, kGlobal = 1;
+
+// The gather of the mode: the block's copy of the field, or the field in
+// device memory.
+template <int MODE>
+__device__ __forceinline__ float gather_mode(const float* s_field,
+                                             const float* __restrict__ field,
+                                             const Cic& c) {
+  if (MODE == kGlobal)
+    return __fadd_rn(__fmul_rn(__ldg(field + c.l), c.wl), __fmul_rn(__ldg(field + c.r), c.wr));
+  return gather(s_field, c);
+}
+
+// Copies the field into shared memory unless the mode reads it in place;
+// the caller's barrier follows.
+template <int MODE>
+__device__ __forceinline__ void load_field(float* s_field, const float* __restrict__ field,
+                                           int ng) {
+  if (MODE == kShared)
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+}
+
+// Runs f(std::integral_constant<int, MODE>) for the runtime mode (0, 1).
+template <typename F>
+cudaError_t with_mode(int mode, F f) {
+  if (mode == kShared) return f(std::integral_constant<int, kShared>{});
+  if (mode == kGlobal) return f(std::integral_constant<int, kGlobal>{});
+  return cudaErrorInvalidValue;
+}
+
+// Floats of ng nodes a block keeps in shared memory in a mode: `arrays`
+// in kShared, none in kGlobal.
+inline size_t mode_floats(int mode, int arrays, int ng) {
+  return (size_t)(mode == kShared ? arrays : 0) * ng;
 }
 
 // Periodic wrap as the TPU kernels write it: x - floor(x * (1/ng)) * ng,
@@ -279,8 +329,11 @@ __device__ void det_flush(const float* hist, int ng, float* partial,
 
 constexpr int kLargeThreads = 512;  // ops/cuda_sheath.py LARGE_THREADS
 // the field alone in one block's shared memory (ops/cuda_cic.py
-// FIELD_SMEM_MAX_NG): 232,448 B / 4
-constexpr int kFieldSmemMaxNg = 58112;
+// FIELD_SMEM_MAX_NG): (232,448 B less 1,024 B of room for the kernel's
+// static shared memory) / 4. A block's 232,448 B hold the static bytes
+// too: at 58,112 nodes the carried Boris deposit's 16-B clamp count made
+// the launch fail.
+constexpr int kFieldSmemMaxNg = 57856;
 
 // A term's magnitude into the thread's running maximum; a NaN or Inf term
 // makes it Inf (fmaxf alone would drop a NaN).

@@ -35,6 +35,13 @@
 // keeps the TPU frame's ARITHMETIC (not its selectors), because the frame
 // decides which deposits clamp and so the picard_clamped count.
 //
+// Each of the four per-step sweeps keeps its (ext_n,) or (ng,) arrays in
+// shared memory up to its ceiling and takes the large modes of
+// cic_common.cuh above it (ops/cuda_cic.py smem_mode, the ceilings in
+// each section): the field read from device memory (kGlobal), every add
+// a global float atomic into the zeroed output. Each mode is its own
+// instantiation; the shared mode's code is unchanged.
+//
 // Launchers return cudaGetLastError(); they allocate nothing and run on
 // the stream they are given.
 
@@ -75,8 +82,12 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 // shared memory (2 ext_n floats); each block flushes its histogram with
 // one global atomic a node. The clamp count is kept per block and added
 // to the int32 total with one atomic a block, so it is exact.
+//
+// The large mode (kGlobal) above ext_n = 29,056 (29,054 with SHARED: the
+// clamp count's 16 static bytes). Bound there: the rows' 20 B (24 with
+// EMIT_V), plus the field read and jh written once: 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool EMIT_V, bool SHARED>
+template <bool EMIT_V, bool SHARED, int MODE>
 __global__ void picard_iteration_ext_kernel(
     const float* __restrict__ field, const float* ps,
     const float* __restrict__ p0, const float* __restrict__ v0,
@@ -90,10 +101,13 @@ __global__ void picard_iteration_ext_kernel(
   float* s_field = smem;
   float* s_hist = smem + ext_n;
   __shared__ int s_clamped;
-  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) {
-    s_field[i] = field[i];
-    s_hist[i] = 0.0f;
+  if (MODE == kShared) {
+    for (int i = threadIdx.x; i < ext_n; i += blockDim.x) {
+      s_field[i] = field[i];
+      s_hist[i] = 0.0f;
+    }
   }
+  float* hist = MODE == kShared ? s_hist : jh;
   if (SHARED && threadIdx.x == 0) s_clamped = 0;
   __syncthreads();
   const float top = (float)(width - 1);
@@ -105,7 +119,7 @@ __global__ void picard_iteration_ext_kernel(
     const float a = p0[i];
     const float b = v0[i];
     const float wi = w[i];
-    const float e = gather(s_field, cic_bounded(s, ext_n));
+    const float e = gather_mode<MODE>(s_field, field, cic_bounded(s, ext_n));
     float p1, v1;
     cn_push(a, b, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
     const float raw = __fmul_rn(0.5f, __fadd_rn(a, p1));
@@ -126,17 +140,18 @@ __global__ void picard_iteration_ext_kernel(
       const float wr = __fsub_rn(d_h, (float)row);
       const float wl = __fsub_rn(1.0f, wr);
       const int l = win_stride * k + row - 1;
-      if (l >= 0 && l < ext_n) atomicAdd(&s_hist[l], __fmul_rn(val, wl));
-      if (l + 1 >= 0 && l + 1 < ext_n) atomicAdd(&s_hist[l + 1], __fmul_rn(val, wr));
+      if (l >= 0 && l < ext_n) atomicAdd(&hist[l], __fmul_rn(val, wl));
+      if (l + 1 >= 0 && l + 1 < ext_n) atomicAdd(&hist[l + 1], __fmul_rn(val, wr));
     } else {
       const Cic c = cic_bounded(hc, ext_n);
-      atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-      atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+      atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
+      atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
     }
   }
   if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
   __syncthreads();
-  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
+  if (MODE == kShared)
+    for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
   if (SHARED && threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
@@ -163,8 +178,14 @@ __global__ void picard_iteration_ext_kernel(
 // Bound on the H100: device-memory bytes, 16 B read and 8 B written a
 // particle. The field (and the histogram) stay in shared memory; the
 // partials are 24 B a block.
+//
+// The large mode (kGlobal; the block_sum's 256 static bytes counted):
+// with DEPOSIT above ext_n = 29,024, without it above 58,048. The
+// statistics keep their float64 sums and fixed order in both modes. Bound
+// there: the rows' 24 B, plus the field read and j1 written once
+// (DEPOSIT): up to 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool DEPOSIT>
+template <bool DEPOSIT, int MODE>
 __global__ void picard_finalize_ext_kernel(
     const float* __restrict__ field, const float* __restrict__ ps,
     const float* __restrict__ p0, const float* __restrict__ v0,
@@ -177,10 +198,13 @@ __global__ void picard_finalize_ext_kernel(
   float* s_field = smem;
   float* s_hist = smem + ext_n;
   __shared__ double red[32];
-  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) {
-    s_field[i] = field[i];
-    if (DEPOSIT) s_hist[i] = 0.0f;
+  if (MODE == kShared) {
+    for (int i = threadIdx.x; i < ext_n; i += blockDim.x) {
+      s_field[i] = field[i];
+      if (DEPOSIT) s_hist[i] = 0.0f;
+    }
   }
+  float* hist = MODE == kShared ? s_hist : j1;
   __syncthreads();
   const float ngf = (float)ng;
   double s_wv = 0.0, s_vv = 0.0, s_cl = 0.0;
@@ -188,7 +212,7 @@ __global__ void picard_finalize_ext_kernel(
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float s = clampf(ps[i], lo, hi);
-    const float e = gather(s_field, cic_bounded(s, ext_n));
+    const float e = gather_mode<MODE>(s_field, field, cic_bounded(s, ext_n));
     float p1, v1;
     cn_push(p0[i], v0[i], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
     const float wi = w[i];
@@ -196,8 +220,8 @@ __global__ void picard_finalize_ext_kernel(
     if (DEPOSIT) {
       const float val = __fmul_rn(wi, v1);
       const Cic c = cic_bounded(clampf(p1, lo, hi), ext_n);
-      atomicAdd(&s_hist[c.l], __fmul_rn(val, c.wl));
-      atomicAdd(&s_hist[c.r], __fmul_rn(val, c.wr));
+      atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
+      atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
     }
     s_wv += (double)__fmul_rn(wi, v1);
     if (wi != 0.0f) {
@@ -208,7 +232,7 @@ __global__ void picard_finalize_ext_kernel(
     if (ng > 0) pg = wrap(pg, ngf, inv_ng);
     p1_out[i] = pg;
   }
-  if (DEPOSIT) {
+  if (DEPOSIT && MODE == kShared) {
     __syncthreads();
     for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&j1[i], s_hist[i]);
   }
@@ -251,8 +275,11 @@ __global__ void ext_stats_sum_kernel(const double* __restrict__ partial,
 // roundings, so the engine needs no pass of its own for it.
 //
 // Bound on the H100: device-memory bytes, 8 B read and 8 B written a
-// particle. The field sits in shared memory.
+// particle. The field sits in shared memory; above 58,112 nodes MODE is
+// kGlobal, the field read from device memory (bound: the rows' 16 B and
+// the field's 4 B a node read once).
 // ---------------------------------------------------------------------------
+template <int MODE>
 __global__ void leapfrog_push_kernel(const float* __restrict__ field,
                                      const float* __restrict__ p,
                                      const float* __restrict__ v,
@@ -261,14 +288,14 @@ __global__ void leapfrog_push_kernel(const float* __restrict__ field,
                                      int ng, float qmh, float dt_dx,
                                      float inv_ng) {
   extern __shared__ float s_field[];
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+  load_field<MODE>(s_field, field, ng);
   __syncthreads();
   const float ngf = (float)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float a = p[i];
-    const float kick = __fmul_rn(qmh, gather(s_field, cic_periodic(a, ng)));
+    const float kick = __fmul_rn(qmh, gather_mode<MODE>(s_field, field, cic_periodic(a, ng)));
     const float vh = __fadd_rn(v[i], kick);
     float p1 = wrap(__fadd_rn(a, __fmul_rn(vh, dt_dx)), ngf, inv_ng);
     if (p1 >= ngf)
@@ -305,7 +332,13 @@ __global__ void leapfrog_push_kernel(const float* __restrict__ field,
 // shared memory (ng + ext_n floats); each block flushes its histogram
 // with one global atomic a node and adds its clamp count with one integer
 // atomic, so the count is exact.
+//
+// The large mode (kGlobal) where ng + ext_n floats and the clamp count's
+// static word no longer fit a block: the global field read from device
+// memory, each add a global float atomic into the zeroed rho_ext. Bound
+// there: the rows' 20 B, plus the field read and rho_ext written once.
 // ---------------------------------------------------------------------------
+template <int MODE>
 __global__ void domain_cycle_kernel(const float* __restrict__ field,
                                     const float* __restrict__ p,
                                     const float* __restrict__ v,
@@ -320,8 +353,10 @@ __global__ void domain_cycle_kernel(const float* __restrict__ field,
   float* s_field = smem;
   float* s_hist = smem + ng;
   __shared__ int s_clamped;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
-  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) s_hist[i] = 0.0f;
+  load_field<MODE>(s_field, field, ng);
+  if (MODE == kShared)
+    for (int i = threadIdx.x; i < ext_n; i += blockDim.x) s_hist[i] = 0.0f;
+  float* hist = MODE == kShared ? s_hist : rho_ext;
   if (threadIdx.x == 0) s_clamped = 0;
   __syncthreads();
   const float ngf = (float)ng;
@@ -331,7 +366,7 @@ __global__ void domain_cycle_kernel(const float* __restrict__ field,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float a = p[i];
-    const float kick = __fmul_rn(qmh, gather(s_field, cic_periodic(a, ng)));
+    const float kick = __fmul_rn(qmh, gather_mode<MODE>(s_field, field, cic_periodic(a, ng)));
     const float vh = __fadd_rn(v[i], kick);
     const float raw = __fadd_rn(a, __fmul_rn(vh, dt_dx));
     float p1 = wrap(raw, ngf, inv_ng);
@@ -349,17 +384,18 @@ __global__ void domain_cycle_kernel(const float* __restrict__ field,
       ploc = fminf(fmaxf(ploc, 0.0f), top);
     }
     const Cic c = cic_bounded(ploc, ext_n);
-    atomicAdd(&s_hist[c.l], __fmul_rn(wi, c.wl));
-    atomicAdd(&s_hist[c.r], __fmul_rn(wi, c.wr));
+    atomicAdd(&hist[c.l], __fmul_rn(wi, c.wl));
+    atomicAdd(&hist[c.r], __fmul_rn(wi, c.wr));
   }
   if (clamped) atomicAdd(&s_clamped, clamped);
   __syncthreads();
-  for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&rho_ext[i], s_hist[i]);
+  if (MODE == kShared)
+    for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&rho_ext[i], s_hist[i]);
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
 template <bool EMIT_V, bool SHARED>
-cudaError_t launch_iteration_ext(int blocks, int threads, cudaStream_t s,
+cudaError_t launch_iteration_ext(int mode, int blocks, int threads, cudaStream_t s,
                                  const float* field, const float* ps,
                                  const float* p0, const float* v0,
                                  const float* w, float* ph, float* v1,
@@ -368,17 +404,20 @@ cudaError_t launch_iteration_ext(int blocks, int threads, cudaStream_t s,
                                  float qm_dt2_half, float dt_dx, float lo,
                                  float hi, int win_stride, int width,
                                  int num_k, float inv_stride) {
-  const size_t smem = 2 * (size_t)ext_n * sizeof(float);
-  cudaError_t err = allow_smem(picard_iteration_ext_kernel<EMIT_V, SHARED>, smem);
-  if (err != cudaSuccess) return err;
-  picard_iteration_ext_kernel<EMIT_V, SHARED><<<blocks, threads, smem, s>>>(
-      field, ps, p0, v0, w, ph, v1, jh, n_clamped, active, n, ext_n, qm_dt,
-      qm_dt2_half, dt_dx, lo, hi, win_stride, width, num_k, inv_stride);
-  return cudaGetLastError();
+  return with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 2, ext_n) * sizeof(float);
+    cudaError_t err = allow_smem(picard_iteration_ext_kernel<EMIT_V, SHARED, MODE>, smem);
+    if (err != cudaSuccess) return err;
+    picard_iteration_ext_kernel<EMIT_V, SHARED, MODE><<<blocks, threads, smem, s>>>(
+        field, ps, p0, v0, w, ph, v1, jh, n_clamped, active, n, ext_n, qm_dt,
+        qm_dt2_half, dt_dx, lo, hi, win_stride, width, num_k, inv_stride);
+    return cudaGetLastError();
+  });
 }
 
 template <bool DEPOSIT>
-cudaError_t launch_finalize_ext(int blocks, int threads, cudaStream_t s,
+cudaError_t launch_finalize_ext(int mode, int blocks, int threads, cudaStream_t s,
                                 const float* field, const float* ps,
                                 const float* p0, const float* v0,
                                 const float* w, float* p1, float* v1,
@@ -387,13 +426,16 @@ cudaError_t launch_finalize_ext(int blocks, int threads, cudaStream_t s,
                                 float qm_dt2_half, float dt_dx, float lo,
                                 float hi, float lo_shift, int ng,
                                 float inv_ng) {
-  const size_t smem = (DEPOSIT ? 2 : 1) * (size_t)ext_n * sizeof(float);
-  cudaError_t err = allow_smem(picard_finalize_ext_kernel<DEPOSIT>, smem);
-  if (err != cudaSuccess) return err;
-  picard_finalize_ext_kernel<DEPOSIT><<<blocks, threads, smem, s>>>(
-      field, ps, p0, v0, w, p1, v1, j1, partial, n, ext_n, qm_dt, qm_dt2_half,
-      dt_dx, lo, hi, lo_shift, ng, inv_ng);
-  err = cudaGetLastError();
+  cudaError_t err = with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, DEPOSIT ? 2 : 1, ext_n) * sizeof(float);
+    cudaError_t e = allow_smem(picard_finalize_ext_kernel<DEPOSIT, MODE>, smem);
+    if (e != cudaSuccess) return e;
+    picard_finalize_ext_kernel<DEPOSIT, MODE><<<blocks, threads, smem, s>>>(
+        field, ps, p0, v0, w, p1, v1, j1, partial, n, ext_n, qm_dt, qm_dt2_half,
+        dt_dx, lo, hi, lo_shift, ng, inv_ng);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
   ext_stats_sum_kernel<<<1, 256, 0, s>>>(partial, blocks, stats);
   return cudaGetLastError();
@@ -405,16 +447,17 @@ extern "C" {
 
 // jh: ext_n zeroed floats; n_clamped: one zeroed int (shared only);
 // v1: null unless the iterate's velocity is wanted; active: null or one
-// int on the card (0: the launch does nothing).
+// int on the card (0: the launch does nothing); mode: ops/cuda_cic.py
+// smem_mode (0 shared, 1 global).
 int pypic_picard_iteration_ext(
     const float* field, const float* ps, const float* p0, const float* v0,
     const float* w, float* ph, float* v1, float* jh, int* n_clamped,
     const int* active, long long n, int ext_n, float qm_dt, float qm_dt2_half,
     float dt_dx, float lo, float hi, int shared, int win_stride, int width,
-    int num_k, float inv_stride, int blocks, int threads, void* stream) {
+    int num_k, float inv_stride, int mode, int blocks, int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define PYPIC_ITER_EXT(EV, SH)                                                  \
-  launch_iteration_ext<EV, SH>(blocks, threads, s, field, ps, p0, v0, w, ph,    \
+  launch_iteration_ext<EV, SH>(mode, blocks, threads, s, field, ps, p0, v0, w, ph, \
                                v1, jh, n_clamped, active, n, ext_n, qm_dt,      \
                                qm_dt2_half, dt_dx, lo, hi, win_stride, width,   \
                                num_k, inv_stride)
@@ -428,51 +471,60 @@ int pypic_picard_iteration_ext(
 }
 
 // j1: ext_n zeroed floats (deposit only, else null); partial: 3 * blocks
-// doubles of scratch; stats: 3 doubles, written whole.
+// doubles of scratch; stats: 3 doubles, written whole; mode: 0 shared, 1
+// global.
 int pypic_picard_finalize_ext(
     const float* field, const float* ps, const float* p0, const float* v0,
     const float* w, float* p1, float* v1, float* j1, double* partial,
     double* stats, long long n, int ext_n, float qm_dt, float qm_dt2_half,
     float dt_dx, float lo, float hi, float lo_shift, int ng, float inv_ng,
-    int blocks, int threads, void* stream) {
+    int mode, int blocks, int threads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(j1 != nullptr
-      ? launch_finalize_ext<true>(blocks, threads, s, field, ps, p0, v0, w, p1,
-                                  v1, j1, partial, stats, n, ext_n, qm_dt,
+      ? launch_finalize_ext<true>(mode, blocks, threads, s, field, ps, p0, v0, w,
+                                  p1, v1, j1, partial, stats, n, ext_n, qm_dt,
                                   qm_dt2_half, dt_dx, lo, hi, lo_shift, ng,
                                   inv_ng)
-      : launch_finalize_ext<false>(blocks, threads, s, field, ps, p0, v0, w,
-                                   p1, v1, nullptr, partial, stats, n, ext_n,
+      : launch_finalize_ext<false>(mode, blocks, threads, s, field, ps, p0, v0,
+                                   w, p1, v1, nullptr, partial, stats, n, ext_n,
                                    qm_dt, qm_dt2_half, dt_dx, lo, hi, lo_shift,
                                    ng, inv_ng));
 }
 
+// mode: 0 shared, 1 global.
 int pypic_leapfrog_push(const float* field, const float* p, const float* v,
                         float* p1, float* v1, long long n, int ng, float qmh,
-                        float dt_dx, float inv_ng, int blocks, int threads,
-                        void* stream) {
-  const size_t smem = (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(leapfrog_push_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  leapfrog_push_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      field, p, v, p1, v1, n, ng, qmh, dt_dx, inv_ng);
-  return (int)cudaGetLastError();
+                        float dt_dx, float inv_ng, int mode, int blocks,
+                        int threads, void* stream) {
+  return (int)with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(float);
+    cudaError_t err = allow_smem(leapfrog_push_kernel<MODE>, smem);
+    if (err != cudaSuccess) return err;
+    leapfrog_push_kernel<MODE><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        field, p, v, p1, v1, n, ng, qmh, dt_dx, inv_ng);
+    return cudaGetLastError();
+  });
 }
 
-// rho_ext: ext_n zeroed floats; n_clamped: one zeroed int.
+// rho_ext: ext_n zeroed floats; n_clamped: one zeroed int; mode: 0 shared
+// (ng + ext_n floats), 1 global.
 int pypic_explicit_domain_cycle(const float* field, const float* p,
                                 const float* v, const float* w, float* p1,
                                 float* v1, float* rho_ext, int* n_clamped,
                                 long long n, int ng, int ext_n, float qmh,
                                 float dt_dx, float lo_shifted, float inv_ng,
-                                int blocks, int threads, void* stream) {
-  const size_t smem = (size_t)(ng + ext_n) * sizeof(float);
-  cudaError_t err = allow_smem(domain_cycle_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  domain_cycle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      field, p, v, w, p1, v1, rho_ext, n_clamped, n, ng, ext_n, qmh, dt_dx,
-      lo_shifted, inv_ng);
-  return (int)cudaGetLastError();
+                                int mode, int blocks, int threads, void* stream) {
+  return (int)with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = (MODE == kShared ? (size_t)(ng + ext_n) : 0) * sizeof(float);
+    cudaError_t err = allow_smem(domain_cycle_kernel<MODE>, smem);
+    if (err != cudaSuccess) return err;
+    domain_cycle_kernel<MODE><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        field, p, v, w, p1, v1, rho_ext, n_clamped, n, ng, ext_n, qmh, dt_dx,
+        lo_shifted, inv_ng);
+    return cudaGetLastError();
+  });
 }
 
 }  // extern "C"

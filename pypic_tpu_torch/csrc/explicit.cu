@@ -90,19 +90,21 @@ __device__ void field_from_rho(const float* rho, float* e_out, int ng, double c,
 }
 
 // The sweep of the two per-step leapfrog kernels: gather e at p from the
-// block's copy of the field, push, wrap, store (p1, v1), deposit w at p1
-// into the block's histogram.
+// block's copy of the field (from `field` in device memory in kGlobal),
+// push, wrap, store (p1, v1), deposit w at p1 into `hist` (the block's
+// histogram, or the zeroed output in the large modes).
+template <int MODE = kShared>
 __device__ __forceinline__ void leapfrog_deposit_sweep(
     const float* s_field, float* s_hist, const float* __restrict__ p,
     const float* __restrict__ v, float* __restrict__ p1_out,
     float* __restrict__ v1_out, long long n, int ng, float qmh, float dt_dx,
-    float w, float inv_ng) {
+    float w, float inv_ng, const float* __restrict__ field = nullptr) {
   const float ngf = (float)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float a = p[i];
-    const float e = gather(s_field, cic_periodic(a, ng));
+    const float e = gather_mode<MODE>(s_field, field, cic_periodic(a, ng));
     float p1, v1;
     leapfrog(a, v[i], e, qmh, dt_dx, ngf, inv_ng, p1, v1);
     p1_out[i] = p1;
@@ -124,19 +126,26 @@ __device__ __forceinline__ void leapfrog_deposit_sweep(
 // particle. The field is copied once per block into shared memory, so the
 // two node reads per particle never reach device memory; one thread per
 // particle in a grid-stride loop keeps the loads and stores coalesced.
+//
+// Above 58,112 nodes (the field alone no longer fits a block) MODE is
+// kGlobal: each row reads its two nodes from device memory through the
+// read-only path (cic_common.cuh); the field (4 B a node: 16 MiB at 2^22)
+// stays in the 50 MB L2. Bound there: the rows' 8 B and the field's 4 B
+// a node read once.
 // ---------------------------------------------------------------------------
-template <bool PERIODIC>
+template <bool PERIODIC, int MODE>
 __global__ void gather_kernel(const float* __restrict__ field,
                               const float* __restrict__ p,
                               float* __restrict__ out, long long n, int ng) {
   extern __shared__ float s_field[];
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+  load_field<MODE>(s_field, field, ng);
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
     const float a = p[i];
-    out[i] = gather(s_field, PERIODIC ? cic_periodic(a, ng) : cic_bounded(a, ng));
+    out[i] = gather_mode<MODE>(s_field, field,
+                               PERIODIC ? cic_periodic(a, ng) : cic_bounded(a, ng));
   }
 }
 
@@ -152,7 +161,13 @@ __global__ void gather_kernel(const float* __restrict__ field,
 // particle. The field and the partial histogram live in shared memory
 // (2 ng floats, so ng <= 29,056); each block adds its histogram to rho
 // with one global atomic per node.
+//
+// Above 29,056 nodes MODE is cic_common.cuh's kGlobal: the field read
+// from device memory, each of a row's two adds a global float atomic into
+// the zeroed rho. Bound there: the rows' 16 B, plus the field read and rho
+// written once: 8 B a node.
 // ---------------------------------------------------------------------------
+template <int MODE>
 __global__ void leapfrog_deposit_kernel(
     const float* __restrict__ field, const float* __restrict__ p,
     const float* __restrict__ v, float* __restrict__ p1,
@@ -161,13 +176,16 @@ __global__ void leapfrog_deposit_kernel(
   extern __shared__ float smem[];
   float* s_field = smem;
   float* s_hist = smem + ng;
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-    s_field[i] = field[i];
-    s_hist[i] = 0.0f;
+  if (MODE == kShared) {
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) {
+      s_field[i] = field[i];
+      s_hist[i] = 0.0f;
+    }
   }
   __syncthreads();
-  leapfrog_deposit_sweep(s_field, s_hist, p, v, p1, v1, n, ng, qmh, dt_dx, w,
-                         inv_ng);
+  leapfrog_deposit_sweep<MODE>(s_field, MODE == kShared ? s_hist : rho, p, v, p1,
+                               v1, n, ng, qmh, dt_dx, w, inv_ng, field);
+  if (MODE != kShared) return;
   __syncthreads();
   for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&rho[i], s_hist[i]);
 }
@@ -582,33 +600,42 @@ static_assert(resident_smem(kResMaxNg) <= 232448, "a block's shared memory");
 
 extern "C" {
 
+// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global).
 int pypic_gather(const float* field, const float* p, float* out, long long n,
-                 int ng, int periodic, int blocks, int threads, void* stream) {
-  const size_t smem = (size_t)ng * sizeof(float);
+                 int ng, int periodic, int mode, int blocks, int threads,
+                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (periodic) {
-    err = allow_smem(gather_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gather_kernel<true><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
-  } else {
-    err = allow_smem(gather_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    gather_kernel<false><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
-  }
-  return (int)cudaGetLastError();
+  return (int)with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(float);
+    cudaError_t err;
+    if (periodic) {
+      err = allow_smem(gather_kernel<true, MODE>, smem);
+      if (err != cudaSuccess) return err;
+      gather_kernel<true, MODE><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
+    } else {
+      err = allow_smem(gather_kernel<false, MODE>, smem);
+      if (err != cudaSuccess) return err;
+      gather_kernel<false, MODE><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
+    }
+    return cudaGetLastError();
+  });
 }
 
+// mode: 0 shared, 1 global; rho: ng zeroed floats.
 int pypic_leapfrog_deposit(const float* field, const float* p, const float* v,
                            float* p1, float* v1, float* rho, long long n, int ng,
                            float qmh, float dt_dx, float w, float inv_ng,
-                           int blocks, int threads, void* stream) {
-  const size_t smem = 2 * (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(leapfrog_deposit_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  leapfrog_deposit_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w, inv_ng);
-  return (int)cudaGetLastError();
+                           int mode, int blocks, int threads, void* stream) {
+  return (int)with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(float);
+    cudaError_t err = allow_smem(leapfrog_deposit_kernel<MODE>, smem);
+    if (err != cudaSuccess) return err;
+    leapfrog_deposit_kernel<MODE><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w, inv_ng);
+    return cudaGetLastError();
+  });
 }
 
 // rho: ng + 1 zeroed floats; the last one is the epilogue's block counter.

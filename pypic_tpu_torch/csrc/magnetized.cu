@@ -65,13 +65,14 @@ namespace {
 // cic_common.cuh, which the single deposit (cic.cu) shares.
 //
 // Above the columns' ceiling (one lane column of the two histograms, and
-// for the carried deposit the field beside them: 29,056 and 19,370 nodes)
+// for the carried deposit the field and its clamp count's 16 static bytes
+// beside them: 29,056 and 19,369 nodes)
 // the same grid runs the large mode, cols 0 (deposit2_global_kernel,
 // boris_deposit_global_kernel, kernels of their own so that the column
 // kernels' compiled code stays as it was): no shared histogram, every add a global
 // float atomic (red.global.add.f32) into the zeroed outputs, which stay in
 // the 50 MB L2 at these sizes; the carried deposit's field stays in shared
-// memory up to 58,112 nodes and is read from device memory above. Both
+// memory up to 57,856 nodes and is read from device memory above. Both
 // kernels were float-atomic already, so their contract (the plain
 // versions' tolerances) holds unchanged; the large mode runs up to
 // LARGE_MAX_NG = 2^22 nodes.
@@ -249,8 +250,13 @@ __device__ __forceinline__ void boris_rotate(float ex, float cst, float vx0,
 // const, act) and 16 B written (p1, vx1, vy1, vz1) per particle; the
 // field sits in shared memory. The lateral drift y + dt vy, z + dt vz stays
 // outside, as in the JAX engine.
+//
+// Above 58,112 nodes (the field alone no longer fits a block) MODE is
+// kGlobal (cic_common.cuh): the gather reads its two nodes from device
+// memory through the read-only path. Bound there: the rows' 40 B and the
+// field's 4 B a node read once.
 // ---------------------------------------------------------------------------
-template <bool SWAP>
+template <bool SWAP, int MODE>
 __global__ void boris_kernel(const float* __restrict__ field,
                              const float* __restrict__ p_in,
                              const float* __restrict__ vx_in,
@@ -264,7 +270,7 @@ __global__ void boris_kernel(const float* __restrict__ field,
                              float* __restrict__ vz_out, long long n, int ng,
                              float bx, float by, float bz, float dt_dx) {
   extern __shared__ float s_field[];
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
+  load_field<MODE>(s_field, field, ng);
   __syncthreads();
   const float hi = (float)(ng - 1);
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -283,8 +289,8 @@ __global__ void boris_kernel(const float* __restrict__ field,
     }
     const float pc = gather_position<SWAP>(p, hi);
     float vx, vy, vz;
-    boris_rotate(gather(s_field, cic_bounded(pc, ng)), c_in[i], vx0, vy0, vz0,
-                 bx, by, bz, vx, vy, vz);
+    boris_rotate(gather_mode<MODE>(s_field, field, cic_bounded(pc, ng)), c_in[i],
+                 vx0, vy0, vz0, bx, by, bz, vx, vy, vz);
     p_out[i] = __fadd_rn(p, __fmul_rn(vx, dt_dx));
     vx_out[i] = vx;
     vy_out[i] = vy;
@@ -455,8 +461,8 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
-// The large mode (cols 0: above 19,370 nodes, where one lane column of the
-// two histograms and the field no longer fit a block): boris_row's four
+// The large mode (cols 0: above 19,369 nodes, where one lane column of the
+// two histograms, the field and the clamp count no longer fit a block): boris_row's four
 // adds go by global float atomics into the zeroed rho and dens (its
 // indices with one column: node l of rho at l, of dens at ng + l); the
 // field sits in shared memory up to kFieldSmemMaxNg nodes (SMEM_FIELD) and
@@ -589,27 +595,32 @@ int pypic_deposit2(const float* p, const float* va, const float* vb,
 #undef PYPIC_DEPOSIT2
 }
 
+// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global).
 int pypic_boris_gather_push(const float* field, const float* p,
                             const float* vx, const float* vy, const float* vz,
                             const float* c, const float* act, float* p1,
                             float* vx1, float* vy1, float* vz1, long long n,
                             int ng, float bx, float by, float bz, float dt_dx,
-                            int swap, int blocks, int threads, void* stream) {
-  const size_t smem = (size_t)ng * sizeof(float);
+                            int swap, int mode, int blocks, int threads,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (swap) {
-    err = allow_smem(boris_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    boris_kernel<true><<<blocks, threads, smem, s>>>(
-        field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
-  } else {
-    err = allow_smem(boris_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    boris_kernel<false><<<blocks, threads, smem, s>>>(
-        field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
-  }
-  return (int)cudaGetLastError();
+  return (int)with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(float);
+    cudaError_t err;
+    if (swap) {
+      err = allow_smem(boris_kernel<true, MODE>, smem);
+      if (err != cudaSuccess) return err;
+      boris_kernel<true, MODE><<<blocks, threads, smem, s>>>(
+          field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
+    } else {
+      err = allow_smem(boris_kernel<false, MODE>, smem);
+      if (err != cudaSuccess) return err;
+      boris_kernel<false, MODE><<<blocks, threads, smem, s>>>(
+          field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
+    }
+    return cudaGetLastError();
+  });
 }
 
 

@@ -87,7 +87,7 @@
 // are exact below the scale's rounding (2^-(k+1) a term, at most n M
 // 2^-61 with M the largest |term|: 4.3e-12 M a term at 1e7 rows), where
 // (a) keeps float32 sums. The field is read from shared memory up
-// to 58,112 nodes (kFieldSmemMaxNg) and from device memory above it.
+// to 57,856 nodes (kFieldSmemMaxNg) and from device memory above it.
 
 #include "cic_common.cuh"
 

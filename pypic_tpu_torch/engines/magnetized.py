@@ -55,10 +55,11 @@ Backends, as the JAX engine's, with CUDA in the place of the TPU:
 * composed (and always under ``pusher='gc'``): two ``deposit`` launches,
   the ``gather`` kernel and the tensor-op pushers;
 
-(On the card ``deposit2`` and the carried sweep run up to
-``cuda_cic.LARGE_MAX_NG`` nodes, with global float atomics above the
-29,056 and 19,370 nodes their shared histograms hold; the fused push and
-the gather hold 58,112, the single ``deposit`` too: ROADMAP item 10.)
+(On the card every particle kernel of the engine runs up to
+``cuda_cic.LARGE_MAX_NG`` nodes: ``deposit2``, the carried sweep and the
+single ``deposit`` with global float atomics above the 29,056, 19,369 and
+58,112 nodes their shared histograms hold, the fused push and the gather
+with the field read from device memory above 58,112.)
 * carried (``carried_deposit='on'``, whatever ``backend`` says, as the JAX
   engine's branch order has it): the step opens from the rho and n the
   state carries, and the push is the ``boris_gather_push_deposit`` sweep,

@@ -18,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,24 +45,26 @@ _U = ctypes.c_uint
 
 # extern "C" launchers in csrc/*.cu and their argument types.
 _SIGNATURES = {
+    # (the grid-stride kernels take their mode, ops/cuda_cic.py smem_mode,
+    # before the grid)
     "pypic_picard_iteration": (
-        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _P],
-        _I),
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _I,
+         _P], _I),
     "pypic_picard_finalize_nodep": (
-        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_finalize": (
-        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _P],
-        _I),
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _I,
+         _P], _I),
     "pypic_picard_iteration_shared": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I,
-         _I, _F, _I, _I, _P], _I),
+         _I, _F, _I, _I, _I, _P], _I),
     "pypic_implicit_resident": (
         [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D, _D, _D, _P], _I),
     "pypic_implicit_resident_clusters": ([_I, _I, _P], _I),
     "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P], _I),
-    "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+    "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
     "pypic_leapfrog_deposit": (
-        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_explicit_cycle": (
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _D, _I, _I, _P],
         _I),
@@ -70,7 +73,7 @@ _SIGNATURES = {
     "pypic_explicit_resident_smem": ([_I], _L),
     "pypic_deposit2": ([_P] * 5 + [_L, _I, _I, _I, _I, _I, _I, _P], _I),
     "pypic_boris_gather_push": (
-        [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
+        [_P] * 11 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P], _I),
     "pypic_boltzmann_dirichlet": (
         [_P] * 6 + [_I, _I] + [_F] * 5 + [_I, _F, _F, _P], _I),
     "pypic_boltzmann_dn": (
@@ -100,16 +103,17 @@ _SIGNATURES = {
         [_P] * 12 + [_L, _U, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _I, _I,
-                     _P], _I),
+                     _I, _P], _I),
     "pypic_picard_finalize_ext": (
-        [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _P], _I),
+        [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _I, _P],
+        _I),
     "pypic_leapfrog_push": (
-        [_P] * 5 + [_L, _I, _F, _F, _F, _I, _I, _P], _I),
+        [_P] * 5 + [_L, _I, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_boris_gather_push_deposit": (
         [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _I,
                      _I, _P], _I),
     "pypic_explicit_domain_cycle": (
-        [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _P], _I),
+        [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -151,10 +155,12 @@ def library_path() -> Path:
 
 def build() -> BuildInfo:
     """Compile csrc/*.cu into the keyed shared library unless it exists:
-    one nvcc per source, all running at once, then one link."""
+    one nvcc per source, all running at once, then one link. The compiler's
+    report (ptxas -v) is kept beside the library and returned with it."""
     out = library_path()
     if out.exists():
-        return BuildInfo(out, 0.0, "")
+        log = out.with_suffix(".log")
+        return BuildInfo(out, 0.0, log.read_text() if log.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = _nvcc()
@@ -186,11 +192,44 @@ def build() -> BuildInfo:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{logs[-1]}")
+        out.with_suffix(f".{os.getpid()}.log").write_text("".join(logs))
+        os.replace(out.with_suffix(f".{os.getpid()}.log"), out.with_suffix(".log"))
         os.replace(tmp, out)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
     return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
+
+
+def _kernel_of(mangled: str) -> tuple[str, tuple[int, ...]]:
+    """A kernel's name and integral template arguments from its mangled
+    name (the last of its length-prefixed names; bool and int arguments,
+    e.g. ``ILb0ELb1ELi2EE`` -> (0, 1, 2))."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        k = int(mangled[i:j])
+        name, i = mangled[j:j + k], j + k
+    args = re.match(r"I((?:L[a-z]\d+E)*)E", mangled[i:])
+    return name, tuple(int(v) for v in re.findall(r"L[a-z](\d+)E", args.group(1))) if args else ()
+
+
+def static_smem(log: str) -> dict[tuple[str, tuple[int, ...]], int]:
+    """Each kernel's static shared-memory bytes from the compiler's report
+    (ptxas -v in a BuildInfo's ``log``): {(name, template arguments): bytes}."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = _kernel_of(m.group(1))
+            continue
+        if "Used" in line and "registers" in line and entry is not None:
+            m = re.search(r"(\d+) bytes smem", line)  # absent when 0
+            out[entry] = max(out.get(entry, 0), int(m.group(1)) if m else 0)
+            entry = None
+    return out
 
 
 def library() -> ctypes.CDLL:

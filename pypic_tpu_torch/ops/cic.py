@@ -12,7 +12,7 @@ deposit kernel, whose float atomics do not give the same bits from run to
 run; 'scatter' and 'matmul', which JAX documents as bit-deterministic,
 take ``deposit_det`` (a fixed summation order: the same bits call after
 call). On the card ``deposit_det`` sums in thread columns up to ng =
-1,816 and in int64 fixed point above it, up to ``cuda_cic.LARGE_MAX_NG``
+1,815 and in int64 fixed point above it, up to ``cuda_cic.LARGE_MAX_NG``
 (2^22), where it raises; both give the same bits call after call. It
 never changes route on its own.
 

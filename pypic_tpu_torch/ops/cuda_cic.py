@@ -53,8 +53,18 @@ build or launch raises; nothing falls back. The card's size limits
 only, so the plain versions run any grid size on CPU tensors, as the JAX
 package does.
 
+Grid sizes: the grid-stride kernels keep their (ng,) arrays in a block's
+shared memory up to their ceilings and take the large modes above them,
+up to ``LARGE_MAX_NG`` nodes (``smem_mode``, ``sweep_launch``: the field
+read from device memory, every add a global float atomic); the wide
+deposits do the same through ``deposit_launch_shape``.
+Only ``explicit_cycle`` keeps a ceiling below that (its engine calls it at
+ng <= 1,024), and the resident kernels theirs.
+
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else (the plain versions count nothing).
+``LARGE_LAUNCHES`` counts, beside it, the launches taken in a large mode,
+by "wrapper mode".
 
 Particles are flat (n,) tensors of grid coordinates. The TPU kernels'
 blocked layout, window geometry, fold/selection matrices and SMEM scalar
@@ -63,6 +73,7 @@ packing are not ported.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -90,6 +101,10 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
             "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
             "boltzmann_dn_large": 0, "tridiag3_chain_large": 0}
+# launches in a large mode, keyed "wrapper mode": "global", or "field"
+# for the carried Boris deposit (its field in shared memory up to
+# FIELD_SMEM_MAX_NG)
+LARGE_LAUNCHES: collections.Counter = collections.Counter()
 
 _THREADS = 256
 _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
@@ -97,19 +112,110 @@ _BLOCKS_PER_SM = 8  # 8 x 256 threads fill an SM's 2048 thread slots
 SMEM_LIMIT = 232_448
 # lane columns a histogram of the wide deposits at most (deposit_launch_shape)
 DEPOSIT_MAX_COLS = 32
-# the field alone in one block's shared memory (csrc kFieldSmemMaxNg): the
-# large modes read it from device memory above this ng
-FIELD_SMEM_MAX_NG = SMEM_LIMIT // 4
-# the large modes' limit on ng (the deterministic sums of deposit_det and
-# the sheath pass, deposit2 and the carried Boris deposit): float32
+# room left beside the field for a kernel's static shared memory (as
+# ptxas -v reports it: the carried Boris deposit's clamp count takes 16
+# B, the sheath pass's large mode its sums' scratch 384), which a
+# block's SMEM_LIMIT includes
+STATIC_SMEM_ROOM = 1024
+# the field alone in one block's shared memory beside that room (csrc
+# kFieldSmemMaxNg): the large modes of the carried Boris deposit, the
+# sheath pass and deposit_det keep it there up to this ng, and read it
+# from device memory above
+FIELD_SMEM_MAX_NG = (SMEM_LIMIT - STATIC_SMEM_ROOM) // 4
+# the large modes' limit on ng (every kernel with a large mode): float32
 # positions below 2^22 still resolve a quarter cell, and the int64 sums
 # of deposit_det take 8 ng bytes (32 MiB here)
 LARGE_MAX_NG = 1 << 22
+# the modes of the grid-stride kernels (csrc/cic_common.cuh kShared,
+# kGlobal), as the launchers take them
+SMEM_MODES = {"shared": 0, "global": 1}
+# static shared memory beside the dynamic bytes (ptxas -v on sm_90a): one
+# int (a clamp count a block, det_flush's ticket) takes 16 B, the
+# granule; the 32 doubles of the slab finalizes' block_sum 256. A block's
+# SMEM_LIMIT holds them too, so every launch shape counts them;
+# tests/test_torch_cuda.py holds these tables to the compiler's report.
+STATIC_INT_BYTES, STATS_BYTES = 16, 256
+# the grid-stride kernels (sweep_launch): the float32 arrays of ng nodes a
+# block keeps in shared memory in the shared mode (the field first, then
+# the histogram) and the kernel's static shared bytes
+SWEEP_KERNELS = {
+    "picard_iteration": (2, 0), "picard_iteration_shared": (2, STATIC_INT_BYTES),
+    "picard_finalize_nodep": (1, 0), "picard_finalize": (2, 0),
+    "gather": (1, 0), "leapfrog_gather_push_deposit": (2, 0),
+    "boris_gather_push": (1, 0), "picard_iteration_ext": (2, 0),
+    "picard_iteration_ext shared": (2, STATIC_INT_BYTES),
+    "picard_finalize_ext": (2, STATS_BYTES),
+    "picard_finalize_ext_nodep": (1, STATS_BYTES),
+    "leapfrog_gather_push": (1, 0),
+    # the global field; the slab's histogram (ext_n floats) is `extra`
+    "explicit_domain_cycle": (1, STATIC_INT_BYTES),
+}
+# the CUDA kernels (csrc) behind the entries of the launch tables whose
+# static bytes the launch shapes count: (kernel name, {template argument
+# index: value} of its instantiations), for check_static_smem
+STATIC_SMEM_KERNELS = {
+    "picard_iteration": ("picard_iteration_kernel", {1: 0}),
+    "picard_iteration_shared": ("picard_iteration_kernel", {1: 1}),
+    "picard_finalize_nodep": ("picard_finalize_kernel", {0: 0}),
+    "picard_finalize": ("picard_finalize_kernel", {0: 1}),
+    "gather": ("gather_kernel", {}),
+    "leapfrog_gather_push_deposit": ("leapfrog_deposit_kernel", {}),
+    "boris_gather_push": ("boris_kernel", {}),
+    "picard_iteration_ext": ("picard_iteration_ext_kernel", {1: 0}),
+    "picard_iteration_ext shared": ("picard_iteration_ext_kernel", {1: 1}),
+    "picard_finalize_ext": ("picard_finalize_ext_kernel", {0: 1}),
+    "picard_finalize_ext_nodep": ("picard_finalize_ext_kernel", {0: 0}),
+    "leapfrog_gather_push": ("leapfrog_push_kernel", {}),
+    "explicit_domain_cycle": ("domain_cycle_kernel", {}),
+    "deposit": ("deposit_kernel", {}),
+    "deposit2": ("deposit2_kernel", {}),
+    "boris_gather_push_deposit": ("boris_deposit_kernel", {}),
+    "sheath pass": ("sheath_pass_kernel", {}),
+    "deposit_det": ("deposit_det_kernel", {}),
+}
+# the kernels whose large mode keeps the field in shared memory up to
+# FIELD_SMEM_MAX_NG: their static bytes must fit STATIC_SMEM_ROOM
+FIELD_SMEM_KERNELS = ("boris_deposit_global_kernel", "sheath_large_kernel")
+
+
+def check_static_smem(log: str) -> list[str]:
+    """The static shared bytes the compiler reports for each kernel
+    (ptxas -v, a BuildInfo's ``log``) against those the launch shapes
+    count: SWEEP_KERNELS, DEPOSIT_STATIC and cuda_sheath's
+    SMALL_STATIC_BYTES through STATIC_SMEM_KERNELS, STATIC_SMEM_ROOM for
+    FIELD_SMEM_KERNELS. A kernel whose bytes exceed its table's would ask
+    for more than a block holds at its last shared node. Returns the
+    excesses and the kernels missing from the report (empty if none)."""
+    from .cuda_sheath import SMALL_STATIC_BYTES
+
+    counted = {name: SWEEP_KERNELS[name][1] for name in SWEEP_KERNELS}
+    counted.update(DEPOSIT_STATIC)
+    counted.update({"sheath pass": SMALL_STATIC_BYTES, "deposit_det": SMALL_STATIC_BYTES})
+    found = _build.static_smem(log)
+    wanted = [(name, *STATIC_SMEM_KERNELS[name], counted[name]) for name in counted]
+    wanted += [(name, name, {}, STATIC_SMEM_ROOM) for name in FIELD_SMEM_KERNELS]
+    problems = []
+    for name, kernel, args, room in wanted:
+        got = [b for (k, a), b in found.items()
+               if k == kernel and all(a[i] == v for i, v in args.items())]
+        if not got:
+            problems.append(f"{name}: no {kernel} {args} in the compiler's report")
+        elif max(got) > room:
+            problems.append(f"{name}: {kernel} {args} has {max(got)} static bytes, "
+                            f"its launch shape counts {room}")
+    return problems
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LARGE_LAUNCHES.clear()
+
+
+def _count(name: str, mode: str) -> None:
+    LAUNCHES[name] += 1
+    if mode != "shared":
+        LARGE_LAUNCHES[f"{name} {mode}"] += 1
 
 
 def _device_kind(tensors) -> str:
@@ -149,8 +255,7 @@ def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
         raise ValueError(
             f"{what}: ng={ng} needs {need} B of shared memory, "
             f"above the {SMEM_LIMIT} B a block may use (ng <= "
-            f"{(SMEM_LIMIT - extra) // (4 * arrays)}); the large-ng variant "
-            "is ROADMAP item 10")
+            f"{(SMEM_LIMIT - extra) // (4 * arrays)})")
 
 
 def check_large_ng(ng: int, what: str) -> None:
@@ -159,6 +264,52 @@ def check_large_ng(ng: int, what: str) -> None:
         raise ValueError(f"{what}: ng={ng} is above LARGE_MAX_NG = {LARGE_MAX_NG}, "
                          "the large mode's limit (float32 positions resolve a "
                          "quarter cell below it)")
+
+
+def smem_mode(nodes: int, arrays: int, extra: int = 0, static: int = 0,
+              what: str = "kernel") -> str:
+    """The mode of a kernel whose block keeps ``arrays`` float32 arrays
+    of ``nodes`` (the field first), ``extra`` dynamic bytes beside them
+    and ``static`` bytes of its own (a clamp count's word, a reduction's
+    scratch), a function of these sizes alone: 'shared' where all of it
+    fits the block's SMEM_LIMIT (the kernels as first ported), else
+    'global' (the field read from device memory, every add a global float
+    atomic). Raises above LARGE_MAX_NG, naming ``what``."""
+    if 4 * arrays * nodes + extra + static <= SMEM_LIMIT:
+        return "shared"
+    check_large_ng(nodes, what)
+    return "global"
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepLaunch:
+    """The launch of a grid-stride kernel: its ``mode`` (``smem_mode``),
+    ``blocks`` blocks of ``threads`` threads (a row a thread and pass, up
+    to 8 blocks an SM), ``smem`` bytes of dynamic shared memory a block."""
+    mode: str
+    blocks: int
+    threads: int
+    smem: int
+
+
+def sweep_launch(kernel: str, n: int, nodes: int, sms: int,
+                 extra: int = 0) -> SweepLaunch:
+    """The launch of a grid-stride kernel (a key of SWEEP_KERNELS) on n
+    rows and ``nodes`` nodes of its field, on a card of ``sms`` SMs, a
+    function of these alone (``extra``: explicit_domain_cycle's slab
+    histogram, 4 ext_n bytes): its ``smem_mode`` and the shared memory its
+    launcher asks for (the arrays and ``extra`` in 'shared', none in
+    'global'). Raises above LARGE_MAX_NG."""
+    arrays, static = SWEEP_KERNELS[kernel]
+    mode = smem_mode(nodes, arrays, extra, static, kernel.split()[0])
+    smem = 4 * arrays * nodes + extra if mode == "shared" else 0
+    return SweepLaunch(mode, max(1, min(-(-n // _THREADS), _BLOCKS_PER_SM * sms)),
+                       _THREADS, smem)
+
+
+def _sweep(dev, kernel: str, n: int, nodes: int, extra: int = 0) -> SweepLaunch:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return sweep_launch(kernel, n, nodes, _sm_count(index), extra)
 
 
 @functools.lru_cache(maxsize=None)
@@ -455,10 +606,10 @@ def picard_iteration(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
     if kind == "cpu":
         return picard_iteration_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                       w=w, dt=dt, dx=dx, emit_v=emit_v)
-    _check_smem(ng, 2, "picard_iteration")
+    dev = ps.device
+    launch = _sweep(dev, "picard_iteration", n, ng)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
-    dev = ps.device
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
     jh = torch.zeros((ng,), dtype=torch.float32, device=dev)
@@ -467,9 +618,9 @@ def picard_iteration(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
             jh.data_ptr(), n, ng, qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng),
-            _blocks(n, dev), _THREADS, _stream(dev))
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "picard_iteration")
-    LAUNCHES["picard_iteration"] += 1
+    _count("picard_iteration", launch.mode)
     return (ph, v1, jh) if emit_v else (ph, jh)
 
 
@@ -482,20 +633,20 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     if kind == "cpu":
         return picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng,
                                            qm=qm, dt=dt, dx=dx)
-    _check_smem(ng, 1, "picard_finalize_nodep")
+    dev = ps.device
+    launch = _sweep(dev, "picard_finalize_nodep", n, ng)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
-    dev = ps.device
     p1 = torch.empty_like(ps)
     v1 = torch.empty_like(ps)
     with torch.cuda.device(dev):
         err = lib.pypic_picard_finalize_nodep(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), p1.data_ptr(), v1.data_ptr(), n, ng, qm_dt,
-            qm_dt2_half, dt_dx, _inv(ng), _blocks(n, dev), _THREADS,
-            _stream(dev))
+            qm_dt2_half, dt_dx, _inv(ng), SMEM_MODES[launch.mode],
+            launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "picard_finalize_nodep")
-    LAUNCHES["picard_finalize_nodep"] += 1
+    _count("picard_finalize_nodep", launch.mode)
     return p1, v1
 
 
@@ -534,7 +685,7 @@ def deterministic_scratch(n: int, ng: int, dev):
     the sheath pass's grid without the field
     (``cuda_sheath.launch_shape(n, ng, sms, field=False)``: persistent
     blocks over contiguous row ranges), fixed by n, ng and the card. Up to
-    ng = 1,816 a column of ng floats a thread and the summed order of
+    ng = 1,815 a column of ng floats a thread and the summed order of
     ``det_buffers`` (per-block partials, zeroed block counter); above it
     the large mode's int64 fixed-point sums in ``large_scratch`` (per-block
     maxima, node sums). Call it with ``dev`` current. Raises above
@@ -565,7 +716,9 @@ def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS)
     """CIC-deposit per-particle ``values`` at grid positions ``p`` onto ng
     nodes (values carry every prefactor; masked particles carry 0). On the
     card the grid is ``deposit_launch_shape(n, ng, False, sms, hists=1,
-    max_cols=cols)`` and a product of exactly 0 adds nothing (csrc/cic.cu).
+    max_cols=cols)`` (above 58,112 nodes its large mode, cols 0: every add
+    a global float atomic) and a product of exactly 0 adds nothing
+    (csrc/cic.cu).
     ``cols`` caps the wide grid's lane columns (a power of two up to 32):
     dense values want the most, whose adds then never share a word within a
     warp; a histogram whose weights are mostly 0 (``ops.cic.histogram_add``)
@@ -588,14 +741,14 @@ def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS)
                                 shape.rows, shape.blocks, shape.threads,
                                 shape.cols, _stream(dev))
     _build.check(err, "deposit")
-    LAUNCHES["deposit"] += 1
+    _count("deposit", shape.mode)
     return out
 
 
 def deposit_det(p, values, ng: int, *, periodic: bool):
     """``deposit`` with the sums in a fixed order on the card (no float
     atomics), so that a call gives the same bits every time: up to ng =
-    1,816 a column a thread and cic_common.cuh det_flush's ordered sums,
+    1,815 a column a thread and cic_common.cuh det_flush's ordered sums,
     above it (up to LARGE_MAX_NG) int64 fixed-point sums, exact and
     associative (csrc/cic.cu deposit_det_large_kernel). CPU tensors take
     the plain deposit at any ng. The sheath engine's composed loop and exit
@@ -631,17 +784,17 @@ def gather(field, p, *, periodic: bool):
     _check_ng(ng)
     if kind == "cpu":
         return gather_plain(field, p, periodic=periodic)
-    _check_smem(ng, 1, "gather")
-    lib = _build.library()
     n = p.shape[0]
     dev = p.device
+    launch = _sweep(dev, "gather", n, ng)
+    lib = _build.library()
     out = torch.empty_like(p)
     with torch.cuda.device(dev):
         err = lib.pypic_gather(field.data_ptr(), p.data_ptr(), out.data_ptr(),
-                               n, ng, int(periodic), _blocks(n, dev),
-                               _THREADS, _stream(dev))
+                               n, ng, int(periodic), SMEM_MODES[launch.mode],
+                               launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "gather")
-    LAUNCHES["gather"] += 1
+    _count("gather", launch.mode)
     return out
 
 
@@ -665,10 +818,10 @@ def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
     if kind == "cpu":
         return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
                                                   dt=dt, dx=dx)
-    _check_smem(ng, 2, "leapfrog_gather_push_deposit")
+    dev = p.device
+    launch = _sweep(dev, "leapfrog_gather_push_deposit", n, ng)
     lib = _build.library()
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
-    dev = p.device
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
     rho = torch.zeros((ng,), dtype=torch.float32, device=dev)
@@ -676,9 +829,10 @@ def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
         err = lib.pypic_leapfrog_deposit(
             field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
             v1.data_ptr(), rho.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng),
-            _blocks(n, dev), _THREADS, _stream(dev))
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
+            _stream(dev))
     _build.check(err, "leapfrog_gather_push_deposit")
-    LAUNCHES["leapfrog_gather_push_deposit"] += 1
+    _count("leapfrog_gather_push_deposit", launch.mode)
     return p1, v1, rho
 
 
@@ -690,7 +844,12 @@ _CYCLE_ARRAYS, _CYCLE_EXTRA = 4, 256
 def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
     """The whole explicit cycle in one launch: the leapfrog sweep and the
     solve of the deposited rho for the next step's field. Returns
-    (p1, v1, rho1, e1)."""
+    (p1, v1, rho1, e1).
+
+    On the card the block keeps four ng-float arrays and 256 B in shared
+    memory, so it raises above ng = 14,512; the explicit engine calls it at
+    ng <= 1,024 only (the JAX engine's switch) and
+    ``leapfrog_gather_push_deposit`` with the solve outside above."""
     kind, n, _ = _check_leapfrog(e_field, p, v)
     _check_1d("e_field", e_field, ng)
     _check_ng(ng)
@@ -834,10 +993,10 @@ def picard_finalize(field_smoothed, ps, p0, v0, ng: int, *, qm, w, dt: float,
     if kind == "cpu":
         return picard_finalize_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                      w=w, dt=dt, dx=dx)
-    _check_smem(ng, 2, "picard_finalize")
+    dev = ps.device
+    launch = _sweep(dev, "picard_finalize", n, ng)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
-    dev = ps.device
     p1 = torch.empty_like(ps)
     v1 = torch.empty_like(ps)
     j1 = torch.zeros((ng,), dtype=torch.float32, device=dev)
@@ -845,10 +1004,10 @@ def picard_finalize(field_smoothed, ps, p0, v0, ng: int, *, qm, w, dt: float,
         err = lib.pypic_picard_finalize(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), p1.data_ptr(), v1.data_ptr(), j1.data_ptr(), n, ng,
-            qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng), _blocks(n, dev),
-            _THREADS, _stream(dev))
+            qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng), SMEM_MODES[launch.mode],
+            launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "picard_finalize")
-    LAUNCHES["picard_finalize"] += 1
+    _count("picard_finalize", launch.mode)
     return p1, v1, j1
 
 
@@ -867,11 +1026,11 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
         return picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng,
                                              qm=qm, w=w, dt=dt, dx=dx,
                                              emit_v=emit_v)
-    _check_smem(ng, 2, "picard_iteration_shared")
+    dev = ps.device
+    launch = _sweep(dev, "picard_iteration_shared", n, ng)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
     stride, width, num_k, inv_stride = _shared_frame_args(ng)
-    dev = ps.device
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
     jh = torch.zeros((ng,), dtype=torch.float32, device=dev)
@@ -882,9 +1041,10 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
             jh.data_ptr(), n_clamped.data_ptr(), n, ng, qm_dt, qm_dt2_half,
             dt_dx, wf, _inv(ng), stride, width, num_k, inv_stride,
-            _blocks(n, dev), _THREADS, _stream(dev))
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
+            _stream(dev))
     _build.check(err, "picard_iteration_shared")
-    LAUNCHES["picard_iteration_shared"] += 1
+    _count("picard_iteration_shared", launch.mode)
     return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
 
 
@@ -1062,6 +1222,10 @@ DEPOSIT_WIDE_THREADS = 1024
 DEPOSIT_NARROW_THREADS = _THREADS
 _DEPOSIT_NAMES = {(1, False): "deposit", (2, False): "deposit2",
                   (2, True): "boris_gather_push_deposit"}
+# the static shared bytes of their kernels (the carried Boris deposit's
+# clamp count)
+DEPOSIT_STATIC = {"deposit": 0, "deposit2": 0,
+                  "boris_gather_push_deposit": STATIC_INT_BYTES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1073,12 +1237,15 @@ class DepositShape:
     (b + 1) U / B), U = ceil(n / rows), B = blocks; each histogram has
     ``cols`` lane columns a node (0: the large mode, no shared histogram);
     ``smem`` bytes of dynamic shared memory a block (the columns, and the
-    field for row 9)."""
+    field for row 9); ``mode`` 'shared' (the columns), 'field' (the
+    carried Boris deposit's large mode up to FIELD_SMEM_MAX_NG: the field
+    alone in shared memory) or 'global' (nothing in shared memory)."""
     rows: int
     blocks: int
     threads: int
     cols: int
     smem: int
+    mode: str = "shared"
 
 
 def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
@@ -1088,39 +1255,38 @@ def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
     ``deposit``, 2 for ``deposit2`` and, with ``field``, the carried Boris
     deposit). Wide where every thread of one 1,024-thread block an SM gets
     a group of four rows: one such block an SM, ``max_cols`` (32) lane
-    columns, halved until shared memory holds them. Narrow below that: the
-    first port's grid, a row a thread, no more blocks than the rows fill.
-    Where one column does not fit (above ng = 29,056 for deposit2, 19,370
-    with the field) two histograms take the large mode: the same rows a
-    block, ``cols`` 0 (no shared histogram, every add a global atomic),
-    ``smem`` the field's where it fits alone (ng <= FIELD_SMEM_MAX_NG),
-    else 0; it raises above LARGE_MAX_NG. ``deposit`` (one histogram)
-    raises above 58,112 (ROADMAP item 10)."""
+    columns, halved until shared memory holds them beside the kernel's
+    static bytes (DEPOSIT_STATIC). Narrow below that: the first port's
+    grid, a row a thread, no more blocks than the rows fill. Where one
+    column does not fit (``smem_mode``: above ng = 58,112 for ``deposit``,
+    29,056 for deposit2, 19,369 with the field) the deposit takes the
+    large mode: the same rows a block, ``cols`` 0 (no shared histogram,
+    every add a global atomic), ``smem`` the field's where it fits alone
+    (ng <= FIELD_SMEM_MAX_NG), else 0; it raises above LARGE_MAX_NG."""
     if (n < 0 or ng < 2 or sms < 1 or (hists, field) not in _DEPOSIT_NAMES
             or max_cols not in (1, 2, 4, 8, 16, 32)):
         raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1, "
                          f"1 or 2 histograms (2 with the field) and max_cols a power "
                          f"of two up to 32; got {n}, {ng}, {sms}, {hists}, {max_cols}")
     name = _DEPOSIT_NAMES[(hists, field)]
-    large = hists == 2 and 4 * (hists + int(field)) * ng > SMEM_LIMIT
-    if large:
-        check_large_ng(ng, name)
-    else:
-        _check_smem(ng, hists + int(field), name)
+    static = DEPOSIT_STATIC[name]
+    mode = smem_mode(ng, hists + int(field), static=static, what=name)
+    if mode == "global" and field and ng <= FIELD_SMEM_MAX_NG:
+        mode = "field"
 
     def smem(cols: int) -> int:
-        if large:
-            return 4 * ng if field and ng <= FIELD_SMEM_MAX_NG else 0
+        if mode != "shared":
+            return 4 * ng if mode == "field" else 0
         return 4 * (hists * cols + int(field)) * ng
 
     if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
-        cols = 0 if large else max_cols
-        while smem(cols) > SMEM_LIMIT:
+        cols = max_cols if mode == "shared" else 0
+        while smem(cols) + static > SMEM_LIMIT:
             cols //= 2
-        return DepositShape(4, sms, DEPOSIT_WIDE_THREADS, cols, smem(cols))
+        return DepositShape(4, sms, DEPOSIT_WIDE_THREADS, cols, smem(cols), mode)
     blocks = max(1, min(-(-n // DEPOSIT_NARROW_THREADS), _BLOCKS_PER_SM * sms))
-    cols = 0 if large else 1
-    return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, cols, smem(cols))
+    cols = 1 if mode == "shared" else 0
+    return DepositShape(1, blocks, DEPOSIT_NARROW_THREADS, cols, smem(cols), mode)
 
 
 def deposit_row_blocks(n: int, ng: int, field: bool, sms: int,
@@ -1181,7 +1347,7 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
                                  int(periodic), shape.rows, shape.blocks,
                                  shape.threads, shape.cols, _stream(dev))
     _build.check(err, "deposit2")
-    LAUNCHES["deposit2"] += 1
+    _count("deposit2", shape.mode)
     return out[0], out[1]
 
 
@@ -1257,20 +1423,21 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
     if kind == "cpu":
         return boris_gather_push_plain(field, p, vx, vy, vz, const, act, b=b,
                                        dt_dx=dt_dx, swap_weights=swap_weights)
-    _check_smem(ng, 1, "boris_gather_push")
+    dev = p.device
+    launch = _sweep(dev, "boris_gather_push", n, ng)
     lib = _build.library()
     bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
-    dev = p.device
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.pypic_boris_gather_push(
             field.data_ptr(), p.data_ptr(), vx.data_ptr(), vy.data_ptr(),
             vz.data_ptr(), const.data_ptr(), act.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), n, ng,
-            bx, by, bz, dt_dx32, int(bool(swap_weights)), _blocks(n, dev),
-            _THREADS, _stream(dev))
+            bx, by, bz, dt_dx32, int(bool(swap_weights)),
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
+            _stream(dev))
     _build.check(err, "boris_gather_push")
-    LAUNCHES["boris_gather_push"] += 1
+    _count("boris_gather_push", launch.mode)
     return out[0], out[1], out[2], out[3]
 
 
@@ -1385,5 +1552,5 @@ def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
             int(pad), shape.rows, shape.blocks, shape.threads, shape.cols,
             _stream(dev))
     _build.check(err, "boris_gather_push_deposit")
-    LAUNCHES["boris_gather_push_deposit"] += 1
+    _count("boris_gather_push_deposit", shape.mode)
     return out[0], out[1], out[2], out[3], dens[0], dens[1], n_clamped

@@ -24,9 +24,12 @@ reach:
 The kernels are in ``pypic_tpu_torch/csrc/domain.cu`` (built by
 ``_build``). The conventions are ``ops/cuda_cic.py``'s: a wrapper launches
 its kernel on CUDA tensors and runs its plain PyTorch version (``*_plain``)
-on CPU tensors; anything else raises; the card's shared-memory limit is
-checked in the CUDA branch only; a failed build or launch raises and
-nothing falls back; ``cuda_cic.LAUNCHES`` counts each wrapper's launches.
+on CPU tensors; anything else raises; a failed build or launch raises and
+nothing falls back; ``cuda_cic.LAUNCHES`` counts each wrapper's launches
+(``cuda_cic.LARGE_LAUNCHES`` those in a large mode). Each kernel keeps its
+arrays in a block's shared memory up to its ceiling and takes the large
+modes of ``cuda_cic.smem_mode`` above it, up to ``cuda_cic.LARGE_MAX_NG``
+nodes (a limit checked in the CUDA branch only).
 
 The slab forms differ from the periodic kernels of ``cuda_cic``: the field
 is a bounded extended slab of ext_n = c + 2 hw + 1 nodes (no wrap), the
@@ -42,9 +45,9 @@ import torch
 
 from . import _build
 from .cic import cic_indices_weights
-from .cuda_cic import (LAUNCHES, _THREADS, _blocks, _check_1d, _check_ng,
-                       _check_smem, _device_kind, _inv, _leapfrog, _stream,
-                       _wrap, deposit_plain, gather_plain, kernel_scalars,
+from .cuda_cic import (SMEM_MODES, _check_1d, _check_ng, _count, _device_kind,
+                       _inv, _leapfrog, _stream, _sweep, _wrap, check_large_ng,
+                       deposit_plain, gather_plain, kernel_scalars,
                        leapfrog_scalars, window_sw)
 
 
@@ -236,10 +239,11 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
         if emit_v:
             out[1].copy_(res[1])
         return (out[0],) + ((out[1],) if emit_v else ()) + res[1 + emit_v:]
-    _check_smem(ext_n, 2, "picard_iteration_ext")
+    dev = ps.device
+    launch = _sweep(dev, "picard_iteration_ext shared" if shared
+                    else "picard_iteration_ext", n, ext_n)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
-    dev = ps.device
     ph = out[0] if out is not None else torch.empty_like(ps)
     v1 = None
     if emit_v:
@@ -254,10 +258,10 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
             jh.data_ptr(), ncl.data_ptr() if shared else None,
             active.data_ptr() if active is not None else None, n, ext_n,
             qm_dt, qm_dt2_half, dt_dx, _f32(lo), _f32(hi), int(shared),
-            stride, width, num_k, inv_stride, _blocks(n, dev), _THREADS,
-            _stream(dev))
+            stride, width, num_k, inv_stride, SMEM_MODES[launch.mode],
+            launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "picard_iteration_ext")
-    LAUNCHES["picard_iteration_ext"] += 1
+    _count("picard_iteration_ext", launch.mode)
     res = (ph,) + ((v1,) if emit_v else ()) + (jh,)
     return res + ((ncl[0],) if shared else ())
 
@@ -271,15 +275,15 @@ def _finalize_ext(field_ext, ps, p0, v0, w, deposit: bool, name: str, *,
         return picard_finalize_ext_plain(
             field_ext, ps, p0, v0, w, qm=qm, dt=dt, dx=dx, lo=lo, hi=hi,
             lo_shift=lo_shift, ng=ng, deposit=deposit)
-    _check_smem(ext_n, 2 if deposit else 1, name)
+    dev = ps.device
+    launch = _sweep(dev, name, n, ext_n)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
-    dev = ps.device
     p1 = torch.empty_like(ps)
     v1 = torch.empty_like(ps)
     j1 = (torch.zeros((ext_n,), dtype=torch.float32, device=dev) if deposit
           else None)
-    blocks = _blocks(n, dev)
+    blocks = launch.blocks
     partial = torch.empty((3 * blocks,), dtype=torch.float64, device=dev)
     stats = torch.empty((3,), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
@@ -288,10 +292,10 @@ def _finalize_ext(field_ext, ps, p0, v0, w, deposit: bool, name: str, *,
             w.data_ptr(), p1.data_ptr(), v1.data_ptr(),
             j1.data_ptr() if deposit else None, partial.data_ptr(),
             stats.data_ptr(), n, ext_n, qm_dt, qm_dt2_half, dt_dx, _f32(lo),
-            _f32(hi), _f32(lo_shift), int(ng), _inv(max(ng, 1)), blocks,
-            _THREADS, _stream(dev))
+            _f32(hi), _f32(lo_shift), int(ng), _inv(max(ng, 1)),
+            SMEM_MODES[launch.mode], blocks, launch.threads, _stream(dev))
     _build.check(err, name)
-    LAUNCHES[name] += 1
+    _count(name, launch.mode)
     return (p1, v1, j1, stats) if deposit else (p1, v1, stats)
 
 
@@ -331,19 +335,20 @@ def leapfrog_gather_push(field, p, v, *, qm, dt: float, dx: float):
     _check_1d("v", v, n)
     if kind == "cpu":
         return leapfrog_gather_push_plain(field, p, v, qm=qm, dt=dt, dx=dx)
-    _check_smem(ng, 1, "leapfrog_gather_push")
+    dev = p.device
+    launch = _sweep(dev, "leapfrog_gather_push", n, ng)
     lib = _build.library()
     qmh, dt_dx, _ = leapfrog_scalars(qm, dt, dx, 0.0)
-    dev = p.device
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
     with torch.cuda.device(dev):
         err = lib.pypic_leapfrog_push(
             field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
-            v1.data_ptr(), n, ng, qmh, dt_dx, _inv(ng), _blocks(n, dev),
-            _THREADS, _stream(dev))
+            v1.data_ptr(), n, ng, qmh, dt_dx, _inv(ng),
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
+            _stream(dev))
     _build.check(err, "leapfrog_gather_push")
-    LAUNCHES["leapfrog_gather_push"] += 1
+    _count("leapfrog_gather_push", launch.mode)
     return p1, v1
 
 
@@ -370,10 +375,11 @@ def explicit_domain_cycle(field, p, v, w, *, qm, dt: float, dx: float,
     kw = dict(qm=qm, dt=dt, dx=dx, lo_shifted=lo_shifted, ext_n=ext_n)
     if kind == "cpu":
         return explicit_domain_cycle_plain(field, p, v, w, **kw)
-    _check_smem(ng, 1, "explicit_domain_cycle", extra=4 * ext_n)
+    dev = p.device
+    check_large_ng(ext_n, "explicit_domain_cycle")
+    launch = _sweep(dev, "explicit_domain_cycle", n, ng, extra=4 * ext_n)
     lib = _build.library()
     qmh, dt_dx, _ = leapfrog_scalars(qm, dt, dx, 0.0)
-    dev = p.device
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
     rho_ext = torch.zeros((ext_n,), dtype=torch.float32, device=dev)
@@ -383,8 +389,8 @@ def explicit_domain_cycle(field, p, v, w, *, qm, dt: float, dx: float,
             field.data_ptr(), p.data_ptr(), v.data_ptr(), w.data_ptr(),
             p1.data_ptr(), v1.data_ptr(), rho_ext.data_ptr(),
             n_clamped.data_ptr(), n, ng, int(ext_n), qmh, dt_dx,
-            _f32(lo_shifted), _inv(ng), _blocks(n, dev), _THREADS,
-            _stream(dev))
+            _f32(lo_shifted), _inv(ng), SMEM_MODES[launch.mode],
+            launch.blocks, launch.threads, _stream(dev))
     _build.check(err, "explicit_domain_cycle")
-    LAUNCHES["explicit_domain_cycle"] += 1
+    _count("explicit_domain_cycle", launch.mode)
     return p1, v1, rho_ext, n_clamped

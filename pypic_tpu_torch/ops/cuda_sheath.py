@@ -43,6 +43,7 @@ import torch
 
 from . import _build
 from .cuda_cic import (FIELD_SMEM_MAX_NG, LARGE_MAX_NG, LAUNCHES, SMEM_LIMIT,
+                       STATIC_INT_BYTES,
                        _check_1d, _device_kind, _sm_count, _stream,
                        check_large_ng, deposit_plain, det_buffers,
                        gather_plain, large_scratch, padded_rows)
@@ -58,11 +59,15 @@ MAX_BLOCKS_PER_SM = 2
 SM_SHARED = 233_472
 SM_THREADS = 2048
 BLOCK_RESERVED = 1024
+# the static shared bytes of the small mode's kernels (ptxas -v: the
+# ticket of cic_common.cuh det_flush), which a block's SMEM_LIMIT holds
+# beside the columns
+SMALL_STATIC_BYTES = STATIC_INT_BYTES
 # the small mode's limit: the field and 32 thread columns of ng floats in
-# one block's shared memory (without the field, the deterministic
-# deposit's: SMEM_LIMIT // 128 = 1,816). Above it, up to LARGE_MAX_NG,
-# the large mode (int64 fixed-point sums in device memory)
-MAX_NG = SMEM_LIMIT // (4 * (MIN_THREADS + 1))
+# one block's shared memory beside those bytes (without the field, the
+# deterministic deposit's: 1,815). Above it, up to LARGE_MAX_NG, the
+# large mode (int64 fixed-point sums in device memory)
+MAX_NG = (SMEM_LIMIT - SMALL_STATIC_BYTES) // (4 * (MIN_THREADS + 1))
 LARGE_THREADS = 512  # csrc/cic_common.cuh kLargeThreads
 
 
@@ -91,14 +96,14 @@ def launch_shape(n: int, ng: int, sms: int, field: bool = True) -> LaunchShape:
     """The grid of a sheath pass over n rows and ng nodes on a card of
     ``sms`` SMs (with ``field`` False, of the deterministic deposit, whose
     blocks hold no field). Small mode up to MAX_NG (without the field,
-    1,816): threads a block a power of two in [32, 1024], the most that
+    1,815): threads a block a power of two in [32, 1024], the most that
     let two blocks (the field and a column of ng floats a thread each)
     share an SM, else the most one block holds. Large mode above it:
     LARGE_THREADS threads, two blocks an SM where the field's shared
     memory lets them. No more blocks than n fills, so every block gets
     rows. Raises above LARGE_MAX_NG."""
     extra = int(field)
-    top = SMEM_LIMIT // (4 * (MIN_THREADS + extra))
+    top = (SMEM_LIMIT - SMALL_STATIC_BYTES) // (4 * (MIN_THREADS + extra))
     if n < 1 or ng < 2 or sms < 1:
         raise ValueError(f"launch_shape needs n >= 1, ng >= 2, sms >= 1; got "
                          f"{n}, {ng}, {sms}")
@@ -113,7 +118,7 @@ def launch_shape(n: int, ng: int, sms: int, field: bool = True) -> LaunchShape:
 
     def per_sm(threads: int) -> int:
         smem = smem_of(threads)
-        if smem > SMEM_LIMIT:
+        if smem + (0 if large else SMALL_STATIC_BYTES) > SMEM_LIMIT:
             return 0
         return min(MAX_BLOCKS_PER_SM, SM_THREADS // threads,
                    SM_SHARED // (smem + BLOCK_RESERVED))

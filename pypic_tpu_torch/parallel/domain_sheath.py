@@ -28,7 +28,7 @@ engine is: the ``gather`` kernel on the halo-extended field, a
 tensor-op Crank-Nicolson push and wall check, and each pass's two
 currents (half step and end of step) by ``cuda_cic.deposit_det`` on the
 extended slab, summed in a fixed order as the single-device engine's
-(its floor exit reads the residual at round-off level; above 1,816
+(its floor exit reads the residual at round-off level; above 1,815
 extended nodes a slab, int64 fixed-point sums, up to
 ``cuda_cic.LARGE_MAX_NG``); the exit histograms through
 ``ops.cic.histogram_add`` (the ``deposit`` kernel).

@@ -18,7 +18,7 @@ carried_rho='on' with the halo min(ng / S - 1, max(4, ceil(8 sigma))),
 one ``explicit_domain_cycle`` sweep a step.
 
     python -m pypic_tpu_torch.tools.domain [--explicit [--carried]] [--n N]
-        [--warmup 2] [--steps 30]
+        [--ng 200] [--warmup 2] [--steps 30]
     torchrun --nproc-per-node 4 -m pypic_tpu_torch.tools.domain
         (with PYPIC_DISTRIBUTED=1: one rank a card, NCCL)
 
@@ -28,7 +28,11 @@ on one chip. It steps 2 warm-up and 30 timed steps and prints one
 JSON line: ms/step, pushes/s, the Picard mean, the total energy change
 over the timed steps, the n_dropped and n_halo_clamped sums and the host
 syncs a step (``torch.cuda.set_sync_debug_mode('warn')`` over the timed
-steps). ``--save PATH`` writes the result
+steps). ``--ng`` refines the grid as the Landau preset does (L stays 22
+Debye lengths; bench's halo and migration rules follow ng: the thermal
+excursion in cells grows with it, and past their shared-memory ceilings
+the slab kernels take their large modes, up to
+``cuda_cic.LARGE_MAX_NG``). ``--save PATH`` writes the result
 with its per-step rows; ``--against PATH`` compares this run with a saved
 one of the same row on another number of ranks (four cards against one:
 the energy gaps step by step, the counts). It needs an NVIDIA GPU.
@@ -98,23 +102,23 @@ def process_group() -> None:
                             world_size=1)
 
 
-def grid() -> GridSpec:
+def grid(ng: int = NG) -> GridSpec:
     debye = math.sqrt(K_BOLTZMANN * TE * EPSILON_0 / E_CHARGE**2 / DENSITY)
-    return GridSpec(NG, 22.0 * debye, "periodic")
+    return GridSpec(ng, 22.0 * debye, "periodic")
 
 
-def _load(n: int, mesh, seed: int, load=None):
-    """The Landau grid, the load (``load`` = (x, v), else made on the
-    mesh's device from ``seed``), 8 sigma of the thermal excursion a step
-    in cells (rounded up: bench's halo rules start from it) and the
-    migration bucket as bench_domain sizes it."""
-    g = grid()
+def _load(n: int, mesh, seed: int, load=None, ng: int = NG):
+    """The Landau grid of ng nodes, the load (``load`` = (x, v), else
+    made on the mesh's device from ``seed``), 8 sigma of the thermal
+    excursion a step in cells (rounded up: bench's halo rules start from
+    it) and the migration bucket as bench_domain sizes it."""
+    g = grid(ng)
     if load is None:
         x, v = device_load(n, g.length, mesh.device, seed)
     else:
         x, v = (torch.as_tensor(a, device=mesh.device) for a in load)
     reach = math.ceil(8.0 * float(v.std()) * DT / g.dx)
-    return g, x, v, reach, max(4096, 4 * (n // NG))
+    return g, x, v, reach, max(4096, 4 * (n // ng))
 
 
 def _capacity_factor(mesh) -> float:
@@ -123,28 +127,31 @@ def _capacity_factor(mesh) -> float:
     return 1.05 if mesh.world == 1 else 1.5
 
 
-def implicit_row(mesh, n: int = N, seed: int = 1, load=None, **overrides):
-    """(cfg, this rank's DomainImplicitState) of configs[4]; ``overrides``
-    replace conserving-configuration fields (finalize, window_share,
-    backend, ...); ``load`` = (x, v) replaces the seeded load."""
-    g, x, v, reach, cap = _load(n, mesh, seed, load)
+def implicit_row(mesh, n: int = N, seed: int = 1, load=None, ng: int = NG,
+                 **overrides):
+    """(cfg, this rank's DomainImplicitState) of configs[4] on ng nodes;
+    ``overrides`` replace conserving-configuration fields (finalize,
+    window_share, backend, ...); ``load`` = (x, v) replaces the seeded
+    load."""
+    g, x, v, reach, cap = _load(n, mesh, seed, load, ng)
     cfg = domain_implicit.DomainImplicitConfig(
         g, DT, g.length * DENSITY / n, num_shards=mesh.world,
-        halo=min(NG // mesh.world - 3, max(4, reach)), migrate_cap=cap,
+        halo=min(ng // mesh.world - 3, max(4, reach)), migrate_cap=cap,
         **{**CONSERVING, **overrides})
     st = domain_implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, mesh,
                                     capacity_factor=_capacity_factor(mesh))
     return cfg, st
 
 
-def explicit_row(mesh, n: int = N, seed: int = 1, load=None, **overrides):
-    """(cfg, this rank's DomainState) of bench_domain_explicit: halo 0 (the
-    per-step path migrates every step), the fused push on the card; with
-    ``carried_rho='on'`` among the overrides, bench's carried halo
-    min(ng / S - 1, max(4, ceil(8 sigma))): the deposit of the pushed
-    positions must reach one step's excursion."""
-    g, x, v, reach, cap = _load(n, mesh, seed, load)
-    halo = (min(NG // mesh.world - 1, max(4, reach))
+def explicit_row(mesh, n: int = N, seed: int = 1, load=None, ng: int = NG,
+                 **overrides):
+    """(cfg, this rank's DomainState) of bench_domain_explicit on ng
+    nodes: halo 0 (the per-step path migrates every step), the fused push
+    on the card; with ``carried_rho='on'`` among the overrides, bench's
+    carried halo min(ng / S - 1, max(4, ceil(8 sigma))): the deposit of
+    the pushed positions must reach one step's excursion."""
+    g, x, v, reach, cap = _load(n, mesh, seed, load, ng)
+    halo = (min(ng // mesh.world - 1, max(4, reach))
             if overrides.get("carried_rho") == "on" else 0)
     cfg = domain.DomainConfig(g, DT, g.length * DENSITY / n,
                               num_shards=mesh.world, halo=halo,
@@ -165,9 +172,11 @@ def host_load(n: int, seed: int = 1):
 def rank_run(mesh, load, jobs):
     """Each job (engine, steps, overrides) in order on this rank
     (``parallel.spawn`` calls it on every rank): ``steps`` steps of the
-    row ('implicit' or 'explicit') from ``load``. Returns, a job each, the
+    row ('implicit' or 'explicit') from ``load`` (an "ng" among the
+    overrides sets the row's grid). Returns, a job each, the
     metric rows (lists of numbers), this rank's final p, v and alive as
-    numpy, the bytes the mesh staged and the launch counts of the job."""
+    numpy, the bytes the mesh staged and the launch counts of the job (and
+    those in a large mode, ``cuda_cic.LARGE_LAUNCHES``)."""
     return [_rank_job(mesh, load, *job) for job in jobs]
 
 
@@ -188,7 +197,8 @@ def _rank_job(mesh, load, engine: str, steps: int, overrides: dict):
     return dict(rows=rows, p=st.p.cpu().numpy(), v=st.v.cpu().numpy(),
                 alive=st.alive.cpu().numpy(),
                 staged_bytes=mesh.staged_bytes - staged,
-                launches={k: c for k, c in cuda_cic.LAUNCHES.items() if c})
+                launches={k: c for k, c in cuda_cic.LAUNCHES.items() if c},
+                large_launches=dict(cuda_cic.LARGE_LAUNCHES))
 
 
 def timed(step, state, steps: int, warmup: int = 0):
@@ -400,7 +410,7 @@ def _staged(mesh) -> int:
     return sum(m.staged_bytes for m in meshes)
 
 
-def main(argv=None) -> dict:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--explicit", action="store_true",
                     help="the explicit carrier (bench_domain_explicit)")
@@ -414,7 +424,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--n-per-species", type=int, default=MAG_N_PER_SPECIES)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--ng", type=int, default=None,
-                    help="grid nodes (600 for --magnetized, 51 for --sheath)")
+                    help="grid nodes (200 for configs[4] and its carriers, "
+                         "600 for --magnetized, 51 for --sheath)")
     ap.add_argument("--solver", choices=("distributed", "replicated"),
                     default="distributed",
                     help="--magnetized: the slab Newton's solver")
@@ -427,6 +438,11 @@ def main(argv=None) -> dict:
                     help="a result --save wrote for the same row, load and "
                          "steps on another number of ranks: print the "
                          "energy gaps and whether the counts agree")
+    return ap
+
+
+def main(argv=None) -> dict:
+    ap = parser()
     args = ap.parse_args(argv)
     if args.carried and not args.explicit:
         ap.error("--carried is the explicit carrier's option (--explicit)")
@@ -437,18 +453,20 @@ def main(argv=None) -> dict:
     if args.magnetized or args.sheath:
         return bounded_main(args, mesh)
     args.n = N if args.n is None else args.n
+    ng = args.ng or NG
     if args.explicit:
-        cfg, st = explicit_row(mesh, args.n, **(
+        cfg, st = explicit_row(mesh, args.n, ng=ng, **(
             dict(carried_rho="on") if args.carried else {}))
         step = domain.make_step(cfg, mesh)
     else:
-        cfg, st = implicit_row(mesh, args.n)
+        cfg, st = implicit_row(mesh, args.n, ng=ng)
         step = domain_implicit.make_step(cfg, mesh)
     res, _ = drive(step, st, args.n, args.warmup, args.steps)
     res.update(row=("domain_explicit_carried" if args.carried else
                     "domain_explicit" if args.explicit else "domain"),
                device=torch.cuda.get_device_name(mesh.device),
-               ranks=mesh.world, halo=cfg.halo, capacity=int(st.p.shape[0]))
+               ranks=mesh.world, ng=ng, halo=cfg.halo,
+               capacity=int(st.p.shape[0]))
     if args.against:
         with open(args.against) as f:
             res["against"] = compare(json.load(f), res)

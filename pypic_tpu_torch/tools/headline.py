@@ -7,8 +7,14 @@ dt 1e-5) at n = 6104 * 16384 particles in the conserving configuration
 finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
+        [--ng 200]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
-        [--cell landau|two-stream|magnetized|carried|sheath|dn|gc|bca]
+        [--cell landau|two-stream|magnetized|carried|sheath|dn|gc|bca] [--ng 200]
+
+``--ng`` refines the headline cell's grid as the Landau preset does (L
+stays 22 Debye lengths; the particle kernels take their large modes above
+their shared-memory ceilings, up to ``cuda_cic.LARGE_MAX_NG``); it applies
+to ``--cell landau`` only.
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -56,11 +62,12 @@ CONSERVING = dict(tol=1e-30, maxiter=4, picard_init="extrapolate",
 _DENSITY, _TE, _DT = 1e5, 100.0 * 11600.0, 1e-5
 
 
-def headline_config(n: int) -> implicit.ImplicitConfig:
-    """The reference Landau preset at n particles, conserving config."""
+def headline_config(n: int, ng: int = NG) -> implicit.ImplicitConfig:
+    """The reference Landau preset at n particles and ng nodes,
+    conserving config."""
     debye = np.sqrt(K_BOLTZMANN * _TE * EPSILON_0 / E_CHARGE**2 / _DENSITY)
     length = 22.0 * debye
-    return implicit.ImplicitConfig(GridSpec(NG, length, "periodic"), _DT,
+    return implicit.ImplicitConfig(GridSpec(ng, length, "periodic"), _DT,
                                    length * _DENSITY / n, **CONSERVING)
 
 
@@ -78,9 +85,9 @@ def device_load(n: int, length: float, device, seed: int = 1):
     return x, v
 
 
-def headline_state(n: int, device, seed: int = 1):
+def headline_state(n: int, device, seed: int = 1, ng: int = NG):
     """(cfg, step_fn, initial state) of the cell on ``device``."""
-    cfg = headline_config(n)
+    cfg = headline_config(n, ng)
     x, v = device_load(n, cfg.grid.length, device, seed)
     state = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=device)
     return cfg, implicit.make_step(cfg), state
@@ -92,7 +99,7 @@ def _total_energy(m) -> torch.Tensor:
 
 def drift(args) -> dict:
     dev = torch.device("cuda", 0)
-    _, step, state = headline_state(args.n, dev, args.seed)
+    _, step, state = headline_state(args.n, dev, args.seed, args.ng)
     chunks = -(-args.steps // args.chunk)
     e0 = None
     worst, iters_ok, done, seconds = 0.0, True, 0, 0.0
@@ -114,7 +121,7 @@ def drift(args) -> dict:
         print(f"[drift] step {done}: {float(rel[-1]):+.4e} "
               f"(largest so far {worst:.4e}), {dt * 1e3 / k:.4f} ms/step",
               flush=True)
-    res = dict(n=args.n, seed=args.seed, steps=done, drift=float(rel[-1]),
+    res = dict(n=args.n, ng=args.ng, seed=args.seed, steps=done, drift=float(rel[-1]),
                largest_excursion=worst, picard_iters_all_4=iters_ok,
                ms_per_step=seconds * 1e3 / done)
     print(json.dumps(res))
@@ -178,7 +185,7 @@ def profile(args) -> dict:
         args.n = state.p.shape[0]
         step = sheath.make_step(cfg)
     else:
-        _, step, state = headline_state(args.n, dev, args.seed)
+        _, step, state = headline_state(args.n, dev, args.seed, args.ng)
     state, _ = run(step, state, 2)  # warm-up
     untraced = []
     for _ in range(3):
@@ -239,7 +246,7 @@ def profile(args) -> dict:
     return res
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     d = sub.add_parser("drift", help="energy drift over many steps")
@@ -255,7 +262,14 @@ def main(argv=None) -> None:
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)
         s.add_argument("--seed", type=int, default=1)
-    args = ap.parse_args(argv)
+        s.add_argument("--ng", type=int, default=NG,
+                       help="grid nodes of the headline cell (L stays 22 "
+                            "Debye lengths)")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     drift(args) if args.cmd == "drift" else profile(args)

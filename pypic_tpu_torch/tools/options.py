@@ -66,7 +66,7 @@ SUPER_N_SMALL, SUPER_STEPS = 20_000, 4
 CARRIED = dict(carried_deposit="on", react_batch=512, source_sampler="hash")
 CARRIED_STEPS = 20
 DEPOSIT_N, DEPOSIT_NG = 1_000_000, 51
-# deposit_det's large mode (above 1,816 nodes: int64 fixed-point sums)
+# deposit_det's large mode (above 1,815 nodes: int64 fixed-point sums)
 LARGE_NG = 2000
 
 

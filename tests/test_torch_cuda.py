@@ -960,7 +960,7 @@ def test_deposit2_large_mode_matches_plain(cuda_device, ng, periodic):
 @pytest.mark.parametrize("ng", [19_371, 29_057, 65_536])
 def test_boris_gather_push_deposit_large_mode_matches_plain(cuda_device, ng, swap):
     """The carried sweep above its columns' ceiling (19,370; the field in
-    shared memory up to 58,112, in device memory at 65,536), at n =
+    shared memory up to FIELD_SMEM_MAX_NG, in device memory at 65,536), at n =
     999,996 (wide) and 16,384 (narrow): p1 and the velocities bit-equal to
     the plain version's, rho and n within 2e-5 of a float64 sum of its
     terms, the clamp count equal (the limits of
@@ -1228,37 +1228,52 @@ def test_gc_step_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_wrappers_raise_above_the_cards_limits(cuda_device):
     """On CUDA tensors the size limits hold (the CPU route runs any size):
-    shared memory a block (ROADMAP item 10) and, for the kernels with a
-    large mode (deposit_det, the sheath pass, deposit2, the carried Boris
-    deposit), LARGE_MAX_NG; nothing is launched. The Newton kernels run above their
-    one CTA's 1,024 rows (one launch of the large path each) and raise
-    only above the large path's LARGE_MAX_ROWS."""
-    from pypic_tpu_torch.ops import cuda_newton, cuda_sheath
+    every particle kernel with a large mode raises only above LARGE_MAX_NG
+    (the thirteen grid-stride and single-deposit rows, deposit_det, the
+    sheath pass, deposit2, the carried Boris deposit), explicit_cycle
+    above its 14,512 nodes of shared memory; nothing is launched. The
+    Newton kernels run above their one CTA's 1,024 rows (one launch of the
+    large path each) and raise only above the large path's
+    LARGE_MAX_ROWS."""
+    from pypic_tpu_torch.ops import cuda_domain, cuda_newton, cuda_sheath
 
     def z(k):
         return torch.zeros(k, dtype=torch.float32, device=cuda_device)
 
     p, big = z(64), cuda_cic.SMEM_LIMIT // 4 + 1
     before = dict(cuda_cic.LAUNCHES)
+    cycle = (cuda_cic.SMEM_LIMIT - 256) // 16 + 1
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_cic.deposit(p, p, big, periodic=True)
-    with pytest.raises(ValueError, match="shared memory"):
-        ng = cuda_cic.SMEM_LIMIT // 8 + 1
-        cuda_cic.picard_iteration(z(ng), p, p, p, ng, qm=QM, w=W, dt=DT, dx=DX)
-    with pytest.raises(ValueError, match="shared memory"):
-        ng = cuda_cic.SMEM_LIMIT // 8 + 1
-        cuda_cic.leapfrog_gather_push_deposit(z(ng), p, p, qm=QM, w=W, dt=DT,
-                                              dx=DX)
+        cuda_cic.explicit_cycle(z(cycle), p, p, cycle, qm=QM, w=W, dt=DT, dx=DX)
     big_ng = cuda_cic.LARGE_MAX_NG + 1
-    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
-        cuda_cic.deposit_det(p, p, big_ng, periodic=False)
-    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
-        cuda_sheath.sheath_picard(z(big_ng), p, p, p, p, p, p, dt=1e-12, dx=1e-5)
-    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
-        cuda_cic.deposit2(p, p, p, big_ng, periodic=False)
-    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
-        cuda_cic.boris_gather_push_deposit(z(big_ng), p, p, p, p, p, p, p, p,
-                                           b=(0.0, 1.0, 0.0), dt_dx=1.0)
+    f, kw = z(big_ng), dict(qm=QM, w=W, dt=DT, dx=DX)
+    slab = dict(qm=QM, dt=DT, dx=DX, lo=2.0, hi=float(big_ng - 3))
+    calls = [
+        lambda: cuda_cic.picard_iteration(f, p, p, p, big_ng, **kw),
+        lambda: cuda_cic.picard_iteration_shared(f, p, p, p, big_ng, **kw),
+        lambda: cuda_cic.picard_finalize_nodep(f, p, p, p, big_ng, qm=QM, dt=DT, dx=DX),
+        lambda: cuda_cic.picard_finalize(f, p, p, p, big_ng, **kw),
+        lambda: cuda_cic.deposit(p, p, big_ng, periodic=True),
+        lambda: cuda_cic.gather(f, p, periodic=False),
+        lambda: cuda_cic.leapfrog_gather_push_deposit(f, p, p, **kw),
+        lambda: cuda_cic.boris_gather_push(f, p, p, p, p, p, p, b=(0.0, 1.0, 0.0),
+                                           dt_dx=1.0),
+        lambda: cuda_domain.picard_iteration_ext(f, p, p, p, p, **slab),
+        lambda: cuda_domain.picard_finalize_ext(f, p, p, p, p, lo_shift=0.0, ng=0, **slab),
+        lambda: cuda_domain.picard_finalize_ext_nodep(f, p, p, p, p, lo_shift=0.0, ng=0,
+                                                      **slab),
+        lambda: cuda_domain.leapfrog_gather_push(f, p, p, qm=QM, dt=DT, dx=DX),
+        lambda: cuda_domain.explicit_domain_cycle(f, p, p, p, qm=QM, dt=DT, dx=DX,
+                                                  lo_shifted=0.0, ext_n=64),
+        lambda: cuda_cic.deposit_det(p, p, big_ng, periodic=False),
+        lambda: cuda_sheath.sheath_picard(f, p, p, p, p, p, p, dt=1e-12, dx=1e-5),
+        lambda: cuda_cic.deposit2(p, p, p, big_ng, periodic=False),
+        lambda: cuda_cic.boris_gather_push_deposit(f, p, p, p, p, p, p, p, p,
+                                                   b=(0.0, 1.0, 0.0), dt_dx=1.0),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+            call()
     with pytest.raises(ValueError, match="at most"):
         cuda_newton.boltzmann_dirichlet(z(cuda_newton.LARGE_MAX_ROWS + 1), 1e17,
                                         1.16e5, 2e-5)
@@ -1848,3 +1863,166 @@ def test_superstep_k1_on_the_card_matches_make_step(cuda_device, engine):
     for k in ("n_alive", "n_migrated", "n_dropped", "n_halo_clamped"):
         assert torch.equal(getattr(m1, k).cpu(),
                            getattr(m2, k).reshape(-1).cpu()), k
+
+
+# the large modes of the periodic, explicit and slab kernels: each wrapper
+# at 32,768 nodes (the global mode where the row's old ceiling lies below
+# it, else the shared mode) and at 65,536 (the global mode), against its
+# plain version
+LARGE_ROWS = ["picard_iteration", "picard_iteration_shared", "picard_finalize_nodep",
+              "picard_finalize", "deposit", "gather", "leapfrog_gather_push_deposit",
+              "boris_gather_push", "picard_iteration_ext", "picard_finalize_ext",
+              "picard_finalize_ext_nodep", "leapfrog_gather_push",
+              "explicit_domain_cycle"]
+
+
+def _large_row_call(name, ng, dev):
+    """(the wrapper's call, the plain version's call) of one row on n =
+    200,003 random inputs at ng nodes; the slab rows on an extended slab
+    of ng nodes (halo 13), the domain cycle on one rank's whole grid."""
+    from pypic_tpu_torch.ops import cuda_domain as KD
+
+    n = 200_003
+    gen = torch.Generator(device=dev).manual_seed(ng + len(name))
+    f32 = torch.float32
+    p0 = torch.rand(n, generator=gen, device=dev, dtype=f32) * ng
+    ps = torch.remainder(p0 + torch.randn(n, generator=gen, device=dev) * 0.3, ng)
+    v0 = torch.randn(n, generator=gen, device=dev, dtype=f32) * 1e5
+    e = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 1e3
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    if name in ("picard_iteration", "picard_iteration_shared", "picard_finalize"):
+        fn = getattr(cuda_cic, name)
+        plain = getattr(cuda_cic, name + "_plain")
+        return (lambda: fn(e, ps, p0, v0, ng, **kw)), (lambda: plain(e, ps, p0, v0, ng, **kw))
+    if name == "picard_finalize_nodep":
+        fkw = dict(qm=QM, dt=DT, dx=DX)
+        return ((lambda: cuda_cic.picard_finalize_nodep(e, ps, p0, v0, ng, **fkw)),
+                (lambda: cuda_cic.picard_finalize_nodep_plain(e, ps, p0, v0, ng, **fkw)))
+    if name == "deposit":
+        return ((lambda: cuda_cic.deposit(p0, v0 * W, ng, periodic=True)),
+                (lambda: cuda_cic.deposit_plain(p0, v0 * W, ng, periodic=True)))
+    if name == "gather":
+        return ((lambda: cuda_cic.gather(e, p0, periodic=True)),
+                (lambda: cuda_cic.gather_plain(e, p0, periodic=True)))
+    if name == "leapfrog_gather_push_deposit":
+        return ((lambda: cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **kw)),
+                (lambda: cuda_cic.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)))
+    if name == "boris_gather_push":
+        act = (torch.rand(n, generator=gen, device=dev) < 0.9).to(f32)
+        const = torch.full((n,), 1e-4, device=dev)
+        bkw = dict(b=(0.1, 2.0, 0.0), dt_dx=4e-5, swap_weights=True)
+        args = (e, p0 * ((ng - 1) / ng), v0, v0 * 0.5, v0 * 0.25, const, act)
+        return ((lambda: cuda_cic.boris_gather_push(*args, **bkw)),
+                (lambda: cuda_cic.boris_gather_push_plain(*args, **bkw)))
+    qm = float(torch.tensor(QM, dtype=torch.float32))
+    w = torch.full((n,), W, device=dev)
+    w[torch.rand(n, generator=gen, device=dev) < 0.05] = 0.0
+    if name == "leapfrog_gather_push":
+        lkw = dict(qm=qm, dt=DT, dx=DX)
+        return ((lambda: KD.leapfrog_gather_push(e, p0, v0, **lkw)),
+                (lambda: KD.leapfrog_gather_push_plain(e, p0, v0, **lkw)))
+    if name == "explicit_domain_cycle":
+        ckw = dict(qm=qm, dt=DT, dx=DX, lo_shifted=-13.0, ext_n=ng + 27)
+        field = e * 0.03
+        return ((lambda: KD.explicit_domain_cycle(field, p0, v0 * 5.0, w, **ckw)),
+                (lambda: KD.explicit_domain_cycle_plain(field, p0, v0 * 5.0, w, **ckw)))
+    hw = 15
+    c = ng - 2 * hw - 1
+    skw = dict(qm=qm, dt=DT, dx=DX, lo=2.0, hi=float(c + 28))
+    p0s = p0 * ((c + 32.0) / ng) - 1.0
+    args = (e * 0.03, p0s + 0.1, p0s, v0, w)
+    if name == "picard_iteration_ext":
+        return ((lambda: KD.picard_iteration_ext(*args, shared=True, **skw)),
+                (lambda: KD.picard_iteration_ext_plain(*args, shared=True, **skw)))
+    dep = name == "picard_finalize_ext"
+    fkw = dict(skw, lo_shift=float(c - hw), ng=4 * c)
+    fn = KD.picard_finalize_ext if dep else KD.picard_finalize_ext_nodep
+    return ((lambda: fn(*args, **fkw)),
+            (lambda: KD.picard_finalize_ext_plain(*args, deposit=dep, **fkw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [32_768, 65_536])
+@pytest.mark.parametrize("name", LARGE_ROWS)
+def test_large_modes_match_plain(cuda_device, name, ng):
+    """Every output against the plain version's: the (n,) outputs within
+    1e-6 of their largest value (the same float32 operations; positions
+    at p ~ ng differ by an ulp at most), the (ng,) deposits within 2e-5 of
+    their largest node (float atomics in another order), counts equal;
+    the launch in the mode ``smem_mode`` names (a large one at 65,536)."""
+    call, plain = _large_row_call(name, ng, cuda_device)
+    cuda_cic.reset_launch_counts()
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    modes = dict(cuda_cic.LARGE_LAUNCHES)
+    assert cuda_cic.LAUNCHES[name] == 1
+    if ng == 65_536:
+        assert modes == {f"{name} global": 1}
+    _large_outputs_match(got, ref)
+
+
+def _large_outputs_match(got, ref):
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        if g.dim() == 0:  # a clamp count
+            assert int(g) == int(r)
+        elif g.dtype == torch.float64:  # the slab statistics, one by one
+            for i in range(g.shape[0]):
+                _rel_close(r[i:i + 1], g[i:i + 1], 1e-6)
+        else:
+            _rel_close(r, g, 1e-6 if g.shape[0] == 200_003 else 2e-5)
+
+
+def _mode_boundaries(name, n, sms):
+    """The last node of each launch shape of a large row and the first of
+    the next, up to SMEM_LIMIT // 4 + 1 nodes: its sweep modes
+    (sweep_launch) or, for the single deposit, its modes and columns."""
+    if name == "deposit":
+        keys = [lambda ng: (lambda s: (s.mode, s.cols))(
+            cuda_cic.deposit_launch_shape(n, ng, False, sms, hists=1))]
+    else:
+        def key(kernel):
+            extra = (lambda ng: 4 * (ng + 27)) if name == "explicit_domain_cycle" else (
+                lambda ng: 0)
+            return lambda ng: cuda_cic.sweep_launch(kernel, n, ng, sms, extra(ng)).mode
+        keys = [key(k) for k in cuda_cic.SWEEP_KERNELS if k.split()[0] == name]
+    out = set()
+    for key in keys:
+        prev = key(2)
+        for ng in range(3, cuda_cic.SMEM_LIMIT // 4 + 2):
+            cur = key(ng)
+            if cur != prev:
+                out.update((ng - 1, ng))
+            prev = cur
+    return sorted(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LARGE_ROWS)
+def test_large_rows_at_their_mode_boundaries(cuda_device, name):
+    """Each large row at the last node of each of its launch shapes and the
+    first of the next (the shared mode's last node, where its arrays and
+    its kernel's static bytes fill a block, and the large mode's first;
+    the single deposit's column counts too), against its plain version at
+    test_large_modes_match_plain's limits: no launch is refused."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    ngs = _mode_boundaries(name, 200_003, sms)
+    assert ngs
+    for ng in ngs:
+        call, plain = _large_row_call(name, ng, cuda_device)
+        _large_outputs_match(call(), plain())
+
+
+@pytest.mark.cuda
+def test_static_smem_within_the_launch_tables(cuda_device):
+    """The compiler's report of the built library (ptxas -v) against the
+    static bytes every launch shape counts (cuda_cic.check_static_smem):
+    a kernel with more would ask for more than a block holds at its last
+    shared node, as row 9 did at 58,112 nodes and deposit_det at 1,816."""
+    from pypic_tpu_torch.ops import _build
+
+    _, info = _build.load()
+    assert "bytes smem" in info.log
+    assert cuda_cic.check_static_smem(info.log) == []

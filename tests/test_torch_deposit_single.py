@@ -67,7 +67,8 @@ def test_single_columns_halve_until_they_fit():
     """32 lane columns where they fit (ng 200, 227: 25.6 and 29.1 KB), 16
     at the IEAD's 3,200 bins (204.8 KB), 1 at the ceiling; ``max_cols``
     (the wrapper's ``cols``, ``histogram_add``'s 1) caps them; one node
-    above the ceiling raises."""
+    above the ceiling is the large mode (cols 0, no shared memory), and
+    the raise is above LARGE_MAX_NG."""
     cols = {ng: cuda_cic.deposit_launch_shape(999_996, ng, False, 132, hists=1).cols
             for ng in NGS}
     assert cols == {200: 32, 227: 32, 3200: 16, CEILING: 1}
@@ -75,8 +76,11 @@ def test_single_columns_halve_until_they_fit():
         assert cuda_cic.deposit_launch_shape(999_996, 3200, False, 132, hists=1,
                                              max_cols=cap).cols == cap
     assert cic.HISTOGRAM_COLS == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_cic.deposit_launch_shape(999_996, CEILING + 1, False, 132, hists=1)
+    above = cuda_cic.deposit_launch_shape(999_996, CEILING + 1, False, 132, hists=1)
+    assert (above.cols, above.smem) == (0, 0)
+    with pytest.raises(ValueError, match="LARGE_MAX_NG"):
+        cuda_cic.deposit_launch_shape(999_996, cuda_cic.LARGE_MAX_NG + 1, False, 132,
+                                      hists=1)
     with pytest.raises(ValueError, match="max_cols"):
         cuda_cic.deposit_launch_shape(999_996, 3200, False, 132, hists=1, max_cols=3)
     with pytest.raises(ValueError, match="histograms"):
@@ -84,23 +88,25 @@ def test_single_columns_halve_until_they_fit():
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("ng", (51, 128, 1816))
+@pytest.mark.parametrize("ng", (51, 128, 1815))
 @pytest.mark.parametrize("n", (1, 1_000_000, 1_000_003))
 def test_det_launch_shape_covers_the_rows_once(n, ng, sms):
     """The deterministic deposit's grid: the sheath pass's without the
     field, contiguous ranges of a multiple of 4 rows, power-of-two blocks
-    whose columns fit; ng = 1,816 is the columns' ceiling (32 columns),
-    and one node more is the large mode (int64 sums, no shared memory)."""
+    whose columns fit beside det_flush's 16 static bytes; ng = 1,815 is
+    the columns' ceiling (32 columns), and one node more is the large mode
+    (int64 sums, no shared memory)."""
     shape = cuda_sheath.launch_shape(n, ng, sms, field=False)
     r = shape.rows_per_block
     assert r % 4 == 0 and (shape.blocks - 1) * r < n <= shape.blocks * r
     assert shape.threads & (shape.threads - 1) == 0 and 32 <= shape.threads <= 1024
-    assert shape.smem == shape.threads * ng * 4 <= cuda_cic.SMEM_LIMIT
+    assert shape.smem == shape.threads * ng * 4
+    assert shape.smem + cuda_sheath.SMALL_STATIC_BYTES <= cuda_cic.SMEM_LIMIT
     assert shape.blocks <= cuda_sheath.MAX_BLOCKS_PER_SM * sms
     if (n, ng, sms) == (1_000_000, 51, 132):  # the composed sheath current
         assert (shape.blocks, shape.threads) == (264, 512)
     assert not shape.large
-    above = cuda_sheath.launch_shape(n, 1817, sms, field=False)
+    above = cuda_sheath.launch_shape(n, 1816, sms, field=False)
     assert above.large and above.smem == 0
 
 

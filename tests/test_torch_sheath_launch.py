@@ -21,9 +21,10 @@ NS = (1, 31, 1_000_000, 1_000_003)
 NGS = (2, 11, 51, 1760)
 SMS = (132, 114)  # H100 SXM, H100 PCIe
 # the large mode: just above the two ceilings (the pass's 1,760, the
-# deterministic deposit's 1,816), where the field stops fitting shared
-# memory (58,112), the phase-40 sizes and LARGE_MAX_NG
-NGS_LARGE = (1761, 1817, 8192, 58_112, 58_113, 65_536, 1 << 20, 1 << 22)
+# deterministic deposit's 1,815), where the field stops fitting shared
+# memory (58,112 before FIELD_SMEM_MAX_NG left room for static shared
+# memory), the phase-40 sizes and LARGE_MAX_NG
+NGS_LARGE = (1761, 1816, 8192, 58_112, 58_113, 65_536, 1 << 20, 1 << 22)
 
 # cuda_sheath.launch_shape as the small mode had it before the large mode
 # was added (its values computed then and frozen here)
@@ -104,7 +105,7 @@ def test_launch_shape_fits_shared_memory_up_to_the_ceiling(sms):
     for ng in range(2, cuda_sheath.MAX_NG + 1):
         shape = cuda_sheath.launch_shape(1_000_000, ng, sms)
         assert shape.smem == (shape.threads + 1) * ng * 4
-        assert shape.smem <= cuda_cic.SMEM_LIMIT
+        assert shape.smem + cuda_sheath.SMALL_STATIC_BYTES <= cuda_cic.SMEM_LIMIT
         per_sm = -(-shape.blocks // sms)
         assert per_sm * (shape.smem + cuda_sheath.BLOCK_RESERVED) <= cuda_sheath.SM_SHARED
         assert per_sm * shape.threads <= cuda_sheath.SM_THREADS
@@ -128,13 +129,22 @@ def test_launch_shape_raises_above_the_ceiling(sms):
 def test_small_shapes_are_unchanged(field):
     """At every (n, ng, sms) of the frozen table the small mode's shape is
     the one it was before the large mode came: blocks, threads, rows a
-    block and shared memory, so its sums keep their order and bits."""
+    block and shared memory, so its sums keep their order and bits; except
+    the ones the card refused: deposit_det at 1,816 nodes asked for
+    232,448 B beside det_flush's 16 static bytes, above a block's
+    SMEM_LIMIT; it takes the large mode there now."""
     cases = {k: v for k, v in SHAPES_PR20.items() if k[3] == field}
     assert len(cases) == len(NS) * len(SMS) * (4 if field else 5)
+    refused = 0
     for (n, ng, sms, _), want in cases.items():
         got = cuda_sheath.launch_shape(n, ng, sms, field=field)
+        if want[3] + cuda_sheath.SMALL_STATIC_BYTES > cuda_cic.SMEM_LIMIT:
+            refused += 1
+            assert (ng, field, got.large, got.smem) == (1816, False, True, 0)
+            continue
         assert not got.large
         assert (got.blocks, got.threads, got.rows_per_block, got.smem) == want
+    assert refused == (0 if field else len(NS) * len(SMS))
 
 
 @pytest.mark.parametrize("field", [True, False], ids=["pass", "deposit_det"])
@@ -145,12 +155,13 @@ def test_large_shape_covers_the_rows_once(n, ng, sms, field):
     """The large mode's grid: a function of (n, ng, sms) alone, every row in
     exactly one block's contiguous range (ranges of a multiple of 4 rows,
     every block with rows), LARGE_THREADS threads, at most two blocks an
-    SM; shared memory the field alone where it fits (ng <= 58,112; none
+    SM; shared memory the field alone where it fits (ng <= FIELD_SMEM_MAX_NG; none
     for the deterministic deposit) and the blocks an SM holds fit the SM;
     the scratch 8 ng + 4 blocks bytes: no column of ng a thread or a
     block."""
     shape = cuda_sheath.launch_shape(n, ng, sms, field=field)
-    small_top = cuda_sheath.MAX_NG if field else cuda_cic.SMEM_LIMIT // 128
+    small_top = cuda_sheath.MAX_NG if field else (
+        cuda_cic.SMEM_LIMIT - cuda_sheath.SMALL_STATIC_BYTES) // 128
     assert shape.large == (ng > small_top)
     if not shape.large:
         return
