@@ -396,6 +396,29 @@ Phases (any failure raises and the script exits non-zero):
    phase 39's float64 check) and composed; the composed sheath loop at
    65,536 (n = 1e6, phase 40's checks). It fails if a row's large mode
    never launched on a path.
+42. float64 — a float64 state on the double kernels of rows 1-6
+   (picard_iteration and its shared window, both finalizes, deposit,
+   gather). Each kernel on float64 inputs against its float64 plain
+   version (positions within TOL64_POS cells, velocities and the gather
+   within TOL64_V, deposits within 4 n eps64 of the largest node, clamp
+   counts equal), then timed on the same inputs (device_ms, warm; the
+   plain version once; the bound at twice the float32 bytes and the
+   float64 rate; float64 index_add_ beside the deposit and grid_sample
+   beside the gather): in the shared mode at the headline's ng = 200 and
+   n = 6104 * 16384, and in the global mode at ng 65,536, n = 1e7. Then the conserving headline
+   physics in float64 at ng 200 and 65,536, n = 1e6: the fused step, the
+   composed backend, window_share 'shared' and converged-deposit, three
+   steps on the CPU's plain route from one state and one step on the card
+   from each of the CPU's states, held at TOL64_STEP (rows that change
+   cells left out of p and v, Fault 3), the Picard counts equal. Then the
+   headline cell at n =
+   6104 * 16384 in float32 and float64, ms/step in turns of windows. It
+   fails if a double kernel never launched on its path (the headline's
+   for the pass, the finalize and the set-up deposit; the ng = 200
+   checks' for the shared window, converged-deposit and the gather), and
+   unless a float64 state on the card raises a NotImplementedError naming
+   its ROADMAP item in the explicit, magnetized and sheath engines,
+   deposit_det and run_resident.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -417,6 +440,7 @@ import time
 import torch
 
 from pypic_tpu_torch.ops import fd, poisson
+from pypic_tpu_torch.ops.cuda_cic import F64_KERNELS
 from pypic_tpu_torch.tools.headline import (
     N_HEADLINE, NG, headline_config, headline_state)
 
@@ -505,6 +529,8 @@ TOL_IMPLICIT_CHECK = {"p (cells)": 2e-3, "v": 1e-4, "e": 1e-3, "j": 1e-3,
 # cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# and float64 operations/s outside the tensor cores, half the float32 rate
+PEAK_F64_PER_S = 33.5e12
 # device-memory bytes per particle of one call: each particle input read
 # once and each particle output written once (the (ng,) arrays are noise)
 BYTES_PER_PARTICLE = {
@@ -826,7 +852,8 @@ TOL_CARRY_TOTAL = 1e-5
 
 
 def bound(name: str, n: int, steps: int = 1, passes: int | None = None,
-          extra_bytes: float = 0.0, extra_ops: float = 0.0) -> tuple[float, str]:
+          extra_bytes: float = 0.0, extra_ops: float = 0.0,
+          f64: bool = False) -> tuple[float, str]:
     """The least time in ms the card could take for one call on n
     particles (``steps`` cycles for the resident kernels; for
     implicit_resident, ``passes`` Picard passes in all, as its rows
@@ -834,12 +861,15 @@ def bound(name: str, n: int, steps: int = 1, passes: int | None = None,
     ``steps`` the Newton iterations the kernel reports): the larger of the
     bytes over the memory rate and the operations over the float32
     rate. ``extra_bytes`` and ``extra_ops`` carry the work that depends
-    on the call's data (sheath_reinject's drawing rows)."""
-    by_bytes = (BYTES_PER_PARTICLE[name] * n + extra_bytes) / PEAK_BYTES_PER_S * 1e3
+    on the call's data (sheath_reinject's drawing rows). ``f64``: a
+    double kernel (a float64 state), twice the bytes a row and the
+    operations at the float64 rate."""
+    row_bytes = BYTES_PER_PARTICLE[name] * (2 if f64 else 1)
+    by_bytes = (row_bytes * n + extra_bytes) / PEAK_BYTES_PER_S * 1e3
     ops = OPS_PER_PARTICLE[name] * n * (steps if passes is None else passes) + extra_ops
     if name == "implicit_resident":
         ops += RESIDENT_FINAL_OPS * n * steps
-    by_ops = ops / PEAK_F32_PER_S * 1e3
+    by_ops = ops / (PEAK_F64_PER_S if f64 else PEAK_F32_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -1013,6 +1043,11 @@ def phase_build() -> None:
                              + "; ".join(bad))
     log(f"[build] static shared bytes of {len(cuda_cic.STATIC_SMEM_KERNELS)} kernel "
         "families within their launch tables")
+    bad = cuda_cic.check_f64_kernels(info.log)
+    if bad:
+        raise AssertionError("float64 kernels not built: " + "; ".join(bad))
+    log(f"[build] the double instantiations of {len(cuda_cic.F64_INSTANCES)} float64 "
+        "kernel templates are in the report")
 
 
 def _random_pass_inputs(n: int, gen: torch.Generator, dev, edges: bool,
@@ -8050,6 +8085,365 @@ def phase_large_periodic(dev) -> dict:
     return res
 
 
+# phase 42: a float64 state on the double kernels of rows 1-6
+F64_ROWS = F64_KERNELS
+# (n, ng) of each mode, checked and timed on the same inputs: the shared
+# mode at the headline's shape, the global mode at 65,536 nodes
+F64_SHAPES = {"shared": (N_HEADLINE, NG), "global": (10_000_000, 65_536)}
+EPS64 = 2.0 ** -52
+# the double kernels against their float64 plain versions: the same
+# operations rounded once each in double, so positions and velocities
+# agree to a few ulps of the largest position (1.5e-11 cells at 65,536)
+# and of v; the deposits sum in another order, within a small multiple
+# of n eps64 of the largest sum (deposit_tol64)
+TOL64_POS = 1e-9
+TOL64_V = 1e-12
+# the paths, card against the CPU's plain route step for step from one
+# float64 state: they differ in the order of the float64 sums (~1e-14 of
+# a node sum), which the steps carry into the field and the push; 1e-8
+# is 1e4 below the float32 limits of phase 4 (2e-4 cells, 1e-5, 1e-4)
+TOL64_STEP = {"p (cells)": 1e-8, "v": 1e-8, "e": 1e-8, "j": 1e-8,
+              "field_energy": 1e-8, "kinetic_energy": 1e-8}
+F64_CHECK_N, F64_CHECK_STEPS, F64_PATH_NGS = 1_000_000, 3, (NG, 65_536)
+F64_VARIANTS = {"conserving": {}, "composed": dict(backend="composed"),
+                "shared": dict(window_share="shared"),
+                "converged-deposit": dict(finalize="converged-deposit")}
+# the headline's timed windows a dtype, in turns (float32, float64, ...)
+F64_WINDOWS, F64_WINDOW_STEPS = 3, 4
+
+
+def deposit_tol64(n: int) -> float:
+    """Relative limit of a float64 deposit against another order of the
+    same float64 sum: a node sums at most 2n terms, each sum rounding by
+    eps64 of at most the sum of the terms' magnitudes; 4 n eps64 of the
+    largest node."""
+    return 4.0 * n * EPS64
+
+
+def _f64_case(name: str, n: int, ng: int, gen, dev) -> dict:
+    """Row ``name``'s double kernel on float64 inputs at (n, ng): against
+    its float64 plain version, then timed on the same inputs (device_ms,
+    warm), the plain version once, the bound and the library call where
+    one exists (float64 index_add_ for the deposit, float64 grid_sample
+    for the gather); the launches by mode."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    f64 = torch.float64
+    errs = {}
+
+    def inputs(rows):
+        e, ps, p0, v0 = _random_pass_inputs(rows, gen, dev, True, ng)
+        return e.to(f64), ps.to(f64), p0.to(f64), v0.to(f64)
+
+    def calls(e, ps, p0, v0):
+        if name in ("picard_iteration", "picard_iteration_shared"):
+            shared = name == "picard_iteration_shared"
+            fn = K.picard_iteration_shared if shared else K.picard_iteration
+            plain = K.picard_iteration_shared_plain if shared else K.picard_iteration_plain
+            kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+            return (lambda: fn(e, ps, p0, v0, ng, emit_v=True, **kw),
+                    lambda: plain(e, ps, p0, v0, ng, emit_v=True, **kw),
+                    lambda: fn(e, ps, p0, v0, ng, **kw), lambda: plain(e, ps, p0, v0, ng, **kw))
+        if name in ("picard_finalize_nodep", "picard_finalize"):
+            dep = name == "picard_finalize"
+            fn = K.picard_finalize if dep else K.picard_finalize_nodep
+            plain = K.picard_finalize_plain if dep else K.picard_finalize_nodep_plain
+            kw = dict(qm=QM, dt=DT, dx=DX, **(dict(w=W) if dep else {}))
+            one, ref = (lambda: fn(e, ps, p0, v0, ng, **kw)), (lambda: plain(e, ps, p0, v0, ng, **kw))
+            return one, ref, one, ref
+        if name == "deposit":
+            vals = v0 * W
+            one = lambda: K.deposit(p0, vals, ng, periodic=True)  # noqa: E731
+            ref = lambda: K.deposit_plain(p0, vals, ng, periodic=True)  # noqa: E731
+            return one, ref, one, ref
+        one = lambda: K.gather(e, p0, periodic=True)  # noqa: E731
+        ref = lambda: K.gather_plain(e, p0, periodic=True)  # noqa: E731
+        return one, ref, one, ref
+
+    # the check (edge positions in the first rows)
+    args = inputs(n)
+    got, ref = (lambda a, b: (a(), b()))(*calls(*args)[:2])
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if any(t.dtype != f64 for t in got if t.dim() == 1):
+        raise AssertionError(f"{name}: the double kernel returned {[t.dtype for t in got]}")
+    if name == "deposit":
+        for periodic in (True, False):
+            pos = args[2] if periodic else args[2] * ((ng - 1) / ng)
+            vals = args[3] * W
+            a, r = rel_err(K.deposit_plain(pos, vals, ng, periodic=periodic),
+                           K.deposit(pos, vals, ng, periodic=periodic))
+            errs[f"out periodic={periodic}"] = dict(abs=a, err=r, kind="rel, float64 order",
+                                                    tol=deposit_tol64(n))
+    elif name == "gather":
+        for periodic in (True, False):
+            pos = args[2] if periodic else args[2] * ((ng - 1) / ng)
+            a, r = rel_err(K.gather_plain(args[0], pos, periodic=periodic),
+                           K.gather(args[0], pos, periodic=periodic))
+            errs[f"out periodic={periodic}"] = dict(abs=a, err=r, kind="rel", tol=TOL64_V)
+    else:
+        a = seam_err(ref[0], got[0], ng)
+        errs["p"] = dict(abs=a, err=a, kind="cells", tol=TOL64_POS)
+        a, r = rel_err(ref[1], got[1])
+        errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL64_V)
+        if name != "picard_finalize_nodep":
+            a, r = rel_err(ref[2], got[2])
+            errs["deposit"] = dict(abs=a, err=r, kind="rel, float64 order",
+                                   tol=deposit_tol64(n))
+        if name == "picard_iteration_shared":
+            gap = float(abs(int(got[3]) - int(ref[3])))
+            errs["n_clamped"] = dict(abs=gap, err=gap, kind=(
+                f"count gap ({int(got[3])} clamped of {n})"), tol=0.0)
+    torch.cuda.synchronize()
+    err = _check(errs, f"{name} float64 (n = {n}, ng = {ng})")
+    del got, ref
+    _, _, call, plain_call = calls(*args)
+    library = None
+    if name == "deposit":
+        from pypic_tpu_torch.ops.cic import cic_indices_weights
+
+        vals = args[3] * W
+        il, ir, wl, wr = cic_indices_weights(args[2], ng, True)
+        idx, terms = torch.cat([il, ir]), torch.cat([vals * wl, vals * wr])
+        del il, ir, wl, wr
+        library = device_ms(lambda: torch.zeros(ng, dtype=f64, device=dev).index_add_(
+            0, idx, terms), calls=10)
+        del idx, terms
+    elif name == "gather":
+        lib_call = _gather_library(args[0], args[2], periodic=True)
+        library = device_ms(lib_call, calls=10)
+        del lib_call
+    mode = K.sweep_launch(name, n, ng, 132, item=8).mode if name != "deposit" else (
+        "shared" if K.deposit_launch_shape(n, ng, False, 132, hists=1, item=8).cols
+        else "global")
+    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode == "global" else 0.0
+    b, by = bound(name, n, extra_bytes=node_bytes, f64=True)
+    K.reset_launch_counts()
+    ms = device_ms(call, calls=10)
+    launches = {"calls": K.LAUNCHES[f"{name}_f64"], **dict(K.LARGE_LAUNCHES)}
+    if not K.LAUNCHES[f"{name}_f64"] or K.LAUNCHES[name]:
+        raise AssertionError(f"{name} float64: launches {dict(K.LAUNCHES)}")
+    plain_ms = cuda_ms(plain_call, reps=1, calls=1)
+    rec = dict(n=n, ng=ng, mode=mode, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=library, launches_timed=launches)
+    log(f"[float64] {name}_f64 at n = {n}, ng = {ng} ({mode} mode): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by})"
+        + (f", library {library:.4f} ms" if library is not None else
+           ", no single library call computes it") + f"; launches {launches}")
+    del args, call, plain_call
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _f64_path_check(ng: int, dev) -> tuple[dict, dict, list]:
+    """The conserving headline physics in float64 at ng, n = F64_CHECK_N:
+    each variant F64_CHECK_STEPS steps on the CPU's plain route from one
+    float64 state (the float32 load cast), and one step on the card from
+    each of the CPU's states, held at TOL64_STEP; rows whose cell differs
+    between the two are left out of p and v (ROADMAP.md queue 3, Fault 3)
+    and counted. Returns the gaps, the card's launches a variant (the
+    counts from 0 just before its card steps) and the problems."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.constants import E_CHARGE, M_ELECTRON
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools.headline import device_load
+
+    f64 = torch.float64
+    cfg0 = headline_config(F64_CHECK_N, ng)
+    x, v = device_load(F64_CHECK_N, cfg0.grid.length, torch.device("cpu"))
+    d = interop.implicit_state_to_numpy(implicit.init_state(
+        x.to(f64), v.to(f64), -E_CHARGE, M_ELECTRON, cfg0, dtype=f64, device="cpu"))
+    gaps, launches, problems = {}, {}, []
+    for label, over in F64_VARIANTS.items():
+        cfg = headline_config(F64_CHECK_N, ng, **over)
+        step = implicit.make_step(cfg)
+        sc = interop.implicit_state_from_numpy(d, "cpu")
+        K.reset_launch_counts()
+        rows = []
+        for i in range(F64_CHECK_STEPS):
+            # the card steps from the CPU's state: one step each, not a
+            # chain, so the sums' order is not compounded
+            sg, mg = step(interop.implicit_state_from_numpy(
+                interop.implicit_state_to_numpy(sc), dev))
+            sc, mc = step(sc)
+            gp = sg.p.cpu()
+            if sg.p.dtype != f64 or sg.e.dtype != f64 or sg.j.dtype != f64:
+                problems.append(f"float64 {label} ng {ng}: the card's state turned "
+                                f"{sg.p.dtype}")
+            moved = torch.floor(gp) != torch.floor(sc.p)
+            keep = ~moved
+            checks = {
+                "p (cells)": seam_err(sc.p[keep], gp[keep], ng),
+                "v": rel_err(sc.v[keep], sg.v.cpu()[keep])[1],
+                "e": rel_err(sc.e, sg.e.cpu())[1],
+                "j": rel_err(sc.j, sg.j.cpu())[1],
+                "field_energy": rel_err(mc.field_energy.reshape(1),
+                                        mg.field_energy.cpu().reshape(1))[1],
+                "kinetic_energy": rel_err(mc.kinetic_energy.reshape(1),
+                                          mg.kinetic_energy.cpu().reshape(1))[1]}
+            bad = {k: x_ for k, x_ in checks.items() if not x_ <= TOL64_STEP[k]}
+            if bad:
+                problems.append(f"float64 {label} ng {ng} step {i + 1}: {bad}")
+            if int(mc.picard_iters) != int(mg.picard_iters):
+                problems.append(f"float64 {label} ng {ng} step {i + 1}: Picard "
+                                f"{int(mc.picard_iters)} on the CPU, {int(mg.picard_iters)} "
+                                "on the card")
+            rows.append(dict(checks, rows_changed_cell=int(moved.sum())))
+        torch.cuda.synchronize()
+        launches[label] = {k: v_ for k, v_ in K.LAUNCHES.items() if v_}
+        launches[label].update({f"large {k}": v_ for k, v_ in K.LARGE_LAUNCHES.items()})
+        gaps[label] = rows
+        log(f"[float64] {label} ng = {ng}, n = {F64_CHECK_N}, the card one step from each "
+            f"of {F64_CHECK_STEPS} CPU states against the CPU's (limits {TOL64_STEP['p (cells)']:.0e} cells, "
+            f"{TOL64_STEP['v']:.0e} relative): " + "; ".join(
+                ", ".join(f"{k} {x_:.2e}" if isinstance(x_, float) else f"{k} {x_}"
+                          for k, x_ in r.items()) for r in rows)
+            + f"; card launches {launches[label]}")
+        del sc, sg
+    return gaps, launches, problems
+
+
+def _f64_refusals(dev) -> list:
+    """A float64 state on the card raises a named NotImplementedError
+    where no float64 kernel exists yet: the explicit, magnetized and
+    sheath engines, deposit_det and run_resident. Returns what did not."""
+    import numpy as np
+
+    from pypic_tpu_torch import presets
+    from pypic_tpu_torch.constants import E_CHARGE, M_ELECTRON
+    from pypic_tpu_torch.engines import explicit, implicit, magnetized, sheath
+    from pypic_tpu_torch.grid import GridSpec
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    f64, problems = torch.float64, []
+    x = np.linspace(0.0, 0.9, 64)
+    v = np.zeros(64)
+    grid = GridSpec(16, 1.0, "periodic")
+    mcfg = presets.pic_iead(n_per_species=64, device="cpu").config
+    scfg = presets.get("sheath_dd", n=64, device="cpu").config
+    cases = {
+        "explicit": lambda: explicit.init_state(
+            x, v, -E_CHARGE, M_ELECTRON, explicit.ExplicitConfig(grid, 1e-9, 1.0),
+            dtype=f64, device=dev),
+        "magnetized": lambda: magnetized.init_state(
+            x * mcfg.grid.length, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0, mcfg,
+            dtype=f64, device=dev),
+        "sheath": lambda: sheath.init_state(
+            x * scfg.grid.length, np.zeros((64, 3)), -E_CHARGE, M_ELECTRON,
+            np.zeros(64, np.int32), scfg, dtype=f64, device=dev),
+        "deposit_det": lambda: K.deposit_det(
+            torch.zeros(64, dtype=f64, device=dev), torch.ones(64, dtype=f64, device=dev),
+            16, periodic=True),
+        "run_resident": lambda: implicit.run_resident(
+            implicit.ImplicitConfig(grid, 1e-9, 1.0), implicit.init_state(
+                x, v, -E_CHARGE, M_ELECTRON, implicit.ImplicitConfig(grid, 1e-9, 1.0),
+                dtype=f64, device=dev), 2),
+    }
+    for what, call in cases.items():
+        try:
+            call()
+            problems.append(f"{what}: a float64 state on the card ran")
+        except NotImplementedError as err:
+            if "item 19" not in str(err):
+                problems.append(f"{what}: {err} names no ROADMAP item")
+            else:
+                log(f"[float64] {what} refuses float64 on the card: {err}")
+    return problems
+
+
+def phase_float64(dev) -> dict:
+    """Phase 42 (module docstring). Returns the double kernels' records
+    by mode, the path checks and launches, the headline's ms/step in both
+    dtypes; fails on a disagreement, on a float64 kernel that never
+    launched on its path, or on a refusal that did not raise."""
+    import dataclasses
+
+    from pypic_tpu_torch.engines import implicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    res = {"kernels": {}}
+    for mode, (n, ng) in F64_SHAPES.items():
+        for name in F64_ROWS:
+            rec = _f64_case(name, n, ng, gen, dev)
+            if rec["mode"] != mode:
+                raise AssertionError(f"{name} float64 at ng {ng}: mode {rec['mode']}")
+            res["kernels"].setdefault(name, {})[mode] = rec
+    problems = []
+    res["check"], res["check_launches"] = {}, {}
+    for ng in F64_PATH_NGS:
+        gaps, launches, bad = _f64_path_check(ng, dev)
+        res["check"][f"ng {ng}"], res["check_launches"][f"ng {ng}"] = gaps, launches
+        problems += bad
+
+    # the headline cell at n = N_HEADLINE in both dtypes, timed in turns
+    states, steps, windows, launches = {}, {}, {"float32": [], "float64": []}, {}
+    for label, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        K.reset_launch_counts()
+        cfg, steps[label], states[label] = headline_state(N_HEADLINE, dev, dtype=dtype)
+        states[label], _ = run(steps[label], states[label], 1)
+        torch.cuda.synchronize()
+        launches[label] = dict(K.LAUNCHES)
+    for _ in range(F64_WINDOWS):
+        for label in windows:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            states[label], m = run(steps[label], states[label], F64_WINDOW_STEPS)
+            torch.cuda.synchronize()
+            windows[label].append((time.perf_counter() - t0) * 1e3 / F64_WINDOW_STEPS)
+            for k, v_ in K.LAUNCHES.items():
+                launches[label][k] += v_
+            if m.picard_iters.tolist() != [4] * F64_WINDOW_STEPS:
+                problems.append(f"headline {label}: Picard {m.picard_iters.tolist()}")
+    for label, st in states.items():
+        if not (bool(torch.isfinite(st.p).all()) and bool(torch.isfinite(st.e).all())):
+            problems.append(f"headline {label}: non-finite state")
+    if states["float64"].p.dtype != torch.float64:
+        problems.append(f"headline float64: the state turned {states['float64'].p.dtype}")
+    res["headline"] = {label: dict(ms_per_step=statistics.median(w), windows=w,
+                                   launches={k: v_ for k, v_ in launches[label].items() if v_})
+                       for label, w in windows.items()}
+    log(f"[float64] headline n = {N_HEADLINE}, ng = {NG}, conserving: float32 "
+        f"{res['headline']['float32']['ms_per_step']:.4f} ms/step (windows "
+        + ", ".join(f"{w:.4f}" for w in windows["float32"]) + "), float64 "
+        f"{res['headline']['float64']['ms_per_step']:.4f} ms/step (windows "
+        + ", ".join(f"{w:.4f}" for w in windows["float64"]) + f") in turns of "
+        f"{F64_WINDOW_STEPS} steps after set-up and one; launches "
+        f"{res['headline']['float64']['launches']}")
+    del states, steps
+    torch.cuda.empty_cache()
+
+    # each double kernel's launches on its path: the headline's for the
+    # pass, the finalize and the set-up deposit, the ng = 200 checks' for
+    # the shared window, converged-deposit and composed (gather)
+    at = res["check_launches"][f"ng {NG}"]
+    path = {"picard_iteration": res["headline"]["float64"]["launches"],
+            "picard_finalize_nodep": res["headline"]["float64"]["launches"],
+            "deposit": res["headline"]["float64"]["launches"],
+            "picard_iteration_shared": at["shared"], "picard_finalize": at["converged-deposit"],
+            "gather": at["composed"]}
+    res["launches"] = {name: path[name].get(f"{name}_f64", 0) for name in F64_ROWS}
+    missing = [name for name, c in res["launches"].items() if not c]
+    if missing:
+        problems.append(f"float64 kernels never launched on their paths: {missing}")
+    if any(res["headline"]["float64"]["launches"].get(name) for name in F64_ROWS):
+        problems.append("the float64 headline launched a float32 kernel: "
+                        f"{res['headline']['float64']['launches']}")
+    big = res["check_launches"]["ng 65536"]
+    res["global_launches"] = {label: {k: v_ for k, v_ in c.items() if k.startswith("large")}
+                              for label, c in big.items()}
+    if not all(res["global_launches"].values()):
+        problems.append(f"float64 at 65,536: no global-mode launch {res['global_launches']}")
+    log(f"[float64] the double kernels' launches on their paths {res['launches']}; "
+        f"global-mode launches at 65,536 {res['global_launches']}")
+    problems += _f64_refusals(dev)
+    if problems:
+        raise AssertionError("float64: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -8106,6 +8500,7 @@ def main() -> int:
     lg = phase("large grids", phase_large_grids, dev)
     lgs = phase("large sheath", phase_large_sheath, dev)
     lgp = phase("large periodic", phase_large_periodic, dev)
+    f64 = phase("float64", phase_float64, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -8206,6 +8601,17 @@ def main() -> int:
             "fixed_us", "k", "threads", "large_mode")
             if key in records[kname]}}
         for kname in REPLACES
+    ] + [
+        # the double kernels of a float64 state (phase 42): the record of
+        # the shared mode at the headline's shape, the global mode's beside
+        {"name": f"{kname}_f64", "route": "cuda",
+         "source": ("pypic_tpu_torch/csrc/explicit.cu" if kname == "gather"
+                    else "pypic_tpu_torch/csrc/cic.cu"),
+         "replaces": REPLACES[kname], "launches": f64["launches"][kname],
+         **{key: f64["kernels"][kname]["shared"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n")},
+         "dtype": "float64", "global_mode": f64["kernels"][kname]["global"]}
+        for kname in F64_ROWS
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the
         # JAX engine takes them from jax.random)
@@ -8335,6 +8741,7 @@ def main() -> int:
         "large_grids": {k: v for k, v in lg.items() if k != "launches"},
         "large_sheath": {k: v for k, v in lgs.items() if k not in ("launches", "kernels")},
         "large_periodic": {k: v for k, v in lgp.items() if k != "kernels"},
+        "float64": {k: v for k, v in f64.items() if k != "kernels"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

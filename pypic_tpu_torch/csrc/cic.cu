@@ -28,6 +28,23 @@
 //   deposit_det_kernel sums in a fixed order instead.
 // * A launcher returns cudaGetLastError(); it allocates nothing and runs
 //   on the stream it is given.
+// * A float64 state (rows 1-5 here, the gather in explicit.cu): each
+//   template takes the element type T last, and the `_f64` entry points
+//   launch its double instantiations (every scalar passed as a double).
+//   The float instantiations compile to the code they compiled to before
+//   T (tools/sass_diff.py: the SASS of all 46 float kernels of cic.cu and
+//   explicit.cu identical). In double the field, the particles and every
+//   accumulator are double, each operation rounded once (mul_rn, add_rn,
+//   sub_rn), so a double pass equals its float64 plain version but for
+//   the order of its sums; the shared window's clamp count stays an exact
+//   int. The shared arrays take 8 B a node, so the shared mode ends at
+//   half the float ceilings (ops/cuda_cic.py sweep_launch and
+//   deposit_launch_shape with item 8). A global double add compiles to
+//   REDG.E.ADD.F64.RN; a shared-memory one to a compare-and-swap loop
+//   (ATOMS.CAST.SPIN.64), as the float ones do (ATOMS.CAST.SPIN). Bound
+//   on the H100: twice the float kernels' bytes a row (1e8 rows at ng
+//   200: row 1 0.955 ms, row 3 1.194, row 4 0.478); the operations at
+//   the card's float64 rate (33.5 TFLOP/s) stay below it.
 
 #include "cic_common.cuh"
 
@@ -72,68 +89,67 @@ namespace {
 // Bound there: the rows' 16 B (20 with EMIT_V), plus the field read and
 // jh written once: 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool EMIT_V, bool SHARED, int MODE>
+template <bool EMIT_V, bool SHARED, int MODE, typename T>
 __global__ void picard_iteration_kernel(
-    const float* __restrict__ field, const float* __restrict__ ps,
-    const float* __restrict__ p0, const float* __restrict__ v0,
-    float* __restrict__ ph_out, float* __restrict__ v1_out,
-    float* __restrict__ jh, int* __restrict__ n_clamped, long long n, int ng,
-    float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
-    int win_stride, int width, int num_k, float inv_stride) {
-  extern __shared__ float smem[];
-  float* s_field = smem;
-  float* s_hist = smem + ng;
+    const T* __restrict__ field, const T* __restrict__ ps, const T* __restrict__ p0,
+    const T* __restrict__ v0, T* __restrict__ ph_out, T* __restrict__ v1_out,
+    T* __restrict__ jh, int* __restrict__ n_clamped, long long n, int ng, T qm_dt,
+    T qm_dt2_half, T dt_dx, T w, T inv_ng, int win_stride, int width, int num_k,
+    T inv_stride) {
+  T* s_field = dynamic_smem<T>();
+  T* s_hist = s_field + ng;
   __shared__ int s_clamped;
   if (MODE == kShared) {
     for (int i = threadIdx.x; i < ng; i += blockDim.x) {
       s_field[i] = field[i];
-      s_hist[i] = 0.0f;
+      s_hist[i] = (T)0;
     }
   }
-  float* hist = MODE == kShared ? s_hist : jh;
+  T* hist = MODE == kShared ? s_hist : jh;
   if (SHARED && threadIdx.x == 0) s_clamped = 0;
   __syncthreads();
-  const float ngf = (float)ng;
-  const float top = (float)(width - 1);
+  const T ngf = (T)ng;
+  const T top = (T)(width - 1);
+  const T half = (T)0.5;
   int clamped = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float s = ps[i];
-    const float a = p0[i];
-    const float b = v0[i];
-    const float e = gather_mode<MODE>(s_field, field, cic_periodic(s, ng));
-    float p1, v1;
+    const T s = ps[i];
+    const T a = p0[i];
+    const T b = v0[i];
+    const T e = gather_mode<MODE>(s_field, field, cic_periodic(s, ng));
+    T p1, v1;
     cn_push(a, b, e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
-    const float raw = __fmul_rn(0.5f, __fadd_rn(a, p1));
-    const float vh = __fmul_rn(0.5f, __fadd_rn(b, v1));
-    const float h = wrap(raw, ngf, inv_ng);
+    const T raw = mul_rn(half, add_rn(a, p1));
+    const T vh = mul_rn(half, add_rn(b, v1));
+    const T h = wrap(raw, ngf, inv_ng);
     ph_out[i] = h;
     if (EMIT_V) v1_out[i] = v1;
-    const float val = __fmul_rn(w, vh);
-    Cic c;
+    const T val = mul_rn(w, vh);
+    CicT<T> c;
     if (SHARED) {
       // the gather's window and the midpoint's row in it
-      const int k = min(max((int)__fmul_rn(floorf(s), inv_stride), 0), num_k - 1);
-      const float d_s = __fadd_rn(__fsub_rn(s, (float)(k * win_stride)), 1.0f);
-      float delta = __fsub_rn(raw, s);
-      delta = __fsub_rn(delta, __fmul_rn(rintf(__fmul_rn(delta, inv_ng)), ngf));
-      float d_h = __fadd_rn(d_s, delta);
-      if (d_h < 0.0f || d_h > top) {
+      const int k = min(max((int)mul_rn(floor_of(s), inv_stride), 0), num_k - 1);
+      const T d_s = add_rn(sub_rn(s, (T)(k * win_stride)), (T)1);
+      T delta = sub_rn(raw, s);
+      delta = sub_rn(delta, mul_rn(rint_of(mul_rn(delta, inv_ng)), ngf));
+      T d_h = add_rn(d_s, delta);
+      if (d_h < (T)0 || d_h > top) {
         ++clamped;
-        d_h = fminf(fmaxf(d_h, 0.0f), top);
+        d_h = clamp_to(d_h, (T)0, top);
       }
-      const int row = min((int)floorf(d_h), width - 2);
-      c.wr = __fsub_rn(d_h, (float)row);
-      c.wl = __fsub_rn(1.0f, c.wr);
+      const int row = min((int)floor_of(d_h), width - 2);
+      c.wr = sub_rn(d_h, (T)row);
+      c.wl = sub_rn((T)1, c.wr);
       c.l = (win_stride * k + row - 1) % ng;
       if (c.l < 0) c.l += ng;
       c.r = c.l + 1 == ng ? 0 : c.l + 1;
     } else {
       c = cic_periodic(h, ng);
     }
-    atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
-    atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
+    atomicAdd(&hist[c.l], mul_rn(val, c.wl));
+    atomicAdd(&hist[c.r], mul_rn(val, c.wr));
   }
   if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
   __syncthreads();
@@ -163,39 +179,37 @@ __global__ void picard_iteration_kernel(
 // the zeroed j1. Bound there: the rows' 20 B, plus the field read and j1
 // written once (DEPOSIT): up to 8 B a node.
 // ---------------------------------------------------------------------------
-template <bool DEPOSIT, int MODE>
+template <bool DEPOSIT, int MODE, typename T>
 __global__ void picard_finalize_kernel(
-    const float* __restrict__ field, const float* __restrict__ ps,
-    const float* __restrict__ p0, const float* __restrict__ v0,
-    float* __restrict__ p1_out, float* __restrict__ v1_out,
-    float* __restrict__ j1, long long n, int ng, float qm_dt,
-    float qm_dt2_half, float dt_dx, float w, float inv_ng) {
-  extern __shared__ float smem[];
-  float* s_field = smem;
-  float* s_hist = smem + ng;
+    const T* __restrict__ field, const T* __restrict__ ps, const T* __restrict__ p0,
+    const T* __restrict__ v0, T* __restrict__ p1_out, T* __restrict__ v1_out,
+    T* __restrict__ j1, long long n, int ng, T qm_dt, T qm_dt2_half, T dt_dx, T w,
+    T inv_ng) {
+  T* s_field = dynamic_smem<T>();
+  T* s_hist = s_field + ng;
   if (MODE == kShared) {
     for (int i = threadIdx.x; i < ng; i += blockDim.x) {
       s_field[i] = field[i];
-      if (DEPOSIT) s_hist[i] = 0.0f;
+      if (DEPOSIT) s_hist[i] = (T)0;
     }
   }
-  float* hist = MODE == kShared ? s_hist : j1;
+  T* hist = MODE == kShared ? s_hist : j1;
   __syncthreads();
-  const float ngf = (float)ng;
+  const T ngf = (T)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float e = gather_mode<MODE>(s_field, field, cic_periodic(ps[i], ng));
-    float p1, v1;
+    const T e = gather_mode<MODE>(s_field, field, cic_periodic(ps[i], ng));
+    T p1, v1;
     cn_push(p0[i], v0[i], e, qm_dt, qm_dt2_half, dt_dx, p1, v1);
     p1 = wrap(p1, ngf, inv_ng);
     p1_out[i] = p1;
     v1_out[i] = v1;
     if (DEPOSIT) {
-      const float val = __fmul_rn(w, v1);
-      const Cic c = cic_periodic(p1, ng);
-      atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
-      atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
+      const T val = mul_rn(w, v1);
+      const CicT<T> c = cic_periodic(p1, ng);
+      atomicAdd(&hist[c.l], mul_rn(val, c.wl));
+      atomicAdd(&hist[c.r], mul_rn(val, c.wr));
     }
   }
   if (DEPOSIT && MODE == kShared) {
@@ -204,41 +218,56 @@ __global__ void picard_finalize_kernel(
   }
 }
 
-// Launches picard_iteration_kernel<EMIT_V, SHARED, mode> after the
+// Launches picard_iteration_kernel<EMIT_V, SHARED, mode, T> after the
 // shared-memory opt-in.
-template <bool EMIT_V, bool SHARED>
+template <bool EMIT_V, bool SHARED, typename T>
 cudaError_t launch_iteration(int mode, int blocks, int threads, cudaStream_t s,
-                             const float* field, const float* ps,
-                             const float* p0, const float* v0, float* ph,
-                             float* v1, float* jh, int* n_clamped, long long n,
-                             int ng, float qm_dt, float qm_dt2_half,
-                             float dt_dx, float w, float inv_ng, int win_stride,
-                             int width, int num_k, float inv_stride) {
+                             const T* field, const T* ps, const T* p0, const T* v0,
+                             T* ph, T* v1, T* jh, int* n_clamped, long long n, int ng,
+                             T qm_dt, T qm_dt2_half, T dt_dx, T w, T inv_ng,
+                             int win_stride, int width, int num_k, T inv_stride) {
   return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
-    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(float);
-    cudaError_t err = allow_smem(picard_iteration_kernel<EMIT_V, SHARED, MODE>, smem);
+    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(T);
+    cudaError_t err = allow_smem(picard_iteration_kernel<EMIT_V, SHARED, MODE, T>, smem);
     if (err != cudaSuccess) return err;
-    picard_iteration_kernel<EMIT_V, SHARED, MODE><<<blocks, threads, smem, s>>>(
+    picard_iteration_kernel<EMIT_V, SHARED, MODE, T><<<blocks, threads, smem, s>>>(
         field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
         dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
     return cudaGetLastError();
   });
 }
 
-template <bool DEPOSIT>
+// The launcher of either pass (SHARED: the shared window), with or
+// without v1: one body for the float and double entry points.
+template <bool SHARED, typename T>
+cudaError_t launch_pass(int mode, int blocks, int threads, cudaStream_t s,
+                        const T* field, const T* ps, const T* p0, const T* v0, T* ph,
+                        T* v1, T* jh, int* n_clamped, long long n, int ng, T qm_dt,
+                        T qm_dt2_half, T dt_dx, T w, T inv_ng, int win_stride,
+                        int width, int num_k, T inv_stride) {
+  if (v1 != nullptr)
+    return launch_iteration<true, SHARED>(mode, blocks, threads, s, field, ps, p0, v0, ph,
+                                          v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+                                          dt_dx, w, inv_ng, win_stride, width, num_k,
+                                          inv_stride);
+  return launch_iteration<false, SHARED>(mode, blocks, threads, s, field, ps, p0, v0, ph,
+                                         v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+                                         dt_dx, w, inv_ng, win_stride, width, num_k,
+                                         inv_stride);
+}
+
+template <bool DEPOSIT, typename T>
 cudaError_t launch_finalize(int mode, int blocks, int threads, cudaStream_t s,
-                            const float* field, const float* ps,
-                            const float* p0, const float* v0, float* p1,
-                            float* v1, float* j1, long long n, int ng,
-                            float qm_dt, float qm_dt2_half, float dt_dx,
-                            float w, float inv_ng) {
+                            const T* field, const T* ps, const T* p0, const T* v0,
+                            T* p1, T* v1, T* j1, long long n, int ng, T qm_dt,
+                            T qm_dt2_half, T dt_dx, T w, T inv_ng) {
   return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
-    const size_t smem = mode_floats(MODE, DEPOSIT ? 2 : 1, ng) * sizeof(float);
-    cudaError_t err = allow_smem(picard_finalize_kernel<DEPOSIT, MODE>, smem);
+    const size_t smem = mode_floats(MODE, DEPOSIT ? 2 : 1, ng) * sizeof(T);
+    cudaError_t err = allow_smem(picard_finalize_kernel<DEPOSIT, MODE, T>, smem);
     if (err != cudaSuccess) return err;
-    picard_finalize_kernel<DEPOSIT, MODE><<<blocks, threads, smem, s>>>(
+    picard_finalize_kernel<DEPOSIT, MODE, T><<<blocks, threads, smem, s>>>(
         field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt, qm_dt2_half, dt_dx, w, inv_ng);
     return cudaGetLastError();
   });
@@ -287,26 +316,27 @@ cudaError_t launch_finalize(int mode, int blocks, int threads, cudaStream_t s,
 // ---------------------------------------------------------------------------
 
 // h[at] += v, unless v is exactly 0
-__device__ __forceinline__ void add_nonzero(float* h, int at, float v) {
-  if (v != 0.0f) atomicAdd(h + at, v);
+template <typename T>
+__device__ __forceinline__ void add_nonzero(T* h, int at, T v) {
+  if (v != (T)0) atomicAdd(h + at, v);
 }
 
-template <bool PERIODIC, int ROWS, bool VEC>
+template <bool PERIODIC, int ROWS, bool VEC, typename T>
 __global__ void __launch_bounds__(1024, 1)
-    deposit_kernel(const float* __restrict__ p, const float* __restrict__ values,
-                   float* __restrict__ out, long long n, int ng, int cols) {
+    deposit_kernel(const T* __restrict__ p, const T* __restrict__ values,
+                   T* __restrict__ out, long long n, int ng, int cols) {
   extern __shared__ float4 smem4[];
-  float* h = reinterpret_cast<float*>(smem4);
+  T* h = reinterpret_cast<T*>(smem4);
   zero_shared(h, ng * cols);
   __syncthreads();
   if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      const float val = values[i];
-      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-      add_nonzero(h, c.l, __fmul_rn(val, c.wl));
-      add_nonzero(h, c.r, __fmul_rn(val, c.wr));
+      const T val = values[i];
+      const CicT<T> c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      add_nonzero(h, c.l, mul_rn(val, c.wl));
+      add_nonzero(h, c.r, mul_rn(val, c.wr));
     }
   } else {  // wide: groups of four rows, lane columns
     const int col = threadIdx.x & (cols - 1);
@@ -315,19 +345,20 @@ __global__ void __launch_bounds__(1024, 1)
     const long long end = min(n, 4 * hi);
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
-      const float4 v4 = load4<VEC>(values, i, end, 0.0f);
+      const auto p4 = load4<VEC>(p, i, end, (T)0);
+      const auto v4 = load4<VEC>(values, i, end, (T)0);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (i + r >= end) break;
-        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-        const float val = get(v4, r);
-        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));
-        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));
+        const CicT<T> c =
+            PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const T val = get(v4, r);
+        add_nonzero(h, c.l * cols + col, mul_rn(val, c.wl));
+        add_nonzero(h, c.r * cols + col, mul_rn(val, c.wr));
       }
     }
   }
-  flush_columns<ROWS, 1, true>(h, ng, cols, out, nullptr);
+  flush_columns<ROWS, 1, true, T>(h, ng, cols, out, nullptr);
 }
 
 // The large mode (deposit_launch_shape's cols 0: above 58,112 nodes, where
@@ -335,18 +366,18 @@ __global__ void __launch_bounds__(1024, 1)
 // thread, no shared histogram, each nonzero product a global float atomic
 // into the zeroed out (4 B a node: 16 MiB at 2^22 nodes, in L2 up to
 // ~12.5 M nodes). Bound: the rows' 8 B and the node's 4 B written once.
-template <bool PERIODIC, int ROWS, bool VEC>
+template <bool PERIODIC, int ROWS, bool VEC, typename T>
 __global__ void __launch_bounds__(1024, 1)
-    deposit_global_kernel(const float* __restrict__ p, const float* __restrict__ values,
-                          float* __restrict__ out, long long n, int ng) {
+    deposit_global_kernel(const T* __restrict__ p, const T* __restrict__ values,
+                          T* __restrict__ out, long long n, int ng) {
   if (ROWS == 1) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      const float val = values[i];
-      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-      add_nonzero(out, c.l, __fmul_rn(val, c.wl));
-      add_nonzero(out, c.r, __fmul_rn(val, c.wr));
+      const T val = values[i];
+      const CicT<T> c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      add_nonzero(out, c.l, mul_rn(val, c.wl));
+      add_nonzero(out, c.r, mul_rn(val, c.wr));
     }
   } else {
     long long lo, hi;
@@ -354,18 +385,62 @@ __global__ void __launch_bounds__(1024, 1)
     const long long end = min(n, 4 * hi);
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
-      const float4 v4 = load4<VEC>(values, i, end, 0.0f);
+      const auto p4 = load4<VEC>(p, i, end, (T)0);
+      const auto v4 = load4<VEC>(values, i, end, (T)0);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (i + r >= end) break;
-        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-        const float val = get(v4, r);
-        add_nonzero(out, c.l, __fmul_rn(val, c.wl));
-        add_nonzero(out, c.r, __fmul_rn(val, c.wr));
+        const CicT<T> c =
+            PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const T val = get(v4, r);
+        add_nonzero(out, c.l, mul_rn(val, c.wl));
+        add_nonzero(out, c.r, mul_rn(val, c.wr));
       }
     }
   }
+}
+
+// The launch of either deposit of one histogram (deposit_launch_shape:
+// cols 0 the large mode), for the float and double entry points.
+template <typename T>
+cudaError_t launch_deposit(const T* p, const T* values, T* out, long long n, int ng,
+                           int periodic, int rows, int blocks, int threads, int cols,
+                           cudaStream_t s) {
+  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)ng * cols * sizeof(T);
+  const bool vec = aligned16(p) && aligned16(values);
+  cudaError_t err;
+  if (cols == 0) {  // the large mode
+#define PYPIC_DEPOSIT_GLOBAL(PER, ROWS, VEC)                                     \
+  deposit_global_kernel<PER, ROWS, VEC, T><<<blocks, threads, 0, s>>>(p, values, \
+                                                                     out, n, ng); \
+  return cudaGetLastError()
+    if (periodic) {
+      if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(true, 1, false); }
+      if (vec) { PYPIC_DEPOSIT_GLOBAL(true, 4, true); }
+      PYPIC_DEPOSIT_GLOBAL(true, 4, false);
+    }
+    if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(false, 1, false); }
+    if (vec) { PYPIC_DEPOSIT_GLOBAL(false, 4, true); }
+    PYPIC_DEPOSIT_GLOBAL(false, 4, false);
+#undef PYPIC_DEPOSIT_GLOBAL
+  }
+#define PYPIC_DEPOSIT(PER, ROWS, VEC)                                            \
+  err = allow_smem(deposit_kernel<PER, ROWS, VEC, T>, smem);                     \
+  if (err != cudaSuccess) return err;                                            \
+  deposit_kernel<PER, ROWS, VEC, T><<<blocks, threads, smem, s>>>(p, values, out, \
+                                                                 n, ng, cols);   \
+  return cudaGetLastError()
+  if (periodic) {
+    if (rows == 1) { PYPIC_DEPOSIT(true, 1, false); }
+    if (vec) { PYPIC_DEPOSIT(true, 4, true); }
+    PYPIC_DEPOSIT(true, 4, false);
+  }
+  if (rows == 1) { PYPIC_DEPOSIT(false, 1, false); }
+  if (vec) { PYPIC_DEPOSIT(false, 4, true); }
+  PYPIC_DEPOSIT(false, 4, false);
+#undef PYPIC_DEPOSIT
 }
 
 // ---------------------------------------------------------------------------
@@ -475,15 +550,21 @@ int pypic_picard_iteration(const float* field, const float* ps, const float* p0,
                            long long n, int ng, float qm_dt, float qm_dt2_half,
                            float dt_dx, float w, float inv_ng, int mode,
                            int blocks, int threads, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(v1 != nullptr
-      ? launch_iteration<true, false>(mode, blocks, threads, s, field, ps, p0, v0,
-                                      ph, v1, jh, nullptr, n, ng, qm_dt,
-                                      qm_dt2_half, dt_dx, w, inv_ng, 0, 0, 0, 0.0f)
-      : launch_iteration<false, false>(mode, blocks, threads, s, field, ps, p0, v0,
-                                       ph, nullptr, jh, nullptr, n, ng, qm_dt,
-                                       qm_dt2_half, dt_dx, w, inv_ng, 0, 0, 0,
-                                       0.0f));
+  return (int)launch_pass<false>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                                 p0, v0, ph, v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
+                                 dt_dx, w, inv_ng, 0, 0, 0, 0.0f);
+}
+
+// The double pass (a float64 state): every pointer to doubles, every
+// scalar a double (its _SIGNATURES entry passes them as c_double).
+int pypic_picard_iteration_f64(const double* field, const double* ps, const double* p0,
+                               const double* v0, double* ph, double* v1, double* jh,
+                               long long n, int ng, double qm_dt, double qm_dt2_half,
+                               double dt_dx, double w, double inv_ng, int mode,
+                               int blocks, int threads, void* stream) {
+  return (int)launch_pass<false>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                                 p0, v0, ph, v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
+                                 dt_dx, w, inv_ng, 0, 0, 0, 0.0);
 }
 
 // mode: 0 shared, 1 global.
@@ -493,8 +574,18 @@ int pypic_picard_finalize_nodep(const float* field, const float* ps,
                                 float qm_dt2_half, float dt_dx, float inv_ng,
                                 int mode, int blocks, int threads, void* stream) {
   return (int)launch_finalize<false>(mode, blocks, threads, (cudaStream_t)stream,
-                                     field, ps, p0, v0, p1, v1, nullptr, n, ng,
+                                     field, ps, p0, v0, p1, v1, (float*)nullptr, n, ng,
                                      qm_dt, qm_dt2_half, dt_dx, 0.0f, inv_ng);
+}
+
+int pypic_picard_finalize_nodep_f64(const double* field, const double* ps,
+                                    const double* p0, const double* v0, double* p1,
+                                    double* v1, long long n, int ng, double qm_dt,
+                                    double qm_dt2_half, double dt_dx, double inv_ng,
+                                    int mode, int blocks, int threads, void* stream) {
+  return (int)launch_finalize<false>(mode, blocks, threads, (cudaStream_t)stream,
+                                     field, ps, p0, v0, p1, v1, (double*)nullptr, n, ng,
+                                     qm_dt, qm_dt2_half, dt_dx, 0.0, inv_ng);
 }
 
 // j1: ng zeroed floats.
@@ -508,6 +599,17 @@ int pypic_picard_finalize(const float* field, const float* ps, const float* p0,
                                     qm_dt2_half, dt_dx, w, inv_ng);
 }
 
+// j1: ng zeroed doubles.
+int pypic_picard_finalize_f64(const double* field, const double* ps, const double* p0,
+                              const double* v0, double* p1, double* v1, double* j1,
+                              long long n, int ng, double qm_dt, double qm_dt2_half,
+                              double dt_dx, double w, double inv_ng, int mode,
+                              int blocks, int threads, void* stream) {
+  return (int)launch_finalize<true>(mode, blocks, threads, (cudaStream_t)stream,
+                                    field, ps, p0, v0, p1, v1, j1, n, ng, qm_dt,
+                                    qm_dt2_half, dt_dx, w, inv_ng);
+}
+
 // jh: ng zeroed floats; n_clamped: one zeroed int.
 int pypic_picard_iteration_shared(
     const float* field, const float* ps, const float* p0, const float* v0,
@@ -515,16 +617,21 @@ int pypic_picard_iteration_shared(
     float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
     int win_stride, int width, int num_k, float inv_stride, int mode, int blocks,
     int threads, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(v1 != nullptr
-      ? launch_iteration<true, true>(mode, blocks, threads, s, field, ps, p0, v0,
-                                     ph, v1, jh, n_clamped, n, ng, qm_dt,
-                                     qm_dt2_half, dt_dx, w, inv_ng, win_stride,
-                                     width, num_k, inv_stride)
-      : launch_iteration<false, true>(mode, blocks, threads, s, field, ps, p0, v0,
-                                      ph, nullptr, jh, n_clamped, n, ng, qm_dt,
-                                      qm_dt2_half, dt_dx, w, inv_ng, win_stride,
-                                      width, num_k, inv_stride));
+  return (int)launch_pass<true>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                                p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+                                dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
+}
+
+// jh: ng zeroed doubles; n_clamped: one zeroed int.
+int pypic_picard_iteration_shared_f64(
+    const double* field, const double* ps, const double* p0, const double* v0,
+    double* ph, double* v1, double* jh, int* n_clamped, long long n, int ng,
+    double qm_dt, double qm_dt2_half, double dt_dx, double w, double inv_ng,
+    int win_stride, int width, int num_k, double inv_stride, int mode, int blocks,
+    int threads, void* stream) {
+  return (int)launch_pass<true>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                                p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
+                                dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
 }
 
 // out: ng zeroed floats; rows, blocks, threads and cols from
@@ -533,42 +640,16 @@ int pypic_picard_iteration_shared(
 int pypic_deposit(const float* p, const float* values, float* out, long long n,
                   int ng, int periodic, int rows, int blocks, int threads,
                   int cols, void* stream) {
-  if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)ng * cols * sizeof(float);
-  const bool vec = aligned16(p) && aligned16(values);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (cols == 0) {  // the large mode
-#define PYPIC_DEPOSIT_GLOBAL(PER, ROWS, VEC)                                    \
-  deposit_global_kernel<PER, ROWS, VEC><<<blocks, threads, 0, s>>>(p, values,  \
-                                                                  out, n, ng); \
-  return (int)cudaGetLastError()
-    if (periodic) {
-      if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(true, 1, false); }
-      if (vec) { PYPIC_DEPOSIT_GLOBAL(true, 4, true); }
-      PYPIC_DEPOSIT_GLOBAL(true, 4, false);
-    }
-    if (rows == 1) { PYPIC_DEPOSIT_GLOBAL(false, 1, false); }
-    if (vec) { PYPIC_DEPOSIT_GLOBAL(false, 4, true); }
-    PYPIC_DEPOSIT_GLOBAL(false, 4, false);
-#undef PYPIC_DEPOSIT_GLOBAL
-  }
-#define PYPIC_DEPOSIT(PER, ROWS, VEC)                                           \
-  err = allow_smem(deposit_kernel<PER, ROWS, VEC>, smem);                       \
-  if (err != cudaSuccess) return (int)err;                                      \
-  deposit_kernel<PER, ROWS, VEC><<<blocks, threads, smem, s>>>(p, values, out,  \
-                                                              n, ng, cols);     \
-  return (int)cudaGetLastError()
-  if (periodic) {
-    if (rows == 1) { PYPIC_DEPOSIT(true, 1, false); }
-    if (vec) { PYPIC_DEPOSIT(true, 4, true); }
-    PYPIC_DEPOSIT(true, 4, false);
-  }
-  if (rows == 1) { PYPIC_DEPOSIT(false, 1, false); }
-  if (vec) { PYPIC_DEPOSIT(false, 4, true); }
-  PYPIC_DEPOSIT(false, 4, false);
-#undef PYPIC_DEPOSIT
+  return (int)launch_deposit(p, values, out, n, ng, periodic, rows, blocks, threads, cols,
+                             (cudaStream_t)stream);
+}
+
+// out: ng zeroed doubles; the shape from deposit_launch_shape(..., item=8).
+int pypic_deposit_f64(const double* p, const double* values, double* out, long long n,
+                      int ng, int periodic, int rows, int blocks, int threads,
+                      int cols, void* stream) {
+  return (int)launch_deposit(p, values, out, n, ng, periodic, rows, blocks, threads, cols,
+                             (cudaStream_t)stream);
 }
 
 // out: ng floats (written whole); partial: blocks * ng floats of scratch;

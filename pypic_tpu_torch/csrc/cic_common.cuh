@@ -11,6 +11,16 @@
 // that nvcc contracts nothing into an FMA: each operation rounds as the
 // plain PyTorch version's separate float32 operations do. No fast-math.
 //
+// The helpers of the periodic grid-stride kernels (cic_periodic,
+// cic_bounded, gather, gather_mode, load_field, wrap, cn_push) and of the
+// wide deposits (load4, zero_shared, flush_columns) take the element type
+// T, float or double, from their arguments: mul_rn, add_rn, sub_rn,
+// floor_of and rint_of are __fmul_rn, __fadd_rn, __fsub_rn, floorf and
+// rintf for float, __dmul_rn, __dadd_rn, __dsub_rn, floor and rint for
+// double. So a float instantiation is the code the float helpers were,
+// and a double one rounds each operation once in double, as the plain
+// versions' float64 operations do (the float64 state, rows 1-6).
+//
 // Each translation unit that includes this header gets its own copy (the
 // helpers live in an anonymous namespace). The deterministic deposits come
 // in two modes: thread columns in shared memory up to their ceiling, int64
@@ -25,39 +35,61 @@
 
 namespace {
 
-struct Cic {
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float floor_of(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_of(double x) { return floor(x); }
+__device__ __forceinline__ float rint_of(float x) { return rintf(x); }
+__device__ __forceinline__ double rint_of(double x) { return rint(x); }
+__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ double clamp_to(double x, double lo, double hi) {
+  return fmin(fmax(x, lo), hi);
+}
+
+template <typename T>
+struct CicT {
   int l, r;
-  float wl, wr;
+  T wl, wr;
 };
+using Cic = CicT<float>;
 
 // Periodic CIC: num_cells == ng, node ng wraps to 0. A position at exactly
 // ng (a wrap of a tiny negative value rounds there) lands with w_r = 1 on
 // node 0.
-__device__ __forceinline__ Cic cic_periodic(float p, int ng) {
-  int l = (int)floorf(p);
+template <typename T>
+__device__ __forceinline__ CicT<T> cic_periodic(T p, int ng) {
+  int l = (int)floor_of(p);
   l = min(max(l, 0), ng - 1);
-  Cic c;
+  CicT<T> c;
   c.l = l;
   c.r = (l + 1 >= ng) ? 0 : l + 1;
-  c.wr = __fsub_rn(p, (float)l);
-  c.wl = __fsub_rn(1.0f, c.wr);
+  c.wr = sub_rn(p, (T)l);
+  c.wl = sub_rn((T)1, c.wr);
   return c;
 }
 
 // Bounded CIC: num_cells == ng - 1, node ng - 1 is the last wall node.
-__device__ __forceinline__ Cic cic_bounded(float p, int ng) {
-  int l = (int)floorf(p);
+template <typename T>
+__device__ __forceinline__ CicT<T> cic_bounded(T p, int ng) {
+  int l = (int)floor_of(p);
   l = min(max(l, 0), ng - 2);
-  Cic c;
+  CicT<T> c;
   c.l = l;
   c.r = l + 1;
-  c.wr = __fsub_rn(p, (float)l);
-  c.wl = __fsub_rn(1.0f, c.wr);
+  c.wr = sub_rn(p, (T)l);
+  c.wl = sub_rn((T)1, c.wr);
   return c;
 }
 
-__device__ __forceinline__ float gather(const float* f, const Cic& c) {
-  return __fadd_rn(__fmul_rn(f[c.l], c.wl), __fmul_rn(f[c.r], c.wr));
+template <typename T>
+__device__ __forceinline__ T gather(const T* f, const CicT<T>& c) {
+  return add_rn(mul_rn(f[c.l], c.wl), mul_rn(f[c.r], c.wr));
 }
 
 // ---------------------------------------------------------------------------
@@ -76,20 +108,18 @@ constexpr int kShared = 0, kGlobal = 1;
 
 // The gather of the mode: the block's copy of the field, or the field in
 // device memory.
-template <int MODE>
-__device__ __forceinline__ float gather_mode(const float* s_field,
-                                             const float* __restrict__ field,
-                                             const Cic& c) {
+template <int MODE, typename T>
+__device__ __forceinline__ T gather_mode(const T* s_field, const T* __restrict__ field,
+                                         const CicT<T>& c) {
   if (MODE == kGlobal)
-    return __fadd_rn(__fmul_rn(__ldg(field + c.l), c.wl), __fmul_rn(__ldg(field + c.r), c.wr));
+    return add_rn(mul_rn(__ldg(field + c.l), c.wl), mul_rn(__ldg(field + c.r), c.wr));
   return gather(s_field, c);
 }
 
 // Copies the field into shared memory unless the mode reads it in place;
 // the caller's barrier follows.
-template <int MODE>
-__device__ __forceinline__ void load_field(float* s_field, const float* __restrict__ field,
-                                           int ng) {
+template <int MODE, typename T>
+__device__ __forceinline__ void load_field(T* s_field, const T* __restrict__ field, int ng) {
   if (MODE == kShared)
     for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
 }
@@ -102,25 +132,42 @@ cudaError_t with_mode(int mode, F f) {
   return cudaErrorInvalidValue;
 }
 
-// Floats of ng nodes a block keeps in shared memory in a mode: `arrays`
+// Elements of ng nodes a block keeps in shared memory in a mode: `arrays`
 // in kShared, none in kGlobal.
 inline size_t mode_floats(int mode, int arrays, int ng) {
   return (size_t)(mode == kShared ? arrays : 0) * ng;
 }
 
+// The block's dynamic shared memory as elements of T: one extern array a
+// type, since one name cannot take two types across the instantiations
+// of a template (names of their own: newton.cu's `smem` is bytes).
+template <typename T>
+__device__ __forceinline__ T* dynamic_smem();
+template <>
+__device__ __forceinline__ float* dynamic_smem<float>() {
+  extern __shared__ float dyn_smem_f32[];
+  return dyn_smem_f32;
+}
+template <>
+__device__ __forceinline__ double* dynamic_smem<double>() {
+  extern __shared__ double dyn_smem_f64[];
+  return dyn_smem_f64;
+}
+
 // Periodic wrap as the TPU kernels write it: x - floor(x * (1/ng)) * ng,
 // not fmodf.
-__device__ __forceinline__ float wrap(float x, float ngf, float inv_ng) {
-  return __fsub_rn(x, __fmul_rn(floorf(__fmul_rn(x, inv_ng)), ngf));
+template <typename T>
+__device__ __forceinline__ T wrap(T x, T ngf, T inv_ng) {
+  return sub_rn(x, mul_rn(floor_of(mul_rn(x, inv_ng)), ngf));
 }
 
 // Crank-Nicolson push from the gathered field e (pypic.py:264-265):
 // p1 = p0 + dt/dx v0 + qm dt^2/(2 dx) e, v1 = v0 + qm dt e.
-__device__ __forceinline__ void cn_push(float p0, float v0, float e,
-                                        float qm_dt, float qm_dt2_half,
-                                        float dt_dx, float& p1, float& v1) {
-  p1 = __fadd_rn(__fadd_rn(p0, __fmul_rn(dt_dx, v0)), __fmul_rn(qm_dt2_half, e));
-  v1 = __fadd_rn(v0, __fmul_rn(qm_dt, e));
+template <typename T>
+__device__ __forceinline__ void cn_push(T p0, T v0, T e, T qm_dt, T qm_dt2_half, T dt_dx,
+                                        T& p1, T& v1) {
+  p1 = add_rn(add_rn(p0, mul_rn(dt_dx, v0)), mul_rn(qm_dt2_half, e));
+  v1 = add_rn(v0, mul_rn(qm_dt, e));
 }
 
 // Block-wide sum of one double (or int64) per thread; every thread gets
@@ -169,6 +216,11 @@ __device__ __forceinline__ void zero_shared(float* h, int count) {
   for (int i = count / 4 * 4 + threadIdx.x; i < count; i += blockDim.x) h[i] = 0.0f;
 }
 
+// `count` doubles: the same bytes zeroed as floats (0.0 is all zero bits).
+__device__ __forceinline__ void zero_shared(double* h, int count) {
+  zero_shared(reinterpret_cast<float*>(h), 2 * count);
+}
+
 // Every thread of the block calls it once, after its last deposit. h:
 // ARRAYS (1 or 2) histograms of ng nodes and `cols` columns (one with ROWS
 // 1), the second at h + ng cols; out_a (out_b): ng zeroed floats. A thread
@@ -177,13 +229,13 @@ __device__ __forceinline__ void zero_shared(float* h, int count) {
 // With SKIP a total of exactly 0 is not added: the outputs start at +0,
 // and x + 0 is x for every x, so the sums are those of adding it (a NaN or
 // Inf total is not 0 and is added).
-template <int ROWS, int ARRAYS, bool SKIP>
-__device__ __forceinline__ void flush_columns(const float* h, int ng, int cols,
-                                              float* out_a, float* out_b) {
+template <int ROWS, int ARRAYS, bool SKIP, typename T>
+__device__ __forceinline__ void flush_columns(const T* h, int ng, int cols, T* out_a,
+                                              T* out_b) {
   __syncthreads();
-  const float* h_b = h + (size_t)ng * cols;
+  const T* h_b = h + (size_t)ng * cols;
   for (int k = threadIdx.x; k < ng; k += blockDim.x) {
-    float a = 0.0f, b = 0.0f;
+    T a = 0, b = 0;
     if (ROWS == 1) {  // the first port's flush: one column
       a = h[k];
       if (ARRAYS == 2) b = h_b[k];
@@ -191,12 +243,12 @@ __device__ __forceinline__ void flush_columns(const float* h, int ng, int cols,
 #pragma unroll 4
       for (int j = 0; j < cols; ++j) {
         const int at = k * cols + ((k + j) & (cols - 1));
-        a = __fadd_rn(a, h[at]);
-        if (ARRAYS == 2) b = __fadd_rn(b, h_b[at]);
+        a = add_rn(a, h[at]);
+        if (ARRAYS == 2) b = add_rn(b, h_b[at]);
       }
     }
-    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);
-    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);
+    if (!SKIP || a != (T)0) atomicAdd(out_a + k, a);
+    if (ARRAYS == 2 && (!SKIP || b != (T)0)) atomicAdd(out_b + k, b);
   }
 }
 
@@ -449,6 +501,32 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ a,
   return v;
 }
 
+// Four doubles, the double rows' counterpart of float4 (no alignment of
+// its own: loaded as two 16-B double2).
+struct Double4 {
+  double x, y, z, w;
+};
+
+template <bool VEC>
+__device__ __forceinline__ Double4 load4(const double* __restrict__ a, long long i,
+                                         long long n, double pad) {
+  Double4 v;
+  if (VEC && i + 3 < n) {
+    const double2 lo = *reinterpret_cast<const double2*>(a + i);
+    const double2 hi = *reinterpret_cast<const double2*>(a + i + 2);
+    v.x = lo.x;
+    v.y = lo.y;
+    v.z = hi.x;
+    v.w = hi.y;
+    return v;
+  }
+  v.x = i < n ? a[i] : pad;
+  v.y = i + 1 < n ? a[i + 1] : pad;
+  v.z = i + 2 < n ? a[i + 2] : pad;
+  v.w = i + 3 < n ? a[i + 3] : pad;
+  return v;
+}
+
 template <bool VEC>
 __device__ __forceinline__ void store4(float* __restrict__ a, long long i,
                                        long long n, float4 v) {
@@ -464,6 +542,10 @@ __device__ __forceinline__ void store4(float* __restrict__ a, long long i,
 
 // Row r of four (r a constant once the loops are unrolled).
 __device__ __forceinline__ float get(const float4& v, int r) {
+  return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ double get(const Double4& v, int r) {
   return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
 }
 

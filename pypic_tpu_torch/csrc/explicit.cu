@@ -132,21 +132,45 @@ __device__ __forceinline__ void leapfrog_deposit_sweep(
 // read-only path (cic_common.cuh); the field (4 B a node: 16 MiB at 2^22)
 // stays in the 50 MB L2. Bound there: the rows' 8 B and the field's 4 B
 // a node read once.
+//
+// T double (a float64 state, pypic_gather_f64): 16 B a row, the shared
+// field to 29,056 nodes, the global mode above (cic.cu's header).
 // ---------------------------------------------------------------------------
-template <bool PERIODIC, int MODE>
-__global__ void gather_kernel(const float* __restrict__ field,
-                              const float* __restrict__ p,
-                              float* __restrict__ out, long long n, int ng) {
-  extern __shared__ float s_field[];
+template <bool PERIODIC, int MODE, typename T>
+__global__ void gather_kernel(const T* __restrict__ field, const T* __restrict__ p,
+                              T* __restrict__ out, long long n, int ng) {
+  T* s_field = dynamic_smem<T>();
   load_field<MODE>(s_field, field, ng);
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float a = p[i];
+    const T a = p[i];
     out[i] = gather_mode<MODE>(s_field, field,
                                PERIODIC ? cic_periodic(a, ng) : cic_bounded(a, ng));
   }
+}
+
+// Launches gather_kernel<periodic, mode, T> after the shared-memory opt-in.
+template <typename T>
+cudaError_t launch_gather(const T* field, const T* p, T* out, long long n, int ng,
+                          int periodic, int mode, int blocks, int threads,
+                          cudaStream_t s) {
+  return with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(T);
+    cudaError_t err;
+    if (periodic) {
+      err = allow_smem(gather_kernel<true, MODE, T>, smem);
+      if (err != cudaSuccess) return err;
+      gather_kernel<true, MODE, T><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
+    } else {
+      err = allow_smem(gather_kernel<false, MODE, T>, smem);
+      if (err != cudaSuccess) return err;
+      gather_kernel<false, MODE, T><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
+    }
+    return cudaGetLastError();
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -604,22 +628,16 @@ extern "C" {
 int pypic_gather(const float* field, const float* p, float* out, long long n,
                  int ng, int periodic, int mode, int blocks, int threads,
                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)with_mode(mode, [&](auto m) {
-    constexpr int MODE = decltype(m)::value;
-    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(float);
-    cudaError_t err;
-    if (periodic) {
-      err = allow_smem(gather_kernel<true, MODE>, smem);
-      if (err != cudaSuccess) return err;
-      gather_kernel<true, MODE><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
-    } else {
-      err = allow_smem(gather_kernel<false, MODE>, smem);
-      if (err != cudaSuccess) return err;
-      gather_kernel<false, MODE><<<blocks, threads, smem, s>>>(field, p, out, n, ng);
-    }
-    return cudaGetLastError();
-  });
+  return (int)launch_gather(field, p, out, n, ng, periodic, mode, blocks, threads,
+                            (cudaStream_t)stream);
+}
+
+// The double gather (a float64 state): mode 0 shared, 1 global.
+int pypic_gather_f64(const double* field, const double* p, double* out, long long n,
+                     int ng, int periodic, int mode, int blocks, int threads,
+                     void* stream) {
+  return (int)launch_gather(field, p, out, n, ng, periodic, mode, blocks, threads,
+                            (cudaStream_t)stream);
 }
 
 // mode: 0 shared, 1 global; rho: ng zeroed floats.

@@ -33,6 +33,11 @@ measure, kinetic energy with one power of p2c), in the pre-push
 convention: the metrics of step k describe the state it started from.
 A step makes no host sync: q and m reach the kernel scalars from a host
 copy taken when the state is built.
+
+A float64 state runs on the CPU (the plain versions, scalars in float64,
+as the JAX engine's under x64); on the card the engine refuses it until
+its kernels have double forms (``cuda_cic.check_engine_dtype``, ROADMAP
+queue 1 item 19c).
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import devices
@@ -147,6 +151,7 @@ def init_state(x, v, q, m, cfg: ExplicitConfig,
             "init_state now takes the ExplicitConfig (it needs p2c for the "
             "initial charge deposit), not a bare GridSpec")
     device = devices.resolve(device, like=x)
+    cuda_cic.check_engine_dtype("explicit", device, dtype)
     grid = cfg.grid
     p = (torch.as_tensor(x, device=device).to(dtype)
          / torch.tensor(grid.dx, dtype=dtype, device=device))
@@ -167,12 +172,14 @@ def refresh_fields(state: ExplicitState, cfg: ExplicitConfig) -> ExplicitState:
 
 def _scalars(state: ExplicitState, cfg: ExplicitConfig):
     """(q/m, w, ke_c, jb_c) from the state's host q/m, as the JAX step
-    computes them in float32: q/m and w = q (p2c / dx) are float32 values;
-    ke_c = p2c m / 2 and jb_c = q p2c / (dx ng) scale the metric sums."""
-    q, m = (np.float32(x) for x in state.qm_host)
+    computes them in the state's dtype: q/m and w = q (p2c / dx) are
+    values of that dtype; ke_c = p2c m / 2 and jb_c = q p2c / (dx ng)
+    scale the metric sums."""
+    real = cuda_cic.real(state.p.dtype)
+    q, m = (real(x) for x in state.qm_host)
     dx = cfg.grid.dx
     qm = float(q / m)
-    w = float(q * np.float32(cfg.p2c * (1.0 / dx)))
+    w = float(q * real(cfg.p2c * (1.0 / dx)))
     return qm, w, 0.5 * cfg.p2c * float(m), float(q) * (cfg.p2c / dx / cfg.grid.ng)
 
 
@@ -199,6 +206,7 @@ def make_step(cfg: ExplicitConfig, mesh=None):
     one_kernel = ng <= ONE_KERNEL_MAX_NG and cfg.axis_name is None
 
     def step(state: ExplicitState):
+        cuda_cic.check_engine_dtype("explicit", state.p.device, state.p.dtype)
         scalar_qm = state.q.dim() == 0 and state.m.dim() == 0
         if cfg.backend == "fused" and not scalar_qm:
             raise ValueError(

@@ -36,6 +36,15 @@ Delta^2 extrapolation over the last three), as the JAX engine's do; the
 fused loop keeps those map outputs on the device and adds no host read.
 ``deposit_method`` picks the standalone deposits' reduction
 (``ops.cic.deposit``).
+
+A float64 state (``init_state(..., dtype=torch.float64)``), as the JAX
+engine runs it under x64: the step's host scalars and the residual test
+round to the state's dtype, as JAX's weakly typed scalars do, and the
+kernels are the double ones of ``ops.cuda_cic`` (rows 1-6) on the card,
+the plain versions on the CPU, on both backends and with every option.
+``run_resident`` takes float32 only, as the JAX engine's (its scan
+carry); 'scatter' and 'matmul' deposits (``deposit_det``) have no double
+kernel yet and raise on the card.
 """
 
 from __future__ import annotations
@@ -190,8 +199,6 @@ def make_step(cfg: ImplicitConfig, mesh=None):
     dt = cfg.dt
     dt_dx = dt / dx
     inv_dx = 1.0 / dx
-    # the residual test compares float32 values, as the JAX loop does
-    tol = float(np.float32(cfg.tol))
     emit_v = cfg.finalize == "iterate"
     share = cfg.window_share == "shared"  # 'auto' is 'separate'
     n_hist = keep_history(cfg.finalize_field, emit_v)
@@ -267,10 +274,13 @@ def make_step(cfg: ImplicitConfig, mesh=None):
         """
         p0, v0, e0 = state.p, state.v, state.e
         dev = e0.device
-        # float32 scalars on the host, as the JAX step computes them
-        q = np.float32(state.qm_host[0])
-        qm_s = q / np.float32(state.qm_host[1])
-        w_s = q * np.float32(cfg.p2c * inv_dx)
+        # scalars on the host in the state's dtype, as the JAX step
+        # computes them; the residual test compares values of that dtype
+        real = cuda_cic.real(e0.dtype)
+        q = real(state.qm_host[0])
+        qm_s = q / real(state.qm_host[1])
+        w_s = q * real(cfg.p2c * inv_dx)
+        tol = float(real(cfg.tol))
 
         es = _es0(state)
         if share:
@@ -326,7 +336,7 @@ def make_step(cfg: ImplicitConfig, mesh=None):
             # Exact grid mean of the skipped full-step deposit: periodic
             # CIC weights sum to 1, so mean(deposit(p1, w v1)) == w
             # sum(v1)/ng.
-            current_bias = ax.sum(torch.sum(v1)) * float(w_s / np.float32(ng))
+            current_bias = ax.sum(torch.sum(v1)) * float(w_s / real(ng))
         metrics = _metrics(state, e1, p1, v1, current_bias, k, r, clamped)
         new_state = state.replace(p=p1, v=v1, e=e1, j=j1, e_prev=state.e,
                                   e_prev2=state.e_prev, step=state.step + 1)
@@ -341,6 +351,7 @@ def make_step(cfg: ImplicitConfig, mesh=None):
         p0, v0, e0 = state.p, state.v, state.e
         qm = state.q / state.m
         w = state.q * (cfg.p2c * inv_dx)  # deposit prefactor q p2c / dx
+        tol = float(cuda_cic.real(e0.dtype)(cfg.tol))
 
         es = _es0(state)
         ps = p0
@@ -396,6 +407,12 @@ def check_resident_supported(cfg: ImplicitConfig,
     nothing."""
     if state.q.dim() != 0 or state.m.dim() != 0:
         raise ValueError("run_resident requires scalar q/m")
+    if state.p.dtype != torch.float32:
+        # the JAX engine's resident scan carries float32 and raises a
+        # TypeError for any other state
+        raise NotImplementedError(
+            f"run_resident takes a float32 state only, as the JAX engine's "
+            f"does, not {state.p.dtype}: {cuda_cic.F64_ITEMS['implicit_resident']}")
     if cfg.backend == "composed":
         # the composed step returns the reference's LAST-ITERATE semantics;
         # the resident kernel implements the converged fused step

@@ -143,6 +143,12 @@ the fused kernels take no method, as in JAX.
 
 The 'threefry' sampler raises ``NotImplementedError`` from ``init_state``
 and ``make_step``, with the reason.
+
+A float64 state runs on the CPU as the JAX engine's under x64: the plain
+kernel versions in float64, B and the kernels' scalars in the state's
+dtype, the Newton solve on the op-composed route (JAX sends float64 to
+XLA). On the card the engine refuses it until its kernels have double
+forms (``cuda_cic.check_engine_dtype``, ROADMAP queue 1 item 19b).
 """
 
 from __future__ import annotations
@@ -454,6 +460,7 @@ def init_state(x, v3, m, charge_state, p2c, species_idx,
     _check_ported(cfg)
     grid = cfg.grid
     device = devices.resolve(device)
+    cuda_cic.check_engine_dtype("magnetized", device, dtype)
     n = np.shape(x)[0]
     cap = int(capacity) if capacity is not None else n
     if cap < n:
@@ -728,8 +735,10 @@ def make_step(cfg: MagnetizedConfig,
     te_volts = (cfg.te / EV_TO_K) if cfg.eta_in_volts else (cfg.te * EV_TO_K)
     ve = float(np.sqrt(8.0 / np.pi * K_BOLTZMANN * cfg.te / M_ELECTRON))
     src = cfg.source
-    # B as float32 values, as the JAX engine's f32 b vector
-    b32 = tuple(float(np.float32(v)) for v in cfg.b)
+    def b_vec(dtype):
+        """B as values of the state's dtype, as the JAX engine's b_vec."""
+        return tuple(float(cuda_cic.real(dtype)(v)) for v in cfg.b)
+
     cap = cfg.impact_buffer_size
     ion_cap = cfg.carried_ion_cap
     rates = rate_matrix(cfg.species_z, cfg.te) if cfg.ionization else None
@@ -880,7 +889,7 @@ def make_step(cfg: MagnetizedConfig,
         pos = mirror_gather_position(state.p, cells) if swap else state.p
         e_p = torch.where(is_active, gather(e_field, pos, periodic=False), 0.0)
         x_si = state.p * dx
-        x1_b, yz1_b, v1_b = boris_push_dt(x_si, state.yz, state.v, e_p, b32,
+        x1_b, yz1_b, v1_b = boris_push_dt(x_si, state.yz, state.v, e_p, b_vec(e_p.dtype),
                                           state.charge_state, state.m, dt)
         pos3 = torch.stack([x_si, state.y, state.z], dim=-1)
         zeros = torch.zeros_like(e_p)
@@ -888,7 +897,7 @@ def make_step(cfg: MagnetizedConfig,
         cs_safe = torch.where(is_gc, state.charge_state, 1.0)
         vpar = (torch.where(state.vx != 0.0, state.vx, 1.0)
                 if cfg.gc_eom == "reference" else state.vx)
-        x1_g, vpar1, _ = gc_push_rk4(pos3, vpar, state.vy, e3, b32, cs_safe,
+        x1_g, vpar1, _ = gc_push_rk4(pos3, vpar, state.vy, e3, b_vec(e3.dtype), cs_safe,
                                      state.m, dt, eom_form=cfg.gc_eom)
 
         def pick(g, b_, held):
@@ -903,6 +912,7 @@ def make_step(cfg: MagnetizedConfig,
 
     def step(state: MagnetizedState):
         dev = state.p.device
+        cuda_cic.check_engine_dtype("magnetized", dev, state.p.dtype)
         n = state.p.shape[0]
         step_i = state.step_host
         zero = _zeros(dev)
@@ -977,7 +987,7 @@ def make_step(cfg: MagnetizedConfig,
             e_p = torch.where(is_active, gather(e_field, pos, periodic=False),
                               0.0)
             x1, yz1, v1 = boris_push_dt(state.p * dx, state.yz, state.v, e_p,
-                                        b32, state.charge_state, state.m, dt)
+                                        b_vec(e_p.dtype), state.charge_state, state.m, dt)
             p1 = torch.where(is_active, x1 / dx, state.p)
             y1 = torch.where(is_active, yz1[:, 0], state.y)
             z1 = torch.where(is_active, yz1[:, 1], state.z)
@@ -1163,8 +1173,9 @@ def make_step(cfg: MagnetizedConfig,
             charge_state = torch.where(take, src.charge_state, charge_state)
             p2c_arr = torch.where(take, src.p2c, p2c_arr)
             sp_arr = torch.where(take, src.species_idx, sp_arr)
-            # step * dt rounded as the JAX engine's float32 product
-            t1 = torch.where(take, float(np.float32(step_i) * np.float32(dt)), t1)
+            # step * dt rounded as the JAX engine's product in t's dtype
+            real = cuda_cic.real(t1.dtype)
+            t1 = torch.where(take, float(real(step_i) * real(dt)), t1)
             active = torch.where(take, 1, active)
             at_wall = torch.where(take, 0, at_wall)
             fw = torch.where(take, 0, fw)

@@ -66,7 +66,8 @@ else syncs. The step number and the key live on the host in the state.
 Quirks of the JAX engine kept: absorbed rows carry zero u, vy, vz (and
 their x1) until re-injection; the kinetic energy uses the raw u1 before
 the status masks it; a float64 state runs on the CPU, with the plain
-gather and deposit (the kernels take float32).
+gather and deposit, and the card refuses it (``cuda_cic.check_engine_dtype``): its
+kernels take float32 until ROADMAP queue 1 item 19a.
 
 ``picard_accel`` 'anderson', 'anderson2' and 'andersonM' (M > 2) mix the
 Picard iterate over 1, 2 or M histories (``ops.accel``; the (M, M) solve
@@ -226,7 +227,6 @@ CHECKPOINT_MIGRATIONS = {
 # the hash sampler's four draws a step, in the order of their seeds
 HASH_STREAMS = ("therm_u", "therm_v", "reinj_x", "reinj_v")
 
-_ITEM_F64 = "see ROADMAP.md queue 1, item 19, f64 particle state"
 
 
 def _check_ported(cfg: SheathConfig) -> None:
@@ -245,18 +245,11 @@ def _check_ported(cfg: SheathConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet: {why}")
 
 
-def _check_dtype(device: torch.device, dtype: torch.dtype) -> None:
-    if device.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError(
-            f"a {dtype} state on the card is not ported yet (the kernels "
-            f"take float32; float64 runs on the CPU): {_ITEM_F64}")
-
-
 def _grid_ops(dtype: torch.dtype):
     """(gather, deposit): the kernels' wrappers for float32, the deposit
     ``deposit_det`` (the loop's floor exit reads the residual at round-off
     level, which float atomics would blur on the card); the plain versions
-    for float64 (CPU only, see _check_dtype)."""
+    for float64 (CPU only, see cuda_cic.check_engine_dtype)."""
     if dtype == torch.float32:
         return gather, cuda_cic.deposit_det
     return cuda_cic.gather_plain, cuda_cic.deposit_plain
@@ -292,7 +285,7 @@ def init_state(x, v3, q, m, species, cfg: SheathConfig, seed: int = 0,
     grid = cfg.grid
     ng = grid.ng
     device = devices.resolve(device)
-    _check_dtype(device, dtype)
+    cuda_cic.check_engine_dtype("sheath", device, dtype)
     p = (torch.as_tensor(np.asarray(x), device=device) / grid.dx).to(dtype)
     v3 = torch.as_tensor(np.asarray(v3), device=device).to(dtype)
     q = torch.as_tensor(np.asarray(q), device=device).to(dtype)
@@ -435,7 +428,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
 
     def step(state: SheathState):
         dev, dtype = state.p.device, state.p.dtype
-        _check_dtype(dev, dtype)
+        cuda_cic.check_engine_dtype("sheath", dev, dtype)
         fused = _use_fused(state)
         gather_fn, deposit_fn = _grid_ops(dtype)
         q, m, species = state.q, state.m, state.species

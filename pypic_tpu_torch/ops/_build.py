@@ -58,6 +58,18 @@ _SIGNATURES = {
     "pypic_picard_iteration_shared": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I,
          _I, _F, _I, _I, _I, _P], _I),
+    # the double kernels of a float64 state (rows 1-6): every scalar a
+    # double, _D, never _F (which would round it to float32 on the way)
+    "pypic_picard_iteration_f64": (
+        [_P] * 7 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _P], _I),
+    "pypic_picard_finalize_nodep_f64": (
+        [_P] * 6 + [_L, _I] + [_D] * 4 + [_I, _I, _I, _P], _I),
+    "pypic_picard_finalize_f64": (
+        [_P] * 7 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _P], _I),
+    "pypic_picard_iteration_shared_f64": (
+        [_P] * 8 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _D, _I, _I, _I, _P], _I),
+    "pypic_deposit_f64": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P], _I),
+    "pypic_gather_f64": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
     "pypic_implicit_resident": (
         [_P] * 17 + [_I] * 5 + [_F] * 7 + [_I] * 5 + [_D, _D, _D, _P], _I),
     "pypic_implicit_resident_clusters": ([_I, _I, _P], _I),
@@ -201,10 +213,11 @@ def build() -> BuildInfo:
     return BuildInfo(out, time.perf_counter() - t0, "".join(logs))
 
 
-def _kernel_of(mangled: str) -> tuple[str, tuple[int, ...]]:
-    """A kernel's name and integral template arguments from its mangled
-    name (the last of its length-prefixed names; bool and int arguments,
-    e.g. ``ILb0ELb1ELi2EE`` -> (0, 1, 2))."""
+def _kernel_of(mangled: str) -> tuple[str, tuple]:
+    """A kernel's name and template arguments from its mangled name (the
+    last of its length-prefixed names): bool and int arguments as ints,
+    the element types float and double as 'f' and 'd', e.g.
+    ``ILb0ELb1ELi2EdE`` -> (0, 1, 2, 'd')."""
     i, name = (3 if mangled.startswith("_ZN") else 2), ""
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -212,8 +225,11 @@ def _kernel_of(mangled: str) -> tuple[str, tuple[int, ...]]:
             j += 1
         k = int(mangled[i:j])
         name, i = mangled[j:j + k], j + k
-    args = re.match(r"I((?:L[a-z]\d+E)*)E", mangled[i:])
-    return name, tuple(int(v) for v in re.findall(r"L[a-z](\d+)E", args.group(1))) if args else ()
+    args = re.match(r"I((?:L[a-z]\d+E|[fd])*)E", mangled[i:])
+    if not args:
+        return name, ()
+    return name, tuple(int(v) if v else t for v, t in
+                       re.findall(r"L[a-z](\d+)E|([fd])", args.group(1)))
 
 
 def static_smem(log: str) -> dict[tuple[str, tuple[int, ...]], int]:

@@ -14,7 +14,10 @@ take ``deposit_det`` (a fixed summation order: the same bits call after
 call). On the card ``deposit_det`` sums in thread columns up to ng =
 1,815 and in int64 fixed point above it, up to ``cuda_cic.LARGE_MAX_NG``
 (2^22), where it raises; both give the same bits call after call. It
-never changes route on its own.
+never changes route on its own. A float64 tensor takes the plain
+versions on the CPU and, on the card, the double kernels of ``deposit``
+and ``gather``; ``deposit_det`` has none yet and raises
+(``cuda_cic.check_dtype``).
 
 All positions are grid coordinates p = x/dx (see pypic_tpu_torch.grid).
 """
@@ -48,8 +51,8 @@ def gather(field: torch.Tensor, p: torch.Tensor, *, periodic: bool):
     (``cuda_cic.gather``).
 
     Args:
-        field: (ng,) float32 field values on nodes.
-        p: (n,) float32 positions in grid coordinates.
+        field: (ng,) float32 or float64 field values on nodes.
+        p: (n,) positions in grid coordinates, of the field's dtype.
         periodic: wrap the right neighbour node.
 
     Returns:
@@ -81,8 +84,8 @@ def deposit(p: torch.Tensor, values: torch.Tensor, ng: int, *,
     masked-out particles.
 
     Args:
-        p: (n,) float32 positions in grid coordinates.
-        values: (n,) float32 deposit values.
+        p: (n,) float32 or float64 positions in grid coordinates.
+        values: (n,) deposit values, of p's dtype.
         ng: number of field nodes.
         periodic: periodic node wrap vs bounded grid.
         method: 'auto' | 'pallas' (the deposit kernel) | 'scatter' |

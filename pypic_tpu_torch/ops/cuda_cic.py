@@ -46,12 +46,18 @@ which count their launches in ``LAUNCHES`` here.
 
 Dispatch rule, in this module only: a wrapper launches its kernel when its
 tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
-when they lie on the CPU. Any other device, mixed devices, a dtype other
-than float32, or a non-contiguous or mis-shaped tensor raises. A failed
-build or launch raises; nothing falls back. The card's size limits
-(shared memory a block, thread histograms) are checked in the CUDA branch
-only, so the plain versions run any grid size on CPU tensors, as the JAX
-package does.
+when they lie on the CPU. Any other device, mixed devices or dtypes, a
+dtype other than float32 and float64, or a non-contiguous or mis-shaped
+tensor raises. Float64 (a float64 state, as the JAX package runs under
+x64) runs on the CPU in every wrapper's plain version (not the Newton
+solves', ``F32_ONLY``), and on the card in the six wrappers with a
+double kernel, ``F64_KERNELS`` (rows 1-6: the ``_f64`` entry points,
+counted under ``<wrapper>_f64``); any other wrapper raises
+``NotImplementedError`` naming its ROADMAP item (``check_dtype``). A
+failed build or launch raises; nothing falls back. The card's size
+limits (shared memory a block, thread histograms) are checked in the
+CUDA branch only, so the plain versions run any grid size on CPU
+tensors, as the JAX package does.
 
 Grid sizes: the grid-stride kernels keep their (ng,) arrays in a block's
 shared memory up to their ceilings and take the large modes above them,
@@ -87,6 +93,11 @@ from .accel import anderson_mix, mix_init
 from .cic import cic_indices_weights
 from .fd import smooth_periodic
 
+# The wrappers with a float64 kernel on the card (ROADMAP queue 1, item
+# 19: the implicit engine's rows 1-6). On CPU tensors every wrapper's
+# plain version takes float64.
+F64_KERNELS = ("picard_iteration", "picard_iteration_shared",
+               "picard_finalize_nodep", "picard_finalize", "deposit", "gather")
 LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
@@ -100,7 +111,9 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "leapfrog_gather_push": 0, "boris_gather_push_deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
             "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
-            "boltzmann_dn_large": 0, "tridiag3_chain_large": 0}
+            "boltzmann_dn_large": 0, "tridiag3_chain_large": 0,
+            # the double kernels of a float64 state (rows 1-6)
+            **{f"{name}_f64": 0 for name in F64_KERNELS}}
 # launches in a large mode, keyed "wrapper mode": "global", or "field"
 # for the carried Boris deposit (its field in shared memory up to
 # FIELD_SMEM_MAX_NG)
@@ -206,6 +219,24 @@ def check_static_smem(log: str) -> list[str]:
     return problems
 
 
+# the double instantiations of the float64 kernels (rows 1-6): (kernel,
+# the index of its element-type template argument)
+F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
+                 ("deposit_kernel", 3), ("deposit_global_kernel", 3),
+                 ("gather_kernel", 2))
+
+
+def check_f64_kernels(log: str) -> list[str]:
+    """The float64 kernels missing a double instantiation in the
+    compiler's report (ptxas -v, a BuildInfo's ``log``); empty if none.
+    Their static shared bytes are held by ``check_static_smem`` beside
+    the float ones' (the same table entries)."""
+    found = _build.static_smem(log)
+    return [f"{kernel}: no double instantiation in the compiler's report"
+            for kernel, i in F64_INSTANCES
+            if not any(k == kernel and len(a) > i and a[i] == "d" for k, a in found)]
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -218,8 +249,68 @@ def _count(name: str, mode: str) -> None:
         LARGE_LAUNCHES[f"{name} {mode}"] += 1
 
 
-def _device_kind(tensors) -> str:
-    """'cuda' or 'cpu' for a set of float32 tensors on one device; raises on
+_F64_SHEATH = "ROADMAP.md queue 1, item 19a (the sheath engine's float64 kernels)"
+_F64_MAGNETIZED = ("ROADMAP.md queue 1, item 19b (the magnetized engine's float64 "
+                   "kernels)")
+_F64_EXPLICIT = "ROADMAP.md queue 1, item 19c (the explicit engine's float64 kernels)"
+_F64_FLOAT32 = ("no gap: the JAX package runs this path in float32 only (ROADMAP.md "
+                "queue 1, item 19)")
+# the item that will bring each other wrapper a float64 kernel
+F64_ITEMS = {
+    "deposit_det": _F64_SHEATH, "sheath pass": _F64_SHEATH,
+    "sheath_reinject": _F64_SHEATH,
+    "deposit2": _F64_MAGNETIZED, "boris_gather_push": _F64_MAGNETIZED,
+    "boris_gather_push_deposit": _F64_MAGNETIZED,
+    "leapfrog_gather_push_deposit": _F64_EXPLICIT, "explicit_cycle": _F64_EXPLICIT,
+    "explicit_cycle_resident": _F64_EXPLICIT, "leapfrog_gather_push": _F64_EXPLICIT,
+    "implicit_resident": _F64_FLOAT32, "picard_iteration_ext": _F64_FLOAT32,
+    "picard_finalize_ext": _F64_FLOAT32, "explicit_domain_cycle": _F64_FLOAT32,
+}
+# The wrappers that take float32 alone, on either device: the Newton
+# solves. A float64 state solves on the op-composed route
+# (engines/magnetized.py), as the JAX package's goes to XLA.
+F32_ONLY = ("boltzmann_dirichlet", "boltzmann_dn", "tridiag3_chain")
+
+
+# the engines whose kernels take float32 alone on the card, by the item
+# that will bring them float64 kernels
+F64_ENGINE_ITEMS = {"sheath": _F64_SHEATH, "magnetized": _F64_MAGNETIZED,
+                    "explicit": _F64_EXPLICIT}
+
+
+def check_engine_dtype(engine: str, device: torch.device, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError, naming the engine's ROADMAP item, for a
+    state that is not float32 on the card in an engine of
+    F64_ENGINE_ITEMS: it refuses at once rather than at its first kernel
+    without a float64 form. The CPU runs float64 (the plain versions)."""
+    if device.type == "cuda" and dtype != torch.float32:
+        raise NotImplementedError(
+            f"a {dtype} state of the {engine} engine on the card is not ported yet "
+            f"(its kernels take float32; float64 runs on the CPU): "
+            f"{F64_ENGINE_ITEMS[engine]}")
+
+
+def check_dtype(name: str, device: torch.device, dtype: torch.dtype) -> None:
+    """Raise unless wrapper ``name`` runs ``dtype`` tensors on ``device``:
+    float32 anywhere, float64 on the CPU (the plain versions; not the
+    F32_ONLY wrappers) and on the card where the wrapper has a float64
+    kernel (F64_KERNELS). A float64
+    tensor on the card without one raises NotImplementedError naming its
+    ROADMAP item (F64_ITEMS); nothing falls back to the CPU."""
+    if name in F32_ONLY and dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 tensors, got {dtype} (a float64 "
+                        "state solves on the op-composed route)")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: expected float32 or float64 tensors, got {dtype}")
+    if device.type == "cuda" and dtype == torch.float64 and name not in F64_KERNELS:
+        raise NotImplementedError(
+            f"{name}: a float64 tensor on the card has no kernel yet (float64 "
+            f"runs on the CPU): {F64_ITEMS[name]}")
+
+
+def _device_kind(tensors, name: str) -> str:
+    """'cuda' or 'cpu' for a set of tensors of one float dtype on one
+    device that wrapper ``name`` takes there (``check_dtype``); raises on
     anything else."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -227,9 +318,10 @@ def _device_kind(tensors) -> str:
     (dev,) = devices
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"expected float32 tensors, got {t.dtype}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: tensors of different dtypes: {sorted(map(str, dtypes))}")
+    check_dtype(name, dev, dtypes.pop())
     return dev.type
 
 
@@ -267,15 +359,16 @@ def check_large_ng(ng: int, what: str) -> None:
 
 
 def smem_mode(nodes: int, arrays: int, extra: int = 0, static: int = 0,
-              what: str = "kernel") -> str:
-    """The mode of a kernel whose block keeps ``arrays`` float32 arrays
-    of ``nodes`` (the field first), ``extra`` dynamic bytes beside them
-    and ``static`` bytes of its own (a clamp count's word, a reduction's
-    scratch), a function of these sizes alone: 'shared' where all of it
-    fits the block's SMEM_LIMIT (the kernels as first ported), else
-    'global' (the field read from device memory, every add a global float
-    atomic). Raises above LARGE_MAX_NG, naming ``what``."""
-    if 4 * arrays * nodes + extra + static <= SMEM_LIMIT:
+              what: str = "kernel", item: int = 4) -> str:
+    """The mode of a kernel whose block keeps ``arrays`` arrays of
+    ``nodes`` elements of ``item`` bytes (float32 4, float64 8; the field
+    first), ``extra`` dynamic bytes beside them and ``static`` bytes of
+    its own (a clamp count's word, a reduction's scratch), a function of
+    these sizes alone: 'shared' where all of it fits the block's
+    SMEM_LIMIT (the kernels as first ported), else 'global' (the field
+    read from device memory, every add a global atomic). Raises above
+    LARGE_MAX_NG, naming ``what``."""
+    if item * arrays * nodes + extra + static <= SMEM_LIMIT:
         return "shared"
     check_large_ng(nodes, what)
     return "global"
@@ -293,23 +386,26 @@ class SweepLaunch:
 
 
 def sweep_launch(kernel: str, n: int, nodes: int, sms: int,
-                 extra: int = 0) -> SweepLaunch:
+                 extra: int = 0, item: int = 4) -> SweepLaunch:
     """The launch of a grid-stride kernel (a key of SWEEP_KERNELS) on n
     rows and ``nodes`` nodes of its field, on a card of ``sms`` SMs, a
     function of these alone (``extra``: explicit_domain_cycle's slab
-    histogram, 4 ext_n bytes): its ``smem_mode`` and the shared memory its
-    launcher asks for (the arrays and ``extra`` in 'shared', none in
-    'global'). Raises above LARGE_MAX_NG."""
+    histogram, 4 ext_n bytes; ``item``: the element's bytes, 8 for the
+    double kernels of a float64 state, whose arrays take twice the
+    bytes): its ``smem_mode`` and the shared memory its launcher asks for
+    (the arrays and ``extra`` in 'shared', none in 'global'). Raises
+    above LARGE_MAX_NG."""
     arrays, static = SWEEP_KERNELS[kernel]
-    mode = smem_mode(nodes, arrays, extra, static, kernel.split()[0])
-    smem = 4 * arrays * nodes + extra if mode == "shared" else 0
+    mode = smem_mode(nodes, arrays, extra, static, kernel.split()[0], item)
+    smem = item * arrays * nodes + extra if mode == "shared" else 0
     return SweepLaunch(mode, max(1, min(-(-n // _THREADS), _BLOCKS_PER_SM * sms)),
                        _THREADS, smem)
 
 
-def _sweep(dev, kernel: str, n: int, nodes: int, extra: int = 0) -> SweepLaunch:
+def _sweep(dev, kernel: str, n: int, nodes: int, extra: int = 0,
+           item: int = 4) -> SweepLaunch:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return sweep_launch(kernel, n, nodes, _sm_count(index), extra)
+    return sweep_launch(kernel, n, nodes, _sm_count(index), extra, item)
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,31 +422,48 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def kernel_scalars(qm: float, dt: float, dx: float, w: float):
-    """Kernel scalars as ``pallas_cic._scalars`` computes them: float32
-    arithmetic from the float32 q/m, in the same order.
+def _launcher(lib, name: str, dtype: torch.dtype):
+    """(launcher, count name) of wrapper ``name`` for ``dtype``: the
+    double kernel's entry point and its own count for float64."""
+    if dtype == torch.float64:
+        return getattr(lib, f"pypic_{name}_f64"), f"{name}_f64"
+    return getattr(lib, f"pypic_{name}"), name
+
+
+def real(dtype: torch.dtype):
+    """The numpy scalar type of a state dtype: the host scalars of a step
+    round to it, as JAX's weakly typed Python floats round to the
+    state's dtype (float32 for any dtype but float64)."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def kernel_scalars(qm: float, dt: float, dx: float, w: float,
+                   dtype: torch.dtype = torch.float32):
+    """Kernel scalars as ``pallas_cic._scalars`` computes them: arithmetic
+    in ``dtype`` from q/m in ``dtype``, in the same order.
     Returns (qm dt, qm dt (dt/dx) / 2, dt/dx, w), each a Python float
-    holding a float32 value."""
-    f32 = np.float32
-    qm = f32(qm)
-    qm_dt = qm * f32(dt)
-    qm_dt2_half = f32(0.5) * qm * f32(dt) * f32(dt / dx)
-    return float(qm_dt), float(qm_dt2_half), float(f32(dt / dx)), float(f32(w))
+    holding a value of ``dtype``."""
+    f = real(dtype)
+    qm = f(qm)
+    qm_dt = qm * f(dt)
+    qm_dt2_half = f(0.5) * qm * f(dt) * f(dt / dx)
+    return float(qm_dt), float(qm_dt2_half), float(f(dt / dx)), float(f(w))
 
 
-def leapfrog_scalars(qm: float, dt: float, dx: float, w: float):
+def leapfrog_scalars(qm: float, dt: float, dx: float, w: float,
+                     dtype: torch.dtype = torch.float32):
     """Scalars of the leapfrog kernels as the Pallas wrappers compute them
-    (pallas_cic.py:868-871, 1097-1100): ``0.5 * qm * dt`` in float32 from
-    the float32 q/m, ``dt / dx`` and ``w`` rounded to float32.
-    Returns (qm dt / 2, dt/dx, w), each a Python float holding a float32
-    value."""
-    f32 = np.float32
-    qmh = f32(0.5) * f32(qm) * f32(dt)
-    return float(qmh), float(f32(dt / dx)), float(f32(w))
+    (pallas_cic.py:868-871, 1097-1100): ``0.5 * qm * dt`` in ``dtype``
+    from q/m in ``dtype``, ``dt / dx`` and ``w`` rounded to it.
+    Returns (qm dt / 2, dt/dx, w), each a Python float holding a value of
+    ``dtype``."""
+    f = real(dtype)
+    qmh = f(0.5) * f(qm) * f(dt)
+    return float(qmh), float(f(dt / dx)), float(f(w))
 
 
-def _inv(ng: int) -> float:
-    return float(np.float32(1.0 / ng))
+def _inv(ng: int, dtype: torch.dtype = torch.float32) -> float:
+    return float(real(dtype)(1.0 / ng))
 
 
 def _solve_coef(dx: float) -> float:
@@ -371,7 +484,7 @@ def gather_plain(field, p, *, periodic: bool):
 
 
 def _wrap(x, ng: int):
-    return x - torch.floor(x * _inv(ng)) * ng
+    return x - torch.floor(x * _inv(ng, x.dtype)) * ng
 
 
 def _cn_push(field, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx):
@@ -393,7 +506,7 @@ def deposit_plain(p, values, ng: int, *, periodic: bool):
 
 def picard_iteration_plain(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
                            dt: float, dx: float, emit_v: bool = False):
-    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w)
+    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w, ps.dtype)
     p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
     ph = _wrap(0.5 * (p0 + p1), ng)
     vh = 0.5 * (v0 + v1)
@@ -403,7 +516,7 @@ def picard_iteration_plain(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
 
 def picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
                                 dt: float, dx: float):
-    qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
+    qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0, ps.dtype)
     p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
     return _wrap(p1, ng), v1
 
@@ -412,7 +525,7 @@ def picard_finalize_plain(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
                           dt: float, dx: float):
     p1, v1 = picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng,
                                          qm=qm, dt=dt, dx=dx)
-    wf = kernel_scalars(qm, dt, dx, w)[3]
+    wf = kernel_scalars(qm, dt, dx, w, ps.dtype)[3]
     return p1, v1, deposit_plain(p1, wf * v1, ng, periodic=True)
 
 
@@ -443,29 +556,30 @@ def _tpu_frame(ng: int, margin: int, k_weight: int) -> tuple[int, int]:
     return best[0], best[1]
 
 
-def _shared_frame_args(ng: int):
-    """(stride, width, K, float32 1/stride) of the shared-window frame."""
+def _shared_frame_args(ng: int, dtype: torch.dtype = torch.float32):
+    """(stride, width, K, 1/stride in ``dtype``) of the shared-window
+    frame."""
     stride, width = window_sw(ng)
-    return stride, width, (ng - 1) // stride + 1, float(np.float32(1.0 / stride))
+    return stride, width, (ng - 1) // stride + 1, float(real(dtype)(1.0 / stride))
 
 
 def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
                                   w, dt: float, dx: float,
                                   emit_v: bool = False, acc_dtype=None):
-    """``acc_dtype`` is the dtype jh is summed in (float32 by default):
-    float64 sums the same float32 terms into a reference for the kernel's
-    float32 sums."""
-    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w)
+    """``acc_dtype`` is the dtype jh is summed in (the inputs' by
+    default): float64 sums the same float32 terms into a reference for
+    the kernel's float32 sums."""
+    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w, ps.dtype)
     p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
     raw = 0.5 * (p0 + p1)
     vh = 0.5 * (v0 + v1)
     # the midpoint's row in the gather's window frame (pallas_cic.py
     # _window_decompose, _shared_gather and _picard_iter_sw_kernel)
-    stride, width, num_k, inv_stride = _shared_frame_args(ng)
+    stride, width, num_k, inv_stride = _shared_frame_args(ng, ps.dtype)
     k = torch.clamp((torch.floor(ps) * inv_stride).to(torch.int32), 0, num_k - 1)
     d_s = (ps - k.to(ps.dtype) * stride) + 1.0
     delta = raw - ps
-    delta = delta - torch.round(delta * _inv(ng)) * ng  # nearest image
+    delta = delta - torch.round(delta * _inv(ng, ps.dtype)) * ng  # nearest image
     d_h = d_s + delta
     oob = (d_h < 0.0) | (d_h > width - 1.0)
     d_h = torch.clamp(d_h, 0.0, width - 1.0)
@@ -550,7 +664,7 @@ def field_from_rho_plain(rho, dx: float):
 def leapfrog_gather_push_deposit_plain(field, p, v, *, qm, w, dt: float,
                                        dx: float):
     ng = field.shape[0]
-    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, p.dtype)
     p1, v1 = _leapfrog(field, p, v, qmh, dt_dx, ng)
     return p1, v1, deposit_plain(p1, torch.full_like(p1, wf), ng, periodic=True)
 
@@ -585,8 +699,8 @@ def explicit_cycle_resident_plain(e_field, p, v, ng: int, steps: int, *, qm,
 # ---------------------------------------------------------------------------
 
 
-def _check_pass(field, ps, p0, v0, ng):
-    kind = _device_kind((field, ps, p0, v0))
+def _check_pass(name, field, ps, p0, v0, ng):
+    kind = _device_kind((field, ps, p0, v0), name)
     _check_1d("field", field, ng)
     n = ps.shape[0] if ps.dim() == 1 else -1
     for name, t in (("ps", ps), ("p0", p0), ("v0", v0)):
@@ -599,28 +713,28 @@ def picard_iteration(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
     """Fused Picard inner pass. Returns (ph, jh) — the wrapped half-step
     positions (the next pass's gather guess) and the (ng,) half-step
     current — or (ph, v1, jh) with ``emit_v`` (the iterate's full-step
-    velocity). ``qm`` and ``w`` are the float32 scalars q/m and
-    q p2c / dx."""
-    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    velocity). ``qm`` and ``w`` are the scalars q/m and q p2c / dx of
+    the state's dtype (rounded to the tensors' by ``kernel_scalars``)."""
+    kind, n = _check_pass("picard_iteration", field_smoothed, ps, p0, v0, ng)
     _check_ng(ng)
     if kind == "cpu":
         return picard_iteration_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                       w=w, dt=dt, dx=dx, emit_v=emit_v)
-    dev = ps.device
-    launch = _sweep(dev, "picard_iteration", n, ng)
-    lib = _build.library()
-    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
+    dev, dtype = ps.device, ps.dtype
+    launch = _sweep(dev, "picard_iteration", n, ng, item=ps.element_size())
+    fn, name = _launcher(_build.library(), "picard_iteration", dtype)
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, dtype)
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
-    jh = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    jh = torch.zeros((ng,), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_picard_iteration(
+        err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
-            jh.data_ptr(), n, ng, qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng),
+            jh.data_ptr(), n, ng, qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng, dtype),
             SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
-    _build.check(err, "picard_iteration")
-    _count("picard_iteration", launch.mode)
+    _build.check(err, name)
+    _count(name, launch.mode)
     return (ph, v1, jh) if emit_v else (ph, jh)
 
 
@@ -628,25 +742,25 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
                           dt: float, dx: float):
     """Post-convergence sweep without the j1 deposit: final (p1, v1), p1
     wrapped."""
-    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    kind, n = _check_pass("picard_finalize_nodep", field_smoothed, ps, p0, v0, ng)
     _check_ng(ng)
     if kind == "cpu":
         return picard_finalize_nodep_plain(field_smoothed, ps, p0, v0, ng,
                                            qm=qm, dt=dt, dx=dx)
-    dev = ps.device
-    launch = _sweep(dev, "picard_finalize_nodep", n, ng)
-    lib = _build.library()
-    qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
+    dev, dtype = ps.device, ps.dtype
+    launch = _sweep(dev, "picard_finalize_nodep", n, ng, item=ps.element_size())
+    fn, name = _launcher(_build.library(), "picard_finalize_nodep", dtype)
+    qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0, dtype)
     p1 = torch.empty_like(ps)
     v1 = torch.empty_like(ps)
     with torch.cuda.device(dev):
-        err = lib.pypic_picard_finalize_nodep(
+        err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), p1.data_ptr(), v1.data_ptr(), n, ng, qm_dt,
-            qm_dt2_half, dt_dx, _inv(ng), SMEM_MODES[launch.mode],
+            qm_dt2_half, dt_dx, _inv(ng, dtype), SMEM_MODES[launch.mode],
             launch.blocks, launch.threads, _stream(dev))
-    _build.check(err, "picard_finalize_nodep")
-    _count("picard_finalize_nodep", launch.mode)
+    _build.check(err, name)
+    _count(name, launch.mode)
     return p1, v1
 
 
@@ -724,24 +838,24 @@ def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS)
     warp; a histogram whose weights are mostly 0 (``ops.cic.histogram_add``)
     wants 1, which spares zeroing and summing the others (PERF.md §6). It
     changes the order of the float sums only."""
-    kind = _device_kind((p, values))
+    kind = _device_kind((p, values), "deposit")
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
     _check_1d("values", values, n)
     _check_ng(ng)
     if kind == "cpu":
         return deposit_plain(p, values, ng, periodic=periodic)
-    lib = _build.library()
+    fn, name = _launcher(_build.library(), "deposit", p.dtype)
     dev = p.device
     with torch.cuda.device(dev):
-        shape = _deposit_shape(dev, n, ng, False, hists=1, max_cols=cols)
-        out = torch.zeros((ng,), dtype=torch.float32, device=dev)
-        err = lib.pypic_deposit(p.data_ptr(), values.data_ptr(),
-                                out.data_ptr(), n, ng, int(periodic),
-                                shape.rows, shape.blocks, shape.threads,
-                                shape.cols, _stream(dev))
-    _build.check(err, "deposit")
-    _count("deposit", shape.mode)
+        shape = _deposit_shape(dev, n, ng, False, hists=1, max_cols=cols,
+                               item=p.element_size())
+        out = torch.zeros((ng,), dtype=p.dtype, device=dev)
+        err = fn(p.data_ptr(), values.data_ptr(), out.data_ptr(), n, ng,
+                 int(periodic), shape.rows, shape.blocks, shape.threads,
+                 shape.cols, _stream(dev))
+    _build.check(err, name)
+    _count(name, shape.mode)
     return out
 
 
@@ -754,7 +868,7 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     the plain deposit at any ng. The sheath engine's composed loop and exit
     histograms use it: its floor exit reads the residual at round-off
     level. The other engines keep the float-atomic ``deposit``."""
-    kind = _device_kind((p, values))
+    kind = _device_kind((p, values), "deposit_det")
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
     _check_1d("values", values, n)
@@ -777,7 +891,7 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
 
 def gather(field, p, *, periodic: bool):
     """CIC gather of the (ng,) node field at grid positions p: (n,)."""
-    kind = _device_kind((field, p))
+    kind = _device_kind((field, p), "gather")
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     _check_1d("p", p, p.shape[0] if p.dim() == 1 else -1)
@@ -786,20 +900,20 @@ def gather(field, p, *, periodic: bool):
         return gather_plain(field, p, periodic=periodic)
     n = p.shape[0]
     dev = p.device
-    launch = _sweep(dev, "gather", n, ng)
-    lib = _build.library()
+    launch = _sweep(dev, "gather", n, ng, item=p.element_size())
+    fn, name = _launcher(_build.library(), "gather", p.dtype)
     out = torch.empty_like(p)
     with torch.cuda.device(dev):
-        err = lib.pypic_gather(field.data_ptr(), p.data_ptr(), out.data_ptr(),
-                               n, ng, int(periodic), SMEM_MODES[launch.mode],
-                               launch.blocks, launch.threads, _stream(dev))
-    _build.check(err, "gather")
-    _count("gather", launch.mode)
+        err = fn(field.data_ptr(), p.data_ptr(), out.data_ptr(), n, ng,
+                 int(periodic), SMEM_MODES[launch.mode], launch.blocks,
+                 launch.threads, _stream(dev))
+    _build.check(err, name)
+    _count(name, launch.mode)
     return out
 
 
-def _check_leapfrog(field, p, v):
-    kind = _device_kind((field, p, v))
+def _check_leapfrog(name, field, p, v):
+    kind = _device_kind((field, p, v), name)
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     n = p.shape[0] if p.dim() == 1 else -1
@@ -811,9 +925,9 @@ def _check_leapfrog(field, p, v):
 def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
     """One sweep of the explicit cycle: gather the field at p, leapfrog,
     wrap, and deposit the charge density of the NEW positions. Returns
-    (p1, v1, rho1). ``qm`` and ``w`` are the float32 scalars q/m and
-    q p2c / dx."""
-    kind, n, ng = _check_leapfrog(field, p, v)
+    (p1, v1, rho1). ``qm`` and ``w`` are the scalars q/m and q p2c / dx
+    (rounded to the tensors' dtype by ``leapfrog_scalars``)."""
+    kind, n, ng = _check_leapfrog("leapfrog_gather_push_deposit", field, p, v)
     _check_ng(ng)
     if kind == "cpu":
         return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
@@ -850,7 +964,7 @@ def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
     memory, so it raises above ng = 14,512; the explicit engine calls it at
     ng <= 1,024 only (the JAX engine's switch) and
     ``leapfrog_gather_push_deposit`` with the solve outside above."""
-    kind, n, _ = _check_leapfrog(e_field, p, v)
+    kind, n, _ = _check_leapfrog("explicit_cycle", e_field, p, v)
     _check_1d("e_field", e_field, ng)
     _check_ng(ng)
     if kind == "cpu":
@@ -950,7 +1064,7 @@ def explicit_cycle_resident(e_field, p, v, ng: int, steps: int, *, qm, w,
 
     On the card the kernel runs as one cluster of 8 CTAs
     (``explicit_resident_shape``) and takes ng <= 1024."""
-    kind, n, _ = _check_leapfrog(e_field, p, v)
+    kind, n, _ = _check_leapfrog("explicit_cycle_resident", e_field, p, v)
     _check_1d("e_field", e_field, ng)
     if n > RESIDENT_MAX_N:
         raise ValueError(
@@ -988,26 +1102,26 @@ def picard_finalize(field_smoothed, ps, p0, v0, ng: int, *, qm, w, dt: float,
     """Post-convergence sweep with the full-step current: final (p1, v1),
     p1 wrapped, and j1 = the deposit of w v1 at p1. p1 and v1 are
     bit-identical to ``picard_finalize_nodep``'s."""
-    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    kind, n = _check_pass("picard_finalize", field_smoothed, ps, p0, v0, ng)
     _check_ng(ng)
     if kind == "cpu":
         return picard_finalize_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                      w=w, dt=dt, dx=dx)
-    dev = ps.device
-    launch = _sweep(dev, "picard_finalize", n, ng)
-    lib = _build.library()
-    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
+    dev, dtype = ps.device, ps.dtype
+    launch = _sweep(dev, "picard_finalize", n, ng, item=ps.element_size())
+    fn, name = _launcher(_build.library(), "picard_finalize", dtype)
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, dtype)
     p1 = torch.empty_like(ps)
     v1 = torch.empty_like(ps)
-    j1 = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    j1 = torch.zeros((ng,), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_picard_finalize(
+        err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), p1.data_ptr(), v1.data_ptr(), j1.data_ptr(), n, ng,
-            qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng), SMEM_MODES[launch.mode],
-            launch.blocks, launch.threads, _stream(dev))
-    _build.check(err, "picard_finalize")
-    _count("picard_finalize", launch.mode)
+            qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng, dtype),
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
+    _build.check(err, name)
+    _count(name, launch.mode)
     return p1, v1, j1
 
 
@@ -1020,31 +1134,31 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
     the particles' device, counts the deposits clamped at the frame's
     edge. With no clamp, jh equals a deposit at the wrapped ph up to
     rounding."""
-    kind, n = _check_pass(field_smoothed, ps, p0, v0, ng)
+    kind, n = _check_pass("picard_iteration_shared", field_smoothed, ps, p0, v0, ng)
     _check_ng(ng)
     if kind == "cpu":
         return picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng,
                                              qm=qm, w=w, dt=dt, dx=dx,
                                              emit_v=emit_v)
-    dev = ps.device
-    launch = _sweep(dev, "picard_iteration_shared", n, ng)
-    lib = _build.library()
-    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w)
-    stride, width, num_k, inv_stride = _shared_frame_args(ng)
+    dev, dtype = ps.device, ps.dtype
+    launch = _sweep(dev, "picard_iteration_shared", n, ng, item=ps.element_size())
+    fn, name = _launcher(_build.library(), "picard_iteration_shared", dtype)
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, dtype)
+    stride, width, num_k, inv_stride = _shared_frame_args(ng, dtype)
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
-    jh = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    jh = torch.zeros((ng,), dtype=dtype, device=dev)
     n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_picard_iteration_shared(
+        err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
             jh.data_ptr(), n_clamped.data_ptr(), n, ng, qm_dt, qm_dt2_half,
-            dt_dx, wf, _inv(ng), stride, width, num_k, inv_stride,
+            dt_dx, wf, _inv(ng, dtype), stride, width, num_k, inv_stride,
             SMEM_MODES[launch.mode], launch.blocks, launch.threads,
             _stream(dev))
-    _build.check(err, "picard_iteration_shared")
-    _count("picard_iteration_shared", launch.mode)
+    _build.check(err, name)
+    _count(name, launch.mode)
     return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
 
 
@@ -1158,7 +1272,7 @@ def implicit_resident(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm, w,
     On the card the kernel runs as one cluster of 16 CTAs
     (``implicit_resident_shape``) and takes ng <= 1024; it raises if the
     card cannot hold the cluster."""
-    kind = _device_kind((e0, e_prev, j0, p, v))
+    kind = _device_kind((e0, e_prev, j0, p, v), "implicit_resident")
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in (("e0", e0), ("e_prev", e_prev), ("j0", j0)):
         _check_1d(name, t, ng)
@@ -1249,7 +1363,8 @@ class DepositShape:
 
 
 def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
-                         hists: int = 2, max_cols: int = DEPOSIT_MAX_COLS) -> DepositShape:
+                         hists: int = 2, max_cols: int = DEPOSIT_MAX_COLS,
+                         item: int = 4) -> DepositShape:
     """The grid of the wide deposits for n rows and ng nodes on a card of
     ``sms`` SMs, a function of these alone: ``hists`` histograms (1 for
     ``deposit``, 2 for ``deposit2`` and, with ``field``, the carried Boris
@@ -1262,22 +1377,28 @@ def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
     29,056 for deposit2, 19,369 with the field) the deposit takes the
     large mode: the same rows a block, ``cols`` 0 (no shared histogram,
     every add a global atomic), ``smem`` the field's where it fits alone
-    (ng <= FIELD_SMEM_MAX_NG), else 0; it raises above LARGE_MAX_NG."""
+    (ng <= FIELD_SMEM_MAX_NG), else 0; it raises above LARGE_MAX_NG.
+    ``item`` 8: the double deposit of a float64 state (one histogram),
+    whose columns take twice the bytes (its one column fits to 29,056
+    nodes)."""
     if (n < 0 or ng < 2 or sms < 1 or (hists, field) not in _DEPOSIT_NAMES
             or max_cols not in (1, 2, 4, 8, 16, 32)):
         raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1, "
                          f"1 or 2 histograms (2 with the field) and max_cols a power "
                          f"of two up to 32; got {n}, {ng}, {sms}, {hists}, {max_cols}")
+    if item not in (4, 8) or (item == 8 and (hists, field) != (1, False)):
+        raise ValueError(f"deposit_launch_shape: item {item} (4, or 8 for the "
+                         "single deposit's double kernel)")
     name = _DEPOSIT_NAMES[(hists, field)]
     static = DEPOSIT_STATIC[name]
-    mode = smem_mode(ng, hists + int(field), static=static, what=name)
+    mode = smem_mode(ng, hists + int(field), static=static, what=name, item=item)
     if mode == "global" and field and ng <= FIELD_SMEM_MAX_NG:
         mode = "field"
 
     def smem(cols: int) -> int:
         if mode != "shared":
             return 4 * ng if mode == "field" else 0
-        return 4 * (hists * cols + int(field)) * ng
+        return item * (hists * cols + int(field)) * ng
 
     if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
         cols = max_cols if mode == "shared" else 0
@@ -1306,9 +1427,9 @@ def deposit_row_blocks(n: int, ng: int, field: bool, sms: int,
 
 
 def _deposit_shape(dev, n: int, ng: int, field: bool, hists: int = 2,
-                   max_cols: int = DEPOSIT_MAX_COLS) -> DepositShape:
+                   max_cols: int = DEPOSIT_MAX_COLS, item: int = 4) -> DepositShape:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return deposit_launch_shape(n, ng, field, _sm_count(index), hists, max_cols)
+    return deposit_launch_shape(n, ng, field, _sm_count(index), hists, max_cols, item)
 
 
 def deposit2_plain(p, va, vb, ng: int, *, periodic: bool):
@@ -1330,7 +1451,7 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
     particles) at grid positions p onto ng nodes in one sweep. Returns
     (a, b). Positions off the grid (wall-lost slots, weight 0) are clamped
     into it as ``ops.cic.cic_indices_weights`` clamps them."""
-    kind = _device_kind((p, va, vb))
+    kind = _device_kind((p, va, vb), "deposit2")
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in (("p", p), ("va", va), ("vb", vb)):
         _check_1d(name, t, n)
@@ -1351,12 +1472,12 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
     return out[0], out[1]
 
 
-def boris_scalars(b, dt_dx: float):
-    """(bx, by, bz, dt/dx), each a Python float holding the float32 value
-    the TPU kernel bakes in (Python floats, weakly typed, round to float32
-    at their first operation)."""
-    f32 = np.float32
-    return tuple(float(f32(x)) for x in (*b, dt_dx))
+def boris_scalars(b, dt_dx: float, dtype: torch.dtype = torch.float32):
+    """(bx, by, bz, dt/dx), each a Python float holding the value of
+    ``dtype`` the TPU kernel bakes in (Python floats, weakly typed, round
+    to the state's dtype at their first operation)."""
+    f = real(dtype)
+    return tuple(float(f(x)) for x in (*b, dt_dx))
 
 
 def boris_gather_push_plain(field, p, vx, vy, vz, const, act, *, b,
@@ -1367,7 +1488,7 @@ def boris_gather_push_plain(field, p, vx, vy, vz, const, act, *, b,
     Boris rotation with inv = 2 / (1 + t^2), s = t inv; p1 = p + vx dt/dx.
     Rows with act == 0 keep their inputs."""
     ng = field.shape[0]
-    bx, by, bz, dt_dx = boris_scalars(b, dt_dx)
+    bx, by, bz, dt_dx = boris_scalars(b, dt_dx, p.dtype)
     hi = float(ng - 1)
     pc = torch.clamp(p, 0.0, hi)
     if swap_weights:
@@ -1413,7 +1534,7 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
     Returns (p1, vx1, vy1, vz1).
     """
     arrays = (p, vx, vy, vz, const, act)
-    kind = _device_kind((field,) + arrays)
+    kind = _device_kind((field,) + arrays, "boris_gather_push")
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     n = p.shape[0] if p.dim() == 1 else -1
@@ -1455,10 +1576,10 @@ def window(ng: int) -> tuple[int, int]:
     return _tpu_frame(ng, margin=2, k_weight=1)
 
 
-def _carry_frame(ng: int):
-    """(stride, K, float32 1/stride) of ``window(ng)``."""
+def _carry_frame(ng: int, dtype: torch.dtype = torch.float32):
+    """(stride, K, 1/stride in ``dtype``) of ``window(ng)``."""
     stride, _ = window(ng)
-    return stride, (ng - 1) // stride + 1, float(np.float32(1.0 / stride))
+    return stride, (ng - 1) // stride + 1, float(real(dtype)(1.0 / stride))
 
 
 def boris_gather_push_deposit_plain(field, p, vx, vy, vz, const, act, wr, wn,
@@ -1480,7 +1601,7 @@ def boris_gather_push_deposit_plain(field, p, vx, vy, vz, const, act, wr, wn,
     pc = torch.clamp(p, 0.0, hi)
     if swap_weights:
         pc = torch.clamp(2.0 * torch.floor(pc) + 1.0 - pc, 0.0, hi)
-    stride, num_k, inv_stride = _carry_frame(ng)
+    stride, num_k, inv_stride = _carry_frame(ng, p.dtype)
     top = float(stride + 2 + 2 * pad - 1)
     live = (p1 >= 0.0) & (p1 <= hi)
     wr = torch.where(live, wr, 0.0)
@@ -1521,7 +1642,7 @@ def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
     int32 0-d tensor on the particles' device.
     """
     arrays = (p, vx, vy, vz, const, act, wr, wn)
-    kind = _device_kind((field,) + arrays)
+    kind = _device_kind((field,) + arrays, "boris_gather_push_deposit")
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     n = p.shape[0] if p.dim() == 1 else -1

@@ -186,8 +186,8 @@ def explicit_domain_cycle_plain(field, p, v, w, *, qm, dt: float, dx: float,
 # ---------------------------------------------------------------------------
 
 
-def _check_slab(field_ext, ps, p0, v0, w):
-    kind = _device_kind((field_ext, ps, p0, v0, w))
+def _check_slab(name, field_ext, ps, p0, v0, w):
+    kind = _device_kind((field_ext, ps, p0, v0, w), name)
     ext_n = field_ext.shape[0] if field_ext.dim() == 1 else -1
     _check_1d("field_ext", field_ext, ext_n)
     _check_ng(ext_n)
@@ -211,7 +211,7 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
     particles' device; when it holds 0 the pass writes nothing, jh is zero
     and the count 0, so a Picard loop can run a fixed number of passes
     without reading the residual on the host."""
-    kind, n, ext_n = _check_slab(field_ext, ps, p0, v0, w)
+    kind, n, ext_n = _check_slab("picard_iteration_ext", field_ext, ps, p0, v0, w)
     if active is not None:
         if out is None:
             raise ValueError("active needs out: a skipped pass leaves the "
@@ -221,7 +221,8 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
             raise ValueError("active must be one int32 on the particles' "
                              "device")
     if out is not None:
-        _device_kind((ps,) + tuple(b for b in out if b is not None))
+        _device_kind((ps,) + tuple(b for b in out if b is not None),
+                     "picard_iteration_ext")
         _check_1d("out[0]", out[0], n)
         if emit_v:
             _check_1d("out[1]", out[1], n)
@@ -268,7 +269,7 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
 
 def _finalize_ext(field_ext, ps, p0, v0, w, deposit: bool, name: str, *,
                   qm, dt, dx, lo, hi, lo_shift, ng):
-    kind, n, ext_n = _check_slab(field_ext, ps, p0, v0, w)
+    kind, n, ext_n = _check_slab("picard_finalize_ext", field_ext, ps, p0, v0, w)
     if ng < 0:
         raise ValueError(f"ng must be >= 0, got {ng}")
     if kind == "cpu":
@@ -326,7 +327,7 @@ def leapfrog_gather_push(field, p, v, *, qm, dt: float, dx: float):
     the periodic wrap in one sweep: (p1, v1), p1 equal to
     ``torch.remainder`` of the Pallas kernel's wrapped position (the
     step's mod folded in). ``qm`` is the float32 q/m."""
-    kind = _device_kind((field, p, v))
+    kind = _device_kind((field, p, v), "leapfrog_gather_push")
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     _check_ng(ng)
@@ -364,7 +365,7 @@ def explicit_domain_cycle(field, p, v, w, *, qm, dt: float, dx: float,
     Returns (p1, v1, rho_ext, n_clamped): p1 wrapped with the step's mod
     ng folded in (as ``leapfrog_gather_push``), n_clamped an int32 0-d
     tensor on the particles' device. ``qm`` is the float32 q/m."""
-    kind = _device_kind((field, p, v, w))
+    kind = _device_kind((field, p, v, w), "explicit_domain_cycle")
     ng = field.shape[0] if field.dim() == 1 else -1
     _check_1d("field", field, ng)
     _check_ng(ng)

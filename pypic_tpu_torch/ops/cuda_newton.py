@@ -314,7 +314,7 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
     physical rows, iterations (int32), residual), each on rho's device.
     """
     tensors = (rho,) if phi0 is None else (rho, phi0)
-    kind = _device_kind(tensors)
+    kind = _device_kind(tensors, "boltzmann_dirichlet")
     ng = rho.shape[0] if rho.dim() == 1 else -1
     _check_1d("rho", rho, ng)
     if phi0 is not None:
@@ -408,7 +408,7 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     min 0 over the physical rows, iterations (int32), residual), each on
     n's device, with no host read.
     """
-    kind = _device_kind((n, phi0))
+    kind = _device_kind((n, phi0), "boltzmann_dn")
     ng = n.shape[0] if n.dim() == 1 else -1
     _check_1d("n", n, ng)
     _check_1d("phi0", phi0, ng)
@@ -485,7 +485,7 @@ def tridiag3_chain(dl, d, du, f, *, first: bool, last: bool):
     Returns ((3, c) [xp, u, w], (6,) [xp_0, xp_(c-1), a0 u_0,
     a0 u_(c-1), cc w_0, cc w_(c-1)]), on the inputs' device, with no host
     read."""
-    kind = _device_kind((dl, d, du, f))
+    kind = _device_kind((dl, d, du, f), "tridiag3_chain")
     c = d.shape[0] if d.dim() == 1 else -1
     for name, t in (("dl", dl), ("d", d), ("du", du), ("f", f)):
         _check_1d(name, t, c)

@@ -365,7 +365,7 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
     if gamma > 0.0 and sigth is None:
         sigth = sig
     arrays = (p, u, vy, vz, act, sig) + ((sigth,) if gamma > 0.0 else ())
-    kind = cuda_cic._device_kind(arrays)
+    kind = cuda_cic._device_kind(arrays, "sheath_reinject")
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in zip(("p", "u", "vy", "vz", "act", "sig", "sigth"), arrays):
         cuda_cic._check_1d(name, t, n)

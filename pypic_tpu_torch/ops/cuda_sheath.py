@@ -202,7 +202,7 @@ def sheath_finalize_plain(es, ps, p0, u0, qm, w, act, *, dt: float,
 
 
 def _check(es, ps, p0, u0, qm, w, act):
-    kind = _device_kind((es, ps, p0, u0, qm, w, act))
+    kind = _device_kind((es, ps, p0, u0, qm, w, act), "sheath pass")
     ng = es.shape[0] if es.dim() == 1 else -1
     _check_1d("es", es, ng)
     n = ps.shape[0] if ps.dim() == 1 else -1

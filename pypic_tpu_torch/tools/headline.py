@@ -7,18 +7,22 @@ dt 1e-5) at n = 6104 * 16384 particles in the conserving configuration
 finalize). ``chip_smoke.py`` drives it too.
 
     python -m pypic_tpu_torch.tools.headline drift [--steps 10000] [--chunk 500]
-        [--ng 200]
+        [--ng 200] [--dtype float32|float64] [--tol T] [--maxiter K]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
         [--cell landau|two-stream|magnetized|carried|sheath|dn|gc|bca] [--ng 200]
+        [--dtype float32|float64]
 
 ``--ng`` refines the headline cell's grid as the Landau preset does (L
 stays 22 Debye lengths; the particle kernels take their large modes above
 their shared-memory ceilings, up to ``cuda_cic.LARGE_MAX_NG``); it applies
-to ``--cell landau`` only.
+to ``--cell landau`` only, as does ``--dtype``: float64 runs the cell's
+state (the same float32 load, cast) on the double kernels of rows 1-6.
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
-step 0 and the sustained ms/step. ``profile`` times untraced repeats,
+step 0 and the sustained ms/step; ``--tol`` and ``--maxiter`` replace the
+conserving configuration's (tol 1e-30, maxiter 4) to run a tolerance-exit
+configuration, and the Picard passes a step are reported. ``profile`` times untraced repeats,
 then traces steps with ``torch.profiler`` and reports device time per
 step by kernel, the device's idle share and the host syncs per step; it
 writes the chrome trace and the profiler's table under ``--out``.
@@ -60,15 +64,16 @@ CONSERVING = dict(tol=1e-30, maxiter=4, picard_init="extrapolate",
                   picard_accel="anderson", finalize="converged",
                   finalize_field="last", window_share="auto")
 _DENSITY, _TE, _DT = 1e5, 100.0 * 11600.0, 1e-5
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def headline_config(n: int, ng: int = NG) -> implicit.ImplicitConfig:
+def headline_config(n: int, ng: int = NG, **overrides) -> implicit.ImplicitConfig:
     """The reference Landau preset at n particles and ng nodes,
-    conserving config."""
+    conserving config (``overrides`` replace its options)."""
     debye = np.sqrt(K_BOLTZMANN * _TE * EPSILON_0 / E_CHARGE**2 / _DENSITY)
     length = 22.0 * debye
     return implicit.ImplicitConfig(GridSpec(ng, length, "periodic"), _DT,
-                                   length * _DENSITY / n, **CONSERVING)
+                                   length * _DENSITY / n, **dict(CONSERVING, **overrides))
 
 
 def device_load(n: int, length: float, device, seed: int = 1):
@@ -85,11 +90,15 @@ def device_load(n: int, length: float, device, seed: int = 1):
     return x, v
 
 
-def headline_state(n: int, device, seed: int = 1, ng: int = NG):
-    """(cfg, step_fn, initial state) of the cell on ``device``."""
-    cfg = headline_config(n, ng)
+def headline_state(n: int, device, seed: int = 1, ng: int = NG,
+                   dtype: torch.dtype = torch.float32, **overrides):
+    """(cfg, step_fn, initial state) of the cell on ``device``, its state
+    in ``dtype`` (float64: the float32 load cast before x / dx, so both
+    dtypes start from the same particles)."""
+    cfg = headline_config(n, ng, **overrides)
     x, v = device_load(n, cfg.grid.length, device, seed)
-    state = implicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device=device)
+    state = implicit.init_state(x.to(dtype), v.to(dtype), -E_CHARGE, M_ELECTRON, cfg,
+                                dtype=dtype, device=device)
     return cfg, implicit.make_step(cfg), state
 
 
@@ -97,12 +106,17 @@ def _total_energy(m) -> torch.Tensor:
     return (m.field_energy.double() + m.kinetic_energy.double()).cpu()
 
 
+def _overrides(args) -> dict:
+    return {k: getattr(args, k) for k in ("tol", "maxiter") if getattr(args, k) is not None}
+
+
 def drift(args) -> dict:
     dev = torch.device("cuda", 0)
-    _, step, state = headline_state(args.n, dev, args.seed, args.ng)
+    cfg, step, state = headline_state(args.n, dev, args.seed, args.ng,
+                                      DTYPES[args.dtype], **_overrides(args))
     chunks = -(-args.steps // args.chunk)
     e0 = None
-    worst, iters_ok, done, seconds = 0.0, True, 0, 0.0
+    worst, iters_ok, done, seconds, passes = 0.0, True, 0, 0.0, 0
     for _ in range(chunks):
         k = min(args.chunk, args.steps - done)
         torch.cuda.synchronize()
@@ -117,13 +131,16 @@ def drift(args) -> dict:
             e0 = float(tot[0])
         rel = (tot - e0) / e0
         worst = max(worst, float(rel.abs().max()))
-        iters_ok &= bool((m.picard_iters == CONSERVING["maxiter"]).all())
+        iters_ok &= bool((m.picard_iters == cfg.maxiter).all())
+        passes += int(m.picard_iters.sum())
         print(f"[drift] step {done}: {float(rel[-1]):+.4e} "
-              f"(largest so far {worst:.4e}), {dt * 1e3 / k:.4f} ms/step",
+              f"(largest so far {worst:.4e}), {dt * 1e3 / k:.4f} ms/step, "
+              f"Picard {float(m.picard_iters.float().mean()):.2f} a step",
               flush=True)
-    res = dict(n=args.n, ng=args.ng, seed=args.seed, steps=done, drift=float(rel[-1]),
-               largest_excursion=worst, picard_iters_all_4=iters_ok,
-               ms_per_step=seconds * 1e3 / done)
+    res = dict(n=args.n, ng=args.ng, seed=args.seed, dtype=args.dtype, tol=cfg.tol,
+               maxiter=cfg.maxiter, steps=done, drift=float(rel[-1]),
+               largest_excursion=worst, picard_iters_all_max=iters_ok,
+               picard_mean=passes / done, ms_per_step=seconds * 1e3 / done)
     print(json.dumps(res))
     return res
 
@@ -185,7 +202,8 @@ def profile(args) -> dict:
         args.n = state.p.shape[0]
         step = sheath.make_step(cfg)
     else:
-        _, step, state = headline_state(args.n, dev, args.seed, args.ng)
+        _, step, state = headline_state(args.n, dev, args.seed, args.ng,
+                                        DTYPES[args.dtype])
     state, _ = run(step, state, 2)  # warm-up
     untraced = []
     for _ in range(3):
@@ -233,7 +251,7 @@ def profile(args) -> dict:
           f"kernel launches {kernels:.1f}/step")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile] {ms:9.4f} ms/step  {count / args.steps:6.1f}/step  {name[:90]}")
-    res = dict(cell=args.cell, n=args.n, steps=args.steps,
+    res = dict(cell=args.cell, n=args.n, steps=args.steps, dtype=args.dtype,
                untraced_ms_per_step=untraced,
                traced_ms_per_step=traced, device_busy_ms_per_step=busy,
                idle_share_traced=1.0 - _busy_union(spans) / window,
@@ -252,6 +270,10 @@ def parser() -> argparse.ArgumentParser:
     d = sub.add_parser("drift", help="energy drift over many steps")
     d.add_argument("--steps", type=int, default=10_000)
     d.add_argument("--chunk", type=int, default=500)
+    d.add_argument("--tol", type=float, default=None,
+                   help="the Picard tolerance (default the conserving 1e-30)")
+    d.add_argument("--maxiter", type=int, default=None,
+                   help="the Picard passes at most (default the conserving 4)")
     p = sub.add_parser("profile", help="device time per step by kernel")
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", required=True,
@@ -265,6 +287,8 @@ def parser() -> argparse.ArgumentParser:
         s.add_argument("--ng", type=int, default=NG,
                        help="grid nodes of the headline cell (L stays 22 "
                             "Debye lengths)")
+        s.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                       help="the headline cell's state dtype")
     return ap
 
 

@@ -534,11 +534,11 @@ _INLINED = "// cic_common.cuh, inlined\n"
 # cut (b) of the wide deposits' flush (cic_common.cuh flush_columns, inlined
 # by _inlined): the node totals stored under a predicate never true
 _FLUSH_CUT = (
-    "    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);\n"
-    "    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);",
-    "#if CUT == 1\n    if (a == 1.2345e30f) out_a[k] = b;\n#else\n"
-    "    if (!SKIP || a != 0.0f) atomicAdd(out_a + k, a);\n"
-    "    if (ARRAYS == 2 && (!SKIP || b != 0.0f)) atomicAdd(out_b + k, b);\n#endif", 1)
+    "    if (!SKIP || a != (T)0) atomicAdd(out_a + k, a);\n"
+    "    if (ARRAYS == 2 && (!SKIP || b != (T)0)) atomicAdd(out_b + k, b);",
+    "#if CUT == 1\n    if (a == (T)1.2345e30f) out_a[k] = b;\n#else\n"
+    "    if (!SKIP || a != (T)0) atomicAdd(out_a + k, a);\n"
+    "    if (ARRAYS == 2 && (!SKIP || b != (T)0)) atomicAdd(out_b + k, b);\n#endif", 1)
 _DEPOSIT_EDITS = [
     (_INLINED, _INLINED + "#ifndef CUT\n#define CUT 0\n#endif\n", 1),
     _FLUSH_CUT,
@@ -1145,21 +1145,21 @@ _SINGLE_EDITS = [
     (_INLINED, _INLINED + _CUT_DEFINE, 1),
     _FLUSH_CUT,
     ("  zero_shared(h, ng * cols);",
-     "  if (CUT != 4) zero_shared(h, ng * cols);\n  float sink = 0.0f;", 1),
-    ("        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));\n"
-     "        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));\n",
+     "  if (CUT != 4) zero_shared(h, ng * cols);\n  T sink = 0;", 1),
+    ("        add_nonzero(h, c.l * cols + col, mul_rn(val, c.wl));\n"
+     "        add_nonzero(h, c.r * cols + col, mul_rn(val, c.wr));\n",
      "#if CUT == 3 || CUT == 4\n"
-     "        sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
-     " c.wr), (float)(c.l * cols + col))));\n#else\n"
-     "        add_nonzero(h, c.l * cols + col, __fmul_rn(val, c.wl));\n"
-     "        add_nonzero(h, c.r * cols + col, __fmul_rn(val, c.wr));\n#endif\n", 1),
-    ("  if (v != 0.0f) atomicAdd(h + at, v);",
-     "#if CUT == 6\n  if (__any_sync(__activemask(), v != 0.0f)) atomicAdd(h + at, v);\n#else\n"
-     "  if (CUT == 5 || v != 0.0f) atomicAdd(h + at, v);\n#endif", 1),
-    ("  flush_columns<ROWS, 1, true>(h, ng, cols, out, nullptr);",
-     "  if (sink == 1.2345e30f) out[0] = sink;\n"
-     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 1, CUT != 5>(h, ng, cols, out, nullptr);",
-     1),
+     "        sink = add_rn(sink, add_rn(mul_rn(val, c.wl), add_rn(mul_rn(val,"
+     " c.wr), (T)(c.l * cols + col))));\n#else\n"
+     "        add_nonzero(h, c.l * cols + col, mul_rn(val, c.wl));\n"
+     "        add_nonzero(h, c.r * cols + col, mul_rn(val, c.wr));\n#endif\n", 1),
+    ("  if (v != (T)0) atomicAdd(h + at, v);",
+     "#if CUT == 6\n  if (__any_sync(__activemask(), v != (T)0)) atomicAdd(h + at, v);\n#else\n"
+     "  if (CUT == 5 || v != (T)0) atomicAdd(h + at, v);\n#endif", 1),
+    ("  flush_columns<ROWS, 1, true, T>(h, ng, cols, out, nullptr);",
+     "  if (sink == (T)1.2345e30f) out[0] = sink;\n"
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 1, CUT != 5, T>(h, ng, cols, out,"
+     " nullptr);", 1),
     # deposit_det_kernel
     ("  zero_shared(s_hist, T * ng);", "  if (CUT != 4) zero_shared(s_hist, T * ng);", 1),
     ("  float* mine = s_hist + threadIdx.x;", "  float* mine = s_hist + threadIdx.x;\n  float sink = 0.0f;", 1),

@@ -158,9 +158,13 @@ def test_gather_dispatch_rejects_other_devices_and_dtypes():
     f = torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cic.gather(f, torch.empty(4, device="meta"), periodic=True)
+    # float32 and float64 run on the CPU (a float64 state); others raise
     with pytest.raises(TypeError, match="float32"):
-        cic.gather(torch.zeros(8, dtype=torch.float64),
-                   torch.zeros(4, dtype=torch.float64), periodic=True)
+        cic.gather(torch.zeros(8, dtype=torch.float16),
+                   torch.zeros(4, dtype=torch.float16), periodic=True)
+    assert cic.gather(torch.zeros(8, dtype=torch.float64),
+                      torch.zeros(4, dtype=torch.float64),
+                      periodic=True).dtype == torch.float64
 
 
 def test_grid_spec_matches():

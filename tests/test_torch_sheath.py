@@ -562,8 +562,8 @@ def test_unported_options_raise(kw, item):
 def test_float64_on_the_card_names_its_item():
     cfg = sheath.SheathConfig(**_cfg_kw(GridSpec(11, 1e-4, "dirichlet-dirichlet")))
     with pytest.raises(NotImplementedError, match="item 19"):
-        sheath._check_dtype(torch.device("cuda", 0), torch.float64)
-    sheath._check_dtype(torch.device("cpu"), torch.float64)
+        cuda_cic.check_engine_dtype("sheath", torch.device("cuda", 0), torch.float64)
+    cuda_cic.check_engine_dtype("sheath", torch.device("cpu"), torch.float64)
     assert cfg.rng_sampler == "auto"
 
 
