@@ -417,8 +417,39 @@ Phases (any failure raises and the script exits non-zero):
    for the pass, the finalize and the set-up deposit; the ng = 200
    checks' for the shared window, converged-deposit and the gather), and
    unless a float64 state on the card raises a NotImplementedError naming
-   its ROADMAP item in the explicit, magnetized and sheath engines,
-   deposit_det and run_resident.
+   its ROADMAP item in the explicit and magnetized engines and
+   run_resident (the sheath engine and deposit_det, on phase 43's double
+   kernels, must run it and stay float64).
+43. sheath float64 — the sheath engine's float64 state on its double
+   kernels (ROADMAP item 19a): the pass and the finalize (row 10),
+   deposit_det, sheath_reinject (row 21) and hash_batch. Each against its
+   float64 plain version on the inputs it is then timed on: the pass and
+   finalize at the configs[2] shape (n = 1e6, ng 51), deposit_det there
+   and at the exit histograms' 128 nodes, the three in their large mode
+   (two-word fixed point) at the first node above each double ceiling
+   (881, 881, 908), at 8,192 (n = 1e6) and at 65,536 (n = 1e7): outputs
+   bit-equal, the small mode's current within 4 n eps64 of the largest
+   node, the large mode's bit-equal to the int64 two-word plain twin and
+   within 2 float64 ulps plus n 2^-(k+L+1) of math.fsum on sampled nodes,
+   every current bit-equal over three calls (timed at the configs[2]
+   shape and at 65,536); sheath_reinject at the
+   row's mix and at 80/10/10, gamma 0 and 0.5 (positions and held rows
+   bit-equal, velocities within TOL64_REINJECT_V); hash_batch at
+   HASH_SHAPES (uniforms bit-equal, normals within 4 float64 ulps). Each
+   timed (device_ms on rotating copies) beside the float32 kernel on the
+   same inputs, the plain version, the bound (twice the float32 bytes,
+   float64 operations at the float64 rate) and torch.rand in float64 for
+   the draws. Then the configs[2] row in float64 (tools/sheath.py state,
+   fused and composed, and fused on the hash sampler): SHEATH64_ROW_STEPS
+   steps on the CPU's float64 route from the row's initial state, the
+   card one step from each CPU state against the CPU's next one
+   (statuses and Picard passes equal, SHEATH64_STEP limits), the launch
+   counts from 0 just before those card steps; then phase 40's loads at
+   ng 8,192 (fused, composed) and 65,536 (fused) in float64 and float32,
+   SHEATH64_LARGE_STEPS steps each on the card: Picard passes a step and
+   steps at maxiter in both dtypes, and one float64 step card against the
+   CPU from the card's last state. It fails if a double kernel never
+   launched on its path.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -5254,13 +5285,16 @@ DP_ACTIVE_GAP = 4
 TOL_DP_REPLICAS_FE = 1e-4
 
 
-def hash_bound(n: int, streams: int, normals: bool) -> tuple[float, str]:
+def hash_bound(n: int, streams: int, normals: bool, item: int = 4) -> tuple[float, str]:
     """The least time in ms for one hash_batch call: the (streams, n)
     outputs written once over the memory rate, against the integer work
-    at the integer rate and the Box-Muller work at the float32 rate."""
-    by_bytes = 4.0 * streams * n / PEAK_BYTES_PER_S * 1e3
+    at the integer rate and the Box-Muller work at the float32 rate (with
+    ``item`` 8, float64 outputs and the Box-Muller work at the float64
+    rate)."""
+    by_bytes = float(item) * streams * n / PEAK_BYTES_PER_S * 1e3
+    peak = PEAK_F64_PER_S if item == 8 else PEAK_F32_PER_S
     by_ops = (HASH_INT_OPS * streams * n / PEAK_INT32_PER_S
-              + (HASH_PAIR_OPS * streams // 2 * n / PEAK_F32_PER_S
+              + (HASH_PAIR_OPS * streams // 2 * n / peak
                  if normals else 0.0)) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -8085,8 +8119,9 @@ def phase_large_periodic(dev) -> dict:
     return res
 
 
-# phase 42: a float64 state on the double kernels of rows 1-6
-F64_ROWS = F64_KERNELS
+# phase 42: a float64 state on the double kernels of rows 1-6 (the first
+# six of F64_KERNELS; the sheath engine's follow, phase 43)
+F64_ROWS = F64_KERNELS[:6]
 # (n, ng) of each mode, checked and timed on the same inputs: the shared
 # mode at the headline's shape, the global mode at 65,536 nodes
 F64_SHAPES = {"shared": (N_HEADLINE, NG), "global": (10_000_000, 65_536)}
@@ -8306,8 +8341,10 @@ def _f64_path_check(ng: int, dev) -> tuple[dict, dict, list]:
 
 def _f64_refusals(dev) -> list:
     """A float64 state on the card raises a named NotImplementedError
-    where no float64 kernel exists yet: the explicit, magnetized and
-    sheath engines, deposit_det and run_resident. Returns what did not."""
+    where no float64 kernel exists yet: the explicit and magnetized
+    engines and run_resident; the sheath engine and deposit_det, which
+    have double kernels (phase 43), run it and stay float64.
+    Returns what did not."""
     import numpy as np
 
     from pypic_tpu_torch import presets
@@ -8329,16 +8366,18 @@ def _f64_refusals(dev) -> list:
         "magnetized": lambda: magnetized.init_state(
             x * mcfg.grid.length, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0, mcfg,
             dtype=f64, device=dev),
-        "sheath": lambda: sheath.init_state(
-            x * scfg.grid.length, np.zeros((64, 3)), -E_CHARGE, M_ELECTRON,
-            np.zeros(64, np.int32), scfg, dtype=f64, device=dev),
-        "deposit_det": lambda: K.deposit_det(
-            torch.zeros(64, dtype=f64, device=dev), torch.ones(64, dtype=f64, device=dev),
-            16, periodic=True),
         "run_resident": lambda: implicit.run_resident(
             implicit.ImplicitConfig(grid, 1e-9, 1.0), implicit.init_state(
                 x, v, -E_CHARGE, M_ELECTRON, implicit.ImplicitConfig(grid, 1e-9, 1.0),
                 dtype=f64, device=dev), 2),
+    }
+    taking = {
+        "sheath": lambda: sheath.init_state(
+            x * scfg.grid.length, np.zeros((64, 3)), -E_CHARGE, M_ELECTRON,
+            np.zeros(64, np.int32), scfg, dtype=f64, device=dev).j,
+        "deposit_det": lambda: K.deposit_det(
+            torch.zeros(64, dtype=f64, device=dev), torch.ones(64, dtype=f64, device=dev),
+            16, periodic=True),
     }
     for what, call in cases.items():
         try:
@@ -8349,6 +8388,12 @@ def _f64_refusals(dev) -> list:
                 problems.append(f"{what}: {err} names no ROADMAP item")
             else:
                 log(f"[float64] {what} refuses float64 on the card: {err}")
+    for what, call in taking.items():
+        out = call()
+        if out.dtype != f64 or out.device.type != "cuda":
+            problems.append(f"{what}: float64 on the card gave {out.dtype} on {out.device}")
+        else:
+            log(f"[float64] {what} takes float64 on the card (ROADMAP item 19a)")
     return problems
 
 
@@ -8444,6 +8489,503 @@ def phase_float64(dev) -> dict:
     return res
 
 
+# phase 43: the sheath engine's float64 state on its double kernels
+SHEATH64_ROWS = ("sheath_picard", "sheath_finalize", "deposit_det", "sheath_reinject")
+# (n, ng) of each kernel's checks and times: the configs[2] shape (and the
+# exit histograms' 128 nodes for deposit_det), then the large mode at the
+# first node above the double ceiling (cuda_sheath.MAX_NG_F64 = 880, the
+# deposit's 907), at 8,192 and at 65,536
+SHEATH64_SHAPES = {
+    "sheath_picard": ((N_SHEATH, NG_SHEATH), (N_SHEATH, 881), (N_SHEATH, 8192),
+                      (10_000_000, 65_536)),
+    "sheath_finalize": ((N_SHEATH, NG_SHEATH), (N_SHEATH, 881), (N_SHEATH, 8192),
+                        (10_000_000, 65_536)),
+    "deposit_det": ((N_SHEATH, NG_SHEATH), (N_SHEATH, 128), (N_SHEATH, 908),
+                    (N_SHEATH, 8192), (10_000_000, 65_536)),
+}
+# the record that stands for a kernel's small and large modes in the
+# kernels line
+SHEATH64_MAIN = f"n {N_SHEATH}, ng {NG_SHEATH}"
+SHEATH64_LARGE_MAIN = "n 10000000, ng 65536"
+# nodes of a large-mode current whose two-word sums are held to math.fsum
+SHEATH64_FSUM_NODES = 8
+# the re-injection's velocities against its float64 plain version: the
+# float32 normals from libdevice's logf, sinf and cosf against the CPU's
+# float64 functions rounded once (phase 16's float32 limit), times the
+# float64 sigmas
+TOL64_REINJECT_V = 1e-6
+# the float64 hash normals against the plain version's, in float64 ulps
+# of each value
+HASH64_ULPS = 4.0
+# the configs[2] row in float64: steps on the CPU, the card one step from
+# each; the card's step against the CPU's. On the Philox sampler the
+# re-injected rows' float32 normals differ by float32 ulps (libdevice
+# against the CPU's float64 functions rounded once): 4 ulps of the
+# largest normal (~5.5) times sigma (1.3e6 m/s) and dt/dx (1e-7) is
+# 1.7e-7 cells of x1, 1e-6 of u
+SHEATH64_ROW_STEPS = 20
+SHEATH64_STEP = {"p (cells)": 2e-7, "u": 1e-6, "e": 1e-7, "j": 1e-7, "phi": 1e-7}
+SHEATH64_HASH_STEPS = 5
+SHEATH64_STEP_HASH = {"p (cells)": 1e-9, "u": 1e-10, "e": 1e-10, "j": 1e-10,
+                      "phi": 1e-10}
+# phase 40's loads in both dtypes: steps on the card each
+SHEATH64_LARGE_STEPS = 5
+
+
+def _sheath64_pass_case(name: str, n: int, ng: int, gen, dev, timed: bool) -> dict:
+    """The double pass or finalize at (n, ng) on _sheath_inputs in float64:
+    the outputs bit-equal to the float64 plain version's, the current
+    within deposit_tol64(n) of its (small mode) or bit-equal to the
+    two-word twin and within 2 ulps + n 2^-(k+L+1) of math.fsum on
+    sampled nodes (large mode), the same bits over three calls; then
+    timed beside the float32 kernel on the same inputs cast."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_sheath as S
+
+    f64, kw = torch.float64, dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    args32 = _sheath_inputs(n, ng, gen, dev)
+    args = tuple(a.to(f64) for a in args32)
+    final = name == "sheath_finalize"
+    fn = S.sheath_finalize if final else S.sheath_picard
+    plain = S.sheath_finalize_plain if final else S.sheath_picard_plain
+    K.reset_launch_counts()
+    got = [fn(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    large = ng > S.MAX_NG_F64
+    errs = {}
+    if K.LAUNCHES[f"{name}_f64"] != 3 or K.LAUNCHES[name]:
+        raise AssertionError(f"{name} float64: launches {dict(K.LAUNCHES)}")
+    if any(t.dtype != f64 for t in got[0]):
+        raise AssertionError(f"{name} float64: outputs {[t.dtype for t in got[0]]}")
+    same = all(torch.equal(g[-1], got[0][-1]) for g in got[1:])
+    errs["j call to call"] = dict(abs=0.0 if same else 1.0, err=0.0 if same else 1.0,
+                                  kind="bit-equal over three calls", tol=0.0)
+    ref = plain(*args, **kw)
+    outs = all(torch.equal(g, r) for g, r in zip(got[0][:-1], ref[:-1]))
+    errs["outputs"] = dict(abs=0.0 if outs else 1.0, err=0.0 if outs else 1.0,
+                           kind="bit-equal to the float64 plain version", tol=0.0)
+    x1, u1, xh, uh, _ = S._push_plain(args[0], args[1], args[2], args[3], args[4],
+                                      args[6], SHEATH_DT, SHEATH_DX)
+    pos, vals = (x1, u1) if final else (xh, uh)
+    at, val = S.sheath_deposit_args_plain(pos, vals, ref[-2], args[5], ng, **kw)
+    del x1, u1, xh, uh
+    j = got[0][-1]
+    rec = _sheath64_current(errs, j, at, val, ng, n, large, ref[-1])
+    del at, val, pos, vals, ref
+    rec["max_abs_err"] = _check(errs, f"{name} float64 (n = {n}, ng = {ng})")
+    rec.update(n=n, ng=ng, mode="large" if large else "small")
+    if timed:
+        rec.update(_sheath64_timed(name, n, ng, fn, plain, args, args32, kw, large))
+    del got, args, args32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sheath64_current(errs: dict, j, at, val, ng: int, n: int, large: bool,
+                      ref_j) -> dict:
+    """The checks of a double deterministic current j (the deposit of the
+    values ``val`` at ``at``, bounded) into ``errs``: within
+    deposit_tol64(n) of the plain float64 deposit ``ref_j``; the large mode
+    also bit-equal to the two-word twin and within 2 ulps + n 2^-(k+L+1)
+    of math.fsum at SHEATH64_FSUM_NODES nodes and more (the walls and the
+    fullest node among them). Returns the figures."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    a, r = rel_err(ref_j, j)
+    errs["j"] = dict(abs=a, err=r, kind="rel to the float64 plain version, float64 order",
+                     tol=deposit_tol64(n))
+    if not large:
+        return dict(j_rel_err=r)
+    nodes, terms = K.deposit_terms_plain(at, val, ng, periodic=False)
+    twin = K.fixed2_sum_plain(nodes, terms, ng, n)
+    bits = torch.equal(twin, j)
+    errs["j two-word twin"] = dict(abs=0.0 if bits else 1.0, err=0.0 if bits else 1.0,
+                                   kind="bit-equal to the int64 two-word twin", tol=0.0)
+    m = float(terms.abs().max())
+    k = 62 - math.frexp(2.0 * n * m)[1]
+    quantum = n * 2.0 ** -(k + K.fixed2_bits(n) + 1)
+    counts = torch.bincount(nodes, minlength=ng)
+    pick = torch.Generator().manual_seed(ng)
+    picks = sorted({0, ng - 1, int(torch.argmax(counts))}
+                   | set(torch.randint(0, ng, (SHEATH64_FSUM_NODES,), generator=pick).tolist()))
+    worst = 0.0
+    for node in picks:
+        exact = math.fsum(terms[nodes == node].tolist())
+        gap = abs(float(j[node]) - exact)
+        worst = max(worst, gap / (2.0 * math.ulp(exact) + quantum))
+    errs["j against math.fsum"] = dict(
+        abs=worst, err=worst, kind=f"of 2 ulps + n 2^-(k+L+1) at {len(picks)} nodes",
+        tol=1.0)
+    return dict(j_rel_err=r, fsum_nodes=len(picks), fsum_worst_of_limit=worst,
+                quantum=quantum, twin_bit_equal=bits)
+
+
+def _sheath64_timed(name: str, n: int, ng: int, fn, plain, args, args32, kw,
+                    large: bool) -> dict:
+    """device_ms of the double kernel on rotating copies of ``args``, the
+    float32 kernel on ``args32``, the plain version once, and the bound:
+    the function's bytes alone, each row read once and the field and the
+    current once a node (LARGE_NODE_BYTES in double), as the float32
+    large modes are bounded. The large mode's own traffic, the two-word
+    sums' 16 B a node and the scale sweep's second read of the rows, is
+    reported beside it (``design_bytes_ms``), not in it."""
+    ms = statistics.median(device_ms(_rotating(fn, args, **kw)) for _ in range(3))
+    f32_ms = device_ms(_rotating(fn, args32, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=1, calls=1)
+    b, by = bound(name, n, extra_bytes=2.0 * LARGE_NODE_BYTES[name] * ng, f64=True)
+    mode = "large (two-word fixed point)" if large else "small (thread columns)"
+    rec = dict(n=n, ng=ng, mode="large" if large else "small", ms=ms,
+               float32_ms=f32_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=None)
+    design = ""
+    if large:
+        rows = 6 if name != "deposit_det" else 2  # the scale sweep's reads, 8 B each
+        own = 16.0 * ng + 8.0 * rows * n
+        rec["design_bytes_ms"] = bound(name, n, extra_bytes=2.0 * LARGE_NODE_BYTES[name] * ng
+                                       + own, f64=True)[0]
+        design = (f"; with the design's own sums and scale sweep "
+                  f"{rec['design_bytes_ms']:.4f} ms")
+    log(f"[sheath float64] {name}_f64 at n = {n}, ng = {ng}, {mode}: {ms:.4f} ms "
+        f"(float32 kernel {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{b:.4f} ms ({by}){design}")
+    return rec
+
+
+def _deposit64_case(n: int, ng: int, gen, dev, timed: bool) -> dict:
+    """The double deposit_det at (n, ng): bounded rows and values, the
+    current's checks (_sheath64_current), the same bits over three calls;
+    timed beside the float32 kernel and float64 index_add_ of the same
+    terms (its library call)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_sheath as S
+
+    p32 = torch.rand(n, generator=gen, device=dev) * (ng - 1)
+    v32 = torch.randn(n, generator=gen, device=dev) * 1e3
+    p, v = p32.double(), v32.double()
+    K.reset_launch_counts()
+    got = [K.deposit_det(p, v, ng, periodic=False) for _ in range(3)]
+    torch.cuda.synchronize()
+    if K.LAUNCHES["deposit_det_f64"] != 3 or K.LAUNCHES["deposit_det"]:
+        raise AssertionError(f"deposit_det float64: launches {dict(K.LAUNCHES)}")
+    large = ng > 907
+    errs = {}
+    same = all(torch.equal(g, got[0]) for g in got[1:]) and got[0].dtype == torch.float64
+    errs["out call to call"] = dict(abs=0.0 if same else 1.0, err=0.0 if same else 1.0,
+                                    kind="float64, bit-equal over three calls", tol=0.0)
+    rec = _sheath64_current(errs, got[0], p, v, ng, n, large,
+                            K.deposit_plain(p, v, ng, periodic=False))
+    rec["max_abs_err"] = _check(errs, f"deposit_det float64 (n = {n}, ng = {ng})")
+    rec.update(n=n, ng=ng, mode="large" if large else "small")
+    if timed:
+        fn = lambda a, b: K.deposit_det(a, b, ng, periodic=False)  # noqa: E731
+        plain = lambda a, b: K.deposit_plain(a, b, ng, periodic=False)  # noqa: E731
+        rec.update(_sheath64_timed("deposit_det", n, ng, fn, plain, (p, v), (p32, v32),
+                                   {}, large))
+        nodes, terms = K.deposit_terms_plain(p, v, ng, periodic=False)
+        rec["library_ms"] = device_ms(lambda: torch.zeros(
+            ng, dtype=torch.float64, device=dev).index_add_(0, nodes, terms))
+        log(f"[sheath float64]   deposit_det_f64 library call index_add_ (float64) "
+            f"{rec['library_ms']:.4f} ms")
+        del nodes, terms
+    del got, p, v, p32, v32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _reinject64_case(dev) -> dict:
+    """The double sheath_reinject at n = 1e6, gamma 0 and 0.5, the row's
+    mix and 80/10/10: positions and held rows bit-equal to the float64
+    plain version, velocities within TOL64_REINJECT_V of the largest;
+    timed at gamma 0 beside the float32 kernel and torch.rand((5, n)) in
+    float64."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_rng
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n = N_SHEATH
+    p, v, sig, mixes = _reinject_inputs(n, gen, dev)
+    key, step = (0, 3), 11
+    recs = {}
+    for mix, act in mixes.items():
+        args32 = (p, v[0], v[1], v[2], act, sig)
+        args = tuple(a.double() for a in args32)
+        for gamma in (0.0, 0.5):
+            K.reset_launch_counts()
+            got = cuda_rng.sheath_reinject(key, step, *args, cells=50.0, gamma=gamma)
+            ref = cuda_rng.sheath_reinject_plain(key, step, *args, cells=50.0, gamma=gamma)
+            torch.cuda.synchronize()
+            if K.LAUNCHES["sheath_reinject_f64"] != 1 or K.LAUNCHES["sheath_reinject"]:
+                raise AssertionError(f"sheath_reinject float64: {dict(K.LAUNCHES)}")
+            errs = {}
+            pos = torch.equal(got[0], ref[0]) and got[0].dtype == torch.float64
+            errs["p"] = dict(abs=0.0 if pos else 1.0, err=0.0 if pos else 1.0,
+                             kind="float64, bit-equal", tol=0.0)
+            for label, g, r in zip(("u", "vy", "vz"), got[1:], ref[1:]):
+                a, rr = rel_err(r, g)
+                errs[label] = dict(abs=a, err=rr, kind="rel", tol=TOL64_REINJECT_V)
+            drawn = act != 1.0
+            if gamma == 0.0:
+                held = all(torch.equal(g[~drawn], x[~drawn])
+                           for g, x in zip(got, args[:4]))
+                errs["held rows"] = dict(abs=0.0 if held else 1.0, err=0.0 if held else 1.0,
+                                         kind="bit-equal to their inputs", tol=0.0)
+            err = _check(errs, f"sheath_reinject float64 ({mix}, gamma {gamma})")
+            if gamma == 0.0:
+                drawing = int(drawn.sum())
+                fn = lambda *a: cuda_rng.sheath_reinject(key, step, *a, cells=50.0)  # noqa: E731
+                ms = statistics.median(device_ms(_rotating(fn, args)) for _ in range(3))
+                f32_ms = device_ms(_rotating(fn, args32))
+                plain_ms = cuda_ms(lambda: cuda_rng.sheath_reinject_plain(
+                    key, step, *args, cells=50.0), reps=1, calls=1)
+                b, by = bound("sheath_reinject", n, f64=True,
+                              extra_bytes=2 * REINJECT_DRAW_BYTES * drawing,
+                              extra_ops=REINJECT_DRAW_OPS * drawing)
+                recs[mix] = dict(n=n, drawing_rows=drawing, ms=ms, float32_ms=f32_ms,
+                                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                 max_abs_err=err)
+                log(f"[sheath float64] sheath_reinject_f64 at the {mix} mix ({drawing} "
+                    f"rows drawn): {ms:.4f} ms (float32 kernel {f32_ms:.4f} ms), plain "
+                    f"{plain_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            del got, ref
+    g = torch.Generator(device=dev).manual_seed(5)
+    lib = device_ms(_rotating(lambda: torch.rand((5, n), device=dev, generator=g,
+                                                 dtype=torch.float64), ()))
+    log(f"[sheath float64] sheath_reinject_f64: library call torch.rand((5, n), "
+        f"float64) {lib:.4f} ms")
+    rec = dict(recs["80/10/10"], library_ms=lib, row_mix=recs["row"])
+    del p, v, sig, mixes
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _hash64_case(dev) -> dict:
+    """The float64 hash_batch at HASH_SHAPES: the uniforms bit-equal to the
+    plain version's, the normals within HASH64_ULPS float64 ulps of each;
+    timed beside the float32 kernel and torch.rand in float64."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_rng
+
+    f64, out = torch.float64, {}
+    for n, streams, normals in HASH_SHAPES:
+        seed, off = 0x2545F491, n
+        K.reset_launch_counts()
+        uni = cuda_rng.hash_batch(seed, n, streams, offset=off, device=dev, dtype=f64)
+        z = cuda_rng.hash_batch(seed, n, streams, offset=off, normals=True, device=dev,
+                                dtype=f64) if streams % 2 == 0 else None
+        torch.cuda.synchronize()
+        if not K.LAUNCHES["hash_batch_f64"] or K.LAUNCHES["hash_batch"]:
+            raise AssertionError(f"hash_batch float64: launches {dict(K.LAUNCHES)}")
+        ref = cuda_rng.hash_uniforms_plain(seed, n, streams, off, dev, f64)
+        errs = {}
+        bits = uni.dtype == f64 and torch.equal(uni, ref)
+        errs["uniforms"] = dict(abs=0.0 if bits else 1.0, err=0.0 if bits else 1.0,
+                                kind="float64, bit-equal", tol=0.0)
+        if z is not None:
+            zr = cuda_rng.hash_normals_from_uniforms(ref)
+            spacing = torch.from_numpy(__import__("numpy").spacing(
+                zr.abs().cpu().numpy())).to(dev)
+            ulps = float(((z - zr).abs() / spacing).max())
+            errs["normals"] = dict(abs=ulps, err=ulps, kind="float64 ulps of each",
+                                   tol=HASH64_ULPS)
+        err = _check(errs, f"hash_batch float64 {streams} x {n}")
+        held = collections.deque(maxlen=4)
+        ms = device_ms(lambda: held.append(cuda_rng.hash_batch(
+            7, n, streams, offset=n, normals=normals, device=dev, dtype=f64)))
+        f32_ms = device_ms(lambda: held.append(cuda_rng.hash_batch(
+            7, n, streams, offset=n, normals=normals, device=dev)))
+        plain_ms = cuda_ms(lambda: held.append(cuda_rng.hash_batch_plain(
+            7, n, streams, n, normals, dev, f64)), reps=3, calls=3)
+        lib_ms = device_ms(lambda: held.append(torch.rand((streams, n), device=dev,
+                                                          dtype=f64)))
+        b, by = hash_bound(n, streams, normals, item=8)
+        out[f"{streams}x{n}"] = dict(n=n, streams=streams, normals=normals,
+                                     max_abs_err=err, ms=ms, float32_ms=f32_ms,
+                                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                                     bound_by=by)
+        log(f"[sheath float64] hash_batch_f64 {streams} x {n}"
+            f"{' normals' if normals else ' uniforms'}: {ms:.4f} ms (float32 kernel "
+            f"{f32_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.rand float64 "
+            f"{lib_ms:.4f} ms, bound {b:.4f} ms ({by})")
+        held.clear()
+    return out
+
+
+def _sheath64_state(d: dict) -> dict:
+    """A numpy sheath state with its float32 fields cast to float64."""
+    import numpy as np
+
+    return {k: v.astype(np.float64) if getattr(v, "dtype", None) == np.float32 else v
+            for k, v in d.items()}
+
+
+def _sheath64_row(label: str, dev, steps: int, limits: dict, **over) -> tuple[dict, list]:
+    """The configs[2] row in float64 (tools/sheath.py state cast after x /
+    dx) with ``over``: ``steps`` steps on the CPU's float64 route from its
+    initial state; from each CPU state one card step, against the CPU's
+    next state (``limits``, statuses and Picard passes equal). The launch
+    counts run from 0 just before the card steps and are read after."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import sheath as srow
+
+    cfg = dataclasses.replace(srow.config(), **over)
+    _, sc = srow.state("cpu", cfg=cfg, dtype=torch.float64)
+    step = sheath.make_step(cfg)
+    rows, problems, passes = [], [], []
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        d = interop.sheath_state_to_numpy(sc)
+        g = step(interop.sheath_state_from_numpy(d, dev))
+        c = step(sc)
+        sc = c[0]
+        if any(getattr(g[0], k).dtype != torch.float64 for k in ("p", "u", "e", "j")):
+            problems.append(f"{label} step {i}: the card's state left float64")
+        errs = _sheath_step_errors(c, g)
+        bad = {k: v_ for k, v_ in errs.items() if not v_ <= limits[k]}
+        if int(c[1].picard_iters) != int(g[1].picard_iters):
+            bad["picard"] = (int(c[1].picard_iters), int(g[1].picard_iters))
+        if not torch.equal(c[0].active, g[0].active.cpu()):
+            bad["statuses"] = int((c[0].active != g[0].active.cpu()).sum())
+        if bad:
+            problems.append(f"{label} step {i}: {bad}")
+        passes.append(int(g[1].picard_iters))
+        rows.append(errs)
+        del g, c
+    torch.cuda.synchronize()
+    launches = {k: v_ for k, v_ in K.LAUNCHES.items() if v_}
+    worst = {k: max(r[k] for r in rows) for k in rows[0]}
+    log(f"[sheath float64] configs[2] row {label} (n = {srow.N}, float64): the card one "
+        f"step from each of {steps} CPU states against the CPU's next ({time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{k} {v_:.3e} (tol {limits[k]:.0e})" for k, v_ in worst.items())
+        + f"; Picard passes a step {statistics.fmean(passes):.2f} (max {max(passes)}); "
+        f"card launches {launches}")
+    if any(k.split("_f64")[0] == k for k in launches):
+        problems.append(f"{label}: a float32 kernel launched {launches}")
+    return dict(steps=steps, worst=worst, passes=passes, launches=launches), problems
+
+
+def _sheath64_large(dev) -> tuple[dict, list]:
+    """Phase 40's loads (SHEATH_LARGE_RUNS) in float64 and float32 on the
+    card, SHEATH64_LARGE_STEPS steps each from the preset's state: Picard
+    passes a step and steps at maxiter in both dtypes, ms/step; one
+    float64 step from the card's last state on the CPU against the card
+    (Picard passes and statuses equal, SHEATH64_STEP limits)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, presets
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+
+    out, problems = {}, []
+    for label, (backend, ng, n) in SHEATH_LARGE_RUNS.items():
+        pre = presets.sheath_dd(n=n, ng=ng, device=dev)
+        cfg = dataclasses.replace(pre.config, backend=backend)
+        d32 = interop.sheath_state_to_numpy(pre.state)
+        del pre
+        step = sheath.make_step(cfg)
+        rec = {}
+        for dname, d in (("float64", _sheath64_state(d32)), ("float32", d32)):
+            st = interop.sheath_state_from_numpy(d, dev)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            fin, m = run(step, st, SHEATH64_LARGE_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            iters = m.picard_iters.cpu()
+            rec[dname] = dict(picard=iters.tolist(), picard_mean=float(iters.float().mean()),
+                              steps_at_maxiter=int((iters == cfg.maxiter).sum()),
+                              ms_per_step=secs * 1e3 / SHEATH64_LARGE_STEPS,
+                              launches={k: v_ for k, v_ in K.LAUNCHES.items() if v_},
+                              large={k: v_ for k, v_ in K.LARGE_LAUNCHES.items()})
+            problems += [f"{label} {dname}: {b}" for b in _sheath_population(m, n)]
+            if dname == "float64":
+                if fin.p.dtype != torch.float64:
+                    problems.append(f"{label}: the float64 state turned {fin.p.dtype}")
+                dl = interop.sheath_state_to_numpy(fin)
+            del fin, m, st
+        c = step(interop.sheath_state_from_numpy(dl, "cpu"))
+        g = step(interop.sheath_state_from_numpy(dl, dev))
+        errs = _sheath_step_errors(c, g)
+        bad = {k: v_ for k, v_ in errs.items() if not v_ <= SHEATH64_STEP[k]}
+        if int(c[1].picard_iters) != int(g[1].picard_iters):
+            bad["picard"] = (int(c[1].picard_iters), int(g[1].picard_iters))
+        if not torch.equal(c[0].active, g[0].active.cpu()):
+            bad["statuses"] = int((c[0].active != g[0].active.cpu()).sum())
+        if bad:
+            problems.append(f"{label} float64 card against CPU: {bad}")
+        rec["check"] = dict(errors=errs, picard=(int(c[1].picard_iters),
+                                                 int(g[1].picard_iters)))
+        out[label] = rec
+        log(f"[sheath float64] {label}, n = {n}: Picard passes a step float64 "
+            f"{rec['float64']['picard']} ({rec['float64']['steps_at_maxiter']} at maxiter "
+            f"{cfg.maxiter}, {rec['float64']['ms_per_step']:.3f} ms/step) against "
+            f"float32 {rec['float32']['picard']} ({rec['float32']['steps_at_maxiter']} at "
+            f"maxiter, {rec['float32']['ms_per_step']:.3f} ms/step); float64 launches "
+            f"{rec['float64']['launches']}, large modes {rec['float64']['large']}; one "
+            "float64 step card against CPU: "
+            + ", ".join(f"{k} {v_:.3e}" for k, v_ in errs.items())
+            + f", Picard (CPU, card) {rec['check']['picard']}")
+        del c, g, d32, dl
+        torch.cuda.empty_cache()
+    return out, problems
+
+
+def phase_sheath_float64(dev) -> dict:
+    """Phase 43 (module docstring). Returns the double kernels' records
+    by shape, the row's checks and launches and the large loads' Picard
+    passes; fails on a disagreement or on a double kernel that never
+    launched on its path."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    res = {"kernels": {}}
+    for name, shapes in SHEATH64_SHAPES.items():
+        for n, ng in shapes:
+            shape = f"n {n}, ng {ng}"
+            timed = shape in (SHEATH64_MAIN, SHEATH64_LARGE_MAIN)
+            rec = (_deposit64_case(n, ng, gen, dev, timed) if name == "deposit_det"
+                   else _sheath64_pass_case(name, n, ng, gen, dev, timed))
+            res["kernels"].setdefault(name, {})[shape] = rec
+    res["kernels"]["sheath_reinject"] = {SHEATH64_MAIN: _reinject64_case(dev)}
+    res["hash_batch"] = _hash64_case(dev)
+    problems, res["row"] = [], {}
+    for label, steps, limits, over in (
+            ("fused", SHEATH64_ROW_STEPS, SHEATH64_STEP, dict(backend="fused")),
+            ("composed", SHEATH64_ROW_STEPS, SHEATH64_STEP, dict(backend="composed")),
+            ("fused hash", SHEATH64_HASH_STEPS, SHEATH64_STEP_HASH,
+             dict(backend="fused", rng_sampler="hash"))):
+        res["row"][label], bad = _sheath64_row(label, dev, steps, limits, **over)
+        problems += bad
+    res["large"], bad = _sheath64_large(dev)
+    problems += bad
+    row = res["row"]
+    res["launches"] = {
+        "sheath_picard": row["fused"]["launches"].get("sheath_picard_f64", 0),
+        "sheath_finalize": row["fused"]["launches"].get("sheath_finalize_f64", 0),
+        "sheath_reinject": row["fused"]["launches"].get("sheath_reinject_f64", 0),
+        "deposit_det": row["composed"]["launches"].get("deposit_det_f64", 0),
+        "hash_batch": row["fused hash"]["launches"].get("hash_batch_f64", 0)}
+    missing = [k for k, v_ in res["launches"].items() if not v_]
+    large = collections.Counter()
+    for rec in res["large"].values():
+        large.update(rec["float64"]["large"])
+    res["large_launches"] = dict(large)
+    for k in ("sheath_picard_f64 fixed", "sheath_finalize_f64 fixed", "deposit_det_f64 fixed"):
+        if not large.get(k):
+            missing.append(k)
+    if missing:
+        problems.append(f"double kernels never launched on their paths: {missing}")
+    log(f"[sheath float64] the double kernels' launches on their paths {res['launches']}; "
+        f"large modes on phase 40's loads {res['large_launches']}")
+    if problems:
+        raise AssertionError("sheath float64: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -8501,6 +9043,7 @@ def main() -> int:
     lgs = phase("large sheath", phase_large_sheath, dev)
     lgp = phase("large periodic", phase_large_periodic, dev)
     f64 = phase("float64", phase_float64, dev)
+    s64 = phase("sheath float64", phase_sheath_float64, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -8612,6 +9155,20 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n")},
          "dtype": "float64", "global_mode": f64["kernels"][kname]["global"]}
         for kname in F64_ROWS
+    ] + [
+        # the sheath engine's double kernels (phase 43): the record at the
+        # configs[2] shape, the large mode's at 65,536 beside it; the
+        # launches of the float64 configs[2] row (fused, composed)
+        {"name": f"{kname}_f64", "route": "cuda", "source": SOURCES_SHEATH[kname],
+         "replaces": REPLACES[kname], "launches": s64["launches"][kname],
+         **{key: s64["kernels"][kname][SHEATH64_MAIN][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+             "float32_ms")},
+         "dtype": "float64",
+         **({"large_mode": s64["kernels"][kname][SHEATH64_LARGE_MAIN],
+             "shapes": s64["kernels"][kname]} if kname in SHEATH64_SHAPES else
+            {"row_mix": s64["kernels"][kname][SHEATH64_MAIN]["row_mix"]})}
+        for kname in SHEATH64_ROWS
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the
         # JAX engine takes them from jax.random)
@@ -8635,6 +9192,15 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
              "library_ms", "source_batch_ms")},
          "shapes": dpp["hash_batch"]},
+        # the hash sampler's float64 draws (phase 43): the launches of the
+        # float64 configs[2] row on the hash sampler
+        {"name": "hash_batch_f64", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/rng.cu", "replaces": None,
+         "launches": s64["launches"]["hash_batch"], "dtype": "float64",
+         **{key: s64["hash_batch"]["4x999996"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "n",
+             "library_ms", "float32_ms")},
+         "shapes": s64["hash_batch"]},
         # the slab Newton's local chain solve: no TPU kernel (JAX's chain is
         # XLA operations); its launches are the pic_iead_dd run's
         {"name": "tridiag3_chain", "route": "cuda",
@@ -8742,6 +9308,7 @@ def main() -> int:
         "large_sheath": {k: v for k, v in lgs.items() if k not in ("launches", "kernels")},
         "large_periodic": {k: v for k, v in lgp.items() if k != "kernels"},
         "float64": {k: v for k, v in f64.items() if k != "kernels"},
+        "sheath_float64": {k: v for k, v in s64.items() if k not in ("kernels", "hash_batch")},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -469,67 +469,79 @@ cudaError_t launch_deposit(const T* p, const T* values, T* out, long long n, int
 // deposit_det_large_kernel takes the sums as int64 fixed point in device
 // memory (the design and its pricing: sheath.cu's header). Bound there:
 // the 8 B a row read twice (the scale sweep and the deposit sweep).
+// Both take the element type E last: the double kernels (the sheath
+// engine's float64 state) keep columns of doubles up to 907 nodes and
+// sum each term in two int64 words above it (cic_common.cuh "Two-word
+// sums"); 16 B a row, and 16 B a node of scratch in the large mode.
 // ---------------------------------------------------------------------------
-template <bool PERIODIC, bool VEC>
+template <bool PERIODIC, bool VEC, typename E>
 __global__ void __launch_bounds__(1024) deposit_det_kernel(
-    const float* __restrict__ p, const float* __restrict__ values,
-    float* __restrict__ out, float* __restrict__ partial,
+    const E* __restrict__ p, const E* __restrict__ values,
+    E* __restrict__ out, E* __restrict__ partial,
     unsigned int* __restrict__ counter, long long n, long long rows_per_block,
     int ng) {
   extern __shared__ float4 smem4[];
-  float* s_hist = reinterpret_cast<float*>(smem4);  // column t: s_hist[node * T + t]
+  E* s_hist = reinterpret_cast<E*>(smem4);  // column t: s_hist[node * T + t]
   const int T = blockDim.x;
   zero_shared(s_hist, T * ng);
   __syncthreads();
-  float* mine = s_hist + threadIdx.x;
+  E* mine = s_hist + threadIdx.x;
   const long long lo = (long long)blockIdx.x * rows_per_block;
   const long long hi = min(n, lo + rows_per_block);
   for (long long i = lo + 4LL * threadIdx.x; i < hi; i += 4LL * T) {
-    const float4 p4 = load4<VEC>(p, i, hi, 0.0f);
-    const float4 v4 = load4<VEC>(values, i, hi, 0.0f);
+    const auto p4 = load4<VEC>(p, i, hi, (E)0);
+    const auto v4 = load4<VEC>(values, i, hi, (E)0);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       if (i + r >= hi) break;
-      const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-      const float val = get(v4, r);
-      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));
-      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));
+      const CicT<E> c =
+          PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+      const E val = get(v4, r);
+      mine[c.l * T] = add_rn(mine[c.l * T], mul_rn(val, c.wl));
+      mine[c.r * T] = add_rn(mine[c.r * T], mul_rn(val, c.wr));
     }
   }
   det_flush(s_hist, ng, partial, counter, out);
 }
 
-// The large mode (ng above the columns' ceiling, 1,815; launch_shape's
-// `large` without the field): the same rows a block, the sums as int64
-// fixed point in device memory (cic_common.cuh "Large deterministic
-// sums"). SCALE: the first sweep, the largest |term| into bmax[block] and
-// acc zeroed; else every term added.
-template <bool PERIODIC, bool VEC, bool SCALE>
+// The large mode (ng above the columns' ceiling, 1,815; 907 in double;
+// launch_shape's `large` without the field): the same rows a block, the
+// sums as int64 fixed point in device memory (cic_common.cuh "Large
+// deterministic sums"; two words a term in double, "Two-word sums").
+// SCALE: the first sweep, the largest |term| into bmax[block] and acc
+// zeroed; else every term added.
+template <bool PERIODIC, bool VEC, bool SCALE, typename E>
 __global__ void __launch_bounds__(kLargeThreads, 2) deposit_det_large_kernel(
-    const float* __restrict__ p, const float* __restrict__ values,
-    float* __restrict__ bmax, unsigned long long* __restrict__ acc, long long n,
+    const E* __restrict__ p, const E* __restrict__ values,
+    E* __restrict__ bmax, unsigned long long* __restrict__ acc, long long n,
     long long rows_per_block, int ng) {
-  double scale = 0.0;
+  constexpr bool kTwo = fixed_words<E>() == 2;
+  double scale = 0.0, lscale = 0.0;
   if (SCALE)
-    fixed_zero(acc, ng);
+    fixed_zero(acc, fixed_words<E>() * ng);
   else
     scale = fixed_scale(bmax, gridDim.x, n);
+  if constexpr (kTwo) lscale = ldexp(1.0, fixed2_bits(n));
   const int T = blockDim.x;
   const long long lo = (long long)blockIdx.x * rows_per_block;
   const long long hi = min(n, lo + rows_per_block);
-  float m = 0.0f;
+  E m = (E)0;
   for (long long i = lo + 4LL * threadIdx.x; i < hi; i += 4LL * T) {
-    const float4 p4 = load4<VEC>(p, i, hi, 0.0f);
-    const float4 v4 = load4<VEC>(values, i, hi, 0.0f);
+    const auto p4 = load4<VEC>(p, i, hi, (E)0);
+    const auto v4 = load4<VEC>(values, i, hi, (E)0);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       if (i + r >= hi) break;
-      const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-      const float val = get(v4, r);
-      const float tl = __fmul_rn(val, c.wl), tr = __fmul_rn(val, c.wr);
+      const CicT<E> c =
+          PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+      const E val = get(v4, r);
+      const E tl = mul_rn(val, c.wl), tr = mul_rn(val, c.wr);
       if (SCALE) {
         fixed_track(m, tl);
         fixed_track(m, tr);
+      } else if constexpr (kTwo) {
+        fixed2_add(acc, ng, c.l, tl, scale, lscale);
+        fixed2_add(acc, ng, c.r, tr, scale, lscale);
       } else {
         fixed_add(acc, c.l, tl, scale);
         fixed_add(acc, c.r, tr, scale);
@@ -537,6 +549,58 @@ __global__ void __launch_bounds__(kLargeThreads, 2) deposit_det_large_kernel(
     }
   }
   if (SCALE) fixed_scale_out(m, bmax);
+}
+
+template <typename E>
+cudaError_t launch_deposit_det(const E* p, const E* values, E* out, E* partial,
+                               unsigned int* counter, long long n, int ng,
+                               int periodic, int blocks, int threads,
+                               long long rows_per_block, cudaStream_t s) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || rows_per_block % 4 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)threads * ng * sizeof(E);
+  const bool vec = aligned16(p) && aligned16(values);
+  cudaError_t err;
+#define PYPIC_DEPOSIT_DET(PER, VEC)                                             \
+  err = allow_smem(deposit_det_kernel<PER, VEC, E>, smem);                      \
+  if (err != cudaSuccess) return err;                                           \
+  deposit_det_kernel<PER, VEC, E><<<blocks, threads, smem, s>>>(                \
+      p, values, out, partial, counter, n, rows_per_block, ng);                 \
+  return cudaGetLastError()
+  if (periodic) {
+    if (vec) { PYPIC_DEPOSIT_DET(true, true); }
+    PYPIC_DEPOSIT_DET(true, false);
+  }
+  if (vec) { PYPIC_DEPOSIT_DET(false, true); }
+  PYPIC_DEPOSIT_DET(false, false);
+#undef PYPIC_DEPOSIT_DET
+}
+
+template <typename E>
+cudaError_t launch_deposit_det_large(const E* p, const E* values, E* out, E* bmax,
+                                     unsigned long long* acc, long long n, int ng,
+                                     int periodic, int blocks, int threads,
+                                     long long rows_per_block, cudaStream_t s) {
+  if (!large_shape_ok(ng, blocks, threads, rows_per_block))
+    return cudaErrorInvalidValue;
+  const bool vec = aligned16(p) && aligned16(values);
+  cudaError_t err;
+#define PYPIC_DEPOSIT_DET_LARGE(PER, VEC)                                       \
+  deposit_det_large_kernel<PER, VEC, true, E><<<blocks, threads, 0, s>>>(       \
+      p, values, bmax, acc, n, rows_per_block, ng);                             \
+  err = cudaGetLastError();                                                     \
+  if (err != cudaSuccess) return err;                                           \
+  deposit_det_large_kernel<PER, VEC, false, E><<<blocks, threads, 0, s>>>(      \
+      p, values, bmax, acc, n, rows_per_block, ng);                             \
+  err = cudaGetLastError()
+  if (periodic) {
+    if (vec) { PYPIC_DEPOSIT_DET_LARGE(true, true); } else { PYPIC_DEPOSIT_DET_LARGE(true, false); }
+  } else {
+    if (vec) { PYPIC_DEPOSIT_DET_LARGE(false, true); } else { PYPIC_DEPOSIT_DET_LARGE(false, false); }
+  }
+#undef PYPIC_DEPOSIT_DET_LARGE
+  if (err != cudaSuccess) return err;
+  return launch_fixed_out(acc, bmax, blocks, n, ng, out, s);
 }
 
 }  // namespace
@@ -661,25 +725,18 @@ int pypic_deposit_det(const float* p, const float* values, float* out,
                       float* partial, unsigned int* counter, long long n,
                       int ng, int periodic, int blocks, int threads,
                       long long rows_per_block, void* stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || rows_per_block % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)threads * ng * sizeof(float);
-  const bool vec = aligned16(p) && aligned16(values);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-#define PYPIC_DEPOSIT_DET(PER, VEC)                                             \
-  err = allow_smem(deposit_det_kernel<PER, VEC>, smem);                         \
-  if (err != cudaSuccess) return (int)err;                                      \
-  deposit_det_kernel<PER, VEC><<<blocks, threads, smem, s>>>(                   \
-      p, values, out, partial, counter, n, rows_per_block, ng);                 \
-  return (int)cudaGetLastError()
-  if (periodic) {
-    if (vec) { PYPIC_DEPOSIT_DET(true, true); }
-    PYPIC_DEPOSIT_DET(true, false);
-  }
-  if (vec) { PYPIC_DEPOSIT_DET(false, true); }
-  PYPIC_DEPOSIT_DET(false, false);
-#undef PYPIC_DEPOSIT_DET
+  return (int)launch_deposit_det(p, values, out, partial, counter, n, ng, periodic,
+                                 blocks, threads, rows_per_block, (cudaStream_t)stream);
+}
+
+// The double deposit (a float64 state): out ng doubles, partial blocks *
+// ng doubles; the shape from launch_shape(n, ng, sms, field=False, item=8).
+int pypic_deposit_det_f64(const double* p, const double* values, double* out,
+                          double* partial, unsigned int* counter, long long n,
+                          int ng, int periodic, int blocks, int threads,
+                          long long rows_per_block, void* stream) {
+  return (int)launch_deposit_det(p, values, out, partial, counter, n, ng, periodic,
+                                 blocks, threads, rows_per_block, (cudaStream_t)stream);
 }
 
 // The large mode (ops/cuda_sheath.py launch_shape(n, ng, sms,
@@ -691,27 +748,20 @@ int pypic_deposit_det_large(const float* p, const float* values, float* out,
                             float* bmax, unsigned long long* acc, long long n,
                             int ng, int periodic, int blocks, int threads,
                             long long rows_per_block, void* stream) {
-  if (!large_shape_ok(ng, blocks, threads, rows_per_block))
-    return (int)cudaErrorInvalidValue;
-  const bool vec = aligned16(p) && aligned16(values);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-#define PYPIC_DEPOSIT_DET_LARGE(PER, VEC)                                       \
-  deposit_det_large_kernel<PER, VEC, true><<<blocks, threads, 0, s>>>(          \
-      p, values, bmax, acc, n, rows_per_block, ng);                             \
-  err = cudaGetLastError();                                                     \
-  if (err != cudaSuccess) return (int)err;                                      \
-  deposit_det_large_kernel<PER, VEC, false><<<blocks, threads, 0, s>>>(         \
-      p, values, bmax, acc, n, rows_per_block, ng);                             \
-  err = cudaGetLastError()
-  if (periodic) {
-    if (vec) { PYPIC_DEPOSIT_DET_LARGE(true, true); } else { PYPIC_DEPOSIT_DET_LARGE(true, false); }
-  } else {
-    if (vec) { PYPIC_DEPOSIT_DET_LARGE(false, true); } else { PYPIC_DEPOSIT_DET_LARGE(false, false); }
-  }
-#undef PYPIC_DEPOSIT_DET_LARGE
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fixed_out(acc, bmax, blocks, n, ng, out, s);
+  return (int)launch_deposit_det_large(p, values, out, bmax, acc, n, ng, periodic,
+                                       blocks, threads, rows_per_block,
+                                       (cudaStream_t)stream);
+}
+
+// The double large mode: bmax blocks doubles, acc 2 ng int64 (the two
+// words, cic_common.cuh "Two-word sums").
+int pypic_deposit_det_large_f64(const double* p, const double* values, double* out,
+                                double* bmax, unsigned long long* acc, long long n,
+                                int ng, int periodic, int blocks, int threads,
+                                long long rows_per_block, void* stream) {
+  return (int)launch_deposit_det_large(p, values, out, bmax, acc, n, ng, periodic,
+                                       blocks, threads, rows_per_block,
+                                       (cudaStream_t)stream);
 }
 
 const char* pypic_error_string(int err) {

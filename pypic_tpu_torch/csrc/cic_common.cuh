@@ -25,6 +25,9 @@
 // helpers live in an anonymous namespace). The deterministic deposits come
 // in two modes: thread columns in shared memory up to their ceiling, int64
 // fixed-point sums in device memory above it ("Large deterministic sums").
+// Both take the element type too (the sheath engine's float64 state): the
+// columns, det_flush and its partials in double, and above the ceiling a
+// two-word fixed point ("Two-word sums") in the place of the one-word.
 
 #pragma once
 
@@ -290,11 +293,19 @@ __device__ __forceinline__ float warp_fsum(float acc) {
   return acc;
 }
 
+__device__ __forceinline__ double warp_fsum(double acc) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    acc = __dadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o));
+  return acc;
+}
+
 // Every thread of the block calls it once, after its last addition. hist:
-// ng columns of blockDim.x floats in shared memory (column t of node k at
-// hist[k * T + t]); partial: ng * gridDim.x floats; counter: one unsigned
-// int, 0 at the launch and left 0; out: ng floats, written by the last
-// block. blockDim.x is a multiple of 32.
+// ng columns of blockDim.x elements in shared memory (column t of node k at
+// hist[k * T + t]); partial: ng * gridDim.x elements; counter: one
+// unsigned int, 0 at the launch and left 0; out: ng elements, written by
+// the last block. blockDim.x is a multiple of 32. E is float, or double
+// for the double kernels (every sum then a __dadd_rn, in the same order).
 //
 // The columns are summed by warps, not a tree: a warp takes a node, its
 // lanes add the columns lane, lane + 32, ... in order and a shuffle tree
@@ -305,17 +316,18 @@ __device__ __forceinline__ float warp_fsum(float acc) {
 // any is added. (Lane groups a node, G lanes with 32 / G nodes a warp,
 // read 13.7 us against 10.6 at the sheath current's 51 nodes and 36.5
 // against 36.2 at the exit histograms' 128: PERF.md §6.)
-__device__ void det_flush(const float* hist, int ng, float* partial,
-                          unsigned int* counter, float* out) {
+template <typename E>
+__device__ void det_flush(const E* hist, int ng, E* partial,
+                          unsigned int* counter, E* out) {
   __shared__ unsigned int s_ticket;
   const int T = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = T >> 5, blocks = gridDim.x;
   __syncthreads();
   for (int k = warp; k < ng; k += warps) {
-    const float* col = hist + (size_t)k * T;
-    float acc = 0.0f;
+    const E* col = hist + (size_t)k * T;
+    E acc = (E)0;
 #pragma unroll 8
-    for (int t = lane; t < T; t += 32) acc = __fadd_rn(acc, col[t]);
+    for (int t = lane; t < T; t += 32) acc = add_rn(acc, col[t]);
     acc = warp_fsum(acc);
     if (lane == 0) partial[(size_t)k * blocks + blockIdx.x] = acc;
   }
@@ -332,9 +344,9 @@ __device__ void det_flush(const float* hist, int ng, float* partial,
   // node's in block order -- lane l the blocks l, l + 32, ...
   constexpr int kNodes = 4, kChunk = 8;
   for (int k0 = warp; k0 < ng; k0 += kNodes * warps) {
-    float acc[kNodes] = {};
+    E acc[kNodes] = {};
     for (int b0 = 0; b0 < blocks; b0 += 32 * kChunk) {
-      float v[kNodes][kChunk];
+      E v[kNodes][kChunk];
 #pragma unroll
       for (int m = 0; m < kNodes; ++m) {
         const int k = k0 + m * warps;
@@ -342,19 +354,19 @@ __device__ void det_flush(const float* hist, int ng, float* partial,
         for (int c = 0; c < kChunk; ++c) {
           const int b = b0 + 32 * c + lane;
           v[m][c] = (k < ng && b < blocks) ? __ldcg(partial + (size_t)k * blocks + b)
-                                           : 0.0f;
+                                           : (E)0;
         }
       }
 #pragma unroll
       for (int m = 0; m < kNodes; ++m)
 #pragma unroll
         for (int c = 0; c < kChunk; ++c)
-          if (b0 + 32 * c + lane < blocks) acc[m] = __fadd_rn(acc[m], v[m][c]);
+          if (b0 + 32 * c + lane < blocks) acc[m] = add_rn(acc[m], v[m][c]);
     }
 #pragma unroll
     for (int m = 0; m < kNodes; ++m) {
       const int k = k0 + m * warps;
-      const float total = warp_fsum(acc[m]);
+      const E total = warp_fsum(acc[m]);
       if (lane == 0 && k < ng) out[k] = total;
     }
   }
@@ -386,12 +398,21 @@ constexpr int kLargeThreads = 512;  // ops/cuda_sheath.py LARGE_THREADS
 // too: at 58,112 nodes the carried Boris deposit's 16-B clamp count made
 // the launch fail.
 constexpr int kFieldSmemMaxNg = 57856;
+// the same for a field of E (28,928 doubles; ops/cuda_sheath.py
+// field_smem_max_ng)
+template <typename E>
+__host__ __device__ constexpr int field_smem_max_ng() {
+  return (232448 - 1024) / (int)sizeof(E);
+}
 
-// A term's magnitude into the thread's running maximum; a NaN or Inf term
-// makes it Inf (fmaxf alone would drop a NaN).
-__device__ __forceinline__ void fixed_track(float& m, float term) {
-  const float a = fabsf(term);
-  m = a <= 3.402823466e38f ? fmaxf(m, a) : __int_as_float(0x7f800000);
+// A term's magnitude into the thread's running maximum (T the term's
+// type, float or double); a NaN or Inf term makes it Inf (fmax alone would
+// drop a NaN).
+template <typename T>
+__device__ __forceinline__ void fixed_track(T& m, T term) {
+  const T a = fabs(term);
+  m = a <= (T)(sizeof(T) == 8 ? 1.7976931348623157e308 : 3.402823466e38f) ? fmax(m, a)
+                                                                          : (T)INFINITY;
 }
 
 __device__ __forceinline__ long long fixed_q(float term, double scale) {
@@ -406,39 +427,44 @@ __device__ __forceinline__ void fixed_add(unsigned long long* acc, int node,
   if (q != 0) atomicAdd(acc + node, (unsigned long long)q);
 }
 
-// Block-wide maximum of one non-negative float a thread (every thread gets
-// it); `red` is 32 floats of shared memory. Every thread calls it.
-__device__ float block_fmax(float x, float* red) {
+// Block-wide maximum of one non-negative T a thread (every thread gets
+// it); `red` is 32 T of shared memory. Every thread calls it.
+template <typename T>
+__device__ T block_fmax(T x, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_down_sync(0xffffffffu, x, o));
+  for (int o = 16; o > 0; o >>= 1) x = fmax(x, __shfl_down_sync(0xffffffffu, x, o));
   __syncthreads();  // a previous call may still read red
   if (lane == 0) red[warp] = x;
   __syncthreads();
-  float t = 0.0f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t = fmaxf(t, red[w]);
+  T t = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t = fmax(t, red[w]);
   return t;
 }
 
 // The scale sweep's end: the block's largest |term| into bmax[block].
 // Every thread calls it.
-__device__ __forceinline__ void fixed_scale_out(float m, float* bmax) {
-  __shared__ float red[32];
+template <typename T>
+__device__ __forceinline__ void fixed_scale_out(T m, T* bmax) {
+  __shared__ T red[32];
   m = block_fmax(m, red);
   if (threadIdx.x == 0) bmax[blockIdx.x] = m;
 }
 
 // The scale 2^k of the call from the `nb` blocks' maxima (the same value
-// in every block and launch); 0 where a term was not finite. Every thread
-// calls it.
-__device__ double fixed_scale(const float* __restrict__ bmax, int nb, long long n) {
-  __shared__ float red[32];
-  float m = 0.0f;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) m = fmaxf(m, bmax[b]);
+// in every block and launch); 0 where a term was not finite or, for a
+// double maximum, 2 n M overflows. Every thread calls it.
+template <typename T>
+__device__ double fixed_scale(const T* __restrict__ bmax, int nb, long long n) {
+  __shared__ T red[32];
+  T m = 0;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) m = fmax(m, bmax[b]);
   m = block_fmax(m, red);
-  if (m == 0.0f) return 1.0;
+  if (m == (T)0) return 1.0;
   if (isinf(m)) return 0.0;
+  const double big = 2.0 * (double)n * (double)m;
+  if (sizeof(T) == 8 && isinf(big)) return 0.0;
   int e;
-  frexp(2.0 * (double)n * (double)m, &e);
+  frexp(big, &e);
   return ldexp(1.0, 62 - e);
 }
 
@@ -462,12 +488,100 @@ __global__ void __launch_bounds__(256) det_fixed_out(
                           : __double2float_rn(__dmul_rn(__ll2double_rn((long long)acc[k]), inv));
 }
 
-inline cudaError_t launch_fixed_out(const unsigned long long* acc, const float* bmax,
-                                    int nb, long long n, int ng, float* out,
-                                    cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// Two-word sums: the large deterministic sums of the double kernels (the
+// sheath engine's float64 state). One int64 word a node cannot carry a
+// float64 current: its terms round by 2^-(k+1) <= n M 2^-61, at n = 1e7
+// 4.3e-12 M, some 40,000 float64 ulps of M. Float atomics cannot either:
+// the sheath loop's floor exit reads the residual at the sums' round-off,
+// which recedes to float64 eps, where the atomics' changing order is what
+// it would read. So each term t (a double product) takes two int64 words
+// at the scale 2^k of the one-word sums (k = 62 - e, 2 n M < 2^e, M the
+// largest |t| of the call, now a double from the scale sweep):
+// * hi = rint(t 2^k), and the fraction f = t 2^k - hi, exact in double
+//   (t 2^k is exact, and an integer where |t 2^k| >= 2^52);
+// * lo = rint(f 2^L), |lo| <= 2^(L-1), with L = min(44, 62 - ceil(log2
+//   2n)): 2n terms of either word stay below 2^62, and L <= 44 keeps the
+//   conversion exact (below);
+// * hi into acc[node], lo into acc[ng + node], two 64-bit integer atomics
+//   a term (a wall row's charge summed in its block first, as the
+//   one-word sums do). The words' sums are exact and associative: the
+//   bits depend on neither the order nor the grid.
+// det_fixed2_out then carries lo's integer part into hi (hi' = hi + (lo
+// >> L), lo' = lo - ((lo >> L) << L), in [0, 2^L)), takes a = hi'
+// rounded to double, the exact rest s = ((hi' - a) 2^L + lo') 2^-L (|hi'
+// - a| <= 2^8, so the integer stays below 2^53: exact in double) and
+// writes (a + s) 2^-k: one rounding of the exact node sum. A term rounds
+// by 2^-(k+L+1): at n = 1e7 (L = 37), 2^-(62-25+37+1) M ~ 3e-23 M against a
+// float64 ulp of M of 2.2e-16 M. The scratch: bmax (blocks doubles) and acc
+// (2 ng int64). The plain twin, ops/cuda_cic.py fixed2_sum_plain, computes
+// the same bits with int64 tensor operations.
+// ---------------------------------------------------------------------------
+
+// L of n rows: min(44, 62 - ceil(log2 2n)).
+__device__ __forceinline__ int fixed2_bits(long long n) {
+  const int b = 64 - __clzll(2 * n - 1);  // ceil(log2 2n), 2n >= 2
+  return min(44, 62 - b);
+}
+
+// The two words of a term at scale 2^k, lscale = 2^L.
+__device__ __forceinline__ void fixed2_q(double term, double scale, double lscale,
+                                        long long& hi, long long& lo) {
+  const double x = __dmul_rn(term, scale);
+  hi = __double2ll_rn(x);
+  const double f = __dsub_rn(x, __ll2double_rn(hi));
+  lo = __double2ll_rn(__dmul_rn(f, lscale));
+}
+
+// Adds a term's words to its node (hi at acc[node], lo at acc[ng + node]);
+// a word of 0 adds nothing.
+__device__ __forceinline__ void fixed2_add(unsigned long long* acc, int ng, int node,
+                                           double term, double scale, double lscale) {
+  long long hi, lo;
+  fixed2_q(term, scale, lscale, hi, lo);
+  if (hi != 0) atomicAdd(acc + node, (unsigned long long)hi);
+  if (lo != 0) atomicAdd(acc + ng + node, (unsigned long long)lo);
+}
+
+// out[k] = the two-word sum of node k over 2^k, rounded once to double (NaN
+// everywhere after a non-finite term); `nb` and `n` as the sweeps had them.
+__global__ void __launch_bounds__(256) det_fixed2_out(
+    const unsigned long long* __restrict__ acc, const double* __restrict__ bmax,
+    int nb, long long n, int ng, double* __restrict__ out) {
+  const double scale = fixed_scale(bmax, nb, n);
+  const double inv = scale == 0.0 ? 0.0 : 1.0 / scale;  // a power of two: exact
+  const int bits = fixed2_bits(n);
+  const double frac = ldexp(1.0, -bits);
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < ng;
+       k += (long long)gridDim.x * blockDim.x) {
+    const long long unit = 1ll << bits;
+    long long hi = (long long)acc[k], lo = (long long)acc[ng + k];
+    const long long carry = lo >> bits;  // floor(lo / 2^L): an arithmetic shift
+    hi += carry;
+    lo -= carry * unit;
+    const double a = __ll2double_rn(hi);
+    const long long rest = (hi - __double2ll_rn(a)) * unit + lo;
+    const double sum = __dadd_rn(a, __dmul_rn(__ll2double_rn(rest), frac));
+    out[k] = scale == 0.0 ? __longlong_as_double(0x7fffffffffffffffll) : __dmul_rn(sum, inv);
+  }
+}
+
+// The conversion launch of the large sums of E: det_fixed_out (one word a
+// node) for float, det_fixed2_out (two) for double.
+template <typename E>
+inline cudaError_t launch_fixed_out(const unsigned long long* acc, const E* bmax, int nb,
+                                    long long n, int ng, E* out, cudaStream_t s) {
   const int blocks = ng > 256 * 1024 ? 1024 : (ng + 255) / 256;
-  det_fixed_out<<<blocks, 256, 0, s>>>(acc, bmax, nb, n, ng, out);
+  if constexpr (sizeof(E) == 8)
+    det_fixed2_out<<<blocks, 256, 0, s>>>(acc, bmax, nb, n, ng, out);
+  else
+    det_fixed_out<<<blocks, 256, 0, s>>>(acc, bmax, nb, n, ng, out);
   return cudaGetLastError();
+}
+// int64 words a node of the large sums of E: one for float, two for double
+template <typename E>
+__host__ __device__ constexpr int fixed_words() {
+  return sizeof(E) == 8 ? 2 : 1;
 }
 
 // The large sweeps' invariants (ops/cuda_sheath.py launch_shape's large
@@ -502,29 +616,31 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ a,
 }
 
 // Four doubles, the double rows' counterpart of float4 (no alignment of
-// its own: loaded as two 16-B double2).
+// its own: loaded and stored as two 16-B double2). Its rows are an array,
+// indexed by a constant once the loops are unrolled: with four members
+// selected as references (float4's ``at``) the double sheath pass
+// compiled to 16-B stores of rows 0 and 2 alone (two STG.E.64), rows 1
+// and 3 never written.
 struct Double4 {
-  double x, y, z, w;
+  double v[4];
 };
 
 template <bool VEC>
 __device__ __forceinline__ Double4 load4(const double* __restrict__ a, long long i,
                                          long long n, double pad) {
-  Double4 v;
+  Double4 d;
   if (VEC && i + 3 < n) {
     const double2 lo = *reinterpret_cast<const double2*>(a + i);
     const double2 hi = *reinterpret_cast<const double2*>(a + i + 2);
-    v.x = lo.x;
-    v.y = lo.y;
-    v.z = hi.x;
-    v.w = hi.y;
-    return v;
+    d.v[0] = lo.x;
+    d.v[1] = lo.y;
+    d.v[2] = hi.x;
+    d.v[3] = hi.y;
+    return d;
   }
-  v.x = i < n ? a[i] : pad;
-  v.y = i + 1 < n ? a[i + 1] : pad;
-  v.z = i + 2 < n ? a[i + 2] : pad;
-  v.w = i + 3 < n ? a[i + 3] : pad;
-  return v;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) d.v[r] = i + r < n ? a[i + r] : pad;
+  return d;
 }
 
 template <bool VEC>
@@ -540,17 +656,46 @@ __device__ __forceinline__ void store4(float* __restrict__ a, long long i,
   if (i + 3 < n) a[i + 3] = v.w;
 }
 
+template <bool VEC>
+__device__ __forceinline__ void store4(double* __restrict__ a, long long i,
+                                       long long n, const Double4& d) {
+  if (VEC && i + 3 < n) {
+    *reinterpret_cast<double2*>(a + i) = make_double2(d.v[0], d.v[1]);
+    *reinterpret_cast<double2*>(a + i + 2) = make_double2(d.v[2], d.v[3]);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (i + r < n) a[i + r] = d.v[r];
+}
+
+// The four-row vector of an element type: float4 or Double4.
+template <typename E>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<double> {
+  using type = Double4;
+};
+
 // Row r of four (r a constant once the loops are unrolled).
 __device__ __forceinline__ float get(const float4& v, int r) {
   return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ double get(const Double4& v, int r) {
-  return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
+__device__ __forceinline__ double get(const Double4& d, int r) {
+  return d.v[r];
 }
 
 __device__ __forceinline__ float& at(float4& v, int r) {
   return r == 0 ? v.x : (r == 1 ? v.y : (r == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ double& at(Double4& d, int r) {
+  return d.v[r];
 }
 
 // Dynamic shared memory above the 48 KB default needs an opt-in per kernel.

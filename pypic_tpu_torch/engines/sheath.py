@@ -36,10 +36,13 @@ pass kernels, and ``cuda_cic.deposit_det`` in the place of ``deposit``):
 the loop's floor exit compares a residual at round-off level, which the
 float atomics' changing order would hold above the threshold (module
 ``ops.cuda_sheath``). Both backends run any ng up to
-``cuda_cic.LARGE_MAX_NG`` on the card: above 1,760 nodes (the composed
-deposits, 1,815) the kernels sum in int64 fixed point, whose bits no
-order changes (csrc/sheath.cu's header), and the composed backend's
-gather reads the field from device memory above 58,112.
+``cuda_cic.LARGE_MAX_NG`` on the card, in float32 and in float64: the
+thread columns hold ng floats up to 1,760 nodes (the composed deposits,
+1,815) and ng doubles up to 880 (907); above them the kernels sum in
+fixed point, one int64 word a term in float32 and two in float64, whose
+bits no order changes (csrc/sheath.cu's header, csrc/cic_common.cuh),
+and the composed backend's gather reads the field from device memory
+above 58,112 nodes (29,056 in float64).
 
 The re-injection is the Philox kernel ``ops.cuda_rng.sheath_reinject``
 (``rng_sampler`` 'auto' and 'pallas'), keyed by the state's two key words
@@ -65,9 +68,14 @@ else syncs. The step number and the key live on the host in the state.
 
 Quirks of the JAX engine kept: absorbed rows carry zero u, vy, vz (and
 their x1) until re-injection; the kinetic energy uses the raw u1 before
-the status masks it; a float64 state runs on the CPU, with the plain
-gather and deposit, and the card refuses it (``cuda_cic.check_engine_dtype``): its
-kernels take float32 until ROADMAP queue 1 item 19a.
+the status masks it. A float64 state (``init_state(..., dtype=
+torch.float64)``) runs on either device, through the same wrappers: the
+plain versions on the CPU and the double kernels on the card, the
+scalars in the state's dtype, the hash draws in it (as the JAX engine's,
+which passes ``p0.dtype.type``), the Philox re-injection's draws in
+float32 times the float64 sigmas (as the TPU kernel's). The TPU pass
+keeps a float32 current accumulator for a float64 state, which is TPU
+layout: the port's sums are float64.
 
 ``picard_accel`` 'anderson', 'anderson2' and 'andersonM' (M > 2) mix the
 Picard iterate over 1, 2 or M histories (``ops.accel``; the (M, M) solve
@@ -245,16 +253,6 @@ def _check_ported(cfg: SheathConfig) -> None:
             raise NotImplementedError(f"{what} is not ported yet: {why}")
 
 
-def _grid_ops(dtype: torch.dtype):
-    """(gather, deposit): the kernels' wrappers for float32, the deposit
-    ``deposit_det`` (the loop's floor exit reads the residual at round-off
-    level, which float atomics would blur on the card); the plain versions
-    for float64 (CPU only, see cuda_cic.check_engine_dtype)."""
-    if dtype == torch.float32:
-        return gather, cuda_cic.deposit_det
-    return cuda_cic.gather_plain, cuda_cic.deposit_plain
-
-
 def picard_keep(cfg, r: float, es_norm: float, dtype) -> bool:
     """The Picard loop's test on the host, in the working dtype's rounding:
     r > tol and r > (tol_floor eps) ||es|| (``cfg`` has ``tol`` and
@@ -291,9 +289,8 @@ def init_state(x, v3, q, m, species, cfg: SheathConfig, seed: int = 0,
     q = torch.as_tensor(np.asarray(q), device=device).to(dtype)
     m = torch.as_tensor(np.asarray(m), device=device).to(dtype)
     w = q * (cfg.p2c / grid.dx)
-    _, dep = _grid_ops(dtype)
     u = v3[:, 0].contiguous()
-    j0 = dep(p, w * u, ng, periodic=False)
+    j0 = cuda_cic.deposit_det(p, w * u, ng, periodic=False)
     seed = int(seed)
 
     def zeros(shape, dt=dtype):
@@ -376,31 +373,29 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
                           0, bins - 1)
         flat = torch.clamp(species - 1, 0, 1) * bins + idx
         weight = torch.where(right | left, 1.0, 0.0).to(hist.dtype)
-        _, dep = _grid_ops(hist.dtype)
-        upd = dep(flat.to(hist.dtype), weight, 2 * bins, periodic=False)
+        upd = cuda_cic.deposit_det(flat.to(hist.dtype), weight, 2 * bins,
+                                   periodic=False)
         return hist + ax.sum(upd).reshape(2, bins)
 
     def _reinject_hash(state, sig, sigth):
         """The thermostat and re-injection on the hash sampler (the JAX
-        engine's 'hash' branch): slot ids offset by rank x n."""
+        engine's 'hash' branch): slot ids offset by rank x n, the draws
+        in the state's dtype (JAX passes ``p0.dtype.type``)."""
         step_i, act, dtype = state.step_host, state.active, state.p.dtype
         n, dev = state.p.shape[0], state.p.device
         seeds = (hash_seeds(step_i) if hash_seeds is not None else
                  {name: sources.step_seed(state.rng, step_i, k)
                   for k, name in enumerate(HASH_STREAMS)})
         off = ax.rank * n
+        draw = dict(device=dev, dtype=dtype)
         hit = zt = None
         if cfg.gamma > 0.0:
-            u_th = sources.hash_uniforms(seeds["therm_u"], n, 1, off,
-                                         device=dev)[0]
+            u_th = sources.hash_uniforms(seeds["therm_u"], n, 1, off, **draw)[0]
             hit = (act == ACTIVE) & (u_th < cfg.gamma)
-            zt = sources.hash_normals(seeds["therm_v"], n, 2, off,
-                                      device=dev).to(dtype)
-        x_new = (sources.hash_uniforms(seeds["reinj_x"], n, 1, off,
-                                       device=dev)[0].to(dtype)
-                 * float(np.float32(cells)))
-        z = sources.hash_normals(seeds["reinj_v"], n, 2, off,
-                                 device=dev).to(dtype)
+            zt = sources.hash_normals(seeds["therm_v"], n, 2, off, **draw)
+        x_new = (sources.hash_uniforms(seeds["reinj_x"], n, 1, off, **draw)[0]
+                 * float(cuda_cic.real(dtype)(cells)))
+        z = sources.hash_normals(seeds["reinj_v"], n, 2, off, **draw)
         return cuda_rng.reinject_apply(state.p, state.u, state.vy, state.vz,
                                        act != ACTIVE, sig, x_new, z, hit,
                                        sigth, zt)
@@ -419,18 +414,14 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
                 d["x"], d["z"], hit, sigth, zt)
         if use_hash:
             return _reinject_hash(state, sig, sigth)
-        reinject = (cuda_rng.sheath_reinject
-                    if state.p.dtype == torch.float32
-                    else cuda_rng.sheath_reinject_plain)
-        return reinject(state.rng, step_i, state.p, state.u, state.vy,
-                        state.vz, act.to(state.p.dtype), sig, sigth,
-                        cells=cells, gamma=cfg.gamma)
+        return cuda_rng.sheath_reinject(
+            state.rng, step_i, state.p, state.u, state.vy, state.vz,
+            act.to(state.p.dtype), sig, sigth, cells=cells, gamma=cfg.gamma)
 
     def step(state: SheathState):
         dev, dtype = state.p.device, state.p.dtype
         cuda_cic.check_engine_dtype("sheath", dev, dtype)
         fused = _use_fused(state)
-        gather_fn, deposit_fn = _grid_ops(dtype)
         q, m, species = state.q, state.m, state.species
         e0 = state.e
         recording = vmax > 0.0 and state.step_host >= cfg.record_exit_after_step
@@ -492,7 +483,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
                 surface-charge terms (PIC_L_DD.py:41-67), before the sum
                 over the ranks and the edge fold."""
                 wv = torch.where(act == ACTIVE, w, 0.0)
-                j = deposit_fn(pos, wv * vel, ng, periodic=False)
+                j = cuda_cic.deposit_det(pos, wv * vel, ng, periodic=False)
                 j[0] += wall * torch.sum(torch.where(act == LOST_LEFT, q, 0.0))
                 j[-1] += -wall * torch.sum(torch.where(act == LOST_RIGHT, q, 0.0))
                 return j
@@ -501,7 +492,7 @@ def make_step(cfg: SheathConfig, reinject_draws: Optional[Callable] = None,
             ps, x1, u1, e1, j1 = p0, p0, u0, e0, state.j
             while going:
                 is_act = active == ACTIVE
-                e_p = torch.where(is_act, gather_fn(es, ps, periodic=False), 0.0)
+                e_p = torch.where(is_act, gather(es, ps, periodic=False), 0.0)
                 accel = qm * e_p
                 x1 = p0 + dt_dx * u0 + c * accel
                 u1 = u0 + dt * accel

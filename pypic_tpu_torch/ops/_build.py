@@ -113,6 +113,23 @@ _SIGNATURES = {
     "pypic_deposit_det_large": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
     "pypic_sheath_reinject": (
         [_P] * 12 + [_L, _U, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
+    # the double kernels of the sheath engine's float64 state (item 19a):
+    # the pass's and finalize's scalars (dt, dt/dx, c, wall_ratio) and the
+    # hash normals' 2 pi as _D; the re-injection's cells, gamma and 2 pi
+    # stay _F (its draws are the float kernel's, in float32)
+    "pypic_sheath_picard_f64": (
+        [_P] * 12 + [_L, _I] + [_D] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_sheath_finalize_f64": (
+        [_P] * 13 + [_L, _I] + [_D] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_sheath_picard_large_f64": (
+        [_P] * 12 + [_L, _I] + [_D] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_sheath_finalize_large_f64": (
+        [_P] * 13 + [_L, _I] + [_D] * 4 + [_I, _I, _L, _P], _I),
+    "pypic_deposit_det_f64": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
+    "pypic_deposit_det_large_f64": ([_P] * 5 + [_L, _I, _I, _I, _I, _L, _P], _I),
+    "pypic_sheath_reinject_f64": (
+        [_P] * 12 + [_L, _U, _U, _U, _U, _F, _F, _F, _I, _I, _I, _P], _I),
+    "pypic_hash_batch_f64": ([_P, _L, _I, _U, _U, _D, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _I, _I,
                      _I, _P], _I),

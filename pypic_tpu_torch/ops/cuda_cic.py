@@ -50,10 +50,12 @@ when they lie on the CPU. Any other device, mixed devices or dtypes, a
 dtype other than float32 and float64, or a non-contiguous or mis-shaped
 tensor raises. Float64 (a float64 state, as the JAX package runs under
 x64) runs on the CPU in every wrapper's plain version (not the Newton
-solves', ``F32_ONLY``), and on the card in the six wrappers with a
-double kernel, ``F64_KERNELS`` (rows 1-6: the ``_f64`` entry points,
-counted under ``<wrapper>_f64``); any other wrapper raises
-``NotImplementedError`` naming its ROADMAP item (``check_dtype``). A
+solves', ``F32_ONLY``), and on the card in the wrappers with a double
+kernel, ``F64_KERNELS`` (rows 1-6, and the sheath engine's pass and
+finalize, ``deposit_det``, ``sheath_reinject`` and ``hash_batch``: the
+``_f64`` entry points, counted under ``<wrapper>_f64``); any other
+wrapper raises ``NotImplementedError`` naming its ROADMAP item
+(``check_dtype``). A
 failed build or launch raises; nothing falls back. The card's size
 limits (shared memory a block, thread histograms) are checked in the
 CUDA branch only, so the plain versions run any grid size on CPU
@@ -83,6 +85,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -94,10 +97,13 @@ from .cic import cic_indices_weights
 from .fd import smooth_periodic
 
 # The wrappers with a float64 kernel on the card (ROADMAP queue 1, item
-# 19: the implicit engine's rows 1-6). On CPU tensors every wrapper's
-# plain version takes float64.
+# 19: the implicit engine's rows 1-6; item 19a: the sheath engine's pass
+# and finalize, deposit_det, the re-injection and the hash sampler). On
+# CPU tensors every wrapper's plain version takes float64.
 F64_KERNELS = ("picard_iteration", "picard_iteration_shared",
-               "picard_finalize_nodep", "picard_finalize", "deposit", "gather")
+               "picard_finalize_nodep", "picard_finalize", "deposit", "gather",
+               "sheath_picard", "sheath_finalize", "deposit_det",
+               "sheath_reinject", "hash_batch")
 LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
@@ -112,11 +118,13 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
             "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
             "boltzmann_dn_large": 0, "tridiag3_chain_large": 0,
-            # the double kernels of a float64 state (rows 1-6)
+            # the double kernels of a float64 state (rows 1-6, 10, 21,
+            # deposit_det and hash_batch)
             **{f"{name}_f64": 0 for name in F64_KERNELS}}
-# launches in a large mode, keyed "wrapper mode": "global", or "field"
-# for the carried Boris deposit (its field in shared memory up to
-# FIELD_SMEM_MAX_NG)
+# launches in a large mode, keyed "wrapper mode": "global", "field" for
+# the carried Boris deposit (its field in shared memory up to
+# FIELD_SMEM_MAX_NG), or "fixed" for the fixed-point sums of the sheath
+# pass and finalize and deposit_det
 LARGE_LAUNCHES: collections.Counter = collections.Counter()
 
 _THREADS = 256
@@ -219,11 +227,16 @@ def check_static_smem(log: str) -> list[str]:
     return problems
 
 
-# the double instantiations of the float64 kernels (rows 1-6): (kernel,
-# the index of its element-type template argument)
+# the double instantiations of the float64 kernels (rows 1-6, 10, 21,
+# deposit_det and hash_batch): (kernel, the index of its element-type
+# template argument)
 F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
                  ("deposit_kernel", 3), ("deposit_global_kernel", 3),
-                 ("gather_kernel", 2))
+                 ("gather_kernel", 2),
+                 # the sheath engine's (item 19a)
+                 ("sheath_pass_kernel", 2), ("sheath_large_kernel", 4),
+                 ("deposit_det_kernel", 2), ("deposit_det_large_kernel", 3),
+                 ("sheath_reinject_kernel", 1), ("hash_batch_kernel", 1))
 
 
 def check_f64_kernels(log: str) -> list[str]:
@@ -249,7 +262,6 @@ def _count(name: str, mode: str) -> None:
         LARGE_LAUNCHES[f"{name} {mode}"] += 1
 
 
-_F64_SHEATH = "ROADMAP.md queue 1, item 19a (the sheath engine's float64 kernels)"
 _F64_MAGNETIZED = ("ROADMAP.md queue 1, item 19b (the magnetized engine's float64 "
                    "kernels)")
 _F64_EXPLICIT = "ROADMAP.md queue 1, item 19c (the explicit engine's float64 kernels)"
@@ -257,8 +269,6 @@ _F64_FLOAT32 = ("no gap: the JAX package runs this path in float32 only (ROADMAP
                 "queue 1, item 19)")
 # the item that will bring each other wrapper a float64 kernel
 F64_ITEMS = {
-    "deposit_det": _F64_SHEATH, "sheath pass": _F64_SHEATH,
-    "sheath_reinject": _F64_SHEATH,
     "deposit2": _F64_MAGNETIZED, "boris_gather_push": _F64_MAGNETIZED,
     "boris_gather_push_deposit": _F64_MAGNETIZED,
     "leapfrog_gather_push_deposit": _F64_EXPLICIT, "explicit_cycle": _F64_EXPLICIT,
@@ -273,21 +283,28 @@ F32_ONLY = ("boltzmann_dirichlet", "boltzmann_dn", "tridiag3_chain")
 
 
 # the engines whose kernels take float32 alone on the card, by the item
-# that will bring them float64 kernels
-F64_ENGINE_ITEMS = {"sheath": _F64_SHEATH, "magnetized": _F64_MAGNETIZED,
-                    "explicit": _F64_EXPLICIT}
+# that will bring them float64 kernels (the implicit and sheath engines
+# run a float64 state on their double kernels)
+F64_ENGINE_ITEMS = {"magnetized": _F64_MAGNETIZED, "explicit": _F64_EXPLICIT}
 
 
 def check_engine_dtype(engine: str, device: torch.device, dtype: torch.dtype) -> None:
     """Raise NotImplementedError, naming the engine's ROADMAP item, for a
     state that is not float32 on the card in an engine of
     F64_ENGINE_ITEMS: it refuses at once rather than at its first kernel
-    without a float64 form. The CPU runs float64 (the plain versions)."""
-    if device.type == "cuda" and dtype != torch.float32:
+    without a float64 form. The CPU runs float64 (the plain versions), and
+    so does the card in the other engines (their double kernels); a dtype
+    other than float32 and float64 raises TypeError there."""
+    if device.type != "cuda" or dtype == torch.float32:
+        return
+    if engine in F64_ENGINE_ITEMS:
         raise NotImplementedError(
             f"a {dtype} state of the {engine} engine on the card is not ported yet "
             f"(its kernels take float32; float64 runs on the CPU): "
             f"{F64_ENGINE_ITEMS[engine]}")
+    if dtype != torch.float64:
+        raise TypeError(f"the {engine} engine takes a float32 or float64 state, "
+                        f"got {dtype}")
 
 
 def check_dtype(name: str, device: torch.device, dtype: torch.dtype) -> None:
@@ -422,12 +439,14 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launcher(lib, name: str, dtype: torch.dtype):
+def _launcher(lib, name: str, dtype: torch.dtype, large: bool = False):
     """(launcher, count name) of wrapper ``name`` for ``dtype``: the
-    double kernel's entry point and its own count for float64."""
-    if dtype == torch.float64:
-        return getattr(lib, f"pypic_{name}_f64"), f"{name}_f64"
-    return getattr(lib, f"pypic_{name}"), name
+    double kernel's entry point and its own count for float64; ``large``
+    the ``*_large`` entry point (the fixed-point sums), counted as the
+    wrapper."""
+    suffix = "_f64" if dtype == torch.float64 else ""
+    entry = f"pypic_{name}{'_large' if large else ''}{suffix}"
+    return getattr(lib, entry), f"{name}{suffix}"
 
 
 def real(dtype: torch.dtype):
@@ -502,6 +521,55 @@ def deposit_plain(p, values, ng: int, *, periodic: bool):
     out.index_add_(0, il, values * wl)
     out.index_add_(0, ir, values * wr)
     return out
+
+
+def deposit_terms_plain(p, values, ng: int, *, periodic: bool):
+    """(nodes, terms) of the CIC deposit: each row's value w_l at its left
+    node and value w_r at its right (the products ``deposit_plain`` sums
+    and the deposit kernels add), left terms first."""
+    num_cells = ng if periodic else ng - 1
+    il, ir, wl, wr = cic_indices_weights(p, num_cells, periodic)
+    return torch.cat([il, ir]), torch.cat([values * wl, values * wr])
+
+
+def fixed2_bits(n: int) -> int:
+    """L, the fraction bits of the two-word sums over n rows
+    (csrc/cic_common.cuh fixed2_bits): min(44, 62 - ceil(log2 2n))."""
+    return min(44, 62 - (2 * n - 1).bit_length())
+
+
+def fixed2_sum_plain(nodes, terms, ng: int, n: int):
+    """The double large mode's node sums (csrc/cic_common.cuh "Two-word
+    sums") as int64 tensor operations, bit for bit: the scale 2^k from the
+    largest |term| M (k = 62 - e, 2 n M < 2^e), each term's words hi =
+    rint(t 2^k) and lo = rint((t 2^k - hi) 2^L), their int64 sums a node,
+    lo's integer part carried into hi, and the pair rounded once to
+    float64 over 2^k. ``nodes`` (int64) and ``terms`` (float64) as
+    ``deposit_terms_plain`` gives them, ``n`` the rows of the call (the
+    kernels' scale counts them). A non-finite term, or a 2 n M that
+    overflows, makes every node NaN. Each term rounds by at most
+    2^-(k+L+1); the sums' bits depend on no order."""
+    terms = terms.to(torch.float64)
+    dev = terms.device
+    m = float(terms.abs().max()) if terms.numel() else 0.0
+    big = 2.0 * n * m
+    if not math.isfinite(big):
+        return torch.full((ng,), math.nan, dtype=torch.float64, device=dev)
+    scale = 1.0 if m == 0.0 else math.ldexp(1.0, 62 - math.frexp(big)[1])
+    bits = fixed2_bits(n)
+    unit = 1 << bits
+    x = terms * scale  # exact: a power of two
+    hi = torch.round(x)  # half to even, as __double2ll_rn
+    lo = torch.round((x - hi) * float(unit)).to(torch.int64)
+    acc_hi = torch.zeros((ng,), dtype=torch.int64, device=dev).index_add_(
+        0, nodes, hi.to(torch.int64))
+    acc_lo = torch.zeros((ng,), dtype=torch.int64, device=dev).index_add_(0, nodes, lo)
+    carry = acc_lo >> bits  # an arithmetic shift: floor(lo / 2^L)
+    acc_hi = acc_hi + carry
+    acc_lo = acc_lo - carry * unit
+    a = acc_hi.to(torch.float64)
+    rest = (acc_hi - a.to(torch.int64)) * unit + acc_lo  # below 2^53: exact
+    return (a + rest.to(torch.float64) * (1.0 / unit)) * (1.0 / scale)
 
 
 def picard_iteration_plain(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
@@ -764,65 +832,71 @@ def picard_finalize_nodep(field_smoothed, ps, p0, v0, ng: int, *, qm,
     return p1, v1
 
 
-# (device, stream, blocks, ng) -> (partials, block counter): the scratch
-# of the deterministic sums, kept across calls. The counter is zeroed once
-# here; the last block of each launch sets it back to 0 (det_flush and
-# csrc/sheath.cu sheath_flush), and launches on one stream run in order,
-# so a call allocates and fills nothing.
+# (device, stream, blocks, ng, dtype) -> (partials, block counter): the
+# scratch of the deterministic sums, kept across calls. The counter is
+# zeroed once here; the last block of each launch sets it back to 0
+# (det_flush and csrc/sheath.cu sheath_flush), and launches on one stream
+# run in order, so a call allocates and fills nothing.
 _DET_SCRATCH: dict = {}
 
 
-def det_buffers(dev, blocks: int, ng: int):
-    """(per-block partials, zeroed block counter) of a deterministic sum
-    over ``blocks`` blocks of ng nodes, cached by device, stream and shape.
-    Call it with ``dev`` current."""
+def det_buffers(dev, blocks: int, ng: int, dtype: torch.dtype = torch.float32):
+    """(per-block partials of ``dtype``, zeroed block counter) of a
+    deterministic sum over ``blocks`` blocks of ng nodes, cached by device,
+    stream, shape and dtype (a double kernel's partials are doubles). Call
+    it with ``dev`` current."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (index, _stream(dev), blocks, ng)
+    key = (index, _stream(dev), blocks, ng, dtype)
     if key not in _DET_SCRATCH:
         _DET_SCRATCH[key] = (
-            torch.empty((blocks * ng,), dtype=torch.float32, device=dev),
+            torch.empty((blocks * ng,), dtype=dtype, device=dev),
             torch.zeros((1,), dtype=torch.int32, device=dev))
     return _DET_SCRATCH[key]
 
 
-def large_scratch(dev, blocks: int, ng: int):
-    """(per-block maxima, int64 node sums) of a large deterministic sum
-    (cic_common.cuh "Large deterministic sums"): 4 blocks + 8 ng bytes,
-    written by the kernels before they read them, so nothing is zeroed or
-    kept across calls."""
-    return (torch.empty((blocks,), dtype=torch.float32, device=dev),
-            torch.empty((ng,), dtype=torch.int64, device=dev))
+def large_scratch(dev, blocks: int, ng: int, dtype: torch.dtype = torch.float32):
+    """(per-block maxima, node sums) of a large deterministic sum
+    (cic_common.cuh "Large deterministic sums"), written by the kernels
+    before they read them, so nothing is zeroed or kept across calls:
+    float32 maxima and ng int64 (4 blocks + 8 ng bytes), or for the
+    double kernels double maxima and the two words of ng two-word fixed
+    points, hi then lo (8 blocks + 16 ng bytes)."""
+    words = 2 if dtype == torch.float64 else 1
+    return (torch.empty((blocks,), dtype=dtype, device=dev),
+            torch.empty((words * ng,), dtype=torch.int64, device=dev))
 
 
-def deterministic_scratch(n: int, ng: int, dev):
+def deterministic_scratch(n: int, ng: int, dev, dtype: torch.dtype = torch.float32):
     """(launch shape, scratch a, scratch b) of the deterministic deposit:
     the sheath pass's grid without the field
-    (``cuda_sheath.launch_shape(n, ng, sms, field=False)``: persistent
-    blocks over contiguous row ranges), fixed by n, ng and the card. Up to
-    ng = 1,815 a column of ng floats a thread and the summed order of
-    ``det_buffers`` (per-block partials, zeroed block counter); above it
-    the large mode's int64 fixed-point sums in ``large_scratch`` (per-block
-    maxima, node sums). Call it with ``dev`` current. Raises above
-    LARGE_MAX_NG."""
+    (``cuda_sheath.launch_shape(n, ng, sms, field=False, item=...)``:
+    persistent blocks over contiguous row ranges), fixed by n, ng, the
+    dtype and the card. Up to ng = 1,815 (float32; 907 float64) a column
+    of ng elements a thread and the summed order of ``det_buffers``
+    (per-block partials, zeroed block counter); above it the large mode's
+    fixed-point sums in ``large_scratch`` (per-block maxima, node sums).
+    Call it with ``dev`` current. Raises above LARGE_MAX_NG."""
     from .cuda_sheath import launch_shape
 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    shape = launch_shape(max(n, 1), ng, _sm_count(index), field=False)
+    item = torch.finfo(dtype).bits // 8
+    shape = launch_shape(max(n, 1), ng, _sm_count(index), field=False, item=item)
     if shape.large:
-        return (shape, *large_scratch(dev, shape.blocks, ng))
-    return (shape, *det_buffers(dev, shape.blocks, ng))
+        return (shape, *large_scratch(dev, shape.blocks, ng, dtype))
+    return (shape, *det_buffers(dev, shape.blocks, ng, dtype))
 
 
-ROW_ALIGN = 4  # floats: 16 B
+ROW_ALIGN = 4  # elements: 16 B of floats, 32 B of doubles
 
 
-def padded_rows(k: int, n: int, device) -> tuple[torch.Tensor, ...]:
-    """``k`` (n,) float32 outputs cut from one (k, pitch) buffer whose row
-    pitch rounds n up to a multiple of 4 floats: each view is contiguous
-    and starts 16-B aligned, so the kernels that read them next take
-    16-B loads whatever n is."""
+def padded_rows(k: int, n: int, device,
+                dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
+    """``k`` (n,) outputs of ``dtype`` (the inputs') cut from one (k,
+    pitch) buffer whose row pitch rounds n up to a multiple of 4
+    elements: each view is contiguous and starts 16-B aligned, so the
+    kernels that read them next take 16-B loads whatever n is."""
     pitch = -(-n // ROW_ALIGN) * ROW_ALIGN
-    buf = torch.empty((k, pitch), dtype=torch.float32, device=device)
+    buf = torch.empty((k, pitch), dtype=dtype, device=device)
     return tuple(buf[r, :n] for r in range(k))
 
 
@@ -862,12 +936,15 @@ def deposit(p, values, ng: int, *, periodic: bool, cols: int = DEPOSIT_MAX_COLS)
 def deposit_det(p, values, ng: int, *, periodic: bool):
     """``deposit`` with the sums in a fixed order on the card (no float
     atomics), so that a call gives the same bits every time: up to ng =
-    1,815 a column a thread and cic_common.cuh det_flush's ordered sums,
-    above it (up to LARGE_MAX_NG) int64 fixed-point sums, exact and
-    associative (csrc/cic.cu deposit_det_large_kernel). CPU tensors take
-    the plain deposit at any ng. The sheath engine's composed loop and exit
-    histograms use it: its floor exit reads the residual at round-off
-    level. The other engines keep the float-atomic ``deposit``."""
+    1,815 (float64: 907) a column a thread and cic_common.cuh det_flush's
+    ordered sums, above it (up to LARGE_MAX_NG) fixed-point sums, exact
+    and associative (csrc/cic.cu deposit_det_large_kernel: one int64 word
+    a node in float32, two in float64). Float64 tensors launch the double
+    kernel (counted as ``deposit_det_f64``); the output is in the inputs'
+    dtype. CPU tensors take the plain deposit at any ng. The sheath
+    engine's composed loop and exit histograms use it: its floor exit
+    reads the residual at round-off level. The other engines keep the
+    float-atomic ``deposit``."""
     kind = _device_kind((p, values), "deposit_det")
     n = p.shape[0] if p.dim() == 1 else -1
     _check_1d("p", p, n)
@@ -876,16 +953,19 @@ def deposit_det(p, values, ng: int, *, periodic: bool):
     if kind == "cpu":
         return deposit_plain(p, values, ng, periodic=periodic)
     lib = _build.library()
-    dev = p.device
-    out = torch.empty((ng,), dtype=torch.float32, device=dev)
+    dev, dtype = p.device, p.dtype
+    out = torch.empty((ng,), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        shape, a, b = deterministic_scratch(n, ng, dev)
-        fn = lib.pypic_deposit_det_large if shape.large else lib.pypic_deposit_det
-        err = fn(p.data_ptr(), values.data_ptr(), out.data_ptr(), a.data_ptr(),
-                 b.data_ptr(), n, ng, int(periodic), shape.blocks, shape.threads,
-                 shape.rows_per_block, _stream(dev))
-    _build.check(err, "deposit_det")
-    LAUNCHES["deposit_det"] += 1
+        shape, a, b = deterministic_scratch(n, ng, dev, dtype)
+        fn, name = _launcher(lib, "deposit_det", dtype, shape.large)
+        err = fn(
+            p.data_ptr(), values.data_ptr(), out.data_ptr(), a.data_ptr(),
+            b.data_ptr(), n, ng, int(periodic), shape.blocks, shape.threads,
+            shape.rows_per_block, _stream(dev))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    if shape.large:
+        LARGE_LAUNCHES[f"{name} fixed"] += 1
     return out
 
 

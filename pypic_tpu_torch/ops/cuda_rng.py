@@ -35,7 +35,10 @@ the TPU kernel lays its draws out (``reinject_bits_plain``). Its plain
 versions are ``sheath_reinject_from_bits_plain`` (the transform alone; the
 tests feed it the JAX kernel's threefry bits) and ``sheath_reinject_plain``
 (Philox and the transform). ``sheath_uniforms`` exposes the uniforms for
-the bit-equality check.
+the bit-equality check. Float64 rows (a float64 state) take the double
+kernel: the draws stay the float kernel's float32 (as the TPU kernel
+draws in float32), their products with the float64 sigmas and the
+stores are float64, as the plain version computes on float64 tensors.
 
 ``philox_uniforms(key, step, n, ndraw, tag)`` draws the magnetized
 engine's uniforms that no TPU kernel draws (the JAX engine takes them from
@@ -54,7 +57,11 @@ TPU kernel draws: stream s of slot i hashes the slot id i + offset with
 murmur3's 32-bit finalizer (``mix32_plain``) under a uint32 ``seed``, so a
 rank that passes offset = rank x n draws what one device draws for its
 slots. The uniforms are bit-equal to JAX's; ``normals`` gives the
-Box-Muller pairs in JAX's layout. A CUDA device launches the kernel
+Box-Muller pairs in JAX's layout. ``dtype=torch.float64`` draws as JAX
+does for a float64 state: the uniforms ((h >> 8) + 1/2) 2^-24 exact in
+float64, the normals by float64 log, sqrt, cos and sin (the kernel's
+libdevice functions within 4 float64 ulps of the CPU's). A CUDA device
+launches the kernel
 (``csrc/rng.cu`` hash_batch_kernel; ``LAUNCHES['hash_batch']``), the CPU
 runs ``hash_batch_plain``: int64 tensor arithmetic masked to 32 bits, each
 32 x 32-bit product from 16-bit halves (this PyTorch has no uint32
@@ -357,10 +364,13 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
     rank's. ``act`` is the float status (1 active),
     ``sig`` / ``sigth`` the per-row Maxwellian sigmas sqrt(kB T / m) of the
     re-injection and of the thermostat (sigth is read only with
-    gamma > 0). Returns (p, u, vy, vz), (n,) each, as views of one
-    buffer whose rows are padded to 4 floats (``cuda_cic.padded_rows``):
-    a CUDA device launches the kernel, the CPU runs
-    ``sheath_reinject_plain``."""
+    gamma > 0). All of one dtype, float32 or float64 (a float64 state: the
+    draws stay float32, as the TPU kernel's, and only their products with
+    the sigmas and the stores are float64). Returns (p, u, vy, vz), (n,)
+    each in that dtype, as views of one buffer whose rows are padded to 4
+    elements (``cuda_cic.padded_rows``): a CUDA device launches the
+    kernel (the double one for float64, counted as
+    ``sheath_reinject_f64``), the CPU runs ``sheath_reinject_plain``."""
     gamma = float(gamma)
     if gamma > 0.0 and sigth is None:
         sigth = sig
@@ -371,7 +381,7 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
         cuda_cic._check_1d(name, t, n)
     if n < 1 or n > _MASK32:
         raise ValueError(f"n must be in [1, 2^32), got {n}")
-    outs = cuda_cic.padded_rows(4, n, p.device)
+    outs = cuda_cic.padded_rows(4, n, p.device, p.dtype)
     if kind == "cpu":
         ref = sheath_reinject_plain(key, step, p, u, vy, vz, act, sig, sigth,
                                     cells=cells, gamma=gamma, tag=tag)
@@ -379,10 +389,10 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
             o.copy_(r)
         return outs
     dev = p.device
-    lib = _build.library()
+    fn, name = cuda_cic._launcher(_build.library(), "sheath_reinject", p.dtype)
     k0, k1 = (int(k) & _MASK32 for k in key)
     with torch.cuda.device(dev):
-        err = lib.pypic_sheath_reinject(
+        err = fn(
             p.data_ptr(), u.data_ptr(), vy.data_ptr(), vz.data_ptr(),
             act.data_ptr(), sig.data_ptr(),
             (sigth if gamma > 0.0 else sig).data_ptr(),
@@ -390,8 +400,8 @@ def sheath_reinject(key, step: int, p, u, vy, vz, act, sig, sigth=None, *,
             int(step) & _MASK32, int(tag) & _MASK32, _f32(cells), _f32(gamma),
             _f32(_TWO_PI),
             int(gamma > 0.0), _blocks(n, dev), _THREADS, _stream(dev))
-    _build.check(err, "sheath_reinject")
-    LAUNCHES["sheath_reinject"] += 1
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return outs
 
 
@@ -481,60 +491,79 @@ def mix32_plain(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _check_hash_dtype(dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"hash_batch: dtype must be float32 or float64, got {dtype}")
+
+
 def hash_uniforms_plain(seed: int, n: int, streams: int, offset: int = 0,
-                        device="cpu") -> torch.Tensor:
-    """(streams, n) float32 uniforms in (0, 1] of the hash sampler:
+                        device="cpu", dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(streams, n) uniforms in (0, 1] of the hash sampler:
     h = mix(mix(i + offset + (s + 1) golden) ^ seed), u = ((h >> 8) +
     1/2) 2^-24, each integer sum taken mod 2^32 (JAX's uint32 wrap), the
-    float32 sum rounded to even as JAX rounds it (to 1 at the top)."""
+    sum taken in ``dtype`` as JAX takes it: in float32 rounded to even (to
+    1 at the top), in float64 exact."""
+    _check_hash_dtype(dtype)
     idx = (torch.arange(n, dtype=torch.int64, device=device)
            + (int(offset) & _MASK32)) & _MASK32
     offs = torch.tensor([((s + 1) * _GOLDEN) & _MASK32 for s in range(streams)],
                         dtype=torch.int64, device=device)[:, None]
     h = mix32_plain(mix32_plain((idx[None, :] + offs) & _MASK32)
                     ^ (int(seed) & _MASK32))
-    return ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+    return ((h >> 8).to(dtype) + 0.5) * 2.0 ** -24
 
 
 def hash_normals_from_uniforms(u: torch.Tensor) -> torch.Tensor:
     """(2 pairs, n) Box-Muller normals of (2 pairs, n) uniforms, JAX's
     layout (sources.hash_normals): rows r cos t, then rows r sin t, with
-    r = sqrt(-2 log u[2p]) and t = (2 pi) u[2p + 1] (float32 angles, the
-    functions in float64 rounded once: ``_bm_radius``)."""
+    r = sqrt(-2 log u[2p]) and t = (2 pi) u[2p + 1]. Float32 uniforms:
+    float32 angles, the functions in float64 rounded once (``_bm_radius``);
+    float64 uniforms: everything in float64, as JAX under x64
+    (pypic_tpu/sources.py:93-99)."""
+    if u.dtype == torch.float64:
+        r = torch.sqrt(-2.0 * torch.log(u[0::2].contiguous()))
+        t = _TWO_PI * u[1::2].contiguous()
+        return torch.cat([r * torch.cos(t), r * torch.sin(t)], dim=0)
     r = _bm_radius(u[0::2].contiguous())
     cos, sin = _bm_cos_sin(_f32(_TWO_PI) * u[1::2].contiguous())
     return torch.cat([r * cos, r * sin], dim=0)
 
 
 def hash_batch_plain(seed: int, n: int, streams: int, offset: int = 0,
-                     normals: bool = False, device="cpu") -> torch.Tensor:
+                     normals: bool = False, device="cpu",
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """What ``hash_batch`` computes, as tensor operations."""
-    u = hash_uniforms_plain(seed, n, streams, offset, device)
+    u = hash_uniforms_plain(seed, n, streams, offset, device, dtype)
     return hash_normals_from_uniforms(u) if normals else u
 
 
 def hash_batch(seed: int, n: int, streams: int, *, offset: int = 0,
-               normals: bool = False, device) -> torch.Tensor:
-    """The (streams, n) float32 draws of the hash sampler for slots
-    offset .. offset + n - 1 under the uint32 ``seed``: the uniforms, or
-    with ``normals`` the Box-Muller normals of the stream pairs (streams
-    even). A CUDA device launches the kernel; the CPU runs the plain
-    version."""
+               normals: bool = False, device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (streams, n) draws of the hash sampler, in ``dtype`` (float32,
+    or float64 for a float64 state, as JAX draws in the state's dtype),
+    for slots offset .. offset + n - 1 under the uint32 ``seed``: the
+    uniforms, or with ``normals`` the Box-Muller normals of the stream
+    pairs (streams even). A CUDA device launches the kernel (its double
+    form for float64, counted as ``hash_batch_f64``); the CPU runs the
+    plain version."""
     dev = _kind(device)
+    _check_hash_dtype(dtype)
     if n < 1 or n > _MASK32:
         raise ValueError(f"n must be in [1, 2^32), got {n}")
     if not 1 <= streams <= _HASH_MAX_STREAMS or (normals and streams % 2):
         raise ValueError(f"streams must be in [1, {_HASH_MAX_STREAMS}] (even "
                          f"for normals), got {streams}")
     if dev.type == "cpu":
-        return hash_batch_plain(seed, n, streams, offset, normals, dev)
-    lib = _build.library()
-    out = torch.empty((streams, n), dtype=torch.float32, device=dev)
+        return hash_batch_plain(seed, n, streams, offset, normals, dev, dtype)
+    fn, name = cuda_cic._launcher(_build.library(), "hash_batch", dtype)
+    out = torch.empty((streams, n), dtype=dtype, device=dev)
+    two_pi = _TWO_PI if dtype == torch.float64 else _f32(_TWO_PI)
     with torch.cuda.device(dev):
-        err = lib.pypic_hash_batch(
+        err = fn(
             out.data_ptr(), n, int(streams), int(offset) & _MASK32,
-            int(seed) & _MASK32, _f32(_TWO_PI), int(bool(normals)),
+            int(seed) & _MASK32, two_pi, int(bool(normals)),
             _blocks(n, dev), _THREADS, _stream(dev))
-    _build.check(err, "hash_batch")
-    LAUNCHES["hash_batch"] += 1
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return out

@@ -177,18 +177,20 @@ def step_seed(key, step: int, stream: int = 0) -> int:
 
 
 def hash_uniforms(seed: int, n: int, streams: int, offset: int = 0, *,
-                  device) -> torch.Tensor:
-    """(streams, n) float32 uniforms in (0, 1] for the slots offset ..
+                  device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(streams, n) uniforms in (0, 1] of ``dtype`` (float32, or float64
+    as JAX draws them for a float64 state) for the slots offset ..
     offset + n - 1 (JAX's ``hash_uniforms``; bit-equal)."""
-    return cuda_rng.hash_batch(seed, n, streams, offset=offset, device=device)
+    return cuda_rng.hash_batch(seed, n, streams, offset=offset, device=device,
+                               dtype=dtype)
 
 
 def hash_normals(seed: int, n: int, pairs: int, offset: int = 0, *,
-                 device) -> torch.Tensor:
-    """(2 pairs, n) standard normals by Box-Muller on the hash uniforms
-    (JAX's ``hash_normals``: rows r cos t, then rows r sin t)."""
+                 device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(2 pairs, n) standard normals of ``dtype`` by Box-Muller on the hash
+    uniforms (JAX's ``hash_normals``: rows r cos t, then rows r sin t)."""
     return cuda_rng.hash_batch(seed, n, 2 * pairs, offset=offset,
-                               normals=True, device=device)
+                               normals=True, device=device, dtype=dtype)
 
 
 def sample_source_hash(seed: int, n: int, grid: GridSpec, ti: float,

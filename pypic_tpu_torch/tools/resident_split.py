@@ -1162,18 +1162,18 @@ _SINGLE_EDITS = [
      " nullptr);", 1),
     # deposit_det_kernel
     ("  zero_shared(s_hist, T * ng);", "  if (CUT != 4) zero_shared(s_hist, T * ng);", 1),
-    ("  float* mine = s_hist + threadIdx.x;", "  float* mine = s_hist + threadIdx.x;\n  float sink = 0.0f;", 1),
-    ("      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
-     "      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n",
+    ("  E* mine = s_hist + threadIdx.x;", "  E* mine = s_hist + threadIdx.x;\n  E sink = (E)0;", 1),
+    ("      mine[c.l * T] = add_rn(mine[c.l * T], mul_rn(val, c.wl));\n"
+     "      mine[c.r * T] = add_rn(mine[c.r * T], mul_rn(val, c.wr));\n",
      "#if CUT == 4\n"
-     "      sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), __fadd_rn(__fmul_rn(val,"
-     " c.wr), (float)c.l)));\n#else\n"
-     "      mine[c.l * T] = __fadd_rn(mine[c.l * T], __fmul_rn(val, c.wl));\n"
-     "      mine[c.r * T] = __fadd_rn(mine[c.r * T], __fmul_rn(val, c.wr));\n#endif\n", 1),
+     "      sink = add_rn(sink, add_rn(mul_rn(val, c.wl), add_rn(mul_rn(val,"
+     " c.wr), (E)c.l)));\n#else\n"
+     "      mine[c.l * T] = add_rn(mine[c.l * T], mul_rn(val, c.wl));\n"
+     "      mine[c.r * T] = add_rn(mine[c.r * T], mul_rn(val, c.wr));\n#endif\n", 1),
     ("  det_flush(s_hist, ng, partial, counter, out);",
-     "  if (sink == 1.2345e30f) out[0] = sink;\n"
+     "  if (sink == (E)1.2345e30f) out[0] = sink;\n"
      "  if (CUT != 1 && CUT != 4) det_flush(s_hist, ng, partial, counter, out);\n"
-     "  else if (mine[0] == 1.2345e30f) out[0] = mine[0];", 1),
+     "  else if (mine[0] == (E)1.2345e30f) out[0] = mine[0];", 1),
     # (c): the last block zeroes the counter and leaves
     ("  if (threadIdx.x == 0) *counter = 0u;\n  __threadfence();\n  // a warp takes kNodes",
      "  if (threadIdx.x == 0) *counter = 0u;\n  __threadfence();\n  if (CUT == 2) return;\n"

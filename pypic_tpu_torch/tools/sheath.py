@@ -15,7 +15,10 @@ runs 1,200 steps through ``runner.run``, bench's n and steps.
 
 runs it and prints one JSON line (``--ng``, ``--n`` and ``--steps`` change
 the grid, keeping dx and the density, the load and the step count; above
-1,760 nodes the sheath pass runs its large mode): µs/step, pushes/s, the
+1,760 nodes the sheath pass runs its large mode; ``--dtype float64`` runs
+a float64 state, the load cast before x / dx, on the double kernels,
+whose small mode ends at 880 nodes; ``--composed`` the composed
+backend): µs/step, pushes/s, the
 Picard mean and maximum, the wall potential drops in Te/e over the last
 300 steps, the
 kernel launches, and the host syncs a step beside the Picard passes a step
@@ -88,14 +91,17 @@ def config(n: int = N, ng: int = NG) -> sheath.SheathConfig:
         picard_accel="anderson")
 
 
-def state(device=None, n: int = N, cfg: sheath.SheathConfig | None = None):
+def state(device=None, n: int = N, cfg: sheath.SheathConfig | None = None,
+          dtype: torch.dtype = torch.float32):
     """(cfg, initial SheathState) of the row on ``device`` (the current
-    CUDA device by default); ``cfg`` replaces the row's configuration."""
+    CUDA device by default) in ``dtype`` (float64: the same load, cast
+    after x / dx in the load's precision); ``cfg`` replaces the row's
+    configuration."""
     cfg = cfg or config(n)
     d = initialize.initialize_sheath(n, DENSITY, 1.0, 0.0, cfg.grid, TE, TI,
                                      seed=3)
     st = sheath.init_state(d["x"], d["v"], d["q"], d["m"], d["species"], cfg,
-                           device=devices.resolve(device))
+                           dtype=dtype, device=devices.resolve(device))
     return cfg, st
 
 
@@ -162,18 +168,20 @@ def count_syncs(step, st, maxiter: int, steps: int = SYNC_STEPS) -> dict:
 
 
 def run_row(device=None, steps: int = STEPS, n: int = N, warmup: int = 3,
-            sync_steps: int = SYNC_STEPS, ng: int = NG, **overrides):
+            sync_steps: int = SYNC_STEPS, ng: int = NG,
+            dtype: torch.dtype = torch.float32, **overrides):
     """Run the row: ``warmup`` steps from the initial state (set-up: the
     first launch of each PyTorch kernel loads it), then from the initial
     state again, the launch counts set to 0, ``steps`` steps and one
     synchronize; then, on a card, ``sync_steps`` steps that count the host
     syncs. ``overrides`` replace config fields (e.g. backend='composed').
     On a CPU device (the plain versions; no timing meaning) there is no
-    sync to count. ``ng`` widens the grid (``config``). Returns (result
-    dict, config, final state, stacked StepMetrics of the timed steps)."""
+    sync to count. ``ng`` widens the grid (``config``); ``dtype`` is the
+    state's (``state``). Returns (result dict, config, final state,
+    stacked StepMetrics of the timed steps)."""
     dev = devices.resolve(device)
     cuda = dev.type == "cuda"
-    cfg, st = state(dev, n, dataclasses.replace(config(n, ng), **overrides))
+    cfg, st = state(dev, n, dataclasses.replace(config(n, ng), **overrides), dtype)
     step = sheath.make_step(cfg)
     if cuda:
         _build.load()  # the build is set-up, not step time
@@ -192,6 +200,7 @@ def run_row(device=None, steps: int = STEPS, n: int = N, warmup: int = 3,
     left, right = wall_drops(m, min(300, steps))
     res = dict(device=torch.cuda.get_device_name(dev) if cuda else "cpu",
                n=n, ng=cfg.grid.ng, steps=steps, backend=cfg.backend,
+               dtype=str(dtype).replace("torch.", ""),
                us_per_step=seconds * 1e6 / steps,
                pushes_per_s=n * steps / seconds,
                picard_mean=float(iters.float().mean()),
@@ -307,10 +316,14 @@ def main(argv=None) -> dict:
                         "sheath pass's large mode)")
     p.add_argument("--n", type=int, default=N, help="particles")
     p.add_argument("--steps", type=int, default=STEPS)
+    p.add_argument("--dtype", choices=("float32", "float64"), default="float32",
+                   help="the state's dtype (float64: the double kernels)")
+    p.add_argument("--composed", action="store_true",
+                   help="the composed backend (gather, deposit_det) for the row run")
     args = p.parse_args(argv)
-    if (args.ng, args.n) != (NG, N) and (args.replay is not None
-                                         or args.composed_exits is not None):
-        p.error("--ng and --n change the row run only")
+    row_only = (args.ng, args.n, args.dtype, args.composed) != (NG, N, "float32", False)
+    if row_only and (args.replay is not None or args.composed_exits is not None):
+        p.error("--ng, --n, --dtype and --composed change the row run only")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     if args.composed_exits is not None:
@@ -321,8 +334,10 @@ def main(argv=None) -> dict:
         res = replay(args.replay, torch.device("cuda", 0))
         print(json.dumps(res))
         return res
+    over = dict(backend="composed") if args.composed else {}
     res, cfg, fin, m = run_row(torch.device("cuda", 0), steps=args.steps,
-                               n=args.n, ng=args.ng)
+                               n=args.n, ng=args.ng, dtype=getattr(torch, args.dtype),
+                               **over)
     res["problems"] = check_row(cfg, fin, m)
     syncs = res["syncs"]
     if syncs["host_syncs_per_step"] != syncs["host_reads_per_step"]:

@@ -1,5 +1,6 @@
-"""The double kernels of a float64 state (rows 1-6) against their float64
-plain versions, on the card. Every test here needs an NVIDIA GPU and skips
+"""The double kernels of a float64 state (rows 1-6, and the sheath
+engine's: the pass and finalize, deposit_det, the re-injection and the
+hash sampler) against their float64 plain versions, on the card. Every test here needs an NVIDIA GPU and skips
 without one; the file imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_float64_cuda.py -q
@@ -10,7 +11,11 @@ double kernels' ceilings: the global mode). The kernels round each
 operation once in double as the plain versions do: positions, velocities
 and the gather bit-equal, the deposits within 16 n eps64 of the largest
 node (float64 sums in another order), the clamp counts equal. A float64
-implicit step on the card stays float64 and agrees with the CPU's.
+implicit step on the card stays float64 and agrees with the CPU's. The
+sheath kernels at n = 100,003 across their double ceilings (880 nodes
+for the pass, 907 for deposit_det): the large mode's current bit-equal
+to the two-word plain twin (``cuda_cic.fixed2_sum_plain``); a float64
+sheath step on the card against the CPU's, both backends and samplers.
 """
 
 import numpy as np
@@ -19,7 +24,7 @@ import torch
 
 from pypic_tpu_torch.constants import E_CHARGE, M_ELECTRON
 from pypic_tpu_torch.engines import implicit
-from pypic_tpu_torch.ops import cuda_cic
+from pypic_tpu_torch.ops import cuda_cic, cuda_sheath
 from pypic_tpu_torch.tools import headline
 
 N = 4097
@@ -122,3 +127,246 @@ def test_float64_implicit_step_card_matches_cpu(cuda_device, over):
     assert float(torch.minimum(dp, cfg.grid.ng - dp).max()) <= 1e-10
     for k in ("v", "e", "j"):
         assert _rel(getattr(c, k), getattr(g, k).cpu()) <= 1e-10, k
+
+
+# ---------------------------------------------------------------------------
+# the sheath engine's double kernels (ROADMAP item 19a): the pass and the
+# finalize, deposit_det, the re-injection and the hash sampler
+# ---------------------------------------------------------------------------
+
+SHEATH_N = 100_003
+SHEATH_DT, SHEATH_DX = 1e-12, 1e-5
+
+
+def _sheath_inputs64(n, ng, seed=11):
+    """Bounded rows in float64: electrons and protons, rows at 0 and at
+    cells, rows lost in an earlier pass, rows that cross a wall."""
+    rng = np.random.default_rng(seed)
+    cells = ng - 1.0
+    p0 = rng.uniform(0.0, cells, n)
+    ps = np.clip(p0 + 0.2 * rng.normal(size=n), -0.5, cells + 0.5)
+    ion = rng.uniform(size=n) < 0.5
+    qm = np.where(ion, 1.602e-19 / 1.67e-27, -1.602e-19 / 9.11e-31)
+    u0 = rng.normal(size=n) * np.where(ion, 3e4, 1.3e6)
+    w = np.where(ion, 1.602e-10, -1.602e-10)
+    act = np.ones(n)
+    p0[:4] = [0.0, cells, 0.0, cells]
+    ps[:4] = p0[:4]
+    act[4:40:2] = 0.0
+    act[5:40:2] = -1.0
+    p0[40:60], u0[40:60] = 0.3, -2.5 * SHEATH_DX / SHEATH_DT
+    p0[60:80], u0[60:80] = cells - 0.3, 2.5 * SHEATH_DX / SHEATH_DT
+    es = rng.normal(size=ng) * 2e4
+    return [torch.from_numpy(a) for a in (es, ps, p0, u0, qm, w, act)]
+
+
+def _twin(pos, vals, act1, w, ng, n):
+    """The large mode's current from the two-word plain twin."""
+    at, val = cuda_sheath.sheath_deposit_args_plain(pos, vals, act1, w, ng,
+                                                    dt=SHEATH_DT, dx=SHEATH_DX)
+    nodes, terms = cuda_cic.deposit_terms_plain(at, val, ng, periodic=False)
+    return cuda_cic.fixed2_sum_plain(nodes, terms, ng, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [51, 880, 881, 4000, 40_000])
+@pytest.mark.parametrize("final", [False, True], ids=["pass", "finalize"])
+def test_double_sheath_pass_matches_plain(cuda_device, final, ng):
+    """The double pass (finalize) against its float64 plain version: the
+    positions, velocities and statuses bit-equal; the current within
+    16 n eps64 of its largest node in the small mode (to 880 nodes) and
+    bit-equal to the two-word plain twin above it; the same bits from
+    call to call; one ``_f64`` launch a call."""
+    args = _sheath_inputs64(SHEATH_N, ng)
+    kw = dict(dt=SHEATH_DT, dx=SHEATH_DX)
+    fn = cuda_sheath.sheath_finalize if final else cuda_sheath.sheath_picard
+    plain = cuda_sheath.sheath_finalize_plain if final else cuda_sheath.sheath_picard_plain
+    name = "sheath_finalize" if final else "sheath_picard"
+    dev_args = [a.to(cuda_device) for a in args]
+    cuda_cic.reset_launch_counts()
+    got = fn(*dev_args, **kw)
+    again = fn(*dev_args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES[f"{name}_f64"] == 2 and cuda_cic.LAUNCHES[name] == 0
+    large = ng > cuda_sheath.MAX_NG_F64
+    assert cuda_cic.LARGE_LAUNCHES.get(f"{name}_f64 fixed", 0) == (2 if large else 0)
+    assert all(t.dtype == torch.float64 for t in got)
+    ref = plain(*args, **kw)
+    for g, r in zip(got[:-1], ref[:-1]):
+        assert torch.equal(g.cpu(), r)
+    assert torch.equal(got[-1], again[-1])
+    x1, u1, xh, uh, _ = cuda_sheath._push_plain(*args[:5], args[6], SHEATH_DT, SHEATH_DX)
+    pos, vals = (x1, u1) if final else (xh, uh)
+    if large:
+        assert torch.equal(got[-1].cpu(), _twin(pos, vals, ref[-2], args[5], ng, SHEATH_N))
+    else:
+        assert _rel(ref[-1], got[-1].cpu()) <= 16 * SHEATH_N * 2.0 ** -52
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [128, 907, 908, 40_000])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_double_deposit_det_matches_plain(cuda_device, ng, periodic):
+    """The double deterministic deposit: within 16 n eps64 of the float64
+    plain deposit to 907 nodes, bit-equal to the two-word twin above; the
+    same bits from call to call."""
+    rng = np.random.default_rng(ng)
+    p = torch.from_numpy(rng.uniform(0.0, ng - 1.0, SHEATH_N))
+    v = torch.from_numpy(rng.normal(size=SHEATH_N) * 1e3)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.deposit_det(p.to(cuda_device), v.to(cuda_device), ng, periodic=periodic)
+    again = cuda_cic.deposit_det(p.to(cuda_device), v.to(cuda_device), ng,
+                                 periodic=periodic)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES["deposit_det_f64"] == 2 and cuda_cic.LAUNCHES["deposit_det"] == 0
+    assert got.dtype == torch.float64 and torch.equal(got, again)
+    if ng > 907:
+        nodes, terms = cuda_cic.deposit_terms_plain(p, v, ng, periodic=periodic)
+        assert torch.equal(got.cpu(), cuda_cic.fixed2_sum_plain(nodes, terms, ng, SHEATH_N))
+    else:
+        ref = cuda_cic.deposit_plain(p, v, ng, periodic=periodic)
+        assert _rel(ref, got.cpu()) <= 16 * SHEATH_N * 2.0 ** -52
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gamma", [0.0, 0.5])
+def test_double_reinject_matches_plain(cuda_device, gamma):
+    """The double re-injection: positions bit-equal (float32 draws times
+    cells), held rows bit-equal to their float64 inputs, the velocities
+    within 1e-6 of the largest (libdevice's logf, sinf and cosf against
+    the CPU's float64 functions rounded to float32, times the float64
+    sigmas)."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    rng = np.random.default_rng(5)
+    n = SHEATH_N
+    p = torch.from_numpy(rng.uniform(0.0, 50.0, n))
+    u, vy, vz = (torch.from_numpy(rng.normal(size=n) * 1e5) for _ in range(3))
+    act = torch.from_numpy(rng.choice([1.0, 0.0, -1.0], n, p=[0.8, 0.1, 0.1]))
+    sig = torch.from_numpy(np.where(rng.uniform(size=n) < 0.5, 1.3e6, 3.1e4))
+    args = (p, u, vy, vz, act, sig)
+    cuda_cic.reset_launch_counts()
+    got = cuda_rng.sheath_reinject((0, 3), 11, *[a.to(cuda_device) for a in args],
+                                   cells=50.0, gamma=gamma)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES["sheath_reinject_f64"] == 1
+    assert cuda_cic.LAUNCHES["sheath_reinject"] == 0
+    ref = cuda_rng.sheath_reinject_plain((0, 3), 11, *args, cells=50.0, gamma=gamma)
+    assert all(t.dtype == torch.float64 for t in got)
+    assert torch.equal(got[0].cpu(), ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel(r, g.cpu()) <= 1e-6
+    if gamma == 0.0:
+        keep = act == 1.0
+        for g, x in zip(got, args[:4]):
+            assert torch.equal(g.cpu()[keep], x[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normals", [False, True])
+def test_double_hash_batch_matches_plain(cuda_device, normals):
+    """The float64 hash draws: the uniforms bit-equal to the plain
+    version's (exact in float64), the normals within 4 float64 ulps of
+    each of its values."""
+    from pypic_tpu_torch.ops import cuda_rng
+
+    n, streams, off = 200_003, 4, 2**32 - 1000
+    cuda_cic.reset_launch_counts()
+    got = cuda_rng.hash_batch(77, n, streams, offset=off, normals=normals,
+                              device=cuda_device, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES["hash_batch_f64"] == 1 and cuda_cic.LAUNCHES["hash_batch"] == 0
+    ref = cuda_rng.hash_batch_plain(77, n, streams, off, normals, dtype=torch.float64)
+    assert got.dtype == torch.float64
+    if not normals:
+        assert torch.equal(got.cpu(), ref)
+    else:
+        ulps = (got.cpu() - ref).abs() / torch.from_numpy(np.spacing(ref.abs().numpy()))
+        assert float(ulps.max()) <= 4.0, float(ulps.max())
+
+
+def _sheath_step_pair(cuda_device, cfg, mesh_of=None):
+    """One float64 step of ``cfg`` on the card and on the CPU from one
+    state three CPU steps in: ((CPU state, metrics), (card state,
+    metrics), the card's launches). ``mesh_of(device)``, when given, makes
+    each side's one-rank mesh (``cfg.axis_name`` set)."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import sheath
+    from pypic_tpu_torch.tools import sheath as row
+
+    def step_on(device):
+        mesh = mesh_of(device) if mesh_of else None
+        return sheath.make_step(cfg, mesh=mesh)
+
+    _, st = row.state("cpu", 12_000, cfg, dtype=torch.float64)
+    step = step_on("cpu")
+    for _ in range(3):
+        st, _ = step(st)
+    d = interop.sheath_state_to_numpy(st)
+    c = step(st)
+    cuda_cic.reset_launch_counts()
+    g = step_on(cuda_device)(interop.sheath_state_from_numpy(d, cuda_device))
+    torch.cuda.synchronize()
+    return c, g, {k for k, n in cuda_cic.LAUNCHES.items() if n}
+
+
+def _sheath_pair_agrees(c, g, launched, tight):
+    (c, mc), (g, mg) = c, g
+    for k in ("p", "u", "vy", "vz", "e", "j", "exit_hist"):
+        assert getattr(g, k).dtype == torch.float64, k
+    assert launched and all(k.endswith("_f64") for k in launched), launched
+    assert int(mc.picard_iters) == int(mg.picard_iters)
+    assert torch.equal(c.active, g.active.cpu())
+    assert float((c.p - g.p.cpu()).abs().max()) <= (1e-9 if tight else 2e-7)
+    for k in ("u", "vy", "vz"):
+        assert _rel(getattr(c, k), getattr(g, k).cpu()) <= (1e-10 if tight else 1e-6), k
+    for k in ("e", "j"):
+        assert _rel(getattr(c, k), getattr(g, k).cpu()) <= (1e-10 if tight else 1e-7), k
+    assert torch.equal(c.exit_hist, g.exit_hist.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["auto", "hash"])
+@pytest.mark.parametrize("backend", ["fused", "composed"])
+def test_float64_sheath_step_card_matches_cpu(cuda_device, backend, sampler):
+    """One float64 sheath step (sheath_dd's physics at n = 12,000, gamma
+    0.05) on the card and on the CPU from one state three CPU steps in:
+    the same statuses and Picard passes, only double kernels launched,
+    every field float64; p within 2e-7 cells, e and j within 1e-7 of
+    their largest, u, vy and vz within 1e-6 (float64 sums in other
+    orders, and the re-injected rows' float32 normals from libdevice
+    against the CPU's: 4 float32 ulps of the largest normal times
+    sigma dt/dx is 1.7e-7 cells; 3.2e-8 measured); with the hash
+    sampler's float64 draws p within 1e-9 cells and the rest within
+    1e-10."""
+    import dataclasses
+
+    from pypic_tpu_torch.tools import sheath as row
+
+    cfg = dataclasses.replace(row.config(12_000), backend=backend, rng_sampler=sampler,
+                              gamma=0.05, exit_hist_vmax=3e6, record_exit_after_step=0)
+    _sheath_pair_agrees(*_sheath_step_pair(cuda_device, cfg), tight=sampler == "hash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(picard_accel="anderson2"),
+                                  dict(picard_accel="anderson4"),
+                                  dict(rng_sampler="pallas", picard_init="field"),
+                                  dict(axis_name="particles")],
+                         ids=["anderson2", "andersonM", "pallas", "axis_name"])
+def test_float64_sheath_options_card_matches_cpu(cuda_device, over):
+    """The sheath engine's options in float64 on the card against the
+    CPU, one fused step as test_float64_sheath_step_card_matches_cpu's:
+    Anderson(2) and Anderson(M), the 'pallas' sampler (Philox on the
+    card) with picard_init 'field', and ``axis_name`` on a one-rank mesh
+    (the 'hash' sampler there, float64 draws)."""
+    import dataclasses
+
+    from pypic_tpu_torch.parallel.mesh import make_mesh
+    from pypic_tpu_torch.tools import sheath as row
+
+    cfg = dataclasses.replace(row.config(12_000), backend="fused", gamma=0.05,
+                              exit_hist_vmax=3e6, record_exit_after_step=0, **over)
+    mesh_of = (lambda dev: make_mesh(device=dev)) if "axis_name" in over else None
+    tight = "axis_name" in over
+    _sheath_pair_agrees(*_sheath_step_pair(cuda_device, cfg, mesh_of), tight=tight)

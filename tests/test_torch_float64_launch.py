@@ -5,11 +5,14 @@ Rows 1-6 (``picard_iteration`` and its shared window, both finalizes,
 ``deposit_launch_shape`` take the element's bytes (``item=8``), and their
 double arrays leave shared memory at half the float32 ceilings. Every
 float32 launch stays the one the frozen tables of
-``tests/test_torch_large_periodic.py`` hold. The other wrappers, and the
-explicit, magnetized and sheath engines, refuse a float64 tensor on the
-card with a ``NotImplementedError`` naming their ROADMAP item; no CUDA
-tensor is made here: the wrappers are handed stand-ins that carry a CUDA
-device and a dtype, which is all they read before they refuse.
+``tests/test_torch_large_periodic.py`` hold. The sheath engine's
+wrappers (its pass and finalize, ``deposit_det``, the re-injection and
+``hash_batch``) take float64 on the card too. The other wrappers, and the
+explicit and magnetized engines, refuse a float64 tensor on the card
+with a ``NotImplementedError`` naming their ROADMAP item; no CUDA tensor
+is made here: the wrappers are handed stand-ins that carry a CUDA device
+and a dtype, which is all they read before they refuse (or, where they
+take the dtype, before their shapes, where the stand-ins raise).
 """
 
 import numpy as np
@@ -94,7 +97,10 @@ def test_double_instantiations_in_the_report():
                 "ptxas info    : Used 32 registers, used 1 barriers, 400 bytes cmem[0]")
     ints = {"picard_iteration_kernel": [0, 0, 0], "picard_finalize_kernel": [0, 0],
             "deposit_kernel": [1, 4, 1], "deposit_global_kernel": [1, 4, 1],
-            "gather_kernel": [1, 0]}
+            "gather_kernel": [1, 0], "sheath_pass_kernel": [0, 1],
+            "sheath_large_kernel": [0, 1, 1, 0], "deposit_det_kernel": [0, 1],
+            "deposit_det_large_kernel": [0, 1, 0], "sheath_reinject_kernel": [5],
+            "hash_batch_kernel": [1]}
     full = "\n".join(entry(k, ints[k] + [t]) for k, _ in cuda_cic.F64_INSTANCES
                      for t in "fd")
     assert cuda_cic.check_f64_kernels(full) == []
@@ -120,23 +126,31 @@ def test_kernel_scalars_round_as_jax(dtype):
     assert cuda_cic._inv(200, dtype) == float(np_dtype(1.0) / np_dtype(200))
 
 
+class _Reached(Exception):
+    """Raised by a stand-in once a wrapper reads past its dtype check."""
+
+
 class _OnTheCard:
     """A stand-in for a (n,) CUDA tensor of ``dtype``: the wrappers read
-    its device and dtype first and refuse before anything else."""
+    its device and dtype first and refuse before anything else; a wrapper
+    that takes the dtype goes on to its shape (``dim``), which raises
+    ``_Reached``."""
 
     device = CUDA
 
     def __init__(self, dtype=torch.float64):
         self.dtype = dtype
 
+    def dim(self):
+        raise _Reached
 
-def _t():
-    return _OnTheCard()
+
+def _t(dtype=torch.float64):
+    return _OnTheCard(dtype)
 
 
 # each wrapper without a double kernel, called on float64 stand-ins
 REFUSING = {
-    "deposit_det": lambda: cuda_cic.deposit_det(_t(), _t(), 16, periodic=False),
     "deposit2": lambda: cuda_cic.deposit2(_t(), _t(), _t(), 16, periodic=False),
     "boris_gather_push": lambda: cuda_cic.boris_gather_push(
         _t(), _t(), _t(), _t(), _t(), _t(), _t(), b=(0.0, 1.0, 0.0), dt_dx=1.0),
@@ -152,10 +166,6 @@ REFUSING = {
     "implicit_resident": lambda: cuda_cic.implicit_resident(
         _t(), _t(), _t(), _t(), _t(), 16, 2, qm=1.0, w=1.0, ke_c=1.0, dt=1.0, dx=1.0,
         tol=0.0, maxiter=4, extrapolate=False, anderson=False, fe_c=1.0, tracer=0),
-    "sheath pass": lambda: cuda_sheath.sheath_picard(
-        _t(), _t(), _t(), _t(), _t(), _t(), _t(), dt=1.0, dx=1.0),
-    "sheath_reinject": lambda: cuda_rng.sheath_reinject(
-        (0, 1), 0, _t(), _t(), _t(), _t(), _t(), _t(), cells=16.0),
     "picard_iteration_ext": lambda: cuda_domain.picard_iteration_ext(
         _t(), _t(), _t(), _t(), _t(), qm=1.0, dt=1.0, dx=1.0, lo=0.0, hi=1.0),
     "picard_finalize_ext": lambda: cuda_domain.picard_finalize_ext(
@@ -180,10 +190,42 @@ def test_float64_on_the_card_without_a_kernel_names_its_item(name):
     assert cuda_cic.F64_ITEMS[name] in str(err.value)
 
 
+# the sheath engine's wrappers with a double kernel (ROADMAP item 19a),
+# called on stand-ins
+SHEATH_SLICE = {
+    "deposit_det": lambda dt: cuda_cic.deposit_det(_t(dt), _t(dt), 16, periodic=False),
+    "sheath pass": lambda dt: cuda_sheath.sheath_picard(
+        *[_t(dt)] * 7, dt=1.0, dx=1.0),
+    "sheath_finalize": lambda dt: cuda_sheath.sheath_finalize(
+        *[_t(dt)] * 7, dt=1.0, dx=1.0),
+    "sheath_reinject": lambda dt: cuda_rng.sheath_reinject(
+        (0, 1), 0, *[_t(dt)] * 6, cells=16.0),
+    "hash_batch": lambda dt: cuda_rng.hash_batch(1, 16, 2, normals=True, device=CUDA,
+                                                 dtype=dt),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHEATH_SLICE))
+def test_sheath_slice_takes_float64_on_the_card(name, monkeypatch):
+    """The sheath engine's wrappers with a double kernel: a float64 call on
+    the card passes the dtype check and goes on to its shapes (the
+    stand-ins raise there) or its launch (``hash_batch``: the library,
+    stubbed to raise), as a float32 one does; float16 raises TypeError."""
+    def library():
+        raise _Reached
+    monkeypatch.setattr(_build, "library", library)
+    for dtype in (torch.float64, torch.float32):
+        with pytest.raises(_Reached):
+            SHEATH_SLICE[name](dtype)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        SHEATH_SLICE[name](torch.float16)
+
+
 @pytest.mark.parametrize("name", cuda_cic.F64_KERNELS)
 def test_rows_1_to_6_take_float64_on_the_card(name):
-    """The six wrappers with a double kernel pass the dtype check on the
-    card (and float32 everywhere); float16 raises on either device."""
+    """The wrappers with a double kernel (rows 1-6 and the sheath slice's)
+    pass the dtype check on the card (and float32 everywhere); float16
+    raises on either device."""
     cuda_cic.check_dtype(name, CUDA, torch.float64)
     cuda_cic.check_dtype(name, CUDA, torch.float32)
     cuda_cic.check_dtype(name, torch.device("cpu"), torch.float64)
@@ -208,9 +250,10 @@ def test_wrappers_refuse_mixed_dtypes_and_the_newton_kernels_float64():
 
 @pytest.mark.parametrize("engine", sorted(cuda_cic.F64_ENGINE_ITEMS))
 def test_engines_without_float64_kernels_refuse_a_card_state(engine):
-    """The explicit, magnetized and sheath engines refuse a float64 state
-    on the card at once, naming their slice of item 19; the CPU takes
-    it; float32 passes on the card."""
+    """The explicit and magnetized engines refuse a float64 state on the
+    card at once, naming their slice of item 19; the CPU takes it;
+    float32 passes on the card (the sheath engine, item 19a, takes
+    float64 there: tests/test_torch_sheath.py)."""
     with pytest.raises(NotImplementedError, match="item 19") as err:
         cuda_cic.check_engine_dtype(engine, CUDA, torch.float64)
     assert cuda_cic.F64_ENGINE_ITEMS[engine] in str(err.value)
@@ -236,11 +279,22 @@ def test_explicit_engine_refuses_at_init_and_step():
     with pytest.raises(NotImplementedError, match="item 19b"):
         magnetized.init_state(x * 1e-4, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0,
                               mcfg, dtype=torch.float64, device=CUDA)
-    with pytest.raises(NotImplementedError, match="item 19a"):
-        scfg = sheath.SheathConfig(GridSpec(11, 1e-4, "dirichlet-dirichlet"), 1e-10, 1e10,
-                                   1e-18, 1e-18)
-        sheath.init_state(np.full(4, 1e-5), np.zeros((4, 3)), np.ones(4), np.ones(4),
+    # the sheath engine takes a float64 state on the card (ROADMAP item
+    # 19a): init_state goes past its dtype check to the load (a stand-in
+    # that raises there), and runs the same state on the CPU
+    scfg = sheath.SheathConfig(GridSpec(11, 1e-4, "dirichlet-dirichlet"), 1e-10, 1e10,
+                               1e-18, 1e-18)
+
+    class _Load:
+        def __array__(self, *args, **kwargs):
+            raise _Reached
+
+    with pytest.raises(_Reached):
+        sheath.init_state(_Load(), np.zeros((4, 3)), np.ones(4), np.ones(4),
                           np.ones(4, np.int32), scfg, dtype=torch.float64, device=CUDA)
+    st = sheath.init_state(np.full(4, 1e-5), np.zeros((4, 3)), np.ones(4), np.ones(4),
+                           np.ones(4, np.int32), scfg, dtype=torch.float64, device="cpu")
+    assert st.p.dtype == st.j.dtype == torch.float64
 
 
 def test_run_resident_takes_float32_only():

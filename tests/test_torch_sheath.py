@@ -560,10 +560,19 @@ def test_unported_options_raise(kw, item):
 
 
 def test_float64_on_the_card_names_its_item():
+    """The sheath engine has double kernels (ROADMAP item 19a): its
+    dispatch takes a float64 state on the card as on the CPU, refuses
+    float16 with a TypeError, and the engines without double kernels
+    name their items."""
     cfg = sheath.SheathConfig(**_cfg_kw(GridSpec(11, 1e-4, "dirichlet-dirichlet")))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        cuda_cic.check_engine_dtype("sheath", torch.device("cuda", 0), torch.float64)
+    cuda = torch.device("cuda", 0)
+    cuda_cic.check_engine_dtype("sheath", cuda, torch.float64)
     cuda_cic.check_engine_dtype("sheath", torch.device("cpu"), torch.float64)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_cic.check_engine_dtype("sheath", cuda, torch.float16)
+    for engine in ("magnetized", "explicit"):
+        with pytest.raises(NotImplementedError, match="item 19"):
+            cuda_cic.check_engine_dtype(engine, cuda, torch.float64)
     assert cfg.rng_sampler == "auto"
 
 
@@ -680,8 +689,8 @@ def test_sheath_checks_see_a_one_percent_fault(where):
     name = "sheath_scalars" if where == "wall charge" else "sheath_deposit_plain"
     good = getattr(cuda_sheath, name)
     if where == "wall charge":
-        def bad(dt, dx):
-            return (*good(dt, dx)[:3], good(dt, dx)[3] * 1.01)
+        def bad(dt, dx, *dtype):
+            return (*good(dt, dx, *dtype)[:3], good(dt, dx, *dtype)[3] * 1.01)
     else:
         def bad(*args, **kw):
             return good(*args, **kw) * 1.01
