@@ -417,9 +417,9 @@ Phases (any failure raises and the script exits non-zero):
    for the pass, the finalize and the set-up deposit; the ng = 200
    checks' for the shared window, converged-deposit and the gather), and
    unless a float64 state on the card raises a NotImplementedError naming
-   its ROADMAP item in the explicit and magnetized engines and
-   run_resident (the sheath engine and deposit_det, on phase 43's double
-   kernels, must run it and stay float64).
+   its ROADMAP item in the explicit engine and run_resident (the sheath
+   engine and deposit_det, on phase 43's double kernels, and the
+   magnetized engine, on phase 44's, must run it and stay float64).
 43. sheath float64 — the sheath engine's float64 state on its double
    kernels (ROADMAP item 19a): the pass and the finalize (row 10),
    deposit_det, sheath_reinject (row 21) and hash_batch. Each against its
@@ -450,6 +450,34 @@ Phases (any failure raises and the script exits non-zero):
    steps at maxiter in both dtypes, and one float64 step card against the
    CPU from the card's last state. It fails if a double kernel never
    launched on its path.
+44. magnetized float64 — the magnetized engine's float64 state on its
+   double kernels (ROADMAP item 19b): deposit2 (row 7), the fused push
+   (row 8), the carried deposit (row 9) and the Newton solves (rows 22,
+   23). Rows 7-9 on float64 rows against their float64 plain versions
+   (the push bit-equal, the deposits within 4 n eps64 of the largest node,
+   the carried deposit's clamps equal) at the configs[3] shape (n =
+   999,996, ng 600) and in their large modes (n = 1e7, ng 65,536), each
+   timed (device_ms, warm) beside its plain version, its bound (twice the
+   float32 bytes) and, for deposit2, index_add_ of its 4 n terms (float64,
+   and float32 beside the float32 kernel at configs[3]); the Newton
+   kernels at the configs[3] row's (600) and the D-N row's (800) first
+   solves from their float64 loads and on the large path at 1,025, 4,096
+   and 16,384 rows (a first solve and 8 iterations at tol 0): iterations
+   equal, phi within TOL64_NEWTON, timed by device time. Then the fused,
+   composed, carried, D-N and GC routes at n = 12,000: steps on the CPU's
+   float64 route (the Thomas Newton) from the row's load cast to float64,
+   the card one step from each CPU state, the same draws: flags, counts
+   and Newton iterations equal, p, v, phi and the carried rho and n at
+   TOL64_MAG_STEP, only double kernels launched, no Thomas solve. Then
+   the float64 rows on the card under sync debug mode 'error': the
+   configs[3] row (1,200 steps; phi_max / phi_f in 0.6-1.4, the
+   population kept, its checks), the carried, D-N and GC rows
+   (MAG64_ROW_STEPS each). Then phase 39 and 40's configs[3] loads at ng
+   16,384 and 65,536, float32 and float64 in turns: ms/step in windows,
+   Newton iterations a step, and one step of each dtype from one state
+   against a float64 step on the CPU (_step64; the float64 route held to
+   phase 14's position limit); the D-N row at ng 8,000 in float64. It
+   fails if a double kernel never launched on its path.
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -8341,10 +8369,10 @@ def _f64_path_check(ng: int, dev) -> tuple[dict, dict, list]:
 
 def _f64_refusals(dev) -> list:
     """A float64 state on the card raises a named NotImplementedError
-    where no float64 kernel exists yet: the explicit and magnetized
-    engines and run_resident; the sheath engine and deposit_det, which
-    have double kernels (phase 43), run it and stay float64.
-    Returns what did not."""
+    where no float64 kernel exists yet: the explicit engine and
+    run_resident; the sheath engine and deposit_det, which have double
+    kernels (phase 43), and the magnetized engine (phase 44) run it and
+    stay float64. Returns what did not."""
     import numpy as np
 
     from pypic_tpu_torch import presets
@@ -8363,9 +8391,6 @@ def _f64_refusals(dev) -> list:
         "explicit": lambda: explicit.init_state(
             x, v, -E_CHARGE, M_ELECTRON, explicit.ExplicitConfig(grid, 1e-9, 1.0),
             dtype=f64, device=dev),
-        "magnetized": lambda: magnetized.init_state(
-            x * mcfg.grid.length, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0, mcfg,
-            dtype=f64, device=dev),
         "run_resident": lambda: implicit.run_resident(
             implicit.ImplicitConfig(grid, 1e-9, 1.0), implicit.init_state(
                 x, v, -E_CHARGE, M_ELECTRON, implicit.ImplicitConfig(grid, 1e-9, 1.0),
@@ -8375,6 +8400,9 @@ def _f64_refusals(dev) -> list:
         "sheath": lambda: sheath.init_state(
             x * scfg.grid.length, np.zeros((64, 3)), -E_CHARGE, M_ELECTRON,
             np.zeros(64, np.int32), scfg, dtype=f64, device=dev).j,
+        "magnetized": lambda: magnetized.init_state(
+            x * mcfg.grid.length, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0, mcfg,
+            dtype=f64, device=dev).phi,
         "deposit_det": lambda: K.deposit_det(
             torch.zeros(64, dtype=f64, device=dev), torch.ones(64, dtype=f64, device=dev),
             16, periodic=True),
@@ -8393,7 +8421,7 @@ def _f64_refusals(dev) -> list:
         if out.dtype != f64 or out.device.type != "cuda":
             problems.append(f"{what}: float64 on the card gave {out.dtype} on {out.device}")
         else:
-            log(f"[float64] {what} takes float64 on the card (ROADMAP item 19a)")
+            log(f"[float64] {what} takes float64 on the card (ROADMAP item 19a or 19b)")
     return problems
 
 
@@ -8986,6 +9014,555 @@ def phase_sheath_float64(dev) -> dict:
     return res
 
 
+# phase 44: the magnetized engine's float64 state on its double kernels
+# (ROADMAP item 19b): rows 7-9 (deposit2, the fused push, the carried
+# deposit) and the Newton solves (rows 22, 23) in double
+MAG64_ROWS = ("deposit2", "boris_gather_push", "boris_gather_push_deposit",
+              "boltzmann_dirichlet", "boltzmann_dn")
+# (n, ng) of rows 7-9's checks and times: the configs[3] row, and the
+# large modes at n = 1e7, ng 65,536
+MAG64_SHAPES = {"configs[3]": (N_MAG, NG_MAG), "large": (10_000_000, 65_536)}
+MAG64_MAIN, MAG64_LARGE_MAIN = "configs[3]", "large"
+# the Newton solves: the configs[3] row's (D-D, ng 600) and the D-N row's
+# (ng 800) first solves from their float64 loads, then the large path at
+# MAG64_NEWTON_ROWS rows: a first solve at the row's tol and an 8-iteration
+# solve at tol 0
+MAG64_NEWTON_ROWS = (1025, 4096, 16_384)
+MAG64_LARGE_NEWTON_MAIN = 16_384
+# the Newton kernels against their float64 plain versions on the card, phi
+# relative to its largest: the same PCR and partition order in float64,
+# libdevice's exp against PyTorch's (the CPU tests read 1e-15 and less)
+TOL64_NEWTON = 1e-12
+# card against CPU, one float64 step from each CPU state (the CPU's
+# float64 route: the plain kernels, the Thomas Newton), the same draws on
+# both sides, positions in cells, the rest relative to the largest: float64
+# sums in other orders and the card's PCR against the CPU's Thomas solve
+# carried into the field and the push (the CPU tests put both routes
+# within 5e-16 of JAX's float64 step)
+TOL64_MAG_STEP = {"p (cells)": 1e-9, "v": 1e-10, "phi": 1e-12, "rho carried": 1e-12}
+# the rows re-activated in the step enter from the float32 draws in
+# float32 on both sides (as in JAX), and the card divides x by dx as a
+# reciprocal product (PyTorch's CUDA division by a scalar) where the CPU
+# divides: an ulp of float32 apart (and the GC pack's float32 sums in
+# another order). Those rows are held to 16 float32 ulps of the largest
+# position and velocity, and the carried rho and n, besides
+# TOL64_MAG_STEP, to the largest such position gap times the re-activated
+# rows' summed weights over the largest node
+TOL64_REACTIVATED = 16 * 2.0 ** -24
+# the draws stay float32 (JAX draws them so), and so does the carried
+# re-activation patch of those rows (JAX deposits it in their dtype)
+MAG64_FLOAT32_KERNELS = ("source_batch", "philox_uniforms", "hash_batch")
+MAG64_CHECK_STEPS = {"fused": 3, "composed": 3, "carried": 3, "dn": 3, "gc": 2}
+MAG64_CHECK_N = MAG_CHECK_PER_SPECIES
+# the rows on the card in float64 (tools/magnetized.run_row, sync debug
+# mode 'error'): the configs[3] row's 1,200 steps (its physics), the
+# carried, D-N and GC rows MAG64_ROW_STEPS each (their launches and syncs)
+MAG64_ROW_STEPS = 200
+# phase 39 and 40's configs[3] loads at these grids, float32 and float64
+# in turns: MAG64_WINDOWS windows of MAG64_WINDOW_STEPS steps a dtype after
+# MAG64_WARMUP; the D-N row at 8,000 in float64 (the D-N large path)
+MAG64_LARGE_NGS = (16_384, 65_536)
+MAG64_WINDOWS, MAG64_WINDOW_STEPS, MAG64_WARMUP = 3, 5, 2
+MAG64_DN_LARGE = (50_000, 8000, 20)
+
+
+def _mag64_rows(n: int, ng: int, gen, dev):
+    """Bounded float64 rows: positions across the grid and past both walls
+    (a tenth inactive, the off-grid rows inactive), ion velocities, the
+    push constants of 1-5+ boron, weights masked by the activity, a field
+    of 1e5 V/m."""
+    f64 = torch.float64
+    p = torch.rand(n, generator=gen, device=dev, dtype=f64) * ng - 0.5
+    p[:4] = torch.tensor([0.0, ng - 1.0, -0.3, ng - 0.7], dtype=f64)
+    v = torch.randn((3, n), generator=gen, device=dev, dtype=f64) * 2e4
+    act = ((torch.rand(n, generator=gen, device=dev) < 0.9) & (p >= 0.0)
+           & (p <= ng - 1.0)).to(f64)
+    z = torch.randint(1, 6, (n,), generator=gen, device=dev).to(f64)
+    const = z * (0.5 * 1e-10 * 1.602176634e-19 / (10.81 * 1.67262192e-27))
+    w = torch.rand((2, n), generator=gen, device=dev, dtype=f64) * act
+    e = torch.randn(ng, generator=gen, device=dev, dtype=f64) * 1e5
+    return e, p, v[0], v[1], v[2], const, act, w[0], w[1]
+
+
+def _mag64_case(name: str, n: int, ng: int, gen, dev) -> dict:
+    """Row ``name`` (7, 8 or 9) in double at (n, ng): against its float64
+    plain version on the same inputs (the push bit-equal, the deposits
+    within deposit_tol64, the clamps equal), then timed (device_ms, warm),
+    the plain version once, the bound (twice the float32 bytes, the
+    float64 rate) and, for deposit2, float64 index_add_ of its 4 n terms
+    (and the float32 kernel and index_add_ on the same rows rounded to
+    float32 at the configs[3] shape)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops.cic import cic_indices_weights
+
+    e, p, vx, vy, vz, const, act, wr, wn = _mag64_rows(n, ng, gen, dev)
+    kw = dict(b=(0.14, 1.99, 0.0), dt_dx=1e-10 / 5e-6)
+    errs, library, float32 = {}, None, {}
+    if name == "deposit2":
+        call = lambda: K.deposit2(p, wr, wn, ng, periodic=False)  # noqa: E731
+        plain = lambda: K.deposit2_plain(p, wr, wn, ng, periodic=False)  # noqa: E731
+        got, ref = call(), plain()
+        for k, g, r in zip(("rho", "n"), got, ref):
+            a, rr = rel_err(r, g)
+            errs[k] = dict(abs=a, err=rr, kind="rel, float64 order", tol=deposit_tol64(n))
+        mode = K.deposit_launch_shape(n, ng, False, 132, item=8).mode
+    elif name == "boris_gather_push":
+        args = (e, p, vx, vy, vz, const, act)
+        call = lambda: K.boris_gather_push(*args, swap_weights=True, **kw)  # noqa: E731
+        plain = lambda: K.boris_gather_push_plain(*args, swap_weights=True, **kw)  # noqa: E731
+        got, ref = call(), plain()
+        for k, g, r in zip(("p1", "vx1", "vy1", "vz1"), got, ref):
+            a = float((g - r).abs().max())
+            errs[k] = dict(abs=a, err=a, kind="bit-equal", tol=0.0)
+        mode = K.sweep_launch("boris_gather_push", n, ng, 132, item=8).mode
+    else:
+        # 1e3 dt/dx: rows that cross several cells, so the window frame
+        # clamps some (the counts must be equal)
+        kwd = dict(kw, dt_dx=1e3 * kw["dt_dx"], pad=CARRIED_PAD, swap_weights=True)
+        args = (e, p, vx, vy, vz, const, act, wr, wn)
+        call = lambda: K.boris_gather_push_deposit(*args, **kwd)  # noqa: E731
+        plain = lambda: K.boris_gather_push_deposit_plain(*args, **kwd)  # noqa: E731
+        got, ref = call(), plain()
+        for k, g, r in zip(("p1", "vx1", "vy1", "vz1"), got, ref):
+            a = float((g - r).abs().max())
+            errs[k] = dict(abs=a, err=a, kind="bit-equal", tol=0.0)
+        for k, g, r in zip(("rho", "n"), got[4:6], ref[4:6]):
+            a, rr = rel_err(r, g)
+            errs[k] = dict(abs=a, err=rr, kind="rel, float64 order", tol=deposit_tol64(n))
+        gap = float(abs(int(got[6]) - int(ref[6])))
+        errs["n_clamped"] = dict(abs=gap, err=gap, kind=f"count gap ({int(ref[6])} clamped)",
+                                 tol=0.0)
+        mode = K.deposit_launch_shape(n, ng, True, 132, item=8).mode
+    if any(t.dtype != torch.float64 for t in got if t.dim() == 1):
+        raise AssertionError(f"{name} float64 returned {[t.dtype for t in got]}")
+    err = _check(errs, f"{name} float64 (n = {n}, ng = {ng}, {mode} mode)")
+    del got, ref
+    if name == "deposit2":
+        il, ir, wl, wrr = cic_indices_weights(p, ng - 1, False)
+        idx = torch.cat([il, ir, il + ng, ir + ng])
+        terms = torch.cat([wr * wl, wr * wrr, wn * wl, wn * wrr])
+        library = device_ms(lambda: torch.zeros(2 * ng, dtype=torch.float64,
+                                                device=dev).index_add_(0, idx, terms),
+                            calls=10)
+        if (n, ng) == MAG64_SHAPES[MAG64_MAIN]:
+            p32, wr32, wn32, t32 = p.float(), wr.float(), wn.float(), terms.float()
+            float32["ms"] = device_ms(lambda: K.deposit2(p32, wr32, wn32, ng, periodic=False),
+                                      calls=10)
+            float32["library_ms"] = device_ms(
+                lambda: torch.zeros(2 * ng, dtype=torch.float32, device=dev).index_add_(
+                    0, idx, t32), calls=10)
+            del p32, wr32, wn32, t32
+        del il, ir, wl, wrr, idx, terms
+    node_bytes = 2 * LARGE_NODE_BYTES.get(name, 4) * ng if mode != "shared" else 0.0
+    b, by = bound(name, n, extra_bytes=node_bytes, f64=True)
+    K.reset_launch_counts()
+    ms = device_ms(call, calls=10)
+    launches = {"calls": K.LAUNCHES[f"{name}_f64"], **dict(K.LARGE_LAUNCHES)}
+    if not K.LAUNCHES[f"{name}_f64"] or K.LAUNCHES[name]:
+        raise AssertionError(f"{name} float64: launches {dict(K.LAUNCHES)}")
+    plain_ms = cuda_ms(plain, reps=1, calls=1)
+    rec = dict(n=n, ng=ng, mode=mode, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=library, launches_timed=launches,
+               **{f"float32_{k}": v for k, v in float32.items()})
+    log(f"[magnetized float64] {name}_f64 at n = {n}, ng = {ng} ({mode} mode): {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by})"
+        + (f", float64 index_add_ {library:.4f} ms" if library is not None else
+           ", no single library call computes it")
+        + (f"; the float32 kernel on the same rows {float32['ms']:.4f} ms, float32 "
+           f"index_add_ {float32['library_ms']:.4f} ms" if float32 else "")
+        + f"; launches {launches}")
+    del e, p, vx, vy, vz, const, act, wr, wn, call, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mag64_newton_load(name: str, rows: int, dev):
+    """(solve, plain, load label) of a Newton wrapper in float64: the
+    configs[3] row's (D-D, 600 nodes) or the D-N row's (800) first solve
+    from the row's float64 load (rho and n by deposit2, n0 = 0.9 <n>,
+    cold); other row counts take phase 24's load (_newton_large_solve)
+    in float64."""
+    import numpy as np
+
+    from pypic_tpu_torch.constants import E_CHARGE
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_newton
+    from pypic_tpu_torch.tools import magnetized as row
+
+    dd = name == "boltzmann_dirichlet"
+    if rows in (NG_MAG, 800) and (rows == NG_MAG) == dd:
+        pre = row.preset("iead" if dd else "dn", dev, ng=rows)
+        cfg, st = pre.config, row.cast_state(pre.state, torch.float64)
+        w = torch.where(st.active == 1, st.p2c / cfg.grid.dx, 0.0)
+        rho, n = K.deposit2(st.p, st.charge_state * E_CHARGE * w, w, rows, periodic=False)
+        n0, te, dx = 0.9 * torch.mean(n), cfg.te, cfg.grid.dx
+        dens, label = (rho if dd else n), ("configs[3]" if dd else "D-N row")
+    else:
+        rng = np.random.default_rng(11 + rows)
+        num = torch.from_numpy((1e17 * (1.0 + 0.3 * rng.standard_normal(rows))).clip(1e15))
+        dens = (E_CHARGE * num if dd else num).to(dev)
+        n0, te, dx, label = (1e17 if dd else 0.9e17), 11600.0 * 10.0, 2e-5, "phase 24's"
+    if dd:
+        return (functools.partial(cuda_newton.boltzmann_dirichlet, dens, n0, te, dx),
+                functools.partial(cuda_newton.boltzmann_dirichlet_plain, dens, n0, te, dx),
+                label)
+    phi0 = torch.zeros(rows, dtype=torch.float64, device=dev)
+    return (functools.partial(cuda_newton.boltzmann_dn, dens, n0, te, dx, phi0),
+            functools.partial(cuda_newton.boltzmann_dn_plain, dens, n0, te, dx, phi0), label)
+
+
+def _mag64_newton_case(name: str, rows: int, dev) -> dict:
+    """A Newton wrapper's double kernel at ``rows``: the first solve at
+    the row's tol and an 8-iteration solve at tol 0, each against the
+    float64 plain version (iterations equal, phi within TOL64_NEWTON), each
+    timed by device time (the median of three profiler calls); the bound
+    from the rows and the iterations (BYTES_PER_PARTICLE, OPS_PER_PARTICLE
+    at the float64 rate), the plain version once."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    solve, plain, label = _mag64_newton_load(name, rows, dev)
+    tol = 1e-9 if name == "boltzmann_dirichlet" else 1e-3
+    maxiter = 1000 if name == "boltzmann_dirichlet" else 100
+    large = rows > 1024
+    key = f"{name}_large_f64" if large else f"{name}_f64"
+    rec = {}
+    for run, kw in (("first", dict(tol=tol, maxiter=maxiter)),
+                    ("8 iterations", dict(tol=0.0, maxiter=8))):
+        K.reset_launch_counts()
+        got, ref = solve(**kw), plain(**kw)
+        torch.cuda.synchronize()
+        if K.LAUNCHES[key] != 1 or got.phi.dtype != torch.float64:
+            raise AssertionError(f"{name} float64 at {rows} rows: launches "
+                                 f"{dict(K.LAUNCHES)}, {got.phi.dtype}")
+        its = int(got.iterations)
+        a, r = rel_err(ref.phi, got.phi)
+        err = _check({"phi": dict(abs=a, err=r, kind="rel", tol=TOL64_NEWTON),
+                      "iterations": dict(abs=float(abs(its - int(ref.iterations))),
+                                         err=float(abs(its - int(ref.iterations))),
+                                         kind="count gap", tol=0.0)},
+                     f"{key} ({rows} rows, {label} load, {run})")
+        ms = statistics.median(device_ms(lambda: solve(**kw), calls=5) for _ in range(3))
+        plain_ms = cuda_ms(lambda: plain(**kw), reps=1, calls=1)
+        b, by = bound(name, rows, steps=its, f64=True)
+        rec[run] = dict(n=rows, iterations=its, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b, bound_by=by, library_ms=None,
+                        us_per_iteration=1e3 * ms / max(its, 1))
+        log(f"[magnetized float64] {key} {rows} rows ({label}, {run}): {its} iterations, "
+            f"{ms:.4f} ms ({1e3 * ms / max(its, 1):.2f} us an iteration), plain "
+            f"{plain_ms:.4f} ms, bound {b:.7f} ms ({by})")
+    return rec
+
+
+def _mag64_hooks(cfg, state):
+    """make_step keyword arguments feeding CPU-made draws to both sides:
+    the source table (or the flux draw) and the gyro-phases, from the
+    CPU's Philox functions at the state's key."""
+    from pypic_tpu_torch import sources
+
+    src = cfg.source
+
+    def draws(step, n):
+        if cfg.reactivate == "flux":
+            return sources.sample_flux_batch(
+                state.rng, step, n, cfg.grid, src.ti, src.mass, vx=src.vx,
+                gamma=cfg.flux_gamma, vx_pert=cfg.flux_vx_pert, device="cpu")
+        return sources.sample_source_batch(state.rng, step, n, cfg.grid, src.ti,
+                                           src.mass, vx=src.vx, device="cpu")
+
+    def gyro(step, n):
+        from pypic_tpu_torch.ops import cuda_rng
+
+        return cuda_rng.philox_uniforms(state.rng, step, n, 3, cuda_rng.GYRO_TAG,
+                                        device="cpu").t().contiguous()
+
+    return {"source_draws": draws, "gyro_draws": gyro}
+
+
+def _mag64_check(route: str, dev) -> tuple[dict, dict, list]:
+    """The float64 route ``route`` at n = 6 MAG64_CHECK_N (12,000; the D-N
+    row's physics at the same n): MAG64_CHECK_STEPS steps on the CPU's float64 route from the
+    row's load cast to float64, the card one step from each CPU state,
+    the same draws: the flags, re-activations, clamps and Newton
+    iterations equal, p, v, phi (and the carried rho and n) at
+    TOL64_MAG_STEP. Returns (the largest gaps, the card's launches, the
+    problems)."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import magnetized as row
+
+    kind = {"dn": "dn", "gc": "gc"}.get(route, "iead")
+    pre = row.preset(kind, "cpu", MAG64_CHECK_N, 6 * MAG64_CHECK_N)
+    over = {"fused": dict(backend="fused"), "composed": dict(backend="composed"),
+            "carried": dict(row.CARRIED, react_batch=512)}.get(route, {})
+    cfg = dataclasses.replace(pre.config, **over)
+    st = row.cast_state(pre.state, torch.float64)
+    if cfg.carried_deposit == "on":
+        st = magnetized.prime_carry(st, cfg)
+    hooks = _mag64_hooks(cfg, st)
+    on_card = {k: (lambda f: (lambda s, n: _to(f(s, n), dev)))(f) for k, f in hooks.items()}
+    step_c, step_g = magnetized.make_step(cfg, **hooks), magnetized.make_step(cfg, **on_card)
+    worst, launches, problems = {}, collections.Counter(), []
+    magnetized.THOMAS_SOLVES.update(dirichlet=0, dirichlet_neumann=0)
+    limits = dict(TOL64_MAG_STEP)
+    for i in range(MAG64_CHECK_STEPS[route]):
+        d = interop.magnetized_state_to_numpy(st)
+        c, mc = step_c(st)
+        K.reset_launch_counts()
+        g, mg = step_g(interop.magnetized_state_from_numpy(d, dev))
+        torch.cuda.synchronize()
+        launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+        react = (c.active == 1) & torch.from_numpy(d["active"] != 1)
+        act = (c.active == 1) & ~react
+        gp = g.p.cpu()
+        gaps = {"p (cells)": float((c.p - gp)[act].abs().max()),
+                "v": max(rel_err(getattr(c, k)[act], getattr(g, k).cpu()[act])[1]
+                         for k in ("vx", "vy", "vz")),
+                "phi": rel_err(mc.phi, mg.phi.cpu())[1]}
+        if bool(react.any()):
+            dp = float((c.p - gp)[react].abs().max())
+            gaps["re-activated p"] = dp / float(c.p[react].abs().max())
+            gaps["re-activated v"] = max(
+                float((getattr(c, k) - getattr(g, k).cpu())[react].abs().max())
+                / max(float(getattr(c, k)[react].abs().max()), 1e-300)
+                for k in ("vx", "vy", "vz"))
+            limits["re-activated p"] = limits["re-activated v"] = TOL64_REACTIVATED
+        if cfg.carried_deposit == "on":
+            # the re-activated rows' tents moved by at most their position gap
+            w = torch.where(react, c.p2c / cfg.grid.dx, 0.0)
+            moved = {"rho": float((w * c.charge_state * 1.602176634e-19).abs().sum()),
+                     "n": float(w.abs().sum())}
+            dp = float((c.p - gp)[react].abs().max()) if bool(react.any()) else 0.0
+            gaps["rho carried"] = max(rel_err(getattr(c, k), getattr(g, k).cpu())[1]
+                                      for k in ("rho", "n"))
+            limits["rho carried"] = TOL64_MAG_STEP["rho carried"] + max(
+                dp * moved[k] / float(getattr(c, k).abs().max()) for k in ("rho", "n"))
+        counts = {k: (int(getattr(mc, k)), int(getattr(mg, k))) for k in (
+            "n_active", "n_hit_wall", "n_reactivated", "carry_clamped", "newton_iters")}
+        flags = int((c.active != g.active.cpu()).sum())
+        dtypes = {getattr(g, k).dtype for k in ("p", "vx", "phi", "rho", "n")}
+        log(f"[magnetized float64] {route} check, n = {c.p.shape[0]}, step {i} -> {i + 1}, "
+            "card against the CPU's float64 route: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gaps.items())
+            + f"; counts (CPU, card) {counts}; flags apart {flags}")
+        bad = [f"{k} {v:.3e}" for k, v in gaps.items() if not v <= limits[k]]
+        bad += [f"{k} {v}" for k, v in counts.items() if v[0] != v[1]]
+        if flags or dtypes != {torch.float64}:
+            bad.append(f"flags apart {flags}, dtypes {dtypes}")
+        if bad:
+            problems.append(f"{route} step {i}: {bad}")
+        for k, v in gaps.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        st = c
+    allowed = MAG64_FLOAT32_KERNELS + (("deposit2",) if cfg.carried_deposit == "on" else ())
+    if any(not k.endswith("_f64") and k not in allowed for k in launches) or sum(
+            magnetized.THOMAS_SOLVES.values()):
+        problems.append(f"{route}: launches {dict(launches)}, Thomas solves "
+                        f"{magnetized.THOMAS_SOLVES}")
+    return worst, dict(launches), problems
+
+
+def _mag64_large(dev) -> tuple[dict, dict, list]:
+    """Phase 39 and 40's configs[3] load (n = 999,996) at MAG64_LARGE_NGS,
+    float32 and float64 in turns on the card ('auto': fused, the large
+    Newton kernel): Newton iterations a step and ms/step in windows, then
+    one step of each dtype from the same float32 state (the float64 one
+    cast) against a float64 step on the CPU (_step64), the pushed
+    particles' positions at phase 14's limits (the float64 route held to
+    them). Then the D-N row at ng 8,000 in float64 (the D-N large path).
+    Returns (figures, launches of the float64 runs, problems)."""
+    import dataclasses
+
+    import numpy as np
+
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import magnetized as row
+
+    out, launches, problems = {}, collections.Counter(), []
+    rtol, atol = TOL_MAG_STEP["p"]
+    for ng in MAG64_LARGE_NGS:
+        pre = row.preset("iead", dev, ng=ng)
+        cfg = pre.config
+        step = magnetized.make_step(cfg)
+        states = {"float32": pre.state,
+                  "float64": row.cast_state(pre.state, torch.float64)}
+        del pre
+        for label in states:
+            states[label], _ = run(step, states[label], MAG64_WARMUP)
+        torch.cuda.synchronize()
+        windows = {label: [] for label in states}
+        iters = {label: [] for label in states}
+        for _ in range(MAG64_WINDOWS):
+            for label in states:
+                K.reset_launch_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    t0 = time.perf_counter()
+                    states[label], m = run(step, states[label], MAG64_WINDOW_STEPS)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                windows[label].append((time.perf_counter() - t0) * 1e3 / MAG64_WINDOW_STEPS)
+                iters[label] += m.newton_iters.tolist()
+                if label == "float64":
+                    launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+                    if any(not k.endswith("_f64") and k not in MAG64_FLOAT32_KERNELS
+                           for k, v in K.LAUNCHES.items() if v):
+                        problems.append(f"ng {ng} float64: launches {dict(K.LAUNCHES)}")
+        # one step of each dtype from the float32 state, against float64
+        d = interop.magnetized_state_to_numpy(states["float32"])
+        r = _step64("iead", cfg, d)
+        p0 = torch.from_numpy(d["p"]).double()
+        before = torch.from_numpy(d["active"] == 1)
+        cells = float(cfg.grid.num_cells)
+        inside = (r["p"] >= 0.0) & (r["p"] <= cells)
+        gaps = {}
+        for label, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+            g_in = row.cast_state(interop.magnetized_state_from_numpy(d, dev), dtype)
+            g, mg = step(g_in)
+            pg = g.p.double().cpu()
+            pushed = before & (g.active.cpu() == 1) & inside
+            lim = atol + rtol * torch.maximum(p0.abs(), r["p"].abs())
+            gaps[label] = dict(
+                limit_share=float(((pg - r["p"]).abs() / lim)[pushed].max()),
+                cells=float((pg - r["p"]).abs()[pushed].max()), pushed=int(pushed.sum()),
+                newton_iters=int(mg.newton_iters))
+            del g, g_in
+        gaps["float64_step_newton_iters"] = r["newton_iters"]
+        if not gaps["float64"]["limit_share"] <= 1.0:
+            problems.append(f"ng {ng} float64: position gap {gaps['float64']}")
+        rec = dict(ms_per_step={k: statistics.median(v) for k, v in windows.items()},
+                   windows=windows, newton_mean={k: float(np.mean(v)) for k, v in iters.items()},
+                   newton_max={k: int(max(v)) for k, v in iters.items()},
+                   at_maxiter={k: int(sum(i >= cfg.newton_maxiter for i in v))
+                               for k, v in iters.items()},
+                   position_gap_to_float64_step=gaps)
+        out[f"ng {ng}"] = rec
+        log(f"[magnetized float64] configs[3] load at ng {ng}, in turns of "
+            f"{MAG64_WINDOW_STEPS} steps: ms/step float32 "
+            + ", ".join(f"{w:.4f}" for w in windows["float32"]) + ", float64 "
+            + ", ".join(f"{w:.4f}" for w in windows["float64"])
+            + f"; Newton iterations a step (mean, max, at maxiter) float32 "
+            f"({rec['newton_mean']['float32']:.2f}, {rec['newton_max']['float32']}, "
+            f"{rec['at_maxiter']['float32']}), float64 ({rec['newton_mean']['float64']:.2f}, "
+            f"{rec['newton_max']['float64']}, {rec['at_maxiter']['float64']}); one step "
+            f"against a float64 step ({r['newton_iters']} iterations): float32 "
+            f"{gaps['float32']['limit_share']:.3e} of phase 14's limit "
+            f"({gaps['float32']['cells']:.3e} cells), float64 "
+            f"{gaps['float64']['limit_share']:.3e} ({gaps['float64']['cells']:.3e} cells)")
+        del states, step, r, d
+        torch.cuda.empty_cache()
+    n, ng, steps = MAG64_DN_LARGE
+    K.reset_launch_counts()
+    res, cfg, fin, m = row.run_row(dev, steps=steps, row="dn", n=n, ng=ng,
+                                   dtype=torch.float64)
+    launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+    out["dn ng 8000"] = {k: res[k] for k in ("us_per_step", "newton_mean", "newton_max")}
+    log(f"[magnetized float64] D-N row at n = {n}, ng = {ng}, float64: "
+        f"{res['us_per_step']:.1f} us/step, Newton {res['newton_mean']:.2f} a step; "
+        f"launches {res['launches']}")
+    if fin.p.dtype != torch.float64 or not res["launches"].get("boltzmann_dn_large_f64") or any(
+            not k.endswith("_f64") and k not in MAG64_FLOAT32_KERNELS for k in res["launches"]):
+        problems.append(f"D-N at {ng} float64: {fin.p.dtype}, {res['launches']}")
+    return out, dict(launches), problems
+
+
+def phase_magnetized_float64(dev) -> dict:
+    """Phase 44 (module docstring). Returns the double kernels' records,
+    the checks, the rows' figures and the double kernels' launches on
+    their paths; fails on a disagreement, a host sync in a float64 row, a
+    failed physics check, or a double kernel never launched on its
+    path."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import magnetized as row
+
+    gen = torch.Generator(device=dev).manual_seed(44)
+    res = {"kernels": {}}
+    for name in MAG64_ROWS[:3]:
+        res["kernels"][name] = {shape: _mag64_case(name, n, ng, gen, dev)
+                                for shape, (n, ng) in MAG64_SHAPES.items()}
+    res["kernels"]["boltzmann_dirichlet"] = {
+        rows: _mag64_newton_case("boltzmann_dirichlet", rows, dev)
+        for rows in (NG_MAG,) + MAG64_NEWTON_ROWS}
+    res["kernels"]["boltzmann_dn"] = {
+        rows: _mag64_newton_case("boltzmann_dn", rows, dev)
+        for rows in (800,) + MAG64_NEWTON_ROWS}
+    problems = []
+    res["check"], res["check_launches"] = {}, {}
+    for route in MAG64_CHECK_STEPS:
+        worst, launched, bad = _mag64_check(route, dev)
+        res["check"][route], res["check_launches"][route] = worst, launched
+        problems += bad
+
+    # the rows on the card in float64 (sync debug mode 'error' in run_row):
+    # the configs[3] row's physics, the carried, D-N and GC rows' launches
+    rows = {}
+    for label, kw in (("configs[3]", dict(steps=1200)),
+                      ("carried", dict(steps=MAG64_ROW_STEPS, **row.CARRIED)),
+                      ("dn", dict(steps=MAG64_ROW_STEPS, row="dn")),
+                      ("gc", dict(steps=MAG64_ROW_STEPS, row="gc"))):
+        K.reset_launch_counts()
+        out, cfg, fin, m = row.run_row(dev, dtype=torch.float64, **kw)
+        checks = row.CHECKS[kw.get("row", "iead")](cfg, fin, m)
+        if label == "configs[3]":
+            phi_rel = out["phi_max_over_phi_f"]
+            if not 0.6 <= phi_rel <= 1.4:
+                checks.append(f"phi_max / phi_f {phi_rel:.3f} outside 0.6-1.4")
+        elif label == "dn":
+            # the flux cap and finite fields (the D-N row's equilibrium
+            # checks need phase 21's 1,200 steps)
+            checks = ([] if int(m.n_reactivated.max()) <= cfg.flux_limit
+                      else [f"{int(m.n_reactivated.max())} re-activations a step"])
+            checks += [] if bool(torch.isfinite(m.phi).all()) else ["non-finite phi"]
+        elif label == "carried":
+            checks = row.population_problems(m) + (
+                [] if bool(torch.isfinite(m.phi).all()) else ["non-finite phi"])
+        allowed = MAG64_FLOAT32_KERNELS + (("deposit2",) if label == "carried" else ())
+        if fin.p.dtype != torch.float64 or any(
+                not k.endswith("_f64") and k not in allowed for k in out["launches"]):
+            checks.append(f"dtype {fin.p.dtype}, launches {out['launches']}")
+        rows[label] = dict(out, problems=checks)
+        log(f"[magnetized float64] {label} row in float64 ({out['steps']} steps, sync "
+            f"debug mode 'error'): {out['us_per_step']:.1f} us/step, Newton "
+            f"{out['newton_mean']:.2f} a step (max {out['newton_max']})"
+            + (f", phi_max / phi_f {out['phi_max_over_phi_f']:.4f}"
+               if "phi_max_over_phi_f" in out else "")
+            + f"; launches {out['launches']}; problems {checks}")
+        problems += [f"{label} row: {c}" for c in checks]
+        del fin, m
+        torch.cuda.empty_cache()
+    res["rows"] = rows
+    res["large"], large_launches, bad = _mag64_large(dev)
+    problems += bad
+
+    # each double kernel's launches on its path: the configs[3] row's for
+    # rows 7, 8 and 22, the carried row's for row 9, the D-N row's for row
+    # 23, the ng 16,384 and 8,000 runs' for the large paths
+    main = rows["configs[3]"]["launches"]
+    res["launches"] = {
+        "deposit2": main.get("deposit2_f64", 0),
+        "boris_gather_push": main.get("boris_gather_push_f64", 0),
+        "boltzmann_dirichlet": main.get("boltzmann_dirichlet_f64", 0),
+        "boris_gather_push_deposit": rows["carried"]["launches"].get(
+            "boris_gather_push_deposit_f64", 0),
+        "boltzmann_dn": rows["dn"]["launches"].get("boltzmann_dn_f64", 0),
+        "boltzmann_dirichlet_large": large_launches.get("boltzmann_dirichlet_large_f64", 0),
+        "boltzmann_dn_large": large_launches.get("boltzmann_dn_large_f64", 0)}
+    missing = [k for k, v in res["launches"].items() if not v]
+    if missing:
+        problems.append(f"double kernels never launched on their paths: {missing}")
+    log(f"[magnetized float64] the double kernels' launches on their paths "
+        f"{res['launches']}")
+    if problems:
+        raise AssertionError("magnetized float64: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -9044,6 +9621,7 @@ def main() -> int:
     lgp = phase("large periodic", phase_large_periodic, dev)
     f64 = phase("float64", phase_float64, dev)
     s64 = phase("sheath float64", phase_sheath_float64, dev)
+    m64 = phase("magnetized float64", phase_magnetized_float64, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -9169,6 +9747,40 @@ def main() -> int:
              "shapes": s64["kernels"][kname]} if kname in SHEATH64_SHAPES else
             {"row_mix": s64["kernels"][kname][SHEATH64_MAIN]["row_mix"]})}
         for kname in SHEATH64_ROWS
+    ] + [
+        # the magnetized engine's double kernels (phase 44): rows 7-9 at the
+        # configs[3] shape with their large modes at 1e7 / 65,536 beside;
+        # the Newton solves at the rows' first solves (600, 800 rows), their
+        # large paths at 16,384 rows (8 iterations); the launches of the
+        # float64 rows (configs[3], carried, D-N) and phase 44's large runs
+        *({"name": f"{kname}_f64", "route": "cuda",
+           "source": "pypic_tpu_torch/csrc/magnetized.cu",
+           "replaces": REPLACES[kname], "launches": m64["launches"][kname],
+           **{key: m64["kernels"][kname][MAG64_MAIN][key] for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n")},
+           "dtype": "float64", "large_mode": m64["kernels"][kname][MAG64_LARGE_MAIN],
+           **({"float32_ms": m64["kernels"][kname][MAG64_MAIN]["float32_ms"],
+               "float32_library_ms": m64["kernels"][kname][MAG64_MAIN]["float32_library_ms"]}
+              if kname == "deposit2" else {})}
+          for kname in MAG64_ROWS[:3]),
+        *({"name": f"{kname}_f64", "route": "cuda",
+           "source": "pypic_tpu_torch/csrc/newton.cu", "replaces": REPLACES[kname],
+           "launches": m64["launches"][kname],
+           **{key: m64["kernels"][kname][rows]["first"][key] for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+               "iterations", "us_per_iteration")},
+           "dtype": "float64", "eight_iterations": m64["kernels"][kname][rows]["8 iterations"]}
+          for kname, rows in (("boltzmann_dirichlet", NG_MAG), ("boltzmann_dn", 800))),
+        *({"name": f"{kname}_large_f64", "route": "cuda",
+           "source": "pypic_tpu_torch/csrc/newton.cu", "replaces": REPLACES[f"{kname}_large"],
+           "launches": m64["launches"][f"{kname}_large"],
+           **{key: m64["kernels"][kname][MAG64_LARGE_NEWTON_MAIN]["8 iterations"][key]
+              for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                          "library_ms", "n", "iterations", "us_per_iteration")},
+           "dtype": "float64",
+           "shapes": {rows: rec for rows, rec in m64["kernels"][kname].items()
+                      if rows > 1024}}
+          for kname in ("boltzmann_dirichlet", "boltzmann_dn")),
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the
         # JAX engine takes them from jax.random)
@@ -9309,6 +9921,7 @@ def main() -> int:
         "large_periodic": {k: v for k, v in lgp.items() if k != "kernels"},
         "float64": {k: v for k, v in f64.items() if k != "kernels"},
         "sheath_float64": {k: v for k, v in s64.items() if k not in ("kernels", "hash_batch")},
+        "magnetized_float64": {k: v for k, v in m64.items() if k != "kernels"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

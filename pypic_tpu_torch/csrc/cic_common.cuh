@@ -15,9 +15,9 @@
 // cic_bounded, gather, gather_mode, load_field, wrap, cn_push) and of the
 // wide deposits (load4, zero_shared, flush_columns) take the element type
 // T, float or double, from their arguments: mul_rn, add_rn, sub_rn,
-// floor_of and rint_of are __fmul_rn, __fadd_rn, __fsub_rn, floorf and
-// rintf for float, __dmul_rn, __dadd_rn, __dsub_rn, floor and rint for
-// double. So a float instantiation is the code the float helpers were,
+// quot_rn, floor_of and rint_of are __fmul_rn, __fadd_rn, __fsub_rn,
+// __fdiv_rn, floorf and rintf for float, __dmul_rn, __dadd_rn, __dsub_rn,
+// __ddiv_rn, floor and rint for double. So a float instantiation is the code the float helpers were,
 // and a double one rounds each operation once in double, as the plain
 // versions' float64 operations do (the float64 state, rows 1-6).
 //
@@ -44,6 +44,8 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float quot_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double quot_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float floor_of(float x) { return floorf(x); }
 __device__ __forceinline__ double floor_of(double x) { return floor(x); }
 __device__ __forceinline__ float rint_of(float x) { return rintf(x); }

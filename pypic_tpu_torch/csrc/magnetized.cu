@@ -13,6 +13,26 @@
 // operation rounds as the plain PyTorch version's does. A launcher
 // returns cudaGetLastError(); it allocates nothing and runs on the stream
 // it is given.
+//
+// A float64 state (the magnetized engine under x64): each template takes
+// the element type T last and the `_f64` entry points launch its double
+// instantiations, every scalar passed as a double (cic_common.cuh's
+// mul_rn, add_rn, sub_rn: one rounding in double an operation, as the
+// plain versions' float64 operations). The particles, the field, the
+// histograms and their flush are double (a shared-memory double add is a
+// compare-and-swap loop, a global one REDG.E.ADD.F64.RN); the carried
+// deposit's window frame (1/stride in double) and its clamp count (an
+// exact int) are taken from the double positions, so the clamps are the
+// float64 plain version's. A double column or field takes 8 B a node: the
+// wide deposits' lane columns halve and the large modes begin at half the
+// float nodes (ops/cuda_cic.py deposit_launch_shape and sweep_launch with
+// item 8: deposit2 above 14,528 nodes, the carried deposit above 9,684,
+// its field in shared memory up to 28,928, the push above 29,056). JAX's
+// fused float64 step keeps float32 accumulators in its Pallas deposits
+// (preferred_element_type); these sum in double, as its composed float64
+// step does. The float instantiations compile to the code they compiled to
+// before T (tools/sass_diff.py). Bound: twice the float kernels' bytes a
+// row (deposit2 24 B, the push 80, the carried sweep 96).
 
 #include "cic_common.cuh"
 
@@ -96,27 +116,27 @@ namespace {
 // vb); at the configs[3] row the adds (four a particle) weigh as much as
 // the bytes. The grid, columns and flush above.
 // ---------------------------------------------------------------------------
-template <bool PERIODIC, int ROWS, bool VEC>
+template <bool PERIODIC, int ROWS, bool VEC, typename T>
 __global__ void __launch_bounds__(1024, 1)
-    deposit2_kernel(const float* __restrict__ p, const float* __restrict__ va,
-                    const float* __restrict__ vb, float* __restrict__ out_a,
-                    float* __restrict__ out_b, long long n, int ng, int cols) {
+    deposit2_kernel(const T* __restrict__ p, const T* __restrict__ va,
+                    const T* __restrict__ vb, T* __restrict__ out_a,
+                    T* __restrict__ out_b, long long n, int ng, int cols) {
   extern __shared__ float4 smem4[];
-  float* h_a = reinterpret_cast<float*>(smem4);
-  float* h_b = h_a + (size_t)ng * cols;
+  T* h_a = reinterpret_cast<T*>(smem4);
+  T* h_b = h_a + (size_t)ng * cols;
   zero_shared(h_a, 2 * ng * cols);
   __syncthreads();
   if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-      const float a = va[i];
-      const float b = vb[i];
-      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));
-      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));
-      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));
-      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));
+      const CicT<T> c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      const T a = va[i];
+      const T b = vb[i];
+      atomicAdd(&h_a[c.l], mul_rn(a, c.wl));
+      atomicAdd(&h_a[c.r], mul_rn(a, c.wr));
+      atomicAdd(&h_b[c.l], mul_rn(b, c.wl));
+      atomicAdd(&h_b[c.r], mul_rn(b, c.wr));
     }
   } else {  // wide: groups of four rows, lane columns
     const int col = threadIdx.x & (cols - 1);
@@ -125,23 +145,24 @@ __global__ void __launch_bounds__(1024, 1)
     const long long end = min(n, 4 * hi);
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
-      const float4 a4 = load4<VEC>(va, i, end, 0.0f);
-      const float4 b4 = load4<VEC>(vb, i, end, 0.0f);
+      const auto p4 = load4<VEC>(p, i, end, (T)0);
+      const auto a4 = load4<VEC>(va, i, end, (T)0);
+      const auto b4 = load4<VEC>(vb, i, end, (T)0);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (i + r >= end) break;
-        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-        const float a = get(a4, r);
-        const float b = get(b4, r);
-        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));
-        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));
-        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));
-        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));
+        const CicT<T> c =
+            PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const T a = get(a4, r);
+        const T b = get(b4, r);
+        atomicAdd(&h_a[c.l * cols + col], mul_rn(a, c.wl));
+        atomicAdd(&h_a[c.r * cols + col], mul_rn(a, c.wr));
+        atomicAdd(&h_b[c.l * cols + col], mul_rn(b, c.wl));
+        atomicAdd(&h_b[c.r * cols + col], mul_rn(b, c.wr));
       }
     }
   }
-  flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);
+  flush_columns<ROWS, 2, false, T>(h_a, ng, cols, out_a, out_b);
 }
 
 // The large mode (deposit_launch_shape's cols 0: above 29,056 nodes, where
@@ -150,22 +171,22 @@ __global__ void __launch_bounds__(1024, 1)
 // (red.global.add.f32) into the zeroed outputs, which a launch touches in
 // L2 (2 x 4 B a node: 32 MiB at 2^22 nodes). The same rows a block and
 // thread as deposit2_kernel's grid.
-template <bool PERIODIC, int ROWS, bool VEC>
+template <bool PERIODIC, int ROWS, bool VEC, typename T>
 __global__ void __launch_bounds__(1024, 1)
-    deposit2_global_kernel(const float* __restrict__ p, const float* __restrict__ va,
-                           const float* __restrict__ vb, float* __restrict__ out_a,
-                           float* __restrict__ out_b, long long n, int ng) {
+    deposit2_global_kernel(const T* __restrict__ p, const T* __restrict__ va,
+                           const T* __restrict__ vb, T* __restrict__ out_a,
+                           T* __restrict__ out_b, long long n, int ng) {
   if (ROWS == 1) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      const Cic c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
-      const float a = va[i];
-      const float b = vb[i];
-      atomicAdd(out_a + c.l, __fmul_rn(a, c.wl));
-      atomicAdd(out_a + c.r, __fmul_rn(a, c.wr));
-      atomicAdd(out_b + c.l, __fmul_rn(b, c.wl));
-      atomicAdd(out_b + c.r, __fmul_rn(b, c.wr));
+      const CicT<T> c = PERIODIC ? cic_periodic(p[i], ng) : cic_bounded(p[i], ng);
+      const T a = va[i];
+      const T b = vb[i];
+      atomicAdd(out_a + c.l, mul_rn(a, c.wl));
+      atomicAdd(out_a + c.r, mul_rn(a, c.wr));
+      atomicAdd(out_b + c.l, mul_rn(b, c.wl));
+      atomicAdd(out_b + c.r, mul_rn(b, c.wr));
     }
   } else {
     long long lo, hi;
@@ -173,19 +194,20 @@ __global__ void __launch_bounds__(1024, 1)
     const long long end = min(n, 4 * hi);
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p, i, end, 0.0f);
-      const float4 a4 = load4<VEC>(va, i, end, 0.0f);
-      const float4 b4 = load4<VEC>(vb, i, end, 0.0f);
+      const auto p4 = load4<VEC>(p, i, end, (T)0);
+      const auto a4 = load4<VEC>(va, i, end, (T)0);
+      const auto b4 = load4<VEC>(vb, i, end, (T)0);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         if (i + r >= end) break;
-        const Cic c = PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
-        const float a = get(a4, r);
-        const float b = get(b4, r);
-        atomicAdd(out_a + c.l, __fmul_rn(a, c.wl));
-        atomicAdd(out_a + c.r, __fmul_rn(a, c.wr));
-        atomicAdd(out_b + c.l, __fmul_rn(b, c.wl));
-        atomicAdd(out_b + c.r, __fmul_rn(b, c.wr));
+        const CicT<T> c =
+            PERIODIC ? cic_periodic(get(p4, r), ng) : cic_bounded(get(p4, r), ng);
+        const T a = get(a4, r);
+        const T b = get(b4, r);
+        atomicAdd(out_a + c.l, mul_rn(a, c.wl));
+        atomicAdd(out_a + c.r, mul_rn(a, c.wr));
+        atomicAdd(out_b + c.l, mul_rn(b, c.wl));
+        atomicAdd(out_b + c.r, mul_rn(b, c.wr));
       }
     }
   }
@@ -194,12 +216,12 @@ __global__ void __launch_bounds__(1024, 1)
 // The gather position: pc = clip(p, 0, ng - 1); with SWAP (the reference's
 // swapped intra-cell weights, pygcpic.py:343-347) the cell-mirrored
 // clip(2 floor(pc) + 1 - pc, 0, ng - 1), in that operation order.
-template <bool SWAP>
-__device__ __forceinline__ float gather_position(float p, float hi) {
-  float pc = fminf(fmaxf(p, 0.0f), hi);
+template <bool SWAP, typename T>
+__device__ __forceinline__ T gather_position(T p, T hi) {
+  T pc = clamp_to(p, (T)0, hi);
   if (SWAP) {
-    pc = __fsub_rn(__fadd_rn(__fmul_rn(2.0f, floorf(pc)), 1.0f), pc);
-    pc = fminf(fmaxf(pc, 0.0f), hi);
+    pc = sub_rn(add_rn(mul_rn((T)2, floor_of(pc)), (T)1), pc);
+    pc = clamp_to(pc, (T)0, hi);
   }
   return pc;
 }
@@ -207,28 +229,26 @@ __device__ __forceinline__ float gather_position(float p, float hi) {
 // The Boris-Buneman velocity update in a constant B (pygcpic.py:460-507)
 // in the TPU kernel's order: the half kick cst ex, the rotation with
 // t = cst b, inv = 2 / (1 + t^2), s = t inv, the second half kick.
-__device__ __forceinline__ void boris_rotate(float ex, float cst, float vx0,
-                                             float vy0, float vz0, float bx,
-                                             float by, float bz, float& vx,
-                                             float& vy, float& vz) {
-  const float kick = __fmul_rn(cst, ex);
-  vx = __fadd_rn(vx0, kick);
-  const float tx = __fmul_rn(cst, bx);
-  const float ty = __fmul_rn(cst, by);
-  const float tz = __fmul_rn(cst, bz);
-  const float t2 = __fadd_rn(__fadd_rn(__fmul_rn(tx, tx), __fmul_rn(ty, ty)),
-                             __fmul_rn(tz, tz));
-  const float inv = __fdiv_rn(2.0f, __fadd_rn(1.0f, t2));
-  const float sx = __fmul_rn(tx, inv);
-  const float sy = __fmul_rn(ty, inv);
-  const float sz = __fmul_rn(tz, inv);
-  const float vfx = __fsub_rn(__fadd_rn(vx, __fmul_rn(vy0, tz)), __fmul_rn(vz0, ty));
-  const float vfy = __fsub_rn(__fadd_rn(vy0, __fmul_rn(vz0, tx)), __fmul_rn(vx, tz));
-  const float vfz = __fsub_rn(__fadd_rn(vz0, __fmul_rn(vx, ty)), __fmul_rn(vy0, tx));
-  vx = __fadd_rn(vx, __fsub_rn(__fmul_rn(vfy, sz), __fmul_rn(vfz, sy)));
-  vy = __fadd_rn(vy0, __fsub_rn(__fmul_rn(vfz, sx), __fmul_rn(vfx, sz)));
-  vz = __fadd_rn(vz0, __fsub_rn(__fmul_rn(vfx, sy), __fmul_rn(vfy, sx)));
-  vx = __fadd_rn(vx, kick);
+template <typename T>
+__device__ __forceinline__ void boris_rotate(T ex, T cst, T vx0, T vy0, T vz0, T bx,
+                                             T by, T bz, T& vx, T& vy, T& vz) {
+  const T kick = mul_rn(cst, ex);
+  vx = add_rn(vx0, kick);
+  const T tx = mul_rn(cst, bx);
+  const T ty = mul_rn(cst, by);
+  const T tz = mul_rn(cst, bz);
+  const T t2 = add_rn(add_rn(mul_rn(tx, tx), mul_rn(ty, ty)), mul_rn(tz, tz));
+  const T inv = quot_rn((T)2, add_rn((T)1, t2));
+  const T sx = mul_rn(tx, inv);
+  const T sy = mul_rn(ty, inv);
+  const T sz = mul_rn(tz, inv);
+  const T vfx = sub_rn(add_rn(vx, mul_rn(vy0, tz)), mul_rn(vz0, ty));
+  const T vfy = sub_rn(add_rn(vy0, mul_rn(vz0, tx)), mul_rn(vx, tz));
+  const T vfz = sub_rn(add_rn(vz0, mul_rn(vx, ty)), mul_rn(vy0, tx));
+  vx = add_rn(vx, sub_rn(mul_rn(vfy, sz), mul_rn(vfz, sy)));
+  vy = add_rn(vy0, sub_rn(mul_rn(vfz, sx), mul_rn(vfx, sz)));
+  vz = add_rn(vz0, sub_rn(mul_rn(vfx, sy), mul_rn(vfy, sx)));
+  vx = add_rn(vx, kick);
 }
 
 // ---------------------------------------------------------------------------
@@ -256,42 +276,37 @@ __device__ __forceinline__ void boris_rotate(float ex, float cst, float vx0,
 // memory through the read-only path. Bound there: the rows' 40 B and the
 // field's 4 B a node read once.
 // ---------------------------------------------------------------------------
-template <bool SWAP, int MODE>
-__global__ void boris_kernel(const float* __restrict__ field,
-                             const float* __restrict__ p_in,
-                             const float* __restrict__ vx_in,
-                             const float* __restrict__ vy_in,
-                             const float* __restrict__ vz_in,
-                             const float* __restrict__ c_in,
-                             const float* __restrict__ act_in,
-                             float* __restrict__ p_out,
-                             float* __restrict__ vx_out,
-                             float* __restrict__ vy_out,
-                             float* __restrict__ vz_out, long long n, int ng,
-                             float bx, float by, float bz, float dt_dx) {
-  extern __shared__ float s_field[];
+template <bool SWAP, int MODE, typename T>
+__global__ void boris_kernel(const T* __restrict__ field, const T* __restrict__ p_in,
+                             const T* __restrict__ vx_in, const T* __restrict__ vy_in,
+                             const T* __restrict__ vz_in, const T* __restrict__ c_in,
+                             const T* __restrict__ act_in, T* __restrict__ p_out,
+                             T* __restrict__ vx_out, T* __restrict__ vy_out,
+                             T* __restrict__ vz_out, long long n, int ng, T bx, T by,
+                             T bz, T dt_dx) {
+  T* s_field = dynamic_smem<T>();
   load_field<MODE>(s_field, field, ng);
   __syncthreads();
-  const float hi = (float)(ng - 1);
+  const T hi = (T)(ng - 1);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float p = p_in[i];
-    const float vx0 = vx_in[i];
-    const float vy0 = vy_in[i];
-    const float vz0 = vz_in[i];
-    if (!(act_in[i] > 0.0f)) {
+    const T p = p_in[i];
+    const T vx0 = vx_in[i];
+    const T vy0 = vy_in[i];
+    const T vz0 = vz_in[i];
+    if (!(act_in[i] > (T)0)) {
       p_out[i] = p;
       vx_out[i] = vx0;
       vy_out[i] = vy0;
       vz_out[i] = vz0;
       continue;
     }
-    const float pc = gather_position<SWAP>(p, hi);
-    float vx, vy, vz;
+    const T pc = gather_position<SWAP>(p, hi);
+    T vx, vy, vz;
     boris_rotate(gather_mode<MODE>(s_field, field, cic_bounded(pc, ng)), c_in[i],
                  vx0, vy0, vz0, bx, by, bz, vx, vy, vz);
-    p_out[i] = __fadd_rn(p, __fmul_rn(vx, dt_dx));
+    p_out[i] = add_rn(p, mul_rn(vx, dt_dx));
     vx_out[i] = vx;
     vy_out[i] = vy;
     vz_out[i] = vz;
@@ -335,37 +350,36 @@ __global__ void boris_kernel(const float* __restrict__ field,
 // keeps its inputs) and the deposit's four adds into h_r (the rho columns,
 // then the n columns), idx[k] -1 where the row adds nothing there; a
 // clamped deposit with wn > 0 counts.
-template <bool SWAP>
+template <bool SWAP, typename T>
 __device__ __forceinline__ void boris_row(
-    const float* s_field, int ng, int cols, int col, float p, float vx0,
-    float vy0, float vz0, float cst, float act, float wr, float wn, float bx,
-    float by, float bz, float dt_dx, int win_stride, int num_k,
-    float inv_stride, int pad, int wp, float& p1, float& vx, float& vy,
-    float& vz, int (&idx)[4], float (&val)[4], int& clamped) {
-  const float hi = (float)(ng - 1);
-  const float pc = gather_position<SWAP>(p, hi);
+    const T* s_field, int ng, int cols, int col, T p, T vx0, T vy0, T vz0, T cst,
+    T act, T wr, T wn, T bx, T by, T bz, T dt_dx, int win_stride, int num_k,
+    T inv_stride, int pad, int wp, T& p1, T& vx, T& vy, T& vz, int (&idx)[4],
+    T (&val)[4], int& clamped) {
+  const T hi = (T)(ng - 1);
+  const T pc = gather_position<SWAP>(p, hi);
   p1 = p;
   vx = vx0;
   vy = vy0;
   vz = vz0;
-  if (act > 0.0f) {
+  if (act > (T)0) {
     boris_rotate(gather(s_field, cic_bounded(pc, ng)), cst, vx0, vy0, vz0, bx,
                  by, bz, vx, vy, vz);
-    p1 = __fadd_rn(p, __fmul_rn(vx, dt_dx));
+    p1 = add_rn(p, mul_rn(vx, dt_dx));
   }
   idx[0] = idx[1] = idx[2] = idx[3] = -1;
-  if (!(p1 >= 0.0f && p1 <= hi) || (wr == 0.0f && wn == 0.0f)) return;
-  const float top = (float)(wp - 1);
-  const int k = min(max((int)__fmul_rn(floorf(pc), inv_stride), 0), num_k - 1);
-  const float d_s = __fsub_rn(pc, (float)(k * win_stride));
-  float d_h = __fadd_rn(__fadd_rn(d_s, __fsub_rn(p1, pc)), (float)pad);
-  if (d_h < 0.0f || d_h > top) {
-    if (wn > 0.0f) ++clamped;
-    d_h = fminf(fmaxf(d_h, 0.0f), top);
+  if (!(p1 >= (T)0 && p1 <= hi) || (wr == (T)0 && wn == (T)0)) return;
+  const T top = (T)(wp - 1);
+  const int k = min(max((int)mul_rn(floor_of(pc), inv_stride), 0), num_k - 1);
+  const T d_s = sub_rn(pc, (T)(k * win_stride));
+  T d_h = add_rn(add_rn(d_s, sub_rn(p1, pc)), (T)pad);
+  if (d_h < (T)0 || d_h > top) {
+    if (wn > (T)0) ++clamped;
+    d_h = clamp_to(d_h, (T)0, top);
   }
-  const float row = floorf(d_h);
-  const float fr = __fsub_rn(d_h, row);
-  const float fl = __fsub_rn(1.0f, fr);
+  const T row = floor_of(d_h);
+  const T fr = sub_rn(d_h, row);
+  const T fl = sub_rn((T)1, fr);
   const int l = win_stride * k - pad + (int)row;
   if (l >= 0 && l < ng) {
     idx[0] = l * cols + col;
@@ -375,27 +389,26 @@ __device__ __forceinline__ void boris_row(
     idx[2] = (l + 1) * cols + col;
     idx[3] = (ng + l + 1) * cols + col;
   }
-  val[0] = __fmul_rn(wr, fl);
-  val[1] = __fmul_rn(wn, fl);
-  val[2] = __fmul_rn(wr, fr);
-  val[3] = __fmul_rn(wn, fr);
+  val[0] = mul_rn(wr, fl);
+  val[1] = mul_rn(wn, fl);
+  val[2] = mul_rn(wr, fr);
+  val[3] = mul_rn(wn, fr);
 }
 
-template <bool SWAP, int ROWS, bool VEC>
+template <bool SWAP, int ROWS, bool VEC, typename T>
 __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
-    const float* __restrict__ field, const float* __restrict__ p_in,
-    const float* __restrict__ vx_in, const float* __restrict__ vy_in,
-    const float* __restrict__ vz_in, const float* __restrict__ c_in,
-    const float* __restrict__ act_in, const float* __restrict__ wr_in,
-    const float* __restrict__ wn_in, float* __restrict__ p_out,
-    float* __restrict__ vx_out, float* __restrict__ vy_out,
-    float* __restrict__ vz_out, float* __restrict__ rho,
-    float* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng,
-    int cols, float bx, float by, float bz, float dt_dx, int win_stride,
-    int num_k, float inv_stride, int pad, int wp) {
+    const T* __restrict__ field, const T* __restrict__ p_in,
+    const T* __restrict__ vx_in, const T* __restrict__ vy_in,
+    const T* __restrict__ vz_in, const T* __restrict__ c_in,
+    const T* __restrict__ act_in, const T* __restrict__ wr_in,
+    const T* __restrict__ wn_in, T* __restrict__ p_out, T* __restrict__ vx_out,
+    T* __restrict__ vy_out, T* __restrict__ vz_out, T* __restrict__ rho,
+    T* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng, int cols,
+    T bx, T by, T bz, T dt_dx, int win_stride, int num_k, T inv_stride, int pad,
+    int wp) {
   extern __shared__ float4 smem4[];
-  float* h_r = reinterpret_cast<float*>(smem4);  // then the n columns
-  float* s_field = h_r + (size_t)2 * ng * cols;
+  T* h_r = reinterpret_cast<T*>(smem4);  // then the n columns
+  T* s_field = h_r + (size_t)2 * ng * cols;
   __shared__ int s_clamped;
   zero_shared(h_r, 2 * ng * cols);
   for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
@@ -403,12 +416,12 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
   __syncthreads();
   int clamped = 0;
   int idx[4];
-  float val[4];
+  T val[4];
   if (ROWS == 1) {  // narrow: a row a thread, grid-stride, one column
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      float p1, vx, vy, vz;
+      T p1, vx, vy, vz;
       boris_row<SWAP>(s_field, ng, 1, 0, p_in[i], vx_in[i], vy_in[i], vz_in[i],
                       c_in[i], act_in[i], wr_in[i], wn_in[i], bx, by, bz, dt_dx,
                       win_stride, num_k, inv_stride, pad, wp, p1, vx, vy, vz, idx,
@@ -429,15 +442,15 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       // rows at or past `end` read as inactive with weight 0 and are not written
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p_in, i, end, 0.0f);
-      const float4 vx4 = load4<VEC>(vx_in, i, end, 0.0f);
-      const float4 vy4 = load4<VEC>(vy_in, i, end, 0.0f);
-      const float4 vz4 = load4<VEC>(vz_in, i, end, 0.0f);
-      const float4 c4 = load4<VEC>(c_in, i, end, 0.0f);
-      const float4 act4 = load4<VEC>(act_in, i, end, 0.0f);
-      const float4 wr4 = load4<VEC>(wr_in, i, end, 0.0f);
-      const float4 wn4 = load4<VEC>(wn_in, i, end, 0.0f);
-      float4 p14, vx14, vy14, vz14;
+      const auto p4 = load4<VEC>(p_in, i, end, (T)0);
+      const auto vx4 = load4<VEC>(vx_in, i, end, (T)0);
+      const auto vy4 = load4<VEC>(vy_in, i, end, (T)0);
+      const auto vz4 = load4<VEC>(vz_in, i, end, (T)0);
+      const auto c4 = load4<VEC>(c_in, i, end, (T)0);
+      const auto act4 = load4<VEC>(act_in, i, end, (T)0);
+      const auto wr4 = load4<VEC>(wr_in, i, end, (T)0);
+      const auto wn4 = load4<VEC>(wn_in, i, end, (T)0);
+      typename Vec4<T>::type p14, vx14, vy14, vz14;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         boris_row<SWAP>(s_field, ng, cols, col, get(p4, r), get(vx4, r), get(vy4, r),
@@ -457,7 +470,7 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
   }
   clamped = __reduce_add_sync(0xffffffffu, clamped);
   if ((threadIdx.x & 31) == 0 && clamped) atomicAdd(&s_clamped, clamped);
-  flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);
+  flush_columns<ROWS, 2, false, T>(h_r, ng, cols, rho, dens);
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
@@ -467,23 +480,21 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_kernel(
 // indices with one column: node l of rho at l, of dens at ng + l); the
 // field sits in shared memory up to kFieldSmemMaxNg nodes (SMEM_FIELD) and
 // is read from device memory above. The clamps are counted as above.
-template <bool SWAP, int ROWS, bool VEC, bool SMEM_FIELD>
+template <bool SWAP, int ROWS, bool VEC, bool SMEM_FIELD, typename T>
 __global__ void __launch_bounds__(1024, 1) boris_deposit_global_kernel(
-    const float* __restrict__ field, const float* __restrict__ p_in,
-    const float* __restrict__ vx_in, const float* __restrict__ vy_in,
-    const float* __restrict__ vz_in, const float* __restrict__ c_in,
-    const float* __restrict__ act_in, const float* __restrict__ wr_in,
-    const float* __restrict__ wn_in, float* __restrict__ p_out,
-    float* __restrict__ vx_out, float* __restrict__ vy_out,
-    float* __restrict__ vz_out, float* __restrict__ rho,
-    float* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng,
-    float bx, float by, float bz, float dt_dx, int win_stride, int num_k,
-    float inv_stride, int pad, int wp) {
+    const T* __restrict__ field, const T* __restrict__ p_in,
+    const T* __restrict__ vx_in, const T* __restrict__ vy_in,
+    const T* __restrict__ vz_in, const T* __restrict__ c_in,
+    const T* __restrict__ act_in, const T* __restrict__ wr_in,
+    const T* __restrict__ wn_in, T* __restrict__ p_out, T* __restrict__ vx_out,
+    T* __restrict__ vy_out, T* __restrict__ vz_out, T* __restrict__ rho,
+    T* __restrict__ dens, int* __restrict__ n_clamped, long long n, int ng, T bx,
+    T by, T bz, T dt_dx, int win_stride, int num_k, T inv_stride, int pad, int wp) {
   extern __shared__ float4 smem4[];
   __shared__ int s_clamped;
-  const float* f = field;
+  const T* f = field;
   if (SMEM_FIELD) {
-    float* s_field = reinterpret_cast<float*>(smem4);
+    T* s_field = reinterpret_cast<T*>(smem4);
     for (int i = threadIdx.x; i < ng; i += blockDim.x) s_field[i] = field[i];
     f = s_field;
   }
@@ -491,12 +502,12 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_global_kernel(
   __syncthreads();
   int clamped = 0;
   int idx[4];
-  float val[4];
+  T val[4];
   if (ROWS == 1) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
-      float p1, vx, vy, vz;
+      T p1, vx, vy, vz;
       boris_row<SWAP>(f, ng, 1, 0, p_in[i], vx_in[i], vy_in[i], vz_in[i],
                       c_in[i], act_in[i], wr_in[i], wn_in[i], bx, by, bz, dt_dx,
                       win_stride, num_k, inv_stride, pad, wp, p1, vx, vy, vz, idx,
@@ -515,15 +526,15 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_global_kernel(
     const long long end = min(n, 4 * hi);
     for (long long g = lo + threadIdx.x; g < hi; g += blockDim.x) {
       const long long i = 4 * g;
-      const float4 p4 = load4<VEC>(p_in, i, end, 0.0f);
-      const float4 vx4 = load4<VEC>(vx_in, i, end, 0.0f);
-      const float4 vy4 = load4<VEC>(vy_in, i, end, 0.0f);
-      const float4 vz4 = load4<VEC>(vz_in, i, end, 0.0f);
-      const float4 c4 = load4<VEC>(c_in, i, end, 0.0f);
-      const float4 act4 = load4<VEC>(act_in, i, end, 0.0f);
-      const float4 wr4 = load4<VEC>(wr_in, i, end, 0.0f);
-      const float4 wn4 = load4<VEC>(wn_in, i, end, 0.0f);
-      float4 p14, vx14, vy14, vz14;
+      const auto p4 = load4<VEC>(p_in, i, end, (T)0);
+      const auto vx4 = load4<VEC>(vx_in, i, end, (T)0);
+      const auto vy4 = load4<VEC>(vy_in, i, end, (T)0);
+      const auto vz4 = load4<VEC>(vz_in, i, end, (T)0);
+      const auto c4 = load4<VEC>(c_in, i, end, (T)0);
+      const auto act4 = load4<VEC>(act_in, i, end, (T)0);
+      const auto wr4 = load4<VEC>(wr_in, i, end, (T)0);
+      const auto wn4 = load4<VEC>(wn_in, i, end, (T)0);
+      typename Vec4<T>::type p14, vx14, vy14, vz14;
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         boris_row<SWAP>(f, ng, 1, 0, get(p4, r), get(vx4, r), get(vy4, r),
@@ -548,26 +559,22 @@ __global__ void __launch_bounds__(1024, 1) boris_deposit_global_kernel(
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
-}  // namespace
-
-extern "C" {
-
-// out_a, out_b: ng zeroed floats each; rows, blocks, threads and cols from
-// ops/cuda_cic.py deposit_launch_shape (cols 0: the large mode).
-int pypic_deposit2(const float* p, const float* va, const float* vb,
-                   float* out_a, float* out_b, long long n, int ng, int periodic,
-                   int rows, int blocks, int threads, int cols, void* stream) {
+// The launches of the three kernels of T (the float and double entry
+// points).
+template <typename T>
+cudaError_t launch_deposit2(const T* p, const T* va, const T* vb, T* out_a, T* out_b,
+                            long long n, int ng, int periodic, int rows, int blocks,
+                            int threads, int cols, cudaStream_t s) {
   if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)ng * cols * sizeof(float);
+    return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)ng * cols * sizeof(T);
   const bool vec = aligned16(p) && aligned16(va) && aligned16(vb);
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (cols == 0) {  // the large mode
 #define PYPIC_DEPOSIT2_GLOBAL(PER, ROWS, VEC)                                   \
-  deposit2_global_kernel<PER, ROWS, VEC><<<blocks, threads, 0, s>>>(            \
+  deposit2_global_kernel<PER, ROWS, VEC, T><<<blocks, threads, 0, s>>>(         \
       p, va, vb, out_a, out_b, n, ng);                                          \
-  return (int)cudaGetLastError()
+  return cudaGetLastError()
     if (periodic) {
       if (rows == 1) { PYPIC_DEPOSIT2_GLOBAL(true, 1, false); }
       if (vec) { PYPIC_DEPOSIT2_GLOBAL(true, 4, true); }
@@ -579,11 +586,11 @@ int pypic_deposit2(const float* p, const float* va, const float* vb,
 #undef PYPIC_DEPOSIT2_GLOBAL
   }
 #define PYPIC_DEPOSIT2(PER, ROWS, VEC)                                          \
-  err = allow_smem(deposit2_kernel<PER, ROWS, VEC>, smem);                      \
-  if (err != cudaSuccess) return (int)err;                                      \
-  deposit2_kernel<PER, ROWS, VEC><<<blocks, threads, smem, s>>>(                \
+  err = allow_smem(deposit2_kernel<PER, ROWS, VEC, T>, smem);                   \
+  if (err != cudaSuccess) return err;                                           \
+  deposit2_kernel<PER, ROWS, VEC, T><<<blocks, threads, smem, s>>>(             \
       p, va, vb, out_a, out_b, n, ng, cols);                                    \
-  return (int)cudaGetLastError()
+  return cudaGetLastError()
   if (periodic) {
     if (rows == 1) { PYPIC_DEPOSIT2(true, 1, false); }
     if (vec) { PYPIC_DEPOSIT2(true, 4, true); }
@@ -595,66 +602,58 @@ int pypic_deposit2(const float* p, const float* va, const float* vb,
 #undef PYPIC_DEPOSIT2
 }
 
-// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global).
-int pypic_boris_gather_push(const float* field, const float* p,
-                            const float* vx, const float* vy, const float* vz,
-                            const float* c, const float* act, float* p1,
-                            float* vx1, float* vy1, float* vz1, long long n,
-                            int ng, float bx, float by, float bz, float dt_dx,
-                            int swap, int mode, int blocks, int threads,
-                            void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)with_mode(mode, [&](auto m) {
+template <typename T>
+cudaError_t launch_boris(const T* field, const T* p, const T* vx, const T* vy,
+                         const T* vz, const T* c, const T* act, T* p1, T* vx1, T* vy1,
+                         T* vz1, long long n, int ng, T bx, T by, T bz, T dt_dx, int swap,
+                         int mode, int blocks, int threads, cudaStream_t s) {
+  return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
-    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(float);
+    const size_t smem = mode_floats(MODE, 1, ng) * sizeof(T);
     cudaError_t err;
     if (swap) {
-      err = allow_smem(boris_kernel<true, MODE>, smem);
+      err = allow_smem(boris_kernel<true, MODE, T>, smem);
       if (err != cudaSuccess) return err;
-      boris_kernel<true, MODE><<<blocks, threads, smem, s>>>(
+      boris_kernel<true, MODE, T><<<blocks, threads, smem, s>>>(
           field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
     } else {
-      err = allow_smem(boris_kernel<false, MODE>, smem);
+      err = allow_smem(boris_kernel<false, MODE, T>, smem);
       if (err != cudaSuccess) return err;
-      boris_kernel<false, MODE><<<blocks, threads, smem, s>>>(
+      boris_kernel<false, MODE, T><<<blocks, threads, smem, s>>>(
           field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by, bz, dt_dx);
     }
     return cudaGetLastError();
   });
 }
 
-
-// rho, dens: ng zeroed floats each; n_clamped: one zeroed int; rows,
-// blocks, threads and cols as pypic_deposit2's.
-int pypic_boris_gather_push_deposit(
-    const float* field, const float* p, const float* vx, const float* vy,
-    const float* vz, const float* c, const float* act, const float* wr,
-    const float* wn, float* p1, float* vx1, float* vy1, float* vz1, float* rho,
-    float* dens, int* n_clamped, long long n, int ng, float bx, float by,
-    float bz, float dt_dx, int swap, int win_stride, int num_k,
-    float inv_stride, int pad, int rows, int blocks, int threads, int cols,
-    void* stream) {
+template <typename T>
+cudaError_t launch_boris_deposit(const T* field, const T* p, const T* vx, const T* vy,
+                                 const T* vz, const T* c, const T* act, const T* wr,
+                                 const T* wn, T* p1, T* vx1, T* vy1, T* vz1, T* rho,
+                                 T* dens, int* n_clamped, long long n, int ng, T bx, T by,
+                                 T bz, T dt_dx, int swap, int win_stride, int num_k,
+                                 T inv_stride, int pad, int rows, int blocks, int threads,
+                                 int cols, cudaStream_t s) {
   if (!deposit_shape_ok(n, ng, rows, blocks, threads, cols, true))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)cols + 1) * ng * sizeof(float);
+    return cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)cols + 1) * ng * sizeof(T);
   const int wp = win_stride + 2 + 2 * pad;  // width = stride + 2
   const bool vec = aligned16(p) && aligned16(vx) && aligned16(vy) &&
                    aligned16(vz) && aligned16(c) && aligned16(act) &&
                    aligned16(wr) && aligned16(wn) && aligned16(p1) &&
                    aligned16(vx1) && aligned16(vy1) && aligned16(vz1);
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (cols == 0) {  // the large mode: the field alone in shared memory, or none
-    const bool smem_field = ng <= kFieldSmemMaxNg;
-    const size_t fsmem = smem_field ? (size_t)ng * sizeof(float) : 0;
+    const bool smem_field = ng <= field_smem_max_ng<T>();
+    const size_t fsmem = smem_field ? (size_t)ng * sizeof(T) : 0;
 #define PYPIC_BORIS_GLOBAL(SW, ROWS, VEC, SF)                                   \
-  err = allow_smem(boris_deposit_global_kernel<SW, ROWS, VEC, SF>, fsmem);      \
-  if (err != cudaSuccess) return (int)err;                                      \
-  boris_deposit_global_kernel<SW, ROWS, VEC, SF><<<blocks, threads, fsmem, s>>>( \
+  err = allow_smem(boris_deposit_global_kernel<SW, ROWS, VEC, SF, T>, fsmem);   \
+  if (err != cudaSuccess) return err;                                           \
+  boris_deposit_global_kernel<SW, ROWS, VEC, SF, T><<<blocks, threads, fsmem, s>>>( \
       field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1, rho, dens,       \
       n_clamped, n, ng, bx, by, bz, dt_dx, win_stride, num_k, inv_stride, pad,  \
       wp);                                                                      \
-  return (int)cudaGetLastError()
+  return cudaGetLastError()
 #define PYPIC_BORIS_GLOBAL_ROWS(SW, SF)                                         \
   if (rows == 1) { PYPIC_BORIS_GLOBAL(SW, 1, false, SF); }                      \
   if (vec) { PYPIC_BORIS_GLOBAL(SW, 4, true, SF); }                             \
@@ -669,13 +668,13 @@ int pypic_boris_gather_push_deposit(
 #undef PYPIC_BORIS_GLOBAL
   }
 #define PYPIC_BORIS_DEP(SW, ROWS, VEC)                                          \
-  err = allow_smem(boris_deposit_kernel<SW, ROWS, VEC>, smem);                  \
-  if (err != cudaSuccess) return (int)err;                                      \
-  boris_deposit_kernel<SW, ROWS, VEC><<<blocks, threads, smem, s>>>(            \
+  err = allow_smem(boris_deposit_kernel<SW, ROWS, VEC, T>, smem);               \
+  if (err != cudaSuccess) return err;                                           \
+  boris_deposit_kernel<SW, ROWS, VEC, T><<<blocks, threads, smem, s>>>(         \
       field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1, rho, dens,       \
       n_clamped, n, ng, cols, bx, by, bz, dt_dx, win_stride, num_k, inv_stride, \
       pad, wp);                                                                 \
-  return (int)cudaGetLastError()
+  return cudaGetLastError()
   if (swap) {
     if (rows == 1) { PYPIC_BORIS_DEP(true, 1, false); }
     if (vec) { PYPIC_BORIS_DEP(true, 4, true); }
@@ -685,6 +684,82 @@ int pypic_boris_gather_push_deposit(
   if (vec) { PYPIC_BORIS_DEP(false, 4, true); }
   PYPIC_BORIS_DEP(false, 4, false);
 #undef PYPIC_BORIS_DEP
+}
+
+}  // namespace
+
+extern "C" {
+
+// out_a, out_b: ng zeroed floats each; rows, blocks, threads and cols from
+// ops/cuda_cic.py deposit_launch_shape (cols 0: the large mode).
+int pypic_deposit2(const float* p, const float* va, const float* vb,
+                   float* out_a, float* out_b, long long n, int ng, int periodic,
+                   int rows, int blocks, int threads, int cols, void* stream) {
+  return (int)launch_deposit2(p, va, vb, out_a, out_b, n, ng, periodic, rows, blocks,
+                              threads, cols, (cudaStream_t)stream);
+}
+
+// The double deposit (a float64 state): out_a, out_b ng zeroed doubles;
+// the shape from deposit_launch_shape(..., item=8).
+int pypic_deposit2_f64(const double* p, const double* va, const double* vb,
+                       double* out_a, double* out_b, long long n, int ng, int periodic,
+                       int rows, int blocks, int threads, int cols, void* stream) {
+  return (int)launch_deposit2(p, va, vb, out_a, out_b, n, ng, periodic, rows, blocks,
+                              threads, cols, (cudaStream_t)stream);
+}
+
+// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global).
+int pypic_boris_gather_push(const float* field, const float* p,
+                            const float* vx, const float* vy, const float* vz,
+                            const float* c, const float* act, float* p1,
+                            float* vx1, float* vy1, float* vz1, long long n,
+                            int ng, float bx, float by, float bz, float dt_dx,
+                            int swap, int mode, int blocks, int threads,
+                            void* stream) {
+  return (int)launch_boris(field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by,
+                           bz, dt_dx, swap, mode, blocks, threads, (cudaStream_t)stream);
+}
+
+// Every pointer to doubles, every scalar a double.
+int pypic_boris_gather_push_f64(const double* field, const double* p, const double* vx,
+                                const double* vy, const double* vz, const double* c,
+                                const double* act, double* p1, double* vx1, double* vy1,
+                                double* vz1, long long n, int ng, double bx, double by,
+                                double bz, double dt_dx, int swap, int mode, int blocks,
+                                int threads, void* stream) {
+  return (int)launch_boris(field, p, vx, vy, vz, c, act, p1, vx1, vy1, vz1, n, ng, bx, by,
+                           bz, dt_dx, swap, mode, blocks, threads, (cudaStream_t)stream);
+}
+
+// rho, dens: ng zeroed floats each; n_clamped: one zeroed int; rows,
+// blocks, threads and cols as pypic_deposit2's.
+int pypic_boris_gather_push_deposit(
+    const float* field, const float* p, const float* vx, const float* vy,
+    const float* vz, const float* c, const float* act, const float* wr,
+    const float* wn, float* p1, float* vx1, float* vy1, float* vz1, float* rho,
+    float* dens, int* n_clamped, long long n, int ng, float bx, float by,
+    float bz, float dt_dx, int swap, int win_stride, int num_k,
+    float inv_stride, int pad, int rows, int blocks, int threads, int cols,
+    void* stream) {
+  return (int)launch_boris_deposit(field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1,
+                                   rho, dens, n_clamped, n, ng, bx, by, bz, dt_dx, swap,
+                                   win_stride, num_k, inv_stride, pad, rows, blocks,
+                                   threads, cols, (cudaStream_t)stream);
+}
+
+// rho, dens: ng zeroed doubles each; the shape from
+// deposit_launch_shape(..., field=True, item=8); inv_stride a double.
+int pypic_boris_gather_push_deposit_f64(
+    const double* field, const double* p, const double* vx, const double* vy,
+    const double* vz, const double* c, const double* act, const double* wr,
+    const double* wn, double* p1, double* vx1, double* vy1, double* vz1, double* rho,
+    double* dens, int* n_clamped, long long n, int ng, double bx, double by, double bz,
+    double dt_dx, int swap, int win_stride, int num_k, double inv_stride, int pad,
+    int rows, int blocks, int threads, int cols, void* stream) {
+  return (int)launch_boris_deposit(field, p, vx, vy, vz, c, act, wr, wn, p1, vx1, vy1, vz1,
+                                   rho, dens, n_clamped, n, ng, bx, by, bz, dt_dx, swap,
+                                   win_stride, num_k, inv_stride, pad, rows, blocks,
+                                   threads, cols, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -139,26 +139,99 @@
 //   through L2 at one SM's rate.
 // * Ceiling: cuda_newton.LARGE_MAX_ROWS (2^27 rows), where the int
 //   offsets into the (4 + R, rows) scratch would near 2^31.
+//
+// The double forms (a float64 state, as the JAX package runs the solve
+// under x64): every kernel but the chain's takes the element type T last,
+// and the `_f64` entry points launch its double instantiations. A double
+// kernel computes what JAX's float64 path computes (XLA's on-device
+// while_loop of ops.poisson): each operation rounded once in double
+// (mul_rn, add_rn, sub_rn, quot_rn: __dmul_rn ... __ddiv_rn; exp, fmin,
+// fmax, __dsqrt_rn), the scalars the wrapper's float64 values
+// (cuda_newton.newton_scalars in the state's dtype, not float32), the
+// residual the same fixed-order double sum, never rounded to float32, and
+// the min shift's sentinel DBL_MAX. Only the solve differs from JAX's
+// Thomas sweep: the PCR and partition solves above, so phi agrees to the
+// float64 rounding of a tridiagonal solve. The PCR buffers hold a row as
+// two 16-B halves of doubles (a, b, c, f) and the second right-hand side
+// as a double: 40 B a row where the float kernels take 20, so the small
+// path's one CTA holds 1,024 rows in 172,032 B (the D-N kernel's; D-D
+// 139,264), and the large path's CTA is held to LARGE_F64_THREADS = 512
+// threads (2 x 512 PCR rows: 172,032 B), k = ceil(rows / 512) rows a
+// thread (cuda_newton.large_split with item 8). __launch_bounds__(1024)
+// caps the double kernels at 64 registers a thread, so a double CTA of
+// 1,024 rows launches. The float instantiations compile to the code the
+// float kernels compiled to (tools/sass_diff.py). Bound: the float
+// kernels' latency chain, each stage's shared-memory traffic doubled and
+// each division a double one (no hardware double divide: a Newton
+// sequence of some ten FMAs).
 
 #include "cic_common.cuh"
 
 namespace {
 
 constexpr int kMaxRows = 1024;
+// the large path's threads at most for the double kernels (their PCR rows
+// take twice the bytes; cuda_newton.LARGE_F64_THREADS)
+constexpr int kMaxLargeThreadsF64 = 512;
+
+// Four doubles of a PCR row (a, b, c, f) as two 16-B halves.
+struct __align__(16) Double4Row {
+  double x, y, z, w;
+};
+
+// The PCR buffers' element types: a row's (a, b, c, f) and the third
+// right-hand side's pair.
+template <typename T>
+struct Pcr;
+template <>
+struct Pcr<float> {
+  using V4 = float4;
+  using V2 = float2;
+};
+template <>
+struct Pcr<double> {
+  using V4 = Double4Row;
+  using V2 = double2;
+};
+
+__device__ __forceinline__ float4 make4(float a, float b, float c, float d) {
+  return make_float4(a, b, c, d);
+}
+__device__ __forceinline__ Double4Row make4(double a, double b, double c, double d) {
+  return Double4Row{a, b, c, d};
+}
+__device__ __forceinline__ float2 make2(float a, float b) { return make_float2(a, b); }
+__device__ __forceinline__ double2 make2(double a, double b) { return make_double2(a, b); }
+// The square root correctly rounded, the exponential (libdevice, not
+// fast-math), the minimum, and the largest finite value
+__device__ __forceinline__ float sqrt_rn(float x) { return __fsqrt_rn(x); }
+__device__ __forceinline__ double sqrt_rn(double x) { return __dsqrt_rn(x); }
+__device__ __forceinline__ float exp_of(float x) { return expf(x); }
+__device__ __forceinline__ double exp_of(double x) { return exp(x); }
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
+template <typename T>
+__device__ __forceinline__ T largest() {
+  if constexpr (sizeof(T) == 8)
+    return 1.7976931348623157e308;
+  else
+    return 3.402823466e38f;
+}
 
 // A row of the PCR system with R right-hand sides.
-template <int R>
+template <int R, typename T>
 struct Row {
-  float a, b, c, f[R];
+  T a, b, c, f[R];
 };
 
 // The PCR stage buffers in shared memory: two of `stride` = rows + 2 halo
 // entries each; row j at j + halo. q holds (a, b, c, f[0]), g f[1] (R = 2),
 // g2 (f[1], f[2]) (R = 3).
+template <typename T>
 struct PcrBuf {
-  float4* q;
-  float* g;
-  float2* g2;
+  typename Pcr<T>::V4* q;
+  T* g;
+  typename Pcr<T>::V2* g2;
   int stride, halo;
 };
 
@@ -170,68 +243,68 @@ __host__ __device__ __forceinline__ int pcr_halo(int rows) {
   return h;
 }
 
-template <int R>
-__device__ __forceinline__ Row<R> load_row(const PcrBuf& buf, int k, int j) {
-  const float4 v = buf.q[k * buf.stride + buf.halo + j];
-  Row<R> r;
+template <int R, typename T>
+__device__ __forceinline__ Row<R, T> load_row(const PcrBuf<T>& buf, int k, int j) {
+  const auto v = buf.q[k * buf.stride + buf.halo + j];
+  Row<R, T> r;
   r.a = v.x;
   r.b = v.y;
   r.c = v.z;
   r.f[0] = v.w;
   if constexpr (R == 2) r.f[1] = buf.g[k * buf.stride + buf.halo + j];
   if constexpr (R == 3) {
-    const float2 w = buf.g2[k * buf.stride + buf.halo + j];
+    const auto w = buf.g2[k * buf.stride + buf.halo + j];
     r.f[1] = w.x;
     r.f[2] = w.y;
   }
   return r;
 }
 
-template <int R>
-__device__ __forceinline__ void store_row(const PcrBuf& buf, int k, int j,
-                                          const Row<R>& r) {
-  buf.q[k * buf.stride + buf.halo + j] = make_float4(r.a, r.b, r.c, r.f[0]);
+template <int R, typename T>
+__device__ __forceinline__ void store_row(const PcrBuf<T>& buf, int k, int j,
+                                          const Row<R, T>& r) {
+  buf.q[k * buf.stride + buf.halo + j] = make4(r.a, r.b, r.c, r.f[0]);
   if constexpr (R == 2) buf.g[k * buf.stride + buf.halo + j] = r.f[1];
   if constexpr (R == 3)
-    buf.g2[k * buf.stride + buf.halo + j] = make_float2(r.f[1], r.f[2]);
+    buf.g2[k * buf.stride + buf.halo + j] = make2(r.f[1], r.f[2]);
 }
 
 // Both buffers' rims to the identity row. Every thread calls it; a barrier
 // must follow before the first stage.
-template <int R>
-__device__ void init_rims(const PcrBuf& buf, int rows) {
+template <int R, typename T>
+__device__ void init_rims(const PcrBuf<T>& buf, int rows) {
   for (int e = threadIdx.x; e < 4 * buf.halo; e += blockDim.x) {
     const int k = e / (2 * buf.halo), j = e % (2 * buf.halo);
     const int at = k * buf.stride + (j < buf.halo ? j : rows + j);
-    buf.q[at] = make_float4(0.0f, 1.0f, 0.0f, 0.0f);
-    if constexpr (R == 2) buf.g[at] = 0.0f;
-    if constexpr (R == 3) buf.g2[at] = make_float2(0.0f, 0.0f);
+    buf.q[at] = make4((T)0, (T)1, (T)0, (T)0);
+    if constexpr (R == 2) buf.g[at] = (T)0;
+    if constexpr (R == 3) buf.g2[at] = make2((T)0, (T)0);
   }
 }
 
 // x / y, correctly rounded. A zero x gives the same signed zero as a
 // product: the division's fast path does not take a zero dividend, and
 // the couplings of the last stages are mostly zeros.
-__device__ __forceinline__ float div_rn(float x, float y) {
-  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);
-  return x == 0.0f ? __fmul_rn(x, y) : q;
+template <typename T>
+__device__ __forceinline__ T div_rn(T x, T y) {
+  const T q = quot_rn(x == (T)0 ? (T)1 : x, y);
+  return x == (T)0 ? mul_rn(x, y) : q;
 }
 
 // One PCR stage of row x against its partners m = row i - s and p = row
 // i + s of the previous stage, in the TPU kernel's operation order.
-template <int R>
-__device__ __forceinline__ void pcr_stage(Row<R>& x, const Row<R>& m,
-                                          const Row<R>& p) {
-  const float alpha = div_rn(-x.a, m.b);
-  const float gamma = div_rn(-x.c, p.b);
-  x.b = __fadd_rn(__fadd_rn(x.b, __fmul_rn(alpha, m.c)), __fmul_rn(gamma, p.a));
+template <int R, typename T>
+__device__ __forceinline__ void pcr_stage(Row<R, T>& x, const Row<R, T>& m,
+                                          const Row<R, T>& p) {
+  const T alpha = div_rn(-x.a, m.b);
+  const T gamma = div_rn(-x.c, p.b);
+  x.b = add_rn(add_rn(x.b, mul_rn(alpha, m.c)), mul_rn(gamma, p.a));
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    x.f[r] = __fadd_rn(__fadd_rn(x.f[r], __fmul_rn(alpha, m.f[r])),
-                       __fmul_rn(gamma, p.f[r]));
+    x.f[r] = add_rn(add_rn(x.f[r], mul_rn(alpha, m.f[r])), mul_rn(gamma, p.f[r]));
   }
-  x.a = __fmul_rn(alpha, m.a);
-  x.c = __fmul_rn(gamma, p.c);
+  x.a = mul_rn(alpha, m.a);
+  x.c = mul_rn(gamma, p.c);
 }
 
 // Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} = f_i,
@@ -240,19 +313,19 @@ __device__ __forceinline__ void pcr_stage(Row<R>& x, const Row<R>& m,
 // x.f[r] is the r-th solution at row i, and the returned buffer holds
 // every row's final (a, b, c, f) (a = c = 0), readable by every thread
 // until the next call's first barrier. Every thread of the block calls it.
-template <int R>
-__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows) {
+template <int R, typename T>
+__device__ int pcr_solve(Row<R, T>& x, const PcrBuf<T>& buf, int i, int rows) {
   int k = 0;
   for (int s = 1;; s <<= 1, k ^= 1) {
     store_row(buf, k, i, x);
-    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);
+    const bool coupled = __syncthreads_or(x.a != (T)0 || x.c != (T)0);
     if (!coupled || s >= rows) break;
-    const Row<R> m = load_row<R>(buf, k, i - s);
-    const Row<R> p = load_row<R>(buf, k, i + s);
+    const Row<R, T> m = load_row<R>(buf, k, i - s);
+    const Row<R, T> p = load_row<R>(buf, k, i + s);
     pcr_stage(x, m, p);
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) x.f[r] = __fdiv_rn(x.f[r], x.b);
+  for (int r = 0; r < R; ++r) x.f[r] = quot_rn(x.f[r], x.b);
   return k;
 }
 
@@ -275,106 +348,100 @@ __device__ __forceinline__ double block_total(const double* red) {
 }
 
 // Block-wide minimum over one barrier; every thread gets it. `red` holds
-// 32 floats that nothing else uses in the launch.
-__device__ float block_min(float x, float* red) {
+// 32 elements that nothing else uses in the launch.
+template <typename T>
+__device__ T block_min(T x, T* red) {
   const int lane = threadIdx.x & 31;
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_down_sync(0xffffffffu, x, o));
+  for (int o = 16; o > 0; o >>= 1) x = min_of(x, __shfl_down_sync(0xffffffffu, x, o));
   if (lane == 0) red[threadIdx.x >> 5] = x;
   __syncthreads();
-  x = lane < (int)(blockDim.x >> 5) ? red[lane] : 3.402823466e38f;
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_down_sync(0xffffffffu, x, o));
+  x = lane < (int)(blockDim.x >> 5) ? red[lane] : largest<T>();
+  for (int o = 16; o > 0; o >>= 1) x = min_of(x, __shfl_down_sync(0xffffffffu, x, o));
   return __shfl_sync(0xffffffffu, x, 0);
 }
 
-// Dynamic shared memory: the stage buffers (float4s first, for alignment),
-// then the second right-hand side's, then the shared copy of phi.
-template <int R>
+// Dynamic shared memory: the stage buffers (the rows' four elements first,
+// for alignment), then the second right-hand side's, then the shared copy
+// of phi.
+template <int R, typename T>
 size_t pcr_smem(int rows) {
   const size_t stride = rows + 2 * pcr_halo(rows);
-  return 2 * stride * (sizeof(float4) + (R == 2 ? sizeof(float) : 0) +
-                       (R == 3 ? sizeof(float2) : 0));
+  return 2 * stride * (sizeof(typename Pcr<T>::V4) + (R == 2 ? sizeof(T) : 0) +
+                       (R == 3 ? sizeof(typename Pcr<T>::V2) : 0));
 }
 
-template <int R>
+template <int R, typename T>
 size_t newton_smem(int rows) {
-  return pcr_smem<R>(rows) + rows * sizeof(float);
+  return pcr_smem<R, T>(rows) + rows * sizeof(T);
 }
 
-template <int R>
-__device__ __forceinline__ PcrBuf carve(unsigned char* smem, int rows,
-                                        float** s_phi) {
-  PcrBuf buf;
+template <int R, typename T>
+__device__ __forceinline__ PcrBuf<T> carve(unsigned char* smem, int rows, T** s_phi) {
+  PcrBuf<T> buf;
   buf.halo = pcr_halo(rows);
   buf.stride = rows + 2 * buf.halo;
-  buf.q = reinterpret_cast<float4*>(smem);
-  buf.g = reinterpret_cast<float*>(buf.q + 2 * buf.stride);
-  buf.g2 = reinterpret_cast<float2*>(buf.q + 2 * buf.stride);
-  *s_phi = buf.g + (R == 2 ? 2 * buf.stride : 0) +
-           (R == 3 ? 4 * buf.stride : 0);
+  buf.q = reinterpret_cast<typename Pcr<T>::V4*>(smem);
+  buf.g = reinterpret_cast<T*>(buf.q + 2 * buf.stride);
+  buf.g2 = reinterpret_cast<typename Pcr<T>::V2*>(buf.q + 2 * buf.stride);
+  *s_phi = buf.g + (R == 2 ? 2 * buf.stride : 0) + (R == 3 ? 4 * buf.stride : 0);
   return buf;
 }
 
-__global__ void newton_dd_kernel(const float* __restrict__ rho,
-                                 const float* __restrict__ n0,
-                                 const float* __restrict__ phi0,
-                                 float* __restrict__ phi_out,
-                                 int* __restrict__ iters_out,
-                                 float* __restrict__ resid_out, int ng,
-                                 float c0_coef, float eps0, float c1,
-                                 float dx2, float tol, int maxiter,
-                                 float step_max, float exp_clamp) {
+// The D-D Newton loop of newton_dd_kernel (header).
+template <typename T>
+__device__ __forceinline__ void newton_dd_loop(
+    const T* __restrict__ rho, const T* __restrict__ n0, const T* __restrict__ phi0,
+    T* __restrict__ phi_out, int* __restrict__ iters_out, T* __restrict__ resid_out,
+    int ng, T c0_coef, T eps0, T c1, T dx2, T tol, int maxiter, T step_max,
+    T exp_clamp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = blockDim.x;
-  float* s_phi;
-  const PcrBuf buf = carve<1>(smem, rows, &s_phi);
+  T* s_phi;
+  const PcrBuf<T> buf = carve<1>(smem, rows, &s_phi);
   __shared__ double s_red[32];
-  __shared__ float s_redf[32];
+  __shared__ T s_redf[32];
   const int i = threadIdx.x;
   const bool valid = i < ng;
   const bool interior = i >= 1 && i <= ng - 2;
   const bool boundary = valid && !interior;
-  const float a_lap = interior ? 1.0f : 0.0f;
-  const float c_lap = a_lap;
-  const float d_lap = interior ? -2.0f : 1.0f;
-  const float c0 = __fmul_rn(c0_coef, n0[0]);
-  const float c2 = valid ? __fdiv_rn(rho[i], eps0) : 0.0f;
-  const float dx2_c0 = __fmul_rn(dx2, c0);
-  const float dx2_c2 = __fmul_rn(dx2, c2);
-  const float jac_b = __fmul_rn(__fmul_rn(-dx2, c0), c1);  // -dx^2 c0 c1
-  float phi = 0.0f;
+  const T a_lap = interior ? (T)1 : (T)0;
+  const T c_lap = a_lap;
+  const T d_lap = interior ? (T)-2 : (T)1;
+  const T c0 = mul_rn(c0_coef, n0[0]);
+  const T c2 = valid ? quot_rn(rho[i], eps0) : (T)0;
+  const T dx2_c0 = mul_rn(dx2, c0);
+  const T dx2_c2 = mul_rn(dx2, c2);
+  const T jac_b = mul_rn(mul_rn(-dx2, c0), c1);  // -dx^2 c0 c1
+  T phi = (T)0;
   if (phi0 != nullptr && interior) phi = phi0[i];  // walls pinned to 0
 
   init_rims<1>(buf, rows);
   s_phi[i] = phi;
   __syncthreads();
-  float residual = 1.0f;
+  T residual = (T)1;
   int it = 0;
   while (residual > tol && it < maxiter) {
-    const float down = i >= 1 ? s_phi[i - 1] : 0.0f;
-    const float up = i + 1 < rows ? s_phi[i + 1] : 0.0f;
-    const float expo =
-        expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp));
-    const float lap = __fadd_rn(
-        __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, phi)),
-        __fmul_rn(c_lap, up));
-    float f = __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, expo)), dx2_c2);
-    f = interior ? f : 0.0f;  // walls and padding: residual rows 0
-    const float ddiag =
-        interior ? __fmul_rn(jac_b, expo) : (boundary ? jac_b : 0.0f);
-    Row<1> x = {a_lap, __fadd_rn(d_lap, ddiag), c_lap, {f}};
+    const T down = i >= 1 ? s_phi[i - 1] : (T)0;
+    const T up = i + 1 < rows ? s_phi[i + 1] : (T)0;
+    const T expo = exp_of(clamp_to(mul_rn(c1, phi), -exp_clamp, exp_clamp));
+    const T lap = add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, phi)), mul_rn(c_lap, up));
+    T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, expo)), dx2_c2);
+    f = interior ? f : (T)0;  // walls and padding: residual rows 0
+    const T ddiag = interior ? mul_rn(jac_b, expo) : (boundary ? jac_b : (T)0);
+    Row<1, T> x = {a_lap, add_rn(d_lap, ddiag), c_lap, {f}};
     pcr_solve<1>(x, buf, i, rows);
-    const float dphi = fminf(fmaxf(x.f[0], -step_max), step_max);
-    phi = __fsub_rn(phi, dphi);
+    const T dphi = clamp_to(x.f[0], -step_max, step_max);
+    phi = sub_rn(phi, dphi);
     // the next iteration's phi and this one's partial sums, one barrier
     s_phi[i] = phi;
-    warp_partial((double)__fmul_rn(dphi, dphi), s_red);
+    warp_partial((double)mul_rn(dphi, dphi), s_red);
     __syncthreads();
-    residual = (float)block_total(s_red);
+    residual = (T)block_total(s_red);
     ++it;
   }
   // shift to min 0 over the physical rows (pygcpic.py:1053)
-  const float lo = block_min(valid ? phi : 3.402823466e38f, s_redf);
-  if (valid) phi_out[i] = __fsub_rn(phi, lo);
+  const T lo = block_min(valid ? phi : largest<T>(), s_redf);
+  if (valid) phi_out[i] = sub_rn(phi, lo);
   if (i == 0) {
     iters_out[0] = it;
     resid_out[0] = residual;
@@ -383,78 +450,114 @@ __global__ void newton_dd_kernel(const float* __restrict__ rho,
 
 // The D-N Newton loop (header). n: (ng,) number density; phi0: (ng,) warm
 // start, taken as it is.
-__global__ void newton_dn_kernel(const float* __restrict__ n,
-                                 const float* __restrict__ n0,
-                                 const float* __restrict__ phi0,
-                                 float* __restrict__ phi_out,
-                                 int* __restrict__ iters_out,
-                                 float* __restrict__ resid_out, int ng,
-                                 float coef, float c1, float dx2, float tol,
-                                 int maxiter, float step_max,
-                                 float exp_clamp) {
+template <typename T>
+__device__ __forceinline__ void newton_dn_loop(
+    const T* __restrict__ n, const T* __restrict__ n0, const T* __restrict__ phi0,
+    T* __restrict__ phi_out, int* __restrict__ iters_out, T* __restrict__ resid_out,
+    int ng, T coef, T c1, T dx2, T tol, int maxiter, T step_max, T exp_clamp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = blockDim.x;
-  float* s_phi;
-  const PcrBuf buf = carve<2>(smem, rows, &s_phi);
+  T* s_phi;
+  const PcrBuf<T> buf = carve<2>(smem, rows, &s_phi);
   __shared__ double s_red[32];
-  __shared__ float s_redf[32];
+  __shared__ T s_redf[32];
   const int i = threadIdx.x;
   const bool valid = i < ng;
   const bool inner = i >= 1 && i <= ng - 2;
   const bool last = i == ng - 1;
-  const float a_lap = inner ? 1.0f : (last ? -4.0f : 0.0f);
-  const float c_lap = inner ? 1.0f : 0.0f;
-  const float d_lap = inner ? -2.0f : (last ? 3.0f : 1.0f);
-  const float u_row = last ? 1.0f : 0.0f;  // rank-1 u = e_{ng-1}
-  const float c0 = __fmul_rn(coef, n0[0]);
-  const float c2 = valid ? __fmul_rn(n[i], coef) : 0.0f;
-  const float dx2_c0 = __fmul_rn(dx2, c0);
-  const float dx2_c2 = __fmul_rn(dx2, c2);
-  const float jac_b = __fmul_rn(__fmul_rn(-dx2, c0), c1);  // -dx^2 c0 c1
-  float phi = valid ? phi0[i] : 0.0f;
+  const T a_lap = inner ? (T)1 : (last ? (T)-4 : (T)0);
+  const T c_lap = inner ? (T)1 : (T)0;
+  const T d_lap = inner ? (T)-2 : (last ? (T)3 : (T)1);
+  const T u_row = last ? (T)1 : (T)0;  // rank-1 u = e_{ng-1}
+  const T c0 = mul_rn(coef, n0[0]);
+  const T c2 = valid ? mul_rn(n[i], coef) : (T)0;
+  const T dx2_c0 = mul_rn(dx2, c0);
+  const T dx2_c2 = mul_rn(dx2, c2);
+  const T jac_b = mul_rn(mul_rn(-dx2, c0), c1);  // -dx^2 c0 c1
+  T phi = valid ? phi0[i] : (T)0;
 
   init_rims<2>(buf, rows);
   s_phi[i] = phi;
   __syncthreads();
-  float residual = 1.0f;
+  T residual = (T)1;
   int it = 0;
   while (residual > tol && it < maxiter) {
-    const float down = i >= 1 ? s_phi[i - 1] : 0.0f;
-    const float up = i + 1 < rows ? s_phi[i + 1] : 0.0f;
-    const float phi_m3 = s_phi[ng - 3];
-    const float phi_0 = s_phi[0];
-    const float expo =
-        expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp));
-    float lap = __fadd_rn(
-        __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, phi)),
-        __fmul_rn(c_lap, up));
-    lap = __fadd_rn(lap, __fmul_rn(u_row, phi_m3));  // A[-1, -3]
-    float f = __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, expo)), dx2_c2);
+    const T down = i >= 1 ? s_phi[i - 1] : (T)0;
+    const T up = i + 1 < rows ? s_phi[i + 1] : (T)0;
+    const T phi_m3 = s_phi[ng - 3];
+    const T phi_0 = s_phi[0];
+    const T expo = exp_of(clamp_to(mul_rn(c1, phi), -exp_clamp, exp_clamp));
+    T lap = add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, phi)), mul_rn(c_lap, up));
+    lap = add_rn(lap, mul_rn(u_row, phi_m3));  // A[-1, -3]
+    T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, expo)), dx2_c2);
     f = i == 0 ? phi_0 : f;
-    f = (last || !valid) ? 0.0f : f;
-    const float ddiag =
-        inner ? __fmul_rn(jac_b, expo) : (i == 0 ? jac_b : 0.0f);
-    Row<2> x = {a_lap, __fadd_rn(d_lap, ddiag), c_lap, {f, u_row}};
+    f = (last || !valid) ? (T)0 : f;
+    const T ddiag = inner ? mul_rn(jac_b, expo) : (i == 0 ? jac_b : (T)0);
+    Row<2, T> x = {a_lap, add_rn(d_lap, ddiag), c_lap, {f, u_row}};
     const int k = pcr_solve<2>(x, buf, i, rows);
     // y[ng-3] and z[ng-3] from row ng-3's final (b, f), as its thread forms them
-    const Row<2> m3 = load_row<2>(buf, k, ng - 3);
-    const float vy = __fdiv_rn(m3.f[0], m3.b), vz = __fdiv_rn(m3.f[1], m3.b);
-    float dphi = __fsub_rn(x.f[0],
-                           __fmul_rn(x.f[1], __fdiv_rn(vy, __fadd_rn(1.0f, vz))));
-    dphi = fminf(fmaxf(dphi, -step_max), step_max);
-    phi = __fsub_rn(phi, dphi);
+    const Row<2, T> m3 = load_row<2>(buf, k, ng - 3);
+    const T vy = quot_rn(m3.f[0], m3.b), vz = quot_rn(m3.f[1], m3.b);
+    T dphi = sub_rn(x.f[0], mul_rn(x.f[1], quot_rn(vy, add_rn((T)1, vz))));
+    dphi = clamp_to(dphi, -step_max, step_max);
+    phi = sub_rn(phi, dphi);
     s_phi[i] = phi;
-    warp_partial((double)__fmul_rn(dphi, dphi), s_red);
+    warp_partial((double)mul_rn(dphi, dphi), s_red);
     __syncthreads();
-    residual = __fsqrt_rn((float)block_total(s_red));
+    residual = sqrt_rn((T)block_total(s_red));
     ++it;
   }
-  const float lo = block_min(valid ? phi : 3.402823466e38f, s_redf);
-  if (valid) phi_out[i] = __fsub_rn(phi, lo);
+  const T lo = block_min(valid ? phi : largest<T>(), s_redf);
+  if (valid) phi_out[i] = sub_rn(phi, lo);
   if (i == 0) {
     iters_out[0] = it;
     resid_out[0] = residual;
   }
+}
+
+// The one-CTA Newton kernels: the float ones as they were first written
+// (no launch bounds: their code is the one they compiled to), the double
+// ones capped at 64 registers a thread (__launch_bounds__(1024)), so that
+// a CTA of 1,024 rows of doubles launches.
+template <typename T>
+__global__ void newton_dd_kernel(const T* __restrict__ rho, const T* __restrict__ n0,
+                                 const T* __restrict__ phi0, T* __restrict__ phi_out,
+                                 int* __restrict__ iters_out, T* __restrict__ resid_out,
+                                 int ng, T c0_coef, T eps0, T c1, T dx2, T tol,
+                                 int maxiter, T step_max, T exp_clamp) {
+  newton_dd_loop(rho, n0, phi0, phi_out, iters_out, resid_out, ng, c0_coef, eps0, c1, dx2,
+                 tol, maxiter, step_max, exp_clamp);
+}
+
+template <>
+__global__ void __launch_bounds__(1024) newton_dd_kernel<double>(
+    const double* __restrict__ rho, const double* __restrict__ n0,
+    const double* __restrict__ phi0, double* __restrict__ phi_out,
+    int* __restrict__ iters_out, double* __restrict__ resid_out, int ng, double c0_coef,
+    double eps0, double c1, double dx2, double tol, int maxiter, double step_max,
+    double exp_clamp) {
+  newton_dd_loop(rho, n0, phi0, phi_out, iters_out, resid_out, ng, c0_coef, eps0, c1, dx2,
+                 tol, maxiter, step_max, exp_clamp);
+}
+
+template <typename T>
+__global__ void newton_dn_kernel(const T* __restrict__ n, const T* __restrict__ n0,
+                                 const T* __restrict__ phi0, T* __restrict__ phi_out,
+                                 int* __restrict__ iters_out, T* __restrict__ resid_out,
+                                 int ng, T coef, T c1, T dx2, T tol, int maxiter,
+                                 T step_max, T exp_clamp) {
+  newton_dn_loop(n, n0, phi0, phi_out, iters_out, resid_out, ng, coef, c1, dx2, tol,
+                 maxiter, step_max, exp_clamp);
+}
+
+template <>
+__global__ void __launch_bounds__(1024) newton_dn_kernel<double>(
+    const double* __restrict__ n, const double* __restrict__ n0,
+    const double* __restrict__ phi0, double* __restrict__ phi_out,
+    int* __restrict__ iters_out, double* __restrict__ resid_out, int ng, double coef,
+    double c1, double dx2, double tol, int maxiter, double step_max, double exp_clamp) {
+  newton_dn_loop(n, n0, phi0, phi_out, iters_out, resid_out, ng, coef, c1, dx2, tol,
+                 maxiter, step_max, exp_clamp);
 }
 
 // One rank's local system of the distributed chain solve
@@ -470,7 +573,8 @@ __global__ void newton_dn_kernel(const float* __restrict__ n,
 // r. The threads of rows 0 and c - 1 also write the rank's six interface
 // scalars [xp_0, xp_(c-1), a0 u_0, a0 u_(c-1), cc w_0, cc w_(c-1)]
 // (a0 = dl[0] unless the rank is the chain's first, cc = du[c-1] unless
-// its last), which the ranks all_gather for the interface solve.
+// its last), which the ranks all_gather for the interface solve. Float32
+// alone: the slab engines run float32 in the JAX package.
 __global__ void tridiag3_chain_kernel(const float* __restrict__ dl,
                                       const float* __restrict__ d,
                                       const float* __restrict__ du,
@@ -481,10 +585,10 @@ __global__ void tridiag3_chain_kernel(const float* __restrict__ dl,
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = blockDim.x;
   float* unused;
-  const PcrBuf buf = carve<3>(smem, rows, &unused);
+  const PcrBuf<float> buf = carve<3>(smem, rows, &unused);
   const int i = threadIdx.x;
   const bool valid = i < c;
-  Row<3> r;
+  Row<3, float> r;
   r.a = (valid && i > 0) ? dl[i] : 0.0f;
   r.b = valid ? d[i] : 1.0f;
   r.c = (valid && i < c - 1) ? du[i] : 0.0f;
@@ -518,20 +622,22 @@ bool rows_ok(int ng, int rows) {
 
 // ---- the large path (header) ----
 
-// The Newton loop's float32 scalars (cuda_newton.newton_scalars; coef =
-// f32(e / eps0), eps0 the D-D kernel's divisor of rho).
+// The Newton loop's scalars (cuda_newton.newton_scalars, in the state's
+// dtype; coef = e / eps0 in it, eps0 the D-D kernel's divisor of rho).
+template <typename T>
 struct NewtonScalars {
-  float coef, eps0, c1, dx2, tol, step_max, exp_clamp;
+  T coef, eps0, c1, dx2, tol, step_max, exp_clamp;
   int maxiter;
 };
 
 // The block rows of the large path in its scratch: row j of thread t at
 // j T + t (T = blockDim.x). ap, cp: the couplings a', c' the sweeps leave;
 // dp: R columns of d', column r at r npad.
+template <typename T>
 struct Blocks {
-  float* ap;
-  float* cp;
-  float* dp;
+  T* ap;
+  T* cp;
+  T* dp;
   int k, npad;
 };
 
@@ -544,26 +650,25 @@ __device__ __forceinline__ int block_at(int j) {
 // j - 1 out with that row, the fill-in a coupling to the block's row 0.
 // After it row 0 reads a'_0 x_(-1) + x_0 + c'_0 x_1 = d'_0 and row j >= 1
 // a'_j x_0 + x_j + c'_j x_(j+1) = d'_j.
-template <int R, class RowAt>
-__device__ __forceinline__ void sweep_down(const Blocks& B, RowAt row) {
-  float am = 0.0f, cm = 0.0f, dm[R];
+template <int R, typename T, class RowAt>
+__device__ __forceinline__ void sweep_down(const Blocks<T>& B, RowAt row) {
+  T am = (T)0, cm = (T)0, dm[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) dm[r] = 0.0f;
+  for (int r = 0; r < R; ++r) dm[r] = (T)0;
   for (int j = 0; j < B.k; ++j) {
-    const Row<R> x = row(j);
-    float an, cn, dn[R];
+    const Row<R, T> x = row(j);
+    T an, cn, dn[R];
     if (j < 2) {
       an = div_rn(x.a, x.b);
       cn = div_rn(x.c, x.b);
 #pragma unroll
       for (int r = 0; r < R; ++r) dn[r] = div_rn(x.f[r], x.b);
     } else {
-      const float den = __fsub_rn(x.b, __fmul_rn(x.a, cm));
-      an = div_rn(-__fmul_rn(x.a, am), den);
+      const T den = sub_rn(x.b, mul_rn(x.a, cm));
+      an = div_rn(-mul_rn(x.a, am), den);
       cn = div_rn(x.c, den);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        dn[r] = div_rn(__fsub_rn(x.f[r], __fmul_rn(x.a, dm[r])), den);
+      for (int r = 0; r < R; ++r) dn[r] = div_rn(sub_rn(x.f[r], mul_rn(x.a, dm[r])), den);
     }
     const int e = block_at(j);
     B.ap[e] = an;
@@ -582,66 +687,63 @@ __device__ __forceinline__ void sweep_down(const Blocks& B, RowAt row) {
 // row 1. Returns the block's two rows of the reduced system: first
 // (coupled to the last row of the block before and to x_(k-1)) and last
 // (coupled to x_0 and to the first row of the block after), b = 1.
-template <int R>
-__device__ __forceinline__ void sweep_up(const Blocks& B, Row<R>& first,
-                                         Row<R>& last) {
+template <int R, typename T>
+__device__ __forceinline__ void sweep_up(const Blocks<T>& B, Row<R, T>& first,
+                                         Row<R, T>& last) {
   const int k = B.k;
   int e = block_at(k - 1);
   last.a = B.ap[e];
-  last.b = 1.0f;
+  last.b = (T)1;
   last.c = B.cp[e];
 #pragma unroll
   for (int r = 0; r < R; ++r) last.f[r] = B.dp[r * B.npad + e];
   e = block_at(0);
   first.a = B.ap[e];
-  first.b = 1.0f;
+  first.b = (T)1;
   first.c = B.cp[e];
 #pragma unroll
   for (int r = 0; r < R; ++r) first.f[r] = B.dp[r * B.npad + e];
   if (k == 2) return;  // row 0 already couples to x_(k-1)
   e = block_at(k - 2);
-  float an = B.ap[e], cn = B.cp[e], dn[R];
+  T an = B.ap[e], cn = B.cp[e], dn[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) dn[r] = B.dp[r * B.npad + e];
   for (int j = k - 3; j >= 1; --j) {
     e = block_at(j);
-    const float cj = B.cp[e];
+    const T cj = B.cp[e];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      dn[r] = __fsub_rn(B.dp[r * B.npad + e], __fmul_rn(cj, dn[r]));
+      dn[r] = sub_rn(B.dp[r * B.npad + e], mul_rn(cj, dn[r]));
       B.dp[r * B.npad + e] = dn[r];
     }
-    an = __fsub_rn(B.ap[e], __fmul_rn(cj, an));
-    cn = -__fmul_rn(cj, cn);
+    an = sub_rn(B.ap[e], mul_rn(cj, an));
+    cn = -mul_rn(cj, cn);
     B.ap[e] = an;
     B.cp[e] = cn;
   }
-  const float c0 = first.c;
-  const float den = __fsub_rn(1.0f, __fmul_rn(c0, an));
+  const T c0 = first.c;
+  const T den = sub_rn((T)1, mul_rn(c0, an));
   first.a = div_rn(first.a, den);
-  first.c = div_rn(-__fmul_rn(c0, cn), den);
+  first.c = div_rn(-mul_rn(c0, cn), den);
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    first.f[r] = div_rn(__fsub_rn(first.f[r], __fmul_rn(c0, dn[r])), den);
+  for (int r = 0; r < R; ++r) first.f[r] = div_rn(sub_rn(first.f[r], mul_rn(c0, dn[r])), den);
 }
 
 // Row j of the thread's block from the block's end values xf = x_0 and
 // xl = x_(k-1) (R columns): x_j = d'_j - a'_j x_0 - c'_j x_(k-1).
-template <int R>
-__device__ __forceinline__ void recover(const Blocks& B, int j,
-                                        const float* xf, const float* xl,
-                                        float* out) {
+template <int R, typename T>
+__device__ __forceinline__ void recover(const Blocks<T>& B, int j, const T* xf,
+                                        const T* xl, T* out) {
   if (j == 0 || j == B.k - 1) {
 #pragma unroll
     for (int r = 0; r < R; ++r) out[r] = j == 0 ? xf[r] : xl[r];
     return;
   }
   const int e = block_at(j);
-  const float a = B.ap[e], c = B.cp[e];
+  const T a = B.ap[e], c = B.cp[e];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    out[r] = __fsub_rn(__fsub_rn(B.dp[r * B.npad + e], __fmul_rn(a, xf[r])),
-                       __fmul_rn(c, xl[r]));
+    out[r] = sub_rn(sub_rn(B.dp[r * B.npad + e], mul_rn(a, xf[r])), mul_rn(c, xl[r]));
 }
 
 // The reduced system's PCR over rows = 2 T rows, thread t holding rows
@@ -649,133 +751,123 @@ __device__ __forceinline__ void recover(const Blocks& B, int j,
 // (alternating buffers, one vote-ended barrier a stage, pcr_stage's
 // arithmetic) for two rows a thread. On return x0.f and x1.f hold the two
 // rows' solutions. Every thread of the block calls it.
-template <int R>
-__device__ void pcr_solve_pair(Row<R>& x0, Row<R>& x1, const PcrBuf& buf,
+template <int R, typename T>
+__device__ void pcr_solve_pair(Row<R, T>& x0, Row<R, T>& x1, const PcrBuf<T>& buf,
                                int rows) {
   const int i0 = 2 * (int)threadIdx.x, i1 = i0 + 1;
   int kb = 0;
   for (int s = 1;; s <<= 1, kb ^= 1) {
     store_row(buf, kb, i0, x0);
     store_row(buf, kb, i1, x1);
-    const bool live = __syncthreads_or(x0.a != 0.0f || x0.c != 0.0f ||
-                                       x1.a != 0.0f || x1.c != 0.0f);
+    const bool live = __syncthreads_or(x0.a != (T)0 || x0.c != (T)0 || x1.a != (T)0 ||
+                                       x1.c != (T)0);
     if (!live || s >= rows) break;
     pcr_stage(x0, load_row<R>(buf, kb, i0 - s), load_row<R>(buf, kb, i0 + s));
     pcr_stage(x1, load_row<R>(buf, kb, i1 - s), load_row<R>(buf, kb, i1 + s));
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    x0.f[r] = __fdiv_rn(x0.f[r], x0.b);
-    x1.f[r] = __fdiv_rn(x1.f[r], x1.b);
+    x0.f[r] = quot_rn(x0.f[r], x0.b);
+    x1.f[r] = quot_rn(x1.f[r], x1.b);
   }
 }
 
 // The scratch of a Newton kernel: phi, dx^2 c2, then the blocks' a', c'
-// and R columns of d', npad floats each.
-__device__ __forceinline__ Blocks newton_blocks(float* scratch, int k,
-                                                int npad) {
-  return Blocks{scratch + 2 * npad, scratch + 3 * npad, scratch + 4 * npad, k,
-                npad};
+// and R columns of d', npad elements each.
+template <typename T>
+__device__ __forceinline__ Blocks<T> newton_blocks(T* scratch, int k, int npad) {
+  return Blocks<T>{scratch + 2 * npad, scratch + 3 * npad, scratch + 4 * npad, k, npad};
 }
 
-// The smallest phi of the thread's physical rows (FLT_MAX if none).
-__device__ __forceinline__ float block_rows_min(const float* phi_s, int k,
-                                                int ng) {
-  float lo = 3.402823466e38f;
+// The smallest phi of the thread's physical rows (the largest value if none).
+template <typename T>
+__device__ __forceinline__ T block_rows_min(const T* phi_s, int k, int ng) {
+  T lo = largest<T>();
   for (int j = 0; j < k && (int)threadIdx.x * k + j < ng; ++j)
-    lo = fminf(lo, phi_s[block_at(j)]);
+    lo = min_of(lo, phi_s[block_at(j)]);
   return lo;
 }
 
 // newton_dd_kernel's loop above 1,024 rows (header: the large path).
-// scratch: 5 npad floats (npad = T k).
+// scratch: 5 npad elements (npad = T k).
+template <typename T>
 __global__ void __launch_bounds__(1024)
-    newton_dd_large_kernel(const float* __restrict__ rho,
-                           const float* __restrict__ n0,
-                           const float* __restrict__ phi0,
-                           float* __restrict__ phi_out,
-                           int* __restrict__ iters_out,
-                           float* __restrict__ resid_out,
-                           float* __restrict__ scratch, int ng, int k,
-                           NewtonScalars s) {
+    newton_dd_large_kernel(const T* __restrict__ rho, const T* __restrict__ n0,
+                           const T* __restrict__ phi0, T* __restrict__ phi_out,
+                           int* __restrict__ iters_out, T* __restrict__ resid_out,
+                           T* __restrict__ scratch, int ng, int k, NewtonScalars<T> s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, t = threadIdx.x, npad = T * k;
-  float* s_edge;  // [T] each block's first phi, then [T] its last
-  const PcrBuf buf = carve<1>(smem, 2 * T, &s_edge);
-  float* s_lo = s_edge;
-  float* s_hi = s_edge + T;
+  const int T_ = blockDim.x, t = threadIdx.x, npad = T_ * k;
+  T* s_edge;  // [T] each block's first phi, then [T] its last
+  const PcrBuf<T> buf = carve<1>(smem, 2 * T_, &s_edge);
+  T* s_lo = s_edge;
+  T* s_hi = s_edge + T_;
   __shared__ double s_red[32];
-  __shared__ float s_redf[32];
-  float* phi_s = scratch;
-  float* c2_s = scratch + npad;  // dx^2 c2
-  const Blocks B = newton_blocks(scratch, k, npad);
-  const float c0 = __fmul_rn(s.coef, n0[0]);
-  const float dx2_c0 = __fmul_rn(s.dx2, c0);
-  const float jac_b = __fmul_rn(__fmul_rn(-s.dx2, c0), s.c1);
-  for (int e = t; e < npad; e += T) {  // rows in order, into the blocks
-    const int j = e % k, o = j * T + e / k;
-    const float p = (phi0 != nullptr && e >= 1 && e <= ng - 2) ? phi0[e] : 0.0f;
+  __shared__ T s_redf[32];
+  T* phi_s = scratch;
+  T* c2_s = scratch + npad;  // dx^2 c2
+  const Blocks<T> B = newton_blocks(scratch, k, npad);
+  const T c0 = mul_rn(s.coef, n0[0]);
+  const T dx2_c0 = mul_rn(s.dx2, c0);
+  const T jac_b = mul_rn(mul_rn(-s.dx2, c0), s.c1);
+  for (int e = t; e < npad; e += T_) {  // rows in order, into the blocks
+    const int j = e % k, o = j * T_ + e / k;
+    const T p = (phi0 != nullptr && e >= 1 && e <= ng - 2) ? phi0[e] : (T)0;
     phi_s[o] = p;
-    c2_s[o] = e < ng ? __fmul_rn(s.dx2, __fdiv_rn(rho[e], s.eps0)) : 0.0f;
+    c2_s[o] = e < ng ? mul_rn(s.dx2, quot_rn(rho[e], s.eps0)) : (T)0;
     if (j == 0) s_lo[e / k] = p;
     if (j == k - 1) s_hi[e / k] = p;
   }
-  init_rims<1>(buf, 2 * T);
+  init_rims<1>(buf, 2 * T_);
   __syncthreads();
-  float residual = 1.0f;
+  T residual = (T)1;
   int it = 0;
   while (it < s.maxiter && residual > s.tol) {
-    float down = t > 0 ? s_hi[t - 1] : 0.0f;
-    float cur = phi_s[t];
+    T down = t > 0 ? s_hi[t - 1] : (T)0;
+    T cur = phi_s[t];
     sweep_down<1>(B, [&](int j) {
       const int i = t * k + j;
-      const float up = j + 1 < k ? phi_s[block_at(j + 1)]
-                                 : (t + 1 < T ? s_lo[t + 1] : 0.0f);
+      const T up = j + 1 < k ? phi_s[block_at(j + 1)] : (t + 1 < T_ ? s_lo[t + 1] : (T)0);
       const bool interior = i >= 1 && i <= ng - 2;
       const bool boundary = i < ng && !interior;
-      const float a_lap = interior ? 1.0f : 0.0f;
-      const float d_lap = interior ? -2.0f : 1.0f;
-      const float ex =
-          expf(fminf(fmaxf(__fmul_rn(s.c1, cur), -s.exp_clamp), s.exp_clamp));
-      const float lap = __fadd_rn(
-          __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, cur)),
-          __fmul_rn(a_lap, up));
-      const float f =
-          __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
-      Row<1> x;
+      const T a_lap = interior ? (T)1 : (T)0;
+      const T d_lap = interior ? (T)-2 : (T)1;
+      const T ex = exp_of(clamp_to(mul_rn(s.c1, cur), -s.exp_clamp, s.exp_clamp));
+      const T lap =
+          add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, cur)), mul_rn(a_lap, up));
+      const T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+      Row<1, T> x;
       x.a = a_lap;
-      x.b = __fadd_rn(d_lap, interior ? __fmul_rn(jac_b, ex)
-                                      : (boundary ? jac_b : 0.0f));
+      x.b = add_rn(d_lap, interior ? mul_rn(jac_b, ex) : (boundary ? jac_b : (T)0));
       x.c = a_lap;
-      x.f[0] = interior ? f : 0.0f;  // walls and padding: residual rows 0
+      x.f[0] = interior ? f : (T)0;  // walls and padding: residual rows 0
       down = cur;
       cur = up;
       return x;
     });
-    Row<1> x0, x1;
+    Row<1, T> x0, x1;
     sweep_up<1>(B, x0, x1);
-    pcr_solve_pair<1>(x0, x1, buf, 2 * T);
+    pcr_solve_pair<1>(x0, x1, buf, 2 * T_);
     double sq = 0.0;
     for (int j = 0; j < k; ++j) {
-      float x;
+      T x;
       recover<1>(B, j, x0.f, x1.f, &x);
-      const float dphi = fminf(fmaxf(x, -s.step_max), s.step_max);
+      const T dphi = clamp_to(x, -s.step_max, s.step_max);
       const int e = block_at(j);
-      const float p = __fsub_rn(phi_s[e], dphi);
+      const T p = sub_rn(phi_s[e], dphi);
       phi_s[e] = p;
-      sq += (double)__fmul_rn(dphi, dphi);
+      sq += (double)mul_rn(dphi, dphi);
       if (j == 0) s_lo[t] = p;
       if (j == k - 1) s_hi[t] = p;
     }
     // the next iteration's edge phi and this one's partial sums, one barrier
     warp_partial(sq, s_red);
     __syncthreads();
-    residual = (float)block_total(s_red);
+    residual = (T)block_total(s_red);
     ++it;
   }
-  const float lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
-  for (int e = t; e < ng; e += T)
-    phi_out[e] = __fsub_rn(phi_s[(e % k) * T + e / k], lo);
+  const T lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
+  for (int e = t; e < ng; e += T_) phi_out[e] = sub_rn(phi_s[(e % k) * T_ + e / k], lo);
   if (t == 0) {
     iters_out[0] = it;
     resid_out[0] = residual;
@@ -783,73 +875,64 @@ __global__ void __launch_bounds__(1024)
 }
 
 // newton_dn_kernel's loop above 1,024 rows (header: the large path).
-// scratch: 6 npad floats.
+// scratch: 6 npad elements.
+template <typename T>
 __global__ void __launch_bounds__(1024)
-    newton_dn_large_kernel(const float* __restrict__ n,
-                           const float* __restrict__ n0,
-                           const float* __restrict__ phi0,
-                           float* __restrict__ phi_out,
-                           int* __restrict__ iters_out,
-                           float* __restrict__ resid_out,
-                           float* __restrict__ scratch, int ng, int k,
-                           NewtonScalars s) {
+    newton_dn_large_kernel(const T* __restrict__ n, const T* __restrict__ n0,
+                           const T* __restrict__ phi0, T* __restrict__ phi_out,
+                           int* __restrict__ iters_out, T* __restrict__ resid_out,
+                           T* __restrict__ scratch, int ng, int k, NewtonScalars<T> s) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = blockDim.x, t = threadIdx.x, npad = T * k;
-  float* s_edge;
-  const PcrBuf buf = carve<2>(smem, 2 * T, &s_edge);
-  float* s_lo = s_edge;
-  float* s_hi = s_edge + T;
+  const int T_ = blockDim.x, t = threadIdx.x, npad = T_ * k;
+  T* s_edge;
+  const PcrBuf<T> buf = carve<2>(smem, 2 * T_, &s_edge);
+  T* s_lo = s_edge;
+  T* s_hi = s_edge + T_;
   __shared__ double s_red[32];
-  __shared__ float s_redf[32];
-  __shared__ float s_m3[3];  // phi[ng-3]; then y[ng-3], z[ng-3]
-  float* phi_s = scratch;
-  float* c2_s = scratch + npad;  // dx^2 c2
-  const Blocks B = newton_blocks(scratch, k, npad);
+  __shared__ T s_redf[32];
+  __shared__ T s_m3[3];  // phi[ng-3]; then y[ng-3], z[ng-3]
+  T* phi_s = scratch;
+  T* c2_s = scratch + npad;  // dx^2 c2
+  const Blocks<T> B = newton_blocks(scratch, k, npad);
   const int t3 = (ng - 3) / k, j3 = (ng - 3) % k;
-  const float c0 = __fmul_rn(s.coef, n0[0]);
-  const float dx2_c0 = __fmul_rn(s.dx2, c0);
-  const float jac_b = __fmul_rn(__fmul_rn(-s.dx2, c0), s.c1);
-  for (int e = t; e < npad; e += T) {
-    const int j = e % k, o = j * T + e / k;
-    const float p = e < ng ? phi0[e] : 0.0f;
+  const T c0 = mul_rn(s.coef, n0[0]);
+  const T dx2_c0 = mul_rn(s.dx2, c0);
+  const T jac_b = mul_rn(mul_rn(-s.dx2, c0), s.c1);
+  for (int e = t; e < npad; e += T_) {
+    const int j = e % k, o = j * T_ + e / k;
+    const T p = e < ng ? phi0[e] : (T)0;
     phi_s[o] = p;
-    c2_s[o] = e < ng ? __fmul_rn(s.dx2, __fmul_rn(n[e], s.coef)) : 0.0f;
+    c2_s[o] = e < ng ? mul_rn(s.dx2, mul_rn(n[e], s.coef)) : (T)0;
     if (j == 0) s_lo[e / k] = p;
     if (j == k - 1) s_hi[e / k] = p;
     if (e == ng - 3) s_m3[0] = p;
   }
-  init_rims<2>(buf, 2 * T);
+  init_rims<2>(buf, 2 * T_);
   __syncthreads();
-  float residual = 1.0f;
+  T residual = (T)1;
   int it = 0;
   while (it < s.maxiter && residual > s.tol) {
-    const float phi_m3 = s_m3[0], phi_first = s_lo[0];
-    float down = t > 0 ? s_hi[t - 1] : 0.0f;
-    float cur = phi_s[t];
+    const T phi_m3 = s_m3[0], phi_first = s_lo[0];
+    T down = t > 0 ? s_hi[t - 1] : (T)0;
+    T cur = phi_s[t];
     sweep_down<2>(B, [&](int j) {
       const int i = t * k + j;
-      const float up = j + 1 < k ? phi_s[block_at(j + 1)]
-                                 : (t + 1 < T ? s_lo[t + 1] : 0.0f);
+      const T up = j + 1 < k ? phi_s[block_at(j + 1)] : (t + 1 < T_ ? s_lo[t + 1] : (T)0);
       const bool inner = i >= 1 && i <= ng - 2;
       const bool last = i == ng - 1;
-      const float a_lap = inner ? 1.0f : (last ? -4.0f : 0.0f);
-      const float c_lap = inner ? 1.0f : 0.0f;
-      const float d_lap = inner ? -2.0f : (last ? 3.0f : 1.0f);
-      const float u_row = last ? 1.0f : 0.0f;  // rank-1 u = e_{ng-1}
-      const float ex =
-          expf(fminf(fmaxf(__fmul_rn(s.c1, cur), -s.exp_clamp), s.exp_clamp));
-      float lap = __fadd_rn(
-          __fadd_rn(__fmul_rn(a_lap, down), __fmul_rn(d_lap, cur)),
-          __fmul_rn(c_lap, up));
-      lap = __fadd_rn(lap, __fmul_rn(u_row, phi_m3));  // A[-1, -3]
-      float f =
-          __fadd_rn(__fsub_rn(lap, __fmul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+      const T a_lap = inner ? (T)1 : (last ? (T)-4 : (T)0);
+      const T c_lap = inner ? (T)1 : (T)0;
+      const T d_lap = inner ? (T)-2 : (last ? (T)3 : (T)1);
+      const T u_row = last ? (T)1 : (T)0;  // rank-1 u = e_{ng-1}
+      const T ex = exp_of(clamp_to(mul_rn(s.c1, cur), -s.exp_clamp, s.exp_clamp));
+      T lap = add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, cur)), mul_rn(c_lap, up));
+      lap = add_rn(lap, mul_rn(u_row, phi_m3));  // A[-1, -3]
+      T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
       f = i == 0 ? phi_first : f;
-      f = (last || i >= ng) ? 0.0f : f;
-      Row<2> x;
+      f = (last || i >= ng) ? (T)0 : f;
+      Row<2, T> x;
       x.a = a_lap;
-      x.b = __fadd_rn(d_lap, inner ? __fmul_rn(jac_b, ex)
-                                   : (i == 0 ? jac_b : 0.0f));
+      x.b = add_rn(d_lap, inner ? mul_rn(jac_b, ex) : (i == 0 ? jac_b : (T)0));
       x.c = c_lap;
       x.f[0] = f;
       x.f[1] = u_row;
@@ -857,39 +940,38 @@ __global__ void __launch_bounds__(1024)
       cur = up;
       return x;
     });
-    Row<2> x0, x1;
+    Row<2, T> x0, x1;
     sweep_up<2>(B, x0, x1);
-    pcr_solve_pair<2>(x0, x1, buf, 2 * T);
+    pcr_solve_pair<2>(x0, x1, buf, 2 * T_);
     if (t == t3) {  // y[ng-3] and z[ng-3] from their owning thread
-      float yz[2];
+      T yz[2];
       recover<2>(B, j3, x0.f, x1.f, yz);
       s_m3[1] = yz[0];
       s_m3[2] = yz[1];
     }
     __syncthreads();
-    const float corr = __fdiv_rn(s_m3[1], __fadd_rn(1.0f, s_m3[2]));
+    const T corr = quot_rn(s_m3[1], add_rn((T)1, s_m3[2]));
     double sq = 0.0;
     for (int j = 0; j < k; ++j) {
-      float yz[2];
+      T yz[2];
       recover<2>(B, j, x0.f, x1.f, yz);
-      float dphi = __fsub_rn(yz[0], __fmul_rn(yz[1], corr));
-      dphi = fminf(fmaxf(dphi, -s.step_max), s.step_max);
+      T dphi = sub_rn(yz[0], mul_rn(yz[1], corr));
+      dphi = clamp_to(dphi, -s.step_max, s.step_max);
       const int e = block_at(j);
-      const float p = __fsub_rn(phi_s[e], dphi);
+      const T p = sub_rn(phi_s[e], dphi);
       phi_s[e] = p;
-      sq += (double)__fmul_rn(dphi, dphi);
+      sq += (double)mul_rn(dphi, dphi);
       if (j == 0) s_lo[t] = p;
       if (j == k - 1) s_hi[t] = p;
       if (t == t3 && j == j3) s_m3[0] = p;
     }
     warp_partial(sq, s_red);
     __syncthreads();
-    residual = __fsqrt_rn((float)block_total(s_red));
+    residual = sqrt_rn((T)block_total(s_red));
     ++it;
   }
-  const float lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
-  for (int e = t; e < ng; e += T)
-    phi_out[e] = __fsub_rn(phi_s[(e % k) * T + e / k], lo);
+  const T lo = block_min(block_rows_min(phi_s, k, ng), s_redf);
+  for (int e = t; e < ng; e += T_) phi_out[e] = sub_rn(phi_s[(e % k) * T_ + e / k], lo);
   if (t == 0) {
     iters_out[0] = it;
     resid_out[0] = residual;
@@ -912,13 +994,13 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = blockDim.x, t = threadIdx.x, npad = T * k;
   float* unused;
-  const PcrBuf buf = carve<3>(smem, 2 * T, &unused);
-  const Blocks B{scratch, scratch + npad, scratch + 2 * npad, k, npad};
+  const PcrBuf<float> buf = carve<3>(smem, 2 * T, &unused);
+  const Blocks<float> B{scratch, scratch + npad, scratch + 2 * npad, k, npad};
   init_rims<3>(buf, 2 * T);  // read only after the PCR's first barrier
   sweep_down<3>(B, [&](int j) {
     const int i = t * k + j;
     const bool valid = i < c;
-    Row<3> r;
+    Row<3, float> r;
     r.a = (valid && i > 0) ? dl[i] : 0.0f;
     r.b = valid ? d[i] : 1.0f;
     r.c = (valid && i < c - 1) ? du[i] : 0.0f;
@@ -927,7 +1009,7 @@ __global__ void __launch_bounds__(1024)
     r.f[2] = i == c - 1 ? 1.0f : 0.0f;
     return r;
   });
-  Row<3> x0, x1;
+  Row<3, float> x0, x1;
   sweep_up<3>(B, x0, x1);
   pcr_solve_pair<3>(x0, x1, buf, 2 * T);
   for (int j = 0; j < k && t * k + j < c; ++j) {
@@ -950,11 +1032,73 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-// The large path's launch: T threads (a multiple of 32 in [32, 1024]), k
-// >= 2 rows a thread, T k >= rows > the small path's kMaxRows.
+// The large path's launch: T threads (a multiple of 32 in [32, the
+// element type's most]), k >= 2 rows a thread, T k >= rows > the small
+// path's kMaxRows.
+template <typename T>
 bool large_ok(int rows, int k, int threads) {
-  return threads >= 32 && threads <= kMaxRows && threads % 32 == 0 &&
-         k >= 2 && rows > kMaxRows && (long long)threads * k >= rows;
+  const int most = sizeof(T) == 8 ? kMaxLargeThreadsF64 : kMaxRows;
+  return threads >= 32 && threads <= most && threads % 32 == 0 && k >= 2 &&
+         rows > kMaxRows && (long long)threads * k >= rows;
+}
+
+// The launches of the Newton kernels of T (the float and double entry
+// points).
+template <typename T>
+cudaError_t launch_dd(const T* rho, const T* n0, const T* phi0, T* phi, int* iters,
+                      T* resid, int ng, int rows, T c0_coef, T eps0, T c1, T dx2, T tol,
+                      int maxiter, T step_max, T exp_clamp, cudaStream_t s) {
+  if (!rows_ok(ng, rows)) return cudaErrorInvalidValue;
+  const size_t smem = newton_smem<1, T>(rows);
+  cudaError_t err = allow_smem(newton_dd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  newton_dd_kernel<T><<<1, rows, smem, s>>>(rho, n0, phi0, phi, iters, resid, ng, c0_coef,
+                                            eps0, c1, dx2, tol, maxiter, step_max,
+                                            exp_clamp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dn(const T* n, const T* n0, const T* phi0, T* phi, int* iters,
+                      T* resid, int ng, int rows, T coef, T c1, T dx2, T tol, int maxiter,
+                      T step_max, T exp_clamp, cudaStream_t s) {
+  if (!rows_ok(ng, rows) || ng < 3) return cudaErrorInvalidValue;
+  const size_t smem = newton_smem<2, T>(rows);
+  cudaError_t err = allow_smem(newton_dn_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  newton_dn_kernel<T><<<1, rows, smem, s>>>(n, n0, phi0, phi, iters, resid, ng, coef, c1,
+                                            dx2, tol, maxiter, step_max, exp_clamp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dd_large(const T* rho, const T* n0, const T* phi0, T* phi, int* iters,
+                            T* resid, T* scratch, int ng, int k, int threads, T c0_coef,
+                            T eps0, T c1, T dx2, T tol, int maxiter, T step_max,
+                            T exp_clamp, cudaStream_t st) {
+  if (!large_ok<T>(ng, k, threads)) return cudaErrorInvalidValue;
+  const size_t smem = newton_smem<1, T>(2 * threads);
+  cudaError_t err = allow_smem(newton_dd_large_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const NewtonScalars<T> s{c0_coef, eps0, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  newton_dd_large_kernel<T><<<1, threads, smem, st>>>(rho, n0, phi0, phi, iters, resid,
+                                                      scratch, ng, k, s);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dn_large(const T* n, const T* n0, const T* phi0, T* phi, int* iters,
+                            T* resid, T* scratch, int ng, int k, int threads, T coef,
+                            T c1, T dx2, T tol, int maxiter, T step_max, T exp_clamp,
+                            cudaStream_t st) {
+  if (!large_ok<T>(ng, k, threads)) return cudaErrorInvalidValue;
+  const size_t smem = newton_smem<2, T>(2 * threads);
+  cudaError_t err = allow_smem(newton_dn_large_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const NewtonScalars<T> s{coef, (T)0, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  newton_dn_large_kernel<T><<<1, threads, smem, st>>>(n, n0, phi0, phi, iters, resid,
+                                                      scratch, ng, k, s);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -969,14 +1113,19 @@ int pypic_boltzmann_dirichlet(const float* rho, const float* n0,
                               float eps0, float c1, float dx2, float tol,
                               int maxiter, float step_max, float exp_clamp,
                               void* stream) {
-  if (!rows_ok(ng, rows)) return (int)cudaErrorInvalidValue;
-  const size_t smem = newton_smem<1>(rows);
-  cudaError_t err = allow_smem(newton_dd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  newton_dd_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
-      rho, n0, phi0, phi, iters, resid, ng, c0_coef, eps0, c1, dx2, tol,
-      maxiter, step_max, exp_clamp);
-  return (int)cudaGetLastError();
+  return (int)launch_dd(rho, n0, phi0, phi, iters, resid, ng, rows, c0_coef, eps0, c1,
+                        dx2, tol, maxiter, step_max, exp_clamp, (cudaStream_t)stream);
+}
+
+// The double solve (a float64 state): every pointer to doubles but iters,
+// every scalar a double (_SIGNATURES passes them as c_double).
+int pypic_boltzmann_dirichlet_f64(const double* rho, const double* n0, const double* phi0,
+                                  double* phi, int* iters, double* resid, int ng, int rows,
+                                  double c0_coef, double eps0, double c1, double dx2,
+                                  double tol, int maxiter, double step_max,
+                                  double exp_clamp, void* stream) {
+  return (int)launch_dd(rho, n0, phi0, phi, iters, resid, ng, rows, c0_coef, eps0, c1,
+                        dx2, tol, maxiter, step_max, exp_clamp, (cudaStream_t)stream);
 }
 
 // n and phi0 (ng,), 3 <= ng <= rows; rows as above. coef = f32(e / eps0).
@@ -985,14 +1134,17 @@ int pypic_boltzmann_dn(const float* n, const float* n0, const float* phi0,
                        float coef, float c1, float dx2, float tol,
                        int maxiter, float step_max, float exp_clamp,
                        void* stream) {
-  if (!rows_ok(ng, rows) || ng < 3) return (int)cudaErrorInvalidValue;
-  const size_t smem = newton_smem<2>(rows);
-  cudaError_t err = allow_smem(newton_dn_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  newton_dn_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
-      n, n0, phi0, phi, iters, resid, ng, coef, c1, dx2, tol, maxiter,
-      step_max, exp_clamp);
-  return (int)cudaGetLastError();
+  return (int)launch_dn(n, n0, phi0, phi, iters, resid, ng, rows, coef, c1, dx2, tol,
+                        maxiter, step_max, exp_clamp, (cudaStream_t)stream);
+}
+
+// coef = e / eps0 in float64.
+int pypic_boltzmann_dn_f64(const double* n, const double* n0, const double* phi0,
+                           double* phi, int* iters, double* resid, int ng, int rows,
+                           double coef, double c1, double dx2, double tol, int maxiter,
+                           double step_max, double exp_clamp, void* stream) {
+  return (int)launch_dn(n, n0, phi0, phi, iters, resid, ng, rows, coef, c1, dx2, tol,
+                        maxiter, step_max, exp_clamp, (cudaStream_t)stream);
 }
 
 // dl, d, du, f: the rank's (c,) slabs (dl[0] and du[c-1] are the
@@ -1003,7 +1155,7 @@ int pypic_tridiag3_chain(const float* dl, const float* d, const float* du,
                          const float* f, float* x, float* g6, int c, int rows,
                          int first, int last, void* stream) {
   if (!rows_ok(c, rows) || c < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = pcr_smem<3>(rows);
+  const size_t smem = pcr_smem<3, float>(rows);
   cudaError_t err = allow_smem(tridiag3_chain_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   tridiag3_chain_kernel<<<1, rows, smem, (cudaStream_t)stream>>>(
@@ -1013,22 +1165,27 @@ int pypic_tridiag3_chain(const float* dl, const float* d, const float* du,
 
 // The large path (header), rows > 1,024: one CTA of `threads` threads, k
 // rows a thread (cuda_newton.large_split). scratch: (4 + R) threads k
-// floats for the Newton solves (R = 1 D-D, 2 D-N), 5 threads k for the
-// chain. The other arguments are the small path's.
+// elements for the Newton solves (R = 1 D-D, 2 D-N), 5 threads k for the
+// chain. The other arguments are the small path's. The double solves take
+// at most 512 threads (kMaxLargeThreadsF64).
 int pypic_boltzmann_dirichlet_large(
     const float* rho, const float* n0, const float* phi0, float* phi,
     int* iters, float* resid, float* scratch, int ng, int k, int threads,
     float c0_coef, float eps0, float c1, float dx2, float tol, int maxiter,
     float step_max, float exp_clamp, void* stream) {
-  if (!large_ok(ng, k, threads)) return (int)cudaErrorInvalidValue;
-  const size_t smem = newton_smem<1>(2 * threads);
-  cudaError_t err = allow_smem(newton_dd_large_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const NewtonScalars s{c0_coef, eps0, c1, dx2, tol, step_max, exp_clamp,
-                        maxiter};
-  newton_dd_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      rho, n0, phi0, phi, iters, resid, scratch, ng, k, s);
-  return (int)cudaGetLastError();
+  return (int)launch_dd_large(rho, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                              c0_coef, eps0, c1, dx2, tol, maxiter, step_max, exp_clamp,
+                              (cudaStream_t)stream);
+}
+
+int pypic_boltzmann_dirichlet_large_f64(
+    const double* rho, const double* n0, const double* phi0, double* phi, int* iters,
+    double* resid, double* scratch, int ng, int k, int threads, double c0_coef,
+    double eps0, double c1, double dx2, double tol, int maxiter, double step_max,
+    double exp_clamp, void* stream) {
+  return (int)launch_dd_large(rho, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                              c0_coef, eps0, c1, dx2, tol, maxiter, step_max, exp_clamp,
+                              (cudaStream_t)stream);
 }
 
 int pypic_boltzmann_dn_large(
@@ -1036,15 +1193,19 @@ int pypic_boltzmann_dn_large(
     int* iters, float* resid, float* scratch, int ng, int k, int threads,
     float coef, float c1, float dx2, float tol, int maxiter, float step_max,
     float exp_clamp, void* stream) {
-  if (!large_ok(ng, k, threads)) return (int)cudaErrorInvalidValue;
-  const size_t smem = newton_smem<2>(2 * threads);
-  cudaError_t err = allow_smem(newton_dn_large_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const NewtonScalars s{coef, 0.0f, c1, dx2, tol, step_max, exp_clamp,
-                        maxiter};
-  newton_dn_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-      n, n0, phi0, phi, iters, resid, scratch, ng, k, s);
-  return (int)cudaGetLastError();
+  return (int)launch_dn_large(n, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                              coef, c1, dx2, tol, maxiter, step_max, exp_clamp,
+                              (cudaStream_t)stream);
+}
+
+int pypic_boltzmann_dn_large_f64(
+    const double* n, const double* n0, const double* phi0, double* phi, int* iters,
+    double* resid, double* scratch, int ng, int k, int threads, double coef, double c1,
+    double dx2, double tol, int maxiter, double step_max, double exp_clamp,
+    void* stream) {
+  return (int)launch_dn_large(n, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                              coef, c1, dx2, tol, maxiter, step_max, exp_clamp,
+                              (cudaStream_t)stream);
 }
 
 int pypic_tridiag3_chain_large(const float* dl, const float* d,
@@ -1052,8 +1213,8 @@ int pypic_tridiag3_chain_large(const float* dl, const float* d,
                                float* g6, float* scratch, int c, int k,
                                int threads, int first, int last,
                                void* stream) {
-  if (!large_ok(c, k, threads)) return (int)cudaErrorInvalidValue;
-  const size_t smem = pcr_smem<3>(2 * threads);
+  if (!large_ok<float>(c, k, threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = pcr_smem<3, float>(2 * threads);
   cudaError_t err = allow_smem(tridiag3_chain_large_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   tridiag3_chain_large_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(

@@ -81,13 +81,16 @@ ionization branches are tensor operations.
 
 The Newton solve is a one-launch kernel of ``ops.cuda_newton``
 (``boltzmann_dirichlet``, or ``boltzmann_dn`` on a D-N grid) for
-``newton_backend`` 'pallas', and for 'auto' on a CUDA float32 state, at
+``newton_backend`` 'pallas' and 'auto' on the card, float32 or float64, at
 any ng (one CTA, a row a thread up to 1,024 nodes, the large path's
 blocks of rows above), as the JAX engine's 'auto' takes its Pallas kernel
-on the TPU at any ng. 'xla', and 'auto' on the CPU, take the op-composed
-Thomas loop of ``ops.poisson`` (the JAX engine's 'xla' route), which
-reads its residual on the host once an iteration; on the card it is
-counted in ``THOMAS_SOLVES``.
+on the TPU at any ng, and its float64 solve stays on the device. 'xla',
+'auto' on the CPU, and a float64 state on the CPU take the op-composed
+Thomas loop of ``ops.poisson`` (the JAX engine's 'xla' route, where it
+sends a float64 state whatever the backend), which reads its residual on
+the host once an iteration; on the card it is counted in
+``THOMAS_SOLVES``. 'pallas' on a float32 CPU state runs the kernel's
+plain version.
 
 The draws come from the Philox kernels, keyed by the state's two key
 words and the host step: ``ops.cuda_rng.source_batch``
@@ -144,11 +147,14 @@ the fused kernels take no method, as in JAX.
 The 'threefry' sampler raises ``NotImplementedError`` from ``init_state``
 and ``make_step``, with the reason.
 
-A float64 state runs on the CPU as the JAX engine's under x64: the plain
-kernel versions in float64, B and the kernels' scalars in the state's
-dtype, the Newton solve on the op-composed route (JAX sends float64 to
-XLA). On the card the engine refuses it until its kernels have double
-forms (``cuda_cic.check_engine_dtype``, ROADMAP queue 1 item 19b).
+A float64 state runs as the JAX engine's under x64: B and the kernels'
+scalars in the state's dtype, on the CPU the plain kernel versions in
+float64 and the Newton solve on the op-composed route (JAX sends float64
+to XLA), on the card the double kernels of rows 7-9 (``deposit2``, the
+fused push, the carried sweep), rows 4 and 6 and the double Newton
+kernels (rows 22 and 23), every route the CPU runs (fused, composed,
+carried, D-N, GC, ``axis_name``), with no host sync a step. The 'hash',
+Philox and source-batch draws stay float32, as the JAX engine's do.
 """
 
 from __future__ import annotations
@@ -179,8 +185,8 @@ _MASK32 = 0xFFFFFFFF
 PREFIX_MIN_WIDTH = 1024
 # the D-N Newton envelope of the reference (pygcpic.py:1079-1080)
 DN_TOL, DN_MAXITER = 1e-3, 100
-# op-composed Thomas solves on a CUDA state (newton_backend 'xla', or a
-# state that is not float32), by wall condition: the route reads the host
+# op-composed Thomas solves on a CUDA state (newton_backend 'xla'), by
+# wall condition: the route reads the host
 # once a Newton iteration, so a run that takes it is told apart by this
 # count
 THOMAS_SOLVES = {"dirichlet": 0, "dirichlet_neumann": 0}
@@ -779,9 +785,11 @@ def make_step(cfg: MagnetizedConfig,
 
     def _newton(rho, n_dens, n0, phi_warm):
         dens = n_dens if dirichlet_neumann else rho
-        kernel = dens.dtype == torch.float32 and (
-            cfg.newton_backend == "pallas"
-            or (cfg.newton_backend == "auto" and dens.is_cuda))
+        if dens.is_cuda:  # the kernel, float32 or float64, but for 'xla'
+            kernel = cfg.newton_backend in ("pallas", "auto")
+        else:  # JAX sends a float64 state to XLA whatever the backend
+            kernel = (cfg.newton_backend == "pallas"
+                      and dens.dtype == torch.float32)
         if dirichlet_neumann:
             if kernel:
                 return cuda_newton.boltzmann_dn(dens, n0, cfg.te, dx, phi_warm,

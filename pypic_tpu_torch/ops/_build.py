@@ -141,6 +141,22 @@ _SIGNATURES = {
     "pypic_boris_gather_push_deposit": (
         [_P] * 16 + [_L, _I, _F, _F, _F, _F, _I, _I, _I, _F, _I, _I, _I, _I,
                      _I, _P], _I),
+    # the double kernels of the magnetized engine's float64 state (item
+    # 19b): rows 7-9, 22 and 23, every scalar _D
+    "pypic_deposit2_f64": ([_P] * 5 + [_L, _I, _I, _I, _I, _I, _I, _P], _I),
+    "pypic_boris_gather_push_f64": (
+        [_P] * 11 + [_L, _I, _D, _D, _D, _D, _I, _I, _I, _I, _P], _I),
+    "pypic_boris_gather_push_deposit_f64": (
+        [_P] * 16 + [_L, _I, _D, _D, _D, _D, _I, _I, _I, _D, _I, _I, _I, _I,
+                     _I, _P], _I),
+    "pypic_boltzmann_dirichlet_f64": (
+        [_P] * 6 + [_I, _I] + [_D] * 5 + [_I, _D, _D, _P], _I),
+    "pypic_boltzmann_dn_f64": (
+        [_P] * 6 + [_I, _I] + [_D] * 4 + [_I, _D, _D, _P], _I),
+    "pypic_boltzmann_dirichlet_large_f64": (
+        [_P] * 7 + [_I] * 3 + [_D] * 5 + [_I, _D, _D, _P], _I),
+    "pypic_boltzmann_dn_large_f64": (
+        [_P] * 7 + [_I] * 3 + [_D] * 4 + [_I, _D, _D, _P], _I),
     "pypic_explicit_domain_cycle": (
         [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),

@@ -49,10 +49,11 @@ tensors are CUDA tensors and runs its plain PyTorch version (``*_plain``)
 when they lie on the CPU. Any other device, mixed devices or dtypes, a
 dtype other than float32 and float64, or a non-contiguous or mis-shaped
 tensor raises. Float64 (a float64 state, as the JAX package runs under
-x64) runs on the CPU in every wrapper's plain version (not the Newton
-solves', ``F32_ONLY``), and on the card in the wrappers with a double
-kernel, ``F64_KERNELS`` (rows 1-6, and the sheath engine's pass and
-finalize, ``deposit_det``, ``sheath_reinject`` and ``hash_batch``: the
+x64) runs on the CPU in every wrapper's plain version (not the slab
+chain solve's, ``F32_ONLY``), and on the card in the wrappers with a
+double kernel, ``F64_KERNELS`` (rows 1-6; the sheath engine's pass and
+finalize, ``deposit_det``, ``sheath_reinject`` and ``hash_batch``; the
+magnetized engine's rows 7-9 and its Newton solves, rows 22 and 23: the
 ``_f64`` entry points, counted under ``<wrapper>_f64``); any other
 wrapper raises ``NotImplementedError`` naming its ROADMAP item
 (``check_dtype``). A
@@ -98,12 +99,14 @@ from .fd import smooth_periodic
 
 # The wrappers with a float64 kernel on the card (ROADMAP queue 1, item
 # 19: the implicit engine's rows 1-6; item 19a: the sheath engine's pass
-# and finalize, deposit_det, the re-injection and the hash sampler). On
+# and finalize, deposit_det, the re-injection and the hash sampler; item
+# 19b: the magnetized engine's rows 7-9 and its two Newton solves). On
 # CPU tensors every wrapper's plain version takes float64.
 F64_KERNELS = ("picard_iteration", "picard_iteration_shared",
                "picard_finalize_nodep", "picard_finalize", "deposit", "gather",
                "sheath_picard", "sheath_finalize", "deposit_det",
-               "sheath_reinject", "hash_batch")
+               "sheath_reinject", "hash_batch", "deposit2", "boris_gather_push",
+               "boris_gather_push_deposit", "boltzmann_dirichlet", "boltzmann_dn")
 LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
@@ -118,9 +121,10 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
             "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
             "boltzmann_dn_large": 0, "tridiag3_chain_large": 0,
-            # the double kernels of a float64 state (rows 1-6, 10, 21,
-            # deposit_det and hash_batch)
-            **{f"{name}_f64": 0 for name in F64_KERNELS}}
+            # the double kernels of a float64 state (rows 1-10, 21-23,
+            # deposit_det and hash_batch) and the double Newton large path
+            **{f"{name}_f64": 0 for name in F64_KERNELS},
+            "boltzmann_dirichlet_large_f64": 0, "boltzmann_dn_large_f64": 0}
 # launches in a large mode, keyed "wrapper mode": "global", "field" for
 # the carried Boris deposit (its field in shared memory up to
 # FIELD_SMEM_MAX_NG), or "fixed" for the fixed-point sums of the sheath
@@ -143,6 +147,16 @@ STATIC_SMEM_ROOM = 1024
 # sheath pass and deposit_det keep it there up to this ng, and read it
 # from device memory above
 FIELD_SMEM_MAX_NG = (SMEM_LIMIT - STATIC_SMEM_ROOM) // 4
+
+
+def field_smem_max_ng(item: int = 4) -> int:
+    """The nodes of a field of ``item``-byte elements one block's shared
+    memory holds beside STATIC_SMEM_ROOM (csrc/cic_common.cuh
+    field_smem_max_ng): FIELD_SMEM_MAX_NG = 57,856 floats, 28,928
+    doubles."""
+    return (SMEM_LIMIT - STATIC_SMEM_ROOM) // item
+
+
 # the large modes' limit on ng (every kernel with a large mode): float32
 # positions below 2^22 still resolve a quarter cell, and the int64 sums
 # of deposit_det take 8 ng bytes (32 MiB here)
@@ -227,7 +241,7 @@ def check_static_smem(log: str) -> list[str]:
     return problems
 
 
-# the double instantiations of the float64 kernels (rows 1-6, 10, 21,
+# the double instantiations of the float64 kernels (rows 1-10, 21-23,
 # deposit_det and hash_batch): (kernel, the index of its element-type
 # template argument)
 F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
@@ -236,7 +250,13 @@ F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
                  # the sheath engine's (item 19a)
                  ("sheath_pass_kernel", 2), ("sheath_large_kernel", 4),
                  ("deposit_det_kernel", 2), ("deposit_det_large_kernel", 3),
-                 ("sheath_reinject_kernel", 1), ("hash_batch_kernel", 1))
+                 ("sheath_reinject_kernel", 1), ("hash_batch_kernel", 1),
+                 # the magnetized engine's (item 19b): rows 7-9, 22 and 23
+                 ("deposit2_kernel", 3), ("deposit2_global_kernel", 3),
+                 ("boris_kernel", 2), ("boris_deposit_kernel", 3),
+                 ("boris_deposit_global_kernel", 4), ("newton_dd_kernel", 0),
+                 ("newton_dn_kernel", 0), ("newton_dd_large_kernel", 0),
+                 ("newton_dn_large_kernel", 0))
 
 
 def check_f64_kernels(log: str) -> list[str]:
@@ -262,30 +282,25 @@ def _count(name: str, mode: str) -> None:
         LARGE_LAUNCHES[f"{name} {mode}"] += 1
 
 
-_F64_MAGNETIZED = ("ROADMAP.md queue 1, item 19b (the magnetized engine's float64 "
-                   "kernels)")
 _F64_EXPLICIT = "ROADMAP.md queue 1, item 19c (the explicit engine's float64 kernels)"
 _F64_FLOAT32 = ("no gap: the JAX package runs this path in float32 only (ROADMAP.md "
                 "queue 1, item 19)")
 # the item that will bring each other wrapper a float64 kernel
 F64_ITEMS = {
-    "deposit2": _F64_MAGNETIZED, "boris_gather_push": _F64_MAGNETIZED,
-    "boris_gather_push_deposit": _F64_MAGNETIZED,
     "leapfrog_gather_push_deposit": _F64_EXPLICIT, "explicit_cycle": _F64_EXPLICIT,
     "explicit_cycle_resident": _F64_EXPLICIT, "leapfrog_gather_push": _F64_EXPLICIT,
     "implicit_resident": _F64_FLOAT32, "picard_iteration_ext": _F64_FLOAT32,
     "picard_finalize_ext": _F64_FLOAT32, "explicit_domain_cycle": _F64_FLOAT32,
 }
-# The wrappers that take float32 alone, on either device: the Newton
-# solves. A float64 state solves on the op-composed route
-# (engines/magnetized.py), as the JAX package's goes to XLA.
-F32_ONLY = ("boltzmann_dirichlet", "boltzmann_dn", "tridiag3_chain")
+# The wrappers that take float32 alone, on either device: the slab
+# engines' chain solve (the JAX package runs the slab engines in float32).
+F32_ONLY = ("tridiag3_chain",)
 
 
 # the engines whose kernels take float32 alone on the card, by the item
-# that will bring them float64 kernels (the implicit and sheath engines
-# run a float64 state on their double kernels)
-F64_ENGINE_ITEMS = {"magnetized": _F64_MAGNETIZED, "explicit": _F64_EXPLICIT}
+# that will bring them float64 kernels (the implicit, sheath and
+# magnetized engines run a float64 state on their double kernels)
+F64_ENGINE_ITEMS = {"explicit": _F64_EXPLICIT}
 
 
 def check_engine_dtype(engine: str, device: torch.device, dtype: torch.dtype) -> None:
@@ -310,13 +325,13 @@ def check_engine_dtype(engine: str, device: torch.device, dtype: torch.dtype) ->
 def check_dtype(name: str, device: torch.device, dtype: torch.dtype) -> None:
     """Raise unless wrapper ``name`` runs ``dtype`` tensors on ``device``:
     float32 anywhere, float64 on the CPU (the plain versions; not the
-    F32_ONLY wrappers) and on the card where the wrapper has a float64
+    F32_ONLY wrapper) and on the card where the wrapper has a float64
     kernel (F64_KERNELS). A float64
     tensor on the card without one raises NotImplementedError naming its
     ROADMAP item (F64_ITEMS); nothing falls back to the CPU."""
     if name in F32_ONLY and dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32 tensors, got {dtype} (a float64 "
-                        "state solves on the op-composed route)")
+        raise TypeError(f"{name}: expected float32 tensors, got {dtype} (the JAX "
+                        "package runs the slab engines in float32)")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: expected float32 or float64 tensors, got {dtype}")
     if device.type == "cuda" and dtype == torch.float64 and name not in F64_KERNELS:
@@ -1458,26 +1473,27 @@ def deposit_launch_shape(n: int, ng: int, field: bool, sms: int,
     large mode: the same rows a block, ``cols`` 0 (no shared histogram,
     every add a global atomic), ``smem`` the field's where it fits alone
     (ng <= FIELD_SMEM_MAX_NG), else 0; it raises above LARGE_MAX_NG.
-    ``item`` 8: the double deposit of a float64 state (one histogram),
-    whose columns take twice the bytes (its one column fits to 29,056
-    nodes)."""
+    ``item`` 8: the double deposits of a float64 state, whose columns and
+    field take twice the bytes (one column fits to 29,056 nodes for
+    ``deposit``, 14,528 for deposit2, 9,684 with the field; the field
+    alone to ``field_smem_max_ng(8)`` = 28,928)."""
     if (n < 0 or ng < 2 or sms < 1 or (hists, field) not in _DEPOSIT_NAMES
             or max_cols not in (1, 2, 4, 8, 16, 32)):
         raise ValueError(f"deposit_launch_shape needs n >= 0, ng >= 2, sms >= 1, "
                          f"1 or 2 histograms (2 with the field) and max_cols a power "
                          f"of two up to 32; got {n}, {ng}, {sms}, {hists}, {max_cols}")
-    if item not in (4, 8) or (item == 8 and (hists, field) != (1, False)):
+    if item not in (4, 8):
         raise ValueError(f"deposit_launch_shape: item {item} (4, or 8 for the "
-                         "single deposit's double kernel)")
+                         "double kernels)")
     name = _DEPOSIT_NAMES[(hists, field)]
     static = DEPOSIT_STATIC[name]
     mode = smem_mode(ng, hists + int(field), static=static, what=name, item=item)
-    if mode == "global" and field and ng <= FIELD_SMEM_MAX_NG:
+    if mode == "global" and field and ng <= field_smem_max_ng(item):
         mode = "field"
 
     def smem(cols: int) -> int:
         if mode != "shared":
-            return 4 * ng if mode == "field" else 0
+            return item * ng if mode == "field" else 0
         return item * (hists * cols + int(field)) * ng
 
     if n >= 4 * DEPOSIT_WIDE_THREADS * sms:
@@ -1529,8 +1545,9 @@ def deposit2_plain(p, va, vb, ng: int, *, periodic: bool):
 def deposit2(p, va, vb, ng: int, *, periodic: bool):
     """Deposit ``va`` and ``vb`` (every prefactor included, 0 for masked
     particles) at grid positions p onto ng nodes in one sweep. Returns
-    (a, b). Positions off the grid (wall-lost slots, weight 0) are clamped
-    into it as ``ops.cic.cic_indices_weights`` clamps them."""
+    (a, b) in the inputs' dtype (float64: the double kernel, counted as
+    ``deposit2_f64``). Positions off the grid (wall-lost slots, weight 0)
+    are clamped into it as ``ops.cic.cic_indices_weights`` clamps them."""
     kind = _device_kind((p, va, vb), "deposit2")
     n = p.shape[0] if p.dim() == 1 else -1
     for name, t in (("p", p), ("va", va), ("vb", vb)):
@@ -1538,17 +1555,16 @@ def deposit2(p, va, vb, ng: int, *, periodic: bool):
     _check_ng(ng)
     if kind == "cpu":
         return deposit2_plain(p, va, vb, ng, periodic=periodic)
-    lib = _build.library()
+    fn, name = _launcher(_build.library(), "deposit2", p.dtype)
     dev = p.device
-    out = torch.zeros((2, ng), dtype=torch.float32, device=dev)
+    out = torch.zeros((2, ng), dtype=p.dtype, device=dev)
     with torch.cuda.device(dev):
-        shape = _deposit_shape(dev, n, ng, False)
-        err = lib.pypic_deposit2(p.data_ptr(), va.data_ptr(), vb.data_ptr(),
-                                 out[0].data_ptr(), out[1].data_ptr(), n, ng,
-                                 int(periodic), shape.rows, shape.blocks,
-                                 shape.threads, shape.cols, _stream(dev))
-    _build.check(err, "deposit2")
-    _count("deposit2", shape.mode)
+        shape = _deposit_shape(dev, n, ng, False, item=p.element_size())
+        err = fn(p.data_ptr(), va.data_ptr(), vb.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), n, ng, int(periodic), shape.rows, shape.blocks,
+                 shape.threads, shape.cols, _stream(dev))
+    _build.check(err, name)
+    _count(name, shape.mode)
     return out[0], out[1]
 
 
@@ -1611,7 +1627,8 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
         swap_weights: gather at the cell-mirrored position (the
             reference's swapped intra-cell weights).
 
-    Returns (p1, vx1, vy1, vz1).
+    Returns (p1, vx1, vy1, vz1) in the inputs' dtype (float64: the double
+    kernel, its scalars in float64, counted as ``boris_gather_push_f64``).
     """
     arrays = (p, vx, vy, vz, const, act)
     kind = _device_kind((field,) + arrays, "boris_gather_push")
@@ -1624,21 +1641,21 @@ def boris_gather_push(field, p, vx, vy, vz, const, act, *, b, dt_dx: float,
     if kind == "cpu":
         return boris_gather_push_plain(field, p, vx, vy, vz, const, act, b=b,
                                        dt_dx=dt_dx, swap_weights=swap_weights)
-    dev = p.device
-    launch = _sweep(dev, "boris_gather_push", n, ng)
-    lib = _build.library()
-    bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    dev, dtype = p.device, p.dtype
+    launch = _sweep(dev, "boris_gather_push", n, ng, item=p.element_size())
+    fn, name = _launcher(_build.library(), "boris_gather_push", dtype)
+    bx, by, bz, dt_dx_k = boris_scalars(b, dt_dx, dtype)
+    out = torch.empty((4, n), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_boris_gather_push(
+        err = fn(
             field.data_ptr(), p.data_ptr(), vx.data_ptr(), vy.data_ptr(),
             vz.data_ptr(), const.data_ptr(), act.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), n, ng,
-            bx, by, bz, dt_dx32, int(bool(swap_weights)),
+            bx, by, bz, dt_dx_k, int(bool(swap_weights)),
             SMEM_MODES[launch.mode], launch.blocks, launch.threads,
             _stream(dev))
-    _build.check(err, "boris_gather_push")
-    _count("boris_gather_push", launch.mode)
+    _build.check(err, name)
+    _count(name, launch.mode)
     return out[0], out[1], out[2], out[3]
 
 
@@ -1719,7 +1736,10 @@ def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
     clamps to it and, where wn > 0, is counted.
 
     Returns (p1, vx1, vy1, vz1, rho, n_dens, n_clamped), n_clamped an
-    int32 0-d tensor on the particles' device.
+    int32 0-d tensor on the particles' device, the rest in the inputs'
+    dtype (float64: the double kernel, its window frame and clamps taken
+    from the float64 positions, counted as
+    ``boris_gather_push_deposit_f64``).
     """
     arrays = (p, vx, vy, vz, const, act, wr, wn)
     kind = _device_kind((field,) + arrays, "boris_gather_push_deposit")
@@ -1736,22 +1756,22 @@ def boris_gather_push_deposit(field, p, vx, vy, vz, const, act, wr, wn, *, b,
         return boris_gather_push_deposit_plain(
             field, p, vx, vy, vz, const, act, wr, wn, b=b, dt_dx=dt_dx,
             pad=pad, swap_weights=swap_weights)
-    lib = _build.library()
-    bx, by, bz, dt_dx32 = boris_scalars(b, dt_dx)
-    stride, num_k, inv_stride = _carry_frame(ng)
-    dev = p.device
-    out = padded_rows(4, n, dev)
-    dens = torch.zeros((2, ng), dtype=torch.float32, device=dev)
+    dev, dtype = p.device, p.dtype
+    fn, name = _launcher(_build.library(), "boris_gather_push_deposit", dtype)
+    bx, by, bz, dt_dx_k = boris_scalars(b, dt_dx, dtype)
+    stride, num_k, inv_stride = _carry_frame(ng, dtype)
+    out = padded_rows(4, n, dev, dtype)
+    dens = torch.zeros((2, ng), dtype=dtype, device=dev)
     n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        shape = _deposit_shape(dev, n, ng, True)
-        err = lib.pypic_boris_gather_push_deposit(
+        shape = _deposit_shape(dev, n, ng, True, item=p.element_size())
+        err = fn(
             field.data_ptr(), *(t.data_ptr() for t in arrays),
             *(o.data_ptr() for o in out), dens[0].data_ptr(),
             dens[1].data_ptr(), n_clamped.data_ptr(), n, ng, bx, by, bz,
-            dt_dx32, int(bool(swap_weights)), stride, num_k, inv_stride,
+            dt_dx_k, int(bool(swap_weights)), stride, num_k, inv_stride,
             int(pad), shape.rows, shape.blocks, shape.threads, shape.cols,
             _stream(dev))
-    _build.check(err, "boris_gather_push_deposit")
-    _count("boris_gather_push_deposit", shape.mode)
+    _build.check(err, name)
+    _count(name, shape.mode)
     return out[0], out[1], out[2], out[3], dens[0], dens[1], n_clamped

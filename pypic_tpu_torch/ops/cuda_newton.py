@@ -50,6 +50,16 @@ launch the kernel, CPU tensors run the plain version, anything else
 raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``,
 ``['boltzmann_dn']`` or ``['tridiag3_chain']``, or on the large path to
 the same name with ``_large`` after it.
+
+The two Newton solves take a float64 state too (the JAX package solves
+one in float64 under x64, on XLA's on-device loop): float64 tensors run
+the plain versions in float64 on the CPU and the double kernels of
+``csrc/newton.cu`` on the card (the ``_f64`` entry points, counted under
+the name with ``_f64`` after it), with the scalars of ``newton_scalars``
+in float64 and the residual in float64. Their large path holds a CTA of
+at most ``LARGE_F64_THREADS`` threads (``large_split`` with ``item`` 8).
+``tridiag3_chain`` takes float32 alone: the slab engines are float32 in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ import torch
 
 from ..constants import EPSILON_0, E_CHARGE, K_BOLTZMANN
 from . import _build
-from .cuda_cic import LAUNCHES, _check_1d, _device_kind, _stream
+from .cuda_cic import LAUNCHES, _check_1d, _device_kind, _stream, real
 from .poisson import NewtonResult, _EXP_CLAMP
 
 _LANE = 128  # the smallest padded row count, as on the TPU
@@ -68,6 +78,10 @@ SMALL_MAX_ROWS = 1024  # the one-CTA kernels, a row a thread
 # the large path's ceiling: the kernel's int offsets into its (4 + R,
 # rows) scratch stay below 2^31
 LARGE_MAX_ROWS = 1 << 27
+# the double kernels' large path: at most this many threads, whose 2 x 512
+# PCR rows of 40 B fill 172,032 B of shared memory (1,024 would take twice
+# that, above a block's 232,448)
+LARGE_F64_THREADS = 512
 _COEF = float(np.float32(E_CHARGE / EPSILON_0))  # f32(e / eps0)
 
 
@@ -83,35 +97,47 @@ def kernel_rows(ng: int) -> int:
     return -(-ng // _WARP) * _WARP
 
 
-def large_split(rows: int) -> tuple[int, int]:
+def large_split(rows: int, item: int = 4) -> tuple[int, int]:
     """(k, threads) of the large path for ``rows`` > SMALL_MAX_ROWS: k =
-    ceil(rows / 1024) rows a thread, threads = ceil(rows / k) rounded up
-    to a whole warp (at most 1,024). The system has threads x k rows, the
+    ceil(rows / most) rows a thread, threads = ceil(rows / k) rounded up
+    to a whole warp (at most ``most``: 1,024, or LARGE_F64_THREADS for
+    the double kernels, ``item`` 8). The system has threads x k rows, the
     rows past ``rows`` identity rows."""
     if rows <= SMALL_MAX_ROWS:
         raise ValueError(f"the large path takes more than {SMALL_MAX_ROWS} "
                          f"rows, got {rows}")
-    k = -(-rows // SMALL_MAX_ROWS)
+    most = SMALL_MAX_ROWS if item == 4 else LARGE_F64_THREADS
+    k = -(-rows // most)
     return k, -(-(-(-rows // k)) // _WARP) * _WARP
 
 
-def solve_rows(ng: int) -> int:
+def solve_rows(ng: int, item: int = 4) -> int:
     """Rows of the system the port solves for ng physical rows: kernel_rows
-    on the small path, threads x k on the large."""
+    on the small path, threads x k on the large (``item``: the element's
+    bytes)."""
     if ng <= SMALL_MAX_ROWS:
         return kernel_rows(ng)
-    k, threads = large_split(ng)
+    k, threads = large_split(ng, item)
     return k * threads
 
 
-def newton_scalars(te: float, dx: float, tol: float):
-    """(c1, dx^2, tol, step_max) as the JAX wrapper forms them: float64 on
-    the host, rounded to float32 once. Each a Python float."""
-    f32 = np.float32
+def newton_scalars(te: float, dx: float, tol: float,
+                   dtype: torch.dtype = torch.float32):
+    """(c1, dx^2, tol, step_max) as the JAX solve forms them in ``dtype``:
+    float64 on the host, rounded to float32 once for a float32 state (the
+    Pallas wrapper's np.float32), kept in float64 for a float64 one (XLA's
+    float64 loop: its Python scalars in the state's dtype). Each a Python
+    float."""
+    f = real(dtype)
     c1 = float(E_CHARGE / (K_BOLTZMANN * float(te)))
     dx2 = float(dx) * float(dx)
-    return (float(f32(c1)), float(f32(dx2)), float(f32(tol)),
-            float(f32(_EXP_CLAMP / c1)))
+    return (float(f(c1)), float(f(dx2)), float(f(tol)),
+            float(f(_EXP_CLAMP / c1)))
+
+
+def _coef(dtype: torch.dtype) -> float:
+    """e / eps0 in ``dtype`` (the kernels' c0 = coef n0 and the D-N c2)."""
+    return float(real(dtype)(E_CHARGE / EPSILON_0))
 
 
 def _shift_down(x, s, fill):
@@ -200,18 +226,19 @@ def _partition_solve(a, b, c, f, k: int, threads: int):
 
 def _tridiag_solve(a, b, c, f, ng: int):
     """The solve of the ``solve_rows(ng)`` rows as the kernel for ng runs
-    it: ``_pcr_solve`` up to SMALL_MAX_ROWS, ``_partition_solve`` above."""
+    it: ``_pcr_solve`` up to SMALL_MAX_ROWS, ``_partition_solve`` above
+    (with the double kernels' split for float64)."""
     if ng <= SMALL_MAX_ROWS:
         return _pcr_solve(a, b, c, f)
-    return _partition_solve(a, b, c, f, *large_split(ng))
+    return _partition_solve(a, b, c, f, *large_split(ng, a.element_size()))
 
 
 def _sum_sq(dphi, ng: int):
     """sum(dphi^2) as the plain loop tests it: in float32 up to
     SMALL_MAX_ROWS; above, in float64 rounded to float32, as the large
-    path's per-thread float64 sums."""
+    path's per-thread float64 sums; a float64 dphi in float64."""
     sq = dphi * dphi
-    if ng <= SMALL_MAX_ROWS:
+    if ng <= SMALL_MAX_ROWS or sq.dtype == torch.float64:
         return torch.sum(sq)
     return torch.sum(sq.double()).float()
 
@@ -221,38 +248,40 @@ def _sum_sq(dphi, ng: int):
 _SCRATCH_ROWS = {"boltzmann_dirichlet": 5, "boltzmann_dn": 6, "tridiag3_chain": 5}
 
 
-def _path(what: str, rows: int, dev):
-    """The kernel ``what`` launches for ``rows`` on ``dev``: (its launch
-    count's name, (k, threads) or None, scratch or None). Up to
-    SMALL_MAX_ROWS the one-CTA kernel; above, the large path with its split
-    and its scratch; raises above LARGE_MAX_ROWS."""
+def _path(what: str, rows: int, dev, dtype: torch.dtype = torch.float32):
+    """The kernel ``what`` launches for ``rows`` on ``dev`` in ``dtype``:
+    (its entry point's and launch count's name, (k, threads) or None,
+    scratch or None). Up to SMALL_MAX_ROWS the one-CTA kernel; above, the
+    large path with its split and its scratch; the double kernels' names
+    end in ``_f64``. Raises above LARGE_MAX_ROWS."""
+    suffix = "_f64" if dtype == torch.float64 else ""
     if rows <= SMALL_MAX_ROWS:
-        return what, None, None
+        return what + suffix, None, None
     if rows > LARGE_MAX_ROWS:
         raise ValueError(
             f"{what} takes at most {LARGE_MAX_ROWS} rows on the card (the "
             f"large path's int offsets into its scratch), got {rows}")
-    k, threads = large_split(rows)
-    scratch = torch.empty((_SCRATCH_ROWS[what] * k * threads,),
-                          dtype=torch.float32, device=dev)
-    return f"{what}_large", (k, threads), scratch
+    k, threads = large_split(rows, torch.finfo(dtype).bits // 8)
+    scratch = torch.empty((_SCRATCH_ROWS[what] * k * threads,), dtype=dtype,
+                          device=dev)
+    return f"{what}_large{suffix}", (k, threads), scratch
 
 
-def _as_n0(n0, dev) -> torch.Tensor:
-    """n0 as a (1,) float32 tensor on ``dev`` (a device tensor stays on the
-    device: no host read)."""
+def _as_n0(n0, dev, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """n0 as a (1,) tensor of ``dtype`` on ``dev`` (a device tensor stays
+    on the device: no host read)."""
     if isinstance(n0, torch.Tensor):
         if n0.device != dev:
             raise ValueError(f"n0 lies on {n0.device}, rho on {dev}")
-        return n0.reshape(1).to(torch.float32)
-    return torch.full((1,), float(n0), dtype=torch.float32, device=dev)
+        return n0.reshape(1).to(dtype)
+    return torch.full((1,), float(n0), dtype=dtype, device=dev)
 
 
 def _start(rho, phi0):
     ng = rho.shape[0]
     if phi0 is None:
-        return torch.zeros((ng,), dtype=torch.float32, device=rho.device)
-    start = phi0.to(torch.float32).clone()
+        return torch.zeros((ng,), dtype=rho.dtype, device=rho.device)
+    start = phi0.to(rho.dtype).clone()
     start[0] = 0.0
     start[-1] = 0.0
     return start
@@ -261,26 +290,28 @@ def _start(rho, phi0):
 def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
                               phi0=None):
     """The kernel's Newton loop as tensor operations (pallas_newton.py
-    _newton_dd_kernel), in its operation order. Returns NewtonResult."""
+    _newton_dd_kernel), in its operation order, in rho's dtype (float32,
+    or float64: the double kernel's scalars and residual). Returns
+    NewtonResult."""
     ng = rho.shape[0]
-    dev = rho.device
-    rows = solve_rows(ng)
-    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
-    c0 = _COEF * _as_n0(n0, dev)[0]
+    dev, dtype = rho.device, rho.dtype
+    rows = solve_rows(ng, rho.element_size())
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
+    c0 = _coef(dtype) * _as_n0(n0, dev, dtype)[0]
     col = torch.arange(rows, device=dev)
     valid = col < ng
     interior = (col >= 1) & (col <= ng - 2)
     boundary = valid & ~interior
-    a_lap = interior.to(torch.float32)
+    a_lap = interior.to(dtype)
     c_lap = a_lap
-    d_lap = torch.where(interior, -2.0, 1.0)
+    d_lap = torch.where(interior, -2.0, 1.0).to(dtype)
     pad = rows - ng
-    zeros = torch.zeros((pad,), dtype=torch.float32, device=dev)
-    c2 = torch.cat([rho / float(np.float32(EPSILON_0)), zeros])
+    zeros = torch.zeros((pad,), dtype=dtype, device=dev)
+    c2 = torch.cat([rho / float(real(dtype)(EPSILON_0)), zeros])
     phi = torch.cat([_start(rho, phi0), zeros])
     dx2_c0 = dx2 * c0
     jac_b = -dx2 * c0 * c1
-    residual = torch.ones((), dtype=torch.float32, device=dev)
+    residual = torch.ones((), dtype=dtype, device=dev)
     it = 0
     while residual.item() > tol32 and it < maxiter:
         expo = torch.exp(torch.clamp(c1 * phi, -_EXP_CLAMP, _EXP_CLAMP))
@@ -302,16 +333,18 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
 
 
 def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
-    """Newton-Boltzmann D-D solve of the (ng,) float32 charge density rho
-    for the potential, in one kernel launch on a CUDA tensor (the large
-    path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS).
+    """Newton-Boltzmann D-D solve of the (ng,) float32 or float64 charge
+    density rho for the potential, in one kernel launch on a CUDA tensor
+    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS; a
+    float64 rho the double kernel, counted under ``_f64``).
 
     ``n0`` is the Boltzmann reference density: a Python number or a 0-d
     tensor on rho's device (read there by the kernel). ``phi0`` is the warm
     start or None (cold start at 0); its walls are pinned to 0. The
-    residual is sum(dphi^2) of the last iteration, tested against the
-    float32 ``tol``. Returns NewtonResult(phi shifted to min 0 over the
-    physical rows, iterations (int32), residual), each on rho's device.
+    residual is sum(dphi^2) of the last iteration, tested against
+    ``tol`` in rho's dtype. Returns NewtonResult(phi shifted to min 0 over
+    the physical rows, iterations (int32), residual), each on rho's
+    device.
     """
     tensors = (rho,) if phi0 is None else (rho, phi0)
     kind = _device_kind(tensors, "boltzmann_dirichlet")
@@ -324,26 +357,24 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
     if kind == "cpu":
         return boltzmann_dirichlet_plain(rho, n0, te, dx, tol=tol,
                                          maxiter=maxiter, phi0=phi0)
-    dev = rho.device
-    name, split, scratch = _path("boltzmann_dirichlet", ng, dev)
-    lib = _build.library()
-    n0_t = _as_n0(n0, dev)
-    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
-    phi = torch.empty((ng,), dtype=torch.float32, device=dev)
+    dev, dtype = rho.device, rho.dtype
+    name, split, scratch = _path("boltzmann_dirichlet", ng, dev, dtype)
+    fn = getattr(_build.library(), f"pypic_{name}")
+    n0_t = _as_n0(n0, dev, dtype)
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
+    phi = torch.empty((ng,), dtype=dtype, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
-    resid = torch.empty((), dtype=torch.float32, device=dev)
+    resid = torch.empty((), dtype=dtype, device=dev)
     ptrs = (rho.data_ptr(), n0_t.data_ptr(),
             None if phi0 is None else phi0.data_ptr(), phi.data_ptr(),
             iters.data_ptr(), resid.data_ptr())
-    scalars = (_COEF, float(np.float32(EPSILON_0)), c1, dx2, tol32,
+    scalars = (_coef(dtype), float(real(dtype)(EPSILON_0)), c1, dx2, tol32,
                int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
     with torch.cuda.device(dev):
         if split is None:
-            err = lib.pypic_boltzmann_dirichlet(*ptrs, ng, kernel_rows(ng),
-                                                *scalars)
+            err = fn(*ptrs, ng, kernel_rows(ng), *scalars)
         else:
-            err = lib.pypic_boltzmann_dirichlet_large(
-                *ptrs, scratch.data_ptr(), ng, *split, *scalars)
+            err = fn(*ptrs, scratch.data_ptr(), ng, *split, *scalars)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)
@@ -351,26 +382,28 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
 
 def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     """The D-N kernel's Newton loop as tensor operations (pallas_newton.py
-    _newton_dn_kernel), in its operation order. Returns NewtonResult."""
+    _newton_dn_kernel), in its operation order, in n's dtype (float32 or
+    float64). Returns NewtonResult."""
     ng = n.shape[0]
-    dev = n.device
-    rows = solve_rows(ng)
-    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
-    c0 = _COEF * _as_n0(n0, dev)[0]
+    dev, dtype = n.device, n.dtype
+    rows = solve_rows(ng, n.element_size())
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
+    coef = _coef(dtype)
+    c0 = coef * _as_n0(n0, dev, dtype)[0]
     col = torch.arange(rows, device=dev)
     valid = col < ng
     inner = (col >= 1) & (col <= ng - 2)
     last = col == ng - 1
-    a_lap = torch.where(inner, 1.0, torch.where(last, -4.0, 0.0))
-    c_lap = inner.to(torch.float32)
-    d_lap = torch.where(inner, -2.0, torch.where(last, 3.0, 1.0))
-    u_row = last.to(torch.float32)  # rank-1 u = e_{ng-1}
-    zeros = torch.zeros((rows - ng,), dtype=torch.float32, device=dev)
-    c2 = torch.cat([n * _COEF, zeros])
-    phi = torch.cat([phi0.to(torch.float32), zeros])
+    a_lap = torch.where(inner, 1.0, torch.where(last, -4.0, 0.0)).to(dtype)
+    c_lap = inner.to(dtype)
+    d_lap = torch.where(inner, -2.0, torch.where(last, 3.0, 1.0)).to(dtype)
+    u_row = last.to(dtype)  # rank-1 u = e_{ng-1}
+    zeros = torch.zeros((rows - ng,), dtype=dtype, device=dev)
+    c2 = torch.cat([n * coef, zeros])
+    phi = torch.cat([phi0.to(dtype), zeros])
     dx2_c0 = dx2 * c0
     jac_b = -dx2 * c0 * c1
-    residual = torch.ones((), dtype=torch.float32, device=dev)
+    residual = torch.ones((), dtype=dtype, device=dev)
     it = 0
     while residual.item() > tol32 and it < maxiter:
         expo = torch.exp(torch.clamp(c1 * phi, -_EXP_CLAMP, _EXP_CLAMP))
@@ -396,15 +429,16 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
 
 
 def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
-    """Newton-Boltzmann D-N solve of the (ng,) float32 number density n
-    for the potential, in one kernel launch on a CUDA tensor (the large
-    path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS).
+    """Newton-Boltzmann D-N solve of the (ng,) float32 or float64 number
+    density n for the potential, in one kernel launch on a CUDA tensor
+    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS; a
+    float64 n the double kernel, counted under ``_f64``).
 
     ``n0`` is the Boltzmann reference density, a Python number or a 0-d
     tensor on n's device; ``phi0`` the (ng,) warm start, used as it is (no
     wall pin: the reference warm-starts this Newton from its previous phi,
     pygcpic.py:1083). The residual is ||dphi||_2 of the last iteration,
-    tested against the float32 ``tol``. Returns NewtonResult(phi shifted to
+    tested against ``tol`` in n's dtype. Returns NewtonResult(phi shifted to
     min 0 over the physical rows, iterations (int32), residual), each on
     n's device, with no host read.
     """
@@ -417,24 +451,23 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
     if kind == "cpu":
         return boltzmann_dn_plain(n, n0, te, dx, phi0, tol=tol,
                                   maxiter=maxiter)
-    dev = n.device
-    name, split, scratch = _path("boltzmann_dn", ng, dev)
-    lib = _build.library()
-    n0_t = _as_n0(n0, dev)
-    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol)
-    phi = torch.empty((ng,), dtype=torch.float32, device=dev)
+    dev, dtype = n.device, n.dtype
+    name, split, scratch = _path("boltzmann_dn", ng, dev, dtype)
+    fn = getattr(_build.library(), f"pypic_{name}")
+    n0_t = _as_n0(n0, dev, dtype)
+    c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
+    phi = torch.empty((ng,), dtype=dtype, device=dev)
     iters = torch.empty((), dtype=torch.int32, device=dev)
-    resid = torch.empty((), dtype=torch.float32, device=dev)
+    resid = torch.empty((), dtype=dtype, device=dev)
     ptrs = (n.data_ptr(), n0_t.data_ptr(), phi0.data_ptr(), phi.data_ptr(),
             iters.data_ptr(), resid.data_ptr())
-    scalars = (_COEF, c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP,
+    scalars = (_coef(dtype), c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP,
                _stream(dev))
     with torch.cuda.device(dev):
         if split is None:
-            err = lib.pypic_boltzmann_dn(*ptrs, ng, kernel_rows(ng), *scalars)
+            err = fn(*ptrs, ng, kernel_rows(ng), *scalars)
         else:
-            err = lib.pypic_boltzmann_dn_large(*ptrs, scratch.data_ptr(), ng,
-                                               *split, *scalars)
+            err = fn(*ptrs, scratch.data_ptr(), ng, *split, *scalars)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)

@@ -54,10 +54,10 @@ import torch
 
 from . import _build
 from .cuda_cic import (LARGE_LAUNCHES, LARGE_MAX_NG, LAUNCHES, SMEM_LIMIT,
-                       STATIC_INT_BYTES, STATIC_SMEM_ROOM,
-                       _check_1d, _device_kind, _launcher, _sm_count, _stream,
-                       check_large_ng, deposit_plain, det_buffers,
-                       gather_plain, large_scratch, padded_rows, real)
+                       STATIC_INT_BYTES, _check_1d, _device_kind, _launcher,
+                       _sm_count, _stream, check_large_ng, deposit_plain,
+                       det_buffers, field_smem_max_ng, gather_plain,
+                       large_scratch, padded_rows, real)
 
 MAX_THREADS = 1024  # csrc/sheath.cu kMaxThreads
 MIN_THREADS = 32  # one warp of thread columns
@@ -83,13 +83,6 @@ SMALL_STATIC_BYTES = STATIC_INT_BYTES
 MAX_NG = (SMEM_LIMIT - SMALL_STATIC_BYTES) // (4 * (MIN_THREADS + 1))
 MAX_NG_F64 = (SMEM_LIMIT - SMALL_STATIC_BYTES) // (8 * (MIN_THREADS + 1))
 LARGE_THREADS = 512  # csrc/cic_common.cuh kLargeThreads
-
-
-def field_smem_max_ng(item: int = 4) -> int:
-    """The large mode's field in one block's shared memory up to this ng
-    (csrc/cic_common.cuh field_smem_max_ng): FIELD_SMEM_MAX_NG = 57,856
-    floats, 28,928 doubles."""
-    return (SMEM_LIMIT - STATIC_SMEM_ROOM) // item
 
 
 @dataclasses.dataclass(frozen=True)

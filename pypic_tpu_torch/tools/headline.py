@@ -15,8 +15,10 @@ finalize). ``chip_smoke.py`` drives it too.
 ``--ng`` refines the headline cell's grid as the Landau preset does (L
 stays 22 Debye lengths; the particle kernels take their large modes above
 their shared-memory ceilings, up to ``cuda_cic.LARGE_MAX_NG``); it applies
-to ``--cell landau`` only, as does ``--dtype``: float64 runs the cell's
-state (the same float32 load, cast) on the double kernels of rows 1-6.
+to ``--cell landau`` only. ``--dtype float64`` runs the cell's state (the
+same float32 load, cast) on the double kernels: rows 1-6 for
+``landau``, rows 7-9, 22 and 23 for ``magnetized``, ``carried``, ``dn``
+and ``gc`` (``tools/magnetized.cast_state``).
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -173,6 +175,7 @@ def profile(args) -> dict:
         from . import magnetized as magnetized_row
 
         cfg, state, _ = magnetized_row.state(dev)
+        state = magnetized_row.cast_state(state, DTYPES[args.dtype])
         if args.cell == "carried":
             cfg = dataclasses.replace(cfg, **magnetized_row.CARRIED)
             state = magnetized.prime_carry(state, cfg)
@@ -183,7 +186,7 @@ def profile(args) -> dict:
         from . import magnetized as magnetized_row
 
         pre = magnetized_row.preset(args.cell, dev)
-        state = pre.state
+        state = magnetized_row.cast_state(pre.state, DTYPES[args.dtype])
         args.n = state.p.shape[0]
         step = magnetized.make_step(pre.config)
     elif args.cell == "bca":
@@ -288,7 +291,7 @@ def parser() -> argparse.ArgumentParser:
                        help="grid nodes of the headline cell (L stays 22 "
                             "Debye lengths)")
         s.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
-                       help="the headline cell's state dtype")
+                       help="the state's dtype (the landau and magnetized cells)")
     return ap
 
 

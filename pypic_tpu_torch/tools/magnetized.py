@@ -32,7 +32,7 @@ carry_clamped, n_ion_suppressed and n_escape_deferred (the carry is
 exact while all three are 0; bench.py warns otherwise).
 
     python -m pypic_tpu_torch.tools.magnetized [--row iead|dn|gc] [--carried]
-        [--ng NG]
+        [--ng NG] [--dtype float32|float64]
 
 runs a row and prints one JSON line: µs/step, pushes/s, the mean Newton
 iteration count, the row's own figures (configs[3]: the mean phi_max of
@@ -49,6 +49,10 @@ runs the configs[3] load at ng = 4,096 and 16,384 and the D-N row at
 configs[3] row's tol 1e-9, which lies under the float32 floor at large
 grids: at ng = 16,384 most steps end at maxiter above it, and the tool
 prints its line and exits non-zero naming that check (ROADMAP queue 3).
+``--dtype float64`` runs the row's state cast to float64 (``cast_state``:
+the same particles, every float tensor of the state in float64) on the
+double kernels of rows 7-9, 22 and 23 (and rows 4 and 6), as the JAX
+engine runs a float64 state under x64; the draws stay float32.
 """
 
 from __future__ import annotations
@@ -98,6 +102,18 @@ def preset(row: str, dev, n_per_species: int = N_PER_SPECIES,
     if row == "dn":
         return presets.dirichlet_neumann_test(n=n or N_DN, device=dev, **grid)
     raise ValueError(f"unknown row {row!r}; have {ROWS}")
+
+
+def cast_state(state, dtype: torch.dtype):
+    """``state`` with every floating tensor in ``dtype`` (the integer
+    fields, the key and the step as they are): the float64 form of a row's
+    load from the same particles."""
+    import dataclasses
+
+    return state.replace(**{
+        f.name: getattr(state, f.name).to(dtype) for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+        and getattr(state, f.name).is_floating_point()})
 
 
 def population_problems(m) -> list:
@@ -199,7 +215,7 @@ def last_iead_traffic(cfg, st):
 def run_row(device=None, steps: int = STEPS,
             n_per_species: int = N_PER_SPECIES, warmup: int = 3,
             row: str = "iead", n: int | None = None, ng: int | None = None,
-            **overrides):
+            dtype: torch.dtype = torch.float32, **overrides):
     """Run a row (``row`` 'iead', the configs[3] row; 'dn' at ``n``
     particles, ``N_DN`` by default; 'gc' at ``n_per_species``; on ``ng``
     nodes, the preset's grid by default): ``warmup``
@@ -209,7 +225,8 @@ def run_row(device=None, steps: int = STEPS,
     the sync debug mode "error" and one synchronize. ``overrides`` replace
     config fields (e.g. backend='composed', or ``CARRIED``: then the carry
     is primed at set-up and the result has the sums of ``CARRIED_SUMS``
-    under "carried"). On a CPU device (the plain
+    under "carried"); ``dtype`` float64 runs the load cast by
+    ``cast_state``. On a CPU device (the plain
     versions; no timing meaning) there is no sync to watch. Returns
     (result dict, config, final state, stacked StepMetrics)."""
     import dataclasses
@@ -217,7 +234,7 @@ def run_row(device=None, steps: int = STEPS,
     dev = devices.resolve(device)
     cuda = dev.type == "cuda"
     pre = preset(row, dev, n_per_species, n, ng)
-    cfg, st = pre.config, pre.state
+    cfg, st = pre.config, cast_state(pre.state, dtype)
     phi_f = pre.meta.get("floating_potential")
     cfg = dataclasses.replace(cfg, **overrides)
     step = magnetized.make_step(cfg)
@@ -246,6 +263,7 @@ def run_row(device=None, steps: int = STEPS,
     last = min(100, steps)
     res = dict(device=torch.cuda.get_device_name(dev) if cuda else "cpu",
                row=row, n=n, ng=cfg.grid.ng, steps=steps,
+               dtype=str(dtype).replace("torch.", ""),
                us_per_step=seconds * 1e6 / steps,
                pushes_per_s=n * steps / seconds,
                newton_mean=float(m.newton_iters.float().mean()),
@@ -274,11 +292,13 @@ def main(argv=None) -> dict:
                          "react_batch 16,384")
     ap.add_argument("--ng", type=int, default=None,
                     help="grid nodes (the preset's own by default)")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32",
+                    help="the state's dtype (float64: the double kernels)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     res, cfg, fin, m = run_row(torch.device("cuda", 0), row=args.row,
-                               ng=args.ng,
+                               ng=args.ng, dtype=getattr(torch, args.dtype),
                                **(CARRIED if args.carried else {}))
     res["problems"] = CHECKS[args.row](cfg, fin, m)
     print(json.dumps(res))

@@ -324,32 +324,36 @@ _NEWTON_EDITS = [
     ("#include \"cic_common.cuh\"",
      "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
      "#define PASS_THROUGH (CUT == 1 || CUT == 3)\n"
-     "#define CUT_EXP(x) (CUT == 3 ? (x) : expf(x))\n"
+     "#define CUT_EXP(x) (CUT == 3 ? (x) : exp_of(x))\n"
      "#if CUT == 3\n#define CUT_ADD(x, y) "
      "x = __longlong_as_double(__double_as_longlong(x) ^ __double_as_longlong(y))\n"
      "#else\n#define CUT_ADD(x, y) x += (y)\n#endif", 1),
-    ("  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);\n"
-     "  return x == 0.0f ? __fmul_rn(x, y) : q;",
-     "#if CUT == 4\n  return __fmul_rn(x, __frcp_rn(y));\n#elif CUT == 5\n"
-     "  return __fdiv_rn(x, y);\n#else\n"
-     "  const float q = __fdiv_rn(x == 0.0f ? 1.0f : x, y);\n"
-     "  return x == 0.0f ? __fmul_rn(x, y) : q;\n#endif", 1),
-    ("for (int r = 0; r < R; ++r) x.f[r] = __fdiv_rn(x.f[r], x.b);",
-     "for (int r = 0; r < R; ++r) x.f[r] = CUT == 4 ? div_rn(x.f[r], x.b) : __fdiv_rn(x.f[r], x.b);", 1),
-    ("__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows) {\n  int k = 0;",
-     "__device__ int pcr_solve(Row<R>& x, const PcrBuf& buf, int i, int rows,\n"
-     "                         int* stages, int forced_stages) {\n  int k = 0, n = 0;", 1),
-    ("    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);\n"
+    ("  const T q = quot_rn(x == (T)0 ? (T)1 : x, y);\n"
+     "  return x == (T)0 ? mul_rn(x, y) : q;",
+     "#if CUT == 4\n  return mul_rn(x, (T)__frcp_rn((float)y));\n#elif CUT == 5\n"
+     "  return quot_rn(x, y);\n#else\n"
+     "  const T q = quot_rn(x == (T)0 ? (T)1 : x, y);\n"
+     "  return x == (T)0 ? mul_rn(x, y) : q;\n#endif", 1),
+    ("for (int r = 0; r < R; ++r) x.f[r] = quot_rn(x.f[r], x.b);",
+     "for (int r = 0; r < R; ++r) x.f[r] = CUT == 4 ? div_rn(x.f[r], x.b) : quot_rn(x.f[r], x.b);", 1),
+    ("__device__ int pcr_solve(Row<R, T>& x, const PcrBuf<T>& buf, int i, int rows) {\n"
+     "  int k = 0;",
+     "__device__ int pcr_solve(Row<R, T>& x, const PcrBuf<T>& buf, int i, int rows,\n"
+     "                         int* stages = nullptr, int forced_stages = 0) {\n"
+     "  int k = 0, n = 0;", 1),
+    ("    const bool coupled = __syncthreads_or(x.a != (T)0 || x.c != (T)0);\n"
      "    if (!coupled || s >= rows) break;\n",
      "#if PASS_THROUGH\n    __syncthreads();\n    if (n >= forced_stages || s >= rows) break;\n"
      "#elif CUT == 6\n    __syncthreads();\n    if (s >= rows) break;\n#else\n"
-     "    const bool coupled = __syncthreads_or(x.a != 0.0f || x.c != 0.0f);\n"
+     "    const bool coupled = __syncthreads_or(x.a != (T)0 || x.c != (T)0);\n"
      "    if (!coupled || s >= rows) break;\n#endif\n    ++n;\n", 1),
     ("    pcr_stage(x, m, p);\n",
      "#if PASS_THROUGH\n"
-     "    unsigned u = __float_as_uint(m.a) ^ __float_as_uint(m.b) ^ __float_as_uint(m.c) ^\n"
-     "                 __float_as_uint(p.a) ^ __float_as_uint(p.b) ^ __float_as_uint(p.c);\n"
-     "    for (int r = 0; r < R; ++r) u ^= __float_as_uint(m.f[r]) ^ __float_as_uint(p.f[r]);\n"
+     "    unsigned u = __float_as_uint((float)m.a) ^ __float_as_uint((float)m.b) ^\n"
+     "                 __float_as_uint((float)m.c) ^ __float_as_uint((float)p.a) ^\n"
+     "                 __float_as_uint((float)p.b) ^ __float_as_uint((float)p.c);\n"
+     "    for (int r = 0; r < R; ++r)\n"
+     "      u ^= __float_as_uint((float)m.f[r]) ^ __float_as_uint((float)p.f[r]);\n"
      "    if (u == 0x7fc00001u) x.a = x.b;  // never: keeps the loads\n#else\n"
      "    pcr_stage(x, m, p);\n#endif\n", 1),
     ("  return k;\n}",
@@ -363,25 +367,63 @@ _NEWTON_EDITS = [
      "  if (CUT == 2) return 0.0;\n", 1),
     ("x += __shfl_down_sync(0xffffffffu, x, o);",
      "CUT_ADD(x, __shfl_down_sync(0xffffffffu, x, o));", 2),
-    ("expf(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))",
-     "CUT_EXP(fminf(fmaxf(__fmul_rn(c1, phi), -exp_clamp), exp_clamp))", 2),
+    ("exp_of(clamp_to(mul_rn(c1, phi), -exp_clamp, exp_clamp))",
+     "CUT_EXP(clamp_to(mul_rn(c1, phi), -exp_clamp, exp_clamp))", 2),
     ("while (residual > tol && it < maxiter) {",
      "while (forced >= 0 ? it < forced : (residual > tol && it < maxiter)) {", 2),
     ("pcr_solve<1>(x, buf, i, rows);", "pcr_solve<1>(x, buf, i, rows, stages, forced_stages);", 1),
     ("pcr_solve<2>(x, buf, i, rows);", "pcr_solve<2>(x, buf, i, rows, stages, forced_stages);", 1),
-    ("float dx2, float tol, int maxiter,\n                                 float step_max, float exp_clamp) {",
-     "float dx2, float tol, int maxiter,\n    float step_max, float exp_clamp, int forced, int* stages,\n"
-     "    int forced_stages) {", 1),
-    ("int maxiter, float step_max,\n                                 float exp_clamp) {",
-     "int maxiter, float step_max,\n    float exp_clamp, int forced, int* stages, int forced_stages) {", 1),
-    ("float exp_clamp,\n                              void* stream) {",
-     "float exp_clamp,\n    int forced, int* stages, int forced_stages, void* stream) {", 1),
-    ("float exp_clamp,\n                       void* stream) {",
-     "float exp_clamp,\n    int forced, int* stages, int forced_stages, void* stream) {", 1),
-    ("maxiter, step_max, exp_clamp);",
-     "maxiter, step_max, exp_clamp, forced, stages, forced_stages);", 1),
-    ("maxiter,\n      step_max, exp_clamp);",
-     "maxiter,\n      step_max, exp_clamp, forced, stages, forced_stages);", 1),
+    # the loops and the kernels take the forced counts last; launch_dd and
+    # launch_dn pass them (the double entry points their defaults), the
+    # float entry points take them before the stream
+    ("int maxiter, T step_max,\n    T exp_clamp) {",
+     "int maxiter, T step_max,\n    T exp_clamp, int forced, int* stages, int forced_stages) {", 1),
+    ("int ng, T coef, T c1, T dx2, T tol, int maxiter, T step_max, T exp_clamp) {",
+     "int ng, T coef, T c1, T dx2, T tol, int maxiter, T step_max, T exp_clamp,\n"
+     "    int forced, int* stages, int forced_stages) {", 1),
+    ("int maxiter, T step_max, T exp_clamp) {\n  newton_dd_loop",
+     "int maxiter, T step_max, T exp_clamp, int forced,\n"
+     "                                 int* stages, int forced_stages) {\n  newton_dd_loop", 1),
+    ("    double exp_clamp) {\n  newton_dd_loop",
+     "    double exp_clamp, int forced, int* stages, int forced_stages) {\n  newton_dd_loop", 1),
+    ("T step_max, T exp_clamp) {\n  newton_dn_loop",
+     "T step_max, T exp_clamp, int forced, int* stages,\n"
+     "                                 int forced_stages) {\n  newton_dn_loop", 1),
+    ("double step_max, double exp_clamp) {\n  newton_dn_loop",
+     "double step_max, double exp_clamp,\n"
+     "    int forced, int* stages, int forced_stages) {\n  newton_dn_loop", 1),
+    ("tol, maxiter, step_max, exp_clamp);\n}",
+     "tol, maxiter, step_max, exp_clamp, forced, stages, forced_stages);\n}", 2),
+    ("maxiter, step_max, exp_clamp);\n}",
+     "maxiter, step_max, exp_clamp, forced, stages, forced_stages);\n}", 2),
+    ("int maxiter, T step_max, T exp_clamp, cudaStream_t s) {",
+     "int maxiter, T step_max, T exp_clamp, cudaStream_t s,\n"
+     "                      int forced = -1, int* stages = nullptr, int forced_stages = 0) {",
+     1),
+    ("T step_max, T exp_clamp, cudaStream_t s) {\n  if (!rows_ok(ng, rows) || ng < 3)",
+     "T step_max, T exp_clamp, cudaStream_t s,\n"
+     "                      int forced = -1, int* stages = nullptr, int forced_stages = 0) {\n"
+     "  if (!rows_ok(ng, rows) || ng < 3)", 1),
+    ("eps0, c1, dx2, tol, maxiter, step_max,\n                                            exp_clamp);",
+     "eps0, c1, dx2, tol, maxiter, step_max,\n                                            exp_clamp, "
+     "forced, stages, forced_stages);", 1),
+    ("dx2, tol, maxiter, step_max, exp_clamp);\n  return cudaGetLastError();",
+     "dx2, tol, maxiter, step_max, exp_clamp, forced, stages,\n"
+     "                                            forced_stages);\n  return cudaGetLastError();",
+     1),
+    ("int maxiter, float step_max, float exp_clamp,\n                              void* stream) {",
+     "int maxiter, float step_max, float exp_clamp,\n"
+     "    int forced, int* stages, int forced_stages, void* stream) {", 1),
+    ("int maxiter, float step_max, float exp_clamp,\n                       void* stream) {",
+     "int maxiter, float step_max, float exp_clamp,\n"
+     "    int forced, int* stages, int forced_stages, void* stream) {", 1),
+    ("dx2, tol, maxiter, step_max, exp_clamp, (cudaStream_t)stream);\n}\n\n"
+     "// The double solve",
+     "dx2, tol, maxiter, step_max, exp_clamp, (cudaStream_t)stream, forced,\n"
+     "                        stages, forced_stages);\n}\n\n// The double solve", 1),
+    ("maxiter, step_max, exp_clamp, (cudaStream_t)stream);\n}\n\n// coef = e / eps0 in float64.",
+     "maxiter, step_max, exp_clamp, (cudaStream_t)stream, forced, stages,\n"
+     "                        forced_stages);\n}\n\n// coef = e / eps0 in float64.", 1),
 ]
 # the Newton kernels' first port (one CTA of padded_rows(ng) threads, 13
 # block barriers an iteration): CUT selects the stage taken out; "(f)"
@@ -546,33 +588,33 @@ _DEPOSIT_EDITS = [
     ("  zero_shared(h_r, 2 * ng * cols);", "  if (CUT != 4) zero_shared(h_r, 2 * ng * cols);", 1),
     ("  if (ROWS == 1) {  // narrow", "  float sink = 0.0f;\n  if (ROWS == 1) {  // narrow", 2),
     # deposit2: the narrow path's adds, then the wide path's
-    ("      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));\n"
-     "      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));\n"
-     "      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));\n"
-     "      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));\n",
+    ("      atomicAdd(&h_a[c.l], mul_rn(a, c.wl));\n"
+     "      atomicAdd(&h_a[c.r], mul_rn(a, c.wr));\n"
+     "      atomicAdd(&h_b[c.l], mul_rn(b, c.wl));\n"
+     "      atomicAdd(&h_b[c.r], mul_rn(b, c.wr));\n",
      "#if CUT >= 3\n"
-     "      sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(a, c.wl), __fadd_rn(__fmul_rn(b, c.wr),\n"
-     "                                                                   (float)c.l)));\n"
+     "      sink = __fadd_rn(sink, (float)add_rn(mul_rn(a, c.wl), add_rn(mul_rn(b, c.wr),\n"
+     "                                                                    (T)c.l)));\n"
      "#else\n"
-     "      atomicAdd(&h_a[c.l], __fmul_rn(a, c.wl));\n"
-     "      atomicAdd(&h_a[c.r], __fmul_rn(a, c.wr));\n"
-     "      atomicAdd(&h_b[c.l], __fmul_rn(b, c.wl));\n"
-     "      atomicAdd(&h_b[c.r], __fmul_rn(b, c.wr));\n#endif\n", 1),
-    ("        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));\n"
-     "        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));\n"
-     "        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));\n"
-     "        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));\n",
+     "      atomicAdd(&h_a[c.l], mul_rn(a, c.wl));\n"
+     "      atomicAdd(&h_a[c.r], mul_rn(a, c.wr));\n"
+     "      atomicAdd(&h_b[c.l], mul_rn(b, c.wl));\n"
+     "      atomicAdd(&h_b[c.r], mul_rn(b, c.wr));\n#endif\n", 1),
+    ("        atomicAdd(&h_a[c.l * cols + col], mul_rn(a, c.wl));\n"
+     "        atomicAdd(&h_a[c.r * cols + col], mul_rn(a, c.wr));\n"
+     "        atomicAdd(&h_b[c.l * cols + col], mul_rn(b, c.wl));\n"
+     "        atomicAdd(&h_b[c.r * cols + col], mul_rn(b, c.wr));\n",
      "#if CUT >= 3\n"
-     "        sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(a, c.wl), __fadd_rn(__fmul_rn(b, c.wr),\n"
-     "                                                                   (float)(c.l * cols + col))));\n"
+     "        sink = __fadd_rn(sink, (float)add_rn(mul_rn(a, c.wl), add_rn(mul_rn(b, c.wr),\n"
+     "                                                                    (T)(c.l * cols + col))));\n"
      "#else\n"
-     "        atomicAdd(&h_a[c.l * cols + col], __fmul_rn(a, c.wl));\n"
-     "        atomicAdd(&h_a[c.r * cols + col], __fmul_rn(a, c.wr));\n"
-     "        atomicAdd(&h_b[c.l * cols + col], __fmul_rn(b, c.wl));\n"
-     "        atomicAdd(&h_b[c.r * cols + col], __fmul_rn(b, c.wr));\n#endif\n", 1),
-    ("  flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);",
+     "        atomicAdd(&h_a[c.l * cols + col], mul_rn(a, c.wl));\n"
+     "        atomicAdd(&h_a[c.r * cols + col], mul_rn(a, c.wr));\n"
+     "        atomicAdd(&h_b[c.l * cols + col], mul_rn(b, c.wl));\n"
+     "        atomicAdd(&h_b[c.r * cols + col], mul_rn(b, c.wr));\n#endif\n", 1),
+    ("  flush_columns<ROWS, 2, false, T>(h_a, ng, cols, out_a, out_b);",
      "  if (sink == 1.2345e30f) out_a[0] = sink;\n"
-     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false>(h_a, ng, cols, out_a, out_b);",
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false, T>(h_a, ng, cols, out_a, out_b);",
      1),
     # row 9: no deposit arithmetic in (e), its weights still read
     ("  idx[0] = idx[1] = idx[2] = idx[3] = -1;\n",
@@ -580,11 +622,11 @@ _DEPOSIT_EDITS = [
      "  if (CUT == 4) {\n    if (wr == 1.2345e30f && wn == 1.0f) idx[0] = 0;\n    return;\n  }\n", 1),
     ("        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);",
      "#if CUT >= 3\n"
-     "        if (idx[k] >= 0) sink = __fadd_rn(sink, __fmul_rn(val[k], (float)idx[k]));\n"
+     "        if (idx[k] >= 0) sink = __fadd_rn(sink, (float)mul_rn(val[k], (T)idx[k]));\n"
      "#else\n        if (idx[k] >= 0) atomicAdd(h_r + idx[k], val[k]);\n#endif", 2),
-    ("  flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);",
+    ("  flush_columns<ROWS, 2, false, T>(h_r, ng, cols, rho, dens);",
      "  if (sink == 1.2345e30f) rho[0] = sink;\n"
-     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false>(h_r, ng, cols, rho, dens);", 1),
+     "  if (CUT != 2 && CUT != 4) flush_columns<ROWS, 2, false, T>(h_r, ng, cols, rho, dens);", 1),
 ]
 
 

@@ -159,8 +159,11 @@ def test_boltzmann_dn_checks_its_inputs():
     z = torch.zeros(16)
     with pytest.raises(ValueError, match="shape"):
         cuda_newton.boltzmann_dn(z, 1e17, TE_N, DX_N, z[:-1])
-    with pytest.raises(TypeError, match="float32"):
-        cuda_newton.boltzmann_dn(z.double(), 1e17, TE_N, DX_N, z.double())
+    # float32 or float64 (the double kernel of a float64 state), one dtype
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_newton.boltzmann_dn(z.half(), 1e17, TE_N, DX_N, z.half())
+    with pytest.raises(TypeError, match="different dtypes"):
+        cuda_newton.boltzmann_dn(z, 1e17, TE_N, DX_N, z.double())
     with pytest.raises(ValueError, match="ng >= 3"):
         cuda_newton.boltzmann_dn(z[:2], 1e17, TE_N, DX_N, z[:2])
 

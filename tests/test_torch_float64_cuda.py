@@ -16,6 +16,11 @@ sheath kernels at n = 100,003 across their double ceilings (880 nodes
 for the pass, 907 for deposit_det): the large mode's current bit-equal
 to the two-word plain twin (``cuda_cic.fixed2_sum_plain``); a float64
 sheath step on the card against the CPU's, both backends and samplers.
+The magnetized engine's double kernels (rows 7-9, 22 and 23) against
+their float64 plain versions at the configs[3] and D-N shapes and past
+their double ceilings, and a float64 magnetized step on the card against
+the CPU's on every route (fused, composed, carried, D-N, GC, axis_name),
+the same draws fed to both sides.
 """
 
 import numpy as np
@@ -370,3 +375,246 @@ def test_float64_sheath_options_card_matches_cpu(cuda_device, over):
     mesh_of = (lambda dev: make_mesh(device=dev)) if "axis_name" in over else None
     tight = "axis_name" in over
     _sheath_pair_agrees(*_sheath_step_pair(cuda_device, cfg, mesh_of), tight=tight)
+
+
+# ---------------------------------------------------------------------------
+# the magnetized engine's double kernels (ROADMAP item 19b)
+# ---------------------------------------------------------------------------
+
+
+def _mag_rows(n, ng, dev, seed=11):
+    """Bounded rows in float64: a tenth inactive, rows past both walls,
+    velocities of ions at a few eV."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-0.5, ng - 0.5, n)
+    p[:4] = [0.0, ng - 1.0, -0.3, ng - 0.7]
+    v = rng.normal(size=(3, n)) * 2e4
+    act = ((rng.random(n) < 0.9) & (p >= 0.0) & (p <= ng - 1.0)).astype(np.float64)
+    const = rng.integers(1, 6, n) * (0.5 * 1e-10 * E_CHARGE / (10.81 * 1.67262192e-27))
+    w = rng.random((2, n)) * act
+    e = rng.normal(size=ng) * 1e5
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (e, p, *v, const, act, *w)]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, ng", [(999_996, 600), (50_000, 800), (100_003, 14_529),
+                                   (100_003, 65_536)])
+def test_double_deposit2_matches_plain(cuda_device, n, ng):
+    """Row 7's double kernel (wide, narrow, the large mode past 14,528
+    nodes) within 16 n eps64 of its float64 plain version's largest node,
+    counted under deposit2_f64 (in the large mode too)."""
+    e, p, vx, vy, vz, const, act, wr, wn = _mag_rows(n, ng, cuda_device)
+    cuda_cic.reset_launch_counts()
+    a, b = cuda_cic.deposit2(p, wr, wn, ng, periodic=False)
+    ra, rb = cuda_cic.deposit2_plain(p.cpu(), wr.cpu(), wn.cpu(), ng, periodic=False)
+    torch.cuda.synchronize()
+    assert a.dtype == torch.float64 and cuda_cic.LAUNCHES["deposit2_f64"] == 1
+    assert cuda_cic.LAUNCHES["deposit2"] == 0
+    mode = cuda_cic.deposit_launch_shape(n, ng, False, 132, item=8).mode
+    assert cuda_cic.LARGE_LAUNCHES.get("deposit2_f64 global", 0) == (mode == "global")
+    tol = 16 * n * 2.0 ** -52
+    assert _rel(ra, a.cpu()) <= tol and _rel(rb, b.cpu()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [600, 65_536])
+@pytest.mark.parametrize("swap", [False, True])
+def test_double_boris_push_matches_plain(cuda_device, ng, swap):
+    """Row 8's double kernel (shared field, and the global mode past
+    29,056 nodes): p1 and the velocities bit-equal to the float64 plain
+    version's (one rounding an operation in the same order), inactive
+    rows their inputs."""
+    e, p, vx, vy, vz, const, act, _, _ = _mag_rows(100_003, ng, cuda_device)
+    kw = dict(b=(0.14, 1.99, 0.0), dt_dx=1e-10 / 5e-6, swap_weights=swap)
+    got = cuda_cic.boris_gather_push(e, p, vx, vy, vz, const, act, **kw)
+    ref = cuda_cic.boris_gather_push_plain(*(t.cpu() for t in (e, p, vx, vy, vz, const,
+                                                                act)), **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float64 and torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [600, 20_000, 65_536])
+@pytest.mark.parametrize("pad, hot", [(2, 1.0), (0, 40.0)])
+def test_double_carried_deposit_matches_plain(cuda_device, ng, pad, hot):
+    """Row 9's double kernel (its columns, the field mode past 9,684 nodes,
+    the global mode past 28,928): the push bit-equal to the float64 plain
+    version's, rho and n within 16 n eps64 of its largest node, and the
+    clamps, counted in the window frame from the float64 positions, equal
+    (forced with pad 0 and 40x the velocities)."""
+    e, p, vx, vy, vz, const, act, wr, wn = _mag_rows(100_003, ng, cuda_device)
+    vx, vy, vz = (hot * v for v in (vx, vy, vz))
+    kw = dict(b=(0.14, 1.99, 0.0), dt_dx=1e-10 / 5e-6 * 1e3, pad=pad, swap_weights=True)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.boris_gather_push_deposit(e, p, vx, vy, vz, const, act, wr, wn, **kw)
+    ref = cuda_cic.boris_gather_push_deposit_plain(
+        *(t.cpu() for t in (e, p, vx, vy, vz, const, act, wr, wn)), **kw)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES["boris_gather_push_deposit_f64"] == 1
+    for g, r in zip(got[:4], ref[:4]):
+        assert torch.equal(g.cpu(), r)
+    tol = 16 * 100_003 * 2.0 ** -52
+    assert _rel(ref[4], got[4].cpu()) <= tol and _rel(ref[5], got[5].cpu()) <= tol
+    assert int(got[6]) == int(ref[6])
+    if pad == 0:
+        assert int(ref[6]) > 0
+
+
+def _newton_load(kind, ng, dev):
+    """The configs[3] (D-D) or D-N row's first solve on ng nodes, float64:
+    (density, n0)."""
+    from pypic_tpu_torch.tools import magnetized as row
+
+    pre = row.preset("iead" if kind == "dd" else "dn", dev, 20_000, 50_000, ng)
+    cfg, st = pre.config, row.cast_state(pre.state, torch.float64)
+    w = st.p2c / cfg.grid.dx
+    rho, n = cuda_cic.deposit2(st.p, st.charge_state * E_CHARGE * w, w, ng, periodic=False)
+    return cfg, (rho if kind == "dd" else n), 0.9 * torch.mean(n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [600, 800, 1024, 1025, 4096, 16_384])
+@pytest.mark.parametrize("kind", ["dd", "dn"])
+def test_double_newton_matches_plain(cuda_device, kind, ng):
+    """Rows 22 and 23's double kernels (the one-CTA path to 1,024 rows,
+    the large path of at most 512 threads above) against their float64
+    plain versions on the card, at the row's tolerance and over 8
+    iterations at tol 0: the same iterations, phi within 1e-12 of its
+    largest (the same PCR and partition order; libdevice's exp against
+    PyTorch's); counted under the _f64 names."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    cfg, dens, n0 = _newton_load(kind, ng, cuda_device)
+    phi0 = torch.zeros(ng, dtype=torch.float64, device=cuda_device)
+    for tol, maxiter in ((1e-9, 1000) if kind == "dd" else (1e-3, 100), (0.0, 8)):
+        args = (dens, n0, cfg.te, cfg.grid.dx)
+        cuda_cic.reset_launch_counts()
+        if kind == "dd":
+            got = cuda_newton.boltzmann_dirichlet(*args, tol=tol, maxiter=maxiter)
+            ref = cuda_newton.boltzmann_dirichlet_plain(*args, tol=tol, maxiter=maxiter)
+            name = "boltzmann_dirichlet"
+        else:
+            got = cuda_newton.boltzmann_dn(*args, phi0, tol=tol, maxiter=maxiter)
+            ref = cuda_newton.boltzmann_dn_plain(*args, phi0, tol=tol, maxiter=maxiter)
+            name = "boltzmann_dn"
+        torch.cuda.synchronize()
+        key = f"{name}{'_large' if ng > 1024 else ''}_f64"
+        assert cuda_cic.LAUNCHES[key] == 1, key
+        assert got.phi.dtype == got.residual.dtype == torch.float64
+        assert int(got.iterations) == int(ref.iterations)
+        assert _rel(ref.phi, got.phi) <= 1e-12
+
+
+# card against CPU, one float64 step: the tolerances (positions in cells,
+# the rest relative to the largest): float64 sums in other orders, the
+# card's PCR against the CPU's Thomas solve (float64 rounding of the
+# solve), measured below 1e-13. The rows re-activated in the step enter
+# from float32 draws in float32 on both sides, and the card divides x by
+# dx as a reciprocal product (PyTorch's CUDA division by a scalar): 16
+# float32 ulps of the largest there (measured 1 ulp of p, 1.1e-7 of v
+# on the GC pack), and the carried rho and n may move by those rows'
+# position gap times their weights
+TOL64_MAG_STEP = {"p": 1e-9, "v": 1e-10, "phi": 1e-12, "rho": 1e-12}
+TOL64_REACTIVATED = 16 * 2.0 ** -24
+MAG64_ROUTES = {
+    "fused": ("iead", dict(backend="fused")),
+    "composed": ("iead", dict(backend="composed")),
+    "carried": ("iead", dict(carried_deposit="on", react_batch=512)),
+    "dn": ("dn", {}),
+    "gc": ("gc", {}),
+    "axis_name": ("iead", dict(axis_name="particles")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(MAG64_ROUTES))
+def test_float64_magnetized_step_card_matches_cpu(cuda_device, route):
+    """One float64 magnetized step on the card against the CPU from one
+    state three CPU steps in (n = 12,000; the D-N row at 50,000), the
+    CPU's source (or flux) and gyro draws fed to both sides: the active
+    flags, re-activations, clamps and Newton iterations equal, only double
+    kernels launched (the Newton one, not the Thomas route), every field
+    float64; p, v, phi and the carried rho and n at TOL64_MAG_STEP."""
+    import dataclasses
+
+    from pypic_tpu_torch import interop, sources
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.parallel.mesh import make_mesh
+    from pypic_tpu_torch.tools import magnetized as row
+
+    kind, over = MAG64_ROUTES[route]
+    pre = row.preset(kind, "cpu", 2000, 12_000)
+    cfg = dataclasses.replace(pre.config, **over)
+    st = row.cast_state(pre.state, torch.float64)
+    if cfg.carried_deposit == "on":
+        st = magnetized.prime_carry(st, cfg)
+
+    def hooks(device, state):
+        src = cfg.source
+        n = cfg.react_batch or state.p.shape[0]
+
+        def draws(step, k):
+            if cfg.reactivate == "flux":
+                d = sources.sample_flux_batch(state.rng, step, k, cfg.grid, src.ti, src.mass,
+                                              vx=src.vx, gamma=cfg.flux_gamma,
+                                              vx_pert=cfg.flux_vx_pert, device="cpu")
+            else:
+                d = sources.sample_source_batch(state.rng, step, n, cfg.grid, src.ti,
+                                                src.mass, vx=src.vx, device="cpu")
+            return {key: v.to(device) for key, v in d.items()}
+
+        gyro = torch.rand((state.p.shape[0], 3), generator=torch.Generator().manual_seed(3),
+                          dtype=torch.float32)
+        return dict(source_draws=draws, gyro_draws=lambda step, k: gyro.to(device))
+
+    def step_on(device, state):
+        mesh = make_mesh(device=device) if cfg.axis_name else None
+        return magnetized.make_step(cfg, mesh=mesh, **hooks(device, state))
+
+    for _ in range(3):
+        st, _ = step_on("cpu", st)(st)
+    d = interop.magnetized_state_to_numpy(st)
+    c, mc = step_on("cpu", st)(st)
+    cuda_cic.reset_launch_counts()
+    magnetized.THOMAS_SOLVES.update(dirichlet=0, dirichlet_neumann=0)
+    g_in = interop.magnetized_state_from_numpy(d, cuda_device)
+    g, mg = step_on(cuda_device, g_in)(g_in)
+    torch.cuda.synchronize()
+    launched = {k for k, n in cuda_cic.LAUNCHES.items() if n}
+    newton = "boltzmann_dn_f64" if kind == "dn" else "boltzmann_dirichlet_f64"
+    # the carried re-activation patch deposits the float32 draws' rows in
+    # float32, as JAX's does
+    float32 = {"deposit2"} if cfg.carried_deposit == "on" else set()
+    assert newton in launched and all(k.endswith("_f64") or k in float32
+                                      for k in launched), launched
+    assert sum(magnetized.THOMAS_SOLVES.values()) == 0
+    for k in ("p", "vx", "phi", "rho", "n"):
+        assert getattr(g, k).dtype == torch.float64, k
+    assert torch.equal(c.active, g.active.cpu())
+    for k in ("n_reactivated", "n_hit_wall", "carry_clamped", "newton_iters"):
+        assert int(getattr(mc, k)) == int(getattr(mg, k)), k
+    react = (c.active == 1) & torch.from_numpy(d["active"] != 1)
+    act = (c.active == 1) & ~react
+    gp = g.p.cpu()
+    assert float((c.p - gp)[act].abs().max()) <= TOL64_MAG_STEP["p"]
+    for k in ("vx", "vy", "vz"):
+        ref, got = getattr(c, k)[act], getattr(g, k).cpu()[act]
+        # (the guiding centers' vz is 0 on both sides)
+        assert float((ref - got).abs().max()) <= TOL64_MAG_STEP["v"] * float(
+            ref.abs().max()), k
+    dp = float((c.p - gp)[react].abs().max()) if bool(react.any()) else 0.0
+    if bool(react.any()):
+        for k in ("p", "vx", "vy", "vz"):
+            ref = getattr(c, k)[react]
+            gap = float((ref - getattr(g, k).cpu()[react]).abs().max())
+            assert gap <= TOL64_REACTIVATED * max(float(ref.abs().max()), 1e-300), k
+    assert _rel(mc.phi, mg.phi.cpu()) <= TOL64_MAG_STEP["phi"]
+    if cfg.carried_deposit == "on":
+        w = torch.where(react, c.p2c / cfg.grid.dx, 0.0)
+        moved = {"rho": float((w * c.charge_state * E_CHARGE).abs().sum()),
+                 "n": float(w.abs().sum())}
+        for k in ("rho", "n"):
+            ref = getattr(c, k)
+            allowed = TOL64_MAG_STEP["rho"] + dp * moved[k] / float(ref.abs().max())
+            assert _rel(ref, getattr(g, k).cpu()) <= allowed, k

@@ -7,8 +7,9 @@ double arrays leave shared memory at half the float32 ceilings. Every
 float32 launch stays the one the frozen tables of
 ``tests/test_torch_large_periodic.py`` hold. The sheath engine's
 wrappers (its pass and finalize, ``deposit_det``, the re-injection and
-``hash_batch``) take float64 on the card too. The other wrappers, and the
-explicit and magnetized engines, refuse a float64 tensor on the card
+``hash_batch``) take float64 on the card too, and so do the magnetized
+engine's (rows 7-9 and the Newton solves, rows 22 and 23). The other
+wrappers, and the explicit engine, refuse a float64 tensor on the card
 with a ``NotImplementedError`` naming their ROADMAP item; no CUDA tensor
 is made here: the wrappers are handed stand-ins that carry a CUDA device
 and a dtype, which is all they read before they refuse (or, where they
@@ -80,8 +81,10 @@ def test_double_deposit_shape(n):
         assert got.cols == cols, ng
         assert got.smem == 8 * cols * ng
         assert got.mode == ("shared" if cols else "global")
-    with pytest.raises(ValueError, match="item"):
-        cuda_cic.deposit_launch_shape(n, 200, True, 132, item=8)
+    # the double deposit2 and carried deposit take item 8 too, at their own
+    # ceilings (tests/test_torch_float64_magnetized_launch.py); other items
+    # raise
+    assert cuda_cic.deposit_launch_shape(n, 200, True, 132, item=8).mode == "shared"
     with pytest.raises(ValueError, match="item"):
         cuda_cic.deposit_launch_shape(n, 200, False, 132, hists=1, item=2)
 
@@ -100,7 +103,11 @@ def test_double_instantiations_in_the_report():
             "gather_kernel": [1, 0], "sheath_pass_kernel": [0, 1],
             "sheath_large_kernel": [0, 1, 1, 0], "deposit_det_kernel": [0, 1],
             "deposit_det_large_kernel": [0, 1, 0], "sheath_reinject_kernel": [5],
-            "hash_batch_kernel": [1]}
+            "hash_batch_kernel": [1], "deposit2_kernel": [1, 4, 1],
+            "deposit2_global_kernel": [1, 4, 1], "boris_kernel": [1, 0],
+            "boris_deposit_kernel": [1, 4, 1], "boris_deposit_global_kernel": [1, 4, 1, 1],
+            "newton_dd_kernel": [], "newton_dn_kernel": [], "newton_dd_large_kernel": [],
+            "newton_dn_large_kernel": []}
     full = "\n".join(entry(k, ints[k] + [t]) for k, _ in cuda_cic.F64_INSTANCES
                      for t in "fd")
     assert cuda_cic.check_f64_kernels(full) == []
@@ -151,11 +158,6 @@ def _t(dtype=torch.float64):
 
 # each wrapper without a double kernel, called on float64 stand-ins
 REFUSING = {
-    "deposit2": lambda: cuda_cic.deposit2(_t(), _t(), _t(), 16, periodic=False),
-    "boris_gather_push": lambda: cuda_cic.boris_gather_push(
-        _t(), _t(), _t(), _t(), _t(), _t(), _t(), b=(0.0, 1.0, 0.0), dt_dx=1.0),
-    "boris_gather_push_deposit": lambda: cuda_cic.boris_gather_push_deposit(
-        _t(), _t(), _t(), _t(), _t(), _t(), _t(), _t(), _t(), b=(0.0, 1.0, 0.0), dt_dx=1.0),
     "leapfrog_gather_push_deposit": lambda: cuda_cic.leapfrog_gather_push_deposit(
         _t(), _t(), _t(), qm=1.0, w=1.0, dt=1.0, dx=1.0),
     "explicit_cycle": lambda: cuda_cic.explicit_cycle(
@@ -181,9 +183,9 @@ REFUSING = {
 @pytest.mark.parametrize("name", sorted(REFUSING))
 def test_float64_on_the_card_without_a_kernel_names_its_item(name):
     """A float64 tensor on the card, in a wrapper with no double kernel:
-    NotImplementedError naming the ROADMAP item (the sheath, magnetized
-    or explicit slice of item 19, or no gap where the JAX package runs
-    the path in float32 only), never a TypeError or a CPU detour."""
+    NotImplementedError naming the ROADMAP item (the explicit slice of
+    item 19, or no gap where the JAX package runs the path in float32
+    only), never a TypeError or a CPU detour."""
     assert name in cuda_cic.F64_ITEMS and name not in cuda_cic.F64_KERNELS
     with pytest.raises(NotImplementedError, match=r"item 19") as err:
         REFUSING[name]()
@@ -236,29 +238,77 @@ def test_rows_1_to_6_take_float64_on_the_card(name):
 
 def test_wrappers_refuse_mixed_dtypes_and_the_newton_kernels_float64():
     """One dtype a call (a float32 field with float64 particles is a
-    TypeError); the Newton wrappers take float32 alone on either device
-    (a float64 state solves on the op-composed route)."""
+    TypeError); the chain solve takes float32 alone on either device (the
+    slab engines are float32 in JAX), while the Newton wrappers take
+    float64 (their plain versions here, their double kernels on the
+    card) and keep it."""
     z32, z64 = torch.zeros(16), torch.zeros(16, dtype=torch.float64)
     with pytest.raises(TypeError, match="different dtypes"):
         cuda_cic.gather(z32, z64, periodic=True)
-    for name in cuda_cic.F32_ONLY:
+    assert cuda_cic.F32_ONLY == ("tridiag3_chain",)
+    for dev in (torch.device("cpu"), CUDA):
         with pytest.raises(TypeError, match="float32 tensors"):
-            cuda_cic.check_dtype(name, torch.device("cpu"), torch.float64)
-    with pytest.raises(TypeError, match="float32"):
-        cuda_newton.boltzmann_dirichlet(z64, 1e17, 1e4, 1e-5)
+            cuda_cic.check_dtype("tridiag3_chain", dev, torch.float64)
+    with pytest.raises(TypeError, match="float32 tensors"):
+        cuda_newton.tridiag3_chain(z64, z64, z64, z64, first=True, last=True)
+    res = cuda_newton.boltzmann_dirichlet(z64, 1e17, 1e4, 1e-5)
+    assert res.phi.dtype == res.residual.dtype == torch.float64
+    with pytest.raises(TypeError, match="different dtypes"):
+        cuda_newton.boltzmann_dirichlet(z64, 1e17, 1e4, 1e-5, phi0=z32)
 
 
 @pytest.mark.parametrize("engine", sorted(cuda_cic.F64_ENGINE_ITEMS))
 def test_engines_without_float64_kernels_refuse_a_card_state(engine):
-    """The explicit and magnetized engines refuse a float64 state on the
-    card at once, naming their slice of item 19; the CPU takes it;
-    float32 passes on the card (the sheath engine, item 19a, takes
-    float64 there: tests/test_torch_sheath.py)."""
+    """The explicit engine refuses a float64 state on the card at once,
+    naming its slice of item 19; the CPU takes it; float32 passes on the
+    card (the implicit, sheath and magnetized engines take float64 there:
+    test_engines_with_double_kernels_take_a_card_state)."""
     with pytest.raises(NotImplementedError, match="item 19") as err:
         cuda_cic.check_engine_dtype(engine, CUDA, torch.float64)
     assert cuda_cic.F64_ENGINE_ITEMS[engine] in str(err.value)
     cuda_cic.check_engine_dtype(engine, torch.device("cpu"), torch.float64)
     cuda_cic.check_engine_dtype(engine, CUDA, torch.float32)
+
+
+@pytest.mark.parametrize("engine", ["implicit", "magnetized", "sheath"])
+def test_engines_with_double_kernels_take_a_card_state(engine):
+    """The engines with double kernels (rows 1-6: implicit; item 19a:
+    sheath; item 19b: magnetized) take a float64 state on the card and on
+    the CPU; float16 raises TypeError on the card."""
+    assert engine not in cuda_cic.F64_ENGINE_ITEMS
+    for dev in (CUDA, torch.device("cpu")):
+        cuda_cic.check_engine_dtype(engine, dev, torch.float64)
+        cuda_cic.check_engine_dtype(engine, dev, torch.float32)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_cic.check_engine_dtype(engine, CUDA, torch.float16)
+
+
+# the magnetized engine's wrappers with a double kernel (ROADMAP item 19b:
+# rows 7-9, 22 and 23), called on stand-ins
+MAGNETIZED_SLICE = {
+    "deposit2": lambda dt: cuda_cic.deposit2(_t(dt), _t(dt), _t(dt), 16, periodic=False),
+    "boris_gather_push": lambda dt: cuda_cic.boris_gather_push(
+        *[_t(dt)] * 7, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+    "boris_gather_push_deposit": lambda dt: cuda_cic.boris_gather_push_deposit(
+        *[_t(dt)] * 9, b=(0.0, 1.0, 0.0), dt_dx=1.0),
+    "boltzmann_dirichlet": lambda dt: cuda_newton.boltzmann_dirichlet(
+        _t(dt), 1e17, 1e4, 1e-5, phi0=_t(dt)),
+    "boltzmann_dn": lambda dt: cuda_newton.boltzmann_dn(_t(dt), 1e17, 1e4, 1e-5, _t(dt)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAGNETIZED_SLICE))
+def test_magnetized_slice_takes_float64_on_the_card(name):
+    """The magnetized engine's wrappers with a double kernel: a float64
+    call on the card passes the dtype check and goes on to its shapes
+    (the stand-ins raise there), as a float32 one does; float16 raises
+    TypeError; the wrapper is in F64_KERNELS and has no refusal item."""
+    assert name in cuda_cic.F64_KERNELS and name not in cuda_cic.F64_ITEMS
+    for dtype in (torch.float64, torch.float32):
+        with pytest.raises(_Reached):
+            MAGNETIZED_SLICE[name](dtype)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        MAGNETIZED_SLICE[name](torch.float16)
 
 
 def test_explicit_engine_refuses_at_init_and_step():
@@ -276,19 +326,24 @@ def test_explicit_engine_refuses_at_init_and_step():
     assert st1.p.dtype == st1.e.dtype == torch.float64
     mcfg = magnetized.MagnetizedConfig(GridSpec(16, 1e-4, "dirichlet-dirichlet"),
                                        1e-10, 1e4, (0.0, 1.0, 0.0), (1,))
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        magnetized.init_state(x * 1e-4, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0,
-                              mcfg, dtype=torch.float64, device=CUDA)
-    # the sheath engine takes a float64 state on the card (ROADMAP item
-    # 19a): init_state goes past its dtype check to the load (a stand-in
-    # that raises there), and runs the same state on the CPU
-    scfg = sheath.SheathConfig(GridSpec(11, 1e-4, "dirichlet-dirichlet"), 1e-10, 1e10,
-                               1e-18, 1e-18)
 
     class _Load:
         def __array__(self, *args, **kwargs):
             raise _Reached
 
+    # the magnetized engine takes a float64 state on the card (ROADMAP item
+    # 19b): init_state goes past its dtype check to the load
+    with pytest.raises(_Reached):
+        magnetized.init_state(_Load(), np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0,
+                              mcfg, dtype=torch.float64, device=CUDA)
+    mst = magnetized.init_state(x * 1e-4, np.zeros((64, 3)), M_ELECTRON, 1.0, 1.0, 0,
+                                mcfg, dtype=torch.float64, device="cpu")
+    assert mst.p.dtype == mst.phi.dtype == torch.float64
+    # the sheath engine takes a float64 state on the card (ROADMAP item
+    # 19a): init_state goes past its dtype check to the load (a stand-in
+    # that raises there), and runs the same state on the CPU
+    scfg = sheath.SheathConfig(GridSpec(11, 1e-4, "dirichlet-dirichlet"), 1e-10, 1e10,
+                               1e-18, 1e-18)
     with pytest.raises(_Reached):
         sheath.init_state(_Load(), np.zeros((4, 3)), np.ones(4), np.ones(4),
                           np.ones(4, np.int32), scfg, dtype=torch.float64, device=CUDA)
