@@ -152,7 +152,7 @@ Phases (any failure raises and the script exits non-zero):
    and launches nothing: every particle kernel with a large mode (the
    thirteen rows of phase 41, deposit2, the carried Boris deposit,
    deposit_det and the sheath pass and finalize of phase 40) only above
-   cuda_cic.LARGE_MAX_NG, naming it; explicit_cycle above its 14,512
+   cuda_cic.LARGE_MAX_NG, naming it; explicit_cycle above its 14,511
    nodes of shared memory (its engine calls it at ng <= 1,024). The
    Newton family
    has none below 2^27 rows: boltzmann_dirichlet and boltzmann_dn on
@@ -417,9 +417,10 @@ Phases (any failure raises and the script exits non-zero):
    for the pass, the finalize and the set-up deposit; the ng = 200
    checks' for the shared window, converged-deposit and the gather), and
    unless a float64 state on the card raises a NotImplementedError naming
-   its ROADMAP item in the explicit engine and run_resident (the sheath
-   engine and deposit_det, on phase 43's double kernels, and the
-   magnetized engine, on phase 44's, must run it and stay float64).
+   it no gap in the implicit and explicit run_resident (the JAX engines'
+   resident scans carry float32; the sheath engine and deposit_det, on
+   phase 43's double kernels, the magnetized engine, on phase 44's, and
+   the explicit engine, on phase 45's, must run it and stay float64).
 43. sheath float64 — the sheath engine's float64 state on its double
    kernels (ROADMAP item 19a): the pass and the finalize (row 10),
    deposit_det, sheath_reinject (row 21) and hash_batch. Each against its
@@ -478,6 +479,28 @@ Phases (any failure raises and the script exits non-zero):
    against a float64 step on the CPU (_step64; the float64 route held to
    phase 14's position limit); the D-N row at ng 8,000 in float64. It
    fails if a double kernel never launched on its path.
+45. explicit float64 — the explicit engine's float64 state on its double
+   kernels (ROADMAP item 19c): the one-kernel cycle (row 13) and the
+   two-stage sweep (row 14, both modes). Each on float64 inputs against
+   its float64 plain version (p1 within TOL64_POS cells, v1 within
+   TOL64_V, rho1 within 4 n eps64 of the largest node, row 13's e1 within
+   TOL64_SOLVE of the direct solve of its own rho1 and TOL64_SOLVE_PLAIN
+   of the plain e1), then timed (device_ms, warm) beside the float32
+   kernel on the same rows, the plain version and the bound (twice the
+   float32 bytes, 16 B a node more in the global mode): row 13 at n =
+   6104 * 16384, ng 200; row 14 there at ng 4,096 (shared mode) and at n
+   = 1e7, ng 65,536 (global mode), each launch's mode checked. Then the
+   engine's routes on the explicit two-stream at n = 1e6: fused at ng 200
+   (row 13), 4,096 and 65,536 (row 14 in both modes), composed at 200
+   (the double gather and deposit), three steps on the CPU's float64
+   route and the card one step from each CPU state, held at TOL64_STEP
+   (rho in j's place), only the route's double kernels launched. Then the
+   explicit two-stream (phase 8's load, tools/two_stream.py) at n = 6104
+   * 16384 in float32 and float64: ms/step in turns of windows, the total
+   energy change under EXPLICIT_ENERGY_BOUND in both, no float kernel in
+   the float64 run. It fails if a double kernel never launched on its
+   path (the float64 two-stream's for row 13, the ng 4,096 route's for
+   row 14).
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -3684,7 +3707,7 @@ def phase_size_limits(dev) -> dict:
     # engine calls it at ng <= 1,024)
     top = K.LARGE_MAX_NG + 1
     f = z(top)
-    cycle = (K.SMEM_LIMIT - K._CYCLE_EXTRA) // (4 * K._CYCLE_ARRAYS) + 1
+    cycle = (K.SMEM_LIMIT - K._CYCLE_EXTRA - K.STATIC_INT_BYTES) // (4 * K._CYCLE_ARRAYS) + 1
     slab = dict(qm=-1.7e11, dt=1e-7, dx=0.05, lo=2.0, hi=float(top - 3))
     calls = {
         "explicit_cycle": lambda: K.explicit_cycle(z(cycle), p, p, cycle, **kw),
@@ -8167,6 +8190,10 @@ TOL64_V = 1e-12
 # is 1e4 below the float32 limits of phase 4 (2e-4 cells, 1e-5, 1e-4)
 TOL64_STEP = {"p (cells)": 1e-8, "v": 1e-8, "e": 1e-8, "j": 1e-8,
               "field_energy": 1e-8, "kinetic_energy": 1e-8}
+# the explicit engine's routes (phase 45) at the same limits, rho in j's
+# place
+EXP64_STEP = {**{k: v for k, v in TOL64_STEP.items() if k != "j"},
+              "rho": TOL64_STEP["j"]}
 F64_CHECK_N, F64_CHECK_STEPS, F64_PATH_NGS = 1_000_000, 3, (NG, 65_536)
 F64_VARIANTS = {"conserving": {}, "composed": dict(backend="composed"),
                 "shared": dict(window_share="shared"),
@@ -8368,11 +8395,12 @@ def _f64_path_check(ng: int, dev) -> tuple[dict, dict, list]:
 
 
 def _f64_refusals(dev) -> list:
-    """A float64 state on the card raises a named NotImplementedError
-    where no float64 kernel exists yet: the explicit engine and
-    run_resident; the sheath engine and deposit_det, which have double
-    kernels (phase 43), and the magnetized engine (phase 44) run it and
-    stay float64. Returns what did not."""
+    """A float64 state on the card raises a NotImplementedError naming
+    it no gap where the JAX package runs float32 only: the implicit and
+    explicit run_resident; the sheath engine and deposit_det, which have
+    double kernels (phase 43), the magnetized engine (phase 44) and the
+    explicit engine (phase 45) run it and stay float64. Returns what did
+    not."""
     import numpy as np
 
     from pypic_tpu_torch import presets
@@ -8387,16 +8415,19 @@ def _f64_refusals(dev) -> list:
     grid = GridSpec(16, 1.0, "periodic")
     mcfg = presets.pic_iead(n_per_species=64, device="cpu").config
     scfg = presets.get("sheath_dd", n=64, device="cpu").config
+    ecfg = explicit.ExplicitConfig(grid, 1e-9, 1.0)
     cases = {
-        "explicit": lambda: explicit.init_state(
-            x, v, -E_CHARGE, M_ELECTRON, explicit.ExplicitConfig(grid, 1e-9, 1.0),
-            dtype=f64, device=dev),
+        "explicit run_resident": lambda: explicit.run_resident(
+            ecfg, explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, ecfg, dtype=f64,
+                                      device=dev), 2),
         "run_resident": lambda: implicit.run_resident(
             implicit.ImplicitConfig(grid, 1e-9, 1.0), implicit.init_state(
                 x, v, -E_CHARGE, M_ELECTRON, implicit.ImplicitConfig(grid, 1e-9, 1.0),
                 dtype=f64, device=dev), 2),
     }
     taking = {
+        "explicit": lambda: explicit.make_step(ecfg)(explicit.init_state(
+            x, v, -E_CHARGE, M_ELECTRON, ecfg, dtype=f64, device=dev))[0].e,
         "sheath": lambda: sheath.init_state(
             x * scfg.grid.length, np.zeros((64, 3)), -E_CHARGE, M_ELECTRON,
             np.zeros(64, np.int32), scfg, dtype=f64, device=dev).j,
@@ -8412,8 +8443,8 @@ def _f64_refusals(dev) -> list:
             call()
             problems.append(f"{what}: a float64 state on the card ran")
         except NotImplementedError as err:
-            if "item 19" not in str(err):
-                problems.append(f"{what}: {err} names no ROADMAP item")
+            if "item 19" not in str(err) or "no gap" not in str(err):
+                problems.append(f"{what}: {err} names it no gap")
             else:
                 log(f"[float64] {what} refuses float64 on the card: {err}")
     for what, call in taking.items():
@@ -8421,7 +8452,8 @@ def _f64_refusals(dev) -> list:
         if out.dtype != f64 or out.device.type != "cuda":
             problems.append(f"{what}: float64 on the card gave {out.dtype} on {out.device}")
         else:
-            log(f"[float64] {what} takes float64 on the card (ROADMAP item 19a or 19b)")
+            log(f"[float64] {what} takes float64 on the card (ROADMAP item 19a, 19b "
+                "or 19c)")
     return problems
 
 
@@ -9563,6 +9595,261 @@ def phase_magnetized_float64(dev) -> dict:
     return res
 
 
+# phase 45: the explicit engine's float64 state on its double kernels
+EXP64_ROWS = ("leapfrog_gather_push_deposit", "explicit_cycle")
+# (n, ng) of each double kernel's check and time, by mode: row 13 at the
+# explicit two-stream's shape, row 14 in its shared mode at the
+# two-stage branch's NG_LARGE and in its global mode at 65,536 (n = 1e7)
+EXP64_SHAPES = {"explicit_cycle": {"shared": (N_HEADLINE, NG)},
+                "leapfrog_gather_push_deposit": {"shared": (N_HEADLINE, NG_LARGE),
+                                                 "global": (10_000_000, 65_536)}}
+# row 13's e1 against the float64 direct solve of its own rho1 (the same
+# algorithm, float64 sums in another order) and against its plain
+# version's e1 (which solves the plain rho1), relative to max |e1|; 1e4
+# and more below the float32 limits (TOL_SOLVE, deposit_tol)
+TOL64_SOLVE, TOL64_SOLVE_PLAIN = 1e-10, 1e-8
+# the engine's routes at n = F64_CHECK_N, F64_CHECK_STEPS steps: the
+# CPU's float64 route from the two-stream load cast to float64 and the
+# card one step from each CPU state, held at TOL64_STEP (float64 sums in
+# other orders: rho, e and the energies; p and v come from the same state
+# and field); the double kernels each route must launch, and nothing else
+EXP64_ROUTES = {
+    "fused ng 200": (NG, "auto", {"explicit_cycle_f64"}),
+    f"fused ng {NG_LARGE}": (NG_LARGE, "auto", {"leapfrog_gather_push_deposit_f64"}),
+    "fused ng 65536": (65_536, "auto", {"leapfrog_gather_push_deposit_f64"}),
+    "composed ng 200": (NG, "composed", {"gather_f64", "deposit_f64"})}
+
+
+def _exp64_case(name: str, n: int, ng: int, gen, dev) -> dict:
+    """Row 13 or 14 in double at (n, ng), on phase 42's random float64
+    inputs (edge positions in the first rows): against its float64 plain
+    version on the same inputs (p1 within TOL64_POS cells, v1 within
+    TOL64_V, rho1 within 4 n eps64 of the largest node, row 13's e1 within
+    TOL64_SOLVE of the direct solve of its own rho1 and TOL64_SOLVE_PLAIN
+    of the plain e1), then timed (device_ms, warm) beside the float32
+    kernel on the same rows rounded to float32, the plain version once
+    and the bound (twice the float32 bytes a row, 16 B a node more in
+    the global mode); the launches by mode."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    f64 = torch.float64
+    e, _, p0, v0 = (t.to(f64) for t in _random_pass_inputs(n, gen, dev, True, ng))
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    cycle = name == "explicit_cycle"
+    if cycle:
+        call = lambda: K.explicit_cycle(e, p0, v0, ng, **kw)  # noqa: E731
+        plain = lambda: K.explicit_cycle_plain(e, p0, v0, ng, **kw)  # noqa: E731
+    else:
+        call = lambda: K.leapfrog_gather_push_deposit(e, p0, v0, **kw)  # noqa: E731
+        plain = lambda: K.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)  # noqa: E731
+    K.reset_launch_counts()
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    mode = "shared" if cycle else K.sweep_launch(name, n, ng, 132, item=8).mode
+    large = dict(K.LARGE_LAUNCHES)
+    if (K.LAUNCHES[f"{name}_f64"] != 1 or K.LAUNCHES[name]
+            or large != ({f"{name}_f64 global": 1} if mode == "global" else {})):
+        raise AssertionError(f"{name} float64 at ng {ng}: launches {dict(K.LAUNCHES)}, "
+                             f"large {large}")
+    if any(t.dtype != f64 for t in got):
+        raise AssertionError(f"{name}: the double kernel returned {[t.dtype for t in got]}")
+    a = seam_err(ref[0], got[0], ng)
+    errs = {"p1": dict(abs=a, err=a, kind="cells", tol=TOL64_POS)}
+    a, r = rel_err(ref[1], got[1])
+    errs["v1"] = dict(abs=a, err=r, kind="rel", tol=TOL64_V)
+    a, r = rel_err(ref[2], got[2])
+    errs["rho1"] = dict(abs=a, err=r, kind="rel, float64 order", tol=deposit_tol64(n))
+    if cycle:
+        from pypic_tpu_torch.ops.cuda_cic import field_from_rho_plain
+
+        a, r = rel_err(field_from_rho_plain(got[2], DX), got[3])
+        errs["e1"] = dict(abs=a, err=r, kind="rel vs the float64 solve of its rho1",
+                          tol=TOL64_SOLVE)
+        a, r = rel_err(ref[3], got[3])
+        errs["e1_plain"] = dict(abs=a, err=r, kind="rel", tol=TOL64_SOLVE_PLAIN)
+    err = _check(errs, f"{name} float64 (n = {n}, ng = {ng}, {mode} mode)")
+    del got, ref
+    e32, p32, v32 = e.float(), p0.float(), v0.float()
+    float32_ms = device_ms(
+        (lambda: K.explicit_cycle(e32, p32, v32, ng, **kw)) if cycle else
+        (lambda: K.leapfrog_gather_push_deposit(e32, p32, v32, **kw)), calls=10)
+    del e32, p32, v32
+    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode == "global" else 0.0
+    b, by = bound(name, n, extra_bytes=node_bytes, f64=True)
+    K.reset_launch_counts()
+    ms = device_ms(call, calls=10)
+    launches = {"calls": K.LAUNCHES[f"{name}_f64"], **dict(K.LARGE_LAUNCHES)}
+    if not K.LAUNCHES[f"{name}_f64"] or K.LAUNCHES[name]:
+        raise AssertionError(f"{name} float64: launches {dict(K.LAUNCHES)}")
+    plain_ms = cuda_ms(plain, reps=1, calls=1)
+    rec = dict(n=n, ng=ng, mode=mode, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by, library_ms=None, float32_ms=float32_ms,
+               launches_timed=launches)
+    log(f"[explicit float64] {name}_f64 at n = {n}, ng = {ng} ({mode} mode): {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b:.4f} ms ({by}), the float32 kernel on the "
+        f"same rows {float32_ms:.4f} ms, no single library call computes it; launches "
+        f"{launches}")
+    del e, p0, v0, call, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _exp64_route(label: str, dev) -> tuple[list, dict, list]:
+    """Route ``label`` of EXP64_ROUTES: F64_CHECK_STEPS steps of the
+    explicit two-stream (tools/two_stream.py, n = F64_CHECK_N) on the
+    CPU's float64 route, and the card one step from each CPU state,
+    against the CPU's next one at TOL64_STEP; the launches of the card
+    steps, counted from 0 before them. Returns (the gaps a step, the
+    launches, the problems)."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import two_stream
+
+    f64 = torch.float64
+    ng, backend, kernels = EXP64_ROUTES[label]
+    cfg, _, sc = two_stream.state(F64_CHECK_N, "cpu", ng=ng, dtype=f64, backend=backend)
+    step = explicit.make_step(cfg)
+    rows, launches, problems = [], collections.Counter(), []
+    for i in range(F64_CHECK_STEPS):
+        d = interop.explicit_state_to_numpy(sc)
+        K.reset_launch_counts()
+        sg, mg = step(interop.explicit_state_from_numpy(d, dev))
+        torch.cuda.synchronize()
+        launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+        launches.update({f"large {k}": v for k, v in K.LARGE_LAUNCHES.items()})
+        sc, mc = step(sc)
+        dtypes = {getattr(sg, k).dtype for k in ("p", "v", "rho", "e")}
+        checks = {"p (cells)": seam_err(sc.p, sg.p.cpu(), ng),
+                  "v": rel_err(sc.v, sg.v.cpu())[1],
+                  "rho": rel_err(sc.rho, sg.rho.cpu())[1],
+                  "e": rel_err(sc.e, sg.e.cpu())[1],
+                  "field_energy": rel_err(mc.field_energy.reshape(1),
+                                          mg.field_energy.cpu().reshape(1))[1],
+                  "kinetic_energy": rel_err(mc.kinetic_energy.reshape(1),
+                                            mg.kinetic_energy.cpu().reshape(1))[1]}
+        bad = {k: x for k, x in checks.items() if not x <= EXP64_STEP[k]}
+        if bad or dtypes != {f64}:
+            problems.append(f"{label} step {i + 1}: {bad}, dtypes {dtypes}")
+        rows.append(checks)
+        del sg, mg
+    launched = {k for k in launches if not k.startswith("large")}
+    if launched != kernels:
+        problems.append(f"{label}: launches {dict(launches)}, want {sorted(kernels)}")
+    if ng > 14_528 and not any(k.startswith("large") for k in launches):
+        problems.append(f"{label}: no global-mode launch {dict(launches)}")
+    log(f"[explicit float64] {label}, n = {F64_CHECK_N}, the card one step from each of "
+        f"{F64_CHECK_STEPS} CPU states against the CPU's (limits "
+        f"{EXP64_STEP['p (cells)']:.0e} cells, {EXP64_STEP['v']:.0e} relative): "
+        + "; ".join(", ".join(f"{k} {x:.2e}" for k, x in r.items()) for r in rows)
+        + f"; card launches {dict(launches)}")
+    return rows, dict(launches), problems
+
+
+def _exp64_two_stream(dev) -> tuple[dict, list]:
+    """The explicit two-stream at n = N_HEADLINE, ng 200 (phase 8's load,
+    tools/two_stream.py) in float32 and float64 on the card: set-up and one
+    step each, then F64_WINDOWS windows of F64_WINDOW_STEPS steps a dtype
+    in turns; ms/step, the total energy change over every step's pre-push
+    energies (held under EXPLICIT_ENERGY_BOUND in both), the launches (the
+    float64 run's only double kernels). Returns (figures, problems)."""
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import two_stream
+
+    labels = {"float32": torch.float32, "float64": torch.float64}
+    states, steps, launches, energy = {}, {}, {}, {}
+    windows = {label: [] for label in labels}
+    for label, dtype in labels.items():
+        K.reset_launch_counts()
+        cfg, _, states[label] = two_stream.state(N_HEADLINE, dev, dtype=dtype)
+        steps[label] = explicit.make_step(cfg)
+        states[label], m = run(steps[label], states[label], 1)
+        torch.cuda.synchronize()
+        launches[label] = dict(K.LAUNCHES)
+        energy[label] = [m.field_energy + m.kinetic_energy]
+    for _ in range(F64_WINDOWS):
+        for label in labels:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            states[label], m = run(steps[label], states[label], F64_WINDOW_STEPS)
+            torch.cuda.synchronize()
+            windows[label].append((time.perf_counter() - t0) * 1e3 / F64_WINDOW_STEPS)
+            for k, v in K.LAUNCHES.items():
+                launches[label][k] += v
+            energy[label].append(m.field_energy + m.kinetic_energy)
+    problems, out = [], {}
+    for label, dtype in labels.items():
+        st = states[label]
+        tot = torch.cat(energy[label]).double().cpu()
+        change = float((tot[-1] - tot[0]) / tot[0])
+        used = {k: v for k, v in launches[label].items() if v}
+        out[label] = dict(ms_per_step=statistics.median(windows[label]),
+                          windows=windows[label], total_energy_rel_change=change,
+                          steps=len(tot), launches=used)
+        if not abs(change) < EXPLICIT_ENERGY_BOUND:
+            problems.append(f"two-stream {label}: total energy change {change}")
+        if st.p.dtype != dtype or not (bool(torch.isfinite(st.p).all())
+                                       and bool(torch.isfinite(st.e).all())):
+            problems.append(f"two-stream {label}: {st.p.dtype}, non-finite state")
+        if (dtype == torch.float64) != all(k.endswith("_f64") for k in used):
+            problems.append(f"two-stream {label}: launches {used}")
+    log(f"[explicit float64] two-stream n = {N_HEADLINE}, ng = {NG}, in turns of "
+        f"{F64_WINDOW_STEPS} steps after set-up and one: float32 "
+        f"{out['float32']['ms_per_step']:.4f} ms/step (windows "
+        + ", ".join(f"{w:.4f}" for w in windows["float32"]) + "), float64 "
+        f"{out['float64']['ms_per_step']:.4f} ms/step (windows "
+        + ", ".join(f"{w:.4f}" for w in windows["float64"]) + "); total energy change "
+        f"over {out['float64']['steps']} steps float32 "
+        f"{out['float32']['total_energy_rel_change']:+.4e}, float64 "
+        f"{out['float64']['total_energy_rel_change']:+.4e} (bound "
+        f"{EXPLICIT_ENERGY_BOUND:.0e}); launches float32 {out['float32']['launches']}, "
+        f"float64 {out['float64']['launches']}")
+    del states, steps
+    torch.cuda.empty_cache()
+    return out, problems
+
+
+def phase_explicit_float64(dev) -> dict:
+    """Phase 45 (module docstring). Returns the double kernels' records by
+    mode, the route checks and their launches, the two-stream in both
+    dtypes and the double kernels' launches on their paths; fails on a
+    disagreement, a float kernel launched in a float64 run, an energy
+    change over its bound, or a double kernel never launched on its
+    path."""
+    gen = torch.Generator(device=dev).manual_seed(45)
+    res = {"kernels": {}}
+    for name in EXP64_ROWS:
+        for mode, (n, ng) in EXP64_SHAPES[name].items():
+            rec = _exp64_case(name, n, ng, gen, dev)
+            if rec["mode"] != mode:
+                raise AssertionError(f"{name} float64 at ng {ng}: mode {rec['mode']}")
+            res["kernels"].setdefault(name, {})[mode] = rec
+    problems = []
+    res["check"], res["check_launches"] = {}, {}
+    for label in EXP64_ROUTES:
+        rows, launches, bad = _exp64_route(label, dev)
+        res["check"][label], res["check_launches"][label] = rows, launches
+        problems += bad
+    res["two_stream"], bad = _exp64_two_stream(dev)
+    problems += bad
+    # each double kernel's launches on its path: the float64 two-stream's
+    # for row 13 (one a step), the ng 4,096 route's for row 14
+    res["launches"] = {
+        "explicit_cycle": res["two_stream"]["float64"]["launches"].get(
+            "explicit_cycle_f64", 0),
+        "leapfrog_gather_push_deposit": res["check_launches"][f"fused ng {NG_LARGE}"].get(
+            "leapfrog_gather_push_deposit_f64", 0)}
+    missing = [k for k, v in res["launches"].items() if not v]
+    if missing:
+        problems.append(f"double kernels never launched on their paths: {missing}")
+    log(f"[explicit float64] the double kernels' launches on their paths {res['launches']}")
+    if problems:
+        raise AssertionError("explicit float64: " + "; ".join(problems))
+    return res
+
+
 def main() -> int:
     walls = {}
 
@@ -9622,6 +9909,7 @@ def main() -> int:
     f64 = phase("float64", phase_float64, dev)
     s64 = phase("sheath float64", phase_sheath_float64, dev)
     m64 = phase("magnetized float64", phase_magnetized_float64, dev)
+    e64 = phase("explicit float64", phase_explicit_float64, dev)
 
     # each kernel's launches come from the path that runs it, counted from
     # 0 just before that path and read just after
@@ -9781,6 +10069,21 @@ def main() -> int:
            "shapes": {rows: rec for rows, rec in m64["kernels"][kname].items()
                       if rows > 1024}}
           for kname in ("boltzmann_dirichlet", "boltzmann_dn")),
+    ] + [
+        # the explicit engine's double kernels (phase 45): row 13 at the
+        # two-stream's shape, row 14 in its shared mode at ng 4,096 with
+        # its global mode at 1e7 / 65,536 beside; the launches of the
+        # float64 two-stream (row 13) and the ng 4,096 route (row 14)
+        {"name": f"{kname}_f64", "route": "cuda",
+         "source": "pypic_tpu_torch/csrc/explicit.cu", "replaces": REPLACES[kname],
+         "launches": e64["launches"][kname],
+         **{key: e64["kernels"][kname]["shared"][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+             "float32_ms")},
+         "dtype": "float64",
+         **({"global_mode": e64["kernels"][kname]["global"]}
+            if "global" in e64["kernels"][kname] else {})}
+        for kname in EXP64_ROWS
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the
         # JAX engine takes them from jax.random)
@@ -9922,6 +10225,7 @@ def main() -> int:
         "float64": {k: v for k, v in f64.items() if k != "kernels"},
         "sheath_float64": {k: v for k, v in s64.items() if k not in ("kernels", "hash_batch")},
         "magnetized_float64": {k: v for k, v in m64.items() if k != "kernels"},
+        "explicit_float64": {k: v for k, v in e64.items() if k != "kernels"},
         "walls_s": walls}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

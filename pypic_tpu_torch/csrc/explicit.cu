@@ -11,8 +11,15 @@
 //
 // The leapfrog body is that of pallas_cic.py:834-846:
 //   vh = v + qmh e;  p1 = wrap(p + vh dt_dx);  v1 = vh + qmh e
-// with qmh = q/m dt/2 and dt_dx computed on the host in float32, in the
-// Pallas wrappers' order. __fmul_rn / __fadd_rn keep nvcc from fusing.
+// with qmh = q/m dt/2 and dt_dx computed on the host in the state's
+// dtype, in the Pallas wrappers' order. mul_rn / add_rn (__fmul_rn /
+// __fadd_rn for float) keep nvcc from fusing.
+//
+// The gather, the leapfrog_deposit sweep and the explicit cycle take the
+// element type T (float, or double for a float64 state) as their
+// templates' last argument: a float instantiation is the code the float
+// kernel was, a double one rounds each operation once in double, as the
+// plain versions' float64 operations do.
 //
 // Launchers return cudaGetLastError(); they allocate nothing and run on
 // the stream they are given.
@@ -26,13 +33,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 // Kick-drift-kick with one gathered field value, then the periodic wrap.
-__device__ __forceinline__ void leapfrog(float p, float v, float e, float qmh,
-                                         float dt_dx, float ngf, float inv_ng,
-                                         float& p1, float& v1) {
-  const float kick = __fmul_rn(qmh, e);
-  const float vh = __fadd_rn(v, kick);
-  p1 = wrap(__fadd_rn(p, __fmul_rn(vh, dt_dx)), ngf, inv_ng);
-  v1 = __fadd_rn(vh, kick);
+template <typename T>
+__device__ __forceinline__ void leapfrog(T p, T v, T e, T qmh, T dt_dx, T ngf,
+                                         T inv_ng, T& p1, T& v1) {
+  const T kick = mul_rn(qmh, e);
+  const T vh = add_rn(v, kick);
+  p1 = wrap(add_rn(p, mul_rn(vh, dt_dx)), ngf, inv_ng);
+  v1 = add_rn(vh, kick);
 }
 
 // Block-wide exclusive prefix sum over threads in thread order.
@@ -58,10 +65,11 @@ __device__ double block_exclusive_scan(double x, double* red) {
 // T = prefix sum of (rho - mean(rho)) and d = T - mean(T) (the forward
 // differences of the zero-mean potential, up to -dx^2/eps0),
 //   e_i = dx / (2 eps0) (d_i + d_{i-1}),  d_{-1} = d_{ng-1}.
-// Float64 throughout, e rounded to float32 once. `c` = dx / (2 eps0),
-// `scr` ng doubles and `red` 32 doubles of shared memory. Every thread of
-// the block calls it; it ends with a __syncthreads().
-__device__ void field_from_rho(const float* rho, float* e_out, int ng, double c,
+// Float64 throughout, e rounded to T once. `c` = dx / (2 eps0), `scr` ng
+// doubles and `red` 32 doubles of shared memory. Every thread of the
+// block calls it; it ends with a __syncthreads().
+template <typename T>
+__device__ void field_from_rho(const T* rho, T* e_out, int ng, double c,
                                double* scr, double* red) {
   const int t = threadIdx.x, nt = blockDim.x;
   double s = 0.0;
@@ -84,7 +92,7 @@ __device__ void field_from_rho(const float* rho, float* e_out, int ng, double c,
   for (int i = t; i < ng; i += nt) {
     const double d = scr[i] - mean_t;
     const double dm = scr[i == 0 ? ng - 1 : i - 1] - mean_t;
-    e_out[i] = (float)(c * (d + dm));
+    e_out[i] = (T)(c * (d + dm));
   }
   __syncthreads();
 }
@@ -93,25 +101,24 @@ __device__ void field_from_rho(const float* rho, float* e_out, int ng, double c,
 // block's copy of the field (from `field` in device memory in kGlobal),
 // push, wrap, store (p1, v1), deposit w at p1 into `hist` (the block's
 // histogram, or the zeroed output in the large modes).
-template <int MODE = kShared>
+template <int MODE = kShared, typename T>
 __device__ __forceinline__ void leapfrog_deposit_sweep(
-    const float* s_field, float* s_hist, const float* __restrict__ p,
-    const float* __restrict__ v, float* __restrict__ p1_out,
-    float* __restrict__ v1_out, long long n, int ng, float qmh, float dt_dx,
-    float w, float inv_ng, const float* __restrict__ field = nullptr) {
-  const float ngf = (float)ng;
+    const T* s_field, T* s_hist, const T* __restrict__ p, const T* __restrict__ v,
+    T* __restrict__ p1_out, T* __restrict__ v1_out, long long n, int ng, T qmh,
+    T dt_dx, T w, T inv_ng, const T* __restrict__ field = nullptr) {
+  const T ngf = (T)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float a = p[i];
-    const float e = gather_mode<MODE>(s_field, field, cic_periodic(a, ng));
-    float p1, v1;
+    const T a = p[i];
+    const T e = gather_mode<MODE>(s_field, field, cic_periodic(a, ng));
+    T p1, v1;
     leapfrog(a, v[i], e, qmh, dt_dx, ngf, inv_ng, p1, v1);
     p1_out[i] = p1;
     v1_out[i] = v1;
-    const Cic c = cic_periodic(p1, ng);
-    atomicAdd(&s_hist[c.l], __fmul_rn(w, c.wl));
-    atomicAdd(&s_hist[c.r], __fmul_rn(w, c.wr));
+    const CicT<T> c = cic_periodic(p1, ng);
+    atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));
+    atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));
   }
 }
 
@@ -190,20 +197,27 @@ cudaError_t launch_gather(const T* field, const T* p, T* out, long long n, int n
 // from device memory, each of a row's two adds a global float atomic into
 // the zeroed rho. Bound there: the rows' 16 B, plus the field read and rho
 // written once: 8 B a node.
+//
+// T double (a float64 state, pypic_leapfrog_deposit_f64): 32 B a row, the
+// field and the histogram (2 ng doubles) in shared memory to 14,528 nodes,
+// kGlobal (global double atomics) above it; 16 B a node there.
 // ---------------------------------------------------------------------------
-template <int MODE>
+template <int MODE, typename T>
 __global__ void leapfrog_deposit_kernel(
-    const float* __restrict__ field, const float* __restrict__ p,
-    const float* __restrict__ v, float* __restrict__ p1,
-    float* __restrict__ v1, float* __restrict__ rho, long long n, int ng,
-    float qmh, float dt_dx, float w, float inv_ng) {
+    const T* __restrict__ field, const T* __restrict__ p, const T* __restrict__ v,
+    T* __restrict__ p1, T* __restrict__ v1, T* __restrict__ rho, long long n, int ng,
+    T qmh, T dt_dx, T w, T inv_ng) {
+  // declared as floats so that the float kernel compiles to the same code
+  // as without T (tools/sass_diff.py); the block's dynamic shared memory
+  // starts 16-B aligned (the kernel has no static shared memory), which
+  // the doubles need
   extern __shared__ float smem[];
-  float* s_field = smem;
-  float* s_hist = smem + ng;
+  T* s_field = reinterpret_cast<T*>(smem);
+  T* s_hist = s_field + ng;
   if (MODE == kShared) {
     for (int i = threadIdx.x; i < ng; i += blockDim.x) {
       s_field[i] = field[i];
-      s_hist[i] = 0.0f;
+      s_hist[i] = (T)0;
     }
   }
   __syncthreads();
@@ -229,25 +243,32 @@ __global__ void leapfrog_deposit_kernel(
 // its histogram with atomics into the zeroed rho, fences, and takes a
 // ticket from a counter; the block holding the last ticket reads the
 // complete rho from L2 and solves it (field_from_rho, float64, 256
-// threads). The counter is the float after rho's ng nodes in the same
+// threads). The counter is the word after rho's ng nodes in the same
 // zeroed allocation, so every launch starts from 0 and no reset is needed.
+//
+// T double (a float64 state, pypic_explicit_cycle_f64): 32 B a row; the
+// field and the histogram are doubles beside the solve's scratch, 3 ng
+// doubles + 256 B of shared memory (2 ng floats + ng doubles + 256 B for
+// float), and the ticket's 16 static bytes: at most 9,674 nodes (14,511
+// for float; ops/cuda_cic.py check_cycle_smem); the counter is the first
+// word of the double after rho.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void explicit_cycle_kernel(
-    const float* __restrict__ field, const float* __restrict__ p,
-    const float* __restrict__ v, float* __restrict__ p1,
-    float* __restrict__ v1, float* rho, float* __restrict__ e1, long long n,
-    int ng, float qmh, float dt_dx, float w, float inv_ng, double c_solve) {
+    const T* __restrict__ field, const T* __restrict__ p, const T* __restrict__ v,
+    T* __restrict__ p1, T* __restrict__ v1, T* rho, T* __restrict__ e1, long long n,
+    int ng, T qmh, T dt_dx, T w, T inv_ng, double c_solve) {
   extern __shared__ double smem_d[];
-  double* scr = smem_d;                            // ng
-  double* red = smem_d + ng;                       // 32
-  float* s_field = (float*)(smem_d + ng + 32);     // ng
-  float* s_hist = s_field + ng;                    // ng
+  double* scr = smem_d;                        // ng
+  double* red = smem_d + ng;                   // 32
+  T* s_field = (T*)(smem_d + ng + 32);         // ng
+  T* s_hist = s_field + ng;                    // ng
   __shared__ unsigned int s_ticket;
   unsigned int* counter = reinterpret_cast<unsigned int*>(rho + ng);
 
   for (int i = threadIdx.x; i < ng; i += blockDim.x) {
     s_field[i] = field[i];
-    s_hist[i] = 0.0f;
+    s_hist[i] = (T)0;
   }
   __syncthreads();
   leapfrog_deposit_sweep(s_field, s_hist, p, v, p1, v1, n, ng, qmh, dt_dx, w,
@@ -265,6 +286,37 @@ __global__ void explicit_cycle_kernel(
   for (int i = threadIdx.x; i < ng; i += blockDim.x) s_hist[i] = __ldcg(&rho[i]);
   __syncthreads();
   field_from_rho(s_hist, e1, ng, c_solve, scr, red);
+}
+
+// Launch leapfrog_deposit_kernel<mode, T> and explicit_cycle_kernel<T>
+// after the shared-memory opt-in.
+template <typename T>
+cudaError_t launch_leapfrog_deposit(const T* field, const T* p, const T* v, T* p1, T* v1,
+                                    T* rho, long long n, int ng, T qmh, T dt_dx, T w,
+                                    T inv_ng, int mode, int blocks, int threads,
+                                    cudaStream_t s) {
+  return with_mode(mode, [&](auto m) {
+    constexpr int MODE = decltype(m)::value;
+    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(T);
+    cudaError_t err = allow_smem(leapfrog_deposit_kernel<MODE, T>, smem);
+    if (err != cudaSuccess) return err;
+    leapfrog_deposit_kernel<MODE, T><<<blocks, threads, smem, s>>>(
+        field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w, inv_ng);
+    return cudaGetLastError();
+  });
+}
+
+template <typename T>
+cudaError_t launch_explicit_cycle(const T* field, const T* p, const T* v, T* p1, T* v1,
+                                  T* rho, T* e1, long long n, int ng, T qmh, T dt_dx, T w,
+                                  T inv_ng, double c_solve, int blocks, int threads,
+                                  cudaStream_t s) {
+  const size_t smem = (size_t)(ng + 32) * sizeof(double) + 2 * (size_t)ng * sizeof(T);
+  cudaError_t err = allow_smem(explicit_cycle_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  explicit_cycle_kernel<T><<<blocks, threads, smem, s>>>(
+      field, p, v, p1, v1, rho, e1, n, ng, qmh, dt_dx, w, inv_ng, c_solve);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -640,35 +692,45 @@ int pypic_gather_f64(const double* field, const double* p, double* out, long lon
                             (cudaStream_t)stream);
 }
 
-// mode: 0 shared, 1 global; rho: ng zeroed floats.
+// mode: 0 shared, 1 global; rho: ng zeroed elements.
 int pypic_leapfrog_deposit(const float* field, const float* p, const float* v,
                            float* p1, float* v1, float* rho, long long n, int ng,
                            float qmh, float dt_dx, float w, float inv_ng,
                            int mode, int blocks, int threads, void* stream) {
-  return (int)with_mode(mode, [&](auto m) {
-    constexpr int MODE = decltype(m)::value;
-    const size_t smem = mode_floats(MODE, 2, ng) * sizeof(float);
-    cudaError_t err = allow_smem(leapfrog_deposit_kernel<MODE>, smem);
-    if (err != cudaSuccess) return err;
-    leapfrog_deposit_kernel<MODE><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w, inv_ng);
-    return cudaGetLastError();
-  });
+  return (int)launch_leapfrog_deposit(field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w,
+                                      inv_ng, mode, blocks, threads, (cudaStream_t)stream);
 }
 
-// rho: ng + 1 zeroed floats; the last one is the epilogue's block counter.
-// threads: a multiple of 32.
+// The double sweep (a float64 state): mode 0 shared, 1 global.
+int pypic_leapfrog_deposit_f64(const double* field, const double* p, const double* v,
+                               double* p1, double* v1, double* rho, long long n, int ng,
+                               double qmh, double dt_dx, double w, double inv_ng,
+                               int mode, int blocks, int threads, void* stream) {
+  return (int)launch_leapfrog_deposit(field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w,
+                                      inv_ng, mode, blocks, threads, (cudaStream_t)stream);
+}
+
+// rho: ng + 1 zeroed elements; the last one holds the epilogue's block
+// counter. threads: a multiple of 32.
 int pypic_explicit_cycle(const float* field, const float* p, const float* v,
                          float* p1, float* v1, float* rho, float* e1,
                          long long n, int ng, float qmh, float dt_dx, float w,
                          float inv_ng, double c_solve, int blocks, int threads,
                          void* stream) {
-  const size_t smem = (size_t)(ng + 32) * sizeof(double) + 2 * (size_t)ng * sizeof(float);
-  cudaError_t err = allow_smem(explicit_cycle_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  explicit_cycle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      field, p, v, p1, v1, rho, e1, n, ng, qmh, dt_dx, w, inv_ng, c_solve);
-  return (int)cudaGetLastError();
+  return (int)launch_explicit_cycle(field, p, v, p1, v1, rho, e1, n, ng, qmh, dt_dx, w,
+                                    inv_ng, c_solve, blocks, threads,
+                                    (cudaStream_t)stream);
+}
+
+// The double cycle (a float64 state); rho: ng + 1 zeroed doubles.
+int pypic_explicit_cycle_f64(const double* field, const double* p, const double* v,
+                             double* p1, double* v1, double* rho, double* e1,
+                             long long n, int ng, double qmh, double dt_dx, double w,
+                             double inv_ng, double c_solve, int blocks, int threads,
+                             void* stream) {
+  return (int)launch_explicit_cycle(field, p, v, p1, v1, rho, e1, n, ng, qmh, dt_dx, w,
+                                    inv_ng, c_solve, blocks, threads,
+                                    (cudaStream_t)stream);
 }
 
 // per_cta: the rows a CTA owns, ceil(n / 8) (at most 4096); 2 <= ng <=

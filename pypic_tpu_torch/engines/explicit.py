@@ -17,7 +17,7 @@ sweep: the push deposits its own output for the next step's solve.
   ``leapfrog_push``, ``torch.remainder``, the deposit kernel and the solve.
 
 ``run_resident`` runs ``steps_per_call`` cycles per launch of
-``cuda_cic.explicit_cycle_resident`` (n <= 32768).
+``cuda_cic.explicit_cycle_resident`` (n <= 32768, a float32 state).
 
 Data parallel (``cfg.axis_name`` set, ``make_step(cfg, mesh=mesh)``; see
 ``parallel.dataparallel``): each rank's deposit of rho is summed over the
@@ -34,10 +34,12 @@ convention: the metrics of step k describe the state it started from.
 A step makes no host sync: q and m reach the kernel scalars from a host
 copy taken when the state is built.
 
-A float64 state runs on the CPU (the plain versions, scalars in float64,
-as the JAX engine's under x64); on the card the engine refuses it until
-its kernels have double forms (``cuda_cic.check_engine_dtype``, ROADMAP
-queue 1 item 19c).
+A float64 state (the JAX engine's under x64) runs on either device, its
+scalars in float64: on the CPU through the plain versions, on the card
+through the double kernels of all three branches (``explicit_cycle``,
+``leapfrog_gather_push_deposit``, and the composed route's ``gather`` and
+``deposit``). ``run_resident`` takes float32 only, as the JAX engine's
+does (its resident scan carries float32).
 """
 
 from __future__ import annotations
@@ -264,16 +266,24 @@ def run_resident(cfg: ExplicitConfig, state: ExplicitState, steps: int,
     for the whole launch, so the per-step cost is the kernel's, not the
     host's.
 
-    The same math as the one-kernel cycle. Requires scalar q/m, ng <= 1024
-    and n <= 32768, and accepts and rejects what the JAX engine's
-    run_resident does. Returns (final_state, ResidentMetrics) with the
-    metrics stacked over all ``steps``, as runner.run stacks StepMetrics.
+    The same math as the one-kernel cycle. Requires scalar q/m, a
+    float32 state, ng <= 1024 and n <= 32768, and accepts and rejects what
+    the JAX engine's run_resident does. Returns (final_state,
+    ResidentMetrics) with the metrics stacked over all ``steps``, as
+    runner.run stacks StepMetrics.
     """
     ng = cfg.grid.ng
     if cfg.axis_name is not None:
         raise ValueError("run_resident is single-device (axis_name=None)")
     if state.q.dim() != 0 or state.m.dim() != 0:
         raise ValueError("run_resident requires scalar q/m")
+    if state.p.dtype != torch.float32:
+        # the JAX engine's resident scan carries float32 and raises a
+        # TypeError for any other state
+        raise NotImplementedError(
+            f"run_resident takes a float32 state only, as the JAX engine's "
+            f"does, not {state.p.dtype}: "
+            f"{cuda_cic.F64_ITEMS['explicit_cycle_resident']}")
     if ng > ONE_KERNEL_MAX_NG:
         raise ValueError(
             f"run_resident requires ng <= {ONE_KERNEL_MAX_NG} (the field and "

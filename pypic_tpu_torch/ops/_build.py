@@ -157,6 +157,12 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 3 + [_D] * 5 + [_I, _D, _D, _P], _I),
     "pypic_boltzmann_dn_large_f64": (
         [_P] * 7 + [_I] * 3 + [_D] * 4 + [_I, _D, _D, _P], _I),
+    # the explicit engine's (item 19c): rows 14 and 13, every scalar _D
+    "pypic_leapfrog_deposit_f64": (
+        [_P, _P, _P, _P, _P, _P, _L, _I, _D, _D, _D, _D, _I, _I, _I, _P], _I),
+    "pypic_explicit_cycle_f64": (
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _D, _D, _D, _D, _D, _I, _I, _P],
+        _I),
     "pypic_explicit_domain_cycle": (
         [_P] * 8 + [_L, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_error_string": ([_I], ctypes.c_char_p),

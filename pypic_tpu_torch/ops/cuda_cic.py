@@ -53,10 +53,11 @@ x64) runs on the CPU in every wrapper's plain version (not the slab
 chain solve's, ``F32_ONLY``), and on the card in the wrappers with a
 double kernel, ``F64_KERNELS`` (rows 1-6; the sheath engine's pass and
 finalize, ``deposit_det``, ``sheath_reinject`` and ``hash_batch``; the
-magnetized engine's rows 7-9 and its Newton solves, rows 22 and 23: the
-``_f64`` entry points, counted under ``<wrapper>_f64``); any other
-wrapper raises ``NotImplementedError`` naming its ROADMAP item
-(``check_dtype``). A
+magnetized engine's rows 7-9 and its Newton solves, rows 22 and 23; the
+explicit engine's rows 13 and 14: the ``_f64`` entry points, counted
+under ``<wrapper>_f64``); any other wrapper raises
+``NotImplementedError`` naming why it takes float32 only
+(``check_dtype``: the JAX package runs its path in float32 alone). A
 failed build or launch raises; nothing falls back. The card's size
 limits (shared memory a block, thread histograms) are checked in the
 CUDA branch only, so the plain versions run any grid size on CPU
@@ -100,13 +101,15 @@ from .fd import smooth_periodic
 # The wrappers with a float64 kernel on the card (ROADMAP queue 1, item
 # 19: the implicit engine's rows 1-6; item 19a: the sheath engine's pass
 # and finalize, deposit_det, the re-injection and the hash sampler; item
-# 19b: the magnetized engine's rows 7-9 and its two Newton solves). On
-# CPU tensors every wrapper's plain version takes float64.
+# 19b: the magnetized engine's rows 7-9 and its two Newton solves; item
+# 19c: the explicit engine's rows 14 and 13). On CPU tensors every
+# wrapper's plain version takes float64.
 F64_KERNELS = ("picard_iteration", "picard_iteration_shared",
                "picard_finalize_nodep", "picard_finalize", "deposit", "gather",
                "sheath_picard", "sheath_finalize", "deposit_det",
                "sheath_reinject", "hash_batch", "deposit2", "boris_gather_push",
-               "boris_gather_push_deposit", "boltzmann_dirichlet", "boltzmann_dn")
+               "boris_gather_push_deposit", "boltzmann_dirichlet", "boltzmann_dn",
+               "leapfrog_gather_push_deposit", "explicit_cycle")
 LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "gather": 0, "leapfrog_gather_push_deposit": 0,
             "explicit_cycle": 0, "explicit_cycle_resident": 0,
@@ -121,8 +124,9 @@ LAUNCHES = {"picard_iteration": 0, "picard_finalize_nodep": 0, "deposit": 0,
             "explicit_domain_cycle": 0, "hash_batch": 0,
             "tridiag3_chain": 0, "boltzmann_dirichlet_large": 0,
             "boltzmann_dn_large": 0, "tridiag3_chain_large": 0,
-            # the double kernels of a float64 state (rows 1-10, 21-23,
-            # deposit_det and hash_batch) and the double Newton large path
+            # the double kernels of a float64 state (rows 1-10, 13, 14,
+            # 21-23, deposit_det and hash_batch) and the double Newton
+            # large path
             **{f"{name}_f64": 0 for name in F64_KERNELS},
             "boltzmann_dirichlet_large_f64": 0, "boltzmann_dn_large_f64": 0}
 # launches in a large mode, keyed "wrapper mode": "global", "field" for
@@ -241,9 +245,9 @@ def check_static_smem(log: str) -> list[str]:
     return problems
 
 
-# the double instantiations of the float64 kernels (rows 1-10, 21-23,
-# deposit_det and hash_batch): (kernel, the index of its element-type
-# template argument)
+# the double instantiations of the float64 kernels (rows 1-10, 13, 14,
+# 21-23, deposit_det and hash_batch): (kernel, the index of its
+# element-type template argument)
 F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
                  ("deposit_kernel", 3), ("deposit_global_kernel", 3),
                  ("gather_kernel", 2),
@@ -256,7 +260,9 @@ F64_INSTANCES = (("picard_iteration_kernel", 3), ("picard_finalize_kernel", 2),
                  ("boris_kernel", 2), ("boris_deposit_kernel", 3),
                  ("boris_deposit_global_kernel", 4), ("newton_dd_kernel", 0),
                  ("newton_dn_kernel", 0), ("newton_dd_large_kernel", 0),
-                 ("newton_dn_large_kernel", 0))
+                 ("newton_dn_large_kernel", 0),
+                 # the explicit engine's (item 19c): row 14 (both modes), row 13
+                 ("leapfrog_deposit_kernel", 1), ("explicit_cycle_kernel", 0))
 
 
 def check_f64_kernels(log: str) -> list[str]:
@@ -282,13 +288,13 @@ def _count(name: str, mode: str) -> None:
         LARGE_LAUNCHES[f"{name} {mode}"] += 1
 
 
-_F64_EXPLICIT = "ROADMAP.md queue 1, item 19c (the explicit engine's float64 kernels)"
 _F64_FLOAT32 = ("no gap: the JAX package runs this path in float32 only (ROADMAP.md "
                 "queue 1, item 19)")
-# the item that will bring each other wrapper a float64 kernel
+# why each other wrapper takes float32 alone on the card: the resident
+# kernels' (the JAX engines' resident scans carry float32) and the slab
+# engines' (float32 in the JAX package)
 F64_ITEMS = {
-    "leapfrog_gather_push_deposit": _F64_EXPLICIT, "explicit_cycle": _F64_EXPLICIT,
-    "explicit_cycle_resident": _F64_EXPLICIT, "leapfrog_gather_push": _F64_EXPLICIT,
+    "explicit_cycle_resident": _F64_FLOAT32, "leapfrog_gather_push": _F64_FLOAT32,
     "implicit_resident": _F64_FLOAT32, "picard_iteration_ext": _F64_FLOAT32,
     "picard_finalize_ext": _F64_FLOAT32, "explicit_domain_cycle": _F64_FLOAT32,
 }
@@ -297,26 +303,13 @@ F64_ITEMS = {
 F32_ONLY = ("tridiag3_chain",)
 
 
-# the engines whose kernels take float32 alone on the card, by the item
-# that will bring them float64 kernels (the implicit, sheath and
-# magnetized engines run a float64 state on their double kernels)
-F64_ENGINE_ITEMS = {"explicit": _F64_EXPLICIT}
-
-
 def check_engine_dtype(engine: str, device: torch.device, dtype: torch.dtype) -> None:
-    """Raise NotImplementedError, naming the engine's ROADMAP item, for a
-    state that is not float32 on the card in an engine of
-    F64_ENGINE_ITEMS: it refuses at once rather than at its first kernel
-    without a float64 form. The CPU runs float64 (the plain versions), and
-    so does the card in the other engines (their double kernels); a dtype
-    other than float32 and float64 raises TypeError there."""
+    """Raise TypeError for a state on the card that is neither float32 nor
+    float64. Every single-device engine runs a float64 state on the card
+    (its double kernels) and on the CPU (the plain versions), as the JAX
+    engines run one under x64."""
     if device.type != "cuda" or dtype == torch.float32:
         return
-    if engine in F64_ENGINE_ITEMS:
-        raise NotImplementedError(
-            f"a {dtype} state of the {engine} engine on the card is not ported yet "
-            f"(its kernels take float32; float64 runs on the CPU): "
-            f"{F64_ENGINE_ITEMS[engine]}")
     if dtype != torch.float64:
         raise TypeError(f"the {engine} engine takes a float32 or float64 state, "
                         f"got {dtype}")
@@ -326,9 +319,9 @@ def check_dtype(name: str, device: torch.device, dtype: torch.dtype) -> None:
     """Raise unless wrapper ``name`` runs ``dtype`` tensors on ``device``:
     float32 anywhere, float64 on the CPU (the plain versions; not the
     F32_ONLY wrapper) and on the card where the wrapper has a float64
-    kernel (F64_KERNELS). A float64
-    tensor on the card without one raises NotImplementedError naming its
-    ROADMAP item (F64_ITEMS); nothing falls back to the CPU."""
+    kernel (F64_KERNELS). A float64 tensor on the card without one raises
+    NotImplementedError saying why (F64_ITEMS: the JAX package runs its
+    path in float32 only); nothing falls back to the CPU."""
     if name in F32_ONLY and dtype != torch.float32:
         raise TypeError(f"{name}: expected float32 tensors, got {dtype} (the JAX "
                         "package runs the slab engines in float32)")
@@ -336,7 +329,7 @@ def check_dtype(name: str, device: torch.device, dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: expected float32 or float64 tensors, got {dtype}")
     if device.type == "cuda" and dtype == torch.float64 and name not in F64_KERNELS:
         raise NotImplementedError(
-            f"{name}: a float64 tensor on the card has no kernel yet (float64 "
+            f"{name}: a float64 tensor on the card has no kernel (float64 "
             f"runs on the CPU): {F64_ITEMS[name]}")
 
 
@@ -369,17 +362,17 @@ def _check_ng(ng: int) -> None:
         raise ValueError(f"ng must be >= 2, got {ng}")
 
 
-def _check_smem(ng: int, arrays: int, what: str, extra: int = 0) -> None:
-    """A block keeps ``arrays`` float32 arrays of ng nodes (and ``extra``
-    bytes) in shared memory. A limit of the card's kernels only: the
-    wrappers call it in their CUDA branch, so the plain versions on CPU
-    tensors run any ng."""
-    need = arrays * ng * 4 + extra
+def _check_smem(ng: int, arrays: int, what: str, extra: int = 0, item: int = 4) -> None:
+    """A block keeps ``arrays`` arrays of ng ``item``-byte elements (float32
+    4, float64 8) and ``extra`` bytes in shared memory. A limit of the
+    card's kernels only: the wrappers call it in their CUDA branch, so the
+    plain versions on CPU tensors run any ng."""
+    need = arrays * ng * item + extra
     if need > SMEM_LIMIT:
         raise ValueError(
             f"{what}: ng={ng} needs {need} B of shared memory, "
             f"above the {SMEM_LIMIT} B a block may use (ng <= "
-            f"{(SMEM_LIMIT - extra) // (4 * arrays)})")
+            f"{(SMEM_LIMIT - extra) // (item * arrays)})")
 
 
 def check_large_ng(ng: int, what: str) -> None:
@@ -454,14 +447,16 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launcher(lib, name: str, dtype: torch.dtype, large: bool = False):
+def _launcher(lib, name: str, dtype: torch.dtype, large: bool = False,
+              entry: str | None = None):
     """(launcher, count name) of wrapper ``name`` for ``dtype``: the
     double kernel's entry point and its own count for float64; ``large``
     the ``*_large`` entry point (the fixed-point sums), counted as the
-    wrapper."""
+    wrapper; ``entry`` the entry point's stem where it is not the
+    wrapper's name."""
     suffix = "_f64" if dtype == torch.float64 else ""
-    entry = f"pypic_{name}{'_large' if large else ''}{suffix}"
-    return getattr(lib, entry), f"{name}{suffix}"
+    launcher = f"pypic_{entry or name}{'_large' if large else ''}{suffix}"
+    return getattr(lib, launcher), f"{name}{suffix}"
 
 
 def real(dtype: torch.dtype):
@@ -1027,27 +1022,38 @@ def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
     if kind == "cpu":
         return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
                                                   dt=dt, dx=dx)
-    dev = p.device
-    launch = _sweep(dev, "leapfrog_gather_push_deposit", n, ng)
-    lib = _build.library()
-    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
+    dev, dtype = p.device, p.dtype
+    launch = _sweep(dev, "leapfrog_gather_push_deposit", n, ng, item=p.element_size())
+    fn, name = _launcher(_build.library(), "leapfrog_gather_push_deposit", dtype,
+                         entry="leapfrog_deposit")
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, dtype)
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
-    rho = torch.zeros((ng,), dtype=torch.float32, device=dev)
+    rho = torch.zeros((ng,), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_leapfrog_deposit(
-            field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
-            v1.data_ptr(), rho.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng),
-            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
-            _stream(dev))
-    _build.check(err, "leapfrog_gather_push_deposit")
-    _count("leapfrog_gather_push_deposit", launch.mode)
+        err = fn(field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
+                 v1.data_ptr(), rho.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng, dtype),
+                 SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
+    _build.check(err, name)
+    _count(name, launch.mode)
     return p1, v1, rho
 
 
-# shared memory of explicit_cycle beside its two float arrays: ng + 32
-# float64 (the solve's scan and reduction scratch) = 2 ng floats + 256 B
+# shared memory of explicit_cycle: its field and histogram and ng + 32
+# float64 (the solve's scan and reduction scratch), i.e. four ng-float
+# arrays + 256 B, or in double three ng-double arrays + 256 B; beside
+# them the epilogue's ticket, 16 static bytes (ptxas -v), which a block's
+# SMEM_LIMIT holds too
 _CYCLE_ARRAYS, _CYCLE_EXTRA = 4, 256
+_CYCLE_ARRAYS_F64 = 3
+
+
+def check_cycle_smem(ng: int, item: int = 4) -> None:
+    """explicit_cycle's shared memory at ng for ``item``-byte elements
+    (float32 4, float64 8), its ticket's static bytes counted: at most
+    14,511 nodes in float32, 9,674 in float64."""
+    arrays = _CYCLE_ARRAYS if item == 4 else _CYCLE_ARRAYS_F64
+    _check_smem(ng, arrays, "explicit_cycle", _CYCLE_EXTRA + STATIC_INT_BYTES, item)
 
 
 def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
@@ -1055,33 +1061,35 @@ def explicit_cycle(e_field, p, v, ng: int, *, qm, w, dt: float, dx: float):
     solve of the deposited rho for the next step's field. Returns
     (p1, v1, rho1, e1).
 
-    On the card the block keeps four ng-float arrays and 256 B in shared
-    memory, so it raises above ng = 14,512; the explicit engine calls it at
-    ng <= 1,024 only (the JAX engine's switch) and
-    ``leapfrog_gather_push_deposit`` with the solve outside above."""
+    On the card the block keeps four ng-float arrays, 256 B and its
+    ticket's 16 static bytes in shared memory, so it raises above ng =
+    14,511 (a float64 state: three ng-double arrays, 9,674;
+    ``check_cycle_smem``); the explicit engine calls it at ng <= 1,024
+    only (the JAX engine's switch) and ``leapfrog_gather_push_deposit``
+    with the solve outside above."""
     kind, n, _ = _check_leapfrog("explicit_cycle", e_field, p, v)
     _check_1d("e_field", e_field, ng)
     _check_ng(ng)
     if kind == "cpu":
         return explicit_cycle_plain(e_field, p, v, ng, qm=qm, w=w, dt=dt,
                                     dx=dx)
-    _check_smem(ng, _CYCLE_ARRAYS, "explicit_cycle", _CYCLE_EXTRA)
-    lib = _build.library()
-    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w)
-    dev = p.device
+    dev, dtype = p.device, p.dtype
+    check_cycle_smem(ng, p.element_size())
+    fn, name = _launcher(_build.library(), "explicit_cycle", dtype)
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, dtype)
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
-    # rho and, after it, the epilogue's block counter: one zeroed buffer
-    buf = torch.zeros((ng + 1,), dtype=torch.float32, device=dev)
-    e1 = torch.empty((ng,), dtype=torch.float32, device=dev)
+    # rho and, after it, the epilogue's block counter: one zeroed buffer of
+    # the state's dtype (the counter the first word of its last element)
+    buf = torch.zeros((ng + 1,), dtype=dtype, device=dev)
+    e1 = torch.empty((ng,), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pypic_explicit_cycle(
-            e_field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
-            v1.data_ptr(), buf.data_ptr(), e1.data_ptr(), n, ng, qmh, dt_dx,
-            wf, _inv(ng), _solve_coef(dx), _blocks(n, dev), _THREADS,
-            _stream(dev))
-    _build.check(err, "explicit_cycle")
-    LAUNCHES["explicit_cycle"] += 1
+        err = fn(e_field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
+                 v1.data_ptr(), buf.data_ptr(), e1.data_ptr(), n, ng, qmh, dt_dx,
+                 wf, _inv(ng, dtype), _solve_coef(dx), _blocks(n, dev), _THREADS,
+                 _stream(dev))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
     return p1, v1, buf[:ng], e1
 
 

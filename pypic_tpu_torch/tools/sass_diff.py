@@ -8,13 +8,16 @@ atomics of the double kernels.
 includes ``cic_common.cuh``) is compiled from both trees to a cubin for
 ``sm_90a`` with the package's flags, all at once, and ``cuobjdump -sass``
 lists each kernel's machine code. A kernel of ``DIR`` is matched with the
-kernel of this tree of the same mangled name, else of the same name and
-integral template arguments whose element type is float (the templates
-gained that argument with the double kernels of a float64 state), and
-their instructions are compared with the addresses and encodings left
-out. Each double kernel's atomic instructions are counted
-by opcode: a shared-memory double add may compile to a compare-and-swap
-loop (ATOMS.CAS), a global one to RED or ATOM.
+kernel of this tree of the same mangled name, else of the same name,
+integral template arguments and element type (a float kernel of ``DIR``
+without one matches the float instantiation here: the templates gained
+that argument with the double kernels of a float64 state), and their
+instructions are compared with the addresses and encodings left out.
+The float kernels of ``DIR`` decide the exit code; its double kernels
+are compared too and reported beside this tree's. Each double kernel's
+atomic instructions are counted by opcode: a shared-memory double add
+may compile to a compare-and-swap loop (ATOMS.CAS), a global one to RED
+or ATOM.
 
 Prints one line a kernel and one JSON line; exits non-zero when a float
 kernel of ``DIR`` is missing here or compiles to other code. Needs
@@ -85,8 +88,18 @@ def atomics(instructions: list) -> dict:
     return dict(ops)
 
 
+def _same(here, body) -> str:
+    if here is None:
+        return "missing"
+    if here == body:
+        return f"identical ({len(body)} instructions)"
+    diff = sum(a != b for a, b in zip(here, body)) + abs(len(here) - len(body))
+    return f"differs: {diff} of {len(body)} instructions ({len(here)} now)"
+
+
 def compare(parent: Path) -> dict:
     res = {"float": {}, "double": {}}
+    parent_double = {}
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ThreadPoolExecutor(8) as pool:
         (Path(tmp) / "old").mkdir()
@@ -98,22 +111,21 @@ def compare(parent: Path) -> dict:
             old, new = old_job.result(), new_job.result()
             new_by_key = {_key(k): v for k, v in new.items()}
             for mangled, body in old.items():
-                name, ints, _ = _key(mangled)
-                here = new.get(mangled, new_by_key.get((name, ints, "f"),
-                                                       new_by_key.get((name, ints, None))))
+                name, ints, typ = _key(mangled)
+                here = new.get(mangled, new_by_key.get(
+                    (name, ints, typ or "f"),
+                    None if typ else new_by_key.get((name, ints, None))))
                 label = f"{src} {name}{list(ints)}"
-                if here is None:
-                    res["float"][label] = "missing"
-                elif here == body:
-                    res["float"][label] = f"identical ({len(body)} instructions)"
+                if typ == "d":
+                    parent_double[label] = _same(here, body)
                 else:
-                    diff = sum(a != b for a, b in zip(here, body)) + abs(len(here) - len(body))
-                    res["float"][label] = (f"differs: {diff} of {len(body)} instructions "
-                                           f"({len(here)} now)")
+                    res["float"][label] = _same(here, body)
             for (name, ints, typ), body in new_by_key.items():
                 if typ == "d":
-                    res["double"][f"{src} {name}{list(ints)}"] = dict(
-                        instructions=len(body), atomics=atomics(body))
+                    label = f"{src} {name}{list(ints)}"
+                    res["double"][label] = dict(
+                        instructions=len(body), atomics=atomics(body),
+                        parent=parent_double.get(label, "new"))
     return res
 
 
@@ -128,7 +140,7 @@ def main(argv=None) -> int:
         print(f"[sass] float {label}: {what}")
     for label, what in res["double"].items():
         print(f"[sass] double {label}: {what['instructions']} instructions, "
-              f"atomics {what['atomics']}")
+              f"atomics {what['atomics']}; against the parent's: {what['parent']}")
     line = json.dumps(res)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -137,7 +149,9 @@ def main(argv=None) -> int:
     same = all(v.startswith("identical") for v in res["float"].values())
     print(f"[sass] {sum(v.startswith('identical') for v in res['float'].values())} of "
           f"{len(res['float'])} float kernels compile to the parent's code; "
-          f"{len(res['double'])} double kernels")
+          f"{len(res['double'])} double kernels, "
+          f"{sum(v['parent'].startswith('identical') for v in res['double'].values())} "
+          f"of them the parent's code, {sum(v['parent'] == 'new' for v in res['double'].values())} new")
     return 0 if same else 1
 
 

@@ -1231,7 +1231,8 @@ def test_wrappers_raise_above_the_cards_limits(cuda_device):
     every particle kernel with a large mode raises only above LARGE_MAX_NG
     (the thirteen grid-stride and single-deposit rows, deposit_det, the
     sheath pass, deposit2, the carried Boris deposit), explicit_cycle
-    above its 14,512 nodes of shared memory; nothing is launched. The
+    above its 14,511 nodes of shared memory (its ticket's 16 static bytes
+    counted); nothing is launched. The
     Newton kernels run above their one CTA's 1,024 rows (one launch of the
     large path each) and raise only above the large path's
     LARGE_MAX_ROWS."""
@@ -1242,7 +1243,7 @@ def test_wrappers_raise_above_the_cards_limits(cuda_device):
 
     p, big = z(64), cuda_cic.SMEM_LIMIT // 4 + 1
     before = dict(cuda_cic.LAUNCHES)
-    cycle = (cuda_cic.SMEM_LIMIT - 256) // 16 + 1
+    cycle = (cuda_cic.SMEM_LIMIT - 256 - 16) // 16 + 1
     with pytest.raises(ValueError, match="shared memory"):
         cuda_cic.explicit_cycle(z(cycle), p, p, cycle, qm=QM, w=W, dt=DT, dx=DX)
     big_ng = cuda_cic.LARGE_MAX_NG + 1

@@ -20,7 +20,10 @@ The magnetized engine's double kernels (rows 7-9, 22 and 23) against
 their float64 plain versions at the configs[3] and D-N shapes and past
 their double ceilings, and a float64 magnetized step on the card against
 the CPU's on every route (fused, composed, carried, D-N, GC, axis_name),
-the same draws fed to both sides.
+the same draws fed to both sides. The explicit engine's double kernels
+(rows 13 and 14, both modes of row 14) against their float64 plain
+versions, and a float64 explicit step on the card against the CPU's on
+every route (one-kernel, two-stage in both modes, composed).
 """
 
 import numpy as np
@@ -618,3 +621,126 @@ def test_float64_magnetized_step_card_matches_cpu(cuda_device, route):
             ref = getattr(c, k)
             allowed = TOL64_MAG_STEP["rho"] + dp * moved[k] / float(ref.abs().max())
             assert _rel(ref, getattr(g, k).cpu()) <= allowed, k
+
+
+# ---------------------------------------------------------------------------
+# the explicit engine's double kernels (ROADMAP item 19c): the two-stage
+# sweep (row 14, both modes) and the one-kernel cycle (row 13)
+# ---------------------------------------------------------------------------
+
+EXPLICIT_KW = dict(qm=QM, w=W, dt=DT, dx=DX)
+# row 13's e1 against the float64 direct solve of its own rho (the same
+# algorithm, float64 sums in another order), relative to max |e1|; and
+# against the plain version's e1, which solves the plain rho (its sums in
+# another order again, carried through the prefix sums)
+TOL64_SOLVE, TOL64_SOLVE_PLAIN = 1e-12, 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [64, 4096, 40_000])
+def test_double_leapfrog_deposit_matches_plain(cuda_device, ng):
+    """Row 14 in double at a ragged n = 4097 with the edge positions: p1
+    and v1 bit-equal to the float64 plain version (each operation rounded
+    once in double on both sides), rho1 within 16 n eps64 of the largest
+    node; the shared mode to 14,528 nodes, the global one above."""
+    e, _, p0, v0 = _inputs(ng, cuda_device)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **EXPLICIT_KW)
+    ref = cuda_cic.leapfrog_gather_push_deposit_plain(e.cpu(), p0.cpu(), v0.cpu(),
+                                                      **EXPLICIT_KW)
+    torch.cuda.synchronize()
+    name = "leapfrog_gather_push_deposit"
+    assert cuda_cic.LAUNCHES[f"{name}_f64"] == 1 and cuda_cic.LAUNCHES[name] == 0
+    mode = cuda_cic.sweep_launch(name, N, ng, 132, item=8).mode
+    assert mode == ("shared" if ng <= 14_528 else "global")
+    assert cuda_cic.LARGE_LAUNCHES.get(f"{name}_f64 global", 0) == (mode == "global")
+    assert all(t.dtype == torch.float64 for t in got)
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [64, 200, 1024])
+def test_double_explicit_cycle_matches_plain(cuda_device, ng):
+    """Row 13 in double: p1, v1 bit-equal to the float64 plain version,
+    rho1 within 16 n eps64 of the largest node, e1 within TOL64_SOLVE of
+    the float64 direct solve of the kernel's own rho1 and TOL64_SOLVE_PLAIN
+    of the plain version's e1; the epilogue's ticket (the first word of
+    the double after rho) starts from 0 at every launch: two launches give
+    the same e1 to TOL64_SOLVE."""
+    e, _, p0, v0 = _inputs(ng, cuda_device)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.explicit_cycle(e, p0, v0, ng, **EXPLICIT_KW)
+    again = cuda_cic.explicit_cycle(e, p0, v0, ng, **EXPLICIT_KW)
+    ref = cuda_cic.explicit_cycle_plain(e.cpu(), p0.cpu(), v0.cpu(), ng, **EXPLICIT_KW)
+    torch.cuda.synchronize()
+    assert cuda_cic.LAUNCHES["explicit_cycle_f64"] == 2
+    assert cuda_cic.LAUNCHES["explicit_cycle"] == 0
+    assert all(t.dtype == torch.float64 for t in got) and got[3].shape == (ng,)
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
+    own = cuda_cic.field_from_rho_plain(got[2].cpu(), DX)
+    assert _rel(own, got[3].cpu()) <= TOL64_SOLVE
+    assert _rel(ref[3], got[3].cpu()) <= TOL64_SOLVE_PLAIN
+    assert _rel(got[3].cpu(), again[3].cpu()) <= TOL64_SOLVE
+
+
+EXPLICIT64_ROUTES = {"one-kernel ng 64": (64, "auto", {"explicit_cycle_f64"}),
+                     "two-stage ng 2048": (2048, "auto", {"leapfrog_gather_push_deposit_f64"}),
+                     "two-stage ng 40000": (40_000, "auto",
+                                            {"leapfrog_gather_push_deposit_f64"}),
+                     "composed ng 64": (64, "composed", {"gather_f64", "deposit_f64"})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(EXPLICIT64_ROUTES))
+def test_float64_explicit_step_card_matches_cpu(cuda_device, route):
+    """The explicit two-stream at n = 20,000 in float64: three steps on
+    the CPU, and on the card one step from each CPU state. p and v within
+    1e-10 (cells; of the largest v), rho, e and the energies within 1e-10
+    of their largest (float64 sums in other orders); only the route's
+    double kernels launch; the state stays float64."""
+    from pypic_tpu_torch import interop
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.tools import two_stream
+
+    ng, backend, kernels = EXPLICIT64_ROUTES[route]
+    cfg, _, st = two_stream.state(20_000, "cpu", ng=ng, dtype=torch.float64,
+                                  backend=backend)
+    step = explicit.make_step(cfg)
+    for _ in range(3):
+        d = interop.explicit_state_to_numpy(st)
+        c, mc = step(st)
+        cuda_cic.reset_launch_counts()
+        g, mg = step(interop.explicit_state_from_numpy(d, cuda_device))
+        torch.cuda.synchronize()
+        assert {k for k, n in cuda_cic.LAUNCHES.items() if n} == kernels
+        assert {getattr(g, k).dtype for k in ("p", "v", "rho", "e")} == {torch.float64}
+        dp = (c.p - g.p.cpu()).abs()
+        assert float(torch.minimum(dp, ng - dp).max()) <= 1e-10
+        for k in ("v", "rho", "e"):
+            assert _rel(getattr(c, k), getattr(g, k).cpu()) <= 1e-10, k
+        for k in ("field_energy", "kinetic_energy"):
+            assert _rel(getattr(mc, k).reshape(1), getattr(mg, k).cpu().reshape(1)) <= 1e-10
+        st = c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,top", [(torch.float32, 14_511), (torch.float64, 9_674)])
+def test_explicit_cycle_launches_at_its_ceilings(cuda_device, dtype, top):
+    """Row 13 launches at its last node (check_cycle_smem, the ticket's 16
+    static bytes counted) and its wrapper raises a ValueError naming the
+    shared memory one node above, before any launch (Fault 9: the card
+    refused the float kernel at 14,512, which the check passed)."""
+    p = torch.rand(4096, device=cuda_device, dtype=dtype) * top
+    v = torch.zeros_like(p)
+    cuda_cic.reset_launch_counts()
+    out = cuda_cic.explicit_cycle(torch.zeros(top, dtype=dtype, device=cuda_device), p, v,
+                                  top, **EXPLICIT_KW)
+    torch.cuda.synchronize()
+    assert out[3].shape == (top,) and bool(torch.isfinite(out[3]).all())
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_cic.explicit_cycle(torch.zeros(top + 1, dtype=dtype, device=cuda_device),
+                                p, v, top + 1, **EXPLICIT_KW)
+    name = "explicit_cycle" + ("_f64" if dtype == torch.float64 else "")
+    assert cuda_cic.LAUNCHES[name] == 1

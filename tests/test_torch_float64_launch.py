@@ -8,12 +8,14 @@ float32 launch stays the one the frozen tables of
 ``tests/test_torch_large_periodic.py`` hold. The sheath engine's
 wrappers (its pass and finalize, ``deposit_det``, the re-injection and
 ``hash_batch``) take float64 on the card too, and so do the magnetized
-engine's (rows 7-9 and the Newton solves, rows 22 and 23). The other
-wrappers, and the explicit engine, refuse a float64 tensor on the card
-with a ``NotImplementedError`` naming their ROADMAP item; no CUDA tensor
-is made here: the wrappers are handed stand-ins that carry a CUDA device
-and a dtype, which is all they read before they refuse (or, where they
-take the dtype, before their shapes, where the stand-ins raise).
+engine's (rows 7-9 and the Newton solves, rows 22 and 23) and the
+explicit engine's (rows 13 and 14, ``tests/test_torch_float64_explicit_launch.py``).
+The other wrappers (the resident kernels and the slab engines', float32
+in the JAX package) refuse a float64 tensor on the card with a
+``NotImplementedError`` saying so; no CUDA tensor is made here: the
+wrappers are handed stand-ins that carry a CUDA device and a dtype,
+which is all they read before they refuse (or, where they take the
+dtype, before their shapes, where the stand-ins raise).
 """
 
 import numpy as np
@@ -107,7 +109,8 @@ def test_double_instantiations_in_the_report():
             "deposit2_global_kernel": [1, 4, 1], "boris_kernel": [1, 0],
             "boris_deposit_kernel": [1, 4, 1], "boris_deposit_global_kernel": [1, 4, 1, 1],
             "newton_dd_kernel": [], "newton_dn_kernel": [], "newton_dd_large_kernel": [],
-            "newton_dn_large_kernel": []}
+            "newton_dn_large_kernel": [], "leapfrog_deposit_kernel": [1],
+            "explicit_cycle_kernel": []}
     full = "\n".join(entry(k, ints[k] + [t]) for k, _ in cuda_cic.F64_INSTANCES
                      for t in "fd")
     assert cuda_cic.check_f64_kernels(full) == []
@@ -158,10 +161,6 @@ def _t(dtype=torch.float64):
 
 # each wrapper without a double kernel, called on float64 stand-ins
 REFUSING = {
-    "leapfrog_gather_push_deposit": lambda: cuda_cic.leapfrog_gather_push_deposit(
-        _t(), _t(), _t(), qm=1.0, w=1.0, dt=1.0, dx=1.0),
-    "explicit_cycle": lambda: cuda_cic.explicit_cycle(
-        _t(), _t(), _t(), 16, qm=1.0, w=1.0, dt=1.0, dx=1.0),
     "explicit_cycle_resident": lambda: cuda_cic.explicit_cycle_resident(
         _t(), _t(), _t(), 16, 2, qm=1.0, w=1.0, ke_c=1.0, jb_c=1.0, dt=1.0, dx=1.0,
         fe_c=1.0),
@@ -183,9 +182,9 @@ REFUSING = {
 @pytest.mark.parametrize("name", sorted(REFUSING))
 def test_float64_on_the_card_without_a_kernel_names_its_item(name):
     """A float64 tensor on the card, in a wrapper with no double kernel:
-    NotImplementedError naming the ROADMAP item (the explicit slice of
-    item 19, or no gap where the JAX package runs the path in float32
-    only), never a TypeError or a CPU detour."""
+    NotImplementedError naming it no gap (the JAX package runs the path
+    in float32 only; ROADMAP item 19), never a TypeError or a CPU
+    detour."""
     assert name in cuda_cic.F64_ITEMS and name not in cuda_cic.F64_KERNELS
     with pytest.raises(NotImplementedError, match=r"item 19") as err:
         REFUSING[name]()
@@ -257,25 +256,13 @@ def test_wrappers_refuse_mixed_dtypes_and_the_newton_kernels_float64():
         cuda_newton.boltzmann_dirichlet(z64, 1e17, 1e4, 1e-5, phi0=z32)
 
 
-@pytest.mark.parametrize("engine", sorted(cuda_cic.F64_ENGINE_ITEMS))
-def test_engines_without_float64_kernels_refuse_a_card_state(engine):
-    """The explicit engine refuses a float64 state on the card at once,
-    naming its slice of item 19; the CPU takes it; float32 passes on the
-    card (the implicit, sheath and magnetized engines take float64 there:
-    test_engines_with_double_kernels_take_a_card_state)."""
-    with pytest.raises(NotImplementedError, match="item 19") as err:
-        cuda_cic.check_engine_dtype(engine, CUDA, torch.float64)
-    assert cuda_cic.F64_ENGINE_ITEMS[engine] in str(err.value)
-    cuda_cic.check_engine_dtype(engine, torch.device("cpu"), torch.float64)
-    cuda_cic.check_engine_dtype(engine, CUDA, torch.float32)
-
-
-@pytest.mark.parametrize("engine", ["implicit", "magnetized", "sheath"])
+@pytest.mark.parametrize("engine", ["explicit", "implicit", "magnetized", "sheath"])
 def test_engines_with_double_kernels_take_a_card_state(engine):
     """The engines with double kernels (rows 1-6: implicit; item 19a:
-    sheath; item 19b: magnetized) take a float64 state on the card and on
-    the CPU; float16 raises TypeError on the card."""
-    assert engine not in cuda_cic.F64_ENGINE_ITEMS
+    sheath; item 19b: magnetized; item 19c: explicit) take a float64
+    state on the card and on the CPU; float16 raises TypeError on the
+    card. No engine is left that refuses one."""
+    assert not hasattr(cuda_cic, "F64_ENGINE_ITEMS")
     for dev in (CUDA, torch.device("cpu")):
         cuda_cic.check_engine_dtype(engine, dev, torch.float64)
         cuda_cic.check_engine_dtype(engine, dev, torch.float32)
@@ -312,18 +299,34 @@ def test_magnetized_slice_takes_float64_on_the_card(name):
 
 
 def test_explicit_engine_refuses_at_init_and_step():
-    """init_state checks before it builds anything; a step checks the
-    state it is given (a float64 CPU state passes)."""
+    """init_state checks the dtype before it builds anything, and a step
+    checks the state it is given: the explicit engine takes a float64
+    state on the card (ROADMAP item 19c; init_state goes past its dtype
+    check to the load, a stand-in that raises there) and on the CPU, and
+    refuses float16 on the card."""
     grid = GridSpec(16, 1.0, "periodic")
     cfg = explicit.ExplicitConfig(grid, 1e-9, 1.0)
     x, v = np.linspace(0.0, 0.9, 64), np.zeros(64)
-    with pytest.raises(NotImplementedError, match="item 19c"):
-        explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, dtype=torch.float64,
+
+    class _Rows:
+        """A sequence of rows whose length raises: the load."""
+
+        def __len__(self):
+            raise _Reached
+
+        def __getitem__(self, i):
+            raise _Reached
+
+    with pytest.raises(_Reached):
+        explicit.init_state(_Rows(), v, -E_CHARGE, M_ELECTRON, cfg,
+                            dtype=torch.float64, device=CUDA)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, dtype=torch.float16,
                             device=CUDA)
     st = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, dtype=torch.float64,
                              device="cpu")
     st1, _ = explicit.make_step(cfg)(st)
-    assert st1.p.dtype == st1.e.dtype == torch.float64
+    assert st1.p.dtype == st1.e.dtype == st1.rho.dtype == torch.float64
     mcfg = magnetized.MagnetizedConfig(GridSpec(16, 1e-4, "dirichlet-dirichlet"),
                                        1e-10, 1e4, (0.0, 1.0, 0.0), (1,))
 
@@ -364,6 +367,39 @@ def test_run_resident_takes_float32_only():
     assert "no gap" in str(err.value)
     with pytest.raises(NotImplementedError, match="float32 state only"):
         implicit.check_resident_supported(cfg, st)
+
+
+def test_explicit_run_resident_takes_float32_only():
+    """Fault 8: JAX's explicit run_resident raises a TypeError on a
+    float64 state (its resident scan carries float32; it raises while
+    tracing), and the port's refuses the same state with a
+    NotImplementedError naming it no gap, on the CPU and on the card
+    (a state whose positions stand in for a card tensor), before it
+    launches anything; a float32 state runs."""
+    import jax.numpy as jnp
+
+    from pypic_tpu.engines import explicit as jexplicit
+    from pypic_tpu.grid import GridSpec as JGridSpec
+
+    x, v = np.linspace(0.0, 0.9, 64), np.linspace(-1.0, 1.0, 64)
+    jcfg = jexplicit.ExplicitConfig(JGridSpec(16, 1.0, "periodic"), 1e-9, 1.0)
+    jst = jexplicit.init_state(x, v, -E_CHARGE, M_ELECTRON, jcfg, dtype=jnp.float64)
+    assert jst.p.dtype == jnp.float64
+    with pytest.raises(TypeError, match="carry"):
+        jexplicit.run_resident(jcfg, jst, 2)
+    cfg = explicit.ExplicitConfig(GridSpec(16, 1.0, "periodic"), 1e-9, 1.0)
+    st = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, dtype=torch.float64,
+                             device="cpu")
+    before = dict(cuda_cic.LAUNCHES)
+    for state in (st, st.replace(p=_t())):
+        with pytest.raises(NotImplementedError, match="float32 state only") as err:
+            explicit.run_resident(cfg, state, 2)
+        assert "no gap" in str(err.value)
+        assert cuda_cic.F64_ITEMS["explicit_cycle_resident"] in str(err.value)
+    assert cuda_cic.LAUNCHES == before
+    st32 = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg, device="cpu")
+    fin, m = explicit.run_resident(cfg, st32, 2)
+    assert fin.p.dtype == torch.float32 and m.field_energy.shape == (2,)
 
 
 def test_cic_ops_keep_the_dtype():

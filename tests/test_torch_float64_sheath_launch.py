@@ -216,5 +216,8 @@ def test_double_kernels_are_counted_and_reported():
             "hash_batch_kernel"} <= kernels
     missing = cuda_cic.check_f64_kernels("")
     assert len(missing) == len(cuda_cic.F64_INSTANCES)
-    # the magnetized engine has its double kernels too (item 19b)
-    assert cuda_cic.F64_ENGINE_ITEMS.keys() == {"explicit"}
+    # the magnetized and explicit engines have their double kernels too
+    # (items 19b, 19c): no engine refuses a float64 state on the card
+    assert not hasattr(cuda_cic, "F64_ENGINE_ITEMS")
+    for engine in ("explicit", "magnetized"):
+        cuda_cic.check_engine_dtype(engine, torch.device("cuda", 0), torch.float64)

@@ -155,16 +155,16 @@ def test_single_deposit_launches_are_unchanged_up_to_58112():
 
 
 def test_only_explicit_cycle_keeps_a_ceiling():
-    """explicit_cycle keeps four ng-float arrays and 256 B a block: its
-    check passes at 14,512 nodes and raises above, naming the shared
-    memory; the explicit engine calls it at ng <= 1,024 only."""
+    """explicit_cycle keeps four ng-float arrays, 256 B and its ticket's
+    16 static bytes a block: its check passes at 14,511 nodes and raises
+    above, naming the shared memory (the card refused 14,512, whose
+    dynamic bytes alone fill the block); the explicit engine calls it at
+    ng <= 1,024 only."""
     from pypic_tpu_torch.engines import explicit
 
-    cuda_cic._check_smem(14_512, cuda_cic._CYCLE_ARRAYS, "explicit_cycle",
-                         cuda_cic._CYCLE_EXTRA)
+    cuda_cic.check_cycle_smem(14_511)
     with pytest.raises(ValueError, match="shared memory") as err:
-        cuda_cic._check_smem(14_513, cuda_cic._CYCLE_ARRAYS, "explicit_cycle",
-                             cuda_cic._CYCLE_EXTRA)
+        cuda_cic.check_cycle_smem(14_512)
     assert "item 10" not in str(err.value)
     assert explicit.ONE_KERNEL_MAX_NG == 1024
 

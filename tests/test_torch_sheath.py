@@ -562,8 +562,8 @@ def test_unported_options_raise(kw, item):
 def test_float64_on_the_card_names_its_item():
     """The sheath engine has double kernels (ROADMAP item 19a): its
     dispatch takes a float64 state on the card as on the CPU, refuses
-    float16 with a TypeError; the magnetized engine takes one too (item
-    19b), and the engine without double kernels names its item."""
+    float16 with a TypeError; the magnetized and explicit engines take
+    one too (items 19b, 19c)."""
     cfg = sheath.SheathConfig(**_cfg_kw(GridSpec(11, 1e-4, "dirichlet-dirichlet")))
     cuda = torch.device("cuda", 0)
     cuda_cic.check_engine_dtype("sheath", cuda, torch.float64)
@@ -571,8 +571,9 @@ def test_float64_on_the_card_names_its_item():
     with pytest.raises(TypeError, match="float32 or float64"):
         cuda_cic.check_engine_dtype("sheath", cuda, torch.float16)
     cuda_cic.check_engine_dtype("magnetized", cuda, torch.float64)
-    with pytest.raises(NotImplementedError, match="item 19c"):
-        cuda_cic.check_engine_dtype("explicit", cuda, torch.float64)
+    cuda_cic.check_engine_dtype("explicit", cuda, torch.float64)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_cic.check_engine_dtype("explicit", cuda, torch.float16)
     assert cfg.rng_sampler == "auto"
 
 
