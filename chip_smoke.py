@@ -369,8 +369,11 @@ Phases (any failure raises and the script exits non-zero):
    gather, leapfrog_gather_push_deposit, boris_gather_push, the slab pass
    and both slab finalizes, the slab leapfrog push and
    explicit_domain_cycle) each in its global mode (the field read from
-   device memory, every add a global float atomic) at ng 32,768 where its
-   old ceiling lies below that and at 65,536 and 2^20, n = 1e7, against
+   device memory, every add a global float atomic; rows 1 and 2 in the
+   mode cuda_cic.cluster_launch names, the cluster mode at 32,768 and
+   the pair mode above, with the global mode's record beside) at ng
+   32,768 where its old ceiling lies below that and at 65,536 and 2^20,
+   n = 1e7, against
    its plain version at its own kernel phase's checks and limits, timed
    (device_ms, the plain version, the bound in bytes of the rows and the
    nodes, index_add_ beside deposit and grid_sample beside gather), each
@@ -405,7 +408,8 @@ Phases (any failure raises and the script exits non-zero):
    plain version once; the bound at twice the float32 bytes and the
    float64 rate; float64 index_add_ beside the deposit and grid_sample
    beside the gather): in the shared mode at the headline's ng = 200 and
-   n = 6104 * 16384, and in the global mode at ng 65,536, n = 1e7. Then the conserving headline
+   n = 6104 * 16384, and in the global mode at ng 65,536, n = 1e7 (rows 1
+   and 2 also in their cluster mode at 32,768). Then the conserving headline
    physics in float64 at ng 200 and 65,536, n = 1e6: the fused step, the
    composed backend, window_share 'shared' and converged-deposit, three
    steps on the CPU's plain route from one state and one step on the card
@@ -510,6 +514,7 @@ object describing each kernel; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import itertools
 import json
@@ -7558,20 +7563,31 @@ def _periodic_large_case(name: str, n: int, ng: int, gen: torch.Generator, dev,
 
 
 def periodic_large_kernel_times(dev) -> dict:
-    """Phase 41's kernels alone (module docstring): each in the global
-    mode at PERIODIC_MID_NG where its old ceiling lies below it and at
+    """Phase 41's kernels alone (module docstring): each in its large mode
+    at PERIODIC_MID_NG where its old ceiling lies below it and at
     LARGE_KERNEL_NGS, n = PERIODIC_LARGE_N, checked and timed; each
-    shape's launches counted by mode (every one must be the global
-    mode). Returns {kernel: {shape: record}}."""
+    shape's launches counted by mode (every one must be the global mode,
+    or for rows 1 and 2 the mode cuda_cic.cluster_launch names, whose
+    record keeps the global mode's beside it under "global_mode").
+    Returns {kernel: {shape: record}}."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
     gen = torch.Generator(device=dev).manual_seed(41)
     out, problems = {}, []
     for name, (_, mid) in PERIODIC_LARGE_ROWS.items():
         out[name] = {}
         for ng in ((PERIODIC_MID_NG,) if mid else ()) + LARGE_KERNEL_NGS:
+            want = "global"
+            if name in K.CLUSTER_KERNELS:
+                want = K.cluster_launch(name, PERIODIC_LARGE_N, ng, 132).mode
             rec = _periodic_large_case(name, PERIODIC_LARGE_N, ng, gen, dev)
-            if not rec["modes"].get(f"{name} global"):
-                problems.append(f"{name} at ng = {ng}: no global-mode launch "
+            if not rec["modes"].get(f"{name} {want}"):
+                problems.append(f"{name} at ng = {ng}: no {want}-mode launch "
                                 f"({rec['modes']})")
+            if want != "global":
+                with _forced_pass_mode("global"):
+                    rec["global_mode"] = _periodic_large_case(
+                        name, PERIODIC_LARGE_N, ng, gen, dev)
             out[name][f"n {PERIODIC_LARGE_N}, ng {ng}"] = rec
             torch.cuda.empty_cache()
     if problems:
@@ -7579,18 +7595,118 @@ def periodic_large_kernel_times(dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _forced_pass_mode(mode: str):
+    """Rows 1 and 2 launched in ``mode`` whatever cuda_cic.cluster_launch
+    would choose (its grid and shared memory for that mode)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    real = K._pass_launch
+    K._pass_launch = functools.partial(real, mode=mode)
+    try:
+        yield
+    finally:
+        K._pass_launch = real
+
+
+# forced_mode_times' shapes of rows 1 and 2: every mode that can launch
+# there, in float32 and float64
+PASS_MODE_NGS = (16_384, 28_672, 32_768, 57_344, 65_536, 262_144, 1 << 20)
+PASS_MODE_NS = (10_000_000, N_HEADLINE)
+PASS_MODES = ("shared", "global", "cluster", "pair")
+
+
+def _pass_modes(name: str, n: int, ng: int, item: int) -> list:
+    """The modes of PASS_MODES row 1 or 2 can launch at (n, ng) in
+    ``item``-byte elements."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    out = ["global"]
+    if K.sweep_launch(name, n, ng, 132, item=item).mode == "shared":
+        out.insert(0, "shared")
+    if K.cluster_size(name, ng, item) is not None:
+        out.append("cluster")
+    if item == 4:
+        out.append("pair")
+    return out
+
+
+def _pass_mode_case(name: str, n: int, ng: int, dtype, modes, gen, dev) -> dict:
+    """Row 1 or 2 (``name``) on one set of random inputs at (n, ng) of
+    ``dtype``, in each of ``modes`` forced: its current within TOL_DEP of
+    a float64 sum of the plain version's terms (float32) or deposit_tol64
+    of the float64 plain version, ph, v1 and the clamp count bit-equal to
+    the global mode's (the parent's kernel), then timed (device_ms).
+    Returns {mode: ms}."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    shared = name == "picard_iteration_shared"
+    fn = K.picard_iteration_shared if shared else K.picard_iteration
+    plain = K.picard_iteration_shared_plain if shared else K.picard_iteration_plain
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    e, ps, p0, v0 = (t.to(dtype) for t in _random_pass_inputs(n, gen, dev, True, ng))
+    f64 = dtype == torch.float64
+    if f64:
+        exact, tol, kind = plain(e, ps, p0, v0, ng, emit_v=True, **kw)[2], deposit_tol64(n), \
+            "rel vs the float64 plain version"
+    elif shared:
+        exact = plain(e, ps, p0, v0, ng, emit_v=True, acc_dtype=torch.float64, **kw)[2]
+        tol, kind = TOL_DEP, "rel vs float64"
+    else:
+        ref = plain(e, ps, p0, v0, ng, emit_v=True, **kw)
+        w32 = K.kernel_scalars(QM, DT, DX, W)[3]
+        exact = K.deposit_plain(ref[0].double(), (w32 * (0.5 * (v0 + ref[1]))).double(),
+                                ng, periodic=True)
+        tol, kind = TOL_DEP, "rel vs float64"
+        del ref
+    outs, times = {}, {}
+    for mode in ["global"] + [m for m in modes if m != "global"]:
+        K.reset_launch_counts()
+        with _forced_pass_mode(mode):
+            got = fn(e, ps, p0, v0, ng, emit_v=True, **kw)
+            torch.cuda.synchronize()
+            errs = {}
+            a, r = rel_err(exact, got[2])
+            errs["jh"] = dict(abs=a, err=r, kind=kind, tol=tol)
+            if mode != "global":
+                g = outs["global"]
+                for i, key in enumerate(("ph", "v1") + (("n_clamped",) if shared else ())):
+                    same = bool(torch.equal(got[i if i < 2 else 3], g[i if i < 2 else 3]))
+                    errs[f"{key} bits"] = dict(abs=float(not same), err=float(not same),
+                                               kind="1 if not bit-equal to the global mode's",
+                                               tol=0.0)
+            _check(errs, f"{name} {dtype} {mode} (n = {n}, ng = {ng})")
+            launched = dict(K.LARGE_LAUNCHES)
+            if mode != "shared" and not any(k.endswith(f" {mode}") for k in launched):
+                raise AssertionError(f"{name} {mode}: launches {launched}")
+            if mode == "global":
+                outs["global"] = got
+            del got
+            times[mode] = device_ms(lambda: fn(e, ps, p0, v0, ng, **kw), calls=10)
+    del outs
+    torch.cuda.empty_cache()
+    return times
+
+
 def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
                                   "picard_finalize", "leapfrog_gather_push_deposit",
                                   "picard_iteration_ext", "picard_finalize_ext",
                                   "explicit_domain_cycle"),
-                      ngs=(16_384, 28_672)) -> dict:
+                      ngs=(16_384, 28_672), pass_ngs=PASS_MODE_NGS,
+                      pass_ns=PASS_MODE_NS,
+                      dtypes=(torch.float32, torch.float64)) -> dict:
     """Each grid-stride kernel of ``names`` at n = PERIODIC_LARGE_N and each
     ng of ``ngs`` (below its shared ceiling) launched in both modes
     whatever smem_mode would choose there (sweep_launch's blocks and
     threads, the mode's shared bytes), checked against its plain version
     and timed as phase 41 times it; the modes' order alternates from one
-    ng to the next. Not run by main: it answers which mode is faster at a
-    grid both can launch. Returns {kernel: {ng: {mode: ms}}}."""
+    ng to the next. Rows 1 and 2 instead at each n of ``pass_ns`` and ng
+    of ``pass_ngs`` in each dtype of ``dtypes``, in every mode of
+    PASS_MODES that can launch there (_pass_mode_case: the global mode
+    first, its outputs the others' bits). Not run by main: it answers
+    which mode is faster at a grid where more than one can launch.
+    Returns {kernel: {ng: {mode: ms}}}, rows 1 and 2 {dtype: {n: {ng:
+    {mode: ms}}}}."""
     modes = ("shared", "global")
     from pypic_tpu_torch.ops import cuda_cic as K
     from pypic_tpu_torch.ops import cuda_domain as KD
@@ -7609,6 +7725,20 @@ def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
     out = {}
     for name in names:
         out[name] = {}
+        if name in K.CLUSTER_KERNELS:
+            for dtype in dtypes:
+                by_n = out[name][str(dtype)] = {}
+                item = torch.empty((), dtype=dtype).element_size()
+                for n in pass_ns:
+                    by_n[n] = {}
+                    for i, ng in enumerate(pass_ngs):
+                        can = _pass_modes(name, n, ng, item)
+                        by_n[n][ng] = _pass_mode_case(name, n, ng, dtype, can, gen, dev)
+                        log(f"[modes] {name} {dtype} at n = {n}, ng = {ng}: " + ", ".join(
+                            f"{m} {t:.4f} ms" for m, t in by_n[n][ng].items())
+                            + f"; cluster_launch takes "
+                            f"{K.cluster_launch(name, n, ng, 132, item).mode}")
+            continue
         for i, ng in enumerate(ngs):
             out[name][ng] = {}
             for mode in (modes if i % 2 == 0 else modes[::-1]):
@@ -7667,6 +7797,9 @@ def mode_boundaries(dev) -> dict:
     halo = 2 * PERIODIC_SLAB_HALO + 1
 
     def sweep_key(kernel):
+        if kernel in K.CLUSTER_KERNELS:  # rows 1 and 2: modes and cluster sizes
+            return lambda ng: (lambda s: (s.mode, s.cluster))(
+                K.cluster_launch(kernel, wide, ng, sms))
         extra = (lambda ng: 4 * (ng + halo)) if kernel == "explicit_domain_cycle" else (
             lambda ng: 0)
         return lambda ng: K.sweep_launch(kernel, wide, ng, sms, extra(ng)).mode
@@ -8176,6 +8309,10 @@ F64_ROWS = F64_KERNELS[:6]
 # (n, ng) of each mode, checked and timed on the same inputs: the shared
 # mode at the headline's shape, the global mode at 65,536 nodes
 F64_SHAPES = {"shared": (N_HEADLINE, NG), "global": (10_000_000, 65_536)}
+# rows 1 and 2 take the cluster mode at 32,768 double nodes (C = 2,
+# cuda_cic.cluster_launch), the global mode at 65,536
+F64_PASS_SHAPES = {"shared": (N_HEADLINE, NG), "cluster": (10_000_000, 32_768),
+                   "global": (10_000_000, 65_536)}
 EPS64 = 2.0 ** -52
 # the double kernels against their float64 plain versions: the same
 # operations rounded once each in double, so positions and velocities
@@ -8303,10 +8440,14 @@ def _f64_case(name: str, n: int, ng: int, gen, dev) -> dict:
         lib_call = _gather_library(args[0], args[2], periodic=True)
         library = device_ms(lib_call, calls=10)
         del lib_call
-    mode = K.sweep_launch(name, n, ng, 132, item=8).mode if name != "deposit" else (
-        "shared" if K.deposit_launch_shape(n, ng, False, 132, hists=1, item=8).cols
-        else "global")
-    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode == "global" else 0.0
+    if name in K.CLUSTER_KERNELS:
+        mode = K.cluster_launch(name, n, ng, 132, item=8).mode
+    elif name == "deposit":
+        mode = ("shared" if K.deposit_launch_shape(n, ng, False, 132, hists=1, item=8).cols
+                else "global")
+    else:
+        mode = K.sweep_launch(name, n, ng, 132, item=8).mode
+    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode != "shared" else 0.0
     b, by = bound(name, n, extra_bytes=node_bytes, f64=True)
     K.reset_launch_counts()
     ms = device_ms(call, calls=10)
@@ -8470,8 +8611,9 @@ def phase_float64(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(42)
     res = {"kernels": {}}
-    for mode, (n, ng) in F64_SHAPES.items():
-        for name in F64_ROWS:
+    for name in F64_ROWS:
+        shapes = F64_PASS_SHAPES if name in K.CLUSTER_KERNELS else F64_SHAPES
+        for mode, (n, ng) in shapes.items():
             rec = _f64_case(name, n, ng, gen, dev)
             if rec["mode"] != mode:
                 raise AssertionError(f"{name} float64 at ng {ng}: mode {rec['mode']}")
@@ -10019,7 +10161,9 @@ def main() -> int:
          "replaces": REPLACES[kname], "launches": f64["launches"][kname],
          **{key: f64["kernels"][kname]["shared"][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n")},
-         "dtype": "float64", "global_mode": f64["kernels"][kname]["global"]}
+         "dtype": "float64", "global_mode": f64["kernels"][kname]["global"],
+         **({"cluster_mode": f64["kernels"][kname]["cluster"]}
+            if "cluster" in f64["kernels"][kname] else {})}
         for kname in F64_ROWS
     ] + [
         # the sheath engine's double kernels (phase 43): the record at the

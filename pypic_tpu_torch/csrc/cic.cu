@@ -46,7 +46,11 @@
 //   200: row 1 0.955 ms, row 3 1.194, row 4 0.478); the operations at
 //   the card's float64 rate (33.5 TFLOP/s) stay below it.
 
+#include <cooperative_groups.h>
+
 #include "cic_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -88,7 +92,68 @@ namespace {
 // each of a row's two adds a global float atomic into the zeroed jh.
 // Bound there: the rows' 16 B (20 with EMIT_V), plus the field read and
 // jh written once: 8 B a node.
+//
+// MODE kCluster (ops/cuda_cic.py cluster_launch picks it where it beat
+// kGlobal on the card): the field as in kGlobal; the (ng,) sum lives on
+// chip, cut across the CTAs of a thread-block cluster of C (a power of
+// two up to 16, non-portable above 8) CTAs of 1,024 threads, one CTA an
+// SM, one wave of clusters (cudaOccupancyMaxActiveClusters). CTA r owns
+// nodes [r S, min((r + 1) S, ng)), S = ceil(ng / C), as its dynamic
+// shared memory (S elements). The sweep is kGlobal's, so ph, v1 and the
+// clamps are its bits; each of a row's two products is an atomicAdd at
+// cluster.map_shared_rank(slice, node / S)[node % S] (the right node's
+// owner and offset follow from the left's: the next offset, the next
+// slice past S - 1, node 0 past ng - 1). Then cluster.sync(), after which
+// every add into a slice has landed and no CTA touches another's shared
+// memory again, and each CTA adds its slice to jh, one global atomic a
+// node: (blocks / C) ng adds a pass in the place of kGlobal's 2 n.
+//
+// MODE kPair (float alone; cluster_launch picks it where it beat the
+// others): kGlobal's sweep, each row's two products (w vh wl, w vh wr)
+// one red.global.add.v2.f32 at row c.l of a zeroed, 8-B aligned (ng, 2)
+// pair array in device memory (n vector reductions in the place of 2 n
+// scalar ones), then pair_fold_kernel: jh[i] = pair[i][0] + pair[i -
+// 1][1], i - 1 taken mod ng (a row's right node is its left one's next,
+// node 0 past ng - 1). Bound: kGlobal's, the pair array's 8 B a node
+// written and read once beside.
 // ---------------------------------------------------------------------------
+// kCluster's adds of a row's two products: the left node's owner r =
+// l / slice at offset l - r slice, the right node's the next offset, the
+// next owner's first past slice - 1 and node 0's (owner 0) past ng - 1.
+// The products land through distributed shared memory in every owner,
+// this CTA's own included.
+template <typename T>
+__device__ __forceinline__ void cluster_add(T* slices, int slice, const CicT<T>& c, T al,
+                                            T ar) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = c.l / slice, o = c.l - r * slice;
+  int rr = r, ro = o + 1;
+  if (c.r == 0) {
+    rr = 0;
+    ro = 0;
+  } else if (ro == slice) {
+    ++rr;
+    ro = 0;
+  }
+  atomicAdd(cluster.map_shared_rank(slices, r) + o, al);
+  atomicAdd(cluster.map_shared_rank(slices, rr) + ro, ar);
+}
+
+// kPair's add: both products in one 8-B vector reduction at row l of the
+// pair array (float alone: no vector reduction takes doubles).
+__device__ __forceinline__ void pair_add(float* pair, int l, float al, float ar) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(pair + 2 * l), "f"(al),
+               "f"(ar)
+               : "memory");
+}
+
+// kPair's fold of the (ng, 2) pair array into the (ng,) sum.
+template <typename T>
+__global__ void pair_fold_kernel(const T* __restrict__ pair, T* __restrict__ jh, int ng) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < ng) jh[i] = add_rn(pair[2 * i], pair[2 * (i == 0 ? ng - 1 : i - 1) + 1]);
+}
+
 template <bool EMIT_V, bool SHARED, int MODE, typename T>
 __global__ void picard_iteration_kernel(
     const T* __restrict__ field, const T* __restrict__ ps, const T* __restrict__ p0,
@@ -107,7 +172,16 @@ __global__ void picard_iteration_kernel(
   }
   T* hist = MODE == kShared ? s_hist : jh;
   if (SHARED && threadIdx.x == 0) s_clamped = 0;
-  __syncthreads();
+  [[maybe_unused]] int slice = 0;  // kCluster: the nodes a CTA owns (at s_field)
+  if constexpr (MODE == kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ctas = (int)cluster.num_blocks();
+    slice = (ng + ctas - 1) / ctas;
+    for (int i = threadIdx.x; i < slice; i += blockDim.x) s_field[i] = (T)0;
+    cluster.sync();  // every slice zeroed and live before any remote add
+  } else {
+    __syncthreads();
+  }
   const T ngf = (T)ng;
   const T top = (T)(width - 1);
   const T half = (T)0.5;
@@ -148,11 +222,25 @@ __global__ void picard_iteration_kernel(
     } else {
       c = cic_periodic(h, ng);
     }
-    atomicAdd(&hist[c.l], mul_rn(val, c.wl));
-    atomicAdd(&hist[c.r], mul_rn(val, c.wr));
+    if constexpr (MODE == kCluster) {
+      cluster_add(s_field, slice, c, mul_rn(val, c.wl), mul_rn(val, c.wr));
+    } else if constexpr (MODE == kPair) {
+      pair_add(jh, c.l, mul_rn(val, c.wl), mul_rn(val, c.wr));
+    } else {
+      atomicAdd(&hist[c.l], mul_rn(val, c.wl));
+      atomicAdd(&hist[c.r], mul_rn(val, c.wr));
+    }
   }
   if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
-  __syncthreads();
+  if constexpr (MODE == kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every add into this slice has landed
+    const int lo = (int)cluster.block_rank() * slice;
+    const int count = min(slice, ng - lo);
+    for (int i = threadIdx.x; i < count; i += blockDim.x) atomicAdd(&jh[lo + i], s_field[i]);
+  } else {
+    __syncthreads();
+  }
   if (MODE == kShared)
     for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
   if (SHARED && threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
@@ -218,14 +306,72 @@ __global__ void picard_finalize_kernel(
   }
 }
 
-// Launches picard_iteration_kernel<EMIT_V, SHARED, mode, T> after the
-// shared-memory opt-in.
+// The kCluster instantiation's attributes (a non-portable cluster size
+// allowed, the slice's shared memory) and its launch configuration:
+// `cluster` CTAs a cluster, `blocks` CTAs of `threads`, S elements of T
+// a CTA. `attr` holds the cluster's dimension.
 template <bool EMIT_V, bool SHARED, typename T>
-cudaError_t launch_iteration(int mode, int blocks, int threads, cudaStream_t s,
-                             const T* field, const T* ps, const T* p0, const T* v0,
-                             T* ph, T* v1, T* jh, int* n_clamped, long long n, int ng,
-                             T qm_dt, T qm_dt2_half, T dt_dx, T w, T inv_ng,
+cudaError_t cluster_config(int ng, int blocks, int threads, int cluster, cudaStream_t s,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (cluster < 1 || cluster > 16 || (cluster & (cluster - 1)) || blocks % cluster)
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)((ng + cluster - 1) / cluster) * sizeof(T);
+  auto kernel = picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launches picard_iteration_kernel<EMIT_V, SHARED, mode, T> after the
+// shared-memory opt-in; kCluster (mode 2) in clusters of `cluster` CTAs;
+// kPair (mode 3, float alone) on the 3 ng elements at jh, the pair array
+// then the sum, and the fold after it.
+template <bool EMIT_V, bool SHARED, typename T>
+cudaError_t launch_iteration(int mode, int blocks, int threads, int cluster,
+                             cudaStream_t s, const T* field, const T* ps, const T* p0,
+                             const T* v0, T* ph, T* v1, T* jh, int* n_clamped, long long n,
+                             int ng, T qm_dt, T qm_dt2_half, T dt_dx, T w, T inv_ng,
                              int win_stride, int width, int num_k, T inv_stride) {
+  if (mode == kPair) {
+    if constexpr (std::is_same<T, float>::value) {
+      picard_iteration_kernel<EMIT_V, SHARED, kPair, T><<<blocks, threads, 0, s>>>(
+          field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half, dt_dx, w,
+          inv_ng, win_stride, width, num_k, inv_stride);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      pair_fold_kernel<T><<<(ng + 255) / 256, 256, 0, s>>>(jh, jh + 2 * ng, ng);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (mode == kCluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err =
+        cluster_config<EMIT_V, SHARED, T>(ng, blocks, threads, cluster, s, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>,
+                             field, ps, p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt,
+                             qm_dt2_half, dt_dx, w, inv_ng, win_stride, width, num_k,
+                             inv_stride);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
     const size_t smem = mode_floats(MODE, 2, ng) * sizeof(T);
@@ -241,20 +387,34 @@ cudaError_t launch_iteration(int mode, int blocks, int threads, cudaStream_t s,
 // The launcher of either pass (SHARED: the shared window), with or
 // without v1: one body for the float and double entry points.
 template <bool SHARED, typename T>
-cudaError_t launch_pass(int mode, int blocks, int threads, cudaStream_t s,
+cudaError_t launch_pass(int mode, int blocks, int threads, int cluster, cudaStream_t s,
                         const T* field, const T* ps, const T* p0, const T* v0, T* ph,
                         T* v1, T* jh, int* n_clamped, long long n, int ng, T qm_dt,
                         T qm_dt2_half, T dt_dx, T w, T inv_ng, int win_stride,
                         int width, int num_k, T inv_stride) {
   if (v1 != nullptr)
-    return launch_iteration<true, SHARED>(mode, blocks, threads, s, field, ps, p0, v0, ph,
-                                          v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
-                                          dt_dx, w, inv_ng, win_stride, width, num_k,
-                                          inv_stride);
-  return launch_iteration<false, SHARED>(mode, blocks, threads, s, field, ps, p0, v0, ph,
-                                         v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
-                                         dt_dx, w, inv_ng, win_stride, width, num_k,
-                                         inv_stride);
+    return launch_iteration<true, SHARED>(mode, blocks, threads, cluster, s, field, ps, p0,
+                                          v0, ph, v1, jh, n_clamped, n, ng, qm_dt,
+                                          qm_dt2_half, dt_dx, w, inv_ng, win_stride, width,
+                                          num_k, inv_stride);
+  return launch_iteration<false, SHARED>(mode, blocks, threads, cluster, s, field, ps, p0,
+                                         v0, ph, v1, jh, n_clamped, n, ng, qm_dt,
+                                         qm_dt2_half, dt_dx, w, inv_ng, win_stride, width,
+                                         num_k, inv_stride);
+}
+
+// How many clusters of the kCluster pass (emit_v, shared window, double)
+// at ng nodes, `cluster` CTAs of `threads` a cluster, the card holds at
+// once (cudaOccupancyMaxActiveClusters): 0 means it cannot launch one.
+template <bool EMIT_V, bool SHARED, typename T>
+cudaError_t pass_clusters(int ng, int cluster, int threads, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config<EMIT_V, SHARED, T>(ng, cluster, threads, cluster, 0, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(
+      count, picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>, &cfg);
 }
 
 template <bool DEPOSIT, typename T>
@@ -607,14 +767,16 @@ cudaError_t launch_deposit_det_large(const E* p, const E* values, E* out, E* bma
 
 extern "C" {
 
-// mode: ops/cuda_cic.py smem_mode (0 shared, 1 global); jh: ng
-// zeroed floats.
+// mode: ops/cuda_cic.py cluster_launch (0 shared, 1 global, 2 cluster,
+// 3 pair; cluster: the CTAs a cluster in mode 2, else unread); jh: ng
+// zeroed floats, in mode 3 3 ng (2 ng zeroed: the pair array, then the
+// sum the fold writes).
 int pypic_picard_iteration(const float* field, const float* ps, const float* p0,
                            const float* v0, float* ph, float* v1, float* jh,
                            long long n, int ng, float qm_dt, float qm_dt2_half,
                            float dt_dx, float w, float inv_ng, int mode,
-                           int blocks, int threads, void* stream) {
-  return (int)launch_pass<false>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                           int blocks, int threads, int cluster, void* stream) {
+  return (int)launch_pass<false>(mode, blocks, threads, cluster, (cudaStream_t)stream, field, ps,
                                  p0, v0, ph, v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
                                  dt_dx, w, inv_ng, 0, 0, 0, 0.0f);
 }
@@ -625,10 +787,36 @@ int pypic_picard_iteration_f64(const double* field, const double* ps, const doub
                                const double* v0, double* ph, double* v1, double* jh,
                                long long n, int ng, double qm_dt, double qm_dt2_half,
                                double dt_dx, double w, double inv_ng, int mode,
-                               int blocks, int threads, void* stream) {
-  return (int)launch_pass<false>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+                               int blocks, int threads, int cluster, void* stream) {
+  return (int)launch_pass<false>(mode, blocks, threads, cluster, (cudaStream_t)stream, field, ps,
                                  p0, v0, ph, v1, jh, nullptr, n, ng, qm_dt, qm_dt2_half,
                                  dt_dx, w, inv_ng, 0, 0, 0, 0.0);
+}
+
+// The clusters the card holds at once of the pass's kCluster launch at ng
+// nodes (shared: the shared window; emit_v: v1 stored; f64: the double
+// kernel), `cluster` CTAs of `threads` a cluster: 0 means it cannot
+// launch one.
+int pypic_picard_iteration_clusters(int shared, int emit_v, int f64, int ng, int cluster,
+                                    int threads, int* count) {
+  cudaError_t err;
+#define PYPIC_PASS_CLUSTERS(EV, SH, T) \
+  err = pass_clusters<EV, SH, T>(ng, cluster, threads, count)
+  if (f64) {
+    if (shared) {
+      if (emit_v) PYPIC_PASS_CLUSTERS(true, true, double); else PYPIC_PASS_CLUSTERS(false, true, double);
+    } else {
+      if (emit_v) PYPIC_PASS_CLUSTERS(true, false, double); else PYPIC_PASS_CLUSTERS(false, false, double);
+    }
+  } else {
+    if (shared) {
+      if (emit_v) PYPIC_PASS_CLUSTERS(true, true, float); else PYPIC_PASS_CLUSTERS(false, true, float);
+    } else {
+      if (emit_v) PYPIC_PASS_CLUSTERS(true, false, float); else PYPIC_PASS_CLUSTERS(false, false, float);
+    }
+  }
+#undef PYPIC_PASS_CLUSTERS
+  return (int)err;
 }
 
 // mode: 0 shared, 1 global.
@@ -680,8 +868,8 @@ int pypic_picard_iteration_shared(
     float* ph, float* v1, float* jh, int* n_clamped, long long n, int ng,
     float qm_dt, float qm_dt2_half, float dt_dx, float w, float inv_ng,
     int win_stride, int width, int num_k, float inv_stride, int mode, int blocks,
-    int threads, void* stream) {
-  return (int)launch_pass<true>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+    int threads, int cluster, void* stream) {
+  return (int)launch_pass<true>(mode, blocks, threads, cluster, (cudaStream_t)stream, field, ps,
                                 p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
                                 dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
 }
@@ -692,8 +880,8 @@ int pypic_picard_iteration_shared_f64(
     double* ph, double* v1, double* jh, int* n_clamped, long long n, int ng,
     double qm_dt, double qm_dt2_half, double dt_dx, double w, double inv_ng,
     int win_stride, int width, int num_k, double inv_stride, int mode, int blocks,
-    int threads, void* stream) {
-  return (int)launch_pass<true>(mode, blocks, threads, (cudaStream_t)stream, field, ps,
+    int threads, int cluster, void* stream) {
+  return (int)launch_pass<true>(mode, blocks, threads, cluster, (cudaStream_t)stream, field, ps,
                                 p0, v0, ph, v1, jh, n_clamped, n, ng, qm_dt, qm_dt2_half,
                                 dt_dx, w, inv_ng, win_stride, width, num_k, inv_stride);
 }

@@ -104,19 +104,27 @@ __device__ __forceinline__ T gather(const T* f, const CicT<T>& c) {
 //   atomic a node and block in the flush (the kernels as first ported);
 // * kGlobal: the field read from device memory through the read-only path
 //   (__ldg), each add a global float atomic (red.global.add.f32) into the
-//   zeroed output, no flush.
+//   zeroed output, no flush;
+// * kCluster (cic.cu picard_iteration_kernel alone; ops/cuda_cic.py
+//   cluster_launch): the field as in kGlobal, the (ng,) sum cut into one
+//   slice a CTA of a thread-block cluster, each add into its owner's
+//   slice through distributed shared memory, one global atomic a node and
+//   cluster in the flush;
+// * kPair (the same kernel, float alone): the field as in kGlobal, a
+//   row's two products one 8-B vector reduction into a (ng, 2) pair
+//   array, folded into the (ng,) sum by a second kernel.
 // Each mode is its own instantiation, so the kShared code is the first
 // port's. Every product keeps its rounding; only the order of the float
 // sums changes, as it does between two runs of the atomics.
 // ---------------------------------------------------------------------------
-constexpr int kShared = 0, kGlobal = 1;
+constexpr int kShared = 0, kGlobal = 1, kCluster = 2, kPair = 3;
 
 // The gather of the mode: the block's copy of the field, or the field in
-// device memory.
+// device memory (kGlobal, kCluster, kPair).
 template <int MODE, typename T>
 __device__ __forceinline__ T gather_mode(const T* s_field, const T* __restrict__ field,
                                          const CicT<T>& c) {
-  if (MODE == kGlobal)
+  if (MODE != kShared)
     return add_rn(mul_rn(__ldg(field + c.l), c.wl), mul_rn(__ldg(field + c.r), c.wr));
   return gather(s_field, c);
 }

@@ -47,9 +47,12 @@ _U = ctypes.c_uint
 _SIGNATURES = {
     # (the grid-stride kernels take their mode, ops/cuda_cic.py smem_mode,
     # before the grid)
+    # (the Picard pass, rows 1 and 2, takes the CTAs a cluster of its
+    # cluster mode after them, ops/cuda_cic.py cluster_launch)
     "pypic_picard_iteration": (
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I, _I,
-         _P], _I),
+         _I, _P], _I),
+    "pypic_picard_iteration_clusters": ([_I] * 6 + [_P], _I),
     "pypic_picard_finalize_nodep": (
         [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
     "pypic_picard_finalize": (
@@ -57,17 +60,17 @@ _SIGNATURES = {
          _P], _I),
     "pypic_picard_iteration_shared": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F, _I, _I,
-         _I, _F, _I, _I, _I, _P], _I),
+         _I, _F, _I, _I, _I, _I, _P], _I),
     # the double kernels of a float64 state (rows 1-6): every scalar a
     # double, _D, never _F (which would round it to float32 on the way)
     "pypic_picard_iteration_f64": (
-        [_P] * 7 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _P], _I),
+        [_P] * 7 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _I, _P], _I),
     "pypic_picard_finalize_nodep_f64": (
         [_P] * 6 + [_L, _I] + [_D] * 4 + [_I, _I, _I, _P], _I),
     "pypic_picard_finalize_f64": (
         [_P] * 7 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _P], _I),
     "pypic_picard_iteration_shared_f64": (
-        [_P] * 8 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _D, _I, _I, _I, _P], _I),
+        [_P] * 8 + [_L, _I] + [_D] * 5 + [_I, _I, _I, _D, _I, _I, _I, _I, _P], _I),
     "pypic_deposit_f64": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P], _I),
     "pypic_gather_f64": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
     "pypic_implicit_resident": (

@@ -67,14 +67,18 @@ Grid sizes: the grid-stride kernels keep their (ng,) arrays in a block's
 shared memory up to their ceilings and take the large modes above them,
 up to ``LARGE_MAX_NG`` nodes (``smem_mode``, ``sweep_launch``: the field
 read from device memory, every add a global float atomic); the wide
-deposits do the same through ``deposit_launch_shape``.
+deposits do the same through ``deposit_launch_shape``. The Picard pass
+(rows 1 and 2) chooses through ``cluster_launch``: its cluster mode (the
+sum in the shared memory of a thread-block cluster's CTAs) and, in
+float32, its pair mode (a row's two adds one vector reduction) where
+they beat the others on the card (``PASS_RULE``).
 Only ``explicit_cycle`` keeps a ceiling below that (its engine calls it at
 ng <= 1,024), and the resident kernels theirs.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else (the plain versions count nothing).
 ``LARGE_LAUNCHES`` counts, beside it, the launches taken in a large mode,
-by "wrapper mode".
+by "wrapper mode" (rows 1 and 2 also "cluster" and "pair").
 
 Particles are flat (n,) tensors of grid coordinates. The TPU kernels'
 blocked layout, window geometry, fold/selection matrices and SMEM scalar
@@ -166,8 +170,9 @@ def field_smem_max_ng(item: int = 4) -> int:
 # of deposit_det take 8 ng bytes (32 MiB here)
 LARGE_MAX_NG = 1 << 22
 # the modes of the grid-stride kernels (csrc/cic_common.cuh kShared,
-# kGlobal), as the launchers take them
-SMEM_MODES = {"shared": 0, "global": 1}
+# kGlobal; kCluster and kPair rows 1 and 2 alone, cluster_launch), as the
+# launchers take them
+SMEM_MODES = {"shared": 0, "global": 1, "cluster": 2, "pair": 3}
 # static shared memory beside the dynamic bytes (ptxas -v on sm_90a): one
 # int (a clamp count a block, det_flush's ticket) takes 16 B, the
 # granule; the 32 doubles of the slab finalizes' block_sum 256. A block's
@@ -427,6 +432,156 @@ def sweep_launch(kernel: str, n: int, nodes: int, sms: int,
                        _THREADS, smem)
 
 
+# The cluster and pair modes of the Picard pass, rows 1 and 2 (csrc/cic.cu
+# picard_iteration_kernel with kCluster, kPair). The cluster mode: CTAs of
+# CLUSTER_THREADS threads, one an SM, in clusters of a power of two up to
+# CLUSTER_MAX CTAs (16 a non-portable size), each CTA one slice of the
+# (ng,) sum in its shared memory. The pair mode (float32 alone):
+# sweep_launch's global grid, a row's two products one vector reduction
+# into a (ng, 2) pair array, folded after.
+CLUSTER_KERNELS = ("picard_iteration", "picard_iteration_shared")
+CLUSTER_THREADS = 1024
+CLUSTER_MAX = 16
+# cluster_launch's rule by kernel and element bytes: (first node, mode) in
+# rising order; below the first, sweep_launch's mode (the forced pairs
+# that set it: cluster_launch's docstring)
+PASS_RULE = {
+    "picard_iteration": {4: ((16_384, "cluster"), (58_113, "pair")),
+                         8: ((16_384, "cluster"), (58_113, "global"))},
+    "picard_iteration_shared": {4: ((16_384, "cluster"), (57_344, "pair")),
+                                8: ((16_384, "cluster"), (58_113, "global"))},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterLaunch:
+    """The launch of the Picard pass: its ``mode`` ('shared', 'global',
+    'cluster' or 'pair'), ``cluster`` CTAs a cluster (1 outside the
+    cluster mode), ``blocks`` CTAs of ``threads`` threads and ``smem``
+    bytes of dynamic shared memory a CTA."""
+    mode: str
+    cluster: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def cluster_size(kernel: str, nodes: int, item: int = 4) -> int | None:
+    """The least power of two C up to CLUSTER_MAX whose slices of
+    ceil(nodes / C) elements of ``item`` bytes fit a CTA beside the
+    kernel's static bytes (SWEEP_KERNELS), or None if none does."""
+    static = SWEEP_KERNELS[kernel][1]
+    c = 1
+    while c <= CLUSTER_MAX:
+        if item * -(-nodes // c) + static <= SMEM_LIMIT:
+            return c
+        c *= 2
+    return None
+
+
+def cluster_nodes(kernel: str, item: int = 4) -> int:
+    """The most nodes the largest cluster's slices hold (``cluster_size``
+    at CLUSTER_MAX)."""
+    return CLUSTER_MAX * ((SMEM_LIMIT - SWEEP_KERNELS[kernel][1]) // item)
+
+
+def pass_mode(kernel: str, nodes: int, item: int = 4) -> str:
+    """The mode PASS_RULE gives the pass at ``nodes`` nodes of ``item``
+    bytes: the last entry whose first node is at most ``nodes``, else
+    sweep_launch's mode. Raises above LARGE_MAX_NG."""
+    mode = smem_mode(nodes, *SWEEP_KERNELS[kernel], what=kernel, item=item)
+    for first, rule in PASS_RULE[kernel][item]:
+        if nodes >= first:
+            mode = rule
+    return mode
+
+
+def cluster_launch(kernel: str, n: int, nodes: int, sms: int, item: int = 4,
+                   clusters: int | None = None, mode: str | None = None) -> ClusterLaunch:
+    """The launch of the Picard pass (``kernel`` one of CLUSTER_KERNELS) on
+    n rows and ``nodes`` nodes, a function of the sizes alone: the mode
+    ``pass_mode`` names. PASS_RULE comes from the forced pairs of PERF.md
+    §6 (chip_smoke.forced_mode_times, rows 1 and 2, n = 1e7 and 1e8,
+    NVIDIA H100 80GB HBM3): the shared mode up to 16,383 nodes, the
+    cluster mode from 16,384, the smallest ng measured, where it beat both
+    others at both n (row 1, float32: 0.0904 and 0.7910 ms against the
+    shared mode's 0.4127 and 3.0166 and the global mode's 0.3127 and
+    3.0564; float64 0.1655 and 1.5127 against 0.3370 and 3.2869). From
+    58,113 nodes a cluster takes more than one CTA (C = 2 in float32, 4
+    in float64): there, at 65,536, the float32 pair mode beat it at both
+    n (0.1925 and 1.8524 against 0.2659 and 2.5246; the global mode 0.3459
+    and 3.3988), and in float64 the global mode did (0.3664 and 3.6386
+    against 0.4547 and 4.3954). So float32 takes the pair mode from
+    58,113 nodes and float64 the global mode; row 2 in float32 from
+    57,344, where the pair mode beat one CTA at both n (0.2163 and 2.1126
+    against 0.2533 and 2.3741; row 1 there 0.1899 and 1.8243 against
+    0.1822 and 1.7299).
+
+    The shared and global modes launch as ``sweep_launch``; the pair mode
+    on the global mode's grid. The cluster mode: C = ``cluster_size`` CTAs
+    a cluster, each of CLUSTER_THREADS threads with a slice of
+    ceil(nodes / C) elements, and C min(``clusters``, ceil(n / (C
+    CLUSTER_THREADS))) CTAs, ``clusters`` the clusters the card holds at
+    once (cudaOccupancyMaxActiveClusters; sms // C when None, the most it
+    could). ``mode`` forces a mode (raising where it cannot launch).
+    Raises above LARGE_MAX_NG."""
+    sweep = sweep_launch(kernel, n, nodes, sms, item=item)
+    mode = pass_mode(kernel, nodes, item) if mode is None else mode
+    if mode == "shared" and sweep.mode != "shared":
+        raise ValueError(f"{kernel}: ng={nodes} is above the shared mode's ceiling")
+    if mode == "pair" and item != 4:
+        raise ValueError(f"{kernel}: the pair mode takes float32 alone")
+    if mode != "cluster":
+        smem = sweep.smem if mode == "shared" else 0
+        return ClusterLaunch(mode, 1, sweep.blocks, sweep.threads, smem)
+    c = cluster_size(kernel, nodes, item)
+    if c is None:
+        raise ValueError(f"{kernel}: ng={nodes} is above the cluster mode's "
+                         f"{cluster_nodes(kernel, item)} nodes")
+    clusters = sms // c if clusters is None else clusters
+    if clusters < 1:
+        raise RuntimeError(f"{kernel}: the card holds no cluster of {c} CTAs")
+    count = max(1, min(clusters, -(-n // (c * CLUSTER_THREADS))))
+    return ClusterLaunch("cluster", c, c * count, CLUSTER_THREADS, item * -(-nodes // c))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, kernel: str, item: int, emit_v: bool, nodes: int,
+                  cluster: int) -> int:
+    """Clusters of the pass's cluster launch the card ``index`` holds at
+    once (cudaOccupancyMaxActiveClusters); raises if it cannot hold one."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().pypic_picard_iteration_clusters(
+            int(kernel == "picard_iteration_shared"), int(emit_v), int(item == 8),
+            nodes, cluster, CLUSTER_THREADS, ctypes.byref(count))
+    _build.check(err, f"{kernel} (cluster occupancy)")
+    if count.value < 1:
+        raise RuntimeError(
+            f"{kernel}: {torch.cuda.get_device_name(index)} cannot hold one cluster "
+            f"of {cluster} CTAs x {CLUSTER_THREADS} threads at ng = {nodes} "
+            "(cudaOccupancyMaxActiveClusters = 0)")
+    return count.value
+
+
+def _pass_launch(dev, kernel: str, n: int, nodes: int, item: int, emit_v: bool,
+                 mode: str | None = None) -> ClusterLaunch:
+    """``cluster_launch`` on card ``dev``, its clusters queried there."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _sm_count(index)
+    launch = cluster_launch(kernel, n, nodes, sms, item, mode=mode)
+    if launch.mode != "cluster":
+        return launch
+    held = _max_clusters(index, kernel, item, emit_v, nodes, launch.cluster)
+    return cluster_launch(kernel, n, nodes, sms, item, held, mode="cluster")
+
+
+def _pass_sum(mode: str, ng: int, dtype: torch.dtype, dev) -> torch.Tensor:
+    """The pass's zeroed sum: ng elements, in the pair mode 3 ng (the
+    (ng, 2) pair array, then the sum the fold writes: the last ng)."""
+    return torch.zeros(((3 if mode == "pair" else 1) * ng,), dtype=dtype, device=dev)
+
+
 def _sweep(dev, kernel: str, n: int, nodes: int, extra: int = 0,
            item: int = 4) -> SweepLaunch:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -641,18 +796,11 @@ def _shared_frame_args(ng: int, dtype: torch.dtype = torch.float32):
     return stride, width, (ng - 1) // stride + 1, float(real(dtype)(1.0 / stride))
 
 
-def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
-                                  w, dt: float, dx: float,
-                                  emit_v: bool = False, acc_dtype=None):
-    """``acc_dtype`` is the dtype jh is summed in (the inputs' by
-    default): float64 sums the same float32 terms into a reference for
-    the kernel's float32 sums."""
-    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w, ps.dtype)
-    p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
-    raw = 0.5 * (p0 + p1)
-    vh = 0.5 * (v0 + v1)
-    # the midpoint's row in the gather's window frame (pallas_cic.py
-    # _window_decompose, _shared_gather and _picard_iter_sw_kernel)
+def _shared_frame_cic(ps, raw, ng: int):
+    """(left node, right node, w_r, clamped) of the shared-window pass's
+    deposit: the midpoint ``raw`` as seen from the gather's window frame
+    at ``ps`` (pallas_cic.py _window_decompose, _shared_gather and
+    _picard_iter_sw_kernel), clamped to the frame's edge."""
     stride, width, num_k, inv_stride = _shared_frame_args(ng, ps.dtype)
     k = torch.clamp((torch.floor(ps) * inv_stride).to(torch.int32), 0, num_k - 1)
     d_s = (ps - k.to(ps.dtype) * stride) + 1.0
@@ -665,6 +813,20 @@ def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
     wr = d_h - row.to(d_h.dtype)
     node = torch.remainder(stride * k.to(torch.int64) + row - 1, ng)
     right = torch.where(node + 1 == ng, 0, node + 1)
+    return node, right, wr, oob
+
+
+def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
+                                  w, dt: float, dx: float,
+                                  emit_v: bool = False, acc_dtype=None):
+    """``acc_dtype`` is the dtype jh is summed in (the inputs' by
+    default): float64 sums the same float32 terms into a reference for
+    the kernel's float32 sums."""
+    qm_dt, qm_dt2_half, dt_dx, w = kernel_scalars(qm, dt, dx, w, ps.dtype)
+    p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
+    raw = 0.5 * (p0 + p1)
+    vh = 0.5 * (v0 + v1)
+    node, right, wr, oob = _shared_frame_cic(ps, raw, ng)
     vals = w * vh
     acc = acc_dtype or vals.dtype
     jh = torch.zeros((ng,), dtype=acc, device=vals.device)
@@ -673,6 +835,56 @@ def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
     n_clamped = oob.sum().to(torch.int32)
     ph = _wrap(raw, ng)
     return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
+
+
+def cluster_sum_plain(left, right, t_left, t_right, ng: int, cluster: int,
+                      slice_: int):
+    """The cluster mode's sum of a pass's terms (csrc/cic.cu cluster_add
+    and its flush), on any device: term ``t_left`` at node ``left`` lands
+    in slice ``left // slice_`` at offset ``left % slice_`` of ``cluster``
+    slices of ``slice_`` nodes, ``t_right`` at the next offset, at the
+    next slice's first past ``slice_ - 1`` and at node 0's (slice 0,
+    offset 0) where ``right`` wrapped to 0; the slices, laid end to end,
+    are the (ng,) sum. Raises if a term lands past node ng - 1 (owner or
+    offset arithmetic the flush would drop)."""
+    if cluster * slice_ < ng:
+        raise ValueError(f"{cluster} slices of {slice_} nodes do not hold ng = {ng}")
+    owner = torch.div(left, slice_, rounding_mode="floor")
+    off = left - owner * slice_
+    r_owner = torch.where(off + 1 == slice_, owner + 1, owner)
+    r_off = torch.where(off + 1 == slice_, 0, off + 1)
+    r_owner = torch.where(right == 0, 0, r_owner)
+    r_off = torch.where(right == 0, 0, r_off)
+    slices = torch.zeros((cluster * slice_,), dtype=t_left.dtype, device=t_left.device)
+    slices.index_add_(0, owner * slice_ + off, t_left)
+    slices.index_add_(0, r_owner * slice_ + r_off, t_right)
+    if bool((slices[ng:] != 0).any()):
+        raise AssertionError("a term landed past the last node")
+    return slices[:ng]
+
+
+def picard_iteration_cluster_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
+                                   w, dt: float, dx: float, cluster: int,
+                                   slice_: int, share_window: bool = False):
+    """The cluster mode's pass on the CPU: ``picard_iteration_plain``'s
+    (``picard_iteration_shared_plain``'s with ``share_window``) ph, v1
+    and clamp count, its jh summed as ``cluster_sum_plain`` sums it over
+    ``cluster`` slices of ``slice_`` nodes. Returns (ph, v1, jh) or
+    (ph, v1, jh, n_clamped)."""
+    qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, ps.dtype)
+    p1, v1 = _cn_push(field_smoothed, ps, p0, v0, qm_dt, qm_dt2_half, dt_dx)
+    raw = 0.5 * (p0 + p1)
+    vals = wf * (0.5 * (v0 + v1))
+    ph = _wrap(raw, ng)
+    if share_window:
+        left, right, wr, oob = _shared_frame_cic(ps, raw, ng)
+        wl = 1.0 - wr
+    else:
+        left, right, wl, wr = cic_indices_weights(ph, ng, True)
+    jh = cluster_sum_plain(left, right, vals * wl, vals * wr, ng, cluster, slice_)
+    if share_window:
+        return ph, v1, jh, oob.sum().to(torch.int32)
+    return ph, v1, jh
 
 
 def implicit_resident_plain(e0, e_prev, j0, p, v, ng: int, steps: int, *, qm,
@@ -799,20 +1011,22 @@ def picard_iteration(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
         return picard_iteration_plain(field_smoothed, ps, p0, v0, ng, qm=qm,
                                       w=w, dt=dt, dx=dx, emit_v=emit_v)
     dev, dtype = ps.device, ps.dtype
-    launch = _sweep(dev, "picard_iteration", n, ng, item=ps.element_size())
+    launch = _pass_launch(dev, "picard_iteration", n, ng, ps.element_size(), emit_v)
     fn, name = _launcher(_build.library(), "picard_iteration", dtype)
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, dtype)
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
-    jh = torch.zeros((ng,), dtype=dtype, device=dev)
+    buf = _pass_sum(launch.mode, ng, dtype, dev)
     with torch.cuda.device(dev):
         err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
-            jh.data_ptr(), n, ng, qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng, dtype),
-            SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
+            buf.data_ptr(), n, ng, qm_dt, qm_dt2_half, dt_dx, wf, _inv(ng, dtype),
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads, launch.cluster,
+            _stream(dev))
     _build.check(err, name)
     _count(name, launch.mode)
+    jh = buf[-ng:]
     return (ph, v1, jh) if emit_v else (ph, jh)
 
 
@@ -1244,24 +1458,26 @@ def picard_iteration_shared(field_smoothed, ps, p0, v0, ng: int, *, qm, w,
                                              qm=qm, w=w, dt=dt, dx=dx,
                                              emit_v=emit_v)
     dev, dtype = ps.device, ps.dtype
-    launch = _sweep(dev, "picard_iteration_shared", n, ng, item=ps.element_size())
+    launch = _pass_launch(dev, "picard_iteration_shared", n, ng, ps.element_size(),
+                          emit_v)
     fn, name = _launcher(_build.library(), "picard_iteration_shared", dtype)
     qm_dt, qm_dt2_half, dt_dx, wf = kernel_scalars(qm, dt, dx, w, dtype)
     stride, width, num_k, inv_stride = _shared_frame_args(ng, dtype)
     ph = torch.empty_like(ps)
     v1 = torch.empty_like(ps) if emit_v else None
-    jh = torch.zeros((ng,), dtype=dtype, device=dev)
+    buf = _pass_sum(launch.mode, ng, dtype, dev)
     n_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(
             field_smoothed.data_ptr(), ps.data_ptr(), p0.data_ptr(),
             v0.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
-            jh.data_ptr(), n_clamped.data_ptr(), n, ng, qm_dt, qm_dt2_half,
+            buf.data_ptr(), n_clamped.data_ptr(), n, ng, qm_dt, qm_dt2_half,
             dt_dx, wf, _inv(ng, dtype), stride, width, num_k, inv_stride,
-            SMEM_MODES[launch.mode], launch.blocks, launch.threads,
+            SMEM_MODES[launch.mode], launch.blocks, launch.threads, launch.cluster,
             _stream(dev))
     _build.check(err, name)
     _count(name, launch.mode)
+    jh = buf[-ng:]
     return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
 
 

@@ -10,7 +10,7 @@ finalize). ``chip_smoke.py`` drives it too.
         [--ng 200] [--dtype float32|float64] [--tol T] [--maxiter K]
     python -m pypic_tpu_torch.tools.headline profile --out DIR [--steps 5]
         [--cell landau|two-stream|magnetized|carried|sheath|dn|gc|bca] [--ng 200]
-        [--dtype float32|float64]
+        [--dtype float32|float64] [--window-share auto|shared|separate]
 
 ``--ng`` refines the headline cell's grid as the Landau preset does (L
 stays 22 Debye lengths; the particle kernels take their large modes above
@@ -18,7 +18,8 @@ their shared-memory ceilings, up to ``cuda_cic.LARGE_MAX_NG``); it applies
 to ``--cell landau`` only. ``--dtype float64`` runs the cell's state (the
 same float32 load, cast) on the double kernels: rows 1-6 for
 ``landau``, rows 7-9, 22 and 23 for ``magnetized``, ``carried``, ``dn``
-and ``gc`` (``tools/magnetized.cast_state``).
+and ``gc`` (``tools/magnetized.cast_state``). ``--window-share`` sets the
+landau cell's Picard window ('shared': row 2's shared-window pass).
 
 ``drift`` steps the cell through ``runner.run`` in chunks and prints, per
 chunk, the relative change of the total (field + kinetic) energy since
@@ -206,7 +207,8 @@ def profile(args) -> dict:
         step = sheath.make_step(cfg)
     else:
         _, step, state = headline_state(args.n, dev, args.seed, args.ng,
-                                        DTYPES[args.dtype])
+                                        DTYPES[args.dtype],
+                                        window_share=args.window_share)
     state, _ = run(step, state, 2)  # warm-up
     untraced = []
     for _ in range(3):
@@ -284,6 +286,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--cell", choices=("landau", "two-stream", "magnetized",
                                       "carried", "sheath", "dn", "gc", "bca"),
                    default="landau")
+    p.add_argument("--window-share", choices=("auto", "shared", "separate"),
+                   default="auto", help="the landau cell's Picard window (its "
+                                        "conserving configuration's 'auto')")
     for s in (d, p):
         s.add_argument("--n", type=int, default=N_HEADLINE)
         s.add_argument("--seed", type=int, default=1)

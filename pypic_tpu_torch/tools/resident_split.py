@@ -6,6 +6,7 @@ library outside the package's.
     python -m pypic_tpu_torch.tools.resident_split --kernel explicit
     python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd|newton_dn [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel deposit2|boris_deposit [--first-port SOURCE]
+    python -m pypic_tpu_torch.tools.resident_split --kernel picard_iteration
 
 The cuts are text edits of ``csrc/implicit.cu`` (``--kernel implicit``,
 the default) or of ``csrc/explicit.cu`` (``--kernel explicit``); the edits
@@ -53,6 +54,19 @@ with other column counts or the other width of
 splits the first port (1,056 blocks of 256 threads, one histogram a
 block flushed by global atomics; ``DEPOSIT_FIRST_PORT_CUTS``), for
 example from ``git show d10fc7e:pypic_tpu_torch/csrc/magnetized.cu``.
+
+``--kernel picard_iteration`` splits rows 1 and 2's pass (``csrc/cic.cu``
+``picard_iteration_kernel``, ``cic_common.cuh`` inlined) at
+``PASS_SHAPES`` (n = 1e7 and 1e8 x ng 65,536, 262,144 and 2^20, float32
+and float64, random rows as ``chip_smoke.py``'s), row 1 without v1:
+(a) the global mode, (b) no adds (the stores kept), (c) each row's two
+products stored to a (2 n,) scratch (no atomics), (d) the cluster mode
+(the slices of a thread-block cluster, where the largest cluster holds
+ng), (e) the pair mode (one ``red.global.add.v2.f32`` a row into a
+(ng, 2) pair array, then the fold; float32), (f) the cluster mode with
+each add an explicit ``mapa`` and ``red.shared::cluster``. It prints
+the atomic and reduction instructions of each mode (cuobjdump) and the
+registers.
 
 ``--kernel deposit``, ``--kernel deposit_det`` and ``--kernel
 source_batch`` split row 4 (``csrc/cic.cu``, with ``cic_common.cuh``
@@ -699,11 +713,12 @@ def _edited(text: str, edits) -> str:
     return text
 
 
-def _build_all(jobs) -> tuple[dict, dict]:
+def _build_all(jobs, optional=()) -> tuple[dict, dict]:
     """jobs: {tag: (source text, extra nvcc flags)} -> ({tag: loaded CDLL},
     {tag: the compiler's log}), one nvcc each, all at once. The flags come
     before the package's include directory (a first port's ``-I`` of its
-    own header wins)."""
+    own header wins). A job of ``optional`` that fails to build is
+    reported and left out."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (text, flags) in jobs.items():
@@ -718,6 +733,9 @@ def _build_all(jobs) -> tuple[dict, dict]:
     libs, logs = {}, {}
     for tag, (lib, proc) in procs.items():
         log = proc.communicate()[0]
+        if proc.returncode and tag in optional:
+            print(f"[split] {tag}: nvcc failed, left out:\n{log[-2000:]}", flush=True)
+            continue
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {tag}:\n{log}")
         libs[tag], logs[tag] = ctypes.CDLL(str(lib)), log
@@ -736,9 +754,9 @@ def _kernel_report(log: str, word: str) -> list:
     return out
 
 
-def _atomics(lib_path: Path, word: str = "") -> dict:
-    """Shared-memory atomic opcodes in the SASS of a library's kernels whose
-    name holds ``word``, by count."""
+def _atomics(lib_path: Path, word: str = "", prefixes=("ATOMS",)) -> dict:
+    """Atomic opcodes (shared-memory ones by default; ``prefixes``) in the
+    SASS of a library's kernels whose name holds ``word``, by count."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
                           text=True).stdout
@@ -749,7 +767,7 @@ def _atomics(lib_path: Path, word: str = "") -> dict:
         if not inside:
             continue
         for w in line.replace(";", " ").split():
-            if w.startswith("ATOMS"):
+            if w.startswith(prefixes):
                 counts[w] = counts.get(w, 0) + 1
     return counts
 
@@ -1592,11 +1610,156 @@ def _split_source(args, dev) -> tuple[dict, dict, dict]:
     return res, calls, {"per": "launch", "count": 1, "timer": _queued}
 
 
+# ---------------------------------------------------------------------------
+# rows 1 and 2's pass (csrc/cic.cu picard_iteration_kernel) in its global
+# mode, beside its cluster mode
+# ---------------------------------------------------------------------------
+
+PASS_SHAPES = [(n, ng) for n in (10_000_000, 100_000_000)
+               for ng in (65_536, 262_144, 1 << 20)]
+PASS_CUTS = {
+    "(a) full": 0,
+    "(b) no adds": 1,          # the products summed in a register; ph stored
+    "(c) per-row scratch": 2,  # the two products stored at 2 i, 2 i + 1 of a (2 n,) array
+    "(d) cluster mode": 0,     # the full kernel's kCluster instantiation
+    "(e) pair mode": 0,        # the full kernel's kPair: one red.global.add.v2.f32 a row
+    "(f) cluster, red.shared::cluster": 4,  # (d) with each add an explicit DSMEM reduction
+}
+_PASS_EDITS = [
+    (_INLINED, _INLINED + _CUT_DEFINE, 1),
+    ("template <bool EMIT_V, bool SHARED, int MODE, typename T>\n"
+     "__global__ void picard_iteration_kernel(",
+     "__device__ __forceinline__ void store2(float* p, float a, float b) {\n"
+     "  *reinterpret_cast<float2*>(p) = make_float2(a, b);\n}\n"
+     "__device__ __forceinline__ void store2(double* p, double a, double b) {\n"
+     "  *reinterpret_cast<double2*>(p) = make_double2(a, b);\n}\n"
+     "template <bool EMIT_V, bool SHARED, int MODE, typename T>\n"
+     "__global__ void picard_iteration_kernel(", 1),
+    ("  const T half = (T)0.5;\n  int clamped = 0;",
+     "  const T half = (T)0.5;\n  int clamped = 0;\n  T sink = (T)0;", 1),
+    ("    } else {\n      atomicAdd(&hist[c.l], mul_rn(val, c.wl));\n"
+     "      atomicAdd(&hist[c.r], mul_rn(val, c.wr));\n    }",
+     "    } else {\n#if CUT == 1\n"
+     "      sink = add_rn(sink, add_rn(mul_rn(val, c.wl), add_rn(mul_rn(val, c.wr), (T)c.l)));\n"
+     "#elif CUT == 2\n      store2(jh + 2 * i, mul_rn(val, c.wl), mul_rn(val, c.wr));\n"
+     "#else\n      atomicAdd(&hist[c.l], mul_rn(val, c.wl));\n"
+     "      atomicAdd(&hist[c.r], mul_rn(val, c.wr));\n#endif\n    }", 1),
+    ("  if (SHARED && clamped) atomicAdd(&s_clamped, clamped);\n  if constexpr (MODE == kCluster)",
+     "  if (sink == (T)1.2345e30f) ph_out[0] = sink;\n"
+     "  if (SHARED && clamped) atomicAdd(&s_clamped, clamped);\n  if constexpr (MODE == kCluster)", 1),
+    # (f): the owner's slice addressed by mapa, the add a red.shared::cluster
+    ("  atomicAdd(cluster.map_shared_rank(slices, r) + o, al);\n"
+     "  atomicAdd(cluster.map_shared_rank(slices, rr) + ro, ar);",
+     "#if CUT == 4\n  dsmem_add(slices + o, r, al);\n  dsmem_add(slices + ro, rr, ar);\n#else\n"
+     "  atomicAdd(cluster.map_shared_rank(slices, r) + o, al);\n"
+     "  atomicAdd(cluster.map_shared_rank(slices, rr) + ro, ar);\n#endif", 1),
+    ("// kCluster's adds of a row's two products:",
+     "__device__ __forceinline__ unsigned dsmem_at(const void* local, int rank) {\n"
+     "  unsigned a = (unsigned)__cvta_generic_to_shared(local), ra;\n"
+     "  asm volatile(\"mapa.shared::cluster.u32 %0, %1, %2;\" : \"=r\"(ra) : \"r\"(a),"
+     " \"r\"(rank));\n  return ra;\n}\n"
+     "__device__ __forceinline__ void dsmem_add(float* local, int rank, float v) {\n"
+     "  asm volatile(\"red.shared::cluster.add.f32 [%0], %1;\" :: \"r\"(dsmem_at(local, rank)),"
+     " \"f\"(v) : \"memory\");\n}\n"
+     "__device__ __forceinline__ void dsmem_add(double* local, int rank, double v) {\n"
+     "  asm volatile(\"red.shared::cluster.add.f64 [%0], %1;\" :: \"r\"(dsmem_at(local, rank)),"
+     " \"d\"(v) : \"memory\");\n}\n"
+     "// kCluster's adds of a row's two products:", 1),
+]
+
+
+def _split_pass(_args, dev) -> tuple[dict, dict, dict]:
+    """Rows 1 and 2's cuts (PASS_CUTS) at PASS_SHAPES, float32 and float64:
+    the pass without its window (row 1), v1 not stored, as the headline's
+    passes launch it."""
+    text = _edited(_inlined(_build.CSRC_DIR / "cic.cu"), _PASS_EDITS)
+    jobs = {tag: (text, [f"-DCUT={cut}"]) for tag, cut in PASS_CUTS.items()
+            if tag.startswith("(a)") or cut}
+    libs, logs = _build_all(jobs, optional=("(f) cluster, red.shared::cluster",))
+    res = {"registers": {}, "sass": {}, "launch": {}}
+    for tag in libs:
+        res["registers"][tag] = _kernel_report(logs[tag], "picard_iteration_kernel")
+        for line in res["registers"][tag]:
+            print(f"[ptxas] {tag}: {line}", flush=True)
+    for tag, mode, word in (("(a) full", "global", "ILb0ELb0ELi1E"),
+                            ("(a) full", "cluster", "ILb0ELb0ELi2E"),
+                            ("(a) full", "shared window, cluster", "ILb0ELb1ELi2E"),
+                            ("(a) full", "pair", "ILb0ELb0ELi3E"),
+                            ("(f) cluster, red.shared::cluster", "(f) cluster",
+                             "ILb0ELb0ELi2E")):
+        if tag not in libs:
+            continue
+        ops = _atomics(Path(libs[tag]._name), "picard_iteration_kernel" + word,
+                       ("ATOM", "RED"))
+        res["sass"][mode] = ops
+        print(f"[sass] {mode}: {ops}", flush=True)
+    libs["(d) cluster mode"] = libs["(e) pair mode"] = libs["(a) full"]
+    for lib in set(libs.values()):
+        for dtype in (torch.float32, torch.float64):
+            fn = "pypic_picard_iteration" + ("_f64" if dtype == torch.float64 else "")
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn][0]
+            getattr(lib, fn).restype = _I
+        lib.pypic_picard_iteration_clusters.argtypes = [_I] * 6 + [_P]
+        lib.pypic_picard_iteration_clusters.restype = _I
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = cuda_cic._sm_count(dev.index)
+    qm, w, dt, dx = -1.7e11, -3.2e-9, 1e-7, 0.05  # chip_smoke.py's QM, W, DT, DX
+    calls = {}
+    for dtype in (torch.float32, torch.float64):
+        item = torch.empty((), dtype=dtype).element_size()
+        label = "float32" if item == 4 else "float64"
+        gen = torch.Generator(device=dev).manual_seed(41)
+        n_max = max(n for n, _ in PASS_SHAPES)
+        ps = torch.rand(n_max, generator=gen, device=dev, dtype=dtype)
+        p0 = torch.rand(n_max, generator=gen, device=dev, dtype=dtype)
+        v0 = torch.randn(n_max, generator=gen, device=dev, dtype=dtype) * 1e5
+        ph = torch.empty_like(ps)
+        scratch = torch.empty(2 * n_max, dtype=dtype, device=dev)
+        scalars = cuda_cic.kernel_scalars(qm, dt, dx, w, dtype)
+        fn = "pypic_picard_iteration" + ("_f64" if item == 8 else "")
+        for n, ng in PASS_SHAPES:
+            field = torch.randn(ng, generator=gen, device=dev, dtype=dtype) * 1e3
+            pos = [t[:n] * ng for t in (ps, p0)]  # rows in random order over the grid
+            out = torch.zeros(3 * ng, dtype=dtype, device=dev)
+            glob = cuda_cic.cluster_launch("picard_iteration", n, ng, sms, item, mode="global")
+            shape = {"global": dataclasses.asdict(glob)}
+            if cuda_cic.cluster_size("picard_iteration", ng, item) is not None:
+                clus = cuda_cic.cluster_launch("picard_iteration", n, ng, sms, item,
+                                               mode="cluster")
+                count = ctypes.c_int(0)
+                _build.check(libs["(a) full"].pypic_picard_iteration_clusters(
+                    0, 0, int(item == 8), ng, clus.cluster, clus.threads,
+                    ctypes.byref(count)), "resident_split (cluster occupancy)")
+                clus = cuda_cic.cluster_launch("picard_iteration", n, ng, sms, item,
+                                               count.value, mode="cluster")
+                shape["cluster"] = dict(dataclasses.asdict(clus), held=count.value)
+            res["launch"][f"{label} n {n}, ng {ng}"] = shape
+            for tag, cut in PASS_CUTS.items():
+                mode = {"(d)": "cluster", "(e)": "pair", "(f)": "cluster"}.get(tag[:3], "global")
+                if (tag not in libs or mode == "cluster" and "cluster" not in shape
+                        or mode == "pair" and item == 8):
+                    continue  # not built; no cluster holds ng; no vector reduction of doubles
+                grid = shape["cluster" if mode == "cluster" else "global"]
+                target = scratch if cut == 2 else out
+                args = (field, pos[0], pos[1], v0[:n], ph[:n])
+
+                def call(lib=libs[tag], fn=fn, args=args, target=target, n=n, ng=ng,
+                         grid=grid, mode=mode, scalars=scalars):
+                    _build.check(getattr(lib, fn)(
+                        *(a.data_ptr() for a in args), None, target.data_ptr(), n, ng,
+                        *scalars, cuda_cic._inv(ng, args[0].dtype), cuda_cic.SMEM_MODES[mode],
+                        grid["blocks"], grid["threads"], grid["cluster"], stream),
+                        "resident_split")
+                calls[f"{label} n {n}, ng {ng}: {tag}"] = call
+    return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+
+
 def main() -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn",
                                          "deposit2", "boris_deposit", "deposit",
-                                         "deposit_det", "source_batch"),
+                                         "deposit_det", "source_batch",
+                                         "picard_iteration"),
                     default="implicit")
     ap.add_argument("--first-port", type=Path,
                     help="the kernel's first port (its csrc/implicit.cu, newton.cu, "
@@ -1615,7 +1778,8 @@ def main() -> dict:
              "newton_dn": _split_newton, "deposit2": _split_deposit,
              "boris_deposit": _split_deposit, "deposit": _split_single,
              "deposit_det": _split_single,
-             "source_batch": _split_source}.get(args.kernel, _split_implicit)
+             "source_batch": _split_source,
+             "picard_iteration": _split_pass}.get(args.kernel, _split_implicit)
     res, calls, unit = split(args, dev)
     res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
     for _ in range(2):

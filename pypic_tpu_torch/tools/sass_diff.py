@@ -14,7 +14,8 @@ without one matches the float instantiation here: the templates gained
 that argument with the double kernels of a float64 state), and their
 instructions are compared with the addresses and encodings left out.
 The float kernels of ``DIR`` decide the exit code; its double kernels
-are compared too and reported beside this tree's. Each double kernel's
+are compared too and reported beside this tree's, and this tree's float
+kernels that ``DIR`` lacks are listed as new. Each double kernel's
 atomic instructions are counted by opcode: a shared-memory double add
 may compile to a compare-and-swap loop (ATOMS.CAS), a global one to RED
 or ATOM.
@@ -98,7 +99,7 @@ def _same(here, body) -> str:
 
 
 def compare(parent: Path) -> dict:
-    res = {"float": {}, "double": {}}
+    res = {"float": {}, "double": {}, "new float": {}}
     parent_double = {}
     with tempfile.TemporaryDirectory() as tmp, \
             concurrent.futures.ThreadPoolExecutor(8) as pool:
@@ -110,17 +111,22 @@ def compare(parent: Path) -> dict:
         for src, (old_job, new_job) in jobs.items():
             old, new = old_job.result(), new_job.result()
             new_by_key = {_key(k): v for k, v in new.items()}
+            matched = set()
             for mangled, body in old.items():
                 name, ints, typ = _key(mangled)
                 here = new.get(mangled, new_by_key.get(
                     (name, ints, typ or "f"),
                     None if typ else new_by_key.get((name, ints, None))))
+                matched.update({(name, ints, typ or "f"), (name, ints, None)})
                 label = f"{src} {name}{list(ints)}"
                 if typ == "d":
                     parent_double[label] = _same(here, body)
                 else:
                     res["float"][label] = _same(here, body)
             for (name, ints, typ), body in new_by_key.items():
+                if typ != "d" and (name, ints, typ) not in matched:
+                    res["new float"][f"{src} {name}{list(ints)}"] = dict(
+                        instructions=len(body), atomics=atomics(body))
                 if typ == "d":
                     label = f"{src} {name}{list(ints)}"
                     res["double"][label] = dict(
@@ -138,6 +144,9 @@ def main(argv=None) -> int:
     res = compare(args.parent)
     for label, what in res["float"].items():
         print(f"[sass] float {label}: {what}")
+    for label, what in res["new float"].items():
+        print(f"[sass] new float {label}: {what['instructions']} instructions, "
+              f"atomics {what['atomics']}")
     for label, what in res["double"].items():
         print(f"[sass] double {label}: {what['instructions']} instructions, "
               f"atomics {what['atomics']}; against the parent's: {what['parent']}")

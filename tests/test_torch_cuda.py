@@ -1958,7 +1958,10 @@ def test_large_modes_match_plain(cuda_device, name, ng):
     modes = dict(cuda_cic.LARGE_LAUNCHES)
     assert cuda_cic.LAUNCHES[name] == 1
     if ng == 65_536:
-        assert modes == {f"{name} global": 1}
+        mode = "global"
+        if name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: cluster_launch's mode
+            mode = cuda_cic.cluster_launch(name, 200_003, ng, 132).mode
+        assert modes == {f"{name} {mode}": 1}
     _large_outputs_match(got, ref)
 
 
@@ -1976,13 +1979,84 @@ def _large_outputs_match(got, ref):
             _rel_close(r, g, 1e-6 if g.shape[0] == 200_003 else 2e-5)
 
 
+# the cluster and pair modes of rows 1 and 2 (csrc/cic.cu kCluster, kPair),
+# forced at grids whose cluster slices of ceil(ng / C) nodes cut the rows'
+# node pairs: C = 1 at 20,000, 2 at 65,536 and 100,003 (a shorter last
+# slice), 4 at 116,225, 8 at 262,144 and 16 (a non-portable cluster) at
+# 600,000
+CLUSTER_NGS = [20_000, 65_536, 100_003, 116_225, 262_144, 600_000]
+
+
+def _forced_pass(monkeypatch, mode):
+    import functools
+
+    monkeypatch.setattr(cuda_cic, "_pass_launch",
+                        functools.partial(_PASS_LAUNCH, mode=mode))
+
+
+_PASS_LAUNCH = cuda_cic._pass_launch
+
+
+def _seam_rows(ng, item, dev, dtype):
+    """n = 200,003 random rows, the first ones astride the slices' seams
+    (r S - 1 and r S) and the grid's (ng - 1 and 0) with their midpoints,
+    ps, p0 and v0 of ``dtype``, and a field."""
+    n = 200_003
+    gen = torch.Generator(device=dev).manual_seed(ng)
+    c = cuda_cic.cluster_size("picard_iteration_shared", ng, item)
+    s = -(-ng // c)
+    seams = [r * s for r in range(1, c)] + [ng]
+    at = torch.tensor([x - 1 + f for x in seams for f in (0.25, 0.75, 0.999)],
+                      dtype=torch.float64)
+    p0 = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * ng
+    p0[:at.numel()] = at.to(dev)
+    ps = p0.clone()
+    v0 = torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 1e5
+    v0[:at.numel()] = 0.0
+    e = torch.randn(ng, generator=gen, device=dev, dtype=torch.float64) * 1e3
+    return [x.to(dtype) for x in (e, ps, p0, v0)], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cluster", "pair"])
+@pytest.mark.parametrize("ng", CLUSTER_NGS)
+@pytest.mark.parametrize("name", ["picard_iteration", "picard_iteration_shared"])
+def test_cluster_mode_matches_plain_and_global_bits(cuda_device, monkeypatch, name, ng,
+                                                    mode):
+    """Rows 1 and 2 forced into the cluster or pair mode on rows astride
+    the cluster slices' seams and the grid's: ph, v1 and the clamp count
+    bit-equal to the global mode's (the sweep is its code), jh within 2e-5
+    of the plain version's largest node (float atomics in another order),
+    one launch in the mode."""
+    (e, ps, p0, v0), c = _seam_rows(ng, 4, cuda_device, torch.float32)
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX, emit_v=True)
+    fn = getattr(cuda_cic, name)
+    _forced_pass(monkeypatch, "global")
+    glob = fn(e, ps, p0, v0, ng, **kw)
+    _forced_pass(monkeypatch, mode)
+    cuda_cic.reset_launch_counts()
+    got = fn(e, ps, p0, v0, ng, **kw)
+    ref = getattr(cuda_cic, name + "_plain")(e, ps, p0, v0, ng, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"{name} {mode}": 1}
+    assert got[2].shape == (ng,)
+    assert c == cuda_cic.cluster_launch(name, 200_003, ng, 132, mode="cluster").cluster
+    for i in (0, 1) + ((3,) if name.endswith("shared") else ()):
+        assert torch.equal(got[i], glob[i]), i
+    _rel_close(ref[2], got[2], 2e-5)
+
+
 def _mode_boundaries(name, n, sms):
     """The last node of each launch shape of a large row and the first of
     the next, up to SMEM_LIMIT // 4 + 1 nodes: its sweep modes
-    (sweep_launch) or, for the single deposit, its modes and columns."""
+    (sweep_launch; rows 1 and 2 cluster_launch's modes and cluster sizes)
+    or, for the single deposit, its modes and columns."""
     if name == "deposit":
         keys = [lambda ng: (lambda s: (s.mode, s.cols))(
             cuda_cic.deposit_launch_shape(n, ng, False, sms, hists=1))]
+    elif name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: modes and cluster sizes
+        keys = [lambda ng: (lambda s: (s.mode, s.cluster))(
+            cuda_cic.cluster_launch(name, n, ng, sms))]
     else:
         def key(kernel):
             extra = (lambda ng: 4 * (ng + 27)) if name == "explicit_domain_cycle" else (

@@ -79,12 +79,53 @@ def test_double_pass_and_finalize_match_plain(cuda_device, name, ng):
     ref = getattr(cuda_cic, f"{name}_plain")(e.cpu(), ps.cpu(), p0.cpu(), v0.cpu(), ng, **kw)
     torch.cuda.synchronize()
     assert cuda_cic.LAUNCHES[f"{name}_f64"] == 1 and cuda_cic.LAUNCHES[name] == 0
-    mode = cuda_cic.sweep_launch(name, N, ng, 132, item=8).mode
-    assert cuda_cic.LARGE_LAUNCHES.get(f"{name}_f64 global", 0) == (mode == "global")
+    if name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: cluster_launch's mode
+        mode = cuda_cic.cluster_launch(name, N, ng, 132, item=8).mode
+    else:
+        mode = cuda_cic.sweep_launch(name, N, ng, 132, item=8).mode
+    assert cuda_cic.LARGE_LAUNCHES.get(f"{name}_f64 {mode}", 0) == (mode != "shared")
     assert all(t.dtype == torch.float64 for t in got if t.dim() == 1)
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
     if name != "picard_finalize_nodep":
         assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
+    if name == "picard_iteration_shared":
+        assert int(got[3]) == int(ref[3])
+
+
+# the cluster mode of rows 1 and 2 in double, forced at grids whose
+# slices cut the rows' node pairs: C = 2 at 40,000, 4 at 65,536 and
+# 100,003 (a shorter last slice), 16 (a non-portable cluster) at 262,144
+CLUSTER_NGS = [40_000, 65_536, 100_003, 262_144]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", CLUSTER_NGS)
+@pytest.mark.parametrize("name", ["picard_iteration", "picard_iteration_shared"])
+def test_double_cluster_mode_matches_plain(cuda_device, monkeypatch, name, ng):
+    """Rows 1 and 2's double kernels forced into the cluster mode at a
+    ragged n = 4097 with rows astride the slices' seams (r S - 1, r S) and
+    the grid's (ng - 1, 0): ph and v1 bit-equal to the float64 plain
+    version, jh within 16 n eps64 of its largest node, the clamp count
+    equal, one cluster-mode launch of the double kernel."""
+    import functools
+
+    e, ps, p0, v0 = _inputs(ng, cuda_device)
+    c = cuda_cic.cluster_size(name, ng, 8)
+    s = -(-ng // c)
+    at = torch.tensor([x - 1 + f for x in [r * s for r in range(1, c)] + [ng]
+                       for f in (0.25, 0.75)], dtype=torch.float64, device=cuda_device)
+    for t in (ps, p0):
+        t[6:6 + at.numel()] = at
+    monkeypatch.setattr(cuda_cic, "_pass_launch",
+                        functools.partial(cuda_cic._pass_launch, mode="cluster"))
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX, emit_v=True)
+    cuda_cic.reset_launch_counts()
+    got = getattr(cuda_cic, name)(e, ps, p0, v0, ng, **kw)
+    ref = getattr(cuda_cic, f"{name}_plain")(e.cpu(), ps.cpu(), p0.cpu(), v0.cpu(), ng, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"{name}_f64 cluster": 1}
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
     if name == "picard_iteration_shared":
         assert int(got[3]) == int(ref[3])
 

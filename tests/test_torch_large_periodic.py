@@ -102,16 +102,31 @@ def test_launches_up_to_the_old_ceilings_are_unchanged(kernel):
 @pytest.mark.parametrize("kernel", sorted(BEFORE))
 def test_large_modes_above_the_ceilings(kernel):
     """Above the old ceiling: the global mode on the old grid, no shared
-    memory asked for; the raise only above LARGE_MAX_NG, naming it."""
+    memory asked for; the raise only above LARGE_MAX_NG, naming it. Rows 1
+    and 2 launch through cuda_cic.cluster_launch, in the mode its
+    PASS_RULE names there: the cluster mode (whole clusters of 1,024
+    threads, a slice of shared memory a CTA), or on the old grid with no
+    shared memory the pair mode or the global one."""
     top = _ceiling_before(kernel)
     samples = sorted({top + 1, top + 2, 32_768, 57_856, 57_857, 65_536,
                       1 << 20, cuda_cic.LARGE_MAX_NG})
     for ng in samples:
         if ng <= top:
             continue
-        got = cuda_cic.sweep_launch(kernel, 10_000_000, ng, 132, _extra(kernel, ng))
+        want = "global"
+        if kernel in cuda_cic.CLUSTER_KERNELS:
+            want = cuda_cic.pass_mode(kernel, ng)
+            got = cuda_cic.cluster_launch(kernel, 10_000_000, ng, 132)
+            if want == "cluster":
+                c = cuda_cic.cluster_size(kernel, ng)
+                assert (got.mode, got.cluster, got.threads) == ("cluster", c, 1024), ng
+                assert got.blocks % c == 0 and got.smem == 4 * -(-ng // c)
+                continue
+            assert want in ("global", "pair")
+        else:
+            got = cuda_cic.sweep_launch(kernel, 10_000_000, ng, 132, _extra(kernel, ng))
         assert (got.blocks, got.threads) == (_blocks_before(10_000_000, 132), 256)
-        assert (got.mode, got.smem) == ("global", 0), ng
+        assert (got.mode, got.smem) == (want, 0), ng
     big = cuda_cic.LARGE_MAX_NG
     with pytest.raises(ValueError, match="LARGE_MAX_NG") as err:
         cuda_cic.sweep_launch(kernel, 1000, big + 1, 132, _extra(kernel, big + 1))
