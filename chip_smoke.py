@@ -157,7 +157,15 @@ Phases (any failure raises and the script exits non-zero):
    Newton family
    has none below 2^27 rows: boltzmann_dirichlet and boltzmann_dn on
    their large path (above 1,024 rows) at 1,025, 4,096, 16,384 and
-   262,144 rows (8 iterations, tol 0) and tridiag3_chain at c = 1,025 and
+   262,144 rows (8 iterations, tol 0), in float32 and float64, each in
+   both its modes forced ('single', the one-CTA kernels, and 'cluster',
+   the thread-block cluster; each against its own mode's plain version,
+   one launch of the large path a call in that mode, equal iteration
+   counts, the cluster mode's shared bytes as the kernel counts them;
+   timed in float64 at 16,384; beside the mode 'single' at 16,384 and
+   262,144 rows, and 16,384 in float64, its latency floor, the split's
+   cut (c) of tools/resident_split.py, the PCR and barriers alone, us a
+   further iteration), and tridiag3_chain at c = 1,025 and
    16,384 with all four (first, last) ends, against their plain versions
    within TOL_CHAIN of the largest |x|, one launch of the large path a
    call; timed at 4,096, 16,384 and 262,144 (and the D-N row's 8,000):
@@ -330,7 +338,11 @@ Phases (any failure raises and the script exits non-zero):
    the position limit the larger of a particle's start and end), and both
    against a float64 step from the same state (the Newton loop by scipy's
    banded LU) at the same position limits; the worst particles of phase
-   14's own position test printed. The
+   14's own position test printed. The configs[3] load at 16,384 and the
+   D-N row at 8,000 again in each mode of the large Newton path in turns
+   ('single', 'cluster', 'cluster', 'single'): ms/step, Newton iterations
+   a step, steps at maxiter, the largest residual, every launch in the
+   forced mode, the physics checks. The
    chain solve at c = 16,384 on one rank under sync debug mode 'error'.
    Then pic_iead_dd at ng = 32,768 on two gloo ranks on the card (c =
    16,384 a slab), 10 steps with solver 'distributed' (one
@@ -478,10 +490,11 @@ Phases (any failure raises and the script exits non-zero):
    configs[3] row (1,200 steps; phi_max / phi_f in 0.6-1.4, the
    population kept, its checks), the carried, D-N and GC rows
    (MAG64_ROW_STEPS each). Then phase 39 and 40's configs[3] loads at ng
-   16,384 and 65,536, float32 and float64 in turns: ms/step in windows,
-   Newton iterations a step, and one step of each dtype from one state
-   against a float64 step on the CPU (_step64; the float64 route held to
-   phase 14's position limit); the D-N row at ng 8,000 in float64. It
+   16,384 and 65,536, float32 and float64 (each mode of the large Newton
+   path forced) in turns: ms/step in windows, Newton iterations a step,
+   and one step of each dtype from one state against a float64 step on
+   the CPU (_step64; the float64 route held to phase 14's position
+   limit); the D-N row at ng 8,000 in float64 in each mode in turns. It
    fails if a double kernel never launched on its path.
 45. explicit float64 — the explicit engine's float64 state on its double
    kernels (ROADMAP item 19c): the one-kernel cycle (row 13) and the
@@ -745,6 +758,10 @@ REPLACES = {
     "boltzmann_dirichlet_large":
         "pypic_tpu/ops/pallas_newton.py:256 boltzmann_dirichlet_pallas",
     "boltzmann_dn_large": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
+    # the large path's cluster mode (its own entry points)
+    "boltzmann_dirichlet_cluster":
+        "pypic_tpu/ops/pallas_newton.py:256 boltzmann_dirichlet_pallas",
+    "boltzmann_dn_cluster": "pypic_tpu/ops/pallas_newton.py:213 boltzmann_dn_pallas",
     "picard_iteration_ext": "pypic_tpu/ops/pallas_cic.py:1847",
     "picard_finalize_ext": "pypic_tpu/ops/pallas_cic.py:1987",
     "picard_finalize_ext_nodep": "pypic_tpu/ops/pallas_cic.py:2019",
@@ -1114,9 +1131,13 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     from pypic_tpu_torch.ops import _build, cuda_cic
+    from pypic_tpu_torch.tools import resident_split as rs
 
     t0 = time.perf_counter()
+    # phase 24's latency floor library compiles beside the package's
+    floor = rs.start_newton_floor_build()
     _, info = _build.load()
+    _NEWTON_FLOOR_LIB["cut (c)"] = rs.newton_floor_library(floor)
     log(f"[build] {info.path.name} built in {info.seconds:.2f} s "
         f"(load {time.perf_counter() - t0:.2f} s)")
     for line in info.log.splitlines():
@@ -3528,11 +3549,11 @@ LARGE_MAIN = {"boltzmann_dirichlet_large": 16_384, "boltzmann_dn_large": 8000,
 DENSE_MAX_C = 4096
 
 
-def _newton_large_solve(name: str, rows: int, dev):
+def _newton_large_solve(name: str, rows: int, dev, dtype=torch.float32):
     """(solve, plain): the large path's wrapper and its plain version on
-    phase 24's load at ``rows``, each taking the tol and maxiter
-    keywords. D-D: rho = e n, n0 = 1e17, cold start; D-N: n, n0 = 0.9e17,
-    warm start 0."""
+    phase 24's load at ``rows`` in ``dtype``, each taking the tol and
+    maxiter keywords. D-D: rho = e n, n0 = 1e17, cold start; D-N: n, n0 =
+    0.9e17, warm start 0."""
     import numpy as np
 
     from pypic_tpu_torch.constants import E_CHARGE
@@ -3540,17 +3561,18 @@ def _newton_large_solve(name: str, rows: int, dev):
 
     rng = np.random.default_rng(11 + rows)
     dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(rows))).clip(1e15)
+    npdt = np.float64 if dtype == torch.float64 else np.float32
     te, dx = 11600.0 * 10.0, 2e-5
     if name == "boltzmann_dirichlet_large":
-        rho = torch.from_numpy((E_CHARGE * dens).astype(np.float32)).to(dev)
+        rho = torch.from_numpy((E_CHARGE * dens).astype(npdt)).to(dev)
 
         def solve(fn, **kw):
             return fn(rho, 1e17, te, dx, **kw)
 
         return (functools.partial(solve, cuda_newton.boltzmann_dirichlet),
                 functools.partial(solve, cuda_newton.boltzmann_dirichlet_plain))
-    n = torch.from_numpy(dens.astype(np.float32)).to(dev)
-    phi0 = torch.zeros(rows, dtype=torch.float32, device=dev)
+    n = torch.from_numpy(dens.astype(npdt)).to(dev)
+    phi0 = torch.zeros(rows, dtype=dtype, device=dev)
 
     def solve_dn(fn, **kw):
         return fn(n, 0.9e17, te, dx, phi0, **kw)
@@ -3559,66 +3581,181 @@ def _newton_large_solve(name: str, rows: int, dev):
             functools.partial(solve_dn, cuda_newton.boltzmann_dn_plain))
 
 
-def newton_large_times(dev) -> dict:
-    """boltzmann_dirichlet and boltzmann_dn on their large path at
-    NEWTON_LARGE_ROWS and the main path's shape, LARGE_SOLVE iterations,
-    against the plain version: one launch of the large path a call (none
-    of the small), equal iteration counts, phi within TOL_CHAIN of the
-    largest |phi|; at NEWTON_LARGE_TIMED and the main shape timed
-    (device_ms) with the long solve's marginal us an iteration, the plain
-    version's ms and the bound. Returns {name: {rows: record}}."""
+def _newton_modes() -> dict:
+    """The Newton large path's launches by mode since the last reset
+    (cuda_cic.LARGE_LAUNCHES' "boltzmann_... mode" counts)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    return {k: v for k, v in K.LARGE_LAUNCHES.items() if k.startswith("boltzmann_")}
+
+
+@contextlib.contextmanager
+def _forced_newton_mode(mode: str):
+    """The Newton solves' large path in ``mode`` ('single' or 'cluster')
+    whatever cuda_newton's rule takes (large_shape's shape for that mode,
+    the rule's CTAs a cluster); a caller that names its mode (the chain:
+    'single') keeps it."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    real = cuda_newton.large_shape
+
+    def forced(rows, item=4, mode_=None, cluster=None, threads=None, dn=True):
+        return real(rows, item, mode if mode_ is None else mode_, cluster, threads, dn)
+
+    cuda_newton.large_shape = forced
+    try:
+        yield
+    finally:
+        cuda_newton.large_shape = real
+
+
+# phase 24's forced pairs: each mode of the large path at NEWTON_LARGE_ROWS
+# in both dtypes (the modes' order alternating from one row count to the
+# next), each against its own mode's plain version; timed at
+# NEWTON_LARGE_TIMED and the main shape (float64 at NEWTON_LARGE_TIMED_F64)
+NEWTON_LARGE_MODES = ("single", "cluster")
+NEWTON_LARGE_TIMED_F64 = (16_384,)
+# the one-CTA mode's latency floor (tools/resident_split.py cut (c), the
+# PCR and barriers alone) beside its forced pairs at these rows (float64
+# at NEWTON_LARGE_TIMED_F64); its library is built in phase_build
+NEWTON_FLOOR_ROWS = (16_384, 262_144)
+_NEWTON_FLOOR_LIB = {}
+
+
+def _newton_large_case(name: str, rows: int, dtype, mode: str, timed: bool, dev) -> dict:
+    """One forced mode of the large path ``name`` at ``rows`` in ``dtype``
+    against that mode's plain version: one launch of the large path a call
+    in that mode (none of the small path), equal iteration counts, phi
+    within TOL_CHAIN of the largest |phi|; ``timed``: the 8- and
+    64-iteration solves' device time, the marginal us a further
+    iteration, the plain version's ms and the bound. The cluster mode's
+    shared bytes are checked against the kernel's own count
+    (pypic_newton_cluster_smem)."""
+    from pypic_tpu_torch.ops import _build
     from pypic_tpu_torch.ops import cuda_cic as K
     from pypic_tpu_torch.ops import cuda_newton
 
+    small = name[:-len("_large")]
+    f64 = dtype == torch.float64
+    key = name + ("_f64" if f64 else "")
+    item = 8 if f64 else 4
+    shape = cuda_newton.large_shape(rows, item, mode, dn=small == "boltzmann_dn")
+    if mode == "cluster":
+        got_smem = _build.library().pypic_newton_cluster_smem(
+            int(small == "boltzmann_dn"), int(f64), shape.cluster, shape.threads, shape.k,
+            int(shape.shared))
+        if got_smem != shape.smem:
+            raise AssertionError(f"{key} {shape}: the kernel counts {got_smem} B of "
+                                 f"shared memory, cluster_smem {shape.smem}")
+    solve, plain = _newton_large_solve(name, rows, dev, dtype)
+    with _forced_newton_mode(mode):
+        K.reset_launch_counts()
+        got = solve(**LARGE_SOLVE)
+        torch.cuda.synchronize()
+        launched = _newton_modes()
+        if (K.LAUNCHES[key] != 1 or launched != {f"{key} {mode}": 1}
+                or K.LAUNCHES[small + ("_f64" if f64 else "")]):
+            raise AssertionError(f"{key} at {rows} rows, {mode}: launches "
+                                 f"{ {k: v for k, v in K.LAUNCHES.items() if v} }, {launched}")
+        ref = plain(**LARGE_SOLVE)
+        err, rel = rel_err(ref.phi, got.phi)
+        its = (int(got.iterations), int(ref.iterations))
+        log(f"[size limits] {key} at {rows} rows, {mode} (C = {shape.cluster}, "
+            f"{shape.threads} threads, k = {shape.k}, shared {shape.shared}), {its[0]} "
+            f"iterations (plain {its[1]}): max |err| {err:.3e}, {rel:.3e} of max |phi| "
+            f"(tol {TOL_CHAIN})")
+        if not (rel <= TOL_CHAIN and its[0] == its[1] == LARGE_SOLVE["maxiter"]
+                and bool(torch.isfinite(got.phi).all())):
+            raise AssertionError(f"{key} at {rows} rows, {mode}: {rel} of max |phi|, "
+                                 f"iterations {its}")
+        rec = dict(n=rows, mode=mode, cluster=shape.cluster, k=shape.k,
+                   threads=shape.threads, smem=shape.smem, shared=shape.shared,
+                   max_abs_err=err, rel_err=rel)
+        if timed:
+            iters = LARGE_SOLVE["maxiter"]
+            long_iters = LARGE_SOLVE_LONG["maxiter"]
+            ms = device_ms(lambda: solve(**LARGE_SOLVE), calls=10)
+            long_ms = device_ms(lambda: solve(**LARGE_SOLVE_LONG), calls=5)
+            marginal = (long_ms - ms) / (long_iters - iters)
+            plain_ms = cuda_ms(lambda: plain(**LARGE_SOLVE), reps=3, calls=1)
+            b, by = bound(small, rows, iters, f64=f64)
+            rec.update(ms=ms, iterations=iters, us_per_iteration=ms * 1e3 / iters,
+                       marginal_us_per_iteration=marginal * 1e3,
+                       fixed_us=(ms - iters * marginal) * 1e3,
+                       long_solve=dict(iterations=long_iters, ms=long_ms),
+                       plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+            log(f"[size limits] {key} at {rows} rows, {mode}: {ms:.4f} ms for {iters} "
+                f"iterations ({ms * 1e3 / iters:.2f} us an iteration; long solve "
+                f"{long_ms:.4f} ms for {long_iters}: {marginal * 1e3:.2f} us a "
+                f"further iteration, fixed {rec['fixed_us']:.2f} us), plain "
+                f"{plain_ms:.3f} ms, bound {b:.2e} ms ({by}); no library call "
+                "solves a tridiagonal system")
+    del solve, plain, got, ref
+    return rec
+
+
+def newton_large_times(dev) -> dict:
+    """boltzmann_dirichlet and boltzmann_dn on their large path at
+    NEWTON_LARGE_ROWS and the main path's shape, in float32 and float64,
+    each mode of NEWTON_LARGE_MODES forced (_newton_large_case: LARGE_SOLVE
+    iterations against that mode's plain version; timed at
+    NEWTON_LARGE_TIMED and the main shape, float64 at
+    NEWTON_LARGE_TIMED_F64). Returns {name: {rows: record}}: the record of
+    the mode the rule takes, every mode's beside it ("modes"), the float64
+    forced pairs under "float64"; at NEWTON_FLOOR_ROWS (float64:
+    NEWTON_LARGE_TIMED_F64) the mode 'single''s record carries its latency
+    floor, us a further iteration of the split's cut (c)
+    ("latency_floor_us")."""
+    from pypic_tpu_torch.ops import _build
+    from pypic_tpu_torch.ops import cuda_newton
+    from pypic_tpu_torch.tools import resident_split as rs
+
+    # the cluster kernels' static shared memory, as large_shape counts it
+    static = {k: v for k, v in _build.static_smem(_build.load()[1].log).items()
+              if k[0] == "newton_cluster_kernel"}
+    log(f"[size limits] the cluster kernels' static shared bytes {static}")
+    if len(static) != 8 or set(static.values()) != {cuda_newton.CLUSTER_STATIC_BYTES}:
+        raise AssertionError(f"the cluster kernels' static shared bytes {static}, not "
+                             f"{cuda_newton.CLUSTER_STATIC_BYTES} for each of 8")
     out = {}
     for name in ("boltzmann_dirichlet_large", "boltzmann_dn_large"):
-        small = name[:-len("_large")]
         out[name] = {}
-        for rows in sorted(set(NEWTON_LARGE_ROWS) | {LARGE_MAIN[name]}):
-            solve, plain = _newton_large_solve(name, rows, dev)
-            before = dict(K.LAUNCHES)
-            got = solve(**LARGE_SOLVE)
-            torch.cuda.synchronize()
-            if (K.LAUNCHES[name] != before[name] + 1
-                    or K.LAUNCHES[small] != before[small]):
-                raise AssertionError(f"{name} at {rows} rows: launches "
-                                     f"{K.LAUNCHES[name] - before[name]} of the large "
-                                     f"path, {K.LAUNCHES[small] - before[small]} of "
-                                     "the small")
-            ref = plain(**LARGE_SOLVE)
-            err, rel = rel_err(ref.phi, got.phi)
-            its = (int(got.iterations), int(ref.iterations))
-            k, threads = cuda_newton.large_split(rows)
-            log(f"[size limits] {name} at {rows} rows (k = {k}, {threads} "
-                f"threads), {its[0]} iterations (plain {its[1]}): max |err| "
-                f"{err:.3e}, {rel:.3e} of max |phi| (tol {TOL_CHAIN})")
-            if not (rel <= TOL_CHAIN and its[0] == its[1] == LARGE_SOLVE["maxiter"]
-                    and bool(torch.isfinite(got.phi).all())):
-                raise AssertionError(f"{name} at {rows} rows: {rel} of max |phi|, "
-                                     f"iterations {its}")
-            rec = dict(n=rows, k=k, threads=threads, max_abs_err=err, rel_err=rel)
-            if rows in NEWTON_LARGE_TIMED or rows == LARGE_MAIN[name]:
-                iters = LARGE_SOLVE["maxiter"]
-                long_iters = LARGE_SOLVE_LONG["maxiter"]
-                ms = device_ms(lambda: solve(**LARGE_SOLVE), calls=10)
-                long_ms = device_ms(lambda: solve(**LARGE_SOLVE_LONG), calls=5)
-                marginal = (long_ms - ms) / (long_iters - iters)
-                plain_ms = cuda_ms(lambda: plain(**LARGE_SOLVE), reps=3, calls=1)
-                b, by = bound(small, rows, iters)
-                rec.update(ms=ms, iterations=iters, us_per_iteration=ms * 1e3 / iters,
-                           marginal_us_per_iteration=marginal * 1e3,
-                           fixed_us=(ms - iters * marginal) * 1e3,
-                           long_solve=dict(iterations=long_iters, ms=long_ms),
-                           plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                           library_ms=None)
-                log(f"[size limits] {name} at {rows} rows: {ms:.4f} ms for {iters} "
-                    f"iterations ({ms * 1e3 / iters:.2f} us an iteration; long solve "
-                    f"{long_ms:.4f} ms for {long_iters}: {marginal * 1e3:.2f} us a "
-                    f"further iteration, fixed {rec['fixed_us']:.2f} us), plain "
-                    f"{plain_ms:.3f} ms, bound {b:.2e} ms ({by}); no library call "
-                    "solves a tridiagonal system")
-            out[name][rows] = rec
-            del solve, plain, got, ref
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            item = 8 if f64 else 4
+            timed_rows = (NEWTON_LARGE_TIMED_F64 if f64 else
+                          tuple(NEWTON_LARGE_TIMED) + (LARGE_MAIN[name],))
+            for i, rows in enumerate(sorted(set(NEWTON_LARGE_ROWS) | {LARGE_MAIN[name]})):
+                modes = NEWTON_LARGE_MODES[::1 if i % 2 == 0 else -1]
+                by_mode = {mode: _newton_large_case(name, rows, dtype, mode,
+                                                    rows in timed_rows, dev)
+                           for mode in modes}
+                torch.cuda.empty_cache()
+                rule = cuda_newton.large_mode(rows, item)
+                if f64:  # after float32's record at these rows
+                    out[name][rows]["float64"] = dict(by_mode[rule], modes=by_mode)
+                else:
+                    out[name][rows] = dict(by_mode[rule], modes=by_mode)
+                if "ms" in by_mode["single"]:
+                    log(f"[size limits] {name}{'_f64' if f64 else ''} at {rows} rows: us a "
+                        "further iteration " + ", ".join(
+                            f"{m} {r['marginal_us_per_iteration']:.2f}"
+                            for m, r in by_mode.items()) + f"; the rule takes {rule}")
+    cases = [(name == "boltzmann_dn_large", rows, dtype)
+             for name in out for dtype, rows_of in ((torch.float32, NEWTON_FLOOR_ROWS),
+                                                    (torch.float64, NEWTON_LARGE_TIMED_F64))
+             for rows in rows_of]
+    floors = rs.newton_floor_us(_NEWTON_FLOOR_LIB["cut (c)"], cases, dev)
+    for (dn, rows, dtype), us in floors.items():
+        name = "boltzmann_dn_large" if dn else "boltzmann_dirichlet_large"
+        rec = out[name][rows]
+        rec = rec["float64"] if dtype == torch.float64 else rec
+        rec["modes"]["single"]["latency_floor_us"] = us
+        log(f"[size limits] {name}{'_f64' if dtype == torch.float64 else ''} at {rows} "
+            f"rows: the one-CTA latency floor (split cut (c), the PCR and barriers alone) "
+            f"{us:.2f} us a further iteration; single "
+            f"{rec['modes']['single']['marginal_us_per_iteration']:.2f}, cluster "
+            f"{rec['modes']['cluster']['marginal_us_per_iteration']:.2f}")
     return out
 
 
@@ -6587,6 +6724,76 @@ def _large_grid_check(kind: str, ng: int, dev, steps: int = LARGE_CHECK_STEPS,
                 newton_iters_cpu_gpu_f64=iters, positions=pos)
 
 
+# phase 39's loads on both modes of the Newton large path in turns: the
+# parent's one-CTA mode 'single', the cluster mode, the cluster mode,
+# 'single' (_forced_newton_mode), each LARGE_GRID_STEPS steps after
+# LARGE_GRID_WARMUP through tools/magnetized.run_row
+LARGE_MODE_TURNS = ("single", "cluster", "cluster", "single")
+LARGE_MODE_RUNS = ("pic_iead ng 16384", "dn ng 8000")
+
+
+def _newton_mode_turns(dev) -> tuple[dict, list]:
+    """The LARGE_MODE_RUNS loads in each mode of LARGE_MODE_TURNS: ms/step,
+    Newton iterations a step (mean, max), steps at maxiter, the largest
+    residual, each step's launches of the large path all in the forced
+    mode, and the phase's physics checks (the configs[3] load's population
+    invariant and phi_max / phi_f, the D-N row's flux cap and its wall
+    and far-end phi; finite phi and positions). Returns ({label: [run
+    records]}, problems)."""
+    from pypic_tpu_torch.engines import magnetized
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import magnetized as row
+
+    out, problems = {}, []
+    newton = {"iead": "boltzmann_dirichlet_large", "dn": "boltzmann_dn_large"}
+    for label in LARGE_MODE_RUNS:
+        kind, ng = LARGE_GRID_RUNS[label]
+        name = newton[kind]
+        out[label] = []
+        for mode in LARGE_MODE_TURNS:
+            with _forced_newton_mode(mode):
+                res, cfg, fin, m = row.run_row(
+                    dev, steps=LARGE_GRID_STEPS, warmup=LARGE_GRID_WARMUP, row=kind,
+                    n_per_species=LARGE_GRID_N_PER_SPECIES, n=LARGE_GRID_DN_N, ng=ng)
+            launched = _newton_modes()
+            its, resid = m.newton_iters.cpu(), m.newton_residual.cpu()
+            maxiter = cfg.newton_maxiter if kind == "iead" else magnetized.DN_MAXITER
+            rec = dict(mode=mode, n=res["n"], ng=ng, steps=LARGE_GRID_STEPS,
+                       ms_per_step=res["us_per_step"] / 1e3,
+                       newton_mean=float(its.float().mean()), newton_max=int(its.max()),
+                       steps_at_maxiter=int((its >= maxiter).sum()),
+                       residual_max=float(resid.max()), launches_by_mode=launched)
+            if kind == "iead":
+                rec["phi_max_over_phi_f"] = res["phi_max_over_phi_f"]
+                bad = row.population_problems(m)
+            else:
+                bad = ([f"flux cap {res['react_max']}"]
+                       if res["react_max"] > cfg.flux_limit else [])
+                rec.update(phi_wall=res["phi_wall"], phi_far=res["phi_far"])
+            if not (bool(torch.isfinite(m.phi).all()) and bool(torch.isfinite(fin.p).all())):
+                bad.append("non-finite phi or positions")
+            if launched != {f"{name} {mode}": LARGE_GRID_STEPS}:
+                bad.append(f"launches of the large path {launched}, not {LARGE_GRID_STEPS} "
+                           f"in the mode {mode}")
+            log(f"[large grids] {label} in the mode {mode}: {rec['ms_per_step']:.3f} ms/step, "
+                f"Newton iterations a step mean {rec['newton_mean']:.2f}, max "
+                f"{rec['newton_max']} ({rec['steps_at_maxiter']} steps at maxiter), largest "
+                f"residual {rec['residual_max']:.3e}"
+                + (f", phi_max / phi_f {rec['phi_max_over_phi_f']:.4f}" if kind == "iead" else
+                   f", phi wall {rec['phi_wall']:.4e}, far {rec['phi_far']:.4e}")
+                + f"; launches {launched}; problems {bad}")
+            problems += [f"{label} {mode}: {b}" for b in bad]
+            out[label].append(rec)
+            del fin, m
+            torch.cuda.empty_cache()
+        ms = {mode: [r["ms_per_step"] for r in out[label] if r["mode"] == mode]
+              for mode in NEWTON_LARGE_MODES}
+        log(f"[large grids] {label}, the modes in turns {LARGE_MODE_TURNS}: ms/step "
+            + "; ".join(f"{mode} " + ", ".join(f"{v:.3f}" for v in vals)
+                        for mode, vals in ms.items()))
+    return out, problems
+
+
 def phase_large_grids(dev) -> dict:
     """Phase 39 (module docstring). Returns each run's figures and the
     large kernels' launches on this path."""
@@ -6607,6 +6814,7 @@ def phase_large_grids(dev) -> dict:
             dev, steps=LARGE_GRID_STEPS, warmup=LARGE_GRID_WARMUP, row=kind,
             n_per_species=LARGE_GRID_N_PER_SPECIES, n=LARGE_GRID_DN_N, ng=ng)
         thomas = dict(magnetized.THOMAS_SOLVES)
+        by_mode = dict(K.LARGE_LAUNCHES)
         lps = {k: v / LARGE_GRID_STEPS for k, v in out["launches"].items()}
         name = newton[kind]
         its = m.newton_iters.cpu()
@@ -6618,7 +6826,7 @@ def phase_large_grids(dev) -> dict:
                    steps_at_maxiter=int((its >= cfg.newton_maxiter if kind == "iead"
                                          else its >= magnetized.DN_MAXITER).sum()),
                    residual_max=float(resid.max()), launches_per_step=lps,
-                   host_syncs_per_step=0.0, thomas_solves=thomas)
+                   launches_by_mode=by_mode, host_syncs_per_step=0.0, thomas_solves=thomas)
         if kind == "iead":
             rec["phi_max_over_phi_f"] = out["phi_max_over_phi_f"]
             bad = row.population_problems(m)
@@ -6645,10 +6853,13 @@ def phase_large_grids(dev) -> dict:
         problems += [f"{label}: {b}" for b in bad]
         if label == "pic_iead ng 16384" or kind == "dn":
             launches[f"{name}_large"] = out["launches"].get(f"{name}_large", 0)
+            launches[f"{name}_cluster"] = by_mode.get(f"{name}_large cluster", 0)
         del fin, m
         torch.cuda.empty_cache()
         rec["check"] = _large_grid_check(kind, ng, dev)
         res["runs"][label] = rec
+    res["mode_turns"], bad = _newton_mode_turns(dev)
+    problems += bad
 
     # the chain solve at a slab's rows on one group-less rank: no interface,
     # the launch alone, under sync debug mode 'error'
@@ -9563,31 +9774,47 @@ def _mag64_large(dev) -> tuple[dict, dict, list]:
         pre = row.preset("iead", dev, ng=ng)
         cfg = pre.config
         step = magnetized.make_step(cfg)
-        states = {"float32": pre.state,
-                  "float64": row.cast_state(pre.state, torch.float64)}
-        del pre
+        # float32 on the rule's mode; float64 on each mode of the large
+        # Newton path (_forced_newton_mode), the modes' order alternating
+        # from one window to the next
+        f64 = row.cast_state(pre.state, torch.float64)
+        states = {"float32": pre.state, **{f"float64 {mode}": f64
+                                           for mode in NEWTON_LARGE_MODES}}
+        forced = {label: (label.split()[1] if " " in label else None) for label in states}
+        del pre, f64
         for label in states:
-            states[label], _ = run(step, states[label], MAG64_WARMUP)
+            with (_forced_newton_mode(forced[label]) if forced[label]
+                  else contextlib.nullcontext()):
+                states[label], _ = run(step, states[label], MAG64_WARMUP)
         torch.cuda.synchronize()
         windows = {label: [] for label in states}
         iters = {label: [] for label in states}
-        for _ in range(MAG64_WINDOWS):
-            for label in states:
+        for w in range(MAG64_WINDOWS):
+            order = list(states)
+            order[1:] = order[1:] if w % 2 == 0 else order[:0:-1]
+            for label in order:
                 K.reset_launch_counts()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    t0 = time.perf_counter()
-                    states[label], m = run(step, states[label], MAG64_WINDOW_STEPS)
-                    torch.cuda.synchronize()
+                    with (_forced_newton_mode(forced[label]) if forced[label]
+                          else contextlib.nullcontext()):
+                        t0 = time.perf_counter()
+                        states[label], m = run(step, states[label], MAG64_WINDOW_STEPS)
+                        torch.cuda.synchronize()
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 windows[label].append((time.perf_counter() - t0) * 1e3 / MAG64_WINDOW_STEPS)
                 iters[label] += m.newton_iters.tolist()
-                if label == "float64":
+                if forced[label]:
                     launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+                    launches.update(dict(K.LARGE_LAUNCHES))
+                    want = {f"boltzmann_dirichlet_large_f64 {forced[label]}":
+                            MAG64_WINDOW_STEPS}
                     if any(not k.endswith("_f64") and k not in MAG64_FLOAT32_KERNELS
-                           for k, v in K.LAUNCHES.items() if v):
-                        problems.append(f"ng {ng} float64: launches {dict(K.LAUNCHES)}")
+                           for k, v in K.LAUNCHES.items() if v) or _newton_modes() != want:
+                        problems.append(f"ng {ng} {label}: launches "
+                                        f"{ {k: v for k, v in K.LAUNCHES.items() if v} }, "
+                                        f"{dict(K.LARGE_LAUNCHES)}")
         # one step of each dtype from the float32 state, against float64
         d = interop.magnetized_state_to_numpy(states["float32"])
         r = _step64("iead", cfg, d)
@@ -9618,13 +9845,12 @@ def _mag64_large(dev) -> tuple[dict, dict, list]:
                    position_gap_to_float64_step=gaps)
         out[f"ng {ng}"] = rec
         log(f"[magnetized float64] configs[3] load at ng {ng}, in turns of "
-            f"{MAG64_WINDOW_STEPS} steps: ms/step float32 "
-            + ", ".join(f"{w:.4f}" for w in windows["float32"]) + ", float64 "
-            + ", ".join(f"{w:.4f}" for w in windows["float64"])
-            + f"; Newton iterations a step (mean, max, at maxiter) float32 "
-            f"({rec['newton_mean']['float32']:.2f}, {rec['newton_max']['float32']}, "
-            f"{rec['at_maxiter']['float32']}), float64 ({rec['newton_mean']['float64']:.2f}, "
-            f"{rec['newton_max']['float64']}, {rec['at_maxiter']['float64']}); one step "
+            f"{MAG64_WINDOW_STEPS} steps: ms/step " + "; ".join(
+                f"{label} " + ", ".join(f"{w:.4f}" for w in windows[label])
+                for label in states)
+            + "; Newton iterations a step (mean, max, at maxiter) " + "; ".join(
+                f"{label} ({rec['newton_mean'][label]:.2f}, {rec['newton_max'][label]}, "
+                f"{rec['at_maxiter'][label]})" for label in states) + "; one step "
             f"against a float64 step ({r['newton_iters']} iterations): float32 "
             f"{gaps['float32']['limit_share']:.3e} of phase 14's limit "
             f"({gaps['float32']['cells']:.3e} cells), float64 "
@@ -9632,17 +9858,26 @@ def _mag64_large(dev) -> tuple[dict, dict, list]:
         del states, step, r, d
         torch.cuda.empty_cache()
     n, ng, steps = MAG64_DN_LARGE
-    K.reset_launch_counts()
-    res, cfg, fin, m = row.run_row(dev, steps=steps, row="dn", n=n, ng=ng,
-                                   dtype=torch.float64)
-    launches.update({k: v for k, v in K.LAUNCHES.items() if v})
-    out["dn ng 8000"] = {k: res[k] for k in ("us_per_step", "newton_mean", "newton_max")}
-    log(f"[magnetized float64] D-N row at n = {n}, ng = {ng}, float64: "
-        f"{res['us_per_step']:.1f} us/step, Newton {res['newton_mean']:.2f} a step; "
-        f"launches {res['launches']}")
-    if fin.p.dtype != torch.float64 or not res["launches"].get("boltzmann_dn_large_f64") or any(
-            not k.endswith("_f64") and k not in MAG64_FLOAT32_KERNELS for k in res["launches"]):
-        problems.append(f"D-N at {ng} float64: {fin.p.dtype}, {res['launches']}")
+    out["dn ng 8000"] = {}
+    for mode in LARGE_MODE_TURNS:
+        K.reset_launch_counts()
+        with _forced_newton_mode(mode):
+            res, cfg, fin, m = row.run_row(dev, steps=steps, row="dn", n=n, ng=ng,
+                                           dtype=torch.float64)
+        launches.update({k: v for k, v in K.LAUNCHES.items() if v})
+        launches.update(dict(K.LARGE_LAUNCHES))
+        out["dn ng 8000"].setdefault(mode, []).append(
+            {k: res[k] for k in ("us_per_step", "newton_mean", "newton_max")})
+        log(f"[magnetized float64] D-N row at n = {n}, ng = {ng}, float64, the mode {mode}: "
+            f"{res['us_per_step']:.1f} us/step, Newton {res['newton_mean']:.2f} a step; "
+            f"launches {res['launches']}, {dict(K.LARGE_LAUNCHES)}")
+        if (fin.p.dtype != torch.float64
+                or _newton_modes() != {f"boltzmann_dn_large_f64 {mode}": steps}
+                or any(not k.endswith("_f64") and k not in MAG64_FLOAT32_KERNELS
+                       for k in res["launches"])):
+            problems.append(f"D-N at {ng} float64 {mode}: {fin.p.dtype}, {res['launches']}, "
+                            f"{dict(K.LARGE_LAUNCHES)}")
+        del fin, m
     return out, dict(launches), problems
 
 
@@ -9726,7 +9961,10 @@ def phase_magnetized_float64(dev) -> dict:
             "boris_gather_push_deposit_f64", 0),
         "boltzmann_dn": rows["dn"]["launches"].get("boltzmann_dn_f64", 0),
         "boltzmann_dirichlet_large": large_launches.get("boltzmann_dirichlet_large_f64", 0),
-        "boltzmann_dn_large": large_launches.get("boltzmann_dn_large_f64", 0)}
+        "boltzmann_dn_large": large_launches.get("boltzmann_dn_large_f64", 0),
+        "boltzmann_dirichlet_cluster": large_launches.get(
+            "boltzmann_dirichlet_large_f64 cluster", 0),
+        "boltzmann_dn_cluster": large_launches.get("boltzmann_dn_large_f64 cluster", 0)}
     missing = [k for k, v in res["launches"].items() if not v]
     if missing:
         problems.append(f"double kernels never launched on their paths: {missing}")
@@ -10083,7 +10321,8 @@ def main() -> int:
     launches["explicit_domain_cycle"] = (
         cs["carrier"]["launches"]["explicit_domain_cycle"])
     # the large Newton paths: phase 39's runs (ng 16,384 and the D-N row)
-    for kname in ("boltzmann_dirichlet_large", "boltzmann_dn_large"):
+    for kname in ("boltzmann_dirichlet_large", "boltzmann_dn_large",
+                  "boltzmann_dirichlet_cluster", "boltzmann_dn_cluster"):
         launches[kname] = lg["launches"][kname]
     helper = dnk.pop("philox_uniforms")
     # rows 4, 7, 9 and 20 read deposit_times' median at their main shapes
@@ -10092,8 +10331,14 @@ def main() -> int:
     records = {**k, **ek, **ik, **mk, **shk, **dnk, **dk, **ck}
     # the large paths' records at the shape phase 39 gives them, every
     # shape of phase 24 beside it
+    # (the large path's record: the mode the rule takes, both modes'
+    # forced pairs beside it; the cluster entry points' own record: the
+    # cluster mode's, at every shape)
     for kname, by_rows in lim["newton_large"].items():
         records[kname] = dict(by_rows[LARGE_MAIN[kname]], shapes=by_rows)
+        records[kname.replace("_large", "_cluster")] = dict(
+            by_rows[LARGE_MAIN[kname]]["modes"]["cluster"],
+            shapes={rows: rec["modes"]["cluster"] for rows, rec in by_rows.items()})
     chain_large = lim["chain_large"]
     # the large modes of rows 4 (deposit_det), 7, 9 and 10: phase 40's
     # record at LARGE_KERNEL_MAIN with its other shapes, and the launches
@@ -10127,6 +10372,8 @@ def main() -> int:
                    boltzmann_dn="pypic_tpu_torch/csrc/newton.cu",
                    boltzmann_dirichlet_large="pypic_tpu_torch/csrc/newton.cu",
                    boltzmann_dn_large="pypic_tpu_torch/csrc/newton.cu",
+                   boltzmann_dirichlet_cluster="pypic_tpu_torch/csrc/newton.cu",
+                   boltzmann_dn_cluster="pypic_tpu_torch/csrc/newton.cu",
                    **{kname: "pypic_tpu_torch/csrc/domain.cu" for kname in dk},
                    **SOURCES_MAGNETIZED, **SOURCES_SHEATH, **SOURCES_CARRIED)
     log(f"[wall] total {sum(walls.values()):.1f} s")
@@ -10149,7 +10396,8 @@ def main() -> int:
             "ms_calls", "row_mix", "passes", "us_per_pass", "us_per_step",
             "at_max_n", "iterations", "us_per_iteration", "long_solve", "shapes",
             "issue_bound_ms", "own_sass_ms", "marginal_us_per_iteration",
-            "fixed_us", "k", "threads", "large_mode")
+            "fixed_us", "k", "threads", "large_mode", "mode", "cluster", "smem",
+            "shared", "modes", "float64")
             if key in records[kname]}}
         for kname in REPLACES
     ] + [
@@ -10211,7 +10459,23 @@ def main() -> int:
                           "library_ms", "n", "iterations", "us_per_iteration")},
            "dtype": "float64",
            "shapes": {rows: rec for rows, rec in m64["kernels"][kname].items()
-                      if rows > 1024}}
+                      if rows > 1024},
+           # phase 24's float64 forced pairs at 16,384 rows
+           "modes": lim["newton_large"][f"{kname}_large"][MAG64_LARGE_NEWTON_MAIN][
+               "float64"]["modes"]}
+          for kname in ("boltzmann_dirichlet", "boltzmann_dn")),
+        # the cluster mode's double entry points: phase 24's forced cluster
+        # mode at 16,384 rows (8 iterations), the launches of phase 44's
+        # float64 runs in the cluster mode (the rule's, and forced)
+        *({"name": f"{kname}_cluster_f64", "route": "cuda",
+           "source": "pypic_tpu_torch/csrc/newton.cu", "replaces": REPLACES[f"{kname}_large"],
+           "launches": m64["launches"][f"{kname}_cluster"],
+           **{key: lim["newton_large"][f"{kname}_large"][MAG64_LARGE_NEWTON_MAIN]["float64"][
+               "modes"]["cluster"].get(key) for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+               "iterations", "us_per_iteration", "marginal_us_per_iteration", "cluster",
+               "threads", "k", "shared")},
+           "dtype": "float64"}
           for kname in ("boltzmann_dirichlet", "boltzmann_dn")),
     ] + [
         # the explicit engine's double kernels (phase 45): row 13 at the

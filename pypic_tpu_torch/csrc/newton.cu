@@ -140,6 +140,51 @@
 // * Ceiling: cuda_newton.LARGE_MAX_ROWS (2^27 rows), where the int
 //   offsets into the (4 + R, rows) scratch would near 2^31.
 //
+// The large path's cluster mode (newton_cluster_kernel, the
+// `_cluster` entry points; the one-CTA kernels above are the mode
+// 'single'; cuda_newton.NEWTON_RULE picks the mode). The one-CTA loop is
+// serial in k on one of 132 SMs, its scratch in device memory. Here the
+// rows are spread over a thread-block cluster of C CTAs (2-16, a
+// non-portable size above 8, launched by cudaLaunchKernelEx), CTA r
+// holding the rows r T k .. (r + 1) T k - 1, thread t of it block t as
+// above (k = ceil(rows / (C T)) rows a thread, cuda_newton.large_shape).
+// * A CTA's rows' phi, dx^2 c2, a', c' and d' sit in its shared memory
+//   where they fit beside the PCR buffers (cluster_smem), else in its own
+//   slice of a device-memory scratch. The sweeps and the recovery are the
+//   one-CTA kernels' (sweep_down, sweep_up, recover) in the same order.
+// * Inside a CTA, its 2 T end rows with its first row F and its last L
+//   set apart: row 1's coupling to F and row 2 T - 2's to L become two
+//   right-hand-side columns p and q (SPIKE), and the PCR solves the inner
+//   rows for the R columns, p and q at once (pcr_solve_pair on PlaneBuf:
+//   no rims, rows read outside identity rows). Every inner end row then
+//   reads x = y - p F - q L.
+// * Substituting rows 1 and 2 T - 2 into rows 0 and 2 T - 1 gives the
+//   CTA's two rows of a tridiagonal system of 2 C rows in the CTAs' F and
+//   L (F_r couples L_(r-1) and L_r; L_r couples F_r and F_(r+1)). Thread 0
+//   and thread T - 1 push them into a slot of every CTA's shared memory
+//   by remote stores (no remote atomic), one cluster barrier, and every
+//   warp of every CTA solves the 2 C rows alike by a shuffle PCR
+//   (warp_pcr): the same bits everywhere.
+// * Neighbouring CTAs meet in the residual build (phi of the row above
+//   and below the CTA): each CTA keeps those two rows' phi itself, updated
+//   from the cluster's solution (L_(r-1), F_(r+1)) by the owner's
+//   arithmetic, so no exchange of phi is needed. The D-N kernel's row
+//   ng - 3 (its phi, its y and z for the Sherman-Morrison correction): its
+//   owner pushes the twelve values its recovery reads beside the rows, and
+//   every CTA recovers y[ng-3], z[ng-3] itself.
+// * The residual: each CTA's float64 partial by the warp trees, pushed to
+//   every CTA with the next iteration's rows and added in rank order, so
+//   every CTA holds the same bits and takes the same branch of the loop
+//   test. One cluster barrier an iteration: iteration i's test is read at
+//   iteration i + 1's barrier, after its sweeps and CTA solve, which are
+//   dropped when the test ends the loop (phi is written only after the
+//   barrier); at maxiter one barrier more. The min shift: each CTA's
+//   minimum to every CTA, one barrier.
+// * Bound: latency, k serial steps in each sweep and the recovery (k is
+//   C times smaller than the one-CTA kernel's at the same threads), up
+//   to log2(2 T) PCR stages, one cluster barrier and a five-stage shuffle
+//   PCR an iteration.
+//
 // The double forms (a float64 state, as the JAX package runs the solve
 // under x64): every kernel but the chain's takes the element type T last,
 // and the `_f64` entry points launch its double instantiations. A double
@@ -165,7 +210,11 @@
 // each division a double one (no hardware double divide: a Newton
 // sequence of some ten FMAs).
 
+#include <cooperative_groups.h>
+
 #include "cic_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1032,6 +1081,452 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// ---- the large path's cluster mode (header) ----
+
+constexpr int kClusterMax = 16;  // cuda_newton.CLUSTER_MAX (16: non-portable)
+constexpr int kClusterThreads = 512;  // threads a CTA at most
+constexpr int kIngredients = 12;  // D-N: row ng - 3's recovery, pushed by its owner
+
+// A CTA's PCR buffers in the cluster mode: two of `rows` rows, no rims (a
+// row read outside [0, rows) is the identity row). q holds (a, b, c, f[0]),
+// g the columns f[1..NC-1], each a plane of rows.
+template <int NC, typename T>
+struct PlaneBuf {
+  typename Pcr<T>::V4* q;
+  T* g;
+  int rows;
+};
+
+template <int NC, typename T>
+__device__ __forceinline__ Row<NC, T> identity_row() {
+  Row<NC, T> r;
+  r.a = (T)0;
+  r.b = (T)1;
+  r.c = (T)0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) r.f[c] = (T)0;
+  return r;
+}
+
+template <int NC, typename T>
+__device__ __forceinline__ Row<NC, T> load_row(const PlaneBuf<NC, T>& buf, int kb, int j) {
+  const bool in = j >= 0 && j < buf.rows;
+  const int at = in ? j : 0;
+  const auto v = buf.q[kb * buf.rows + at];
+  Row<NC, T> r;
+  r.a = in ? v.x : (T)0;
+  r.b = in ? v.y : (T)1;
+  r.c = in ? v.z : (T)0;
+  r.f[0] = in ? v.w : (T)0;
+#pragma unroll
+  for (int c = 1; c < NC; ++c)
+    r.f[c] = in ? buf.g[((kb * (NC - 1)) + c - 1) * buf.rows + at] : (T)0;
+  return r;
+}
+
+template <int NC, typename T>
+__device__ __forceinline__ void store_row(const PlaneBuf<NC, T>& buf, int kb, int j,
+                                          const Row<NC, T>& r) {
+  buf.q[kb * buf.rows + j] = make4(r.a, r.b, r.c, r.f[0]);
+#pragma unroll
+  for (int c = 1; c < NC; ++c) buf.g[((kb * (NC - 1)) + c - 1) * buf.rows + j] = r.f[c];
+}
+
+// pcr_solve_pair's stage loop on a PlaneBuf: rows = 2 T, thread t holding
+// rows 2 t and 2 t + 1, the vote-ended stages, pcr_stage's arithmetic.
+template <int NC, typename T>
+__device__ void pcr_solve_pair(Row<NC, T>& x0, Row<NC, T>& x1, const PlaneBuf<NC, T>& buf) {
+  const int i0 = 2 * (int)threadIdx.x, i1 = i0 + 1;
+  int kb = 0;
+  for (int s = 1;; s <<= 1, kb ^= 1) {
+    store_row(buf, kb, i0, x0);
+    store_row(buf, kb, i1, x1);
+    const bool live = __syncthreads_or(x0.a != (T)0 || x0.c != (T)0 || x1.a != (T)0 ||
+                                       x1.c != (T)0);
+    if (!live || s >= buf.rows) break;
+    pcr_stage(x0, load_row(buf, kb, i0 - s), load_row(buf, kb, i0 + s));
+    pcr_stage(x1, load_row(buf, kb, i1 - s), load_row(buf, kb, i1 + s));
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    x0.f[c] = quot_rn(x0.f[c], x0.b);
+    x1.f[c] = quot_rn(x1.f[c], x1.b);
+  }
+}
+
+// The cluster's system of `rows` = 2 C rows (C <= 16) solved by one warp,
+// lane l holding row l (lanes past the rows identity rows): the PCR
+// stages of pcr_solve by shuffles, vote-ended (__any_sync). Every warp of
+// every CTA calls it on the same rows and gets the same bits; lane l
+// returns row l's solution.
+template <int R, typename T>
+__device__ Row<R, T> warp_pcr(const T* rows_in, int rows) {
+  const int lane = threadIdx.x & 31;
+  Row<R, T> x = identity_row<R, T>();
+  if (lane < rows) {
+    const T* p = rows_in + lane * (3 + R);
+    x.a = p[0];
+    x.b = p[1];
+    x.c = p[2];
+#pragma unroll
+    for (int c = 0; c < R; ++c) x.f[c] = p[3 + c];
+  }
+  for (int s = 1; s < rows; s <<= 1) {
+    if (!__any_sync(0xffffffffu, x.a != (T)0 || x.c != (T)0)) break;
+    Row<R, T> lo, hi;
+    lo.a = __shfl_up_sync(0xffffffffu, x.a, s);
+    lo.b = __shfl_up_sync(0xffffffffu, x.b, s);
+    lo.c = __shfl_up_sync(0xffffffffu, x.c, s);
+    hi.a = __shfl_down_sync(0xffffffffu, x.a, s);
+    hi.b = __shfl_down_sync(0xffffffffu, x.b, s);
+    hi.c = __shfl_down_sync(0xffffffffu, x.c, s);
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      lo.f[c] = __shfl_up_sync(0xffffffffu, x.f[c], s);
+      hi.f[c] = __shfl_down_sync(0xffffffffu, x.f[c], s);
+    }
+    if (lane < s) lo = identity_row<R, T>();
+    if (lane + s >= rows) hi = identity_row<R, T>();
+    pcr_stage(x, lo, hi);
+  }
+#pragma unroll
+  for (int c = 0; c < R; ++c) x.f[c] = quot_rn(x.f[c], x.b);
+  return x;
+}
+
+// A row's value from its CTA's end values F and L: y - p F - q L.
+template <typename T>
+__device__ __forceinline__ T end_value(T y, T p, T q, T F, T L) {
+  return sub_rn(sub_rn(y, mul_rn(p, F)), mul_rn(q, L));
+}
+
+// The dynamic shared memory of a cluster-mode CTA, each region 16-B
+// aligned: the partials pushed ([parity][rank], double), the warp
+// partials (32 double), the cluster's rows pushed ([parity][rank][F, L][a,
+// b, c, f[R]]), the D-N ingredients ([parity][12]), the CTAs' minima, the
+// block minimum's partials, the PCR buffers (2 x 2 T rows: a V4 and R + 1
+// planes), each thread's first and last phi, and in the shared variant
+// the rows' scratch ((4 + R) T k). cuda_newton.cluster_smem mirrors it.
+template <int R, typename T>
+struct ClusterSmem {
+  double* part;
+  double* red;
+  T* recv;
+  T* ing;
+  T* mins;
+  T* redf;
+  PlaneBuf<R + 2, T> pcr;
+  T* s_lo;
+  T* s_hi;
+  T* rows;
+};
+
+__host__ __device__ __forceinline__ size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// Takes `bytes` (16-B aligned) at offset `at` of `base`; returns where.
+__host__ __device__ __forceinline__ unsigned char* take(unsigned char* base, size_t& at,
+                                                       size_t bytes) {
+  unsigned char* p = base + at;
+  at += align16(bytes);
+  return p;
+}
+
+template <int R, typename T>
+__host__ __device__ size_t cluster_layout(int C, int threads, int k, bool shared,
+                                          ClusterSmem<R, T>* m, unsigned char* base) {
+  size_t at = 0;
+  unsigned char* part = take(base, at, 2 * kClusterMax * sizeof(double));
+  unsigned char* red = take(base, at, 32 * sizeof(double));
+  unsigned char* recv = take(base, at, (size_t)2 * C * 2 * (3 + R) * sizeof(T));
+  unsigned char* ing = take(base, at, R == 2 ? 2 * kIngredients * sizeof(T) : 0);
+  unsigned char* mins = take(base, at, kClusterMax * sizeof(T));
+  unsigned char* redf = take(base, at, 32 * sizeof(T));
+  unsigned char* q = take(base, at, (size_t)2 * 2 * threads * sizeof(typename Pcr<T>::V4));
+  unsigned char* g = take(base, at, (size_t)2 * (R + 1) * 2 * threads * sizeof(T));
+  unsigned char* lo = take(base, at, (size_t)2 * threads * sizeof(T));
+  unsigned char* rows = take(base, at, shared ? (size_t)(4 + R) * threads * k * sizeof(T) : 0);
+  if (m != nullptr) {
+    m->part = reinterpret_cast<double*>(part);
+    m->red = reinterpret_cast<double*>(red);
+    m->recv = reinterpret_cast<T*>(recv);
+    m->ing = reinterpret_cast<T*>(ing);
+    m->mins = reinterpret_cast<T*>(mins);
+    m->redf = reinterpret_cast<T*>(redf);
+    m->pcr.q = reinterpret_cast<typename Pcr<T>::V4*>(q);
+    m->pcr.g = reinterpret_cast<T*>(g);
+    m->pcr.rows = 2 * threads;
+    m->s_lo = reinterpret_cast<T*>(lo);
+    m->s_hi = m->s_lo + threads;
+    m->rows = reinterpret_cast<T*>(rows);
+  }
+  return at;
+}
+
+template <int R, typename T>
+size_t cluster_smem(int C, int threads, int k, bool shared) {
+  return cluster_layout<R, T>(C, threads, k, shared, nullptr, nullptr);
+}
+
+// The Newton loop of newton_dd_large_kernel (R = 1) and
+// newton_dn_large_kernel (R = 2) in the cluster mode (header: the
+// cluster mode). kShared: the rows' scratch in the CTA's shared memory,
+// else CTA r's (4 + R) T k elements of `scratch` from r (4 + R) T k.
+template <int R, bool kShared, typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+    newton_cluster_kernel(const T* __restrict__ dens, const T* __restrict__ n0,
+                          const T* __restrict__ phi0, T* __restrict__ phi_out,
+                          int* __restrict__ iters_out, T* __restrict__ resid_out,
+                          T* __restrict__ scratch, int ng, int k, NewtonScalars<T> s) {
+  constexpr int NC = R + 2;  // the R right-hand sides, then the columns p, q
+  constexpr bool kDn = R == 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)gridDim.x, rank = (int)cluster.block_rank();  // one cluster
+  const int T_ = blockDim.x, t = threadIdx.x, lane = t & 31;
+  const int npad = T_ * k, base = rank * npad;  // the CTA's rows and its first
+  extern __shared__ __align__(16) unsigned char smem[];
+  ClusterSmem<R, T> m;
+  cluster_layout<R, T>(C, T_, k, kShared, &m, smem);
+  T* rows_s;
+  if constexpr (kShared)
+    rows_s = m.rows;
+  else
+    rows_s = scratch + (size_t)rank * (4 + R) * npad;
+  T* phi_s = rows_s;
+  T* c2_s = rows_s + npad;  // dx^2 c2
+  const Blocks<T> B = newton_blocks(rows_s, k, npad);
+  const T c0 = mul_rn(s.coef, n0[0]);
+  const T dx2_c0 = mul_rn(s.dx2, c0);
+  const T jac_b = mul_rn(mul_rn(-s.dx2, c0), s.c1);
+  // the warm start at global row g: D-D its walls pinned to 0, D-N as given
+  auto start = [&](int g) -> T {
+    if constexpr (kDn)
+      return (g >= 0 && g < ng) ? phi0[g] : (T)0;
+    else
+      return (phi0 != nullptr && g >= 1 && g <= ng - 2) ? phi0[g] : (T)0;
+  };
+  for (int e = t; e < npad; e += T_) {  // the CTA's rows in order, into its blocks
+    const int g = base + e, j = e % k, o = j * T_ + e / k;
+    const T p = start(g);
+    phi_s[o] = p;
+    if constexpr (kDn)
+      c2_s[o] = g < ng ? mul_rn(s.dx2, mul_rn(dens[g], s.coef)) : (T)0;
+    else
+      c2_s[o] = g < ng ? mul_rn(s.dx2, quot_rn(dens[g], s.eps0)) : (T)0;
+    if (j == 0) m.s_lo[e / k] = p;
+    if (j == k - 1) m.s_hi[e / k] = p;
+  }
+  // phi of the rows just outside the CTA and (D-N) of row ng - 3, kept by
+  // every thread from the cluster's solution as their owners update them
+  T edge_dn = rank > 0 ? start(base - 1) : (T)0;
+  T edge_up = rank + 1 < C ? start(base + npad) : (T)0;
+  T phi_m3 = kDn ? start(ng - 3) : (T)0;
+  const int g3 = ng - 3, r3 = g3 / npad, t3 = (g3 % npad) / k, j3 = g3 % k;
+  cluster.sync();  // every CTA's shared memory is live before remote stores
+
+  // The loop test of iteration i - 1 is read at iteration i's cluster
+  // barrier: iteration i's sweeps and CTA solve run first, and are
+  // dropped (phi untouched) when the test ends the loop.
+  T residual = (T)1;
+  int it = 0;
+  bool go = s.maxiter > 0 && residual > s.tol;
+  while (go) {
+    const int par = it & 1;
+    const T phi_first = m.s_lo[0];  // phi[0] in rank 0 (D-N row 0)
+    T down = t > 0 ? m.s_hi[t - 1] : edge_dn;
+    T cur = phi_s[t];
+    sweep_down<R>(B, [&](int j) {
+      const int i = base + t * k + j;
+      const T up = j + 1 < k ? phi_s[block_at(j + 1)] : (t + 1 < T_ ? m.s_lo[t + 1] : edge_up);
+      const T ex = exp_of(clamp_to(mul_rn(s.c1, cur), -s.exp_clamp, s.exp_clamp));
+      Row<R, T> x;
+      if constexpr (kDn) {
+        const bool inner = i >= 1 && i <= ng - 2;
+        const bool last = i == ng - 1;
+        const T a_lap = inner ? (T)1 : (last ? (T)-4 : (T)0);
+        const T c_lap = inner ? (T)1 : (T)0;
+        const T d_lap = inner ? (T)-2 : (last ? (T)3 : (T)1);
+        const T u_row = last ? (T)1 : (T)0;  // rank-1 u = e_{ng-1}
+        T lap = add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, cur)), mul_rn(c_lap, up));
+        lap = add_rn(lap, mul_rn(u_row, phi_m3));  // A[-1, -3]
+        T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+        f = i == 0 ? phi_first : f;
+        f = (last || i >= ng) ? (T)0 : f;
+        x.a = a_lap;
+        x.b = add_rn(d_lap, inner ? mul_rn(jac_b, ex) : (i == 0 ? jac_b : (T)0));
+        x.c = c_lap;
+        x.f[0] = f;
+        x.f[R - 1] = u_row;
+      } else {
+        const bool interior = i >= 1 && i <= ng - 2;
+        const bool boundary = i < ng && !interior;
+        const T a_lap = interior ? (T)1 : (T)0;
+        const T d_lap = interior ? (T)-2 : (T)1;
+        const T lap =
+            add_rn(add_rn(mul_rn(a_lap, down), mul_rn(d_lap, cur)), mul_rn(a_lap, up));
+        const T f = add_rn(sub_rn(lap, mul_rn(dx2_c0, ex)), c2_s[block_at(j)]);
+        x.a = a_lap;
+        x.b = add_rn(d_lap, interior ? mul_rn(jac_b, ex) : (boundary ? jac_b : (T)0));
+        x.c = a_lap;
+        x.f[0] = interior ? f : (T)0;  // walls and padding: residual rows 0
+      }
+      down = cur;
+      cur = up;
+      return x;
+    });
+    Row<R, T> e0, e1;
+    sweep_up<R>(B, e0, e1);
+    // The CTA's 2 T end rows with its first and last row set apart: row 1's
+    // coupling to row 0 (F) and row 2 T - 2's to row 2 T - 1 (L) become the
+    // right-hand-side columns p and q, rows 0 and 2 T - 1 identity rows.
+    Row<NC, T> x0 = identity_row<NC, T>(), x1 = identity_row<NC, T>();
+    x0.a = e0.a, x0.b = e0.b, x0.c = e0.c;
+    x1.a = e1.a, x1.b = e1.b, x1.c = e1.c;
+#pragma unroll
+    for (int c = 0; c < R; ++c) x0.f[c] = e0.f[c], x1.f[c] = e1.f[c];
+    if (t == 0) {
+      x0 = identity_row<NC, T>();
+      x1.f[R] = x1.a;
+      x1.a = (T)0;
+    }
+    if (t == T_ - 1) {
+      x1 = identity_row<NC, T>();
+      x0.f[R + 1] = x0.c;
+      x0.c = (T)0;
+    }
+    pcr_solve_pair<NC>(x0, x1, m.pcr);
+    // Push: the CTA's rows F (thread 0) and L (thread T - 1) of the
+    // cluster's system, the partial of the last iteration, (D-N) row
+    // ng - 3's ingredients, into every CTA's slot of this parity.
+    T* slot = m.recv + (par * C + rank) * 2 * (3 + R);
+    if (t == 0 || t == T_ - 1) {
+      T row[3 + R];
+      if (t == 0) {  // a L_(r-1) + b F + c L = f
+        row[0] = e0.a;
+        row[1] = sub_rn((T)1, mul_rn(e0.c, x1.f[R]));
+        row[2] = -mul_rn(e0.c, x1.f[R + 1]);
+#pragma unroll
+        for (int c = 0; c < R; ++c) row[3 + c] = sub_rn(e0.f[c], mul_rn(e0.c, x1.f[c]));
+      } else {  // a F + b L + c F_(r+1) = f
+        row[0] = -mul_rn(e1.a, x0.f[R]);
+        row[1] = sub_rn((T)1, mul_rn(e1.a, x0.f[R + 1]));
+        row[2] = e1.c;
+#pragma unroll
+        for (int c = 0; c < R; ++c) row[3 + c] = sub_rn(e1.f[c], mul_rn(e1.a, x0.f[c]));
+      }
+      const int off = t == 0 ? 0 : 3 + R;
+      for (int q = 0; q < C; ++q) {
+        T* dst = cluster.map_shared_rank(slot + off, q);
+#pragma unroll
+        for (int c = 0; c < 3 + R; ++c) dst[c] = row[c];
+      }
+    }
+    if (it > 0 && t < 32) {
+      const double tot = block_total(m.red);
+      if (lane < C) *cluster.map_shared_rank(m.part + par * kClusterMax + rank, lane) = tot;
+    }
+    if constexpr (kDn) {
+      if (rank == r3 && t == t3) {  // what row ng - 3's recovery reads
+        const int e = block_at(j3);
+        const T v[kIngredients] = {B.ap[e], B.cp[e], B.dp[e], B.dp[npad + e],
+                                   x0.f[0], x0.f[1], x0.f[R], x0.f[R + 1],
+                                   x1.f[0], x1.f[1], x1.f[R], x1.f[R + 1]};
+        for (int q = 0; q < C; ++q) {
+          T* dst = cluster.map_shared_rank(m.ing + par * kIngredients, q);
+#pragma unroll
+          for (int c = 0; c < kIngredients; ++c) dst[c] = v[c];
+        }
+      }
+    }
+    cluster.sync();  // this parity's slots are complete in every CTA
+    if (it > 0) {  // iteration it - 1's residual, the partials in rank order
+      double tot = 0.0;
+      for (int q = 0; q < C; ++q) tot += m.part[par * kClusterMax + q];
+      residual = kDn ? sqrt_rn((T)tot) : (T)tot;
+      if (!(residual > s.tol)) break;
+    }
+    const Row<R, T> z = warp_pcr<R>(m.recv + par * C * 2 * (3 + R), 2 * C);
+    auto at = [&](int row, int c) { return __shfl_sync(0xffffffffu, z.f[c], max(row, 0)); };
+    // the step at a row from its (y, z) or x: D-N y - z corr, clipped
+    T corr = (T)0;
+    T yz3[R];
+    if constexpr (kDn) {
+      const T* g = m.ing + par * kIngredients;
+      T xf3[R], xl3[R];
+#pragma unroll
+      for (int c = 0; c < R; ++c) {
+        const T F3 = at(2 * r3, c), L3 = at(2 * r3 + 1, c);
+        xf3[c] = t3 == 0 ? F3 : end_value(g[4 + c], g[6], g[7], F3, L3);
+        xl3[c] = t3 == T_ - 1 ? L3 : end_value(g[8 + c], g[10], g[11], F3, L3);
+      }
+#pragma unroll
+      for (int c = 0; c < R; ++c)
+        yz3[c] = j3 == 0       ? xf3[c]
+                 : j3 == k - 1 ? xl3[c]
+                               : sub_rn(sub_rn(g[2 + c], mul_rn(g[0], xf3[c])),
+                                        mul_rn(g[1], xl3[c]));
+      corr = quot_rn(yz3[0], add_rn((T)1, yz3[1]));
+    }
+    auto step_of = [&](const T* v) {
+      const T d = kDn ? sub_rn(v[0], mul_rn(v[R - 1], corr)) : v[0];
+      return clamp_to(d, -s.step_max, s.step_max);
+    };
+    T xf[R], xl[R], ldn[R], fup[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      const T F = at(2 * rank, c), L = at(2 * rank + 1, c);
+      ldn[c] = at(2 * rank - 1, c);
+      fup[c] = at(2 * rank + 2, c);
+      xf[c] = t == 0 ? F : end_value(x0.f[c], x0.f[R], x0.f[R + 1], F, L);
+      xl[c] = t == T_ - 1 ? L : end_value(x1.f[c], x1.f[R], x1.f[R + 1], F, L);
+    }
+    double sq = 0.0;
+    for (int j = 0; j < k; ++j) {
+      T v[R];
+      recover<R>(B, j, xf, xl, v);
+      const T dphi = step_of(v);
+      const int e = block_at(j);
+      const T p = sub_rn(phi_s[e], dphi);
+      phi_s[e] = p;
+      sq += (double)mul_rn(dphi, dphi);
+      if (j == 0) m.s_lo[t] = p;
+      if (j == k - 1) m.s_hi[t] = p;
+    }
+    if (rank > 0) edge_dn = sub_rn(edge_dn, step_of(ldn));
+    if (rank + 1 < C) edge_up = sub_rn(edge_up, step_of(fup));
+    if constexpr (kDn) phi_m3 = sub_rn(phi_m3, step_of(yz3));
+    // this iteration's partials and the next one's edge phi, one barrier
+    warp_partial(sq, m.red);
+    __syncthreads();
+    ++it;
+    if (it == s.maxiter) {  // the last iteration's residual on its own
+      const int p2 = it & 1;
+      if (t < 32) {
+        const double tot = block_total(m.red);
+        if (lane < C) *cluster.map_shared_rank(m.part + p2 * kClusterMax + rank, lane) = tot;
+      }
+      cluster.sync();
+      double tot = 0.0;
+      for (int q = 0; q < C; ++q) tot += m.part[p2 * kClusterMax + q];
+      residual = kDn ? sqrt_rn((T)tot) : (T)tot;
+      go = false;
+    }
+  }
+  // shift to min 0 over the physical rows: each CTA's minimum to every CTA
+  T lo = largest<T>();
+  for (int j = 0; j < k && base + t * k + j < ng; ++j) lo = min_of(lo, phi_s[block_at(j)]);
+  lo = block_min(lo, m.redf);
+  if (t < C) *cluster.map_shared_rank(m.mins + rank, t) = lo;
+  cluster.sync();
+  T g_lo = m.mins[0];
+  for (int q = 1; q < C; ++q) g_lo = min_of(g_lo, m.mins[q]);
+  for (int e = t; e < npad && base + e < ng; e += T_)
+    phi_out[base + e] = sub_rn(phi_s[(e % k) * T_ + e / k], g_lo);
+  if (rank == 0 && t == 0) {
+    iters_out[0] = it;
+    resid_out[0] = residual;
+  }
+}
+
 // The large path's launch: T threads (a multiple of 32 in [32, the
 // element type's most]), k >= 2 rows a thread, T k >= rows > the small
 // path's kMaxRows.
@@ -1099,6 +1594,86 @@ cudaError_t launch_dn_large(const T* n, const T* n0, const T* phi0, T* phi, int*
   newton_dn_large_kernel<T><<<1, threads, smem, st>>>(n, n0, phi0, phi, iters, resid,
                                                       scratch, ng, k, s);
   return cudaGetLastError();
+}
+
+// The cluster mode's launch: C CTAs (a power of two in [2, 16]) of T
+// threads (a multiple of 32 in [32, kClusterThreads]), k >= 2 rows a
+// thread, C T k >= rows > the small path's kMaxRows.
+bool cluster_ok(int rows, int k, int threads, int C) {
+  return C >= 2 && C <= kClusterMax && (C & (C - 1)) == 0 && threads >= 32 &&
+         threads <= kClusterThreads && threads % 32 == 0 && k >= 2 && rows > kMaxRows &&
+         (long long)C * threads * k >= rows;
+}
+
+template <int R, bool kShared, typename T>
+cudaError_t cluster_prepare(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(newton_cluster_kernel<R, kShared, T>,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  return allow_smem(newton_cluster_kernel<R, kShared, T>, smem);
+}
+
+cudaLaunchConfig_t cluster_config(int C, int threads, size_t smem, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int R, bool kShared, typename T>
+cudaError_t launch_cluster_as(const T* dens, const T* n0, const T* phi0, T* phi, int* iters,
+                              T* resid, T* scratch, int ng, int k, int threads, int C,
+                              const NewtonScalars<T>& s, cudaStream_t st) {
+  const size_t smem = cluster_smem<R, T>(C, threads, k, kShared);
+  cudaError_t err = cluster_prepare<R, kShared, T>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(C, threads, smem, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, newton_cluster_kernel<R, kShared, T>, dens, n0, phi0, phi,
+                           iters, resid, scratch, ng, k, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// R = 1: the D-D solve (s.eps0 rho's divisor), R = 2: the D-N solve.
+// shared: the rows' scratch in shared memory (scratch unused), else
+// (4 + R) C T k elements of scratch.
+template <int R, typename T>
+cudaError_t launch_cluster(const T* dens, const T* n0, const T* phi0, T* phi, int* iters,
+                           T* resid, T* scratch, int ng, int k, int threads, int C,
+                           int shared, const NewtonScalars<T>& s, cudaStream_t st) {
+  if (!cluster_ok(ng, k, threads, C) || ng < 3) return cudaErrorInvalidValue;
+  if (shared)
+    return launch_cluster_as<R, true, T>(dens, n0, phi0, phi, iters, resid, scratch, ng, k,
+                                         threads, C, s, st);
+  return launch_cluster_as<R, false, T>(dens, n0, phi0, phi, iters, resid, scratch, ng, k,
+                                        threads, C, s, st);
+}
+
+// How many clusters of a cluster-mode launch the current card holds at once.
+template <int R, bool kShared, typename T>
+cudaError_t cluster_count_as(int k, int threads, int C, int* count) {
+  const size_t smem = cluster_smem<R, T>(C, threads, k, kShared);
+  cudaError_t err = cluster_prepare<R, kShared, T>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(C, threads, smem, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(count, newton_cluster_kernel<R, kShared, T>, &cfg);
+}
+
+template <int R, typename T>
+cudaError_t cluster_count(int k, int threads, int C, int shared, int* count) {
+  return shared ? cluster_count_as<R, true, T>(k, threads, C, count)
+                : cluster_count_as<R, false, T>(k, threads, C, count);
 }
 
 }  // namespace
@@ -1206,6 +1781,75 @@ int pypic_boltzmann_dn_large_f64(
   return (int)launch_dn_large(n, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
                               coef, c1, dx2, tol, maxiter, step_max, exp_clamp,
                               (cudaStream_t)stream);
+}
+
+// The large path's cluster mode (header): `cluster` CTAs of `threads`
+// threads, k rows a thread (cuda_newton.large_shape), the rows' scratch in
+// shared memory (shared = 1; scratch unused) or in scratch ((4 + R)
+// cluster threads k elements). The other arguments are the large path's.
+int pypic_boltzmann_dirichlet_cluster(
+    const float* rho, const float* n0, const float* phi0, float* phi, int* iters,
+    float* resid, float* scratch, int ng, int k, int threads, int cluster, int shared,
+    float c0_coef, float eps0, float c1, float dx2, float tol, int maxiter, float step_max,
+    float exp_clamp, void* stream) {
+  const NewtonScalars<float> s{c0_coef, eps0, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  return (int)launch_cluster<1>(rho, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                                cluster, shared, s, (cudaStream_t)stream);
+}
+
+int pypic_boltzmann_dirichlet_cluster_f64(
+    const double* rho, const double* n0, const double* phi0, double* phi, int* iters,
+    double* resid, double* scratch, int ng, int k, int threads, int cluster, int shared,
+    double c0_coef, double eps0, double c1, double dx2, double tol, int maxiter,
+    double step_max, double exp_clamp, void* stream) {
+  const NewtonScalars<double> s{c0_coef, eps0, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  return (int)launch_cluster<1>(rho, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                                cluster, shared, s, (cudaStream_t)stream);
+}
+
+int pypic_boltzmann_dn_cluster(
+    const float* n, const float* n0, const float* phi0, float* phi, int* iters,
+    float* resid, float* scratch, int ng, int k, int threads, int cluster, int shared,
+    float coef, float c1, float dx2, float tol, int maxiter, float step_max,
+    float exp_clamp, void* stream) {
+  const NewtonScalars<float> s{coef, 0.0f, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  return (int)launch_cluster<2>(n, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                                cluster, shared, s, (cudaStream_t)stream);
+}
+
+int pypic_boltzmann_dn_cluster_f64(
+    const double* n, const double* n0, const double* phi0, double* phi, int* iters,
+    double* resid, double* scratch, int ng, int k, int threads, int cluster, int shared,
+    double coef, double c1, double dx2, double tol, int maxiter, double step_max,
+    double exp_clamp, void* stream) {
+  const NewtonScalars<double> s{coef, 0.0, c1, dx2, tol, step_max, exp_clamp, maxiter};
+  return (int)launch_cluster<2>(n, n0, phi0, phi, iters, resid, scratch, ng, k, threads,
+                                cluster, shared, s, (cudaStream_t)stream);
+}
+
+// The cluster mode's dynamic shared memory a CTA (dn: the D-N kernel;
+// f64: the double one), as cuda_newton.cluster_smem counts it.
+long long pypic_newton_cluster_smem(int dn, int f64, int cluster, int threads, int k,
+                                    int shared) {
+  const bool sh = shared != 0;
+  if (dn) return (long long)(f64 ? cluster_smem<2, double>(cluster, threads, k, sh)
+                                 : cluster_smem<2, float>(cluster, threads, k, sh));
+  return (long long)(f64 ? cluster_smem<1, double>(cluster, threads, k, sh)
+                         : cluster_smem<1, float>(cluster, threads, k, sh));
+}
+
+// How many clusters of that launch the current card holds at once (0: it
+// cannot launch).
+int pypic_newton_clusters(int dn, int f64, int k, int threads, int cluster, int shared,
+                          int* count) {
+  cudaError_t err;
+  if (dn)
+    err = f64 ? cluster_count<2, double>(k, threads, cluster, shared, count)
+              : cluster_count<2, float>(k, threads, cluster, shared, count);
+  else
+    err = f64 ? cluster_count<1, double>(k, threads, cluster, shared, count)
+              : cluster_count<1, float>(k, threads, cluster, shared, count);
+  return (int)err;
 }
 
 int pypic_tridiag3_chain_large(const float* dl, const float* d,

@@ -99,6 +99,19 @@ _SIGNATURES = {
     "pypic_boltzmann_dn_large": (
         [_P] * 7 + [_I] * 3 + [_F] * 4 + [_I, _F, _F, _P], _I),
     "pypic_tridiag3_chain_large": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    # the Newton large path's cluster mode (ops/cuda_newton.py large_shape):
+    # the large path's arguments with the CTAs a cluster and the shared
+    # flag after the threads; its shared bytes and occupancy query
+    "pypic_boltzmann_dirichlet_cluster": (
+        [_P] * 7 + [_I] * 5 + [_F] * 5 + [_I, _F, _F, _P], _I),
+    "pypic_boltzmann_dn_cluster": (
+        [_P] * 7 + [_I] * 5 + [_F] * 4 + [_I, _F, _F, _P], _I),
+    "pypic_boltzmann_dirichlet_cluster_f64": (
+        [_P] * 7 + [_I] * 5 + [_D] * 5 + [_I, _D, _D, _P], _I),
+    "pypic_boltzmann_dn_cluster_f64": (
+        [_P] * 7 + [_I] * 5 + [_D] * 4 + [_I, _D, _D, _P], _I),
+    "pypic_newton_cluster_smem": ([_I] * 6, _L),
+    "pypic_newton_clusters": ([_I] * 6 + [_P], _I),
     "pypic_philox_uniforms": ([_P, _L, _I, _U, _U, _U, _U, _I, _I, _P], _I),
     "pypic_hash_batch": ([_P, _L, _I, _U, _U, _F, _I, _I, _I, _P], _I),
     "pypic_source_batch": (

@@ -21,11 +21,18 @@ gives the same solution, the rows past ng being identity rows
 
 Above 1,024 rows each of the three wrappers launches the large path of
 ``csrc/newton.cu`` instead, the same loop with a partition solve in each
-iteration: one CTA of ``threads`` threads, each owning a block of k
-consecutive rows (``large_split``), the blocks reduced to their end rows
-by a sweep down and one up, the 2 x threads end rows solved by the same
-PCR, the inner rows recovered. Its plain version is ``_partition_solve``
-(the same sweeps and PCR as tensor operations). The large path takes up to
+iteration, in one of two modes (``large_shape``; the Newton solves take
+the mode NEWTON_RULE gives, or ``mode=`` forced; the chain
+has 'single' alone). 'single': one CTA of ``threads`` threads, each
+owning a block of k consecutive rows (``large_split``), the blocks
+reduced to their end rows by a sweep down and one up, the 2 x threads
+end rows solved by the same PCR, the inner rows recovered; its plain
+version is ``_partition_solve``. 'cluster' (the Newton solves): the
+blocks spread over the C CTAs of a thread-block cluster, each CTA's end
+rows solved with two spike columns and the CTAs' first and last rows by
+a system of 2 C rows that every CTA solves alike; its plain version is
+``_cluster_solve``. A cluster the card cannot hold raises
+(cudaOccupancyMaxActiveClusters). The large path takes up to
 ``LARGE_MAX_ROWS`` rows on the card; the plain versions take any count.
 
 ``boltzmann_dn`` replaces ``boltzmann_dn_pallas``: the Newton loop of
@@ -49,7 +56,9 @@ Dispatch and launch counting follow ``ops/cuda_cic.py``: CUDA tensors
 launch the kernel, CPU tensors run the plain version, anything else
 raises; each launch adds one to ``cuda_cic.LAUNCHES['boltzmann_dirichlet']``,
 ``['boltzmann_dn']`` or ``['tridiag3_chain']``, or on the large path to
-the same name with ``_large`` after it.
+the same name with ``_large`` after it, and for the Newton solves to
+``cuda_cic.LARGE_LAUNCHES`` under that name and its mode ("... single",
+"... cluster").
 
 The two Newton solves take a float64 state too (the JAX package solves
 one in float64 under x64, on XLA's on-device loop): float64 tensors run
@@ -64,12 +73,17 @@ the JAX package.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
 from ..constants import EPSILON_0, E_CHARGE, K_BOLTZMANN
 from . import _build
-from .cuda_cic import LAUNCHES, _check_1d, _device_kind, _stream, real
+from .cuda_cic import (LARGE_LAUNCHES, LAUNCHES, SMEM_LIMIT, _check_1d, _device_kind,
+                       _stream, real)
 from .poisson import NewtonResult, _EXP_CLAMP
 
 _LANE = 128  # the smallest padded row count, as on the TPU
@@ -111,14 +125,144 @@ def large_split(rows: int, item: int = 4) -> tuple[int, int]:
     return k, -(-(-(-rows // k)) // _WARP) * _WARP
 
 
-def solve_rows(ng: int, item: int = 4) -> int:
+def solve_rows(ng: int, item: int = 4, mode: str | None = None) -> int:
     """Rows of the system the port solves for ng physical rows: kernel_rows
-    on the small path, threads x k on the large (``item``: the element's
-    bytes)."""
+    on the small path, the large path's ``large_shape(ng, item,
+    mode).rows`` above (``item``: the element's bytes)."""
     if ng <= SMALL_MAX_ROWS:
         return kernel_rows(ng)
-    k, threads = large_split(ng, item)
-    return k * threads
+    return large_shape(ng, item, mode).rows
+
+
+# The large path's cluster mode (csrc/newton.cu newton_cluster_kernel):
+# C CTAs a cluster, a power of two in [2, CLUSTER_MAX] (16 a non-portable
+# size), each of CLUSTER_THREADS_LEAST to CLUSTER_THREADS threads, as many
+# as put about CLUSTER_ROWS_A_THREAD rows on a thread (large_shape)
+CLUSTER_MAX = 16
+CLUSTER_THREADS = 512
+CLUSTER_THREADS_LEAST = 128
+CLUSTER_ROWS_A_THREAD = 8
+# large_mode's rule by element bytes: (first rows, mode, CTAs a cluster) in
+# rising order, from the forced pairs of PERF.md section 6 (large_shape's
+# docstring); below the first, the mode 'single'
+NEWTON_RULE = {4: ((1025, "cluster", 16),), 8: ((1025, "cluster", 16),)}
+_CLUSTER_INGREDIENTS = 12  # the D-N owner's values of row ng - 3
+# the cluster kernels' static shared memory: none (every region dynamic)
+CLUSTER_STATIC_BYTES = 0
+LARGE_MODES = ("single", "cluster")
+
+
+@dataclasses.dataclass(frozen=True)
+class LargeShape:
+    """A launch of the large path: its ``mode`` ('single': one CTA;
+    'cluster'), ``cluster`` CTAs (1 in 'single') of ``threads`` threads, k
+    rows a thread, ``smem`` bytes of dynamic shared memory a CTA, and
+    whether the rows' scratch lies in it (``shared``) or in device
+    memory."""
+    mode: str
+    cluster: int
+    threads: int
+    k: int
+    smem: int
+    shared: bool
+
+    @property
+    def rows(self) -> int:
+        """Rows of the system: the physical ones, then identity rows."""
+        return self.cluster * self.threads * self.k
+
+
+def _a16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def cluster_smem(dn: bool, item: int, cluster: int, threads: int, k: int,
+                 shared: bool) -> int:
+    """Dynamic shared memory of a cluster-mode CTA (csrc/newton.cu
+    cluster_layout, each region 16-B aligned): the pushed partials and the
+    warp partials (doubles), the cluster's pushed rows, the D-N
+    ingredients, the CTAs' minima and the block minimum's partials, the
+    PCR buffers (2 x 2 T rows of a four-element row and R + 1 planes), each
+    thread's first and last phi, and in the shared variant the rows'
+    scratch, (4 + R) T k elements."""
+    r = 2 if dn else 1
+    parts = (2 * CLUSTER_MAX * 8, 32 * 8, 2 * cluster * 2 * (3 + r) * item,
+             2 * _CLUSTER_INGREDIENTS * item if dn else 0, CLUSTER_MAX * item,
+             32 * item, 2 * 2 * threads * 4 * item,
+             2 * (r + 1) * 2 * threads * item, 2 * threads * item,
+             (4 + r) * threads * k * item if shared else 0)
+    return sum(_a16(p) for p in parts)
+
+
+def _rule(rows: int, item: int) -> tuple[str, int]:
+    """(mode, CTAs a cluster) of the last NEWTON_RULE entry whose first row
+    is at most ``rows``; ('single', CLUSTER_MAX) below the first."""
+    out = ("single", CLUSTER_MAX)
+    for first, mode, size in NEWTON_RULE[item]:
+        if rows >= first:
+            out = (mode, size)
+    return out
+
+
+def large_mode(rows: int, item: int = 4) -> str:
+    """The mode NEWTON_RULE gives the large path at ``rows`` rows of
+    ``item``-byte elements."""
+    return _rule(rows, item)[0]
+
+
+def large_shape(rows: int, item: int = 4, mode: str | None = None,
+                cluster: int | None = None, threads: int | None = None,
+                dn: bool = True) -> LargeShape:
+    """The large path's launch at ``rows`` > SMALL_MAX_ROWS rows of
+    ``item``-byte elements, a function of the sizes alone: the mode
+    ``large_mode`` names, or ``mode`` forced ('single' or 'cluster').
+    'single': large_split's one CTA, its scratch in device memory.
+    'cluster': C = ``cluster`` CTAs (NEWTON_RULE's where None), each of
+    T threads: ``threads``, or ceil(rows / (C CLUSTER_ROWS_A_THREAD))
+    rounded up to a warp and held to [CLUSTER_THREADS_LEAST,
+    CLUSTER_THREADS], at most ceil(rows / 2 C) rounded up to a warp; k =
+    ceil(rows / (C T)) >= 2 rows a thread; the
+    rows' scratch in shared memory where cluster_smem of the D-N kernel
+    (``dn``; the larger) fits SMEM_LIMIT beside CLUSTER_STATIC_BYTES, else
+    in device memory. Raises on a shape the kernels refuse.
+
+    NEWTON_RULE comes from the forced pairs of PERF.md section 6
+    (tools/resident_split.py --kernel newton_dd_large|newton_dn_large,
+    NVIDIA H100 80GB HBM3, 700 W; us a further iteration, D-D / D-N): at
+    4,096, 16,384 and 262,144 rows in float32 and 16,384 in float64 the
+    cluster mode at C = 16 beat the mode 'single' (5.91 / 7.18, 7.65 /
+    10.55, 35.22 / 56.76, 12.51 / 16.74 against 10.52 / 13.07, 23.35 /
+    39.20, 283.90 / 455.99, 52.77 / 72.15) and C = 2-8 (C = 8 5.84 against
+    5.91 for D-D at 4,096, within the spread), so both dtypes take C = 16
+    from 1,025 rows. The threads a CTA: a sweep of T = 128-512 at C =
+    2-16 put the best at about 8 rows a thread (T = 128 at 4,096 and
+    16,384, T = 512 at 262,144)."""
+    if rows <= SMALL_MAX_ROWS:
+        raise ValueError(f"the large path takes more than {SMALL_MAX_ROWS} "
+                         f"rows, got {rows}")
+    mode = _rule(rows, item)[0] if mode is None else mode
+    if mode == "single":
+        k, t = large_split(rows, item)
+        halo = 1 << max(0, (2 * t - 1).bit_length() - 1)  # pcr_halo(2 T)
+        smem = (2 * (2 * t + 2 * halo) * (4 * item + (item if dn else 0))
+                + 2 * t * item)  # newton_smem<R>(2 T)
+        return LargeShape("single", 1, t, k, smem, False)
+    if mode != "cluster":
+        raise ValueError(f"large path mode {mode!r}: one of {LARGE_MODES}")
+    c = _rule(rows, item)[1] if cluster is None else cluster
+    if not (2 <= c <= CLUSTER_MAX and c & (c - 1) == 0):
+        raise ValueError(f"a cluster of {c} CTAs: a power of two in [2, {CLUSTER_MAX}]")
+    if threads is None:
+        want = -(-(-(-rows // (c * CLUSTER_ROWS_A_THREAD))) // _WARP) * _WARP
+        threads = min(CLUSTER_THREADS, max(CLUSTER_THREADS_LEAST, want))
+    elif not (_WARP <= threads <= CLUSTER_THREADS and threads % _WARP == 0):
+        raise ValueError(f"{threads} threads a CTA: a multiple of {_WARP} up to "
+                         f"{CLUSTER_THREADS}")
+    t = min(threads, -(-(-(-rows // (2 * c))) // _WARP) * _WARP)  # k >= 2
+    k = -(-rows // (c * t))
+    fits = (cluster_smem(dn, item, c, t, k, True) + CLUSTER_STATIC_BYTES
+            <= SMEM_LIMIT)
+    return LargeShape("cluster", c, t, k, cluster_smem(dn, item, c, t, k, fits), fits)
 
 
 def newton_scalars(te: float, dx: float, tol: float,
@@ -154,12 +298,14 @@ def _shift_up(x, s, fill):
 
 def _pcr_solve(a, b, c, f):
     """Parallel cyclic reduction of a_i x_{i-1} + b_i x_i + c_i x_{i+1} =
-    f_i over len(a) rows (rows past the physical ones are identity rows,
-    and so is a row read past either end). ``f`` is (rows,) or (R, rows):
-    R right-hand sides that share the elimination coefficients. The stages
-    end, as the kernels' do, once no row is coupled (every a and c 0): the
-    stages left would change no value."""
-    rows = a.shape[0]
+    f_i over the rows of the last axis (rows past the physical ones are
+    identity rows, and so is a row read past either end). ``f`` is (rows,)
+    or (R, rows): R right-hand sides that share the elimination
+    coefficients; a leading axis of a, b, c (and f) holds independent
+    systems. The stages end, as the kernels' do, once no row is coupled
+    (every a and c 0): the stages left would change no value (a batch ends
+    with its last system, which changes at most the sign of a zero)."""
+    rows = a.shape[-1]
     s = 1
     while s < rows and bool(torch.any(a != 0.0) | torch.any(c != 0.0)):
         am, bm, fm, cm = (_shift_down(a, s, 0.0), _shift_down(b, s, 1.0),
@@ -176,20 +322,19 @@ def _pcr_solve(a, b, c, f):
     return f / b
 
 
-def _partition_solve(a, b, c, f, k: int, threads: int):
-    """The large path's solve of a_i x_{i-1} + b_i x_i + c_i x_{i+1} = f_i
-    over rows = threads x k rows (identity rows past the physical ones), in
-    the kernels' operation order. ``f`` is (rows,) or (R, rows). Block t
-    holds rows t k .. t k + k - 1. A sweep down normalises its rows 0 and
-    1 and takes each later row's coupling to the row above out (the
-    fill-in a coupling to the block's row 0); a sweep up takes each inner
-    row's coupling to the row below out, then row 0's to row 1. The
-    blocks' first and last rows then form a tridiagonal system of 2
-    threads rows, solved by ``_pcr_solve``, and the inner rows are
-    recovered as x_j = d'_j - a'_j x_0 - c'_j x_(k-1)."""
+def _block_ends(a, b, c, f, k: int, blocks: int):
+    """The sweeps of the large path over ``blocks`` blocks of k rows, in the
+    kernels' order: a sweep down normalises a block's rows 0 and 1 and
+    takes each later row's coupling to the row above out (the fill-in a
+    coupling to the block's row 0); a sweep up takes each inner row's
+    coupling to the row below out, then row 0's to row 1. Returns the
+    inner rows' (a', c', d') as (blocks, k) (d' with f's leading axis),
+    then the blocks' first and last rows (a, c, f; b = 1): a first row
+    couples to the last row of the block before and to x_(k-1), a last
+    row to x_0 and to the first row of the block after."""
     lead = f.shape[:-1]
-    A, B, C = (t.reshape(threads, k) for t in (a, b, c))
-    F = f.reshape(lead + (threads, k))
+    A, B, C = (t.reshape(blocks, k) for t in (a, b, c))
+    F = f.reshape(lead + (blocks, k))
     ap, cp, dp = torch.empty_like(A), torch.empty_like(A), torch.empty_like(F)
     for j in range(k):
         if j < 2:
@@ -210,27 +355,95 @@ def _partition_solve(a, b, c, f, k: int, threads: int):
         den = 1.0 - c0 * ap[:, 1]
         a0, c0, d0 = (a0 / den, -(c0 * cp[:, 1]) / den,
                       (d0 - c0 * dp[..., 1]) / den)
+    return (ap, cp, dp), (a0, c0, d0), (ap[:, -1], cp[:, -1], dp[..., -1])
 
-    def ends(first, last):  # [first_0, last_0, first_1, ...]
-        return torch.stack([first, last], dim=-1).flatten(-2)
 
-    x = _pcr_solve(ends(a0, ap[:, -1]),
-                   torch.ones((2 * threads,), dtype=a.dtype, device=a.device),
-                   ends(c0, cp[:, -1]), ends(d0, dp[..., -1]))
-    xf, xl = x[..., 0::2, None], x[..., 1::2, None]
+def _ends(first, last):
+    """[first_0, last_0, first_1, ...] along the last axis."""
+    return torch.stack([first, last], dim=-1).flatten(-2)
+
+
+def _recover(inner, xf, xl):
+    """Every block row from its block's end values x_0 = xf and x_(k-1) =
+    xl: x_j = d'_j - a'_j x_0 - c'_j x_(k-1). Returns the rows in order."""
+    ap, cp, dp = inner
+    xf, xl = xf[..., None], xl[..., None]
     out = dp - ap * xf - cp * xl
     out[..., 0] = xf[..., 0]
     out[..., -1] = xl[..., 0]
     return out.flatten(-2)
 
 
-def _tridiag_solve(a, b, c, f, ng: int):
-    """The solve of the ``solve_rows(ng)`` rows as the kernel for ng runs
-    it: ``_pcr_solve`` up to SMALL_MAX_ROWS, ``_partition_solve`` above
-    (with the double kernels' split for float64)."""
-    if ng <= SMALL_MAX_ROWS:
+def _partition_solve(a, b, c, f, k: int, threads: int):
+    """The large path's solve ('single') of a_i x_{i-1} + b_i x_i + c_i
+    x_{i+1} = f_i over rows = threads x k rows (identity rows past the
+    physical ones), in the kernels' operation order. ``f`` is (rows,) or
+    (R, rows). Block t holds rows t k .. t k + k - 1, reduced to its end
+    rows by ``_block_ends``; the blocks' first and last rows form a
+    tridiagonal system of 2 threads rows, solved by ``_pcr_solve``, and
+    the inner rows are recovered."""
+    inner, (a0, c0, d0), (al, cl, dl) = _block_ends(a, b, c, f, k, threads)
+    x = _pcr_solve(_ends(a0, al),
+                   torch.ones((2 * threads,), dtype=a.dtype, device=a.device),
+                   _ends(c0, cl), _ends(d0, dl))
+    return _recover(inner, x[..., 0::2], x[..., 1::2])
+
+
+def _cluster_solve(a, b, c, f, cluster: int, threads: int, k: int):
+    """The cluster mode's solve over rows = cluster x threads x k rows, in
+    the kernel's operation order (csrc/newton.cu newton_cluster_kernel).
+    The blocks' end rows as in ``_partition_solve``; CTA r's 2 T of them
+    with its first row F_r and last L_r set apart: row 1's coupling to F_r
+    and row 2 T - 2's to L_r become the columns p and q beside the R
+    right-hand sides, rows 0 and 2 T - 1 identity rows, and one PCR solves
+    every CTA's inner rows (x = y - p F_r - q L_r). Rows 1 and 2 T - 2
+    substituted into rows 0 and 2 T - 1 give the CTA's two rows of a
+    tridiagonal system of 2 C rows in (F_0, L_0, F_1, ...), solved by the
+    same PCR; then the end rows, then the inner rows."""
+    C, T = cluster, threads
+    one = f.dim() == 1
+    F = f[None] if one else f
+    inner, (a0, c0, d0), (al, cl, dl) = _block_ends(a, b, c, F, k, C * T)
+    ra, rc = _ends(a0, al).reshape(C, 2 * T), _ends(c0, cl).reshape(C, 2 * T)
+    rf = _ends(d0, dl).reshape(F.shape[0], C, 2 * T)
+    ia, ic, cols = ra.clone(), rc.clone(), torch.zeros(
+        (F.shape[0] + 2, C, 2 * T), dtype=a.dtype, device=a.device)
+    cols[:-2] = rf
+    cols[-2, :, 1] = ra[:, 1]  # p: row 1's coupling to F_r
+    ia[:, 1] = 0.0
+    cols[-1, :, -2] = rc[:, -2]  # q: row 2 T - 2's coupling to L_r
+    ic[:, -2] = 0.0
+    for edge in (0, -1):  # rows 0 and 2 T - 1: identity rows
+        ia[:, edge] = 0.0
+        ic[:, edge] = 0.0
+        cols[:, :, edge] = 0.0
+    sol = _pcr_solve(ia, torch.ones_like(ia), ic, cols)
+    y, p, q = sol[:-2], sol[-2], sol[-1]
+    # F_r: a0 L_(r-1) + (1 - c0 p_1) F_r - c0 q_1 L_r = f0 - c0 y_1
+    # L_r: -aL p_(2T-2) F_r + (1 - aL q_(2T-2)) L_r + cL F_(r+1) = fL - aL y_(2T-2)
+    e0a, e0c, eLa, eLc = ra[:, 0], rc[:, 0], ra[:, -1], rc[:, -1]
+    z = _pcr_solve(_ends(e0a, -(eLa * p[:, -2])),
+                   _ends(1.0 - e0c * p[:, 1], 1.0 - eLa * q[:, -2]),
+                   _ends(-(e0c * q[:, 1]), eLc),
+                   _ends(rf[..., 0] - e0c * y[..., 1], rf[..., -1] - eLa * y[..., -2]))
+    fr, lr = z[..., 0::2, None], z[..., 1::2, None]
+    x = y - p * fr - q * lr
+    x[..., 0] = fr[..., 0]
+    x[..., -1] = lr[..., 0]
+    x = x.reshape(F.shape[0], C * 2 * T)
+    out = _recover(inner, x[..., 0::2], x[..., 1::2])
+    return out[0] if one else out
+
+
+def _tridiag_solve(a, b, c, f, shape: LargeShape | None):
+    """The solve of the ``solve_rows`` rows as the kernel of ``shape`` runs
+    it: ``_pcr_solve`` on the small path (None), ``_partition_solve`` in
+    the mode 'single', ``_cluster_solve`` in 'cluster'."""
+    if shape is None:
         return _pcr_solve(a, b, c, f)
-    return _partition_solve(a, b, c, f, *large_split(ng, a.element_size()))
+    if shape.mode == "single":
+        return _partition_solve(a, b, c, f, shape.k, shape.threads)
+    return _cluster_solve(a, b, c, f, shape.cluster, shape.threads, shape.k)
 
 
 def _sum_sq(dphi, ng: int):
@@ -248,12 +461,15 @@ def _sum_sq(dphi, ng: int):
 _SCRATCH_ROWS = {"boltzmann_dirichlet": 5, "boltzmann_dn": 6, "tridiag3_chain": 5}
 
 
-def _path(what: str, rows: int, dev, dtype: torch.dtype = torch.float32):
+def _path(what: str, rows: int, dev, dtype: torch.dtype = torch.float32,
+          mode: str | None = None):
     """The kernel ``what`` launches for ``rows`` on ``dev`` in ``dtype``:
-    (its entry point's and launch count's name, (k, threads) or None,
-    scratch or None). Up to SMALL_MAX_ROWS the one-CTA kernel; above, the
-    large path with its split and its scratch; the double kernels' names
-    end in ``_f64``. Raises above LARGE_MAX_ROWS."""
+    (its launch count's name, its LargeShape or None, scratch or None).
+    Up to SMALL_MAX_ROWS the one-CTA kernel; above, the large path in the
+    mode ``large_shape`` gives (``mode`` forced; the chain has the mode
+    'single' alone) with its scratch (none when the rows'
+    scratch lies in shared memory); the double kernels' names end in
+    ``_f64``. Raises above LARGE_MAX_ROWS."""
     suffix = "_f64" if dtype == torch.float64 else ""
     if rows <= SMALL_MAX_ROWS:
         return what + suffix, None, None
@@ -261,10 +477,58 @@ def _path(what: str, rows: int, dev, dtype: torch.dtype = torch.float32):
         raise ValueError(
             f"{what} takes at most {LARGE_MAX_ROWS} rows on the card (the "
             f"large path's int offsets into its scratch), got {rows}")
-    k, threads = large_split(rows, torch.finfo(dtype).bits // 8)
-    scratch = torch.empty((_SCRATCH_ROWS[what] * k * threads,), dtype=dtype,
-                          device=dev)
-    return f"{what}_large{suffix}", (k, threads), scratch
+    item = torch.finfo(dtype).bits // 8
+    if what == "tridiag3_chain":
+        mode = "single"
+    shape = large_shape(rows, item, mode, dn=what == "boltzmann_dn")
+    scratch = None
+    if not shape.shared:
+        scratch = torch.empty((_SCRATCH_ROWS[what] * shape.rows,), dtype=dtype,
+                              device=dev)
+    return f"{what}_large{suffix}", shape, scratch
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, dn: bool, f64: bool, shape: LargeShape) -> int:
+    """Clusters of ``shape``'s cluster launch the card ``index`` holds at
+    once (cudaOccupancyMaxActiveClusters); raises if it cannot hold one."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().pypic_newton_clusters(
+            int(dn), int(f64), shape.k, shape.threads, shape.cluster, int(shape.shared),
+            ctypes.byref(count))
+    _build.check(err, "the Newton cluster mode (occupancy)")
+    if count.value < 1:
+        raise RuntimeError(
+            f"the Newton cluster mode: {torch.cuda.get_device_name(index)} cannot hold "
+            f"one cluster of {shape.cluster} CTAs x {shape.threads} threads with "
+            f"{shape.smem} B of shared memory a CTA (cudaOccupancyMaxActiveClusters = 0)")
+    return count.value
+
+
+def _launch_large(what: str, name: str, shape: LargeShape, scratch, ptrs, scalars, dev,
+                  ng: int) -> None:
+    """One launch of the large path of ``what`` (the Newton solves) in
+    ``shape``'s mode: the one-CTA entry point ``pypic_{what}_large`` or the
+    cluster's ``pypic_{what}_cluster`` (``_f64`` last for doubles), counted
+    under ``name`` and, by mode, in LARGE_LAUNCHES ("name mode"). A cluster
+    the card cannot hold raises."""
+    f64 = name.endswith("_f64")
+    lib = _build.library()
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    scr = None if scratch is None else scratch.data_ptr()
+    with torch.cuda.device(dev):
+        if shape.mode == "single":
+            fn = getattr(lib, f"pypic_{name}")
+            err = fn(*ptrs, scr, ng, shape.k, shape.threads, *scalars)
+        else:
+            _max_clusters(index, what == "boltzmann_dn", f64, shape)
+            fn = getattr(lib, f"pypic_{what}_cluster" + ("_f64" if f64 else ""))
+            err = fn(*ptrs, scr, ng, shape.k, shape.threads, shape.cluster,
+                     int(shape.shared), *scalars)
+    _build.check(err, f"{name} ({shape.mode})")
+    LAUNCHES[name] += 1
+    LARGE_LAUNCHES[f"{name} {shape.mode}"] += 1
 
 
 def _as_n0(n0, dev, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -288,14 +552,17 @@ def _start(rho, phi0):
 
 
 def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
-                              phi0=None):
+                              phi0=None, mode=None):
     """The kernel's Newton loop as tensor operations (pallas_newton.py
     _newton_dd_kernel), in its operation order, in rho's dtype (float32,
-    or float64: the double kernel's scalars and residual). Returns
-    NewtonResult."""
+    or float64: the double kernel's scalars and residual); above
+    SMALL_MAX_ROWS in the large path's mode (``large_shape``; ``mode``
+    forces it). Returns NewtonResult."""
     ng = rho.shape[0]
     dev, dtype = rho.device, rho.dtype
-    rows = solve_rows(ng, rho.element_size())
+    shape = (None if ng <= SMALL_MAX_ROWS else
+             large_shape(ng, rho.element_size(), mode, dn=False))
+    rows = kernel_rows(ng) if shape is None else shape.rows
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
     c0 = _coef(dtype) * _as_n0(n0, dev, dtype)[0]
     col = torch.arange(rows, device=dev)
@@ -321,7 +588,7 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
         f = torch.where(interior, f, 0.0)
         ddiag = torch.where(interior, jac_b * expo,
                             torch.where(boundary, jac_b, 0.0))
-        dphi = _tridiag_solve(a_lap, d_lap + ddiag, c_lap, f, ng)
+        dphi = _tridiag_solve(a_lap, d_lap + ddiag, c_lap, f, shape)
         dphi = torch.clamp(dphi, -step_max, step_max)
         phi = phi - dphi
         residual = _sum_sq(dphi, ng)
@@ -332,11 +599,13 @@ def boltzmann_dirichlet_plain(rho, n0, te, dx, tol=1e-9, maxiter=1000,
                         residual)
 
 
-def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
+def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None,
+                        mode=None):
     """Newton-Boltzmann D-D solve of the (ng,) float32 or float64 charge
     density rho for the potential, in one kernel launch on a CUDA tensor
-    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS; a
-    float64 rho the double kernel, counted under ``_f64``).
+    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS, in
+    the mode ``large_shape`` gives, or ``mode`` forced: 'single' or
+    'cluster'; a float64 rho the double kernel, counted under ``_f64``).
 
     ``n0`` is the Boltzmann reference density: a Python number or a 0-d
     tensor on rho's device (read there by the kernel). ``phi0`` is the warm
@@ -356,10 +625,9 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
         raise ValueError(f"boltzmann_dirichlet needs ng >= 3, got ng={ng}")
     if kind == "cpu":
         return boltzmann_dirichlet_plain(rho, n0, te, dx, tol=tol,
-                                         maxiter=maxiter, phi0=phi0)
+                                         maxiter=maxiter, phi0=phi0, mode=mode)
     dev, dtype = rho.device, rho.dtype
-    name, split, scratch = _path("boltzmann_dirichlet", ng, dev, dtype)
-    fn = getattr(_build.library(), f"pypic_{name}")
+    name, shape, scratch = _path("boltzmann_dirichlet", ng, dev, dtype, mode)
     n0_t = _as_n0(n0, dev, dtype)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
     phi = torch.empty((ng,), dtype=dtype, device=dev)
@@ -370,23 +638,26 @@ def boltzmann_dirichlet(rho, n0, te, dx, tol=1e-9, maxiter=1000, phi0=None):
             iters.data_ptr(), resid.data_ptr())
     scalars = (_coef(dtype), float(real(dtype)(EPSILON_0)), c1, dx2, tol32,
                int(maxiter), step_max, _EXP_CLAMP, _stream(dev))
+    if shape is not None:
+        _launch_large("boltzmann_dirichlet", name, shape, scratch, ptrs, scalars, dev, ng)
+        return NewtonResult(phi, iters, resid)
     with torch.cuda.device(dev):
-        if split is None:
-            err = fn(*ptrs, ng, kernel_rows(ng), *scalars)
-        else:
-            err = fn(*ptrs, scratch.data_ptr(), ng, *split, *scalars)
+        err = getattr(_build.library(), f"pypic_{name}")(*ptrs, ng, kernel_rows(ng), *scalars)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)
 
 
-def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
+def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100, mode=None):
     """The D-N kernel's Newton loop as tensor operations (pallas_newton.py
     _newton_dn_kernel), in its operation order, in n's dtype (float32 or
-    float64). Returns NewtonResult."""
+    float64); above SMALL_MAX_ROWS in the large path's mode (``mode``
+    forces it). Returns NewtonResult."""
     ng = n.shape[0]
     dev, dtype = n.device, n.dtype
-    rows = solve_rows(ng, n.element_size())
+    shape = (None if ng <= SMALL_MAX_ROWS else
+             large_shape(ng, n.element_size(), mode, dn=True))
+    rows = kernel_rows(ng) if shape is None else shape.rows
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
     coef = _coef(dtype)
     c0 = coef * _as_n0(n0, dev, dtype)[0]
@@ -416,7 +687,7 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
         ddiag = torch.where(inner, jac_b * expo,
                             torch.where(col == 0, jac_b, 0.0))
         y, z = _tridiag_solve(a_lap, d_lap + ddiag, c_lap,
-                              torch.stack([f, u_row]), ng)
+                              torch.stack([f, u_row]), shape)
         dphi = y - z * (y[ng - 3] / (1.0 + z[ng - 3]))
         dphi = torch.clamp(dphi, -step_max, step_max)
         phi = phi - dphi
@@ -428,11 +699,12 @@ def boltzmann_dn_plain(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
                         residual)
 
 
-def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
+def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100, mode=None):
     """Newton-Boltzmann D-N solve of the (ng,) float32 or float64 number
     density n for the potential, in one kernel launch on a CUDA tensor
-    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS; a
-    float64 n the double kernel, counted under ``_f64``).
+    (the large path above SMALL_MAX_ROWS nodes, up to LARGE_MAX_ROWS, in
+    the mode ``large_shape`` gives, or ``mode`` forced: 'single' or
+    'cluster'; a float64 n the double kernel, counted under ``_f64``).
 
     ``n0`` is the Boltzmann reference density, a Python number or a 0-d
     tensor on n's device; ``phi0`` the (ng,) warm start, used as it is (no
@@ -450,10 +722,9 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
         raise ValueError(f"boltzmann_dn needs ng >= 3, got ng={ng}")
     if kind == "cpu":
         return boltzmann_dn_plain(n, n0, te, dx, phi0, tol=tol,
-                                  maxiter=maxiter)
+                                  maxiter=maxiter, mode=mode)
     dev, dtype = n.device, n.dtype
-    name, split, scratch = _path("boltzmann_dn", ng, dev, dtype)
-    fn = getattr(_build.library(), f"pypic_{name}")
+    name, shape, scratch = _path("boltzmann_dn", ng, dev, dtype, mode)
     n0_t = _as_n0(n0, dev, dtype)
     c1, dx2, tol32, step_max = newton_scalars(te, dx, tol, dtype)
     phi = torch.empty((ng,), dtype=dtype, device=dev)
@@ -463,11 +734,11 @@ def boltzmann_dn(n, n0, te, dx, phi0, tol=1e-3, maxiter=100):
             iters.data_ptr(), resid.data_ptr())
     scalars = (_coef(dtype), c1, dx2, tol32, int(maxiter), step_max, _EXP_CLAMP,
                _stream(dev))
+    if shape is not None:
+        _launch_large("boltzmann_dn", name, shape, scratch, ptrs, scalars, dev, ng)
+        return NewtonResult(phi, iters, resid)
     with torch.cuda.device(dev):
-        if split is None:
-            err = fn(*ptrs, ng, kernel_rows(ng), *scalars)
-        else:
-            err = fn(*ptrs, scratch.data_ptr(), ng, *split, *scalars)
+        err = getattr(_build.library(), f"pypic_{name}")(*ptrs, ng, kernel_rows(ng), *scalars)
     _build.check(err, name)
     LAUNCHES[name] += 1
     return NewtonResult(phi, iters, resid)
@@ -492,7 +763,8 @@ def tridiag3_chain_plain(dl, d, du, f, *, first: bool, last: bool):
     right-hand side [f, e_0, e_(c-1)], the couplings dl[0] and du[c-1]
     left out. Returns ((3, c) [xp, u, w], (6,) interface scalars)."""
     c = d.shape[0]
-    rows = solve_rows(c)
+    shape = None if c <= SMALL_MAX_ROWS else large_shape(c, mode="single")
+    rows = kernel_rows(c) if shape is None else shape.rows
     dev, dt = d.device, d.dtype
     pad = torch.zeros((rows - c,), dtype=dt, device=dev)
     a = torch.cat([dl, pad])
@@ -504,7 +776,7 @@ def tridiag3_chain_plain(dl, d, du, f, *, first: bool, last: bool):
     rhs[0, :c] = f
     rhs[1, 0] = 1.0
     rhs[2, c - 1] = 1.0
-    x = _tridiag_solve(a, b, cu, rhs, c)[:, :c].contiguous()
+    x = _tridiag_solve(a, b, cu, rhs, shape)[:, :c].contiguous()
     return x, _chain_scalars(x, dl, du, first, last)
 
 
@@ -527,20 +799,20 @@ def tridiag3_chain(dl, d, du, f, *, first: bool, last: bool):
     if kind == "cpu":
         return tridiag3_chain_plain(dl, d, du, f, first=first, last=last)
     dev = d.device
-    name, split, scratch = _path("tridiag3_chain", c, dev)
+    name, shape, scratch = _path("tridiag3_chain", c, dev)
     lib = _build.library()
     x = torch.empty((3, c), dtype=torch.float32, device=dev)
     g6 = torch.empty((6,), dtype=torch.float32, device=dev)
     ptrs = (dl.data_ptr(), d.data_ptr(), du.data_ptr(), f.data_ptr(),
             x.data_ptr(), g6.data_ptr())
     with torch.cuda.device(dev):
-        if split is None:
+        if shape is None:
             err = lib.pypic_tridiag3_chain(*ptrs, c, kernel_rows(c),
                                            int(first), int(last), _stream(dev))
         else:
             err = lib.pypic_tridiag3_chain_large(
-                *ptrs, scratch.data_ptr(), c, *split, int(first), int(last),
-                _stream(dev))
+                *ptrs, scratch.data_ptr(), c, shape.k, shape.threads, int(first),
+                int(last), _stream(dev))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return x, g6

@@ -5,6 +5,7 @@ library outside the package's.
     python -m pypic_tpu_torch.tools.resident_split [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel explicit
     python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd|newton_dn [--first-port SOURCE]
+    python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd_large|newton_dn_large
     python -m pypic_tpu_torch.tools.resident_split --kernel deposit2|boris_deposit [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel picard_iteration
 
@@ -40,6 +41,19 @@ beside them, given its source file, for example from ``git show
 77b14a9:pypic_tpu_torch/csrc/newton.cu``. These kernels are shorter than a launch from the host, so each time is
 the median of five rounds of 20 launches queued behind a sleep, between
 CUDA events.
+
+``--kernel newton_dd_large`` and ``--kernel newton_dn_large`` split the
+Newton solves' large path (above 1,024 rows) at NEWTON_LARGE_SHAPES
+(4,096, 16,384 and 262,144 rows in float32, 16,384 in float64; phase
+24's load), each cut for 8 and for 64 iterations at tol 0, and report
+the us a further iteration of each (``further_us``): the one-CTA mode
+'single' (a) as it is, (b) without its PCR, (c) with the PCR and its
+barriers alone (no sweeps, no recovery: its end rows as the last full
+run left them), (d) at 4,096 rows (D-D, float32) with its scratch in
+shared memory; and (e) the cluster mode at C = 2, 4, 8 and 16 CTAs
+(``cuda_newton.large_shape``'s threads). ``chip_smoke.py`` phase 24
+times cut (c), the one-CTA latency floor, beside its forced pairs
+(``start_newton_floor_build``, ``newton_floor_us``).
 
 ``--kernel deposit2`` and ``--kernel boris_deposit`` split the magnetized
 deposits of ``csrc/magnetized.cu`` (``deposit2`` bounded; the carried
@@ -719,6 +733,12 @@ def _build_all(jobs, optional=()) -> tuple[dict, dict]:
     before the package's include directory (a first port's ``-I`` of its
     own header wins). A job of ``optional`` that fails to build is
     reported and left out."""
+    return _finish_builds(_start_builds(jobs), optional)
+
+
+def _start_builds(jobs) -> dict:
+    """_build_all's compilers, started and not waited for: {tag: (library
+    path, running nvcc)} for _finish_builds."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for tag, (text, flags) in jobs.items():
@@ -730,6 +750,11 @@ def _build_all(jobs, optional=()) -> tuple[dict, dict]:
                str(_build.CSRC_DIR), "-o", str(lib), str(src)]
         procs[tag] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _finish_builds(procs, optional=()) -> tuple[dict, dict]:
+    """Waits for _start_builds' compilers; returns _build_all's result."""
     libs, logs = {}, {}
     for tag, (lib, proc) in procs.items():
         log = proc.communicate()[0]
@@ -1754,9 +1779,219 @@ def _split_pass(_args, dev) -> tuple[dict, dict, dict]:
     return res, calls, {"per": "launch", "count": 1, "timer": _queued}
 
 
+# --kernel newton_dd_large|newton_dn_large: the Newton solves' large path
+# (csrc/newton.cu above 1,024 rows) at NEWTON_LARGE_SHAPES (rows, element
+# bytes), each cut run for 8 and for 64 iterations (tol 0): its us a
+# further iteration. Phase 24's load (chip_smoke.py _newton_large_solve:
+# 1e17 m^-3 with 30% noise, Te 10 eV, dx 2e-5 m; D-D cold, D-N warm start 0)
+NEWTON_LARGE_SHAPES = ((4096, 4), (16_384, 4), (262_144, 4), (16_384, 8))
+NEWTON_LARGE_ITERS = (8, 64)
+# the one-CTA large kernels ('single'): CUT selects what is taken out; the
+# loop runs the iterations asked for whatever its residual (CUT != 0)
+NEWTON_LARGE_CUTS = {
+    "(a) parent": 0,
+    "(b) no PCR": 1,                       # the sweeps and the recovery alone
+    "(c) PCR and barriers alone": 2,       # no sweep down, sweep up or recovery
+    "(d) scratch in shared memory": 3,     # D-D at 4,096 rows in float32, where it fits
+}
+# (e): the cluster mode (newton_cluster_kernel, not edited) at C CTAs of
+# large_shape's threads
+NEWTON_LARGE_CLUSTERS = (2, 4, 8, 16)
+_NEWTON_LARGE_EDITS = [
+    ("#include \"cic_common.cuh\"",
+     "#include \"cic_common.cuh\"\n#ifndef CUT\n#define CUT 0\n#endif\n"
+     "#define CUT_ENDS(R) do { const int e0 = block_at(0), e1 = block_at(B.k - 1); \\\n"
+     "  x0.a = B.ap[e0]; x0.b = (T)1; x0.c = B.cp[e0]; \\\n"
+     "  x1.a = B.ap[e1]; x1.b = (T)1; x1.c = B.cp[e1]; \\\n"
+     "  for (int r = 0; r < R; ++r) { \\\n"
+     "    x0.f[r] = B.dp[r * B.npad + e0]; x1.f[r] = B.dp[r * B.npad + e1]; } } while (0)", 1),
+    ("  while (it < s.maxiter && residual > s.tol) {",
+     "  while (it < s.maxiter && (CUT != 0 || residual > s.tol)) {", 2),
+    ("    pcr_solve_pair<1>(x0, x1, buf, 2 * T_);",
+     "    if (CUT != 1) pcr_solve_pair<1>(x0, x1, buf, 2 * T_);", 1),
+    ("    pcr_solve_pair<2>(x0, x1, buf, 2 * T_);",
+     "    if (CUT != 1) pcr_solve_pair<2>(x0, x1, buf, 2 * T_);", 1),
+    ("    sweep_down<1>(B, [&](int j) {\n      const int i = t * k + j;",
+     "    if (CUT != 2) sweep_down<1>(B, [&](int j) {\n      const int i = t * k + j;", 1),
+    ("    sweep_down<2>(B, [&](int j) {\n      const int i = t * k + j;",
+     "    if (CUT != 2) sweep_down<2>(B, [&](int j) {\n      const int i = t * k + j;", 1),
+    # (c): the block's two end rows read as the last full run left them
+    ("    Row<1, T> x0, x1;\n    sweep_up<1>(B, x0, x1);",
+     "    Row<1, T> x0, x1;\n    if (CUT != 2) sweep_up<1>(B, x0, x1);\n"
+     "    else CUT_ENDS(1);", 1),
+    ("    Row<2, T> x0, x1;\n    sweep_up<2>(B, x0, x1);",
+     "    Row<2, T> x0, x1;\n    if (CUT != 2) sweep_up<2>(B, x0, x1);\n"
+     "    else CUT_ENDS(2);", 1),
+    ("    double sq = 0.0;\n    for (int j = 0; j < k; ++j) {\n      T x;",
+     "    double sq = 0.0;\n    for (int j = 0; j < (CUT == 2 ? 0 : k); ++j) {\n      T x;", 1),
+    ("    double sq = 0.0;\n    for (int j = 0; j < k; ++j) {\n      T yz[2];",
+     "    double sq = 0.0;\n    for (int j = 0; j < (CUT == 2 ? 0 : k); ++j) {\n      T yz[2];",
+     1),
+    # (d): the D-D kernel's scratch after its PCR buffers and edge phi
+    ("  __shared__ T s_redf[32];\n  T* phi_s = scratch;\n  T* c2_s = scratch + npad;  // dx^2 c2\n"
+     "  const Blocks<T> B = newton_blocks(scratch, k, npad);\n  const T c0",
+     "  __shared__ T s_redf[32];\n  if (CUT == 3) scratch = s_edge + 2 * T_;\n"
+     "  T* phi_s = scratch;\n  T* c2_s = scratch + npad;  // dx^2 c2\n"
+     "  const Blocks<T> B = newton_blocks(scratch, k, npad);\n  const T c0", 1),
+    ("  const size_t smem = newton_smem<1, T>(2 * threads);",
+     "  const size_t smem = newton_smem<1, T>(2 * threads) +\n"
+     "                      (CUT == 3 ? 5 * (size_t)threads * k * sizeof(T) : 0);", 1),
+]
+
+
+def _split_newton_large(args, dev) -> tuple[dict, dict, dict]:
+    """The large path's cuts (NEWTON_LARGE_CUTS) and its cluster mode at
+    NEWTON_LARGE_CLUSTERS, at NEWTON_LARGE_SHAPES, each for 8 and 64
+    iterations; returns the calls and, in ``unit['further']``, the us a
+    further iteration of each from its two times."""
+    from ..ops import cuda_newton
+
+    dn = args.kernel == "newton_dn_large"
+    text = _edited((_build.CSRC_DIR / "newton.cu").read_text(), _NEWTON_LARGE_EDITS)
+    jobs = {tag: (text, [f"-DCUT={cut}"]) for tag, cut in NEWTON_LARGE_CUTS.items()
+            if not (cut == 3 and dn)}
+    libs, logs = _build_all(jobs)
+    for line in _kernel_report(logs["(a) parent"], "newton_cluster"):
+        print(f"[ptxas] {line}", flush=True)
+    for lib in libs.values():
+        _bind_newton_large(lib, dn)
+        lib.pypic_newton_clusters.argtypes = _build._SIGNATURES["pypic_newton_clusters"][0]
+        lib.pypic_newton_clusters.restype = _I
+    calls, counts, res = {}, {}, {"shapes": {}}
+    for rows, item in NEWTON_LARGE_SHAPES:
+        dtype = torch.float64 if item == 8 else torch.float32
+        label = f"{rows} rows, {'float64' if item == 8 else 'float32'}"
+        shapes = {"single": cuda_newton.large_shape(rows, item, "single", dn=dn)}
+        for c in NEWTON_LARGE_CLUSTERS:
+            shapes[f"C {c}"] = cuda_newton.large_shape(rows, item, "cluster", c, dn=dn)
+        res["shapes"][label] = {k: dataclasses.asdict(v) for k, v in shapes.items()}
+        call = newton_large_caller(dn, rows, dtype, dev, max(v.rows for v in shapes.values()))
+        cases = [(tag, libs[tag], shapes["single"]) for tag in libs
+                 if not (NEWTON_LARGE_CUTS[tag] == 3 and (rows, item) != (4096, 4))]
+        cases += [(f"(e) cluster C = {c}", libs["(a) parent"], shapes[f"C {c}"])
+                  for c in NEWTON_LARGE_CLUSTERS]
+        # (c) reads the end rows the last full run left in the scratch
+        call(libs["(a) parent"], shapes["single"], NEWTON_LARGE_ITERS[0])
+        for tag, lib, shape in cases:
+            for its in NEWTON_LARGE_ITERS:
+                name = f"{label}: {tag}, {its} iterations"
+                calls[name] = functools.partial(call, lib, shape, its)
+                counts[name] = its
+
+    def further(ms: dict) -> dict:
+        lo, hi = NEWTON_LARGE_ITERS
+        out = {}
+        for name in ms:
+            if name.endswith(f", {lo} iterations"):
+                base = name[:-len(f", {lo} iterations")]
+                a, b = ms[name], ms.get(f"{base}, {hi} iterations")
+                if b and all(v is not None for v in a + b):
+                    out[base] = 1e3 * (min(b) - min(a)) / (hi - lo)
+        return out
+
+    return res, calls, {"per": "iteration", "count": counts, "timer": _queued,
+                        "further": further}
+
+
+def _bind_newton_large(lib, dn: bool) -> None:
+    """The argument types of the Newton large path's entry points (both
+    modes, both dtypes) of a library built here."""
+    what = "boltzmann_dn" if dn else "boltzmann_dirichlet"
+    for suffix in ("", "_f64"):
+        for kind in ("large", "cluster"):
+            fn = getattr(lib, f"pypic_{what}_{kind}{suffix}")
+            fn.argtypes, fn.restype = _build._SIGNATURES[f"pypic_{what}_{kind}{suffix}"]
+
+
+def newton_large_caller(dn: bool, rows: int, dtype, dev, scratch_rows: int):
+    """call(lib, shape, maxiter): one launch of the Newton large path of
+    ``lib`` (D-N if ``dn``, else D-D; the entry point of ``shape``'s mode,
+    ``_f64`` for float64) at tol 0 on phase 24's load at ``rows`` in
+    ``dtype`` (chip_smoke.py _newton_large_solve: 1e17 m^-3 with 30% noise,
+    Te 10 eV, dx 2e-5 m; D-D cold, D-N warm start 0), the wrappers'
+    scalars; every call shares one scratch of ``scratch_rows`` rows (cut
+    (c) reads the end rows the last full run left there)."""
+    from ..constants import E_CHARGE
+    from ..ops import cuda_newton
+
+    what = "boltzmann_dn" if dn else "boltzmann_dirichlet"
+    suffix = "_f64" if dtype == torch.float64 else ""
+    rng = np.random.default_rng(11 + rows)
+    num = (1e17 * (1.0 + 0.3 * rng.standard_normal(rows))).clip(1e15)
+    dens = torch.from_numpy(num * (1.0 if dn else E_CHARGE)).to(dtype).to(dev)
+    n0 = torch.full((1,), 0.9e17 if dn else 1e17, dtype=dtype, device=dev)
+    phi0 = torch.zeros(rows, dtype=dtype, device=dev)
+    phi = torch.empty(rows, dtype=dtype, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    resid = torch.empty((), dtype=dtype, device=dev)
+    scratch = torch.empty((6 * scratch_rows,), dtype=dtype, device=dev)
+    c1, dx2, _, step_max = cuda_newton.newton_scalars(11600.0 * 10.0, 2e-5, 0.0, dtype)
+    coef = cuda_newton._coef(dtype)
+    head = (coef,) if dn else (coef, float(cuda_newton.real(dtype)(EPSILON_0)))
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    tensors = (dens, n0, phi0, phi, iters, resid, scratch)  # alive as long as call
+
+    def call(lib, shape, maxiter):
+        ptrs = tuple(None if (t is phi0 and not dn) else t.data_ptr() for t in tensors)
+        tail = (c1, dx2, 0.0, maxiter, step_max, cuda_newton._EXP_CLAMP, stream)
+        if shape.mode == "single":
+            err = getattr(lib, f"pypic_{what}_large{suffix}")(
+                *ptrs, rows, shape.k, shape.threads, *head, *tail)
+        else:
+            err = getattr(lib, f"pypic_{what}_cluster{suffix}")(
+                *ptrs, rows, shape.k, shape.threads, shape.cluster, int(shape.shared),
+                *head, *tail)
+        _build.check(err, "resident_split")
+
+    return call
+
+
+# The one-CTA large path's latency floor: cut (c) of NEWTON_LARGE_CUTS (its
+# PCR and barriers alone), us a further iteration between the
+# NEWTON_LARGE_ITERS solves, for chip_smoke.py phase 24: its library
+# compiles beside the package's (start_newton_floor_build, then
+# newton_floor_library) and newton_floor_us times it
+NEWTON_FLOOR_CUT = "(c) PCR and barriers alone"
+
+
+def start_newton_floor_build() -> dict:
+    """Starts nvcc on csrc/newton.cu with cut (c); the handle for
+    newton_floor_library."""
+    text = _edited((_build.CSRC_DIR / "newton.cu").read_text(), _NEWTON_LARGE_EDITS)
+    return _start_builds({"newton floor": (text,
+                                           [f"-DCUT={NEWTON_LARGE_CUTS[NEWTON_FLOOR_CUT]}"])})
+
+
+def newton_floor_library(build: dict):
+    """Waits for start_newton_floor_build's nvcc; returns the library."""
+    return _finish_builds(build)[0]["newton floor"]
+
+
+def newton_floor_us(cut, cases, dev) -> dict:
+    """The latency floor of the one-CTA large path at each (dn, rows,
+    dtype) of ``cases``: cut (c)'s us a further iteration (the least of
+    two _queued times of each solve) in ``cut`` (newton_floor_library's),
+    after one full NEWTON_LARGE_ITERS[0] solve of the package's own kernel
+    on the same scratch. Returns {(dn, rows, dtype): us}."""
+    from ..ops import cuda_newton
+
+    lo, hi = NEWTON_LARGE_ITERS
+    out = {}
+    for dn, rows, dtype in cases:
+        _bind_newton_large(cut, dn)
+        shape = cuda_newton.large_shape(rows, torch.finfo(dtype).bits // 8, "single", dn=dn)
+        call = newton_large_caller(dn, rows, dtype, dev, shape.rows)
+        call(_build.library(), shape, lo)
+        ms = {its: min(_queued(functools.partial(call, cut, shape, its)) for _ in range(2))
+              for its in (lo, hi)}
+        out[(dn, rows, dtype)] = 1e3 * (ms[hi] - ms[lo]) / (hi - lo)
+    return out
+
+
 def main() -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("implicit", "explicit", "newton_dd", "newton_dn",
+                                         "newton_dd_large", "newton_dn_large",
                                          "deposit2", "boris_deposit", "deposit",
                                          "deposit_det", "source_batch",
                                          "picard_iteration"),
@@ -1775,7 +2010,8 @@ def main() -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     split = {"explicit": _split_explicit, "newton_dd": _split_newton,
-             "newton_dn": _split_newton, "deposit2": _split_deposit,
+             "newton_dn": _split_newton, "newton_dd_large": _split_newton_large,
+             "newton_dn_large": _split_newton_large, "deposit2": _split_deposit,
              "boris_deposit": _split_deposit, "deposit": _split_single,
              "deposit_det": _split_single,
              "source_batch": _split_source,
@@ -1794,6 +2030,10 @@ def main() -> dict:
             count = unit["count"][tag] if isinstance(unit["count"], dict) else unit["count"]
             print(f"[split] {tag}: {ms:.4f} ms, {ms * 1e3 / count:.3f} us a "
                   f"{unit['per']}", flush=True)
+    if "further" in unit:
+        res["further_us"] = unit["further"](res["ms"])
+        for tag, us in res["further_us"].items():
+            print(f"[split] {tag}: {us:.3f} us a further iteration", flush=True)
     print(json.dumps(res))
     return res
 

@@ -596,6 +596,55 @@ def test_boltzmann_dirichlet_kernel_matches_plain(cuda_device, ng):
     _rel_close(ref_w.phi, got_w.phi, 3e-5)
 
 
+# the Newton large path's forced modes against their plain versions: 8
+# iterations at tol 0 (the same loop on both sides), phi within 1e-5 of
+# its largest (chip_smoke.py TOL_CHAIN: the plain version repeats the
+# kernel's operation order; expf against PyTorch's exp and the sums'
+# float64 order apart). 1,537 rows at C = 4 CTAs of 128 threads, k = 4:
+# the D-N Neumann row ng - 1 on a CTA's first row, row ng - 3 on the CTA
+# before's last thread
+NEWTON_CLUSTER_FORCED = {1537: (4, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["single", "cluster"])
+@pytest.mark.parametrize("kind", ["dd", "dn"])
+@pytest.mark.parametrize("ng", [1025, 1537, 4100, 16_384])
+def test_newton_large_modes_match_plain(cuda_device, ng, kind, mode, monkeypatch):
+    """Rows 22 and 23's large path in each mode ('single': one CTA;
+    'cluster': the thread-block cluster, NEWTON_CLUSTER_FORCED's shape
+    where named) against its own mode's plain version: one launch of the
+    large path in that mode, the same iterations, phi within 1e-5 of its
+    largest."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    real = cuda_newton.large_shape
+    if mode == "cluster" and ng in NEWTON_CLUSTER_FORCED:
+        c, t = NEWTON_CLUSTER_FORCED[ng]
+        monkeypatch.setattr(cuda_newton, "large_shape",
+                            lambda rows, item=4, m=None, cl=None, th=None, dn=True:
+                            real(rows, item, "cluster", c, t, dn))
+    rng = np.random.default_rng(11 + ng)
+    dens = (1e17 * (1.0 + 0.3 * rng.standard_normal(ng))).clip(1e15)
+    te, dx, kw = 116000.0, 2e-5, dict(tol=0.0, maxiter=8, mode=mode)
+    cuda_cic.reset_launch_counts()
+    if kind == "dd":
+        rho = torch.from_numpy((1.602e-19 * dens).astype(np.float32)).to(cuda_device)
+        got = cuda_newton.boltzmann_dirichlet(rho, 1e17, te, dx, **kw)
+        ref = cuda_newton.boltzmann_dirichlet_plain(rho, 1e17, te, dx, **kw)
+        name = "boltzmann_dirichlet_large"
+    else:
+        n = torch.from_numpy(dens.astype(np.float32)).to(cuda_device)
+        zero = torch.zeros(ng, dtype=torch.float32, device=cuda_device)
+        got = cuda_newton.boltzmann_dn(n, 0.9e17, te, dx, zero, **kw)
+        ref = cuda_newton.boltzmann_dn_plain(n, 0.9e17, te, dx, zero, **kw)
+        name = "boltzmann_dn_large"
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"{name} {mode}": 1}
+    assert int(got.iterations) == int(ref.iterations) == 8
+    _rel_close(ref.phi, got.phi, 1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", N_MAG + (1_000_003,))
 def test_source_batch_kernel_matches_plain(cuda_device, n):

@@ -550,6 +550,37 @@ def test_double_newton_matches_plain(cuda_device, kind, ng):
         assert _rel(ref.phi, got.phi) <= 1e-12
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["single", "cluster"])
+@pytest.mark.parametrize("ng", [1025, 4096, 16_384])
+@pytest.mark.parametrize("kind", ["dd", "dn"])
+def test_double_newton_large_modes_match_plain(cuda_device, kind, ng, mode):
+    """Rows 22 and 23's double kernels on the large path in each mode
+    forced ('single', 'cluster') against their own mode's float64 plain
+    version, 8 iterations at tol 0: one launch in that mode, the same
+    iterations, phi within 1e-12 of its largest (the same partition order
+    in float64; libdevice's exp against PyTorch's)."""
+    from pypic_tpu_torch.ops import cuda_newton
+
+    cfg, dens, n0 = _newton_load(kind, ng, cuda_device)
+    args, kw = (dens, n0, cfg.te, cfg.grid.dx), dict(tol=0.0, maxiter=8, mode=mode)
+    cuda_cic.reset_launch_counts()
+    if kind == "dd":
+        got = cuda_newton.boltzmann_dirichlet(*args, **kw)
+        ref = cuda_newton.boltzmann_dirichlet_plain(*args, **kw)
+        name = "boltzmann_dirichlet_large_f64"
+    else:
+        phi0 = torch.zeros(ng, dtype=torch.float64, device=cuda_device)
+        got = cuda_newton.boltzmann_dn(*args, phi0, **kw)
+        ref = cuda_newton.boltzmann_dn_plain(*args, phi0, **kw)
+        name = "boltzmann_dn_large_f64"
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"{name} {mode}": 1}
+    assert got.phi.dtype == torch.float64
+    assert int(got.iterations) == int(ref.iterations) == 8
+    assert _rel(ref.phi, got.phi) <= 1e-12
+
+
 # card against CPU, one float64 step: the tolerances (positions in cells,
 # the rest relative to the largest): float64 sums in other orders, the
 # card's PCR against the CPU's Thomas solve (float64 rounding of the

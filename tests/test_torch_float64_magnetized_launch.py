@@ -115,7 +115,7 @@ def test_double_newton_large_split(rows, k, threads):
     is the one it was."""
     assert cuda_newton.large_split(rows, 8) == (k, threads)
     assert threads <= cuda_newton.LARGE_F64_THREADS and k * threads >= rows
-    assert cuda_newton.solve_rows(rows, 8) == k * threads
+    assert cuda_newton.solve_rows(rows, 8, mode="single") == k * threads
     # the float32 path: ceil(rows / 1024) rows a thread (frozen)
     k32 = -(-rows // 1024)
     assert cuda_newton.large_split(rows)[0] == k32
@@ -127,20 +127,23 @@ def test_double_newton_large_split(rows, k, threads):
 
 def test_newton_paths_name_their_double_entry_points():
     """cuda_newton._path names the double kernel's entry point and launch
-    count (``_f64`` last) and gives its large path a float64 scratch of
-    (4 + R) k threads elements; each name is a launcher of the library
-    and a key of LAUNCHES."""
+    count (``_f64`` last) and gives its large path in the mode 'single' a
+    float64 scratch of (4 + R) k threads elements; each name is a
+    launcher of the library and a key of LAUNCHES, and the cluster mode's
+    entry points (``_cluster``, ``_f64`` last) are launchers too."""
     cpu = torch.device("cpu")
     for what, rows_r in (("boltzmann_dirichlet", 5), ("boltzmann_dn", 6)):
         for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
             name, split, scratch = cuda_newton._path(what, 800, cpu, dtype)
             assert (name, split, scratch) == (what + suffix, None, None)
-            name, split, scratch = cuda_newton._path(what, 4096, cpu, dtype)
+            name, shape, scratch = cuda_newton._path(what, 4096, cpu, dtype, mode="single")
             assert name == f"{what}_large{suffix}"
-            assert split == cuda_newton.large_split(4096, torch.finfo(dtype).bits // 8)
-            assert scratch.dtype == dtype and scratch.numel() == rows_r * split[0] * split[1]
+            assert (shape.k, shape.threads) == cuda_newton.large_split(
+                4096, torch.finfo(dtype).bits // 8)
+            assert scratch.dtype == dtype and scratch.numel() == rows_r * shape.rows
             for n in (what + suffix, f"{what}_large{suffix}"):
                 assert f"pypic_{n}" in _build._SIGNATURES and n in cuda_cic.LAUNCHES
+            assert f"pypic_{what}_cluster{suffix}" in _build._SIGNATURES
     with pytest.raises(ValueError, match="at most"):
         cuda_newton._path("boltzmann_dn", cuda_newton.LARGE_MAX_ROWS + 1, cpu, torch.float64)
 

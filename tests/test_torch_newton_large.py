@@ -57,11 +57,12 @@ def _density(ng: int, seed: int) -> np.ndarray:
 def test_large_split_from_the_row_count(rows, k, threads):
     """(k, threads) from the row count alone: k = ceil(rows / 1024),
     threads = ceil(rows / k) rounded up to a warp, at most 1,024; the
-    system holds every row and solve_rows is its size."""
+    system holds every row and solve_rows is its size in the mode
+    'single' (the one-CTA large path)."""
     assert cuda_newton.large_split(rows) == (k, threads)
     assert threads % 32 == 0 and 32 <= threads <= 1024
     assert threads * k >= rows > threads * (k - 1) - 32 * k
-    assert cuda_newton.solve_rows(rows) == threads * k
+    assert cuda_newton.solve_rows(rows, mode="single") == threads * k
 
 
 def test_large_split_starts_above_the_small_path():
@@ -182,14 +183,20 @@ def test_boltzmann_dn_large_plain_matches_pallas(ng):
 NG_STEP = 2048  # k = 2 rows a thread, 1,024 threads
 
 
-def test_magnetized_step_on_the_large_path_matches_jax():
+def test_magnetized_step_on_the_large_path_matches_jax(monkeypatch):
     """One magnetized step at ng = 2,048 with newton_backend 'pallas' from
-    JAX's state after one step: the port's plain partition Newton against
+    JAX's state after one step: the port's plain partition Newton in the
+    one-CTA mode 'single' (forced: the rule takes the cluster mode here,
+    tests/test_torch_newton_cluster.py) against
     boltzmann_dirichlet_pallas in interpret mode, the JAX source draws
     replayed; tests/test_torch_size_limits.py's mag_pair limits (rho rtol
     1e-4, phi rtol 1e-3 / atol 1e-8, active positions rtol 2e-5 / atol
     1e-5, velocities rtol 2e-4 / atol 1, equal counts, Newton counts
     within one)."""
+    real = cuda_newton.large_shape
+    monkeypatch.setattr(cuda_newton, "large_shape",
+                        lambda rows, item=4, mode=None, *a, **kw: real(rows, item, "single",
+                                                                      *a, **kw))
     jpre = jpresets.pic_iead(n_per_species=500, ng=NG_STEP)
     js1, _ = jax.jit(jmag.make_step(jpre.config))(jpre.state)
     jcfg = dc.replace(jpre.config, newton_backend="pallas")
