@@ -381,9 +381,9 @@ Phases (any failure raises and the script exits non-zero):
    gather, leapfrog_gather_push_deposit, boris_gather_push, the slab pass
    and both slab finalizes, the slab leapfrog push and
    explicit_domain_cycle) each in its global mode (the field read from
-   device memory, every add a global float atomic; rows 1 and 2 in the
-   mode cuda_cic.cluster_launch names, the cluster mode at 32,768 and
-   the pair mode above, with the global mode's record beside) at ng
+   device memory, every add a global float atomic; rows 1, 2, 14 and 17
+   in the mode cuda_cic.cluster_launch names, with the global mode's
+   record beside) at ng
    32,768 where its old ceiling lies below that and at 65,536 and 2^20,
    n = 1e7, against
    its plain version at its own kernel phase's checks and limits, timed
@@ -407,7 +407,20 @@ Phases (any failure raises and the script exits non-zero):
    65,536 on one NCCL rank (n = 1e7, 5 steps each after one, timed), one
    step at n = 1e6
    on a group-less rank card against CPU and on two gloo ranks on the
-   card against two on the CPU; the configs[3] load at 65,536 fused (and
+   card against two on the CPU; the fused two-stream (row 14) and
+   configs[4] on one NCCL rank and on two gloo ranks on the card (n =
+   5e5, ext_n 41,273 a rank, 6 rows a node: row 17's pair mode) in
+   MODE_TURNS: the global mode, the rule's, the rule's, the global mode,
+   ms/step, the energy change (on two gloo ranks held to TURN_ENERGY_FACTOR
+   times the global turns'), the Picard mean, n_dropped and each turn's
+   launches by mode; in the cluster mode's range (n = 1e7, 180-360 rows
+   a node) configs[4] on one NCCL rank at ng PERIODIC_CLUSTER_NGS (ext_n
+   ~27,800, ~37,000, ~55,500; the shared window at 32,768) and the fused
+   two-stream at 32,768, float32 in CLUSTER_TURNS (global, cluster, pair,
+   pair, cluster, global) and float64 in CLUSTER_TURNS_F64 (its energy
+   held to TURN_ENERGY_FACTOR times the global turns'), each turn's
+   row 14 or 17 device ms a step from a profiled step; the
+   configs[3] load at 65,536 fused (and
    phase 39's float64 check) and composed; the composed sheath loop at
    65,536 (n = 1e6, phase 40's checks). It fails if a row's large mode
    never launched on a path.
@@ -504,11 +517,13 @@ Phases (any failure raises and the script exits non-zero):
    TOL64_SOLVE of the direct solve of its own rho1 and TOL64_SOLVE_PLAIN
    of the plain e1), then timed (device_ms, warm) beside the float32
    kernel on the same rows, the plain version and the bound (twice the
-   float32 bytes, 16 B a node more in the global mode): row 13 at n =
+   float32 bytes, 16 B a node more in the large modes): row 13 at n =
    6104 * 16384, ng 200; row 14 there at ng 4,096 (shared mode) and at n
-   = 1e7, ng 65,536 (global mode), each launch's mode checked. Then the
+   = 1e7, ng 32,768 (cluster mode, C = 2) and 65,536 (global mode), each
+   launch's mode checked (cuda_cic.cluster_launch). Then the
    engine's routes on the explicit two-stream at n = 1e6: fused at ng 200
-   (row 13), 4,096 and 65,536 (row 14 in both modes), composed at 200
+   (row 13), 4,096, 32,768 and 65,536 (row 14 in its three modes),
+   composed at 200
    (the double gather and deposit), three steps on the CPU's float64
    route and the card one step from each CPU state, held at TOL64_STEP
    (rho in j's place), only the route's double kernels launched. Then the
@@ -517,7 +532,7 @@ Phases (any failure raises and the script exits non-zero):
    energy change under EXPLICIT_ENERGY_BOUND in both, no float kernel in
    the float64 run. It fails if a double kernel never launched on its
    path (the float64 two-stream's for row 13, the ng 4,096 route's for
-   row 14).
+   row 14, the ng 32,768 route's for its cluster mode).
 
 Each phase prints its wall seconds. The line before the last is one JSON
 object describing each kernel; the last line is {"ok": true, "device":
@@ -1024,6 +1039,42 @@ def cuda_ms(fn, reps: int = 10, calls: int = 10) -> float:
     return statistics.median(times)
 
 
+def _trace_durations(prof) -> dict:
+    """{name: [µs, ...]} of the kernels, memsets and copies in a
+    torch.profiler trace."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"):
+            durs[e["name"]].append(e["dur"])
+    return durs
+
+
+def _step_device_ms(step, st, words, steps: int = 3) -> tuple:
+    """``steps`` steps of ``step`` from state ``st`` under torch.profiler:
+    (the state, the device ms a step of every kernel, memset and copy, the
+    ms a step of those whose name holds one of ``words``), each kernel
+    counted as ``device_ms`` counts it (its mean duration times its
+    launches a step: a trace can drop launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            st, _ = step(st)
+        torch.cuda.synchronize()
+    per = {name: statistics.fmean(d) * max(1, round(len(d) / steps)) / 1e3
+           for name, d in _trace_durations(prof).items()}
+    mine = sum(ms for name, ms in per.items() if any(w in name for w in words))
+    return st, sum(per.values()), mine
+
+
 def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
     """Device time of one call of fn in ms: the kernels (and memsets) it
     launches, from a torch.profiler trace of ``calls`` calls after a
@@ -1039,9 +1090,6 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
     now and then comes back empty. Such a trace is taken again up to
     ``tries`` times; after that the call is timed by ``queued_ms``, which
     the log line names."""
-    import os
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1052,16 +1100,7 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        durs = collections.defaultdict(list)
-        for e in events:
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset",
-                                                       "gpu_memcpy"):
-                durs[e["name"]].append(e["dur"])
+        durs = _trace_durations(prof)
         if durs:
             ms = sum(statistics.fmean(d) * max(1, round(len(d) / calls))
                      for d in durs.values()) / 1e3
@@ -7778,8 +7817,8 @@ def periodic_large_kernel_times(dev) -> dict:
     at PERIODIC_MID_NG where its old ceiling lies below it and at
     LARGE_KERNEL_NGS, n = PERIODIC_LARGE_N, checked and timed; each
     shape's launches counted by mode (every one must be the global mode,
-    or for rows 1 and 2 the mode cuda_cic.cluster_launch names, whose
-    record keeps the global mode's beside it under "global_mode").
+    or for rows 1, 2, 14 and 17 the mode cuda_cic.cluster_launch names,
+    whose record keeps the global mode's beside it under "global_mode").
     Returns {kernel: {shape: record}}."""
     from pypic_tpu_torch.ops import cuda_cic as K
 
@@ -7820,16 +7859,18 @@ def _forced_pass_mode(mode: str):
         K._pass_launch = real
 
 
-# forced_mode_times' shapes of rows 1 and 2: every mode that can launch
-# there, in float32 and float64
+# forced_mode_times' shapes of the kernels of cuda_cic.CLUSTER_KERNELS
+# (rows 1, 2, 14 and 17): every mode that can launch there, in each dtype
+# the kernel takes; row 14 also at two grids of its shared mode
 PASS_MODE_NGS = (16_384, 28_672, 32_768, 57_344, 65_536, 262_144, 1 << 20)
+LEAPFROG_MODE_NGS = (4_096, 8_192)
 PASS_MODE_NS = (10_000_000, N_HEADLINE)
 PASS_MODES = ("shared", "global", "cluster", "pair")
 
 
 def _pass_modes(name: str, n: int, ng: int, item: int) -> list:
-    """The modes of PASS_MODES row 1 or 2 can launch at (n, ng) in
-    ``item``-byte elements."""
+    """The modes of PASS_MODES kernel ``name`` (one of CLUSTER_KERNELS) can
+    launch at (n, ng) in ``item``-byte elements."""
     from pypic_tpu_torch.ops import cuda_cic as K
 
     out = ["global"]
@@ -7842,21 +7883,54 @@ def _pass_modes(name: str, n: int, ng: int, item: int) -> list:
     return out
 
 
-def _pass_mode_case(name: str, n: int, ng: int, dtype, modes, gen, dev) -> dict:
-    """Row 1 or 2 (``name``) on one set of random inputs at (n, ng) of
-    ``dtype``, in each of ``modes`` forced: its current within TOL_DEP of
-    a float64 sum of the plain version's terms (float32) or deposit_tol64
-    of the float64 plain version, ph, v1 and the clamp count bit-equal to
-    the global mode's (the parent's kernel), then timed (device_ms).
-    Returns {mode: ms}."""
+def _mode_case_calls(name: str, n: int, ng: int, dtype, gen, dev):
+    """Kernel ``name`` of CLUSTER_KERNELS on one set of random inputs at (n,
+    ng) of ``dtype``: (call, the index of its sum, {output: index} of the
+    outputs every mode must give the global mode's bits of, the exact sum,
+    its limit, what the limit is). ``call(True)`` returns every output
+    (v1 too); ``call(False)`` is the launch the paths time (no v1). The
+    exact sum: a float64 sum of the plain version's float32 terms (TOL_DEP),
+    or the float64 plain version (deposit_tol64)."""
     from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.ops import cuda_domain as KD
 
-    shared = name == "picard_iteration_shared"
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    if name.startswith("picard_iteration_ext"):  # row 17: the slab, float32
+        shared = name.endswith(" shared")
+        fr = _slab_frame(ng)
+        f32 = torch.float32
+        p0 = torch.rand(n, generator=gen, device=dev, dtype=f32) * (
+            fr["hi"] - fr["lo"] + 6.0) + (fr["lo"] - 3.0)
+        ps = p0 + torch.randn(n, generator=gen, device=dev, dtype=f32) * 0.3
+        v0 = torch.randn(n, generator=gen, device=dev, dtype=f32) * 1e5
+        field = torch.randn(ng, generator=gen, device=dev, dtype=f32) * 30.0
+        w = torch.full((n,), W, dtype=f32, device=dev)
+        w[torch.rand(n, generator=gen, device=dev) < 0.05] = 0.0
+        args = (field, ps, p0, v0, w)
+        skw = dict(qm=float(torch.tensor(QM, dtype=f32)), dt=DT, dx=DX, lo=fr["lo"],
+                   hi=fr["hi"], shared=shared)
+        exact = KD.picard_iteration_ext_plain(*args, emit_v=True, acc_dtype=torch.float64,
+                                              **skw)[2]
+        bits = {"ph": 0, "v1": 1, **({"n_clamped": 3} if shared else {})}
+        return (lambda emit_v: KD.picard_iteration_ext(*args, emit_v=emit_v, **skw), 2, bits,
+                exact, TOL_DEP, "rel vs float64 sums")
+    f64 = dtype == torch.float64
+    e, ps, p0, v0 = (t.to(dtype) for t in _random_pass_inputs(n, gen, dev, True, ng))
+    if name == "leapfrog_gather_push_deposit":  # row 14
+        ref = K.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)
+        if f64:
+            exact, tol, kind = ref[2], deposit_tol64(n), "rel vs the float64 plain version"
+        else:
+            w32 = K.leapfrog_scalars(QM, DT, DX, W)[2]
+            exact = K.deposit_plain(ref[0].double(), torch.full_like(ref[0], w32).double(),
+                                    ng, periodic=True)
+            tol, kind = TOL_DEP, "rel vs float64"
+        del ref
+        return (lambda emit_v: K.leapfrog_gather_push_deposit(e, p0, v0, **kw), 2,
+                {"p1": 0, "v1": 1}, exact, tol, kind)
+    shared = name == "picard_iteration_shared"  # rows 1 and 2
     fn = K.picard_iteration_shared if shared else K.picard_iteration
     plain = K.picard_iteration_shared_plain if shared else K.picard_iteration_plain
-    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
-    e, ps, p0, v0 = (t.to(dtype) for t in _random_pass_inputs(n, gen, dev, True, ng))
-    f64 = dtype == torch.float64
     if f64:
         exact, tol, kind = plain(e, ps, p0, v0, ng, emit_v=True, **kw)[2], deposit_tol64(n), \
             "rel vs the float64 plain version"
@@ -7870,39 +7944,54 @@ def _pass_mode_case(name: str, n: int, ng: int, dtype, modes, gen, dev) -> dict:
                                 ng, periodic=True)
         tol, kind = TOL_DEP, "rel vs float64"
         del ref
+    bits = {"ph": 0, "v1": 1, **({"n_clamped": 3} if shared else {})}
+    return (lambda emit_v: fn(e, ps, p0, v0, ng, emit_v=emit_v, **kw), 2, bits, exact, tol,
+            kind)
+
+
+def _pass_mode_case(name: str, n: int, ng: int, dtype, modes, gen, dev) -> dict:
+    """Kernel ``name`` of CLUSTER_KERNELS on one set of random inputs at (n,
+    ng) of ``dtype`` (_mode_case_calls), in each of ``modes`` forced: its
+    sum within its limit of the exact sum, the other outputs (ph or p1,
+    v1, the clamp count) bit-equal to the global mode's (the parent's
+    kernel), one launch in the mode, then timed (device_ms). Returns
+    {mode: ms}."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    call, at, bits, exact, tol, kind = _mode_case_calls(name, n, ng, dtype, gen, dev)
+    wrapper = name.split()[0] + ("_f64" if dtype == torch.float64 else "")
     outs, times = {}, {}
     for mode in ["global"] + [m for m in modes if m != "global"]:
         K.reset_launch_counts()
         with _forced_pass_mode(mode):
-            got = fn(e, ps, p0, v0, ng, emit_v=True, **kw)
+            got = call(True)
             torch.cuda.synchronize()
             errs = {}
-            a, r = rel_err(exact, got[2])
-            errs["jh"] = dict(abs=a, err=r, kind=kind, tol=tol)
+            a, r = rel_err(exact, got[at])
+            errs["sum"] = dict(abs=a, err=r, kind=kind, tol=tol)
             if mode != "global":
-                g = outs["global"]
-                for i, key in enumerate(("ph", "v1") + (("n_clamped",) if shared else ())):
-                    same = bool(torch.equal(got[i if i < 2 else 3], g[i if i < 2 else 3]))
+                for key, i in bits.items():
+                    same = bool(torch.equal(got[i], outs["global"][i]))
                     errs[f"{key} bits"] = dict(abs=float(not same), err=float(not same),
                                                kind="1 if not bit-equal to the global mode's",
                                                tol=0.0)
             _check(errs, f"{name} {dtype} {mode} (n = {n}, ng = {ng})")
             launched = dict(K.LARGE_LAUNCHES)
-            if mode != "shared" and not any(k.endswith(f" {mode}") for k in launched):
+            if launched != ({f"{wrapper} {mode}": 1} if mode != "shared" else {}):
                 raise AssertionError(f"{name} {mode}: launches {launched}")
             if mode == "global":
                 outs["global"] = got
             del got
-            times[mode] = device_ms(lambda: fn(e, ps, p0, v0, ng, **kw), calls=10)
-    del outs
+            times[mode] = device_ms(lambda: call(False), calls=10)
+    del outs, exact
     torch.cuda.empty_cache()
     return times
 
 
 def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
                                   "picard_finalize", "leapfrog_gather_push_deposit",
-                                  "picard_iteration_ext", "picard_finalize_ext",
-                                  "explicit_domain_cycle"),
+                                  "picard_iteration_ext", "picard_iteration_ext shared",
+                                  "picard_finalize_ext", "explicit_domain_cycle"),
                       ngs=(16_384, 28_672), pass_ngs=PASS_MODE_NGS,
                       pass_ns=PASS_MODE_NS,
                       dtypes=(torch.float32, torch.float64)) -> dict:
@@ -7911,13 +8000,14 @@ def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
     whatever smem_mode would choose there (sweep_launch's blocks and
     threads, the mode's shared bytes), checked against its plain version
     and timed as phase 41 times it; the modes' order alternates from one
-    ng to the next. Rows 1 and 2 instead at each n of ``pass_ns`` and ng
-    of ``pass_ngs`` in each dtype of ``dtypes``, in every mode of
-    PASS_MODES that can launch there (_pass_mode_case: the global mode
-    first, its outputs the others' bits). Not run by main: it answers
-    which mode is faster at a grid where more than one can launch.
-    Returns {kernel: {ng: {mode: ms}}}, rows 1 and 2 {dtype: {n: {ng:
-    {mode: ms}}}}."""
+    ng to the next. The kernels of cuda_cic.CLUSTER_KERNELS (rows 1, 2, 17
+    in both windows, 14) instead at each n of ``pass_ns`` and ng of
+    ``pass_ngs`` (row 14 also LEAPFROG_MODE_NGS) in each dtype of
+    ``dtypes`` the kernel takes (PASS_RULE), in every mode of PASS_MODES
+    that can launch there (_pass_mode_case: the global mode first, its
+    outputs the others' bits). Not run by main: it answers which mode is
+    faster at a grid where more than one can launch. Returns {kernel: {ng:
+    {mode: ms}}}, the CLUSTER_KERNELS {dtype: {n: {ng: {mode: ms}}}}."""
     modes = ("shared", "global")
     from pypic_tpu_torch.ops import cuda_cic as K
     from pypic_tpu_torch.ops import cuda_domain as KD
@@ -7937,12 +8027,16 @@ def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
     for name in names:
         out[name] = {}
         if name in K.CLUSTER_KERNELS:
+            grids = (LEAPFROG_MODE_NGS + tuple(pass_ngs)
+                     if name == "leapfrog_gather_push_deposit" else pass_ngs)
             for dtype in dtypes:
-                by_n = out[name][str(dtype)] = {}
                 item = torch.empty((), dtype=dtype).element_size()
+                if item not in K.PASS_RULE[name]:
+                    continue  # row 17: float32 alone
+                by_n = out[name][str(dtype)] = {}
                 for n in pass_ns:
                     by_n[n] = {}
-                    for i, ng in enumerate(pass_ngs):
+                    for ng in grids:
                         can = _pass_modes(name, n, ng, item)
                         by_n[n][ng] = _pass_mode_case(name, n, ng, dtype, can, gen, dev)
                         log(f"[modes] {name} {dtype} at n = {n}, ng = {ng}: " + ", ".join(
@@ -7970,6 +8064,10 @@ def forced_mode_times(dev, names=("picard_iteration", "picard_iteration_shared",
 # grid, the deposits' narrow grid (the first port's), the sheath pass's
 BOUNDARY_NS = (1_000_003, 10_007)
 BOUNDARY_SHEATH_N = 100_003
+# the kernels of cuda_cic.CLUSTER_KERNELS: rows enough for the cluster
+# mode to the last node one CTA holds (CLUSTER_MIN_ROWS_PER_NODE, 64 rows a
+# float32 node, times 58,113)
+BOUNDARY_CLUSTER_N = 3_800_003
 
 
 def _transitions(key, lo: int, hi: int, scan: int = 4096) -> list:
@@ -8008,9 +8106,9 @@ def mode_boundaries(dev) -> dict:
     halo = 2 * PERIODIC_SLAB_HALO + 1
 
     def sweep_key(kernel):
-        if kernel in K.CLUSTER_KERNELS:  # rows 1 and 2: modes and cluster sizes
+        if kernel in K.CLUSTER_KERNELS:  # rows 1, 2, 14, 17: modes and cluster sizes
             return lambda ng: (lambda s: (s.mode, s.cluster))(
-                K.cluster_launch(kernel, wide, ng, sms))
+                K.cluster_launch(kernel, BOUNDARY_CLUSTER_N, ng, sms))
         extra = (lambda ng: 4 * (ng + halo)) if kernel == "explicit_domain_cycle" else (
             lambda ng: 0)
         return lambda ng: K.sweep_launch(kernel, wide, ng, sms, extra(ng)).mode
@@ -8030,7 +8128,8 @@ def mode_boundaries(dev) -> dict:
                       for n in BOUNDARY_NS]
         else:
             keys = [k for k in K.SWEEP_KERNELS if k.split()[0] == name]
-            cases.append((name, wide, [sweep_key(k) for k in keys], _periodic_large_case))
+            n = BOUNDARY_CLUSTER_N if any(k in K.CLUSTER_KERNELS for k in keys) else wide
+            cases.append((name, n, [sweep_key(k) for k in keys], _periodic_large_case))
     for name, field in (("deposit2", False), ("boris_gather_push_deposit", True)):
         cases += [(name, n, [deposit_key(n, 2, field)], _large_kernel_case)
                   for n in BOUNDARY_NS]
@@ -8095,6 +8194,114 @@ PERIODIC_FLOORS = {
     "domain": {"field_energy": TOL_DOM_CHECK, "kinetic_energy": TOL_DOM_CHECK,
                "p": TOL_POS_STEPS, "v": TOL_V},
 }
+
+
+# phase 41's paths in turns: the global mode (the parent's kernels of rows
+# 14 and 17), the mode cuda_cic.cluster_launch takes (None), that mode
+# again, the global mode; each turn one step, then its timed steps (the
+# fused two-stream's MODE_TURN_STEPS after MODE_TURN_WARMUP steps before
+# the first turn; configs[4]'s PERIODIC_SLAB_TIMED_STEPS)
+MODE_TURNS = ("global", None, None, "global")
+MODE_TURN_STEPS, MODE_TURN_WARMUP = 50, 3
+# the same paths inside the cluster mode's range (cuda_cic.PASS_RULE:
+# 16,384 to 58,112 nodes) at n = PERIODIC_RUN_N: configs[4] on one NCCL
+# rank at these ng (ext_n ~27,800, ~37,000 and ~55,500: either side of
+# the node counts where random rows put row 17's separate window in the
+# pair mode), its shared window at the middle one, and the fused
+# two-stream at that one, each mode forced in turns; float64 has no pair
+# mode
+PERIODIC_CLUSTER_NGS = (24_576, 32_768, 49_152)
+CLUSTER_TURNS = ("global", "cluster", "pair", "pair", "cluster", "global")
+CLUSTER_TURNS_F64 = ("global", "cluster", "cluster", "global")
+# two gloo ranks' turns (at 7.6 rows a cell the total energy moves 6.5e-4
+# to 3.1e-3 in 5 steps in the global mode too, growing from turn to turn:
+# PERF.md §5) and the float64 two-stream's at 32,768 (which grows its
+# instability where float32's step does not: 9.7e-4 to 3.8e-2 a turn in
+# the global mode, and on the CPU's plain route alike: PERF.md §7): no
+# fixed bound holds there, so each turn's change is held to this factor
+# times the larger of the global turns', which bracket it
+TURN_ENERGY_FACTOR = 4.0
+
+
+def _energy_against_global(recs: list, label: str) -> list:
+    """Problems of the turns ``recs`` whose total energy change exceeds
+    TURN_ENERGY_FACTOR times the larger of the turns forced global."""
+    ref = max(abs(r["total_energy_rel_change"]) for r in recs if r["turn"] == "global")
+    return [f"{label} {r['mode']} turn: total energy change {r['total_energy_rel_change']} "
+            f"above {TURN_ENERGY_FACTOR} times the global turns' {ref}"
+            for r in recs if not abs(r["total_energy_rel_change"]) <= TURN_ENERGY_FACTOR * ref]
+
+
+def _rule_or(mode):
+    """The kernels of cuda_cic.CLUSTER_KERNELS in ``mode``, or in the mode
+    their rule takes where ``mode`` is None."""
+    return _forced_pass_mode(mode) if mode else contextlib.nullcontext()
+
+
+def _slab_turn(step, st, n: int, steps: int, mode, ext_n: int, energy_bound,
+               profiled: bool):
+    """One turn of configs[4] (``step``, this rank's ``st``, ext_n nodes a
+    slab) with row 17 in ``mode`` (_rule_or): tools/domain.py drive, one
+    step then ``steps`` timed. Returns (record, state, problems): ms/step,
+    the total energy change, n_dropped, the Picard mean, row 17's mode (of
+    its launches: one mode a turn) and the launches by mode; held to
+    conserving's limits (phase 27; the energy change to ``energy_bound``
+    where it is not None). With ``profiled``, three more steps under
+    torch.profiler (_step_device_ms): the device ms a step and row 17's
+    (the pass and the pair fold)."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.tools import domain as drow
+
+    K.reset_launch_counts()
+    with _rule_or(mode):
+        res, st = drow.drive(step, st, n, 1, steps)
+        large = dict(K.LARGE_LAUNCHES)
+        if profiled:
+            st, busy, row17 = _step_device_ms(step, st, ("picard_iteration_ext_kernel",
+                                                         "pair_fold_bounded_kernel"))
+    modes = {k.split()[-1] for k in large if k.split()[0] == "picard_iteration_ext"}
+    rec = dict(mode="/".join(sorted(modes)), turn=mode or "rule", ext_n=ext_n,
+               forced=mode is not None,
+               large=large, **{k: res[k] for k in (
+                   "ms_per_step", "total_energy_rel_change", "n_dropped", "picard_mean",
+                   "host_syncs_per_step")})
+    if profiled:
+        rec.update(device_ms_a_step=busy, row17_ms_a_step=row17)
+    problems = []
+    if rec["n_dropped"] or energy_bound is not None and not (
+            abs(rec["total_energy_rel_change"]) < energy_bound):
+        problems.append(f"configs[4] {rec['mode']} turn: dropped {rec['n_dropped']}, total "
+                        f"energy change {rec['total_energy_rel_change']}")
+    if rec["picard_mean"] != 4.0 or len(modes) != 1 or mode and modes != {mode}:
+        problems.append(f"configs[4] {rec['mode']} turn: Picard mean {rec['picard_mean']}, "
+                        f"launches {large}")
+    return rec, st, problems
+
+
+def _slab_turns_rank(mesh, load, ng: int, steps: int, energy_bound=DOM_ENERGY_BOUND,
+                     profiled: bool = True, turns=MODE_TURNS,
+                     window_share: str = "auto") -> list:
+    """configs[4] (tools/domain.py implicit_row, fused, ``window_share``)
+    on this rank from ``load`` at ng nodes in ``turns`` (_slab_turn);
+    with no ``energy_bound``, each turn's energy change held to
+    TURN_ENERGY_FACTOR times the larger of the global turns'. Returns
+    (records, problems). Module-level: the spawned ranks call it."""
+    from pypic_tpu_torch.parallel import domain_implicit
+    from pypic_tpu_torch.tools import domain as drow
+
+    cfg, st = drow.implicit_row(mesh, len(load[0]), load=load, ng=ng, backend="fused",
+                                window_share=window_share)
+    step = domain_implicit.make_step(cfg, mesh)
+    ext_n = cfg.cells_per_shard + 2 * (cfg.halo + 2) + 1
+    recs, problems = [], []
+    for mode in turns:
+        rec, st, bad = _slab_turn(step, st, len(load[0]), steps, mode, ext_n, energy_bound,
+                                  profiled)
+        recs.append(dict(rec, window_share=window_share))
+        problems += bad
+    if energy_bound is None:
+        problems += _energy_against_global(recs, "configs[4]")
+    return recs, problems
 
 
 def _ulp_moved(p: "np.ndarray") -> "np.ndarray":
@@ -8278,7 +8485,77 @@ def _explicit_large_runs(dev) -> tuple[dict, list]:
         log(f"[large periodic] explicit {backend} ng = {ng}, n = {PERIODIC_RUN_N}: "
             f"{rec['ms_per_step']:.3f} ms/step, large-mode launches {rec['launches']}")
         res[backend] = rec
+    # the fused path in MODE_TURNS: row 14 in the global mode and in the
+    # mode its rule takes, one state stepped on; then in the cluster mode's
+    # range, every mode forced in turns, in both dtypes
+    for key, ng_, turns, dtype in (
+            ("turns", ng, MODE_TURNS, torch.float32),
+            ("cluster_range_turns", PERIODIC_CLUSTER_NGS[1], CLUSTER_TURNS, torch.float32),
+            ("cluster_range_turns_f64", PERIODIC_CLUSTER_NGS[1], CLUSTER_TURNS_F64,
+             torch.float64)):
+        res["fused"][key], bad = _fused_turns(ng_, turns, dtype, dev)
+        problems += bad
     return res, problems
+
+
+def _fused_turns(ng: int, turns, dtype, dev) -> tuple[list, list]:
+    """The fused explicit two-stream at PERIODIC_RUN_N and ng in ``dtype``,
+    one state stepped on through ``turns`` (_rule_or: row 14 in each
+    forced mode, or in its rule's where None), each turn one step then
+    MODE_TURN_STEPS timed and three profiled (_step_device_ms): ms/step,
+    the energy change (float32: EXPLICIT_ENERGY_BOUND; float64:
+    _energy_against_global), the launches by mode, one step's device ms
+    and row 14's. Returns (records, problems)."""
+    import dataclasses
+
+    from pypic_tpu_torch.engines import explicit
+    from pypic_tpu_torch.ops import cuda_cic as K
+    from pypic_tpu_torch.runner import run
+    from pypic_tpu_torch.tools import two_stream
+
+    item = torch.empty((), dtype=dtype).element_size()
+    wrapper = "leapfrog_gather_push_deposit" + ("_f64" if item == 8 else "")
+    cfg, _, st = two_stream.state(PERIODIC_RUN_N, dev, ng=ng, dtype=dtype)
+    step = explicit.make_step(dataclasses.replace(cfg, backend="fused"))
+    st, _ = run(step, st, MODE_TURN_WARMUP)
+    recs, problems = [], []
+    rule = K.cluster_launch("leapfrog_gather_push_deposit", PERIODIC_RUN_N, ng, 132,
+                            item).mode
+    for mode in turns:
+        K.reset_launch_counts()
+        with _rule_or(mode):
+            st, _ = run(step, st, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = run(step, st, MODE_TURN_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            large = dict(K.LARGE_LAUNCHES)
+            st, busy, row14 = _step_device_ms(step, st, ("leapfrog_deposit_kernel",
+                                                         "pair_fold_kernel"))
+        tot = (m.field_energy.double() + m.kinetic_energy.double()).cpu()
+        want = mode or rule
+        rec = dict(mode=want, turn=mode or "rule", forced=mode is not None, rule=rule, ng=ng,
+                   dtype=str(dtype),
+                   ms_per_step=secs * 1e3 / MODE_TURN_STEPS,
+                   total_energy_rel_change=float((tot[-1] - tot[0]) / tot[0]),
+                   large=large, device_ms_a_step=busy, row14_ms_a_step=row14)
+        if (item == 4 and not abs(rec["total_energy_rel_change"]) < EXPLICIT_ENERGY_BOUND
+                or not bool(torch.isfinite(st.p).all())
+                or rec["large"].get(f"{wrapper} {want}") != MODE_TURN_STEPS + 1):
+            problems.append(f"explicit fused {dtype} ng {ng} {want} turn: {rec}")
+        recs.append(rec)
+    if item == 8:
+        problems += _energy_against_global(recs, f"explicit fused {dtype} ng {ng}")
+    log(f"[large periodic] explicit fused {dtype} ng = {ng}, n = {PERIODIC_RUN_N} (the rule: "
+        f"{rule}), in turns of {MODE_TURN_STEPS} steps after one: " + ", ".join(
+            f"{r['mode']} {r['ms_per_step']:.4f} ms/step (energy change "
+            f"{r['total_energy_rel_change']:+.3e}; one step's device time "
+            f"{r['device_ms_a_step']:.4f} ms, row 14's {r['row14_ms_a_step']:.4f})"
+            for r in recs))
+    del st, m
+    torch.cuda.empty_cache()
+    return recs, problems
 
 
 def _large_slab_rank(mesh, load, jobs, where: str) -> list:
@@ -8320,6 +8597,26 @@ def _large_slab_rank(mesh, load, jobs, where: str) -> list:
     return out
 
 
+def _slab_rule(ext_n: int, share: str) -> str:
+    """Row 17's mode by its rule at configs[4]'s n on one rank and ext_n."""
+    from pypic_tpu_torch.ops import cuda_cic as K
+
+    kernel = "picard_iteration_ext" + (" shared" if share == "shared" else "")
+    return K.cluster_launch(kernel, PERIODIC_RUN_N, ext_n, 132).mode
+
+
+def _log_turns(label: str, turns: list) -> None:
+    log(f"[large periodic] {label}, in turns of {PERIODIC_SLAB_TIMED_STEPS} steps after "
+        "one: " + ", ".join(
+            f"{r['mode']}{' (forced)' if r['forced'] else ''} at ext_n {r['ext_n']} "
+            f"{r['ms_per_step']:.4f} ms/step (energy change "
+            f"{r['total_energy_rel_change']:+.3e}, Picard mean {r['picard_mean']}, dropped "
+            f"{r['n_dropped']}, host syncs a step {r['host_syncs_per_step']}"
+            + (f"; one step's device time {r['device_ms_a_step']:.4f} ms, row 17's "
+               f"{r['row17_ms_a_step']:.4f}" if "device_ms_a_step" in r else "") + ")"
+            for r in turns))
+
+
 def _domain_large_runs(dev) -> tuple[dict, list]:
     """configs[4] (conserving, and converged-deposit), its explicit carrier
     and its carried carrier (tools/domain.py's rows at PERIODIC_PATH_NG):
@@ -8329,10 +8626,12 @@ def _domain_large_runs(dev) -> tuple[dict, list]:
     then one step each at PERIODIC_SLAB_CHECK_N from one CPU-made load and
     CPU-made states (_large_slab_rank), one group-less rank card against
     CPU (_calibrated: field and kinetic energy, p and v of the alive
-    slots) and two gloo ranks on the card against two on the CPU (ext_n ~
-    38,700, the global modes of the two-array rows) at the one rank's
-    limits: counts equal,
-    energies, p and v."""
+    slots) and two gloo ranks on the card against two on the CPU (ext_n
+    41,273, 2.5e5 rows a rank: row 17's pair mode) at the one rank's
+    limits: counts equal, energies, p and v. configs[4] also in
+    MODE_TURNS on the one NCCL rank and on two gloo ranks on the card
+    (_slab_turns_rank), and on the one NCCL rank in CLUSTER_TURNS at
+    PERIODIC_CLUSTER_NGS (its shared window at the middle one)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -8373,9 +8672,45 @@ def _domain_large_runs(dev) -> tuple[dict, list]:
                 f"rank: {rec['ms_per_step']:.3f} ms/step ({PERIODIC_SLAB_TIMED_STEPS} "
                 f"steps after one), host syncs {syncs}, large-mode launches {rec['large']}")
             del st, m
+        torch.cuda.empty_cache()
+        # configs[4] in MODE_TURNS: row 17 in the global mode and in the mode
+        # its rule takes
+        turns, bad = _slab_turns_rank(mesh, load, ng, PERIODIC_SLAB_TIMED_STEPS)
+        res["one_rank_nccl_turns"] = turns
+        problems += bad
+        _log_turns(f"configs[4] at ng = {ng}, n = {PERIODIC_RUN_N}, one NCCL rank", turns)
+        # in the cluster mode's range, every mode forced in turns
+        res["cluster_range_turns"] = {}
+        for ng_, share in [(g, "auto") for g in PERIODIC_CLUSTER_NGS] + [
+                (PERIODIC_CLUSTER_NGS[1], "shared")]:
+            turns, bad = _slab_turns_rank(mesh, load, ng_, PERIODIC_SLAB_TIMED_STEPS,
+                                          turns=CLUSTER_TURNS, window_share=share)
+            res["cluster_range_turns"][f"ng {ng_} {share}"] = turns
+            problems += bad
+            for r in turns:
+                launches.update(r["large"])
+            _log_turns(f"configs[4] window_share {share} at ng = {ng_}, n = "
+                       f"{PERIODIC_RUN_N}, one NCCL rank (the rule: "
+                       f"{_slab_rule(turns[0]['ext_n'], share)})", turns)
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    # the same on two gloo ranks on the card (ext_n ~ 41,300 a rank), from
+    # the checks' load (bench's migration bucket holds it); at its 7.6 rows
+    # a cell the total energy moves 6.5e-4 to 3.1e-3 in 5 steps in the
+    # global mode too (the parent's kernels; PERF.md §5), so no fixed
+    # energy bound holds there: each turn is held to TURN_ENERGY_FACTOR
+    # times the global turns' change
+    t0 = time.perf_counter()
+    two = spawn.run(2, _slab_turns_rank, drow.host_load(PERIODIC_SLAB_CHECK_N), ng,
+                    PERIODIC_SLAB_TIMED_STEPS, None, False, device=dev)
+    res["two_gloo_ranks_turns"] = [recs for recs, _ in two]
+    res["two_gloo_ranks_turns_s"] = time.perf_counter() - t0
+    for r, (recs, bad) in enumerate(two):
+        problems += [f"rank {r}: {b}" for b in bad]
+        _log_turns(f"configs[4] at ng = {ng}, n = {PERIODIC_SLAB_CHECK_N}, two gloo ranks, "
+                   f"rank {r}", recs)
 
     load = drow.host_load(PERIODIC_SLAB_CHECK_N)
     one = {key: _large_slab_rank(make_mesh(device=where), load, jobs, key)
@@ -8491,6 +8826,9 @@ def phase_large_periodic(dev) -> dict:
     problems += bad
     for rec in res["explicit"].values():
         launches.update(rec["launches"])
+    for key in ("turns", "cluster_range_turns", "cluster_range_turns_f64"):
+        for rec in res["explicit"]["fused"][key]:
+            launches.update(rec["large"])
     res["domain"], bad = _domain_large_runs(dev)
     problems += bad
     launches.update(res["domain"].pop("launches"))
@@ -9979,16 +10317,19 @@ def phase_magnetized_float64(dev) -> dict:
 EXP64_ROWS = ("leapfrog_gather_push_deposit", "explicit_cycle")
 # (n, ng) of each double kernel's check and time, by mode: row 13 at the
 # explicit two-stream's shape, row 14 in its shared mode at the
-# two-stage branch's NG_LARGE and in its global mode at 65,536 (n = 1e7)
+# two-stage branch's NG_LARGE, in its cluster mode at 32,768 (C = 2) and
+# in its global mode at 65,536 (n = 1e7; cuda_cic.cluster_launch)
 EXP64_SHAPES = {"explicit_cycle": {"shared": (N_HEADLINE, NG)},
                 "leapfrog_gather_push_deposit": {"shared": (N_HEADLINE, NG_LARGE),
+                                                 "cluster": (10_000_000, 32_768),
                                                  "global": (10_000_000, 65_536)}}
 # row 13's e1 against the float64 direct solve of its own rho1 (the same
 # algorithm, float64 sums in another order) and against its plain
 # version's e1 (which solves the plain rho1), relative to max |e1|; 1e4
 # and more below the float32 limits (TOL_SOLVE, deposit_tol)
 TOL64_SOLVE, TOL64_SOLVE_PLAIN = 1e-10, 1e-8
-# the engine's routes at n = F64_CHECK_N, F64_CHECK_STEPS steps: the
+# the engine's routes at n = F64_CHECK_N (or the n after the kernels),
+# F64_CHECK_STEPS steps: the
 # CPU's float64 route from the two-stream load cast to float64 and the
 # card one step from each CPU state, held at TOL64_STEP (float64 sums in
 # other orders: rho, e and the energies; p and v come from the same state
@@ -9996,6 +10337,9 @@ TOL64_SOLVE, TOL64_SOLVE_PLAIN = 1e-10, 1e-8
 EXP64_ROUTES = {
     "fused ng 200": (NG, "auto", {"explicit_cycle_f64"}),
     f"fused ng {NG_LARGE}": (NG_LARGE, "auto", {"leapfrog_gather_push_deposit_f64"}),
+    # n = 2.5e6: 76 rows a node, above cuda_cic.CLUSTER_MIN_ROWS_PER_NODE, so
+    # that row 14 takes its cluster mode
+    "fused ng 32768": (32_768, "auto", {"leapfrog_gather_push_deposit_f64"}, 2_500_000),
     "fused ng 65536": (65_536, "auto", {"leapfrog_gather_push_deposit_f64"}),
     "composed ng 200": (NG, "composed", {"gather_f64", "deposit_f64"})}
 
@@ -10009,7 +10353,8 @@ def _exp64_case(name: str, n: int, ng: int, gen, dev) -> dict:
     of the plain e1), then timed (device_ms, warm) beside the float32
     kernel on the same rows rounded to float32, the plain version once
     and the bound (twice the float32 bytes a row, 16 B a node more in
-    the global mode); the launches by mode."""
+    the large modes); the launches by mode (row 14's is
+    cuda_cic.cluster_launch's)."""
     from pypic_tpu_torch.ops import cuda_cic as K
 
     f64 = torch.float64
@@ -10025,10 +10370,10 @@ def _exp64_case(name: str, n: int, ng: int, gen, dev) -> dict:
     K.reset_launch_counts()
     got, ref = call(), plain()
     torch.cuda.synchronize()
-    mode = "shared" if cycle else K.sweep_launch(name, n, ng, 132, item=8).mode
+    mode = "shared" if cycle else K.cluster_launch(name, n, ng, 132, 8).mode
     large = dict(K.LARGE_LAUNCHES)
     if (K.LAUNCHES[f"{name}_f64"] != 1 or K.LAUNCHES[name]
-            or large != ({f"{name}_f64 global": 1} if mode == "global" else {})):
+            or large != ({f"{name}_f64 {mode}": 1} if mode != "shared" else {})):
         raise AssertionError(f"{name} float64 at ng {ng}: launches {dict(K.LAUNCHES)}, "
                              f"large {large}")
     if any(t.dtype != f64 for t in got):
@@ -10054,7 +10399,7 @@ def _exp64_case(name: str, n: int, ng: int, gen, dev) -> dict:
         (lambda: K.explicit_cycle(e32, p32, v32, ng, **kw)) if cycle else
         (lambda: K.leapfrog_gather_push_deposit(e32, p32, v32, **kw)), calls=10)
     del e32, p32, v32
-    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode == "global" else 0.0
+    node_bytes = 2 * PERIODIC_LARGE_ROWS[name][0] * ng if mode != "shared" else 0.0
     b, by = bound(name, n, extra_bytes=node_bytes, f64=True)
     K.reset_launch_counts()
     ms = device_ms(call, calls=10)
@@ -10076,7 +10421,8 @@ def _exp64_case(name: str, n: int, ng: int, gen, dev) -> dict:
 
 def _exp64_route(label: str, dev) -> tuple[list, dict, list]:
     """Route ``label`` of EXP64_ROUTES: F64_CHECK_STEPS steps of the
-    explicit two-stream (tools/two_stream.py, n = F64_CHECK_N) on the
+    explicit two-stream (tools/two_stream.py, n = F64_CHECK_N or the
+    route's own) on the
     CPU's float64 route, and the card one step from each CPU state,
     against the CPU's next one at TOL64_STEP; the launches of the card
     steps, counted from 0 before them. Returns (the gaps a step, the
@@ -10087,8 +10433,9 @@ def _exp64_route(label: str, dev) -> tuple[list, dict, list]:
     from pypic_tpu_torch.tools import two_stream
 
     f64 = torch.float64
-    ng, backend, kernels = EXP64_ROUTES[label]
-    cfg, _, sc = two_stream.state(F64_CHECK_N, "cpu", ng=ng, dtype=f64, backend=backend)
+    ng, backend, kernels, *rows = EXP64_ROUTES[label]
+    n = rows[0] if rows else F64_CHECK_N
+    cfg, _, sc = two_stream.state(n, "cpu", ng=ng, dtype=f64, backend=backend)
     step = explicit.make_step(cfg)
     rows, launches, problems = [], collections.Counter(), []
     for i in range(F64_CHECK_STEPS):
@@ -10118,7 +10465,7 @@ def _exp64_route(label: str, dev) -> tuple[list, dict, list]:
         problems.append(f"{label}: launches {dict(launches)}, want {sorted(kernels)}")
     if ng > 14_528 and not any(k.startswith("large") for k in launches):
         problems.append(f"{label}: no global-mode launch {dict(launches)}")
-    log(f"[explicit float64] {label}, n = {F64_CHECK_N}, the card one step from each of "
+    log(f"[explicit float64] {label}, n = {n}, the card one step from each of "
         f"{F64_CHECK_STEPS} CPU states against the CPU's (limits "
         f"{EXP64_STEP['p (cells)']:.0e} cells, {EXP64_STEP['v']:.0e} relative): "
         + "; ".join(", ".join(f"{k} {x:.2e}" for k, x in r.items()) for r in rows)
@@ -10215,12 +10562,15 @@ def phase_explicit_float64(dev) -> dict:
     res["two_stream"], bad = _exp64_two_stream(dev)
     problems += bad
     # each double kernel's launches on its path: the float64 two-stream's
-    # for row 13 (one a step), the ng 4,096 route's for row 14
+    # for row 13 (one a step), the ng 4,096 route's for row 14, and the ng
+    # 32,768 route's for row 14's cluster mode
     res["launches"] = {
         "explicit_cycle": res["two_stream"]["float64"]["launches"].get(
             "explicit_cycle_f64", 0),
         "leapfrog_gather_push_deposit": res["check_launches"][f"fused ng {NG_LARGE}"].get(
-            "leapfrog_gather_push_deposit_f64", 0)}
+            "leapfrog_gather_push_deposit_f64", 0),
+        "leapfrog_gather_push_deposit cluster": res["check_launches"]["fused ng 32768"].get(
+            "large leapfrog_gather_push_deposit_f64 cluster", 0)}
     missing = [k for k, v in res["launches"].items() if not v]
     if missing:
         problems.append(f"double kernels never launched on their paths: {missing}")
@@ -10480,8 +10830,10 @@ def main() -> int:
     ] + [
         # the explicit engine's double kernels (phase 45): row 13 at the
         # two-stream's shape, row 14 in its shared mode at ng 4,096 with
-        # its global mode at 1e7 / 65,536 beside; the launches of the
-        # float64 two-stream (row 13) and the ng 4,096 route (row 14)
+        # its global mode at 1e7 / 65,536 and its cluster mode at 1e7 /
+        # 32,768 beside; the launches of the float64 two-stream (row 13),
+        # the ng 4,096 route (row 14) and the ng 32,768 route (its cluster
+        # mode)
         {"name": f"{kname}_f64", "route": "cuda",
          "source": "pypic_tpu_torch/csrc/explicit.cu", "replaces": REPLACES[kname],
          "launches": e64["launches"][kname],
@@ -10490,7 +10842,10 @@ def main() -> int:
              "float32_ms")},
          "dtype": "float64",
          **({"global_mode": e64["kernels"][kname]["global"]}
-            if "global" in e64["kernels"][kname] else {})}
+            if "global" in e64["kernels"][kname] else {}),
+         **({"cluster_mode": dict(e64["kernels"][kname]["cluster"], launches=e64[
+             "launches"][f"{kname} cluster"])}
+            if "cluster" in e64["kernels"][kname] else {})}
         for kname in EXP64_ROWS
     ], "helper_kernels": [
         # the flux and gyro-phase uniforms: no TPU kernel draws them (the

@@ -116,44 +116,10 @@ namespace {
 // 1][1], i - 1 taken mod ng (a row's right node is its left one's next,
 // node 0 past ng - 1). Bound: kGlobal's, the pair array's 8 B a node
 // written and read once beside.
+//
+// cluster_add, pair_add and pair_fold_kernel are cic_common.cuh's, shared
+// with rows 14 and 17 (explicit.cu, domain.cu).
 // ---------------------------------------------------------------------------
-// kCluster's adds of a row's two products: the left node's owner r =
-// l / slice at offset l - r slice, the right node's the next offset, the
-// next owner's first past slice - 1 and node 0's (owner 0) past ng - 1.
-// The products land through distributed shared memory in every owner,
-// this CTA's own included.
-template <typename T>
-__device__ __forceinline__ void cluster_add(T* slices, int slice, const CicT<T>& c, T al,
-                                            T ar) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = c.l / slice, o = c.l - r * slice;
-  int rr = r, ro = o + 1;
-  if (c.r == 0) {
-    rr = 0;
-    ro = 0;
-  } else if (ro == slice) {
-    ++rr;
-    ro = 0;
-  }
-  atomicAdd(cluster.map_shared_rank(slices, r) + o, al);
-  atomicAdd(cluster.map_shared_rank(slices, rr) + ro, ar);
-}
-
-// kPair's add: both products in one 8-B vector reduction at row l of the
-// pair array (float alone: no vector reduction takes doubles).
-__device__ __forceinline__ void pair_add(float* pair, int l, float al, float ar) {
-  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(pair + 2 * l), "f"(al),
-               "f"(ar)
-               : "memory");
-}
-
-// kPair's fold of the (ng, 2) pair array into the (ng,) sum.
-template <typename T>
-__global__ void pair_fold_kernel(const T* __restrict__ pair, T* __restrict__ jh, int ng) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < ng) jh[i] = add_rn(pair[2 * i], pair[2 * (i == 0 ? ng - 1 : i - 1) + 1]);
-}
-
 template <bool EMIT_V, bool SHARED, int MODE, typename T>
 __global__ void picard_iteration_kernel(
     const T* __restrict__ field, const T* __restrict__ ps, const T* __restrict__ p0,
@@ -306,34 +272,16 @@ __global__ void picard_finalize_kernel(
   }
 }
 
-// The kCluster instantiation's attributes (a non-portable cluster size
-// allowed, the slice's shared memory) and its launch configuration:
-// `cluster` CTAs a cluster, `blocks` CTAs of `threads`, S elements of T
-// a CTA. `attr` holds the cluster's dimension.
+// The kCluster instantiation's launch configuration (cic_common.cuh
+// cluster_launch_config): `cluster` CTAs a cluster, `blocks` CTAs of
+// `threads`, S elements of T a CTA. `attr` holds the cluster's dimension.
 template <bool EMIT_V, bool SHARED, typename T>
 cudaError_t cluster_config(int ng, int blocks, int threads, int cluster, cudaStream_t s,
                            cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  if (cluster < 1 || cluster > 16 || (cluster & (cluster - 1)) || blocks % cluster)
-    return cudaErrorInvalidValue;
-  const size_t smem = (size_t)((ng + cluster - 1) / cluster) * sizeof(T);
-  auto kernel = picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  *cfg = {};
-  cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(threads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  if (cluster < 1) return cudaErrorInvalidValue;
+  return cluster_launch_config(picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>,
+                               (size_t)((ng + cluster - 1) / cluster) * sizeof(T), blocks,
+                               threads, cluster, s, cfg, attr);
 }
 
 // Launches picard_iteration_kernel<EMIT_V, SHARED, mode, T> after the
@@ -408,13 +356,10 @@ cudaError_t launch_pass(int mode, int blocks, int threads, int cluster, cudaStre
 // once (cudaOccupancyMaxActiveClusters): 0 means it cannot launch one.
 template <bool EMIT_V, bool SHARED, typename T>
 cudaError_t pass_clusters(int ng, int cluster, int threads, int* count) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err =
-      cluster_config<EMIT_V, SHARED, T>(ng, cluster, threads, cluster, 0, &cfg, &attr);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(
-      count, picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>, &cfg);
+  if (cluster < 1) return cudaErrorInvalidValue;
+  return max_clusters(picard_iteration_kernel<EMIT_V, SHARED, kCluster, T>,
+                      (size_t)((ng + cluster - 1) / cluster) * sizeof(T), cluster, threads,
+                      count);
 }
 
 template <bool DEPOSIT, typename T>

@@ -31,6 +31,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,12 +106,13 @@ __device__ __forceinline__ T gather(const T* f, const CicT<T>& c) {
 // * kGlobal: the field read from device memory through the read-only path
 //   (__ldg), each add a global float atomic (red.global.add.f32) into the
 //   zeroed output, no flush;
-// * kCluster (cic.cu picard_iteration_kernel alone; ops/cuda_cic.py
+// * kCluster (the Picard passes of cic.cu and domain.cu, rows 1, 2 and
+//   17, and explicit.cu's leapfrog deposit, row 14; ops/cuda_cic.py
 //   cluster_launch): the field as in kGlobal, the (ng,) sum cut into one
 //   slice a CTA of a thread-block cluster, each add into its owner's
 //   slice through distributed shared memory, one global atomic a node and
-//   cluster in the flush;
-// * kPair (the same kernel, float alone): the field as in kGlobal, a
+//   CTA in the flush ("The cluster and pair modes' adds" below);
+// * kPair (the same kernels, float alone): the field as in kGlobal, a
 //   row's two products one 8-B vector reduction into a (ng, 2) pair
 //   array, folded into the (ng,) sum by a second kernel.
 // Each mode is its own instantiation, so the kShared code is the first
@@ -714,6 +716,133 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// The cluster and pair modes' adds (kCluster, kPair: the Picard passes, rows
+// 1, 2 and 17, and the leapfrog deposit, row 14; ops/cuda_cic.py
+// cluster_launch), shared by cic.cu, domain.cu and explicit.cu.
+//
+// kCluster: the (ng,) sum cut into one slice of S = ceil(ng / C) nodes a
+// CTA of a thread-block cluster of C CTAs, CTA r owning nodes [r S,
+// min((r + 1) S, ng)) in its dynamic shared memory; each product lands in
+// its owner's slice through distributed shared memory (this CTA's own
+// included), and after a cluster.sync() each CTA adds its slice to the
+// output, one global atomic a node.
+//
+// kPair (float alone: no vector reduction takes doubles): a row's two
+// products one red.global.add.v2.f32 into a zeroed, 8-B aligned pair
+// array in device memory, folded into the sum by a second kernel.
+// ---------------------------------------------------------------------------
+
+// kCluster's adds of a periodic row's two products: the left node's owner
+// r = l / slice at offset l - r slice, the right node's the next offset,
+// the next owner's first past slice - 1 and node 0's (owner 0) past ng - 1.
+template <typename T>
+__device__ __forceinline__ void cluster_add(T* slices, int slice, const CicT<T>& c, T al,
+                                            T ar) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int r = c.l / slice, o = c.l - r * slice;
+  int rr = r, ro = o + 1;
+  if (c.r == 0) {
+    rr = 0;
+    ro = 0;
+  } else if (ro == slice) {
+    ++rr;
+    ro = 0;
+  }
+  atomicAdd(cluster.map_shared_rank(slices, r) + o, al);
+  atomicAdd(cluster.map_shared_rank(slices, rr) + ro, ar);
+}
+
+// kCluster's adds on a bounded slab of `nodes` nodes (domain.cu, row 17):
+// node l's product and node l + 1's, no wrap; a product whose node lies
+// outside [0, nodes) is dropped, as the global mode drops it.
+__device__ __forceinline__ void cluster_add_bounded(float* slices, int slice, int nodes,
+                                                    int l, float al, float ar) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  if (l >= 0 && l < nodes) {
+    const int r = l / slice;
+    atomicAdd(cluster.map_shared_rank(slices, r) + (l - r * slice), al);
+  }
+  const int m = l + 1;
+  if (m >= 0 && m < nodes) {
+    const int r = m / slice;
+    atomicAdd(cluster.map_shared_rank(slices, r) + (m - r * slice), ar);
+  }
+}
+
+// kPair's add: both products in one 8-B vector reduction at row l of the
+// pair array.
+__device__ __forceinline__ void pair_add(float* pair, int l, float al, float ar) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(pair + 2 * l), "f"(al),
+               "f"(ar)
+               : "memory");
+}
+
+// kPair's fold of the periodic (ng, 2) pair array into the (ng,) sum: row l
+// holds node l's product and node l + 1's (node 0 past ng - 1), so
+// jh[i] = pair[i][0] + pair[i - 1][1], i - 1 taken mod ng.
+template <typename T>
+__global__ void pair_fold_kernel(const T* __restrict__ pair, T* __restrict__ jh, int ng) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < ng) jh[i] = add_rn(pair[2 * i], pair[2 * (i == 0 ? ng - 1 : i - 1) + 1]);
+}
+
+// kPair's fold on a bounded slab (row 17): row l + 1 of the (nodes + 1, 2)
+// pair array holds node l's product and node l + 1's, so jh[i] =
+// pair[i + 1][0] + pair[i][1]; pair[0][0] (node -1) and pair[nodes][1]
+// (node nodes) are never read, which drops the products the global mode
+// drops. (A template, so that only the translation unit that launches it
+// compiles it.)
+template <typename T>
+__global__ void pair_fold_bounded_kernel(const T* __restrict__ pair, T* __restrict__ jh,
+                                         int nodes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nodes) jh[i] = add_rn(pair[2 * (i + 1)], pair[2 * i + 1]);
+}
+
+// The launch configuration of a kernel's kCluster instantiation: a
+// non-portable cluster size allowed, `smem` bytes of dynamic shared memory
+// a CTA, `blocks` CTAs of `threads` in clusters of `cluster` (a power of
+// two up to 16 that divides `blocks`). `attr` holds the cluster's
+// dimension.
+template <typename K>
+cudaError_t cluster_launch_config(K kernel, size_t smem, int blocks, int threads,
+                                  int cluster, cudaStream_t s, cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
+  if (cluster < 1 || cluster > 16 || (cluster & (cluster - 1)) || blocks % cluster)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of `cluster` CTAs of `threads`, `smem` bytes a CTA, of
+// a kCluster instantiation the card holds at once
+// (cudaOccupancyMaxActiveClusters): 0 means it cannot launch one.
+template <typename K>
+cudaError_t max_clusters(K kernel, size_t smem, int cluster, int threads, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_launch_config(kernel, smem, cluster, threads, cluster, 0, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }
 
 }  // namespace

@@ -40,12 +40,16 @@
 // cic_common.cuh above it (ops/cuda_cic.py smem_mode, the ceilings in
 // each section): the field read from device memory (kGlobal), every add
 // a global float atomic into the zeroed output. Each mode is its own
-// instantiation; the shared mode's code is unchanged.
+// instantiation; the shared mode's code is unchanged. The slab pass also
+// has the cluster and pair modes of rows 1 and 2 (its section;
+// ops/cuda_cic.py cluster_launch picks them from the forced pairs).
 //
 // Launchers return cudaGetLastError(); they allocate nothing and run on
 // the stream they are given.
 
 #include "cic_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,6 +90,21 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 // The large mode (kGlobal) above ext_n = 29,056 (29,054 with SHARED: the
 // clamp count's 16 static bytes). Bound there: the rows' 20 B (24 with
 // EMIT_V), plus the field read and jh written once: 8 B a node.
+//
+// MODE kCluster and kPair (ops/cuda_cic.py cluster_launch, PASS_RULE: the
+// modes rows 1 and 2 take in cic.cu, on the bounded slab): kGlobal's sweep,
+// so ph, v1 and the clamp count are its bits, and only where a row's two
+// products land changes. kCluster: the (ext_n,) sum in the slices of a
+// thread-block cluster's CTAs, one 1,024-thread CTA an SM
+// (cic_common.cuh cluster_add_bounded: no wrap, a product at a node
+// outside [0, ext_n) dropped as kGlobal drops it), one global atomic a
+// node and CTA in the flush. kPair: both products one
+// red.global.add.v2.f32 at row l + 1 of a zeroed (ext_n + 1, 2) pair
+// array, then pair_fold_bounded_kernel; the shared window's rows at l =
+// -1 and l = ext_n - 1 put their outside product in a cell the fold never
+// reads, and a row with both nodes outside adds nothing. `active` is read
+// before the first cluster.sync(): a kernel earlier on the stream wrote
+// it, so every CTA of every cluster returns or none does.
 // ---------------------------------------------------------------------------
 template <bool EMIT_V, bool SHARED, int MODE>
 __global__ void picard_iteration_ext_kernel(
@@ -109,7 +128,16 @@ __global__ void picard_iteration_ext_kernel(
   }
   float* hist = MODE == kShared ? s_hist : jh;
   if (SHARED && threadIdx.x == 0) s_clamped = 0;
-  __syncthreads();
+  [[maybe_unused]] int slice = 0;  // kCluster: the nodes a CTA owns (at smem)
+  if constexpr (MODE == kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ctas = (int)cluster.num_blocks();
+    slice = (ext_n + ctas - 1) / ctas;
+    for (int i = threadIdx.x; i < slice; i += blockDim.x) smem[i] = 0.0f;
+    cluster.sync();  // every slice zeroed and live before any remote add
+  } else {
+    __syncthreads();
+  }
   const float top = (float)(width - 1);
   int clamped = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -140,16 +168,37 @@ __global__ void picard_iteration_ext_kernel(
       const float wr = __fsub_rn(d_h, (float)row);
       const float wl = __fsub_rn(1.0f, wr);
       const int l = win_stride * k + row - 1;
-      if (l >= 0 && l < ext_n) atomicAdd(&hist[l], __fmul_rn(val, wl));
-      if (l + 1 >= 0 && l + 1 < ext_n) atomicAdd(&hist[l + 1], __fmul_rn(val, wr));
+      if constexpr (MODE == kCluster) {
+        cluster_add_bounded(smem, slice, ext_n, l, __fmul_rn(val, wl), __fmul_rn(val, wr));
+      } else if constexpr (MODE == kPair) {
+        if (l >= -1 && l < ext_n) pair_add(jh, l + 1, __fmul_rn(val, wl), __fmul_rn(val, wr));
+      } else {
+        if (l >= 0 && l < ext_n) atomicAdd(&hist[l], __fmul_rn(val, wl));
+        if (l + 1 >= 0 && l + 1 < ext_n) atomicAdd(&hist[l + 1], __fmul_rn(val, wr));
+      }
     } else {
       const Cic c = cic_bounded(hc, ext_n);
-      atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
-      atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
+      if constexpr (MODE == kCluster) {
+        cluster_add_bounded(smem, slice, ext_n, c.l, __fmul_rn(val, c.wl),
+                            __fmul_rn(val, c.wr));
+      } else if constexpr (MODE == kPair) {
+        pair_add(jh, c.l + 1, __fmul_rn(val, c.wl), __fmul_rn(val, c.wr));
+      } else {
+        atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));
+        atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));
+      }
     }
   }
   if (SHARED && clamped) atomicAdd(&s_clamped, clamped);
-  __syncthreads();
+  if constexpr (MODE == kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every add into this slice has landed
+    const int lo = (int)cluster.block_rank() * slice;
+    const int count = min(slice, ext_n - lo);
+    for (int i = threadIdx.x; i < count; i += blockDim.x) atomicAdd(&jh[lo + i], smem[i]);
+  } else {
+    __syncthreads();
+  }
   if (MODE == kShared)
     for (int i = threadIdx.x; i < ext_n; i += blockDim.x) atomicAdd(&jh[i], s_hist[i]);
   if (SHARED && threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
@@ -394,9 +443,14 @@ __global__ void domain_cycle_kernel(const float* __restrict__ field,
   if (threadIdx.x == 0 && s_clamped) atomicAdd(n_clamped, s_clamped);
 }
 
+// Launches picard_iteration_ext_kernel<EMIT_V, SHARED, mode>: kCluster
+// (mode 2) in clusters of `cluster` CTAs, a slice of ceil(ext_n / cluster)
+// floats each; kPair (mode 3) on the 3 ext_n + 2 floats at jh, the pair
+// array then the sum, and the fold after it; else after the shared-memory
+// opt-in.
 template <bool EMIT_V, bool SHARED>
-cudaError_t launch_iteration_ext(int mode, int blocks, int threads, cudaStream_t s,
-                                 const float* field, const float* ps,
+cudaError_t launch_iteration_ext(int mode, int blocks, int threads, int cluster,
+                                 cudaStream_t s, const float* field, const float* ps,
                                  const float* p0, const float* v0,
                                  const float* w, float* ph, float* v1,
                                  float* jh, int* n_clamped, const int* active,
@@ -404,6 +458,31 @@ cudaError_t launch_iteration_ext(int mode, int blocks, int threads, cudaStream_t
                                  float qm_dt2_half, float dt_dx, float lo,
                                  float hi, int win_stride, int width,
                                  int num_k, float inv_stride) {
+  if (mode == kPair) {
+    picard_iteration_ext_kernel<EMIT_V, SHARED, kPair><<<blocks, threads, 0, s>>>(
+        field, ps, p0, v0, w, ph, v1, jh, n_clamped, active, n, ext_n, qm_dt,
+        qm_dt2_half, dt_dx, lo, hi, win_stride, width, num_k, inv_stride);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    pair_fold_bounded_kernel<float><<<(ext_n + 255) / 256, 256, 0, s>>>(
+        jh, jh + 2 * (ext_n + 1), ext_n);
+    return cudaGetLastError();
+  }
+  if (mode == kCluster) {
+    if (cluster < 1) return cudaErrorInvalidValue;
+    auto kernel = picard_iteration_ext_kernel<EMIT_V, SHARED, kCluster>;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_launch_config(
+        kernel, (size_t)((ext_n + cluster - 1) / cluster) * sizeof(float), blocks, threads,
+        cluster, s, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, field, ps, p0, v0, w, ph, v1, jh, n_clamped,
+                             active, n, ext_n, qm_dt, qm_dt2_half, dt_dx, lo, hi,
+                             win_stride, width, num_k, inv_stride);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
     const size_t smem = mode_floats(MODE, 2, ext_n) * sizeof(float);
@@ -445,20 +524,24 @@ cudaError_t launch_finalize_ext(int mode, int blocks, int threads, cudaStream_t 
 
 extern "C" {
 
-// jh: ext_n zeroed floats; n_clamped: one zeroed int (shared only);
-// v1: null unless the iterate's velocity is wanted; active: null or one
-// int on the card (0: the launch does nothing); mode: ops/cuda_cic.py
-// smem_mode (0 shared, 1 global).
+// jh: ext_n zeroed floats, in mode 3 3 ext_n + 2 (2 ext_n + 2 zeroed: the
+// pair array, then the sum the fold writes); n_clamped: one zeroed int
+// (shared only); v1: null unless the iterate's velocity is wanted;
+// active: null or one int on the card (0: the launch does nothing, and in
+// mode 3 the fold writes zeros); mode: ops/cuda_cic.py cluster_launch (0
+// shared, 1 global, 2 cluster, 3 pair; cluster: the CTAs a cluster in
+// mode 2, else unread).
 int pypic_picard_iteration_ext(
     const float* field, const float* ps, const float* p0, const float* v0,
     const float* w, float* ph, float* v1, float* jh, int* n_clamped,
     const int* active, long long n, int ext_n, float qm_dt, float qm_dt2_half,
     float dt_dx, float lo, float hi, int shared, int win_stride, int width,
-    int num_k, float inv_stride, int mode, int blocks, int threads, void* stream) {
+    int num_k, float inv_stride, int mode, int blocks, int threads, int cluster,
+    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define PYPIC_ITER_EXT(EV, SH)                                                  \
-  launch_iteration_ext<EV, SH>(mode, blocks, threads, s, field, ps, p0, v0, w, ph, \
-                               v1, jh, n_clamped, active, n, ext_n, qm_dt,      \
+  launch_iteration_ext<EV, SH>(mode, blocks, threads, cluster, s, field, ps, p0, v0, \
+                               w, ph, v1, jh, n_clamped, active, n, ext_n, qm_dt, \
                                qm_dt2_half, dt_dx, lo, hi, win_stride, width,   \
                                num_k, inv_stride)
   cudaError_t err;
@@ -467,6 +550,26 @@ int pypic_picard_iteration_ext(
   else
     err = v1 != nullptr ? PYPIC_ITER_EXT(true, false) : PYPIC_ITER_EXT(false, false);
 #undef PYPIC_ITER_EXT
+  return (int)err;
+}
+
+// The clusters the card holds at once of the slab pass's kCluster launch
+// at ext_n nodes (shared: the shared window; emit_v: v1 stored), `cluster`
+// CTAs of `threads` a cluster: 0 means it cannot launch one.
+int pypic_picard_iteration_ext_clusters(int shared, int emit_v, int ext_n, int cluster,
+                                        int threads, int* count) {
+  if (cluster < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)((ext_n + cluster - 1) / cluster) * sizeof(float);
+  cudaError_t err;
+#define PYPIC_EXT_CLUSTERS(EV, SH)                                                   \
+  err = max_clusters(picard_iteration_ext_kernel<EV, SH, kCluster>, smem, cluster, \
+                     threads, count)
+  if (shared) {
+    if (emit_v) PYPIC_EXT_CLUSTERS(true, true); else PYPIC_EXT_CLUSTERS(false, true);
+  } else {
+    if (emit_v) PYPIC_EXT_CLUSTERS(true, false); else PYPIC_EXT_CLUSTERS(false, false);
+  }
+#undef PYPIC_EXT_CLUSTERS
   return (int)err;
 }
 

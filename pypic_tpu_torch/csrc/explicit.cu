@@ -98,14 +98,15 @@ __device__ void field_from_rho(const T* rho, T* e_out, int ng, double c,
 }
 
 // The sweep of the two per-step leapfrog kernels: gather e at p from the
-// block's copy of the field (from `field` in device memory in kGlobal),
-// push, wrap, store (p1, v1), deposit w at p1 into `hist` (the block's
-// histogram, or the zeroed output in the large modes).
+// block's copy of the field (from `field` in device memory in the large
+// modes), push, wrap, store (p1, v1), deposit w at p1 into `hist` (the
+// block's histogram, the zeroed output in kGlobal, the cluster's slices
+// of `slice` nodes in kCluster, the pair array in kPair).
 template <int MODE = kShared, typename T>
 __device__ __forceinline__ void leapfrog_deposit_sweep(
     const T* s_field, T* s_hist, const T* __restrict__ p, const T* __restrict__ v,
     T* __restrict__ p1_out, T* __restrict__ v1_out, long long n, int ng, T qmh,
-    T dt_dx, T w, T inv_ng, const T* __restrict__ field = nullptr) {
+    T dt_dx, T w, T inv_ng, const T* __restrict__ field = nullptr, int slice = 0) {
   const T ngf = (T)ng;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -117,8 +118,14 @@ __device__ __forceinline__ void leapfrog_deposit_sweep(
     p1_out[i] = p1;
     v1_out[i] = v1;
     const CicT<T> c = cic_periodic(p1, ng);
-    atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));
-    atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));
+    if constexpr (MODE == kCluster) {
+      cluster_add(s_hist, slice, c, mul_rn(w, c.wl), mul_rn(w, c.wr));
+    } else if constexpr (MODE == kPair) {
+      pair_add(s_hist, c.l, mul_rn(w, c.wl), mul_rn(w, c.wr));
+    } else {
+      atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));
+      atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));
+    }
   }
 }
 
@@ -201,6 +208,15 @@ cudaError_t launch_gather(const T* field, const T* p, T* out, long long n, int n
 // T double (a float64 state, pypic_leapfrog_deposit_f64): 32 B a row, the
 // field and the histogram (2 ng doubles) in shared memory to 14,528 nodes,
 // kGlobal (global double atomics) above it; 16 B a node there.
+//
+// MODE kCluster and kPair (ops/cuda_cic.py cluster_launch, PASS_RULE: the
+// modes rows 1 and 2 take in cic.cu): kGlobal's sweep, so p1 and v1 are
+// its bits; kCluster sums rho in the slices of a thread-block cluster's
+// CTAs of 1,024 threads, one an SM (cic_common.cuh cluster_add; float or
+// double), one global atomic a node and CTA in the flush; kPair (float)
+// makes a row's two products one red.global.add.v2.f32 into a zeroed (ng,
+// 2) pair array, folded by pair_fold_kernel. explicit_cycle_kernel runs
+// the sweep in kShared alone, so its code is as it was.
 // ---------------------------------------------------------------------------
 template <int MODE, typename T>
 __global__ void leapfrog_deposit_kernel(
@@ -214,18 +230,33 @@ __global__ void leapfrog_deposit_kernel(
   extern __shared__ float smem[];
   T* s_field = reinterpret_cast<T*>(smem);
   T* s_hist = s_field + ng;
-  if (MODE == kShared) {
-    for (int i = threadIdx.x; i < ng; i += blockDim.x) {
-      s_field[i] = field[i];
-      s_hist[i] = (T)0;
+  if constexpr (MODE == kCluster) {
+    // the CTA's slice of rho at s_field; the field is read from device memory
+    cg::cluster_group cluster = cg::this_cluster();
+    const int ctas = (int)cluster.num_blocks();
+    const int slice = (ng + ctas - 1) / ctas;
+    for (int i = threadIdx.x; i < slice; i += blockDim.x) s_field[i] = (T)0;
+    cluster.sync();  // every slice zeroed and live before any remote add
+    leapfrog_deposit_sweep<MODE>(s_field, s_field, p, v, p1, v1, n, ng, qmh, dt_dx, w,
+                                 inv_ng, field, slice);
+    cluster.sync();  // every add into this slice has landed
+    const int lo = (int)cluster.block_rank() * slice;
+    const int count = min(slice, ng - lo);
+    for (int i = threadIdx.x; i < count; i += blockDim.x) atomicAdd(&rho[lo + i], s_field[i]);
+  } else {
+    if (MODE == kShared) {
+      for (int i = threadIdx.x; i < ng; i += blockDim.x) {
+        s_field[i] = field[i];
+        s_hist[i] = (T)0;
+      }
     }
+    __syncthreads();
+    leapfrog_deposit_sweep<MODE>(s_field, MODE == kShared ? s_hist : rho, p, v, p1,
+                                 v1, n, ng, qmh, dt_dx, w, inv_ng, field);
+    if (MODE != kShared) return;
+    __syncthreads();
+    for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&rho[i], s_hist[i]);
   }
-  __syncthreads();
-  leapfrog_deposit_sweep<MODE>(s_field, MODE == kShared ? s_hist : rho, p, v, p1,
-                               v1, n, ng, qmh, dt_dx, w, inv_ng, field);
-  if (MODE != kShared) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng; i += blockDim.x) atomicAdd(&rho[i], s_hist[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,12 +320,41 @@ __global__ void explicit_cycle_kernel(
 }
 
 // Launch leapfrog_deposit_kernel<mode, T> and explicit_cycle_kernel<T>
-// after the shared-memory opt-in.
+// after the shared-memory opt-in; the former's kCluster (mode 2) in
+// clusters of `cluster` CTAs, a slice of ceil(ng / cluster) elements each,
+// its kPair (mode 3, float alone) on the 3 ng elements at rho, the pair
+// array then the sum, and the fold after it.
 template <typename T>
 cudaError_t launch_leapfrog_deposit(const T* field, const T* p, const T* v, T* p1, T* v1,
                                     T* rho, long long n, int ng, T qmh, T dt_dx, T w,
                                     T inv_ng, int mode, int blocks, int threads,
-                                    cudaStream_t s) {
+                                    int cluster, cudaStream_t s) {
+  if (mode == kPair) {
+    if constexpr (std::is_same<T, float>::value) {
+      leapfrog_deposit_kernel<kPair, T><<<blocks, threads, 0, s>>>(
+          field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w, inv_ng);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      pair_fold_kernel<T><<<(ng + 255) / 256, 256, 0, s>>>(rho, rho + 2 * ng, ng);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (mode == kCluster) {
+    if (cluster < 1) return cudaErrorInvalidValue;
+    auto kernel = leapfrog_deposit_kernel<kCluster, T>;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = cluster_launch_config(
+        kernel, (size_t)((ng + cluster - 1) / cluster) * sizeof(T), blocks, threads,
+        cluster, s, &cfg, &attr);
+    if (err != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kernel, field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w,
+                             inv_ng);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
   return with_mode(mode, [&](auto m) {
     constexpr int MODE = decltype(m)::value;
     const size_t smem = mode_floats(MODE, 2, ng) * sizeof(T);
@@ -692,22 +752,41 @@ int pypic_gather_f64(const double* field, const double* p, double* out, long lon
                             (cudaStream_t)stream);
 }
 
-// mode: 0 shared, 1 global; rho: ng zeroed elements.
+// mode: ops/cuda_cic.py cluster_launch (0 shared, 1 global, 2 cluster,
+// 3 pair; cluster: the CTAs a cluster in mode 2, else unread); rho: ng
+// zeroed elements, in mode 3 3 ng (2 ng zeroed: the pair array, then the
+// sum the fold writes).
 int pypic_leapfrog_deposit(const float* field, const float* p, const float* v,
                            float* p1, float* v1, float* rho, long long n, int ng,
                            float qmh, float dt_dx, float w, float inv_ng,
-                           int mode, int blocks, int threads, void* stream) {
+                           int mode, int blocks, int threads, int cluster, void* stream) {
   return (int)launch_leapfrog_deposit(field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w,
-                                      inv_ng, mode, blocks, threads, (cudaStream_t)stream);
+                                      inv_ng, mode, blocks, threads, cluster,
+                                      (cudaStream_t)stream);
 }
 
-// The double sweep (a float64 state): mode 0 shared, 1 global.
+// The double sweep (a float64 state): mode 0 shared, 1 global, 2 cluster.
 int pypic_leapfrog_deposit_f64(const double* field, const double* p, const double* v,
                                double* p1, double* v1, double* rho, long long n, int ng,
                                double qmh, double dt_dx, double w, double inv_ng,
-                               int mode, int blocks, int threads, void* stream) {
+                               int mode, int blocks, int threads, int cluster,
+                               void* stream) {
   return (int)launch_leapfrog_deposit(field, p, v, p1, v1, rho, n, ng, qmh, dt_dx, w,
-                                      inv_ng, mode, blocks, threads, (cudaStream_t)stream);
+                                      inv_ng, mode, blocks, threads, cluster,
+                                      (cudaStream_t)stream);
+}
+
+// The clusters the card holds at once of the sweep's kCluster launch at ng
+// nodes (f64: the double kernel), `cluster` CTAs of `threads` a cluster: 0
+// means it cannot launch one.
+int pypic_leapfrog_deposit_clusters(int f64, int ng, int cluster, int threads,
+                                    int* count) {
+  if (cluster < 1) return (int)cudaErrorInvalidValue;
+  const size_t slice = (size_t)((ng + cluster - 1) / cluster);
+  return (int)(f64 ? max_clusters(leapfrog_deposit_kernel<kCluster, double>,
+                                  slice * sizeof(double), cluster, threads, count)
+                   : max_clusters(leapfrog_deposit_kernel<kCluster, float>,
+                                  slice * sizeof(float), cluster, threads, count));
 }
 
 // rho: ng + 1 zeroed elements; the last one holds the epilogue's block

@@ -78,8 +78,11 @@ _SIGNATURES = {
     "pypic_implicit_resident_clusters": ([_I, _I, _P], _I),
     "pypic_deposit": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P], _I),
     "pypic_gather": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
+    # (rows 14 and 17 take the CTAs a cluster after the threads too, and
+    # have their occupancy queries: ops/cuda_cic.py cluster_launch)
     "pypic_leapfrog_deposit": (
-        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _I, _I, _I, _P], _I),
+    "pypic_leapfrog_deposit_clusters": ([_I] * 4 + [_P], _I),
     "pypic_explicit_cycle": (
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _D, _I, _I, _P],
         _I),
@@ -148,7 +151,8 @@ _SIGNATURES = {
     "pypic_hash_batch_f64": ([_P, _L, _I, _U, _U, _D, _I, _I, _I, _P], _I),
     "pypic_picard_iteration_ext": (
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _I, _I,
-                     _I, _P], _I),
+                     _I, _I, _P], _I),
+    "pypic_picard_iteration_ext_clusters": ([_I] * 5 + [_P], _I),
     "pypic_picard_finalize_ext": (
         [_P] * 10 + [_L, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _I, _I, _P],
         _I),
@@ -175,7 +179,7 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 3 + [_D] * 4 + [_I, _D, _D, _P], _I),
     # the explicit engine's (item 19c): rows 14 and 13, every scalar _D
     "pypic_leapfrog_deposit_f64": (
-        [_P, _P, _P, _P, _P, _P, _L, _I, _D, _D, _D, _D, _I, _I, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _L, _I, _D, _D, _D, _D, _I, _I, _I, _I, _P], _I),
     "pypic_explicit_cycle_f64": (
         [_P, _P, _P, _P, _P, _P, _P, _L, _I, _D, _D, _D, _D, _D, _I, _I, _P],
         _I),

@@ -68,17 +68,18 @@ shared memory up to their ceilings and take the large modes above them,
 up to ``LARGE_MAX_NG`` nodes (``smem_mode``, ``sweep_launch``: the field
 read from device memory, every add a global float atomic); the wide
 deposits do the same through ``deposit_launch_shape``. The Picard pass
-(rows 1 and 2) chooses through ``cluster_launch``: its cluster mode (the
-sum in the shared memory of a thread-block cluster's CTAs) and, in
-float32, its pair mode (a row's two adds one vector reduction) where
-they beat the others on the card (``PASS_RULE``).
+(rows 1 and 2), the slab's Picard pass (row 17, ``cuda_domain``) and the
+leapfrog deposit (row 14) choose through ``cluster_launch``: their
+cluster mode (the sum in the shared memory of a thread-block cluster's
+CTAs) and, in float32, their pair mode (a row's two adds one vector
+reduction) where they beat the others on the card (``PASS_RULE``).
 Only ``explicit_cycle`` keeps a ceiling below that (its engine calls it at
 ng <= 1,024), and the resident kernels theirs.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else (the plain versions count nothing).
 ``LARGE_LAUNCHES`` counts, beside it, the launches taken in a large mode,
-by "wrapper mode" (rows 1 and 2 also "cluster" and "pair").
+by "wrapper mode" (rows 1, 2, 14 and 17 also "cluster" and "pair").
 
 Particles are flat (n,) tensors of grid coordinates. The TPU kernels'
 blocked layout, window geometry, fold/selection matrices and SMEM scalar
@@ -170,8 +171,8 @@ def field_smem_max_ng(item: int = 4) -> int:
 # of deposit_det take 8 ng bytes (32 MiB here)
 LARGE_MAX_NG = 1 << 22
 # the modes of the grid-stride kernels (csrc/cic_common.cuh kShared,
-# kGlobal; kCluster and kPair rows 1 and 2 alone, cluster_launch), as the
-# launchers take them
+# kGlobal; kCluster and kPair rows 1, 2, 14 and 17 alone, cluster_launch),
+# as the launchers take them
 SMEM_MODES = {"shared": 0, "global": 1, "cluster": 2, "pair": 3}
 # static shared memory beside the dynamic bytes (ptxas -v on sm_90a): one
 # int (a clamp count a block, det_flush's ticket) takes 16 B, the
@@ -433,13 +434,17 @@ def sweep_launch(kernel: str, n: int, nodes: int, sms: int,
 
 
 # The cluster and pair modes of the Picard pass, rows 1 and 2 (csrc/cic.cu
-# picard_iteration_kernel with kCluster, kPair). The cluster mode: CTAs of
-# CLUSTER_THREADS threads, one an SM, in clusters of a power of two up to
-# CLUSTER_MAX CTAs (16 a non-portable size), each CTA one slice of the
-# (ng,) sum in its shared memory. The pair mode (float32 alone):
-# sweep_launch's global grid, a row's two products one vector reduction
-# into a (ng, 2) pair array, folded after.
-CLUSTER_KERNELS = ("picard_iteration", "picard_iteration_shared")
+# picard_iteration_kernel with kCluster, kPair), of the slab's Picard pass,
+# row 17 in both windows (csrc/domain.cu picard_iteration_ext_kernel,
+# float32 alone), and of the leapfrog deposit, row 14 (csrc/explicit.cu
+# leapfrog_deposit_kernel). The cluster mode: CTAs of CLUSTER_THREADS
+# threads, one an SM, in clusters of a power of two up to CLUSTER_MAX CTAs
+# (16 a non-portable size), each CTA one slice of the (ng,) sum in its
+# shared memory. The pair mode (float32 alone): sweep_launch's global
+# grid, a row's two products one vector reduction into a (ng, 2) pair
+# array ((ng + 1, 2) on row 17's bounded slab), folded after.
+CLUSTER_KERNELS = ("picard_iteration", "picard_iteration_shared", "picard_iteration_ext",
+                   "picard_iteration_ext shared", "leapfrog_gather_push_deposit")
 CLUSTER_THREADS = 1024
 CLUSTER_MAX = 16
 # cluster_launch's rule by kernel and element bytes: (first node, mode) in
@@ -450,14 +455,24 @@ PASS_RULE = {
                          8: ((16_384, "cluster"), (58_113, "global"))},
     "picard_iteration_shared": {4: ((16_384, "cluster"), (57_344, "pair")),
                                 8: ((16_384, "cluster"), (58_113, "global"))},
+    "picard_iteration_ext": {4: ((16_384, "cluster"), (58_113, "pair"))},
+    "picard_iteration_ext shared": {4: ((16_384, "cluster"), (58_109, "pair"))},
+    "leapfrog_gather_push_deposit": {4: ((16_384, "cluster"), (58_113, "pair")),
+                                     8: ((14_529, "cluster"), (58_113, "global"))},
 }
+# the rows a node, by element bytes, below which the cluster mode's flush
+# (one global atomic a node and CTA, a CTA an SM) outweighs what it saves
+# on the sweep, in every kernel of CLUSTER_KERNELS: there float32 takes the
+# pair mode and float64 the global mode where PASS_RULE names the cluster
+# mode (cluster_launch's docstring)
+CLUSTER_MIN_ROWS_PER_NODE = {4: 64, 8: 48}
 
 
 @dataclasses.dataclass(frozen=True)
 class ClusterLaunch:
-    """The launch of the Picard pass: its ``mode`` ('shared', 'global',
-    'cluster' or 'pair'), ``cluster`` CTAs a cluster (1 outside the
-    cluster mode), ``blocks`` CTAs of ``threads`` threads and ``smem``
+    """The launch of a kernel of CLUSTER_KERNELS: its ``mode`` ('shared',
+    'global', 'cluster' or 'pair'), ``cluster`` CTAs a cluster (1 outside
+    the cluster mode), ``blocks`` CTAs of ``threads`` threads and ``smem``
     bytes of dynamic shared memory a CTA."""
     mode: str
     cluster: int
@@ -485,27 +500,38 @@ def cluster_nodes(kernel: str, item: int = 4) -> int:
     return CLUSTER_MAX * ((SMEM_LIMIT - SWEEP_KERNELS[kernel][1]) // item)
 
 
-def pass_mode(kernel: str, nodes: int, item: int = 4) -> str:
-    """The mode PASS_RULE gives the pass at ``nodes`` nodes of ``item``
-    bytes: the last entry whose first node is at most ``nodes``, else
-    sweep_launch's mode. Raises above LARGE_MAX_NG."""
+def pass_mode(kernel: str, n: int, nodes: int, item: int = 4) -> str:
+    """The mode PASS_RULE gives ``kernel`` on n rows and ``nodes`` nodes
+    of ``item`` bytes: the last entry whose first node is at most
+    ``nodes``, else sweep_launch's mode; on fewer than
+    CLUSTER_MIN_ROWS_PER_NODE rows a node, the pair mode (float32) or the
+    global mode (float64) in the cluster mode's place. Raises above
+    LARGE_MAX_NG, and for an element size the kernel has no rule for (row
+    17 takes float32 alone)."""
+    if item not in PASS_RULE[kernel]:
+        raise ValueError(f"{kernel}: no launch rule for {item}-byte elements (float32 alone)")
     mode = smem_mode(nodes, *SWEEP_KERNELS[kernel], what=kernel, item=item)
     for first, rule in PASS_RULE[kernel][item]:
         if nodes >= first:
             mode = rule
+    if mode == "cluster" and n < CLUSTER_MIN_ROWS_PER_NODE[item] * nodes:
+        mode = "pair" if item == 4 else "global"
     return mode
 
 
 def cluster_launch(kernel: str, n: int, nodes: int, sms: int, item: int = 4,
                    clusters: int | None = None, mode: str | None = None) -> ClusterLaunch:
-    """The launch of the Picard pass (``kernel`` one of CLUSTER_KERNELS) on
-    n rows and ``nodes`` nodes, a function of the sizes alone: the mode
-    ``pass_mode`` names. PASS_RULE comes from the forced pairs of PERF.md
-    §6 (chip_smoke.forced_mode_times, rows 1 and 2, n = 1e7 and 1e8,
-    NVIDIA H100 80GB HBM3): the shared mode up to 16,383 nodes, the
-    cluster mode from 16,384, the smallest ng measured, where it beat both
-    others at both n (row 1, float32: 0.0904 and 0.7910 ms against the
-    shared mode's 0.4127 and 3.0166 and the global mode's 0.3127 and
+    """The launch of ``kernel`` (one of CLUSTER_KERNELS) on n rows and
+    ``nodes`` nodes, a function of the sizes alone: the mode ``pass_mode``
+    names. PASS_RULE comes from the forced pairs of PERF.md §6
+    (chip_smoke.forced_mode_times, n = 1e7 and 1e8, NVIDIA H100 80GB
+    HBM3, 700 W) and, for rows 14 and 17, from phase 41's paths with each
+    mode forced in turns (chip_smoke._fused_turns, _slab_turns_rank).
+
+    Rows 1 and 2 (the Picard pass): the shared mode up to 16,383 nodes,
+    the cluster mode from 16,384, the smallest ng measured, where it beat
+    both others at both n (row 1, float32: 0.0904 and 0.7910 ms against
+    the shared mode's 0.4127 and 3.0166 and the global mode's 0.3127 and
     3.0564; float64 0.1655 and 1.5127 against 0.3370 and 3.2869). From
     58,113 nodes a cluster takes more than one CTA (C = 2 in float32, 4
     in float64): there, at 65,536, the float32 pair mode beat it at both
@@ -517,6 +543,43 @@ def cluster_launch(kernel: str, n: int, nodes: int, sms: int, item: int = 4,
     against 0.2533 and 2.3741; row 1 there 0.1899 and 1.8243 against
     0.1822 and 1.7299).
 
+    Rows 17 (the slab pass, both windows, float32) and 14 (the leapfrog
+    deposit, float32 and float64), from their forced pairs at n = 1e7
+    (ng 16,384 to 2^20, and every 2,048-4,096 nodes from 20,480 to
+    57,344, twice) and 1e8: the cluster mode from 16,384 nodes (from
+    14,529 in float64, the double shared mode's ceiling, where the global
+    mode took over), where it beat every other mode at both n (row 17
+    0.1031 ms at 1e7 against the global mode's 0.3168 and the pair mode's
+    0.1759; row 14 0.0906 against 0.3222 and 0.1800; float64 0.1763
+    against 0.3531), to the last node one CTA holds (58,112; 58,108 in
+    row 17's shared window), above which (from 58,113; 58,109 in the
+    shared window) float32 takes the pair mode (at 65,536 0.1960-0.1986
+    against the two-CTA cluster's 0.2687-0.2702 and the global mode's
+    0.3490-0.3528) and float64 the global mode (0.3718 against C = 4's
+    0.4610). On random rows row 17's separate window lost its cluster
+    mode to the pair mode at 26,624-28,672 and 53,248-57,344 nodes
+    (0.2175-0.2482 against 0.1757-0.1981); on configs[4]'s own rows it
+    did not: forced in turns at ext_n 27,769, 37,023 and 55,533 (n =
+    1e7) row 17 took 0.91, 0.68 and 1.06 ms a step in the cluster mode
+    against the pair mode's 3.98-4.02 and the global mode's 7.18-7.75
+    (its shared window at 37,023 0.69 against 4.0 and 7.9), and the
+    fused two-stream's row 14 at 32,768 0.133 against 0.172 and 0.31-0.33
+    (float64 0.294-0.297 against 0.374-0.376): so one range, no bands.
+
+    Below CLUSTER_MIN_ROWS_PER_NODE rows a node (64 in float32, 48 in
+    float64; every kernel here) the cluster mode's flush, one global
+    atomic a node and CTA, outweighs its sweep: in the forced pairs of
+    rows 1, 2, 14 and 17 at n = 5e5 to 4e6 and ng 16,384, 32,768 and
+    57,344 the float32 pair mode beat it at 30-35 rows a node (row 1 at
+    57,344 and 2e6: 0.0398 ms against 0.0457) and it won from 61 rows a
+    node at 16,384 and 32,768 (row 1 at 32,768 and 2e6: 0.0310 against
+    0.0383); at 57,344 it lost by 3-10% at 70 rows a node (row 1 0.0842
+    against 0.0773; row 17's separate window by 30%, 0.1100 against
+    0.0846). In float64 the global mode beat it at 30-35 rows a node
+    (0.0417 against 0.0392 at 32,768 and 1e6) and it won from 61 (0.0672
+    against 0.0775 at 32,768 and 2e6). There float32 takes the pair mode
+    and float64 the global mode.
+
     The shared and global modes launch as ``sweep_launch``; the pair mode
     on the global mode's grid. The cluster mode: C = ``cluster_size`` CTAs
     a cluster, each of CLUSTER_THREADS threads with a slice of
@@ -526,7 +589,7 @@ def cluster_launch(kernel: str, n: int, nodes: int, sms: int, item: int = 4,
     could). ``mode`` forces a mode (raising where it cannot launch).
     Raises above LARGE_MAX_NG."""
     sweep = sweep_launch(kernel, n, nodes, sms, item=item)
-    mode = pass_mode(kernel, nodes, item) if mode is None else mode
+    mode = pass_mode(kernel, n, nodes, item) if mode is None else mode
     if mode == "shared" and sweep.mode != "shared":
         raise ValueError(f"{kernel}: ng={nodes} is above the shared mode's ceiling")
     if mode == "pair" and item != 4:
@@ -548,13 +611,22 @@ def cluster_launch(kernel: str, n: int, nodes: int, sms: int, item: int = 4,
 @functools.lru_cache(maxsize=None)
 def _max_clusters(index: int, kernel: str, item: int, emit_v: bool, nodes: int,
                   cluster: int) -> int:
-    """Clusters of the pass's cluster launch the card ``index`` holds at
+    """Clusters of ``kernel``'s cluster launch the card ``index`` holds at
     once (cudaOccupancyMaxActiveClusters); raises if it cannot hold one."""
     count = ctypes.c_int(0)
+    lib = _build.library()
     with torch.cuda.device(index):
-        err = _build.library().pypic_picard_iteration_clusters(
-            int(kernel == "picard_iteration_shared"), int(emit_v), int(item == 8),
-            nodes, cluster, CLUSTER_THREADS, ctypes.byref(count))
+        if kernel.startswith("picard_iteration_ext"):
+            err = lib.pypic_picard_iteration_ext_clusters(
+                int(kernel.endswith(" shared")), int(emit_v), nodes, cluster,
+                CLUSTER_THREADS, ctypes.byref(count))
+        elif kernel == "leapfrog_gather_push_deposit":
+            err = lib.pypic_leapfrog_deposit_clusters(
+                int(item == 8), nodes, cluster, CLUSTER_THREADS, ctypes.byref(count))
+        else:
+            err = lib.pypic_picard_iteration_clusters(
+                int(kernel == "picard_iteration_shared"), int(emit_v), int(item == 8),
+                nodes, cluster, CLUSTER_THREADS, ctypes.byref(count))
     _build.check(err, f"{kernel} (cluster occupancy)")
     if count.value < 1:
         raise RuntimeError(
@@ -576,10 +648,19 @@ def _pass_launch(dev, kernel: str, n: int, nodes: int, item: int, emit_v: bool,
     return cluster_launch(kernel, n, nodes, sms, item, held, mode="cluster")
 
 
-def _pass_sum(mode: str, ng: int, dtype: torch.dtype, dev) -> torch.Tensor:
-    """The pass's zeroed sum: ng elements, in the pair mode 3 ng (the
-    (ng, 2) pair array, then the sum the fold writes: the last ng)."""
-    return torch.zeros(((3 if mode == "pair" else 1) * ng,), dtype=dtype, device=dev)
+def pair_rows(ng: int, bounded: bool = False) -> int:
+    """The rows of the pair mode's (rows, 2) pair array: ng, or ng + 1 on a
+    bounded slab (row l + 1 holds node l's product and node l + 1's)."""
+    return ng + 1 if bounded else ng
+
+
+def _pass_sum(mode: str, ng: int, dtype: torch.dtype, dev,
+              bounded: bool = False) -> torch.Tensor:
+    """The zeroed sum of a kernel of CLUSTER_KERNELS: ng elements, in the
+    pair mode the pair array's 2 ``pair_rows`` elements before them (the
+    sum the fold writes: the last ng)."""
+    pair = 2 * pair_rows(ng, bounded) if mode == "pair" else 0
+    return torch.zeros((pair + ng,), dtype=dtype, device=dev)
 
 
 def _sweep(dev, kernel: str, n: int, nodes: int, extra: int = 0,
@@ -838,29 +919,72 @@ def picard_iteration_shared_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
 
 
 def cluster_sum_plain(left, right, t_left, t_right, ng: int, cluster: int,
-                      slice_: int):
-    """The cluster mode's sum of a pass's terms (csrc/cic.cu cluster_add
-    and its flush), on any device: term ``t_left`` at node ``left`` lands
-    in slice ``left // slice_`` at offset ``left % slice_`` of ``cluster``
-    slices of ``slice_`` nodes, ``t_right`` at the next offset, at the
-    next slice's first past ``slice_ - 1`` and at node 0's (slice 0,
-    offset 0) where ``right`` wrapped to 0; the slices, laid end to end,
-    are the (ng,) sum. Raises if a term lands past node ng - 1 (owner or
-    offset arithmetic the flush would drop)."""
+                      slice_: int, bounded: bool = False):
+    """The cluster mode's sum of a kernel's terms (csrc/cic_common.cuh
+    cluster_add and the flush), on any device: term ``t_left`` at node
+    ``left`` lands in slice ``left // slice_`` at offset ``left % slice_``
+    of ``cluster`` slices of ``slice_`` nodes, ``t_right`` at the next
+    offset, at the next slice's first past ``slice_ - 1`` and at node 0's
+    (slice 0, offset 0) where ``right`` wrapped to 0; the slices, laid end
+    to end, are the (ng,) sum. ``bounded`` (the slab, row 17:
+    cluster_add_bounded): ``t_right`` at node ``right`` = ``left`` + 1, no
+    wrap, and a term whose node lies outside [0, ng) dropped, as the
+    global mode drops it. Raises if a term lands past node ng - 1 (owner
+    or offset arithmetic the flush would drop)."""
     if cluster * slice_ < ng:
         raise ValueError(f"{cluster} slices of {slice_} nodes do not hold ng = {ng}")
-    owner = torch.div(left, slice_, rounding_mode="floor")
-    off = left - owner * slice_
-    r_owner = torch.where(off + 1 == slice_, owner + 1, owner)
-    r_off = torch.where(off + 1 == slice_, 0, off + 1)
-    r_owner = torch.where(right == 0, 0, r_owner)
-    r_off = torch.where(right == 0, 0, r_off)
     slices = torch.zeros((cluster * slice_,), dtype=t_left.dtype, device=t_left.device)
-    slices.index_add_(0, owner * slice_ + off, t_left)
-    slices.index_add_(0, r_owner * slice_ + r_off, t_right)
+    if bounded:
+        for node, term in ((left, t_left), (right, t_right)):
+            keep = (node >= 0) & (node < ng)
+            node, term = node[keep], term[keep]
+            owner = torch.div(node, slice_, rounding_mode="floor")
+            slices.index_add_(0, owner * slice_ + (node - owner * slice_), term)
+    else:
+        owner = torch.div(left, slice_, rounding_mode="floor")
+        off = left - owner * slice_
+        r_owner = torch.where(off + 1 == slice_, owner + 1, owner)
+        r_off = torch.where(off + 1 == slice_, 0, off + 1)
+        r_owner = torch.where(right == 0, 0, r_owner)
+        r_off = torch.where(right == 0, 0, r_off)
+        slices.index_add_(0, owner * slice_ + off, t_left)
+        slices.index_add_(0, r_owner * slice_ + r_off, t_right)
     if bool((slices[ng:] != 0).any()):
         raise AssertionError("a term landed past the last node")
     return slices[:ng]
+
+
+def pair_sum_plain(left, t_left, t_right, ng: int, bounded: bool = False):
+    """The pair mode's sum of a kernel's terms (csrc/cic_common.cuh pair_add
+    and pair_fold_kernel), on any device: both terms of a row at row
+    ``left`` of a (ng, 2) pair array, then jh[i] = pair[i][0] + pair[i -
+    1][1], i - 1 taken mod ng. ``bounded`` (the slab, row 17:
+    pair_fold_bounded_kernel): at row ``left`` + 1 of an (ng + 1, 2) array,
+    a row with ``left`` outside [-1, ng) dropped, then jh[i] = pair[i +
+    1][0] + pair[i][1] (pair[0][0], node -1, and pair[ng][1], node ng,
+    never read)."""
+    rows = pair_rows(ng, bounded)
+    row = left + 1 if bounded else left
+    keep = (row >= 0) & (row < rows)
+    pair = torch.zeros((rows, 2), dtype=t_left.dtype, device=t_left.device)
+    pair[:, 0].index_add_(0, row[keep], t_left[keep])
+    pair[:, 1].index_add_(0, row[keep], t_right[keep])
+    if bounded:
+        return pair[1:, 0] + pair[:-1, 1]
+    return pair[:, 0] + torch.roll(pair[:, 1], 1)
+
+
+def mode_sum_plain(mode: str, left, right, t_left, t_right, ng: int, cluster: int = 1,
+                   bounded: bool = False):
+    """The (ng,) sum of a kernel's terms as its ``mode`` sums them:
+    'cluster' (``cluster_sum_plain`` over ``cluster`` slices of ceil(ng /
+    cluster) nodes) or 'pair' (``pair_sum_plain``)."""
+    if mode == "cluster":
+        return cluster_sum_plain(left, right, t_left, t_right, ng, cluster,
+                                 -(-ng // cluster), bounded)
+    if mode == "pair":
+        return pair_sum_plain(left, t_left, t_right, ng, bounded)
+    raise ValueError(f"mode must be 'cluster' or 'pair', got {mode!r}")
 
 
 def picard_iteration_cluster_plain(field_smoothed, ps, p0, v0, ng: int, *, qm,
@@ -957,6 +1081,20 @@ def leapfrog_gather_push_deposit_plain(field, p, v, *, qm, w, dt: float,
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, p.dtype)
     p1, v1 = _leapfrog(field, p, v, qmh, dt_dx, ng)
     return p1, v1, deposit_plain(p1, torch.full_like(p1, wf), ng, periodic=True)
+
+
+def leapfrog_gather_push_deposit_cluster_plain(field, p, v, *, qm, w, dt: float,
+                                               dx: float, mode: str = "cluster",
+                                               cluster: int = 1):
+    """Row 14's cluster or pair mode on any device: the plain version's p1
+    and v1, rho summed as ``mode_sum_plain`` sums the kernel's terms (w wl
+    at the left node, w wr at the right) in ``mode`` over ``cluster``
+    CTAs."""
+    ng = field.shape[0]
+    qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, p.dtype)
+    p1, v1 = _leapfrog(field, p, v, qmh, dt_dx, ng)
+    il, ir, wl, wr = cic_indices_weights(p1, ng, True)
+    return p1, v1, mode_sum_plain(mode, il, ir, wf * wl, wf * wr, ng, cluster)
 
 
 def explicit_cycle_plain(e_field, p, v, ng: int, *, qm, w, dt: float,
@@ -1230,27 +1368,30 @@ def leapfrog_gather_push_deposit(field, p, v, *, qm, w, dt: float, dx: float):
     """One sweep of the explicit cycle: gather the field at p, leapfrog,
     wrap, and deposit the charge density of the NEW positions. Returns
     (p1, v1, rho1). ``qm`` and ``w`` are the scalars q/m and q p2c / dx
-    (rounded to the tensors' dtype by ``leapfrog_scalars``)."""
+    (rounded to the tensors' dtype by ``leapfrog_scalars``). On the card
+    its mode is ``cluster_launch``'s (PASS_RULE)."""
     kind, n, ng = _check_leapfrog("leapfrog_gather_push_deposit", field, p, v)
     _check_ng(ng)
     if kind == "cpu":
         return leapfrog_gather_push_deposit_plain(field, p, v, qm=qm, w=w,
                                                   dt=dt, dx=dx)
     dev, dtype = p.device, p.dtype
-    launch = _sweep(dev, "leapfrog_gather_push_deposit", n, ng, item=p.element_size())
+    launch = _pass_launch(dev, "leapfrog_gather_push_deposit", n, ng, p.element_size(),
+                          False)
     fn, name = _launcher(_build.library(), "leapfrog_gather_push_deposit", dtype,
                          entry="leapfrog_deposit")
     qmh, dt_dx, wf = leapfrog_scalars(qm, dt, dx, w, dtype)
     p1 = torch.empty_like(p)
     v1 = torch.empty_like(v)
-    rho = torch.zeros((ng,), dtype=dtype, device=dev)
+    buf = _pass_sum(launch.mode, ng, dtype, dev)
     with torch.cuda.device(dev):
         err = fn(field.data_ptr(), p.data_ptr(), v.data_ptr(), p1.data_ptr(),
-                 v1.data_ptr(), rho.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng, dtype),
-                 SMEM_MODES[launch.mode], launch.blocks, launch.threads, _stream(dev))
+                 v1.data_ptr(), buf.data_ptr(), n, ng, qmh, dt_dx, wf, _inv(ng, dtype),
+                 SMEM_MODES[launch.mode], launch.blocks, launch.threads, launch.cluster,
+                 _stream(dev))
     _build.check(err, name)
     _count(name, launch.mode)
-    return p1, v1, rho
+    return p1, v1, buf[-ng:]
 
 
 # shared memory of explicit_cycle: its field and histogram and ng + 32

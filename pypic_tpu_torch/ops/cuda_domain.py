@@ -29,7 +29,9 @@ nothing falls back; ``cuda_cic.LAUNCHES`` counts each wrapper's launches
 (``cuda_cic.LARGE_LAUNCHES`` those in a large mode). Each kernel keeps its
 arrays in a block's shared memory up to its ceiling and takes the large
 modes of ``cuda_cic.smem_mode`` above it, up to ``cuda_cic.LARGE_MAX_NG``
-nodes (a limit checked in the CUDA branch only).
+nodes (a limit checked in the CUDA branch only); the slab pass chooses
+through ``cuda_cic.cluster_launch``, whose cluster and pair modes it
+shares with rows 1, 2 and 14 (``cuda_cic.PASS_RULE``).
 
 The slab forms differ from the periodic kernels of ``cuda_cic``: the field
 is a bounded extended slab of ext_n = c + 2 hw + 1 nodes (no wrap), the
@@ -43,12 +45,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, cuda_cic
 from .cic import cic_indices_weights
 from .cuda_cic import (SMEM_MODES, _check_1d, _check_ng, _count, _device_kind,
-                       _inv, _leapfrog, _stream, _sweep, _wrap, check_large_ng,
-                       deposit_plain, gather_plain, kernel_scalars,
-                       leapfrog_scalars, window_sw)
+                       _inv, _leapfrog, _pass_sum, _stream, _sweep, _wrap,
+                       check_large_ng, deposit_plain, gather_plain, kernel_scalars,
+                       leapfrog_scalars, mode_sum_plain, window_sw)
 
 
 def _f32(x) -> float:
@@ -76,6 +78,49 @@ def _cn(field_ext, ps, p0, v0, qm, dt, dx, lo, hi):
 # ---------------------------------------------------------------------------
 
 
+def _ext_terms(field_ext, ps, p0, v0, w, qm, dt, dx, lo, hi, shared):
+    """The slab pass's rows as its kernel computes them: (ph, v1, left
+    node, left term, right term, clamped), the left node in [0, ext_n - 2]
+    with the separate window and in [-1, ext_n - 1] (or beyond: both
+    nodes outside) with the shared one, the right node left + 1, the
+    clamp count an int32 (0 without ``shared``)."""
+    ext_n = field_ext.shape[0]
+    s, p1, v1 = _cn(field_ext, ps, p0, v0, qm, dt, dx, lo, hi)
+    ph = 0.5 * (p0 + p1)
+    vals = w * (0.5 * (v0 + v1))
+    hc = torch.clamp(ph, lo, hi)
+    if not shared:
+        il, _, wl, wr = cic_indices_weights(hc, ext_n - 1, False)
+        return ph, v1, il, vals * wl, vals * wr, torch.zeros((), dtype=torch.int32)
+    stride, width, num_k, inv_stride = _frame(ext_n)
+    k = torch.clamp((torch.floor(s) * inv_stride).to(torch.int32), 0, num_k - 1)
+    d_h = ((s - k.to(s.dtype) * stride) + 1.0) + (hc - s)
+    oob = ((d_h < 0.0) | (d_h > width - 1.0)) & (w != 0.0)
+    d_h = torch.clamp(d_h, 0.0, width - 1.0)
+    row = torch.clamp(torch.floor(d_h).to(torch.int64), max=width - 2)
+    wr = d_h - row.to(d_h.dtype)
+    left = stride * k.to(torch.int64) + row - 1
+    return ph, v1, left, vals * (1.0 - wr), vals * wr, oob.sum().to(torch.int32)
+
+
+def picard_iteration_ext_cluster_plain(field_ext, ps, p0, v0, w, *, qm, dt: float,
+                                       dx: float, lo: float, hi: float,
+                                       emit_v: bool = False, shared: bool = False,
+                                       mode: str = "cluster", cluster: int = 1):
+    """The slab pass's cluster or pair mode on any device:
+    ``picard_iteration_ext_plain``'s ph, v1 and clamp count, jh summed as
+    ``cuda_cic.mode_sum_plain`` sums the kernel's terms on the bounded slab
+    in ``mode`` over ``cluster`` CTAs (the products at nodes outside [0,
+    ext_n) dropped). Returns what ``picard_iteration_ext_plain`` returns."""
+    ext_n = field_ext.shape[0]
+    ph, v1, left, t_left, t_right, n_clamped = _ext_terms(
+        field_ext, ps, p0, v0, w, qm, dt, dx, lo, hi, shared)
+    jh = mode_sum_plain(mode, left, left + 1, t_left, t_right, ext_n, cluster,
+                        bounded=True)
+    res = (ph,) + ((v1,) if emit_v else ()) + (jh,)
+    return res + ((n_clamped,) if shared else ())
+
+
 def picard_iteration_ext_plain(field_ext, ps, p0, v0, w, *, qm, dt: float,
                                dx: float, lo: float, hi: float,
                                emit_v: bool = False, shared: bool = False,
@@ -85,30 +130,23 @@ def picard_iteration_ext_plain(field_ext, ps, p0, v0, w, *, qm, dt: float,
     ``acc_dtype`` is the dtype jh is summed in (float32 by default; float64
     sums the same float32 terms into a reference)."""
     ext_n = field_ext.shape[0]
-    s, p1, v1 = _cn(field_ext, ps, p0, v0, qm, dt, dx, lo, hi)
-    ph = 0.5 * (p0 + p1)
-    vals = w * (0.5 * (v0 + v1))
-    hc = torch.clamp(ph, lo, hi)
-    acc = acc_dtype or vals.dtype
     if not shared:
-        jh = deposit_plain(hc, vals.to(acc), ext_n, periodic=False)
+        _, p1, v1 = _cn(field_ext, ps, p0, v0, qm, dt, dx, lo, hi)
+        ph = 0.5 * (p0 + p1)
+        vals = w * (0.5 * (v0 + v1))
+        jh = deposit_plain(torch.clamp(ph, lo, hi), vals.to(acc_dtype or vals.dtype),
+                           ext_n, periodic=False)
         return (ph, v1, jh) if emit_v else (ph, jh)
     # the midpoint's row in the gather's window frame (pallas_cic.py
     # _window_decompose, _shared_gather and _picard_iter_ext_sw_kernel)
-    stride, width, num_k, inv_stride = _frame(ext_n)
-    k = torch.clamp((torch.floor(s) * inv_stride).to(torch.int32), 0, num_k - 1)
-    d_h = ((s - k.to(s.dtype) * stride) + 1.0) + (hc - s)
-    oob = ((d_h < 0.0) | (d_h > width - 1.0)) & (w != 0.0)
-    d_h = torch.clamp(d_h, 0.0, width - 1.0)
-    row = torch.clamp(torch.floor(d_h).to(torch.int64), max=width - 2)
-    wr = d_h - row.to(d_h.dtype)
-    left = stride * k.to(torch.int64) + row - 1
-    jh = torch.zeros((ext_n,), dtype=acc, device=vals.device)
-    for node, part in ((left, vals * (1.0 - wr)), (left + 1, vals * wr)):
+    ph, v1, left, t_left, t_right, n_clamped = _ext_terms(
+        field_ext, ps, p0, v0, w, qm, dt, dx, lo, hi, True)
+    acc = acc_dtype or t_left.dtype
+    jh = torch.zeros((ext_n,), dtype=acc, device=t_left.device)
+    for node, part in ((left, t_left), (left + 1, t_right)):
         inside = (node >= 0) & (node < ext_n)  # the TPU fold drops the rest
         jh.index_add_(0, torch.clamp(node, 0, ext_n - 1),
                       torch.where(inside, part, 0.0).to(acc))
-    n_clamped = oob.sum().to(torch.int32)
     return (ph, v1, jh, n_clamped) if emit_v else (ph, jh, n_clamped)
 
 
@@ -210,7 +248,10 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
     ``ps``. ``active`` (needs ``out``): a one-element int32 tensor on the
     particles' device; when it holds 0 the pass writes nothing, jh is zero
     and the count 0, so a Picard loop can run a fixed number of passes
-    without reading the residual on the host."""
+    without reading the residual on the host.
+
+    On the card its mode is ``cuda_cic.cluster_launch``'s (PASS_RULE, the
+    kernel "picard_iteration_ext" or "picard_iteration_ext shared")."""
     kind, n, ext_n = _check_slab("picard_iteration_ext", field_ext, ps, p0, v0, w)
     if active is not None:
         if out is None:
@@ -241,29 +282,29 @@ def picard_iteration_ext(field_ext, ps, p0, v0, w, *, qm, dt: float,
             out[1].copy_(res[1])
         return (out[0],) + ((out[1],) if emit_v else ()) + res[1 + emit_v:]
     dev = ps.device
-    launch = _sweep(dev, "picard_iteration_ext shared" if shared
-                    else "picard_iteration_ext", n, ext_n)
+    kernel = "picard_iteration_ext shared" if shared else "picard_iteration_ext"
+    launch = cuda_cic._pass_launch(dev, kernel, n, ext_n, 4, emit_v)
     lib = _build.library()
     qm_dt, qm_dt2_half, dt_dx, _ = kernel_scalars(qm, dt, dx, 0.0)
     ph = out[0] if out is not None else torch.empty_like(ps)
     v1 = None
     if emit_v:
         v1 = out[1] if out is not None else torch.empty_like(ps)
-    jh = torch.zeros((ext_n,), dtype=torch.float32, device=dev)
+    buf = _pass_sum(launch.mode, ext_n, torch.float32, dev, bounded=True)
     ncl = torch.zeros((1,), dtype=torch.int32, device=dev) if shared else None
     stride, width, num_k, inv_stride = _frame(ext_n) if shared else (0, 0, 0, 0.0)
     with torch.cuda.device(dev):
         err = lib.pypic_picard_iteration_ext(
             field_ext.data_ptr(), ps.data_ptr(), p0.data_ptr(), v0.data_ptr(),
             w.data_ptr(), ph.data_ptr(), v1.data_ptr() if emit_v else None,
-            jh.data_ptr(), ncl.data_ptr() if shared else None,
+            buf.data_ptr(), ncl.data_ptr() if shared else None,
             active.data_ptr() if active is not None else None, n, ext_n,
             qm_dt, qm_dt2_half, dt_dx, _f32(lo), _f32(hi), int(shared),
             stride, width, num_k, inv_stride, SMEM_MODES[launch.mode],
-            launch.blocks, launch.threads, _stream(dev))
+            launch.blocks, launch.threads, launch.cluster, _stream(dev))
     _build.check(err, "picard_iteration_ext")
     _count("picard_iteration_ext", launch.mode)
-    res = (ph,) + ((v1,) if emit_v else ()) + (jh,)
+    res = (ph,) + ((v1,) if emit_v else ()) + (buf[-ext_n:],)
     return res + ((ncl[0],) if shared else ())
 
 

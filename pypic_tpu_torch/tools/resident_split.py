@@ -8,6 +8,7 @@ library outside the package's.
     python -m pypic_tpu_torch.tools.resident_split --kernel newton_dd_large|newton_dn_large
     python -m pypic_tpu_torch.tools.resident_split --kernel deposit2|boris_deposit [--first-port SOURCE]
     python -m pypic_tpu_torch.tools.resident_split --kernel picard_iteration
+    python -m pypic_tpu_torch.tools.resident_split --kernel picard_iteration_ext|leapfrog_deposit
 
 The cuts are text edits of ``csrc/implicit.cu`` (``--kernel implicit``,
 the default) or of ``csrc/explicit.cu`` (``--kernel explicit``); the edits
@@ -81,6 +82,21 @@ ng), (e) the pair mode (one ``red.global.add.v2.f32`` a row into a
 each add an explicit ``mapa`` and ``red.shared::cluster``. It prints
 the atomic and reduction instructions of each mode (cuobjdump) and the
 registers.
+
+``--kernel picard_iteration_ext`` splits row 17, the slab's Picard pass
+(``csrc/domain.cu`` ``picard_iteration_ext_kernel``, the separate window
+without v1 as configs[4]'s passes launch it, 5% dead slots), at
+``EXT_SHAPES`` (n = 1e7 x ext_n 32,768, 38,700, 65,536 and 2^20; 2.5e5
+and 1e6 rows at 38,700), and ``--kernel leapfrog_deposit`` row 14
+(``csrc/explicit.cu`` ``leapfrog_deposit_kernel``) at
+``LEAPFROG_SHAPES`` (n = 1e7 x ng 32,768, 65,536 and 2^20 in float32,
+32,768 and 65,536 in float64; 1e6 rows at 32,768): (a) the
+global mode, (b) no adds (the loads, the push and the stores), (c) the
+adds alone (each row's position read and its two global atomics, no
+gather, push or store), (d) the cluster mode (where a cluster holds the
+nodes; C = 1 up to 58,112 float nodes), (e) the pair mode (float32). It
+prints the atomic and reduction instructions of each mode (cuobjdump)
+and the registers.
 
 ``--kernel deposit``, ``--kernel deposit_det`` and ``--kernel
 source_batch`` split row 4 (``csrc/cic.cu``, with ``cic_common.cuh``
@@ -1779,6 +1795,174 @@ def _split_pass(_args, dev) -> tuple[dict, dict, dict]:
     return res, calls, {"per": "launch", "count": 1, "timer": _queued}
 
 
+# ---------------------------------------------------------------------------
+# rows 17 and 14 (csrc/domain.cu picard_iteration_ext_kernel, csrc/explicit.cu
+# leapfrog_deposit_kernel) in their global mode, beside their cluster and
+# pair modes
+# ---------------------------------------------------------------------------
+
+# n = 1e7 at the large grids, and the rows of one of two ranks at ext_n
+# ~38,700 (configs[4]'s load of phase 41's checks, 2.5e5 a rank) and 1e6
+EXT_SHAPES = ([(10_000_000, ext_n) for ext_n in (32_768, 38_700, 65_536, 1 << 20)]
+              + [(n, 38_700) for n in (250_000, 1_000_000)])
+LEAPFROG_SHAPES = ([(10_000_000, ng, 4) for ng in (32_768, 65_536, 1 << 20)]
+                   + [(10_000_000, ng, 8) for ng in (32_768, 65_536)]
+                   + [(1_000_000, 32_768, 4)])
+SWEEP_CUTS = {
+    "(a) global": 0,
+    "(b) no adds": 1,        # the products summed in a register; the stores kept
+    "(c) adds alone": 2,     # a row's position read and its two global atomics
+    "(d) cluster mode": 0,   # the full kernel's kCluster instantiation
+    "(e) pair mode": 0,      # the full kernel's kPair: one red.global.add.v2.f32 a row
+}
+_SINK_END = "  if (sink == 1.2345e30f) ph_out[0] = sink;\n"
+_EXT_EDITS = [
+    (_INLINED, _INLINED + _CUT_DEFINE, 1),
+    ("  const float top = (float)(width - 1);\n  int clamped = 0;",
+     "  const float top = (float)(width - 1);\n  int clamped = 0;\n  float sink = 0.0f;", 1),
+    ("    const float s = clampf(ps[i], lo, hi);\n    const float a = p0[i];\n",
+     "#if CUT == 2\n    {\n      const Cic c = cic_bounded(clampf(ps[i], lo, hi), ext_n);\n"
+     "      atomicAdd(&hist[c.l], c.wl);\n      atomicAdd(&hist[c.r], c.wr);\n"
+     "      continue;\n    }\n#endif\n"
+     "    const float s = clampf(ps[i], lo, hi);\n    const float a = p0[i];\n", 1),
+    ("      } else {\n        atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));\n"
+     "        atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));\n      }",
+     "      } else {\n#if CUT == 1\n        sink = __fadd_rn(sink, __fadd_rn(__fmul_rn(val, c.wl), "
+     "__fadd_rn(__fmul_rn(val, c.wr), (float)c.l)));\n#else\n"
+     "        atomicAdd(&hist[c.l], __fmul_rn(val, c.wl));\n"
+     "        atomicAdd(&hist[c.r], __fmul_rn(val, c.wr));\n#endif\n      }", 1),
+    ("  if (SHARED && clamped) atomicAdd(&s_clamped, clamped);\n  if constexpr (MODE == kCluster)",
+     _SINK_END + "  if (SHARED && clamped) atomicAdd(&s_clamped, clamped);\n"
+     "  if constexpr (MODE == kCluster)", 1),
+]
+_LEAPFROG_EDITS = [
+    (_INLINED, _INLINED + _CUT_DEFINE, 1),
+    ("    const T a = p[i];\n    const T e = gather_mode<MODE>(s_field, field, cic_periodic(a, ng));\n"
+     "    T p1, v1;\n    leapfrog(",
+     "#if CUT == 2\n    {\n      const CicT<T> c = cic_periodic(p[i], ng);\n"
+     "      atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));\n"
+     "      atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));\n      continue;\n    }\n#endif\n"
+     "    const T a = p[i];\n    const T e = gather_mode<MODE>(s_field, field, cic_periodic(a, ng));\n"
+     "    T p1, v1;\n    leapfrog(", 1),
+    ("  const T ngf = (T)ng;\n  const long long stride = (long long)gridDim.x * blockDim.x;\n"
+     "  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;\n"
+     "       i += stride) {\n#if CUT == 2",
+     "  const T ngf = (T)ng;\n  T sink = (T)0;\n"
+     "  const long long stride = (long long)gridDim.x * blockDim.x;\n"
+     "  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;\n"
+     "       i += stride) {\n#if CUT == 2", 1),
+    ("    } else {\n      atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));\n"
+     "      atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));\n    }\n  }\n}\n",
+     "    } else {\n#if CUT == 1\n      sink = add_rn(sink, add_rn(mul_rn(w, c.wl), "
+     "add_rn(mul_rn(w, c.wr), (T)c.l)));\n#else\n"
+     "      atomicAdd(&s_hist[c.l], mul_rn(w, c.wl));\n"
+     "      atomicAdd(&s_hist[c.r], mul_rn(w, c.wr));\n#endif\n    }\n  }\n"
+     "  if (sink == (T)1.2345e30f) p1_out[0] = sink;\n}\n", 1),
+]
+
+
+def _split_sweep(kernel: str, dev) -> tuple[dict, dict, dict]:
+    """Row 17's (``kernel`` 'picard_iteration_ext') or row 14's
+    ('leapfrog_deposit') cuts, SWEEP_CUTS, at EXT_SHAPES or
+    LEAPFROG_SHAPES."""
+    ext = kernel == "picard_iteration_ext"
+    source, edits, word = (("domain.cu", _EXT_EDITS, "picard_iteration_ext_kernel") if ext
+                           else ("explicit.cu", _LEAPFROG_EDITS, "leapfrog_deposit_kernel"))
+    rule = "picard_iteration_ext" if ext else "leapfrog_gather_push_deposit"
+    text = _edited(_inlined(_build.CSRC_DIR / source), edits)
+    jobs = {tag: (text, [f"-DCUT={cut}"]) for tag, cut in SWEEP_CUTS.items()
+            if tag.startswith("(a)") or cut}
+    libs, logs = _build_all(jobs)
+    res = {"registers": {}, "sass": {}, "launch": {}}
+    for tag in libs:
+        res["registers"][tag] = _kernel_report(logs[tag], word)
+        for line in res["registers"][tag]:
+            print(f"[ptxas] {tag}: {line}", flush=True)
+    # the mangled template arguments of each mode's instantiation
+    modes = ({"global": "ILb0ELb0ELi1E", "cluster": "ILb0ELb0ELi2E", "pair": "ILb0ELb0ELi3E",
+              "shared window, cluster": "ILb0ELb1ELi2E", "shared window, pair": "ILb0ELb1ELi3E"}
+             if ext else {"global": "ILi1EfE", "cluster": "ILi2EfE", "pair": "ILi3EfE",
+                          "float64 global": "ILi1EdE", "float64 cluster": "ILi2EdE"})
+    for mode, args in modes.items():
+        ops = _atomics(Path(libs["(a) global"]._name), word + args, ("ATOM", "RED"))
+        res["sass"][mode] = ops
+        print(f"[sass] {mode}: {ops}", flush=True)
+    libs["(d) cluster mode"] = libs["(e) pair mode"] = libs["(a) global"]
+    entries = (("pypic_picard_iteration_ext", "pypic_picard_iteration_ext_clusters") if ext
+               else ("pypic_leapfrog_deposit", "pypic_leapfrog_deposit_f64",
+                     "pypic_leapfrog_deposit_clusters"))
+    for lib in set(libs.values()):
+        for fn in entries:
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = _build._SIGNATURES[fn]
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = cuda_cic._sm_count(dev.index)
+    qm, w, dt, dx = -1.7e11, -3.2e-9, 1e-7, 0.05  # chip_smoke.py's QM, W, DT, DX
+    shapes = [(n, ng, 4) for n, ng in EXT_SHAPES] if ext else LEAPFROG_SHAPES
+    gen = torch.Generator(device=dev).manual_seed(41)
+    n_max = max(n for n, _, _ in shapes)
+    calls = {}
+    for dtype in (torch.float32, torch.float64):
+        item = torch.empty((), dtype=dtype).element_size()
+        if not any(s[2] == item for s in shapes):
+            continue
+        label = "float32" if item == 4 else "float64"
+        u = torch.rand(3, n_max, generator=gen, device=dev, dtype=dtype)
+        v0 = torch.randn(n_max, generator=gen, device=dev, dtype=dtype) * 1e5
+        out = [torch.empty(n_max, dtype=dtype, device=dev) for _ in range(2)]
+        wts = torch.where(u[2] < 0.05, 0.0, w).to(dtype)  # 5% dead slots
+        for n, ng, it in shapes:
+            if it != item:
+                continue
+            field = torch.randn(ng, generator=gen, device=dev, dtype=dtype) * 1e3
+            pos = [x[:n] * (ng - 1) for x in u[:2]]  # rows in random order over the grid
+            acc = torch.zeros(3 * ng + 2, dtype=dtype, device=dev)
+            grids = {"global": cuda_cic.cluster_launch(rule, n, ng, sms, item, mode="global")}
+            if cuda_cic.cluster_size(rule, ng, item) is not None:
+                clus = cuda_cic.cluster_launch(rule, n, ng, sms, item, mode="cluster")
+                count = ctypes.c_int(0)
+                query = (libs["(a) global"].pypic_picard_iteration_ext_clusters(
+                    0, 0, ng, clus.cluster, clus.threads, ctypes.byref(count)) if ext else
+                    libs["(a) global"].pypic_leapfrog_deposit_clusters(
+                        int(item == 8), ng, clus.cluster, clus.threads, ctypes.byref(count)))
+                _build.check(query, "resident_split (cluster occupancy)")
+                grids["cluster"] = cuda_cic.cluster_launch(rule, n, ng, sms, item,
+                                                           count.value, mode="cluster")
+            if item == 4:
+                grids["pair"] = cuda_cic.cluster_launch(rule, n, ng, sms, item, mode="pair")
+            res["launch"][f"{label} n {n}, ng {ng}"] = {
+                m: dataclasses.asdict(g) for m, g in grids.items()}
+            if ext:
+                scalars = cuda_cic.kernel_scalars(qm, dt, dx, w)[:3]
+                args = (field, pos[0], pos[1], v0[:n], wts[:n], out[0][:n])
+            else:
+                scalars = cuda_cic.leapfrog_scalars(qm, dt, dx, w, dtype)
+                args = (field, pos[0], v0[:n], out[0][:n], out[1][:n])
+            for tag in SWEEP_CUTS:
+                mode = {"(d)": "cluster", "(e)": "pair"}.get(tag[:3], "global")
+                if mode not in grids:
+                    continue  # no cluster holds ng; no vector reduction of doubles
+                grid = grids[mode]
+
+                def call(lib=libs[tag], args=args, acc=acc, grid=grid, mode=mode, n=n,
+                         ng=ng, scalars=scalars, item=item):
+                    ptrs = [a.data_ptr() for a in args]
+                    mode_args = (cuda_cic.SMEM_MODES[mode], grid.blocks, grid.threads,
+                                 grid.cluster, stream)
+                    if ext:
+                        err = lib.pypic_picard_iteration_ext(
+                            *ptrs, None, acc.data_ptr(), None, None, n, ng, *scalars,
+                            float(np.float32(0.0)), float(ng - 1), 0, 0, 0, 0, 0.0,
+                            *mode_args)
+                    else:
+                        fn = lib.pypic_leapfrog_deposit_f64 if item == 8 else (
+                            lib.pypic_leapfrog_deposit)
+                        err = fn(*ptrs, acc.data_ptr(), n, ng, *scalars,
+                                 cuda_cic._inv(ng, args[0].dtype), *mode_args)
+                    _build.check(err, "resident_split")
+                calls[f"{label} n {n}, ng {ng}: {tag}"] = call
+    return res, calls, {"per": "launch", "count": 1, "timer": _queued}
+
+
 # --kernel newton_dd_large|newton_dn_large: the Newton solves' large path
 # (csrc/newton.cu above 1,024 rows) at NEWTON_LARGE_SHAPES (rows, element
 # bytes), each cut run for 8 and for 64 iterations (tol 0): its us a
@@ -1994,7 +2178,8 @@ def main() -> dict:
                                          "newton_dd_large", "newton_dn_large",
                                          "deposit2", "boris_deposit", "deposit",
                                          "deposit_det", "source_batch",
-                                         "picard_iteration"),
+                                         "picard_iteration", "picard_iteration_ext",
+                                         "leapfrog_deposit"),
                     default="implicit")
     ap.add_argument("--first-port", type=Path,
                     help="the kernel's first port (its csrc/implicit.cu, newton.cu, "
@@ -2015,7 +2200,10 @@ def main() -> dict:
              "boris_deposit": _split_deposit, "deposit": _split_single,
              "deposit_det": _split_single,
              "source_batch": _split_source,
-             "picard_iteration": _split_pass}.get(args.kernel, _split_implicit)
+             "picard_iteration": _split_pass,
+             "picard_iteration_ext": lambda a, d: _split_sweep(a.kernel, d),
+             "leapfrog_deposit": lambda a, d: _split_sweep(a.kernel, d),
+             }.get(args.kernel, _split_implicit)
     res, calls, unit = split(args, dev)
     res = {"kernel": args.kernel, "device": torch.cuda.get_device_name(0), **res, "ms": {}}
     for _ in range(2):

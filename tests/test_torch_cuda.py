@@ -2008,7 +2008,7 @@ def test_large_modes_match_plain(cuda_device, name, ng):
     assert cuda_cic.LAUNCHES[name] == 1
     if ng == 65_536:
         mode = "global"
-        if name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: cluster_launch's mode
+        if name in cuda_cic.CLUSTER_KERNELS:  # rows 1, 2, 14, 17: cluster_launch's mode
             mode = cuda_cic.cluster_launch(name, 200_003, ng, 132).mode
         assert modes == {f"{name} {mode}": 1}
     _large_outputs_match(got, ref)
@@ -2095,6 +2095,124 @@ def test_cluster_mode_matches_plain_and_global_bits(cuda_device, monkeypatch, na
     _rel_close(ref[2], got[2], 2e-5)
 
 
+
+# rows 17 and 14's cluster and pair modes (csrc/domain.cu, csrc/explicit.cu
+# kCluster, kPair), forced at the rule's first node (16,384: C = 1) and at
+# 65,536 (C = 2), on rows astride the slices' seam and at both ends of the
+# slab (row 17; its shared window's l = -1 and ext_n - 1) or the wrap
+# (row 14)
+SWEEP_MODE_NGS = [16_384, 65_536]
+
+
+def _slab_rows(ext_n, dev, seed=3):
+    """n = 200,003 rows on an ext_n-node slab whose clamp bounds reach -1
+    and ext_n - 0.5, the first ones at rest at the seams of the slices of
+    C = cluster_size nodes and at both bounds, 5% dead slots; (field, ps,
+    p0, v0, w), the bounds and C."""
+    n = 200_003
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = -1.0, ext_n - 0.5
+    c = cuda_cic.cluster_size("picard_iteration_ext shared", ext_n)
+    s = -(-ext_n // c)
+    at = torch.tensor([x - 1 + f for x in [r * s for r in range(1, c)] for f in (0.25, 0.75)]
+                      + [lo + 0.5, lo + 0.75, hi - 0.25, hi - 0.1], device=dev)
+    p0 = torch.rand(n, generator=gen, device=dev) * (hi - lo + 4.0) + (lo - 2.0)
+    p0[:at.numel()] = at
+    ps = p0 + torch.randn(n, generator=gen, device=dev) * 0.3
+    ps[:at.numel()] = at
+    v0 = torch.randn(n, generator=gen, device=dev) * 1e5
+    v0[:at.numel()] = 0.0
+    field = torch.randn(ext_n, generator=gen, device=dev) * 30.0
+    w = torch.full((n,), W, device=dev)
+    w[torch.rand(n, generator=gen, device=dev) < 0.05] = 0.0
+    w[:at.numel()] = W
+    return (field, ps, p0, v0, w), (lo, hi), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cluster", "pair"])
+@pytest.mark.parametrize("ng", SWEEP_MODE_NGS)
+@pytest.mark.parametrize("shared", [False, True], ids=["separate", "shared"])
+def test_slab_pass_modes_match_plain_and_global_bits(cuda_device, monkeypatch, shared, ng,
+                                                     mode):
+    """Row 17 forced into the cluster or pair mode: ph, v1 and the clamp
+    count bit-equal to the global mode's (the sweep is its code), jh
+    within 2e-5 of the plain version's largest node and of its twin's
+    (float atomics in another order), one launch in the mode."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    args, (lo, hi), c = _slab_rows(ng, cuda_device)
+    kw = dict(qm=float(np.float32(QM)), dt=DT, dx=DX, lo=lo, hi=hi, emit_v=True,
+              shared=shared)
+    _forced_pass(monkeypatch, "global")
+    glob = cuda_domain.picard_iteration_ext(*args, **kw)
+    _forced_pass(monkeypatch, mode)
+    cuda_cic.reset_launch_counts()
+    got = cuda_domain.picard_iteration_ext(*args, **kw)
+    ref = cuda_domain.picard_iteration_ext_plain(*args, **kw)
+    twin = cuda_domain.picard_iteration_ext_cluster_plain(*args, mode=mode, cluster=c, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"picard_iteration_ext {mode}": 1}
+    assert got[2].shape == (ng,)
+    for i in (0, 1) + ((3,) if shared else ()):
+        assert torch.equal(got[i], glob[i]), i
+    _rel_close(ref[2], got[2], 2e-5)
+    _rel_close(twin[2], got[2], 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cluster", "pair"])
+@pytest.mark.parametrize("shared", [False, True], ids=["separate", "shared"])
+def test_slab_pass_modes_skip_when_inactive(cuda_device, monkeypatch, shared, mode):
+    """active = 0: the cluster mode's every CTA returns before its first
+    cluster barrier and the pair mode's fold sums zeros, so the iterate
+    keeps its content, jh is zero and the count 0; active = 1 then writes
+    the pass."""
+    from pypic_tpu_torch.ops import cuda_domain
+
+    (field, ps, p0, v0, w), (lo, hi), _ = _slab_rows(65_536, cuda_device)
+    kw = dict(qm=float(np.float32(QM)), dt=DT, dx=DX, lo=lo, hi=hi, shared=shared)
+    _forced_pass(monkeypatch, mode)
+    want = cuda_domain.picard_iteration_ext(field, ps, p0, v0, w, **kw)
+    buf = ps.clone()
+    off = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    got = cuda_domain.picard_iteration_ext(field, buf, p0, v0, w, out=(buf, None),
+                                           active=off, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, ps) and not got[1].any()
+    assert not shared or int(got[2]) == 0
+    got = cuda_domain.picard_iteration_ext(field, buf, p0, v0, w, out=(buf, None),
+                                           active=off + 1, **kw)
+    assert torch.equal(buf, want[0])
+    _rel_close(want[1], got[1], 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cluster", "pair"])
+@pytest.mark.parametrize("ng", SWEEP_MODE_NGS)
+def test_leapfrog_deposit_modes_match_plain_and_global_bits(cuda_device, monkeypatch, ng,
+                                                            mode):
+    """Row 14 forced into the cluster or pair mode on rows whose new
+    positions land astride the slices' seams and the wrap: p1 and v1
+    bit-equal to the global mode's, rho within 2e-5 of the plain
+    version's largest node and of its twin's, one launch in the mode."""
+    (e, _, p0, v0), c = _seam_rows(ng, 4, cuda_device, torch.float32)
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    _forced_pass(monkeypatch, "global")
+    glob = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **kw)
+    _forced_pass(monkeypatch, mode)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **kw)
+    ref = cuda_cic.leapfrog_gather_push_deposit_plain(e, p0, v0, **kw)
+    twin = cuda_cic.leapfrog_gather_push_deposit_cluster_plain(e, p0, v0, mode=mode,
+                                                               cluster=c, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {f"leapfrog_gather_push_deposit {mode}": 1}
+    assert got[2].shape == (ng,)
+    assert torch.equal(got[0], glob[0]) and torch.equal(got[1], glob[1])
+    _rel_close(ref[2], got[2], 2e-5)
+    _rel_close(twin[2], got[2], 2e-5)
+
 def _mode_boundaries(name, n, sms):
     """The last node of each launch shape of a large row and the first of
     the next, up to SMEM_LIMIT // 4 + 1 nodes: its sweep modes
@@ -2103,9 +2221,10 @@ def _mode_boundaries(name, n, sms):
     if name == "deposit":
         keys = [lambda ng: (lambda s: (s.mode, s.cols))(
             cuda_cic.deposit_launch_shape(n, ng, False, sms, hists=1))]
-    elif name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: modes and cluster sizes
-        keys = [lambda ng: (lambda s: (s.mode, s.cluster))(
-            cuda_cic.cluster_launch(name, n, ng, sms))]
+    elif name in cuda_cic.CLUSTER_KERNELS:  # rows 1, 2, 14, 17: modes and cluster sizes
+        keys = [(lambda k: lambda ng: (lambda s: (s.mode, s.cluster))(
+            cuda_cic.cluster_launch(k, n, ng, sms)))(k)
+            for k in cuda_cic.CLUSTER_KERNELS if k.split()[0] == name]
     else:
         def key(kernel):
             extra = (lambda ng: 4 * (ng + 27)) if name == "explicit_domain_cycle" else (

@@ -79,7 +79,7 @@ def test_double_pass_and_finalize_match_plain(cuda_device, name, ng):
     ref = getattr(cuda_cic, f"{name}_plain")(e.cpu(), ps.cpu(), p0.cpu(), v0.cpu(), ng, **kw)
     torch.cuda.synchronize()
     assert cuda_cic.LAUNCHES[f"{name}_f64"] == 1 and cuda_cic.LAUNCHES[name] == 0
-    if name in cuda_cic.CLUSTER_KERNELS:  # rows 1 and 2: cluster_launch's mode
+    if name in cuda_cic.CLUSTER_KERNELS:  # rows 1, 2, 14: cluster_launch's mode
         mode = cuda_cic.cluster_launch(name, N, ng, 132, item=8).mode
     else:
         mode = cuda_cic.sweep_launch(name, N, ng, 132, item=8).mode
@@ -128,6 +128,40 @@ def test_double_cluster_mode_matches_plain(cuda_device, monkeypatch, name, ng):
     assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
     if name == "picard_iteration_shared":
         assert int(got[3]) == int(ref[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [16_384, 65_536])
+def test_double_leapfrog_cluster_mode_matches_plain(cuda_device, monkeypatch, ng):
+    """Row 14's double kernel forced into the cluster mode at the rule's
+    first node (C = 1) and at 65,536 (C = 4) at a ragged n = 4097, rows'
+    new positions astride the slices' seams and the wrap: p1 and v1
+    bit-equal to the float64 plain version, rho within 16 n eps64 of its
+    largest node (and of its twin's), one cluster-mode launch of the
+    double kernel."""
+    import functools
+
+    e, _, p0, v0 = _inputs(ng, cuda_device)
+    c = cuda_cic.cluster_size("leapfrog_gather_push_deposit", ng, 8)
+    s = -(-ng // c)
+    at = torch.tensor([x - 1 + f for x in [r * s for r in range(1, c)] + [ng]
+                       for f in (0.25, 0.75)], dtype=torch.float64, device=cuda_device)
+    p0[6:6 + at.numel()] = at
+    v0[6:6 + at.numel()] = 0.0
+    monkeypatch.setattr(cuda_cic, "_pass_launch",
+                        functools.partial(cuda_cic._pass_launch, mode="cluster"))
+    kw = dict(qm=QM, w=W, dt=DT, dx=DX)
+    cuda_cic.reset_launch_counts()
+    got = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **kw)
+    ref = cuda_cic.leapfrog_gather_push_deposit_plain(e.cpu(), p0.cpu(), v0.cpu(), **kw)
+    twin = cuda_cic.leapfrog_gather_push_deposit_cluster_plain(
+        e.cpu(), p0.cpu(), v0.cpu(), mode="cluster", cluster=c, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda_cic.LARGE_LAUNCHES) == {"leapfrog_gather_push_deposit_f64 cluster": 1}
+    assert all(t.dtype == torch.float64 for t in got)
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    assert _rel(ref[2], got[2].cpu()) <= TOL_SUM
+    assert _rel(twin[2], got[2].cpu()) <= TOL_SUM
 
 
 @pytest.mark.cuda
@@ -714,7 +748,9 @@ def test_double_leapfrog_deposit_matches_plain(cuda_device, ng):
     """Row 14 in double at a ragged n = 4097 with the edge positions: p1
     and v1 bit-equal to the float64 plain version (each operation rounded
     once in double on both sides), rho1 within 16 n eps64 of the largest
-    node; the shared mode to 14,528 nodes, the global one above."""
+    node; the shared mode to 14,528 nodes, above it cluster_launch's mode
+    (at 4,097 rows and 40,000 nodes the global mode: fewer rows a node
+    than CLUSTER_MIN_ROWS_PER_NODE)."""
     e, _, p0, v0 = _inputs(ng, cuda_device)
     cuda_cic.reset_launch_counts()
     got = cuda_cic.leapfrog_gather_push_deposit(e, p0, v0, **EXPLICIT_KW)
@@ -723,9 +759,10 @@ def test_double_leapfrog_deposit_matches_plain(cuda_device, ng):
     torch.cuda.synchronize()
     name = "leapfrog_gather_push_deposit"
     assert cuda_cic.LAUNCHES[f"{name}_f64"] == 1 and cuda_cic.LAUNCHES[name] == 0
-    mode = cuda_cic.sweep_launch(name, N, ng, 132, item=8).mode
-    assert mode == ("shared" if ng <= 14_528 else "global")
-    assert cuda_cic.LARGE_LAUNCHES.get(f"{name}_f64 global", 0) == (mode == "global")
+    mode = cuda_cic.cluster_launch(name, N, ng, 132, item=8).mode
+    assert (mode == "shared") == (ng <= 14_528)
+    assert dict(cuda_cic.LARGE_LAUNCHES) == ({f"{name}_f64 {mode}": 1} if mode != "shared"
+                                             else {})
     assert all(t.dtype == torch.float64 for t in got)
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
     assert _rel(ref[2], got[2].cpu()) <= TOL_SUM

@@ -115,7 +115,7 @@ def test_large_modes_above_the_ceilings(kernel):
             continue
         want = "global"
         if kernel in cuda_cic.CLUSTER_KERNELS:
-            want = cuda_cic.pass_mode(kernel, ng)
+            want = cuda_cic.pass_mode(kernel, 10_000_000, ng)
             got = cuda_cic.cluster_launch(kernel, 10_000_000, ng, 132)
             if want == "cluster":
                 c = cuda_cic.cluster_size(kernel, ng)
